@@ -1,0 +1,65 @@
+"""Carry state across from the reference package, duck-typed on field names.
+
+The port never imports the reference package; these helpers take any object
+(or dict) with the reference's field names and numpy-convertible values and
+rebuild the port's types, so a test can hand both packages one input.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.mcg import MCG
+from .core.routing import Mesh2D
+from .core.simulator import SimResult
+from .kernels.sketch_update.ref import DRAIN_KEYS, STATE_KEYS
+
+
+def _to_torch(d, keys, device) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(d[k])).to(device) for k in keys}
+
+
+def _to_numpy(d, keys) -> dict[str, np.ndarray]:
+    return {k: d[k].detach().cpu().numpy() for k in keys}
+
+
+def sketch_state_from_numpy(d, device="cpu") -> dict[str, torch.Tensor]:
+    """A ``make_state`` dict of arrays (same keys and dtypes) → tensors."""
+    return _to_torch(d, STATE_KEYS, device)
+
+
+def sketch_state_to_numpy(state) -> dict[str, np.ndarray]:
+    return _to_numpy(state, STATE_KEYS)
+
+
+def drain_from_numpy(d, device="cpu") -> dict[str, torch.Tensor]:
+    """A ``make_drain`` dict of arrays → tensors."""
+    return _to_torch(d, DRAIN_KEYS, device)
+
+
+def drain_to_numpy(drain) -> dict[str, np.ndarray]:
+    return _to_numpy(drain, DRAIN_KEYS)
+
+
+def sim_result_from_numpy(obj) -> SimResult:
+    """Any object with ``SimResult``'s fields → the port's ``SimResult``
+    (arrays copied)."""
+    return SimResult(
+        total_time=float(obj.total_time),
+        comp={k: np.array(v) for k, v in obj.comp.items()},
+        comm={k: np.array(v) for k, v in obj.comm.items()},
+        n_raw_records=int(obj.n_raw_records))
+
+
+def mcg_from_numpy(obj) -> MCG:
+    """Any object with ``MCG``'s fields on a W×H mesh → the port's ``MCG``
+    on the port's ``Mesh2D`` of the same width and height."""
+    return MCG(
+        mesh=Mesh2D(int(obj.mesh.width), int(obj.mesh.height)),
+        n_windows=int(obj.n_windows), n_nodes=int(obj.n_nodes),
+        edge_src=np.array(obj.edge_src), edge_dst=np.array(obj.edge_dst),
+        edge_w=np.array(obj.edge_w),
+        edge_link_path=[list(map(int, p)) for p in obj.edge_link_path],
+        s0=np.array(obj.s0), l0=np.array(obj.l0),
+        node_window=np.array(obj.node_window))

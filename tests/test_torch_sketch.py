@@ -1,0 +1,243 @@
+"""The port's Fail-Slow Sketch insert against the JAX reference.
+
+Every input is made with numpy from a seed and handed to both packages:
+the port's plain torch version (the path a CPU tensor takes) against the
+reference's run-compressed scan (``batched.insert_runs_vectorized``), its
+per-record scan (``ref.insert_batch``) and its Pallas ``sketch_insert`` in
+interpret mode.  Integer state and the drain are compared exactly; float
+statistics at ``rtol=1e-5`` (both sides accumulate in float32 in the same
+order, so this is tighter than the reference's own JAX-vs-oracle 1e-4).
+The CUDA kernel is held against the plain version in
+``test_torch_cuda.py``, which runs only where a card is present.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.sketch import FailSlowSketch, SketchParams, split_key
+from repro.kernels.sketch_update import batched as JB
+from repro.kernels.sketch_update import ops as JO
+from repro.kernels.sketch_update import ref as JR
+from repro_torch.convert import (drain_from_numpy, drain_to_numpy,
+                                 sketch_state_from_numpy,
+                                 sketch_state_to_numpy)
+from repro_torch.core.sketch import SketchParams as TSketchParams
+from repro_torch.kernels import _lib
+from repro_torch.kernels.sketch_update import ops as TO
+from repro_torch.kernels.sketch_update import ref as TR
+
+pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
+
+
+def _tp(p: SketchParams) -> TSketchParams:
+    return TSketchParams(d=p.d, m=p.m, H=p.H, L=p.L)
+
+
+def _assert_dicts_equal(got: dict, exp: dict, rtol=1e-5):
+    assert set(got) == set(exp)
+    for k in exp:
+        a, b = np.asarray(got[k]), np.asarray(exp[k])
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        if a.dtype.kind == "i":
+            assert np.array_equal(a, b), k
+        else:
+            np.testing.assert_allclose(a, b, rtol=rtol, atol=0, err_msg=k)
+
+
+def _random_runs(seed, n, n_keys=20, max_rep=12):
+    """A run stream spanning r < H, r ≈ H and r ≫ H (the cases of the
+    reference's ``test_sketch_run_path_matches_insert_run_oracle``)."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, n_keys, size=n).astype(np.int64) * 0x9E3779B9
+    lo, hi = split_key(keys)
+    return (lo, hi, rng.integers(1, max_rep, size=n).astype(np.int32),
+            rng.random(n).astype(np.float32),
+            (rng.random(n) * 3).astype(np.float32),
+            np.cumsum(rng.random(n)).astype(np.float32),
+            (rng.random(n) * 0.01).astype(np.float32))
+
+
+def _port_runs(p, runs):
+    tp = _tp(p)
+    return TO.insert_runs(TR.make_state(tp), TR.make_drain(len(runs[0])),
+                          *map(torch.from_numpy, runs), params=tp)
+
+
+def _jax_runs(p, runs):
+    st, dr = JB.insert_runs_vectorized(
+        JR.make_state(p), JR.make_drain(len(runs[0])),
+        *(jnp.asarray(x) for x in runs), H=p.H)
+    return ({k: np.asarray(v) for k, v in st.items()},
+            {k: np.asarray(v) for k, v in dr.items()})
+
+
+# ---------------------------------------------------------------------------
+# hashing
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d,m", [(2, 1024), (4, 777)])
+def test_hash_all_bit_identical(d, m):
+    rng = np.random.default_rng(d * 1000 + m)
+    keys = rng.integers(0, 2**62, size=20_000, dtype=np.int64)
+    lo, hi = split_key(keys)
+    exp = np.asarray(JR.hash_all(jnp.asarray(lo), jnp.asarray(hi), d, m))
+    got = TR.hash_all(torch.from_numpy(lo), torch.from_numpy(hi), d, m)
+    assert np.array_equal(got.numpy(), exp.astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# run-compressed path (mirrors test_kernels.py:212-287)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed,d,m,H,L", [
+    (0, 2, 64, 4, 16), (1, 1, 8, 2, 2), (2, 3, 16, 8, 4),
+    (3, 2, 1024, 8, 1024), (4, 1, 16, 1, 4)])
+def test_insert_runs_matches_jax_batched(seed, d, m, H, L):
+    p = SketchParams(d=d, m=m, H=H, L=L)
+    runs = _random_runs(seed, 150)
+    st, dr = _port_runs(p, runs)
+    st_j, dr_j = _jax_runs(p, runs)
+    _assert_dicts_equal(sketch_state_to_numpy(st), st_j)
+    _assert_dicts_equal(drain_to_numpy(dr), dr_j)
+
+
+def test_insert_runs_forced_eviction_with_drain():
+    """L=8 ≪ distinct promoted keys: every FIFO victim reaches the drain,
+    and the merged patterns equal the numpy oracle's."""
+    p = SketchParams(d=2, m=256, H=4, L=8)
+    runs = _random_runs(5, 400, n_keys=60)
+    st, dr = _port_runs(p, runs)
+    st_j, dr_j = _jax_runs(p, runs)
+    _assert_dicts_equal(sketch_state_to_numpy(st), st_j)
+    _assert_dicts_equal(drain_to_numpy(dr), dr_j)
+    assert int(dr["d_n"]) > p.L
+    oracle = FailSlowSketch(p)
+    keys = runs[0].astype(np.int64) + (runs[1].astype(np.int64) << 31)
+    oracle.insert_runs(keys, *runs[2:])
+    assert int(dr["d_n"]) == oracle.n_evicted
+    got = {q.key: q for q in TO.patterns(st, dr)}
+    exp = {q.key: q for q in oracle.patterns(include_drained=True)}
+    assert set(got) == set(exp)
+    for k, q in got.items():
+        assert (q.count, q.arrival) == (exp[k].count, exp[k].arrival), k
+        assert q.sum_dur == pytest.approx(exp[k].sum_dur, rel=1e-4)
+
+
+def test_insert_runs_promotion_and_steal_branches():
+    """Mid-run promotion at k = H − f0 − 1, a bucket steal at
+    k = f0 + H − 1 and pure decrements, on one bucket
+    (``test_sketch_run_path_promotion_and_steal_branches``)."""
+    p = SketchParams(d=1, m=1, H=4, L=4)
+    keys = np.array([7, 7, 9, 9, 5], dtype=np.int64)
+    lo, hi = split_key(keys)
+    n = len(keys)
+    durs = np.full(n, 0.25, np.float32)
+    runs = (lo, hi, np.array([2, 5, 3, 9, 3], np.int32), durs, durs * 2,
+            (np.arange(n) * 10).astype(np.float32), np.full(n, 0.5,
+                                                            np.float32))
+    st, dr = _port_runs(p, runs)
+    st_j, dr_j = _jax_runs(p, runs)
+    _assert_dicts_equal(sketch_state_to_numpy(st), st_j)
+    _assert_dicts_equal(drain_to_numpy(dr), dr_j)
+    counts = {q.key: q.count for q in TO.patterns(st, dr)}
+    assert counts == {7: 4, 9: 2}
+
+
+def test_insert_runs_continues_from_state():
+    """A second call continues from the state and drain the first left,
+    as the reference's does; inputs are not modified."""
+    p = SketchParams(d=2, m=32, H=2, L=4)
+    a, b = _random_runs(6, 80), _random_runs(7, 80)
+    st_j, dr_j = JB.insert_runs_vectorized(
+        JR.make_state(p), JR.make_drain(160), *map(jnp.asarray, a), H=p.H)
+    st_j, dr_j = JB.insert_runs_vectorized(st_j, dr_j, *map(jnp.asarray, b),
+                                           H=p.H)
+    tp = _tp(p)
+    st0, dr0 = TR.make_state(tp), TR.make_drain(160)
+    st1, dr1 = TO.insert_runs(st0, dr0, *map(torch.from_numpy, a), params=tp)
+    st2, dr2 = TO.insert_runs(st1, dr1, *map(torch.from_numpy, b), params=tp)
+    assert int(st0["counter"]) == 0 and int(dr0["d_n"]) == 0
+    _assert_dicts_equal(sketch_state_to_numpy(st2),
+                        {k: np.asarray(v) for k, v in st_j.items()})
+    _assert_dicts_equal(drain_to_numpy(dr2),
+                        {k: np.asarray(v) for k, v in dr_j.items()})
+
+
+# ---------------------------------------------------------------------------
+# per-record path (mirrors test_kernels.py:19-40 and 175-210)
+# ---------------------------------------------------------------------------
+
+def _records(seed, n, n_keys, mult=0x9E3779B9):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, n_keys, size=n).astype(np.int64) * mult
+    lo, hi = split_key(keys)
+    return (lo, hi, rng.random(n).astype(np.float32),
+            (rng.random(n) * 5).astype(np.float32),
+            np.cumsum(rng.random(n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("d,m,H,L,n", [(1, 32, 2, 8, 300),
+                                       (2, 64, 4, 16, 700),
+                                       (4, 128, 8, 32, 500)])
+def test_insert_matches_jax_scan_ref(d, m, H, L, n):
+    p = SketchParams(d=d, m=m, H=H, L=L)
+    recs = _records(d * 100 + m, n, 80)
+    st_j = JR.insert_batch(JR.make_state(p), *map(jnp.asarray, recs), H=H)
+    st = TO.insert(TR.make_state(_tp(p)), *map(torch.from_numpy, recs),
+                   params=_tp(p))
+    _assert_dicts_equal(sketch_state_to_numpy(st),
+                        {k: np.asarray(v) for k, v in st_j.items()})
+
+
+def test_insert_with_drain_matches_pallas_interpret():
+    """Per-record insertion under forced eviction equals the Pallas
+    ``sketch_insert`` (interpret mode) state and drain."""
+    p = SketchParams(d=2, m=64, H=2, L=4)
+    lo, hi, dur, _, _ = _records(11, 500, 40, mult=31337)
+    ts = np.arange(500, dtype=np.float32)
+    recs = (lo, hi, dur, dur * 2, ts)
+    st_j, dr_j = JO.insert(JO.make_state(p), *map(jnp.asarray, recs),
+                           params=p, impl="pallas",
+                           drain=JO.make_drain(500))
+    st, dr = TO.insert(TR.make_state(_tp(p)), *map(torch.from_numpy, recs),
+                       params=_tp(p), drain=TR.make_drain(500))
+    _assert_dicts_equal(sketch_state_to_numpy(st),
+                        {k: np.asarray(v) for k, v in st_j.items()})
+    _assert_dicts_equal(drain_to_numpy(dr),
+                        {k: np.asarray(v) for k, v in dr_j.items()})
+    assert int(dr["d_n"]) > p.L
+
+
+def test_patterns_decode_equal():
+    """``patterns`` / ``drain_patterns`` on converted reference state give
+    the reference decoders' pattern lists, field for field."""
+    p = SketchParams(d=2, m=256, H=4, L=8)
+    st_j, dr_j = _jax_runs(p, _random_runs(8, 300, n_keys=50))
+    st = sketch_state_from_numpy(st_j)
+    dr = drain_from_numpy(dr_j)
+    tag = 1 << 62
+    for got, exp in ((TO.patterns(st, dr, key_tag=tag),
+                      JO.patterns(st_j, dr_j, key_tag=tag)),
+                     (TO.patterns(st), JO.patterns(st_j)),
+                     (TO.drain_patterns(dr, key_tag=tag),
+                      JO.drain_patterns(dr_j, key_tag=tag))):
+        assert [vars(q) for q in got] == [vars(q) for q in exp]
+    assert len(TO.drain_patterns(dr)) > 0
+
+
+def test_wrapper_routes_cpu_tensors_to_plain_version():
+    p = SketchParams(d=2, m=64, H=4, L=16)
+    runs = _random_runs(9, 50)
+    before = dict(_lib.LAUNCHES)
+    got = _port_runs(p, runs)
+    exp = TR.insert_runs_plain(TR.make_state(_tp(p)), TR.make_drain(50),
+                               *map(torch.from_numpy, runs), H=p.H)
+    for a, b in zip(got, exp):
+        _assert_dicts_equal(_to_np(a), _to_np(b), rtol=0)
+    assert _lib.LAUNCHES == before
+
+
+def _to_np(d):
+    return {k: v.numpy() for k, v in d.items()}
