@@ -3,6 +3,12 @@
 The port never imports the reference package; these helpers take any object
 (or dict) with the reference's field names and numpy-convertible values and
 rebuild the port's types, so a test can hand both packages one input.
+
+For the model substrate, ``reference_params_numpy`` draws a parameter tree
+in the reference's layout from numpy (the two frameworks' generators give
+different numbers from one seed, so this is the only way to give both the
+same weights) and ``params_from_numpy`` loads such a tree into the port's
+model.
 """
 
 from __future__ import annotations
@@ -11,6 +17,9 @@ import numpy as np
 import torch
 
 from .core.mcg import MCG
+from .device import resolve_device
+from .models import layers as L
+from .models import transformer as T
 from .core.routing import Mesh2D
 from .core.simulator import SimResult
 from .kernels.sketch_update.ref import DRAIN_KEYS, STATE_KEYS
@@ -63,3 +72,51 @@ def mcg_from_numpy(obj) -> MCG:
         edge_link_path=[list(map(int, p)) for p in obj.edge_link_path],
         s0=np.array(obj.s0), l0=np.array(obj.l0),
         node_window=np.array(obj.node_window))
+
+
+def reference_params_numpy(cfg, seed: int) -> dict:
+    """The reference's parameter pytree (``transformer.init_model``'s
+    nested dicts, period-stacked leaves with a leading ``n_periods`` axis)
+    as f32 numpy arrays drawn from ``np.random.default_rng(seed)`` at the
+    init scales of ``transformer.param_spec``, the table ``init_model``
+    draws from too.  Dense and SSM configs only."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def leaves(lead):
+        def draw(leaf):
+            shape = lead + leaf.shape
+            if leaf.std is not None:
+                return rng.standard_normal(shape, dtype=f32) * f32(leaf.std)
+            return np.broadcast_to(np.asarray(leaf.fill, f32), shape).copy()
+        return draw
+
+    spec = T.param_spec(cfg)
+    periods = spec.pop("periods")
+    tree = L.map_leaves(leaves(()), spec)
+    tree["periods"] = L.map_leaves(leaves((T.n_periods(cfg),)), periods)
+    return tree
+
+
+def params_from_numpy(cfg, tree, device=None) -> T.Model:
+    """The reference's parameter pytree (numpy-convertible leaves, with the
+    leading period axis) → the port's :class:`~.models.transformer.Model`
+    on ``device`` (default ``cuda:0``).  Layer ``p * period_len + i`` takes
+    period ``p`` of ``periods/slot{i}``."""
+    dev = resolve_device(device)
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def block(leaves, pi=None):
+        return L.ParamBlock({k: tensor(v if pi is None else v[pi])
+                             for k, v in leaves.items()})
+
+    pl = T.period_len(cfg)
+    layers = [torch.nn.ModuleDict(
+        {name: block(leaves, li // pl) for name, leaves in
+         tree["periods"][f"slot{li % pl}"].items()})
+        for li in range(T.n_periods(cfg) * pl)]
+    lm_head = tree.get("lm_head")
+    return T.Model(cfg, tensor(tree["embed"]), block(tree["final_norm"]),
+                   layers, None if lm_head is None else tensor(lm_head))

@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Largest dynamic shared memory one block may use on Hopper.
 MAX_SMEM_BYTES = 232_448
 
-LAUNCHES: dict[str, int] = {"sketch_insert_runs": 0, "failrank_step": 0}
+LAUNCHES: dict[str, int] = {"sketch_insert_runs": 0, "failrank_step": 0,
+                             "flash_attention": 0, "ssd_scan": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 

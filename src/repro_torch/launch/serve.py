@@ -1,0 +1,90 @@
+"""Serving launcher: batched prefill + greedy decode of a random request
+stream, on the card by default.
+
+    python -m repro_torch.launch.serve --arch smollm-135m
+    python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke \
+        --device cpu --requests 8 --max-new 8
+
+Weights are random, drawn from ``--seed`` on the chosen device; the
+request stream comes from ``np.random.default_rng([seed, 0])``, as on one
+host of the reference.  Prints the served requests and tokens with tok/s,
+the mean prefill time, and the decode step p50/p99 (from the engine's
+separate ``decode_times`` series).  The reference's ``--telemetry`` tap
+waits for the streaming recorder and pod telemetry, which it needs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..configs.base import get_config
+from ..device import resolve_device
+from ..models import transformer as T
+from ..serving.engine import EngineConfig, Request, ServeEngine
+
+
+def main(argv=None, step_hook=None):
+    """Parse ``argv``, serve, print the summary; returns the completed
+    requests and the summary's numbers (:func:`summary`).
+    ``step_hook(kind, dt)`` is handed to the engine."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--cache-len", type=int, default=256)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda:0; 'cpu' runs the "
+                         "kernels' plain versions)")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    dev = resolve_device(args.device)
+    model = T.init_model(cfg, torch.Generator(device=dev)
+                         .manual_seed(args.seed))
+    engine = ServeEngine(cfg, model,
+                         EngineConfig(batch=args.batch,
+                                      cache_len=args.cache_len, device=dev),
+                         step_hook=step_hook)
+    rng = np.random.default_rng([args.seed, 0])
+    for i in range(args.requests):
+        n = int(rng.integers(2, args.prompt_len + 1))
+        engine.submit(Request(i, rng.integers(0, cfg.vocab, size=n)
+                              .astype(np.int32), max_new=args.max_new))
+    t0 = time.perf_counter()
+    done = engine.run()
+    stats = summary(engine, done, time.perf_counter() - t0)
+    print(f"served {stats['requests']} requests, {stats['tokens']} tokens, "
+          f"{stats['wall_s']:.1f}s ({stats['tok_per_s']:.1f} tok/s)")
+    if engine.prefill_times:
+        print(f"mean prefill {stats['prefill_ms_mean']:.1f} ms "
+              f"({len(engine.prefill_times)} batches)")
+    if engine.decode_times:
+        print(f"p50 decode step {stats['decode_ms_p50']:.1f} ms, "
+              f"p99 {stats['decode_ms_p99']:.1f} ms")
+    return done, stats
+
+
+def summary(engine, done, wall) -> dict:
+    """Requests and tokens served; ``tok_per_s``, all tokens over the whole
+    ``engine.run`` wall time; the mean prefill and the decode step p50/p99
+    in ms from the engine's series (None where a series is empty)."""
+    tok = sum(len(r.out_tokens) for r in done)
+    pre, dec = engine.prefill_times, engine.decode_times
+    return {"requests": len(done), "tokens": tok, "wall_s": wall,
+            "tok_per_s": tok / max(wall, 1e-9),
+            "prefill_ms_mean": float(np.mean(pre)) * 1e3 if pre else None,
+            "decode_ms_p50": float(np.median(dec)) * 1e3 if dec else None,
+            "decode_ms_p99": (float(np.quantile(dec, 0.99)) * 1e3
+                              if dec else None)}
+
+
+if __name__ == "__main__":
+    main()

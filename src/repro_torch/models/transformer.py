@@ -1,0 +1,322 @@
+"""Model assembly: init, forward, prefill and decode with a KV/SSM cache.
+
+A port of the reference model's ``models/transformer.py`` for the dense and
+SSM configurations (smollm-135m, mamba2-1.3b, the sliding-window dense
+ones).  The reference stacks layers into periods and scans over them; here
+the layers are a ``ModuleList`` walked by a Python loop, layer ``li``
+being slot ``li % period_len`` of period ``li // period_len``.  Parameter
+names mirror the reference's keys (``layers.3.attn.wq`` is the reference's
+``periods/slot0/attn/wq[3]``).
+
+Three entry points:
+  * ``forward_train`` — full-sequence causal forward (no cache) → logits
+  * ``prefill``       — fills a KV/SSM cache, returns last-token logits
+  * ``decode_step``   — one token with the cache (rolling buffer for SWA)
+
+The cache is updated in place (the reference returns a new one).  The
+encoder-decoder path (whisper), MoE and M-RoPE are not ported yet and
+raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from . import layers as L
+from . import mamba2 as M
+
+# ---------------------------------------------------------------------------
+# period structure
+# ---------------------------------------------------------------------------
+
+
+def period_len(cfg) -> int:
+    a = cfg.attn_period if cfg.attn_period else 1
+    m = cfg.moe_period if cfg.n_experts else 1
+    return math.lcm(a, m)
+
+
+def period_slots(cfg) -> list[tuple[str, bool]]:
+    """[(kind, is_moe)] for one period."""
+    return [(cfg.layer_kind(i), cfg.is_moe_layer(i))
+            for i in range(period_len(cfg))]
+
+
+def n_periods(cfg) -> int:
+    pl = period_len(cfg)
+    if cfg.n_layers % pl:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers is not a "
+                         f"whole number of periods of {pl}")
+    return cfg.n_layers // pl
+
+
+# ---------------------------------------------------------------------------
+# the model and its init
+# ---------------------------------------------------------------------------
+
+class Model(torch.nn.Module):
+    """Embedding, the layers (each a ``ModuleDict`` of ``norm1``,
+    ``attn`` or ``mamba``, and ``norm2`` / ``mlp`` where ``d_ff > 0``), the
+    final norm and, for untied embeddings, ``lm_head``.  Encoder-decoder
+    configs (whisper's encoder and cross-attention) are not ported yet."""
+
+    def __init__(self, cfg, embed, final_norm, layers, lm_head=None):
+        super().__init__()
+        if cfg.enc_dec:
+            raise NotImplementedError(
+                f"{cfg.name}: encoder-decoder models are not ported yet")
+        self.cfg = cfg
+        self.embed = torch.nn.Parameter(embed, requires_grad=False)
+        self.final_norm = final_norm
+        self.register_parameter(
+            "lm_head", None if lm_head is None
+            else torch.nn.Parameter(lm_head, requires_grad=False))
+        self.layers = torch.nn.ModuleList(layers)
+
+
+def _init_attn(cfg):
+    d = cfg.d_model
+    hq = cfg.n_heads * cfg.head_dim
+    hk = cfg.n_kv_heads * cfg.head_dim
+    return {"wq": L.Leaf((d, hq), d ** -0.5), "wk": L.Leaf((d, hk), d ** -0.5),
+            "wv": L.Leaf((d, hk), d ** -0.5), "wo": L.Leaf((hq, d), hq ** -0.5)}
+
+
+def _init_slot(cfg, kind, is_moe):
+    p = {"norm1": L.init_norm(cfg, cfg.d_model)}
+    if kind == "attn":
+        p["attn"] = _init_attn(cfg)
+    else:
+        p["mamba"] = M.init_mamba(cfg)
+    if cfg.d_ff > 0:
+        p["norm2"] = L.init_norm(cfg, cfg.d_model)
+        if is_moe:
+            p["moe"] = L.init_moe(cfg)
+        else:
+            p["mlp"] = L.init_mlp(cfg, cfg.d_model, cfg.d_ff)
+    return p
+
+
+def param_spec(cfg) -> dict:
+    """The reference's parameter tree (``transformer.py:61-128``) with a
+    :class:`~.layers.Leaf` per parameter and no leading period axis:
+    ``embed``, ``final_norm``, ``lm_head`` for untied embeddings, and
+    ``periods/slot{i}/<block>/<key>``."""
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not ported yet")
+    spec = {"embed": L.Leaf((cfg.vocab, cfg.d_model), 0.02),
+            "final_norm": L.init_norm(cfg, cfg.d_model)}
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = L.Leaf((cfg.d_model, cfg.vocab), 0.02)
+    spec["periods"] = {f"slot{i}": _init_slot(cfg, kind, is_moe)
+                       for i, (kind, is_moe) in enumerate(period_slots(cfg))}
+    return spec
+
+
+def init_model(cfg, generator: torch.Generator) -> Model:
+    """Random f32 weights at the reference's init scales
+    (:func:`param_spec`), drawn from ``generator`` on its device
+    (``torch.Generator(device).manual_seed``).  The draws differ from the
+    reference's ``jax.random`` ones; to give both packages the same weights
+    use ``convert.reference_params_numpy``."""
+    spec = param_spec(cfg)
+    slots = list(spec.pop("periods").values())
+    top = L.map_leaves(lambda leaf: L.draw(generator, leaf), spec)
+    layers = [torch.nn.ModuleDict(
+        {name: L.ParamBlock(L.map_leaves(
+            lambda leaf: L.draw(generator, leaf), leaves))
+         for name, leaves in slots[li % len(slots)].items()})
+        for li in range(n_periods(cfg) * len(slots))]
+    return Model(cfg, top["embed"], L.ParamBlock(top["final_norm"]), layers,
+                 top.get("lm_head"))
+
+
+# ---------------------------------------------------------------------------
+# pieces
+# ---------------------------------------------------------------------------
+
+def _sinusoid(positions, d):
+    """Sinusoidal position embedding (whisper-style, table-free)."""
+    half = d // 2
+    freq = torch.exp(-torch.arange(half, device=positions.device)
+                     * (np.log(10000.0) / max(half - 1, 1)))
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _attn_sublayer(cfg, p, x, q_pos, k_pos, *, cache=None, causal=True):
+    """Self-attention; with ``cache`` the new K/V go into it first."""
+    b, s, _ = x.shape
+    q = (x @ p.wq).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q, k = L.position_embed(cfg, q, k, q_pos[None].expand(b, s))
+    if cache is not None:
+        kc, vc, pc = cache.update(k, v, q_pos)
+        if s == 1:
+            # decode: attend over the cache contents
+            k, v, k_pos = kc, vc, pc
+        else:
+            # prefill: attend over the full in-flight K/V (the rolling
+            # buffer only receives the tail); k_pos = q_pos
+            k_pos = q_pos
+    out = L.attention(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
+                      window=cfg.window)
+    return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p.wo
+
+
+@dataclasses.dataclass
+class _KVView:
+    """Rolling KV cache of one attention layer, written in place."""
+    k: torch.Tensor          # [B, T, Hkv, Dh]
+    v: torch.Tensor
+    pos_tab: torch.Tensor    # [T] absolute positions (-1 = empty), int32
+    pos: int                 # tokens seen so far
+
+    def update(self, k_new, v_new, q_pos):
+        t_max = self.k.shape[1]
+        s = k_new.shape[1]
+        if s >= t_max:
+            # prefill larger than the buffer: keep the last t_max tokens,
+            # laid out at their rolling slots (idx = pos % t_max) so later
+            # decode writes overwrite the *oldest* entry
+            tail_pos = q_pos[-t_max:]
+            idx = (tail_pos % t_max).long()
+            self.k[:, idx] = k_new[:, -t_max:].to(self.k.dtype)
+            self.v[:, idx] = v_new[:, -t_max:].to(self.v.dtype)
+            self.pos_tab[idx] = tail_pos
+        else:
+            idx = (self.pos + torch.arange(s, device=self.k.device)) % t_max
+            self.k[:, idx] = k_new.to(self.k.dtype)
+            self.v[:, idx] = v_new.to(self.v.dtype)
+            self.pos_tab[idx] = q_pos
+        return self.k, self.v, self.pos_tab
+
+
+def _apply_slot(cfg, p, kind, is_moe, x, q_pos, *, slot_cache=None):
+    """One layer: mixer + MLP with residuals.  Returns x; a ``slot_cache``
+    is updated in place."""
+    h = L.apply_norm(cfg, x, p.norm1)
+    if kind == "attn":
+        if slot_cache is not None:
+            view = _KVView(slot_cache["k"], slot_cache["v"],
+                           slot_cache["pos_tab"], slot_cache["pos"])
+            out = _attn_sublayer(cfg, p.attn, h, q_pos, None, cache=view)
+        else:
+            out = _attn_sublayer(cfg, p.attn, h, q_pos, q_pos)
+        x = x + out
+    else:
+        state = None
+        if slot_cache is not None:
+            state = (slot_cache["conv"], slot_cache["ssm"])
+        out, new_state = M.mamba_block(cfg, p.mamba, h, state)
+        x = x + out
+        if slot_cache is not None:
+            slot_cache["conv"] = new_state[0]
+            slot_cache["ssm"] = new_state[1].to(slot_cache["ssm"].dtype)
+    if slot_cache is not None:
+        slot_cache["pos"] += h.shape[1]
+    if cfg.d_ff > 0:
+        h2 = L.apply_norm(cfg, x, p.norm2)
+        out2 = L.moe(cfg, p.moe, h2)[0] if is_moe else L.mlp(cfg, p.mlp, h2)
+        x = x + out2
+    return x
+
+
+# ---------------------------------------------------------------------------
+# main forward paths
+# ---------------------------------------------------------------------------
+
+def _embed(cfg, model, tokens, positions):
+    x = model.embed[tokens.long()]
+    if cfg.pos == "learned":
+        x = x + _sinusoid(positions, cfg.d_model)[None].to(x.dtype)
+    return x
+
+
+def _logits(cfg, model, x):
+    x = L.apply_norm(cfg, x, model.final_norm)
+    if cfg.tie_embeddings:
+        return x @ model.embed.T
+    return x @ model.lm_head
+
+
+def _run_layers(cfg, model, x, q_pos, caches=None):
+    slots = period_slots(cfg)
+    for li, p in enumerate(model.layers):
+        kind, is_moe = slots[li % len(slots)]
+        x = _apply_slot(cfg, p, kind, is_moe, x, q_pos,
+                        slot_cache=None if caches is None else caches[li])
+    return x
+
+
+@torch.no_grad()
+def forward_train(cfg, model, tokens):
+    """tokens [B,S] → (logits [B,S,V], aux loss).  The forward only; the
+    aux loss is MoE's load-balancing term, 0 without experts."""
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    x = _embed(cfg, model, tokens, positions)
+    x = _run_layers(cfg, model, x, positions)
+    return _logits(cfg, model, x), torch.zeros((), device=x.device)
+
+
+# -- cache construction -------------------------------------------------------
+
+def init_cache(cfg, batch, cache_len, device=None):
+    """One dict per layer, all f32: ``k``/``v`` [B,T,Hkv,Dh], ``pos_tab``
+    [T] int32 (−1 = empty) and ``pos`` for attention (T = ``cache_len``, or
+    the window); ``conv`` [B,K−1,C], ``ssm`` [B,H,P,N] and ``pos`` for
+    Mamba."""
+    dev = resolve_device(device)
+    t_max = cache_len if cfg.window is None else min(cache_len, cfg.window)
+    slots = period_slots(cfg)
+    caches = []
+    for li in range(cfg.n_layers):
+        if slots[li % len(slots)][0] == "attn":
+            caches.append({
+                "k": torch.zeros(batch, t_max, cfg.n_kv_heads, cfg.head_dim,
+                                 device=dev),
+                "v": torch.zeros(batch, t_max, cfg.n_kv_heads, cfg.head_dim,
+                                 device=dev),
+                "pos_tab": torch.full((t_max,), -1, dtype=torch.int32,
+                                      device=dev),
+                "pos": 0,
+            })
+        else:
+            conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+            caches.append({
+                "conv": torch.zeros(batch, cfg.ssm_conv - 1, conv_dim,
+                                    device=dev),
+                "ssm": torch.zeros(batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                   cfg.ssm_state, device=dev),
+                "pos": 0,
+            })
+    return caches
+
+
+@torch.no_grad()
+def prefill(cfg, model, tokens, cache):
+    """Run S prompt tokens, filling ``cache`` (in place).  Returns
+    (last_logits [B,1,V], cache)."""
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    x = _embed(cfg, model, tokens, positions)
+    x = _run_layers(cfg, model, x, positions, caches=cache)
+    return _logits(cfg, model, x[:, -1:]), cache
+
+
+@torch.no_grad()
+def decode_step(cfg, model, tokens, cache, pos: int):
+    """One decode step.  tokens [B,1]; pos: the absolute position."""
+    positions = torch.full((1,), pos, dtype=torch.int32,
+                           device=tokens.device)
+    x = _embed(cfg, model, tokens, positions)
+    x = _run_layers(cfg, model, x, positions, caches=cache)
+    return _logits(cfg, model, x), cache

@@ -1,0 +1,165 @@
+"""The port's serving path against the JAX reference, on the CPU.
+
+For the smollm-135m and mamba2-1.3b smoke configs, the port's
+``ServeEngine`` and the reference's, on the same weights
+(``reference_params_numpy``) and the same 8 requests (the launcher's
+request stream), give identical greedy ``out_tokens``.  Every logit row the
+port's engine takes an argmax of has a top-1 margin above 1e-3, so a near
+tie would fail here loudly rather than flip a token by chance.  (At the
+smoke widths the init's logits spread only about 0.1, which gives near
+ties; the test scales the output embedding by 50 so that they spread a
+few units.)  Also:
+``launch.serve.main`` end to end with ``--device cpu``.
+
+Run as a script, this file prints the reference's pins that
+``chip_smoke.py`` holds the card to (it may not import the reference):
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_serve.py
+"""
+
+import dataclasses
+import json
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_config as j_get_config
+from repro.models import transformer as JT
+from repro.serving import engine as JE
+from repro_torch.configs import get_config
+from repro_torch.convert import params_from_numpy, reference_params_numpy
+from repro_torch.launch import serve
+from repro_torch.models import transformer as T
+from repro_torch.serving import engine as E
+
+pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
+
+
+def _requests(cfg, make, n=8, prompt_len=16, max_new=8, seed=0):
+    """The launcher's request stream (``launch/serve.py``)."""
+    rng = np.random.default_rng([seed, 0])
+    out = []
+    for i in range(n):
+        k = int(rng.integers(2, prompt_len + 1))
+        out.append(make(i, rng.integers(0, cfg.vocab, size=k)
+                        .astype(np.int32), max_new=max_new))
+    return out
+
+
+def _margin(logits):
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    return float((top2[..., 0] - top2[..., 1]).min())
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-1.3b"])
+def test_serve_engine_matches_reference(arch, monkeypatch):
+    cfg = get_config(arch, smoke=True)
+    tree = reference_params_numpy(cfg, seed=1)
+    tree["lm_head" if "lm_head" in tree else "embed"] *= 50.0
+    margins = []
+
+    def watch(fn):
+        def wrapped(*args, **kwargs):
+            logits, cache = fn(*args, **kwargs)
+            margins.append(_margin(logits[:, -1]))
+            return logits, cache
+        return wrapped
+
+    monkeypatch.setattr(E.T, "prefill", watch(T.prefill))
+    monkeypatch.setattr(E.T, "decode_step", watch(T.decode_step))
+    eng = E.ServeEngine(cfg, params_from_numpy(cfg, tree, device="cpu"),
+                        E.EngineConfig(batch=4, cache_len=64, device="cpu"))
+    for r in _requests(cfg, E.Request):
+        eng.submit(r)
+    done = eng.run()
+
+    jeng = JE.ServeEngine(j_get_config(arch, smoke=True),
+                          jax.tree.map(jnp.asarray, tree),
+                          JE.EngineConfig(batch=4, cache_len=64))
+    for r in _requests(cfg, JE.Request):
+        jeng.submit(r)
+    jdone = jeng.run()
+
+    assert [r.rid for r in done] == [r.rid for r in jdone] == list(range(8))
+    assert all(len(r.out_tokens) == 8 for r in done)
+    assert [r.out_tokens for r in done] == [r.out_tokens for r in jdone]
+    assert len(margins) == 2 * (1 + 8) and min(margins) > 1e-3, margins
+    assert len(eng.prefill_times) == 2 and len(eng.decode_times) == 16
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-1.3b"])
+def test_serve_main_on_cpu(arch, capsys):
+    steps = []
+    done, stats = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                              "--requests", "5", "--max-new", "3"],
+                             step_hook=lambda kind, dt: steps.append(kind))
+    assert [r.rid for r in done] == list(range(5))
+    assert stats["requests"] == 5 and stats["tokens"] == 15
+    assert stats["tok_per_s"] == pytest.approx(15 / stats["wall_s"])
+    assert all(len(r.out_tokens) == 3 for r in done)
+    assert steps == (["prefill"] + ["decode"] * 3) * 2
+    out = capsys.readouterr().out
+    assert "served 5 requests, 15 tokens" in out
+    assert "mean prefill" in out and "p50 decode step" in out
+
+
+# ---------------------------------------------------------------------------
+# the reference's pins for chip_smoke.py
+# ---------------------------------------------------------------------------
+
+#: (arch, layers kept, prompt length, new tokens): the pinned runs.  Full
+#: width; mamba2-1.3b keeps 4 of its 48 layers only to spare the card
+#: machine's CPU 1.6 G normal draws for the weights.
+PIN_RUNS = (("smollm-135m", None, 48, 16), ("mamba2-1.3b", 4, 48, 16))
+PIN_SEED, PIN_PROMPT_SEED = 0, 4
+
+
+def pin_config(arch, n_layers, get=get_config):
+    cfg = get(arch)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def pin_prompts(cfg, prompt_len):
+    """Two prompts of the pinned length from a fixed numpy seed."""
+    rng = np.random.default_rng(PIN_PROMPT_SEED)
+    return rng.integers(0, cfg.vocab, (2, prompt_len)).astype(np.int32)
+
+
+def reference_pin(arch, n_layers, prompt_len, n_new):
+    """Greedy tokens and the prefill's top-5 last-position logits from the
+    JAX reference on ``reference_params_numpy(cfg, PIN_SEED)`` weights,
+    with the smallest top-1 margin of every step."""
+    cfg = pin_config(arch, n_layers)
+    jcfg = pin_config(arch, n_layers, j_get_config)
+    params = jax.tree.map(jnp.asarray, reference_params_numpy(cfg, PIN_SEED))
+    toks = pin_prompts(cfg, prompt_len)
+    cache = JT.init_cache(jcfg, 2, prompt_len + n_new, dtype=jnp.float32)
+    last, cache, _ = jax.jit(lambda p, t, c: JT.prefill(jcfg, p, t, c))(
+        params, jnp.asarray(toks), cache)
+    last = np.asarray(last[:, -1])
+    top5 = np.argsort(-last, axis=-1, kind="stable")[:, :5]
+    decode = jax.jit(lambda p, t, c, pos: JT.decode_step(jcfg, p, t, c, pos))
+    logits, new, margins = last, [], []
+    for k in range(n_new):
+        srt = np.sort(logits, axis=-1)
+        margins.append(float((srt[:, -1] - srt[:, -2]).min()))
+        nxt = logits.argmax(-1).astype(np.int32)
+        new.append(nxt.tolist())
+        out, cache = decode(params, jnp.asarray(nxt[:, None]), cache,
+                            jnp.int32(prompt_len + k))
+        logits = np.asarray(out[:, -1])
+    return {"arch": arch, "n_layers": cfg.n_layers, "prompt_len": prompt_len,
+            "tokens": np.array(new).T.tolist(), "top5_ids": top5.tolist(),
+            "top5_logits": np.take_along_axis(last, top5, -1).tolist(),
+            "min_margin": min(margins)}
+
+
+if __name__ == "__main__":
+    for run in PIN_RUNS:
+        print(json.dumps(reference_pin(*run)), flush=True)
+    sys.exit(0)

@@ -99,7 +99,10 @@ def test_detect_matches_reference(pipelines, case):
 def test_port_imports_neither_jax_nor_reference():
     src = Path(__file__).resolve().parents[1] / "src"
     code = ("import sys; import repro_torch.core.sloth, "
-            "repro_torch.convert, repro_torch.kernels.failrank_step.ops; "
+            "repro_torch.convert, repro_torch.kernels.failrank_step.ops, "
+            "repro_torch.launch.serve, repro_torch.models.transformer, "
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.kernels.ssd_scan.ops; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]; print(bad); sys.exit(bool(bad))")
