@@ -9,11 +9,16 @@
    Fail-Slow Sketch insert (random run streams, forced eviction, the
    promotion/steal branches, a per-record stream; integer state and drain
    exact, float statistics bit-equal) and the fused FailRank step (s within
-   1e-5, L exact); then flash attention (f32 test shapes, a smollm-135m
-   prefill of 4×512 and a decode over a rolled, partly empty 1,024-slot
-   cache, with and without a window; within 2e-5) and the SSD scan (the
-   test shapes and mamba2-1.3b's 4×512 prefill, from a zero and a
-   non-zero state; within 2e-4);
+   1e-5, L exact); then flash attention through both its entry points
+   (f32 test shapes, a smollm-135m prefill of 4×512, decodes over a
+   rolled, partly empty 1,024-slot cache and over the serve run's own
+   fill, with and without a window, splits wholly empty or wholly outside
+   the window, a cache that is not a multiple of the split, GQA ratios 1,
+   3 and 8, head dims 16-128, both sides of the decode/prefill line;
+   within 2e-5) and the SSD scan (the test shapes, chunks 16, 24 and 128
+   with a ragged tail, and mamba2-1.3b's 4×512 prefill, from a zero and a
+   non-zero state; within 2e-4); two runs of the attention decode and of
+   the SSD scan at the serving shapes must be bit-identical;
 3. drives the detection path, ``Sloth.detect`` with the batched recorder
    on the card, for resnet50 on an 8×8 mesh (core 6, link 20, no fault)
    with the launch counts set to 0 just before and read just after, plus
@@ -29,14 +34,16 @@
    width and depth for smollm-135m (30 attention layers) and mamba2-1.3b
    (48 SSD layers), 8 requests of up to 512 tokens, 32 new tokens each,
    with the counts set to 0 before each: attention must launch once per
-   layer per prefill and decode step (1,980) and the SSD scan once per
+   layer per prefill and decode step (1,980: 60 through the prefill entry
+   point, 1,920 through the split-key decode) and the SSD scan once per
    layer per prefill (96, none in decode);
 7. holds greedy tokens and prefill logits to the JAX reference's pins
    (``tests/test_torch_serve.py`` run as a script prints them) on the same
    numpy weights: the tokens equal, the top-5 logits within 1e-3;
 8. times flash attention and the SSD scan at the serving shapes beside
    their plain versions, their bounds and (attention) PyTorch's
-   ``scaled_dot_product_attention``, and profiles a full-size prefill and
+   ``scaled_dot_product_attention``, with a profiler breakdown of each
+   kernel call by the kernels it launches, and profiles a full-size prefill and
    decode steps of each model (device time by kernel, the device's idle
    share).  Kernel times are device time by CUDA events, with the calls
    queued behind a device-side spin so the host cannot pace them, and the
@@ -186,6 +193,25 @@ def timed(fn, reps: int) -> dict:
     return {"ms": events, "events_ms": events, "ahead": False}
 
 
+def launch_breakdown(fn, reps: int) -> dict:
+    """Device ms per call of each kernel that ``fn`` launches, from a
+    profiler trace of ``reps`` calls (after a warm-up call).  The profiler
+    has lost kernel records before (PERF.md §6): these split a time that
+    ``timed`` measured, they do not replace it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    by_name = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device_us(prof, by_name)
+    return {name.split("(")[0][:60]: us / reps / 1e3
+            for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])}
+
+
 def host_ms(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -316,6 +342,8 @@ def attention_cases(dev):
     the f32 shapes of ``test_kernels.py:294-313`` over ``arange``
     positions, then the serving shapes of smollm-135m."""
     import torch
+
+    from repro_torch.kernels.flash_attention.ref import rolled_pos_tab
     rng = np.random.default_rng(7)
 
     def rand(*shape):
@@ -344,7 +372,39 @@ def attention_cases(dev):
         cases.append(("decode [4,1,9,64] over 1024 slots", q1, kc, vc,
                       torch.tensor([1299], dtype=torch.int32, device=dev),
                       tab, True, win))
+        cases.append(("decode [4,1,9,64] at the serve fill", q1, kc, vc,
+                      torch.tensor([543], dtype=torch.int32, device=dev),
+                      serve_fill_tab(dev), True, win))
+    # (label, B, S, Hq, Hkv, D, rolled_pos_tab arguments, window)
+    for label, b, s, hq, hk, d, tab_args, win in (
+            ("decode, split 64..127 wholly empty, GQA 8", 2, 1, 8, 1, 32,
+             (256, 100, 611, list(range(64, 128))), None),
+            ("decode, two splits wholly outside the window, GQA 1", 2, 1, 3,
+             3, 16, (256, 100, 611, [5, 70]), 40),
+            ("decode, 200 slots (not a multiple of 64)", 2, 1, 9, 3, 128,
+             (200, 0, 149, []), None),
+            ("decode, 16 rows (the dispatch line)", 2, 2, 16, 2, 64,
+             (300, 0, 299, []), None),
+            ("prefill, 17 rows (past the dispatch line)", 2, 17, 2, 2, 64,
+             (70, 0, 69, [0, 1]), 30),
+            ("prefill, 18 rows", 2, 3, 6, 1, 32, (300, 0, 299, []), 100)):
+        t, last = tab_args[0], tab_args[2]
+        cases.append((label, rand(b, s, hq, d), rand(b, t, hk, d),
+                      rand(b, t, hk, d),
+                      torch.arange(last + 1 - s, last + 1, dtype=torch.int32,
+                                   device=dev),
+                      torch.from_numpy(rolled_pos_tab(*tab_args)).to(dev),
+                      True, win))
     return cases
+
+
+def serve_fill_tab(dev):
+    """The cache of the serve run's last decode step: positions 0..543 in
+    slots 0..543 of 1,024, the rest empty."""
+    import torch
+    fill = torch.full((1024,), -1, dtype=torch.int32, device=dev)
+    fill[:544] = torch.arange(544, dtype=torch.int32, device=dev)
+    return fill
 
 
 def decode_pos_tab(dev):
@@ -358,21 +418,53 @@ def decode_pos_tab(dev):
         rolled_pos_tab(1024, 600, 1299, [5, 77, 700, 1023])).to(dev)
 
 
-def check_attention_kernel(dev):
-    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+def check_attention_kernel(dev, lib):
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_cuda, uses_decode)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     out, worst = [], 0.0
     for label, q, k, v, qp, kp, causal, win in attention_cases(dev):
+        entry = ("flash_attention_decode"
+                 if uses_decode(q.shape[1], q.shape[2], k.shape[2])
+                 else "flash_attention_prefill")
+        before = lib.LAUNCHES[entry]
         got = flash_attention_cuda(q, k, v, q_pos=qp, k_pos=kp,
                                    causal=causal, window=win)
+        require(lib.LAUNCHES[entry] == before + 1, f"{label}: not {entry}")
         exp = attention_ref(q, k, v, q_pos=qp, k_pos=kp, causal=causal,
                             window=win)
         err, ok = allclose(got, exp, 2e-5)
         require(ok, f"flash attention vs plain, {label} window {win}: {err}")
         worst = max(worst, err)
-        out.append({"case": label, "causal": causal, "window": win,
-                    "max_abs_err": err})
+        out.append({"case": label, "entry": entry, "causal": causal,
+                    "window": win, "max_abs_err": err})
     return out, worst
+
+
+def check_bit_identical(dev):
+    """Two runs of the attention decode (the serve fill) and of the SSD
+    scan (mamba2-1.3b's prefill, from a non-zero state) must be equal bit
+    for bit: no atomics, and every sum in an order fixed by the shapes."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan.ops import ssd_cuda
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev) for shape in ((4, 1, 9, 64), (4, 1024, 3, 64),
+                                           (4, 1024, 3, 64)))
+    qp = torch.tensor([543], dtype=torch.int32, device=dev)
+    fill = serve_fill_tab(dev)
+    a, b = (flash_attention_cuda(q, k, v, q_pos=qp, k_pos=fill)
+            for _ in range(2))
+    b_, s_, h, p, g, n, chunk = SSD_CASES[-1]
+    args, st0 = ssd_inputs(dev, b_, s_, h, p, g, n, 13, True)
+    (y1, s1), (y2, s2) = (ssd_cuda(*args, chunk=chunk, init_state=st0)
+                          for _ in range(2))
+    out = {"attention_decode": bool(torch.equal(a, b)),
+           "ssd_scan": bool(torch.equal(y1, y2) and torch.equal(s1, s2))}
+    require(all(out.values()), f"runs differ: {out}")
+    return out
 
 
 def ssd_inputs(dev, b, s, h, p, g, n, seed, with_state):
@@ -388,11 +480,15 @@ def ssd_inputs(dev, b, s, h, p, g, n, seed, with_state):
             torch.from_numpy(state).to(dev))
 
 
-#: (B, S, H, P, G, N, chunk): ``test_kernels.py:320-354`` and mamba2-1.3b's
-#: serving prefill (4 × 512 tokens, chunk 128).
+#: (B, S, H, P, G, N, chunk): ``test_kernels.py:320-354``, chunks 16, 24
+#: and 128 with a ragged last chunk, 19 chunks (more than the state pass
+#: keeps in flight), and mamba2-1.3b's serving prefill
+#: (4 × 512 tokens, chunk 128; last, as phase 8 times it).
 SSD_CASES = ((2, 96, 4, 32, 2, 16, 32), (1, 200, 2, 16, 1, 8, 64),
              (2, 64, 8, 8, 4, 8, 16), (2, 80, 4, 16, 2, 8, 32),
-             (4, 512, 64, 64, 8, 128, 128))
+             (2, 100, 8, 64, 2, 128, 16), (1, 100, 4, 32, 4, 64, 24),
+             (2, 300, 16, 64, 8, 128, 128), (1, 130, 2, 72, 1, 70, 128),
+             (1, 300, 4, 16, 2, 16, 16), (4, 512, 64, 64, 8, 128, 128))
 
 
 def check_ssd_kernel(dev):
@@ -548,6 +644,8 @@ def serve_run(arch, lib):
     launches = dict(lib.LAUNCHES)
     n_attn = cfg.n_attn_layers
     want = {"flash_attention": n_attn * n_batches * (1 + max_new),
+            "flash_attention_prefill": n_attn * n_batches,
+            "flash_attention_decode": n_attn * n_batches * max_new,
             "ssd_scan": (cfg.n_layers - n_attn) * n_batches}
     # the launcher's numbers: tok/s is all tokens over the engine.run wall
     # time; the p99 of 64 decode steps is close to their maximum
@@ -614,16 +712,6 @@ KERNEL_TIME_KEYS = ("ms", "plain_ms", "library_ms", "events_ms",
                     "bound_ms", "bound_by")
 
 
-def live_mask(q_pos, k_pos, causal, window):
-    """[S, T]: the (query, key) pairs the masks leave live."""
-    live = (k_pos >= 0)[None, :]
-    if causal:
-        live = live & (k_pos[None, :] <= q_pos[:, None])
-    if window is not None:
-        live = live & (k_pos[None, :] > q_pos[:, None] - window)
-    return live
-
-
 def time_attention(q, k, v, q_pos, k_pos, reps):
     """Kernel, plain version and SDPA (same boolean mask) on one causal
     case.  Bound from bytes (q, the output, both position tables, and the
@@ -633,8 +721,9 @@ def time_attention(q, k, v, q_pos, k_pos, reps):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-    mask = (k_pos >= 0)[None, :] & (k_pos[None, :] <= q_pos[:, None])
+    from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                         live_mask)
+    mask = live_mask(q_pos, k_pos)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
     def kernel():
@@ -650,13 +739,13 @@ def time_attention(q, k, v, q_pos, k_pos, reps):
     err, _ = allclose(kernel(), plain(), 2e-5)
     lib_err, _ = allclose(library().transpose(1, 2), plain(), 2e-5)
     b, s, hq, d = q.shape
-    live = live_mask(q_pos, k_pos, True, None)
-    live_slots = int(live.any(0).sum())
+    live_slots = int(mask.any(0).sum())
     nbytes = (2 * q.numel() * 4 + (q_pos.numel() + k_pos.numel()) * 4
               + 2 * b * live_slots * k.shape[2] * d * 4)
-    flops = 4 * d * b * hq * int(live.sum())
+    flops = 4 * d * b * hq * int(mask.sum())
     return {**times(kernel, plain, library, reps),
             **bound(nbytes, flops), "live_slots": live_slots,
+            "kernel_breakdown_ms": launch_breakdown(kernel, reps),
             "max_abs_err": err, "library_max_abs_err_vs_plain": lib_err}
 
 
@@ -696,8 +785,9 @@ def bound(nbytes, flops):
 def time_ssd(dev, reps):
     """Kernel and plain version at mamba2-1.3b's serving prefill (the
     serving path starts from a zero state); bound from bytes and from the
-    f32 operations of the causal dual form, the inter-chunk term and the
-    state update."""
+    f32 operations of the causal half of C·Bᵀ (once per group: the heads
+    of a group share C and B), the intra-chunk product, the state update
+    and the inter-chunk term."""
     from repro_torch.kernels.ssd_scan.ops import ssd_cuda
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
     b, s, h, p, g, n, q = SSD_CASES[-1]
@@ -714,8 +804,9 @@ def time_ssd(dev, reps):
     nbytes = sum(x.numel() * 4 for x in (*args, st0, yk, sk))
     pairs = sum(m * (m + 1) // 2 for m in
                 [min(q, s - t0) for t0 in range(0, s, q)])
-    flops = b * h * (2 * pairs * (n + p) + 4 * s * p * n)
+    flops = b * (g * 2 * pairs * n + h * (2 * pairs * p + 4 * s * p * n))
     return {**times(kernel, plain, None, reps), **bound(nbytes, flops),
+            "kernel_breakdown_ms": launch_breakdown(kernel, reps),
             "max_abs_err": err}
 
 
@@ -816,11 +907,12 @@ def main() -> int:
     # ---- 2. kernels against their plain versions -------------------------
     emit({"phase": "sketch_kernel_vs_plain", "cases": check_sketch_kernel(dev)})
     emit({"phase": "failrank_kernel_vs_plain", **check_failrank_kernel(dev)})
-    attn_cases, k3_err = check_attention_kernel(dev)
+    attn_cases, k3_err = check_attention_kernel(dev, lib)
     emit({"phase": "attention_kernel_vs_plain", "tol": 2e-5,
           "cases": attn_cases})
     ssd_cases, k4_err = check_ssd_kernel(dev)
     emit({"phase": "ssd_kernel_vs_plain", "tol": 2e-4, "cases": ssd_cases})
+    emit({"phase": "bit_identical", **check_bit_identical(dev)})
 
     # ---- 3. the main path: resnet50 on 8×8 -------------------------------
     cfg = SlothConfig(recorder_impl="batched")
@@ -944,13 +1036,11 @@ def main() -> int:
     pos = torch.arange(512, dtype=torch.int32, device=dev)
     k3 = time_attention(rand(4, 512, 9, 64), rand(4, 512, 3, 64),
                         rand(4, 512, 3, 64), pos, pos, reps=20)
-    # decode as the serve run's last step sees the cache: positions
-    # 0..543 in slots 0..543 of 1,024, the rest empty
-    fill = torch.full((1024,), -1, dtype=torch.int32, device=dev)
-    fill[:544] = torch.arange(544, dtype=torch.int32, device=dev)
+    # decode as the serve run's last step sees the cache
     k3_dec = time_attention(
         rand(4, 1, 9, 64), rand(4, 1024, 3, 64), rand(4, 1024, 3, 64),
-        torch.tensor([543], dtype=torch.int32, device=dev), fill, reps=50)
+        torch.tensor([543], dtype=torch.int32, device=dev),
+        serve_fill_tab(dev), reps=50)
     k4 = time_ssd(dev, reps=10)
     emit({"phase": "serving_kernel_times", "flash_attention_prefill": k3,
           "flash_attention_decode": k3_dec, "ssd_scan_prefill": k4})
@@ -982,6 +1072,10 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
          "launches": serve_launches["smollm-135m"]["flash_attention"],
+         "launches_prefill":
+             serve_launches["smollm-135m"]["flash_attention_prefill"],
+         "launches_decode":
+             serve_launches["smollm-135m"]["flash_attention_decode"],
          "max_abs_err": max(k3_err, k3["max_abs_err"],
                             k3_dec["max_abs_err"]),
          **{k: k3[k] for k in KERNEL_TIME_KEYS}, "plain_device": "cuda",

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own by ``nvcc`` into ``build/lib<name>-<hash>.so`` at the repository root
-(the hash is of the source, so an edited kernel is rebuilt), then loaded
-with ``ctypes``.  Nothing is built or loaded when this module is imported:
-the first launch builds what it needs, and :func:`build_all` builds every
-source at once, one ``nvcc`` process each, started together.
+(the hash is of the source and its flags, so an edited kernel or a changed
+flag is rebuilt), then loaded with ``ctypes``.  Nothing is built or loaded
+when this module is imported: the first launch builds what it needs, and
+:func:`build_all` builds every source at once, one ``nvcc`` process each,
+started together.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where
 it launches its kernel and nowhere else.
@@ -24,17 +25,27 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
-              # keep every float multiply and add separately rounded, so
-              # the kernels' statistics equal the plain torch versions bit
-              # for bit (no FMA contraction)
-              "-fmad=false", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: Flags of single sources.  The sketch insert (K1) and the FailRank step
+#: (K2) keep every float multiply and add separately rounded (no FMA
+#: contraction): K1's statistics are checked bit-equal to the plain torch
+#: version and K2's L' exactly equal.  Flash attention (K3) and the SSD scan
+#: (K4) are checked at a tolerance against plain versions that run on
+#: cuBLAS, which contracts anyway, so they build with FMA (twice the f32
+#: rate of a separate multiply and add).
+SOURCE_FLAGS = {"sketch_insert": ("-fmad=false",),
+                "failrank_step": ("-fmad=false",)}
 
 #: Largest dynamic shared memory one block may use on Hopper.
 MAX_SMEM_BYTES = 232_448
 
+#: ``flash_attention`` counts calls of K3's wrapper; each call launches
+#: one of its two entry points, counted again under its own name.
 LAUNCHES: dict[str, int] = {"sketch_insert_runs": 0, "failrank_step": 0,
-                             "flash_attention": 0, "ssd_scan": 0}
+                             "flash_attention": 0,
+                             "flash_attention_prefill": 0,
+                             "flash_attention_decode": 0, "ssd_scan": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -51,9 +62,14 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def flags(name: str) -> tuple[str, ...]:
+    """``nvcc`` flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _target(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags(name)).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:12]}.so"
 
 
@@ -63,7 +79,7 @@ def _start(name: str):
     out = _target(name)
     if out.exists():
         return out, None
-    cmd = [_nvcc(), *NVCC_FLAGS]
+    cmd = [_nvcc(), *flags(name)]
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     with open(BUILD / f"{name}.log", "w") as log:

@@ -32,15 +32,54 @@ def attention_ref(q, k, v, *, q_pos, k_pos, causal=True, window=None):
     qg = q.reshape(b, s, hk, hq // hk, d)
     scores = torch.einsum("bshgd,bthd->bhgst", qg.float(), k.float())
     scores = scores / math.sqrt(d)
+    mask = live_mask(q_pos, k_pos, causal, window)
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v)
+    return out.reshape(b, s, hq, d)
+
+
+def live_mask(q_pos, k_pos, causal=True, window=None):
+    """[S, T] bool: the (query, key) pairs the masks leave live."""
     mask = (k_pos >= 0)[None, :]
     if causal:
         mask = mask & (k_pos[None, :] <= q_pos[:, None])
     if window is not None:
         mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
-    scores = scores.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bhgst,bthd->bshgd", probs, v)
-    return out.reshape(b, s, hq, d)
+    return mask
+
+
+def split_attention_ref(q, k, v, *, q_pos, k_pos, causal=True, window=None,
+                        split=64):
+    """The algebra of the kernel's split-key decode in plain torch (for
+    tests): per split of ``split`` keys a partial ``(m, l, acc)`` (m = −inf,
+    l = 0 where no key of the split is live for the row), then the splits
+    merged in index order.  A row with no live key is 0 (the kernel's rule,
+    not ``attention_ref``'s uniform softmax).  f32, [B,S,Hq,D]."""
+    b, s, hq, d = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, s, hk, hq // hk, d)
+    live = live_mask(q_pos, k_pos, causal, window)          # [S, T]
+    parts = []
+    for t0 in range(0, t, split):
+        sl = slice(t0, min(t, t0 + split))
+        sc = torch.einsum("bshgd,bthd->bhgst", qg, k[:, sl].float())
+        sc = (sc / math.sqrt(d)).masked_fill(~live[:, sl], -math.inf)
+        m = sc.amax(-1)                                      # [B,Hk,G,S]
+        p = torch.where(live[:, sl], torch.exp(sc - m[..., None].clamp(
+            min=torch.finfo(torch.float32).min)), 0.0)
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bhgst,bthd->bhgsd", p, v[:, sl].float())))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    l_tot = torch.zeros_like(mx)
+    acc = mx.new_zeros(*mx.shape, d)
+    for m, l_j, a_j in parts:
+        w = torch.where(m == -math.inf, 0.0, torch.exp(m - mx))
+        l_tot = l_tot + w * l_j
+        acc = acc + w[..., None] * a_j
+    out = torch.where(l_tot[..., None] > 0,
+                      acc / l_tot.clamp(min=1e-30)[..., None], 0.0)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d)
 
 
 def rolled_pos_tab(t_max, first, last, empty=()):

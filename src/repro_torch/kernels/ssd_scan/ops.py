@@ -4,7 +4,10 @@
 ``[B,S,G,N]`` and an optional initial state ``[B,H,P,N]``: CPU tensors go
 to the plain version in :mod:`.ref`, CUDA tensors launch
 ``csrc/ssd_scan.cu`` or raise.  Head ``h`` reads group ``h // (H/G)`` of
-b/c in place; nothing is repeated or transposed in memory.
+b/c in place; nothing is repeated or transposed in memory.  One call runs
+the source's four launches (scores per group, chunk-parallel intra-chunk
+products and chunk states, the state pass over chunks, the inter-chunk
+term) through scratch the wrapper allocates.
 """
 
 from __future__ import annotations
@@ -19,13 +22,16 @@ from .ref import ssd_ref
 #: Longest chunk the kernel takes (the model uses 16-128).
 MAX_CHUNK = 128
 
+#: Largest grid y and z extent of a launch.
+MAX_GRID_YZ = 65_535
+
 
 def _load():
     lib = _lib.load("ssd_scan")
-    lib.ssd_scan_smem_bytes.restype = ctypes.c_size_t
-    lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ssd_scan_scratch_floats.restype = ctypes.c_size_t
+    lib.ssd_scan_scratch_floats.argtypes = [ctypes.c_int] * 7
     lib.ssd_scan.restype = ctypes.c_int
-    lib.ssd_scan.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+    lib.ssd_scan.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     return lib
 
@@ -54,21 +60,23 @@ def ssd_cuda(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
         raise ValueError(f"ssd_scan: {h} heads over {g} groups")
     if x.numel() == 0 or b.numel() == 0:
         raise ValueError("ssd_scan: empty input")
+    if -(-s // chunk) * h > MAX_GRID_YZ or bsz > MAX_GRID_YZ:
+        raise ValueError(f"ssd_scan: {-(-s // chunk)} chunks x {h} heads or "
+                         f"batch {bsz} exceed a grid's {MAX_GRID_YZ}")
     lib = _load()
-    smem = lib.ssd_scan_smem_bytes(p, n, chunk)
-    if smem > _lib.MAX_SMEM_BYTES:
-        raise ValueError(
-            f"ssd_scan needs {smem} B of shared memory (P={p}, N={n}, "
-            f"chunk={chunk}); one block holds at most {_lib.MAX_SMEM_BYTES} B")
     y = torch.empty_like(x)
     state = torch.empty(bsz, h, p, n, dtype=torch.float32, device=dev)
+    # C.B^T per group, cumsums, chunk states (then entry states)
+    scratch = torch.empty(lib.ssd_scan_scratch_floats(bsz, s, h, p, g, n,
+                                                      chunk),
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _lib.check(lib.ssd_scan(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), 0 if init_state is None else init_state.data_ptr(),
-            y.data_ptr(), state.data_ptr(), bsz, s, h, p, g, n, chunk,
-            stream), "ssd_scan")
+            y.data_ptr(), state.data_ptr(), scratch.data_ptr(), bsz, s, h,
+            p, g, n, chunk, stream), "ssd_scan")
     _lib.LAUNCHES["ssd_scan"] += 1
     return y, state
 

@@ -11,6 +11,10 @@ reference.
   ``layers.attention``: decode over a cache whose position table is rolled
   and partly empty (−1), with and without a sliding window, and a few
   queries at once over the same cache; f32 within 2e-5.
+* ``split_attention_ref``, the plain-torch algebra of the kernel's
+  split-key decode (partials per 64-key split, merged in index order),
+  against ``attention_ref`` and the reference's ``layers.attention`` on
+  rolled caches with wholly dead splits and windows; f32 within 2e-5.
 """
 
 import jax.numpy as jnp
@@ -21,8 +25,10 @@ import torch
 from repro.kernels.flash_attention.ops import gqa_attention as j_gqa
 from repro.models import layers as JL
 from repro_torch.kernels import _lib
-from repro_torch.kernels.flash_attention.ops import gqa_attention
-from repro_torch.kernels.flash_attention.ref import rolled_pos_tab
+from repro_torch.kernels.flash_attention.ops import gqa_attention, uses_decode
+from repro_torch.kernels.flash_attention.ref import (attention_ref, live_mask,
+                                                     rolled_pos_tab,
+                                                     split_attention_ref)
 from repro_torch.models import layers as TL
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
@@ -81,3 +87,78 @@ def test_attention_over_absolute_positions_matches_layers(s, window):
                        k_pos=jnp.asarray(k_pos), causal=True, window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=2e-5,
                                rtol=2e-5)
+
+
+def _split_case(seed, b, s, t, hq, hk, d):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            for shape in ((b, s, hq, d), (b, t, hk, d), (b, t, hk, d))]
+
+
+@pytest.mark.parametrize("t_max,first,last,empty,s,hq,hk,d,window,n_dead", [
+    # one lap of a 200-slot cache: slots 150..199 never written, so the
+    # last split (192..199) is dead; T is not a multiple of 64
+    (200, 0, 149, [], 1, 9, 3, 64, None, 1),
+    # rolled over, slots 64..127 cleared: a wholly empty split
+    (256, 100, 611, list(range(64, 128)), 1, 8, 1, 32, None, 1),
+    # windows that leave whole splits outside them
+    (256, 100, 611, [5, 70], 1, 3, 3, 16, 40, 2),
+    (1024, 600, 1299, [5, 77, 700, 1023], 1, 9, 3, 64, 256, 11),
+    # a few rows at once (S · Hq/Hkv = 16, the dispatch line)
+    (130, 0, 129, [3], 2, 16, 2, 128, None, 0),
+    (130, 0, 129, [3], 4, 8, 2, 32, 50, 1),
+])
+def test_split_key_decode_algebra_matches_attention_ref(
+        t_max, first, last, empty, s, hq, hk, d, window, n_dead):
+    """The split-and-merge of the kernel's decode path, in plain torch,
+    against the direct masked softmax over a rolled cache."""
+    q, k, v = _split_case(t_max + s, 2, s, t_max, hq, hk, d)
+    k_pos = torch.from_numpy(rolled_pos_tab(t_max, first, last, empty))
+    q_pos = torch.arange(last + 1 - s, last + 1, dtype=torch.int32)
+    dead = [t0 for t0 in range(0, t_max, 64)
+            if not live_mask(q_pos, k_pos[t0:t0 + 64], True, window).any()]
+    assert len(dead) == n_dead
+    got = split_attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                              window=window)
+    exp = attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos, window=window)
+    np.testing.assert_allclose(got.numpy(), exp.numpy(), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_split_key_decode_algebra_writes_zero_for_a_row_without_keys():
+    """A row none of whose keys is live is 0 (m = −inf, l = 0 in every
+    split), while its neighbours in the same splits are not."""
+    q, k, v = _split_case(3, 1, 2, 150, 2, 1, 16)
+    k_pos = torch.arange(150, dtype=torch.int32)
+    q_pos = torch.tensor([-5, 149], dtype=torch.int32)   # row 0: no key
+    got = split_attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos)
+    assert torch.equal(got[:, 0], torch.zeros_like(got[:, 0]))
+    exp = attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos)
+    np.testing.assert_allclose(got[:, 1].numpy(), exp[:, 1].numpy(),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_split_key_decode_algebra_matches_the_reference_layer():
+    """Over the rolled, partly empty cache of
+    ``test_attention_over_absolute_positions_matches_layers``, against the
+    JAX reference's ``layers.attention``."""
+    (jq, jk, jv), (q, k, v) = _qkv(1, 2, 1, 96, 6, 2, 32)
+    k_pos = rolled_pos_tab(96, 40, 159, [3, 17, 70, 71, 90])
+    q_pos = np.array([159], np.int32)
+    for window in (None, 48):
+        got = split_attention_ref(q, k, v, q_pos=torch.from_numpy(q_pos),
+                                  k_pos=torch.from_numpy(k_pos),
+                                  window=window, split=16)
+        exp = JL.attention(jq, jk, jv, q_pos=jnp.asarray(q_pos),
+                           k_pos=jnp.asarray(k_pos), causal=True,
+                           window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=2e-5,
+                                   rtol=2e-5)
+
+
+@pytest.mark.parametrize("s,hq,hk,decode", [
+    (1, 9, 3, True), (1, 128, 8, True), (1, 32, 1, False), (16, 4, 4, True),
+    (17, 4, 4, False), (4, 8, 2, True), (2, 24, 2, False), (512, 9, 3, False),
+])
+def test_dispatch_line_between_decode_and_prefill(s, hq, hk, decode):
+    assert uses_decode(s, hq, hk) is decode

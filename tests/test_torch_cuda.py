@@ -25,7 +25,8 @@ from repro_torch.kernels.failrank_step import ops as fr_ops
 from repro_torch.kernels.failrank_step.ref import failrank_step_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
-                                                     rolled_pos_tab)
+                                                     rolled_pos_tab,
+                                                     split_attention_ref)
 from repro_torch.kernels.sketch_update import ops as sk_ops
 from repro_torch.kernels.sketch_update import ref as sk_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -194,6 +195,107 @@ def test_ssd_kernel_rejects_what_it_does_not_take(dev):
         ssd_ops.ssd(*args, chunk=256)
     with pytest.raises(ValueError, match="float32"):
         ssd_ops.ssd(args[0].double(), *args[1:], chunk=16)
-    *args, _ = _ssd_inputs(dev, 1, 8, 2, 256, 1, 256, 0)
-    with pytest.raises(ValueError, match="shared memory"):
-        ssd_ops.ssd(*args, chunk=128)
+    *args, _ = _ssd_inputs(dev, 1, 8, 3, 16, 2, 8, 0)
+    with pytest.raises(ValueError, match="groups"):
+        ssd_ops.ssd(*args, chunk=16)
+    # more chunks x heads, or batches, than a grid's y / z extent
+    steps = ssd_ops.MAX_GRID_YZ // 2 + 1
+    *args, _ = _ssd_inputs(dev, 1, steps, 2, 4, 1, 4, 0)
+    with pytest.raises(ValueError, match="grid"):
+        ssd_ops.ssd(*args, chunk=1)
+    *args, _ = _ssd_inputs(dev, ssd_ops.MAX_GRID_YZ + 1, 1, 1, 4, 1, 4, 0)
+    with pytest.raises(ValueError, match="grid"):
+        ssd_ops.ssd(*args, chunk=1)
+
+
+@pytest.mark.parametrize("t_max,first,last,empty,s,hq,hk,d,window", [
+    (200, 0, 149, [], 1, 9, 3, 64, None),             # dead last split
+    (256, 100, 611, list(range(64, 128)), 1, 8, 1, 16, None),  # empty split
+    (256, 100, 611, [5, 70], 1, 3, 3, 32, 40),         # splits outside window
+    (1024, 600, 1299, [5, 77, 700, 1023], 1, 9, 3, 64, 256),
+    (1024, 600, 1299, [5, 77, 700, 1023], 1, 9, 3, 64, None),
+    (300, 0, 299, [], 2, 8, 1, 128, None),             # 16 rows: decode
+    (300, 0, 299, [], 3, 6, 1, 32, 100),               # 18 rows: prefill
+    (70, 0, 69, [0, 1], 16, 2, 2, 16, None),           # 16 rows: decode
+    (70, 0, 69, [0, 1], 17, 2, 2, 64, 30),             # 17 rows: prefill
+])
+def test_attention_entry_points_over_rolled_caches(dev, t_max, first, last,
+                                                   empty, s, hq, hk, d,
+                                                   window):
+    """Both entry points, picked by the wrapper from S · Hq/Hkv, against
+    the plain version over rolled, partly empty caches."""
+    q, k, v = _attn_inputs(dev, 2, s, t_max, hq, hk, d)
+    k_pos = torch.from_numpy(rolled_pos_tab(t_max, first, last, empty)
+                             ).to(dev)
+    q_pos = torch.arange(last + 1 - s, last + 1, dtype=torch.int32,
+                         device=dev)
+    entry = ("flash_attention_decode" if fa_ops.uses_decode(s, hq, hk)
+             else "flash_attention_prefill")
+    before = dict(_lib.LAUNCHES)
+    got = fa_ops.gqa_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                               window=window)
+    assert _lib.LAUNCHES[entry] == before[entry] + 1
+    assert _lib.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    exp = attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos, window=window)
+    torch.testing.assert_close(got, exp, atol=2e-5, rtol=2e-5)
+    split = split_attention_ref(q.cpu(), k.cpu(), v.cpu(), q_pos=q_pos.cpu(),
+                                k_pos=k_pos.cpu(), window=window)
+    torch.testing.assert_close(got.cpu(), split, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("hq,hk", [(4, 4), (9, 3), (16, 2)])
+def test_attention_decode_head_dims_and_groups(dev, d, hq, hk):
+    """One decode row per query head over 200 slots (not a multiple of the
+    64-key split), GQA ratios 1, 3 and 8."""
+    q, k, v = _attn_inputs(dev, 3, 1, 200, hq, hk, d)
+    k_pos = torch.from_numpy(rolled_pos_tab(200, 0, 180, [7, 100])).to(dev)
+    q_pos = torch.tensor([180], dtype=torch.int32, device=dev)
+    before = _lib.LAUNCHES["flash_attention_decode"]
+    got = fa_ops.gqa_attention(q, k, v, q_pos=q_pos, k_pos=k_pos)
+    assert _lib.LAUNCHES["flash_attention_decode"] == before + 1
+    exp = attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos)
+    torch.testing.assert_close(got, exp, atol=2e-5, rtol=2e-5)
+
+
+def test_attention_decode_row_without_keys_is_zero(dev):
+    q, k, v = _attn_inputs(dev, 1, 1, 130, 3, 1, 64)
+    k_pos = torch.full((130,), -1, dtype=torch.int32, device=dev)
+    got = fa_ops.gqa_attention(q, k, v, q_pos=torch.tensor(
+        [5], dtype=torch.int32, device=dev), k_pos=k_pos)
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (2, 100, 8, 64, 2, 128, 16), (1, 100, 4, 32, 4, 64, 24),
+    (2, 300, 16, 64, 8, 128, 128), (1, 130, 2, 72, 1, 70, 128),
+    (3, 77, 6, 16, 3, 16, 24), (1, 300, 4, 16, 2, 16, 16)])
+def test_ssd_kernel_chunk_parallel_phases(dev, b, s, h, p, g, n, chunk):
+    """Chunks 16, 24 and 128 with a ragged last chunk, P and N that are not
+    multiples of the 64-wide tiles, more chunks (19) than the state pass
+    keeps in flight, from a zero and a non-zero state."""
+    *args, s0 = _ssd_inputs(dev, b, s, h, p, g, n, s * chunk)
+    assert s % chunk
+    for init in (None, s0):
+        yk, sk = ssd_ops.ssd(*args, chunk=chunk, init_state=init)
+        yp, sp = ssd_ref(*args, chunk=chunk, init_state=init)
+        torch.testing.assert_close(yk, yp, atol=2e-4, rtol=2e-4)
+        torch.testing.assert_close(sk, sp, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("kernel", ["decode", "prefill", "ssd"])
+def test_two_runs_are_bit_identical(dev, kernel):
+    if kernel == "ssd":
+        *args, s0 = _ssd_inputs(dev, 4, 512, 64, 64, 8, 128, 5)
+        runs = [ssd_ops.ssd(*args, chunk=128, init_state=s0)
+                for _ in range(2)]
+    else:
+        s = 1 if kernel == "decode" else 200
+        q, k, v = _attn_inputs(dev, 4, s, 1024, 9, 3, 64)
+        k_pos = torch.full((1024,), -1, dtype=torch.int32, device=dev)
+        k_pos[:544] = torch.arange(544, dtype=torch.int32, device=dev)
+        q_pos = torch.arange(544 - s, 544, dtype=torch.int32, device=dev)
+        runs = [(fa_ops.gqa_attention(q, k, v, q_pos=q_pos, k_pos=k_pos),)
+                for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
