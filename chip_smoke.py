@@ -7,9 +7,16 @@
    started together) into ``build/``;
 2. holds each kernel against its plain torch version on the card: the
    Fail-Slow Sketch insert (random run streams, forced eviction, the
-   promotion/steal branches, a per-record stream; integer state and drain
-   exact, float statistics bit-equal) and the fused FailRank step (s within
-   1e-5, L exact); then flash attention through both its entry points
+   promotion/steal branches, a per-record stream, a carried state, two
+   sketches of different geometry in one launch, the pod telemetry's
+   geometry (d=2, m=1024, H=4, L=2048) filled until it evicts, keys that
+   share their home slot in the key index; integer state and drain
+   exact, float statistics bit-equal; a state that breaks the Stage-2
+   precondition must raise) and the FailRank kernel (one step: s within
+   1e-5, L exact; the whole iteration at n = 68, 260 and 1,028 against the
+   plain loop, at 68 and 260 also with W and L forced into device memory:
+   steps within one, s and L within 1e-5, or 1e-4 when the step counts
+   differ); then flash attention through both its entry points
    (f32 test shapes, a smollm-135m prefill of 4×512, decodes over a
    rolled, partly empty 1,024-slot cache and over the serve run's own
    fill, with and without a window, splits wholly empty or wholly outside
@@ -17,18 +24,24 @@
    3 and 8, head dims 16-128, both sides of the decode/prefill line;
    within 2e-5) and the SSD scan (the test shapes, chunks 16, 24 and 128
    with a ragged tail, and mamba2-1.3b's 4×512 prefill, from a zero and a
-   non-zero state; within 2e-4); two runs of the attention decode and of
-   the SSD scan at the serving shapes must be bit-identical;
+   non-zero state; within 2e-4); two runs of the sketch insert, the
+   FailRank iteration, the attention decode and the SSD scan must be
+   bit-identical;
 3. drives the detection path, ``Sloth.detect`` with the batched recorder
    on the card, for resnet50 on an 8×8 mesh (core 6, link 20, no fault)
    with the launch counts set to 0 just before and read just after, plus
    ``failrank_dense`` on the core fault's MCG through the FailRank kernel;
    every verdict must equal the JAX reference's (pinned below, since this
-   script may not import it), the sketch kernel must launch twice per
-   ``detect`` and both drains must be non-empty;
+   script may not import it), the sketch kernel must launch once per
+   ``detect`` (both sketches in one launch), the FailRank kernel once per
+   ``failrank_dense``, and both drains must be non-empty;
 4. records the same trace on the plain CPU path and requires identical
-   patterns and byte accounting, and times K1 and K2 beside their plain
-   versions and bounds;
+   patterns and byte accounting, and times K1 (one launch for both
+   sketches of a ``detect``) and K2 (per ``failrank_dense`` call and per
+   step) beside their plain versions and bounds, K1 also beside the bound
+   of its serial chains (in cycles of a dependent shared-memory load,
+   measured by a probe built here), and K2's whole iteration at n = 68,
+   260 and 1,028 host to host beside the step-a-launch host loop;
 5. repeats the verdict checks for resnet50 on a 4×4 mesh;
 6. drives the serving path, ``repro_torch.launch.serve.main``, at full
    width and depth for smollm-135m (30 attention layers) and mamba2-1.3b
@@ -53,6 +66,12 @@
 Every phase prints one JSON object per line.  The line before the last is
 the per-kernel summary; the last is ``{"ok": true, "device": ...}``.  Any
 failed check exits non-zero; without a card the script exits 2.
+
+    python3 chip_smoke.py --failrank-loops SRC
+
+times only K2's loops (step 4's last phase) for the port in ``SRC``, for
+example an earlier tree's ``src`` unpacked by ``git archive``, whose
+``failrank_dense`` launched one step at a time.
 """
 
 from __future__ import annotations
@@ -255,8 +274,8 @@ def sketch_case(p, runs, dev):
     from repro_torch.kernels.sketch_update import ops, ref
     args = [torch.from_numpy(x).to(dev) for x in runs]
     n = len(runs[0])
-    st_k, dr_k = ops.insert_runs_cuda(ref.make_state(p, dev),
-                                      ref.make_drain(n, dev), *args, H=p.H)
+    st_k, dr_k = ops.insert_runs(ref.make_state(p, dev),
+                                 ref.make_drain(n, dev), *args, params=p)
     st_p, dr_p = ref.insert_runs_plain(ref.make_state(p, dev),
                                        ref.make_drain(n, dev), *args, H=p.H)
     torch.cuda.synchronize()
@@ -268,6 +287,7 @@ def check_sketch_kernel(dev):
     import torch
 
     from repro_torch.core.sketch import SketchParams, split_key
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.sketch_update import ops, ref
     cases = []
     for seed, d, m, H, L, n, keys in ((0, 2, 64, 4, 16, 300, 20),
@@ -280,6 +300,30 @@ def check_sketch_kernel(dev):
         require(err == 0.0, f"sketch kernel float gap {err} ({p})")
         cases.append({"params": [d, m, H, L], "runs": n, "drained": drained,
                       "max_abs_err": err})
+    # the pod telemetry's sketch, filled until it evicts
+    p = SketchParams(d=2, m=1024, H=4, L=2048)
+    err, drained = sketch_case(p, random_runs(14, 5000, 6000), dev)
+    require(err == 0.0 and drained > 0,
+            f"telemetry geometry: gap {err}, drained {drained}")
+    cases.append({"params": [2, 1024, 4, 2048], "runs": 5000,
+                  "case": "pod telemetry geometry", "drained": drained,
+                  "smem_bytes": ops._load().sketch_insert_smem_bytes(2, 1024,
+                                                                     2048),
+                  "max_abs_err": err})
+    # keys and their twins, which share their home slot in the key index
+    p = SketchParams(d=2, m=64, H=2, L=8)
+    lo, hi, *rest = random_runs(15, 600, 30, max_rep=4)
+    lo2, hi2 = ref.index_home_twin(lo, hi)
+    twin = np.random.default_rng(16).random(600) < 0.5
+    runs = (np.where(twin, lo2, lo), np.where(twin, hi2, hi), *rest)
+    err, drained = sketch_case(p, runs, dev)
+    *_, events = ref.insert_runs_indexed(
+        ref.make_state(p), ref.make_drain(600),
+        *[torch.from_numpy(x) for x in runs], H=p.H)
+    require(err == 0.0 and events["shifted"] > 0,
+            f"keys sharing home slots: gap {err}, {events}")
+    cases.append({"params": [2, 64, 2, 8], "runs": 600, "case": "keys sharing home slots",
+                  "drained": drained, **events, "max_abs_err": err})
     # promotion / steal / decrement on one bucket
     p = SketchParams(d=1, m=1, H=4, L=4)
     lo, hi = split_key(np.array([7, 7, 9, 9, 5], dtype=np.int64))
@@ -307,28 +351,116 @@ def check_sketch_kernel(dev):
     require(err == 0.0, "per-record stream")
     cases.append({"params": [2, 64, 2, 4], "records": 500,
                   "drained": int(dr_k["d_n"]), "max_abs_err": err})
+    # a carried state: the second launch builds its index, free bitmap and
+    # ring from the full Stage 2 the first left
+    p = SketchParams(d=2, m=32, H=2, L=4)
+    st_k = st_p = ref.make_state(p, dev)
+    dr_k = dr_p = ref.make_drain(400, dev)
+    err = 0.0
+    for seed in (6, 7):
+        args = [torch.from_numpy(x).to(dev)
+                for x in random_runs(seed, 200, 40)]
+        st_k, dr_k = ops.insert_runs(st_k, dr_k, *args, params=p)
+        st_p, dr_p = ref.insert_runs_plain(st_p, dr_p, *args, H=p.H)
+        err = max(err, max_abs_err(st_k, st_p), max_abs_err(dr_k, dr_p))
+    require(err == 0.0, "carried state")
+    cases.append({"params": [2, 32, 2, 4], "runs": [200, 200],
+                  "case": "carried state", "drained": int(dr_k["d_n"]),
+                  "max_abs_err": err})
+    # two sketches of different geometry in one launch
+    jobs = []
+    for p, (seed, n, keys) in ((SketchParams(), (20, 600, 300)),
+                               (SketchParams(d=3, m=64, H=2, L=8),
+                                (21, 400, 80))):
+        jobs.append((ref.make_state(p, dev), ref.make_drain(n, dev),
+                     tuple(torch.from_numpy(x).to(dev)
+                           for x in random_runs(seed, n, keys)), p))
+    before = _lib.LAUNCHES["sketch_insert_runs"]
+    got = ops.insert_runs_many(jobs)
+    require(_lib.LAUNCHES["sketch_insert_runs"] == before + 1,
+            "two sketches took more than one launch")
+    err = 0.0
+    for (st_k, dr_k), (st0, dr0, args, p) in zip(got, jobs):
+        st_p, dr_p = ref.insert_runs_plain(st0, dr0, *args, H=p.H)
+        err = max(err, max_abs_err(st_k, st_p), max_abs_err(dr_k, dr_p))
+    require(err == 0.0, "two sketches in one launch")
+    cases.append({"params": [[2, 1024, 8, 1024], [3, 64, 2, 8]],
+                  "runs": [600, 400], "case": "two sketches, one launch",
+                  "max_abs_err": err})
+    # states that break the Stage-2 precondition must raise
+    p = SketchParams(d=2, m=32, H=2, L=4)
+    args = [torch.from_numpy(x).to(dev) for x in random_runs(6, 80, 20)]
+    full, _ = ops.insert_runs(ref.make_state(p, dev),
+                              ref.make_drain(80, dev), *args, params=p)
+    raised = []
+    for bit, (col, row, value) in enumerate((
+            ("s2_valid", int(full["s2_arrival"].argmin()), 2),
+            ("s2_arrival", 2, int(full["counter"])),
+            ("s2_arrival", 3, int(full["s2_arrival"][0])),
+            ("s2_lo", 1, None))):
+        st = {k: v.clone() for k, v in full.items()}
+        st[col][row] = value if value is not None else st["s2_lo"][0]
+        if value is None:
+            st["s2_hi"][1] = st["s2_hi"][0]
+        try:
+            ops.insert_runs(st, ref.make_drain(80, dev), *args, params=p)
+        except ValueError as e:
+            raised.append(ref.PRECONDITION[bit] in str(e))
+        else:
+            raised.append(False)
+    require(all(raised), f"broken states raised: {raised}")
+    cases.append({"case": "broken Stage-2 precondition raises",
+                  "raised": raised})
     return cases
 
 
-def check_failrank_kernel(dev):
+def failrank_inputs(dev, n):
+    """A row-stochastic W, a random L, s and s0 on the card."""
     import torch
-
-    from repro_torch.kernels.failrank_step.ops import failrank_step_cuda
-    from repro_torch.kernels.failrank_step.ref import failrank_step_ref
-    n = 260
     rng = np.random.default_rng(n)
     w = rng.random((n, n)).astype(np.float32)
     w /= w.sum(1, keepdims=True)
-    x = [torch.from_numpy(a).to(dev) for a in
-         (w, rng.random((n, n)).astype(np.float32),
-          rng.random(n).astype(np.float32), rng.random(n).astype(np.float32))]
-    s_k, l_k = failrank_step_cuda(*x)
+    return [torch.from_numpy(a).to(dev) for a in
+            (w, rng.random((n, n)).astype(np.float32),
+             rng.random(n).astype(np.float32),
+             rng.random(n).astype(np.float32))]
+
+
+def check_failrank_loop(kernel, plain):
+    """The kernel's iteration ``(s, L, steps)`` against the plain loop's:
+    steps within one; s and L within 1e-5 at equal counts, else within the
+    L1 tolerance 1e-4."""
+    (s_k, l_k, it_k), (s_p, l_p, it_p) = kernel, plain
+    it_k, it_p = int(it_k), int(it_p)
+    err = max(float((s_k - s_p).abs().max()), float((l_k - l_p).abs().max()))
+    tol = 1e-5 if it_k == it_p else 1e-4
+    require(abs(it_k - it_p) <= 1 and err <= tol,
+            f"failrank loop: {it_k} vs {it_p} steps, gap {err}")
+    return {"steps": it_k, "plain_steps": it_p, "max_abs_err": err,
+            "tol": tol}
+
+
+def check_failrank_kernel(dev):
+    from repro_torch.kernels.failrank_step import ops
+    from repro_torch.kernels.failrank_step.ref import (failrank_iterate_ref,
+                                                       failrank_step_ref)
+    x = failrank_inputs(dev, 260)
+    s_k, l_k = ops.failrank_step(*x)
     s_p, l_p = failrank_step_ref(*x)
-    torch.cuda.synchronize()
     es = float((s_k - s_p).abs().max())
     el = float((l_k - l_p).abs().max())
     require(es <= 1e-5 and el == 0.0, f"failrank step gaps s={es} L={el}")
-    return {"n": n, "s_max_abs_err": es, "l_max_abs_err": el}
+    loops = {}
+    for n in (68, 260, 1028):
+        x = failrank_inputs(dev, n)
+        loops[n] = check_failrank_loop(ops.failrank_iterate(*x),
+                                       failrank_iterate_ref(*x))
+        if n < 1028:                 # W and L forced into device memory
+            loops[f"{n}_device"] = check_failrank_loop(
+                ops.failrank_iterate_cuda(*x, stripes="device"),
+                failrank_iterate_ref(*x))
+    return {"step": {"n": 260, "s_max_abs_err": es, "l_max_abs_err": el},
+            "loop": loops}
 
 
 def allclose(got, exp, tol):
@@ -442,13 +574,26 @@ def check_attention_kernel(dev, lib):
 
 
 def check_bit_identical(dev):
-    """Two runs of the attention decode (the serve fill) and of the SSD
-    scan (mamba2-1.3b's prefill, from a non-zero state) must be equal bit
-    for bit: no atomics, and every sum in an order fixed by the shapes."""
+    """Two runs of the sketch insert (L = 256, with evictions),
+    the FailRank iteration (n = 260 and 1,028), the attention decode (the serve fill)
+    and the SSD scan (mamba2-1.3b's prefill, from a non-zero state) must be
+    equal bit for bit: no atomics in any result, and every sum in an order
+    fixed by the shapes."""
     import torch
 
+    from repro_torch.core.sketch import SketchParams
+    from repro_torch.kernels.failrank_step.ops import failrank_iterate
     from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.sketch_update import ops as sk_ops
+    from repro_torch.kernels.sketch_update import ref as sk_ref
     from repro_torch.kernels.ssd_scan.ops import ssd_cuda
+    p = SketchParams(L=256)
+    runs = [torch.from_numpy(x).to(dev) for x in random_runs(3, 3000, 2000)]
+    sk = [sk_ops.insert_runs(sk_ref.make_state(p, dev),
+                             sk_ref.make_drain(3000, dev), *runs, params=p)
+          for _ in range(2)]
+    fr = [failrank_iterate(*failrank_inputs(dev, n)) for n in (260, 1028)
+          for _ in range(2)]
     rng = np.random.default_rng(12)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(dev) for shape in ((4, 1, 9, 64), (4, 1024, 3, 64),
@@ -461,9 +606,15 @@ def check_bit_identical(dev):
     args, st0 = ssd_inputs(dev, b_, s_, h, p, g, n, 13, True)
     (y1, s1), (y2, s2) = (ssd_cuda(*args, chunk=chunk, init_state=st0)
                           for _ in range(2))
-    out = {"attention_decode": bool(torch.equal(a, b)),
+    out = {"sketch_insert": all(torch.equal(sk[0][i][k], sk[1][i][k])
+                                for i in (0, 1) for k in sk[0][i]),
+           "sketch_drained": int(sk[0][1]["d_n"]),
+           "failrank_iterate": all(torch.equal(u, v) for i in (0, 2)
+                                   for u, v in zip(fr[i], fr[i + 1])),
+           "attention_decode": bool(torch.equal(a, b)),
            "ssd_scan": bool(torch.equal(y1, y2) and torch.equal(s1, s2))}
-    require(all(out.values()), f"runs differ: {out}")
+    require(all(v for k, v in out.items() if k != "sketch_drained")
+            and out["sketch_drained"] > 0, f"runs differ: {out}")
     return out
 
 
@@ -521,7 +672,7 @@ def fault_list(mesh_n):
 
 def drive(sloth, mesh_n, lib):
     """Three ``detect`` calls; checks each verdict against the reference
-    and the sketch kernel's two launches per call."""
+    and the sketch kernel's one launch per call."""
     from repro_torch.core.failures import FailSlow
     verdicts = {}
     for f in fault_list(mesh_n):
@@ -548,7 +699,7 @@ def drive(sloth, mesh_n, lib):
         require(abs(v.failrank.iterations - iters) <= 1,
                 f"{mesh_n}x{mesh_n} {f}: FailRank iterations "
                 f"{v.failrank.iterations} vs reference {iters}")
-        require(k1 == 2, f"sketch kernel launched {k1} times in detect")
+        require(k1 == 1, f"sketch kernel launched {k1} times in detect")
         verdicts[f] = v
     return verdicts
 
@@ -864,6 +1015,141 @@ def profile_serving(arch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the unit of K1's chain bound: one dependent shared-memory load
+# ---------------------------------------------------------------------------
+
+#: One thread walks a cycle of dependent shared-memory loads and writes the
+#: cycles per load to out[0] (and the walk's end to out[1], so that the
+#: walk is kept).  Built beside the kernels, used only here.
+SMEM_PROBE_CU = r"""
+#include <cuda_runtime.h>
+__global__ void walk(float* out) {
+  __shared__ int next[1024];
+  for (int i = threadIdx.x; i < 1024; i += blockDim.x) next[i] = (i + 33) & 1023;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  int p = 0;
+  for (int i = 0; i < 256; ++i) p = next[p];
+  const long long t0 = clock64();
+  for (int i = 0; i < 4096; ++i) p = next[p];
+  const long long t1 = clock64();
+  out[0] = (float)(t1 - t0) / 4096.0f;
+  out[1] = (float)p;
+}
+extern "C" int smem_latency(float* out) {
+  walk<<<1, 32>>>(out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def start_smem_probe(lib):
+    """Start ``nvcc`` for the probe (beside ``lib.build_all``'s)."""
+    lib.BUILD.mkdir(parents=True, exist_ok=True)
+    src = lib.BUILD / "smem_probe.cu"
+    src.write_text(SMEM_PROBE_CU)
+    out = lib.BUILD / "libsmem_probe.so"
+    return out, subprocess.Popen(
+        [lib._nvcc(), *lib.NVCC_FLAGS, "-o", str(out), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def smem_latency_cycles(probe) -> float:
+    """Cycles of one dependent shared-memory load on the card."""
+    import ctypes
+
+    import torch
+    out_path, proc = probe
+    log, _ = proc.communicate(timeout=600)
+    require(proc.returncode == 0, f"nvcc failed for the probe:\n{log}")
+    fn = ctypes.CDLL(str(out_path)).smem_latency
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p]
+    out = torch.zeros(2, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    require(fn(out.data_ptr()) == 0, "probe launch")
+    torch.cuda.synchronize()
+    return float(out[0])
+
+
+# ---------------------------------------------------------------------------
+# K2 per failrank_dense call, host to host (also for an earlier tree)
+# ---------------------------------------------------------------------------
+
+FAILRANK_LOOP_NS = (68, 260, 1028)
+
+
+def failrank_host_loop(ops, w, l, s0, eps=1e-4, max_iters=100):
+    """``failrank_dense``'s loop as the port ran it before the iteration
+    became one launch: a step kernel a step, the L1 residual read by the
+    host after each.  Uses only ``ops.failrank_step``, which every version
+    of the port has."""
+    s, it = s0, 0
+    for it in range(1, max_iters + 1):
+        s_new, l_new = ops.failrank_step(w, l, s, s0)
+        delta = float((s_new - s).abs().sum() + (l_new - l).abs().sum())
+        s, l = s_new, l_new
+        if delta < eps:
+            break
+    return s.cpu(), l.cpu(), it
+
+
+def failrank_loop_times(dev, reps=20) -> dict:
+    """Per n of ``FAILRANK_LOOP_NS``: the host loop's wall ms per call
+    (median of ``reps``, its reads included) and, where the tree has the
+    one-launch iteration, its wall ms per call the same way (the launch and
+    the reads of s, L and the step count) and its device ms (``timed``)
+    with W and L in shared and in device memory."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels.failrank_step import ops
+
+    def wall(fn):
+        fn()
+        torch.cuda.synchronize()
+        return statistics.median(host_ms(fn) for _ in range(reps))
+
+    out = {}
+    for n in FAILRANK_LOOP_NS:
+        w, l, _, s0 = failrank_inputs(dev, n)
+        row = {"host_loop_ms": wall(lambda: failrank_host_loop(ops, w, l, s0)),
+               "host_loop_steps": failrank_host_loop(ops, w, l, s0)[2]}
+        if hasattr(ops, "failrank_iterate_cuda"):
+            def one(stripes=None):
+                s, l_, steps = ops.failrank_iterate_cuda(w, l, s0, s0,
+                                                         stripes=stripes)
+                return s.cpu(), l_.cpu(), int(steps)
+            row["one_launch_ms"] = wall(one)
+            row["one_launch_steps"] = one()[2]
+            for stripes in (("shared", "device") if n < 1028 else ("device",)):
+                row[f"device_ms_{stripes}"] = timed(
+                    lambda: ops.failrank_iterate_cuda(
+                        w, l, s0, s0, stripes=stripes), reps)["ms"]
+        out[n] = row
+    return out
+
+
+def failrank_loops_main(src: str) -> int:
+    """``--failrank-loops SRC``: ``failrank_loop_times`` for the port in
+    ``SRC`` (this tree's ``src`` or an earlier tree's), one JSON line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    sys.path.remove(str(ROOT / "src"))
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.kernels import _lib
+    emit({"phase": "failrank_loops", "src": src,
+          "module": _lib.__file__, "nvidia_smi": subprocess.run(
+              ["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"], capture_output=True, text=True,
+              timeout=60, check=True).stdout.strip(),
+          "times": failrank_loop_times(torch.device("cuda", 0))})
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -878,7 +1164,8 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _lib as lib
     from repro_torch.kernels.failrank_step import ops as fr_ops
-    from repro_torch.kernels.failrank_step.ref import failrank_step_ref
+    from repro_torch.kernels.failrank_step.ref import (failrank_iterate_ref,
+                                                       failrank_step_ref)
     from repro_torch.kernels.sketch_update import ops as sk_ops
     from repro_torch.kernels.sketch_update import ref as sk_ref
 
@@ -897,6 +1184,7 @@ def main() -> int:
 
     # ---- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
+    probe = start_smem_probe(lib)
     secs = lib.build_all()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "per_source": secs,
@@ -934,8 +1222,8 @@ def main() -> int:
     emit({"phase": "main_path_launches", "launches": launches,
           "setup_s": setup_s})
     require(dense_err <= 1e-4, f"dense vs COO s gap {dense_err}")
-    require(launches["sketch_insert_runs"] == 6, "sketch kernel launches")
-    require(dense_it >= 1 and launches["failrank_step"] == dense_it,
+    require(launches["sketch_insert_runs"] == 3, "sketch kernel launches")
+    require(dense_it >= 1 and launches["failrank_step"] == 1,
             "failrank kernel launches")
     for f, v in verdicts.items():
         require(v.recorder.n_comp_drained > 0
@@ -958,52 +1246,94 @@ def main() -> int:
 
     p = cfg.sketch
     inputs = sketch_inputs(sloth8, sim, dev)
-    k1 = {"ms": 0.0, "events_ms": 0.0, "plain_ms": 0.0, "bytes": 0,
-          "err": 0.0, "runs": {}}
-    for side, args in inputs.items():
-        n = args[0].shape[0]
-        st0, dr0 = sk_ref.make_state(p, dev), sk_ref.make_drain(n, dev)
+    jobs = [(sk_ref.make_state(p, dev),
+             sk_ref.make_drain(args[0].shape[0], dev), tuple(args), p)
+            for args in inputs.values()]
 
-        def kernel(args=args, st0=st0, dr0=dr0):
-            # the wrapper copies the state and drain, then launches
-            return sk_ops.insert_runs_cuda(st0, dr0, *args, H=p.H)
-        t = timed(kernel, reps=5)
-        st_k, dr_k = kernel()
+    def k1_kernel():
+        # copies both states and drains, then one launch for both sketches
+        return sk_ops.launch_insert_runs(jobs)
+    k1 = timed(k1_kernel, reps=5)
+    k1["kernel_breakdown_ms"] = launch_breakdown(k1_kernel, 5)
+    got, status = k1_kernel()
+    sk_ops.raise_on_status(status)
+    k1.update(plain_ms=0.0, bytes=0, err=0.0, sides={})
+    for (side, args), (st_k, dr_k) in zip(inputs.items(), got):
+        n = args[0].shape[0]
         cpu_args = [a.cpu() for a in args]
         out = {}
         plain = host_ms(lambda: out.setdefault("r", sk_ref.insert_runs_plain(
             sk_ref.make_state(p), sk_ref.make_drain(n), *cpu_args, H=p.H)))
         st_p, dr_p = out["r"]
-        err = max(max_abs_err(st_k, st_p), max_abs_err(dr_k, dr_p))
+        st_m, dr_m, events = sk_ref.insert_runs_indexed(
+            sk_ref.make_state(p), sk_ref.make_drain(n), *cpu_args, H=p.H)
+        err = max(max_abs_err(st_k, st_p), max_abs_err(dr_k, dr_p),
+                  max_abs_err(st_m, st_p), max_abs_err(dr_m, dr_p))
         drained = int(dr_k["d_n"])
         state_b = sum(t.numel() * t.element_size() for t in st_k.values())
         nbytes = (sum(a.numel() * a.element_size() for a in args)
                   + 2 * state_b + drained * 40 + 8)
-        k1["ms"] += t["ms"]
-        k1["events_ms"] += t["events_ms"]
-        k1["timing"] = timing_label([] if t["ahead"] else ["ms"])
+        # the chains of this design: one dependent shared-memory round
+        # trip per run for its Stage-1 bucket; the runs that reach Stage 2
+        # (``promoted``), one round trip each for their row, form a second
+        # chain that need not wait for the first, so the longer of the two
+        # bounds the design's time.  Not the card's floor: runs that share
+        # no bucket, row or eviction do not depend on each other, and a
+        # design that ran them side by side would not be held to it
+        chain = max(int((args[2] > 0).sum()), events["promoted"])
         k1["plain_ms"] += plain
         k1["bytes"] += nbytes
         k1["err"] = max(k1["err"], err)
-        k1["runs"][side] = {"runs": n, "drained": drained, **t,
-                            "plain_cpu_ms": plain, "bytes": nbytes}
+        k1["sides"][side] = {"runs": n, "drained": drained,
+                             "plain_cpu_ms": plain, "bytes": nbytes,
+                             "chain_accesses": chain, **events}
     require(k1["err"] == 0.0, f"sketch kernel vs plain at main-path shapes: "
                               f"{k1['err']}")
-    emit({"phase": "sketch_kernel_main_path_shapes", **k1["runs"],
-          "max_abs_err": k1["err"]})
+    lat = smem_latency_cycles(probe)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    # the two sketches are two blocks of one launch: the longer chain bounds
+    k1["serial_chain_bound_ms"] = (max(v["chain_accesses"]
+                                for v in k1["sides"].values())
+                            * lat / (sm_mhz * 1e6) * 1e3)
+    emit({"phase": "sketch_kernel_main_path_shapes", **k1,
+          "smem_latency_cycles": lat, "clocks_max_sm_mhz": sm_mhz})
 
     w, l = (torch.from_numpy(x).to(dev) for x in fr_ops.mcg_dense(mcg))
     s0 = torch.as_tensor(mcg.s0, dtype=torch.float32, device=dev)
-    s_k, l_k = fr_ops.failrank_step_cuda(w, l, s0, s0)
-    s_p, l_p = failrank_step_ref(w, l, s0, s0)
-    k2_err = max(float((s_k - s_p).abs().max()),
-                 float((l_k - l_p).abs().max()))
-    require(k2_err <= 1e-5, f"failrank step on the MCG: {k2_err}")
-    k2_times = times(lambda: fr_ops.failrank_step_cuda(w, l, s0, s0),
-                     lambda: failrank_step_ref(w, l, s0, s0), None, 100)
+    fp = cfg.failrank
+    coef = dict(lam=fp.lam, alpha=fp.alpha, beta=fp.beta, gamma=fp.gamma)
+    stop = dict(eps=fp.eps, max_iters=fp.max_iters)
+    s_k, l_k = fr_ops.failrank_step(w, l, s0, s0, **coef)
+    s_p, l_p = failrank_step_ref(w, l, s0, s0, **coef)
+    k2_step_err = float((s_k - s_p).abs().max())
+    require(k2_step_err <= 1e-5 and torch.equal(l_k, l_p),
+            f"failrank step on the MCG: s {k2_step_err}, L exact "
+            f"{torch.equal(l_k, l_p)}")
+    k2_loop = check_failrank_loop(
+        fr_ops.failrank_iterate(w, l, s0, s0, **coef, **stop),
+        failrank_iterate_ref(w, l, s0, s0, **coef, **stop))
+    k2_times = times(
+        lambda: fr_ops.failrank_iterate(w, l, s0, s0, **coef, **stop),
+        lambda: failrank_iterate_ref(w, l, s0, s0, **coef, **stop), None,
+        20)
+    k2_step = times(lambda: fr_ops.failrank_step(w, l, s0, s0, **coef),
+                    lambda: failrank_step_ref(w, l, s0, s0, **coef), None,
+                    100)
     n = mcg.n_nodes
+    # W, L, s and s0 read once, s and L written once; 5n² + 3n operations
+    # a step, for the steps this MCG takes
     k2_bytes = 3 * n * n * 4 + 3 * n * 4
-    k2_flops = 5 * n * n + 3 * n
+    k2_bound = bound(k2_bytes, k2_loop["steps"] * (5 * n * n + 3 * n))
+    k2_step_bound = bound(k2_bytes, 5 * n * n + 3 * n)
+    emit({"phase": "failrank_kernel_main_path_shapes", "n": n, **k2_loop,
+          "per_call": {**k2_times, **k2_bound},
+          "per_step": {**k2_step, **k2_step_bound,
+                       "s_max_abs_err": k2_step_err}})
+    emit({"phase": "failrank_loops", "src": "src",
+          "times": failrank_loop_times(dev)})
 
     # ---- 5. resnet50 on 4×4 (the quickstart configuration) ---------------
     sloth4 = Sloth(build_workload("resnet50"), Mesh2D(4), cfg)
@@ -1011,7 +1341,7 @@ def main() -> int:
     drive(sloth4, 4, lib)
     emit({"phase": "main_path_launches", "mesh": "4x4",
           "launches": dict(lib.LAUNCHES)})
-    require(lib.LAUNCHES["sketch_insert_runs"] == 6, "4x4 sketch launches")
+    require(lib.LAUNCHES["sketch_insert_runs"] == 3, "4x4 sketch launches")
     again = failrank(mcg, cfg.failrank)
     require(again.iterations == coo.iterations and np.array_equal(
         again.raw_node_scores, coo.raw_node_scores),
@@ -1047,27 +1377,30 @@ def main() -> int:
     for arch in ("smollm-135m", "mamba2-1.3b"):
         profile_serving(arch, dev)
 
-    k1_bound = k1["bytes"] / HBM_BYTES_PER_S * 1e3
-    k2_bound = max(k2_bytes / HBM_BYTES_PER_S,
-                   k2_flops / FP32_FLOP_PER_S) * 1e3
     emit({"kernels": [
         {"name": "sketch_insert_runs", "route": "cuda",
          "source": "src/repro_torch/csrc/sketch_insert.cu",
          "replaces": "src/repro/kernels/sketch_update/kernel.py:158",
          "launches": launches["sketch_insert_runs"],
          "max_abs_err": k1["err"], "ms": k1["ms"],
-         "events_ms": k1["events_ms"], "timing": k1["timing"],
+         "events_ms": k1["events_ms"],
+         "timing": timing_label([] if k1["ahead"] else ["ms"]),
          "plain_ms": k1["plain_ms"], "plain_device": "cpu",
-         "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None,
-         "shape": "resnet50 8x8, comp + comm sketches of one detect"},
+         **{k: v for k, v in bound(k1["bytes"], 0).items()
+            if k in ("bound_ms", "bound_by")},
+         "library_ms": None,
+         "shape": "resnet50 8x8, comp + comm sketches of one detect, "
+                  "one launch"},
         {"name": "failrank_step", "route": "cuda",
          "source": "src/repro_torch/csrc/failrank_step.cu",
          "replaces": "src/repro/kernels/failrank_step/kernel.py:42",
-         "launches": launches["failrank_step"], "max_abs_err": k2_err,
-         **k2_times, "plain_device": "cuda", "bound_ms": k2_bound,
-         "bound_by": "bytes" if k2_bytes / HBM_BYTES_PER_S
-         >= k2_flops / FP32_FLOP_PER_S else "operations",
-         "shape": f"n={n}, one step"},
+         "launches": launches["failrank_step"],
+         "max_abs_err": max(k2_loop["max_abs_err"], k2_step_err),
+         **k2_times, "plain_device": "cuda",
+         "bound_ms": k2_bound["bound_ms"], "bound_by": k2_bound["bound_by"],
+         "steps": k2_loop["steps"], "step_ms": k2_step["ms"],
+         "plain_step_ms": k2_step["plain_ms"],
+         "shape": f"n={n}, one failrank_dense call (all its steps)"},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
@@ -1101,4 +1434,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--failrank-loops"]:
+        sys.exit(failrank_loops_main(sys.argv[2]))
     sys.exit(main())

@@ -10,10 +10,11 @@ Two interchangeable sketch implementations (``record(..., impl=...)``):
   (:class:`~repro_torch.core.sketch.FailSlowSketch.insert_run`), one
   Python call per run, on the host.
 * ``impl="batched"`` — the packed-state path
-  (:func:`repro_torch.kernels.sketch_update.ops.insert_runs`) on
-  ``device``: the CUDA kernel on the card, its plain torch version on the
-  CPU, with Stage-2 FIFO evictions preserved in the drained-eviction
-  stream.  It never runs the numpy oracle.
+  (:func:`repro_torch.kernels.sketch_update.ops.insert_runs_many`) on
+  ``device``: both sketches in one launch of the CUDA kernel on the card,
+  its plain torch version once per sketch on the CPU, with Stage-2 FIFO
+  evictions preserved in the drained-eviction stream.  It never runs the
+  numpy oracle.
 
 Both paths produce the same merged (live + drained) pattern lists —
 bit-identical keys / counts / arrival order and float statistics to f32
@@ -116,40 +117,39 @@ def _sketch_runs_ref(params: SketchParams, keys, reps, durs, vals, t0s,
     return sk.patterns(), sk.compressed_bytes(), sk.n_evicted
 
 
-def _sketch_runs_batched(params: SketchParams, keys, reps, durs, vals,
-                         t0s, dts, key_tag: int, device):
-    """Packed-state path on ``device``: one insertion over all runs,
-    drained evictions preserved, keys rebuilt with the sketch-truncated
-    tag bit restored (see :func:`repro_torch.kernels.sketch_update.ops
-    .patterns`)."""
+def _sketch_runs_batched(sides, device):
+    """Packed-state path on ``device``: one insertion call for every
+    sketch (one kernel launch on the card), drained evictions preserved,
+    keys rebuilt with the sketch-truncated tag bit restored (see
+    :func:`repro_torch.kernels.sketch_update.ops.patterns`).  ``sides``
+    holds ``(params, runs, key_tag)``."""
     from ..kernels.sketch_update import ops as sketch_ops
+    if not sides:
+        return []
+    device = resolve_device(device)
 
     def on(x, dtype):
         return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(
             device)
 
-    lo, hi = split_key(np.asarray(keys, dtype=np.int64))
-    state = sketch_ops.make_state(params, device=device)
-    drain = sketch_ops.make_drain(len(keys), device=device)
-    state, drain = sketch_ops.insert_runs(
-        state, drain, on(lo, np.int32), on(hi, np.int32),
-        on(reps, np.int32), on(durs, np.float32), on(vals, np.float32),
-        on(t0s, np.float32), on(dts, np.float32), params=params)
-    pats = sketch_ops.patterns(state, drain, key_tag=key_tag)
-    n_drained = int(drain["d_n"])
-    # byte-identical to FailSlowSketch.compressed_bytes(): on-chip state
-    # plus one exact Stage-2 slot per drained pattern
-    return (pats,
-            params.total_bytes() + n_drained * params.stage2_slot_bytes(),
-            n_drained)
-
-
-def _sketch_runs(impl: str, params: SketchParams, keys, reps, durs, vals,
-                 t0s, dts, key_tag: int, device):
-    if impl == "batched":
-        return _sketch_runs_batched(params, keys, reps, durs, vals, t0s,
-                                    dts, key_tag, resolve_device(device))
-    return _sketch_runs_ref(params, keys, reps, durs, vals, t0s, dts)
+    jobs = []
+    for params, (keys, reps, durs, vals, t0s, dts), _ in sides:
+        lo, hi = split_key(np.asarray(keys, dtype=np.int64))
+        jobs.append((sketch_ops.make_state(params, device=device),
+                     sketch_ops.make_drain(len(keys), device=device),
+                     (on(lo, np.int32), on(hi, np.int32), on(reps, np.int32),
+                      on(durs, np.float32), on(vals, np.float32),
+                      on(t0s, np.float32), on(dts, np.float32)), params))
+    out = []
+    for (params, _, key_tag), (state, drain) in zip(
+            sides, sketch_ops.insert_runs_many(jobs)):
+        n_drained = int(drain["d_n"])
+        # byte-identical to FailSlowSketch.compressed_bytes(): on-chip state
+        # plus one exact Stage-2 slot per drained pattern
+        out.append((sketch_ops.patterns(state, drain, key_tag=key_tag),
+                    params.total_bytes()
+                    + n_drained * params.stage2_slot_bytes(), n_drained))
+    return out
 
 
 def record(sim: SimResult, params: SketchParams,
@@ -165,7 +165,7 @@ def record(sim: SimResult, params: SketchParams,
     docstring): ``"ref"`` runs the per-run numpy oracle on host;
     ``"batched"`` runs the packed-state path on ``device`` (resolved by
     :func:`repro_torch.device.resolve_device`: the card unless ``"cpu"``
-    is asked for).  Pattern lists
+    is asked for), both sketches in one call.  Pattern lists
     always merge live Stage-2 entries with FIFO-drained partials —
     analysis sees every promoted pattern regardless of eviction pressure
     — and ``sketch_*_bytes`` accounts the drained rows at one Stage-2
@@ -177,27 +177,27 @@ def record(sim: SimResult, params: SketchParams,
                          f"options: {RECORDER_IMPLS}")
     comm_params = comm_params or params
 
-    comp = sim.comp
-    n_comp = 0
-    comp_patterns: list[Pattern] = []
-    comp_bytes = params.total_bytes()
-    n_comp_drained = 0
+    comp, comm = sim.comp, sim.comm
+    sides = {}
+    n_comp = n_comm = 0
     if len(comp["core"]):
         runs = comp_runs(comp, instr_per_task)
-        comp_patterns, comp_bytes, n_comp_drained = _sketch_runs(
-            impl, params, *runs, P.COMP_KEY_TAG, device)
+        sides["comp"] = (params, runs, P.COMP_KEY_TAG)
         n_comp = len(runs[0]) * instr_per_task
-
-    comm = sim.comm
-    n_comm = 0
-    comm_patterns: list[Pattern] = []
-    comm_bytes = comm_params.total_bytes()
-    n_comm_drained = 0
     if len(comm["src"]):
         runs = comm_runs(comm, packet_bytes, max_packets, hop_latency)
-        comm_patterns, comm_bytes, n_comm_drained = _sketch_runs(
-            impl, comm_params, *runs, P.COMM_KEY_TAG, device)
+        sides["comm"] = (comm_params, runs, P.COMM_KEY_TAG)
         n_comm = int(runs[1].sum())
+    if impl == "batched":
+        got = dict(zip(sides, _sketch_runs_batched(list(sides.values()),
+                                                   device)))
+    else:
+        got = {side: _sketch_runs_ref(p, *runs)
+               for side, (p, runs, _) in sides.items()}
+    comp_patterns, comp_bytes, n_comp_drained = got.get(
+        "comp", ([], params.total_bytes(), 0))
+    comm_patterns, comm_bytes, n_comm_drained = got.get(
+        "comm", ([], comm_params.total_bytes(), 0))
 
     return RecorderOutput(
         comp_patterns=comp_patterns,

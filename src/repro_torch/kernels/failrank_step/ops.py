@@ -1,11 +1,13 @@
-"""Public API: the fused dense FailRank step and the dense iteration.
+"""Public API: the dense FailRank iteration and its single step.
 
-``failrank_step`` launches ``csrc/failrank_step.cu`` for CUDA tensors and
-runs :func:`.ref.failrank_step_ref` for CPU tensors.  ``failrank_dense``
-iterates it over an MCG to the L1 tolerance, like the COO iteration in
-``core/failrank.py``; the two are different iterations (the dense step
-also moves L at non-edge entries, by β·s[u]), so they agree on ``s`` to a
-tolerance and not on the iteration count.
+``failrank_iterate`` launches ``csrc/failrank_step.cu`` once for the whole
+iteration on CUDA tensors (the residual and the ``eps`` stop stay on the
+card) and runs :func:`.ref.failrank_iterate_ref` on CPU tensors.
+``failrank_step`` is one step: the same kernel with ``max_iters = 1``.
+``failrank_dense`` iterates over an MCG to the L1 tolerance, like the COO
+iteration in ``core/failrank.py``; the two are different iterations (the
+dense step also moves L at non-edge entries, by β·s[u]), so they agree on
+``s`` to a tolerance and not on the iteration count.
 """
 
 from __future__ import annotations
@@ -19,11 +21,29 @@ from ...core.failrank import FailRankParams, _softmax_per_level
 from ...core.mcg import MCG
 from ...device import resolve_device
 from .. import _lib
-from .ref import failrank_step_ref
+from .ref import failrank_iterate_ref, failrank_step_ref
 
 
-def failrank_step_cuda(w, l, s, s0, *, lam=0.55, alpha=0.1, beta=0.3,
-                       gamma=0.6):
+def _load():
+    lib = _lib.load("failrank_step")
+    lib.failrank_iterate.restype = ctypes.c_int
+    lib.failrank_iterate.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float] * 5
+        + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p])
+    return lib
+
+
+#: ``stripes`` of :func:`failrank_iterate_cuda`: where the kernel keeps W
+#: and L (``None``: shared memory where they fit, else device memory).
+STRIPES = {None: -1, "device": 0, "shared": 1}
+
+
+def failrank_iterate_cuda(w, l, s, s0, *, lam=0.55, alpha=0.1, beta=0.3,
+                          gamma=0.6, eps=1e-4, max_iters=100, stripes=None):
+    """One launch for up to ``max_iters`` steps; returns ``(s, L, steps)``
+    on the card without waiting for them (``steps``: int32 scalar).
+    ``stripes`` (a key of :data:`STRIPES`) forces where W and L live, so
+    that the two paths can be timed at one n."""
     n = s.shape[0]
     dev = w.device
     for name, x, shape in (("w", w, (n, n)), ("l", l, (n, n)),
@@ -38,26 +58,38 @@ def failrank_step_cuda(w, l, s, s0, *, lam=0.55, alpha=0.1, beta=0.3,
         raise ValueError("failrank_step: empty graph")
     s_new = torch.empty_like(s)
     l_new = torch.empty_like(l)
-    fn = _lib.load("failrank_step").failrank_step
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
-                   + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+    steps = torch.empty((), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _lib.check(fn(w.data_ptr(), l.data_ptr(), s.data_ptr(),
-                      s0.data_ptr(), s_new.data_ptr(), l_new.data_ptr(), n,
-                      1.0 - lam, lam, alpha, beta, gamma, stream),
-                   "failrank_step")
+        _lib.check(_load().failrank_iterate(
+            w.data_ptr(), l.data_ptr(), s.data_ptr(), s0.data_ptr(),
+            s_new.data_ptr(), l_new.data_ptr(), steps.data_ptr(), n,
+            max_iters, 1.0 - lam, lam, alpha, beta, gamma, eps,
+            STRIPES[stripes], stream),
+            "failrank_step")
     _lib.LAUNCHES["failrank_step"] += 1
-    return s_new, l_new
+    return s_new, l_new, steps
+
+
+def failrank_iterate(w, l, s, s0, *, lam=0.55, alpha=0.1, beta=0.3,
+                     gamma=0.6, eps=1e-4, max_iters=100):
+    """Steps until the L1 residual is below ``eps`` or ``max_iters``
+    steps → ``(s, L, steps)``; one kernel launch for CUDA tensors."""
+    run = failrank_iterate_cuda if w.device.type == "cuda" \
+        else failrank_iterate_ref
+    return run(w, l, s, s0, lam=lam, alpha=alpha, beta=beta, gamma=gamma,
+               eps=eps, max_iters=max_iters)
 
 
 def failrank_step(w, l, s, s0, *, lam=0.55, alpha=0.1, beta=0.3,
                   gamma=0.6):
     """One fused step → ``(s', L')``; the kernel for CUDA tensors."""
-    step = failrank_step_cuda if w.device.type == "cuda" \
-        else failrank_step_ref
-    return step(w, l, s, s0, lam=lam, alpha=alpha, beta=beta, gamma=gamma)
+    if w.device.type == "cuda":
+        return failrank_iterate_cuda(w, l, s, s0, lam=lam, alpha=alpha,
+                                     beta=beta, gamma=gamma, eps=-1.0,
+                                     max_iters=1)[:2]
+    return failrank_step_ref(w, l, s, s0, lam=lam, alpha=alpha, beta=beta,
+                             gamma=gamma)
 
 
 def mcg_dense(mcg: MCG):
@@ -72,21 +104,14 @@ def mcg_dense(mcg: MCG):
 def failrank_dense(mcg: MCG, params: FailRankParams = FailRankParams(),
                    device=None):
     """Returns (node_scores softmaxed, raw s, raw dense L, iterations).
-    The residual is reduced on the device and read by the host after
-    every step."""
+    On the card the whole iteration is one launch and the host reads s, L
+    and the step count once."""
     dev = resolve_device(device)
     w, l = (torch.from_numpy(x).to(dev) for x in mcg_dense(mcg))
     s0 = torch.as_tensor(mcg.s0, dtype=torch.float32, device=dev)
-    s = s0
-    it = 0
-    for it in range(1, params.max_iters + 1):
-        s_new, l_new = failrank_step(
-            w, l, s, s0, lam=params.lam, alpha=params.alpha,
-            beta=params.beta, gamma=params.gamma)
-        delta = float((s_new - s).abs().sum() + (l_new - l).abs().sum())
-        s, l = s_new, l_new
-        if delta < params.eps:
-            break
+    s, l, steps = failrank_iterate(
+        w, l, s0, s0, lam=params.lam, alpha=params.alpha, beta=params.beta,
+        gamma=params.gamma, eps=params.eps, max_iters=params.max_iters)
     s_np = s.cpu().numpy()
     node_soft = _softmax_per_level(s_np.astype(np.float64), mcg.node_window)
-    return node_soft, s_np, l.cpu().numpy(), it
+    return node_soft, s_np, l.cpu().numpy(), int(steps)

@@ -1,9 +1,12 @@
 """Public API of the sketch-update kernel.
 
-``insert_runs`` (the recorder's run-compressed entry point) and
-``insert`` (per-record) take packed state on one device: CPU tensors go to
-the plain torch version in :mod:`.ref`, CUDA tensors launch the CUDA
-kernel ``csrc/sketch_insert.cu`` (one block for the sketch) or raise.
+``insert_runs_many`` inserts run streams into several sketches at once,
+each with its own state, drain and :class:`SketchParams`: CUDA tensors
+launch ``csrc/sketch_insert.cu`` once for all of them (one block per
+sketch), CPU tensors run the plain torch version in :mod:`.ref` once per
+sketch.  ``insert_runs`` (the one-sketch case) and ``insert`` (per record)
+are built on it.  On either device a state that breaks the kernel's
+Stage-2 precondition (``ref.PRECONDITION``) raises ``ValueError``.
 ``patterns`` / ``drain_patterns`` decode Stage-2 and the drained-eviction
 stream into the same :class:`~repro_torch.core.sketch.Pattern` records the
 numpy oracle produces.
@@ -32,6 +35,7 @@ class SketchArgs(ctypes.Structure):
     _fields_ = ([(k, ctypes.c_void_p) for k in _RUN_FIELDS]
                 + [(k, ctypes.c_void_p) for k in R.STATE_KEYS]
                 + [(k, ctypes.c_void_p) for k in R.DRAIN_KEYS]
+                + [("status", ctypes.c_void_p)]
                 + [(k, ctypes.c_int) for k in _INT_FIELDS])
 
 
@@ -44,59 +48,99 @@ def _check(name, x, dtype, shape, device):
             f"{tuple(x.shape)} on {x.device}")
 
 
-def _load():
-    lib = _lib.load("sketch_insert")
-    lib.sketch_insert_smem_bytes.restype = ctypes.c_longlong
-    lib.sketch_insert_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.sketch_insert_runs.restype = ctypes.c_int
-    lib.sketch_insert_runs.argtypes = [ctypes.POINTER(SketchArgs),
-                                       ctypes.c_void_p]
-    return lib
-
-
-def insert_runs_cuda(state, drain, lo, hi, reps, dur, val, t0, dt, *,
-                     H: int):
-    """Launch the CUDA kernel on copies of ``state`` / ``drain`` (the
-    inputs are not modified); returns the new ``(state, drain)``."""
-    dev = state["keys_lo"].device
+def _check_job(state, drain, runs, device):
     d, m = state["keys_lo"].shape
     L = state["s2_lo"].shape[0]
     cap = drain["d_lo"].shape[0]
-    n = lo.shape[0]
-    runs = dict(zip(_RUN_FIELDS, (lo, hi, reps, dur, val, t0, dt)))
-    for k, x in runs.items():
+    n = runs[0].shape[0]
+    for k, x in zip(_RUN_FIELDS, runs):
         _check(k, x, torch.int32 if k in ("lo", "hi", "reps")
-               else torch.float32, (n,), dev)
+               else torch.float32, (n,), device)
     if set(state) != set(R.STATE_KEYS) or set(drain) != set(R.DRAIN_KEYS):
         raise ValueError("sketch_insert_runs: state / drain must have the "
                          "keys of make_state / make_drain")
     for k in R.STATE_KEYS:
         shape = (d, m) if k in R.S1_KEYS else () if k == "counter" else (L,)
         _check(k, state[k], torch.float32 if k in R.S2F_KEYS
-               else torch.int32, shape, dev)
+               else torch.int32, shape, device)
     for k in R.DRAIN_KEYS:
         _check(k, drain[k], torch.float32 if k in R.DF_KEYS
-               else torch.int32, () if k == "d_n" else (cap,), dev)
+               else torch.int32, () if k == "d_n" else (cap,), device)
+    return n, d, m, L, cap
 
+
+def _load():
+    lib = _lib.load("sketch_insert")
+    lib.sketch_insert_smem_bytes.restype = ctypes.c_longlong
+    lib.sketch_insert_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.sketch_insert_runs.restype = ctypes.c_int
+    lib.sketch_insert_runs.argtypes = [ctypes.POINTER(SketchArgs),
+                                       ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+def launch_insert_runs(jobs):
+    """Launch the kernel once for ``jobs`` (``(state, drain, runs,
+    params)``, ``runs = (lo, hi, reps, dur, val, t0, dt)``, all on one CUDA
+    device; the kernel refuses more than ``MAX_SKETCHES`` of them) on
+    copies of each state and drain, without waiting for it.  Returns the
+    new ``[(state, drain)]`` and an int32 status per sketch (its
+    precondition code, read by :func:`raise_on_status`)."""
+    dev = jobs[0][0]["keys_lo"].device
     lib = _load()
-    smem = lib.sketch_insert_smem_bytes(d, m, L)
-    if smem > _lib.MAX_SMEM_BYTES:
-        raise ValueError(
-            f"sketch state needs {smem} B of shared memory (d={d}, m={m}, "
-            f"L={L}); one block holds at most {_lib.MAX_SMEM_BYTES} B")
-    st = {k: v.clone() for k, v in state.items()}
-    dr = {k: v.clone() for k, v in drain.items()}
-    args = SketchArgs(
-        *[x.data_ptr() for x in runs.values()],
-        *[st[k].data_ptr() for k in R.STATE_KEYS],
-        *[dr[k].data_ptr() for k in R.DRAIN_KEYS],
-        n, d, m, H, L, cap)
+    out, args = [], []
+    status = torch.full((len(jobs),), -1, dtype=torch.int32, device=dev)
+    for k, (state, drain, runs, params) in enumerate(jobs):
+        n, d, m, L, cap = _check_job(state, drain, runs, dev)
+        smem = lib.sketch_insert_smem_bytes(d, m, L)
+        if smem > _lib.MAX_SMEM_BYTES:
+            raise ValueError(
+                f"sketch state needs {smem} B of shared memory (d={d}, "
+                f"m={m}, L={L}); one block holds at most "
+                f"{_lib.MAX_SMEM_BYTES} B")
+        st = {key: v.clone() for key, v in state.items()}
+        dr = {key: v.clone() for key, v in drain.items()}
+        out.append((st, dr))
+        args.append(SketchArgs(
+            *[x.data_ptr() for x in runs],
+            *[st[key].data_ptr() for key in R.STATE_KEYS],
+            *[dr[key].data_ptr() for key in R.DRAIN_KEYS],
+            status[k:].data_ptr(), n, d, m, params.H, L, cap))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _lib.check(lib.sketch_insert_runs(ctypes.byref(args), stream),
-                   "sketch_insert_runs")
+        _lib.check(lib.sketch_insert_runs(
+            (SketchArgs * len(args))(*args), len(args), stream),
+            "sketch_insert_runs")
     _lib.LAUNCHES["sketch_insert_runs"] += 1
-    return st, dr
+    return out, status
+
+
+def raise_on_status(status) -> None:
+    """Wait for the launch and raise ``ValueError`` if a sketch's state
+    broke the precondition (no such sketch's result may be used)."""
+    for code in status.tolist():
+        if code < 0:
+            raise RuntimeError("sketch_insert_runs: a block wrote no status")
+        R.raise_on_violations(code)
+
+
+def insert_runs_many(jobs):
+    """Insert each job's runs into its sketch: ``jobs`` is a sequence of
+    ``(state, drain, runs, params)`` with ``runs = (lo, hi, reps, dur,
+    val, t0, dt)``; on the card one launch.  Returns ``[(state, drain)]``
+    in job order; the inputs are not modified."""
+    jobs = list(jobs)
+    if not jobs:
+        return []
+    if jobs[0][0]["keys_lo"].device.type == "cuda":
+        out, status = launch_insert_runs(jobs)
+        raise_on_status(status)
+        return out
+    out = []
+    for state, drain, runs, params in jobs:
+        R.raise_on_violations(R.stage2_violations(state))
+        out.append(R.insert_runs_plain(state, drain, *runs, H=params.H))
+    return out
 
 
 def insert_runs(state, drain, lo, hi, reps, dur, val, t0, dt, *,
@@ -104,11 +148,8 @@ def insert_runs(state, drain, lo, hi, reps, dur, val, t0, dt, *,
     """Run-compressed insertion: run ``i`` stands for ``reps[i]``
     consecutive records of key ``(lo[i], hi[i])`` starting at ``t0[i]``
     with stride ``dt[i]``.  Returns ``(state, drain)``."""
-    if state["keys_lo"].device.type == "cuda":
-        return insert_runs_cuda(state, drain, lo, hi, reps, dur, val, t0,
-                                dt, H=params.H)
-    return R.insert_runs_plain(state, drain, lo, hi, reps, dur, val, t0, dt,
-                               H=params.H)
+    return insert_runs_many(
+        [(state, drain, (lo, hi, reps, dur, val, t0, dt), params)])[0]
 
 
 def insert(state, lo, hi, dur, val, t, *, params: SketchParams,

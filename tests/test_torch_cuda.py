@@ -8,9 +8,13 @@ reference package, so it runs on a machine that has only the port:
 
 The sketch kernel must equal the plain version exactly (integer state,
 drain and float statistics: both round each float operation alone, the
-kernel being built with ``-fmad=false``); the FailRank step's L' exactly,
-its s' within 1e-5 (the plain version's matrix-vector product sums in
-another order).  Flash attention is held at the reference's f32 tolerance,
+kernel being built with ``-fmad=false``), also from a carried state and
+with two sketches of different geometry in one launch, and must raise for
+a state that breaks its Stage-2 precondition.  The FailRank step's L' must
+equal the plain version's exactly, its s' within 1e-5 (the plain version's
+matrix-vector product sums in another order); the whole iteration in one
+launch must stop within one step of the plain loop, with s and L within
+1e-5 (same count) or 1e-4, the L1 tolerance (one step apart).  Flash attention is held at the reference's f32 tolerance,
 2e-5, and the SSD scan at 2e-4 (both sum in another order than the plain
 versions' einsums).
 """
@@ -22,7 +26,8 @@ import torch
 from repro_torch.core.sketch import SketchParams, split_key
 from repro_torch.kernels import _lib
 from repro_torch.kernels.failrank_step import ops as fr_ops
-from repro_torch.kernels.failrank_step.ref import failrank_step_ref
+from repro_torch.kernels.failrank_step.ref import (failrank_iterate_ref,
+                                                   failrank_step_ref)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      rolled_pos_tab,
@@ -60,7 +65,8 @@ def _assert_equal(got: dict, exp: dict):
 
 @pytest.mark.parametrize("seed,d,m,H,L,n_keys", [
     (0, 2, 64, 4, 16, 20), (5, 2, 256, 4, 8, 60), (2, 3, 16, 8, 4, 20),
-    (3, 2, 1024, 8, 1024, 200)])
+    (3, 2, 1024, 8, 1024, 200), (1, 1, 8, 2, 2, 20), (4, 1, 16, 1, 4, 20),
+    (12, 2, 64, 2, 8, 300), (13, 2, 1024, 4, 2048, 200)])
 def test_sketch_kernel_matches_plain(dev, seed, d, m, H, L, n_keys):
     p = SketchParams(d=d, m=m, H=H, L=L)
     args = [torch.from_numpy(x).to(dev) for x in _runs(seed, 300, n_keys)]
@@ -75,6 +81,45 @@ def test_sketch_kernel_matches_plain(dev, seed, d, m, H, L, n_keys):
     torch.cuda.synchronize()
     _assert_equal(st_k, st_p)
     _assert_equal(dr_k, dr_p)
+
+
+def test_sketch_kernel_at_the_pod_telemetry_geometry(dev):
+    """SketchParams(d=2, m=1024, H=4, L=2048), the pod telemetry's sketch,
+    with enough keys to fill Stage 2 and evict."""
+    p = SketchParams(d=2, m=1024, H=4, L=2048)
+    args = [torch.from_numpy(x).to(dev) for x in _runs(14, 5000, 6000)]
+    st_k, dr_k = sk_ops.insert_runs(sk_ref.make_state(p, dev),
+                                    sk_ref.make_drain(5000, dev), *args,
+                                    params=p)
+    st_p, dr_p = sk_ref.insert_runs_plain(sk_ref.make_state(p, dev),
+                                          sk_ref.make_drain(5000, dev),
+                                          *args, H=p.H)
+    _assert_equal(st_k, st_p)
+    _assert_equal(dr_k, dr_p)
+    assert int(dr_k["d_n"]) > 0
+
+
+def test_sketch_kernel_keys_sharing_a_home_slot(dev):
+    """Keys and their twins, which share their home slot in the key index:
+    long probe runs, and deletions that move entries."""
+    p = SketchParams(d=2, m=64, H=2, L=8)
+    lo, hi, *rest = _runs(15, 600, 30)
+    lo2, hi2 = sk_ref.index_home_twin(lo, hi)
+    twin = np.random.default_rng(16).random(600) < 0.5
+    runs = [np.where(twin, lo2, lo), np.where(twin, hi2, hi), *rest]
+    args = [torch.from_numpy(x).to(dev) for x in runs]
+    st_k, dr_k = sk_ops.insert_runs(sk_ref.make_state(p, dev),
+                                    sk_ref.make_drain(600, dev), *args,
+                                    params=p)
+    st_p, dr_p = sk_ref.insert_runs_plain(sk_ref.make_state(p, dev),
+                                          sk_ref.make_drain(600, dev), *args,
+                                          H=p.H)
+    _assert_equal(st_k, st_p)
+    _assert_equal(dr_k, dr_p)
+    cpu = [torch.from_numpy(x) for x in runs]
+    *_, events = sk_ref.insert_runs_indexed(
+        sk_ref.make_state(p), sk_ref.make_drain(600), *cpu, H=p.H)
+    assert events["evicted"] > 0 and events["shifted"] > 0
 
 
 def test_sketch_kernel_per_record_matches_plain(dev):
@@ -101,18 +146,117 @@ def test_sketch_kernel_rejects_oversized_state(dev):
                            sk_ref.make_drain(4, dev), *args, params=p)
 
 
-@pytest.mark.parametrize("n", [68, 260])
-def test_failrank_kernel_matches_plain(dev, n):
+def test_sketch_kernel_continues_from_state(dev):
+    """A second launch builds its index, bitmap and ring from the state
+    the first left (full Stage 2, evictions on both calls)."""
+    p = SketchParams(d=2, m=32, H=2, L=4)
+    st_k = st_p = sk_ref.make_state(p, dev)
+    dr_k = dr_p = sk_ref.make_drain(400, dev)
+    for seed in (6, 7):
+        args = [torch.from_numpy(x).to(dev) for x in _runs(seed, 200, 40)]
+        st_k, dr_k = sk_ops.insert_runs(st_k, dr_k, *args, params=p)
+        st_p, dr_p = sk_ref.insert_runs_plain(st_p, dr_p, *args, H=p.H)
+        _assert_equal(st_k, st_p)
+        _assert_equal(dr_k, dr_p)
+    assert int(dr_k["d_n"]) > p.L
+
+
+def test_sketch_kernel_two_sketches_one_launch(dev):
+    jobs = []
+    for p, (seed, n, n_keys) in ((SketchParams(d=2, m=1024, H=8, L=1024),
+                                  (20, 600, 300)),
+                                 (SketchParams(d=3, m=64, H=2, L=8),
+                                  (21, 400, 80))):
+        args = tuple(torch.from_numpy(x).to(dev)
+                     for x in _runs(seed, n, n_keys))
+        jobs.append((sk_ref.make_state(p, dev), sk_ref.make_drain(n, dev),
+                     args, p))
+    before = _lib.LAUNCHES["sketch_insert_runs"]
+    got = sk_ops.insert_runs_many(jobs)
+    assert _lib.LAUNCHES["sketch_insert_runs"] == before + 1
+    for (st_k, dr_k), (st0, dr0, args, p) in zip(got, jobs):
+        st_p, dr_p = sk_ref.insert_runs_plain(st0, dr0, *args, H=p.H)
+        _assert_equal(st_k, st_p)
+        _assert_equal(dr_k, dr_p)
+    assert int(got[1][1]["d_n"]) > 0
+
+
+def test_sketch_kernel_refuses_more_sketches_than_it_takes(dev):
+    p = SketchParams(d=1, m=8, H=2, L=2)
+    args = tuple(torch.from_numpy(x).to(dev) for x in _runs(0, 4, 4))
+    jobs = [(sk_ref.make_state(p, dev), sk_ref.make_drain(4, dev), args, p)]
+    assert len(sk_ops.insert_runs_many(jobs * 8)) == 8
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        sk_ops.insert_runs_many(jobs * 9)
+
+
+@pytest.mark.parametrize("bit", range(4))
+def test_sketch_kernel_rejects_a_broken_state(dev, bit):
+    p = SketchParams(d=2, m=32, H=2, L=4)
+    args = [torch.from_numpy(x).to(dev) for x in _runs(6, 80, 20)]
+    st, _ = sk_ops.insert_runs(sk_ref.make_state(p, dev),
+                               sk_ref.make_drain(80, dev), *args, params=p)
+    assert bool((st["s2_valid"] == 1).all())
+    if bit == 0:                        # the oldest row: the rest stay in range
+        st["s2_valid"][int(st["s2_arrival"].argmin())] = 2
+    elif bit == 1:
+        st["s2_arrival"][2] = st["counter"]
+    elif bit == 2:
+        st["s2_arrival"][3] = st["s2_arrival"][0]
+    else:
+        st["s2_lo"][1], st["s2_hi"][1] = st["s2_lo"][0], st["s2_hi"][0]
+    with pytest.raises(ValueError, match=sk_ref.PRECONDITION[bit]):
+        sk_ops.insert_runs(st, sk_ref.make_drain(80, dev), *args, params=p)
+
+
+def _failrank_inputs(dev, n):
     rng = np.random.default_rng(n)
     w = rng.random((n, n)).astype(np.float32)
     w /= w.sum(1, keepdims=True)
-    x = [torch.from_numpy(a).to(dev) for a in
-         (w, rng.random((n, n)).astype(np.float32),
-          rng.random(n).astype(np.float32), rng.random(n).astype(np.float32))]
+    return [torch.from_numpy(a).to(dev) for a in
+            (w, rng.random((n, n)).astype(np.float32),
+             rng.random(n).astype(np.float32),
+             rng.random(n).astype(np.float32))]
+
+
+@pytest.mark.parametrize("n", [68, 260, 1028, 8200])
+def test_failrank_kernel_matches_plain(dev, n):
+    x = _failrank_inputs(dev, n)
+    before = _lib.LAUNCHES["failrank_step"]
     s_k, l_k = fr_ops.failrank_step(*x)
+    assert _lib.LAUNCHES["failrank_step"] == before + 1
     s_p, l_p = failrank_step_ref(*x)
     torch.testing.assert_close(s_k, s_p, atol=1e-5, rtol=0)
     assert torch.equal(l_k, l_p)
+
+
+@pytest.mark.parametrize("n", [68, 260, 1028])
+def test_failrank_loop_matches_plain_loop(dev, n):
+    """The whole iteration in one launch (W and L in shared memory at 68
+    and 260, in device memory at 1,028) against the plain loop."""
+    x = _failrank_inputs(dev, n)
+    before = _lib.LAUNCHES["failrank_step"]
+    s_k, l_k, it_k = fr_ops.failrank_iterate(*x)
+    assert _lib.LAUNCHES["failrank_step"] == before + 1
+    s_p, l_p, it_p = failrank_iterate_ref(*x)
+    gap = abs(int(it_k) - int(it_p))
+    assert gap <= 1 and int(it_k) > 1
+    tol = 1e-5 if gap == 0 else 1e-4
+    torch.testing.assert_close(s_k, s_p, atol=tol, rtol=0)
+    torch.testing.assert_close(l_k, l_p, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("n", [68, 260])
+def test_failrank_loop_in_device_memory_matches_plain_loop(dev, n):
+    """The device-memory path at the sizes the shared-memory path takes."""
+    x = _failrank_inputs(dev, n)
+    s_k, l_k, it_k = fr_ops.failrank_iterate_cuda(*x, stripes="device")
+    s_p, l_p, it_p = failrank_iterate_ref(*x)
+    gap = abs(int(it_k) - int(it_p))
+    assert gap <= 1 and int(it_k) > 1
+    tol = 1e-5 if gap == 0 else 1e-4
+    torch.testing.assert_close(s_k, s_p, atol=tol, rtol=0)
+    torch.testing.assert_close(l_k, l_p, atol=tol, rtol=0)
 
 
 def _attn_inputs(dev, b, s, t, hq, hk, d):
@@ -283,9 +427,21 @@ def test_ssd_kernel_chunk_parallel_phases(dev, b, s, h, p, g, n, chunk):
         torch.testing.assert_close(sk, sp, atol=2e-4, rtol=2e-4)
 
 
-@pytest.mark.parametrize("kernel", ["decode", "prefill", "ssd"])
+@pytest.mark.parametrize("kernel", ["decode", "prefill", "ssd", "sketch",
+                                    "failrank"])
 def test_two_runs_are_bit_identical(dev, kernel):
-    if kernel == "ssd":
+    if kernel == "sketch":                      # with evictions
+        p = SketchParams(L=256)
+        args = [torch.from_numpy(x).to(dev) for x in _runs(3, 2000, 1500)]
+        runs = [sum((tuple(sk_ops.insert_runs(
+            sk_ref.make_state(p, dev), sk_ref.make_drain(2000, dev), *args,
+            params=p)[i].values()) for i in (0, 1)), ())
+            for _ in range(2)]
+        assert int(runs[0][-1]) > 0             # d_n, the drain's count
+    elif kernel == "failrank":
+        x = _failrank_inputs(dev, 260)
+        runs = [fr_ops.failrank_iterate(*x) for _ in range(2)]
+    elif kernel == "ssd":
         *args, s0 = _ssd_inputs(dev, 4, 512, 64, 64, 8, 128, 5)
         runs = [ssd_ops.ssd(*args, chunk=128, init_state=s0)
                 for _ in range(2)]

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.failrank import FailRankParams as JParams
 from repro.core.failrank import failrank as j_failrank
 from repro.core.failures import FailSlow
 from repro.core.graph import build_workload
@@ -20,10 +21,11 @@ from repro.kernels.failrank_step.kernel import failrank_step as j_step
 from repro.kernels.failrank_step.ops import failrank_dense as j_dense
 from repro.kernels.failrank_step.ref import failrank_step_ref as j_step_ref
 from repro_torch.convert import mcg_from_numpy
-from repro_torch.core.failrank import failrank
+from repro_torch.core.failrank import FailRankParams, failrank
 from repro_torch.kernels import _lib
 from repro_torch.kernels.failrank_step.ops import (failrank_dense,
-                                                   failrank_step)
+                                                   failrank_iterate,
+                                                   failrank_step, mcg_dense)
 from repro_torch.kernels.failrank_step.ref import failrank_step_ref
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
@@ -91,6 +93,43 @@ def test_failrank_dense_matches_reference(ref_mcg):
     np.testing.assert_allclose(s, coo.raw_node_scores, atol=1e-4)
     assert it != coo.iterations
     assert soft.shape == (ref_mcg.n_nodes,)
+
+
+@pytest.mark.parametrize("eps,max_iters", [
+    (1e-4, 100), (1e-6, 100), (1e-4, 5), (1e-4, 1), (1e-4, 0)])
+def test_failrank_dense_iterations_match_reference(ref_mcg, eps, max_iters):
+    """The CPU iteration stops where the reference's ``failrank_dense``
+    does, at the tolerance and at the step limit."""
+    _, s_j, l_j, it_j = j_dense(
+        ref_mcg, JParams(eps=eps, max_iters=max_iters), impl="ref")
+    _, s, l, it = failrank_dense(
+        mcg_from_numpy(ref_mcg), FailRankParams(eps=eps,
+                                                max_iters=max_iters),
+        device="cpu")
+    assert it == it_j == min(it_j, max_iters)
+    np.testing.assert_allclose(s, np.asarray(s_j), atol=1e-6)
+    np.testing.assert_allclose(l, np.asarray(l_j), atol=1e-6)
+
+
+def test_failrank_dense_one_step_is_the_step(ref_mcg):
+    """``max_iters = 1`` is exactly one ``failrank_step_ref`` from s0, and
+    ``failrank_iterate`` returns the step count on the inputs' device."""
+    mcg = mcg_from_numpy(ref_mcg)
+    p = FailRankParams(max_iters=1)
+    _, s, l, it = failrank_dense(mcg, p, device="cpu")
+    w, l0 = map(torch.from_numpy, mcg_dense(mcg))
+    s0 = torch.as_tensor(mcg.s0, dtype=torch.float32)
+    s_exp, l_exp = failrank_step_ref(w, l0, s0, s0, lam=p.lam,
+                                     alpha=p.alpha, beta=p.beta,
+                                     gamma=p.gamma)
+    assert it == 1
+    assert np.array_equal(s, s_exp.numpy())
+    assert np.array_equal(l, l_exp.numpy())
+    s2, l2, steps = failrank_iterate(w, l0, s0, s0, max_iters=1)
+    assert steps.dtype == torch.int32 and int(steps) == 1
+    assert torch.equal(s2, s_exp) and torch.equal(l2, l_exp)
+    s3, l3 = failrank_step(w, l0, s0, s0)
+    assert torch.equal(s3, s_exp) and torch.equal(l3, l_exp)
 
 
 def test_failrank_without_edges():

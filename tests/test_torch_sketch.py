@@ -241,3 +241,136 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
 
 def _to_np(d):
     return {k: v.numpy() for k, v in d.items()}
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's Stage 2 (key index, free bitmap, FIFO ring), mirrored
+# by ref.insert_runs_indexed
+# ---------------------------------------------------------------------------
+
+def _record_runs(seed, n, n_keys):
+    """A per-record stream as runs of one (reps 1, dt 0)."""
+    lo, hi, dur, val, ts = _records(seed, n, n_keys, mult=31337)
+    return (lo, hi, np.ones(n, np.int32), dur, val, ts,
+            np.zeros(n, np.float32))
+
+
+def _twin_runs(seed, n, n_keys):
+    """Runs over ``n_keys`` keys and their twins, which share their home
+    slot in the key index (``ref.index_home_twin``): long probe runs, and
+    deletions that move entries."""
+    lo, hi, reps, dur, val, t0, dt = _random_runs(seed, n, n_keys, max_rep=4)
+    lo2, hi2 = TR.index_home_twin(lo, hi)
+    twin = np.random.default_rng(seed + 1).random(n) < 0.5
+    return (np.where(twin, lo2, lo), np.where(twin, hi2, hi), reps, dur, val,
+            t0, dt)
+
+
+_INDEXED_CASES = {
+    "d2m64L16": (SketchParams(d=2, m=64, H=4, L=16), [_random_runs(0, 150)]),
+    "d1m8L2": (SketchParams(d=1, m=8, H=2, L=2), [_random_runs(1, 150)]),
+    "d3m16L4": (SketchParams(d=3, m=16, H=8, L=4), [_random_runs(2, 150)]),
+    "default_L1024": (SketchParams(d=2, m=1024, H=8, L=1024),
+                      [_random_runs(3, 150)]),
+    "H1": (SketchParams(d=1, m=16, H=1, L=4), [_random_runs(4, 150)]),
+    "evict_L8_drain": (SketchParams(d=2, m=256, H=4, L=8),
+                       [_random_runs(5, 400, n_keys=60)]),
+    "carried_state": (SketchParams(d=2, m=32, H=2, L=4),
+                      [_random_runs(6, 80), _random_runs(7, 80)]),
+    "fifo_wraps": (SketchParams(d=2, m=64, H=2, L=8),
+                   [_random_runs(12, 900, n_keys=300, max_rep=4)]),
+    "records": (SketchParams(d=2, m=64, H=2, L=4), [_record_runs(11, 500, 40)]),
+    "home_twins": (SketchParams(d=2, m=64, H=2, L=8), [_twin_runs(15, 600, 30)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_INDEXED_CASES))
+def test_indexed_mirror_matches_plain_and_jax(case):
+    """The kernel's O(1) Stage-2 decisions give the scan's answers: state
+    and drain bit-equal to ``insert_runs_plain`` and equal to the JAX
+    ``insert_runs_vectorized``, call after call (the later calls build the
+    index from a carried state)."""
+    p, streams = _INDEXED_CASES[case]
+    tp = _tp(p)
+    cap = sum(len(r[0]) for r in streams)
+    st_i = st_p = TR.make_state(tp)
+    dr_i = dr_p = TR.make_drain(cap)
+    st_j, dr_j = JR.make_state(p), JR.make_drain(cap)
+    events = []
+    for runs in streams:
+        args = [torch.from_numpy(x) for x in runs]
+        st_i, dr_i, ev = TR.insert_runs_indexed(st_i, dr_i, *args, H=p.H)
+        st_p, dr_p = TR.insert_runs_plain(st_p, dr_p, *args, H=p.H)
+        st_j, dr_j = JB.insert_runs_vectorized(
+            st_j, dr_j, *map(jnp.asarray, runs), H=p.H)
+        events.append(ev)
+        _assert_dicts_equal(_to_np(st_i), _to_np(st_p), rtol=0)
+        _assert_dicts_equal(_to_np(dr_i), _to_np(dr_p), rtol=0)
+        _assert_dicts_equal(sketch_state_to_numpy(st_i),
+                            {k: np.asarray(v) for k, v in st_j.items()})
+        _assert_dicts_equal(drain_to_numpy(dr_i),
+                            {k: np.asarray(v) for k, v in dr_j.items()})
+    assert sum(ev["evicted"] for ev in events) == int(dr_i["d_n"])
+    if case == "fifo_wraps":          # several trips round the ring, and
+        assert events[0]["evicted"] > 5 * p.L      # deletions that moved
+        assert events[0]["shifted"] > 0            # colliding entries
+    if case == "home_twins":          # twins' entries moved by deletions
+        assert events[0]["evicted"] > 0 and events[0]["shifted"] > 0
+    if case == "carried_state":
+        assert events[1]["promoted"] > 0 and int(st_i["counter"]) > p.L
+
+
+def _broken(kind):
+    """A state the sketch never produces, one per precondition bit."""
+    p = TSketchParams(d=2, m=32, H=2, L=4)
+    st, _ = TO.insert_runs(TR.make_state(p), TR.make_drain(80),
+                           *map(torch.from_numpy, _random_runs(6, 80)),
+                           params=p)
+    assert bool((st["s2_valid"] == 1).all())
+    if kind == "valid":                 # the oldest row: the rest stay in range
+        st["s2_valid"][int(st["s2_arrival"].argmin())] = 2
+    elif kind == "arrival_ge_counter":
+        st["s2_arrival"][2] = st["counter"]
+    elif kind == "arrival_below_the_live_range":
+        st["s2_arrival"][2] = st["counter"] - 5
+    elif kind == "arrival_twice":
+        st["s2_arrival"][3] = st["s2_arrival"][0]
+    else:
+        st["s2_lo"][1], st["s2_hi"][1] = st["s2_lo"][0], st["s2_hi"][0]
+    return p, st
+
+
+@pytest.mark.parametrize("kind,bit", [
+    ("valid", 0), ("arrival_ge_counter", 1),
+    ("arrival_below_the_live_range", 1), ("arrival_twice", 2),
+    ("key_twice", 3)])
+def test_broken_stage2_precondition_raises(kind, bit):
+    p, st = _broken(kind)
+    assert TR.stage2_violations(st) == 1 << bit
+    runs = [torch.from_numpy(x) for x in _random_runs(7, 20)]
+    with pytest.raises(ValueError, match=TR.PRECONDITION[bit]):
+        TR.insert_runs_indexed(st, TR.make_drain(20), *runs, H=p.H)
+    with pytest.raises(ValueError, match=TR.PRECONDITION[bit]):
+        TO.insert_runs(st, TR.make_drain(20), *runs, params=p)
+
+
+def test_insert_runs_many_equals_single_calls():
+    """Comp and comm sketches with different SketchParams in one call
+    equal two single calls; the CPU launches nothing."""
+    jobs = []
+    for p, runs in ((TSketchParams(d=2, m=64, H=4, L=16),
+                     _random_runs(13, 300, n_keys=40)),
+                    (TSketchParams(d=3, m=32, H=2, L=8),
+                     _random_runs(14, 200, n_keys=60))):
+        jobs.append((TR.make_state(p), TR.make_drain(len(runs[0])),
+                     tuple(map(torch.from_numpy, runs)), p))
+    before = dict(_lib.LAUNCHES)
+    got = TO.insert_runs_many(jobs)
+    assert _lib.LAUNCHES == before
+    assert TO.insert_runs_many([]) == []
+    for (st, dr), (st0, dr0, runs, p) in zip(got, jobs):
+        exp = TO.insert_runs(st0, dr0, *runs, params=p)
+        _assert_dicts_equal(_to_np(st), _to_np(exp[0]), rtol=0)
+        _assert_dicts_equal(_to_np(dr), _to_np(exp[1]), rtol=0)
+        assert int(st0["counter"]) == 0
+    assert int(got[1][1]["d_n"]) > 0
