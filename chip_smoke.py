@@ -43,17 +43,31 @@
    measured by a probe built here), and K2's whole iteration at n = 68,
    260 and 1,028 host to host beside the step-a-launch host loop;
 5. repeats the verdict checks for resnet50 on a 4×4 mesh;
-6. drives the serving path, ``repro_torch.launch.serve.main``, at full
+6. drives the campaign path, ``repro_torch.launch.campaign.main``, on the
+   card: resnet50 on 8×8, kinds core, link, router and none at 10×, all six
+   detectors, the batched recorder, 4 streamed chunks, remap and reroute,
+   serial, with the counts set to 0 just before; K1 must launch exactly the
+   pinned 20 times (the number the traces imply: one per streamed chunk
+   with a record, one per post-hoc recording of the launcher's streaming
+   gate), K2, K3 and K4 never; every judged field must equal the JAX
+   reference's pins (scores within ``rel=1e-5``); the thread (4 workers)
+   and process (2 workers) executors must give ``==`` outcomes; the grid
+   of ``tests/data/mesh_campaign_baseline.json`` must be reproduced on the
+   card; prints each scenario's simulate / analyse / mitigate seconds, a
+   profile of the core scenario (device ms, idle share), and K1 per
+   streamed chunk from a carried state (and from a fresh state) beside
+   one launch over the whole trace;
+7. drives the serving path, ``repro_torch.launch.serve.main``, at full
    width and depth for smollm-135m (30 attention layers) and mamba2-1.3b
    (48 SSD layers), 8 requests of up to 512 tokens, 32 new tokens each,
    with the counts set to 0 before each: attention must launch once per
    layer per prefill and decode step (1,980: 60 through the prefill entry
    point, 1,920 through the split-key decode) and the SSD scan once per
    layer per prefill (96, none in decode);
-7. holds greedy tokens and prefill logits to the JAX reference's pins
+8. holds greedy tokens and prefill logits to the JAX reference's pins
    (``tests/test_torch_serve.py`` run as a script prints them) on the same
    numpy weights: the tokens equal, the top-5 logits within 1e-3;
-8. times flash attention and the SSD scan at the serving shapes beside
+9. times flash attention and the SSD scan at the serving shapes beside
    their plain versions, their bounds and (attention) PyTorch's
    ``scaled_dot_product_attention``, with a profiler breakdown of each
    kernel call by the kernels it launches, and profiles a full-size prefill and
@@ -135,7 +149,7 @@ PINS = (
                       3.4220635890960693, 3.3890700340270996]]},
 )
 
-#: The serving runs of phase 6 (``launch/serve.py`` flags).
+#: The serving runs of phase 7 (``launch/serve.py`` flags).
 SERVE_FLAGS = ["--requests", "8", "--batch", "4", "--prompt-len", "512",
                "--cache-len", "1024", "--max-new", "32"]
 
@@ -777,7 +791,435 @@ def time_stages(sloth, sim):
 
 
 # ---------------------------------------------------------------------------
-# phases 6-8: the serving path
+# phase 6: the campaign path
+# ---------------------------------------------------------------------------
+
+#: The campaign of phase 6, through ``repro_torch.launch.campaign.main``:
+#: resnet50 on 8×8, kinds core, link, router and none at 10×, one replicate,
+#: all six detectors, the batched recorder, 4 streamed chunks, remap and
+#: reroute (and the ``none`` control), on the default device (the card).
+CAMPAIGN_ARGV = ["--tiny", "--workload", "resnet50", "--mesh", "8x8",
+                 "--severities", "10", "--all-detectors", "--recorder-impl",
+                 "batched", "--streaming", "4", "--mitigation", "remap",
+                 "--mitigation", "reroute"]
+
+#: K1 launches of that campaign: each scenario's streamed SLOTH observes 4
+#: chunks, one launch for both sketches of each chunk that holds a record
+#: (none of these is empty), and the launcher's streaming gate records each
+#: scenario once more post hoc, one launch for both sketches: 4 × (4 + 1).
+#: The baselines read the raw trace and the mitigation re-simulations are
+#: never recorded, so nothing else launches it.  ``campaign_k1_launches``
+#: derives the same number from the traces.
+CAMPAIGN_K1_LAUNCHES = 20
+
+#: The JAX reference's judged fields on that grid (``python
+#: tests/test_torch_campaign.py``, CPU, recorder_impl="batched"): per
+#: scenario the truths (kind, location, t0, duration, slowdown), the
+#: compression ratio and makespan; per detector (flagged, kind, location,
+#: score, matched, truth rank, truth ranks, detection latency); per
+#: (detector, policy) (acted, correct, excluded cores, avoided links,
+#: healthy, failed and mitigated makespans, switch time).  All exact but the
+#: score, held at ``rel=1e-5`` (FailRank adds in another order in torch).
+CAMPAIGN_PINS = json.loads("""
+[
+ {"id": 0, "kind": "core", "sim_seed": 1604792283, "truths": [["core", 12, 1.4938207616503183, 6.918399793052359, 10.0]],
+  "compression": 161.0004745060823, "total_time": 14.3768223214893,
+  "detectors": [
+   ["sloth", true, "core", 12, 1.4999999923509586, true, 1, [1], 2.036261623136085],
+   ["thres", true, "core", 12, 10.696732784709015, true, 1, [1], null],
+   ["mscope", true, "core", 12, 2810.464474377378, true, 1, [1], null],
+   ["iaso", false, null, null, 2.8491883757506697e-22, false, 1, [1], null],
+   ["perseus", true, "core", 23, 56.0, false, 2, [2], null],
+   ["adr", true, "core", 12, 1.8739496401640272, true, 1, [1], null]],
+  "mitigation": [
+   ["sloth", "remap", true, true, [12], [], 7.8792234002854675, 14.3768223214893, 9.354849461390106, 3.5300823847864033],
+   ["sloth", "reroute", true, true, [12], [], 7.8792234002854675, 14.3768223214893, 9.354849461390106, 3.5300823847864033],
+   ["sloth", "none", false, true, [], [], 7.8792234002854675, 14.3768223214893, 14.3768223214893, null],
+   ["thres", "remap", true, true, [12], [], 7.8792234002854675, 14.3768223214893, 8.014946684012147, null],
+   ["thres", "reroute", true, true, [12], [], 7.8792234002854675, 14.3768223214893, 8.014946684012147, null],
+   ["thres", "none", false, true, [], [], 7.8792234002854675, 14.3768223214893, 14.3768223214893, null],
+   ["mscope", "remap", true, true, [12], [], 7.8792234002854675, 14.3768223214893, 8.014946684012147, null],
+   ["mscope", "reroute", true, true, [12], [], 7.8792234002854675, 14.3768223214893, 8.014946684012147, null],
+   ["mscope", "none", false, true, [], [], 7.8792234002854675, 14.3768223214893, 14.3768223214893, null],
+   ["iaso", "remap", false, false, [], [], 7.8792234002854675, 14.3768223214893, 14.3768223214893, null],
+   ["iaso", "reroute", false, false, [], [], 7.8792234002854675, 14.3768223214893, 14.3768223214893, null],
+   ["iaso", "none", false, false, [], [], 7.8792234002854675, 14.3768223214893, 14.3768223214893, null],
+   ["perseus", "remap", true, false, [23], [], 7.8792234002854675, 14.3768223214893, 14.324963145539355, null],
+   ["perseus", "reroute", true, false, [23], [], 7.8792234002854675, 14.3768223214893, 14.324963145539355, null],
+   ["perseus", "none", false, false, [], [], 7.8792234002854675, 14.3768223214893, 14.3768223214893, null],
+   ["adr", "remap", true, true, [12], [], 7.8792234002854675, 14.3768223214893, 8.014946684012147, null],
+   ["adr", "reroute", true, true, [12], [], 7.8792234002854675, 14.3768223214893, 8.014946684012147, null],
+   ["adr", "none", false, true, [], [], 7.8792234002854675, 14.3768223214893, 14.3768223214893, null]]},
+ {"id": 1, "kind": "link", "sim_seed": 1600154194, "truths": [["link", 211, 0.14904499846927274, 5.23361974308893, 10.0]],
+  "compression": 161.156890261016, "total_time": 7.939139333662,
+  "detectors": [
+   ["sloth", true, "link", 211, 1.489830936672747, true, 1, [1], 1.8331782720512904],
+   ["thres", true, "link", 211, 2.8038835991769746, true, 1, [1], null],
+   ["mscope", false, null, null, 0.0, false, null, [null], null],
+   ["iaso", false, null, null, 0.0, false, null, [null], null],
+   ["perseus", true, "core", 48, 204.0, false, null, [null], null],
+   ["adr", false, null, null, 1.007580758746721, false, null, [null], null]],
+  "mitigation": [
+   ["sloth", "remap", false, true, [], [], 7.8792234002854675, 7.939139333662, 7.939139333662, null],
+   ["sloth", "reroute", true, true, [], [211], 7.8792234002854675, 7.939139333662, 8.020480758018131, 1.9822232705205631],
+   ["sloth", "none", false, true, [], [], 7.8792234002854675, 7.939139333662, 7.939139333662, null],
+   ["thres", "remap", false, true, [], [], 7.8792234002854675, 7.939139333662, 7.939139333662, null],
+   ["thres", "reroute", true, true, [], [211], 7.8792234002854675, 7.939139333662, 7.945016421567292, null],
+   ["thres", "none", false, true, [], [], 7.8792234002854675, 7.939139333662, 7.939139333662, null],
+   ["mscope", "remap", false, false, [], [], 7.8792234002854675, 7.939139333662, 7.939139333662, null],
+   ["mscope", "reroute", false, false, [], [], 7.8792234002854675, 7.939139333662, 7.939139333662, null],
+   ["mscope", "none", false, false, [], [], 7.8792234002854675, 7.939139333662, 7.939139333662, null],
+   ["iaso", "remap", false, false, [], [], 7.8792234002854675, 7.939139333662, 7.939139333662, null],
+   ["iaso", "reroute", false, false, [], [], 7.8792234002854675, 7.939139333662, 7.939139333662, null],
+   ["iaso", "none", false, false, [], [], 7.8792234002854675, 7.939139333662, 7.939139333662, null],
+   ["perseus", "remap", true, false, [48], [], 7.8792234002854675, 7.939139333662, 7.942697020377812, null],
+   ["perseus", "reroute", true, false, [48], [], 7.8792234002854675, 7.939139333662, 7.942697020377812, null],
+   ["perseus", "none", false, false, [], [], 7.8792234002854675, 7.939139333662, 7.939139333662, null],
+   ["adr", "remap", false, false, [], [], 7.8792234002854675, 7.939139333662, 7.939139333662, null],
+   ["adr", "reroute", false, false, [], [], 7.8792234002854675, 7.939139333662, 7.939139333662, null],
+   ["adr", "none", false, false, [], [], 7.8792234002854675, 7.939139333662, 7.939139333662, null]]},
+ {"id": 2, "kind": "router", "sim_seed": 1760982794, "truths": [["router", 12, 1.7085285583686873, 5.796076866114236, 10.0]],
+  "compression": 160.94840337221586, "total_time": 7.9118850362107995,
+  "detectors": [
+   ["sloth", true, "link", 37, 1.4264773872571896, true, 1, [1], 0.2429320880548267],
+   ["thres", true, "link", 13, 2.9277246134894295, true, 1, [1], null],
+   ["mscope", false, null, null, 0.0, false, null, [null], null],
+   ["iaso", false, null, null, 0.0, false, null, [null], null],
+   ["perseus", true, "core", 10, 180.0, false, null, [null], null],
+   ["adr", false, null, null, 1.0065538528300317, false, null, [null], null]],
+  "mitigation": [
+   ["sloth", "remap", false, true, [], [], 7.8792234002854675, 7.9118850362107995, 7.9118850362107995, null],
+   ["sloth", "reroute", true, true, [4, 11, 12, 13, 14, 20], [8, 10, 11, 12, 13, 15, 16, 19, 29, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47, 48, 49, 63, 66, 67, 68, 69, 70, 72, 74, 78, 100], 7.8792234002854675, 7.9118850362107995, 8.77987511006658, 1.951460646423514],
+   ["sloth", "none", false, true, [], [], 7.8792234002854675, 7.9118850362107995, 7.9118850362107995, null],
+   ["thres", "remap", false, true, [], [], 7.8792234002854675, 7.9118850362107995, 7.9118850362107995, null],
+   ["thres", "reroute", true, true, [], [13], 7.8792234002854675, 7.9118850362107995, 7.909050769129616, null],
+   ["thres", "none", false, true, [], [], 7.8792234002854675, 7.9118850362107995, 7.9118850362107995, null],
+   ["mscope", "remap", false, false, [], [], 7.8792234002854675, 7.9118850362107995, 7.9118850362107995, null],
+   ["mscope", "reroute", false, false, [], [], 7.8792234002854675, 7.9118850362107995, 7.9118850362107995, null],
+   ["mscope", "none", false, false, [], [], 7.8792234002854675, 7.9118850362107995, 7.9118850362107995, null],
+   ["iaso", "remap", false, false, [], [], 7.8792234002854675, 7.9118850362107995, 7.9118850362107995, null],
+   ["iaso", "reroute", false, false, [], [], 7.8792234002854675, 7.9118850362107995, 7.9118850362107995, null],
+   ["iaso", "none", false, false, [], [], 7.8792234002854675, 7.9118850362107995, 7.9118850362107995, null],
+   ["perseus", "remap", true, false, [10], [], 7.8792234002854675, 7.9118850362107995, 7.972114319623499, null],
+   ["perseus", "reroute", true, false, [10], [], 7.8792234002854675, 7.9118850362107995, 7.972114319623499, null],
+   ["perseus", "none", false, false, [], [], 7.8792234002854675, 7.9118850362107995, 7.9118850362107995, null],
+   ["adr", "remap", false, false, [], [], 7.8792234002854675, 7.9118850362107995, 7.9118850362107995, null],
+   ["adr", "reroute", false, false, [], [], 7.8792234002854675, 7.9118850362107995, 7.9118850362107995, null],
+   ["adr", "none", false, false, [], [], 7.8792234002854675, 7.9118850362107995, 7.9118850362107995, null]]},
+ {"id": 3, "kind": "none", "sim_seed": 1981215537, "truths": [],
+  "compression": 161.1394957257577, "total_time": 7.8116649861988465,
+  "detectors": [
+   ["sloth", false, null, null, 0.0, true, null, [], null],
+   ["thres", false, null, null, 1.1884640848678765, true, null, [], null],
+   ["mscope", false, null, null, 0.0, true, null, [], null],
+   ["iaso", false, null, null, 0.0, true, null, [], null],
+   ["perseus", true, "core", 53, 4.0, false, null, [], null],
+   ["adr", false, null, null, 1.0109020313459611, true, null, [], null]],
+  "mitigation": [
+   ["sloth", "remap", false, true, [], [], 7.8792234002854675, 7.8116649861988465, 7.8116649861988465, null],
+   ["sloth", "reroute", false, true, [], [], 7.8792234002854675, 7.8116649861988465, 7.8116649861988465, null],
+   ["sloth", "none", false, true, [], [], 7.8792234002854675, 7.8116649861988465, 7.8116649861988465, null],
+   ["thres", "remap", false, true, [], [], 7.8792234002854675, 7.8116649861988465, 7.8116649861988465, null],
+   ["thres", "reroute", false, true, [], [], 7.8792234002854675, 7.8116649861988465, 7.8116649861988465, null],
+   ["thres", "none", false, true, [], [], 7.8792234002854675, 7.8116649861988465, 7.8116649861988465, null],
+   ["mscope", "remap", false, true, [], [], 7.8792234002854675, 7.8116649861988465, 7.8116649861988465, null],
+   ["mscope", "reroute", false, true, [], [], 7.8792234002854675, 7.8116649861988465, 7.8116649861988465, null],
+   ["mscope", "none", false, true, [], [], 7.8792234002854675, 7.8116649861988465, 7.8116649861988465, null],
+   ["iaso", "remap", false, true, [], [], 7.8792234002854675, 7.8116649861988465, 7.8116649861988465, null],
+   ["iaso", "reroute", false, true, [], [], 7.8792234002854675, 7.8116649861988465, 7.8116649861988465, null],
+   ["iaso", "none", false, true, [], [], 7.8792234002854675, 7.8116649861988465, 7.8116649861988465, null],
+   ["perseus", "remap", true, false, [53], [], 7.8792234002854675, 7.8116649861988465, 7.888012853657517, null],
+   ["perseus", "reroute", true, false, [53], [], 7.8792234002854675, 7.8116649861988465, 7.888012853657517, null],
+   ["perseus", "none", false, false, [], [], 7.8792234002854675, 7.8116649861988465, 7.8116649861988465, null],
+   ["adr", "remap", false, true, [], [], 7.8792234002854675, 7.8116649861988465, 7.8116649861988465, null],
+   ["adr", "reroute", false, true, [], [], 7.8792234002854675, 7.8116649861988465, 7.8116649861988465, null],
+   ["adr", "none", false, true, [], [], 7.8792234002854675, 7.8116649861988465, 7.8116649861988465, null]]}
+]
+""")
+
+
+def campaign_record(outcomes) -> list:
+    """The pinned fields of campaign outcomes, in the pins' layout."""
+    out = []
+    for o in outcomes:
+        out.append({
+            "id": o.scenario_id, "kind": o.kind, "sim_seed": o.sim_seed,
+            "truths": [[k, l, t, d, s] for k, l, t, d, s in zip(
+                o.effective_truth_kinds, o.truth_locations, o.truth_t0s,
+                o.truth_durations, o.effective_truth_severities)],
+            "compression": o.compression_ratio, "total_time": o.total_time,
+            "detectors": [[d.detector, d.flagged, d.pred_kind,
+                           d.pred_location, d.score, d.matched,
+                           d.truth_rank, list(d.truth_ranks),
+                           d.detection_latency]
+                          for d in o.detector_results],
+            "mitigation": [[m.detector, m.policy, m.acted, m.correct,
+                            list(m.exclude_cores), list(m.avoid_links),
+                            m.healthy_time, m.failed_time,
+                            m.mitigated_time, m.switch_time]
+                           for m in o.mitigation_results]})
+    return json.loads(json.dumps(out))
+
+
+def check_campaign_pins(outcomes) -> float:
+    """Hold the outcomes to ``CAMPAIGN_PINS``; returns the largest relative
+    score gap."""
+    got = campaign_record(outcomes)
+    require(len(got) == len(CAMPAIGN_PINS), "campaign scenario count")
+    worst = 0.0
+    for g, p in zip(got, CAMPAIGN_PINS):
+        require(len(g["detectors"]) == len(p["detectors"]),
+                f"scenario {p['id']}: detectors")
+        for a, b in zip(g["detectors"], p["detectors"]):
+            require(a[:4] + a[5:] == b[:4] + b[5:],
+                    f"scenario {p['id']}: {a} vs reference {b}")
+            gap = abs(a[4] - b[4]) / max(abs(b[4]), 1e-300)
+            worst = max(worst, gap)
+            require(gap <= 1e-5, f"scenario {p['id']} {a[0]}: score "
+                                 f"{a[4]} vs reference {b[4]}")
+        require({k: v for k, v in g.items() if k != "detectors"}
+                == {k: v for k, v in p.items() if k != "detectors"},
+                f"scenario {p['id']}: truths, compression, makespan or "
+                f"mitigation differ from the reference")
+    return worst
+
+
+def campaign_traces(res, dev):
+    """Each scenario's trace of a finished campaign, re-simulated from its
+    deployment (the simulator is deterministic in the scenario's seed)."""
+    from repro_torch.core import campaign as C
+    cfg = C.SlothConfig(recorder_impl="batched")
+    out = []
+    for s in C.enumerate_scenarios(res.grid):
+        dep = C._DEFAULT_CACHE.get(s.workload, s.mesh_w, s.mesh_h, cfg=cfg,
+                                   detectors=res.detectors,
+                                   topology=s.topology, device=dev)
+        failures, seed = C.materialise(res.grid, s, dep)
+        out.append((dep.sloth, dep.sloth.run(list(failures) or None,
+                                             seed=seed)))
+    return out
+
+
+def campaign_k1_launches(traces, n_chunks) -> int:
+    """K1 launches the campaign implies: one per streamed chunk that holds
+    a record, one per post-hoc recording of a non-empty trace."""
+    from repro_torch.core.streaming import split_sim
+
+    def live(sim):
+        return bool(len(sim.comp["core"]) or len(sim.comm["src"]))
+    return sum(sum(live(c) for c in split_sim(sim, n_chunks)) + live(sim)
+               for _, sim in traces)
+
+
+def k1_chunk_times(sloth, sim, dev, n_chunks=4, reps=5):
+    """K1 per streamed chunk from the state the earlier chunks left (as
+    ``StreamingRecorder`` launches it), the same chunk from a fresh state,
+    and one launch over the whole trace; device time by ``timed``.  The
+    chained state must equal the one-shot state."""
+    import torch
+
+    from repro_torch.core.probes import PACKET_BYTES
+    from repro_torch.core.recorder import batched_job, comm_runs, comp_runs
+    from repro_torch.core.streaming import split_sim
+    from repro_torch.kernels.sketch_update import ops as sk_ops
+    p, ipt = sloth.cfg.sketch, sloth.cfg.instr_per_task
+    hop = sloth.sim_cfg.hop_latency
+
+    def sides(s):
+        out = []
+        if len(s.comp["core"]):
+            out.append(("comp", comp_runs(s.comp, ipt)))
+        if len(s.comm["src"]):
+            out.append(("comm", comm_runs(s.comm, PACKET_BYTES, 64, hop)))
+        return out
+
+    state, chunks = {}, []
+    for c in split_sim(sim, n_chunks):
+        sd = sides(c)
+        carried = [batched_job(p, r, dev, state.get(side)) for side, r in sd]
+        fresh = [batched_job(p, r, dev) for _, r in sd]
+        t = timed(lambda: sk_ops.launch_insert_runs(carried), reps)
+        f = timed(lambda: sk_ops.launch_insert_runs(fresh), reps)
+        for (side, _), (st, _) in zip(sd, sk_ops.insert_runs_many(carried)):
+            state[side] = st
+        chunks.append({"runs": {side: len(r[0]) for side, r in sd},
+                       "ms": t["ms"], "events_ms": t["events_ms"],
+                       "fresh_ms": f["ms"], "ahead": t["ahead"]})
+    whole_jobs = [batched_job(p, r, dev) for _, r in sides(sim)]
+    whole = timed(lambda: sk_ops.launch_insert_runs(whole_jobs), reps)
+    for (side, _), (st, _) in zip(sides(sim),
+                                  sk_ops.insert_runs_many(whole_jobs)):
+        require(all(torch.equal(st[k], state[side][k]) for k in st),
+                f"chained {side} state differs from the one-shot state")
+    return {"per_chunk": chunks,
+            "chunks_ms": sum(c["ms"] for c in chunks),
+            "whole_ms": whole["ms"], "whole_events_ms": whole["events_ms"],
+            "whole_runs": {side: len(r[0]) for side, r in sides(sim)}}
+
+
+def check_snapshot_on_card(dev) -> dict:
+    """``tests/data/mesh_campaign_baseline.json``'s grid (darknet19 on 4×4
+    and 6×3, SLOTH with the numpy-oracle recorder, FailRank on the card,
+    reroute and remap), read as data: every field exact, the score within
+    ``rel=1e-5``."""
+    from repro_torch.core import campaign as C
+    base = json.loads((ROOT / "tests" / "data"
+                       / "mesh_campaign_baseline.json").read_text())
+    g = base["grid"]
+    grid = C.CampaignGrid(workloads=tuple(g["workloads"]),
+                          meshes=tuple(tuple(m) for m in g["meshes"]),
+                          kinds=tuple(g["kinds"]),
+                          severities=tuple(g["severities"]),
+                          n_failures=tuple(g["n_failures"]), reps=g["reps"],
+                          campaign_seed=g["campaign_seed"])
+    t0 = time.perf_counter()
+    res = C.run_campaign(grid, workers=0, detectors=("sloth",),
+                         mitigation=("reroute", "remap"),
+                         cache=C.DeploymentCache(), device=dev)
+    secs = time.perf_counter() - t0
+    require(len(res.outcomes) == len(base["outcomes"]), "snapshot size")
+    worst = 0.0
+    for o, b in zip(res.outcomes, base["outcomes"]):
+        require((o.sim_seed, list(o.truth_locations), list(o.truth_t0s),
+                 list(o.truth_durations), o.compression_ratio)
+                == (b["sim_seed"], b["truth_locations"], b["truth_t0s"],
+                    b["truth_durations"], b["compression_ratio"]),
+                f"snapshot scenario {b['scenario_id']}: truths")
+        for r, br in zip(o.detector_results, b["detectors"]):
+            require((r.flagged, r.pred_kind, r.pred_location, r.matched,
+                     r.truth_rank, list(r.truth_ranks))
+                    == (br["flagged"], br["pred_kind"], br["pred_location"],
+                        br["matched"], br["truth_rank"], br["truth_ranks"]),
+                    f"snapshot scenario {b['scenario_id']}: verdict")
+            gap = abs(r.score - br["score"]) / max(abs(br["score"]), 1e-300)
+            worst = max(worst, gap)
+            require(gap <= 1e-5, f"snapshot scenario {b['scenario_id']}: "
+                                 f"score {r.score} vs {br['score']}")
+        require([(m.policy, m.acted, m.correct, list(m.exclude_cores),
+                  list(m.avoid_links), m.healthy_time, m.failed_time,
+                  m.mitigated_time) for m in o.mitigation_results]
+                == [(m["policy"], m["acted"], m["correct"],
+                     m["exclude_cores"], m["avoid_links"], m["healthy_time"],
+                     m["failed_time"], m["mitigated_time"])
+                    for m in b["mitigation"]],
+                f"snapshot scenario {b['scenario_id']}: mitigation")
+    return {"scenarios": len(res.outcomes), "score_max_rel_err": worst,
+            "wall_s": secs}
+
+
+def profile_scenario(res, dev, index) -> dict:
+    """One scenario of a finished campaign run again (``run_scenario``,
+    streamed, every detector and policy) under ``torch.profiler``: wall
+    seconds (the profiler's own cost included), device ms (every kernel
+    and copy), the device's idle share and the largest device items.  The
+    profiler has lost kernel records before: a lower bound on device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import campaign as C
+    s = C.enumerate_scenarios(res.grid)[index]
+    dep = C._DEFAULT_CACHE.get(s.workload, s.mesh_w, s.mesh_h,
+                               cfg=C.SlothConfig(recorder_impl="batched"),
+                               detectors=res.detectors, topology=s.topology,
+                               device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        C.run_scenario(res.grid, s, dep, streaming=4,
+                       mitigation=res.policies)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    dev_ms = device_us(prof, by_name) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"scenario": index, "kind": s.kind, "wall_s": wall,
+            "device_ms": dev_ms, "idle_share": 1 - dev_ms / 1e3 / wall,
+            "largest_device_ms": {n.split("(")[0][:60]: us / 1e3
+                                  for n, us in top}}
+
+
+def run_campaign_phase(dev, lib) -> dict:
+    """Phase 6; returns K1's campaign numbers for the kernels line."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import campaign as launch
+    t_phase = time.perf_counter()
+    serial_argv = CAMPAIGN_ARGV + ["--workers", "0"]
+    text = io.StringIO()
+    lib.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        serial = launch.main(serial_argv)
+    serial_s = time.perf_counter() - t0
+    launches = dict(lib.LAUNCHES)
+    print(text.getvalue(), end="", flush=True)
+    res = serial["campaign"]
+    traces = campaign_traces(res, dev)
+    implied = campaign_k1_launches(traces, 4)
+    emit({"phase": "campaign", "argv": serial_argv, "wall_s": serial_s,
+          "launches": launches, "k1_launches_implied": implied})
+    require(implied == CAMPAIGN_K1_LAUNCHES,
+            f"the campaign implies {implied} K1 launches, pinned "
+            f"{CAMPAIGN_K1_LAUNCHES}")
+    require(launches["sketch_insert_runs"] == implied,
+            f"K1 launched {launches['sketch_insert_runs']} times in the "
+            f"campaign, {implied} implied")
+    require(launches["failrank_step"] == 0 and launches["ssd_scan"] == 0
+            and launches["flash_attention"] == 0,
+            "the campaign launched K2, K3 or K4")
+    score_err = check_campaign_pins(res.outcomes)
+    for o in res.outcomes:
+        emit({"phase": "campaign_scenario_s", "id": o.scenario_id,
+              "kind": o.kind, "simulate_s": o.sim_wall_time,
+              "analyse_s": {d.detector: d.wall_time
+                            for d in o.detector_results},
+              "mitigate_s": sum(m.wall_time for m in o.mitigation_results)})
+
+    same = {}
+    for executor, workers in (("thread", "4"), ("process", "2")):
+        lib.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            other = launch.main(CAMPAIGN_ARGV + ["--executor", executor,
+                                                 "--workers", workers])
+        for label in ("campaign", "posthoc"):
+            require(other[label].outcomes == serial[label].outcomes,
+                    f"{executor} executor: {label} outcomes differ from "
+                    f"serial")
+        same[executor] = {"workers": int(workers),
+                          "wall_s": time.perf_counter() - t0,
+                          "k1_launches_here": lib.LAUNCHES[
+                              "sketch_insert_runs"]}
+        # the thread executor launches from this process, four threads at
+        # once: no count may be lost; process workers count in their own
+        require(executor == "process"
+                or same[executor]["k1_launches_here"] == implied,
+                f"thread executor counted {lib.LAUNCHES['sketch_insert_runs']}"
+                f" K1 launches, {implied} implied")
+    emit({"phase": "campaign_executors_bit_identical", **same})
+
+    snapshot = check_snapshot_on_card(dev)
+    emit({"phase": "campaign_snapshot_on_card", **snapshot})
+
+    core = next(i for i, o in enumerate(res.outcomes) if o.kind == "core")
+    emit({"phase": "campaign_scenario_profile",
+          **profile_scenario(res, dev, core)})
+    k1 = k1_chunk_times(*traces[core], dev)
+    emit({"phase": "sketch_kernel_streamed_chunks", "scenario": core, **k1})
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "campaign_phase_wall_s", "seconds": wall,
+          "score_max_rel_err_vs_reference": score_err})
+    return {"launches_campaign": launches["sketch_insert_runs"],
+            "campaign_chunk_ms": [c["ms"] for c in k1["per_chunk"]],
+            "campaign_chunks_ms": k1["chunks_ms"],
+            "campaign_whole_trace_ms": k1["whole_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# phases 7-9: the serving path
 # ---------------------------------------------------------------------------
 
 def serve_run(arch, lib):
@@ -1347,17 +1789,20 @@ def main() -> int:
         again.raw_node_scores, coo.raw_node_scores),
         "COO FailRank is not run-to-run identical on the card")
 
-    # ---- 6. the serving path at full size ----------------------------------
+    # ---- 6. the campaign path: resnet50 on 8×8, all detectors, streamed ----
+    k1_campaign = run_campaign_phase(dev, lib)
+
+    # ---- 7. the serving path at full size ----------------------------------
     serve_launches = {arch: serve_run(arch, lib)
                       for arch in ("smollm-135m", "mamba2-1.3b")}
     require(serve_launches["mamba2-1.3b"]["flash_attention"] == 0,
             "mamba2-1.3b launched attention")
 
-    # ---- 7. against the JAX reference's pins -------------------------------
+    # ---- 8. against the JAX reference's pins -------------------------------
     for pin in PINS:
         check_pin(pin, dev, lib)
 
-    # ---- 8. K3 and K4 at the serving shapes ---------------------------------
+    # ---- 9. K3 and K4 at the serving shapes ---------------------------------
     rng = np.random.default_rng(11)
 
     def rand(*shape):
@@ -1381,7 +1826,7 @@ def main() -> int:
         {"name": "sketch_insert_runs", "route": "cuda",
          "source": "src/repro_torch/csrc/sketch_insert.cu",
          "replaces": "src/repro/kernels/sketch_update/kernel.py:158",
-         "launches": launches["sketch_insert_runs"],
+         "launches": launches["sketch_insert_runs"], **k1_campaign,
          "max_abs_err": k1["err"], "ms": k1["ms"],
          "events_ms": k1["events_ms"],
          "timing": timing_label([] if k1["ahead"] else ["ms"]),

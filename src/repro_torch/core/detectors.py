@@ -7,11 +7,16 @@
   artifacts.
 * :class:`Detector` — the protocol: ``name``, ``prepare(graph, mesh,
   profile, cfg)`` and ``analyse(sim) → Verdict``.
-* the registry — ``get_detector("sloth")`` resolves a factory;
-  :func:`register_detector` adds user extensions.  The built-in
-  self-registers on first lookup (a lazy import of :mod:`.sloth` avoids an
-  import cycle).  This package registers only ``"sloth"``: the baselines
-  are not ported yet.
+* the registry — ``get_detector("sloth" | "thres" | "mscope" | "iaso" |
+  "perseus" | "adr")`` resolves a factory; :func:`register_detector` adds
+  user extensions.  Built-ins self-register on first lookup (lazy import
+  of :mod:`.sloth` / :mod:`.baselines` avoids an import cycle).
+
+The campaign layer (``campaign.py``) speaks only this API: a deployment
+prepares one detector instance per requested name and every scenario's
+trace is analysed by all of them, so ``run_campaign(grid,
+detectors=("sloth", "thres", ...))`` produces the SLOTH-vs-baselines table
+with no detector-specific glue.
 """
 
 from __future__ import annotations
@@ -34,8 +39,9 @@ __all__ = [
     "available_detectors", "prepare_detector", "DEFAULT_DETECTORS",
 ]
 
-#: Registry order of the built-in detectors.
-DEFAULT_DETECTORS = ("sloth",)
+#: Registry order of the built-in detectors: SLOTH first, then the five
+#: baselines in the paper's Table III order.
+DEFAULT_DETECTORS = ("sloth", "thres", "mscope", "iaso", "perseus", "adr")
 
 
 @dataclasses.dataclass
@@ -152,9 +158,9 @@ def _register_builtin(name: str, factory: Callable[[], Detector]) -> None:
 def _ensure_builtins() -> None:
     global _builtins_loaded
     if not _builtins_loaded:
-        # late import: sloth imports Verdict from this module, so
-        # registering it at our import time would be a cycle
-        from . import sloth  # noqa: F401
+        # late import: sloth/baselines import Verdict from this module, so
+        # registering them at our import time would be a cycle
+        from . import baselines, sloth  # noqa: F401
         _builtins_loaded = True
 
 

@@ -117,6 +117,29 @@ def _sketch_runs_ref(params: SketchParams, keys, reps, durs, vals, t0s,
     return sk.patterns(), sk.compressed_bytes(), sk.n_evicted
 
 
+def batched_job(params: SketchParams, runs, device, state=None):
+    """One sketch's job for
+    :func:`repro_torch.kernels.sketch_update.ops.insert_runs_many`: the
+    run-compressed input ``runs = (keys, reps, durs, vals, t0s, dts)`` as
+    tensors on ``device``, a drain sized to hold one eviction per run (one
+    run evicts at most one Stage-2 row), and ``state`` (a fresh sketch when
+    ``None``)."""
+    from ..kernels.sketch_update import ops as sketch_ops
+    keys, reps, durs, vals, t0s, dts = runs
+
+    def on(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(
+            device)
+
+    lo, hi = split_key(np.asarray(keys, dtype=np.int64))
+    if state is None:
+        state = sketch_ops.make_state(params, device=device)
+    return (state, sketch_ops.make_drain(len(keys), device=device),
+            (on(lo, np.int32), on(hi, np.int32), on(reps, np.int32),
+             on(durs, np.float32), on(vals, np.float32),
+             on(t0s, np.float32), on(dts, np.float32)), params)
+
+
 def _sketch_runs_batched(sides, device):
     """Packed-state path on ``device``: one insertion call for every
     sketch (one kernel launch on the card), drained evictions preserved,
@@ -127,19 +150,7 @@ def _sketch_runs_batched(sides, device):
     if not sides:
         return []
     device = resolve_device(device)
-
-    def on(x, dtype):
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(
-            device)
-
-    jobs = []
-    for params, (keys, reps, durs, vals, t0s, dts), _ in sides:
-        lo, hi = split_key(np.asarray(keys, dtype=np.int64))
-        jobs.append((sketch_ops.make_state(params, device=device),
-                     sketch_ops.make_drain(len(keys), device=device),
-                     (on(lo, np.int32), on(hi, np.int32), on(reps, np.int32),
-                      on(durs, np.float32), on(vals, np.float32),
-                      on(t0s, np.float32), on(dts, np.float32)), params))
+    jobs = [batched_job(params, runs, device) for params, runs, _ in sides]
     out = []
     for (params, _, key_tag), (state, drain) in zip(
             sides, sketch_ops.insert_runs_many(jobs)):

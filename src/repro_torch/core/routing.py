@@ -322,6 +322,50 @@ class HetMesh2D(Mesh2D):
         return rates
 
 
+class DetourTopology:
+    """A fabric whose ``route()`` detours around a set of avoided links.
+
+    Wraps any base :class:`Topology` by delegation: link identities (ids,
+    count, ``links_of_router``) are the base fabric's — only path
+    selection differs, so the simulator, recorder and detectors keep one
+    shared link numbering across the un-mitigated and mitigated
+    deployments.  Pairs that the avoided set disconnects fall back to the
+    base route (the traffic still has to flow; it just keeps paying the
+    slow link).
+    """
+
+    def __init__(self, base: Topology, avoid_links=()):
+        self.base = base
+        self.avoid: frozenset[int] = frozenset(int(l) for l in avoid_links)
+        self._route_cache: dict[tuple[int, int], list[int]] = {}
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
+
+    def route(self, src: int, dst: int) -> list[int]:
+        if src == dst:
+            return []
+        key = (src, dst)
+        path = self._route_cache.get(key)
+        if path is None:
+            path = self.base.route_avoiding(src, dst, self.avoid)
+            if path is None:
+                path = self.base.route(src, dst)
+            self._route_cache[key] = path
+        return path
+
+    def path_matrix(self, pairs: list[tuple[int, int]]) -> np.ndarray:
+        A = np.zeros((len(pairs), self.base.n_links), dtype=np.float64)
+        for i, (s, d) in enumerate(pairs):
+            for lid in self.route(s, d):
+                A[i, lid] = 1.0
+        return A
+
+
+# back-compat spelling: the historical mesh-only detour wrapper
+DetourMesh = DetourTopology
+
+
 # ---------------------------------------------------------------------------
 # topology registry (string-keyed, mirroring core/detectors.py)
 # ---------------------------------------------------------------------------

@@ -295,3 +295,39 @@ def simulate(mapped: MappedGraph, cfg: SimConfig,
     }
     return SimResult(total_time=total, comp=comp, comm=comm,
                      n_raw_records=len(tc_core) + len(tm_src))
+
+
+# --- mitigation re-simulation --------------------------------------------
+
+def clip_failures(failures: list[FailSlow] | None,
+                  from_time: float) -> list[FailSlow]:
+    """Remaining failure windows at ``from_time``, re-based to t=0.
+
+    A mitigated deployment restarts its clock: a window ``[t0, t0+dur)``
+    becomes ``[max(t0 - from_time, 0), end - from_time)`` and is dropped
+    entirely once it has already elapsed.  ``from_time=0`` is the identity.
+    """
+    out: list[FailSlow] = []
+    for f in failures or []:
+        end = f.t0 + f.duration
+        if end <= from_time:
+            continue
+        t0 = max(f.t0 - from_time, 0.0)
+        out.append(dataclasses.replace(f, t0=t0, duration=end - from_time - t0))
+    return out
+
+
+def simulate_mitigated(mapped: MappedGraph, cfg: SimConfig,
+                       failures: list[FailSlow] | None = None,
+                       probes: ProbePlan | None = None,
+                       from_time: float = 0.0) -> SimResult:
+    """Re-simulate a mitigated mapping over the *remaining* failure window.
+
+    ``mapped`` is the post-mitigation deployment (remapped tasks and/or a
+    :class:`~repro_torch.core.routing.DetourMesh`); ``from_time`` is the stream
+    time at which mitigation engaged (0.0 models a post-hoc restart).  The
+    still-active slowdown windows are clipped and re-based so a mitigation
+    that merely sidesteps an expired failure gets no spurious credit.
+    """
+    return simulate(mapped, cfg, failures=clip_failures(failures, from_time),
+                    probes=probes)

@@ -305,3 +305,16 @@ class FailSlowSketch:
 
     def compression_ratio(self, raw_bytes: float) -> float:
         return raw_bytes / max(self.compressed_bytes(), 1)
+
+
+def retention_lower_bound(N: float, f_i: float, params: SketchParams)\
+        -> float:
+    """Lemma 3.1: P(R_i) ≥ 1 − ((N − f_i) / (m (f_i − H)))^d.
+
+    The result is a probability, clamped to [0, 1]: for ``N < f_i`` the
+    numerator goes negative and an odd ``d`` would push ``1 − x**d``
+    above 1."""
+    if f_i <= params.H:
+        return 0.0
+    x = (N - f_i) / (params.m * (f_i - params.H))
+    return min(1.0, max(0.0, 1.0 - x ** params.d))

@@ -19,7 +19,14 @@ End-to-end pipeline (Figure 4):
   detector protocol (``prepare(graph, mesh, profile, cfg)`` /
   ``analyse(sim)``), registered under ``"sloth"``.
 
-Streaming (``Sloth.stream`` / ``stream_analyse``) is not ported yet.
+Both entry points also run *streaming*: ``Sloth.stream()`` returns an
+always-on :class:`~repro_torch.core.streaming.SlothStream` (one
+incremental Verdict per observed chunk, the sketch state carried on the
+pipeline's device), and ``stream_analyse(sim, n_chunks)`` /
+``SlothDetector.stream_analyse`` replay a finished trace through it — the
+final streamed verdict equals post-hoc ``analyse`` exactly on both
+recorder impls, and the first flagged window's stream time feeds the
+campaign's detection-latency metric.
 """
 
 from __future__ import annotations
@@ -161,8 +168,12 @@ class Sloth:
                          total_time: float) -> Verdict:
         """SL-Tracer over an already-compressed trace.
 
-        The detection half of :meth:`analyse`; ``total_time`` is the
-        analysis horizon (the trace's total time)."""
+        The detection half of :meth:`analyse`, split out so the
+        streaming service (:class:`~repro_torch.core.streaming.SlothStream`)
+        can re-analyse a :class:`StreamingRecorder`'s cumulative output
+        per window without re-recording; ``total_time`` is the analysis
+        horizon (the trace's total time post-hoc, the stream's elapsed
+        clock mid-stream)."""
         cfg = self.cfg
         core_z, link_ratio = cfg.flag_thresholds(self.mesh)
         core_cands = detect_cores(rec.comp_patterns, total_time,
@@ -238,6 +249,38 @@ class Sloth:
                seed: int = 0) -> Verdict:
         return self.analyse(self.run(failures=failures, seed=seed))
 
+    # -- streaming -----------------------------------------------------------
+    def stream(self, policy=None):
+        """A fresh :class:`~repro_torch.core.streaming.SlothStream` bound
+        to this pipeline (one incremental Verdict per observed chunk).
+        ``policy`` — a registered mitigation-policy name or instance —
+        arms the stream to plan a mitigation at the first flag."""
+        from .streaming import SlothStream
+        return SlothStream(self, policy=policy)
+
+    def stream_analyse(self, sim: SimResult, n_chunks: int = 4,
+                       policy=None) -> tuple[Verdict, float | None]:
+        """Replay a finished trace through the streaming service.
+
+        Splits ``sim`` into ``n_chunks`` time-ordered chunks
+        (:func:`~repro_torch.core.streaming.split_sim`), observes them in
+        order and returns ``(final verdict, first_flag_time)``.  The
+        last chunk is analysed at ``sim.total_time``, so the final
+        verdict equals post-hoc :meth:`analyse` of the same trace
+        exactly (same impl, same cumulative sketch state);
+        ``first_flag_time`` is the stream time of the earliest flagged
+        window (``None`` if no window flagged).  ``policy`` arms
+        mid-stream mitigation planning (see :meth:`stream`) without
+        changing the return shape."""
+        from .streaming import split_sim
+        st = self.stream(policy=policy)
+        chunks = split_sim(sim, n_chunks)
+        v = None
+        for i, chunk in enumerate(chunks):
+            horizon = sim.total_time if i == len(chunks) - 1 else None
+            v = st.observe(chunk, total_time=horizon)
+        return v, st.first_flag_time
+
 
 class SlothDetector:
     """Registry adapter: SLOTH under the unified detector protocol.
@@ -263,6 +306,17 @@ class SlothDetector:
         if self.pipeline is None:
             raise RuntimeError("SlothDetector.analyse before prepare()")
         return self.pipeline.analyse(sim)
+
+    def stream_analyse(self, sim: SimResult, n_chunks: int = 4,
+                       policy=None) -> tuple[Verdict, float | None]:
+        """Streaming protocol hook: detectors exposing this method are
+        driven chunk-by-chunk on the campaign's ``streaming=`` axis and
+        report detection latency (see ``campaign.run_scenario``)."""
+        if self.pipeline is None:
+            raise RuntimeError("SlothDetector.stream_analyse before "
+                               "prepare()")
+        return self.pipeline.stream_analyse(sim, n_chunks=n_chunks,
+                                            policy=policy)
 
 
 _register_builtin("sloth", SlothDetector)

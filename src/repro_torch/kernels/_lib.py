@@ -8,8 +8,10 @@ when this module is imported: the first launch builds what it needs, and
 :func:`build_all` builds every source at once, one ``nvcc`` process each,
 started together.
 
-``LAUNCHES`` counts kernel launches by name; each wrapper adds one where
-it launches its kernel and nowhere else.
+``LAUNCHES`` counts kernel launches by name; each wrapper adds one with
+:func:`count` where it launches its kernel and nowhere else.  Loading and
+counting are thread-safe: the campaign's thread executor launches from
+several threads at once.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -48,11 +51,22 @@ LAUNCHES: dict[str, int] = {"sketch_insert_runs": 0, "failrank_step": 0,
                              "flash_attention_decode": 0, "ssd_scan": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
+# one thread builds and loads a library while the others wait for it (two
+# builds of one source would write the same temporary file: one pid)
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def count(name: str) -> None:
+    """Add one launch of ``name`` to ``LAUNCHES``."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -126,11 +140,12 @@ def build_log(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = _libs.get(name)
-    if lib is None:
-        out, job = _start(name)
-        _finish(name, out, job)
-        lib = _libs[name] = ctypes.CDLL(str(out))
+    with _load_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            out, job = _start(name)
+            _finish(name, out, job)
+            lib = _libs[name] = ctypes.CDLL(str(out))
     return lib
 
 

@@ -67,7 +67,7 @@ def failrank_iterate_cuda(w, l, s, s0, *, lam=0.55, alpha=0.1, beta=0.3,
             max_iters, 1.0 - lam, lam, alpha, beta, gamma, eps,
             STRIPES[stripes], stream),
             "failrank_step")
-    _lib.LAUNCHES["failrank_step"] += 1
+    _lib.count("failrank_step")
     return s_new, l_new, steps
 
 

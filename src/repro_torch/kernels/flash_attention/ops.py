@@ -103,8 +103,8 @@ def flash_attention_cuda(q, k, v, *, q_pos, k_pos, causal=True,
             rc = lib.flash_attention_prefill(*args, *dims, stream)
     entry = "flash_attention_decode" if decode else "flash_attention_prefill"
     _lib.check(rc, entry)
-    _lib.LAUNCHES["flash_attention"] += 1
-    _lib.LAUNCHES[entry] += 1
+    _lib.count("flash_attention")
+    _lib.count(entry)
     return out
 
 

@@ -111,7 +111,7 @@ def launch_insert_runs(jobs):
         _lib.check(lib.sketch_insert_runs(
             (SketchArgs * len(args))(*args), len(args), stream),
             "sketch_insert_runs")
-    _lib.LAUNCHES["sketch_insert_runs"] += 1
+    _lib.count("sketch_insert_runs")
     return out, status
 
 

@@ -77,7 +77,7 @@ def ssd_cuda(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
             c.data_ptr(), 0 if init_state is None else init_state.data_ptr(),
             y.data_ptr(), state.data_ptr(), scratch.data_ptr(), bsz, s, h,
             p, g, n, chunk, stream), "ssd_scan")
-    _lib.LAUNCHES["ssd_scan"] += 1
+    _lib.count("ssd_scan")
     return y, state
 
 

@@ -16,7 +16,11 @@ matrix-vector product sums in another order); the whole iteration in one
 launch must stop within one step of the plain loop, with s and L within
 1e-5 (same count) or 1e-4, the L1 tolerance (one step apart).  Flash attention is held at the reference's f32 tolerance,
 2e-5, and the SSD scan at 2e-4 (both sum in another order than the plain
-versions' einsums).
+versions' einsums).  On the campaign path: the streaming recorder
+launches the sketch kernel once per chunk from the carried state and its
+output equals one-shot recording and the CPU's plain path bit for bit;
+the ``--tiny`` campaign on the card equals the CPU port's (scores within
+``rel=1e-5``), and its thread executor equals serial exactly.
 """
 
 import numpy as np
@@ -455,3 +459,96 @@ def test_two_runs_are_bit_identical(dev, kernel):
                 for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the campaign path on the card: streaming, executors
+# ---------------------------------------------------------------------------
+
+def _darknet_trace():
+    from repro_torch.core.failures import FailSlow
+    from repro_torch.core.graph import build_workload
+    from repro_torch.core.routing import Mesh2D
+    from repro_torch.core.sloth import Sloth
+    sloth = Sloth(build_workload("darknet19"), Mesh2D(4), device="cpu")
+    return (sloth.run([FailSlow("core", 5, 1.0, 8.0, 10.0)], seed=0),
+            sloth.sim_cfg.hop_latency)
+
+
+@pytest.mark.parametrize("L,n_chunks", [(1024, 4), (8, 7)])
+def test_streaming_recorder_on_the_card(dev, L, n_chunks):
+    """Each ``observe`` launches the sketch kernel once, from the state the
+    last chunk left; the streamed output equals one-shot recording on the
+    card and the CPU's plain path, bit for bit (patterns are compared with
+    ``==``, float statistics included)."""
+    from repro_torch.core.recorder import record
+    from repro_torch.core.streaming import StreamingRecorder, split_sim
+    sim, hop = _darknet_trace()
+    p = SketchParams(d=2, m=256 if L == 8 else 1024, H=4 if L == 8 else 8,
+                     L=L)
+    chunks = split_sim(sim, n_chunks)
+    live = sum(bool(len(c.comp["core"]) or len(c.comm["src"]))
+               for c in chunks)
+    outs = {}
+    for where in (dev, "cpu"):
+        rec = StreamingRecorder(p, hop_latency=hop, impl="batched",
+                                device=where)
+        before = _lib.LAUNCHES["sketch_insert_runs"]
+        for c in chunks:
+            rec.observe(c)
+        launches = _lib.LAUNCHES["sketch_insert_runs"] - before
+        assert launches == (live if where == dev else 0)
+        outs[str(where)] = rec.output()
+    one = record(sim, p, hop_latency=hop, impl="batched", device=dev)
+    for out in outs.values():
+        assert out.comp_patterns == one.comp_patterns
+        assert out.comm_patterns == one.comm_patterns
+        for f in ("sketch_comp_bytes", "sketch_comm_bytes",
+                  "n_comp_drained", "n_comm_drained", "n_comp_records",
+                  "n_comm_records"):
+            assert getattr(out, f) == getattr(one, f), f
+    if L == 8:
+        assert one.n_comp_drained > 0 and one.n_comm_drained > 0
+
+
+def _judged(outcomes):
+    """Every compared field of the outcomes but the scores, and the
+    scores."""
+    import dataclasses
+    rows, scores = [], []
+    for o in outcomes:
+        rows.append((dataclasses.replace(o, detector_results=()),
+                     [dataclasses.replace(d, score=0.0)
+                      for d in o.detector_results]))
+        scores += [d.score for d in o.detector_results]
+    return rows, scores
+
+
+def test_tiny_campaign_on_the_card(dev):
+    """The ``--tiny`` grid with all detectors, 4 streamed chunks, remap and
+    reroute on the card: serial equals the CPU port's (scores within
+    ``rel=1e-5``, FailRank adding in another order there; all else exact),
+    and the thread executor equals serial exactly."""
+    from repro_torch.core.campaign import (CampaignGrid, DeploymentCache,
+                                           run_campaign)
+    from repro_torch.core.detectors import DEFAULT_DETECTORS
+    from repro_torch.core.sloth import SlothConfig
+    grid = CampaignGrid(workloads=("darknet19",), meshes=(4,),
+                        severities=(8.0,), reps=1, campaign_seed=0)
+    kw = dict(detectors=DEFAULT_DETECTORS, streaming=4,
+              mitigation=("remap", "reroute", "none"),
+              cfg=SlothConfig(recorder_impl="batched"))
+    _lib.reset_launches()
+    card = run_campaign(grid, workers=0, device=dev,
+                        cache=DeploymentCache(), **kw)
+    assert _lib.LAUNCHES["sketch_insert_runs"] >= 4
+    cpu = run_campaign(grid, workers=0, device="cpu",
+                       cache=DeploymentCache(), **kw)
+    (rows_g, s_g), (rows_c, s_c) = _judged(card.outcomes), \
+        _judged(cpu.outcomes)
+    assert rows_g == rows_c
+    assert s_g == pytest.approx(s_c, rel=1e-5)
+    thread = run_campaign(grid, workers=4, executor="thread", device=dev,
+                          cache=DeploymentCache(), **kw)
+    assert thread.outcomes == card.outcomes
+    assert thread.mitigation == card.mitigation

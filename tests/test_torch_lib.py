@@ -4,8 +4,13 @@ Only the sketch insert and the FailRank step are built with
 ``-fmad=false``: their checks against the plain versions are exact.  Flash
 attention and the SSD scan are held at a tolerance and build with FMA.  A
 library's file name carries a hash of its source and its own flags, so a
-changed flag rebuilds it.
+changed flag rebuilds it.  Loading and launch counting are thread-safe.
 """
+
+import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -42,3 +47,53 @@ def test_every_source_has_launch_counters():
     _lib.LAUNCHES["flash_attention_decode"] += 3
     _lib.reset_launches()
     assert not any(_lib.LAUNCHES.values())
+
+
+def test_load_builds_once_and_counts_lose_nothing_under_threads(monkeypatch):
+    """Threads of the campaign's thread executor may all find a library
+    unbuilt: one builds and loads it while the others wait (two builds
+    would write one temporary file: one pid).  Launch counts are read-
+    modify-writes and must not lose an update."""
+    starts = []
+
+    def fake_start(name):
+        starts.append(name)
+        time.sleep(0.05)                     # hold the build window open
+        return _lib.BUILD / f"lib{name}-fake.so", None
+
+    monkeypatch.setattr(_lib, "_start", fake_start)
+    monkeypatch.setattr(_lib.ctypes, "CDLL", lambda path: object())
+    monkeypatch.setattr(_lib, "_libs", {})
+    with ThreadPoolExecutor(8) as pool:
+        libs = list(pool.map(lambda _: _lib.load("sketch_insert"),
+                             range(16), timeout=60))
+    assert starts == ["sketch_insert"]
+    assert all(lib is libs[0] for lib in libs)
+
+    class Key(str):
+        """A name whose hash runs Python code, so that a thread switch can
+        fall between the read and the write of an unlocked update."""
+        def __hash__(self):
+            return str.__hash__(self)
+
+        def __eq__(self, other):
+            return str.__eq__(self, other)
+
+    key = Key("ssd_scan")
+    _lib.reset_launches()
+    per_thread, n_threads = 5000, 8
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [_lib.count(key) for _ in range(per_thread)])
+            for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert _lib.LAUNCHES["ssd_scan"] == per_thread * n_threads
+    _lib.reset_launches()

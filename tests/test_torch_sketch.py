@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core.sketch import FailSlowSketch, SketchParams, split_key
+from repro.core.sketch import (FailSlowSketch, SketchParams,
+                               retention_lower_bound, split_key)
 from repro.kernels.sketch_update import batched as JB
 from repro.kernels.sketch_update import ops as JO
 from repro.kernels.sketch_update import ref as JR
@@ -24,6 +25,8 @@ from repro_torch.convert import (drain_from_numpy, drain_to_numpy,
                                  sketch_state_from_numpy,
                                  sketch_state_to_numpy)
 from repro_torch.core.sketch import SketchParams as TSketchParams
+from repro_torch.core.sketch import \
+    retention_lower_bound as t_retention_lower_bound
 from repro_torch.kernels import _lib
 from repro_torch.kernels.sketch_update import ops as TO
 from repro_torch.kernels.sketch_update import ref as TR
@@ -374,3 +377,18 @@ def test_insert_runs_many_equals_single_calls():
         _assert_dicts_equal(_to_np(dr), _to_np(exp[1]), rtol=0)
         assert int(st0["counter"]) == 0
     assert int(got[1][1]["d_n"]) > 0
+
+
+def test_retention_lower_bound_matches_reference():
+    """Lemma 3.1's bound (``test_sketch.py``'s retention tests): equal to
+    the reference's over a grid that covers f_i <= H, N < f_i with odd d
+    (the clamp) and the usual N >> f_i."""
+    rng = np.random.default_rng(5)
+    for d, m, H in ((1, 16, 1), (2, 1024, 8), (3, 64, 4), (4, 777, 32)):
+        p, tp = SketchParams(d=d, m=m, H=H, L=8), TSketchParams(d=d, m=m,
+                                                                 H=H, L=8)
+        for N, f in [(10.0, 50.0), (1e6, float(H)), (1e6, H + 0.5)] + [
+                tuple(x) for x in rng.uniform(0, 1e5, size=(20, 2))]:
+            b = t_retention_lower_bound(N, f, tp)
+            assert b == retention_lower_bound(N, f, p)
+            assert 0.0 <= b <= 1.0

@@ -102,7 +102,9 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.convert, repro_torch.kernels.failrank_step.ops, "
             "repro_torch.launch.serve, repro_torch.models.transformer, "
             "repro_torch.kernels.flash_attention.ops, "
-            "repro_torch.kernels.ssd_scan.ops; "
+            "repro_torch.kernels.ssd_scan.ops, repro_torch.core.campaign, "
+            "repro_torch.core.streaming, repro_torch.mitigate, "
+            "repro_torch.launch.campaign; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]; print(bad); sys.exit(bool(bad))")
@@ -136,16 +138,29 @@ def test_memory_budget_guard_matches_reference():
 
 
 def test_registry_resolves_sloth(pipelines):
-    """The port's registry holds ``"sloth"`` (the baselines are not ported
-    yet); the adapter's verdict equals the pipeline's."""
+    """The port's registry holds the reference's six built-ins in its order
+    (SLOTH, then the five baselines); the SLOTH adapter's verdict equals
+    the pipeline's, and a baseline's adapter judges through the same
+    protocol and router-aware ``matches``."""
+    from repro.core.detectors import DEFAULT_DETECTORS
     from repro_torch.core.detectors import (available_detectors,
-                                            instantiate_detector)
-    assert available_detectors() == ("sloth",)
+                                            instantiate_detector,
+                                            prepare_detector)
+    # the reference's registry may also hold other test modules' detectors
+    assert available_detectors() == DEFAULT_DETECTORS == (
+        "sloth", "thres", "mscope", "iaso", "perseus", "adr")
     _, port = pipelines("mesh", "batched")
     det = instantiate_detector("sloth").prepare(
         port.graph, port.mesh, None, port.cfg, device="cpu")
-    sim = port.run([TF.FailSlow("core", 5, 1.0, 8.0, 10.0)], seed=0)
+    truth = TF.FailSlow("core", 5, 1.0, 8.0, 10.0)
+    sim = port.run([truth], seed=0)
     a, b = det.analyse(sim), port.analyse(sim)
     assert (a.flagged, a.kind, a.location, a.ranking) \
         == (b.flagged, b.kind, b.location, b.ranking)
     assert a.detector == "sloth"
+    thres = prepare_detector("thres", port.graph, port.mesh,
+                             port.run(None, seed=999), port.cfg)
+    v = thres.analyse(sim)
+    assert v.detector == "thres" and v.mesh is port.mesh
+    assert (v.flagged, v.kind, v.location) == (True, "core", 5)
+    assert v.matches(truth) and not v.matches(None)
