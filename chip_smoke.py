@@ -24,15 +24,20 @@
    3 and 8, head dims 16-128, both sides of the decode/prefill line;
    within 2e-5) and the SSD scan (the test shapes, chunks 16, 24 and 128
    with a ragged tail, and mamba2-1.3b's 4×512 prefill, from a zero and a
-   non-zero state; within 2e-4); two runs of the sketch insert, the
-   FailRank iteration, the attention decode and the SSD scan must be
-   bit-identical;
+   non-zero state; within 2e-4), and K3's backward through its autograd
+   function against torch autograd through the plain attention (smollm's
+   training shape, a windowed GQA case, head dims 16 and 128; within 1e-4
+   of each gradient's largest entry; the prefill with its log-sum-exp
+   output writes what it writes without); two runs of the sketch insert,
+   the FailRank iteration, the attention decode, K3's backward and the SSD
+   scan must be bit-identical;
 3. drives the detection path, ``Sloth.detect`` with the batched recorder
    on the card, for resnet50 on an 8×8 mesh (core 6, link 20, no fault)
    with the launch counts set to 0 just before and read just after, plus
    ``failrank_dense`` on the core fault's MCG through the FailRank kernel;
-   every verdict must equal the JAX reference's (pinned below, since this
-   script may not import it), the sketch kernel must launch once per
+   every verdict and FailRank iteration count must equal the JAX
+   reference's (pinned below, since this script may not import it), the
+   sketch kernel must launch once per
    ``detect`` (both sketches in one launch), the FailRank kernel once per
    ``failrank_dense``, and both drains must be non-empty;
 4. records the same trace on the plain CPU path and requires identical
@@ -75,7 +80,34 @@
    share).  Kernel times are device time by CUDA events, with the calls
    queued behind a device-side spin so the host cannot pace them, and the
    back-to-back event time beside it (which includes the host's wrapper
-   cost where the host is the slower side).
+   cost where the host is the slower side);
+10. times K3's backward at smollm-135m's training shape beside its plain
+   mirror, its bound and SDPA's backward through autograd;
+11. drives the train path, ``repro_torch.launch.train.main``, on
+   smollm-135m at full size, 24 steps of 4 × 512 tokens with the pod
+   telemetry and a 10× slowdown injected into the reported times of steps
+   10-15 (``--expect-flagged``), counts set to 0 just before: K3 forward
+   and backward exactly 30 launches a step each, no call of the plain
+   attention, the slowed host (core 0) named in the window of the burst
+   or the next; prints ms per step (the launcher's own, ``--log-every
+   1``), then times five steps and profiles one (device ms by kernel, the
+   device's idle share against the unprofiled step time);
+12. the same run without injection, printing any flagged window;
+13. holds 3 full-size train steps (batch 2 × 128) on
+   ``reference_params_numpy`` weights to the reference's losses and grad
+   norms (``TRAIN_PINS``, rel 1e-4), twice (bit-equality reported);
+14. runs the reference's CI smoke (``ci.yml:37``) on the card, and
+   crash-resume on the smoke config (10 steps, save, resume, 10 more
+   within rel 1e-4 of 20 straight);
+15. drives ``PodDetector.observe`` on the default 16×16 pod (3 windows of
+   32 steps; a core and a link fault on the mesh, a link fault on the
+   torus) with both recorder impls on the card: verdicts equal to each
+   other and to ``POD_PINS``, K1 exactly once per batched window; times
+   K1 per window from the carried state at L = 2,048 beside one launch
+   over the whole trace, also for the train launcher's 4×4 pod with
+   8-step windows;
+16. serves smollm-135m at full size with ``--telemetry`` (a separate run
+   from phase 7's timed ones).
 
 Every phase prints one JSON object per line.  The line before the last is
 the per-kernel summary; the last is ``{"ok": true, "device": ...}``.  Any
@@ -91,6 +123,7 @@ example an earlier tree's ``src`` unpacked by ``git archive``, whose
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -710,7 +743,7 @@ def drive(sloth, mesh_n, lib):
               "detect_s": secs})
         require((v.flagged, v.kind, v.location) == (flagged, kind, loc),
                 f"{mesh_n}x{mesh_n} {f}: verdict differs from reference")
-        require(abs(v.failrank.iterations - iters) <= 1,
+        require(v.failrank.iterations == iters,
                 f"{mesh_n}x{mesh_n} {f}: FailRank iterations "
                 f"{v.failrank.iterations} vs reference {iters}")
         require(k1 == 1, f"sketch kernel launched {k1} times in detect")
@@ -1011,19 +1044,17 @@ def campaign_k1_launches(traces, n_chunks) -> int:
                for _, sim in traces)
 
 
-def k1_chunk_times(sloth, sim, dev, n_chunks=4, reps=5):
-    """K1 per streamed chunk from the state the earlier chunks left (as
-    ``StreamingRecorder`` launches it), the same chunk from a fresh state,
-    and one launch over the whole trace; device time by ``timed``.  The
-    chained state must equal the one-shot state."""
+def k1_stream_times(p, ipt, hop, chunks_in, sim, dev, reps=5):
+    """K1 per streamed chunk (``chunks_in``, the pieces of ``sim``) from
+    the state the earlier chunks left (as ``StreamingRecorder`` launches
+    it), the same chunk from a fresh state, and one launch over the whole
+    trace ``sim``; device time by ``timed``.  The chained state must equal
+    the one-shot state."""
     import torch
 
     from repro_torch.core.probes import PACKET_BYTES
     from repro_torch.core.recorder import batched_job, comm_runs, comp_runs
-    from repro_torch.core.streaming import split_sim
     from repro_torch.kernels.sketch_update import ops as sk_ops
-    p, ipt = sloth.cfg.sketch, sloth.cfg.instr_per_task
-    hop = sloth.sim_cfg.hop_latency
 
     def sides(s):
         out = []
@@ -1034,7 +1065,7 @@ def k1_chunk_times(sloth, sim, dev, n_chunks=4, reps=5):
         return out
 
     state, chunks = {}, []
-    for c in split_sim(sim, n_chunks):
+    for c in chunks_in:
         sd = sides(c)
         carried = [batched_job(p, r, dev, state.get(side)) for side, r in sd]
         fresh = [batched_job(p, r, dev) for _, r in sd]
@@ -1145,6 +1176,7 @@ def run_campaign_phase(dev, lib) -> dict:
     import contextlib
     import io
 
+    from repro_torch.core.streaming import split_sim
     from repro_torch.launch import campaign as launch
     t_phase = time.perf_counter()
     serial_argv = CAMPAIGN_ARGV + ["--workers", "0"]
@@ -1207,7 +1239,10 @@ def run_campaign_phase(dev, lib) -> dict:
     core = next(i for i, o in enumerate(res.outcomes) if o.kind == "core")
     emit({"phase": "campaign_scenario_profile",
           **profile_scenario(res, dev, core)})
-    k1 = k1_chunk_times(*traces[core], dev)
+    sloth, sim = traces[core]
+    k1 = k1_stream_times(sloth.cfg.sketch, sloth.cfg.instr_per_task,
+                         sloth.sim_cfg.hop_latency, split_sim(sim, 4), sim,
+                         dev)
     emit({"phase": "sketch_kernel_streamed_chunks", "scenario": core, **k1})
     wall = time.perf_counter() - t_phase
     emit({"phase": "campaign_phase_wall_s", "seconds": wall,
@@ -1458,6 +1493,553 @@ def profile_serving(arch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phases 10-15: the train path and the pod telemetry
+# ---------------------------------------------------------------------------
+
+#: The JAX reference's train pin (``python tests/test_torch_train.py``, CPU,
+#: f32): smollm-135m at full size on ``reference_params_numpy(cfg, 0)``, 3
+#: steps at batch 2 × seq 128 on ``TokenPipeline`` batches of seed 0, AdamW
+#: lr 3e-4 with 10 warmup steps.
+TRAIN_PINS = {"arch": "smollm-135m", "steps": 3, "batch": 2, "seq": 128,
+              "losses": [10.958621978759766, 10.894426345825195,
+                         10.897894859313965],
+              "grad_norms": [5.972647190093994, 6.307694435119629,
+                             6.230223655700684]}
+
+#: The JAX reference's pod verdicts (``python tests/test_torch_telemetry.py``,
+#: CPU): ``PodDetector.observe`` on the default 16×16 pod, seed 1,
+#: step_flops 5e12, collective_bytes 4e9, a fault from t = 0 (core 10×, link
+#: 8×), three windows of 32 steps; per window (flagged, kind, location,
+#: severity, action).
+POD_PINS = json.loads("""
+[
+ {"topology": "mesh", "fault": ["core", 37], "links": 960, "verdicts": [
+  [true, "core", 37, 45.124928198487105, "exclude_and_restart"],
+  [true, "core", 37, 45.12708936384893, "exclude_and_restart"],
+  [true, "core", 37, 45.134477145353685, "exclude_and_restart"]]},
+ {"topology": "mesh", "fault": ["link", 100], "links": 960, "verdicts": [
+  [false, null, null, 0.0, "none"],
+  [true, "link", 100, 8.916650405849754, "reroute_or_restart"],
+  [true, "link", 100, 8.748944011571714, "reroute_or_restart"]]},
+ {"topology": "torus", "fault": ["link", 300], "links": 1024, "verdicts": [
+  [false, null, null, 0.0, "none"],
+  [true, "link", 300, 8.69731870998997, "reroute_or_restart"],
+  [true, "link", 300, 8.62254734725792, "reroute_or_restart"]]}]
+""")
+
+#: The train run of phase 11 (``launch/train.py`` flags, the reference's
+#: CI smoke at full size and batch 4 × 512).
+TRAIN_ARGV = ["--arch", "smollm-135m", "--steps", "24", "--batch", "4",
+              "--seq", "512", "--telemetry", "--telemetry-window", "8",
+              "--log-every", "1"]
+INJECT_ARGV = ["--inject-slow-at", "10", "--inject-slow-steps", "6",
+               "--inject-slow-factor", "10", "--expect-flagged"]
+
+#: K3's backward against autograd through the plain version: the largest
+#: gap over each gradient's largest entry.  Measured about 3e-6 (sums in
+#: another order than the plain version's einsums).
+K3_BWD_TOL = 1e-4
+
+
+def attention_bwd_cases(dev):
+    """(label, q, k, v, dout, q_pos, k_pos, causal, window): smollm-135m's
+    training shape, a windowed GQA case, head dims 16 and 128, ragged
+    tiles, a non-causal case and queries that see only part of the keys."""
+    import torch
+    rng = np.random.default_rng(21)
+
+    def rand(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    cases = []
+    for label, b, s, t, hq, hk, d, causal, win in (
+            ("smollm-135m train [4,512,9,64]", 4, 512, 512, 9, 3, 64, True,
+             None),
+            ("windowed GQA 4:1, window 100", 2, 300, 300, 8, 2, 32, True,
+             100),
+            ("head dim 16, GQA 3:1", 2, 200, 200, 6, 2, 16, True, None),
+            ("head dim 128, GQA 4:1, ragged", 2, 130, 130, 8, 2, 128, True,
+             None),
+            ("non-causal, 100 queries over 160 keys", 1, 100, 160, 4, 4, 64,
+             False, None),
+            ("3 queries at the end of 70 keys", 2, 3, 70, 6, 1, 32, True,
+             20)):
+        cases.append((label, rand(b, s, hq, d), rand(b, t, hk, d),
+                      rand(b, t, hk, d), rand(b, s, hq, d),
+                      torch.arange(t - s, t, dtype=torch.int32, device=dev),
+                      torch.arange(t, dtype=torch.int32, device=dev), causal,
+                      win))
+    return cases
+
+
+def check_attention_bwd(dev, lib):
+    """K3's backward (through ``FlashAttention``) against torch autograd
+    through ``attention_ref`` on the card; the forward with the
+    log-sum-exp equal to the one without; two backward runs bit-identical;
+    launches counted."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
+                                                         attention_ref)
+    out, worst, worst_abs = [], 0.0, 0.0
+    for label, q, k, v, dout, qp, kp, causal, win in attention_bwd_cases(dev):
+        pos = dict(q_pos=qp, k_pos=kp, causal=causal, window=win)
+        plain_out = ops.flash_attention_cuda(q, k, v, **pos) \
+            if not ops.uses_decode(q.shape[1], q.shape[2], k.shape[2]) \
+            else None
+        o, lse = ops._prefill(q, k, v, **pos)
+        require(plain_out is None or torch.equal(o, plain_out),
+                f"{label}: the prefill with lse writes another output")
+        lse_err = float((lse - attention_lse_ref(q, k, **pos)).abs().max())
+        before = dict(lib.LAUNCHES)
+        grads = []
+        for _ in range(2):
+            qa, ka, va = (x.clone().requires_grad_(True) for x in (q, k, v))
+            ops.gqa_attention(qa, ka, va, **pos).backward(dout)
+            grads.append((qa.grad, ka.grad, va.grad))
+        require(lib.LAUNCHES["flash_attention_bwd"]
+                == before["flash_attention_bwd"] + 2
+                and lib.LAUNCHES["flash_attention_prefill"]
+                == before["flash_attention_prefill"] + 2,
+                f"{label}: the gradient did not go through K3's kernels")
+        qa, ka, va = (x.clone().requires_grad_(True) for x in (q, k, v))
+        attention_ref(qa, ka, va, **pos).backward(dout)
+        errs = {}
+        for name, got, exp in zip(("dq", "dk", "dv"), grads[0],
+                                  (qa.grad, ka.grad, va.grad)):
+            gap = float((got - exp).abs().max())
+            worst_abs = max(worst_abs, gap)
+            errs[name] = gap / max(float(exp.abs().max()), 1e-30)
+        same = all(torch.equal(a, b) for a, b in zip(*grads))
+        worst = max(worst, *errs.values())
+        out.append({"case": label, "shape_q": list(q.shape),
+                    "shape_kv": list(k.shape), "window": win,
+                    "rel_err_vs_autograd": errs, "lse_max_abs_err": lse_err,
+                    "two_runs_bit_identical": same})
+        require(max(errs.values()) <= K3_BWD_TOL,
+                f"K3 backward vs autograd, {label}: {errs}")
+        require(same, f"K3 backward, {label}: two runs differ")
+    return out, worst, worst_abs
+
+
+def time_attention_bwd(dev, reps):
+    """K3's backward at smollm-135m's training shape, q [4,512,9,64], kv
+    [4,512,3,64], causal: the kernel, the plain mirror
+    (``attention_bwd_ref``) and SDPA's backward through autograd.  Bound:
+    10·D f32 operations per live pair (S, dP, dV, dS·K, dSᵀ·Q), or the
+    bytes of q, k, v, out, dout, lse read once and dq, dk, dv written
+    once."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         live_mask)
+    rng = np.random.default_rng(23)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev) for s in ((4, 512, 9, 64), (4, 512, 3, 64),
+                                       (4, 512, 3, 64), (4, 512, 9, 64)))
+    pos = torch.arange(512, dtype=torch.int32, device=dev)
+    kw = dict(q_pos=pos, k_pos=pos, causal=True, window=None)
+    out, lse = ops._prefill(q, k, v, **kw)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True)
+    dout_t = dout.transpose(1, 2)
+
+    def kernel():
+        return ops.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+
+    def plain():
+        return attention_bwd_ref(q, k, v, out, dout, lse, **kw)
+
+    def library():
+        return torch.autograd.grad(sdpa, (qt, kt, vt), dout_t,
+                                   retain_graph=True)
+
+    fwd_lse = timed(lambda: ops._prefill(q, k, v, **kw), reps)
+    fwd = timed(lambda: ops.flash_attention_cuda(q, k, v, **kw), reps)
+    gaps = [(float((a - b).abs().max()), float(b.abs().max()))
+            for a, b in zip(kernel(), plain())]
+    live = int(live_mask(pos, pos).sum())
+    b, s, hq, d = q.shape
+    nbytes = 4 * (3 * q.numel() + 2 * 2 * k.numel() + lse.numel()
+                  + q.numel() + 2 * pos.numel())
+    flops = 10 * d * b * hq * live
+    return {**times(kernel, plain, library, reps), **bound(nbytes, flops),
+            "live_pairs_per_head": live,
+            "kernel_breakdown_ms": launch_breakdown(kernel, reps),
+            "max_abs_err": max(g for g, _ in gaps),
+            "max_rel_err_vs_plain": max(g / m for g, m in gaps),
+            "forward_with_lse_ms": fwd_lse["ms"],
+            "forward_without_lse_ms": fwd["ms"]}
+
+
+class PlainCalls:
+    """Counts calls of K3's plain version through the wrapper module (a
+    gradient-requiring call on the card must never reach it)."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_attention import ops
+        self.ops, self.n = ops, 0
+        self._orig = ops.attention_ref
+
+    def __enter__(self):
+        def counted(*a, **kw):
+            self.n += 1
+            return self._orig(*a, **kw)
+        self.ops.attention_ref = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.attention_ref = self._orig
+
+
+#: A verdict line of the train launcher: the window's steps and, when
+#: flagged, the resource it names.
+VERDICT_LINE = re.compile(r"\[telemetry\] steps (\d+)-(\d+): "
+                          r"(?:FLAGGED (\w+) (\d+) severity ([\d.]+)|healthy)")
+#: A step line of the train launcher (``--log-every 1``): its time in ms,
+#: taken from before the step to after ``loss.item()``.
+STEP_LINE = re.compile(r"^step +(\d+) loss \S+ gnorm \S+ ([\d.]+) ms$")
+
+
+def train_run(lib, inject: bool) -> dict:
+    """``launch.train.main`` at full size on the card with the counts set
+    to 0 just before; exact K3 launches (30 forward and 30 backward a
+    step), no plain attention call, the telemetry's windows.  With the
+    injected slowdown (steps 10-15, 10x), the slowed host (core 0) must be
+    named in the window that holds the burst or the one after: the
+    detector's verdict names one resource a window, over the cumulative
+    history, and on noisy host times it can name the slowest synthetic
+    peer first (ROADMAP Queue 3); such a flag is printed as a finding."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    argv = TRAIN_ARGV + (INJECT_ARGV if inject else [])
+    n_steps, n_attn = 24, get_config("smollm-135m").n_attn_layers
+    text = io.StringIO()
+    lib.reset_launches()
+    t0 = time.perf_counter()
+    with PlainCalls() as plain, contextlib.redirect_stdout(text):
+        losses = train.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(lib.LAUNCHES)
+    lines = text.getvalue().splitlines()
+    ms = [float(m.group(2)) for m in map(STEP_LINE.match, lines) if m]
+    windows = []
+    for m in filter(None, map(VERDICT_LINE.search, lines)):
+        first, last, kind, loc, sev = m.groups()
+        windows.append({"steps": [int(first), int(last)],
+                        "flagged": kind is not None,
+                        "kind": kind, "location": None if loc is None
+                        else int(loc),
+                        "severity": None if sev is None else float(sev)})
+    out = {"phase": "train", "argv": argv, "launches": launches,
+           "plain_attention_calls": plain.n, "losses": losses,
+           "ms_per_step": ms, "ms_per_step_median_after_first":
+           float(np.median(ms[1:])), "first_step_ms": ms[0],
+           "wall_s_with_init": wall, "windows": windows,
+           "telemetry": [ln for ln in lines if ln.startswith("[telemetry]")
+                         and "windows" in ln]}
+    if inject:
+        held = [i for i, w in enumerate(windows)
+                if w["steps"][0] <= 15 and w["steps"][1] >= 10]
+        core0 = [i for i, w in enumerate(windows)
+                 if (w["kind"], w["location"]) == ("core", 0)]
+        out["burst_windows"] = held
+        # 0: named in a window of the burst, 1: in the next
+        out["core0_latency_windows"] = [
+            max(0, i - held[-1]) for i in core0
+            if held and held[0] <= i <= held[-1] + 1]
+        out["peer_flags_in_burst_windows"] = [
+            windows[i] for i in held
+            if windows[i]["flagged"] and i not in core0]
+    emit(out)
+    want = {"flash_attention": n_attn * n_steps,
+            "flash_attention_prefill": n_attn * n_steps,
+            "flash_attention_decode": 0,
+            "flash_attention_bwd": n_attn * n_steps, "ssd_scan": 0,
+            "sketch_insert_runs": 0, "failrank_step": 0}
+    for name, n in want.items():
+        require(launches[name] == n,
+                f"train: {name} launched {launches[name]} times, not {n}")
+    require(plain.n == 0, "train: attention reached its plain version")
+    require(len(losses) == n_steps and all(np.isfinite(losses)),
+            "train: losses")
+    require(len(ms) == n_steps, f"train: {len(ms)} step times printed")
+    if inject:
+        require(bool(out["core0_latency_windows"]),
+                "train: no verdict named core 0 in the window of the "
+                f"injected burst or the next: {windows}")
+    return out
+
+
+def profile_train_step(dev) -> dict:
+    """Full-size train steps (batch 4 × 512) after a warm-up step: the
+    host ms of five unprofiled steps, then one step under the profiler for
+    the device ms by kernel.  The device's idle share is 1 − device ms
+    over the unprofiled median (the profiler slows the host, not the
+    kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    cfg = get_config("smollm-135m")
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt_cfg = adamw.AdamWConfig(warmup_steps=10, total_steps=24)
+    state = adamw.init_state(list(model.parameters()), opt_cfg)
+    step = S.make_train_step(cfg, S.CellPlan(), opt_cfg)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=4, seq=512))
+    toks = [torch.from_numpy(next(pipe)).to(dev) for _ in range(7)]
+    state, loss, _ = step(model, state, toks[0])
+    torch.cuda.synchronize()
+    host_ms = []
+    for tok in toks[1:6]:
+        t0 = time.perf_counter()
+        state, loss, _ = step(model, state, tok)
+        loss.item()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    by_name = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss, _ = step(model, state, toks[6])
+        loss.item()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms = device_us(prof, by_name) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    host_ops = sorted(prof.key_averages(),
+                      key=lambda e: -e.self_cpu_time_total)
+    out = {"phase": "train_profile", "arch": "smollm-135m",
+           "batch": 4, "seq": 512, "host_ms": host_ms,
+           "host_ms_median": float(np.median(host_ms)),
+           "host_ms_profiled": prof_ms, "device_ms": dev_ms,
+           "device_idle_share": 1.0 - dev_ms / float(np.median(host_ms)),
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top],
+           "top_host_ops_self_ms": [[e.key[:60], e.count,
+                                     e.self_cpu_time_total / 1e3]
+                                    for e in host_ops[:10]]}
+    emit(out)
+    return out
+
+
+def check_train_pins(dev, lib) -> dict:
+    """The reference's losses and grad norms on the pin run, twice: the
+    two runs' numbers are compared bit for bit too (reported)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, reference_params_numpy
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import adamw
+    pin = TRAIN_PINS
+    cfg = get_config(pin["arch"])
+    tree = reference_params_numpy(cfg, 0)
+    runs = []
+    for _ in range(2):
+        model = params_from_numpy(cfg, tree, dev)
+        opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=10,
+                                    total_steps=pin["steps"])
+        state = adamw.init_state(list(model.parameters()), opt_cfg)
+        step = S.make_train_step(cfg, S.CellPlan(), opt_cfg)
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=pin["batch"],
+                                        seq=pin["seq"], seed=0))
+        losses, gnorms = [], []
+        for _ in range(pin["steps"]):
+            state, loss, gnorm = step(model, state,
+                                      torch.from_numpy(next(pipe)).to(dev))
+            losses.append(loss.item())
+            gnorms.append(gnorm.item())
+        runs.append((losses, gnorms))
+        del model, state
+    (losses, gnorms), again = runs
+    rel = max(max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                      pin["losses"])),
+              max(abs(a - b) / abs(b) for a, b in zip(gnorms,
+                                                      pin["grad_norms"])))
+    out = {"phase": "train_pin", "losses": losses, "grad_norms": gnorms,
+           "reference": {k: pin[k] for k in ("losses", "grad_norms")},
+           "max_rel_err": rel, "tol": 1e-4,
+           "two_runs_bit_identical": runs[0] == runs[1]}
+    emit(out)
+    require(rel <= 1e-4, f"train pin: rel error {rel}")
+    return out
+
+
+def train_ci_smoke_and_resume(dev) -> dict:
+    """The reference's CI smoke (``ci.yml:37``) on the card, and
+    crash-resume on the smoke config: 10 steps, save, resume, 10 more
+    within rel 1e-4 of 20 straight steps."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.launch import train
+    smoke = ["--arch", "smollm-135m", "--smoke", "--batch", "2", "--seq",
+             "32", "--log-every", "100", "--device", "cuda:0"]
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        ci = train.main([*smoke, "--steps", "24", "--telemetry",
+                         "--telemetry-window", "8", "--inject-slow-at", "10",
+                         "--inject-slow-steps", "6", "--inject-slow-factor",
+                         "10", "--expect-flagged"])
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            full = train.main([*smoke, "--steps", "20", "--ckpt-dir",
+                               str(ckpt / "a"), "--ckpt-every", "10"])
+            again = train.main([*smoke, "--steps", "20"])
+            train.main([*smoke, "--steps", "10", "--ckpt-dir",
+                        str(ckpt / "b"), "--ckpt-every", "10"])
+            resumed = train.main([*smoke, "--steps", "20", "--ckpt-dir",
+                                  str(ckpt / "b"), "--resume"])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rel = abs(resumed[-1] - full[-1]) / abs(full[-1])
+    out = {"phase": "train_ci_smoke_and_resume",
+           "ci_smoke_flagged": [ln for ln in text.getvalue().splitlines()
+                                if "FLAGGED" in ln or "windows," in ln],
+           "ci_smoke_losses": [ci[0], ci[-1]],
+           "straight_last_loss": full[-1], "resumed_last_loss": resumed[-1],
+           "resume_rel_err": rel,
+           "straight_runs_bit_identical": full == again}
+    emit(out)
+    require(len(resumed) == 10 and rel <= 1e-4,
+            f"crash-resume on the card: rel {rel}")
+    return out
+
+
+def concat_sims(windows):
+    """One ``SimResult`` holding the windows' records in order."""
+    from repro_torch.core.simulator import SimResult
+    return SimResult(
+        total_time=sum(w.total_time for w in windows),
+        comp={k: np.concatenate([w.comp[k] for w in windows])
+              for k in windows[0].comp},
+        comm={k: np.concatenate([w.comm[k] for w in windows])
+              for k in windows[0].comm},
+        n_raw_records=sum(w.n_raw_records for w in windows))
+
+
+def pod_windows(cfg, fault, n_windows, steps):
+    """``PodSimulator`` windows as ``StepTelemetry`` chains them (t0 and
+    the step index carried on)."""
+    from repro_torch.core.failures import FailSlow
+    from repro_torch.distributed.telemetry import PodSimulator
+    pod = PodSimulator(cfg, step_flops=5e12, collective_bytes=4e9, seed=1)
+    if fault is not None:
+        kind, loc = fault
+        pod.inject(FailSlow(kind, loc, 0.0, 1e9,
+                            10.0 if kind == "core" else 8.0))
+    out, t = [], 0.0
+    for w in range(n_windows):
+        sim = pod.run_steps(steps, t0=t, step0=w * steps)
+        t += sim.total_time
+        out.append(sim)
+    return out
+
+
+def run_pod_phase(dev, lib) -> dict:
+    """``PodDetector.observe`` on the default 16×16 pod, three windows of
+    32 steps, both recorder impls on the card: verdicts equal to each
+    other and to ``POD_PINS``, K1 exactly once per batched window; then K1
+    per window from the carried state beside one launch over the whole
+    trace, at L = 2,048, for the 16×16 pod and the train launcher's 4×4
+    pod with 8-step windows."""
+    import dataclasses
+
+    from repro_torch.distributed.telemetry import (PodDetector,
+                                                   PodTelemetryConfig)
+    t_phase = time.perf_counter()
+    k1_times = {}
+    for pin in POD_PINS:
+        base = PodTelemetryConfig(topology=pin["topology"], window_steps=32)
+        windows = pod_windows(base, tuple(pin["fault"]), 3, 32)
+        verdicts, secs = {}, {}
+        for impl in ("ref", "batched"):
+            det = PodDetector(dataclasses.replace(base, recorder_impl=impl),
+                              device=dev)
+            got = []
+            t0 = time.perf_counter()
+            for w in windows:
+                before = lib.LAUNCHES["sketch_insert_runs"]
+                v = det.observe(w)
+                k1 = lib.LAUNCHES["sketch_insert_runs"] - before
+                require(k1 == (1 if impl == "batched" else 0),
+                        f"pod {impl}: K1 launched {k1} times in a window")
+                got.append([v.flagged, v.kind, v.location, v.severity,
+                            v.action])
+            secs[impl] = time.perf_counter() - t0
+            verdicts[impl] = got
+        label = f"{pin['topology']} {pin['fault']}"
+        emit({"phase": "pod_telemetry", "case": label,
+              "links": det.mesh.n_links, "verdicts": verdicts,
+              "reference": pin["verdicts"], "observe_s": secs})
+        require(det.mesh.n_links == pin["links"], f"{label}: links")
+        # flag, kind, location and action exact for both impls; the
+        # severity (a z-score of the recorded statistics) equal to the
+        # reference's from the numpy oracle, within f32 rounding (1e-5)
+        # from the batched recorder, whose statistics are f32
+        for impl, tol in (("ref", 1e-9), ("batched", 1e-5)):
+            for got, exp in zip(verdicts[impl], pin["verdicts"]):
+                require(got[:3] + got[4:] == exp[:3] + exp[4:]
+                        and abs(got[3] - exp[3])
+                        <= tol * max(abs(exp[3]), 1),
+                        f"{label} {impl}: verdict {got} vs reference {exp}")
+        if pin["fault"][0] == "core":
+            k1_times["16x16"] = k1_stream_times(
+                base.sketch, 1, 0.0, windows, concat_sims(windows), dev)
+    small = PodTelemetryConfig(mesh_w=4, mesh_h=4, window_steps=8)
+    windows = pod_windows(small, ("core", 0), 3, 8)
+    k1_times["4x4"] = k1_stream_times(small.sketch, 1, 0.0, windows,
+                                      concat_sims(windows), dev)
+    for name, k1 in k1_times.items():
+        emit({"phase": "sketch_kernel_pod_windows", "pod": name,
+              "sketch": "d=2 m=1024 H=4 L=2048", **k1})
+    emit({"phase": "pod_phase_wall_s",
+          "seconds": time.perf_counter() - t_phase})
+    return k1_times
+
+
+def serve_telemetry_run(lib) -> dict:
+    """``launch.serve.main --telemetry`` at full size: decode steps stream
+    into the pod detector (a separate run from phase 7's timed ones)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+    text = io.StringIO()
+    lib.reset_launches()
+    with contextlib.redirect_stdout(text):
+        done, stats = serve.main(["--arch", "smollm-135m", "--requests", "4",
+                                  "--batch", "4", "--prompt-len", "64",
+                                  "--max-new", "25", "--telemetry",
+                                  "--telemetry-window", "8"])
+    out = {"phase": "serve_telemetry", **stats,
+           "launches": dict(lib.LAUNCHES),
+           "flagged_lines": [ln for ln in text.getvalue().splitlines()
+                             if "FLAGGED" in ln]}
+    emit(out)
+    require(len(done) == 4 and stats["telemetry_windows"] == 3,
+            f"serve --telemetry: {stats}")
+    require(lib.LAUNCHES["flash_attention_bwd"] == 0,
+            "serving launched K3's backward")
+    return out
+
+# ---------------------------------------------------------------------------
 # the unit of K1's chain bound: one dependent shared-memory load
 # ---------------------------------------------------------------------------
 
@@ -1642,6 +2224,9 @@ def main() -> int:
           "cases": attn_cases})
     ssd_cases, k4_err = check_ssd_kernel(dev)
     emit({"phase": "ssd_kernel_vs_plain", "tol": 2e-4, "cases": ssd_cases})
+    bwd_cases, k3_bwd_rel, k3_bwd_err = check_attention_bwd(dev, lib)
+    emit({"phase": "attention_bwd_vs_autograd", "tol": K3_BWD_TOL,
+          "cases": bwd_cases})
     emit({"phase": "bit_identical", **check_bit_identical(dev)})
 
     # ---- 3. the main path: resnet50 on 8×8 -------------------------------
@@ -1822,11 +2407,34 @@ def main() -> int:
     for arch in ("smollm-135m", "mamba2-1.3b"):
         profile_serving(arch, dev)
 
+    # ---- 10. K3's backward at the training shape ----------------------------
+    k3_bwd = time_attention_bwd(dev, reps=20)
+    emit({"phase": "train_kernel_times", "flash_attention_bwd": k3_bwd})
+
+    # ---- 11-12. the train path at full size, with and without injection -----
+    train_main = train_run(lib, inject=True)
+    train_run(lib, inject=False)
+    profile_train_step(dev)
+
+    # ---- 13-14. the reference's pins; the CI smoke and crash-resume ---------
+    check_train_pins(dev, lib)
+    train_ci_smoke_and_resume(dev)
+
+    # ---- 15. pod telemetry: the 16x16 pod, both recorder impls --------------
+    k1_pod = run_pod_phase(dev, lib)
+
+    # ---- 16. serving with the telemetry tap ---------------------------------
+    serve_telemetry_run(lib)
+
     emit({"kernels": [
         {"name": "sketch_insert_runs", "route": "cuda",
          "source": "src/repro_torch/csrc/sketch_insert.cu",
          "replaces": "src/repro/kernels/sketch_update/kernel.py:158",
          "launches": launches["sketch_insert_runs"], **k1_campaign,
+         "pod_window_ms": {pod: [c["ms"] for c in t["per_chunk"]]
+                           for pod, t in k1_pod.items()},
+         "pod_whole_trace_ms": {pod: t["whole_ms"]
+                                for pod, t in k1_pod.items()},
          "max_abs_err": k1["err"], "ms": k1["ms"],
          "events_ms": k1["events_ms"],
          "timing": timing_label([] if k1["ahead"] else ["ms"]),
@@ -1863,6 +2471,18 @@ def main() -> int:
          | {"live_slots": k3_dec["live_slots"], "shape": "q [4,1,9,64] at position 543 over a 1024-slot "
                      "cache holding 0..543 (the serve run's last decode "
                      "step), one layer"}},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/models/layers.py:225 (jax.grad of XLA "
+                     "attention; no Pallas kernel)",
+         "launches": train_main["launches"]["flash_attention_bwd"],
+         "max_abs_err": max(k3_bwd_err, k3_bwd["max_abs_err"]),
+         "max_rel_err": max(k3_bwd_rel, k3_bwd["max_rel_err_vs_plain"]),
+         **{k: k3_bwd[k] for k in KERNEL_TIME_KEYS}, "plain_device": "cuda",
+         "plain_is": "attention_bwd_ref (the kernel's algebra in torch)",
+         "library_is": "SDPA's backward through autograd",
+         "shape": "smollm-135m train, q [4,512,9,64], kv [4,512,3,64], "
+                  "causal, one layer (four kernels a call)"},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:83",

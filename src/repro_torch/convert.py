@@ -7,8 +7,10 @@ rebuild the port's types, so a test can hand both packages one input.
 For the model substrate, ``reference_params_numpy`` draws a parameter tree
 in the reference's layout from numpy (the two frameworks' generators give
 different numbers from one seed, so this is the only way to give both the
-same weights) and ``params_from_numpy`` loads such a tree into the port's
-model.
+same weights), ``params_from_numpy`` loads such a tree into the port's
+model and ``params_to_numpy`` takes the model's parameters (or any tensors
+named as them, such as their gradients) back out in the reference's
+layout.
 """
 
 from __future__ import annotations
@@ -106,7 +108,9 @@ def params_from_numpy(cfg, tree, device=None) -> T.Model:
     dev = resolve_device(device)
 
     def tensor(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        # a copy: training updates the parameters in place, and the
+        # caller's arrays (which another framework may alias) stay as given
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
     def block(leaves, pi=None):
         return L.ParamBlock({k: tensor(v if pi is None else v[pi])
@@ -120,3 +124,34 @@ def params_from_numpy(cfg, tree, device=None) -> T.Model:
     lm_head = tree.get("lm_head")
     return T.Model(cfg, tensor(tree["embed"]), block(tree["final_norm"]),
                    layers, None if lm_head is None else tensor(lm_head))
+
+
+def params_to_numpy(cfg, model, tensors=None) -> dict:
+    """The reverse of :func:`params_from_numpy`: the model's parameters
+    as the reference's pytree of f32 numpy arrays (nested dicts,
+    ``periods/slot{i}`` leaves stacked over periods).  ``tensors``, a
+    ``{parameter name: tensor}`` dict (for example each parameter's
+    ``grad``), is laid out in their place."""
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+    pl = T.period_len(cfg)
+    tree: dict = {}
+    stacked: dict = {}
+    for name, _ in model.named_parameters():
+        arr = tensors[name].detach().cpu().numpy()
+        parts = name.split(".")
+        if parts[0] == "layers":
+            li = int(parts[1])
+            key = ("periods", f"slot{li % pl}", *parts[2:])
+            stacked.setdefault(key, []).append(arr)
+            continue
+        node = tree
+        for k in parts[:-1]:
+            node = node.setdefault(k, {})
+        node[parts[-1]] = arr
+    for key, arrs in stacked.items():
+        node = tree
+        for k in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1]] = np.stack(arrs)
+    return tree

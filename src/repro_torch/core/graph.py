@@ -4,7 +4,8 @@ Nodes are DNN operators (conv / gemm / pool / attention / moe / ssm ...)
 annotated with FLOPs and output bytes; edges carry data volumes.  This is the
 graph SL-Compiler analyses for probe insertion and the mapper partitions onto
 the core mesh.  Builders are provided for the paper's five evaluation
-workloads (DarkNet-19, GoogLeNet, VGG-16, ResNet-50, BinaryTree).
+workloads (DarkNet-19, GoogLeNet, VGG-16, ResNet-50, BinaryTree) and for the
+assigned LM architectures (built from an ArchConfig).
 """
 
 from __future__ import annotations
@@ -295,6 +296,110 @@ def build_binary_tree(depth: int = 5, dim: int = 256,
         stage += 1
     out = g.add_node("output", "output", 0, out_b, stage)
     g.add_edge(roots[0], out)
+    return g
+
+
+# ---------------------------------------------------------------------------
+# LM-architecture builder (ties SLOTH to the assigned architectures).
+# ---------------------------------------------------------------------------
+
+def build_lm_graph(cfg, seq: int = 512, batch: int = 8,
+                   max_layers: int | None = None) -> CompGraph:
+    """Build an operator graph for one of the assigned LM architectures.
+
+    ``cfg`` is a ``repro_torch.configs.base.ArchConfig``.  Per layer we emit the
+    block's operators (attention / MoE / SSM) with edges carrying activation
+    volumes, so SLOTH sees the same dataflow the accelerator would run.
+    """
+    g = CompGraph(f"lm:{cfg.name}")
+    d = cfg.d_model
+    tok_bytes = seq * batch * d * _BYTES
+    inp = g.add_node("embed", "embed", 2.0 * seq * batch * d,
+                     tok_bytes, 0)
+    prev = inp
+    n_layers = cfg.n_layers if max_layers is None else min(cfg.n_layers,
+                                                           max_layers)
+    stage = 1
+    for li in range(n_layers):
+        kind = cfg.layer_kind(li)
+        norm = g.add_node(f"l{li}_norm", "norm", 5.0 * seq * batch * d,
+                          tok_bytes, stage)
+        g.add_edge(prev, norm)
+        if kind == "mamba":
+            d_inner = cfg.ssm_expand * d
+            proj = g.add_node(f"l{li}_inproj", "gemm",
+                              2.0 * seq * batch * d * 2 * d_inner,
+                              2 * tok_bytes, stage)
+            g.add_edge(norm, proj)
+            scan = g.add_node(f"l{li}_ssd", "ssm_scan",
+                              6.0 * seq * batch * d_inner * cfg.ssm_state,
+                              tok_bytes, stage + 1)
+            g.add_edge(proj, scan)
+            mix = g.add_node(f"l{li}_outproj", "gemm",
+                             2.0 * seq * batch * d_inner * d, tok_bytes,
+                             stage + 1)
+            g.add_edge(scan, mix)
+        else:
+            h_dim = cfg.head_dim * cfg.n_heads
+            kv_dim = cfg.head_dim * cfg.n_kv_heads
+            qkv = g.add_node(f"l{li}_qkv", "gemm",
+                             2.0 * seq * batch * d * (h_dim + 2 * kv_dim),
+                             tok_bytes, stage)
+            g.add_edge(norm, qkv)
+            w = cfg.window if cfg.window else seq
+            attn_ctx = min(seq, w)
+            attn = g.add_node(f"l{li}_attn", "attention",
+                              4.0 * seq * attn_ctx * batch * h_dim,
+                              tok_bytes, stage + 1)
+            g.add_edge(qkv, attn)
+            mix = g.add_node(f"l{li}_oproj", "gemm",
+                             2.0 * seq * batch * h_dim * d, tok_bytes,
+                             stage + 1)
+            g.add_edge(attn, mix)
+        res1 = g.add_node(f"l{li}_res1", "elemwise", seq * batch * d,
+                          tok_bytes, stage + 2)
+        g.add_edge(mix, res1)
+        g.add_edge(prev, res1)
+        # FFN / MoE
+        norm2 = g.add_node(f"l{li}_norm2", "norm", 5.0 * seq * batch * d,
+                           tok_bytes, stage + 2)
+        g.add_edge(res1, norm2)
+        if cfg.is_moe_layer(li):
+            router = g.add_node(f"l{li}_router", "router",
+                                2.0 * seq * batch * d * cfg.n_experts,
+                                seq * batch * cfg.n_experts * _BYTES,
+                                stage + 3)
+            g.add_edge(norm2, router)
+            # each expert processes ~(top_k / n_experts) of the tokens
+            frac = cfg.top_k / cfg.n_experts
+            eflops = 3 * 2.0 * seq * batch * frac * d * cfg.d_ff
+            agg = g.add_node(f"l{li}_moe_agg", "elemwise",
+                             seq * batch * d * cfg.top_k, tok_bytes,
+                             stage + 4)
+            for ei in range(cfg.n_experts):
+                ex = g.add_node(f"l{li}_e{ei}", "moe_expert", eflops,
+                                tok_bytes * frac, stage + 3, expert=ei)
+                g.add_edge(router, ex, bytes=tok_bytes * frac)
+                g.add_edge(ex, agg, bytes=tok_bytes * frac)
+            ffn_out = agg
+        else:
+            n_mats = 3 if cfg.mlp == "swiglu" else 2
+            up = g.add_node(f"l{li}_ffn", "gemm",
+                            n_mats * 2.0 * seq * batch * d * cfg.d_ff,
+                            tok_bytes, stage + 3)
+            g.add_edge(norm2, up)
+            ffn_out = up
+        res2 = g.add_node(f"l{li}_res2", "elemwise", seq * batch * d,
+                          tok_bytes, stage + 4)
+        g.add_edge(ffn_out, res2)
+        g.add_edge(res1, res2)
+        prev = res2
+        stage += 5
+    head = g.add_node("lm_head", "gemm", 2.0 * seq * batch * d * cfg.vocab,
+                      seq * batch * min(cfg.vocab, 4096) * _BYTES, stage)
+    g.add_edge(prev, head)
+    out = g.add_node("output", "output", 0, 0, stage + 1)
+    g.add_edge(head, out)
     return g
 
 

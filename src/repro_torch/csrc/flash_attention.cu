@@ -13,7 +13,12 @@
 // takes q_pos [S] and k_pos [T], so prefill (k_pos = q_pos) and decode over
 // a rolling cache (k_pos = the cache's position table) share it.
 //
-// Two entry points; the wrapper picks one from the shapes alone.
+// Two forward entry points; the wrapper picks one from the shapes alone,
+// and takes the prefill whenever a gradient is needed, since only it can
+// write each row's log-sum-exp.  A third entry point, the backward
+// (flash_attention_backward, below the decode), has no TPU twin: the
+// reference trains by autodiff through XLA attention, and this computes
+// what that autodiff computes.
 //
 // Prefill (flash_attention_prefill): bound by operations.  A causal
 // prefill of 4 x 512 tokens with 9 heads of 64 does about 1.2 GFLOP in f32
@@ -176,8 +181,9 @@ template <int D>
 __global__ void __launch_bounds__(PT) flash_prefill_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ q_pos,
-    const int* __restrict__ k_pos, float* __restrict__ out, int S, int T,
-    int Hq, int Hkv, int causal, int window, float scale) {
+    const int* __restrict__ k_pos, float* __restrict__ out,
+    float* __restrict__ lse, int S, int T, int Hq, int Hkv, int causal,
+    int window, float scale) {
   constexpr int KS = D + 4;  // row stride of Q and K tiles
   constexpr int DV = D / 8;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -371,6 +377,11 @@ __global__ void __launch_bounds__(PT) flash_prefill_kernel(
       float* o = out + ((size_t)(b * S + q0 + r) * Hq + h) * D;
 #pragma unroll
       for (int e = 0; e < DV; ++e) o[out_col<D>(tx, e)] = acc[i][e] * inv;
+      // the row's log-sum-exp of scaled scores (every thread of the row
+      // holds the same m and l), for the backward
+      if (lse != nullptr && tx == 0)
+        lse[((size_t)b * Hq + h) * S + q0 + r] =
+            l[i] > 0.0f ? m[i] + logf(l[i]) : -INFINITY;
     }
   }
 }
@@ -518,6 +529,464 @@ __global__ void __launch_bounds__(DT) flash_decode_combine_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// backward: D = rowsum(dO o O), then dK/dV and dQ from P recomputed with the
+// forward's log-sum-exp
+// ---------------------------------------------------------------------------
+//
+// With s_ij = q_i . k_j / sqrt(D) over the live pairs and lse_i the
+// forward's log-sum-exp of row i:
+//   P_ij  = exp(s_ij - lse_i)           (0 where the pair is masked)
+//   D_i   = sum_d dO_i[d] O_i[d]
+//   dV_j  = sum_i P_ij dO_i             (summed over the group's query heads)
+//   dS_ij = P_ij (dO_i . v_j - D_i)
+//   dQ_i  = sum_j dS_ij k_j / sqrt(D)
+//   dK_j  = sum_i dS_ij q_i / sqrt(D)   (summed over the group's query heads)
+// Launches: one warp per row for D; one block per (batch, query head, key
+// tile of 64) for that head's share of dK and dV, looping in index order
+// over the query tiles that hold a live pair (a block per query head, not
+// per KV head, so that a causal prefill's longest blocks are a group's
+// length shorter and three times as many blocks fill the card); with
+// grouped heads, a pass that adds each group's shares in head order; one
+// block per (batch, query head, query tile of 64) for dQ, looping over the
+// key tiles that hold a live pair.  Every sum runs in an order fixed by
+// the shapes: no atomics, two runs are bit-identical.  Bound by
+// operations, 10 * D f32 operations per live pair (S, dP, dV, dS.K,
+// dS^T.Q); a simple design on CUDA cores, one stage of cp.async, no tensor
+// cores.
+
+// The D/8 output columns out_col(tx, e) of one shared-memory row, as
+// float4 loads where D >= 32.
+template <int D>
+__device__ __forceinline__ void load_cols(const float* row, int tx,
+                                          float* out) {
+  if constexpr (D >= 32) {
+#pragma unroll
+    for (int e = 0; e < D / 8; e += 4) {
+      const float4 t =
+          *reinterpret_cast<const float4*>(row + (e >> 2) * 32 + tx * 4);
+      out[e] = t.x;
+      out[e + 1] = t.y;
+      out[e + 2] = t.z;
+      out[e + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < D / 8; ++e) out[e] = row[out_col<D>(tx, e)];
+  }
+}
+
+// One warp per row ((b * S + i) * Hq + h): delta[(b * Hq + h) * S + i].
+__global__ void __launch_bounds__(DT) flash_bwd_dot_kernel(
+    const float* __restrict__ out, const float* __restrict__ dout,
+    float* __restrict__ delta, int rows, int S, int Hq, int D) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (DT / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const float* o = out + (size_t)row * D;
+  const float* g = dout + (size_t)row * D;
+  float t = 0.0f;
+  for (int d = lane; d < D; d += 32) t = fmaf(o[d], g[d], t);
+  for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(FULL, t, off);
+  if (lane == 0) {
+    const int h = row % Hq, bi = row / Hq;  // bi = b * S + i
+    const int b = bi / S, i = bi % S;
+    delta[((size_t)b * Hq + h) * S + i] = t;
+  }
+}
+
+// dK and dV of key tile blockIdx.y from query head blockIdx.x % Hq of
+// batch blockIdx.x / Hq, over the query tiles in index order.  With one
+// query head per KV head the block writes dk/dv [B,T,Hkv,D]; with more, it
+// writes its head's share to dk/dv laid out [B,T,Hq,D], and
+// flash_bwd_group_sum_kernel adds the shares of a group in head order.
+// The thread owns keys ty + 16i and, in the score tile, query rows tx + 8j;
+// its accumulators hold its keys' output columns out_col(tx, e).
+template <int D>
+__global__ void __launch_bounds__(PT) flash_bwd_dkdv_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+    float* __restrict__ dk, float* __restrict__ dv, int S, int T, int Hq,
+    int Hkv, int causal, int window, float scale) {
+  constexpr int KS = D + 4;
+  constexpr int DV = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* k_sh = smem;                 // [BK][KS]
+  float* v_sh = k_sh + BK * KS;       // [BK][KS]
+  float* q_sh = v_sh + BK * KS;       // [BQ][KS]
+  float* do_sh = q_sh + BQ * KS;      // [BQ][KS]
+  float* p_sh = do_sh + BQ * KS;      // [BK][PS], P^T (key, row)
+  float* ds_sh = p_sh + BK * PS;      // [BK][PS], dS^T
+  float* lse_sh = ds_sh + BK * PS;    // [BQ]
+  float* dl_sh = lse_sh + BQ;         // [BQ]
+  int* qp_sh = (int*)(dl_sh + BQ);    // [BQ]
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int ty = tid >> 3, tx = tid & 7;
+  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
+  const int hk = h / (Hq / Hkv);
+  const int t0 = blockIdx.y * BK, nk = min(BK, T - t0);
+
+  int kp[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = ty + 16 * i;
+    kp[i] = c < nk ? k_pos[t0 + c] : -1;
+  }
+  float dk_acc[4][DV], dv_acc[4][DV];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DV; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.0f;
+
+  stage_rows<D, PT>(k_sh, KS, k, (size_t)b * T + t0, BK, nk, Hkv, hk, tid);
+  stage_rows<D, PT>(v_sh, KS, v, (size_t)b * T + t0, BK, nk, Hkv, hk, tid);
+  cp_async_commit();
+
+  for (int q0 = 0; q0 < S; q0 += BQ) {
+    const int nq = min(BQ, S - q0);
+    int q_lo, q_hi;
+    pos_range(q_pos + q0, nq, lane, q_lo, q_hi);
+    if (!classify(k_pos, t0, T, q_lo, q_hi, causal, window, lane))
+      continue;  // no live pair between this query tile and the keys
+    stage_rows<D, PT>(q_sh, KS, q, (size_t)b * S + q0, BQ, nq, Hq, h, tid);
+    stage_rows<D, PT>(do_sh, KS, dout, (size_t)b * S + q0, BQ, nq, Hq, h,
+                      tid);
+    cp_async_commit();
+    if (tid < BQ) {
+      const bool ok = tid < nq;
+      const size_t at = ((size_t)b * Hq + h) * S + q0 + tid;
+      lse_sh[tid] = ok ? lse[at] : 0.0f;
+      dl_sh[tid] = ok ? delta[at] : 0.0f;
+      qp_sh[tid] = ok ? q_pos[q0 + tid] : 0;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // K/V (first time), Q, dO and the row values landed
+
+    // P^T: scores of keys ty + 16i against rows tx + 8j
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 ka[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ka[i] =
+            *reinterpret_cast<const float4*>(k_sh + (ty + 16 * i) * KS + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 qb =
+            *reinterpret_cast<const float4*>(q_sh + (tx + 8 * j) * KS + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float t = s[i][j];
+          t = fmaf(ka[i].x, qb.x, t);
+          t = fmaf(ka[i].y, qb.y, t);
+          t = fmaf(ka[i].z, qb.z, t);
+          s[i][j] = fmaf(ka[i].w, qb.w, t);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = tx + 8 * j;
+      const bool row_ok = r < nq;
+      const int qp = qp_sh[r];
+      const float m = lse_sh[r];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool live = row_ok && live_key(kp[i], qp, causal, window);
+        p_sh[(ty + 16 * i) * PS + r] =
+            live ? expf(fmaf(s[i][j], scale, -m)) : 0.0f;
+      }
+    }
+
+    // dP^T = V . dO^T, then dS^T = P^T (dP^T - D), in the same cells
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 va[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        va[i] =
+            *reinterpret_cast<const float4*>(v_sh + (ty + 16 * i) * KS + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 gb =
+            *reinterpret_cast<const float4*>(do_sh + (tx + 8 * j) * KS + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float t = s[i][j];
+          t = fmaf(va[i].x, gb.x, t);
+          t = fmaf(va[i].y, gb.y, t);
+          t = fmaf(va[i].z, gb.z, t);
+          s[i][j] = fmaf(va[i].w, gb.w, t);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = tx + 8 * j;
+      const float dl = dl_sh[r];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int at = (ty + 16 * i) * PS + r;
+        ds_sh[at] = p_sh[at] * (s[i][j] - dl);
+      }
+    }
+    __syncthreads();  // P^T and dS^T are complete
+
+    // dV += P^T . dO, dK += dS^T . Q over the tile's rows, in order
+#pragma unroll 2
+    for (int c = 0; c < BQ; c += 4) {
+      float4 pa[4], da[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pa[i] =
+            *reinterpret_cast<const float4*>(p_sh + (ty + 16 * i) * PS + c);
+        da[i] =
+            *reinterpret_cast<const float4*>(ds_sh + (ty + 16 * i) * PS + c);
+      }
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        float gv[DV], qv[DV];
+        load_cols<D>(do_sh + (c + cc) * KS, tx, gv);
+        load_cols<D>(q_sh + (c + cc) * KS, tx, qv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = cc == 0 ? pa[i].x
+                          : cc == 1 ? pa[i].y
+                          : cc == 2 ? pa[i].z
+                                    : pa[i].w;
+          const float ds = cc == 0 ? da[i].x
+                           : cc == 1 ? da[i].y
+                           : cc == 2 ? da[i].z
+                                     : da[i].w;
+#pragma unroll
+          for (int e = 0; e < DV; ++e) {
+            dv_acc[i][e] = fmaf(p, gv[e], dv_acc[i][e]);
+            dk_acc[i][e] = fmaf(ds, qv[e], dk_acc[i][e]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the tile is consumed before the next one lands
+  }
+  cp_async_wait<0>();  // K/V of a block that found no live tile
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = ty + 16 * i;
+    if (c < nk) {
+      const size_t row =
+          Hq == Hkv ? ((size_t)(b * T + t0 + c) * Hkv + hk) * D
+                    : ((size_t)(b * T + t0 + c) * Hq + h) * D;
+#pragma unroll
+      for (int e = 0; e < DV; ++e) {
+        dk[row + out_col<D>(tx, e)] = dk_acc[i][e] * scale;
+        dv[row + out_col<D>(tx, e)] = dv_acc[i][e];
+      }
+    }
+  }
+}
+
+// dk/dv [B,T,Hkv,D] from the query heads' shares [B,T,Hq,D]: the G
+// shares of each KV head added in head order, one thread per output.
+__global__ void __launch_bounds__(DT) flash_bwd_group_sum_kernel(
+    const float* __restrict__ part_k, const float* __restrict__ part_v,
+    float* __restrict__ dk, float* __restrict__ dv, size_t n, int Hq,
+    int Hkv, int D) {
+  const size_t e = (size_t)blockIdx.x * DT + threadIdx.x;
+  if (e >= n) return;
+  const int group = Hq / Hkv;
+  const int d = (int)(e % D);
+  const size_t row = e / D;  // (b * T + t) * Hkv + hk
+  const int hk = (int)(row % Hkv);
+  const size_t src = ((row / Hkv) * Hq + (size_t)hk * group) * D + d;
+  float sk = 0.0f, sv = 0.0f;
+  for (int g = 0; g < group; ++g) {
+    sk += part_k[src + (size_t)g * D];
+    sv += part_v[src + (size_t)g * D];
+  }
+  dk[e] = sk;
+  dv[e] = sv;
+}
+
+// dQ of query tile blockIdx.y for query head blockIdx.x % Hq of batch
+// blockIdx.x / Hq: rows ty + 16i, keys tx + 8j, as the forward.
+template <int D>
+__global__ void __launch_bounds__(PT) flash_bwd_dq_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+    float* __restrict__ dq, int S, int T, int Hq, int Hkv, int causal,
+    int window, float scale) {
+  constexpr int KS = D + 4;
+  constexpr int DV = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* q_sh = smem;                 // [BQ][KS]
+  float* do_sh = q_sh + BQ * KS;      // [BQ][KS]
+  float* k_sh = do_sh + BQ * KS;      // [BK][KS]
+  float* v_sh = k_sh + BK * KS;       // [BK][KS]
+  float* ds_sh = v_sh + BK * KS;      // [BQ][PS]
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int ty = tid >> 3, tx = tid & 7;
+  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
+  const int hk = h / (Hq / Hkv);
+  const int nq = min(BQ, S - q0);
+
+  int q_lo, q_hi;
+  pos_range(q_pos + q0, nq, lane, q_lo, q_hi);
+  int qp[4];
+  float m[4], dl[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    const bool ok = r < nq;
+    const size_t at = ((size_t)b * Hq + h) * S + q0 + r;
+    qp[i] = ok ? q_pos[q0 + r] : 0;
+    m[i] = ok ? lse[at] : 0.0f;
+    dl[i] = ok ? delta[at] : 0.0f;
+  }
+  float acc[4][DV];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DV; ++e) acc[i][e] = 0.0f;
+
+  stage_rows<D, PT>(q_sh, KS, q, (size_t)b * S + q0, BQ, nq, Hq, h, tid);
+  stage_rows<D, PT>(do_sh, KS, dout, (size_t)b * S + q0, BQ, nq, Hq, h, tid);
+  cp_async_commit();
+
+  int cls;
+  for (int cur = next_tile(k_pos, 0, T, q_lo, q_hi, causal, window, lane, cls);
+       cur < T;
+       cur = next_tile(k_pos, cur + BK, T, q_lo, q_hi, causal, window, lane,
+                       cls)) {
+    stage_rows<D, PT>(k_sh, KS, k, (size_t)b * T + cur, BK, T - cur, Hkv, hk,
+                      tid);
+    stage_rows<D, PT>(v_sh, KS, v, (size_t)b * T + cur, BK, T - cur, Hkv, hk,
+                      tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();  // this key tile (and Q, dO) landed
+
+    float s[4][8], p[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qa[i] =
+            *reinterpret_cast<const float4*>(q_sh + (ty + 16 * i) * KS + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 kb =
+            *reinterpret_cast<const float4*>(k_sh + (tx + 8 * j) * KS + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float t = s[i][j];
+          t = fmaf(qa[i].x, kb.x, t);
+          t = fmaf(qa[i].y, kb.y, t);
+          t = fmaf(qa[i].z, kb.z, t);
+          s[i][j] = fmaf(qa[i].w, kb.w, t);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int t = cur + tx + 8 * j;
+      const int kp = t < T ? k_pos[t] : -1;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool live =
+            ty + 16 * i < nq && live_key(kp, qp[i], causal, window);
+        p[i][j] = live ? expf(fmaf(s[i][j], scale, -m[i])) : 0.0f;
+        s[i][j] = 0.0f;
+      }
+    }
+    // dP = dO . V^T
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 ga[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ga[i] =
+            *reinterpret_cast<const float4*>(do_sh + (ty + 16 * i) * KS + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 vb =
+            *reinterpret_cast<const float4*>(v_sh + (tx + 8 * j) * KS + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float t = s[i][j];
+          t = fmaf(ga[i].x, vb.x, t);
+          t = fmaf(ga[i].y, vb.y, t);
+          t = fmaf(ga[i].z, vb.z, t);
+          s[i][j] = fmaf(ga[i].w, vb.w, t);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        ds_sh[(ty + 16 * i) * PS + tx + 8 * j] = p[i][j] * (s[i][j] - dl[i]);
+    __syncthreads();  // dS is complete
+
+    // dQ += dS . K over the tile's keys, in order
+#pragma unroll 2
+    for (int c = 0; c < BK; c += 4) {
+      float4 da[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        da[i] =
+            *reinterpret_cast<const float4*>(ds_sh + (ty + 16 * i) * PS + c);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        float kv[DV];
+        load_cols<D>(k_sh + (c + cc) * KS, tx, kv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float ds = cc == 0 ? da[i].x
+                           : cc == 1 ? da[i].y
+                           : cc == 2 ? da[i].z
+                                     : da[i].w;
+#pragma unroll
+          for (int e = 0; e < DV; ++e) acc[i][e] = fmaf(ds, kv[e], acc[i][e]);
+        }
+      }
+    }
+    __syncthreads();  // K, V and dS are consumed before they refill
+  }
+  cp_async_wait<0>();  // Q and dO of a tile with no live key
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (r < nq) {
+      float* o = dq + ((size_t)(b * S + q0 + r) * Hq + h) * D;
+#pragma unroll
+      for (int e = 0; e < DV; ++e) o[out_col<D>(tx, e)] = acc[i][e] * scale;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -531,15 +1000,15 @@ static int allow_smem(K kernel, size_t smem) {
 template <int D>
 static int launch_prefill(const float* q, const float* k, const float* v,
                           const int* q_pos, const int* k_pos, float* out,
-                          int B, int S, int T, int Hq, int Hkv, int causal,
-                          int window, cudaStream_t st) {
+                          float* lse, int B, int S, int T, int Hq, int Hkv,
+                          int causal, int window, cudaStream_t st) {
   const size_t smem =
       sizeof(float) * (3 * BQ * (D + 4) + 2 * BK * D + BQ * PS);
   int e = allow_smem(flash_prefill_kernel<D>, smem);
   if (e) return e;
   const dim3 grid(B * Hq, (S + BQ - 1) / BQ);
   flash_prefill_kernel<D><<<grid, PT, smem, st>>>(
-      q, k, v, q_pos, k_pos, out, S, T, Hq, Hkv, causal, window,
+      q, k, v, q_pos, k_pos, out, lse, S, T, Hq, Hkv, causal, window,
       1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
@@ -566,6 +1035,52 @@ static int launch_decode(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+static int launch_backward(const float* q, const float* k, const float* v,
+                           const float* out, const float* dout,
+                           const float* lse, const int* q_pos,
+                           const int* k_pos, float* delta, float* part,
+                           float* dq, float* dk, float* dv, int B, int S,
+                           int T, int Hq, int Hkv, int causal, int window,
+                           cudaStream_t st) {
+  const float scale = 1.0f / sqrtf((float)D);
+  const int rows = B * S * Hq;
+  flash_bwd_dot_kernel<<<(rows + DT / 32 - 1) / (DT / 32), DT, 0, st>>>(
+      out, dout, delta, rows, S, Hq, D);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  const size_t kv_smem = sizeof(float) * (2 * BK * (D + 4) +
+                                          2 * BQ * (D + 4) + 2 * BK * PS +
+                                          3 * BQ);
+  e = allow_smem(flash_bwd_dkdv_kernel<D>, kv_smem);
+  if (e) return e;
+  // one query head's share per block; a group's shares are added after
+  const size_t n_part = (size_t)B * T * Hq * D;
+  float* pk = Hq == Hkv ? dk : part;
+  float* pv = Hq == Hkv ? dv : part + n_part;
+  flash_bwd_dkdv_kernel<D>
+      <<<dim3(B * Hq, (T + BK - 1) / BK), PT, kv_smem, st>>>(
+          q, k, v, dout, lse, delta, q_pos, k_pos, pk, pv, S, T, Hq, Hkv,
+          causal, window, scale);
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  if (Hq != Hkv) {
+    const size_t n = (size_t)B * T * Hkv * D;
+    flash_bwd_group_sum_kernel<<<(unsigned)((n + DT - 1) / DT), DT, 0, st>>>(
+        pk, pv, dk, dv, n, Hq, Hkv, D);
+    e = (int)cudaGetLastError();
+    if (e) return e;
+  }
+  const size_t q_smem =
+      sizeof(float) * (2 * BQ * (D + 4) + 2 * BK * (D + 4) + BQ * PS);
+  e = allow_smem(flash_bwd_dq_kernel<D>, q_smem);
+  if (e) return e;
+  flash_bwd_dq_kernel<D><<<dim3(B * Hq, (S + BQ - 1) / BQ), PT, q_smem, st>>>(
+      q, k, v, dout, lse, delta, q_pos, k_pos, dq, S, T, Hq, Hkv, causal,
+      window, scale);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 // Keys per split of the decode path.
@@ -574,27 +1089,29 @@ int flash_attention_split_keys(void) { return BK; }
 // Launch on `stream`; allocates nothing, does not synchronise, returns
 // cudaGetLastError().  q/out [B,S,Hq,D], k/v [B,T,Hkv,D] row-major f32
 // with 16-byte aligned bases; q_pos [S], k_pos [T] int32; all device
-// memory.  window <= 0: no window.  D must be 16, 32, 64 or 128 and Hq a
-// multiple of Hkv (the wrapper checks; an unsupported D returns
-// cudaErrorInvalidValue).
+// memory.  lse, when not null, receives each row's log-sum-exp of scaled
+// scores, [B,Hq,S] f32 (-inf for a row with no live key); when null the
+// kernel writes out only.  window <= 0: no window.  D must be 16, 32, 64
+// or 128 and Hq a multiple of Hkv (the wrapper checks; an unsupported D
+// returns cudaErrorInvalidValue).
 int flash_attention_prefill(const float* q, const float* k, const float* v,
                             const int* q_pos, const int* k_pos, float* out,
-                            int B, int S, int T, int Hq, int Hkv, int D,
-                            int causal, int window, void* stream) {
+                            float* lse, int B, int S, int T, int Hq, int Hkv,
+                            int D, int causal, int window, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 16:
-      return launch_prefill<16>(q, k, v, q_pos, k_pos, out, B, S, T, Hq, Hkv,
-                                causal, window, st);
+      return launch_prefill<16>(q, k, v, q_pos, k_pos, out, lse, B, S, T, Hq,
+                                Hkv, causal, window, st);
     case 32:
-      return launch_prefill<32>(q, k, v, q_pos, k_pos, out, B, S, T, Hq, Hkv,
-                                causal, window, st);
+      return launch_prefill<32>(q, k, v, q_pos, k_pos, out, lse, B, S, T, Hq,
+                                Hkv, causal, window, st);
     case 64:
-      return launch_prefill<64>(q, k, v, q_pos, k_pos, out, B, S, T, Hq, Hkv,
-                                causal, window, st);
+      return launch_prefill<64>(q, k, v, q_pos, k_pos, out, lse, B, S, T, Hq,
+                                Hkv, causal, window, st);
     case 128:
-      return launch_prefill<128>(q, k, v, q_pos, k_pos, out, B, S, T, Hq,
-                                 Hkv, causal, window, st);
+      return launch_prefill<128>(q, k, v, q_pos, k_pos, out, lse, B, S, T,
+                                 Hq, Hkv, causal, window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -625,6 +1142,43 @@ int flash_attention_decode(const float* q, const float* k, const float* v,
       return launch_decode<128>(q, k, v, q_pos, k_pos, out, part_m, part_l,
                                 part_acc, B, S, T, Hq, Hkv, causal, window,
                                 st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward of flash_attention_prefill: dq [B,S,Hq,D] and dk, dv
+// [B,T,Hkv,D], f32, from q, k, v, the forward's out and lse, and dout
+// [B,S,Hq,D], with the forward's positions and masks.  delta is scratch of
+// B*Hq*S floats; part, scratch of 2*B*T*Hq*D floats for the query heads'
+// shares of dK and dV, may be null when Hq == Hkv.  Three launches on
+// `stream` (D, dK/dV, dQ), four with a group sum when Hq > Hkv; allocates
+// nothing, does not synchronise, returns cudaGetLastError().
+int flash_attention_backward(const float* q, const float* k, const float* v,
+                             const float* out, const float* dout,
+                             const float* lse, const int* q_pos,
+                             const int* k_pos, float* delta, float* part,
+                             float* dq, float* dk, float* dv, int B, int S,
+                             int T, int Hq, int Hkv, int D, int causal,
+                             int window, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 16:
+      return launch_backward<16>(q, k, v, out, dout, lse, q_pos, k_pos, delta,
+                                 part, dq, dk, dv, B, S, T, Hq, Hkv, causal,
+                                 window, st);
+    case 32:
+      return launch_backward<32>(q, k, v, out, dout, lse, q_pos, k_pos, delta,
+                                 part, dq, dk, dv, B, S, T, Hq, Hkv, causal,
+                                 window, st);
+    case 64:
+      return launch_backward<64>(q, k, v, out, dout, lse, q_pos, k_pos, delta,
+                                 part, dq, dk, dv, B, S, T, Hq, Hkv, causal,
+                                 window, st);
+    case 128:
+      return launch_backward<128>(q, k, v, out, dout, lse, q_pos, k_pos,
+                                  delta, part, dq, dk, dv, B, S, T, Hq, Hkv,
+                                  causal, window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -7,12 +7,22 @@ tensors go to the plain version in :mod:`.ref`, CUDA tensors launch
 are never repeated to the query heads in memory: the kernel reads KV head
 ``h // (Hq/Hkv)`` in place.
 
-The source has two entry points, picked from the shapes alone
-(:func:`uses_decode`): the split-key decode when the query rows of one KV
-head, ``S · Hq/Hkv``, are at most ``DECODE_MAX_ROWS`` (a serving decode
-step: S = 1), else the tiled prefill.  The decode's split length is the
-source's own (``flash_attention_split_keys``); the wrapper reads it to size
-the partials' scratch.
+The source has two forward entry points, picked from the shapes alone
+(:func:`uses_decode`) for calls that need no gradient: the split-key
+decode when the query rows of one KV head, ``S · Hq/Hkv``, are at most
+``DECODE_MAX_ROWS`` (a serving decode step: S = 1), else the tiled
+prefill.  The decode's split length is the source's own
+(``flash_attention_split_keys``); the wrapper reads it to size the
+partials' scratch.
+
+When a gradient is needed (grad mode on and q, k or v requiring grad),
+:func:`gqa_attention` goes through :class:`FlashAttention`, an autograd
+function: its forward takes the prefill entry point whatever the shape,
+which also writes each row's log-sum-exp, and its backward launches the
+source's backward entry point (:func:`flash_attention_bwd_cuda`, three
+kernels, four with grouped heads, counted as one launch of
+``flash_attention_bwd``).  On the CPU,
+autograd runs through the plain version.
 """
 
 from __future__ import annotations
@@ -34,14 +44,16 @@ DECODE_MAX_ROWS = 16
 
 def uses_decode(s: int, hq: int, hk: int) -> bool:
     """Whether ``S`` query rows over ``hq`` query and ``hk`` KV heads take
-    the split-key decode entry point."""
+    the split-key decode entry point.  The rule holds for calls that need
+    no gradient; a call that does always takes the prefill."""
     return s * (hq // hk) <= DECODE_MAX_ROWS
 
 
 def _load():
     lib = _lib.load("flash_attention")
-    for fn, n_ptr in ((lib.flash_attention_prefill, 6),
-                      (lib.flash_attention_decode, 9)):
+    for fn, n_ptr in ((lib.flash_attention_prefill, 7),
+                      (lib.flash_attention_decode, 9),
+                      (lib.flash_attention_backward, 13)):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
@@ -50,25 +62,24 @@ def _load():
     return lib
 
 
-def flash_attention_cuda(q, k, v, *, q_pos, k_pos, causal=True,
-                         window=None):
-    """Launch the kernel; every tensor contiguous on one CUDA device, f32
-    (positions int32)."""
-    b, s, hq, d = q.shape
-    t, hk = k.shape[1], k.shape[2]
-    dev = q.device
-    for name, x, dtype, shape in (
-            ("q", q, torch.float32, (b, s, hq, d)),
-            ("k", k, torch.float32, (b, t, hk, d)),
-            ("v", v, torch.float32, (b, t, hk, d)),
-            ("q_pos", q_pos, torch.int32, (s,)),
-            ("k_pos", k_pos, torch.int32, (t,))):
+def _check(tensors, dev):
+    for name, x, dtype, shape in tensors:
         if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape \
                 or not x.is_contiguous():
             raise ValueError(
                 f"flash_attention: {name} must be a contiguous {dtype} "
                 f"tensor of shape {shape} on {dev}, got {x.dtype} "
                 f"{tuple(x.shape)} on {x.device}")
+
+
+def _check_inputs(q, k, v, q_pos, k_pos, window):
+    b, s, hq, d = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    _check((("q", q, torch.float32, (b, s, hq, d)),
+            ("k", k, torch.float32, (b, t, hk, d)),
+            ("v", v, torch.float32, (b, t, hk, d)),
+            ("q_pos", q_pos, torch.int32, (s,)),
+            ("k_pos", k_pos, torch.int32, (t,))), q.device)
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
     if hk == 0 or hq % hk:
@@ -83,13 +94,27 @@ def flash_attention_cuda(q, k, v, *, q_pos, k_pos, causal=True,
             raise ValueError(f"flash_attention: {name} must start on a "
                              "16-byte boundary (the kernel copies 16 bytes "
                              "at a time)")
+
+
+def _dims(q, k, causal, window):
+    b, s, hq, d = q.shape
+    return (b, s, k.shape[1], hq, k.shape[2], d, int(bool(causal)),
+            0 if window is None else int(window))
+
+
+def _forward(q, k, v, q_pos, k_pos, causal, window, lse):
+    """Check and launch a forward entry point; ``lse`` (f32 [B,Hq,S]) takes
+    the prefill whatever the shape and gets each row's log-sum-exp."""
+    _check_inputs(q, k, v, q_pos, k_pos, window)
+    b, s, hq, d = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    dev = q.device
     out = torch.empty_like(q)
     lib = _load()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             k_pos.data_ptr(), out.data_ptr())
-    dims = (b, s, t, hq, hk, d, int(bool(causal)),
-            0 if window is None else int(window))
-    decode = uses_decode(s, hq, hk)
+    dims = _dims(q, k, causal, window)
+    decode = lse is None and uses_decode(s, hq, hk)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if decode:
@@ -100,7 +125,8 @@ def flash_attention_cuda(q, k, v, *, q_pos, k_pos, causal=True,
                 *args, part.data_ptr(), part[n:].data_ptr(),
                 part[2 * n:].data_ptr(), *dims, stream)
         else:
-            rc = lib.flash_attention_prefill(*args, *dims, stream)
+            rc = lib.flash_attention_prefill(
+                *args, 0 if lse is None else lse.data_ptr(), *dims, stream)
     entry = "flash_attention_decode" if decode else "flash_attention_prefill"
     _lib.check(rc, entry)
     _lib.count("flash_attention")
@@ -108,10 +134,86 @@ def flash_attention_cuda(q, k, v, *, q_pos, k_pos, causal=True,
     return out
 
 
+def flash_attention_cuda(q, k, v, *, q_pos, k_pos, causal=True,
+                         window=None):
+    """Launch the kernel; every tensor contiguous on one CUDA device, f32
+    (positions int32)."""
+    return _forward(q, k, v, q_pos, k_pos, causal, window, None)
+
+
+def _prefill(q, k, v, *, q_pos, k_pos, causal=True, window=None):
+    """The prefill entry point whatever the shape, for the backward:
+    returns ``(out, lse [B,Hq,S] f32)``, each row's log-sum-exp of scaled
+    live scores."""
+    b, s, hq, _ = q.shape
+    lse = torch.empty(b, hq, s, dtype=torch.float32, device=q.device)
+    return _forward(q, k, v, q_pos, k_pos, causal, window, lse), lse
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, q_pos, k_pos,
+                             causal=True, window=None):
+    """Launch the backward: from the forward's inputs, its ``out`` and
+    ``lse`` (:func:`_prefill`) and ``dout``
+    [B,S,Hq,D], returns f32 ``(dq [B,S,Hq,D], dk [B,T,Hkv,D], dv)``; dk and
+    dv summed over the query heads of each KV head.  Every tensor
+    contiguous f32 (positions int32) on one CUDA device."""
+    _check_inputs(q, k, v, q_pos, k_pos, window)
+    b, s, hq, d = q.shape
+    dev = q.device
+    _check((("out", out, torch.float32, tuple(q.shape)),
+            ("dout", dout, torch.float32, tuple(q.shape)),
+            ("lse", lse, torch.float32, (b, hq, s))), dev)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    delta = torch.empty(b, hq, s, dtype=torch.float32, device=dev)
+    # each query head's share of dK and dV, added per group by the kernel
+    part = torch.empty(2 * b * k.shape[1] * hq * d, dtype=torch.float32,
+                       device=dev) if hq != k.shape[2] else None
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.flash_attention_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), q_pos.data_ptr(),
+            k_pos.data_ptr(), delta.data_ptr(),
+            0 if part is None else part.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), *_dims(q, k, causal, window),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _lib.check(rc, "flash_attention_backward")
+    _lib.count("flash_attention_bwd")
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K3 with a gradient: the forward launches the prefill entry point
+    and keeps its log-sum-exp, the backward launches the backward entry
+    point.  Positions, ``causal`` and ``window`` take no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window):
+        out, lse = _prefill(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                            causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, k_pos)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse, q_pos, k_pos = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(
+            q, k, v, out, dout.contiguous(), lse, q_pos=q_pos, k_pos=k_pos,
+            causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None, None, None
+
+
 def gqa_attention(q, k, v, *, q_pos, k_pos, causal=True, window=None):
     """q [B,S,Hq,D], k/v [B,T,Hkv,D], q_pos [S] / k_pos [T] int32 →
-    [B,S,Hq,D]; the kernel for CUDA tensors (f32 only)."""
-    attend = flash_attention_cuda if q.device.type == "cuda" \
-        else attention_ref
-    return attend(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
-                  window=window)
+    [B,S,Hq,D]; the kernel for CUDA tensors (f32 only), through
+    :class:`FlashAttention` when a gradient is needed."""
+    if q.device.type != "cuda":
+        return attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                             causal=causal, window=window)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window)
+    return flash_attention_cuda(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                                causal=causal, window=window)

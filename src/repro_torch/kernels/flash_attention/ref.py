@@ -1,7 +1,9 @@
 """Plain torch attention: a direct masked softmax over absolute positions.
 
 The reference for ``csrc/flash_attention.cu`` and the path the wrapper
-takes for CPU tensors.  It is the model's attention function
+takes for CPU tensors (autograd runs through it there).
+:func:`attention_lse_ref` and :func:`attention_bwd_ref` mirror the
+kernel's log-sum-exp output and its backward.  It is the model's attention function
 (``models/layers.py`` ``_direct_attention`` in the reference package) in
 the model layout, with the masks that take explicit positions:
 
@@ -37,6 +39,46 @@ def attention_ref(q, k, v, *, q_pos, k_pos, causal=True, window=None):
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhgst,bthd->bshgd", probs, v)
     return out.reshape(b, s, hq, d)
+
+
+def attention_lse_ref(q, k, *, q_pos, k_pos, causal=True, window=None):
+    """Each row's log-sum-exp of scaled live scores, f32 ``[B,Hq,S]``
+    (−inf for a row with no live key): what the prefill entry point writes
+    for the backward."""
+    b, s, hq, d = q.shape
+    hk = k.shape[2]
+    qg = q.float().reshape(b, s, hk, hq // hk, d)
+    scores = torch.einsum("bshgd,bthd->bhgst", qg, k.float()) / math.sqrt(d)
+    scores = scores.masked_fill(~live_mask(q_pos, k_pos, causal, window),
+                                -math.inf)
+    return torch.logsumexp(scores, dim=-1).reshape(b, hq, s)
+
+
+def attention_bwd_ref(q, k, v, out, dout, lse, *, q_pos, k_pos, causal=True,
+                      window=None):
+    """The algebra of the kernel's backward in plain torch: P recomputed
+    from the saved log-sum-exp ``lse [B,Hq,S]``, D = rowsum(dO∘O), then
+    dV = Pᵀ·dO, dS = P∘(dO·Vᵀ − D), dQ = dS·K / √D and dK = dSᵀ·Q / √D,
+    with dK and dV summed over the query heads of a KV group.  Returns
+    f32 ``(dq [B,S,Hq,D], dk [B,T,Hkv,D], dv [B,T,Hkv,D])``."""
+    b, s, hq, d = q.shape
+    hk = k.shape[2]
+    g = hq // hk
+    scale = 1.0 / math.sqrt(d)
+    qg = q.float().reshape(b, s, hk, g, d)
+    dog = dout.float().reshape(b, s, hk, g, d)
+    kf, vf = k.float(), v.float()
+    live = live_mask(q_pos, k_pos, causal, window)
+    scores = torch.einsum("bshgd,bthd->bhgst", qg, kf) * scale
+    m = lse.reshape(b, hk, g, s)[..., None]
+    p = torch.where(live, torch.exp(scores - m), 0.0)
+    delta = (dog * out.float().reshape(b, s, hk, g, d)).sum(-1)
+    dv = torch.einsum("bhgst,bshgd->bthd", p, dog)
+    dp = torch.einsum("bshgd,bthd->bhgst", dog, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bhgst,bthd->bshgd", ds, kf) * scale
+    dk = torch.einsum("bhgst,bshgd->bthd", ds, qg) * scale
+    return dq.reshape(b, s, hq, d), dk, dv
 
 
 def live_mask(q_pos, k_pos, causal=True, window=None):

@@ -83,6 +83,18 @@ def ssd_cuda(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
 
 def ssd(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
     """Model layout → ``(y [B,S,H,P], final state [B,H,P,N] f32)``; the
-    kernel for CUDA tensors."""
-    scan = ssd_cuda if x.device.type == "cuda" else ssd_ref
-    return scan(x, dt, a, b, c, chunk=chunk, init_state=init_state)
+    kernel for CUDA tensors.
+
+    The kernel has no backward yet.  On CUDA, a call that would need a
+    gradient (grad mode on and any input requiring grad) raises
+    ``NotImplementedError`` rather than return an output cut off from the
+    graph; on the CPU, autograd runs through the plain version."""
+    if x.device.type != "cuda":
+        return ssd_ref(x, dt, a, b, c, chunk=chunk, init_state=init_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, a, b, c, init_state)):
+        raise NotImplementedError(
+            "ssd_scan: the CUDA kernel has no backward yet; train mamba2 "
+            "on the CPU (device='cpu') or call under torch.no_grad()")
+    return ssd_cuda(x, dt, a, b, c, chunk=chunk, init_state=init_state)

@@ -9,8 +9,12 @@ Weights are random, drawn from ``--seed`` on the chosen device; the
 request stream comes from ``np.random.default_rng([seed, 0])``, as on one
 host of the reference.  Prints the served requests and tokens with tok/s,
 the mean prefill time, and the decode step p50/p99 (from the engine's
-separate ``decode_times`` series).  The reference's ``--telemetry`` tap
-waits for the streaming recorder and pod telemetry, which it needs.
+separate ``decode_times`` series).
+
+``--telemetry`` taps the engine's per-step hook: decode step timings
+stream into the pod detector every ``--telemetry-window`` steps
+(:class:`~repro_torch.distributed.telemetry.StepTelemetry`, on the same
+device), and each flagged window's verdict is printed live.
 """
 
 from __future__ import annotations
@@ -23,14 +27,17 @@ import torch
 
 from ..configs.base import get_config
 from ..device import resolve_device
+from ..distributed.telemetry import PodTelemetryConfig, StepTelemetry
 from ..models import transformer as T
 from ..serving.engine import EngineConfig, Request, ServeEngine
 
 
 def main(argv=None, step_hook=None):
     """Parse ``argv``, serve, print the summary; returns the completed
-    requests and the summary's numbers (:func:`summary`).
-    ``step_hook(kind, dt)`` is handed to the engine."""
+    requests and the summary's numbers (:func:`summary`, with the
+    telemetry's windows and flags under ``--telemetry``).
+    ``step_hook(kind, dt)`` is handed to the engine (after the telemetry
+    tap, when there is one)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -40,6 +47,11 @@ def main(argv=None, step_hook=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--telemetry", action="store_true",
+                    help="stream decode step timings into the pod "
+                         "detector (one verdict per window)")
+    ap.add_argument("--telemetry-window", type=int, default=8,
+                    help="decode steps per streaming-detector window")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda:0; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -49,10 +61,29 @@ def main(argv=None, step_hook=None):
     dev = resolve_device(args.device)
     model = T.init_model(cfg, torch.Generator(device=dev)
                          .manual_seed(args.seed))
+    telemetry = None
+    hook = step_hook
+    if args.telemetry:
+        telemetry = StepTelemetry(
+            PodTelemetryConfig(mesh_w=4, mesh_h=4,
+                               window_steps=args.telemetry_window),
+            n_shards=args.batch, warmup=1, seed=args.seed, host=0,
+            device=dev)
+
+        def hook(kind, dt):
+            if kind == "decode":    # prefills are not per-step samples
+                v = telemetry.record_step(dt)
+                if v is not None and v.flagged:
+                    print(f"[telemetry] FLAGGED {v.kind} {v.location} "
+                          f"severity {v.severity:.1f} -> "
+                          f"{telemetry.plans[-1]['action']}")
+            if step_hook is not None:
+                step_hook(kind, dt)
+
     engine = ServeEngine(cfg, model,
                          EngineConfig(batch=args.batch,
                                       cache_len=args.cache_len, device=dev),
-                         step_hook=step_hook)
+                         step_hook=hook)
     rng = np.random.default_rng([args.seed, 0])
     for i in range(args.requests):
         n = int(rng.integers(2, args.prompt_len + 1))
@@ -69,6 +100,13 @@ def main(argv=None, step_hook=None):
     if engine.decode_times:
         print(f"p50 decode step {stats['decode_ms_p50']:.1f} ms, "
               f"p99 {stats['decode_ms_p99']:.1f} ms")
+    if telemetry is not None:
+        telemetry.flush()
+        stats["telemetry_windows"] = len(telemetry.verdicts)
+        stats["telemetry_flagged"] = sum(v.flagged
+                                         for v in telemetry.verdicts)
+        print(f"[telemetry] {stats['telemetry_windows']} windows, "
+              f"{stats['telemetry_flagged']} flagged")
     return done, stats
 
 

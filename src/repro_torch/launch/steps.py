@@ -1,0 +1,80 @@
+"""The train step: loss, gradients (with accumulation) and an AdamW update.
+
+A port of the single-device part of the reference's ``launch/steps.py``:
+``CellPlan`` keeps the fields that mean something on one card,
+``loss_fn`` is the reference's next-token cross entropy plus 0.01 × the
+aux loss, and ``make_train_step`` builds one step.  The reference's
+``SHAPES``, ``default_plan``, ``build_cell``, ``input_specs`` and the
+prefill/decode step builders serve XLA lowering and sharding across a
+mesh; on one card they have no counterpart (serving is
+``serving/engine.py``).
+
+Gradients come from autograd; attention's backward on the card is K3's
+backward kernel (``kernels/flash_attention/ops.FlashAttention``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..models import transformer as T
+from ..optim import adamw
+
+
+@dataclasses.dataclass(frozen=True)
+class CellPlan:
+    """``grad_accum`` micro-batches a step, their gradients added in
+    order; the parameters' dtype (the train step checks it); the AdamW
+    moments' dtype."""
+    grad_accum: int = 1
+    param_dtype: torch.dtype = torch.float32
+    opt_state_dtype: torch.dtype = torch.float32
+
+
+def loss_fn(cfg, model, tokens):
+    """tokens [B,S] → (loss, ce): the mean next-token cross entropy over
+    positions 0..S−2 in f32, plus 0.01 × the aux loss."""
+    logits, aux = T.forward_train(cfg, model, tokens)
+    logits = logits[:, :-1].float()
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    ce = (logz - gold).mean()
+    return ce + 0.01 * aux, ce
+
+
+def make_train_step(cfg, plan: CellPlan, opt_cfg=None):
+    """``train_step(model, opt_state, tokens) → (opt_state, loss,
+    grad_norm)``: the loss (mean over micro-batches) and the raw global
+    gradient norm are device scalars; the model's parameters and the
+    state's moments are updated in place."""
+    opt_cfg = opt_cfg or adamw.AdamWConfig(state_dtype=plan.opt_state_dtype)
+
+    def train_step(model, opt_state, tokens):
+        params = list(model.parameters())
+        for p in params:
+            if p.dtype != plan.param_dtype:
+                raise ValueError(f"parameter of {p.dtype}, the plan says "
+                                 f"{plan.param_dtype}")
+            p.grad = None
+        a = plan.grad_accum
+        if tokens.shape[0] % a:
+            raise ValueError(f"batch {tokens.shape[0]} does not split into "
+                             f"{a} micro-batches")
+        loss = None
+        # autograd adds each micro-batch's gradients into .grad in order
+        for toks in tokens.reshape(a, -1, tokens.shape[1]):
+            micro, _ = loss_fn(cfg, model, toks)
+            micro.backward()
+            micro = micro.detach()
+            loss = micro if loss is None else loss + micro
+        grads = [torch.zeros_like(p) if p.grad is None
+                 else p.grad if a == 1 else p.grad / a for p in params]
+        opt_state, stats = adamw.apply(params, grads, opt_state, opt_cfg)
+        for p in params:
+            p.grad = None
+        return opt_state, loss / a, stats["grad_norm"]
+
+    return train_step

@@ -128,13 +128,13 @@ def moe(cfg, p, x):
 class ParamBlock(torch.nn.Module):
     """The parameters of one block (a norm, an attention, an MLP, a Mamba
     mixer), each named as the reference's key (``wq``, ``w_gate``,
-    ``in_proj``, …).  Inference only: no gradients."""
+    ``in_proj``, …).  Trainable: ``forward_train`` keeps its graph, while
+    ``prefill`` and ``decode_step`` run under ``torch.no_grad()``."""
 
     def __init__(self, tensors: dict):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(
-                name, torch.nn.Parameter(t, requires_grad=False))
+            self.register_parameter(name, torch.nn.Parameter(t))
 
 
 @dataclasses.dataclass(frozen=True)

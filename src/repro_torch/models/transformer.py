@@ -9,9 +9,12 @@ names mirror the reference's keys (``layers.3.attn.wq`` is the reference's
 ``periods/slot0/attn/wq[3]``).
 
 Three entry points:
-  * ``forward_train`` — full-sequence causal forward (no cache) → logits
+  * ``forward_train`` — full-sequence causal forward (no cache) → logits,
+                        with its autograd graph (the train step's forward)
   * ``prefill``       — fills a KV/SSM cache, returns last-token logits
   * ``decode_step``   — one token with the cache (rolling buffer for SWA)
+``prefill`` and ``decode_step`` run under ``torch.no_grad()``, so serving
+launches exactly what it launched before the parameters were trainable.
 
 The cache is updated in place (the reference returns a new one).  The
 encoder-decoder path (whisper), MoE and M-RoPE are not ported yet and
@@ -71,11 +74,11 @@ class Model(torch.nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: encoder-decoder models are not ported yet")
         self.cfg = cfg
-        self.embed = torch.nn.Parameter(embed, requires_grad=False)
+        self.embed = torch.nn.Parameter(embed)
         self.final_norm = final_norm
         self.register_parameter(
             "lm_head", None if lm_head is None
-            else torch.nn.Parameter(lm_head, requires_grad=False))
+            else torch.nn.Parameter(lm_head))
         self.layers = torch.nn.ModuleList(layers)
 
 
@@ -256,10 +259,10 @@ def _run_layers(cfg, model, x, q_pos, caches=None):
     return x
 
 
-@torch.no_grad()
 def forward_train(cfg, model, tokens):
-    """tokens [B,S] → (logits [B,S,V], aux loss).  The forward only; the
-    aux loss is MoE's load-balancing term, 0 without experts."""
+    """tokens [B,S] → (logits [B,S,V], aux loss), keeping the autograd
+    graph (the parameters are trainable).  The aux loss is MoE's
+    load-balancing term, 0 without experts."""
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
     x = _embed(cfg, model, tokens, positions)

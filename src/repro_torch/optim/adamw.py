@@ -1,0 +1,104 @@
+"""AdamW with global-norm clipping and a warmup + cosine schedule.
+
+A port of the reference's ``optim/adamw.py`` as plain functions on a list
+of tensors, the model's parameters in one fixed order
+(``list(model.parameters())``), with the state's moments in the same
+order.  ``torch.optim.AdamW`` is not used: its clipping and schedule
+differ.  ``state_dtype`` keeps the moments in bf16 where asked (the update
+is computed in f32).
+
+Unlike the reference, which returns new arrays, :func:`apply` updates the
+parameters and the moments in place: a train step holds one copy of
+each.  The step count stays a Python int, so the schedule needs no read
+from the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_frac: float = 0.1
+    state_dtype: torch.dtype = torch.float32
+
+
+def init_state(params, cfg: AdamWConfig) -> dict:
+    """Zero moments beside ``params`` (a sequence of tensors), step 0."""
+    def zeros():
+        return [torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
+                for p in params]
+    return {"m": zeros(), "v": zeros(), "step": 0}
+
+
+def schedule(step: int, cfg: AdamWConfig) -> float:
+    """The learning rate at ``step`` (1 for the first update), in f32 as
+    the reference computes it."""
+    f = np.float32
+    warm = min(f(step) / f(max(cfg.warmup_steps, 1)), f(1.0))
+    prog = np.clip(f(step - cfg.warmup_steps)
+                   / f(max(cfg.total_steps - cfg.warmup_steps, 1)),
+                   f(0.0), f(1.0))
+    cos = f(0.5) * (f(1) + np.cos(f(math.pi) * prog))
+    frac = f(cfg.min_lr_frac) + (f(1) - f(cfg.min_lr_frac)) * cos
+    return float(f(cfg.lr) * warm * frac)
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every entry (an f32 scalar on the
+    tensors' device), from each leaf's L2 norm (one multi-tensor launch),
+    summed in leaf order."""
+    norms = torch._foreach_norm([x.float() for x in tensors])
+    return torch.stack(norms).square().sum().sqrt()
+
+
+@torch.no_grad()
+def apply(params, grads, state: dict, cfg: AdamWConfig):
+    """One clipped AdamW update of ``params`` (in place) from ``grads``.
+    Returns the new state (its moments updated in place) and
+    ``{"grad_norm": the raw global norm (a device scalar), "lr": the
+    step's learning rate}``.
+
+    The update is the reference's, leaf for leaf, in PyTorch's
+    multi-tensor (``_foreach``) ops: each line below is a handful of
+    launches over all leaves instead of one launch per leaf."""
+    step = state["step"] + 1
+    lr = schedule(step, cfg)
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = float(1 - np.float32(b1) ** np.float32(step))
+    bc2 = float(1 - np.float32(b2) ** np.float32(step))
+    f32 = [p.float() for p in params]
+    g = torch._foreach_mul([x.float() for x in grads], scale)
+    m = [x.float() for x in state["m"]]
+    v = [x.float() for x in state["v"]]
+    m = torch._foreach_add(torch._foreach_mul(m, b1),
+                           torch._foreach_mul(g, 1 - b1))
+    v = torch._foreach_add(torch._foreach_mul(v, b2),
+                           torch._foreach_mul(torch._foreach_mul(g, g),
+                                              1 - b2))
+    denom = torch._foreach_add(torch._foreach_sqrt(
+        torch._foreach_div(v, bc2)), cfg.eps)
+    delta = torch._foreach_add(
+        torch._foreach_div(torch._foreach_div(m, bc1), denom),
+        torch._foreach_mul(f32, cfg.weight_decay))
+    new = torch._foreach_sub(f32, torch._foreach_mul(delta, lr))
+    for dst, src in ((params, new), (state["m"], m), (state["v"], v)):
+        torch._foreach_copy_(dst, src)
+    return {"m": state["m"], "v": state["v"], "step": step}, \
+        {"grad_norm": gnorm, "lr": lr}

@@ -20,7 +20,13 @@ versions' einsums).  On the campaign path: the streaming recorder
 launches the sketch kernel once per chunk from the carried state and its
 output equals one-shot recording and the CPU's plain path bit for bit;
 the ``--tiny`` campaign on the card equals the CPU port's (scores within
-``rel=1e-5``), and its thread executor equals serial exactly.
+``rel=1e-5``), and its thread executor equals serial exactly.  On the
+train path: K3's backward within 1e-4 of each gradient's largest entry
+against torch autograd through the plain attention, bit-identical over
+two runs; the log-sum-exp output leaves the prefill's output unchanged;
+the SSD scan raises when a gradient is needed; a full-size smollm-135m
+train step launches K3's forward and backward 30 times each and never
+the plain attention.
 """
 
 import numpy as np
@@ -552,3 +558,107 @@ def test_tiny_campaign_on_the_card(dev):
                           cache=DeploymentCache(), **kw)
     assert thread.outcomes == card.outcomes
     assert thread.mitigation == card.mitigation
+
+
+# ---------------------------------------------------------------------------
+# the train path on the card: K3's backward, the SSD guard, a train step
+# ---------------------------------------------------------------------------
+
+def _bwd_grads(q, k, v, dout, attend, **pos):
+    qa, ka, va = (x.clone().requires_grad_(True) for x in (q, k, v))
+    attend(qa, ka, va, **pos).backward(dout)
+    return qa.grad, ka.grad, va.grad
+
+
+@pytest.mark.parametrize("b,s,t,hq,hk,d,causal,win", [
+    (4, 512, 512, 9, 3, 64, True, None), (2, 300, 300, 8, 2, 32, True, 100),
+    (2, 200, 200, 6, 2, 16, True, None), (2, 130, 130, 8, 2, 128, True, None),
+    (1, 100, 160, 4, 4, 64, False, None), (2, 3, 70, 6, 1, 32, True, 20)])
+def test_attention_backward_matches_autograd_of_plain(dev, b, s, t, hq, hk,
+                                                      d, causal, win):
+    """K3's backward through ``gqa_attention`` against torch autograd
+    through the plain version: within 1e-4 of each gradient's largest
+    entry; the forward took the prefill entry point (it writes the
+    log-sum-exp) and the backward launched once."""
+    q, k, v = _attn_inputs(dev, b, s, t, hq, hk, d)
+    dout = _attn_inputs(dev, b, s, s, hq, hk, d)[0]
+    pos = dict(q_pos=torch.arange(t - s, t, dtype=torch.int32, device=dev),
+               k_pos=torch.arange(t, dtype=torch.int32, device=dev),
+               causal=causal, window=win)
+    before = dict(_lib.LAUNCHES)
+    got = _bwd_grads(q, k, v, dout, fa_ops.gqa_attention, **pos)
+    assert _lib.LAUNCHES["flash_attention_bwd"] \
+        == before["flash_attention_bwd"] + 1
+    assert _lib.LAUNCHES["flash_attention_prefill"] \
+        == before["flash_attention_prefill"] + 1
+    exp = _bwd_grads(q, k, v, dout, attention_ref, **pos)
+    for g, e in zip(got, exp):
+        assert g.shape == e.shape
+        assert float((g - e).abs().max()) <= 1e-4 * float(e.abs().max())
+
+
+def test_attention_backward_two_runs_bit_identical(dev):
+    q, k, v = _attn_inputs(dev, 4, 512, 512, 9, 3, 64)
+    dout = _attn_inputs(dev, 4, 512, 512, 9, 3, 64)[0]
+    pos = torch.arange(512, dtype=torch.int32, device=dev)
+    a, b = (_bwd_grads(q, k, v, dout, fa_ops.gqa_attention, q_pos=pos,
+                       k_pos=pos) for _ in range(2))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_attention_lse_output_leaves_the_prefill_unchanged(dev):
+    """The prefill with a null ``lse`` writes what it writes with one, and
+    the log-sum-exp equals the plain one."""
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+    q, k, v = _attn_inputs(dev, 2, 200, 200, 8, 2, 64)
+    pos = torch.arange(200, dtype=torch.int32, device=dev)
+    plain = fa_ops.flash_attention_cuda(q, k, v, q_pos=pos, k_pos=pos,
+                                        window=50)
+    out, lse = fa_ops._prefill(q, k, v, q_pos=pos, k_pos=pos, window=50)
+    assert torch.equal(out, plain)
+    torch.testing.assert_close(lse, attention_lse_ref(
+        q, k, q_pos=pos, k_pos=pos, window=50), atol=2e-5, rtol=2e-5)
+    # a decode-shaped call that needs a gradient takes the prefill too
+    q1 = _attn_inputs(dev, 2, 1, 200, 8, 2, 64)[0].requires_grad_(True)
+    before = _lib.LAUNCHES["flash_attention_prefill"]
+    fa_ops.gqa_attention(q1, k, v, q_pos=pos[-1:], k_pos=pos)
+    assert _lib.LAUNCHES["flash_attention_prefill"] == before + 1
+
+
+def test_ssd_raises_when_a_gradient_is_needed(dev):
+    *args, _ = _ssd_inputs(dev, 1, 64, 4, 16, 2, 8, 3)
+    args[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ssd_ops.ssd(*args, chunk=32)
+    with torch.no_grad():
+        y, _ = ssd_ops.ssd(*args, chunk=32)
+    assert not y.requires_grad
+
+
+def test_full_size_train_step_goes_through_the_kernels(dev, monkeypatch):
+    """One smollm-135m train step at full size (batch 2 × 128): 30 K3
+    forward and 30 backward launches, no call of the plain attention, a
+    finite loss and grad norm."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    def refuse(*a, **kw):
+        raise AssertionError("attention reached its plain version")
+    monkeypatch.setattr(fa_ops, "attention_ref", refuse)
+    cfg = get_config("smollm-135m")
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt_cfg = adamw.AdamWConfig()
+    state = adamw.init_state(list(model.parameters()), opt_cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 128), device=dev,
+                         dtype=torch.int32)
+    _lib.reset_launches()
+    state, loss, gnorm = S.make_train_step(cfg, S.CellPlan(), opt_cfg)(
+        model, state, toks)
+    assert _lib.LAUNCHES["flash_attention_prefill"] == 30
+    assert _lib.LAUNCHES["flash_attention_bwd"] == 30
+    assert _lib.LAUNCHES["flash_attention_decode"] == 0
+    assert np.isfinite(loss.item()) and np.isfinite(gnorm.item())
+    assert state["step"] == 1

@@ -104,7 +104,10 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.kernels.ssd_scan.ops, repro_torch.core.campaign, "
             "repro_torch.core.streaming, repro_torch.mitigate, "
-            "repro_torch.launch.campaign; "
+            "repro_torch.launch.campaign, repro_torch.launch.train, "
+            "repro_torch.launch.steps, repro_torch.distributed.telemetry, "
+            "repro_torch.optim.adamw, repro_torch.data.pipeline, "
+            "repro_torch.checkpoint.store; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]; print(bad); sys.exit(bool(bad))")
