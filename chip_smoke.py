@@ -28,9 +28,13 @@
    function against torch autograd through the plain attention (smollm's
    training shape, a windowed GQA case, head dims 16 and 128; within 1e-4
    of each gradient's largest entry; the prefill with its log-sum-exp
-   output writes what it writes without); two runs of the sketch insert,
-   the FailRank iteration, the attention decode, K3's backward and the SSD
-   scan must be bit-identical;
+   output writes what it writes without), and K4's backward through its
+   autograd function against its plain mirror ``ssd_bwd_ref`` and torch
+   autograd through the plain scan (every SSD case above, with and without
+   an initial state and a final-state cotangent; within 1e-4 of each
+   gradient's largest entry); two runs of the sketch insert, the FailRank
+   iteration, the attention decode, K3's backward, the SSD scan and its
+   backward must be bit-identical;
 3. drives the detection path, ``Sloth.detect`` with the batched recorder
    on the card, for resnet50 on an 8×8 mesh (core 6, link 20, no fault)
    with the launch counts set to 0 just before and read just after, plus
@@ -82,7 +86,9 @@
    back-to-back event time beside it (which includes the host's wrapper
    cost where the host is the slower side);
 10. times K3's backward at smollm-135m's training shape beside its plain
-   mirror, its bound and SDPA's backward through autograd;
+   mirror, its bound and SDPA's backward through autograd, and K4's
+   backward at mamba2-1.3b's (x [4,512,64,64], chunk 128) beside its plain
+   mirror, autograd through the plain scan, its bound and the forward;
 11. drives the train path, ``repro_torch.launch.train.main``, on
    smollm-135m at full size, 24 steps of 4 × 512 tokens with the pod
    telemetry and a 10× slowdown injected into the reported times of steps
@@ -90,12 +96,18 @@
    and backward exactly 30 launches a step each, no call of the plain
    attention, the slowed host (core 0) named in the window of the burst
    or the next; prints ms per step (the launcher's own, ``--log-every
-   1``), then times five steps and profiles one (device ms by kernel, the
-   device's idle share against the unprofiled step time);
+   1``), then times five steps and profiles one (device ms by kernel and
+   by class, the device's idle share against the unprofiled step time);
+   then the same for mamba2-1.3b at full size, 12 steps of 4 × 512: K4's
+   forward and backward exactly 48 launches a step each, no call of
+   ``ssd_ref``, ``ssd_bwd_ref`` or the plain attention, no attention
+   launch, the run's peak device memory;
 12. the same run without injection, printing any flagged window;
 13. holds 3 full-size train steps (batch 2 × 128) on
    ``reference_params_numpy`` weights to the reference's losses and grad
-   norms (``TRAIN_PINS``, rel 1e-4), twice (bit-equality reported);
+   norms (``TRAIN_PINS``, rel 1e-4), and 3 mamba2-1.3b steps at full
+   width with 4 layers (batch 2 × 320, a ragged third chunk) to
+   ``MAMBA2_TRAIN_PINS`` (rel 1e-4); each twice, the two runs bit-equal;
 14. runs the reference's CI smoke (``ci.yml:37``) on the card, and
    crash-resume on the smoke config (10 steps, save, resume, 10 more
    within rel 1e-4 of 20 straight);
@@ -200,10 +212,10 @@ def require(ok: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
-def device_us(prof, by_name=None) -> float:
+def device_us(prof, by_name=None, counts=None) -> float:
     """Summed durations, in microseconds, of the device activities (kernels,
     copies) in a finished ``torch.profiler`` trace; ``by_name`` collects
-    them per kernel name."""
+    them per kernel name and ``counts`` the records per name."""
     import torch
     total = 0.0
     for e in prof.events():
@@ -212,6 +224,8 @@ def device_us(prof, by_name=None) -> float:
             total += us
             if by_name is not None:
                 by_name[e.name] = by_name.get(e.name, 0.0) + us
+            if counts is not None:
+                counts[e.name] = counts.get(e.name, 0) + 1
     return total
 
 
@@ -260,21 +274,23 @@ def timed(fn, reps: int) -> dict:
 
 
 def launch_breakdown(fn, reps: int) -> dict:
-    """Device ms per call of each kernel that ``fn`` launches, from a
-    profiler trace of ``reps`` calls (after a warm-up call).  The profiler
-    has lost kernel records before (PERF.md §6): these split a time that
-    ``timed`` measured, they do not replace it."""
+    """Device ms per launch of each kernel that ``fn`` launches, averaged
+    over the launches recorded in a profiler trace of ``reps`` calls
+    (after a warm-up call); for a kernel launched once a call, its ms per
+    call.  The profiler drops records (two calls of ten in PERF.md §6), so
+    a kernel's sum over ``reps`` would undercount it.  These split a time
+    that ``timed`` measured, they do not replace it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    by_name = {}
+    by_name, counts = {}, {}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    device_us(prof, by_name)
-    return {name.split("(")[0][:60]: us / reps / 1e3
+    device_us(prof, by_name, counts)
+    return {name.split("(")[0][:60]: us / counts[name] / 1e3
             for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])}
 
 
@@ -622,10 +638,11 @@ def check_attention_kernel(dev, lib):
 
 def check_bit_identical(dev):
     """Two runs of the sketch insert (L = 256, with evictions),
-    the FailRank iteration (n = 260 and 1,028), the attention decode (the serve fill)
-    and the SSD scan (mamba2-1.3b's prefill, from a non-zero state) must be
-    equal bit for bit: no atomics in any result, and every sum in an order
-    fixed by the shapes."""
+    the FailRank iteration (n = 260 and 1,028), the attention decode (the serve fill),
+    the SSD scan (mamba2-1.3b's prefill, from a non-zero state) and its
+    backward (the same shape, with a final-state cotangent) must be equal
+    bit for bit: no atomics in any result, and every sum in an order fixed
+    by the shapes."""
     import torch
 
     from repro_torch.core.sketch import SketchParams
@@ -633,7 +650,8 @@ def check_bit_identical(dev):
     from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
     from repro_torch.kernels.sketch_update import ops as sk_ops
     from repro_torch.kernels.sketch_update import ref as sk_ref
-    from repro_torch.kernels.ssd_scan.ops import ssd_cuda
+    from repro_torch.kernels.ssd_scan.ops import (ssd_bwd_cuda, ssd_cuda,
+                                                  ssd_fwd_cuda)
     p = SketchParams(L=256)
     runs = [torch.from_numpy(x).to(dev) for x in random_runs(3, 3000, 2000)]
     sk = [sk_ops.insert_runs(sk_ref.make_state(p, dev),
@@ -653,13 +671,18 @@ def check_bit_identical(dev):
     args, st0 = ssd_inputs(dev, b_, s_, h, p, g, n, 13, True)
     (y1, s1), (y2, s2) = (ssd_cuda(*args, chunk=chunk, init_state=st0)
                           for _ in range(2))
+    *_, dy, ds = ssd_bwd_inputs(dev, SSD_CASES[-1], 13, True, True)
+    saved = ssd_fwd_cuda(*args, chunk=chunk, init_state=st0)[2]
+    gb = [ssd_bwd_cuda(*args, dy, ds, saved=saved, chunk=chunk,
+                       init_state=st0) for _ in range(2)]
     out = {"sketch_insert": all(torch.equal(sk[0][i][k], sk[1][i][k])
                                 for i in (0, 1) for k in sk[0][i]),
            "sketch_drained": int(sk[0][1]["d_n"]),
            "failrank_iterate": all(torch.equal(u, v) for i in (0, 2)
                                    for u, v in zip(fr[i], fr[i + 1])),
            "attention_decode": bool(torch.equal(a, b)),
-           "ssd_scan": bool(torch.equal(y1, y2) and torch.equal(s1, s2))}
+           "ssd_scan": bool(torch.equal(y1, y2) and torch.equal(s1, s2)),
+           "ssd_scan_bwd": all(torch.equal(u, v) for u, v in zip(*gb))}
     require(all(v for k, v in out.items() if k != "sketch_drained")
             and out["sketch_drained"] > 0, f"runs differ: {out}")
     return out
@@ -707,6 +730,73 @@ def check_ssd_kernel(dev):
             out.append({"shape": list(SSD_CASES[i]), "init_state": with_state,
                         "y_max_abs_err": ey, "state_max_abs_err": es})
     return out, worst
+
+
+#: K4's backward against its plain mirror and against autograd through the
+#: plain scan: the largest gap over each gradient's largest entry, as
+#: ``K3_BWD_TOL``.
+K4_BWD_TOL = 1e-4
+SSD_GRADS = ("dx", "ddt", "da", "db", "dc", "dinit")
+
+
+def ssd_bwd_inputs(dev, case, seed, with_state, with_dstate):
+    """(x, dt, a, b, c), the initial state (None unless ``with_state``),
+    the cotangent of y and that of the final state (None unless
+    ``with_dstate``) on the card, from ``ssd_scan.ref.random_cotangents``."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ref import random_cotangents
+    b, s, h, p, g, n, _ = case
+    args, st0 = ssd_inputs(dev, b, s, h, p, g, n, seed, True)
+    dy, ds = (torch.from_numpy(t).to(dev)
+              for t in random_cotangents(seed, b, s, h, p, n))
+    return (args, st0 if with_state else None, dy,
+            ds if with_dstate else None)
+
+
+def check_ssd_bwd(dev, lib):
+    """K4's backward through ``SSDScan`` (what a train step takes) against
+    its plain mirror ``ssd_bwd_ref`` and torch autograd through ``ssd_ref``
+    on every SSD case, with and without an initial state and a final-state
+    cotangent; one forward and one backward launch each."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import (autograd_grads,
+                                                  ssd_bwd_ref, ssd_ref)
+    out, worst, worst_abs = [], 0.0, 0.0
+    for i, case in enumerate(SSD_CASES):
+        for with_state in (False, True):
+            for with_dstate in (False, True):
+                args, init, dy, ds = ssd_bwd_inputs(dev, case, i, with_state,
+                                                    with_dstate)
+                before = dict(lib.LAUNCHES)
+                got = autograd_grads(ops.ssd, args, init, dy, ds,
+                                     chunk=case[-1])
+                require(lib.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
+                        and lib.LAUNCHES["ssd_scan_bwd"]
+                        == before["ssd_scan_bwd"] + 1,
+                        f"{case}: the gradient did not go through K4")
+                mirror = ssd_bwd_ref(*args, dy, ds, chunk=case[-1],
+                                     init_state=init)
+                auto = autograd_grads(ssd_ref, args, init, dy, ds,
+                                      chunk=case[-1])
+                rel = {}
+                for name, g, m, a in zip(SSD_GRADS, got, mirror, auto):
+                    if m is None:
+                        require(g is None, f"{case}: {name} without a state")
+                        continue
+                    gaps = [float((g - e).abs().max()) for e in (m, a)]
+                    worst_abs = max(worst_abs, *gaps)
+                    rel[name] = max(gap / max(float(e.abs().max()), 1e-30)
+                                    for gap, e in zip(gaps, (m, a)))
+                worst = max(worst, *rel.values())
+                out.append({"shape": list(case), "init_state": with_state,
+                            "dstate": with_dstate,
+                            "rel_err": max(rel.values()),
+                            "worst": max(rel, key=rel.get)})
+                require(max(rel.values()) <= K4_BWD_TOL,
+                        f"K4 backward vs plain, {case} state={with_state} "
+                        f"dstate={with_dstate}: {rel}")
+    return out, worst, worst_abs
 
 
 # ---------------------------------------------------------------------------
@@ -1274,7 +1364,8 @@ def serve_run(arch, lib):
     want = {"flash_attention": n_attn * n_batches * (1 + max_new),
             "flash_attention_prefill": n_attn * n_batches,
             "flash_attention_decode": n_attn * n_batches * max_new,
-            "ssd_scan": (cfg.n_layers - n_attn) * n_batches}
+            "ssd_scan": (cfg.n_layers - n_attn) * n_batches,
+            "ssd_scan_bwd": 0}
     # the launcher's numbers: tok/s is all tokens over the engine.run wall
     # time; the p99 of 64 decode steps is close to their maximum
     summary = {"phase": "serve", "arch": arch, "layers": cfg.n_layers,
@@ -1438,6 +1529,59 @@ def time_ssd(dev, reps):
             "max_abs_err": err}
 
 
+def time_ssd_bwd(dev, reps):
+    """K4's backward at mamba2-1.3b's training shape (from a zero state,
+    no final-state cotangent, as the train path runs it): the kernel on
+    the forward's saved scratch, the plain mirror ``ssd_bwd_ref``, torch
+    autograd through ``ssd_ref`` (a composite of torch ops, not one
+    library call, so ``library_ms`` is null) and the forward.  Bound from
+    the products the function needs (per chunk and head the aggregate,
+    Ŝ·B_j and dC's and dB's state terms, 8·nl·P·N; dy·uᵀ and (M∘E)ᵀ·dy
+    over the causal pairs, 4·pairs·P; ⟨Ŝ, S⟩, 2·P·N; C_i against dC's
+    state term, 2·nl·N; per chunk and group dM·B and dMᵀ·C, 4·pairs·N)
+    and from bytes (the inputs, dy and the saved scratch read once, the
+    five gradients written once)."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref, ssd_ref
+    case = SSD_CASES[-1]
+    b, s, h, p, g, n, q = case
+    args, _, dy, _ = ssd_bwd_inputs(dev, case, 98, False, False)
+    saved = ops.ssd_fwd_cuda(*args, chunk=q)[2]
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    y_plain = ssd_ref(*leaves, chunk=q)[0]
+
+    def kernel():
+        return ops.ssd_bwd_cuda(*args, dy, None, saved=saved, chunk=q)
+
+    def plain():
+        return ssd_bwd_ref(*args, dy, None, chunk=q)
+
+    def autograd():
+        return torch.autograd.grad(y_plain, leaves, dy, retain_graph=True)
+
+    gaps = [(float((k - e).abs().max()), float(e.abs().max()))
+            for k, e in zip(kernel()[:5], plain()[:5])]
+    auto = timed(autograd, max(2, reps // 4))
+    fwd = timed(lambda: ops.ssd_cuda(*args, chunk=q), reps)
+    nls = [min(q, s - t0) for t0 in range(0, s, q)]
+    pairs = sum(m * (m + 1) // 2 for m in nls)
+    flops = b * (h * (8 * sum(nls) * p * n + 4 * pairs * p
+                      + 2 * len(nls) * p * n + 2 * sum(nls) * n)
+                 + g * 4 * pairs * n)
+    nbytes = 4 * (2 * sum(t.numel() for t in args) + dy.numel()
+                  + saved.numel())
+    return {**times(kernel, plain, None, reps), **bound(nbytes, flops),
+            "kernel_breakdown_ms": launch_breakdown(kernel, reps),
+            "max_abs_err": max(gap for gap, _ in gaps),
+            "max_rel_err_vs_plain": max(gap / m for gap, m in gaps),
+            "autograd_through_plain_ms": auto["ms"],
+            "autograd_through_plain_events_ms": auto["events_ms"],
+            "forward_ms": fwd["ms"], "saved_scratch_mb": saved.numel() * 4
+            / 1e6}
+
+
 def profile_serving(arch, dev):
     """A prefill of 4 × 512 tokens into a 1,024-slot cache and 8 decode
     steps at full size: host-clock ms without the profiler, then device
@@ -1506,6 +1650,17 @@ TRAIN_PINS = {"arch": "smollm-135m", "steps": 3, "batch": 2, "seq": 128,
               "grad_norms": [5.972647190093994, 6.307694435119629,
                              6.230223655700684]}
 
+#: The same for mamba2-1.3b at full width with 4 of its 48 layers (the
+#: depth cut of the serve ``PINS``), 3 steps at batch 2 × seq 320: chunk
+#: 128, so three chunks with a ragged tail of 64, through K4's forward and
+#: backward.
+MAMBA2_TRAIN_PINS = {"arch": "mamba2-1.3b", "n_layers": 4, "steps": 3,
+                     "batch": 2, "seq": 320,
+                     "losses": [11.204451560974121, 11.21187686920166,
+                                11.198517799377441],
+                     "grad_norms": [8.306986808776855, 8.273604393005371,
+                                    8.250775337219238]}
+
 #: The JAX reference's pod verdicts (``python tests/test_torch_telemetry.py``,
 #: CPU): ``PodDetector.observe`` on the default 16×16 pod, seed 1,
 #: step_flops 5e12, collective_bytes 4e9, a fault from t = 0 (core 10×, link
@@ -1534,6 +1689,9 @@ TRAIN_ARGV = ["--arch", "smollm-135m", "--steps", "24", "--batch", "4",
               "--log-every", "1"]
 INJECT_ARGV = ["--inject-slow-at", "10", "--inject-slow-steps", "6",
                "--inject-slow-factor", "10", "--expect-flagged"]
+#: The mamba2-1.3b train run (full width and depth, batch 4 × 512).
+MAMBA2_TRAIN_ARGV = ["--arch", "mamba2-1.3b", "--steps", "12", "--batch",
+                     "4", "--seq", "512", "--log-every", "1"]
 
 #: K3's backward against autograd through the plain version: the largest
 #: gap over each gradient's largest entry.  Measured about 3e-6 (sums in
@@ -1679,23 +1837,25 @@ def time_attention_bwd(dev, reps):
 
 
 class PlainCalls:
-    """Counts calls of K3's plain version through the wrapper module (a
-    gradient-requiring call on the card must never reach it)."""
+    """Counts calls of plain versions, each given as a (module, name) pair
+    and counted where the port calls it (a train step on the card must
+    never reach one)."""
 
-    def __init__(self):
-        from repro_torch.kernels.flash_attention import ops
-        self.ops, self.n = ops, 0
-        self._orig = ops.attention_ref
+    def __init__(self, *targets):
+        self.n, self._orig = 0, [(m, name, getattr(m, name))
+                                 for m, name in targets]
 
     def __enter__(self):
-        def counted(*a, **kw):
-            self.n += 1
-            return self._orig(*a, **kw)
-        self.ops.attention_ref = counted
+        for module, name, fn in self._orig:
+            def counted(*a, _fn=fn, **kw):
+                self.n += 1
+                return _fn(*a, **kw)
+            setattr(module, name, counted)
         return self
 
     def __exit__(self, *exc):
-        self.ops.attention_ref = self._orig
+        for module, name, fn in self._orig:
+            setattr(module, name, fn)
 
 
 #: A verdict line of the train launcher: the window's steps and, when
@@ -1720,13 +1880,15 @@ def train_run(lib, inject: bool) -> dict:
     import io
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch import train
     argv = TRAIN_ARGV + (INJECT_ARGV if inject else [])
     n_steps, n_attn = 24, get_config("smollm-135m").n_attn_layers
     text = io.StringIO()
     lib.reset_launches()
     t0 = time.perf_counter()
-    with PlainCalls() as plain, contextlib.redirect_stdout(text):
+    with PlainCalls((ops, "attention_ref")) as plain, \
+            contextlib.redirect_stdout(text):
         losses = train.main(argv)
     wall = time.perf_counter() - t0
     launches = dict(lib.LAUNCHES)
@@ -1765,7 +1927,7 @@ def train_run(lib, inject: bool) -> dict:
             "flash_attention_prefill": n_attn * n_steps,
             "flash_attention_decode": 0,
             "flash_attention_bwd": n_attn * n_steps, "ssd_scan": 0,
-            "sketch_insert_runs": 0, "failrank_step": 0}
+            "ssd_scan_bwd": 0, "sketch_insert_runs": 0, "failrank_step": 0}
     for name, n in want.items():
         require(launches[name] == n,
                 f"train: {name} launched {launches[name]} times, not {n}")
@@ -1780,12 +1942,87 @@ def train_run(lib, inject: bool) -> dict:
     return out
 
 
-def profile_train_step(dev) -> dict:
+def train_mamba2_run(dev, lib) -> dict:
+    """``launch.train.main`` on mamba2-1.3b at full size (48 SSD layers,
+    12 steps of 4 × 512) with the counts set to 0 just before: K4's
+    forward and backward exactly 48 launches a step each, no attention
+    launch, no call of ``ssd_ref`` or ``ssd_bwd_ref``, finite losses;
+    prints ms per step (the launcher's, ``--log-every 1``) and the peak
+    device memory of the run."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_plain
+    from repro_torch.launch import train
+    n_steps = int(MAMBA2_TRAIN_ARGV[MAMBA2_TRAIN_ARGV.index("--steps") + 1])
+    n_layers = get_config("mamba2-1.3b").n_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    text = io.StringIO()
+    lib.reset_launches()
+    t0 = time.perf_counter()
+    with PlainCalls((ssd_ops, "ssd_ref"), (ssd_plain, "ssd_bwd_ref"),
+                    (fa_ops, "attention_ref")) as plain, \
+            contextlib.redirect_stdout(text):
+        losses = train.main(MAMBA2_TRAIN_ARGV)
+    wall = time.perf_counter() - t0
+    launches = dict(lib.LAUNCHES)
+    ms = [float(m.group(2))
+          for m in map(STEP_LINE.match, text.getvalue().splitlines()) if m]
+    out = {"phase": "train_mamba2", "argv": MAMBA2_TRAIN_ARGV,
+           "launches": launches, "plain_calls": plain.n, "losses": losses,
+           "ms_per_step": ms,
+           "ms_per_step_median_after_first": float(np.median(ms[1:])),
+           "first_step_ms": ms[0], "wall_s_with_init": wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    emit(out)
+    want = {"ssd_scan": n_layers * n_steps, "ssd_scan_bwd": n_layers * n_steps,
+            "flash_attention": 0, "flash_attention_prefill": 0,
+            "flash_attention_decode": 0, "flash_attention_bwd": 0,
+            "sketch_insert_runs": 0, "failrank_step": 0}
+    for name, n in want.items():
+        require(launches[name] == n, f"train mamba2: {name} launched "
+                                     f"{launches[name]} times, not {n}")
+    require(plain.n == 0, "train mamba2: a plain SSD or attention call")
+    require(len(losses) == n_steps and all(np.isfinite(losses)),
+            "train mamba2: losses")
+    require(len(ms) == n_steps, f"train mamba2: {len(ms)} step times")
+    return out
+
+
+def kernel_class(name: str) -> str:
+    """The class of a device activity in a train step's trace: K4's
+    backward or forward, K3, a GEMM (cuBLAS, CUTLASS), the multi-tensor
+    AdamW, or elementwise and the rest (reductions, copies)."""
+    low = name.lower().removeprefix("void ")
+    if low.startswith("ssd_bwd"):
+        return "k4_backward"
+    if low.startswith("ssd_"):
+        return "k4_forward"
+    if low.startswith("flash_"):
+        return "k3"
+    if "gemm" in low or "cutlass" in low or "gemv" in low:
+        return "gemm"
+    if "multi_tensor_apply" in low:
+        return "adamw"
+    return "elementwise_and_other"
+
+
+def profile_train_step(dev, arch) -> dict:
     """Full-size train steps (batch 4 × 512) after a warm-up step: the
     host ms of five unprofiled steps, then one step under the profiler for
     the device ms by kernel.  The device's idle share is 1 − device ms
     over the unprofiled median (the profiler slows the host, not the
-    kernels)."""
+    kernels); the peak device memory is that of these steps."""
+    import gc
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1794,7 +2031,10 @@ def profile_train_step(dev) -> dict:
     from repro_torch.launch import steps as S
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
-    cfg = get_config("smollm-135m")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(arch)
     model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
     opt_cfg = adamw.AdamWConfig(warmup_steps=10, total_steps=24)
     state = adamw.init_state(list(model.parameters()), opt_cfg)
@@ -1818,14 +2058,20 @@ def profile_train_step(dev) -> dict:
         prof_ms = (time.perf_counter() - t0) * 1e3
     dev_ms = device_us(prof, by_name) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    by_class = {}
+    for name, us in by_name.items():
+        key = kernel_class(name)
+        by_class[key] = by_class.get(key, 0.0) + us / 1e3
     host_ops = sorted(prof.key_averages(),
                       key=lambda e: -e.self_cpu_time_total)
-    out = {"phase": "train_profile", "arch": "smollm-135m",
+    out = {"phase": "train_profile", "arch": arch,
+           "parameters": sum(t.numel() for t in model.parameters()),
            "batch": 4, "seq": 512, "host_ms": host_ms,
            "host_ms_median": float(np.median(host_ms)),
            "host_ms_profiled": prof_ms, "device_ms": dev_ms,
            "device_idle_share": 1.0 - dev_ms / float(np.median(host_ms)),
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "device_ms_by_class": by_class,
            "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top],
            "top_host_ops_self_ms": [[e.key[:60], e.count,
                                      e.self_cpu_time_total / 1e3]
@@ -1834,9 +2080,11 @@ def profile_train_step(dev) -> dict:
     return out
 
 
-def check_train_pins(dev, lib) -> dict:
-    """The reference's losses and grad norms on the pin run, twice: the
-    two runs' numbers are compared bit for bit too (reported)."""
+def check_train_pins(dev, pin) -> dict:
+    """The reference's losses and grad norms on a pin run, twice: the two
+    runs' numbers must also be equal bit for bit."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config
@@ -1844,8 +2092,9 @@ def check_train_pins(dev, lib) -> dict:
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.launch import steps as S
     from repro_torch.optim import adamw
-    pin = TRAIN_PINS
     cfg = get_config(pin["arch"])
+    if pin.get("n_layers"):
+        cfg = dataclasses.replace(cfg, n_layers=pin["n_layers"])
     tree = reference_params_numpy(cfg, 0)
     runs = []
     for _ in range(2):
@@ -1869,12 +2118,14 @@ def check_train_pins(dev, lib) -> dict:
                                                       pin["losses"])),
               max(abs(a - b) / abs(b) for a, b in zip(gnorms,
                                                       pin["grad_norms"])))
-    out = {"phase": "train_pin", "losses": losses, "grad_norms": gnorms,
+    out = {"phase": "train_pin", "arch": pin["arch"],
+           "n_layers": cfg.n_layers, "losses": losses, "grad_norms": gnorms,
            "reference": {k: pin[k] for k in ("losses", "grad_norms")},
            "max_rel_err": rel, "tol": 1e-4,
            "two_runs_bit_identical": runs[0] == runs[1]}
     emit(out)
-    require(rel <= 1e-4, f"train pin: rel error {rel}")
+    require(rel <= 1e-4, f"train pin {pin['arch']}: rel error {rel}")
+    require(runs[0] == runs[1], f"train pin {pin['arch']}: two runs differ")
     return out
 
 
@@ -2227,6 +2478,9 @@ def main() -> int:
     bwd_cases, k3_bwd_rel, k3_bwd_err = check_attention_bwd(dev, lib)
     emit({"phase": "attention_bwd_vs_autograd", "tol": K3_BWD_TOL,
           "cases": bwd_cases})
+    ssd_bwd_cases, k4_bwd_rel, k4_bwd_err = check_ssd_bwd(dev, lib)
+    emit({"phase": "ssd_bwd_vs_plain", "tol": K4_BWD_TOL,
+          "cases": ssd_bwd_cases})
     emit({"phase": "bit_identical", **check_bit_identical(dev)})
 
     # ---- 3. the main path: resnet50 on 8×8 -------------------------------
@@ -2407,17 +2661,22 @@ def main() -> int:
     for arch in ("smollm-135m", "mamba2-1.3b"):
         profile_serving(arch, dev)
 
-    # ---- 10. K3's backward at the training shape ----------------------------
+    # ---- 10. K3's and K4's backward at the training shapes ------------------
     k3_bwd = time_attention_bwd(dev, reps=20)
-    emit({"phase": "train_kernel_times", "flash_attention_bwd": k3_bwd})
+    k4_bwd = time_ssd_bwd(dev, reps=10)
+    emit({"phase": "train_kernel_times", "flash_attention_bwd": k3_bwd,
+          "ssd_scan_bwd": k4_bwd})
 
     # ---- 11-12. the train path at full size, with and without injection -----
     train_main = train_run(lib, inject=True)
     train_run(lib, inject=False)
-    profile_train_step(dev)
+    profile_train_step(dev, "smollm-135m")
+    train_mamba2 = train_mamba2_run(dev, lib)
+    profile_train_step(dev, "mamba2-1.3b")
 
     # ---- 13-14. the reference's pins; the CI smoke and crash-resume ---------
-    check_train_pins(dev, lib)
+    check_train_pins(dev, TRAIN_PINS)
+    check_train_pins(dev, MAMBA2_TRAIN_PINS)
     train_ci_smoke_and_resume(dev)
 
     # ---- 15. pod telemetry: the 16x16 pod, both recorder impls --------------
@@ -2487,10 +2746,26 @@ def main() -> int:
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:83",
          "launches": serve_launches["mamba2-1.3b"]["ssd_scan"],
+         "launches_train_mamba2": train_mamba2["launches"]["ssd_scan"],
          "max_abs_err": max(k4_err, k4["max_abs_err"]),
          **{k: k4[k] for k in KERNEL_TIME_KEYS}, "plain_device": "cuda",
          "shape": "mamba2-1.3b prefill, x [4,512,64,64], b/c [4,512,8,128], "
                   "chunk 128, one layer"},
+        {"name": "ssd_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan.cu",
+         "replaces": "none: the reference differentiates ssd_chunked "
+                     "(src/repro/models/mamba2.py:64) with jax.grad",
+         "launches": train_mamba2["launches"]["ssd_scan_bwd"],
+         "max_abs_err": max(k4_bwd_err, k4_bwd["max_abs_err"]),
+         "max_rel_err": max(k4_bwd_rel, k4_bwd["max_rel_err_vs_plain"]),
+         **{k: k4_bwd[k] for k in KERNEL_TIME_KEYS}, "plain_device": "cuda",
+         "plain_is": "ssd_bwd_ref (the kernel's algebra in torch)",
+         "autograd_through_plain_ms": k4_bwd["autograd_through_plain_ms"],
+         "autograd_is": "torch autograd through ssd_ref: a composite of "
+                        "torch ops, not one library call",
+         "forward_ms": k4_bwd["forward_ms"],
+         "shape": "mamba2-1.3b train, x [4,512,64,64], b/c [4,512,8,128], "
+                  "chunk 128, one layer (five kernels a call)"},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

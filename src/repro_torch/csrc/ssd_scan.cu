@@ -347,6 +347,459 @@ __global__ void __launch_bounds__(NT, 5) ssd_inter_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward.  It has no TPU twin: the reference differentiates
+// ssd_chunked (src/repro/models/mamba2.py:64) with jax.grad.  With
+// u = dt x, E_ij = exp(min(cum_i - cum_j, 0)) (j <= i), M_ij = C_i . B_j
+// per group, S_{c-1} the state entering chunk c (the forward's scratch
+// keeps it) and Shat_c the cotangent of the state leaving it:
+//   Shat_{c-1} = exp(cum_end) Shat_c + sum_i exp(cum_i) dy_i (x) C_i
+//   du_j  = sum_{i>=j} M_ij E_ij dy_i + exp(cum_end - cum_j) Shat_c B_j
+//   dM_ij = sum_{h in group} E_ij (dy_i . u_j)            (heads in order)
+//   dC_i  = sum_j dM_ij B_j + sum_h exp(cum_i) S_{c-1}^T dy_i
+//   dB_j  = sum_i dM_ij C_i + sum_h exp(cum_end - cum_j) Shat_c^T u_j
+// and dcum (from E, the inter term and the state update), whose reverse
+// in-chunk cumsum dl gives ddt_j = x_j . du_j + a dl_j and da = sum dt dl.
+// E's diagonal adds g and -g to the same dcum_i, so the sums leave it out.
+// The inter term's share of dcum_i is C_i . (exp(cum_i) S_{c-1}^T dy_i),
+// the dot of C_i with the head's state term of dC, which the group kernel
+// forms anyway.  The plain mirror is ssd_bwd_ref in kernels/ssd_scan/ref.py.
+//
+// What bounds it: operations.  At mamba2-1.3b's training shape (4 x 512
+// tokens, 64 heads over 8 groups, P 64, N 128, Q 128) the per-head
+// products (the state aggregate, Shat B_j, dC's and dB's state terms:
+// 8 nl P N a chunk; dy u^T and (M o E)^T dy over the causal half) and dM's
+// two products per group come to about 11.3 GFLOP per layer in f32
+// (0.17 ms at 67 TFLOP/s), against about 180 MB read and written.
+//
+// Five launches, the same 64x64 register tiles as the forward:
+//   1. ssd_bwd_chunk_kernel, a block per (chunk, head, batch): the chunk's
+//      aggregate sum_i exp(cum_i) dy_i (x) C_i; dy u^T over the causal
+//      tiles, giving the head's share of dM (written to scratch) and the
+//      row and column sums of M o dM^h below the diagonal;
+//   2. ssd_bwd_state_kernel, the reverse state pass from dstate, writing
+//      each chunk's Shat_c over its aggregate, and dinit;
+//   3. ssd_bwd_group_kernel, a block per (64x64 tile of dC or dB, chunk,
+//      group, batch): dM summed over the group's heads in order as it is
+//      staged, then dM with B or C, then each head's state term in head
+//      order; a dC block also writes each head's C_i . (state term) over
+//      its 64 columns;
+//   4. ssd_bwd_du_kernel, a block per (chunk, head, batch): du, dx, x . du,
+//      the state terms of dcum, <Shat_c, S_{c-1}>, the inter term's share
+//      (the group kernel's column tiles summed in order), the reverse
+//      cumsum, ddt and the block's share of da;
+//   5. ssd_bwd_da_kernel: da summed over batches and chunks in order.
+// Row and column sums go through a staged tile and are added in index
+// order; no atomics, so two runs are bit-identical.
+
+#define RED (TILE + 1)  // row stride of a 64x64 tile staged for its sums
+
+// acc[r][q] += sum_{k0 <= k < k1} A(4 ty + r, k) B(k, 4 tx + q) over a
+// 64x64 output tile.  la(m, k) and lb(k, m) return an operand's element
+// (0 outside it; m is the tile's row or column); each slice of KC is
+// staged k by k.  KFA / KFB: the operand is contiguous along k in device
+// memory, so neighbouring threads load neighbouring k (else neighbouring m).
+template <bool KFA, bool KFB, class LA, class LB>
+__device__ __forceinline__ void tile_product(float* sa, float* sb, int k0,
+                                             int k1, LA la, LB lb,
+                                             float acc[4][4]) {
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  for (int kb = k0; kb < k1; kb += KC) {
+    __syncthreads();  // the previous slice (or a staged tile) is consumed
+    for (int e = tid; e < KC * TILE; e += NT) {
+      const int ka = KFA ? e % KC : e / TILE, ma = KFA ? e / KC : e % TILE;
+      const int kq = KFB ? e % KC : e / TILE, mb = KFB ? e / KC : e % TILE;
+      sa[ka * CS + ma] = kb + ka < k1 ? la(ma, kb + ka) : 0.0f;
+      sb[kq * CS + mb] = kb + kq < k1 ? lb(kb + kq, mb) : 0.0f;
+    }
+    __syncthreads();
+    mma_cols(sa, sb, ty, tx, acc);
+  }
+}
+
+// rows[r0 + m] += sum_q red[m][q] and cols[c0 + m] += sum_r red[r][m] for
+// the staged tile red [TILE][RED], in index order, below `lim`; either
+// output may be null.
+__device__ __forceinline__ void tile_sums(const float* red, float* rows,
+                                          int r0, float* cols, int c0,
+                                          int lim) {
+  const int tid = threadIdx.x;
+  __syncthreads();  // the tile is staged
+  if (tid < TILE) {
+    if (rows && r0 + tid < lim) {
+      float s = 0.0f;
+      for (int q = 0; q < TILE; ++q) s += red[tid * RED + q];
+      rows[r0 + tid] += s;
+    }
+  } else if (tid < 2 * TILE) {
+    const int m = tid - TILE;
+    if (cols && c0 + m < lim) {
+      float s = 0.0f;
+      for (int r = 0; r < TILE; ++r) s += red[r * RED + m];
+      cols[c0 + m] += s;
+    }
+  }
+  __syncthreads();
+}
+
+// 1. Per (chunk, head): the aggregate, the head's dM and the dcum terms
+// that need no Shat.
+__global__ void __launch_bounds__(NT) ssd_bwd_chunk_kernel(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ cm, const float* __restrict__ dy,
+    const float* __restrict__ cbt, const float* __restrict__ cum,
+    float* __restrict__ hat, float* __restrict__ dm,
+    float* __restrict__ dcum, int S, int H, int P, int G, int N, int Q,
+    int nc) {
+  __shared__ __align__(16) float sm[2 * KC * CS];
+  __shared__ float dt_s[MAX_Q], cum_s[MAX_Q], ec_s[MAX_Q], rs[MAX_Q],
+      cs[MAX_Q];
+  float* sa = sm;
+  float* sb = sm + KC * CS;
+  float* red = sm;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
+  const int g = h / (H / G), t0 = c * Q, nl = min(Q, S - t0);
+  const size_t ch = (size_t)(b * nc + c) * H + h;
+  const size_t row0 = (size_t)b * S + t0;  // the chunk's first step
+  for (int j = tid; j < Q; j += NT) {
+    dt_s[j] = j < nl ? dt[(row0 + j) * H + h] : 0.0f;
+    cum_s[j] = cum[ch * Q + j];
+    ec_s[j] = expf(cum_s[j]);
+    rs[j] = cs[j] = 0.0f;
+  }
+  __syncthreads();
+  auto dyv = [&](int i, int p) { return dy[((row0 + i) * H + h) * P + p]; };
+  auto cv = [&](int i, int n) { return cm[((row0 + i) * G + g) * N + n]; };
+  const int n_pt = (P + TILE - 1) / TILE, n_nt = (N + TILE - 1) / TILE;
+  const int n_qt = (Q + TILE - 1) / TILE;
+
+  // agg[p][n] = sum_i exp(cum_i) dy[i][p] C[i][n]
+  for (int tile = 0; tile < n_pt * n_nt; ++tile) {
+    const int p0 = tile / n_nt * TILE, n0 = tile % n_nt * TILE;
+    float acc[4][4] = {};
+    tile_product<false, false>(
+        sa, sb, 0, nl,
+        [&](int m, int i) { return p0 + m < P ? ec_s[i] * dyv(i, p0 + m) : 0.0f; },
+        [&](int i, int m) { return n0 + m < N ? cv(i, n0 + m) : 0.0f; }, acc);
+    float* out = hat + ch * P * N;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int p = p0 + ty * 4 + r, n = n0 + tx * 4 + q;
+        if (p < P && n < N) out[(size_t)p * N + n] = acc[r][q];
+      }
+  }
+
+  // dM^h[i][j] = E_ij (dy_i . u_j) on the causal tiles; sums of M o dM^h
+  // below the diagonal
+  const float* cb = cbt + ((size_t)(b * nc + c) * G + g) * Q * Q;
+  float* dmo = dm + ch * Q * Q;
+  for (int it = 0; it < n_qt; ++it)
+    for (int jt = 0; jt <= it; ++jt) {
+      const int i0 = it * TILE, j0 = jt * TILE;
+      float acc[4][4] = {};
+      tile_product<true, true>(
+          sa, sb, 0, P,
+          [&](int m, int p) { return i0 + m < nl ? dyv(i0 + m, p) : 0.0f; },
+          [&](int p, int m) {
+            const int j = j0 + m;
+            return j < nl ? dt_s[j] * x[((row0 + j) * H + h) * P + p] : 0.0f;
+          },
+          acc);
+      __syncthreads();  // red overlays the slices
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = i0 + ty * 4 + r, j = j0 + tx * 4 + q;
+          float d = 0.0f, gm = 0.0f;
+          if (j <= i && i < nl) {
+            d = expf(fminf(cum_s[i] - cum_s[j], 0.0f)) * acc[r][q];
+            if (j < i) gm = cb[(size_t)j * Q + i] * d;
+          }
+          if (i < Q && j < Q) dmo[(size_t)i * Q + j] = d;
+          red[(ty * 4 + r) * RED + tx * 4 + q] = gm;
+        }
+      tile_sums(red, rs, i0, cs, j0, Q);
+    }
+  for (int j = tid; j < Q; j += NT) dcum[ch * Q + j] = rs[j] - cs[j];
+}
+
+// 2. The reverse state pass: one thread per state element walks the chunks
+// from the last, Shat_{c-1} = exp(cum_end) Shat_c + agg_c, writing Shat_c
+// over agg_c, and dinit = Shat_{-1}.
+__global__ void __launch_bounds__(NT_STATE) ssd_bwd_state_kernel(
+    const float* __restrict__ dstate, const float* __restrict__ cum,
+    float* __restrict__ hat, float* __restrict__ dinit, int H, int PN,
+    int Q, int nc) {
+  const int e = blockIdx.x * NT_STATE + threadIdx.x, h = blockIdx.y,
+            b = blockIdx.z;
+  if (e >= PN) return;
+  const size_t bh = (size_t)b * H + h;
+  float s = dstate ? dstate[bh * PN + e] : 0.0f;
+  for (int c0 = nc - 1; c0 >= 0; c0 -= CHUNKS_IN_FLIGHT) {
+    float ag[CHUNKS_IN_FLIGHT], w[CHUNKS_IN_FLIGHT];
+#pragma unroll
+    for (int u = 0; u < CHUNKS_IN_FLIGHT; ++u) {
+      const size_t ch = (size_t)(b * nc + c0 - u) * H + h;
+      if (c0 - u >= 0) {
+        ag[u] = hat[ch * PN + e];
+        w[u] = expf(cum[ch * Q + Q - 1]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < CHUNKS_IN_FLIGHT; ++u) {
+      const size_t ch = (size_t)(b * nc + c0 - u) * H + h;
+      if (c0 - u >= 0) {
+        hat[ch * PN + e] = s;  // the cotangent leaving chunk c0 - u
+        s = w[u] * s + ag[u];
+      }
+    }
+  }
+  if (dinit) dinit[bh * PN + e] = s;
+}
+
+// 4. Per (chunk, head): du = (M o E)^T dy + exp(cum_end - cum_j) Shat_c B_j,
+// dx, x . du, the state terms of dcum, the inter term's share (dcs: the
+// group kernel's n tiles, summed in order), the reverse cumsum, ddt and the
+// block's share of da.
+__global__ void __launch_bounds__(NT) ssd_bwd_du_kernel(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ a, const float* __restrict__ bm,
+    const float* __restrict__ dy, const float* __restrict__ cbt,
+    const float* __restrict__ cum, const float* __restrict__ states,
+    const float* __restrict__ hat, const float* __restrict__ dcum,
+    const float* __restrict__ dcs, float* __restrict__ dx,
+    float* __restrict__ ddt, float* __restrict__ dapart, int S, int H, int P,
+    int G, int N, int Q, int nc) {
+  __shared__ __align__(16) float sm[2 * KC * CS];
+  __shared__ float dt_s[MAX_Q], cum_s[MAX_Q], xd_s[MAX_Q], w_s[MAX_Q],
+      dl_s[MAX_Q], dc_s[MAX_Q], part[NT];
+  float* sa = sm;
+  float* sb = sm + KC * CS;
+  float* red = sm;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
+  const int g = h / (H / G), t0 = c * Q, nl = min(Q, S - t0);
+  const size_t ch = (size_t)(b * nc + c) * H + h;
+  const size_t row0 = (size_t)b * S + t0;
+  const int n_nt = (N + TILE - 1) / TILE;
+  for (int j = tid; j < Q; j += NT) {
+    dt_s[j] = j < nl ? dt[(row0 + j) * H + h] : 0.0f;
+    cum_s[j] = cum[ch * Q + j];
+    xd_s[j] = w_s[j] = 0.0f;
+    float it = 0.0f;
+    for (int nt = 0; nt < n_nt; ++nt) it += dcs[(ch * n_nt + nt) * Q + j];
+    dc_s[j] = dcum[ch * Q + j] + it;
+  }
+  __syncthreads();
+  const float cum_end = cum_s[Q - 1];
+  const float* cb = cbt + ((size_t)(b * nc + c) * G + g) * Q * Q;
+  const float* sh = hat + ch * P * N;
+  const float* st = states + ch * P * N;
+  auto xv = [&](int j, int p) { return x[((row0 + j) * H + h) * P + p]; };
+  const int n_pt = (P + TILE - 1) / TILE, n_qt = (Q + TILE - 1) / TILE;
+  for (int jt = 0; jt < n_qt; ++jt)
+    for (int pt = 0; pt < n_pt; ++pt) {
+      const int j0 = jt * TILE, p0 = pt * TILE;
+      float ai[4][4] = {}, as[4][4] = {};
+      // sum_{i>=j} M_ij E_ij dy[i][p] (cbt[j][i] = M_ij, valid for i >= j)
+      tile_product<true, false>(
+          sa, sb, j0, nl,
+          [&](int m, int i) {
+            const int j = j0 + m;
+            return j <= i ? cb[(size_t)j * Q + i] *
+                                expf(fminf(cum_s[i] - cum_s[j], 0.0f))
+                          : 0.0f;
+          },
+          [&](int i, int m) {
+            return p0 + m < P ? dy[((row0 + i) * H + h) * P + p0 + m] : 0.0f;
+          },
+          ai);
+      // sum_n B[j][n] Shat[p][n]
+      tile_product<true, true>(
+          sa, sb, 0, N,
+          [&](int m, int n) {
+            return j0 + m < nl ? bm[((row0 + j0 + m) * G + g) * N + n] : 0.0f;
+          },
+          [&](int n, int m) {
+            return p0 + m < P ? sh[(size_t)(p0 + m) * N + n] : 0.0f;
+          },
+          as);
+      __syncthreads();
+      float du[4][4], su[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = j0 + ty * 4 + r, p = p0 + tx * 4 + q;
+          const bool live = j < nl && p < P;
+          const float xs = live ? xv(j, p) : 0.0f;
+          const float sd = live ? expf(cum_end - cum_s[j]) * as[r][q] : 0.0f;
+          du[r][q] = ai[r][q] + sd;
+          su[r][q] = live ? dt_s[j] * xs * sd : 0.0f;  // u_j . (state du)
+          if (live) dx[((row0 + j) * H + h) * P + p] = dt_s[j] * du[r][q];
+          red[(ty * 4 + r) * RED + tx * 4 + q] = xs * du[r][q];
+        }
+      tile_sums(red, xd_s, j0, nullptr, 0, Q);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          red[(ty * 4 + r) * RED + tx * 4 + q] = su[r][q];
+      tile_sums(red, w_s, j0, nullptr, 0, Q);
+    }
+  // <Shat_c, S_{c-1}>, each thread's strided part then a fixed tree
+  float es = 0.0f;
+  for (int e = tid; e < P * N; e += NT) es += sh[e] * st[e];
+  part[tid] = es;
+  __syncthreads();
+  for (int off = NT / 2; off > 0; off >>= 1) {
+    if (tid < off) part[tid] += part[tid + off];
+    __syncthreads();
+  }
+  if (tid == 0) {
+    float wsum = 0.0f;
+    for (int j = 0; j < Q; ++j) wsum += w_s[j];
+    float run = expf(cum_end) * part[0] + wsum;  // d cum_end's own terms
+    for (int j = Q - 1; j >= 0; --j) {
+      run += dc_s[j] - w_s[j];
+      dl_s[j] = run;
+    }
+    float dap = 0.0f;
+    for (int j = 0; j < nl; ++j) dap += dt_s[j] * dl_s[j];
+    dapart[ch] = dap;
+  }
+  __syncthreads();
+  const float a_h = a[h];
+  for (int j = tid; j < nl; j += NT)
+    ddt[(row0 + j) * H + h] = xd_s[j] + a_h * dl_s[j];
+}
+
+// 3. Per (64x64 tile of dC or dB, chunk, group): dM summed over the group's
+// heads in order, then dM with B or C, then each head's state term in head
+// order; a dC block writes each head's C_i . (state term) over its columns
+// to dcs [B, nc, H, n tiles, Q].
+__global__ void __launch_bounds__(NT) ssd_bwd_group_kernel(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ bm, const float* __restrict__ cm,
+    const float* __restrict__ dy, const float* __restrict__ cum,
+    const float* __restrict__ states, const float* __restrict__ hat,
+    const float* __restrict__ dm, float* __restrict__ db,
+    float* __restrict__ dc, float* __restrict__ dcs, int S, int H, int P,
+    int G, int N, int Q, int nc) {
+  __shared__ __align__(16) float sm[2 * KC * CS];
+  float* sa = sm;
+  float* sb = sm + KC * CS;
+  float* red = sm;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int n_qt = (Q + TILE - 1) / TILE, n_nt = (N + TILE - 1) / TILE;
+  const int per = n_qt * n_nt, is_db = blockIdx.x / per,
+            tile = blockIdx.x % per;
+  const int r0 = tile / n_nt * TILE, n0 = tile % n_nt * TILE;
+  const int c = blockIdx.y % nc, g = blockIdx.y / nc, b = blockIdx.z;
+  const int rep = H / G, t0 = c * Q, nl = min(Q, S - t0);
+  const size_t ch0 = (size_t)(b * nc + c) * H + g * rep;  // the group's head 0
+  const size_t row0 = (size_t)b * S + t0;
+  auto dmsum = [&](int i, int j) {
+    float s = 0.0f;
+    for (int hh = 0; hh < rep; ++hh)
+      s += dm[((ch0 + hh) * Q + i) * Q + j];
+    return s;
+  };
+  const float* bc = is_db ? cm : bm;  // the other side of M
+  float acc[4][4] = {};
+  if (!is_db) {
+    // dC[i][n] = sum_{j <= i} dM[i][j] B[j][n] + sum_h sum_p
+    //            exp(cum_i) dy[i][p] S[p][n]
+    tile_product<true, false>(
+        sa, sb, 0, min(nl, r0 + TILE),
+        [&](int m, int j) { return r0 + m < nl ? dmsum(r0 + m, j) : 0.0f; },
+        [&](int j, int m) {
+          return n0 + m < N ? bc[((row0 + j) * G + g) * N + n0 + m] : 0.0f;
+        },
+        acc);
+    for (int hh = 0; hh < rep; ++hh) {
+      float ah[4][4] = {};
+      tile_product<true, false>(
+          sa, sb, 0, P,
+          [&](int m, int p) {
+            const int i = r0 + m;
+            return i < nl ? expf(cum[(ch0 + hh) * Q + i]) *
+                                dy[((row0 + i) * H + g * rep + hh) * P + p]
+                          : 0.0f;
+          },
+          [&](int p, int m) {
+            return n0 + m < N ? states[((ch0 + hh) * P + p) * N + n0 + m]
+                              : 0.0f;
+          },
+          ah);
+      __syncthreads();  // red overlays the slices
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = r0 + ty * 4 + r, n = n0 + tx * 4 + q;
+          acc[r][q] += ah[r][q];
+          red[(ty * 4 + r) * RED + tx * 4 + q] =
+              i < nl && n < N ? cm[((row0 + i) * G + g) * N + n] * ah[r][q]
+                              : 0.0f;
+        }
+      __syncthreads();
+      if (tid < TILE && r0 + tid < Q) {
+        float t = 0.0f;
+        for (int q = 0; q < TILE; ++q) t += red[tid * RED + q];
+        dcs[((ch0 + hh) * n_nt + n0 / TILE) * Q + r0 + tid] = t;
+      }
+    }
+  } else {
+    // dB[j][n] = sum_{i >= j} dM[i][j] C[i][n] + sum_h sum_p
+    //            exp(cum_end - cum_j) u[j][p] Shat[p][n]
+    tile_product<false, false>(
+        sa, sb, r0, nl,
+        [&](int m, int i) { return r0 + m < nl ? dmsum(i, r0 + m) : 0.0f; },
+        [&](int i, int m) {
+          return n0 + m < N ? bc[((row0 + i) * G + g) * N + n0 + m] : 0.0f;
+        },
+        acc);
+    tile_product<true, false>(
+        sa, sb, 0, rep * P,
+        [&](int m, int k) {
+          const int j = r0 + m, hh = k / P, p = k % P;
+          if (j >= nl) return 0.0f;
+          const float* cu = cum + (ch0 + hh) * Q;
+          const size_t at = (row0 + j) * H + g * rep + hh;
+          return expf(cu[Q - 1] - cu[j]) * dt[at] * x[at * P + p];
+        },
+        [&](int k, int m) {
+          const int hh = k / P, p = k % P;
+          return n0 + m < N ? hat[((ch0 + hh) * P + p) * N + n0 + m] : 0.0f;
+        },
+        acc);
+  }
+  float* out = is_db ? db : dc;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = r0 + ty * 4 + r, n = n0 + tx * 4 + q;
+      if (i < nl && n < N) out[((row0 + i) * G + g) * N + n] = acc[r][q];
+    }
+}
+
+// 5. da[h] = sum over batches and chunks of the blocks' shares, in order.
+__global__ void ssd_bwd_da_kernel(const float* __restrict__ dapart,
+                                  float* __restrict__ da, int B, int H,
+                                  int nc) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= H) return;
+  float s = 0.0f;
+  for (int bc = 0; bc < B * nc; ++bc) s += dapart[(size_t)bc * H + h];
+  da[h] = s;
+}
+
 extern "C" {
 
 // Floats of scratch ssd_scan needs: C.B^T [B, nc, G, Q, Q], cumsums
@@ -390,6 +843,65 @@ int ssd_scan(const float* x, const float* dt, const float* a, const float* b,
   if (e != cudaSuccess) return (int)e;
   ssd_inter_kernel<<<dim3(nt * n_pt, nc * H, B), NT, 0, st>>>(
       c, cum, states, y, S, H, P, G, N, Q, nc);
+  return (int)cudaGetLastError();
+}
+
+// Floats of scratch ssd_scan_backward needs: the aggregates, then the
+// cotangents Shat [B, nc, H, P, N]; each head's dM [B, nc, H, Q, Q]; dcum
+// [B, nc, H, Q]; the inter term's share of dcum per n tile [B, nc, H,
+// n tiles, Q]; the blocks' shares of da [B, nc, H].
+size_t ssd_scan_backward_scratch_floats(int B, int S, int H, int P, int G,
+                                        int N, int Q) {
+  const size_t nc = (S + Q - 1) / Q, n_nt = (N + TILE - 1) / TILE;
+  return (size_t)B * nc * H *
+         ((size_t)P * N + (size_t)Q * Q + (size_t)Q + n_nt * Q + 1);
+}
+
+// The gradients of ssd_scan's (y, state_out) given their cotangents dy and
+// dstate (null: zero): dx, ddt, da [H], db, dc and, unless null, dinit
+// [B,H,P,N].  `saved` is the scratch of the forward call on the same
+// inputs (its C.B^T, cumsums and entry states); scratch holds
+// ssd_scan_backward_scratch_floats(...) floats.  Launches five kernels on
+// `stream`, allocates nothing, does not synchronise; the same limits as
+// ssd_scan.
+int ssd_scan_backward(const float* x, const float* dt, const float* a,
+                      const float* b, const float* c, const float* dy,
+                      const float* dstate, const float* saved, float* dx,
+                      float* ddt, float* da, float* db, float* dc,
+                      float* dinit, float* scratch, int B, int S, int H,
+                      int P, int G, int N, int Q, void* stream) {
+  if (Q < 1 || Q > MAX_Q || G < 1 || H % G) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nc = (S + Q - 1) / Q, nt = (Q + TILE - 1) / TILE;
+  const int n_nt = (N + TILE - 1) / TILE;
+  const float* cbt = saved;
+  const float* cum = cbt + (size_t)B * nc * G * Q * Q;
+  const float* states = cum + (size_t)B * nc * H * Q;
+  float* hat = scratch;
+  float* dm = hat + (size_t)B * nc * H * P * N;
+  float* dcum = dm + (size_t)B * nc * H * Q * Q;
+  float* dcs = dcum + (size_t)B * nc * H * Q;
+  float* dapart = dcs + (size_t)B * nc * H * n_nt * Q;
+  ssd_bwd_chunk_kernel<<<dim3(1, nc * H, B), NT, 0, st>>>(
+      x, dt, c, dy, cbt, cum, hat, dm, dcum, S, H, P, G, N, Q, nc);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ssd_bwd_state_kernel<<<dim3((P * N + NT_STATE - 1) / NT_STATE, H, B),
+                         NT_STATE, 0, st>>>(dstate, cum, hat, dinit, H,
+                                            P * N, Q, nc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ssd_bwd_group_kernel<<<dim3(2 * nt * n_nt, nc * G, B), NT, 0, st>>>(
+      x, dt, b, c, dy, cum, states, hat, dm, db, dc, dcs, S, H, P, G, N, Q,
+      nc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ssd_bwd_du_kernel<<<dim3(1, nc * H, B), NT, 0, st>>>(
+      x, dt, a, b, dy, cbt, cum, states, hat, dcum, dcs, dx, ddt, dapart, S,
+      H, P, G, N, Q, nc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ssd_bwd_da_kernel<<<(H + 127) / 128, 128, 0, st>>>(dapart, da, B, H, nc);
   return (int)cudaGetLastError();
 }
 

@@ -46,12 +46,15 @@ MAX_SMEM_BYTES = 232_448
 #: ``flash_attention`` counts calls of K3's forward wrapper; each call
 #: launches one of its two forward entry points, counted again under its
 #: own name.  ``flash_attention_bwd`` counts calls of K3's backward entry
-#: point (three kernels a call, four with grouped heads).
+#: point (three kernels a call, four with grouped heads).  ``ssd_scan``
+#: and ``ssd_scan_bwd`` count calls of K4's forward (four kernels) and
+#: backward (five kernels) entry points.
 LAUNCHES: dict[str, int] = {"sketch_insert_runs": 0, "failrank_step": 0,
                              "flash_attention": 0,
                              "flash_attention_prefill": 0,
                              "flash_attention_decode": 0,
-                             "flash_attention_bwd": 0, "ssd_scan": 0}
+                             "flash_attention_bwd": 0, "ssd_scan": 0,
+                             "ssd_scan_bwd": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 # one thread builds and loads a library while the others wait for it (two

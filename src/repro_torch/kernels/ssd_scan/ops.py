@@ -8,6 +8,11 @@ b/c in place; nothing is repeated or transposed in memory.  One call runs
 the source's four launches (scores per group, chunk-parallel intra-chunk
 products and chunk states, the state pass over chunks, the inter-chunk
 term) through scratch the wrapper allocates.
+
+A call that needs a gradient goes through :class:`SSDScan`: its forward
+keeps the kernel's scratch (C·Bᵀ per group, the cumsums and each chunk's
+entry state), and its backward launches the source's second entry point,
+``ssd_scan_backward`` (five launches), on it.
 """
 
 from __future__ import annotations
@@ -33,20 +38,26 @@ def _load():
     lib.ssd_scan.restype = ctypes.c_int
     lib.ssd_scan.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
+    lib.ssd_scan_backward_scratch_floats.restype = ctypes.c_size_t
+    lib.ssd_scan_backward_scratch_floats.argtypes = [ctypes.c_int] * 7
+    lib.ssd_scan_backward.restype = ctypes.c_int
+    lib.ssd_scan_backward.argtypes = [ctypes.c_void_p] * 15 \
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return lib
 
 
-def ssd_cuda(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
-    """Launch the kernel; every tensor contiguous f32 on one CUDA device.
-    Returns ``(y [B,S,H,P], state [B,H,P,N])``."""
+def _check(x, dt, a, b, c, chunk, named=()):
+    """The kernel's input checks: every tensor (and each ``(name, tensor,
+    shape)`` of ``named`` that is not None) contiguous f32 of its shape on
+    x's device, and the limits of its grid."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     dev = x.device
     checks = [("x", x, (bsz, s, h, p)), ("dt", dt, (bsz, s, h)),
               ("a", a, (h,)), ("b", b, (bsz, s, g, n)),
               ("c", c, (bsz, s, g, n))]
-    if init_state is not None:
-        checks.append(("init_state", init_state, (bsz, h, p, n)))
+    checks += [(name, t, shape) for name, t, shape in named
+               if t is not None]
     for name, t, shape in checks:
         if t.device != dev or t.dtype != torch.float32 \
                 or tuple(t.shape) != shape or not t.is_contiguous():
@@ -63,6 +74,17 @@ def ssd_cuda(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
     if -(-s // chunk) * h > MAX_GRID_YZ or bsz > MAX_GRID_YZ:
         raise ValueError(f"ssd_scan: {-(-s // chunk)} chunks x {h} heads or "
                          f"batch {bsz} exceed a grid's {MAX_GRID_YZ}")
+
+
+def ssd_fwd_cuda(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
+    """Launch the kernel; every tensor contiguous f32 on one CUDA device.
+    Returns ``(y [B,S,H,P], state [B,H,P,N], saved)``: ``saved`` is the
+    kernel's scratch, which :func:`ssd_bwd_cuda` reads."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    dev = x.device
+    _check(x, dt, a, b, c, chunk,
+           [("init_state", init_state, (bsz, h, p, n))])
     lib = _load()
     y = torch.empty_like(x)
     state = torch.empty(bsz, h, p, n, dtype=torch.float32, device=dev)
@@ -78,23 +100,89 @@ def ssd_cuda(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
             y.data_ptr(), state.data_ptr(), scratch.data_ptr(), bsz, s, h,
             p, g, n, chunk, stream), "ssd_scan")
     _lib.count("ssd_scan")
-    return y, state
+    return y, state, scratch
+
+
+def ssd_cuda(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
+    """:func:`ssd_fwd_cuda` without the scratch: ``(y, state)``."""
+    return ssd_fwd_cuda(x, dt, a, b, c, chunk=chunk,
+                        init_state=init_state)[:2]
+
+
+def ssd_bwd_cuda(x, dt, a, b, c, dy, dstate, *, saved, chunk: int = 128,
+                 init_state=None):
+    """Launch the backward: from the forward's inputs, its ``saved``
+    scratch (:func:`ssd_fwd_cuda` on the same inputs) and the cotangents
+    ``dy [B,S,H,P]`` and ``dstate [B,H,P,N]`` (None: zero), returns f32
+    ``(dx, ddt, da, db, dc, dinit)``; ``dinit`` is None without an
+    ``init_state``.  Every tensor contiguous f32 on one CUDA device."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    dev = x.device
+    _check(x, dt, a, b, c, chunk,
+           [("init_state", init_state, (bsz, h, p, n)),
+            ("dy", dy, (bsz, s, h, p)), ("dstate", dstate, (bsz, h, p, n))])
+    lib = _load()
+    want = lib.ssd_scan_scratch_floats(bsz, s, h, p, g, n, chunk)
+    if saved.device != dev or saved.dtype != torch.float32 \
+            or saved.numel() != want or not saved.is_contiguous():
+        raise ValueError(f"ssd_scan backward: saved must be the forward's "
+                         f"scratch, {want} float32 on {dev}")
+    dx, ddt, da, db, dc = (torch.empty_like(t) for t in (x, dt, a, b, c))
+    dinit = None if init_state is None else torch.empty_like(init_state)
+    # aggregates then Ŝ per chunk, each head's dM, dcum, the inter term's
+    # share of dcum per 64-column tile, the shares of da
+    scratch = torch.empty(lib.ssd_scan_backward_scratch_floats(
+        bsz, s, h, p, g, n, chunk), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _lib.check(lib.ssd_scan_backward(
+            *map(ptr, (x, dt, a, b, c, dy, dstate, saved, dx, ddt, da, db,
+                       dc, dinit, scratch)), bsz, s, h, p, g, n, chunk,
+            stream), "ssd_scan_backward")
+    _lib.count("ssd_scan_bwd")
+    return dx, ddt, da, db, dc, dinit
+
+
+class SSDScan(torch.autograd.Function):
+    """K4 with a gradient: the forward launches the kernel and keeps its
+    scratch, the backward launches the backward entry point on it.  The
+    final state's cotangent may be absent (the train path discards the
+    state); ``chunk`` takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, init_state, chunk):
+        y, state, saved = ssd_fwd_cuda(x, dt, a, b, c, chunk=chunk,
+                                       init_state=init_state)
+        ctx.save_for_backward(x, dt, a, b, c, init_state, saved)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dstate):
+        x, dt, a, b, c, init_state, saved = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        grads = ssd_bwd_cuda(
+            x, dt, a, b, c, dy,
+            None if dstate is None else dstate.contiguous(), saved=saved,
+            chunk=ctx.chunk, init_state=init_state)
+        return (*grads, None)
 
 
 def ssd(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
     """Model layout → ``(y [B,S,H,P], final state [B,H,P,N] f32)``; the
-    kernel for CUDA tensors.
-
-    The kernel has no backward yet.  On CUDA, a call that would need a
-    gradient (grad mode on and any input requiring grad) raises
-    ``NotImplementedError`` rather than return an output cut off from the
-    graph; on the CPU, autograd runs through the plain version."""
+    kernel for CUDA tensors, through :class:`SSDScan` when a gradient is
+    needed (grad mode on and any input requiring grad).  On the CPU,
+    autograd runs through the plain version."""
     if x.device.type != "cuda":
         return ssd_ref(x, dt, a, b, c, chunk=chunk, init_state=init_state)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, a, b, c, init_state)):
-        raise NotImplementedError(
-            "ssd_scan: the CUDA kernel has no backward yet; train mamba2 "
-            "on the CPU (device='cpu') or call under torch.no_grad()")
+        return SSDScan.apply(x, dt, a, b, c, init_state, chunk)
     return ssd_cuda(x, dt, a, b, c, chunk=chunk, init_state=init_state)

@@ -10,8 +10,12 @@ inter-chunk recurrence is a loop over chunks.  With ``cum`` the cumsum of
     state:  S_c   = exp(cum_end)·S_{c−1} + Σ_j exp(cum_end−cum_j)·dt_j·B_j⊗x_j
     inter:  Y[i] += C_i · S_{c−1} · exp(cum_i)
 
-The exponent is clamped at 0 so the masked upper triangle cannot overflow;
-the tail is padded with zeros (dt = 0, so it moves no state).
+The exponent is clamped at 0 so the masked upper triangle cannot overflow,
+by ``torch.minimum``, whose gradient splits a tie evenly as JAX's does: the
+diagonal's equal and opposite terms of the cumsum's gradient then enter at
+half weight, as in the reference, and not at the full weight of
+``torch.clamp``'s.  The tail is padded with zeros (dt = 0, so it moves no
+state).
 """
 
 from __future__ import annotations
@@ -46,8 +50,8 @@ def ssd_ref(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
 
     scores = torch.einsum("bcqhn,bckhn->bchqk", ch.float(), bh.float())
     cum_h = cum.permute(0, 1, 3, 2)                    # [B,nc,H,Q]
-    decay = torch.exp(torch.clamp(
-        cum_h[..., :, None] - cum_h[..., None, :], max=0.0))
+    decay = torch.exp(torch.minimum(
+        cum_h[..., :, None] - cum_h[..., None, :], cum_h.new_zeros(())))
     causal = torch.ones(chunk, chunk, dtype=torch.bool,
                         device=x.device).tril()
     gmat = torch.where(causal, scores * decay, 0.0)
@@ -87,3 +91,134 @@ def random_inputs(seed, b, s, h, p, g, n):
             (rng.standard_normal((b, s, g, n)) * 0.4).astype(f32),
             (rng.standard_normal((b, s, g, n)) * 0.4).astype(f32),
             (rng.standard_normal((b, h, p, n)) * 0.3).astype(f32))
+
+
+def random_cotangents(seed, b, s, h, p, n):
+    """Seeded f32 numpy cotangents of :func:`ssd_ref`'s outputs: dy
+    [B,S,H,P] and that of the final state [B,H,P,N] (at half the scale)."""
+    rng = np.random.default_rng(seed + 1000)
+    return (rng.standard_normal((b, s, h, p)).astype(np.float32),
+            (rng.standard_normal((b, h, p, n)) * 0.5).astype(np.float32))
+
+
+def autograd_grads(fn, args, init, dy, dstate, *, chunk: int = 128):
+    """``(dx, ddt, da, db, dc, dinit)`` of ``fn`` (with :func:`ssd_ref`'s
+    signature) at ``args = (x, dt, a, b, c)`` and ``init`` (or None) by
+    torch autograd, given the cotangents ``dy`` and ``dstate``; with
+    ``dstate`` None only y is differentiated (the state's cotangent is
+    absent, as on the train path).  ``dinit`` is None without ``init``."""
+    leaves = [t.clone().requires_grad_(True)
+              for t in (*args, *(() if init is None else (init,)))]
+    y, state = fn(*leaves[:5], chunk=chunk,
+                  init_state=None if init is None else leaves[5])
+    torch.autograd.backward((y, state) if dstate is not None else (y,),
+                            (dy, dstate) if dstate is not None else (dy,))
+    return [t.grad for t in leaves] + [None] * (6 - len(leaves))
+
+
+def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
+                init_state=None):
+    """The algebra of the kernel's backward in plain torch (not autograd):
+    the gradients of :func:`ssd_ref`'s ``(y, final state)`` given their
+    cotangents ``dy [B,S,H,P]`` and ``dstate [B,H,P,N]`` (or None, a zero
+    cotangent).  Returns f32 ``(dx, ddt, da, db, dc, dinit)``; ``dinit`` is
+    None without an ``init_state``.
+
+    Per chunk, with u = dt·x, E_ij = exp(min(cum_i − cum_j, 0)) for j ≤ i,
+    M_ij = C_i·B_j (per group), S_{c−1} the state entering the chunk and
+    Ŝ_c the cotangent of the state leaving it:
+
+        reverse pass: Ŝ_{c−1} = exp(cum_end)·Ŝ_c + Σ_i exp(cum_i)·dy_i⊗C_i,
+                      from dstate; dinit = Ŝ_{−1}
+        du_j  = Σ_{i≥j} M_ij E_ij dy_i + exp(cum_end − cum_j)·Ŝ_c B_j
+        dx_j  = dt_j·du_j,  ddt_j = x_j·du_j + a·dl_j
+        dM_ij = Σ_{h∈group} E_ij (dy_i·u_j)          (heads in order)
+        dC_i  = Σ_j dM_ij B_j + Σ_h exp(cum_i)·S_{c−1}ᵀ dy_i
+        dB_j  = Σ_i dM_ij C_i + Σ_h exp(cum_end − cum_j)·Ŝ_cᵀ u_j
+        dcum  = rowsum(M∘dMʰ) − colsum(M∘dMʰ) (the diagonal left out: it
+                adds g and −g to one entry) + C_i·dC_iʰ (dC_iʰ the head's
+                state term of dC, exp(cum_i)·S_{c−1}ᵀ dy_i) − w_j,
+                w_j = exp(cum_end − cum_j)·u_j·(Ŝ_c B_j), and
+                exp(cum_end)·⟨Ŝ_c, S_{c−1}⟩ + Σ_j w_j at the chunk's end
+        dl    = the reverse in-chunk cumsum of dcum;  da = Σ dt_j·dl_j
+    """
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep = h // g
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    if pad:
+        x, dy = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, dy))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b, c = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (b, c))
+    q = chunk
+    xc = x.reshape(bsz, nc, q, h, p).float()
+    dyc = dy.reshape(bsz, nc, q, h, p).float()
+    dtc = dt.reshape(bsz, nc, q, h).float()
+    bc = b.reshape(bsz, nc, q, g, n).float()
+    cc = c.reshape(bsz, nc, q, g, n).float()
+    bh = bc.repeat_interleave(rep, dim=3)
+    ch = cc.repeat_interleave(rep, dim=3)
+    u = xc * dtc[..., None]
+
+    # the forward's pieces: cumsums, C·Bᵀ per group, decay, entry states
+    cum = torch.cumsum(dtc * a, dim=2)                  # [B,nc,Q,H]
+    cum_end = cum[:, :, -1]                             # [B,nc,H]
+    cum_h = cum.permute(0, 1, 3, 2)                     # [B,nc,H,Q]
+    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    below = causal.tril(-1)
+    e = torch.where(causal, torch.exp(torch.clamp(
+        cum_h[..., :, None] - cum_h[..., None, :], max=0.0)), 0.0)
+    m = torch.einsum("bcign,bcjgn->bcgij", cc, bc).repeat_interleave(
+        rep, dim=2)                                     # [B,nc,H,Q,Q]
+    w_end = torch.exp(cum_end[:, :, None, :] - cum)     # [B,nc,Q,H]
+    s_chunk = torch.einsum("bcqhn,bcqhp,bcqh->bchpn", bh, u, w_end)
+    state = (torch.zeros(bsz, h, p, n, dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    entry = []
+    for ci in range(nc):
+        entry.append(state)
+        state = torch.exp(cum_end[:, ci])[:, :, None, None] * state \
+            + s_chunk[:, ci]
+    s_in = torch.stack(entry, dim=1)                    # [B,nc,H,P,N]
+
+    # reverse state pass: the cotangent of the state leaving each chunk
+    agg = torch.einsum("bcqh,bcqhp,bcqhn->bchpn", torch.exp(cum), dyc, ch)
+    shat = (torch.zeros_like(state) if dstate is None else dstate.float())
+    hats = [None] * nc
+    for ci in reversed(range(nc)):
+        hats[ci] = shat
+        shat = torch.exp(cum_end[:, ci])[:, :, None, None] * shat \
+            + agg[:, ci]
+    hat = torch.stack(hats, dim=1)                      # [B,nc,H,P,N]
+
+    # per (chunk, head): dMʰ, the state terms of dC and dB, du, dx, the
+    # direct ddt, dcum
+    dmh = e * torch.einsum("bcihp,bcjhp->bchij", dyc, u)
+    gm = torch.where(below, m * dmh, 0.0)
+    dcum = gm.sum(-1) - gm.sum(-2)                      # [B,nc,H,Q]
+    dc_h = torch.einsum("bcih,bcihp,bchpn->bcihn", torch.exp(cum), dyc, s_in)
+    db_h = torch.einsum("bcjh,bcjhp,bchpn->bcjhn", w_end, u, hat)
+    dcum = dcum + (ch * dc_h).sum(-1).permute(0, 1, 3, 2)
+    du_state = w_end[..., None] * torch.einsum("bcjhn,bchpn->bcjhp", bh, hat)
+    du = torch.einsum("bchij,bcihp->bcjhp", m * e, dyc) + du_state
+    w = (u * du_state).sum(-1).permute(0, 1, 3, 2)      # [B,nc,H,Q]
+    dcum = dcum - w
+    dcum[..., -1] += torch.exp(cum_end) * (hat * s_in).sum((-1, -2)) \
+        + w.sum(-1)
+    dl = dcum.flip(-1).cumsum(-1).flip(-1).permute(0, 1, 3, 2)  # [B,nc,Q,H]
+    dx = du * dtc[..., None]
+    ddt = (xc * du).sum(-1) + a * dl
+    da = (dtc * dl).sum((0, 1, 2))
+
+    # per (chunk, group): dM summed over the group's heads, dC and dB
+    dm = dmh.reshape(bsz, nc, g, rep, q, q).sum(3)
+    dc = torch.einsum("bcgij,bcjgn->bcign", dm, bc) \
+        + dc_h.reshape(bsz, nc, q, g, rep, n).sum(4)
+    db = torch.einsum("bcgij,bcign->bcjgn", dm, cc) \
+        + db_h.reshape(bsz, nc, q, g, rep, n).sum(4)
+
+    def cut(t_):
+        return t_.reshape(bsz, nc * q, *t_.shape[3:])[:, :s]
+    return (cut(dx), cut(ddt), da, cut(db), cut(dc),
+            None if init_state is None else shat)

@@ -9,8 +9,9 @@ prefill/decode step builders serve XLA lowering and sharding across a
 mesh; on one card they have no counterpart (serving is
 ``serving/engine.py``).
 
-Gradients come from autograd; attention's backward on the card is K3's
-backward kernel (``kernels/flash_attention/ops.FlashAttention``).
+Gradients come from autograd; on the card, attention's backward is K3's
+backward kernel (``kernels/flash_attention/ops.FlashAttention``) and the
+Mamba-2 SSD scan's is K4's (``kernels/ssd_scan/ops.SSDScan``).
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Mamba-2 (SSD, state-space duality) block: chunked scan and decode step.
 
-A port of the reference model's ``models/mamba2.py``.  Prefill runs the
-chunked scan through :func:`repro_torch.kernels.ssd_scan.ops.ssd` (the
-kernel on the card, its plain version on the CPU); the single-token decode
-step is the direct recurrence in plain torch, as in the reference, which
-runs it outside any kernel.
+A port of the reference model's ``models/mamba2.py``.  Prefill and the
+train forward run the chunked scan through
+:func:`repro_torch.kernels.ssd_scan.ops.ssd` (the kernel on the card, with
+its backward kernel when a gradient is needed; the plain version on the
+CPU); the single-token decode step is the direct recurrence in plain
+torch, as in the reference, which runs it outside any kernel.
 """
 
 from __future__ import annotations

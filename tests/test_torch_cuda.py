@@ -24,9 +24,12 @@ the ``--tiny`` campaign on the card equals the CPU port's (scores within
 train path: K3's backward within 1e-4 of each gradient's largest entry
 against torch autograd through the plain attention, bit-identical over
 two runs; the log-sum-exp output leaves the prefill's output unchanged;
-the SSD scan raises when a gradient is needed; a full-size smollm-135m
-train step launches K3's forward and backward 30 times each and never
-the plain attention.
+K4's backward through its autograd function within 1e-4 of each
+gradient's largest entry against its plain mirror and torch autograd
+through the plain scan, bit-identical over two runs; a full-size
+smollm-135m train step launches K3's forward and backward 30 times each
+and never the plain attention, and a full-size mamba2-1.3b step K4's
+forward and backward 48 times each and never the plain scan.
 """
 
 import numpy as np
@@ -45,7 +48,9 @@ from repro_torch.kernels.flash_attention.ref import (attention_ref,
 from repro_torch.kernels.sketch_update import ops as sk_ops
 from repro_torch.kernels.sketch_update import ref as sk_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import random_inputs, ssd_ref
+from repro_torch.kernels.ssd_scan import ref as ssd_plain
+from repro_torch.kernels.ssd_scan.ref import (random_inputs, ssd_bwd_ref,
+                                              ssd_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -360,6 +365,13 @@ def test_ssd_kernel_rejects_what_it_does_not_take(dev):
     *args, _ = _ssd_inputs(dev, ssd_ops.MAX_GRID_YZ + 1, 1, 1, 4, 1, 4, 0)
     with pytest.raises(ValueError, match="grid"):
         ssd_ops.ssd(*args, chunk=1)
+    # the backward: a cotangent of another shape, a scratch of another call
+    *args, _ = _ssd_inputs(dev, 1, 40, 4, 16, 2, 8, 0)
+    y, _, saved = ssd_ops.ssd_fwd_cuda(*args, chunk=16)
+    with pytest.raises(ValueError, match="dy"):
+        ssd_ops.ssd_bwd_cuda(*args, y[:, :-1], None, saved=saved, chunk=16)
+    with pytest.raises(ValueError, match="saved"):
+        ssd_ops.ssd_bwd_cuda(*args, y, None, saved=saved[:-1], chunk=16)
 
 
 @pytest.mark.parametrize("t_max,first,last,empty,s,hq,hk,d,window", [
@@ -437,8 +449,8 @@ def test_ssd_kernel_chunk_parallel_phases(dev, b, s, h, p, g, n, chunk):
         torch.testing.assert_close(sk, sp, atol=2e-4, rtol=2e-4)
 
 
-@pytest.mark.parametrize("kernel", ["decode", "prefill", "ssd", "sketch",
-                                    "failrank"])
+@pytest.mark.parametrize("kernel", ["decode", "prefill", "ssd", "ssd_bwd",
+                                    "sketch", "failrank"])
 def test_two_runs_are_bit_identical(dev, kernel):
     if kernel == "sketch":                      # with evictions
         p = SketchParams(L=256)
@@ -455,6 +467,12 @@ def test_two_runs_are_bit_identical(dev, kernel):
         *args, s0 = _ssd_inputs(dev, 4, 512, 64, 64, 8, 128, 5)
         runs = [ssd_ops.ssd(*args, chunk=128, init_state=s0)
                 for _ in range(2)]
+    elif kernel == "ssd_bwd":
+        *args, s0 = _ssd_inputs(dev, 4, 512, 64, 64, 8, 128, 5)
+        dy, ds = _ssd_cotangents(dev, 4, 512, 64, 64, 128, 5)
+        saved = ssd_ops.ssd_fwd_cuda(*args, chunk=128, init_state=s0)[2]
+        runs = [ssd_ops.ssd_bwd_cuda(*args, dy, ds, saved=saved, chunk=128,
+                                     init_state=s0) for _ in range(2)]
     else:
         s = 1 if kernel == "decode" else 200
         q, k, v = _attn_inputs(dev, 4, s, 1024, 9, 3, 64)
@@ -626,14 +644,73 @@ def test_attention_lse_output_leaves_the_prefill_unchanged(dev):
     assert _lib.LAUNCHES["flash_attention_prefill"] == before + 1
 
 
-def test_ssd_raises_when_a_gradient_is_needed(dev):
-    *args, _ = _ssd_inputs(dev, 1, 64, 4, 16, 2, 8, 3)
-    args[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ssd_ops.ssd(*args, chunk=32)
-    with torch.no_grad():
-        y, _ = ssd_ops.ssd(*args, chunk=32)
-    assert not y.requires_grad
+def _ssd_cotangents(dev, b, s, h, p, n, seed):
+    return tuple(torch.from_numpy(t).to(dev)
+                 for t in ssd_plain.random_cotangents(seed, b, s, h, p, n))
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (2, 96, 4, 32, 2, 16, 32), (1, 200, 2, 16, 1, 8, 64),
+    (2, 64, 8, 8, 4, 8, 16), (2, 80, 4, 16, 2, 8, 32),
+    (1, 300, 16, 64, 2, 128, 128), (2, 24, 4, 32, 2, 16, 24),
+    (1, 130, 2, 72, 1, 70, 128), (4, 512, 64, 64, 8, 128, 128)])
+def test_ssd_backward_matches_plain_and_autograd(dev, b, s, h, p, g, n,
+                                                 chunk):
+    """K4's backward through ``ssd`` (``SSDScan``) against its plain
+    mirror and torch autograd through the plain scan, from a zero and a
+    non-zero state, with and without a final-state cotangent: within 1e-4
+    of each gradient's largest entry; one forward and one backward launch
+    a call."""
+    *args, s0 = _ssd_inputs(dev, b, s, h, p, g, n, s + chunk)
+    dy, ds_rand = _ssd_cotangents(dev, b, s, h, p, n, s + chunk)
+    for init in (None, s0):
+        for ds in (None, ds_rand):
+            before = dict(_lib.LAUNCHES)
+            got = ssd_plain.autograd_grads(ssd_ops.ssd, args, init, dy, ds,
+                                           chunk=chunk)
+            assert _lib.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
+            assert _lib.LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+            mirror = ssd_bwd_ref(*args, dy, ds, chunk=chunk, init_state=init)
+            auto = ssd_plain.autograd_grads(ssd_ref, args, init, dy, ds,
+                                            chunk=chunk)
+            for g_, m_, a_ in zip(got, mirror, auto):
+                if m_ is None:
+                    assert g_ is None and a_ is None
+                    continue
+                for e in (m_, a_):
+                    assert float((g_ - e).abs().max()) \
+                        <= 1e-4 * float(e.abs().max())
+
+
+def test_full_size_mamba2_train_step_goes_through_the_kernels(dev,
+                                                              monkeypatch):
+    """One mamba2-1.3b train step at full size (batch 2 × 256, two
+    chunks): 48 K4 forward and 48 backward launches, no call of the plain
+    scan or its mirror, no attention launch, a finite loss and grad
+    norm."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    def refuse(*a, **kw):
+        raise AssertionError("the SSD scan reached its plain version")
+    monkeypatch.setattr(ssd_ops, "ssd_ref", refuse)
+    monkeypatch.setattr(ssd_plain, "ssd_bwd_ref", refuse)
+    cfg = get_config("mamba2-1.3b")
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt_cfg = adamw.AdamWConfig()
+    state = adamw.init_state(list(model.parameters()), opt_cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 256), device=dev,
+                         dtype=torch.int32)
+    _lib.reset_launches()
+    state, loss, gnorm = S.make_train_step(cfg, S.CellPlan(), opt_cfg)(
+        model, state, toks)
+    assert _lib.LAUNCHES["ssd_scan"] == 48
+    assert _lib.LAUNCHES["ssd_scan_bwd"] == 48
+    assert _lib.LAUNCHES["flash_attention"] == 0
+    assert np.isfinite(loss.item()) and np.isfinite(gnorm.item())
+    assert state["step"] == 1
 
 
 def test_full_size_train_step_goes_through_the_kernels(dev, monkeypatch):

@@ -25,13 +25,17 @@ Mirrors ``test_substrate.py`` (data pipeline, checkpointing, AdamW) and
 * a fixed batch is learnt well below the uniform floor, and training 20
   steps straight equals 10 steps, a checkpoint and a resumed 10.
 
-Run as a script, this file prints the reference's ``TRAIN_PINS`` that
-``chip_smoke.py`` holds the card to (smollm-135m at full size, 3 steps at
-batch 2 × seq 128; about a minute and 4 GB):
+Run as a script, this file prints the reference's ``TRAIN_PINS`` and
+``MAMBA2_TRAIN_PINS`` that ``chip_smoke.py`` holds the card to, one JSON
+line each (smollm-135m at full size, 3 steps at batch 2 × seq 128, about a
+minute and 4 GB; mamba2-1.3b at full width with 4 of its 48 layers, 3
+steps at batch 2 × seq 320, three chunks of 128 with a ragged tail, a few
+minutes and about 6 GB):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_train.py
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -65,11 +69,12 @@ pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
 ARCHS = ["smollm-135m", "mamba2-1.3b", "h2o-danube-3-4b"]
 
-#: The pin run of ``chip_smoke.py``: full-size smollm-135m on
-#: ``reference_params_numpy(cfg, 0)``, 3 steps at batch 2 × seq 128 on
-#: ``TokenPipeline`` batches of seed 0, the launcher's AdamW (lr 3e-4,
-#: warmup 10).
-PIN_ARCH, PIN_STEPS, PIN_BATCH, PIN_SEQ = "smollm-135m", 3, 2, 128
+#: The pin runs of ``chip_smoke.py``, (arch, layers kept or None for all,
+#: steps, batch, seq): full-size smollm-135m, and mamba2-1.3b at full
+#: width with 4 layers (the depth cut of the serve pins), each on
+#: ``reference_params_numpy(cfg, 0)`` and ``TokenPipeline`` batches of
+#: seed 0, the launcher's AdamW (lr 3e-4, warmup 10).
+PIN_RUNS = (("smollm-135m", None, 3, 2, 128), ("mamba2-1.3b", 4, 3, 2, 320))
 
 
 # ---------------------------------------------------------------------------
@@ -257,11 +262,32 @@ def _leaves(tree):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_matches_reference(arch):
+    _check_train_step(arch, 32)
+
+
+def test_mamba2_train_step_over_chunks_matches_reference():
+    """At seq 160 the model's chunk is 128: two chunks and a ragged tail of
+    32, so the gradient crosses a chunk boundary (at seq 32 the chunk is
+    the whole sequence)."""
+    _check_train_step("mamba2-1.3b", 160)
+
+
+def test_mamba2_launcher_trains_over_chunks():
+    losses = train.main(["--arch", "mamba2-1.3b", "--smoke", "--steps", "3",
+                         "--batch", "2", "--seq", "160", "--log-every",
+                         "100", "--device", "cpu"])
+    assert len(losses) == 3 and all(np.isfinite(losses))
+
+
+def _check_train_step(arch, seq):
+    """First-step gradients (within 1e-4 of each leaf's largest entry) and
+    4 steps' losses and grad norms against the reference's jitted step on
+    the smoke config, batch 2 × ``seq``."""
     cfg, jcfg = get_config(arch, smoke=True), j_get_config(arch, smoke=True)
     tree = reference_params_numpy(cfg, 0)
     jparams = jax.tree.map(jnp.asarray, tree)
     model = params_from_numpy(cfg, tree, device="cpu")
-    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=2, seq=32))
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=2, seq=seq))
 
     tokens = pipe.batch_at(0)
     jgrads = jax.grad(lambda p: JS.loss_fn(jcfg, p, jnp.asarray(tokens),
@@ -409,26 +435,30 @@ def test_crash_resume_continuity(tmp_path):
 # the pins of chip_smoke.py
 # ---------------------------------------------------------------------------
 
-def reference_train_pin() -> dict:
-    """The reference's losses and grad norms on the pin run."""
-    cfg = j_get_config(PIN_ARCH)
-    params = jax.tree.map(jnp.asarray, reference_params_numpy(
-        get_config(PIN_ARCH), 0))
-    opt_cfg = JA.AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=PIN_STEPS)
-    step = jax.jit(JS.make_train_step(cfg, JS.CellPlan(
+def reference_train_pin(arch, n_layers, steps, batch, seq) -> dict:
+    """The reference's losses and grad norms on one pin run."""
+    cfg, jcfg = get_config(arch), j_get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
+    params = jax.tree.map(jnp.asarray, reference_params_numpy(cfg, 0))
+    opt_cfg = JA.AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=steps)
+    step = jax.jit(JS.make_train_step(jcfg, JS.CellPlan(
         grad_accum=1, remat=False, param_dtype=jnp.float32), opt_cfg))
     opt = JA.init_state(params, opt_cfg)
-    pipe = JTokenPipeline(JDataConfig(vocab=cfg.vocab, batch=PIN_BATCH,
-                                      seq=PIN_SEQ, seed=0))
+    pipe = JTokenPipeline(JDataConfig(vocab=jcfg.vocab, batch=batch,
+                                      seq=seq, seed=0))
     losses, gnorms = [], []
-    for _ in range(PIN_STEPS):
+    for _ in range(steps):
         params, opt, loss, gnorm = step(params, opt, jnp.asarray(next(pipe)))
         losses.append(float(loss))
         gnorms.append(float(gnorm))
-    return {"arch": PIN_ARCH, "steps": PIN_STEPS, "batch": PIN_BATCH,
-            "seq": PIN_SEQ, "losses": losses, "grad_norms": gnorms}
+    return {"arch": arch, "n_layers": n_layers, "steps": steps,
+            "batch": batch, "seq": seq, "losses": losses,
+            "grad_norms": gnorms}
 
 
 if __name__ == "__main__":
-    print(json.dumps(reference_train_pin()), flush=True)
+    for run in PIN_RUNS:
+        print(json.dumps(reference_train_pin(*run)), flush=True)
     sys.exit(0)
