@@ -21,9 +21,11 @@
    rolled, partly empty 1,024-slot cache and over the serve run's own
    fill, with and without a window, splits wholly empty or wholly outside
    the window, a cache that is not a multiple of the split, GQA ratios 1,
-   3 and 8, head dims 16-128, both sides of the decode/prefill line;
-   within 2e-5) and the SSD scan (the test shapes, chunks 16, 24 and 128
-   with a ragged tail, and mamba2-1.3b's 4×512 prefill, from a zero and a
+   3 and 8, head dims 16-128, both sides of the decode/prefill line, and
+   at head dim 128 mixtral-8x7b's prefill and decode (GQA 4, its 4,096
+   window wider than the cache) and qwen2-vl-2b's (GQA 6); within 2e-5)
+   and the SSD scan (the test shapes, chunks 16, 24 and 128 with a ragged
+   tail, and mamba2-1.3b's 4×512 prefill, from a zero and a
    non-zero state; within 2e-4), and K3's backward through its autograd
    function against torch autograd through the plain attention (smollm's
    training shape, a windowed GQA case, head dims 16 and 128; within 1e-4
@@ -34,7 +36,9 @@
    an initial state and a final-state cotangent; within 1e-4 of each
    gradient's largest entry); two runs of the sketch insert, the FailRank
    iteration, the attention decode, K3's backward, the SSD scan and its
-   backward must be bit-identical;
+   backward, and of one mixture-of-experts layer at mixtral-8x7b's and at
+   dbrx-132b's full width (4 × 512 tokens; outputs, aux and routing) must
+   be bit-identical;
 3. drives the detection path, ``Sloth.detect`` with the batched recorder
    on the card, for resnet50 on an 8×8 mesh (core 6, link 20, no fault)
    with the launch counts set to 0 just before and read just after, plus
@@ -67,22 +71,30 @@
    streamed chunk from a carried state (and from a fresh state) beside
    one launch over the whole trace;
 7. drives the serving path, ``repro_torch.launch.serve.main``, at full
-   width and depth for smollm-135m (30 attention layers) and mamba2-1.3b
-   (48 SSD layers), 8 requests of up to 512 tokens, 32 new tokens each,
-   with the counts set to 0 before each: attention must launch once per
-   layer per prefill and decode step (1,980: 60 through the prefill entry
-   point, 1,920 through the split-key decode) and the SSD scan once per
-   layer per prefill (96, none in decode);
+   width and depth for smollm-135m (30 attention layers), mamba2-1.3b
+   (48 SSD layers) and qwen2-vl-2b (28 attention layers, M-RoPE), and at
+   full width with 8 of its 32 layers for mixtral-8x7b (8 experts, top-2;
+   a layer is 5.81 GB of f32 weights), 8 requests of up to 512 tokens, 32
+   new tokens each, with the counts set to 0 before each: attention must
+   launch once per layer per prefill and decode step (smollm 1,980: 60
+   through the prefill entry point, 1,920 through the split-key decode;
+   mixtral 528; qwen2-vl 1,848), the SSD scan once per layer per prefill
+   (96, none in decode), and no plain version may run; prints tok/s, the
+   mean prefill, the decode p50/p99 and the peak device memory;
 8. holds greedy tokens and prefill logits to the JAX reference's pins
    (``tests/test_torch_serve.py`` run as a script prints them) on the same
-   numpy weights: the tokens equal, the top-5 logits within 1e-3;
+   numpy weights: the tokens equal, the top-5 logits within 1e-3 (also
+   mixtral-8x7b at full width with 2 layers, whose prefill drops
+   assignments at the capacity, printed per layer, and qwen2-vl-2b
+   whole);
 9. times flash attention and the SSD scan at the serving shapes beside
    their plain versions, their bounds and (attention) PyTorch's
-   ``scaled_dot_product_attention``, with a profiler breakdown of each
-   kernel call by the kernels it launches, and profiles a full-size prefill and
-   decode steps of each model (device time by kernel, the device's idle
-   share).  Kernel times are device time by CUDA events, with the calls
-   queued behind a device-side spin so the host cannot pace them, and the
+   ``scaled_dot_product_attention`` (K3 also at mixtral-8x7b's and
+   qwen2-vl-2b's head dim 128), with a profiler breakdown of each
+   kernel call by the kernels it launches, and profiles a prefill and
+   decode steps of each served model (device time by kernel and by
+   class, the device's idle share).  Kernel times are device time by
+   CUDA events, with the calls queued behind a device-side spin so the host cannot pace them, and the
    back-to-back event time beside it (which includes the host's wrapper
    cost where the host is the slower side);
 10. times K3's backward at smollm-135m's training shape beside its plain
@@ -134,6 +146,7 @@ example an earlier tree's ``src`` unpacked by ``git archive``, whose
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -167,7 +180,9 @@ REFERENCE = {
 #: weights, two prompts of 48 tokens from ``default_rng(4)``, 16 new tokens
 #: (``python tests/test_torch_serve.py``, CPU, f32).  Full width; mamba2-1.3b
 #: keeps 4 of its 48 layers only to spare this machine's CPU 1.6 G normal
-#: draws.  Smallest top-1 margin of any pinned step: 0.0111 and 0.0098.
+#: draws, mixtral-8x7b 2 of its 32 (3.16 G draws); qwen2-vl-2b is whole.
+#: Smallest top-1 margin of any pinned step: 0.0111, 0.0098, 0.0122 and
+#: 0.0012.
 PIN_PROMPT_SEED, PIN_PROMPT_LEN = 4, 48
 PINS = (
     {"arch": "smollm-135m", "n_layers": 30,
@@ -192,6 +207,28 @@ PINS = (
                       3.4347569942474365, 3.3890557289123535],
                      [3.500068187713623, 3.434157609939575, 3.4254581928253174,
                       3.4220635890960693, 3.3890700340270996]]},
+    {"arch": "mixtral-8x7b", "n_layers": 2,
+     "tokens": [[15695, 9385, 31897, 13894, 12759, 8132, 717, 7892, 28306,
+                 17941, 16284, 27375, 9103, 26739, 27032, 20411],
+                [14539, 19054, 18357, 26609, 25182, 27214, 23191, 31746, 28777,
+                 130, 20343, 24727, 10302, 5681, 17415, 24326]],
+     "top5_ids": [[15695, 29837, 28991, 13947, 27112],
+                  [14539, 24975, 4154, 27353, 7815]],
+     "top5_logits": [[5.368040084838867, 5.191834449768066, 4.9367804527282715,
+                      4.910306453704834, 4.740670680999756],
+                     [5.4203619956970215, 5.404682636260986,
+                      5.0142340660095215, 4.783639430999756, 4.73421573638916]]},
+    {"arch": "qwen2-vl-2b", "n_layers": 28,
+     "tokens": [[127359, 56405, 116866, 33140, 118949, 118949, 118949, 118949,
+                 46003, 46003, 46003, 121856, 92504, 118949, 118949, 117421],
+                [82656, 82656, 82656, 82656, 82656, 82656, 82656, 78500,
+                 112413, 53913, 61521, 130436, 91606, 32375, 23531, 69451]],
+     "top5_ids": [[127359, 35596, 49733, 33345, 87104],
+                  [82656, 88655, 119507, 118007, 53913]],
+     "top5_logits": [[3.4213433265686035, 3.3345584869384766,
+                      3.241914749145508, 3.1970107555389404, 3.189624309539795],
+                     [3.4109959602355957, 3.337200880050659, 3.166689872741699,
+                      3.1436681747436523, 3.1313157081604004]]},
 )
 
 #: The serving runs of phase 7 (``launch/serve.py`` flags).
@@ -535,7 +572,8 @@ def allclose(got, exp, tol):
 def attention_cases(dev):
     """(label, q, k, v, q_pos, k_pos, causal, window) in the model layout:
     the f32 shapes of ``test_kernels.py:294-313`` over ``arange``
-    positions, then the serving shapes of smollm-135m."""
+    positions, then the serving shapes of smollm-135m, mixtral-8x7b and
+    qwen2-vl-2b."""
     import torch
 
     from repro_torch.kernels.flash_attention.ref import rolled_pos_tab
@@ -561,6 +599,20 @@ def attention_cases(dev):
     for win in (None, 128):
         cases.append(("prefill [4,512,9,64]", q, k, v, ar(512), ar(512), True,
                       win))
+    # mixtral-8x7b (GQA 4, window 4,096 wider than the cache) and
+    # qwen2-vl-2b (GQA 6) at head dim 128: the serve runs' prefill and
+    # their last decode step over the 1,024-slot fill
+    for name, hq, hk, win in MOE_MROPE_ATTENTION:
+        q, k, v = rand(4, 512, hq, 128), rand(4, 512, hk, 128), \
+            rand(4, 512, hk, 128)
+        cases.append((f"{name} prefill [4,512,{hq},128]", q, k, v, ar(512),
+                      ar(512), True, win))
+        q1, kc, vc = rand(4, 1, hq, 128), rand(4, 1024, hk, 128), \
+            rand(4, 1024, hk, 128)
+        cases.append((f"{name} decode [4,1,{hq},128] at the serve fill", q1,
+                      kc, vc, torch.tensor([543], dtype=torch.int32,
+                                           device=dev),
+                      serve_fill_tab(dev), True, win))
     q1, kc, vc = rand(4, 1, 9, 64), rand(4, 1024, 3, 64), rand(4, 1024, 3, 64)
     tab = decode_pos_tab(dev)
     for win in (None, 256):
@@ -591,6 +643,12 @@ def attention_cases(dev):
                       torch.from_numpy(rolled_pos_tab(*tab_args)).to(dev),
                       True, win))
     return cases
+
+
+#: (config, query heads, KV heads, window) of the head-dim-128 serving
+#: shapes: mixtral-8x7b's GQA 4 with its 4,096 window, qwen2-vl-2b's GQA 6.
+MOE_MROPE_ATTENTION = (("mixtral-8x7b", 32, 8, 4096),
+                       ("qwen2-vl-2b", 12, 2, None))
 
 
 def serve_fill_tab(dev):
@@ -638,11 +696,12 @@ def check_attention_kernel(dev, lib):
 
 def check_bit_identical(dev):
     """Two runs of the sketch insert (L = 256, with evictions),
-    the FailRank iteration (n = 260 and 1,028), the attention decode (the serve fill),
-    the SSD scan (mamba2-1.3b's prefill, from a non-zero state) and its
-    backward (the same shape, with a final-state cotangent) must be equal
-    bit for bit: no atomics in any result, and every sum in an order fixed
-    by the shapes."""
+    the FailRank iteration (n = 260 and 1,028), the attention decode (the
+    serve fill), the SSD scan (mamba2-1.3b's prefill, from a non-zero
+    state), its backward (the same shape, with a final-state cotangent)
+    and a mixture-of-experts layer (:func:`check_moe_bit_identical`) must
+    be equal bit for bit: no atomics in any result, and every sum in an
+    order fixed by the shapes."""
     import torch
 
     from repro_torch.core.sketch import SketchParams
@@ -675,6 +734,8 @@ def check_bit_identical(dev):
     saved = ssd_fwd_cuda(*args, chunk=chunk, init_state=st0)[2]
     gb = [ssd_bwd_cuda(*args, dy, ds, saved=saved, chunk=chunk,
                        init_state=st0) for _ in range(2)]
+    moe = {arch: check_moe_bit_identical(dev, arch)
+           for arch in ("mixtral-8x7b", "dbrx-132b")}
     out = {"sketch_insert": all(torch.equal(sk[0][i][k], sk[1][i][k])
                                 for i in (0, 1) for k in sk[0][i]),
            "sketch_drained": int(sk[0][1]["d_n"]),
@@ -682,9 +743,42 @@ def check_bit_identical(dev):
                                    for u, v in zip(fr[i], fr[i + 1])),
            "attention_decode": bool(torch.equal(a, b)),
            "ssd_scan": bool(torch.equal(y1, y2) and torch.equal(s1, s2)),
-           "ssd_scan_bwd": all(torch.equal(u, v) for u, v in zip(*gb))}
+           "ssd_scan_bwd": all(torch.equal(u, v) for u, v in zip(*gb)),
+           **{f"moe_{arch}": m["equal"] for arch, m in moe.items()}}
     require(all(v for k, v in out.items() if k != "sketch_drained")
             and out["sketch_drained"] > 0, f"runs differ: {out}")
+    return {**out, "moe": moe}
+
+
+def check_moe_bit_identical(dev, arch):
+    """One MoE layer at ``arch``'s full width on 4 × 512 tokens, weights
+    from a generator on the card, run twice: outputs, aux and routing
+    (expert indices, the keep mask, the slots) must be equal bit for bit."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    p = L.ParamBlock(L.map_leaves(lambda leaf: L.draw(gen, leaf),
+                                  L.init_moe(cfg)))
+    x = torch.randn(4, 512, cfg.d_model, device=dev, generator=gen)
+    runs = []
+    with torch.no_grad():
+        for _ in range(2):
+            r = L.moe_route(cfg, p, x.reshape(-1, cfg.d_model))
+            runs.append((*L.moe(cfg, p, x), r.gate_idx, r.keep, r.slot))
+    keep = runs[0][3]
+    out = {"experts": cfg.n_experts, "top_k": cfg.top_k,
+           "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+           "weights_gb": sum(t.numel() * 4 for t in p.parameters()) / 1e9,
+           "capacity": L.moe_capacity(cfg, 2048),
+           "dropped": int((~keep).sum()),
+           "equal": all(torch.equal(a, b) for a, b in zip(*runs)),
+           "finite": bool(torch.isfinite(runs[0][0]).all())}
+    require(out["finite"], f"{arch}: MoE output not finite")
+    del p, runs
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1347,17 +1441,36 @@ def run_campaign_phase(dev, lib) -> dict:
 # phases 7-9: the serving path
 # ---------------------------------------------------------------------------
 
-def serve_run(arch, lib):
-    """``launch.serve.main`` on the card at full size with the counts set
-    to 0 just before; checks the requests and the launches per layer."""
+#: The serve runs of phase 7: (config, layers kept or None for all).
+#: mixtral-8x7b keeps 8 of its 32 layers at full width: a layer is 1,451 M
+#: f32 parameters (5.81 GB), and 32 of them are 187 GB.
+SERVE_RUNS = (("smollm-135m", None), ("mamba2-1.3b", None),
+              ("mixtral-8x7b", 8), ("qwen2-vl-2b", None))
+
+
+def serve_run(arch, lib, n_layers=None):
+    """``launch.serve.main`` on the card at full width (and depth unless
+    ``n_layers`` cuts it) with the counts set to 0 just before; checks the
+    requests, the launches per layer and that no plain version ran."""
+    import dataclasses
+
+    import torch
+
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch import serve
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     n_req, batch, max_new = 8, 4, 32
     n_batches = -(-n_req // batch)
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats(dev)
     lib.reset_launches()
     t0 = time.perf_counter()
-    done, stats = serve.main(["--arch", arch, *SERVE_FLAGS])
+    with PlainCalls((fa_ops, "attention_ref"), (ssd_ops, "ssd_ref")) as plain:
+        done, stats = serve.main(["--arch", arch, *SERVE_FLAGS], cfg=cfg)
     wall = time.perf_counter() - t0
     launches = dict(lib.LAUNCHES)
     n_attn = cfg.n_attn_layers
@@ -1370,10 +1483,11 @@ def serve_run(arch, lib):
     # time; the p99 of 64 decode steps is close to their maximum
     summary = {"phase": "serve", "arch": arch, "layers": cfg.n_layers,
                **stats, "launches": launches, "expected_launches": want,
-               "wall_s_with_init": wall}
+               "plain_calls": plain.n, "wall_s_with_init": wall,
+               "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
     emit(summary)
     for key in ("prefill_ms_mean", "decode_ms_p50", "decode_ms_p99",
-                "tok_per_s"):
+                "tok_per_s", "peak_mem_gb"):
         print(f"{arch} {key} {summary[key]}", flush=True)
     require([r.rid for r in done] == list(range(n_req)), f"{arch}: requests")
     require(all(len(r.out_tokens) == max_new
@@ -1382,18 +1496,23 @@ def serve_run(arch, lib):
     for name, n in want.items():
         require(launches[name] == n,
                 f"{arch}: {name} launched {launches[name]} times, not {n}")
+    require(plain.n == 0, f"{arch}: a plain version ran {plain.n} times")
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
 def check_pin(pin, dev, lib):
     """The port on the card against one of the reference's pins, on the
-    same numpy weights and prompts."""
+    same numpy weights and prompts; for a mixture of experts, also the
+    assignments the prefill dropped at the capacity."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_numpy, reference_params_numpy
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     cfg = dataclasses.replace(get_config(pin["arch"]),
                               n_layers=pin["n_layers"])
@@ -1401,10 +1520,20 @@ def check_pin(pin, dev, lib):
     toks = np.random.default_rng(PIN_PROMPT_SEED).integers(
         0, cfg.vocab, (2, PIN_PROMPT_LEN)).astype(np.int32)
     n_new = len(pin["tokens"][0])
+    dropped, route = [], L.moe_route
+
+    def counted_route(*args):
+        r = route(*args)
+        dropped.append(int((~r.keep).sum()))
+        return r
     lib.reset_launches()
     cache = T.init_cache(cfg, 2, PIN_PROMPT_LEN + n_new, device=dev)
-    last, cache = T.prefill(cfg, model, torch.from_numpy(toks).to(dev),
-                            cache)
+    L.moe_route = counted_route
+    try:
+        last, cache = T.prefill(cfg, model, torch.from_numpy(toks).to(dev),
+                                cache)
+    finally:
+        L.moe_route = route
     logits = last[:, -1]
     ids = torch.tensor(pin["top5_ids"], device=dev)
     err = float((logits.gather(-1, ids).cpu()
@@ -1419,10 +1548,17 @@ def check_pin(pin, dev, lib):
     tokens = np.array(new).T.tolist()
     emit({"phase": "reference_pin", "arch": pin["arch"],
           "layers": cfg.n_layers, "tokens_equal": tokens == pin["tokens"],
-          "top5_logit_max_abs_err": err, "launches": dict(lib.LAUNCHES)})
+          "top5_logit_max_abs_err": err, "launches": dict(lib.LAUNCHES),
+          **({"prefill_assignments": 2 * PIN_PROMPT_LEN * cfg.top_k,
+              "capacity": L.moe_capacity(cfg, 2 * PIN_PROMPT_LEN),
+              "prefill_dropped_per_layer": dropped}
+             if cfg.n_experts else {})})
     require(tokens == pin["tokens"], f"{pin['arch']}: greedy tokens differ "
                                      f"from the reference: {tokens}")
     require(err <= 1e-3, f"{pin['arch']}: prefill logits off by {err}")
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 #: The timing keys of a kernel's entry in the summary line.
@@ -1431,7 +1567,7 @@ KERNEL_TIME_KEYS = ("ms", "plain_ms", "library_ms", "events_ms",
                     "bound_ms", "bound_by")
 
 
-def time_attention(q, k, v, q_pos, k_pos, reps):
+def time_attention(q, k, v, q_pos, k_pos, reps, window=None):
     """Kernel, plain version and SDPA (same boolean mask) on one causal
     case.  Bound from bytes (q, the output, both position tables, and the
     K/V of only the slots some query can use) and from 4·D f32 operations
@@ -1442,14 +1578,16 @@ def time_attention(q, k, v, q_pos, k_pos, reps):
     from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                          live_mask)
-    mask = live_mask(q_pos, k_pos)
+    mask = live_mask(q_pos, k_pos, window=window)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
     def kernel():
-        return flash_attention_cuda(q, k, v, q_pos=q_pos, k_pos=k_pos)
+        return flash_attention_cuda(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                                    window=window)
 
     def plain():
-        return attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos)
+        return attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                             window=window)
 
     def library():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
@@ -1582,16 +1720,21 @@ def time_ssd_bwd(dev, reps):
             / 1e6}
 
 
-def profile_serving(arch, dev):
+def profile_serving(arch, dev, n_layers=None):
     """A prefill of 4 × 512 tokens into a 1,024-slot cache and 8 decode
-    steps at full size: host-clock ms without the profiler, then device
-    time by kernel in a profiler trace of the same work."""
+    steps at full width (and depth unless ``n_layers`` cuts it):
+    host-clock ms without the profiler, then device time by kernel and by
+    class (:func:`kernel_class`) in a profiler trace of the same work."""
+    import dataclasses
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     gen = torch.Generator(device=dev).manual_seed(1)
     model = T.init_model(cfg, gen)
     toks = torch.randint(0, cfg.vocab, (4, 512), device=dev, generator=gen,
@@ -1628,11 +1771,21 @@ def profile_serving(arch, dev):
             torch.cuda.synchronize()
         dev_ms = device_us(prof, by_name) / n / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        by_class = {}
+        for name, us in by_name.items():
+            c = kernel_class(name)
+            by_class[c] = by_class.get(c, 0.0) + us / n / 1e3
         out[stage] = {"host_ms": wall / n * 1e3, "device_ms": dev_ms,
                       "device_idle_share": 1.0 - dev_ms / (wall / n * 1e3),
+                      "device_ms_by_class": by_class,
                       "top_kernels_ms": [[name[:80], us / n / 1e3]
                                          for name, us in top]}
+    out["layers"] = cfg.n_layers
+    out["weights_gb"] = sum(p.numel() * 4 for p in model.parameters()) / 1e9
     emit(out)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1950,7 +2103,6 @@ def train_mamba2_run(dev, lib) -> dict:
     prints ms per step (the launcher's, ``--log-every 1``) and the peak
     device memory of the run."""
     import contextlib
-    import gc
     import io
 
     import torch
@@ -1998,9 +2150,10 @@ def train_mamba2_run(dev, lib) -> dict:
 
 
 def kernel_class(name: str) -> str:
-    """The class of a device activity in a train step's trace: K4's
-    backward or forward, K3, a GEMM (cuBLAS, CUTLASS), the multi-tensor
-    AdamW, or elementwise and the rest (reductions, copies)."""
+    """The class of a device activity in a train or serve step's trace:
+    K4's backward or forward, K3, a GEMM (cuBLAS, CUTLASS), the
+    multi-tensor AdamW, MoE routing's sorts and top-k, or elementwise and
+    the rest (reductions, gathers, copies)."""
     low = name.lower().removeprefix("void ")
     if low.startswith("ssd_bwd"):
         return "k4_backward"
@@ -2012,6 +2165,8 @@ def kernel_class(name: str) -> str:
         return "gemm"
     if "multi_tensor_apply" in low:
         return "adamw"
+    if "sort" in low or "topk" in low:
+        return "sort_and_topk"
     return "elementwise_and_other"
 
 
@@ -2021,8 +2176,6 @@ def profile_train_step(dev, arch) -> dict:
     the device ms by kernel.  The device's idle share is 1 − device ms
     over the unprofiled median (the profiler slows the host, not the
     kernels); the peak device memory is that of these steps."""
-    import gc
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2632,8 +2785,8 @@ def main() -> int:
     k1_campaign = run_campaign_phase(dev, lib)
 
     # ---- 7. the serving path at full size ----------------------------------
-    serve_launches = {arch: serve_run(arch, lib)
-                      for arch in ("smollm-135m", "mamba2-1.3b")}
+    serve_launches = {arch: serve_run(arch, lib, n_layers)
+                      for arch, n_layers in SERVE_RUNS}
     require(serve_launches["mamba2-1.3b"]["flash_attention"] == 0,
             "mamba2-1.3b launched attention")
 
@@ -2655,11 +2808,24 @@ def main() -> int:
         rand(4, 1, 9, 64), rand(4, 1024, 3, 64), rand(4, 1024, 3, 64),
         torch.tensor([543], dtype=torch.int32, device=dev),
         serve_fill_tab(dev), reps=50)
+    # head dim 128: mixtral-8x7b (GQA 4, window 4,096) and qwen2-vl-2b
+    # (GQA 6), prefill and the serve run's last decode step
+    k3_128 = {}
+    for name, hq, hk, win in MOE_MROPE_ATTENTION:
+        k3_128[f"{name}_prefill"] = time_attention(
+            rand(4, 512, hq, 128), rand(4, 512, hk, 128),
+            rand(4, 512, hk, 128), pos, pos, reps=20, window=win)
+        k3_128[f"{name}_decode"] = time_attention(
+            rand(4, 1, hq, 128), rand(4, 1024, hk, 128),
+            rand(4, 1024, hk, 128),
+            torch.tensor([543], dtype=torch.int32, device=dev),
+            serve_fill_tab(dev), reps=50, window=win)
     k4 = time_ssd(dev, reps=10)
     emit({"phase": "serving_kernel_times", "flash_attention_prefill": k3,
-          "flash_attention_decode": k3_dec, "ssd_scan_prefill": k4})
-    for arch in ("smollm-135m", "mamba2-1.3b"):
-        profile_serving(arch, dev)
+          "flash_attention_decode": k3_dec, "ssd_scan_prefill": k4,
+          **{f"flash_attention_{key}": t for key, t in k3_128.items()}})
+    for arch, n_layers in SERVE_RUNS:
+        profile_serving(arch, dev, n_layers)
 
     # ---- 10. K3's and K4's backward at the training shapes ------------------
     k3_bwd = time_attention_bwd(dev, reps=20)
@@ -2716,20 +2882,27 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
-         "launches": serve_launches["smollm-135m"]["flash_attention"],
-         "launches_prefill":
-             serve_launches["smollm-135m"]["flash_attention_prefill"],
-         "launches_decode":
-             serve_launches["smollm-135m"]["flash_attention_decode"],
+         "launches": sum(n["flash_attention"]
+                         for n in serve_launches.values()),
+         "launches_prefill": sum(n["flash_attention_prefill"]
+                                 for n in serve_launches.values()),
+         "launches_decode": sum(n["flash_attention_decode"]
+                                for n in serve_launches.values()),
+         "launches_by_serve_run": {arch: n["flash_attention"] for arch, n
+                                   in serve_launches.items()},
          "max_abs_err": max(k3_err, k3["max_abs_err"],
-                            k3_dec["max_abs_err"]),
+                            k3_dec["max_abs_err"],
+                            *(t["max_abs_err"] for t in k3_128.values())),
          **{k: k3[k] for k in KERNEL_TIME_KEYS}, "plain_device": "cuda",
          "shape": "smollm-135m prefill, q [4,512,9,64], kv [4,512,3,64], "
                   "causal, one layer",
          "decode": {k: k3_dec[k] for k in KERNEL_TIME_KEYS}
          | {"live_slots": k3_dec["live_slots"], "shape": "q [4,1,9,64] at position 543 over a 1024-slot "
                      "cache holding 0..543 (the serve run's last decode "
-                     "step), one layer"}},
+                     "step), one layer"},
+         **{key: {k: t[k] for k in KERNEL_TIME_KEYS}
+            | {"live_slots": t["live_slots"]}
+            for key, t in k3_128.items()}},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/models/layers.py:225 (jax.grad of XLA "

@@ -81,7 +81,7 @@ def reference_params_numpy(cfg, seed: int) -> dict:
     nested dicts, period-stacked leaves with a leading ``n_periods`` axis)
     as f32 numpy arrays drawn from ``np.random.default_rng(seed)`` at the
     init scales of ``transformer.param_spec``, the table ``init_model``
-    draws from too.  Dense and SSM configs only."""
+    draws from too."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
 

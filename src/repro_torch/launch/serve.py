@@ -32,12 +32,14 @@ from ..models import transformer as T
 from ..serving.engine import EngineConfig, Request, ServeEngine
 
 
-def main(argv=None, step_hook=None):
+def main(argv=None, step_hook=None, cfg=None):
     """Parse ``argv``, serve, print the summary; returns the completed
     requests and the summary's numbers (:func:`summary`, with the
     telemetry's windows and flags under ``--telemetry``).
     ``step_hook(kind, dt)`` is handed to the engine (after the telemetry
-    tap, when there is one)."""
+    tap, when there is one).  ``cfg``, a config to serve in place of
+    ``--arch``'s, cuts a model that one card cannot hold to fewer layers
+    (``dataclasses.replace(get_config(arch), n_layers=...)``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -57,7 +59,8 @@ def main(argv=None, step_hook=None):
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg is None:
+        cfg = get_config(args.arch, smoke=args.smoke)
     dev = resolve_device(args.device)
     model = T.init_model(cfg, torch.Generator(device=dev)
                          .manual_seed(args.seed))

@@ -1,4 +1,5 @@
-"""Core model layers in torch: norms, rotary embeddings, attention, MLP.
+"""Core model layers in torch: norms, rotary embeddings (RoPE and M-RoPE),
+attention, MLP and mixture of experts.
 
 A port of the reference model's ``models/layers.py``.  Each layer is a plain
 function on tensors; its parameters come from a module (``p.scale``,
@@ -10,13 +11,15 @@ function; here every shape goes through
 :func:`repro_torch.kernels.flash_attention.ops.gqa_attention` (the kernel
 on the card, its plain version on the CPU).
 
-MoE and M-RoPE wait for the configs that need them (mixtral, dbrx, jamba;
-qwen2-vl) and raise ``NotImplementedError``.
+MoE keeps the reference's sort-based dispatch with capacity truncation
+(:func:`moe`): every expert runs on its ``[capacity, d]`` block, so a decode
+step reads every expert's weights, as the reference's does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,13 +60,9 @@ def rope_freqs(head_dim: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
-def apply_rope(x, positions, theta: float):
-    """x [B,S,H,D]; positions [B,S] int.  Rotates the interleaved pairs
-    ``(x[..., 2i], x[..., 2i+1])``, as the reference does."""
-    d = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(d, theta), dtype=torch.float32,
-                            device=x.device)
-    ang = positions[..., None].float() * freqs                 # [B,S,D/2]
+def _rotate(x, ang):
+    """Rotates the interleaved pairs ``(x[..., 2i], x[..., 2i+1])`` of
+    x [B,S,H,D] by ``ang`` [B,S,D/2], as the reference does."""
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., ::2], x[..., 1::2]
     xr1 = x1 * cos - x2 * sin
@@ -71,9 +70,40 @@ def apply_rope(x, positions, theta: float):
     return torch.stack([xr1, xr2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
+def _freqs(d, theta, device):
+    return torch.as_tensor(rope_freqs(d, theta), dtype=torch.float32,
+                           device=device)
+
+
+def apply_rope(x, positions, theta: float):
+    """x [B,S,H,D]; positions [B,S] int."""
+    freqs = _freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def mrope_sections(n: int, sections=(2, 3, 3)) -> np.ndarray:
+    """Which of (temporal, height, width) rotates each of the ``n``
+    frequency bands: the bands split in proportion to ``sections``, with
+    the reference's rounding (``np.round`` of each share, ``cumsum``, the
+    last bound set to ``n``)."""
+    sec = np.array(sections, dtype=np.float64)
+    bounds = np.cumsum(np.round(sec / sec.sum() * n).astype(int))
+    bounds[-1] = n
+    sel = np.zeros(n, dtype=np.int64)
+    sel[bounds[0]:bounds[1]] = 1
+    sel[bounds[1]:] = 2
+    return sel
+
+
 def apply_mrope(x, positions3, theta: float, sections=(2, 3, 3)):
-    """Qwen2-VL's multimodal RoPE: waits for the qwen2-vl config."""
-    raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
+    """Qwen2-VL's multimodal RoPE: x [B,S,H,D]; positions3 [B,S,3] int,
+    the (temporal, height, width) ids, which coincide for text tokens.
+    Each frequency band rotates by the id of its section
+    (:func:`mrope_sections`)."""
+    d = x.shape[-1]
+    sel = torch.from_numpy(mrope_sections(d // 2, sections)).to(x.device)
+    pos = positions3.float()[..., sel]                         # [B,S,D/2]
+    return _rotate(x, pos * _freqs(d, theta, x.device))
 
 
 def position_embed(cfg, q, k, positions):
@@ -81,8 +111,9 @@ def position_embed(cfg, q, k, positions):
         return (apply_rope(q, positions, cfg.rope_theta),
                 apply_rope(k, positions, cfg.rope_theta))
     if cfg.pos == "mrope":
-        return (apply_mrope(q, positions, cfg.rope_theta),
-                apply_mrope(k, positions, cfg.rope_theta))
+        pos3 = positions[..., None].expand(*positions.shape, 3)
+        return (apply_mrope(q, pos3, cfg.rope_theta),
+                apply_mrope(k, pos3, cfg.rope_theta))
     return q, k   # 'none' / 'learned' (added at embedding)
 
 
@@ -99,7 +130,7 @@ def attention(q, k, v, *, q_pos, k_pos, causal=True, window=None):
 
 
 # ---------------------------------------------------------------------------
-# MLP and MoE
+# MLP and mixture of experts
 # ---------------------------------------------------------------------------
 
 def mlp(cfg, p, x):
@@ -109,16 +140,93 @@ def mlp(cfg, p, x):
     return F.gelu(x @ p.w_up, approximate="tanh") @ p.w_down
 
 
-def init_moe(cfg, *args, **kwargs):
-    """Mixture-of-experts parameters: wait for the MoE configs."""
-    raise NotImplementedError(
-        f"{cfg.name}: mixture of experts is not ported yet")
+def moe_capacity(cfg, tokens: int) -> int:
+    """Slots per expert for ``tokens`` tokens: the reference's
+    ``ceil(tokens·k/E·capacity_factor)`` in its float order, on the host,
+    padded up to a multiple of 8 and at least 8."""
+    cap = int(np.ceil(tokens * cfg.top_k / cfg.n_experts
+                      * cfg.capacity_factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+class Routing(NamedTuple):
+    """One MoE layer's routing of T tokens: the router's ``probs`` [T,E];
+    each token's top-k experts ``gate_idx`` [T,k] with their renormalised
+    ``gate_vals``; ``order``, the stable sort by expert of the T·k
+    assignments (token-major, flat) and ``counts`` [E] of each expert's;
+    per assignment (token-major, [T,k]) whether it fits its expert's
+    capacity (``keep``) and its row of the ``[E·cap, d]`` dispatch
+    (``slot``; a dropped one points at its expert's first row, as the
+    reference's does)."""
+    probs: torch.Tensor
+    gate_vals: torch.Tensor
+    gate_idx: torch.Tensor
+    order: torch.Tensor
+    counts: torch.Tensor
+    keep: torch.Tensor
+    slot: torch.Tensor
+
+
+def moe_route(cfg, p, xf) -> Routing:
+    """The reference's routing of xf [T,d]: router logits in f32, softmax,
+    top-k, gates renormalised; assignments sorted stably by expert (the
+    order within an expert decides which overflow the capacity)."""
+    e, k = cfg.n_experts, cfg.top_k
+    n, cap = xf.shape[0] * k, moe_capacity(cfg, xf.shape[0])
+    probs = torch.softmax(xf.float() @ p.router, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    e_flat = gate_idx.reshape(-1)
+    order = torch.argsort(e_flat, stable=True)
+    experts = torch.arange(e, device=xf.device)
+    # not bincount, which reads the largest id back to the host on the card
+    counts = (e_flat[:, None] == experts).sum(0)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=xf.device)
+    pos_in_e = rank - (torch.cumsum(counts, 0) - counts)[e_flat]
+    keep = pos_in_e < cap
+    slot = e_flat * cap + torch.where(keep, pos_in_e, 0)
+    return Routing(probs, gate_vals, gate_idx, order, counts,
+                   keep.reshape(-1, k), slot.reshape(-1, k))
 
 
 def moe(cfg, p, x):
-    """Sort-based MoE dispatch: waits for the MoE configs."""
-    raise NotImplementedError(
-        f"{cfg.name}: mixture of experts is not ported yet")
+    """x [B,S,d] → (y [B,S,d], aux): the reference's sort-based dispatch
+    with capacity truncation, and its Switch load-balancing aux loss
+    ``E·Σ density·mean_prob`` (density from each token's first choice).
+    Deterministic on the card: the dispatch gathers each slot's token
+    (no scatter), and each token adds its k contributions in ascending
+    expert order, the order of the reference's sorted scatter, without
+    atomics."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    tokens = b * s
+    xf = x.reshape(tokens, d)
+    r = moe_route(cfg, p, xf)
+    density = (r.gate_idx[:, :1] == torch.arange(e, device=x.device)
+               ).float().mean(0)
+    aux = e * (density * r.probs.mean(0)).sum()
+
+    # row c of expert j holds sorted assignment starts[j] + c, if any
+    cap = moe_capacity(cfg, tokens)
+    rows = torch.arange(cap, device=x.device)
+    starts = torch.cumsum(r.counts, 0) - r.counts
+    src = (starts[:, None] + rows).clamp(max=tokens * k - 1)    # [E,cap]
+    xe = torch.where((rows < r.counts[:, None])[..., None],
+                     xf[r.order[src] // k], 0.0)                # [E,cap,d]
+
+    g = F.silu(torch.bmm(xe, p.w_gate))
+    u = torch.bmm(xe, p.w_up)
+    ye = torch.bmm(g * u, p.w_down).reshape(e * cap, d)
+
+    w = (r.gate_vals * r.keep).to(x.dtype)
+    contrib = ye[r.slot] * w[..., None]                         # [T,k,d]
+    by_expert = torch.argsort(r.gate_idx, dim=-1)
+    contrib = contrib.gather(1, by_expert[..., None].expand(tokens, k, d))
+    y = contrib[:, 0]
+    for j in range(1, k):
+        y = y + contrib[:, j]
+    return y.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------
@@ -178,3 +286,13 @@ def init_mlp(cfg, d, ff):
     if cfg.mlp == "swiglu":
         p["w_gate"] = Leaf((d, ff), d ** -0.5)
     return p
+
+
+def init_moe(cfg):
+    """The router [d,E] and E SwiGLU experts ``w_gate``/``w_up`` [E,d,ff],
+    ``w_down`` [E,ff,d]."""
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {"router": Leaf((d, e), d ** -0.5),
+            "w_gate": Leaf((e, d, ff), d ** -0.5),
+            "w_up": Leaf((e, d, ff), d ** -0.5),
+            "w_down": Leaf((e, ff, d), ff ** -0.5)}

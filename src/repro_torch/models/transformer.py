@@ -1,24 +1,26 @@
 """Model assembly: init, forward, prefill and decode with a KV/SSM cache.
 
-A port of the reference model's ``models/transformer.py`` for the dense and
-SSM configurations (smollm-135m, mamba2-1.3b, the sliding-window dense
-ones).  The reference stacks layers into periods and scans over them; here
+A port of the reference model's ``models/transformer.py`` for every
+decoder-only configuration: dense, sliding-window, SSM, mixture of experts
+(mixtral, dbrx), M-RoPE (qwen2-vl) and the attention + Mamba + MoE hybrid
+(jamba).  The reference stacks layers into periods and scans over them; here
 the layers are a ``ModuleList`` walked by a Python loop, layer ``li``
 being slot ``li % period_len`` of period ``li // period_len``.  Parameter
 names mirror the reference's keys (``layers.3.attn.wq`` is the reference's
 ``periods/slot0/attn/wq[3]``).
 
 Three entry points:
-  * ``forward_train`` — full-sequence causal forward (no cache) → logits,
-                        with its autograd graph (the train step's forward)
+  * ``forward_train`` — full-sequence causal forward (no cache) → logits
+                        and the MoE aux loss, with its autograd graph (the
+                        train step's forward)
   * ``prefill``       — fills a KV/SSM cache, returns last-token logits
   * ``decode_step``   — one token with the cache (rolling buffer for SWA)
 ``prefill`` and ``decode_step`` run under ``torch.no_grad()``, so serving
 launches exactly what it launched before the parameters were trainable.
 
 The cache is updated in place (the reference returns a new one).  The
-encoder-decoder path (whisper), MoE and M-RoPE are not ported yet and
-raise ``NotImplementedError``.
+encoder-decoder path (whisper) is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -203,8 +205,8 @@ class _KVView:
 
 
 def _apply_slot(cfg, p, kind, is_moe, x, q_pos, *, slot_cache=None):
-    """One layer: mixer + MLP with residuals.  Returns x; a ``slot_cache``
-    is updated in place."""
+    """One layer: mixer + MLP or MoE with residuals.  Returns (x, the MoE
+    aux loss or None); a ``slot_cache`` is updated in place."""
     h = L.apply_norm(cfg, x, p.norm1)
     if kind == "attn":
         if slot_cache is not None:
@@ -225,11 +227,15 @@ def _apply_slot(cfg, p, kind, is_moe, x, q_pos, *, slot_cache=None):
             slot_cache["ssm"] = new_state[1].to(slot_cache["ssm"].dtype)
     if slot_cache is not None:
         slot_cache["pos"] += h.shape[1]
+    aux = None
     if cfg.d_ff > 0:
         h2 = L.apply_norm(cfg, x, p.norm2)
-        out2 = L.moe(cfg, p.moe, h2)[0] if is_moe else L.mlp(cfg, p.mlp, h2)
+        if is_moe:
+            out2, aux = L.moe(cfg, p.moe, h2)
+        else:
+            out2 = L.mlp(cfg, p.mlp, h2)
         x = x + out2
-    return x
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -251,23 +257,31 @@ def _logits(cfg, model, x):
 
 
 def _run_layers(cfg, model, x, q_pos, caches=None):
+    """The layers in order → (x, the sum of the MoE layers' aux losses in
+    layer order, as the reference's scan carries it; None without MoE)."""
     slots = period_slots(cfg)
+    total = None
     for li, p in enumerate(model.layers):
         kind, is_moe = slots[li % len(slots)]
-        x = _apply_slot(cfg, p, kind, is_moe, x, q_pos,
-                        slot_cache=None if caches is None else caches[li])
-    return x
+        x, aux = _apply_slot(cfg, p, kind, is_moe, x, q_pos,
+                             slot_cache=None if caches is None
+                             else caches[li])
+        if aux is not None:
+            total = aux if total is None else total + aux
+    return x, total
 
 
 def forward_train(cfg, model, tokens):
     """tokens [B,S] → (logits [B,S,V], aux loss), keeping the autograd
-    graph (the parameters are trainable).  The aux loss is MoE's
-    load-balancing term, 0 without experts."""
+    graph (the parameters are trainable).  The aux loss is the sum of the
+    MoE layers' load-balancing terms, 0 without experts."""
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
     x = _embed(cfg, model, tokens, positions)
-    x = _run_layers(cfg, model, x, positions)
-    return _logits(cfg, model, x), torch.zeros((), device=x.device)
+    x, aux = _run_layers(cfg, model, x, positions)
+    if aux is None:
+        aux = torch.zeros((), device=x.device)
+    return _logits(cfg, model, x), aux
 
 
 # -- cache construction -------------------------------------------------------
@@ -311,7 +325,7 @@ def prefill(cfg, model, tokens, cache):
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
     x = _embed(cfg, model, tokens, positions)
-    x = _run_layers(cfg, model, x, positions, caches=cache)
+    x, _ = _run_layers(cfg, model, x, positions, caches=cache)
     return _logits(cfg, model, x[:, -1:]), cache
 
 
@@ -321,5 +335,5 @@ def decode_step(cfg, model, tokens, cache, pos: int):
     positions = torch.full((1,), pos, dtype=torch.int32,
                            device=tokens.device)
     x = _embed(cfg, model, tokens, positions)
-    x = _run_layers(cfg, model, x, positions, caches=cache)
+    x, _ = _run_layers(cfg, model, x, positions, caches=cache)
     return _logits(cfg, model, x), cache

@@ -29,7 +29,12 @@ gradient's largest entry against its plain mirror and torch autograd
 through the plain scan, bit-identical over two runs; a full-size
 smollm-135m train step launches K3's forward and backward 30 times each
 and never the plain attention, and a full-size mamba2-1.3b step K4's
-forward and backward 48 times each and never the plain scan.
+forward and backward 48 times each and never the plain scan.  At the
+serving shapes of mixtral-8x7b and qwen2-vl-2b (head dim 128, GQA ratios 4
+and 6, mixtral's 4,096 window wider than the 1,024-slot cache) both K3
+entry points hold 2e-5; a mixture-of-experts layer run twice at mixtral's
+and at dbrx's width gives the same bits (outputs, aux, routing); a
+full-width mixtral-8x7b layer serves through K3 alone.
 """
 
 import numpy as np
@@ -447,6 +452,82 @@ def test_ssd_kernel_chunk_parallel_phases(dev, b, s, h, p, g, n, chunk):
         yp, sp = ssd_ref(*args, chunk=chunk, init_state=init)
         torch.testing.assert_close(yk, yp, atol=2e-4, rtol=2e-4)
         torch.testing.assert_close(sk, sp, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("hq,hk,window", [(32, 8, 4096), (12, 2, None)])
+def test_attention_at_the_moe_and_mrope_serving_shapes(dev, hq, hk, window):
+    """mixtral-8x7b's (32 query heads over 8, window 4,096) and
+    qwen2-vl-2b's (12 over 2) head dim 128: a 4 × 512 prefill, and a
+    decode step over the serve run's fill of a 1,024-slot cache (positions
+    0..543, the rest empty)."""
+    q, k, v = _attn_inputs(dev, 4, 512, 512, hq, hk, 128)
+    pos = torch.arange(512, dtype=torch.int32, device=dev)
+    before = _lib.LAUNCHES["flash_attention_prefill"]
+    got = fa_ops.gqa_attention(q, k, v, q_pos=pos, k_pos=pos, window=window)
+    assert _lib.LAUNCHES["flash_attention_prefill"] == before + 1
+    torch.testing.assert_close(
+        got, attention_ref(q, k, v, q_pos=pos, k_pos=pos, window=window),
+        atol=2e-5, rtol=2e-5)
+    q, k, v = _attn_inputs(dev, 4, 1, 1024, hq, hk, 128)
+    k_pos = torch.full((1024,), -1, dtype=torch.int32, device=dev)
+    k_pos[:544] = torch.arange(544, dtype=torch.int32, device=dev)
+    q_pos = torch.tensor([543], dtype=torch.int32, device=dev)
+    before = _lib.LAUNCHES["flash_attention_decode"]
+    got = fa_ops.gqa_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                               window=window)
+    assert _lib.LAUNCHES["flash_attention_decode"] == before + 1
+    torch.testing.assert_close(
+        got, attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos, window=window),
+        atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "dbrx-132b"])
+def test_moe_two_runs_are_bit_identical(dev, arch):
+    """One MoE layer at the config's full width (dbrx: 16 experts, top-4,
+    12.7 GB of f32 weights) on 4 × 512 tokens, twice: equal outputs, aux
+    and routing (no atomics in the dispatch or the combine)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = L.ParamBlock(L.map_leaves(lambda leaf: L.draw(gen, leaf),
+                                  L.init_moe(cfg)))
+    x = torch.randn(4, 512, cfg.d_model, device=dev, generator=gen)
+    runs = []
+    with torch.no_grad():
+        for _ in range(2):
+            r = L.moe_route(cfg, p, x.reshape(-1, cfg.d_model))
+            runs.append((*L.moe(cfg, p, x), r.gate_idx, r.keep, r.slot))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert bool(torch.isfinite(runs[0][0]).all())
+
+
+def test_full_width_mixtral_layer_serves_through_the_kernel(dev,
+                                                            monkeypatch):
+    """mixtral-8x7b at full width with one layer: a 2 × 64 prefill and
+    one decode step launch K3's prefill and decode entry points once each,
+    never the plain attention."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    def refuse(*a, **kw):
+        raise AssertionError("attention reached its plain version")
+    monkeypatch.setattr(fa_ops, "attention_ref", refuse)
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=1)
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 64), device=dev,
+                         dtype=torch.int32)
+    _lib.reset_launches()
+    cache = T.init_cache(cfg, 2, 128, device=dev)
+    last, cache = T.prefill(cfg, model, toks, cache)
+    out, cache = T.decode_step(cfg, model, last[:, -1].argmax(-1)[:, None],
+                               cache, 64)
+    assert _lib.LAUNCHES["flash_attention_prefill"] == 1
+    assert _lib.LAUNCHES["flash_attention_decode"] == 1
+    assert bool(torch.isfinite(out).all())
 
 
 @pytest.mark.parametrize("kernel", ["decode", "prefill", "ssd", "ssd_bwd",

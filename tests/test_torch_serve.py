@@ -1,6 +1,7 @@
 """The port's serving path against the JAX reference, on the CPU.
 
-For the smollm-135m and mamba2-1.3b smoke configs, the port's
+For the smollm-135m, mamba2-1.3b, mixtral-8x7b (mixture of experts) and
+qwen2-vl-2b (M-RoPE) smoke configs, the port's
 ``ServeEngine`` and the reference's, on the same weights
 (``reference_params_numpy``) and the same 8 requests (the launcher's
 request stream), give identical greedy ``out_tokens``.  Every logit row the
@@ -55,7 +56,8 @@ def _margin(logits):
     return float((top2[..., 0] - top2[..., 1]).min())
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-1.3b",
+                                  "mixtral-8x7b", "qwen2-vl-2b"])
 def test_serve_engine_matches_reference(arch, monkeypatch):
     cfg = get_config(arch, smoke=True)
     tree = reference_params_numpy(cfg, seed=1)
@@ -91,7 +93,8 @@ def test_serve_engine_matches_reference(arch, monkeypatch):
     assert len(eng.prefill_times) == 2 and len(eng.decode_times) == 16
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-1.3b",
+                                  "mixtral-8x7b", "qwen2-vl-2b"])
 def test_serve_main_on_cpu(arch, capsys):
     steps = []
     done, stats = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
@@ -107,14 +110,40 @@ def test_serve_main_on_cpu(arch, capsys):
     assert "mean prefill" in out and "p50 decode step" in out
 
 
+def test_serve_main_serves_a_depth_cut():
+    """``serve.main(..., cfg=)`` serves the given config in place of
+    ``--arch``'s: the mixtral-8x7b smoke config cut to one layer, as
+    ``chip_smoke.py`` cuts the full one to 8 of 32."""
+    cfg = dataclasses.replace(get_config("mixtral-8x7b", smoke=True),
+                              n_layers=1)
+    calls = []
+
+    def count(fn):
+        def wrapped(*args, **kwargs):
+            calls.append(len(args[1].layers))
+            return fn(*args, **kwargs)
+        return wrapped
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(E.T, "prefill", count(T.prefill))
+        done, stats = serve.main(["--arch", "mixtral-8x7b", "--device",
+                                  "cpu", "--requests", "2", "--max-new",
+                                  "2"], cfg=cfg)
+    assert stats["tokens"] == 4 and calls == [1]
+
+
 # ---------------------------------------------------------------------------
 # the reference's pins for chip_smoke.py
 # ---------------------------------------------------------------------------
 
 #: (arch, layers kept, prompt length, new tokens): the pinned runs.  Full
 #: width; mamba2-1.3b keeps 4 of its 48 layers only to spare the card
-#: machine's CPU 1.6 G normal draws for the weights.
-PIN_RUNS = (("smollm-135m", None, 48, 16), ("mamba2-1.3b", 4, 48, 16))
+#: machine's CPU 1.6 G normal draws for the weights, mixtral-8x7b 2 of its
+#: 32 (3.16 G draws; its 2 × 48-token prefill routes 192 assignments over
+#: 8 experts of capacity 32, so some are dropped).  qwen2-vl-2b is whole
+#: (1.54 G draws).
+PIN_RUNS = (("smollm-135m", None, 48, 16), ("mamba2-1.3b", 4, 48, 16),
+            ("mixtral-8x7b", 2, 48, 16), ("qwen2-vl-2b", None, 48, 16))
 PIN_SEED, PIN_PROMPT_SEED = 0, 4
 
 
@@ -130,13 +159,21 @@ def pin_prompts(cfg, prompt_len):
     return rng.integers(0, cfg.vocab, (2, prompt_len)).astype(np.int32)
 
 
+def _to_jax(tree):
+    """The numpy tree as jnp arrays, each numpy leaf dropped once it is
+    converted, so that the host holds the weights about once (mixtral's
+    two layers are 12.6 GB)."""
+    return {k: _to_jax(tree[k]) if isinstance(tree[k], dict)
+            else jnp.asarray(tree.pop(k)) for k in list(tree)}
+
+
 def reference_pin(arch, n_layers, prompt_len, n_new):
     """Greedy tokens and the prefill's top-5 last-position logits from the
     JAX reference on ``reference_params_numpy(cfg, PIN_SEED)`` weights,
     with the smallest top-1 margin of every step."""
     cfg = pin_config(arch, n_layers)
     jcfg = pin_config(arch, n_layers, j_get_config)
-    params = jax.tree.map(jnp.asarray, reference_params_numpy(cfg, PIN_SEED))
+    params = _to_jax(reference_params_numpy(cfg, PIN_SEED))
     toks = pin_prompts(cfg, prompt_len)
     cache = JT.init_cache(jcfg, 2, prompt_len + n_new, dtype=jnp.float32)
     last, cache, _ = jax.jit(lambda p, t, c: JT.prefill(jcfg, p, t, c))(
