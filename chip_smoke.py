@@ -23,20 +23,26 @@
    the window, a cache that is not a multiple of the split, GQA ratios 1,
    3 and 8, head dims 16-128, both sides of the decode/prefill line, and
    at head dim 128 mixtral-8x7b's prefill and decode (GQA 4, its 4,096
-   window wider than the cache) and qwen2-vl-2b's (GQA 6); within 2e-5)
+   window wider than the cache) and qwen2-vl-2b's (GQA 6), and
+   whisper-large-v3's non-causal shapes: its encoder q [4,1500,20,64], its
+   cross-attention's prefill q [4,512,20,64] over 1,500 keys and its
+   split-key decode q [4,1,20,64] at a position below most keys; within
+   2e-5)
    and the SSD scan (the test shapes, chunks 16, 24 and 128 with a ragged
    tail, and mamba2-1.3b's 4×512 prefill, from a zero and a
    non-zero state; within 2e-4), and K3's backward through its autograd
    function against torch autograd through the plain attention (smollm's
-   training shape, a windowed GQA case, head dims 16 and 128; within 1e-4
-   of each gradient's largest entry; the prefill with its log-sum-exp
-   output writes what it writes without), and K4's backward through its
+   training shape, a windowed GQA case, head dims 16 and 128, whisper's
+   encoder and cross-attention shapes, non-causal; within 1e-4 of each
+   gradient's largest entry; the prefill with its log-sum-exp output
+   writes what it writes without), and K4's backward through its
    autograd function against its plain mirror ``ssd_bwd_ref`` and torch
    autograd through the plain scan (every SSD case above, with and without
    an initial state and a final-state cotangent; within 1e-4 of each
    gradient's largest entry); two runs of the sketch insert, the FailRank
-   iteration, the attention decode, K3's backward, the SSD scan and its
-   backward, and of one mixture-of-experts layer at mixtral-8x7b's and at
+   iteration, the attention decode (causal, and whisper's cross-attention
+   decode), K3's backward, the SSD scan and its backward, and of one
+   mixture-of-experts layer at mixtral-8x7b's and at
    dbrx-132b's full width (4 × 512 tokens; outputs, aux and routing) must
    be bit-identical;
 3. drives the detection path, ``Sloth.detect`` with the batched recorder
@@ -72,54 +78,70 @@
    one launch over the whole trace;
 7. drives the serving path, ``repro_torch.launch.serve.main``, at full
    width and depth for smollm-135m (30 attention layers), mamba2-1.3b
-   (48 SSD layers) and qwen2-vl-2b (28 attention layers, M-RoPE), and at
-   full width with 8 of its 32 layers for mixtral-8x7b (8 experts, top-2;
-   a layer is 5.81 GB of f32 weights), 8 requests of up to 512 tokens, 32
-   new tokens each, with the counts set to 0 before each: attention must
-   launch once per layer per prefill and decode step (smollm 1,980: 60
-   through the prefill entry point, 1,920 through the split-key decode;
-   mixtral 528; qwen2-vl 1,848), the SSD scan once per layer per prefill
-   (96, none in decode), and no plain version may run; prints tok/s, the
-   mean prefill, the decode p50/p99 and the peak device memory;
+   (48 SSD layers), qwen2-vl-2b (28 attention layers, M-RoPE) and
+   whisper-large-v3 (32 encoder and 32 decoder layers over the launcher's
+   zero frames, 1,500 of them), and at full width with 8 of its 32 layers
+   for mixtral-8x7b (8 experts, top-2; a layer is 5.81 GB of f32
+   weights), 8 requests of up to 512 tokens, 32 new tokens each, with the
+   counts set to 0 before each: attention must launch once per attention
+   per prefill and decode step (smollm 1,980: 60 through the prefill
+   entry point, 1,920 through the split-key decode; mixtral 528; qwen2-vl
+   1,848; whisper 4,288: per batch 32 encoder, 32 self and 32 cross
+   prefills, and 64 decodes a step, self and cross), the SSD scan once per
+   layer per prefill (96, none in decode), and no plain version may run;
+   prints tok/s, the mean prefill, the decode p50/p99 and the peak device
+   memory;
 8. holds greedy tokens and prefill logits to the JAX reference's pins
    (``tests/test_torch_serve.py`` run as a script prints them) on the same
    numpy weights: the tokens equal, the top-5 logits within 1e-3 (also
    mixtral-8x7b at full width with 2 layers, whose prefill drops
-   assignments at the capacity, printed per layer, and qwen2-vl-2b
-   whole);
+   assignments at the capacity, printed per layer, qwen2-vl-2b whole, and
+   whisper-large-v3 at full width with 4 + 4 layers over seeded frames);
 9. times flash attention and the SSD scan at the serving shapes beside
    their plain versions, their bounds and (attention) PyTorch's
    ``scaled_dot_product_attention`` (K3 also at mixtral-8x7b's and
-   qwen2-vl-2b's head dim 128), with a profiler breakdown of each
+   qwen2-vl-2b's head dim 128 and at whisper-large-v3's encoder, cross
+   prefill and cross decode), with a profiler breakdown of each
    kernel call by the kernels it launches, and profiles a prefill and
    decode steps of each served model (device time by kernel and by
    class, the device's idle share).  Kernel times are device time by
    CUDA events, with the calls queued behind a device-side spin so the host cannot pace them, and the
    back-to-back event time beside it (which includes the host's wrapper
    cost where the host is the slower side);
-10. times K3's backward at smollm-135m's training shape beside its plain
+10. times K3's backward at smollm-135m's training shape and at
+   whisper-large-v3's encoder and cross-attention shapes beside its plain
    mirror, its bound and SDPA's backward through autograd, and K4's
    backward at mamba2-1.3b's (x [4,512,64,64], chunk 128) beside its plain
    mirror, autograd through the plain scan, its bound and the forward;
-11. drives the train path, ``repro_torch.launch.train.main``, on
+11. drives the train path, ``repro_torch.launch.train.main``, first on
+   whisper-large-v3 at full size, 4 steps of 4 × 512 over the launcher's
+   zero frames: K3 forward and backward exactly 96 launches a step each
+   (32 encoder, 32 self, 32 cross), no plain attention, peak memory, five
+   steps timed and one profiled (device ms by kernel and by class, the
+   device's idle share against the unprofiled step time); then
+   mixtral-8x7b at full width with 2 of its 32 layers, 3 steps of
+   4 × 512, twice: K3 forward and backward exactly 2 a step, the two
+   runs' losses, grad norms and parameter checksums equal bit for bit,
+   profiled (the expert GEMMs' share of the device time); then
    smollm-135m at full size, 24 steps of 4 × 512 tokens with the pod
    telemetry and a 10× slowdown injected into the reported times of steps
    10-15 (``--expect-flagged``), counts set to 0 just before: K3 forward
    and backward exactly 30 launches a step each, no call of the plain
    attention, the slowed host (core 0) named in the window of the burst
    or the next; prints ms per step (the launcher's own, ``--log-every
-   1``), then times five steps and profiles one (device ms by kernel and
-   by class, the device's idle share against the unprofiled step time);
-   then the same for mamba2-1.3b at full size, 12 steps of 4 × 512: K4's
+   1``), then times and profiles steps as above; then the same for
+   mamba2-1.3b at full size, 12 steps of 4 × 512: K4's
    forward and backward exactly 48 launches a step each, no call of
    ``ssd_ref``, ``ssd_bwd_ref`` or the plain attention, no attention
    launch, the run's peak device memory;
 12. the same run without injection, printing any flagged window;
 13. holds 3 full-size train steps (batch 2 × 128) on
    ``reference_params_numpy`` weights to the reference's losses and grad
-   norms (``TRAIN_PINS``, rel 1e-4), and 3 mamba2-1.3b steps at full
+   norms (``TRAIN_PINS``, rel 1e-4), 3 mamba2-1.3b steps at full
    width with 4 layers (batch 2 × 320, a ragged third chunk) to
-   ``MAMBA2_TRAIN_PINS`` (rel 1e-4); each twice, the two runs bit-equal;
+   ``MAMBA2_TRAIN_PINS`` and 3 whisper-large-v3 steps at full width with
+   4 + 4 layers (batch 2 × 128, seeded frames) to ``WHISPER_TRAIN_PINS``
+   (rel 1e-4); each twice, the two runs bit-equal;
 14. runs the reference's CI smoke (``ci.yml:37``) on the card, and
    crash-resume on the smoke config (10 steps, save, resume, 10 more
    within rel 1e-4 of 20 straight);
@@ -180,10 +202,15 @@ REFERENCE = {
 #: weights, two prompts of 48 tokens from ``default_rng(4)``, 16 new tokens
 #: (``python tests/test_torch_serve.py``, CPU, f32).  Full width; mamba2-1.3b
 #: keeps 4 of its 48 layers only to spare this machine's CPU 1.6 G normal
-#: draws, mixtral-8x7b 2 of its 32 (3.16 G draws); qwen2-vl-2b is whole.
-#: Smallest top-1 margin of any pinned step: 0.0111, 0.0098, 0.0122 and
-#: 0.0012.
-PIN_PROMPT_SEED, PIN_PROMPT_LEN = 4, 48
+#: draws, mixtral-8x7b 2 of its 32 (3.16 G draws); qwen2-vl-2b is whole;
+#: whisper-large-v3 keeps 4 + 4 of its 32 + 32 layers (the reference's CPU
+#: run re-projects 1,500 frames in every decoder layer at every step) over
+#: frames from ``default_rng(5)`` × 0.02.  Smallest top-1 margin of any
+#: pinned step: 0.0111, 0.0098, 0.0122, 0.0012 and 0.2334.  At the init's
+#: scales whisper's sinusoidal positions outweigh its token embeddings, so
+#: every step's argmax is one token: its last decode step's top-5 logits
+#: (``last_top5_*``) are pinned too, to hold the cross-attention's decode.
+PIN_PROMPT_SEED, PIN_PROMPT_LEN, PIN_FRAME_SEED = 4, 48, 5
 PINS = (
     {"arch": "smollm-135m", "n_layers": 30,
      "tokens": [[48556, 39997, 46394, 38563, 9961, 39997, 8440, 48556, 10622,
@@ -229,6 +256,24 @@ PINS = (
                       3.241914749145508, 3.1970107555389404, 3.189624309539795],
                      [3.4109959602355957, 3.337200880050659, 3.166689872741699,
                       3.1436681747436523, 3.1313157081604004]]},
+    {"arch": "whisper-large-v3", "n_layers": 4, "n_enc_layers": 4,
+     "tokens": [[16370] * 16, [16370] * 16],
+     "top5_ids": [[16370, 1248, 23646, 51687, 4432],
+                  [16370, 1248, 23646, 51687, 14606]],
+     "top5_logits": [[3.4033377170562744, 2.8736510276794434,
+                      2.7466509342193604, 2.7250709533691406,
+                      2.6675212383270264],
+                     [3.3882343769073486, 2.866467237472534,
+                      2.7478928565979004, 2.7338123321533203,
+                      2.6744723320007324]],
+     "last_top5_ids": [[16370, 8689, 51687, 14606, 1248],
+                       [16370, 8689, 51687, 14606, 1248]],
+     "last_top5_logits": [[3.04720139503479, 2.847412347793579,
+                           2.819214344024658, 2.772826671600342,
+                           2.7091240882873535],
+                          [3.045691728591919, 2.852902889251709,
+                           2.8276147842407227, 2.774662733078003,
+                           2.7154061794281006]]},
 )
 
 #: The serving runs of phase 7 (``launch/serve.py`` flags).
@@ -613,6 +658,14 @@ def attention_cases(dev):
                       kc, vc, torch.tensor([543], dtype=torch.int32,
                                            device=dev),
                       serve_fill_tab(dev), True, win))
+    # whisper-large-v3, non-causal over 1,500 frames (GQA 1, head dim 64)
+    for label, s, q0 in WHISPER_ATTENTION:
+        cases.append((f"{label} q[4,{s},20,64] kv[4,1500,20,64]",
+                      rand(4, s, 20, 64), rand(4, WHISPER_FRAMES, 20, 64),
+                      rand(4, WHISPER_FRAMES, 20, 64),
+                      torch.arange(q0, q0 + s, dtype=torch.int32,
+                                   device=dev), ar(WHISPER_FRAMES), False,
+                      None))
     q1, kc, vc = rand(4, 1, 9, 64), rand(4, 1024, 3, 64), rand(4, 1024, 3, 64)
     tab = decode_pos_tab(dev)
     for win in (None, 256):
@@ -649,6 +702,17 @@ def attention_cases(dev):
 #: shapes: mixtral-8x7b's GQA 4 with its 4,096 window, qwen2-vl-2b's GQA 6.
 MOE_MROPE_ATTENTION = (("mixtral-8x7b", 32, 8, 4096),
                        ("qwen2-vl-2b", 12, 2, None))
+
+#: whisper-large-v3's non-causal attention at the serve run's shapes (20
+#: heads of 64, GQA 1, batch 4, keys at positions 0..1,499): (label, query
+#: rows, first query position) for the encoder's self-attention over its
+#: own 1,500 frames, the cross-attention's prefill of a 512-token prompt
+#: over them, and a cross-attention decode step at position 543, below
+#: most keys (every key stays live: no causal mask, no window).
+WHISPER_FRAMES = 1500
+WHISPER_ATTENTION = (("whisper_encoder", WHISPER_FRAMES, 0),
+                     ("whisper_cross_prefill", 512, 0),
+                     ("whisper_cross_decode", 1, 543))
 
 
 def serve_fill_tab(dev):
@@ -697,7 +761,8 @@ def check_attention_kernel(dev, lib):
 def check_bit_identical(dev):
     """Two runs of the sketch insert (L = 256, with evictions),
     the FailRank iteration (n = 260 and 1,028), the attention decode (the
-    serve fill), the SSD scan (mamba2-1.3b's prefill, from a non-zero
+    serve fill, and whisper's non-causal cross-attention decode over 1,500
+    frames), the SSD scan (mamba2-1.3b's prefill, from a non-zero
     state), its backward (the same shape, with a final-state cotangent)
     and a mixture-of-experts layer (:func:`check_moe_bit_identical`) must
     be equal bit for bit: no atomics in any result, and every sum in an
@@ -726,6 +791,13 @@ def check_bit_identical(dev):
     fill = serve_fill_tab(dev)
     a, b = (flash_attention_cuda(q, k, v, q_pos=qp, k_pos=fill)
             for _ in range(2))
+    qx, kx, vx = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev) for shape in ((4, 1, 20, 64),
+                                           (4, WHISPER_FRAMES, 20, 64),
+                                           (4, WHISPER_FRAMES, 20, 64)))
+    frames = torch.arange(WHISPER_FRAMES, dtype=torch.int32, device=dev)
+    cx = [flash_attention_cuda(qx, kx, vx, q_pos=qp, k_pos=frames,
+                               causal=False) for _ in range(2)]
     b_, s_, h, p, g, n, chunk = SSD_CASES[-1]
     args, st0 = ssd_inputs(dev, b_, s_, h, p, g, n, 13, True)
     (y1, s1), (y2, s2) = (ssd_cuda(*args, chunk=chunk, init_state=st0)
@@ -742,6 +814,7 @@ def check_bit_identical(dev):
            "failrank_iterate": all(torch.equal(u, v) for i in (0, 2)
                                    for u, v in zip(fr[i], fr[i + 1])),
            "attention_decode": bool(torch.equal(a, b)),
+           "attention_cross_decode": bool(torch.equal(*cx)),
            "ssd_scan": bool(torch.equal(y1, y2) and torch.equal(s1, s2)),
            "ssd_scan_bwd": all(torch.equal(u, v) for u, v in zip(*gb)),
            **{f"moe_{arch}": m["equal"] for arch, m in moe.items()}}
@@ -1443,9 +1516,11 @@ def run_campaign_phase(dev, lib) -> dict:
 
 #: The serve runs of phase 7: (config, layers kept or None for all).
 #: mixtral-8x7b keeps 8 of its 32 layers at full width: a layer is 1,451 M
-#: f32 parameters (5.81 GB), and 32 of them are 187 GB.
+#: f32 parameters (5.81 GB), and 32 of them are 187 GB.  whisper-large-v3
+#: is whole (1.60 G parameters).
 SERVE_RUNS = (("smollm-135m", None), ("mamba2-1.3b", None),
-              ("mixtral-8x7b", 8), ("qwen2-vl-2b", None))
+              ("mixtral-8x7b", 8), ("qwen2-vl-2b", None),
+              ("whisper-large-v3", None))
 
 
 def serve_run(arch, lib, n_layers=None):
@@ -1473,15 +1548,19 @@ def serve_run(arch, lib, n_layers=None):
         done, stats = serve.main(["--arch", arch, *SERVE_FLAGS], cfg=cfg)
     wall = time.perf_counter() - t0
     launches = dict(lib.LAUNCHES)
-    n_attn = cfg.n_attn_layers
-    want = {"flash_attention": n_attn * n_batches * (1 + max_new),
-            "flash_attention_prefill": n_attn * n_batches,
-            "flash_attention_decode": n_attn * n_batches * max_new,
-            "ssd_scan": (cfg.n_layers - n_attn) * n_batches,
+    # an encoder-decoder adds a cross-attention to every decoder layer and
+    # its encoder's layers to every prefill
+    per_step = cfg.n_attn_layers * (2 if cfg.enc_dec else 1)
+    per_prefill = per_step + cfg.n_enc_layers
+    want = {"flash_attention": n_batches * (per_prefill + per_step * max_new),
+            "flash_attention_prefill": n_batches * per_prefill,
+            "flash_attention_decode": n_batches * per_step * max_new,
+            "ssd_scan": (cfg.n_layers - cfg.n_attn_layers) * n_batches,
             "ssd_scan_bwd": 0}
     # the launcher's numbers: tok/s is all tokens over the engine.run wall
     # time; the p99 of 64 decode steps is close to their maximum
     summary = {"phase": "serve", "arch": arch, "layers": cfg.n_layers,
+               "encoder_layers": cfg.n_enc_layers,
                **stats, "launches": launches, "expected_launches": want,
                "plain_calls": plain.n, "wall_s_with_init": wall,
                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
@@ -1504,21 +1583,19 @@ def serve_run(arch, lib, n_layers=None):
 
 def check_pin(pin, dev, lib):
     """The port on the card against one of the reference's pins, on the
-    same numpy weights and prompts; for a mixture of experts, also the
-    assignments the prefill dropped at the capacity."""
-    import dataclasses
-
+    same numpy weights and prompts (an encoder-decoder's over
+    ``pin_frames``); for a mixture of experts, also the assignments the
+    prefill dropped at the capacity."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.convert import params_from_numpy, reference_params_numpy
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
-    cfg = dataclasses.replace(get_config(pin["arch"]),
-                              n_layers=pin["n_layers"])
+    cfg = pin_config(pin)
     model = params_from_numpy(cfg, reference_params_numpy(cfg, 0), dev)
     toks = np.random.default_rng(PIN_PROMPT_SEED).integers(
         0, cfg.vocab, (2, PIN_PROMPT_LEN)).astype(np.int32)
+    frames = pin_frames(cfg, 2, dev)
     n_new = len(pin["tokens"][0])
     dropped, route = [], L.moe_route
 
@@ -1530,8 +1607,8 @@ def check_pin(pin, dev, lib):
     cache = T.init_cache(cfg, 2, PIN_PROMPT_LEN + n_new, device=dev)
     L.moe_route = counted_route
     try:
-        last, cache = T.prefill(cfg, model, torch.from_numpy(toks).to(dev),
-                                cache)
+        last, cache, memory = T.prefill(
+            cfg, model, torch.from_numpy(toks).to(dev), cache, frames)
     finally:
         L.moe_route = route
     logits = last[:, -1]
@@ -1543,11 +1620,16 @@ def check_pin(pin, dev, lib):
         nxt = logits.argmax(-1)
         new.append(nxt.tolist())
         out, cache = T.decode_step(cfg, model, nxt[:, None], cache,
-                                   PIN_PROMPT_LEN + k)
+                                   PIN_PROMPT_LEN + k, memory)
         logits = out[:, -1]
     tokens = np.array(new).T.tolist()
+    if "last_top5_ids" in pin:
+        ids = torch.tensor(pin["last_top5_ids"], device=dev)
+        err = max(err, float((logits.gather(-1, ids).cpu() - torch.tensor(
+            pin["last_top5_logits"])).abs().max()))
     emit({"phase": "reference_pin", "arch": pin["arch"],
-          "layers": cfg.n_layers, "tokens_equal": tokens == pin["tokens"],
+          "layers": cfg.n_layers, "encoder_layers": cfg.n_enc_layers,
+          "tokens_equal": tokens == pin["tokens"],
           "top5_logit_max_abs_err": err, "launches": dict(lib.LAUNCHES),
           **({"prefill_assignments": 2 * PIN_PROMPT_LEN * cfg.top_k,
               "capacity": L.moe_capacity(cfg, 2 * PIN_PROMPT_LEN),
@@ -1555,10 +1637,36 @@ def check_pin(pin, dev, lib):
              if cfg.n_experts else {})})
     require(tokens == pin["tokens"], f"{pin['arch']}: greedy tokens differ "
                                      f"from the reference: {tokens}")
-    require(err <= 1e-3, f"{pin['arch']}: prefill logits off by {err}")
-    del model, cache
+    require(err <= 1e-3, f"{pin['arch']}: top-5 logits off by {err}")
+    del model, cache, memory
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def pin_config(pin):
+    """A pin's config: full width, its depth cut (an encoder-decoder's
+    encoder too), as ``tests/test_torch_serve.pin_config`` cuts it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(pin["arch"])
+    if pin.get("n_layers") is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=pin["n_layers"], **(
+        {"n_enc_layers": pin["n_enc_layers"]} if cfg.enc_dec else {}))
+
+
+def pin_frames(cfg, batch, dev):
+    """An encoder-decoder's frames for the pins, as
+    ``tests/test_torch_serve.pin_frames`` draws them (None without an
+    encoder)."""
+    import torch
+    if not cfg.enc_dec:
+        return None
+    rng = np.random.default_rng(PIN_FRAME_SEED)
+    return torch.from_numpy(rng.standard_normal(
+        (batch, cfg.n_frames, cfg.d_model), dtype=np.float32)
+        * np.float32(0.02)).to(dev)
 
 
 #: The timing keys of a kernel's entry in the summary line.
@@ -1567,30 +1675,33 @@ KERNEL_TIME_KEYS = ("ms", "plain_ms", "library_ms", "events_ms",
                     "bound_ms", "bound_by")
 
 
-def time_attention(q, k, v, q_pos, k_pos, reps, window=None):
-    """Kernel, plain version and SDPA (same boolean mask) on one causal
-    case.  Bound from bytes (q, the output, both position tables, and the
-    K/V of only the slots some query can use) and from 4·D f32 operations
-    per live (query, key) pair."""
+def time_attention(q, k, v, q_pos, k_pos, reps, window=None, causal=True):
+    """Kernel, plain version and SDPA (same boolean mask, or none where
+    every pair is live) on one case.  Bound from bytes (q, the output, both
+    position tables, and the K/V of only the slots some query can use) and
+    from 4·D f32 operations per live (query, key) pair."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                          live_mask)
-    mask = live_mask(q_pos, k_pos, window=window)
+    # [S, T] (live_mask leaves the query axis at 1 when no mask needs it)
+    mask = live_mask(q_pos, k_pos, causal=causal, window=window).expand(
+        q_pos.numel(), k_pos.numel())
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_mask = None if bool(mask.all()) else mask
 
     def kernel():
         return flash_attention_cuda(q, k, v, q_pos=q_pos, k_pos=k_pos,
-                                    window=window)
+                                    causal=causal, window=window)
 
     def plain():
         return attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos,
-                             window=window)
+                             causal=causal, window=window)
 
     def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lib_mask,
                                               enable_gqa=True)
 
     err, _ = allclose(kernel(), plain(), 2e-5)
@@ -1721,8 +1832,9 @@ def time_ssd_bwd(dev, reps):
 
 
 def profile_serving(arch, dev, n_layers=None):
-    """A prefill of 4 × 512 tokens into a 1,024-slot cache and 8 decode
-    steps at full width (and depth unless ``n_layers`` cuts it):
+    """A prefill of 4 × 512 tokens (an encoder-decoder's over zero frames)
+    into a 1,024-slot cache and 8 decode steps at full width (and depth
+    unless ``n_layers`` cuts it):
     host-clock ms without the profiler, then device time by kernel and by
     class (:func:`kernel_class`) in a profiler trace of the same work."""
     import dataclasses
@@ -1739,16 +1851,20 @@ def profile_serving(arch, dev, n_layers=None):
     model = T.init_model(cfg, gen)
     toks = torch.randint(0, cfg.vocab, (4, 512), device=dev, generator=gen,
                          dtype=torch.int32)
+    # an encoder-decoder encodes the launcher's zero frames at the prefill
+    frames = torch.zeros(4, cfg.n_frames, cfg.d_model, device=dev) \
+        if cfg.enc_dec else None
     n_dec = 8
 
     def prefill():
         cache = T.init_cache(cfg, 4, 1024, device=dev)
-        last, cache = T.prefill(cfg, model, toks, cache)
-        return last[:, -1].argmax(-1)[:, None], cache
+        last, cache, memory = T.prefill(cfg, model, toks, cache, frames)
+        return last[:, -1].argmax(-1)[:, None], cache, memory
 
-    def decode(nxt, cache):
+    def decode(nxt, cache, memory):
         for k in range(n_dec):
-            logits, cache = T.decode_step(cfg, model, nxt, cache, 512 + k)
+            logits, cache = T.decode_step(cfg, model, nxt, cache, 512 + k,
+                                          memory)
             nxt = logits[:, -1].argmax(-1)[:, None]
 
     decode(*prefill())                                  # warm-up
@@ -1814,6 +1930,17 @@ MAMBA2_TRAIN_PINS = {"arch": "mamba2-1.3b", "n_layers": 4, "steps": 3,
                      "grad_norms": [8.306986808776855, 8.273604393005371,
                                     8.250775337219238]}
 
+#: The same for whisper-large-v3 at full width with 4 of its 32 encoder
+#: and 4 of its 32 decoder layers (the depth cut of its serve pin), 3 steps
+#: at batch 2 × seq 128 over ``pin_frames`` (2 × 1,500 frames), through
+#: K3's forward and backward (non-causal encoder and cross-attention).
+WHISPER_TRAIN_PINS = {"arch": "whisper-large-v3", "n_layers": 4,
+                      "n_enc_layers": 4, "steps": 3, "batch": 2, "seq": 128,
+                      "losses": [11.12010669708252, 11.129402160644531,
+                                 11.097823143005371],
+                      "grad_norms": [5.059699535369873, 4.569529056549072,
+                                     3.694349765777588]}
+
 #: The JAX reference's pod verdicts (``python tests/test_torch_telemetry.py``,
 #: CPU): ``PodDetector.observe`` on the default 16×16 pod, seed 1,
 #: step_flops 5e12, collective_bytes 4e9, a fault from t = 0 (core 10×, link
@@ -1845,6 +1972,15 @@ INJECT_ARGV = ["--inject-slow-at", "10", "--inject-slow-steps", "6",
 #: The mamba2-1.3b train run (full width and depth, batch 4 × 512).
 MAMBA2_TRAIN_ARGV = ["--arch", "mamba2-1.3b", "--steps", "12", "--batch",
                      "4", "--seq", "512", "--log-every", "1"]
+#: The whisper-large-v3 train run (full size, batch 4 × 512, 1,500 zero
+#: frames a sequence).
+WHISPER_TRAIN_ARGV = ["--arch", "whisper-large-v3", "--steps", "4",
+                      "--batch", "4", "--seq", "512", "--log-every", "1"]
+#: The mixtral-8x7b train runs: full width, 2 of its 32 layers (3.16 G
+#: parameters; with gradients and AdamW's two moments 50.6 GB in f32, so
+#: a third layer would not fit 80 GB), batch 4 × 512 (capacity 640).
+MOE_TRAIN = {"arch": "mixtral-8x7b", "n_layers": 2, "steps": 3, "batch": 4,
+             "seq": 512}
 
 #: K3's backward against autograd through the plain version: the largest
 #: gap over each gradient's largest entry.  Measured about 3e-6 (sums in
@@ -1855,7 +1991,10 @@ K3_BWD_TOL = 1e-4
 def attention_bwd_cases(dev):
     """(label, q, k, v, dout, q_pos, k_pos, causal, window): smollm-135m's
     training shape, a windowed GQA case, head dims 16 and 128, ragged
-    tiles, a non-causal case and queries that see only part of the keys."""
+    tiles, a non-causal case, queries that see only part of the keys, and
+    whisper-large-v3's non-causal training shapes: its encoder over 1,500
+    frames and its cross-attention, 512 queries over them (GQA 1, so the
+    dK/dV need no group sum)."""
     import torch
     rng = np.random.default_rng(21)
 
@@ -1875,7 +2014,11 @@ def attention_bwd_cases(dev):
             ("non-causal, 100 queries over 160 keys", 1, 100, 160, 4, 4, 64,
              False, None),
             ("3 queries at the end of 70 keys", 2, 3, 70, 6, 1, 32, True,
-             20)):
+             20),
+            ("whisper encoder [4,1500,20,64]", 4, 1500, 1500, 20, 20, 64,
+             False, None),
+            ("whisper cross [4,512,20,64] over 1,500 keys", 4, 512, 1500,
+             20, 20, 64, False, None)):
         cases.append((label, rand(b, s, hq, d), rand(b, t, hk, d),
                       rand(b, t, hk, d), rand(b, s, hq, d),
                       torch.arange(t - s, t, dtype=torch.int32, device=dev),
@@ -1935,13 +2078,14 @@ def check_attention_bwd(dev, lib):
     return out, worst, worst_abs
 
 
-def time_attention_bwd(dev, reps):
-    """K3's backward at smollm-135m's training shape, q [4,512,9,64], kv
-    [4,512,3,64], causal: the kernel, the plain mirror
-    (``attention_bwd_ref``) and SDPA's backward through autograd.  Bound:
-    10·D f32 operations per live pair (S, dP, dV, dS·K, dSᵀ·Q), or the
-    bytes of q, k, v, out, dout, lse read once and dq, dk, dv written
-    once."""
+def time_attention_bwd(dev, reps, b=4, s=512, t=512, hq=9, hk=3, d=64,
+                       causal=True):
+    """K3's backward at a training shape, by default smollm-135m's, q
+    [4,512,9,64], kv [4,512,3,64], causal (queries at the last ``s`` of
+    ``t`` positions): the kernel, the plain mirror (``attention_bwd_ref``)
+    and SDPA's backward through autograd.  Bound: 10·D f32 operations per
+    live pair (S, dP, dV, dS·K, dSᵀ·Q), or the bytes of q, k, v, out, dout,
+    lse read once and dq, dk, dv written once."""
     import torch
     import torch.nn.functional as F
 
@@ -1949,15 +2093,18 @@ def time_attention_bwd(dev, reps):
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                          live_mask)
     rng = np.random.default_rng(23)
-    q, k, v, dout = (torch.from_numpy(rng.standard_normal(s).astype(
-        np.float32)).to(dev) for s in ((4, 512, 9, 64), (4, 512, 3, 64),
-                                       (4, 512, 3, 64), (4, 512, 9, 64)))
-    pos = torch.arange(512, dtype=torch.int32, device=dev)
-    kw = dict(q_pos=pos, k_pos=pos, causal=True, window=None)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev) for shape in ((b, s, hq, d), (b, t, hk, d),
+                                           (b, t, hk, d), (b, s, hq, d)))
+    k_pos = torch.arange(t, dtype=torch.int32, device=dev)
+    q_pos = k_pos[t - s:]
+    kw = dict(q_pos=q_pos, k_pos=k_pos, causal=causal, window=None)
     out, lse = ops._prefill(q, k, v, **kw)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    # SDPA's causal mask is the top-left one: as ours only where s == t
+    assert not causal or s == t
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                           enable_gqa=True)
     dout_t = dout.transpose(1, 2)
 
@@ -1975,10 +2122,10 @@ def time_attention_bwd(dev, reps):
     fwd = timed(lambda: ops.flash_attention_cuda(q, k, v, **kw), reps)
     gaps = [(float((a - b).abs().max()), float(b.abs().max()))
             for a, b in zip(kernel(), plain())]
-    live = int(live_mask(pos, pos).sum())
-    b, s, hq, d = q.shape
+    live = int(live_mask(q_pos, k_pos, causal=causal).expand(
+        s, t).sum())
     nbytes = 4 * (3 * q.numel() + 2 * 2 * k.numel() + lse.numel()
-                  + q.numel() + 2 * pos.numel())
+                  + q.numel() + q_pos.numel() + k_pos.numel())
     flops = 10 * d * b * hq * live
     return {**times(kernel, plain, library, reps), **bound(nbytes, flops),
             "live_pairs_per_head": live,
@@ -2095,57 +2242,163 @@ def train_run(lib, inject: bool) -> dict:
     return out
 
 
-def train_mamba2_run(dev, lib) -> dict:
-    """``launch.train.main`` on mamba2-1.3b at full size (48 SSD layers,
-    12 steps of 4 × 512) with the counts set to 0 just before: K4's
-    forward and backward exactly 48 launches a step each, no attention
-    launch, no call of ``ssd_ref`` or ``ssd_bwd_ref``, finite losses;
-    prints ms per step (the launcher's, ``--log-every 1``) and the peak
-    device memory of the run."""
+def train_launcher_run(dev, lib, phase, argv, want, plain_targets) -> dict:
+    """``launch.train.main(argv)`` on the card at full size with the counts
+    set to 0 just before: every count in ``want`` (launches a step) exact
+    over the run, no call of a plain version in ``plain_targets``
+    ((module, name) pairs), finite losses; prints ms per step (the
+    launcher's, ``--log-every 1``) and the run's peak device memory."""
     import contextlib
     import io
 
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.kernels.ssd_scan import ref as ssd_plain
     from repro_torch.launch import train
-    n_steps = int(MAMBA2_TRAIN_ARGV[MAMBA2_TRAIN_ARGV.index("--steps") + 1])
-    n_layers = get_config("mamba2-1.3b").n_layers
+    n_steps = int(argv[argv.index("--steps") + 1])
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     text = io.StringIO()
     lib.reset_launches()
     t0 = time.perf_counter()
-    with PlainCalls((ssd_ops, "ssd_ref"), (ssd_plain, "ssd_bwd_ref"),
-                    (fa_ops, "attention_ref")) as plain, \
+    with PlainCalls(*plain_targets) as plain, \
             contextlib.redirect_stdout(text):
-        losses = train.main(MAMBA2_TRAIN_ARGV)
+        losses = train.main(argv)
     wall = time.perf_counter() - t0
     launches = dict(lib.LAUNCHES)
     ms = [float(m.group(2))
           for m in map(STEP_LINE.match, text.getvalue().splitlines()) if m]
-    out = {"phase": "train_mamba2", "argv": MAMBA2_TRAIN_ARGV,
-           "launches": launches, "plain_calls": plain.n, "losses": losses,
-           "ms_per_step": ms,
+    out = {"phase": phase, "argv": argv, "launches": launches,
+           "plain_calls": plain.n, "losses": losses, "ms_per_step": ms,
            "ms_per_step_median_after_first": float(np.median(ms[1:])),
            "first_step_ms": ms[0], "wall_s_with_init": wall,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
     emit(out)
-    want = {"ssd_scan": n_layers * n_steps, "ssd_scan_bwd": n_layers * n_steps,
-            "flash_attention": 0, "flash_attention_prefill": 0,
-            "flash_attention_decode": 0, "flash_attention_bwd": 0,
-            "sketch_insert_runs": 0, "failrank_step": 0}
     for name, n in want.items():
-        require(launches[name] == n, f"train mamba2: {name} launched "
-                                     f"{launches[name]} times, not {n}")
-    require(plain.n == 0, "train mamba2: a plain SSD or attention call")
+        require(launches[name] == n * n_steps,
+                f"{phase}: {name} launched {launches[name]} times, not "
+                f"{n * n_steps}")
+    require(plain.n == 0, f"{phase}: a plain version was called")
     require(len(losses) == n_steps and all(np.isfinite(losses)),
-            "train mamba2: losses")
-    require(len(ms) == n_steps, f"train mamba2: {len(ms)} step times")
+            f"{phase}: losses")
+    require(len(ms) == n_steps, f"{phase}: {len(ms)} step times")
+    return out
+
+
+def train_mamba2_run(dev, lib) -> dict:
+    """mamba2-1.3b at full size (48 SSD layers, 12 steps of 4 × 512): K4's
+    forward and backward exactly 48 launches a step each, no attention
+    launch, no call of ``ssd_ref``, ``ssd_bwd_ref`` or the plain
+    attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_plain
+    n = get_config("mamba2-1.3b").n_layers
+    want = {"ssd_scan": n, "ssd_scan_bwd": n, "flash_attention": 0,
+            "flash_attention_prefill": 0, "flash_attention_decode": 0,
+            "flash_attention_bwd": 0, "sketch_insert_runs": 0,
+            "failrank_step": 0}
+    return train_launcher_run(
+        dev, lib, "train_mamba2", MAMBA2_TRAIN_ARGV, want,
+        ((ssd_ops, "ssd_ref"), (ssd_plain, "ssd_bwd_ref"),
+         (fa_ops, "attention_ref")))
+
+
+def train_whisper_run(dev, lib) -> dict:
+    """whisper-large-v3 at full size (32 encoder and 32 decoder layers, 4
+    steps of 4 × 512 over the launcher's zero frames): K3's forward and
+    backward exactly 96 launches a step each (the encoder's self-attention,
+    the decoder's self- and cross-attention), all through the prefill
+    entry point, no K4, no call of the plain attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    cfg = get_config("whisper-large-v3")
+    n = cfg.n_enc_layers + 2 * cfg.n_attn_layers
+    want = {"flash_attention": n, "flash_attention_prefill": n,
+            "flash_attention_decode": 0, "flash_attention_bwd": n,
+            "ssd_scan": 0, "ssd_scan_bwd": 0, "sketch_insert_runs": 0,
+            "failrank_step": 0}
+    return train_launcher_run(dev, lib, "train_whisper", WHISPER_TRAIN_ARGV,
+                              want, ((fa_ops, "attention_ref"),))
+
+
+def train_moe_run(dev, lib) -> dict:
+    """mixtral-8x7b at full width with ``MOE_TRAIN["n_layers"]`` of its 32
+    layers, ``steps`` train steps of ``batch`` × ``seq`` on
+    ``TokenPipeline`` batches, twice from one seed, with the counts set to
+    0 just before each run: K3's forward and backward exactly one launch a
+    layer a step, no plain attention; the two runs' losses, grad norms and
+    parameter checksums (each leaf's sum of its f32 bit patterns as int32,
+    after the last step) equal bit for bit.  Prints ms a step and the peak
+    device memory."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config(MOE_TRAIN["arch"]),
+                              n_layers=MOE_TRAIN["n_layers"])
+    n_steps = MOE_TRAIN["steps"]
+    runs = []
+    for _ in range(2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+        opt_cfg = adamw.AdamWConfig(warmup_steps=10, total_steps=n_steps)
+        state = adamw.init_state(list(model.parameters()), opt_cfg)
+        step = S.make_train_step(cfg, S.CellPlan(), opt_cfg)
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab,
+                                        batch=MOE_TRAIN["batch"],
+                                        seq=MOE_TRAIN["seq"], seed=0))
+        losses, gnorms, ms = [], [], []
+        lib.reset_launches()
+        with PlainCalls((fa_ops, "attention_ref")) as plain:
+            for _ in range(n_steps):
+                tok = torch.from_numpy(next(pipe)).to(dev)
+                t0 = time.perf_counter()
+                state, loss, gnorm = step(model, state, tok)
+                losses.append(loss.item())
+                ms.append((time.perf_counter() - t0) * 1e3)
+                gnorms.append(gnorm.item())
+        launches = dict(lib.LAUNCHES)
+        with torch.no_grad():
+            checksum = [int(p.view(torch.int32).sum())
+                        for p in model.parameters()]
+        runs.append({"losses": losses, "grad_norms": gnorms,
+                     "checksum": checksum, "ms_per_step": ms,
+                     "launches": launches, "plain_calls": plain.n,
+                     "peak_mem_gb":
+                     torch.cuda.max_memory_allocated(dev) / 1e9})
+        del model, state, step
+    a, b = runs
+    same = all(a[k] == b[k] for k in ("losses", "grad_norms", "checksum"))
+    out = {"phase": "train_moe", **MOE_TRAIN,
+           "parameters": cfg.param_count(), "losses": a["losses"],
+           "grad_norms": a["grad_norms"],
+           "param_checksum_sum": sum(a["checksum"]),
+           "two_runs_bit_identical": same,
+           "ms_per_step": [r["ms_per_step"] for r in runs],
+           "launches": a["launches"],
+           "peak_mem_gb": max(r["peak_mem_gb"] for r in runs)}
+    emit(out)
+    per_step = cfg.n_attn_layers * n_steps
+    for r in runs:
+        for name, n in (("flash_attention_prefill", per_step),
+                        ("flash_attention_bwd", per_step),
+                        ("flash_attention_decode", 0)):
+            require(r["launches"][name] == n, f"train_moe: {name} launched "
+                                              f"{r['launches'][name]} times")
+        require(r["plain_calls"] == 0, "train_moe: plain attention called")
+        require(all(np.isfinite(r["losses"] + r["grad_norms"])),
+                "train_moe: losses")
+    require(same, "train_moe: two runs differ")
     return out
 
 
@@ -2170,12 +2423,18 @@ def kernel_class(name: str) -> str:
     return "elementwise_and_other"
 
 
-def profile_train_step(dev, arch) -> dict:
-    """Full-size train steps (batch 4 × 512) after a warm-up step: the
-    host ms of five unprofiled steps, then one step under the profiler for
-    the device ms by kernel.  The device's idle share is 1 − device ms
-    over the unprofiled median (the profiler slows the host, not the
-    kernels); the peak device memory is that of these steps."""
+def profile_train_step(dev, arch, n_layers=None) -> dict:
+    """Full-size train steps (batch 4 × 512; an encoder-decoder's over
+    zero frames; the depth cut to ``n_layers`` where given) after a
+    warm-up step: the host ms of five unprofiled steps, then one step
+    under the profiler for the device ms by kernel.  The device's idle
+    share is 1 − device ms over the unprofiled median (the profiler slows
+    the host, not the kernels); the peak device memory is that of these
+    steps.  For a mixture of experts, the expert GEMMs' device ms (the
+    kernels the profiler credits to ``aten::bmm``, which only the experts
+    call) and their share of the step's."""
+    import dataclasses
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2188,10 +2447,17 @@ def profile_train_step(dev, arch) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
     opt_cfg = adamw.AdamWConfig(warmup_steps=10, total_steps=24)
     state = adamw.init_state(list(model.parameters()), opt_cfg)
-    step = S.make_train_step(cfg, S.CellPlan(), opt_cfg)
+    train_step = S.make_train_step(cfg, S.CellPlan(), opt_cfg)
+    frames = torch.zeros(4, cfg.n_frames, cfg.d_model, device=dev) \
+        if cfg.enc_dec else None
+
+    def step(model, state, tok):
+        return train_step(model, state, tok, frames)
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=4, seq=512))
     toks = [torch.from_numpy(next(pipe)).to(dev) for _ in range(7)]
     state, loss, _ = step(model, state, toks[0])
@@ -2215,9 +2481,17 @@ def profile_train_step(dev, arch) -> dict:
     for name, us in by_name.items():
         key = kernel_class(name)
         by_class[key] = by_class.get(key, 0.0) + us / 1e3
-    host_ops = sorted(prof.key_averages(),
-                      key=lambda e: -e.self_cpu_time_total)
-    out = {"phase": "train_profile", "arch": arch,
+    averages = prof.key_averages()
+    host_ops = sorted(averages, key=lambda e: -e.self_cpu_time_total)
+    moe = {}
+    if cfg.n_experts:
+        bmm_ms = sum(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                     for e in averages if e.key == "aten::bmm") / 1e3
+        moe = {"expert_gemm_ms": bmm_ms,
+               "expert_gemm_share": bmm_ms / dev_ms}
+    out = {"phase": "train_profile", "arch": arch, "layers": cfg.n_layers,
+           "encoder_layers": cfg.n_enc_layers, **moe,
            "parameters": sum(t.numel() for t in model.parameters()),
            "batch": 4, "seq": 512, "host_ms": host_ms,
            "host_ms_median": float(np.median(host_ms)),
@@ -2234,21 +2508,18 @@ def profile_train_step(dev, arch) -> dict:
 
 
 def check_train_pins(dev, pin) -> dict:
-    """The reference's losses and grad norms on a pin run, twice: the two
-    runs' numbers must also be equal bit for bit."""
-    import dataclasses
-
+    """The reference's losses and grad norms on a pin run (an
+    encoder-decoder's over ``pin_frames``), twice: the two runs' numbers
+    must also be equal bit for bit."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.convert import params_from_numpy, reference_params_numpy
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.launch import steps as S
     from repro_torch.optim import adamw
-    cfg = get_config(pin["arch"])
-    if pin.get("n_layers"):
-        cfg = dataclasses.replace(cfg, n_layers=pin["n_layers"])
+    cfg = pin_config(pin)
     tree = reference_params_numpy(cfg, 0)
+    frames = pin_frames(cfg, pin["batch"], dev)
     runs = []
     for _ in range(2):
         model = params_from_numpy(cfg, tree, dev)
@@ -2261,7 +2532,8 @@ def check_train_pins(dev, pin) -> dict:
         losses, gnorms = [], []
         for _ in range(pin["steps"]):
             state, loss, gnorm = step(model, state,
-                                      torch.from_numpy(next(pipe)).to(dev))
+                                      torch.from_numpy(next(pipe)).to(dev),
+                                      frames)
             losses.append(loss.item())
             gnorms.append(gnorm.item())
         runs.append((losses, gnorms))
@@ -2272,7 +2544,8 @@ def check_train_pins(dev, pin) -> dict:
               max(abs(a - b) / abs(b) for a, b in zip(gnorms,
                                                       pin["grad_norms"])))
     out = {"phase": "train_pin", "arch": pin["arch"],
-           "n_layers": cfg.n_layers, "losses": losses, "grad_norms": gnorms,
+           "n_layers": cfg.n_layers, "n_enc_layers": cfg.n_enc_layers,
+           "losses": losses, "grad_norms": gnorms,
            "reference": {k: pin[k] for k in ("losses", "grad_norms")},
            "max_rel_err": rel, "tol": 1e-4,
            "two_runs_bit_identical": runs[0] == runs[1]}
@@ -2820,20 +3093,45 @@ def main() -> int:
             rand(4, 1024, hk, 128),
             torch.tensor([543], dtype=torch.int32, device=dev),
             serve_fill_tab(dev), reps=50, window=win)
+    # whisper-large-v3: non-causal, 20 heads of 64 over 1,500 frames
+    frames = torch.arange(WHISPER_FRAMES, dtype=torch.int32, device=dev)
+    k3_whisper = {
+        label: time_attention(
+            rand(4, s, 20, 64), rand(4, WHISPER_FRAMES, 20, 64),
+            rand(4, WHISPER_FRAMES, 20, 64),
+            torch.arange(q0, q0 + s, dtype=torch.int32, device=dev), frames,
+            reps=10 if s > 1 else 50, causal=False)
+        for label, s, q0 in WHISPER_ATTENTION}
     k4 = time_ssd(dev, reps=10)
     emit({"phase": "serving_kernel_times", "flash_attention_prefill": k3,
           "flash_attention_decode": k3_dec, "ssd_scan_prefill": k4,
-          **{f"flash_attention_{key}": t for key, t in k3_128.items()}})
+          **{f"flash_attention_{key}": t for key, t in k3_128.items()},
+          **{f"flash_attention_{key}": t for key, t in k3_whisper.items()}})
     for arch, n_layers in SERVE_RUNS:
         profile_serving(arch, dev, n_layers)
 
     # ---- 10. K3's and K4's backward at the training shapes ------------------
     k3_bwd = time_attention_bwd(dev, reps=20)
+    # whisper-large-v3's encoder and cross-attention, non-causal
+    k3_bwd_whisper = {
+        "whisper_encoder": time_attention_bwd(
+            dev, 10, 4, WHISPER_FRAMES, WHISPER_FRAMES, 20, 20, 64, False),
+        "whisper_cross": time_attention_bwd(
+            dev, 10, 4, 512, WHISPER_FRAMES, 20, 20, 64, False)}
     k4_bwd = time_ssd_bwd(dev, reps=10)
     emit({"phase": "train_kernel_times", "flash_attention_bwd": k3_bwd,
+          **{f"flash_attention_bwd_{key}": t
+             for key, t in k3_bwd_whisper.items()},
           "ssd_scan_bwd": k4_bwd})
 
     # ---- 11-12. the train path at full size, with and without injection -----
+    t0 = time.perf_counter()
+    train_whisper = train_whisper_run(dev, lib)
+    profile_train_step(dev, "whisper-large-v3")
+    train_moe = train_moe_run(dev, lib)
+    profile_train_step(dev, MOE_TRAIN["arch"], MOE_TRAIN["n_layers"])
+    emit({"phase": "train_whisper_moe_wall_s",
+          "seconds": time.perf_counter() - t0})
     train_main = train_run(lib, inject=True)
     train_run(lib, inject=False)
     profile_train_step(dev, "smollm-135m")
@@ -2843,6 +3141,7 @@ def main() -> int:
     # ---- 13-14. the reference's pins; the CI smoke and crash-resume ---------
     check_train_pins(dev, TRAIN_PINS)
     check_train_pins(dev, MAMBA2_TRAIN_PINS)
+    check_train_pins(dev, WHISPER_TRAIN_PINS)
     train_ci_smoke_and_resume(dev)
 
     # ---- 15. pod telemetry: the 16x16 pod, both recorder impls --------------
@@ -2890,9 +3189,14 @@ def main() -> int:
                                 for n in serve_launches.values()),
          "launches_by_serve_run": {arch: n["flash_attention"] for arch, n
                                    in serve_launches.items()},
+         "launches_by_train_run": {
+             "smollm-135m": train_main["launches"]["flash_attention"],
+             "whisper-large-v3": train_whisper["launches"]["flash_attention"],
+             "mixtral-8x7b": train_moe["launches"]["flash_attention"]},
          "max_abs_err": max(k3_err, k3["max_abs_err"],
                             k3_dec["max_abs_err"],
-                            *(t["max_abs_err"] for t in k3_128.values())),
+                            *(t["max_abs_err"] for t in k3_128.values()),
+                            *(t["max_abs_err"] for t in k3_whisper.values())),
          **{k: k3[k] for k in KERNEL_TIME_KEYS}, "plain_device": "cuda",
          "shape": "smollm-135m prefill, q [4,512,9,64], kv [4,512,3,64], "
                   "causal, one layer",
@@ -2902,15 +3206,25 @@ def main() -> int:
                      "step), one layer"},
          **{key: {k: t[k] for k in KERNEL_TIME_KEYS}
             | {"live_slots": t["live_slots"]}
-            for key, t in k3_128.items()}},
+            for key, t in (k3_128 | k3_whisper).items()}},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/models/layers.py:225 (jax.grad of XLA "
                      "attention; no Pallas kernel)",
          "launches": train_main["launches"]["flash_attention_bwd"],
-         "max_abs_err": max(k3_bwd_err, k3_bwd["max_abs_err"]),
-         "max_rel_err": max(k3_bwd_rel, k3_bwd["max_rel_err_vs_plain"]),
+         "launches_train_whisper":
+             train_whisper["launches"]["flash_attention_bwd"],
+         "launches_train_moe": train_moe["launches"]["flash_attention_bwd"],
+         "max_abs_err": max(k3_bwd_err, k3_bwd["max_abs_err"],
+                            *(t["max_abs_err"]
+                              for t in k3_bwd_whisper.values())),
+         "max_rel_err": max(k3_bwd_rel, k3_bwd["max_rel_err_vs_plain"],
+                            *(t["max_rel_err_vs_plain"]
+                              for t in k3_bwd_whisper.values())),
          **{k: k3_bwd[k] for k in KERNEL_TIME_KEYS}, "plain_device": "cuda",
+         **{key: {k: t[k] for k in KERNEL_TIME_KEYS}
+            | {"live_pairs_per_head": t["live_pairs_per_head"]}
+            for key, t in k3_bwd_whisper.items()},
          "plain_is": "attention_bwd_ref (the kernel's algebra in torch)",
          "library_is": "SDPA's backward through autograd",
          "shape": "smollm-135m train, q [4,512,9,64], kv [4,512,3,64], "

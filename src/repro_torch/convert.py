@@ -78,10 +78,11 @@ def mcg_from_numpy(obj) -> MCG:
 
 def reference_params_numpy(cfg, seed: int) -> dict:
     """The reference's parameter pytree (``transformer.init_model``'s
-    nested dicts, period-stacked leaves with a leading ``n_periods`` axis)
-    as f32 numpy arrays drawn from ``np.random.default_rng(seed)`` at the
-    init scales of ``transformer.param_spec``, the table ``init_model``
-    draws from too."""
+    nested dicts, period-stacked leaves with a leading ``n_periods`` axis,
+    an encoder-decoder's ``encoder`` leaves with a leading
+    ``n_enc_layers`` axis) as f32 numpy arrays drawn from
+    ``np.random.default_rng(seed)`` at the init scales of
+    ``transformer.param_spec``, the table ``init_model`` draws from too."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
 
@@ -95,8 +96,11 @@ def reference_params_numpy(cfg, seed: int) -> dict:
 
     spec = T.param_spec(cfg)
     periods = spec.pop("periods")
+    encoder = spec.pop("encoder", None)
     tree = L.map_leaves(leaves(()), spec)
     tree["periods"] = L.map_leaves(leaves((T.n_periods(cfg),)), periods)
+    if encoder is not None:
+        tree["encoder"] = L.map_leaves(leaves((cfg.n_enc_layers,)), encoder)
     return tree
 
 
@@ -104,7 +108,8 @@ def params_from_numpy(cfg, tree, device=None) -> T.Model:
     """The reference's parameter pytree (numpy-convertible leaves, with the
     leading period axis) → the port's :class:`~.models.transformer.Model`
     on ``device`` (default ``cuda:0``).  Layer ``p * period_len + i`` takes
-    period ``p`` of ``periods/slot{i}``."""
+    period ``p`` of ``periods/slot{i}``; encoder layer ``j`` takes entry
+    ``j`` of every ``encoder`` leaf."""
     dev = resolve_device(device)
 
     def tensor(a):
@@ -116,22 +121,31 @@ def params_from_numpy(cfg, tree, device=None) -> T.Model:
         return L.ParamBlock({k: tensor(v if pi is None else v[pi])
                              for k, v in leaves.items()})
 
+    def layer(blocks, i):
+        return torch.nn.ModuleDict({name: block(leaves, i)
+                                    for name, leaves in blocks.items()})
+
     pl = T.period_len(cfg)
-    layers = [torch.nn.ModuleDict(
-        {name: block(leaves, li // pl) for name, leaves in
-         tree["periods"][f"slot{li % pl}"].items()})
-        for li in range(T.n_periods(cfg) * pl)]
+    layers = [layer(tree["periods"][f"slot{li % pl}"], li // pl)
+              for li in range(T.n_periods(cfg) * pl)]
     lm_head = tree.get("lm_head")
+    encoder = enc_norm = None
+    if cfg.enc_dec:
+        encoder = [layer(tree["encoder"], j)
+                   for j in range(cfg.n_enc_layers)]
+        enc_norm = block(tree["enc_final_norm"])
     return T.Model(cfg, tensor(tree["embed"]), block(tree["final_norm"]),
-                   layers, None if lm_head is None else tensor(lm_head))
+                   layers, None if lm_head is None else tensor(lm_head),
+                   encoder, enc_norm)
 
 
 def params_to_numpy(cfg, model, tensors=None) -> dict:
     """The reverse of :func:`params_from_numpy`: the model's parameters
     as the reference's pytree of f32 numpy arrays (nested dicts,
-    ``periods/slot{i}`` leaves stacked over periods).  ``tensors``, a
-    ``{parameter name: tensor}`` dict (for example each parameter's
-    ``grad``), is laid out in their place."""
+    ``periods/slot{i}`` leaves stacked over periods, ``encoder`` leaves
+    over encoder layers).  ``tensors``, a ``{parameter name: tensor}``
+    dict (for example each parameter's ``grad``), is laid out in their
+    place."""
     if tensors is None:
         tensors = dict(model.named_parameters())
     pl = T.period_len(cfg)
@@ -140,9 +154,10 @@ def params_to_numpy(cfg, model, tensors=None) -> dict:
     for name, _ in model.named_parameters():
         arr = tensors[name].detach().cpu().numpy()
         parts = name.split(".")
-        if parts[0] == "layers":
+        if parts[0] in ("layers", "encoder"):
             li = int(parts[1])
-            key = ("periods", f"slot{li % pl}", *parts[2:])
+            key = (("periods", f"slot{li % pl}") if parts[0] == "layers"
+                   else ("encoder",)) + tuple(parts[2:])
             stacked.setdefault(key, []).append(arr)
             continue
         node = tree

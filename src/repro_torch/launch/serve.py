@@ -4,10 +4,14 @@ stream, on the card by default.
     python -m repro_torch.launch.serve --arch smollm-135m
     python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke \
         --device cpu --requests 8 --max-new 8
+    python -m repro_torch.launch.serve --arch whisper-large-v3 --smoke \
+        --device cpu
 
 Weights are random, drawn from ``--seed`` on the chosen device; the
 request stream comes from ``np.random.default_rng([seed, 0])``, as on one
-host of the reference.  Prints the served requests and tokens with tok/s,
+host of the reference.  An encoder-decoder (whisper) is served over zero
+frame embeddings ``[batch, n_frames, d_model]``, the reference's stand-in
+for its audio frontend.  Prints the served requests and tokens with tok/s,
 the mean prefill time, and the decode step p50/p99 (from the engine's
 separate ``decode_times`` series).
 
@@ -92,8 +96,13 @@ def main(argv=None, step_hook=None, cfg=None):
         n = int(rng.integers(2, args.prompt_len + 1))
         engine.submit(Request(i, rng.integers(0, cfg.vocab, size=n)
                               .astype(np.int32), max_new=args.max_new))
+    enc_frames = None
+    if cfg.enc_dec:
+        # the reference's stand-in for the audio frontend: zero frames
+        enc_frames = torch.zeros(args.batch, cfg.n_frames, cfg.d_model,
+                                 device=dev)
     t0 = time.perf_counter()
-    done = engine.run()
+    done = engine.run(enc_frames=enc_frames)
     stats = summary(engine, done, time.perf_counter() - t0)
     print(f"served {stats['requests']} requests, {stats['tokens']} tokens, "
           f"{stats['wall_s']:.1f}s ({stats['tok_per_s']:.1f} tok/s)")

@@ -34,10 +34,11 @@ class CellPlan:
     opt_state_dtype: torch.dtype = torch.float32
 
 
-def loss_fn(cfg, model, tokens):
-    """tokens [B,S] → (loss, ce): the mean next-token cross entropy over
-    positions 0..S−2 in f32, plus 0.01 × the aux loss."""
-    logits, aux = T.forward_train(cfg, model, tokens)
+def loss_fn(cfg, model, tokens, enc_frames=None):
+    """tokens [B,S] (and an encoder-decoder's enc_frames [B,F,d]) →
+    (loss, ce): the mean next-token cross entropy over positions 0..S−2 in
+    f32, plus 0.01 × the aux loss."""
+    logits, aux = T.forward_train(cfg, model, tokens, enc_frames)
     logits = logits[:, :-1].float()
     targets = tokens[:, 1:].long()
     logz = torch.logsumexp(logits, dim=-1)
@@ -47,13 +48,15 @@ def loss_fn(cfg, model, tokens):
 
 
 def make_train_step(cfg, plan: CellPlan, opt_cfg=None):
-    """``train_step(model, opt_state, tokens) → (opt_state, loss,
-    grad_norm)``: the loss (mean over micro-batches) and the raw global
-    gradient norm are device scalars; the model's parameters and the
-    state's moments are updated in place."""
+    """``train_step(model, opt_state, tokens, enc_frames=None) →
+    (opt_state, loss, grad_norm)``: the loss (mean over micro-batches) and
+    the raw global gradient norm are device scalars; the model's
+    parameters and the state's moments are updated in place.  An
+    encoder-decoder's ``enc_frames`` [B,F,d] split over the micro-batches
+    as the tokens do."""
     opt_cfg = opt_cfg or adamw.AdamWConfig(state_dtype=plan.opt_state_dtype)
 
-    def train_step(model, opt_state, tokens):
+    def train_step(model, opt_state, tokens, enc_frames=None):
         params = list(model.parameters())
         for p in params:
             if p.dtype != plan.param_dtype:
@@ -65,9 +68,12 @@ def make_train_step(cfg, plan: CellPlan, opt_cfg=None):
             raise ValueError(f"batch {tokens.shape[0]} does not split into "
                              f"{a} micro-batches")
         loss = None
+        toks = tokens.reshape(a, -1, tokens.shape[1])
+        frames = [None] * a if enc_frames is None else \
+            enc_frames.reshape(a, -1, *enc_frames.shape[1:])
         # autograd adds each micro-batch's gradients into .grad in order
-        for toks in tokens.reshape(a, -1, tokens.shape[1]):
-            micro, _ = loss_fn(cfg, model, toks)
+        for tb, fb in zip(toks, frames):
+            micro, _ = loss_fn(cfg, model, tb, fb)
             micro.backward()
             micro = micro.detach()
             loss = micro if loss is None else loss + micro

@@ -17,7 +17,10 @@ A port of the reference's ``launch/train.py`` with every flag it has, plus
     (training itself is unperturbed); ``--expect-flagged`` exits non-zero
     unless a window was flagged.
 
-Weights are random, drawn from ``--seed`` on the chosen device.
+Weights are random, drawn from ``--seed`` on the chosen device.  An
+encoder-decoder (whisper) trains over zero frame embeddings
+``[batch, n_frames, d_model]``, as the reference's launcher does; its
+checkpoints carry the encoder's parameters and moments with the rest.
 ``main(argv)`` returns the losses.
 
     python -m repro_torch.launch.train --arch smollm-135m --steps 24 \\
@@ -166,12 +169,19 @@ def main(argv=None):
                   f"{list(tplan.get('avoid_links', ()))}")
         return tplan
 
+    enc_frames = None
+    if cfg.enc_dec:
+        # the reference's stand-in for the audio frontend: zero frames
+        enc_frames = torch.zeros(args.batch, cfg.n_frames, cfg.d_model,
+                                 device=dev)
+
     losses = []
     t_begin = time.perf_counter()
     for step in range(start_step, args.steps):
         tokens = torch.from_numpy(next(pipe)).to(dev)
         t0 = time.perf_counter()
-        opt_state, loss, gnorm = train_step(model, opt_state, tokens)
+        opt_state, loss, gnorm = train_step(model, opt_state, tokens,
+                                            enc_frames)
         loss = loss.item()            # waits for the step on the device
         losses.append(loss)
         dt = time.perf_counter() - t0

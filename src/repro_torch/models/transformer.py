@@ -1,26 +1,35 @@
 """Model assembly: init, forward, prefill and decode with a KV/SSM cache.
 
 A port of the reference model's ``models/transformer.py`` for every
-decoder-only configuration: dense, sliding-window, SSM, mixture of experts
-(mixtral, dbrx), M-RoPE (qwen2-vl) and the attention + Mamba + MoE hybrid
-(jamba).  The reference stacks layers into periods and scans over them; here
-the layers are a ``ModuleList`` walked by a Python loop, layer ``li``
-being slot ``li % period_len`` of period ``li // period_len``.  Parameter
-names mirror the reference's keys (``layers.3.attn.wq`` is the reference's
-``periods/slot0/attn/wq[3]``).
+registered configuration: dense, sliding-window, SSM, mixture of experts
+(mixtral, dbrx), M-RoPE (qwen2-vl), the attention + Mamba + MoE hybrid
+(jamba) and the encoder-decoder (whisper).  The reference stacks layers
+into periods and scans over them; here the layers are a ``ModuleList``
+walked by a Python loop, layer ``li`` being slot ``li % period_len`` of
+period ``li // period_len``.  Parameter names mirror the reference's keys
+(``layers.3.attn.wq`` is the reference's ``periods/slot0/attn/wq[3]``,
+``encoder.3.attn.wq`` its ``encoder/attn/wq[3]``).
+
+Whisper (``cfg.enc_dec``) runs its encoder (:func:`run_encoder`) over
+frame embeddings ``[B, n_frames, d]`` that stand in for the audio
+frontend, as the reference's do, and every decoder layer adds
+cross-attention over the encoder's output (the memory) after its
+self-attention.  The cross K/V are projected from the memory at every
+call, decode steps included, as the reference does: there is no
+cross-attention cache.
 
 Three entry points:
   * ``forward_train`` — full-sequence causal forward (no cache) → logits
                         and the MoE aux loss, with its autograd graph (the
                         train step's forward)
-  * ``prefill``       — fills a KV/SSM cache, returns last-token logits
+  * ``prefill``       — fills a KV/SSM cache, returns last-token logits,
+                        the cache and the memory (None without an encoder)
   * ``decode_step``   — one token with the cache (rolling buffer for SWA)
+                        and the memory
 ``prefill`` and ``decode_step`` run under ``torch.no_grad()``, so serving
 launches exactly what it launched before the parameters were trainable.
 
-The cache is updated in place (the reference returns a new one).  The
-encoder-decoder path (whisper) is not ported yet and raises
-``NotImplementedError``.
+The cache is updated in place (the reference returns a new one).
 """
 
 from __future__ import annotations
@@ -66,15 +75,15 @@ def n_periods(cfg) -> int:
 
 class Model(torch.nn.Module):
     """Embedding, the layers (each a ``ModuleDict`` of ``norm1``,
-    ``attn`` or ``mamba``, and ``norm2`` / ``mlp`` where ``d_ff > 0``), the
-    final norm and, for untied embeddings, ``lm_head``.  Encoder-decoder
-    configs (whisper's encoder and cross-attention) are not ported yet."""
+    ``attn`` or ``mamba``, ``xnorm`` / ``xattn`` for an encoder-decoder,
+    and ``norm2`` / ``mlp`` or ``moe`` where ``d_ff > 0``), the final norm
+    and, for untied embeddings, ``lm_head``.  An encoder-decoder config
+    also has ``encoder``, its layers (``norm1``, ``attn``, ``norm2``,
+    ``mlp``), and ``enc_final_norm``."""
 
-    def __init__(self, cfg, embed, final_norm, layers, lm_head=None):
+    def __init__(self, cfg, embed, final_norm, layers, lm_head=None,
+                 encoder=None, enc_final_norm=None):
         super().__init__()
-        if cfg.enc_dec:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder models are not ported yet")
         self.cfg = cfg
         self.embed = torch.nn.Parameter(embed)
         self.final_norm = final_norm
@@ -82,6 +91,9 @@ class Model(torch.nn.Module):
             "lm_head", None if lm_head is None
             else torch.nn.Parameter(lm_head))
         self.layers = torch.nn.ModuleList(layers)
+        if encoder is not None:
+            self.encoder = torch.nn.ModuleList(encoder)
+            self.enc_final_norm = enc_final_norm
 
 
 def _init_attn(cfg):
@@ -96,6 +108,9 @@ def _init_slot(cfg, kind, is_moe):
     p = {"norm1": L.init_norm(cfg, cfg.d_model)}
     if kind == "attn":
         p["attn"] = _init_attn(cfg)
+        if cfg.enc_dec:
+            p["xnorm"] = L.init_norm(cfg, cfg.d_model)
+            p["xattn"] = _init_attn(cfg)
     else:
         p["mamba"] = M.init_mamba(cfg)
     if cfg.d_ff > 0:
@@ -107,21 +122,37 @@ def _init_slot(cfg, kind, is_moe):
     return p
 
 
+def _init_enc_layer(cfg):
+    return {"norm1": L.init_norm(cfg, cfg.d_model), "attn": _init_attn(cfg),
+            "norm2": L.init_norm(cfg, cfg.d_model),
+            "mlp": L.init_mlp(cfg, cfg.d_model, cfg.d_ff)}
+
+
 def param_spec(cfg) -> dict:
     """The reference's parameter tree (``transformer.py:61-128``) with a
-    :class:`~.layers.Leaf` per parameter and no leading period axis:
-    ``embed``, ``final_norm``, ``lm_head`` for untied embeddings, and
-    ``periods/slot{i}/<block>/<key>``."""
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet")
+    :class:`~.layers.Leaf` per parameter and no leading period or layer
+    axis: ``embed``, ``final_norm``, ``lm_head`` for untied embeddings,
+    ``periods/slot{i}/<block>/<key>`` and, for an encoder-decoder,
+    ``encoder/<block>/<key>`` (one encoder layer; the reference's has a
+    leading ``n_enc_layers`` axis) and ``enc_final_norm``."""
     spec = {"embed": L.Leaf((cfg.vocab, cfg.d_model), 0.02),
             "final_norm": L.init_norm(cfg, cfg.d_model)}
     if not cfg.tie_embeddings:
         spec["lm_head"] = L.Leaf((cfg.d_model, cfg.vocab), 0.02)
     spec["periods"] = {f"slot{i}": _init_slot(cfg, kind, is_moe)
                        for i, (kind, is_moe) in enumerate(period_slots(cfg))}
+    if cfg.enc_dec:
+        spec["encoder"] = _init_enc_layer(cfg)
+        spec["enc_final_norm"] = L.init_norm(cfg, cfg.d_model)
     return spec
+
+
+def _layer_block(blocks: dict, make) -> torch.nn.ModuleDict:
+    """A layer's ``ModuleDict`` of :class:`~.layers.ParamBlock`s, each
+    leaf made by ``make``."""
+    return torch.nn.ModuleDict(
+        {name: L.ParamBlock(L.map_leaves(make, leaves))
+         for name, leaves in blocks.items()})
 
 
 def init_model(cfg, generator: torch.Generator) -> Model:
@@ -132,14 +163,20 @@ def init_model(cfg, generator: torch.Generator) -> Model:
     use ``convert.reference_params_numpy``."""
     spec = param_spec(cfg)
     slots = list(spec.pop("periods").values())
-    top = L.map_leaves(lambda leaf: L.draw(generator, leaf), spec)
-    layers = [torch.nn.ModuleDict(
-        {name: L.ParamBlock(L.map_leaves(
-            lambda leaf: L.draw(generator, leaf), leaves))
-         for name, leaves in slots[li % len(slots)].items()})
-        for li in range(n_periods(cfg) * len(slots))]
+    enc = spec.pop("encoder", None)
+
+    def draw(leaf):
+        return L.draw(generator, leaf)
+    top = L.map_leaves(draw, spec)
+    layers = [_layer_block(slots[li % len(slots)], draw)
+              for li in range(n_periods(cfg) * len(slots))]
+    if enc is None:
+        return Model(cfg, top["embed"], L.ParamBlock(top["final_norm"]),
+                     layers, top.get("lm_head"))
     return Model(cfg, top["embed"], L.ParamBlock(top["final_norm"]), layers,
-                 top.get("lm_head"))
+                 top.get("lm_head"),
+                 [_layer_block(enc, draw) for _ in range(cfg.n_enc_layers)],
+                 L.ParamBlock(top["enc_final_norm"]))
 
 
 # ---------------------------------------------------------------------------
@@ -155,10 +192,21 @@ def _sinusoid(positions, d):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _attn_sublayer(cfg, p, x, q_pos, k_pos, *, cache=None, causal=True):
-    """Self-attention; with ``cache`` the new K/V go into it first."""
+def _attn_sublayer(cfg, p, x, q_pos, k_pos, *, kv=None, cache=None,
+                   causal=True):
+    """Self-attention; with ``cache`` the new K/V go into it first.  With
+    ``kv``, the memory [B,F,d], cross-attention: K/V projected from it, no
+    position embedding, every key live (non-causal, no window) at
+    ``k_pos`` = arange(F), no cache."""
     b, s, _ = x.shape
     q = (x @ p.wq).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    if kv is not None:
+        f = kv.shape[1]
+        k = (kv @ p.wk).reshape(b, f, cfg.n_kv_heads, cfg.head_dim)
+        v = (kv @ p.wv).reshape(b, f, cfg.n_kv_heads, cfg.head_dim)
+        k_pos = torch.arange(f, dtype=torch.int32, device=x.device)
+        out = L.attention(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=False)
+        return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p.wo
     k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     q, k = L.position_embed(cfg, q, k, q_pos[None].expand(b, s))
@@ -204,8 +252,10 @@ class _KVView:
         return self.k, self.v, self.pos_tab
 
 
-def _apply_slot(cfg, p, kind, is_moe, x, q_pos, *, slot_cache=None):
-    """One layer: mixer + MLP or MoE with residuals.  Returns (x, the MoE
+def _apply_slot(cfg, p, kind, is_moe, x, q_pos, *, memory=None,
+                slot_cache=None):
+    """One layer: mixer + cross-attention over ``memory`` (an
+    encoder-decoder's) + MLP or MoE with residuals.  Returns (x, the MoE
     aux loss or None); a ``slot_cache`` is updated in place."""
     h = L.apply_norm(cfg, x, p.norm1)
     if kind == "attn":
@@ -216,6 +266,9 @@ def _apply_slot(cfg, p, kind, is_moe, x, q_pos, *, slot_cache=None):
         else:
             out = _attn_sublayer(cfg, p.attn, h, q_pos, q_pos)
         x = x + out
+        if memory is not None:
+            hx = L.apply_norm(cfg, x, p.xnorm)
+            x = x + _attn_sublayer(cfg, p.xattn, hx, q_pos, None, kv=memory)
     else:
         state = None
         if slot_cache is not None:
@@ -239,6 +292,36 @@ def _apply_slot(cfg, p, kind, is_moe, x, q_pos, *, slot_cache=None):
 
 
 # ---------------------------------------------------------------------------
+# encoder (whisper)
+# ---------------------------------------------------------------------------
+
+def run_encoder(cfg, model, frames):
+    """frames [B,F,d], the frontend stub's frame embeddings → the memory
+    [B,F,d]: sinusoidal positions added, then each encoder layer's
+    non-causal self-attention and MLP with their residuals, then
+    ``enc_final_norm``."""
+    pos = torch.arange(frames.shape[1], dtype=torch.int32,
+                       device=frames.device)
+    x = frames + _sinusoid(pos, cfg.d_model)[None].to(frames.dtype)
+    for p in model.encoder:
+        a = L.apply_norm(cfg, x, p.norm1)
+        x = x + _attn_sublayer(cfg, p.attn, a, pos, pos, causal=False)
+        x = x + L.mlp(cfg, p.mlp, L.apply_norm(cfg, x, p.norm2))
+    return L.apply_norm(cfg, x, model.enc_final_norm)
+
+
+def _memory(cfg, model, enc_frames):
+    """The encoder's output for an encoder-decoder config (which needs
+    ``enc_frames``), else None."""
+    if not cfg.enc_dec:
+        return None
+    if enc_frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: it needs "
+                         "enc_frames [B, n_frames, d_model]")
+    return run_encoder(cfg, model, enc_frames)
+
+
+# ---------------------------------------------------------------------------
 # main forward paths
 # ---------------------------------------------------------------------------
 
@@ -256,14 +339,14 @@ def _logits(cfg, model, x):
     return x @ model.lm_head
 
 
-def _run_layers(cfg, model, x, q_pos, caches=None):
+def _run_layers(cfg, model, x, q_pos, memory=None, caches=None):
     """The layers in order → (x, the sum of the MoE layers' aux losses in
     layer order, as the reference's scan carries it; None without MoE)."""
     slots = period_slots(cfg)
     total = None
     for li, p in enumerate(model.layers):
         kind, is_moe = slots[li % len(slots)]
-        x, aux = _apply_slot(cfg, p, kind, is_moe, x, q_pos,
+        x, aux = _apply_slot(cfg, p, kind, is_moe, x, q_pos, memory=memory,
                              slot_cache=None if caches is None
                              else caches[li])
         if aux is not None:
@@ -271,14 +354,16 @@ def _run_layers(cfg, model, x, q_pos, caches=None):
     return x, total
 
 
-def forward_train(cfg, model, tokens):
-    """tokens [B,S] → (logits [B,S,V], aux loss), keeping the autograd
-    graph (the parameters are trainable).  The aux loss is the sum of the
-    MoE layers' load-balancing terms, 0 without experts."""
+def forward_train(cfg, model, tokens, enc_frames=None):
+    """tokens [B,S] (and, for an encoder-decoder, enc_frames [B,F,d]) →
+    (logits [B,S,V], aux loss), keeping the autograd graph (the parameters
+    are trainable).  The aux loss is the sum of the MoE layers'
+    load-balancing terms, 0 without experts."""
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
     x = _embed(cfg, model, tokens, positions)
-    x, aux = _run_layers(cfg, model, x, positions)
+    memory = _memory(cfg, model, enc_frames)
+    x, aux = _run_layers(cfg, model, x, positions, memory)
     if aux is None:
         aux = torch.zeros((), device=x.device)
     return _logits(cfg, model, x), aux
@@ -319,21 +404,28 @@ def init_cache(cfg, batch, cache_len, device=None):
 
 
 @torch.no_grad()
-def prefill(cfg, model, tokens, cache):
+def prefill(cfg, model, tokens, cache, enc_frames=None):
     """Run S prompt tokens, filling ``cache`` (in place).  Returns
-    (last_logits [B,1,V], cache)."""
+    (last_logits [B,1,V], cache, memory): the memory is the encoder's
+    output for an encoder-decoder (which needs ``enc_frames``), else
+    None, as the reference returns it."""
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
     x = _embed(cfg, model, tokens, positions)
-    x, _ = _run_layers(cfg, model, x, positions, caches=cache)
-    return _logits(cfg, model, x[:, -1:]), cache
+    memory = _memory(cfg, model, enc_frames)
+    x, _ = _run_layers(cfg, model, x, positions, memory, caches=cache)
+    return _logits(cfg, model, x[:, -1:]), cache, memory
 
 
 @torch.no_grad()
-def decode_step(cfg, model, tokens, cache, pos: int):
-    """One decode step.  tokens [B,1]; pos: the absolute position."""
+def decode_step(cfg, model, tokens, cache, pos: int, memory=None):
+    """One decode step.  tokens [B,1]; pos: the absolute position; memory:
+    the encoder's output from :func:`prefill` for an encoder-decoder."""
+    if cfg.enc_dec and memory is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: decode_step "
+                         "needs the memory prefill returned")
     positions = torch.full((1,), pos, dtype=torch.int32,
                            device=tokens.device)
     x = _embed(cfg, model, tokens, positions)
-    x, _ = _run_layers(cfg, model, x, positions, caches=cache)
+    x, _ = _run_layers(cfg, model, x, positions, memory, caches=cache)
     return _logits(cfg, model, x), cache

@@ -1,7 +1,8 @@
 """Batched serving runtime: prefill + decode loop over a request batch.
 
 A port of the reference's ``serving/engine.py``: uniform-batch prefill,
-greedy decode with the rolling KV / SSM cache, a simple admission queue.
+greedy decode with the rolling KV / SSM cache, a simple admission queue;
+an encoder-decoder's frames are encoded once a batch, at its prefill.
 The batching is the reference's, kept as it is: a short batch is padded by
 replicating its last request, prompts are left-padded with token 0 and no
 pad mask, and every batch runs ``max_new`` decode steps.  Weights and
@@ -74,8 +75,11 @@ class ServeEngine:
         self.queue = self.queue[self.ecfg.batch:]
         return batch
 
-    def run(self) -> list[Request]:
-        """Serve everything in the queue; returns completed requests."""
+    def run(self, enc_frames=None) -> list[Request]:
+        """Serve everything in the queue; returns completed requests.  An
+        encoder-decoder config takes ``enc_frames`` [batch, n_frames, d]
+        on the engine's device: each batch's prefill encodes them and its
+        decode steps attend over that memory."""
         cfg, model, ecfg = self.cfg, self.model, self.ecfg
         done: list[Request] = []
         while self.queue:
@@ -90,7 +94,8 @@ class ServeEngine:
             t0 = time.perf_counter()
             cache = T.init_cache(cfg, ecfg.batch, ecfg.cache_len,
                                  device=self.device)
-            last, cache = T.prefill(cfg, model, toks, cache)
+            last, cache, memory = T.prefill(cfg, model, toks, cache,
+                                            enc_frames)
             nxt = last[:, -1].argmax(dim=-1)[:, None]
             self._sync()
             self._record("prefill", time.perf_counter() - t0)
@@ -100,7 +105,8 @@ class ServeEngine:
                     if r.rid >= 0 and len(r.out_tokens) < r.max_new:
                         r.out_tokens.append(int(t))
                 t0 = time.perf_counter()
-                logits, cache = T.decode_step(cfg, model, nxt, cache, s + k)
+                logits, cache = T.decode_step(cfg, model, nxt, cache, s + k,
+                                              memory)
                 nxt = logits[:, -1].argmax(dim=-1)[:, None]
                 self._sync()
                 self._record("decode", time.perf_counter() - t0)

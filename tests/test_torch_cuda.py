@@ -34,7 +34,13 @@ serving shapes of mixtral-8x7b and qwen2-vl-2b (head dim 128, GQA ratios 4
 and 6, mixtral's 4,096 window wider than the 1,024-slot cache) both K3
 entry points hold 2e-5; a mixture-of-experts layer run twice at mixtral's
 and at dbrx's width gives the same bits (outputs, aux, routing); a
-full-width mixtral-8x7b layer serves through K3 alone.
+full-width mixtral-8x7b layer serves through K3 alone.  For the
+encoder-decoder: K3 non-causal with S ≠ T, forward and backward, and its
+split-key decode with the query below its keys, within the same
+tolerances and bit-identical twice; whisper's smoke config served twice
+gives equal tokens.  MoE training: three train steps of the mixtral smoke
+config, and of dbrx's routing (16 experts, top-4), twice from one seed
+give the same bits.
 """
 
 import numpy as np
@@ -522,7 +528,7 @@ def test_full_width_mixtral_layer_serves_through_the_kernel(dev,
                          dtype=torch.int32)
     _lib.reset_launches()
     cache = T.init_cache(cfg, 2, 128, device=dev)
-    last, cache = T.prefill(cfg, model, toks, cache)
+    last, cache, _ = T.prefill(cfg, model, toks, cache)
     out, cache = T.decode_step(cfg, model, last[:, -1].argmax(-1)[:, None],
                                cache, 64)
     assert _lib.LAUNCHES["flash_attention_prefill"] == 1
@@ -820,3 +826,114 @@ def test_full_size_train_step_goes_through_the_kernels(dev, monkeypatch):
     assert _lib.LAUNCHES["flash_attention_decode"] == 0
     assert np.isfinite(loss.item()) and np.isfinite(gnorm.item())
     assert state["step"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder (whisper) and MoE training on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,t,hq,hk,d", [
+    (2, 70, 150, 4, 4, 64), (1, 130, 90, 6, 2, 32), (2, 150, 1500, 2, 2, 16)])
+def test_non_causal_attention_with_s_not_t(dev, b, s, t, hq, hk, d):
+    """Cross-attention's shapes: S queries over T ≠ S keys, every key live
+    (no causal mask, no window), the query positions below most keys.  The
+    forward within 2e-5 of the plain version; the backward (the forward
+    then through the prefill entry point) within 1e-4 of each gradient's
+    largest entry against autograd through it, bit-identical twice."""
+    q, k, v = _attn_inputs(dev, b, s, t, hq, hk, d)
+    dout = _attn_inputs(dev, b, s, s, hq, hk, d)[0]
+    pos = dict(q_pos=torch.arange(s, dtype=torch.int32, device=dev),
+               k_pos=torch.arange(t, dtype=torch.int32, device=dev),
+               causal=False)
+    before = _lib.LAUNCHES["flash_attention_prefill"]
+    got = fa_ops.gqa_attention(q, k, v, **pos)
+    assert _lib.LAUNCHES["flash_attention_prefill"] == before + 1
+    torch.testing.assert_close(got, attention_ref(q, k, v, **pos),
+                               atol=2e-5, rtol=2e-5)
+    before = _lib.LAUNCHES["flash_attention_bwd"]
+    runs = [_bwd_grads(q, k, v, dout, fa_ops.gqa_attention, **pos)
+            for _ in range(2)]
+    assert _lib.LAUNCHES["flash_attention_bwd"] == before + 2
+    exp = _bwd_grads(q, k, v, dout, attention_ref, **pos)
+    for g, g2, e in zip(*runs, exp):
+        assert torch.equal(g, g2)
+        assert float((g - e).abs().max()) <= 1e-4 * float(e.abs().max())
+
+
+@pytest.mark.parametrize("t,hq,hk,d", [(1500, 20, 20, 64), (200, 4, 4, 16),
+                                       (130, 8, 2, 128)])
+def test_non_causal_split_key_decode_below_its_keys(dev, t, hq, hk, d):
+    """A cross-attention decode step: one query at position 10 over keys
+    0..T−1 (T not a multiple of the 64-key split), non-causal, so the
+    keys after the query's position stay live.  Through the split-key
+    decode; within 2e-5 of the plain version; bit-identical twice."""
+    q, k, v = _attn_inputs(dev, 4, 1, t, hq, hk, d)
+    pos = dict(q_pos=torch.tensor([10], dtype=torch.int32, device=dev),
+               k_pos=torch.arange(t, dtype=torch.int32, device=dev),
+               causal=False)
+    before = _lib.LAUNCHES["flash_attention_decode"]
+    got, again = (fa_ops.gqa_attention(q, k, v, **pos) for _ in range(2))
+    assert _lib.LAUNCHES["flash_attention_decode"] == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, attention_ref(q, k, v, **pos),
+                               atol=2e-5, rtol=2e-5)
+    # the causal mask would leave keys 0..10 only: the answers differ
+    causal = attention_ref(q, k, v, q_pos=pos["q_pos"], k_pos=pos["k_pos"])
+    assert not torch.allclose(got, causal)
+
+
+def test_whisper_smoke_serves_twice_with_equal_tokens(dev, monkeypatch):
+    """``launch.serve.main`` on whisper's smoke config on the card, twice:
+    equal tokens; per batch 2 encoder, 2 self and 2 cross attentions at the
+    prefill and 4 a decode step, all through the kernel (a prompt of at
+    most 16 tokens takes the decode entry point at its prefill too)."""
+    from repro_torch.launch import serve
+
+    def refuse(*a, **kw):
+        raise AssertionError("attention reached its plain version")
+    monkeypatch.setattr(fa_ops, "attention_ref", refuse)
+    argv = ["--arch", "whisper-large-v3", "--smoke", "--requests", "5",
+            "--max-new", "4", "--device", "cuda:0"]
+    runs = []
+    for _ in range(2):
+        _lib.reset_launches()
+        done, stats = serve.main(argv)
+        runs.append([r.out_tokens for r in done])
+        assert stats["tokens"] == 20
+        assert _lib.LAUNCHES["flash_attention"] == 2 * (6 + 4 * 4)
+        assert _lib.LAUNCHES["flash_attention_decode"] >= 2 * 4 * 4
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("arch,experts,top_k", [
+    ("mixtral-8x7b", None, None), ("dbrx-132b", 16, 4)])
+def test_moe_smoke_train_steps_are_bit_identical(dev, arch, experts, top_k):
+    """Three train steps of a MoE smoke config on the card (dbrx's with its
+    full config's 16 experts and top-4), twice from one seed: the losses,
+    grad norms and every parameter after the last step equal bit for bit
+    (the dispatch's and the combine's backward add into shared rows)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    cfg = get_config(arch, smoke=True)
+    if experts is not None:
+        cfg = dataclasses.replace(cfg, n_experts=experts, top_k=top_k)
+    toks = torch.randint(0, cfg.vocab, (3, 4, 64), device=dev,
+                         dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    runs = []
+    for _ in range(2):
+        model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+        opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+        state = adamw.init_state(list(model.parameters()), opt_cfg)
+        step = S.make_train_step(cfg, S.CellPlan(), opt_cfg)
+        out = []
+        for tok in toks:
+            state, loss, gnorm = step(model, state, tok)
+            out += [loss, gnorm]
+        runs.append(out + [p.detach().clone() for p in model.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert all(bool(torch.isfinite(x).all()) for x in runs[0])

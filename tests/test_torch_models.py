@@ -12,8 +12,9 @@ mixtral-8x7b and dbrx-132b (mixture of experts; the ``forward_train`` aux
 loss too), qwen2-vl-2b (M-RoPE) and jamba-1.5-large-398b (attention, Mamba
 and MoE layers in one period) smoke configs.  Also: the configs are the reference's, ``init_model``'s
 parameter shapes are the reference's (``jax.eval_shape``) and its init
-scales too (as are ``reference_params_numpy``'s), the layers
-match one by one, and what is not ported yet raises.
+scales too (as are ``reference_params_numpy``'s), and the layers
+match one by one.  The encoder-decoder (whisper) has its own file,
+``test_torch_whisper.py``.
 """
 
 import dataclasses
@@ -131,7 +132,8 @@ def test_forward_prefill_decode_match_reference(arch):
     _close(logits, jlogits)
 
     cache = T.init_cache(cfg, 2, 64, device="cpu")
-    last, cache = T.prefill(cfg, model, tt, cache)
+    last, cache, memory = T.prefill(cfg, model, tt, cache)
+    assert memory is None
     jcache = JT.init_cache(jcfg, 2, 64, dtype=jnp.float32)
     jlast, jcache, _ = JT.prefill(jcfg, jparams, jnp.asarray(tokens), jcache)
     _close(last, jlast)
@@ -170,13 +172,3 @@ def test_layers_match_reference(norm, act):
     pos = rng.integers(0, 5000, (2, 7)).astype(np.int32)
     _close(TL.apply_rope(torch.from_numpy(q), torch.from_numpy(pos), 1e4),
            JL.apply_rope(jnp.asarray(q), jnp.asarray(pos), 1e4), tol=1e-4)
-
-
-@pytest.mark.parametrize("arch", ["whisper-large-v3"])
-def test_unported_configs_raise(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError):
-        model = T.init_model(cfg, torch.Generator().manual_seed(0))
-        T.forward_train(cfg, model, torch.zeros(1, 4, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        reference_params_numpy(cfg, 0)

@@ -15,7 +15,9 @@ few units.)  Also:
 Run as a script, this file prints the reference's pins that
 ``chip_smoke.py`` holds the card to (it may not import the reference):
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_serve.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_serve.py [ARCH]
+
+(one pin with an architecture's name, all of them without).
 """
 
 import dataclasses
@@ -66,9 +68,9 @@ def test_serve_engine_matches_reference(arch, monkeypatch):
 
     def watch(fn):
         def wrapped(*args, **kwargs):
-            logits, cache = fn(*args, **kwargs)
-            margins.append(_margin(logits[:, -1]))
-            return logits, cache
+            out = fn(*args, **kwargs)
+            margins.append(_margin(out[0][:, -1]))
+            return out
         return wrapped
 
     monkeypatch.setattr(E.T, "prefill", watch(T.prefill))
@@ -141,22 +143,38 @@ def test_serve_main_serves_a_depth_cut():
 #: machine's CPU 1.6 G normal draws for the weights, mixtral-8x7b 2 of its
 #: 32 (3.16 G draws; its 2 × 48-token prefill routes 192 assignments over
 #: 8 experts of capacity 32, so some are dropped).  qwen2-vl-2b is whole
-#: (1.54 G draws).
+#: (1.54 G draws).  whisper-large-v3 keeps 4 of its 32 encoder and 4 of
+#: its 32 decoder layers: each decode step re-projects the 1,500 frames'
+#: K/V in every decoder layer, which the reference's CPU run cannot afford
+#: at full depth; its frames are :func:`pin_frames`.
 PIN_RUNS = (("smollm-135m", None, 48, 16), ("mamba2-1.3b", 4, 48, 16),
-            ("mixtral-8x7b", 2, 48, 16), ("qwen2-vl-2b", None, 48, 16))
-PIN_SEED, PIN_PROMPT_SEED = 0, 4
+            ("mixtral-8x7b", 2, 48, 16), ("qwen2-vl-2b", None, 48, 16),
+            ("whisper-large-v3", 4, 48, 16))
+PIN_SEED, PIN_PROMPT_SEED, PIN_FRAME_SEED = 0, 4, 5
 
 
 def pin_config(arch, n_layers, get=get_config):
+    """The config cut to ``n_layers`` (an encoder-decoder's encoder
+    too)."""
     cfg = get(arch)
-    return cfg if n_layers is None else dataclasses.replace(
-        cfg, n_layers=n_layers)
+    if n_layers is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=n_layers, **(
+        {"n_enc_layers": n_layers} if cfg.enc_dec else {}))
 
 
 def pin_prompts(cfg, prompt_len):
     """Two prompts of the pinned length from a fixed numpy seed."""
     rng = np.random.default_rng(PIN_PROMPT_SEED)
     return rng.integers(0, cfg.vocab, (2, prompt_len)).astype(np.int32)
+
+
+def pin_frames(cfg, batch=2):
+    """An encoder-decoder's frame embeddings for the pins: seeded normal
+    draws × 0.02, as ``test_models.py`` makes them."""
+    rng = np.random.default_rng(PIN_FRAME_SEED)
+    return rng.standard_normal((batch, cfg.n_frames, cfg.d_model),
+                               dtype=np.float32) * np.float32(0.02)
 
 
 def _to_jax(tree):
@@ -168,19 +186,23 @@ def _to_jax(tree):
 
 
 def reference_pin(arch, n_layers, prompt_len, n_new):
-    """Greedy tokens and the prefill's top-5 last-position logits from the
-    JAX reference on ``reference_params_numpy(cfg, PIN_SEED)`` weights,
-    with the smallest top-1 margin of every step."""
+    """Greedy tokens, the prefill's top-5 last-position logits and the
+    last decode step's from the JAX reference on
+    ``reference_params_numpy(cfg, PIN_SEED)`` weights, with the smallest
+    top-1 margin of every step."""
     cfg = pin_config(arch, n_layers)
     jcfg = pin_config(arch, n_layers, j_get_config)
     params = _to_jax(reference_params_numpy(cfg, PIN_SEED))
     toks = pin_prompts(cfg, prompt_len)
+    frames = jnp.asarray(pin_frames(cfg)) if cfg.enc_dec else None
     cache = JT.init_cache(jcfg, 2, prompt_len + n_new, dtype=jnp.float32)
-    last, cache, _ = jax.jit(lambda p, t, c: JT.prefill(jcfg, p, t, c))(
-        params, jnp.asarray(toks), cache)
+    last, cache, memory = jax.jit(
+        lambda p, t, c, f: JT.prefill(jcfg, p, t, c, enc_frames=f))(
+        params, jnp.asarray(toks), cache, frames)
     last = np.asarray(last[:, -1])
     top5 = np.argsort(-last, axis=-1, kind="stable")[:, :5]
-    decode = jax.jit(lambda p, t, c, pos: JT.decode_step(jcfg, p, t, c, pos))
+    decode = jax.jit(lambda p, t, c, pos, mem: JT.decode_step(
+        jcfg, p, t, c, pos, memory=mem))
     logits, new, margins = last, [], []
     for k in range(n_new):
         srt = np.sort(logits, axis=-1)
@@ -188,15 +210,23 @@ def reference_pin(arch, n_layers, prompt_len, n_new):
         nxt = logits.argmax(-1).astype(np.int32)
         new.append(nxt.tolist())
         out, cache = decode(params, jnp.asarray(nxt[:, None]), cache,
-                            jnp.int32(prompt_len + k))
+                            jnp.int32(prompt_len + k), memory)
         logits = np.asarray(out[:, -1])
-    return {"arch": arch, "n_layers": cfg.n_layers, "prompt_len": prompt_len,
+    last_top5 = np.argsort(-logits, axis=-1, kind="stable")[:, :5]
+    return {"arch": arch, "n_layers": cfg.n_layers,
+            **({"n_enc_layers": cfg.n_enc_layers} if cfg.enc_dec else {}),
+            "prompt_len": prompt_len,
             "tokens": np.array(new).T.tolist(), "top5_ids": top5.tolist(),
             "top5_logits": np.take_along_axis(last, top5, -1).tolist(),
+            "last_top5_ids": last_top5.tolist(),
+            "last_top5_logits": np.take_along_axis(logits, last_top5,
+                                                   -1).tolist(),
             "min_margin": min(margins)}
 
 
 if __name__ == "__main__":
+    # ``python tests/test_torch_serve.py ARCH`` prints ARCH's pin alone
     for run in PIN_RUNS:
-        print(json.dumps(reference_pin(*run)), flush=True)
+        if sys.argv[1:] in ([], [run[0]]):
+            print(json.dumps(reference_pin(*run)), flush=True)
     sys.exit(0)

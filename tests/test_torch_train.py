@@ -25,14 +25,16 @@ Mirrors ``test_substrate.py`` (data pipeline, checkpointing, AdamW) and
 * a fixed batch is learnt well below the uniform floor, and training 20
   steps straight equals 10 steps, a checkpoint and a resumed 10.
 
-Run as a script, this file prints the reference's ``TRAIN_PINS`` and
-``MAMBA2_TRAIN_PINS`` that ``chip_smoke.py`` holds the card to, one JSON
-line each (smollm-135m at full size, 3 steps at batch 2 × seq 128, about a
-minute and 4 GB; mamba2-1.3b at full width with 4 of its 48 layers, 3
-steps at batch 2 × seq 320, three chunks of 128 with a ragged tail, a few
-minutes and about 6 GB):
+Run as a script, this file prints the reference's ``TRAIN_PINS``,
+``MAMBA2_TRAIN_PINS`` and ``WHISPER_TRAIN_PINS`` that ``chip_smoke.py``
+holds the card to, one JSON line each (smollm-135m at full size, 3 steps
+at batch 2 × seq 128, about a minute and 4 GB; mamba2-1.3b at full width
+with 4 of its 48 layers, 3 steps at batch 2 × seq 320, three chunks of
+128 with a ragged tail, a few minutes and about 6 GB; whisper-large-v3 at
+full width with 4 + 4 layers, 3 steps at batch 2 × seq 128 over seeded
+frames); an architecture's name prints its pin alone:
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_train.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_train.py [ARCH]
 """
 
 import dataclasses
@@ -70,11 +72,14 @@ pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 ARCHS = ["smollm-135m", "mamba2-1.3b", "h2o-danube-3-4b"]
 
 #: The pin runs of ``chip_smoke.py``, (arch, layers kept or None for all,
-#: steps, batch, seq): full-size smollm-135m, and mamba2-1.3b at full
-#: width with 4 layers (the depth cut of the serve pins), each on
+#: steps, batch, seq): full-size smollm-135m, mamba2-1.3b at full width
+#: with 4 layers (the depth cut of the serve pins) and whisper-large-v3 at
+#: full width with 4 encoder and 4 decoder layers over the serve pins'
+#: frames (``test_torch_serve.pin_frames``), each on
 #: ``reference_params_numpy(cfg, 0)`` and ``TokenPipeline`` batches of
 #: seed 0, the launcher's AdamW (lr 3e-4, warmup 10).
-PIN_RUNS = (("smollm-135m", None, 3, 2, 128), ("mamba2-1.3b", 4, 3, 2, 320))
+PIN_RUNS = (("smollm-135m", None, 3, 2, 128), ("mamba2-1.3b", 4, 3, 2, 320),
+            ("whisper-large-v3", 4, 3, 2, 128))
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +201,25 @@ def test_adamw_descends_quadratic():
     assert norms[-1] < norms[0]          # monotone progress overall
 
 
+def test_global_norm_of_large_leaves_on_the_cpu():
+    """The global norm of leaves of 2²² entries, a few large ones first,
+    within rel 1e-6 of the f64 norm and of the reference's
+    ``global_norm``: torch's f32 norm on the CPU drifts by 1e-3 there
+    (whisper-large-v3 at full width with 4 + 4 layers gave a step-1 grad
+    norm 7.5e-4 below the reference's)."""
+    rng = np.random.default_rng(6)
+    leaves = []
+    for _ in range(2):
+        x = (rng.standard_normal(1 << 22) * 1e-3).astype(np.float32)
+        x[:1000] += 1.0
+        leaves.append(x)
+    want = np.sqrt(sum((x.astype(np.float64) ** 2).sum() for x in leaves))
+    got = float(adamw.global_norm([torch.from_numpy(x) for x in leaves]))
+    ref = float(JA.global_norm([jnp.asarray(x) for x in leaves]))
+    assert got == pytest.approx(want, rel=1e-6)
+    assert got == pytest.approx(ref, rel=1e-6)
+
+
 def test_adamw_clips_gradients():
     cfg = adamw.AdamWConfig(clip_norm=1.0)
     x = torch.zeros(3)
@@ -214,6 +238,33 @@ def test_adamw_bf16_state():
     state, _ = adamw.apply([x], [torch.ones(4)], state, cfg)
     assert state["v"][0].dtype == torch.bfloat16
     assert x.dtype == torch.float32 and state["step"] == 1
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_adamw_leaf_groups_give_the_same_bits(state_dtype, monkeypatch):
+    """``apply`` updates the leaves a group of at most ``GROUP_ELEMS``
+    elements at a time (a larger leaf alone): the groups bound its
+    temporaries, and every entry's update is the same bits whatever the
+    grouping."""
+    rng = np.random.default_rng(8)
+    shapes = [(5, 7), (300,), (2, 3, 4), (1,), (64, 8)]
+    params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for s in shapes] for _ in range(3)]
+    cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=5,
+                            clip_norm=0.5,
+                            state_dtype=getattr(torch, state_dtype))
+    runs = []
+    for elems, n_groups in ((1 << 28, 1), (300, 4), (1, 5)):
+        monkeypatch.setattr(adamw, "GROUP_ELEMS", elems)
+        ours = [torch.from_numpy(p.copy()) for p in params]
+        assert len(adamw._groups(ours)) == n_groups
+        state = adamw.init_state(ours, cfg)
+        for g in grads:
+            state, stats = adamw.apply(ours, g, state, cfg)
+        runs.append([*ours, *state["m"], *state["v"], stats["grad_norm"]])
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
 
 
 @pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
@@ -437,11 +488,11 @@ def test_crash_resume_continuity(tmp_path):
 
 def reference_train_pin(arch, n_layers, steps, batch, seq) -> dict:
     """The reference's losses and grad norms on one pin run."""
-    cfg, jcfg = get_config(arch), j_get_config(arch)
-    if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
-        jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
+    from test_torch_serve import pin_config, pin_frames
+    cfg = pin_config(arch, n_layers)
+    jcfg = pin_config(arch, n_layers, j_get_config)
     params = jax.tree.map(jnp.asarray, reference_params_numpy(cfg, 0))
+    frames = (jnp.asarray(pin_frames(cfg, batch)),) if cfg.enc_dec else ()
     opt_cfg = JA.AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=steps)
     step = jax.jit(JS.make_train_step(jcfg, JS.CellPlan(
         grad_accum=1, remat=False, param_dtype=jnp.float32), opt_cfg))
@@ -450,15 +501,20 @@ def reference_train_pin(arch, n_layers, steps, batch, seq) -> dict:
                                       seq=seq, seed=0))
     losses, gnorms = [], []
     for _ in range(steps):
-        params, opt, loss, gnorm = step(params, opt, jnp.asarray(next(pipe)))
+        params, opt, loss, gnorm = step(params, opt, jnp.asarray(next(pipe)),
+                                        *frames)
         losses.append(float(loss))
         gnorms.append(float(gnorm))
-    return {"arch": arch, "n_layers": n_layers, "steps": steps,
+    return {"arch": arch, "n_layers": n_layers,
+            **({"n_enc_layers": cfg.n_enc_layers} if cfg.enc_dec else {}),
+            "steps": steps,
             "batch": batch, "seq": seq, "losses": losses,
             "grad_norms": gnorms}
 
 
 if __name__ == "__main__":
+    # ``python tests/test_torch_train.py ARCH`` prints ARCH's pin alone
     for run in PIN_RUNS:
-        print(json.dumps(reference_train_pin(*run)), flush=True)
+        if sys.argv[1:] in ([], [run[0]]):
+            print(json.dumps(reference_train_pin(*run)), flush=True)
     sys.exit(0)
