@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # from the repository root, one card
 
 1. builds every CUDA source in ``src/repro_torch/csrc`` (one ``nvcc`` each,
-   started together) into ``build/``;
+   started together) into ``build/``, and counts the tensor-core (HMMA)
+   instructions of the bf16 prefill kernel in ``cuobjdump -sass``;
 2. holds each kernel against its plain torch version on the card: the
    Fail-Slow Sketch insert (random run streams, forced eviction, the
    promotion/steal branches, a per-record stream, a carried state, two
@@ -44,7 +45,11 @@
    decode), K3's backward, the SSD scan and its backward, and of one
    mixture-of-experts layer at mixtral-8x7b's and at
    dbrx-132b's full width (4 × 512 tokens; outputs, aux and routing) must
-   be bit-identical;
+   be bit-identical; and K3's bf16 entry points (every shape above in
+   bf16, and yi-34b's GQA 7 prefill and decode) and K4's bf16 entry (the
+   SSD shapes, x, b and c in bf16) against their plain versions in bf16,
+   within 4 bf16 ulps of each output row's largest entry, each run twice
+   and bit-identical;
 3. drives the detection path, ``Sloth.detect`` with the batched recorder
    on the card, for resnet50 on an 8×8 mesh (core 6, link 20, no fault)
    with the launch counts set to 0 just before and read just after, plus
@@ -108,6 +113,18 @@
    CUDA events, with the calls queued behind a device-side spin so the host cannot pace them, and the
    back-to-back event time beside it (which includes the host's wrapper
    cost where the host is the slower side);
+9b. bf16 serving: times K3's bf16 entries (smollm-135m's and yi-34b's
+   prefill and decode, whisper-large-v3's non-causal shapes) and K4's
+   (mamba2-1.3b's prefill) beside their plain versions, bounds (bf16
+   tensor-core rate for the prefill) and SDPA in bf16; serves yi-34b
+   (60 layers, 68.8 GB of bf16 weights), smollm-135m and mamba2-1.3b
+   whole through ``ServeEngine(EngineConfig(dtype=torch.bfloat16))`` on
+   ``init_model(dtype=torch.bfloat16)``, the launcher's request set, with
+   the counts set to 0 just before ``engine.run``: K3's bf16 entries
+   exactly 3,960 (yi: 120 prefill + 3,840 decode) and 1,980 times, K4's
+   96, no f32 kernel launch, no plain version, peak device memory below
+   the card's; profiles each; holds the reference's bf16 pins
+   (``BF16_PINS``) teacher-forced, near ties printed;
 10. times K3's backward at smollm-135m's training shape and at
    whisper-large-v3's encoder and cross-attention shapes beside its plain
    mirror, its bound and SDPA's backward through autograd, and K4's
@@ -181,9 +198,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM peaks from NVIDIA's data sheet (dense, 700 W).
+#: H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): memory, f32 on
+#: CUDA cores, bf16 on tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 #: Verdicts of the JAX reference (``repro``, recorder_impl="batched", seed 0,
 #: t0=1 s, duration 8 s, slowdown 10×): (flagged, kind, location,
@@ -285,7 +304,15 @@ class CheckFailed(RuntimeError):
     pass
 
 
+#: The script's start, for each phase's ``t_s``.
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets ``t_s``, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1604,7 +1631,8 @@ def check_pin(pin, dev, lib):
         dropped.append(int((~r.keep).sum()))
         return r
     lib.reset_launches()
-    cache = T.init_cache(cfg, 2, PIN_PROMPT_LEN + n_new, device=dev)
+    cache = T.init_cache(cfg, 2, PIN_PROMPT_LEN + n_new, device=dev,
+                         dtype=torch.float32)
     L.moe_route = counted_route
     try:
         last, cache, memory = T.prefill(
@@ -1677,13 +1705,16 @@ KERNEL_TIME_KEYS = ("ms", "plain_ms", "library_ms", "events_ms",
 
 def time_attention(q, k, v, q_pos, k_pos, reps, window=None, causal=True):
     """Kernel, plain version and SDPA (same boolean mask, or none where
-    every pair is live) on one case.  Bound from bytes (q, the output, both
-    position tables, and the K/V of only the slots some query can use) and
-    from 4·D f32 operations per live (query, key) pair."""
+    every pair is live) on one case, in q's type (SDPA too).  Bound from
+    bytes (q, the output, both position tables, and the K/V of only the
+    slots some query can use) and from 4·D operations per live (query, key)
+    pair, at the f32 rate or, for the bf16 prefill (tensor cores), the
+    bf16 rate."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_cuda,
+                                                        uses_decode)
     from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                          live_mask)
     # [S, T] (live_mask leaves the query axis at 1 when no mask needs it)
@@ -1708,11 +1739,16 @@ def time_attention(q, k, v, q_pos, k_pos, reps, window=None, causal=True):
     lib_err, _ = allclose(library().transpose(1, 2), plain(), 2e-5)
     b, s, hq, d = q.shape
     live_slots = int(mask.any(0).sum())
-    nbytes = (2 * q.numel() * 4 + (q_pos.numel() + k_pos.numel()) * 4
-              + 2 * b * live_slots * k.shape[2] * d * 4)
+    es = q.element_size()
+    nbytes = (2 * q.numel() * es + (q_pos.numel() + k_pos.numel()) * 4
+              + 2 * b * live_slots * k.shape[2] * d * es)
     flops = 4 * d * b * hq * int(mask.sum())
+    tensor_cores = (q.dtype == torch.bfloat16
+                    and not uses_decode(s, hq, k.shape[2]))
     return {**times(kernel, plain, library, reps),
-            **bound(nbytes, flops), "live_slots": live_slots,
+            **bound(nbytes, flops,
+                    BF16_FLOP_PER_S if tensor_cores else FP32_FLOP_PER_S),
+            "live_slots": live_slots,
             "kernel_breakdown_ms": launch_breakdown(kernel, reps),
             "max_abs_err": err, "library_max_abs_err_vs_plain": lib_err}
 
@@ -1741,25 +1777,29 @@ def timing_label(paced) -> str:
         f"; back to back for {', '.join(paced)}" if paced else "")
 
 
-def bound(nbytes, flops):
-    """The least time: bytes over the memory rate or f32 operations over
-    the peak rate, whichever is larger."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound(nbytes, flops, peak=FP32_FLOP_PER_S):
+    """The least time: bytes over the memory rate or operations over
+    ``peak``, their type's peak rate (f32 on CUDA cores unless given),
+    whichever is larger."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return {"bound_ms": max(by_bytes, by_ops) * 1e3,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes": nbytes, "flops": flops}
 
 
-def time_ssd(dev, reps):
+def time_ssd(dev, reps, bf16=False):
     """Kernel and plain version at mamba2-1.3b's serving prefill (the
-    serving path starts from a zero state); bound from bytes and from the
-    f32 operations of the causal half of C·Bᵀ (once per group: the heads
-    of a group share C and B), the intra-chunk product, the state update
-    and the inter-chunk term."""
+    serving path starts from a zero state), with x, b and c in bf16 if
+    ``bf16``; bound from bytes and from the f32 operations (the bf16 entry
+    computes in f32 too) of the causal half of C·Bᵀ (once per group: the
+    heads of a group share C and B), the intra-chunk product, the state
+    update and the inter-chunk term."""
     from repro_torch.kernels.ssd_scan.ops import ssd_cuda
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
     b, s, h, p, g, n, q = SSD_CASES[-1]
     args, st0 = ssd_inputs(dev, b, s, h, p, g, n, 99, False)
+    if bf16:
+        args = bf16_ssd_args(args)
 
     def kernel():
         return ssd_cuda(*args, chunk=q, init_state=st0)
@@ -1769,7 +1809,8 @@ def time_ssd(dev, reps):
 
     (yk, sk), (yp, sp) = kernel(), plain()
     err = max(allclose(yk, yp, 2e-4)[0], allclose(sk, sp, 2e-4)[0])
-    nbytes = sum(x.numel() * 4 for x in (*args, st0, yk, sk))
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (*args, st0, yk, sk))
     pairs = sum(m * (m + 1) // 2 for m in
                 [min(q, s - t0) for t0 in range(0, s, q)])
     flops = b * (g * 2 * pairs * n + h * (2 * pairs * p + 4 * s * p * n))
@@ -1831,10 +1872,437 @@ def time_ssd_bwd(dev, reps):
             / 1e6}
 
 
-def profile_serving(arch, dev, n_layers=None):
+# ---------------------------------------------------------------------------
+# bf16 serving: K3 and K4 in bf16, the bf16 serve runs and pins
+# ---------------------------------------------------------------------------
+
+#: bf16 kernels against their plain versions on the card: within this many
+#: bf16 ulps (2^(floor(log2 x) − 7)) of each output row's largest |entry|
+#: (the last axis).  Both compute in f32 from the same bf16 inputs and round
+#: the result once, but sum in other orders, so a P (K3) or the result may
+#: round to the other side of a boundary.
+BF16_ULPS = 4
+
+#: The port in bf16 on the card against the reference's bf16 pins: the
+#: port's logits at the pinned top-5 ids within this many bf16 ulps of the
+#: step's largest pinned logit (the two round in other places: the
+#: reference's attention rounds the normalised probabilities, its SSD keeps
+#: y in f32, XLA's and cuBLAS's bf16 products sum in other orders; the
+#: port on the CPU came within 3 on all three pins, and the card sums in
+#: other orders again).  The port's argmax
+#: must be the pinned token wherever the pinned top-1/top-2 margin exceeds
+#: twice the tolerance; a step below that is printed as a near tie.
+BF16_PIN_ULPS = 6
+
+#: The JAX reference's bf16 serving (``python tests/test_torch_serve.py``,
+#: CPU, ``BF16_PIN_RUNS``): ``reference_params_numpy(cfg, 0)`` weights
+#: rounded to bf16 by the per-leaf rule, a bf16 cache, the two prompts of
+#: ``PINS``; per step (the prefill's last position, then decode steps fed
+#: the previous greedy token) the top-5 ids and logits and each row's
+#: top-1/top-2 margin.  smollm-135m whole, mamba2-1.3b with 4 of its 48
+#: layers, yi-34b at full width with 2 of its 60 (2.03 G parameters).
+BF16_PINS = json.loads("""
+[{"arch": "smollm-135m", "n_layers": 30, "dtype": "bfloat16", "prompt_len":
+48, "tokens": [[48556, 39997, 46394, 38563, 9961, 39997, 8440, 48556], [26033,
+21246, 30959, 20206, 28629, 10066, 3946, 18280]], "top5_ids": [[[48556, 15864,
+39997, 13559, 28947], [26033, 46264, 21482, 14945, 10080]], [[39997, 10622,
+40985, 47292, 8086], [21246, 26033, 269, 40842, 27781]], [[46394, 10622,
+43731, 17071, 22888], [30959, 13600, 12267, 43872, 42088]], [[38563, 15864,
+6528, 40916, 48556], [20206, 40667, 31927, 9855, 4834]], [[9961, 27798, 43731,
+14210, 25736], [28629, 2702, 40462, 9998, 10066]], [[39997, 10622, 22321,
+15833, 39252], [10066, 12463, 46264, 18132, 44098]], [[8440, 23725, 46394,
+14847, 10622], [3946, 5322, 26177, 33378, 2258]], [[48556, 11466, 48211,
+20394, 10622], [18280, 9904, 21246, 15775, 12661]]], "top5_logits":
+[[[2.078125, 2.0, 1.84375, 1.8203125, 1.765625], [2.078125, 2.0, 1.8125,
+1.7890625, 1.78125]], [[1.9453125, 1.8359375, 1.78125, 1.78125, 1.7734375],
+[2.078125, 1.8671875, 1.828125, 1.8125, 1.8046875]], [[1.8671875, 1.7734375,
+1.7734375, 1.75, 1.75], [1.921875, 1.890625, 1.828125, 1.828125, 1.8125]],
+[[1.8828125, 1.8671875, 1.8359375, 1.8359375, 1.828125], [2.171875, 2.109375,
+1.9453125, 1.8984375, 1.875]], [[2.125, 1.921875, 1.8359375, 1.8203125,
+1.7734375], [1.875, 1.8359375, 1.8046875, 1.78125, 1.7578125]], [[1.9921875,
+1.8359375, 1.78125, 1.7421875, 1.7421875], [1.9453125, 1.8671875, 1.84375,
+1.8203125, 1.8046875]], [[1.8828125, 1.8515625, 1.7890625, 1.7734375,
+1.7578125], [1.75, 1.75, 1.734375, 1.6953125, 1.6796875]], [[1.875, 1.84375,
+1.8203125, 1.8125, 1.7734375], [1.828125, 1.8046875, 1.7890625, 1.7578125,
+1.75]]], "margins": [[0.078125, 0.078125], [0.109375, 0.2109375], [0.09375,
+0.03125], [0.015625, 0.0625], [0.203125, 0.0390625], [0.15625, 0.078125],
+[0.03125, 0.0], [0.03125, 0.0234375]]}, {"arch": "mamba2-1.3b", "n_layers": 4,
+"dtype": "bfloat16", "prompt_len": 48, "tokens": [[34293, 43426, 35941, 19833,
+38728, 12822, 31680, 41508], [3581, 20871, 16916, 39207, 37639, 32631, 11239,
+38727]], "top5_ids": [[[34293, 48855, 5909, 11774, 10213], [3581, 16536, 6454,
+15599, 36950]], [[43426, 32982, 14888, 49944, 36416], [20871, 643, 21388,
+28112, 42264]], [[35941, 43209, 3800, 46048, 11971], [16916, 5463, 37540,
+18479, 18703]], [[19833, 17889, 4571, 2138, 3252], [39207, 22483, 26470,
+15890, 34765]], [[38728, 38232, 15488, 21966, 11509], [37639, 7205, 34604,
+21171, 22927]], [[12822, 13126, 43189, 42273, 18469], [32631, 37230, 23576,
+18519, 6005]], [[31680, 595, 16692, 18094, 35356], [11239, 25600, 42554,
+48980, 49263]], [[41508, 2281, 24284, 20343, 28004], [38727, 33235, 8322,
+24577, 45097]]], "top5_logits": [[[3.90625, 3.65625, 3.5625, 3.4375,
+3.359375], [3.5, 3.453125, 3.40625, 3.40625, 3.359375]], [[4.03125, 3.96875,
+3.71875, 3.703125, 3.625], [3.671875, 3.640625, 3.625, 3.609375, 3.5625]],
+[[3.984375, 3.8125, 3.578125, 3.5625, 3.515625], [4.03125, 3.65625, 3.5625,
+3.546875, 3.53125]], [[4.03125, 3.84375, 3.8125, 3.71875, 3.640625], [3.5625,
+3.390625, 3.359375, 3.328125, 3.296875]], [[3.765625, 3.703125, 3.6875,
+3.59375, 3.453125], [3.890625, 3.8125, 3.65625, 3.609375, 3.421875]],
+[[3.8125, 3.578125, 3.46875, 3.375, 3.328125], [3.765625, 3.484375, 3.296875,
+3.28125, 3.234375]], [[3.65625, 3.59375, 3.59375, 3.546875, 3.546875], [4.0,
+3.9375, 3.6875, 3.609375, 3.5]], [[3.890625, 3.453125, 3.328125, 3.28125,
+3.28125], [3.625, 3.59375, 3.46875, 3.328125, 3.3125]]], "margins": [[0.25,
+0.046875], [0.0625, 0.03125], [0.171875, 0.375], [0.1875, 0.171875], [0.0625,
+0.078125], [0.234375, 0.28125], [0.0625, 0.0625], [0.4375, 0.03125]]},
+{"arch": "yi-34b", "n_layers": 2, "dtype": "bfloat16", "prompt_len": 48,
+"tokens": [[1513, 21910, 24031, 13263, 17023, 47471, 18819, 50854], [1023,
+43869, 16273, 51228, 22529, 6776, 48895, 51041]], "top5_ids": [[[1513, 50732,
+6742, 24955, 54391], [1023, 46580, 26802, 48748, 30525]], [[21910, 44663,
+3859, 28681, 37073], [43869, 34971, 36851, 5620, 25061]], [[24031, 34768,
+21833, 47715, 58155], [16273, 5539, 9689, 48972, 61020]], [[13263, 37035,
+44887, 17023, 16243], [51228, 16177, 47756, 25659, 6427]], [[17023, 22209,
+18287, 33997, 63680], [22529, 9542, 3259, 60523, 6818]], [[47471, 16289,
+32209, 40971, 34199], [6776, 43830, 21511, 60616, 11192]], [[18819, 21006,
+14899, 42987, 47277], [48895, 5321, 14853, 22996, 41689]], [[50854, 28830,
+47712, 35173, 29041], [51041, 42384, 39468, 49937, 1866]]], "top5_logits":
+[[[7.3125, 6.875, 6.8125, 6.59375, 6.59375], [6.96875, 6.96875, 6.875,
+6.78125, 6.34375]], [[7.09375, 7.0, 6.5, 6.46875, 6.4375], [7.21875, 6.625,
+6.5, 6.40625, 6.40625]], [[6.96875, 6.75, 6.65625, 6.34375, 6.25], [7.1875,
+7.125, 6.875, 6.65625, 6.53125]], [[7.34375, 7.09375, 6.8125, 6.625, 6.5],
+[6.71875, 6.53125, 6.5, 6.46875, 6.375]], [[6.84375, 6.46875, 6.4375, 6.34375,
+6.3125], [8.5, 7.84375, 7.46875, 7.46875, 7.125]], [[7.0, 6.96875, 6.90625,
+6.75, 6.46875], [7.25, 6.46875, 6.34375, 6.28125, 6.1875]], [[7.25, 6.78125,
+6.75, 6.5, 6.46875], [6.78125, 6.6875, 6.4375, 6.375, 6.3125]], [[6.59375,
+6.4375, 6.375, 6.34375, 6.3125], [6.875, 6.78125, 6.59375, 6.5, 6.40625]]],
+"margins": [[0.4375, 0.0], [0.09375, 0.59375], [0.21875, 0.0625], [0.25,
+0.1875], [0.375, 0.65625], [0.03125, 0.78125], [0.46875, 0.09375], [0.15625,
+0.09375]]}]
+""")
+
+#: yi-34b's attention: 56 query heads over 8 KV heads of 128.
+YI_HEADS = (56, 8)
+
+#: The bf16 serve runs: ``ServeEngine(EngineConfig(dtype=torch.bfloat16))``
+#: on ``init_model(dtype=torch.bfloat16)``, whole, with the launcher's
+#: request set (``SERVE_FLAGS``).
+SERVE_BF16_RUNS = ("yi-34b", "smollm-135m", "mamba2-1.3b")
+
+
+def bf16_rows_gap(got, exp):
+    """(the largest |got − exp| in bf16 ulps of its row's largest |exp|,
+    the largest |got − exp|)."""
+    import torch
+    g, e = got.float(), exp.float()
+    top = e.abs().amax(-1, keepdim=True).clamp_min(2.0 ** -100)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    gap = (g - e).abs()
+    return float((gap / ulp).max()), float(gap.max())
+
+
+def bf16_attention_cases(dev):
+    """Every :func:`attention_cases` case in bf16, then yi-34b's serving
+    shapes: its 4 × 512 prefill (GQA 7, head dim 128) and its last decode
+    step over the serve run's 1,024-slot fill."""
+    import torch
+    cases = [(label, q.bfloat16(), k.bfloat16(), v.bfloat16(), qp, kp,
+              causal, win)
+             for label, q, k, v, qp, kp, causal, win in attention_cases(dev)]
+    rng = np.random.default_rng(17)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).bfloat16()
+    hq, hk = YI_HEADS
+    pos = torch.arange(512, dtype=torch.int32, device=dev)
+    cases.append((f"yi-34b prefill [4,512,{hq},128]", rand(4, 512, hq, 128),
+                  rand(4, 512, hk, 128), rand(4, 512, hk, 128), pos, pos,
+                  True, None))
+    cases.append((f"yi-34b decode [4,1,{hq},128] at the serve fill",
+                  rand(4, 1, hq, 128), rand(4, 1024, hk, 128),
+                  rand(4, 1024, hk, 128),
+                  torch.tensor([543], dtype=torch.int32, device=dev),
+                  serve_fill_tab(dev), True, None))
+    return cases
+
+
+def check_attention_bf16(dev, lib):
+    """Both bf16 entry points against the plain version in bf16 on every
+    case of :func:`bf16_attention_cases`, each run twice (bit-identical),
+    within ``BF16_ULPS``; the bf16 launch keys counted, the f32 ones not."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_cuda, uses_decode)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    out, worst_ulps, worst = [], 0.0, 0.0
+    for label, q, k, v, qp, kp, causal, win in bf16_attention_cases(dev):
+        key = "flash_attention_bf16_" + (
+            "decode" if uses_decode(q.shape[1], q.shape[2], k.shape[2])
+            else "prefill")
+        before = dict(lib.LAUNCHES)
+        a, b = (flash_attention_cuda(q, k, v, q_pos=qp, k_pos=kp,
+                                     causal=causal, window=win)
+                for _ in range(2))
+        require(lib.LAUNCHES[key] == before[key] + 2
+                and lib.LAUNCHES["flash_attention"]
+                == before["flash_attention"], f"{label}: not {key}")
+        exp = attention_ref(q, k, v, q_pos=qp, k_pos=kp, causal=causal,
+                            window=win)
+        ulps, err = bf16_rows_gap(a, exp)
+        same = bool(torch.equal(a, b))
+        require(a.dtype == torch.bfloat16 and ulps <= BF16_ULPS,
+                f"bf16 flash attention vs plain, {label} window {win}: "
+                f"{ulps} ulps")
+        require(same, f"bf16 flash attention, {label}: two runs differ")
+        worst_ulps, worst = max(worst_ulps, ulps), max(worst, err)
+        out.append({"case": label, "entry": key, "causal": causal,
+                    "window": win, "max_ulps": ulps, "max_abs_err": err,
+                    "bit_identical": same})
+    return out, worst_ulps, worst
+
+
+def bf16_ssd_args(args):
+    """(x, dt, a, b, c) with x, b and c in bf16, as the model hands them to
+    the scan."""
+    x, dt, a, b, c = args
+    return [x.bfloat16(), dt, a, b.bfloat16(), c.bfloat16()]
+
+
+def check_ssd_bf16(dev, lib):
+    """K4's bf16 entry against the plain version in bf16 at ``SSD_CASES``,
+    from a zero and a non-zero state, each run twice (bit-identical): y
+    within ``BF16_ULPS``, the f32 state at 2e-4."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import ssd_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    out, worst_ulps, worst = [], 0.0, 0.0
+    for i, (b, s, h, p, g, n, chunk) in enumerate(SSD_CASES):
+        for with_state in (False, True):
+            args, st0 = ssd_inputs(dev, b, s, h, p, g, n, 50 + i, with_state)
+            args = bf16_ssd_args(args)
+            init = st0 if with_state else None
+            before = lib.LAUNCHES["ssd_scan_bf16"]
+            (y1, s1), (y2, s2) = (ssd_cuda(*args, chunk=chunk,
+                                           init_state=init)
+                                  for _ in range(2))
+            require(lib.LAUNCHES["ssd_scan_bf16"] == before + 2,
+                    "ssd_scan_bf16 launches")
+            yp, sp = ssd_ref(*args, chunk=chunk, init_state=init)
+            ulps, err = bf16_rows_gap(y1, yp)
+            es, oks = allclose(s1, sp, 2e-4)
+            same = bool(torch.equal(y1, y2) and torch.equal(s1, s2))
+            require(y1.dtype == torch.bfloat16 and ulps <= BF16_ULPS and oks,
+                    f"bf16 ssd scan vs plain {SSD_CASES[i]} state="
+                    f"{with_state}: y {ulps} ulps, state {es}")
+            require(same, f"bf16 ssd scan {SSD_CASES[i]}: two runs differ")
+            worst_ulps, worst = max(worst_ulps, ulps), max(worst, err, es)
+            out.append({"shape": list(SSD_CASES[i]), "init_state": with_state,
+                        "y_max_ulps": ulps, "y_max_abs_err": err,
+                        "state_max_abs_err": es, "bit_identical": same})
+    return out, worst_ulps, worst
+
+
+def sass_hmma_counts(lib) -> dict:
+    """HMMA (tensor-core) instructions in the SASS of each instantiation of
+    the bf16 prefill kernel, by head dim, from ``cuobjdump -sass`` of the
+    built library."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    text = subprocess.run(
+        [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass",
+         str(lib._target("flash_attention"))], capture_output=True,
+        text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            m = re.search(r"flash_prefill_bf16_kernelILi(\d+)E", name)
+            fn = f"D={m.group(1)}" if m else None
+            if fn:
+                counts.setdefault(fn, 0)
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def serve_bf16_run(arch, dev, lib):
+    """``ServeEngine(EngineConfig(dtype=torch.bfloat16))`` on
+    ``init_model(dtype=torch.bfloat16)`` at full size, the launcher's
+    request set (``SERVE_FLAGS``), with the counts set to 0 just before
+    ``engine.run``: K3's bf16 entries once per attention layer per prefill
+    and decode step, K4's once per SSD layer per prefill, no f32 kernel
+    launch and no plain version; the peak device memory below the card's.
+    Then :func:`profile_serving` on the same model."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    cfg = get_config(arch)
+    n_req, batch, prompt_len, cache_len, max_new = 8, 4, 512, 1024, 32
+    n_batches = -(-n_req // batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(cfg, model, EngineConfig(
+        batch=batch, cache_len=cache_len, dtype=torch.bfloat16, device=dev))
+    for req in serve.make_requests(cfg, n_req, prompt_len, max_new, 0):
+        engine.submit(req)
+    lib.reset_launches()
+    with PlainCalls((fa_ops, "attention_ref"), (ssd_ops, "ssd_ref")) as plain:
+        t0 = time.perf_counter()
+        done = engine.run()
+        wall = time.perf_counter() - t0
+    launches = dict(lib.LAUNCHES)
+    stats = serve.summary(engine, done, wall)
+    per_step = cfg.n_attn_layers
+    want = {"flash_attention_bf16": n_batches * per_step * (1 + max_new),
+            "flash_attention_bf16_prefill": n_batches * per_step,
+            "flash_attention_bf16_decode": n_batches * per_step * max_new,
+            "ssd_scan_bf16": (cfg.n_layers - cfg.n_attn_layers) * n_batches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    summary = {"phase": "serve_bf16", "arch": arch, "layers": cfg.n_layers,
+               "weights_gb": sum(p.numel() * p.element_size()
+                                 for p in model.parameters()) / 1e9,
+               "init_s": init_s, **stats, "launches": launches,
+               "expected_launches": want, "plain_calls": plain.n,
+               "peak_mem_gb": peak / 1e9, "device_mem_gb": total / 1e9}
+    emit(summary)
+    for key in ("prefill_ms_mean", "decode_ms_p50", "decode_ms_p99",
+                "tok_per_s", "peak_mem_gb"):
+        print(f"{arch} bf16 {key} {summary[key]}", flush=True)
+    require([r.rid for r in done] == list(range(n_req)), f"{arch}: requests")
+    require(all(len(r.out_tokens) == max_new
+                and all(0 <= t < cfg.vocab for t in r.out_tokens)
+                for r in done), f"{arch}: tokens per request")
+    for name, n in launches.items():
+        require(n == want.get(name, 0),
+                f"{arch} bf16: {name} launched {n} times, not "
+                f"{want.get(name, 0)}")
+    require(plain.n == 0, f"{arch} bf16: a plain version ran {plain.n} times")
+    require(peak < total, f"{arch} bf16: peak {peak} of {total} bytes")
+    prof = profile_serving(arch, dev, model=model)
+    for stage in ("prefill", "decode_step"):
+        print(f"{arch} bf16 {stage} device_ms {prof[stage]['device_ms']} "
+              f"idle {prof[stage]['device_idle_share']}", flush=True)
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {**summary, "profile": prof}
+
+
+def check_bf16_pin(pin, dev, lib):
+    """The port in bf16 on the card against one of ``BF16_PINS``,
+    teacher-forced: the same weights (``reference_params_numpy`` rounded by
+    the per-leaf rule in ``params_from_numpy(dtype=torch.bfloat16)``) and
+    prompts; at each step the logits at the pinned top-5 ids within
+    ``BF16_PIN_ULPS`` of the step's largest pinned logit, the argmax the
+    pinned token where the pinned margin exceeds twice that, and the next
+    step fed the pinned token.  Near ties are printed.  Only bf16 kernels
+    launch."""
+    import torch
+
+    from repro_torch.convert import params_from_numpy, reference_params_numpy
+    from repro_torch.models import transformer as T
+    cfg = pin_config(pin)
+    model = params_from_numpy(cfg, reference_params_numpy(cfg, 0), dev,
+                              dtype=torch.bfloat16)
+    plen, n = pin["prompt_len"], len(pin["top5_ids"])
+    toks = np.random.default_rng(PIN_PROMPT_SEED).integers(
+        0, cfg.vocab, (2, plen)).astype(np.int32)
+    forced = torch.tensor(pin["tokens"], dtype=torch.int32, device=dev)
+    lib.reset_launches()
+    cache = T.init_cache(cfg, 2, plen + n, device=dev, dtype=torch.bfloat16)
+    last, cache, _ = T.prefill(cfg, model, torch.from_numpy(toks).to(dev),
+                               cache)
+    logits = last[:, -1].float()
+    steps, ties, worst = [], [], 0.0
+    for k in range(n):
+        vals = torch.tensor(pin["top5_logits"][k])
+        got = logits.gather(-1, torch.tensor(pin["top5_ids"][k],
+                                             device=dev)).cpu()
+        ulp = 2.0 ** (np.floor(np.log2(float(vals.abs().max()))) - 7)
+        tol = BF16_PIN_ULPS * ulp
+        err = float((got - vals).abs().max())
+        top = logits.argmax(-1).tolist()
+        for row in range(2):
+            margin = pin["margins"][k][row]
+            if margin > 2 * tol:
+                require(top[row] == pin["tokens"][row][k],
+                        f"{pin['arch']} bf16 step {k} row {row}: argmax "
+                        f"{top[row]}, pinned {pin['tokens'][row][k]} "
+                        f"(margin {margin})")
+            else:
+                ties.append({"step": k, "row": row, "margin": margin,
+                             "argmax": top[row],
+                             "pinned": pin["tokens"][row][k]})
+        require(err <= tol, f"{pin['arch']} bf16 step {k}: top-5 logits off "
+                            f"by {err} (tolerance {tol})")
+        worst = max(worst, err / ulp)
+        steps.append({"step": k, "max_abs_err": err, "tol": tol})
+        if k + 1 < n:
+            out, cache = T.decode_step(cfg, model, forced[:, k:k + 1], cache,
+                                       plen + k)
+            logits = out[:, -1].float()
+    launches = dict(lib.LAUNCHES)
+    emit({"phase": "reference_pin_bf16", "arch": pin["arch"],
+          "layers": cfg.n_layers, "steps": steps, "max_ulps": worst,
+          "near_ties": ties, "launches": launches})
+    require(launches["flash_attention"] == 0 and launches["ssd_scan"] == 0,
+            f"{pin['arch']} bf16 pin: an f32 kernel launched")
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_bf16_kernels(dev):
+    """K3's bf16 entries at the bf16 serving shapes (smollm-135m's prefill,
+    yi-34b's prefill and last decode step, whisper-large-v3's non-causal
+    encoder, cross prefill and cross decode) and K4's at mamba2-1.3b's
+    prefill, beside the plain versions, the bounds and SDPA in bf16."""
+    import torch
+    rng = np.random.default_rng(23)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).bfloat16()
+    pos = torch.arange(512, dtype=torch.int32, device=dev)
+    at543 = torch.tensor([543], dtype=torch.int32, device=dev)
+    hq, hk = YI_HEADS
+    out = {
+        "smollm-135m_prefill": time_attention(
+            rand(4, 512, 9, 64), rand(4, 512, 3, 64), rand(4, 512, 3, 64),
+            pos, pos, reps=20),
+        "smollm-135m_decode": time_attention(
+            rand(4, 1, 9, 64), rand(4, 1024, 3, 64), rand(4, 1024, 3, 64),
+            at543, serve_fill_tab(dev), reps=50),
+        "yi-34b_prefill": time_attention(
+            rand(4, 512, hq, 128), rand(4, 512, hk, 128),
+            rand(4, 512, hk, 128), pos, pos, reps=20),
+        "yi-34b_decode": time_attention(
+            rand(4, 1, hq, 128), rand(4, 1024, hk, 128),
+            rand(4, 1024, hk, 128), at543, serve_fill_tab(dev), reps=50)}
+    frames = torch.arange(WHISPER_FRAMES, dtype=torch.int32, device=dev)
+    for label, s, q0 in WHISPER_ATTENTION:
+        out[label] = time_attention(
+            rand(4, s, 20, 64), rand(4, WHISPER_FRAMES, 20, 64),
+            rand(4, WHISPER_FRAMES, 20, 64),
+            torch.arange(q0, q0 + s, dtype=torch.int32, device=dev), frames,
+            reps=10 if s > 1 else 50, causal=False)
+    return out, time_ssd(dev, reps=10, bf16=True)
+
+
+def profile_serving(arch, dev, n_layers=None, model=None):
     """A prefill of 4 × 512 tokens (an encoder-decoder's over zero frames)
     into a 1,024-slot cache and 8 decode steps at full width (and depth
-    unless ``n_layers`` cuts it):
+    unless ``n_layers`` cuts it), on ``model`` (else f32 weights drawn
+    here) with a cache in its type:
     host-clock ms without the profiler, then device time by kernel and by
     class (:func:`kernel_class`) in a profiler trace of the same work."""
     import dataclasses
@@ -1848,16 +2316,19 @@ def profile_serving(arch, dev, n_layers=None):
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     gen = torch.Generator(device=dev).manual_seed(1)
-    model = T.init_model(cfg, gen)
+    own = model is None
+    if own:
+        model = T.init_model(cfg, gen, dtype=torch.float32)
+    dtype = model.embed.dtype
     toks = torch.randint(0, cfg.vocab, (4, 512), device=dev, generator=gen,
                          dtype=torch.int32)
     # an encoder-decoder encodes the launcher's zero frames at the prefill
-    frames = torch.zeros(4, cfg.n_frames, cfg.d_model, device=dev) \
-        if cfg.enc_dec else None
+    frames = torch.zeros(4, cfg.n_frames, cfg.d_model, device=dev,
+                         dtype=dtype) if cfg.enc_dec else None
     n_dec = 8
 
     def prefill():
-        cache = T.init_cache(cfg, 4, 1024, device=dev)
+        cache = T.init_cache(cfg, 4, 1024, device=dev, dtype=dtype)
         last, cache, memory = T.prefill(cfg, model, toks, cache, frames)
         return last[:, -1].argmax(-1)[:, None], cache, memory
 
@@ -1897,11 +2368,14 @@ def profile_serving(arch, dev, n_layers=None):
                       "top_kernels_ms": [[name[:80], us / n / 1e3]
                                          for name, us in top]}
     out["layers"] = cfg.n_layers
-    out["weights_gb"] = sum(p.numel() * 4 for p in model.parameters()) / 1e9
+    out["dtype"] = str(dtype)
+    out["weights_gb"] = sum(p.numel() * p.element_size()
+                            for p in model.parameters()) / 1e9
     emit(out)
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    if own:
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2350,7 +2824,8 @@ def train_moe_run(dev, lib) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-        model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+        model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dtype=torch.float32)
         opt_cfg = adamw.AdamWConfig(warmup_steps=10, total_steps=n_steps)
         state = adamw.init_state(list(model.parameters()), opt_cfg)
         step = S.make_train_step(cfg, S.CellPlan(), opt_cfg)
@@ -2404,9 +2879,9 @@ def train_moe_run(dev, lib) -> dict:
 
 def kernel_class(name: str) -> str:
     """The class of a device activity in a train or serve step's trace:
-    K4's backward or forward, K3, a GEMM (cuBLAS, CUTLASS), the
-    multi-tensor AdamW, MoE routing's sorts and top-k, or elementwise and
-    the rest (reductions, gathers, copies)."""
+    K4's backward or forward, K3, a GEMM (cuBLAS, its bf16 ``nvjet``
+    kernels, CUTLASS), the multi-tensor AdamW, MoE routing's sorts and
+    top-k, or elementwise and the rest (reductions, gathers, copies)."""
     low = name.lower().removeprefix("void ")
     if low.startswith("ssd_bwd"):
         return "k4_backward"
@@ -2414,7 +2889,8 @@ def kernel_class(name: str) -> str:
         return "k4_forward"
     if low.startswith("flash_"):
         return "k3"
-    if "gemm" in low or "cutlass" in low or "gemv" in low:
+    if ("gemm" in low or "cutlass" in low or "gemv" in low
+            or low.startswith("nvjet")):
         return "gemm"
     if "multi_tensor_apply" in low:
         return "adamw"
@@ -2449,7 +2925,8 @@ def profile_train_step(dev, arch, n_layers=None) -> dict:
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32)
     opt_cfg = adamw.AdamWConfig(warmup_steps=10, total_steps=24)
     state = adamw.init_state(list(model.parameters()), opt_cfg)
     train_step = S.make_train_step(cfg, S.CellPlan(), opt_cfg)
@@ -2876,9 +3353,11 @@ def main() -> int:
     card = smi.strip().splitlines()[0]
     print(card, flush=True)
     dev = resolve_device(None)
-    # full f32 products everywhere (the plain versions' einsums included)
+    # full f32 products everywhere (the plain versions' einsums included),
+    # and bf16 products that sum in f32, as XLA's do
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     emit({"phase": "device", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0)})
@@ -2887,11 +3366,17 @@ def main() -> int:
     t0 = time.perf_counter()
     probe = start_smem_probe(lib)
     secs = lib.build_all()
+    hmma = sass_hmma_counts(lib)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "per_source": secs,
+          "bf16_prefill_sass_hmma": hmma,
           "ptxas": {n: [ln.strip() for ln in lib.build_log(n).splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n in secs}})
+    print(f"bf16 prefill SASS HMMA instructions {hmma}", flush=True)
+    require(sorted(hmma) == ["D=128", "D=16", "D=32", "D=64"]
+            and all(hmma.values()),
+            f"the bf16 prefill kernel does not use the tensor cores: {hmma}")
 
     # ---- 2. kernels against their plain versions -------------------------
     emit({"phase": "sketch_kernel_vs_plain", "cases": check_sketch_kernel(dev)})
@@ -2901,6 +3386,12 @@ def main() -> int:
           "cases": attn_cases})
     ssd_cases, k4_err = check_ssd_kernel(dev)
     emit({"phase": "ssd_kernel_vs_plain", "tol": 2e-4, "cases": ssd_cases})
+    attn_bf16_cases, k3b_ulps, k3b_err = check_attention_bf16(dev, lib)
+    emit({"phase": "attention_bf16_kernel_vs_plain", "tol_ulps": BF16_ULPS,
+          "max_ulps": k3b_ulps, "cases": attn_bf16_cases})
+    ssd_bf16_cases, k4b_ulps, k4b_err = check_ssd_bf16(dev, lib)
+    emit({"phase": "ssd_bf16_kernel_vs_plain", "tol_ulps": BF16_ULPS,
+          "max_ulps": k4b_ulps, "cases": ssd_bf16_cases})
     bwd_cases, k3_bwd_rel, k3_bwd_err = check_attention_bwd(dev, lib)
     emit({"phase": "attention_bwd_vs_autograd", "tol": K3_BWD_TOL,
           "cases": bwd_cases})
@@ -3110,6 +3601,16 @@ def main() -> int:
     for arch, n_layers in SERVE_RUNS:
         profile_serving(arch, dev, n_layers)
 
+    # ---- 9b. bf16 serving: K3 and K4 in bf16, yi-34b whole, pins ----------
+    k3_bf16, k4_bf16 = time_bf16_kernels(dev)
+    emit({"phase": "serving_kernel_times_bf16",
+          **{f"flash_attention_bf16_{key}": t for key, t in k3_bf16.items()},
+          "ssd_scan_bf16_prefill": k4_bf16})
+    bf16_launches = {}
+    for arch in SERVE_BF16_RUNS:
+        bf16_launches[arch], _ = serve_bf16_run(arch, dev, lib)
+    bf16_pin_ulps = max(check_bf16_pin(pin, dev, lib) for pin in BF16_PINS)
+
     # ---- 10. K3's and K4's backward at the training shapes ------------------
     k3_bwd = time_attention_bwd(dev, reps=20)
     # whisper-large-v3's encoder and cross-attention, non-causal
@@ -3229,6 +3730,36 @@ def main() -> int:
          "library_is": "SDPA's backward through autograd",
          "shape": "smollm-135m train, q [4,512,9,64], kv [4,512,3,64], "
                   "causal, one layer (four kernels a call)"},
+        {"name": "flash_attention_bf16", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
+         "launches": sum(n["flash_attention_bf16"]
+                         for n in bf16_launches.values()),
+         "launches_prefill": sum(n["flash_attention_bf16_prefill"]
+                                 for n in bf16_launches.values()),
+         "launches_decode": sum(n["flash_attention_bf16_decode"]
+                                for n in bf16_launches.values()),
+         "launches_by_serve_run": {arch: n["flash_attention_bf16"]
+                                   for arch, n in bf16_launches.items()},
+         "max_abs_err": max(k3b_err, *(t["max_abs_err"]
+                                       for t in k3_bf16.values())),
+         "max_ulps": k3b_ulps, "pin_max_ulps": bf16_pin_ulps,
+         **{k: k3_bf16["yi-34b_prefill"][k] for k in KERNEL_TIME_KEYS},
+         "plain_device": "cuda", "sass_hmma": hmma,
+         "shape": "yi-34b prefill, q [4,512,56,128], kv [4,512,8,128], "
+                  "causal, one layer, bf16 (tensor cores)",
+         **{key: {k: t[k] for k in KERNEL_TIME_KEYS}
+            | {"live_slots": t["live_slots"]}
+            for key, t in k3_bf16.items() if key != "yi-34b_prefill"}},
+        {"name": "ssd_scan_bf16", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan/kernel.py:83",
+         "launches": bf16_launches["mamba2-1.3b"]["ssd_scan_bf16"],
+         "max_abs_err": max(k4b_err, k4_bf16["max_abs_err"]),
+         "max_ulps": k4b_ulps,
+         **{k: k4_bf16[k] for k in KERNEL_TIME_KEYS}, "plain_device": "cuda",
+         "shape": "mamba2-1.3b prefill, x [4,512,64,64], b/c [4,512,8,128] "
+                  "in bf16, chunk 128, one layer"},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:83",

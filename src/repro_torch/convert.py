@@ -104,47 +104,56 @@ def reference_params_numpy(cfg, seed: int) -> dict:
     return tree
 
 
-def params_from_numpy(cfg, tree, device=None) -> T.Model:
-    """The reference's parameter pytree (numpy-convertible leaves, with the
-    leading period axis) → the port's :class:`~.models.transformer.Model`
-    on ``device`` (default ``cuda:0``).  Layer ``p * period_len + i`` takes
-    period ``p`` of ``periods/slot{i}``; encoder layer ``j`` takes entry
-    ``j`` of every ``encoder`` leaf."""
+def params_from_numpy(cfg, tree, device=None,
+                      dtype=torch.float32) -> T.Model:
+    """The reference's parameter pytree (numpy-convertible f32 leaves, with
+    the leading period axis) → the port's
+    :class:`~.models.transformer.Model` on ``device`` (default ``cuda:0``),
+    each leaf stored in ``dtype`` by the rule of ``init_model``
+    (``layers.leaf_dtype``: the leaves the reference keeps in f32 stay
+    f32), rounded to nearest even as ``astype`` rounds.  Layer
+    ``p * period_len + i`` takes period ``p`` of ``periods/slot{i}``;
+    encoder layer ``j`` takes entry ``j`` of every ``encoder`` leaf."""
     dev = resolve_device(device)
+    spec = T.param_spec(cfg)
 
-    def tensor(a):
+    def tensor(a, leaf):
         # a copy: training updates the parameters in place, and the
         # caller's arrays (which another framework may alias) stay as given
-        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+        t = torch.from_numpy(np.array(a, copy=True))
+        return t.to(L.leaf_dtype(leaf, dtype)).to(dev)
 
-    def block(leaves, pi=None):
-        return L.ParamBlock({k: tensor(v if pi is None else v[pi])
+    def block(leaves, specs, pi=None):
+        return L.ParamBlock({k: tensor(v if pi is None else v[pi], specs[k])
                              for k, v in leaves.items()})
 
-    def layer(blocks, i):
-        return torch.nn.ModuleDict({name: block(leaves, i)
+    def layer(blocks, specs, i):
+        return torch.nn.ModuleDict({name: block(leaves, specs[name], i)
                                     for name, leaves in blocks.items()})
 
     pl = T.period_len(cfg)
-    layers = [layer(tree["periods"][f"slot{li % pl}"], li // pl)
+    layers = [layer(tree["periods"][f"slot{li % pl}"],
+                    spec["periods"][f"slot{li % pl}"], li // pl)
               for li in range(T.n_periods(cfg) * pl)]
     lm_head = tree.get("lm_head")
     encoder = enc_norm = None
     if cfg.enc_dec:
-        encoder = [layer(tree["encoder"], j)
+        encoder = [layer(tree["encoder"], spec["encoder"], j)
                    for j in range(cfg.n_enc_layers)]
-        enc_norm = block(tree["enc_final_norm"])
-    return T.Model(cfg, tensor(tree["embed"]), block(tree["final_norm"]),
-                   layers, None if lm_head is None else tensor(lm_head),
-                   encoder, enc_norm)
+        enc_norm = block(tree["enc_final_norm"], spec["enc_final_norm"])
+    return T.Model(cfg, tensor(tree["embed"], spec["embed"]),
+                   block(tree["final_norm"], spec["final_norm"]), layers,
+                   None if lm_head is None
+                   else tensor(lm_head, spec["lm_head"]), encoder, enc_norm)
 
 
 def params_to_numpy(cfg, model, tensors=None) -> dict:
     """The reverse of :func:`params_from_numpy`: the model's parameters
     as the reference's pytree of f32 numpy arrays (nested dicts,
     ``periods/slot{i}`` leaves stacked over periods, ``encoder`` leaves
-    over encoder layers).  ``tensors``, a ``{parameter name: tensor}``
-    dict (for example each parameter's ``grad``), is laid out in their
+    over encoder layers; a bf16 leaf comes back as the f32 number it
+    holds, exactly).  ``tensors``, a ``{parameter name: tensor}`` dict
+    (for example each parameter's ``grad``), is laid out in their
     place."""
     if tensors is None:
         tensors = dict(model.named_parameters())
@@ -152,7 +161,7 @@ def params_to_numpy(cfg, model, tensors=None) -> dict:
     tree: dict = {}
     stacked: dict = {}
     for name, _ in model.named_parameters():
-        arr = tensors[name].detach().cpu().numpy()
+        arr = tensors[name].detach().cpu().float().numpy()
         parts = name.split(".")
         if parts[0] in ("layers", "encoder"):
             li = int(parts[1])

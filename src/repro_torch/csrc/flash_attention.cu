@@ -51,8 +51,39 @@
 // f32 products on CUDA cores, built with FMA contraction; the result
 // matches the plain version to about 1e-6.  No tensor cores: in f32 they
 // mean TF32, which cannot hold 2e-5.
+//
+// bf16 (flash_attention_prefill_bf16, flash_attention_decode_bf16): the
+// same TPU kernel as it runs in the reference's working type, on q, k, v
+// and out in bf16, with its algebra (kernel.py:62-84): scores in f32 from
+// the bf16 inputs, the unnormalised P = exp(s - m) rounded to bf16 before
+// P.V, the row sums and the accumulator in f32, one rounding of the
+// normalised result to bf16.
+// Forward only; the backward stays f32.
+//
+// Prefill bf16: the same grid, tile classification and two-stage cp.async
+// ring as the f32 prefill, 16 bytes now 8 values.  Bound by bytes at the
+// serving shapes (yi-34b's 4 x 512 prefill, 56 heads of 128 over 8: about
+// 15 GFLOP, 15 us at the 989 TFLOP/s of bf16 tensor cores, against 67 MB,
+// 20 us at 3.35 TB/s), so the products go to the tensor cores and the rest
+// of the block's work (masks, exp, the online softmax) is what a tile
+// costs.  Each of the 4 warps owns 16 query rows: S = Q.K^T by
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate) with Q's fragments taken once
+// by ldmatrix and kept in registers and K's by ldmatrix from the tile; the
+// online softmax runs on the f32 accumulator fragments (a row's max and
+// sum over the four lanes that hold it); P is rounded to bf16 in registers
+// and is the A operand of P.V, with V's fragments by ldmatrix.trans.  Rows
+// of every tile are D + 8 values apart, so the eight row addresses of an
+// ldmatrix fall on distinct banks.  No wgmma, TMA or warp specialisation
+// yet: a simple kernel that is right first.
+//
+// Decode bf16: the f32 decode's split-key design (bound by bytes: the live
+// K/V read once, half the bytes of an f32 cache), reading K/V and q as bf16
+// by cp.async; scores, partials and the merge in f32 on CUDA cores, p
+// rounded to bf16 before it multiplies V, the merged row written in bf16.
+// The merge is the f32 path's, in split order: two runs are bit-identical.
 
 #include <climits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -492,11 +523,17 @@ __global__ void __launch_bounds__(DT) flash_decode_partial_kernel(
   }
 }
 
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
 // One warp per output row ((b * S + s) * Hq + h): merge the splits in
-// index order.
+// index order; the row is rounded to O once.
+template <class O>
 __global__ void __launch_bounds__(DT) flash_decode_combine_kernel(
     const float* __restrict__ part_m, const float* __restrict__ part_l,
-    const float* __restrict__ part_acc, float* __restrict__ out, int rows,
+    const float* __restrict__ part_acc, O* __restrict__ out, int rows,
     int n_split, int D) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (DT / 32) + (threadIdx.x >> 5);
@@ -524,7 +561,7 @@ __global__ void __launch_bounds__(DT) flash_decode_combine_kernel(
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int d = lane + 32 * e;
-    if (d < D) out[(size_t)row * D + d] = acc[e] * inv;
+    if (d < D) store_out(out + (size_t)row * D + d, acc[e] * inv);
   }
 }
 
@@ -987,6 +1024,384 @@ __global__ void __launch_bounds__(PT) flash_bwd_dq_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// bf16 forward: the prefill on tensor cores, the split-key decode
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+// 16 bytes from device to shared memory, zeros where !valid.
+__device__ __forceinline__ void cp_async16_any(void* smem, const void* gmem,
+                                               bool valid) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(n));
+}
+
+// As stage_rows, for bf16 rows (8 values a copy).
+template <int D, int NTH>
+__device__ __forceinline__ void stage_rows_bf16(bf16* sh, int stride,
+                                                const bf16* src, size_t row0,
+                                                int rows, int valid,
+                                                int heads, int head,
+                                                int tid) {
+  for (int e = tid; e < rows * (D / 8); e += NTH) {
+    const int r = e / (D / 8), c8 = (e % (D / 8)) * 8;
+    const bool ok = r < valid;
+    const bf16* g = src + ((row0 + (ok ? r : 0)) * heads + head) * D + c8;
+    cp_async16_any(sh + r * stride + c8, g, ok);
+  }
+}
+
+// Four 8x8 b16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8 and receives in r[j] its two values of
+// matrix j (row lane / 4, columns 2 (lane % 4) and + 1; with trans, of
+// the matrix transposed).
+__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4],
+                                                  const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// c += a . b for a 16x16 bf16 A (row-major fragments), a 16x8 bf16 B
+// (column-major fragments) and a 16x8 f32 C: c[0], c[1] hold row lane / 4,
+// columns 2 (lane % 4) and + 1, c[2], c[3] the same columns of row
+// lane / 4 + 8.
+__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 (to nearest even), lo in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(PT) flash_prefill_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int* __restrict__ q_pos,
+    const int* __restrict__ k_pos, bf16* __restrict__ out, int S, int T,
+    int Hq, int Hkv, int causal, int window, float scale) {
+  constexpr int ST = D + 8;   // row stride of every tile, in values
+  constexpr int NKS = D / 16; // k-steps of Q.K^T
+  constexpr int ND = D / 8;   // 8-column tiles of the output
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  bf16* q_sh = reinterpret_cast<bf16*>(smem_bytes);  // [BQ][ST]
+  bf16* k_sh = q_sh + BQ * ST;                       // 2 x [BK][ST]
+  bf16* v_sh = k_sh + 2 * BK * ST;                   // 2 x [BK][ST]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int fr = lane >> 2, fc = (lane & 3) * 2;  // a fragment's row, column
+  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
+  const int hk = h / (Hq / Hkv);
+  const int nq = min(BQ, S - q0);
+  const int r0 = warp * 16;  // the warp's rows in the tile
+
+  int q_lo, q_hi;
+  pos_range(q_pos + q0, nq, lane, q_lo, q_hi);
+  int qp[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + fr + 8 * i;
+    qp[i] = r < nq ? q_pos[q0 + r] : q_hi;
+  }
+
+  // per row (fr, fr + 8): the running max, this lane's share of the sum
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float o[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.0f;
+  unsigned qf[NKS][4];
+
+  int cls;
+  int cur = next_tile(k_pos, 0, T, q_lo, q_hi, causal, window, lane, cls);
+  stage_rows_bf16<D, PT>(q_sh, ST, q, (size_t)b * S + q0, BQ, nq, Hq, h,
+                         tid);
+  if (cur < T) {
+    stage_rows_bf16<D, PT>(k_sh, ST, k, (size_t)b * T + cur, BK, T - cur,
+                           Hkv, hk, tid);
+    stage_rows_bf16<D, PT>(v_sh, ST, v, (size_t)b * T + cur, BK, T - cur,
+                           Hkv, hk, tid);
+  }
+  cp_async_commit();
+
+  bool have_q = false;
+  int stage = 0;
+  while (cur < T) {
+    int nxt_cls;
+    const int nxt = next_tile(k_pos, cur + BK, T, q_lo, q_hi, causal, window,
+                              lane, nxt_cls);
+    if (nxt < T) {  // the next tile flies while this one computes
+      stage_rows_bf16<D, PT>(k_sh + (stage ^ 1) * BK * ST, ST, k,
+                             (size_t)b * T + nxt, BK, T - nxt, Hkv, hk, tid);
+      stage_rows_bf16<D, PT>(v_sh + (stage ^ 1) * BK * ST, ST, v,
+                             (size_t)b * T + nxt, BK, T - nxt, Hkv, hk, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile (and Q) has landed for every thread
+
+    if (!have_q) {  // Q's A fragments, once
+#pragma unroll
+      for (int kk = 0; kk < NKS; ++kk)
+        ldmatrix_x4(qf[kk],
+                    q_sh + (r0 + (lane & 15)) * ST + kk * 16 + (lane >> 4) * 8);
+      have_q = true;
+    }
+    const bf16* ks = k_sh + stage * BK * ST;
+    const bf16* vs = v_sh + stage * BK * ST;
+
+    // S = Q.K^T: eight 16x8 tiles, keys 8j .. 8j + 7
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < NKS; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        unsigned bf[4];
+        ldmatrix_x4(bf, ks + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * ST +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * jp], qf[kk], bf[0], bf[1]);
+        mma_bf16(s[2 * jp + 1], qf[kk], bf[2], bf[3]);
+      }
+    }
+    if (cls == 2) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int t = cur + 8 * j + fc + c;
+          const int kp = t < T ? k_pos[t] : -1;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            s[j][2 * i + c] = live_key(kp, qp[i], causal, window)
+                                  ? s[j][2 * i + c] * scale
+                                  : -INFINITY;
+        }
+    }
+
+    // online softmax on the fragments: a row's four lanes are lane ^ 1, ^ 2
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      float alpha = 1.0f, sum = 0.0f;
+      if (m_new != -INFINITY) {
+        alpha = expf(m[i] - m_new);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float pj = expf(s[j][2 * i + c] - m_new);
+            s[j][2 * i + c] = pj;
+            sum += pj;
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[j][2 * i] = s[j][2 * i + 1] = 0.0f;
+      }
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        o[d][2 * i] *= alpha;
+        o[d][2 * i + 1] *= alpha;
+      }
+    }
+
+    // O += P.V: P rounded to bf16 is the A operand, 16 keys a step
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      const unsigned a[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+                             pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+                             pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                             pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        unsigned bf[4];
+        ldmatrix_x4_trans(bf, vs + (kc * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * ST +
+                                  dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], a, bf[0], bf[1]);
+        mma_bf16(o[2 * dp + 1], a, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before it refills
+
+    cur = nxt;
+    cls = nxt_cls;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float lt = l[i];
+    lt += __shfl_xor_sync(FULL, lt, 1);
+    lt += __shfl_xor_sync(FULL, lt, 2);
+    const int r = r0 + fr + 8 * i;
+    if (r < nq) {
+      const float inv = lt > 0.0f ? 1.0f / lt : 0.0f;
+      bf16* orow = out + ((size_t)(b * S + q0 + r) * Hq + h) * D;
+#pragma unroll
+      for (int d = 0; d < ND; ++d)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * d + fc) =
+            __floats2bfloat162_rn(o[d][2 * i] * inv, o[d][2 * i + 1] * inv);
+    }
+  }
+}
+
+// t + the dot of eight bf16 pairs, in f32.
+__device__ __forceinline__ float dot8_bf16(uint4 a, uint4 b, float t) {
+  const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(pa[i]), y = __bfloat1622float2(pb[i]);
+    t = fmaf(x.x, y.x, t);
+    t = fmaf(x.y, y.y, t);
+  }
+  return t;
+}
+
+// flash_decode_partial_kernel for bf16 q, k, v: the same partials (f32),
+// p rounded to bf16 before P.V.
+template <int D>
+__global__ void __launch_bounds__(DT) flash_decode_partial_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int* __restrict__ q_pos,
+    const int* __restrict__ k_pos, float* __restrict__ part_m,
+    float* __restrict__ part_l, float* __restrict__ part_acc, int S, int T,
+    int Hq, int Hkv, int causal, int window, float scale) {
+  constexpr int ST = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int n_split = gridDim.x, group = Hq / Hkv, R = S * group;
+  bf16* q_sh = reinterpret_cast<bf16*>(smem_bytes);    // [R][ST]
+  bf16* k_sh = q_sh + R * ST;                          // [BK][ST]
+  bf16* v_sh = k_sh + BK * ST;                         // [BK][D]
+  float* p_sh = reinterpret_cast<float*>(v_sh + BK * D);  // [R][PS]
+  const int t0 = split * BK, nk = min(BK, T - t0);
+
+  int q_lo, q_hi;
+  pos_range(q_pos, S, lane, q_lo, q_hi);
+  if (!classify(k_pos, t0, T, q_lo, q_hi, causal, window, lane)) {
+    for (int r = tid; r < R; r += DT) {
+      const int s = r / group, h = hk * group + r % group;
+      const size_t at = ((size_t)(b * S + s) * Hq + h) * n_split + split;
+      part_m[at] = -INFINITY;
+      part_l[at] = 0.0f;
+    }
+    return;
+  }
+
+  for (int e = tid; e < R * (D / 8); e += DT) {
+    const int r = e / (D / 8), c8 = (e % (D / 8)) * 8;
+    const int s = r / group, h = hk * group + r % group;
+    cp_async16_any(q_sh + r * ST + c8,
+                   q + ((size_t)(b * S + s) * Hq + h) * D + c8, true);
+  }
+  stage_rows_bf16<D, DT>(k_sh, ST, k, (size_t)b * T + t0, BK, nk, Hkv, hk,
+                         tid);
+  stage_rows_bf16<D, DT>(v_sh, D, v, (size_t)b * T + t0, BK, nk, Hkv, hk,
+                         tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  {  // scores: thread owns key c and rows rg, rg + 2, ...
+    const int c = tid & (BK - 1), rg = tid / BK;
+    const int kp = c < nk ? k_pos[t0 + c] : -1;
+    for (int r = rg; r < R; r += DT / BK) {
+      float t = 0.0f;
+#pragma unroll
+      for (int d = 0; d < D; d += 8)
+        t = dot8_bf16(*reinterpret_cast<const uint4*>(q_sh + r * ST + d),
+                      *reinterpret_cast<const uint4*>(k_sh + c * ST + d), t);
+      p_sh[r * PS + c] =
+          live_key(kp, q_pos[r / group], causal, window) ? t * scale
+                                                         : -INFINITY;
+    }
+  }
+  __syncthreads();
+
+  // softmax of the split, a warp a row: the sum of p in f32, p rounded to
+  // bf16 for P.V
+  for (int r = warp; r < R; r += DT / 32) {
+    const float s0 = p_sh[r * PS + lane], s1 = p_sh[r * PS + lane + 32];
+    float mx = fmaxf(s0, s1);
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+    float p0 = 0.0f, p1 = 0.0f;
+    if (mx != -INFINITY) {
+      p0 = expf(s0 - mx);
+      p1 = expf(s1 - mx);
+    }
+    float sum = p0 + p1;
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(FULL, sum, off);
+    p_sh[r * PS + lane] = __bfloat162float(__float2bfloat16(p0));
+    p_sh[r * PS + lane + 32] = __bfloat162float(__float2bfloat16(p1));
+    if (lane == 0) {
+      const int s = r / group, h = hk * group + r % group;
+      const size_t at = ((size_t)(b * S + s) * Hq + h) * n_split + split;
+      part_m[at] = mx;
+      part_l[at] = sum;
+    }
+  }
+  __syncthreads();
+
+  for (int e = tid; e < R * D; e += DT) {
+    const int r = e / D, d = e % D;
+    float t = 0.0f;
+#pragma unroll 8
+    for (int c = 0; c < BK; ++c)
+      t = fmaf(p_sh[r * PS + c], __bfloat162float(v_sh[c * D + d]), t);
+    const int s = r / group, h = hk * group + r % group;
+    part_acc[(((size_t)(b * S + s) * Hq + h) * n_split + split) * D + d] = t;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1030,8 +1445,49 @@ static int launch_decode(const float* q, const float* k, const float* v,
   e = (int)cudaGetLastError();
   if (e) return e;
   const int rows = B * S * Hq;
-  flash_decode_combine_kernel<<<(rows + DT / 32 - 1) / (DT / 32), DT, 0, st>>>(
-      part_m, part_l, part_acc, out, rows, n_split, D);
+  flash_decode_combine_kernel<float>
+      <<<(rows + DT / 32 - 1) / (DT / 32), DT, 0, st>>>(
+          part_m, part_l, part_acc, out, rows, n_split, D);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+static int launch_prefill_bf16(const bf16* q, const bf16* k, const bf16* v,
+                               const int* q_pos, const int* k_pos, bf16* out,
+                               int B, int S, int T, int Hq, int Hkv,
+                               int causal, int window, cudaStream_t st) {
+  const size_t smem = sizeof(bf16) * (size_t)(BQ + 4 * BK) * (D + 8);
+  int e = allow_smem(flash_prefill_bf16_kernel<D>, smem);
+  if (e) return e;
+  const dim3 grid(B * Hq, (S + BQ - 1) / BQ);
+  flash_prefill_bf16_kernel<D><<<grid, PT, smem, st>>>(
+      q, k, v, q_pos, k_pos, out, S, T, Hq, Hkv, causal, window,
+      1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+static int launch_decode_bf16(const bf16* q, const bf16* k, const bf16* v,
+                              const int* q_pos, const int* k_pos, bf16* out,
+                              float* part_m, float* part_l, float* part_acc,
+                              int B, int S, int T, int Hq, int Hkv,
+                              int causal, int window, cudaStream_t st) {
+  const int R = S * (Hq / Hkv);
+  const size_t smem = sizeof(bf16) * ((size_t)(R + BK) * (D + 8) + BK * D) +
+                      sizeof(float) * (size_t)R * PS;
+  int e = allow_smem(flash_decode_partial_bf16_kernel<D>, smem);
+  if (e) return e;
+  const int n_split = (T + BK - 1) / BK;
+  flash_decode_partial_bf16_kernel<D>
+      <<<dim3(n_split, Hkv, B), DT, smem, st>>>(
+          q, k, v, q_pos, k_pos, part_m, part_l, part_acc, S, T, Hq, Hkv,
+          causal, window, 1.0f / sqrtf((float)D));
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  const int rows = B * S * Hq;
+  flash_decode_combine_kernel<bf16>
+      <<<(rows + DT / 32 - 1) / (DT / 32), DT, 0, st>>>(
+          part_m, part_l, part_acc, out, rows, n_split, D);
   return (int)cudaGetLastError();
 }
 
@@ -1179,6 +1635,64 @@ int flash_attention_backward(const float* q, const float* k, const float* v,
       return launch_backward<128>(q, k, v, out, dout, lse, q_pos, k_pos,
                                   delta, part, dq, dk, dv, B, S, T, Hq, Hkv,
                                   causal, window, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// As flash_attention_prefill for q, k, v and out in bf16 (same layout,
+// 16-byte aligned bases), without the log-sum-exp output: tensor-core
+// products, f32 softmax and accumulation, P and the result rounded to bf16.
+int flash_attention_prefill_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                 const int* q_pos, const int* k_pos,
+                                 bf16* out, int B, int S, int T, int Hq,
+                                 int Hkv, int D, int causal, int window,
+                                 void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 16:
+      return launch_prefill_bf16<16>(q, k, v, q_pos, k_pos, out, B, S, T, Hq,
+                                     Hkv, causal, window, st);
+    case 32:
+      return launch_prefill_bf16<32>(q, k, v, q_pos, k_pos, out, B, S, T, Hq,
+                                     Hkv, causal, window, st);
+    case 64:
+      return launch_prefill_bf16<64>(q, k, v, q_pos, k_pos, out, B, S, T, Hq,
+                                     Hkv, causal, window, st);
+    case 128:
+      return launch_prefill_bf16<128>(q, k, v, q_pos, k_pos, out, B, S, T,
+                                      Hq, Hkv, causal, window, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// As flash_attention_decode for q, k, v and out in bf16; the partials are
+// f32 scratch of the same sizes.
+int flash_attention_decode_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                const int* q_pos, const int* k_pos, bf16* out,
+                                float* part_m, float* part_l,
+                                float* part_acc, int B, int S, int T, int Hq,
+                                int Hkv, int D, int causal, int window,
+                                void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 16:
+      return launch_decode_bf16<16>(q, k, v, q_pos, k_pos, out, part_m,
+                                    part_l, part_acc, B, S, T, Hq, Hkv,
+                                    causal, window, st);
+    case 32:
+      return launch_decode_bf16<32>(q, k, v, q_pos, k_pos, out, part_m,
+                                    part_l, part_acc, B, S, T, Hq, Hkv,
+                                    causal, window, st);
+    case 64:
+      return launch_decode_bf16<64>(q, k, v, q_pos, k_pos, out, part_m,
+                                    part_l, part_acc, B, S, T, Hq, Hkv,
+                                    causal, window, st);
+    case 128:
+      return launch_decode_bf16<128>(q, k, v, q_pos, k_pos, out, part_m,
+                                     part_l, part_acc, B, S, T, Hq, Hkv,
+                                     causal, window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -46,7 +46,20 @@
 // eight chunks' loads in flight per thread.  Built with FMA
 // contraction; no atomics, so two runs are bit-identical.  No tensor cores:
 // in f32 they mean TF32, which cannot hold the plain version's 2e-4.
+//
+// bf16 (ssd_scan_bf16): the same TPU kernel in the reference's working
+// type, x, b, c and y in bf16, dt, a, the states and the scratch in f32,
+// as the Pallas kernel takes them (kernel.py:36-40, :75):
+// the four kernels are templated on the element type, convert each value
+// to f32 as they stage it and do every product in f32 on CUDA cores, as
+// the f32 path does; the intra-chunk term goes to an f32 copy of y, and
+// the inter-chunk kernel rounds y to bf16 once.  The inputs' bytes halve
+// (about 59 MB at mamba2-1.3b's prefill, 18 us at 3.35 TB/s); what bounds
+// it is still the 5.6 GFLOP of f32 operations, 84 us.  The products of C.B^T
+// and of the chunk states take bf16 operands with f32 sums, so they could
+// go to the tensor cores with exact products: that is a later design.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -59,6 +72,16 @@
 #define MAX_Q 128
 #define CHUNKS_IN_FLIGHT 8
 #define FULL 0xffffffffu
+
+// One input value as f32: x, b and c come as f32 or bf16.
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+__device__ __forceinline__ void store_y(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
 
 // acc[a][b] += sum_k A[ty + 16a][k] B[tx + 16b][k] over one slice kept row
 // by row (as, bs: [TILE][RS]).  Rows 36 floats apart put the eight threads
@@ -105,8 +128,9 @@ __device__ __forceinline__ void mma_cols(const float* as, const float* bs,
 }
 
 // 1. cbt[b,c,g][j][i] = B_j . C_i for the tile pair (jt <= it).
+template <class T>
 __global__ void __launch_bounds__(NT) ssd_scores_kernel(
-    const float* __restrict__ bm, const float* __restrict__ cm,
+    const T* __restrict__ bm, const T* __restrict__ cm,
     float* __restrict__ cbt, int S, int G, int N, int Q, int nc) {
   __shared__ __align__(16) float sa[TILE * RS];
   __shared__ __align__(16) float sb[TILE * RS];
@@ -126,10 +150,10 @@ __global__ void __launch_bounds__(NT) ssd_scores_kernel(
       const int m = e / KC, kk = e % KC, n = k0 + kk;
       const int j = j0 + m, i = i0 + m;
       sa[m * RS + kk] =
-          j < nl && n < N ? bm[((size_t)(b * S + t0 + j) * G + g) * N + n]
+          j < nl && n < N ? ld(bm + ((size_t)(b * S + t0 + j) * G + g) * N + n)
                           : 0.0f;
       sb[m * RS + kk] =
-          i < nl && n < N ? cm[((size_t)(b * S + t0 + i) * G + g) * N + n]
+          i < nl && n < N ? ld(cm + ((size_t)(b * S + t0 + i) * G + g) * N + n)
                           : 0.0f;
     }
     __syncthreads();
@@ -147,10 +171,11 @@ __global__ void __launch_bounds__(NT) ssd_scores_kernel(
   }
 }
 
-// 2. The chunk's cumsum, then one tile of y_intra or of dS.
+// 2. The chunk's cumsum, then one tile of y_intra (in f32) or of dS.
+template <class T>
 __global__ void __launch_bounds__(NT) ssd_chunk_kernel(
-    const float* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ a, const float* __restrict__ bm,
+    const T* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ a, const T* __restrict__ bm,
     const float* __restrict__ cbt, float* __restrict__ y,
     float* __restrict__ cum, float* __restrict__ dstate, int S, int H,
     int P, int G, int N, int Q, int nc) {
@@ -215,7 +240,7 @@ __global__ void __launch_bounds__(NT) ssd_chunk_kernel(
                 : 0.0f;
         sb[kk * CS + m] =
             j < nl && p < P
-                ? x[((size_t)(b * S + t0 + j) * H + h) * P + p] * dt_s[j]
+                ? ld(x + ((size_t)(b * S + t0 + j) * H + h) * P + p) * dt_s[j]
                 : 0.0f;
       }
       __syncthreads();
@@ -243,12 +268,13 @@ __global__ void __launch_bounds__(NT) ssd_chunk_kernel(
         const int p = p0 + m, n = n0 + m;
         sa[kk * CS + m] =
             j < nl && p < P
-                ? x[((size_t)(b * S + t0 + j) * H + h) * P + p] *
+                ? ld(x + ((size_t)(b * S + t0 + j) * H + h) * P + p) *
                       (dt_s[j] * expf(cum_end - cum_s[j]))
                 : 0.0f;
         sb[kk * CS + m] =
-            j < nl && n < N ? bm[((size_t)(b * S + t0 + j) * G + g) * N + n]
-                            : 0.0f;
+            j < nl && n < N
+                ? ld(bm + ((size_t)(b * S + t0 + j) * G + g) * N + n)
+                : 0.0f;
       }
       __syncthreads();
       mma_cols(sa, sb, ty, tx, acc);
@@ -299,14 +325,18 @@ __global__ void __launch_bounds__(NT_STATE) ssd_state_kernel(
   state_out[bh * PN + e] = s;
 }
 
-// 4. y[i][p] += exp(cum_i) sum_n C[i][n] S_entry[p][n].  Bounded to five
-// blocks an SM (at most 51 registers a thread), which made it faster at
-// mamba2-1.3b's prefill on an H100; the same bound made the other two
-// products slower.
-__global__ void __launch_bounds__(NT, 5) ssd_inter_kernel(
-    const float* __restrict__ cm, const float* __restrict__ cum,
-    const float* __restrict__ states, float* __restrict__ y, int S, int H,
-    int P, int G, int N, int Q, int nc) {
+// 4. y[i][p] += exp(cum_i) sum_n C[i][n] S_entry[p][n]: in place in the
+// f32 path; in bf16, y = round(yin + ...) with y_intra in yin (f32).
+// Bounded to five blocks an SM (at most 51 registers a thread), which made
+// it faster at mamba2-1.3b's prefill on an H100; the same bound made the
+// other two products slower.  The bf16 instantiation, which converts C as
+// it stages it, gets four (64 registers): at five it spilled.
+template <class T>
+__global__ void __launch_bounds__(NT, sizeof(T) == sizeof(float) ? 5 : 4)
+    ssd_inter_kernel(const T* __restrict__ cm, const float* __restrict__ cum,
+                     const float* __restrict__ states,
+                     const float* __restrict__ yin, T* __restrict__ y, int S,
+                     int H, int P, int G, int N, int Q, int nc) {
   __shared__ __align__(16) float sa[TILE * RS];
   __shared__ __align__(16) float sb[TILE * RS];
   const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
@@ -316,7 +346,7 @@ __global__ void __launch_bounds__(NT, 5) ssd_inter_kernel(
   const size_t ch = (size_t)(b * nc + c) * H + h;
   const int n_pt = (P + TILE - 1) / TILE;
   const int i0 = blockIdx.x / n_pt * TILE, p0 = blockIdx.x % n_pt * TILE;
-  const float* st = states + ch * P * N;
+  const float* sp = states + ch * P * N;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < N; k0 += KC) {
     __syncthreads();
@@ -324,9 +354,9 @@ __global__ void __launch_bounds__(NT, 5) ssd_inter_kernel(
       const int m = e / KC, kk = e % KC, n = k0 + kk;
       const int i = i0 + m, p = p0 + m;
       sa[m * RS + kk] =
-          i < nl && n < N ? cm[((size_t)(b * S + t0 + i) * G + g) * N + n]
+          i < nl && n < N ? ld(cm + ((size_t)(b * S + t0 + i) * G + g) * N + n)
                           : 0.0f;
-      sb[m * RS + kk] = p < P && n < N ? st[(size_t)p * N + n] : 0.0f;
+      sb[m * RS + kk] = p < P && n < N ? sp[(size_t)p * N + n] : 0.0f;
     }
     __syncthreads();
     mma_rows(sa, sb, ty, tx, acc);
@@ -340,8 +370,12 @@ __global__ void __launch_bounds__(NT, 5) ssd_inter_kernel(
     for (int q = 0; q < 4; ++q) {
       const int p = p0 + tx + 16 * q;
       if (p < P) {
-        float* out = y + ((size_t)(b * S + t0 + i) * H + h) * P + p;
-        *out = *out + w * acc[r][q];
+        const size_t at = ((size_t)(b * S + t0 + i) * H + h) * P + p;
+        if constexpr (sizeof(T) == sizeof(float)) {
+          y[at] = y[at] + w * acc[r][q];
+        } else {
+          store_y(y + at, yin[at] + w * acc[r][q]);
+        }
       }
     }
   }
@@ -800,6 +834,41 @@ __global__ void ssd_bwd_da_kernel(const float* __restrict__ dapart,
   da[h] = s;
 }
 
+// The four launches of the forward for element type T; y32 holds y_intra
+// in f32 (y itself when T is float, updated in place by the last).
+template <class T>
+static int launch_forward(const T* x, const float* dt, const float* a,
+                          const T* b, const T* c, const float* init_state,
+                          T* y, float* y32, float* state_out, float* scratch,
+                          int B, int S, int H, int P, int G, int N, int Q,
+                          void* stream) {
+  if (Q < 1 || Q > MAX_Q || G < 1 || H % G) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nc = (S + Q - 1) / Q, nt = (Q + TILE - 1) / TILE;
+  const int n_pt = (P + TILE - 1) / TILE, n_nt = (N + TILE - 1) / TILE;
+  float* cbt = scratch;
+  float* cum = cbt + (size_t)B * nc * G * Q * Q;
+  float* states = cum + (size_t)B * nc * H * Q;
+  ssd_scores_kernel<T><<<dim3(nt * (nt + 1) / 2, nc * G, B), NT, 0, st>>>(
+      b, c, cbt, S, G, N, Q, nc);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ssd_chunk_kernel<T>
+      <<<dim3(nt * n_pt + n_pt * n_nt, nc * H, B), NT, 0, st>>>(
+          x, dt, a, b, cbt, y32, cum, states, S, H, P, G, N, Q, nc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ssd_state_kernel<<<dim3((P * N + NT_STATE - 1) / NT_STATE, H, B),
+                     NT_STATE, 0, st>>>(
+      init_state, cum, states, state_out, H, P * N, Q, nc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ssd_inter_kernel<T><<<dim3(nt * n_pt, nc * H, B), NT, 0, st>>>(
+      c, cum, states, sizeof(T) == sizeof(float) ? nullptr : y32, y, S, H, P,
+      G, N, Q, nc);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 // Floats of scratch ssd_scan needs: C.B^T [B, nc, G, Q, Q], cumsums
@@ -821,31 +890,21 @@ int ssd_scan(const float* x, const float* dt, const float* a, const float* b,
              const float* c, const float* init_state, float* y,
              float* state_out, float* scratch, int B, int S, int H, int P,
              int G, int N, int Q, void* stream) {
-  if (Q < 1 || Q > MAX_Q || G < 1 || H % G) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int nc = (S + Q - 1) / Q, nt = (Q + TILE - 1) / TILE;
-  const int n_pt = (P + TILE - 1) / TILE, n_nt = (N + TILE - 1) / TILE;
-  float* cbt = scratch;
-  float* cum = cbt + (size_t)B * nc * G * Q * Q;
-  float* states = cum + (size_t)B * nc * H * Q;
-  ssd_scores_kernel<<<dim3(nt * (nt + 1) / 2, nc * G, B), NT, 0, st>>>(
-      b, c, cbt, S, G, N, Q, nc);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  ssd_chunk_kernel<<<dim3(nt * n_pt + n_pt * n_nt, nc * H, B), NT, 0, st>>>(
-      x, dt, a, b, cbt, y, cum, states, S, H, P, G, N, Q, nc);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  ssd_state_kernel<<<dim3((P * N + NT_STATE - 1) / NT_STATE, H, B),
-                     NT_STATE, 0, st>>>(
-      init_state, cum, states, state_out, H, P * N, Q, nc);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  ssd_inter_kernel<<<dim3(nt * n_pt, nc * H, B), NT, 0, st>>>(
-      c, cum, states, y, S, H, P, G, N, Q, nc);
-  return (int)cudaGetLastError();
+  return launch_forward<float>(x, dt, a, b, c, init_state, y, y, state_out,
+                               scratch, B, S, H, P, G, N, Q, stream);
 }
 
+// As ssd_scan for x, b, c and y in bf16 (dt, a, the states and the scratch
+// f32); y32, B*S*H*P floats, holds y in f32 until its one rounding.
+int ssd_scan_bf16(const __nv_bfloat16* x, const float* dt, const float* a,
+                  const __nv_bfloat16* b, const __nv_bfloat16* c,
+                  const float* init_state, __nv_bfloat16* y, float* y32,
+                  float* state_out, float* scratch, int B, int S, int H,
+                  int P, int G, int N, int Q, void* stream) {
+  return launch_forward<__nv_bfloat16>(x, dt, a, b, c, init_state, y, y32,
+                                       state_out, scratch, B, S, H, P, G, N,
+                                       Q, stream);
+}
 // Floats of scratch ssd_scan_backward needs: the aggregates, then the
 // cotangents Shat [B, nc, H, P, N]; each head's dM [B, nc, H, Q, Q]; dcum
 // [B, nc, H, Q]; the inter term's share of dcum per n tile [B, nc, H,

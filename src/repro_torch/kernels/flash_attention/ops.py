@@ -15,6 +15,13 @@ prefill.  The decode's split length is the source's own
 (``flash_attention_split_keys``); the wrapper reads it to size the
 partials' scratch.
 
+The source takes f32 and bf16.  A bf16 call (q, k and v all bf16)
+launches the bf16 entry points (``flash_attention_prefill_bf16``, on
+tensor cores, and ``flash_attention_decode_bf16``), counted under
+``flash_attention_bf16`` and ``flash_attention_bf16_prefill`` /
+``flash_attention_bf16_decode``; the f32 keys count f32 launches only.
+Mixed types raise, on every device: nothing is cast quietly.
+
 When a gradient is needed (grad mode on and q, k or v requiring grad),
 :func:`gqa_attention` goes through :class:`FlashAttention`, an autograd
 function: its forward takes the prefill entry point whatever the shape,
@@ -22,7 +29,9 @@ which also writes each row's log-sum-exp, and its backward launches the
 source's backward entry point (:func:`flash_attention_bwd_cuda`, three
 kernels, four with grouped heads, counted as one launch of
 ``flash_attention_bwd``).  On the CPU,
-autograd runs through the plain version.
+autograd runs through the plain version.  The backward takes f32 only: a
+bf16 call on the card that needs a gradient raises (bf16 training, with a
+bf16 backward, is the next item of ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -49,11 +58,17 @@ def uses_decode(s: int, hq: int, hk: int) -> bool:
     return s * (hq // hk) <= DECODE_MAX_ROWS
 
 
+#: The types the kernel takes; q, k, v and the output share one.
+DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _load():
     lib = _lib.load("flash_attention")
     for fn, n_ptr in ((lib.flash_attention_prefill, 7),
                       (lib.flash_attention_decode, 9),
-                      (lib.flash_attention_backward, 13)):
+                      (lib.flash_attention_backward, 13),
+                      (lib.flash_attention_prefill_bf16, 6),
+                      (lib.flash_attention_decode_bf16, 9)):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
@@ -72,12 +87,21 @@ def _check(tensors, dev):
                 f"{tuple(x.shape)} on {x.device}")
 
 
+def check_types(q, k, v):
+    """Raise unless q, k and v share one type the kernel takes."""
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in DTYPES:
+        raise ValueError(
+            f"flash_attention: q, k and v must share one type of {DTYPES}, "
+            f"got {q.dtype}, {k.dtype}, {v.dtype}")
+
+
 def _check_inputs(q, k, v, q_pos, k_pos, window):
     b, s, hq, d = q.shape
     t, hk = k.shape[1], k.shape[2]
-    _check((("q", q, torch.float32, (b, s, hq, d)),
-            ("k", k, torch.float32, (b, t, hk, d)),
-            ("v", v, torch.float32, (b, t, hk, d)),
+    check_types(q, k, v)
+    _check((("q", q, q.dtype, (b, s, hq, d)),
+            ("k", k, q.dtype, (b, t, hk, d)),
+            ("v", v, q.dtype, (b, t, hk, d)),
             ("q_pos", q_pos, torch.int32, (s,)),
             ("k_pos", k_pos, torch.int32, (t,))), q.device)
     if d not in HEAD_DIMS:
@@ -103,12 +127,17 @@ def _dims(q, k, causal, window):
 
 
 def _forward(q, k, v, q_pos, k_pos, causal, window, lse):
-    """Check and launch a forward entry point; ``lse`` (f32 [B,Hq,S]) takes
-    the prefill whatever the shape and gets each row's log-sum-exp."""
+    """Check and launch a forward entry point; ``lse`` (f32 [B,Hq,S], f32
+    inputs only) takes the prefill whatever the shape and gets each row's
+    log-sum-exp."""
     _check_inputs(q, k, v, q_pos, k_pos, window)
     b, s, hq, d = q.shape
     t, hk = k.shape[1], k.shape[2]
     dev = q.device
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and lse is not None:
+        raise ValueError("flash_attention: the log-sum-exp output (for the "
+                         "backward) takes f32 inputs only")
     out = torch.empty_like(q)
     lib = _load()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
@@ -121,23 +150,28 @@ def _forward(q, k, v, q_pos, k_pos, causal, window, lse):
             # per (row, query head, split): running max, sum, accumulator
             n = b * s * hq * -(-t // lib.flash_attention_split_keys())
             part = torch.empty(n * (2 + d), dtype=torch.float32, device=dev)
-            rc = lib.flash_attention_decode(
-                *args, part.data_ptr(), part[n:].data_ptr(),
-                part[2 * n:].data_ptr(), *dims, stream)
+            fn = (lib.flash_attention_decode_bf16 if bf16
+                  else lib.flash_attention_decode)
+            rc = fn(*args, part.data_ptr(), part[n:].data_ptr(),
+                    part[2 * n:].data_ptr(), *dims, stream)
+        elif bf16:
+            rc = lib.flash_attention_prefill_bf16(*args, *dims, stream)
         else:
             rc = lib.flash_attention_prefill(
                 *args, 0 if lse is None else lse.data_ptr(), *dims, stream)
-    entry = "flash_attention_decode" if decode else "flash_attention_prefill"
-    _lib.check(rc, entry)
-    _lib.count("flash_attention")
-    _lib.count(entry)
+    kind = "decode" if decode else "prefill"
+    _lib.check(rc, f"flash_attention_{kind}{'_bf16' if bf16 else ''}")
+    family = "flash_attention_bf16" if bf16 else "flash_attention"
+    _lib.count(family)
+    _lib.count(f"{family}_{kind}")
     return out
 
 
 def flash_attention_cuda(q, k, v, *, q_pos, k_pos, causal=True,
                          window=None):
-    """Launch the kernel; every tensor contiguous on one CUDA device, f32
-    (positions int32)."""
+    """Launch the kernel; every tensor contiguous on one CUDA device, q, k
+    and v all f32 or all bf16 (positions int32); the output in their
+    type."""
     return _forward(q, k, v, q_pos, k_pos, causal, window, None)
 
 
@@ -158,6 +192,8 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, q_pos, k_pos,
     dv summed over the query heads of each KV head.  Every tensor
     contiguous f32 (positions int32) on one CUDA device."""
     _check_inputs(q, k, v, q_pos, k_pos, window)
+    if q.dtype != torch.float32:
+        raise ValueError("flash_attention backward: f32 inputs only")
     b, s, hq, d = q.shape
     dev = q.device
     _check((("out", out, torch.float32, tuple(q.shape)),
@@ -208,12 +244,18 @@ class FlashAttention(torch.autograd.Function):
 
 def gqa_attention(q, k, v, *, q_pos, k_pos, causal=True, window=None):
     """q [B,S,Hq,D], k/v [B,T,Hkv,D], q_pos [S] / k_pos [T] int32 →
-    [B,S,Hq,D]; the kernel for CUDA tensors (f32 only), through
-    :class:`FlashAttention` when a gradient is needed."""
+    [B,S,Hq,D] in q's type; q, k and v share one type (f32 or bf16).  The
+    kernel for CUDA tensors, through :class:`FlashAttention` when a
+    gradient is needed (f32 only)."""
+    check_types(q, k, v)
     if q.device.type != "cuda":
         return attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos,
                              causal=causal, window=window)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        if q.dtype != torch.float32:
+            raise NotImplementedError(
+                "flash_attention: the backward takes f32 only; a bf16 "
+                "backward comes with bf16 training (ROADMAP Queue 1)")
         return FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window)
     return flash_attention_cuda(q, k, v, q_pos=q_pos, k_pos=k_pos,
                                 causal=causal, window=window)

@@ -11,9 +11,16 @@ the model layout, with the masks that take explicit positions:
 * causal ``k_pos <= q_pos``,
 * window ``k_pos > q_pos - window``.
 
-Scores are f32; probabilities are cast to the input dtype before P·V.  A
-row whose keys are all masked gets a uniform softmax, as in the reference
-(the kernel writes 0 there; no caller produces such a row).
+Scores are f32.  In f32, probabilities are normalised and then P·V taken,
+as in the reference's ``_direct_attention``.  In bf16 (q, k and v of one
+type) the algebra is the kernel's and the Pallas kernel's
+(``kernel.py:62-84``): f32 scores from the bf16 inputs, the unnormalised
+P = exp(s − max) rounded to bf16 before P·V, the sum of P and the
+accumulator in f32, one rounding of the normalised result to bf16.  (The
+reference model's XLA attention rounds the normalised probabilities
+instead, ``layers.py:137``; the two differ by bf16 rounding.)  A row whose
+keys are all masked gets a uniform softmax, as in the reference (the kernel
+writes 0 there; no caller produces such a row).
 """
 
 from __future__ import annotations
@@ -36,8 +43,14 @@ def attention_ref(q, k, v, *, q_pos, k_pos, causal=True, window=None):
     scores = scores / math.sqrt(d)
     mask = live_mask(q_pos, k_pos, causal, window)
     scores = scores.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bhgst,bthd->bshgd", probs, v)
+    if q.dtype == torch.float32:
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = torch.einsum("bhgst,bthd->bshgd", probs, v)
+    else:
+        p = torch.exp(scores - scores.amax(-1, keepdim=True))
+        acc = torch.einsum("bhgst,bthd->bhgsd", p.to(q.dtype).float(),
+                           v.float())
+        out = (acc / p.sum(-1)[..., None]).to(q.dtype).permute(0, 3, 1, 2, 4)
     return out.reshape(b, s, hq, d)
 
 
@@ -97,7 +110,9 @@ def split_attention_ref(q, k, v, *, q_pos, k_pos, causal=True, window=None,
     tests): per split of ``split`` keys a partial ``(m, l, acc)`` (m = −inf,
     l = 0 where no key of the split is live for the row), then the splits
     merged in index order.  A row with no live key is 0 (the kernel's rule,
-    not ``attention_ref``'s uniform softmax).  f32, [B,S,Hq,D]."""
+    not ``attention_ref``'s uniform softmax).  Scores, partials and merge
+    in f32, with P rounded to q's type before P·V; [B,S,Hq,D] in q's
+    type."""
     b, s, hq, d = q.shape
     t, hk = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, s, hk, hq // hk, d)
@@ -111,7 +126,8 @@ def split_attention_ref(q, k, v, *, q_pos, k_pos, causal=True, window=None,
         p = torch.where(live[:, sl], torch.exp(sc - m[..., None].clamp(
             min=torch.finfo(torch.float32).min)), 0.0)
         parts.append((m, p.sum(-1),
-                      torch.einsum("bhgst,bthd->bhgsd", p, v[:, sl].float())))
+                      torch.einsum("bhgst,bthd->bhgsd",
+                                   p.to(q.dtype).float(), v[:, sl].float())))
     mx = torch.stack([m for m, _, _ in parts]).amax(0)
     l_tot = torch.zeros_like(mx)
     acc = mx.new_zeros(*mx.shape, d)
@@ -121,7 +137,7 @@ def split_attention_ref(q, k, v, *, q_pos, k_pos, causal=True, window=None,
         acc = acc + w[..., None] * a_j
     out = torch.where(l_tot[..., None] > 0,
                       acc / l_tot.clamp(min=1e-30)[..., None], 0.0)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d).to(q.dtype)
 
 
 def rolled_pos_tab(t_max, first, last, empty=()):

@@ -9,10 +9,18 @@ the source's four launches (scores per group, chunk-parallel intra-chunk
 products and chunk states, the state pass over chunks, the inter-chunk
 term) through scratch the wrapper allocates.
 
+x, b and c may be bf16 (all three; dt, a and the state stay f32): the
+source's bf16 entry point ``ssd_scan_bf16`` converts them to f32 as it
+loads them, computes in f32 and rounds y to bf16 once, through an f32
+scratch for y.  It is counted under ``ssd_scan_bf16``; ``ssd_scan``
+counts f32 calls only.
+
 A call that needs a gradient goes through :class:`SSDScan`: its forward
 keeps the kernel's scratch (C·Bᵀ per group, the cumsums and each chunk's
 entry state), and its backward launches the source's second entry point,
-``ssd_scan_backward`` (five launches), on it.
+``ssd_scan_backward`` (five launches), on it.  The backward takes f32
+only: a bf16 call on the card that needs a gradient raises (bf16 training
+is the next item of ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -38,6 +46,9 @@ def _load():
     lib.ssd_scan.restype = ctypes.c_int
     lib.ssd_scan.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
+    lib.ssd_scan_bf16.restype = ctypes.c_int
+    lib.ssd_scan_bf16.argtypes = [ctypes.c_void_p] * 10 \
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.ssd_scan_backward_scratch_floats.restype = ctypes.c_size_t
     lib.ssd_scan_backward_scratch_floats.argtypes = [ctypes.c_int] * 7
     lib.ssd_scan_backward.restype = ctypes.c_int
@@ -47,22 +58,28 @@ def _load():
 
 
 def _check(x, dt, a, b, c, chunk, named=()):
-    """The kernel's input checks: every tensor (and each ``(name, tensor,
-    shape)`` of ``named`` that is not None) contiguous f32 of its shape on
-    x's device, and the limits of its grid."""
+    """The kernel's input checks: x, b and c contiguous tensors of one type
+    (f32 or bf16), dt, a (and each ``(name, tensor, shape)`` of ``named``
+    that is not None) contiguous f32, each of its shape on x's device, and
+    the limits of its grid."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     dev = x.device
-    checks = [("x", x, (bsz, s, h, p)), ("dt", dt, (bsz, s, h)),
-              ("a", a, (h,)), ("b", b, (bsz, s, g, n)),
-              ("c", c, (bsz, s, g, n))]
-    checks += [(name, t, shape) for name, t, shape in named
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"ssd_scan: x must be float32 or bfloat16, got "
+                         f"{x.dtype}")
+    checks = [("x", x, (bsz, s, h, p), x.dtype),
+              ("dt", dt, (bsz, s, h), torch.float32),
+              ("a", a, (h,), torch.float32),
+              ("b", b, (bsz, s, g, n), x.dtype),
+              ("c", c, (bsz, s, g, n), x.dtype)]
+    checks += [(name, t, shape, torch.float32) for name, t, shape in named
                if t is not None]
-    for name, t, shape in checks:
-        if t.device != dev or t.dtype != torch.float32 \
+    for name, t, shape, dtype in checks:
+        if t.device != dev or t.dtype != dtype \
                 or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(
-                f"ssd_scan: {name} must be a contiguous float32 tensor of "
+                f"ssd_scan: {name} must be a contiguous {dtype} tensor of "
                 f"shape {shape} on {dev}, got {t.dtype} {tuple(t.shape)} "
                 f"on {t.device}")
     if not 1 <= chunk <= MAX_CHUNK:
@@ -77,29 +94,37 @@ def _check(x, dt, a, b, c, chunk, named=()):
 
 
 def ssd_fwd_cuda(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
-    """Launch the kernel; every tensor contiguous f32 on one CUDA device.
-    Returns ``(y [B,S,H,P], state [B,H,P,N], saved)``: ``saved`` is the
-    kernel's scratch, which :func:`ssd_bwd_cuda` reads."""
+    """Launch the kernel; every tensor contiguous on one CUDA device, x, b
+    and c f32 or bf16, the rest f32.  Returns ``(y [B,S,H,P] in x's type,
+    state [B,H,P,N] f32, saved)``: ``saved`` is the kernel's scratch, which
+    :func:`ssd_bwd_cuda` reads (f32 calls)."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     dev = x.device
     _check(x, dt, a, b, c, chunk,
            [("init_state", init_state, (bsz, h, p, n))])
     lib = _load()
+    bf16 = x.dtype == torch.bfloat16
     y = torch.empty_like(x)
     state = torch.empty(bsz, h, p, n, dtype=torch.float32, device=dev)
     # C.B^T per group, cumsums, chunk states (then entry states)
     scratch = torch.empty(lib.ssd_scan_scratch_floats(bsz, s, h, p, g, n,
                                                       chunk),
                           dtype=torch.float32, device=dev)
+    args = [x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), 0 if init_state is None else init_state.data_ptr(),
+            y.data_ptr()]
+    if bf16:
+        # y in f32 until its one rounding
+        y32 = torch.empty(x.shape, dtype=torch.float32, device=dev)
+        args.append(y32.data_ptr())
+    entry = "ssd_scan_bf16" if bf16 else "ssd_scan"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _lib.check(lib.ssd_scan(
-            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), 0 if init_state is None else init_state.data_ptr(),
-            y.data_ptr(), state.data_ptr(), scratch.data_ptr(), bsz, s, h,
-            p, g, n, chunk, stream), "ssd_scan")
-    _lib.count("ssd_scan")
+        _lib.check(getattr(lib, entry)(
+            *args, state.data_ptr(), scratch.data_ptr(), bsz, s, h, p, g, n,
+            chunk, stream), entry)
+    _lib.count(entry)
     return y, state, scratch
 
 
@@ -119,6 +144,8 @@ def ssd_bwd_cuda(x, dt, a, b, c, dy, dstate, *, saved, chunk: int = 128,
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     dev = x.device
+    if x.dtype != torch.float32:
+        raise ValueError("ssd_scan backward: f32 inputs only")
     _check(x, dt, a, b, c, chunk,
            [("init_state", init_state, (bsz, h, p, n)),
             ("dy", dy, (bsz, s, h, p)), ("dstate", dstate, (bsz, h, p, n))])
@@ -175,14 +202,18 @@ class SSDScan(torch.autograd.Function):
 
 
 def ssd(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
-    """Model layout → ``(y [B,S,H,P], final state [B,H,P,N] f32)``; the
-    kernel for CUDA tensors, through :class:`SSDScan` when a gradient is
-    needed (grad mode on and any input requiring grad).  On the CPU,
-    autograd runs through the plain version."""
+    """Model layout → ``(y [B,S,H,P] in x's type, final state [B,H,P,N]
+    f32)``; the kernel for CUDA tensors, through :class:`SSDScan` when a
+    gradient is needed (grad mode on and any input requiring grad; f32
+    only).  On the CPU, autograd runs through the plain version."""
     if x.device.type != "cuda":
         return ssd_ref(x, dt, a, b, c, chunk=chunk, init_state=init_state)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, a, b, c, init_state)):
+        if x.dtype != torch.float32:
+            raise NotImplementedError(
+                "ssd_scan: the backward takes f32 only; a bf16 backward "
+                "comes with bf16 training (ROADMAP Queue 1)")
         return SSDScan.apply(x, dt, a, b, c, init_state, chunk)
     return ssd_cuda(x, dt, a, b, c, chunk=chunk, init_state=init_state)

@@ -16,6 +16,11 @@ diagonal's equal and opposite terms of the cumsum's gradient then enter at
 half weight, as in the reference, and not at the full weight of
 ``torch.clamp``'s.  The tail is padded with zeros (dt = 0, so it moves no
 state).
+
+In bf16 (x, b and c; dt, a and the state stay f32) the algebra is the
+kernel's and the Pallas kernel's (``kernel.py:36-40``, ``:75``): the
+inputs are converted to f32, everything after runs in f32, and y is
+rounded to x's type once.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ import torch.nn.functional as F
 def ssd_ref(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
     """x [B,S,H,P], dt [B,S,H] (post-softplus), a [H] (negative),
     b/c [B,S,G,N], init_state [B,H,P,N] or None →
-    (y [B,S,H,P], final state [B,H,P,N] f32)."""
+    (y [B,S,H,P] in x's type, final state [B,H,P,N] f32)."""
+    y_dtype = x.dtype
+    x, b, c = x.float(), b.float(), c.float()
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     rep = h // g
@@ -75,7 +82,7 @@ def ssd_ref(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
                            entry_states.to(x.dtype),
                            torch.exp(cum).to(x.dtype))
     y = (y + y_inter).reshape(bsz, nc * chunk, h, p)
-    return y[:, :s], state
+    return y[:, :s].to(y_dtype), state
 
 
 def random_inputs(seed, b, s, h, p, g, n):

@@ -67,7 +67,7 @@ def main(argv=None, step_hook=None, cfg=None):
         cfg = get_config(args.arch, smoke=args.smoke)
     dev = resolve_device(args.device)
     model = T.init_model(cfg, torch.Generator(device=dev)
-                         .manual_seed(args.seed))
+                         .manual_seed(args.seed), dtype=torch.float32)
     telemetry = None
     hook = step_hook
     if args.telemetry:
@@ -91,11 +91,9 @@ def main(argv=None, step_hook=None, cfg=None):
                          EngineConfig(batch=args.batch,
                                       cache_len=args.cache_len, device=dev),
                          step_hook=hook)
-    rng = np.random.default_rng([args.seed, 0])
-    for i in range(args.requests):
-        n = int(rng.integers(2, args.prompt_len + 1))
-        engine.submit(Request(i, rng.integers(0, cfg.vocab, size=n)
-                              .astype(np.int32), max_new=args.max_new))
+    for req in make_requests(cfg, args.requests, args.prompt_len,
+                             args.max_new, args.seed):
+        engine.submit(req)
     enc_frames = None
     if cfg.enc_dec:
         # the reference's stand-in for the audio frontend: zero frames
@@ -120,6 +118,18 @@ def main(argv=None, step_hook=None, cfg=None):
         print(f"[telemetry] {stats['telemetry_windows']} windows, "
               f"{stats['telemetry_flagged']} flagged")
     return done, stats
+
+
+def make_requests(cfg, n, prompt_len, max_new, seed) -> list[Request]:
+    """The launcher's request stream: ``n`` prompts of 2..``prompt_len``
+    tokens from ``default_rng([seed, 0])``, ``max_new`` new tokens each."""
+    rng = np.random.default_rng([seed, 0])
+    out = []
+    for i in range(n):
+        k = int(rng.integers(2, prompt_len + 1))
+        out.append(Request(i, rng.integers(0, cfg.vocab, size=k)
+                           .astype(np.int32), max_new=max_new))
+    return out
 
 
 def summary(engine, done, wall) -> dict:

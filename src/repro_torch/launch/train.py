@@ -112,7 +112,7 @@ def main(argv=None):
     opt_cfg = adamw.AdamWConfig(lr=args.lr, warmup_steps=10,
                                 total_steps=args.steps)
     model = T.init_model(cfg, torch.Generator(device=dev)
-                         .manual_seed(args.seed))
+                         .manual_seed(args.seed), dtype=torch.float32)
     opt_state = adamw.init_state(list(model.parameters()), opt_cfg)
 
     data_cfg = DataConfig(vocab=cfg.vocab, batch=args.batch, seq=args.seq,

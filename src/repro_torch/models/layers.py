@@ -247,15 +247,20 @@ class ParamBlock(torch.nn.Module):
 
 @dataclasses.dataclass(frozen=True)
 class Leaf:
-    """One f32 parameter at the reference's init: ``N(0, std²)`` when
-    ``std`` is set, else ``fill`` (a number, or an array broadcast to
-    ``shape``).  The ``init_*`` functions return the reference's blocks as
-    ``{key: Leaf}``; ``transformer.init_model`` draws them with torch and
-    ``convert.reference_params_numpy`` with numpy, so the scales live here
-    once."""
+    """One parameter at the reference's init: ``N(0, std²)`` when ``std``
+    is set, else ``fill`` (a number, or an array broadcast to ``shape``),
+    drawn in f32.  It is stored in the model's working type, unless
+    ``keep_f32``: the reference keeps norm scales and biases, the MoE
+    router and Mamba's ``a_log``, ``dt_bias``, ``d_skip`` and
+    ``norm_scale`` in f32 whatever its ``dtype``.  The ``init_*`` functions
+    return the reference's blocks as ``{key: Leaf}``;
+    ``transformer.init_model`` draws them with torch and
+    ``convert.reference_params_numpy`` with numpy, so the scales and types
+    live here once."""
     shape: tuple
     std: float | None = None
     fill: object = 0.0
+    keep_f32: bool = False
 
 
 def map_leaves(fn, tree: dict) -> dict:
@@ -264,19 +269,30 @@ def map_leaves(fn, tree: dict) -> dict:
             for k, v in tree.items()}
 
 
-def draw(gen: torch.Generator, leaf: Leaf) -> torch.Tensor:
-    """``leaf`` as an f32 tensor on the generator's device."""
+def leaf_dtype(leaf: Leaf, dtype: torch.dtype) -> torch.dtype:
+    """The type ``leaf`` is stored in when the model's working type is
+    ``dtype``."""
+    return torch.float32 if leaf.keep_f32 else dtype
+
+
+def draw(gen: torch.Generator, leaf: Leaf,
+         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``leaf`` on the generator's device, drawn in f32 and rounded to
+    :func:`leaf_dtype` (to nearest, ties to even, as ``astype`` rounds)."""
     if leaf.std is not None:
-        return torch.randn(leaf.shape, generator=gen,
-                           device=gen.device) * leaf.std
-    return torch.from_numpy(np.broadcast_to(
-        np.asarray(leaf.fill, np.float32), leaf.shape).copy()).to(gen.device)
+        t = torch.randn(leaf.shape, generator=gen,
+                        device=gen.device) * leaf.std
+    else:
+        t = torch.from_numpy(np.broadcast_to(
+            np.asarray(leaf.fill, np.float32), leaf.shape).copy()
+        ).to(gen.device)
+    return t.to(leaf_dtype(leaf, dtype))
 
 
 def init_norm(cfg, d):
-    p = {"scale": Leaf((d,), fill=1.0)}
+    p = {"scale": Leaf((d,), fill=1.0, keep_f32=True)}
     if cfg.norm != "rms":
-        p["bias"] = Leaf((d,), fill=0.0)
+        p["bias"] = Leaf((d,), fill=0.0, keep_f32=True)
     return p
 
 
@@ -289,10 +305,11 @@ def init_mlp(cfg, d, ff):
 
 
 def init_moe(cfg):
-    """The router [d,E] and E SwiGLU experts ``w_gate``/``w_up`` [E,d,ff],
+    """The router [d,E] (f32 whatever the working type) and E SwiGLU
+    experts ``w_gate``/``w_up`` [E,d,ff],
     ``w_down`` [E,ff,d]."""
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    return {"router": Leaf((d, e), d ** -0.5),
+    return {"router": Leaf((d, e), d ** -0.5, keep_f32=True),
             "w_gate": Leaf((e, d, ff), d ** -0.5),
             "w_up": Leaf((e, d, ff), d ** -0.5),
             "w_down": Leaf((e, ff, d), ff ** -0.5)}

@@ -26,10 +26,11 @@ def init_mamba(cfg):
         "in_proj": L.Leaf((d, 2 * di + 2 * g * n + h), d ** -0.5),
         "conv_w": L.Leaf((cfg.ssm_conv, conv_dim), 0.1),
         "conv_b": L.Leaf((conv_dim,), fill=0.0),
-        "a_log": L.Leaf((h,), fill=np.log(np.linspace(1.0, 16.0, h))),
-        "dt_bias": L.Leaf((h,), fill=0.0),
-        "d_skip": L.Leaf((h,), fill=1.0),
-        "norm_scale": L.Leaf((di,), fill=1.0),
+        "a_log": L.Leaf((h,), fill=np.log(np.linspace(1.0, 16.0, h)),
+                        keep_f32=True),
+        "dt_bias": L.Leaf((h,), fill=0.0, keep_f32=True),
+        "d_skip": L.Leaf((h,), fill=1.0, keep_f32=True),
+        "norm_scale": L.Leaf((di,), fill=1.0, keep_f32=True),
         "out_proj": L.Leaf((di, d), di ** -0.5),
     }
 

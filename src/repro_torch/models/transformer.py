@@ -30,6 +30,12 @@ Three entry points:
 launches exactly what it launched before the parameters were trainable.
 
 The cache is updated in place (the reference returns a new one).
+
+Types follow the reference: ``init_model(dtype=)`` and
+``init_cache(dtype=)`` default to bf16, as the reference's do, and every
+caller that means f32 says so.  Norms, RoPE, the router and Mamba's decay
+and gated norm compute in f32 and cast back to the working type where the
+reference does; logits come out in the working type.
 """
 
 from __future__ import annotations
@@ -155,18 +161,21 @@ def _layer_block(blocks: dict, make) -> torch.nn.ModuleDict:
          for name, leaves in blocks.items()})
 
 
-def init_model(cfg, generator: torch.Generator) -> Model:
-    """Random f32 weights at the reference's init scales
-    (:func:`param_spec`), drawn from ``generator`` on its device
-    (``torch.Generator(device).manual_seed``).  The draws differ from the
-    reference's ``jax.random`` ones; to give both packages the same weights
-    use ``convert.reference_params_numpy``."""
+def init_model(cfg, generator: torch.Generator,
+               dtype: torch.dtype = torch.bfloat16) -> Model:
+    """Random weights at the reference's init scales (:func:`param_spec`),
+    drawn in f32 from ``generator`` on its device
+    (``torch.Generator(device).manual_seed``) one leaf at a time and stored
+    in ``dtype``, the reference's default bf16, except the leaves it keeps
+    in f32 (``Leaf.keep_f32``).  The draws differ from the reference's
+    ``jax.random`` ones; to give both packages the same weights use
+    ``convert.reference_params_numpy``."""
     spec = param_spec(cfg)
     slots = list(spec.pop("periods").values())
     enc = spec.pop("encoder", None)
 
     def draw(leaf):
-        return L.draw(generator, leaf)
+        return L.draw(generator, leaf, dtype)
     top = L.map_leaves(draw, spec)
     layers = [_layer_block(slots[li % len(slots)], draw)
               for li in range(n_periods(cfg) * len(slots))]
@@ -371,11 +380,12 @@ def forward_train(cfg, model, tokens, enc_frames=None):
 
 # -- cache construction -------------------------------------------------------
 
-def init_cache(cfg, batch, cache_len, device=None):
-    """One dict per layer, all f32: ``k``/``v`` [B,T,Hkv,Dh], ``pos_tab``
-    [T] int32 (−1 = empty) and ``pos`` for attention (T = ``cache_len``, or
-    the window); ``conv`` [B,K−1,C], ``ssm`` [B,H,P,N] and ``pos`` for
-    Mamba."""
+def init_cache(cfg, batch, cache_len, device=None, dtype=torch.bfloat16):
+    """One dict per layer: ``k``/``v`` [B,T,Hkv,Dh] in ``dtype``,
+    ``pos_tab`` [T] int32 (−1 = empty) and ``pos`` for attention (T =
+    ``cache_len``, or the window); ``conv`` [B,K−1,C] in ``dtype``,
+    ``ssm`` [B,H,P,N] in f32 whatever ``dtype`` is, and ``pos`` for
+    Mamba.  ``dtype`` defaults to the reference's bf16."""
     dev = resolve_device(device)
     t_max = cache_len if cfg.window is None else min(cache_len, cfg.window)
     slots = period_slots(cfg)
@@ -384,9 +394,9 @@ def init_cache(cfg, batch, cache_len, device=None):
         if slots[li % len(slots)][0] == "attn":
             caches.append({
                 "k": torch.zeros(batch, t_max, cfg.n_kv_heads, cfg.head_dim,
-                                 device=dev),
+                                 dtype=dtype, device=dev),
                 "v": torch.zeros(batch, t_max, cfg.n_kv_heads, cfg.head_dim,
-                                 device=dev),
+                                 dtype=dtype, device=dev),
                 "pos_tab": torch.full((t_max,), -1, dtype=torch.int32,
                                       device=dev),
                 "pos": 0,
@@ -395,9 +405,10 @@ def init_cache(cfg, batch, cache_len, device=None):
             conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
             caches.append({
                 "conv": torch.zeros(batch, cfg.ssm_conv - 1, conv_dim,
-                                    device=dev),
+                                    dtype=dtype, device=dev),
                 "ssm": torch.zeros(batch, cfg.ssm_heads, cfg.ssm_head_dim,
-                                   cfg.ssm_state, device=dev),
+                                   cfg.ssm_state, dtype=torch.float32,
+                                   device=dev),
                 "pos": 0,
             })
     return caches

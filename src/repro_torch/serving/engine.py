@@ -5,9 +5,12 @@ greedy decode with the rolling KV / SSM cache, a simple admission queue;
 an encoder-decoder's frames are encoded once a batch, at its prefill.
 The batching is the reference's, kept as it is: a short batch is padded by
 replicating its last request, prompts are left-padded with token 0 and no
-pad mask, and every batch runs ``max_new`` decode steps.  Weights and
-cache are f32, the one type the kernels take (the reference's ``dtype``
-field returns with the bf16 configs).
+pad mask, and every batch runs ``max_new`` decode steps.  The cache is
+built in ``EngineConfig.dtype``, f32 by default as in the reference; a
+bf16 model (``init_model(dtype=torch.bfloat16)``) is served with
+``EngineConfig(dtype=torch.bfloat16)``.  A model whose working type is
+not the cache's gives attention mixed q and K/V, which raises: nothing is
+cast quietly.
 
 Per-step timings go to **separate** ``prefill_times`` / ``decode_times``
 series; an optional
@@ -40,6 +43,7 @@ class Request:
 class EngineConfig:
     batch: int = 4
     cache_len: int = 512
+    dtype: torch.dtype = torch.float32
     device: object = None       # None → cuda:0
 
 
@@ -93,7 +97,7 @@ class ServeEngine:
                 .astype(np.int32)).to(self.device)
             t0 = time.perf_counter()
             cache = T.init_cache(cfg, ecfg.batch, ecfg.cache_len,
-                                 device=self.device)
+                                 device=self.device, dtype=ecfg.dtype)
             last, cache, memory = T.prefill(cfg, model, toks, cache,
                                             enc_frames)
             nxt = last[:, -1].argmax(dim=-1)[:, None]

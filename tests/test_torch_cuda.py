@@ -40,7 +40,12 @@ split-key decode with the query below its keys, within the same
 tolerances and bit-identical twice; whisper's smoke config served twice
 gives equal tokens.  MoE training: three train steps of the mixtral smoke
 config, and of dbrx's routing (16 experts, top-4), twice from one seed
-give the same bits.
+give the same bits.  bf16: K3's prefill (tensor cores) and split-key decode
+and K4's forward in bf16 against their plain versions in bf16, within four
+bf16 ulps of each output row's largest entry (the kernel and the plain
+version sum in other orders and may round P, or y, on either side of a
+boundary), bit-identical over two runs; mixed types, and a bf16 call that
+needs a gradient, raise.
 """
 
 import numpy as np
@@ -330,8 +335,8 @@ def test_attention_kernel_rejects_what_it_does_not_take(dev):
     q, k, v = _attn_inputs(dev, 1, 8, 8, 2, 2, 64)
     pos = torch.arange(8, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="float32"):
-        fa_ops.gqa_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
-                             q_pos=pos, k_pos=pos)
+        fa_ops.gqa_attention(q.half(), k.half(), v.half(), q_pos=pos,
+                             k_pos=pos)
     with pytest.raises(ValueError, match="int32"):
         fa_ops.gqa_attention(q, k, v, q_pos=pos.long(), k_pos=pos)
     q, k, v = _attn_inputs(dev, 1, 8, 8, 2, 2, 48)
@@ -523,11 +528,12 @@ def test_full_width_mixtral_layer_serves_through_the_kernel(dev,
         raise AssertionError("attention reached its plain version")
     monkeypatch.setattr(fa_ops, "attention_ref", refuse)
     cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=1)
-    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32)
     toks = torch.randint(0, cfg.vocab, (2, 64), device=dev,
                          dtype=torch.int32)
     _lib.reset_launches()
-    cache = T.init_cache(cfg, 2, 128, device=dev)
+    cache = T.init_cache(cfg, 2, 128, device=dev, dtype=torch.float32)
     last, cache, _ = T.prefill(cfg, model, toks, cache)
     out, cache = T.decode_step(cfg, model, last[:, -1].argmax(-1)[:, None],
                                cache, 64)
@@ -785,7 +791,8 @@ def test_full_size_mamba2_train_step_goes_through_the_kernels(dev,
     monkeypatch.setattr(ssd_ops, "ssd_ref", refuse)
     monkeypatch.setattr(ssd_plain, "ssd_bwd_ref", refuse)
     cfg = get_config("mamba2-1.3b")
-    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32)
     opt_cfg = adamw.AdamWConfig()
     state = adamw.init_state(list(model.parameters()), opt_cfg)
     toks = torch.randint(0, cfg.vocab, (2, 256), device=dev,
@@ -813,7 +820,8 @@ def test_full_size_train_step_goes_through_the_kernels(dev, monkeypatch):
         raise AssertionError("attention reached its plain version")
     monkeypatch.setattr(fa_ops, "attention_ref", refuse)
     cfg = get_config("smollm-135m")
-    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32)
     opt_cfg = adamw.AdamWConfig()
     state = adamw.init_state(list(model.parameters()), opt_cfg)
     toks = torch.randint(0, cfg.vocab, (2, 128), device=dev,
@@ -926,7 +934,8 @@ def test_moe_smoke_train_steps_are_bit_identical(dev, arch, experts, top_k):
                          generator=torch.Generator(device=dev).manual_seed(1))
     runs = []
     for _ in range(2):
-        model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+        model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dtype=torch.float32)
         opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
         state = adamw.init_state(list(model.parameters()), opt_cfg)
         step = S.make_train_step(cfg, S.CellPlan(), opt_cfg)
@@ -937,3 +946,113 @@ def test_moe_smoke_train_steps_are_bit_identical(dev, arch, experts, top_k):
         runs.append(out + [p.detach().clone() for p in model.parameters()])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     assert all(bool(torch.isfinite(x).all()) for x in runs[0])
+
+
+# ---------------------------------------------------------------------------
+# bf16
+# ---------------------------------------------------------------------------
+
+#: bf16 kernels against their plain versions in bf16: within this many
+#: ulps of each output row's largest |entry| (its last dimension).
+BF16_ULPS = 4
+
+
+def _assert_bf16_rows_close(got, exp, ulps=BF16_ULPS):
+    assert got.dtype == exp.dtype == torch.bfloat16
+    g, e = got.float(), exp.float()
+    top = e.abs().amax(-1, keepdim=True).clamp_min(2.0 ** -100)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    gap = (g - e).abs()
+    assert bool((gap <= ulps * ulp).all()), float((gap / ulp).max())
+
+
+@pytest.mark.parametrize("b,s,t,hq,hk,d,causal,win", [
+    (2, 128, 128, 4, 2, 64, True, None), (1, 256, 256, 2, 2, 32, True, 64),
+    (2, 100, 200, 4, 1, 16, False, None), (1, 1, 384, 8, 4, 64, True, None),
+    (2, 70, 70, 4, 4, 128, True, 20), (2, 130, 130, 14, 2, 128, True, None),
+    (1, 200, 300, 4, 4, 64, False, None)])
+def test_bf16_attention_kernel_matches_plain(dev, b, s, t, hq, hk, d,
+                                             causal, win):
+    """Both bf16 entry points (tensor-core prefill, split-key decode) over
+    arange positions, causal, windowed and non-causal, GQA 1-7."""
+    q, k, v = (x.bfloat16() for x in _attn_inputs(dev, b, s, t, hq, hk, d))
+    q_pos = torch.arange(s, dtype=torch.int32, device=dev)
+    k_pos = torch.arange(t, dtype=torch.int32, device=dev)
+    kind = "decode" if fa_ops.uses_decode(s, hq, hk) else "prefill"
+    before = dict(_lib.LAUNCHES)
+    runs = [fa_ops.gqa_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                                 causal=causal, window=win)
+            for _ in range(2)]
+    assert _lib.LAUNCHES[f"flash_attention_bf16_{kind}"] \
+        == before[f"flash_attention_bf16_{kind}"] + 2
+    assert _lib.LAUNCHES["flash_attention"] == before["flash_attention"]
+    assert torch.equal(*runs)
+    exp = attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
+                        window=win)
+    _assert_bf16_rows_close(runs[0], exp)
+
+
+@pytest.mark.parametrize("t_max,first,last,empty,s,hq,hk,d,window", [
+    (1024, 0, 543, list(range(544, 1024)), 1, 56, 8, 128, None),
+    (1024, 600, 1299, [5, 77, 700, 1023], 1, 9, 3, 64, 256),
+    (256, 100, 611, list(range(64, 128)), 1, 8, 1, 16, None),
+    (300, 0, 299, [], 2, 8, 1, 128, None),
+    (70, 0, 69, [0, 1], 17, 2, 2, 64, 30)])
+def test_bf16_attention_over_rolled_caches(dev, t_max, first, last, empty, s,
+                                           hq, hk, d, window):
+    """bf16 decode (and a 17-row prefill) over rolled, partly empty caches,
+    yi-34b's GQA 7 at head dim 128 among them; against the plain version
+    and the plain split-key algebra."""
+    q, k, v = (x.bfloat16() for x in _attn_inputs(dev, 2, s, t_max, hq, hk,
+                                                  d))
+    k_pos = torch.from_numpy(rolled_pos_tab(t_max, first, last, empty)
+                             ).to(dev)
+    q_pos = torch.arange(last + 1 - s, last + 1, dtype=torch.int32,
+                         device=dev)
+    runs = [fa_ops.gqa_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                                 window=window) for _ in range(2)]
+    assert torch.equal(*runs)
+    _assert_bf16_rows_close(runs[0], attention_ref(
+        q, k, v, q_pos=q_pos, k_pos=k_pos, window=window))
+    _assert_bf16_rows_close(runs[0].cpu(), split_attention_ref(
+        q.cpu(), k.cpu(), v.cpu(), q_pos=q_pos.cpu(), k_pos=k_pos.cpu(),
+        window=window))
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (2, 96, 4, 32, 2, 16, 32), (2, 100, 8, 64, 2, 128, 16),
+    (1, 130, 2, 72, 1, 70, 128), (2, 300, 16, 64, 8, 128, 128)])
+def test_bf16_ssd_kernel_matches_plain(dev, b, s, h, p, g, n, chunk):
+    """K4 in bf16 (x, b, c; dt, a and the state f32) against the plain
+    version in bf16: y within the bf16 rows' ulps, the f32 state at 2e-4,
+    two runs bit-identical."""
+    x, dt, a, bm, cm, s0 = _ssd_inputs(dev, b, s, h, p, g, n, s + chunk)
+    args = (x.bfloat16(), dt, a, bm.bfloat16(), cm.bfloat16())
+    for init in (None, s0):
+        before = dict(_lib.LAUNCHES)
+        runs = [ssd_ops.ssd(*args, chunk=chunk, init_state=init)
+                for _ in range(2)]
+        assert _lib.LAUNCHES["ssd_scan_bf16"] == before["ssd_scan_bf16"] + 2
+        assert _lib.LAUNCHES["ssd_scan"] == before["ssd_scan"]
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert torch.equal(runs[0][1], runs[1][1])
+        yp, sp = ssd_ref(*args, chunk=chunk, init_state=init)
+        _assert_bf16_rows_close(runs[0][0], yp)
+        torch.testing.assert_close(runs[0][1], sp, atol=2e-4, rtol=2e-4)
+
+
+def test_bf16_kernels_raise_on_mixed_types_and_gradients(dev):
+    q, k, v = _attn_inputs(dev, 1, 8, 8, 2, 2, 64)
+    pos = torch.arange(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="share one type"):
+        fa_ops.gqa_attention(q.bfloat16(), k, v, q_pos=pos, k_pos=pos)
+    qb, kb, vb = (x.bfloat16().requires_grad_() for x in (q, k, v))
+    with pytest.raises(NotImplementedError, match="f32"):
+        fa_ops.gqa_attention(qb, kb, vb, q_pos=pos, k_pos=pos)
+    x, dt, a, bm, cm, _ = _ssd_inputs(dev, 1, 40, 4, 16, 2, 8, 0)
+    with pytest.raises(ValueError, match="b must be"):
+        ssd_ops.ssd(x.bfloat16(), dt, a, bm, cm.bfloat16(), chunk=16)
+    with pytest.raises(NotImplementedError, match="f32"):
+        ssd_ops.ssd(x.bfloat16().requires_grad_(), dt, a, bm.bfloat16(),
+                    cm.bfloat16(), chunk=16)
+

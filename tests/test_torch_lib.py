@@ -43,7 +43,9 @@ def test_every_source_has_launch_counters():
                      "ssd_scan"}
     assert {"sketch_insert_runs", "failrank_step", "flash_attention",
             "flash_attention_prefill", "flash_attention_decode",
-            "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd"} \
+            "flash_attention_bf16", "flash_attention_bf16_prefill",
+            "flash_attention_bf16_decode", "flash_attention_bwd",
+            "ssd_scan", "ssd_scan_bf16", "ssd_scan_bwd"} \
         == set(_lib.LAUNCHES)
     _lib.LAUNCHES["flash_attention_decode"] += 3
     _lib.reset_launches()

@@ -83,7 +83,8 @@ def test_init_model_shapes_match_reference(arch):
         dtype=jnp.float32))
     exp = {jax.tree_util.keystr(path): (tuple(leaf.shape), leaf.dtype)
            for path, leaf in jax.tree_util.tree_leaves_with_path(ref)}
-    got = _port_leaves(cfg, T.init_model(cfg, torch.Generator().manual_seed(0)))
+    got = _port_leaves(cfg, T.init_model(cfg, torch.Generator().manual_seed(0),
+                                         dtype=torch.float32))
     assert {k: v.shape for k, v in got.items()} == {
         k: s for k, (s, _) in exp.items()}
     assert {str(dt) for _, dt in exp.values()} == {"float32"}
@@ -99,7 +100,8 @@ def test_init_scales_match_reference(arch):
     ref0, ref1 = (_ref_leaves(JT.init_model(jcfg, jax.random.PRNGKey(k),
                                             dtype=jnp.float32))
                   for k in (0, 1))
-    ours = _port_leaves(cfg, T.init_model(cfg, torch.Generator().manual_seed(0)))
+    ours = _port_leaves(cfg, T.init_model(cfg, torch.Generator().manual_seed(0),
+                                          dtype=torch.float32))
     npy = _ref_leaves(reference_params_numpy(cfg, 0))
     assert ours.keys() == npy.keys() == ref0.keys()
     for key, want in ref0.items():
@@ -131,7 +133,7 @@ def test_forward_prefill_decode_match_reference(arch):
     _close(aux, jaux)
     _close(logits, jlogits)
 
-    cache = T.init_cache(cfg, 2, 64, device="cpu")
+    cache = T.init_cache(cfg, 2, 64, device="cpu", dtype=torch.float32)
     last, cache, memory = T.prefill(cfg, model, tt, cache)
     assert memory is None
     jcache = JT.init_cache(jcfg, 2, 64, dtype=jnp.float32)

@@ -13,7 +13,8 @@ few units.)  Also:
 ``launch.serve.main`` end to end with ``--device cpu``.
 
 Run as a script, this file prints the reference's pins that
-``chip_smoke.py`` holds the card to (it may not import the reference):
+``chip_smoke.py`` holds the card to (it may not import the reference),
+the f32 ones (``PINS``) and the bf16 ones (``BF16_PINS``):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_serve.py [ARCH]
 
@@ -177,12 +178,22 @@ def pin_frames(cfg, batch=2):
                                dtype=np.float32) * np.float32(0.02)
 
 
-def _to_jax(tree):
+def _to_jax(tree, spec=None, dtype=jnp.bfloat16):
     """The numpy tree as jnp arrays, each numpy leaf dropped once it is
     converted, so that the host holds the weights about once (mixtral's
-    two layers are 12.6 GB)."""
-    return {k: _to_jax(tree[k]) if isinstance(tree[k], dict)
-            else jnp.asarray(tree.pop(k)) for k in list(tree)}
+    two layers are 12.6 GB).  With ``spec``, ``transformer.param_spec``'s
+    tree of ``Leaf``s, each leaf is rounded to ``dtype`` unless its
+    ``Leaf`` keeps f32: the rule of the reference's
+    ``init_model(dtype=)`` and of the port's ``params_from_numpy(dtype=)``."""
+    out = {}
+    for k in list(tree):
+        if isinstance(tree[k], dict):
+            out[k] = _to_jax(tree[k], None if spec is None else spec[k],
+                             dtype)
+            continue
+        a = jnp.asarray(tree.pop(k))
+        out[k] = a if spec is None or spec[k].keep_f32 else a.astype(dtype)
+    return out
 
 
 def reference_pin(arch, n_layers, prompt_len, n_new):
@@ -224,9 +235,55 @@ def reference_pin(arch, n_layers, prompt_len, n_new):
             "min_margin": min(margins)}
 
 
+#: The bf16 pins of ``chip_smoke.py`` (``BF16_PINS``): (arch, layers kept
+#: or None, prompt length, steps).  yi-34b keeps 2 of its 60 layers at full
+#: width (2.03 G parameters) to spare this machine's CPU.
+BF16_PIN_RUNS = (("smollm-135m", None, 48, 8), ("mamba2-1.3b", 4, 48, 8),
+                 ("yi-34b", 2, 48, 8))
+
+
+def reference_bf16_pin(arch, n_layers, prompt_len, n_steps):
+    """The JAX reference in bf16 (``init_model(dtype=jnp.bfloat16)``'s
+    types: ``reference_params_numpy(cfg, PIN_SEED)`` rounded by the per-leaf
+    rule, a bf16 cache) on two seeded prompts: its greedy tokens and, at
+    each of ``n_steps`` steps (the prefill's last position, then a decode
+    step fed the previous greedy token), the top-5 ids and logits and the
+    top-1/top-2 margin of each row.  The card decodes these tokens
+    (teacher-forced) and holds its logits to them."""
+    cfg = pin_config(arch, n_layers)
+    jcfg = pin_config(arch, n_layers, j_get_config)
+    params = _to_jax(reference_params_numpy(cfg, PIN_SEED), T.param_spec(cfg))
+    toks = pin_prompts(cfg, prompt_len)
+    cache = JT.init_cache(jcfg, 2, prompt_len + n_steps, dtype=jnp.bfloat16)
+    last, cache, _ = jax.jit(lambda p, t, c: JT.prefill(jcfg, p, t, c))(
+        params, jnp.asarray(toks), cache)
+    decode = jax.jit(lambda p, t, c, pos: JT.decode_step(jcfg, p, t, c, pos))
+    logits = np.asarray(last[:, -1].astype(jnp.float32))
+    new, ids, vals, margins = [], [], [], []
+    for k in range(n_steps):
+        top = np.argsort(-logits, axis=-1, kind="stable")[:, :5]
+        ids.append(top.tolist())
+        vals.append(np.take_along_axis(logits, top, -1).tolist())
+        srt = np.sort(logits, axis=-1)
+        margins.append((srt[:, -1] - srt[:, -2]).tolist())
+        nxt = logits.argmax(-1).astype(np.int32)
+        new.append(nxt.tolist())
+        if k + 1 < n_steps:
+            out, cache = decode(params, jnp.asarray(nxt[:, None]), cache,
+                                jnp.int32(prompt_len + k))
+            logits = np.asarray(out[:, -1].astype(jnp.float32))
+    return {"arch": arch, "n_layers": cfg.n_layers, "dtype": "bfloat16",
+            "prompt_len": prompt_len, "tokens": np.array(new).T.tolist(),
+            "top5_ids": ids, "top5_logits": vals, "margins": margins}
+
+
 if __name__ == "__main__":
-    # ``python tests/test_torch_serve.py ARCH`` prints ARCH's pin alone
+    # ``python tests/test_torch_serve.py ARCH`` prints ARCH's pins alone
+    # (f32, then bf16)
     for run in PIN_RUNS:
         if sys.argv[1:] in ([], [run[0]]):
             print(json.dumps(reference_pin(*run)), flush=True)
+    for run in BF16_PIN_RUNS:
+        if sys.argv[1:] in ([], [run[0]]):
+            print(json.dumps(reference_bf16_pin(*run)), flush=True)
     sys.exit(0)

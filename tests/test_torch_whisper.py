@@ -81,7 +81,8 @@ def test_param_tree_is_the_reference_tree():
     cfg, jcfg = _cfgs()
     ref0, ref1 = (_leaves(JT.init_model(jcfg, jax.random.PRNGKey(k),
                                         dtype=jnp.float32)) for k in (0, 1))
-    model = T.init_model(cfg, torch.Generator().manual_seed(0))
+    model = T.init_model(cfg, torch.Generator().manual_seed(0),
+                         dtype=torch.float32)
     ours = _leaves(params_to_numpy(cfg, model))
     npy = _leaves(reference_params_numpy(cfg, 0))
     assert ours.keys() == npy.keys() == ref0.keys()
@@ -126,7 +127,7 @@ def test_forward_prefill_decode_match_reference():
     assert float(aux.detach()) == 0.0 == float(jaux)
     _close(logits, jlogits)
 
-    cache = T.init_cache(cfg, 2, 64, device="cpu")
+    cache = T.init_cache(cfg, 2, 64, device="cpu", dtype=torch.float32)
     last, cache, memory = T.prefill(cfg, model, tt, cache, tf)
     jcache = JT.init_cache(jcfg, 2, 64, dtype=jnp.float32)
     jlast, jcache, jmemory = JT.prefill(jcfg, jparams, jnp.asarray(tokens),
@@ -153,13 +154,14 @@ def test_forward_prefill_decode_match_reference():
 
 def test_an_encoder_decoder_needs_its_frames():
     cfg, _ = _cfgs()
-    model = T.init_model(cfg, torch.Generator().manual_seed(0))
+    model = T.init_model(cfg, torch.Generator().manual_seed(0),
+                         dtype=torch.float32)
     toks = torch.zeros(1, 4, dtype=torch.int32)
     with pytest.raises(ValueError, match="enc_frames"):
         T.forward_train(cfg, model, toks)
+    cache = T.init_cache(cfg, 1, 8, "cpu", torch.float32)
     with pytest.raises(ValueError, match="memory"):
-        T.decode_step(cfg, model, toks[:, :1], T.init_cache(cfg, 1, 8, "cpu"),
-                      0)
+        T.decode_step(cfg, model, toks[:, :1], cache, 0)
 
 
 def _margin(logits):
@@ -306,7 +308,7 @@ def test_train_main_and_crash_resume(tmp_path):
     assert len(resumed) == 3
     assert resumed == pytest.approx(full[3:], rel=1e-6)
     model = T.init_model(get_config(ARCH, smoke=True),
-                         torch.Generator().manual_seed(0))
+                         torch.Generator().manual_seed(0), dtype=torch.float32)
     tree = train.checkpoint_tree(model, adamw.init_state(
         list(model.parameters()), adamw.AdamWConfig()))
     for key in ("params/encoder.1.attn.wq", "params/enc_final_norm.scale",
