@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # from the repository root, one card
 
 1. builds every CUDA source in ``src/repro_torch/csrc`` (one ``nvcc`` each,
-   started together) into ``build/``, and counts the tensor-core (HMMA)
-   instructions of the bf16 prefill kernel in ``cuobjdump -sass``;
+   started together) into ``build/``, and counts the tensor-core
+   instructions of the bf16 prefill kernel in ``cuobjdump -sass``: every
+   tile width must have ``HGMMA`` (wgmma) and no ``HMMA`` (mma.sync);
 2. holds each kernel against its plain torch version on the card: the
    Fail-Slow Sketch insert (random run streams, forced eviction, the
    promotion/steal branches, a per-record stream, a carried state, two
@@ -22,9 +23,11 @@
    rolled, partly empty 1,024-slot cache and over the serve run's own
    fill, with and without a window, splits wholly empty or wholly outside
    the window, a cache that is not a multiple of the split, GQA ratios 1,
-   3 and 8, head dims 16-128, both sides of the decode/prefill line, and
-   at head dim 128 mixtral-8x7b's prefill and decode (GQA 4, its 4,096
-   window wider than the cache) and qwen2-vl-2b's (GQA 6), and
+   3 and 8, head dims 8-128 (8, 24 and 120 among them), both sides of the
+   decode/prefill line, and at head dim 128 mixtral-8x7b's prefill and
+   decode (GQA 4, its 4,096 window wider than the cache) and qwen2-vl-2b's
+   (GQA 6), at head dim 120 h2o-danube-3-4b's (GQA 4) and its prefill
+   of 8,192 tokens past its 4,096 window, and
    whisper-large-v3's non-causal shapes: its encoder q [4,1500,20,64], its
    cross-attention's prefill q [4,512,20,64] over 1,500 keys and its
    split-key decode q [4,1,20,64] at a position below most keys; within
@@ -83,46 +86,53 @@
    one launch over the whole trace;
 7. drives the serving path, ``repro_torch.launch.serve.main``, at full
    width and depth for smollm-135m (30 attention layers), mamba2-1.3b
-   (48 SSD layers), qwen2-vl-2b (28 attention layers, M-RoPE) and
+   (48 SSD layers), qwen2-vl-2b (28 attention layers, M-RoPE),
    whisper-large-v3 (32 encoder and 32 decoder layers over the launcher's
-   zero frames, 1,500 of them), and at full width with 8 of its 32 layers
+   zero frames, 1,500 of them) and h2o-danube-3-4b (24 layers, head dim
+   120), and at full width with 8 of its 32 layers
    for mixtral-8x7b (8 experts, top-2; a layer is 5.81 GB of f32
    weights), 8 requests of up to 512 tokens, 32 new tokens each, with the
    counts set to 0 before each: attention must launch once per attention
    per prefill and decode step (smollm 1,980: 60 through the prefill
    entry point, 1,920 through the split-key decode; mixtral 528; qwen2-vl
    1,848; whisper 4,288: per batch 32 encoder, 32 self and 32 cross
-   prefills, and 64 decodes a step, self and cross), the SSD scan once per
-   layer per prefill (96, none in decode), and no plain version may run;
+   prefills, and 64 decodes a step, self and cross; danube 1,584 = 48 +
+   1,536), the SSD scan once per layer per prefill (96, none in decode),
+   no bf16 kernel, and no plain version may run;
    prints tok/s, the mean prefill, the decode p50/p99 and the peak device
    memory;
 8. holds greedy tokens and prefill logits to the JAX reference's pins
    (``tests/test_torch_serve.py`` run as a script prints them) on the same
    numpy weights: the tokens equal, the top-5 logits within 1e-3 (also
    mixtral-8x7b at full width with 2 layers, whose prefill drops
-   assignments at the capacity, printed per layer, qwen2-vl-2b whole, and
-   whisper-large-v3 at full width with 4 + 4 layers over seeded frames);
+   assignments at the capacity, printed per layer, qwen2-vl-2b whole,
+   whisper-large-v3 at full width with 4 + 4 layers over seeded frames,
+   and h2o-danube-3-4b at full width with 2 layers);
 9. times flash attention and the SSD scan at the serving shapes beside
    their plain versions, their bounds and (attention) PyTorch's
-   ``scaled_dot_product_attention`` (K3 also at mixtral-8x7b's and
-   qwen2-vl-2b's head dim 128 and at whisper-large-v3's encoder, cross
-   prefill and cross decode), with a profiler breakdown of each
+   ``scaled_dot_product_attention`` (with ``is_causal`` where the mask is
+   exactly lower-triangular, its boolean-mask time beside it; K3 also at
+   mixtral-8x7b's and qwen2-vl-2b's head dim 128, h2o-danube-3-4b's 120,
+   and at whisper-large-v3's encoder, cross prefill and cross decode),
+   with a profiler breakdown of each
    kernel call by the kernels it launches, and profiles a prefill and
    decode steps of each served model (device time by kernel and by
    class, the device's idle share).  Kernel times are device time by
    CUDA events, with the calls queued behind a device-side spin so the host cannot pace them, and the
    back-to-back event time beside it (which includes the host's wrapper
    cost where the host is the slower side);
-9b. bf16 serving: times K3's bf16 entries (smollm-135m's and yi-34b's
-   prefill and decode, whisper-large-v3's non-causal shapes) and K4's
+9b. bf16 serving: times K3's bf16 entries (h2o-danube-3-4b's, smollm-135m's
+   and yi-34b's prefill and decode, whisper-large-v3's non-causal shapes)
+   and K4's
    (mamba2-1.3b's prefill) beside their plain versions, bounds (bf16
    tensor-core rate for the prefill) and SDPA in bf16; serves yi-34b
-   (60 layers, 68.8 GB of bf16 weights), smollm-135m and mamba2-1.3b
-   whole through ``ServeEngine(EngineConfig(dtype=torch.bfloat16))`` on
+   (60 layers, 68.8 GB of bf16 weights), smollm-135m, mamba2-1.3b and
+   h2o-danube-3-4b whole through
+   ``ServeEngine(EngineConfig(dtype=torch.bfloat16))`` on
    ``init_model(dtype=torch.bfloat16)``, the launcher's request set, with
    the counts set to 0 just before ``engine.run``: K3's bf16 entries
-   exactly 3,960 (yi: 120 prefill + 3,840 decode) and 1,980 times, K4's
-   96, no f32 kernel launch, no plain version, peak device memory below
+   exactly 3,960 (yi: 120 prefill + 3,840 decode), 1,980 and 1,584 times,
+   K4's 96, no f32 kernel launch, no plain version, peak device memory below
    the card's; profiles each; holds the reference's bf16 pins
    (``BF16_PINS``) teacher-forced, near ties printed;
 10. times K3's backward at smollm-135m's training shape and at
@@ -181,6 +191,19 @@ failed check exits non-zero; without a card the script exits 2.
 times only K2's loops (step 4's last phase) for the port in ``SRC``, for
 example an earlier tree's ``src`` unpacked by ``git archive``, whose
 ``failrank_dense`` launched one step at a time.
+
+    python3 chip_smoke.py --k3-digest SRC
+
+prints digests of K3's f32 outputs (prefill, log-sum-exp, decode,
+backward) at head dims 16, 32, 64 and 128 for the port in ``SRC``: two
+trees that give the same line compute the same bits.
+
+    python3 chip_smoke.py --k3-ablations
+
+times K3's bf16 prefill beside copies of it with one part removed (its
+products, its P.V, its softmax, both products and softmax, the
+warpgroups' turns) or its ring cut to 2 stages, at the bf16 serving
+shapes (``K3_ABLATIONS``).
 """
 
 from __future__ import annotations
@@ -224,11 +247,13 @@ REFERENCE = {
 #: draws, mixtral-8x7b 2 of its 32 (3.16 G draws); qwen2-vl-2b is whole;
 #: whisper-large-v3 keeps 4 + 4 of its 32 + 32 layers (the reference's CPU
 #: run re-projects 1,500 frames in every decoder layer at every step) over
-#: frames from ``default_rng(5)`` × 0.02.  Smallest top-1 margin of any
-#: pinned step: 0.0111, 0.0098, 0.0122, 0.0012 and 0.2334.  At the init's
+#: frames from ``default_rng(5)`` × 0.02; h2o-danube-3-4b keeps 2 of its 24
+#: (0.56 G draws).  Smallest top-1 margin of any pinned step: 0.0111,
+#: 0.0098, 0.0122, 0.0012, 0.2334 and 0.0038.  At the init's
 #: scales whisper's sinusoidal positions outweigh its token embeddings, so
 #: every step's argmax is one token: its last decode step's top-5 logits
-#: (``last_top5_*``) are pinned too, to hold the cross-attention's decode.
+#: (``last_top5_*``) are pinned too, to hold the cross-attention's decode;
+#: danube's too, to hold its last decode step at head dim 120.
 PIN_PROMPT_SEED, PIN_PROMPT_LEN, PIN_FRAME_SEED = 4, 48, 5
 PINS = (
     {"arch": "smollm-135m", "n_layers": 30,
@@ -293,6 +318,24 @@ PINS = (
                           [3.045691728591919, 2.852902889251709,
                            2.8276147842407227, 2.774662733078003,
                            2.7154061794281006]]},
+    {"arch": "h2o-danube-3-4b", "n_layers": 2,
+     "tokens": [[17161, 6771, 29168, 28490, 29985, 9367, 23482, 325, 19907,
+               20970, 11914, 13168, 22465, 12370, 27859, 31504], [6359, 20465,
+               5229, 4228, 3327, 18988, 8610, 5229, 9339, 9339, 9339, 9339,
+               9339, 9339, 5489, 5025]],
+     "top5_ids": [[17161, 30570, 25355, 214, 8171], [6359, 24055, 24646, 28341,
+                 29345]],
+     "top5_logits": [[4.969788074493408, 4.879227161407471, 4.463211536407471,
+                    4.417803764343262, 4.40326452255249], [5.546257019042969,
+                    5.105676174163818, 4.402897357940674, 4.37100076675415,
+                    4.3424859046936035]],
+     "last_top5_ids": [[16888, 4866, 27106, 29305, 19241], [22203, 17038,
+                      23025, 7308, 5992]],
+     "last_top5_logits": [[5.580926895141602, 5.027799129486084,
+                         4.814469337463379, 4.800178050994873,
+                         4.745707988739014], [4.975133895874023,
+                         4.56942081451416, 4.530267715454102,
+                         4.445657730102539, 4.3169474601745605]]},
 )
 
 #: The serving runs of phase 7 (``launch/serve.py`` flags).
@@ -644,8 +687,10 @@ def allclose(got, exp, tol):
 def attention_cases(dev):
     """(label, q, k, v, q_pos, k_pos, causal, window) in the model layout:
     the f32 shapes of ``test_kernels.py:294-313`` over ``arange``
-    positions, then the serving shapes of smollm-135m, mixtral-8x7b and
-    qwen2-vl-2b."""
+    positions, then the serving shapes of smollm-135m, mixtral-8x7b,
+    qwen2-vl-2b and whisper-large-v3, head dims 8, 24 and 120 (the last at
+    h2o-danube-3-4b's serving shapes and past its window at 8,192 tokens),
+    and decodes over rolled caches."""
     import torch
 
     from repro_torch.kernels.flash_attention.ref import rolled_pos_tab
@@ -702,6 +747,28 @@ def attention_cases(dev):
         cases.append(("decode [4,1,9,64] at the serve fill", q1, kc, vc,
                       torch.tensor([543], dtype=torch.int32, device=dev),
                       serve_fill_tab(dev), True, win))
+    # head dims that are not a tile width: yi-34b's smoke config (8 over
+    # GQA 8), 24, and h2o-danube-3-4b's 120 at its serving shapes and past
+    # its 4,096 window at 8,192 tokens (the window used at full width)
+    for b, s, t, hq, hk, d, causal, win in (
+            (2, 100, 100, 8, 1, 8, True, None),
+            (2, 150, 150, 6, 2, 24, True, 50),
+            (2, 100, 180, 4, 4, 24, False, None)):
+        cases.append((f"q{[b, s, hq, d]} kv{[b, t, hk, d]}", rand(b, s, hq, d),
+                      rand(b, t, hk, d), rand(b, t, hk, d), ar(s), ar(t),
+                      causal, win))
+    hq, hk, win = DANUBE_ATTENTION
+    cases.append((f"h2o-danube-3-4b prefill [4,512,{hq},120]",
+                  rand(4, 512, hq, 120), rand(4, 512, hk, 120),
+                  rand(4, 512, hk, 120), ar(512), ar(512), True, win))
+    cases.append((f"h2o-danube-3-4b decode [4,1,{hq},120] at the serve fill",
+                  rand(4, 1, hq, 120), rand(4, 1024, hk, 120),
+                  rand(4, 1024, hk, 120),
+                  torch.tensor([543], dtype=torch.int32, device=dev),
+                  serve_fill_tab(dev), True, win))
+    cases.append((f"h2o-danube-3-4b prefill [1,8192,{hq},120] past its "
+                  "window", rand(1, 8192, hq, 120), rand(1, 8192, hk, 120),
+                  rand(1, 8192, hk, 120), ar(8192), ar(8192), True, win))
     # (label, B, S, Hq, Hkv, D, rolled_pos_tab arguments, window)
     for label, b, s, hq, hk, d, tab_args, win in (
             ("decode, split 64..127 wholly empty, GQA 8", 2, 1, 8, 1, 32,
@@ -724,6 +791,10 @@ def attention_cases(dev):
                       True, win))
     return cases
 
+
+#: h2o-danube-3-4b's attention: 32 query heads over 8 KV heads of 120
+#: (d 3,840), sliding window 4,096.
+DANUBE_ATTENTION = (32, 8, 4096)
 
 #: (config, query heads, KV heads, window) of the head-dim-128 serving
 #: shapes: mixtral-8x7b's GQA 4 with its 4,096 window, qwen2-vl-2b's GQA 6.
@@ -762,10 +833,24 @@ def decode_pos_tab(dev):
         rolled_pos_tab(1024, 600, 1299, [5, 77, 700, 1023])).to(dev)
 
 
+def plain_attention(q, k, v, q_pos, k_pos, causal, window):
+    """``attention_ref`` over chunks of the query axis, each with at most
+    2^28 f32 scores (the 8,192-token case's would be 8.6 GB at once); its
+    rows do not depend on one another, so the result is the same."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    b, s, hq, _ = q.shape
+    step = max(1, 2 ** 28 // (b * hq * k.shape[1]))
+    return torch.cat([attention_ref(q[:, i:i + step], k, v,
+                                    q_pos=q_pos[i:i + step], k_pos=k_pos,
+                                    causal=causal, window=window)
+                      for i in range(0, s, step)], dim=1)
+
+
 def check_attention_kernel(dev, lib):
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_cuda, uses_decode)
-    from repro_torch.kernels.flash_attention.ref import attention_ref
     out, worst = [], 0.0
     for label, q, k, v, qp, kp, causal, win in attention_cases(dev):
         entry = ("flash_attention_decode"
@@ -775,8 +860,7 @@ def check_attention_kernel(dev, lib):
         got = flash_attention_cuda(q, k, v, q_pos=qp, k_pos=kp,
                                    causal=causal, window=win)
         require(lib.LAUNCHES[entry] == before + 1, f"{label}: not {entry}")
-        exp = attention_ref(q, k, v, q_pos=qp, k_pos=kp, causal=causal,
-                            window=win)
+        exp = plain_attention(q, k, v, qp, kp, causal, win)
         err, ok = allclose(got, exp, 2e-5)
         require(ok, f"flash attention vs plain, {label} window {win}: {err}")
         worst = max(worst, err)
@@ -1544,10 +1628,11 @@ def run_campaign_phase(dev, lib) -> dict:
 #: The serve runs of phase 7: (config, layers kept or None for all).
 #: mixtral-8x7b keeps 8 of its 32 layers at full width: a layer is 1,451 M
 #: f32 parameters (5.81 GB), and 32 of them are 187 GB.  whisper-large-v3
-#: is whole (1.60 G parameters).
+#: is whole (1.60 G parameters), h2o-danube-3-4b too (3.96 G, head dim 120,
+#: window 4,096).
 SERVE_RUNS = (("smollm-135m", None), ("mamba2-1.3b", None),
               ("mixtral-8x7b", 8), ("qwen2-vl-2b", None),
-              ("whisper-large-v3", None))
+              ("whisper-large-v3", None), ("h2o-danube-3-4b", None))
 
 
 def serve_run(arch, lib, n_layers=None):
@@ -1583,7 +1668,8 @@ def serve_run(arch, lib, n_layers=None):
             "flash_attention_prefill": n_batches * per_prefill,
             "flash_attention_decode": n_batches * per_step * max_new,
             "ssd_scan": (cfg.n_layers - cfg.n_attn_layers) * n_batches,
-            "ssd_scan_bwd": 0}
+            "ssd_scan_bwd": 0, "flash_attention_bf16": 0,
+            "ssd_scan_bf16": 0}
     # the launcher's numbers: tok/s is all tokens over the engine.run wall
     # time; the p99 of 64 decode steps is close to their maximum
     summary = {"phase": "serve", "arch": arch, "layers": cfg.n_layers,
@@ -1702,14 +1788,21 @@ KERNEL_TIME_KEYS = ("ms", "plain_ms", "library_ms", "events_ms",
                     "plain_events_ms", "library_events_ms", "timing",
                     "bound_ms", "bound_by")
 
+#: And of an attention forward's (:func:`time_attention`).
+ATTN_TIME_KEYS = KERNEL_TIME_KEYS + ("library_is", "library_masked_ms")
+
 
 def time_attention(q, k, v, q_pos, k_pos, reps, window=None, causal=True):
-    """Kernel, plain version and SDPA (same boolean mask, or none where
-    every pair is live) on one case, in q's type (SDPA too).  Bound from
-    bytes (q, the output, both position tables, and the K/V of only the
-    slots some query can use) and from 4·D operations per live (query, key)
-    pair, at the f32 rate or, for the bf16 prefill (tensor cores), the
-    bf16 rate."""
+    """Kernel, plain version and SDPA on one case, in q's type (SDPA too).
+    SDPA, ``library_ms``, takes the mask in its own terms where it has them,
+    which lets it use its fused kernels: none where every pair is live,
+    ``is_causal=True`` where the mask is exactly lower-triangular (S = T,
+    positions arange: a plain causal prefill); else the same boolean mask.
+    In the causal case the boolean-mask call is timed too
+    (``library_masked_ms``).  Bound from bytes (q, the output, both position
+    tables, and the K/V of only the slots some query can use) and from 4·D
+    operations per live (query, key) pair, at the f32 rate or, for the bf16
+    prefill (tensor cores), the bf16 rate."""
     import torch
     import torch.nn.functional as F
 
@@ -1721,7 +1814,10 @@ def time_attention(q, k, v, q_pos, k_pos, reps, window=None, causal=True):
     mask = live_mask(q_pos, k_pos, causal=causal, window=window).expand(
         q_pos.numel(), k_pos.numel())
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib_mask = None if bool(mask.all()) else mask
+    s_len, t_len = q_pos.numel(), k_pos.numel()
+    lower = s_len == t_len and bool(torch.equal(mask, torch.ones(
+        s_len, t_len, dtype=torch.bool, device=q.device).tril()))
+    lib_mask = None if bool(mask.all()) or lower else mask
 
     def kernel():
         return flash_attention_cuda(q, k, v, q_pos=q_pos, k_pos=k_pos,
@@ -1733,6 +1829,11 @@ def time_attention(q, k, v, q_pos, k_pos, reps, window=None, causal=True):
 
     def library():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lib_mask,
+                                              is_causal=lower,
+                                              enable_gqa=True)
+
+    def library_masked():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                               enable_gqa=True)
 
     err, _ = allclose(kernel(), plain(), 2e-5)
@@ -1745,7 +1846,12 @@ def time_attention(q, k, v, q_pos, k_pos, reps, window=None, causal=True):
     flops = 4 * d * b * hq * int(mask.sum())
     tensor_cores = (q.dtype == torch.bfloat16
                     and not uses_decode(s, hq, k.shape[2]))
+    masked = timed(library_masked, reps)["ms"] if lower else None
     return {**times(kernel, plain, library, reps),
+            "library_is": ("SDPA, is_causal" if lower
+                           else "SDPA, no mask" if lib_mask is None
+                           else "SDPA, boolean mask"),
+            "library_masked_ms": masked,
             **bound(nbytes, flops,
                     BF16_FLOP_PER_S if tensor_cores else FP32_FLOP_PER_S),
             "live_slots": live_slots,
@@ -1900,7 +2006,8 @@ BF16_PIN_ULPS = 6
 #: ``PINS``; per step (the prefill's last position, then decode steps fed
 #: the previous greedy token) the top-5 ids and logits and each row's
 #: top-1/top-2 margin.  smollm-135m whole, mamba2-1.3b with 4 of its 48
-#: layers, yi-34b at full width with 2 of its 60 (2.03 G parameters).
+#: layers, yi-34b at full width with 2 of its 60 (2.03 G parameters),
+#: h2o-danube-3-4b at full width with 2 of its 24.
 BF16_PINS = json.loads("""
 [{"arch": "smollm-135m", "n_layers": 30, "dtype": "bfloat16", "prompt_len":
 48, "tokens": [[48556, 39997, 46394, 38563, 9961, 39997, 8440, 48556], [26033,
@@ -1972,7 +2079,29 @@ BF16_PINS = json.loads("""
 6.4375, 6.375, 6.34375, 6.3125], [6.875, 6.78125, 6.59375, 6.5, 6.40625]]],
 "margins": [[0.4375, 0.0], [0.09375, 0.59375], [0.21875, 0.0625], [0.25,
 0.1875], [0.375, 0.65625], [0.03125, 0.78125], [0.46875, 0.09375], [0.15625,
-0.09375]]}]
+0.09375]]}, {"arch": "h2o-danube-3-4b", "n_layers": 2, "dtype": "bfloat16",
+"prompt_len": 48, "tokens": [[17161, 6771, 29168, 28490, 29985, 9367, 23482,
+325], [6359, 20465, 5229, 4228, 3327, 18988, 8610, 5229]], "top5_ids":
+[[[17161, 30570, 25355, 8171, 214], [6359, 24055, 24646, 28341, 29345]],
+[[6771, 19680, 5946, 27854, 29298], [20465, 21234, 18476, 23999, 16900]],
+[[29168, 8864, 27919, 6574, 21811], [5229, 18889, 18187, 16018, 21328]],
+[[28490, 22770, 28081, 3049, 715], [4228, 27046, 83, 10897, 19013]], [[29985,
+5021, 15628, 27859, 31490], [3327, 1741, 13824, 31814, 20679]], [[9367, 30491,
+11074, 28716, 7190], [18988, 35, 18512, 5999, 15386]], [[23482, 26876, 6928,
+10575, 1082], [8610, 29237, 24456, 3180, 22027]], [[325, 10204, 15033, 2942,
+27859], [5229, 21935, 9602, 20682, 25796]]], "top5_logits": [[[4.96875, 4.875,
+4.46875, 4.4375, 4.40625], [5.53125, 5.09375, 4.375, 4.375, 4.375]], [[4.8125,
+4.46875, 4.34375, 4.25, 4.25], [5.375, 4.75, 4.59375, 4.53125, 4.40625]],
+[[4.875, 4.84375, 4.8125, 4.4375, 4.40625], [5.46875, 4.6875, 4.59375,
+4.53125, 4.40625]], [[4.9375, 4.625, 4.59375, 4.5625, 4.46875], [5.03125, 5.0,
+4.9375, 4.9375, 4.84375]], [[5.0625, 4.78125, 4.625, 4.625, 4.5], [5.03125,
+4.875, 4.75, 4.71875, 4.625]], [[4.65625, 4.625, 4.59375, 4.5625, 4.53125],
+[5.53125, 4.90625, 4.78125, 4.75, 4.71875]], [[5.03125, 5.03125, 4.46875,
+4.40625, 4.375], [6.21875, 5.96875, 5.03125, 4.6875, 4.6875]], [[4.90625,
+4.84375, 4.75, 4.6875, 4.59375], [6.09375, 4.8125, 4.75, 4.75, 4.75]]],
+"margins": [[0.09375, 0.4375], [0.34375, 0.625], [0.03125, 0.78125], [0.3125,
+0.03125], [0.28125, 0.15625], [0.03125, 0.625], [0.0, 0.25], [0.0625,
+1.28125]]}]
 """)
 
 #: yi-34b's attention: 56 query heads over 8 KV heads of 128.
@@ -1981,7 +2110,8 @@ YI_HEADS = (56, 8)
 #: The bf16 serve runs: ``ServeEngine(EngineConfig(dtype=torch.bfloat16))``
 #: on ``init_model(dtype=torch.bfloat16)``, whole, with the launcher's
 #: request set (``SERVE_FLAGS``).
-SERVE_BF16_RUNS = ("yi-34b", "smollm-135m", "mamba2-1.3b")
+SERVE_BF16_RUNS = ("yi-34b", "smollm-135m", "mamba2-1.3b",
+                   "h2o-danube-3-4b")
 
 
 def bf16_rows_gap(got, exp):
@@ -2029,7 +2159,6 @@ def check_attention_bf16(dev, lib):
 
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_cuda, uses_decode)
-    from repro_torch.kernels.flash_attention.ref import attention_ref
     out, worst_ulps, worst = [], 0.0, 0.0
     for label, q, k, v, qp, kp, causal, win in bf16_attention_cases(dev):
         key = "flash_attention_bf16_" + (
@@ -2042,8 +2171,7 @@ def check_attention_bf16(dev, lib):
         require(lib.LAUNCHES[key] == before[key] + 2
                 and lib.LAUNCHES["flash_attention"]
                 == before["flash_attention"], f"{label}: not {key}")
-        exp = attention_ref(q, k, v, q_pos=qp, k_pos=kp, causal=causal,
-                            window=win)
+        exp = plain_attention(q, k, v, qp, kp, causal, win)
         ulps, err = bf16_rows_gap(a, exp)
         same = bool(torch.equal(a, b))
         require(a.dtype == torch.bfloat16 and ulps <= BF16_ULPS,
@@ -2099,10 +2227,11 @@ def check_ssd_bf16(dev, lib):
     return out, worst_ulps, worst
 
 
-def sass_hmma_counts(lib) -> dict:
-    """HMMA (tensor-core) instructions in the SASS of each instantiation of
-    the bf16 prefill kernel, by head dim, from ``cuobjdump -sass`` of the
-    built library."""
+def sass_tensor_core_counts(lib) -> dict:
+    """Tensor-core instructions in the SASS of each instantiation of the
+    bf16 prefill kernel, by tile width: ``HGMMA`` (Hopper's warpgroup
+    products, wgmma) and ``HMMA`` (the warp-level mma.sync of earlier
+    cards), from ``cuobjdump -sass`` of the built library."""
     from torch.utils.cpp_extension import CUDA_HOME
     text = subprocess.run(
         [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass",
@@ -2112,12 +2241,14 @@ def sass_hmma_counts(lib) -> dict:
     for line in text.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            m = re.search(r"flash_prefill_bf16_kernelILi(\d+)E", name)
-            fn = f"D={m.group(1)}" if m else None
+            m = re.search(r"flash_prefill_bf16_hopper_kernelILi(\d+)E",
+                          name)
+            fn = f"DP={m.group(1)}" if m else None
             if fn:
-                counts.setdefault(fn, 0)
-        elif fn and "HMMA" in line:
-            counts[fn] += 1
+                counts.setdefault(fn, {"HGMMA": 0, "HMMA": 0})
+        elif fn:
+            for op in ("HGMMA", "HMMA"):
+                counts[fn][op] += f" {op}." in line or f" {op} " in line
     return counts
 
 
@@ -2262,10 +2393,11 @@ def check_bf16_pin(pin, dev, lib):
 
 
 def time_bf16_kernels(dev):
-    """K3's bf16 entries at the bf16 serving shapes (smollm-135m's prefill,
-    yi-34b's prefill and last decode step, whisper-large-v3's non-causal
-    encoder, cross prefill and cross decode) and K4's at mamba2-1.3b's
-    prefill, beside the plain versions, the bounds and SDPA in bf16."""
+    """K3's bf16 entries at the bf16 serving shapes (h2o-danube-3-4b's,
+    smollm-135m's and yi-34b's prefill and last decode step,
+    whisper-large-v3's non-causal encoder, cross prefill and cross decode)
+    and K4's at mamba2-1.3b's prefill, beside the plain versions, the
+    bounds and SDPA in bf16."""
     import torch
     rng = np.random.default_rng(23)
 
@@ -2275,7 +2407,15 @@ def time_bf16_kernels(dev):
     pos = torch.arange(512, dtype=torch.int32, device=dev)
     at543 = torch.tensor([543], dtype=torch.int32, device=dev)
     hq, hk = YI_HEADS
+    dq, dk, dwin = DANUBE_ATTENTION
     out = {
+        "h2o-danube-3-4b_prefill": time_attention(
+            rand(4, 512, dq, 120), rand(4, 512, dk, 120),
+            rand(4, 512, dk, 120), pos, pos, reps=20, window=dwin),
+        "h2o-danube-3-4b_decode": time_attention(
+            rand(4, 1, dq, 120), rand(4, 1024, dk, 120),
+            rand(4, 1024, dk, 120), at543, serve_fill_tab(dev), reps=50,
+            window=dwin),
         "smollm-135m_prefill": time_attention(
             rand(4, 512, 9, 64), rand(4, 512, 3, 64), rand(4, 512, 3, 64),
             pos, pos, reps=20),
@@ -3328,6 +3468,180 @@ def failrank_loops_main(src: str) -> int:
     return 0
 
 
+
+#: K3's f32 outputs digested by ``--k3-digest SRC``: (label, B, S, T, Hq,
+#: Hkv, D, causal, window) at each head dim the kernels were built for
+#: before any other was taken; S = 1 takes the split-key decode.
+K3_DIGEST_CASES = tuple(
+    (f"{kind} D={d}", *shape, d, causal, win)
+    for d in (16, 32, 64, 128)
+    for kind, shape, causal, win in (
+        ("prefill", (2, 200, 200, 8, 2), True, None),
+        ("prefill windowed", (2, 200, 200, 8, 2), True, 50),
+        ("prefill non-causal", (2, 100, 160, 4, 4), False, None),
+        ("decode", (2, 1, 300, 8, 2), True, None)))
+
+
+def k3_digest_main(src: str) -> int:
+    """``--k3-digest SRC``: the port in ``SRC`` (this tree's ``src`` or an
+    earlier tree's, e.g. unpacked by ``git archive``) runs K3's f32
+    prefill (with its log-sum-exp), split-key decode and backward on
+    seeded inputs at ``K3_DIGEST_CASES``; one JSON line of sha-256 digests
+    of the outputs' bytes, to compare two trees bit for bit."""
+    import hashlib
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    sys.path.remove(str(ROOT / "src"))
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import ops
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def digest(*xs):
+        h = hashlib.sha256()
+        for x in xs:
+            h.update(x.detach().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+    out = {}
+    for i, (label, b, s, t, hq, hk, d, causal, win) in enumerate(
+            K3_DIGEST_CASES):
+        rng = np.random.default_rng(100 + i)
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev) for shape in ((b, s, hq, d), (b, t, hk, d),
+                                               (b, t, hk, d), (b, s, hq, d)))
+        q_pos = torch.arange(t - s, t, dtype=torch.int32, device=dev)
+        k_pos = torch.arange(t, dtype=torch.int32, device=dev)
+        pos = dict(q_pos=q_pos, k_pos=k_pos, causal=causal, window=win)
+        out[label] = digest(ops.flash_attention_cuda(q, k, v, **pos))
+        if s > 1:
+            o, lse = ops._prefill(q, k, v, **pos)
+            out[f"{label} lse"] = digest(o, lse)
+            grads = ops.flash_attention_bwd_cuda(q, k, v, o, dout, lse, **pos)
+            out[f"{label} backward"] = digest(*grads)
+    emit({"phase": "k3_digest", "src": src, "module": _lib.__file__,
+          "digests": out})
+    return 0
+
+
+#: Ablations of K3's bf16 prefill for ``--k3-ablations``: (name, edits of
+#: ``csrc/flash_attention.cu``, whether the result is still the function).
+#: Each variant drops or changes one part, so that the times say which part
+#: holds the kernel: its products, its softmax, its ring depth.
+K3_ABLATIONS = (
+    ("kernel", (), True),
+    ("no_products", (
+        ("          wgmma_ss_n128_first(s, da, db);",
+         "          { for (int e = 0; e < WK / 2; ++e) s[e] = 0.f; }"),
+        ("          wgmma_ss_n128(s, da, db);", "          ;"),
+        ("          issue_pv(pstage);\n", ""),
+        ("        issue_pv(pstage);\n", "")), False),
+    ("no_pv", (("          issue_pv(pstage);\n", ""),
+               ("        issue_pv(pstage);\n", "")), False),
+    ("no_softmax", (("      if (wcls == 2) {\n        softmax_tile<false>",
+                     "      if (wcls >= 0) {\n        softmax_tile<false>"),
+                    ("        softmax_tile<false>(s, 0, m, l, alpha, sl2);"
+                     "\n        return;",
+                     "        return;")), False),
+    ("no_products_no_softmax", (
+        ("          wgmma_ss_n128_first(s, da, db);",
+         "          { for (int e = 0; e < WK / 2; ++e) s[e] = 0.f; }"),
+        ("          wgmma_ss_n128(s, da, db);", "          ;"),
+        ("          issue_pv(pstage);\n", ""),
+        ("        issue_pv(pstage);\n", ""),
+        ("      if (wcls == 2) {\n        softmax_tile<false>",
+         "      if (wcls >= 0) {\n        softmax_tile<false>"),
+        ("        softmax_tile<false>(s, 0, m, l, alpha, sl2);"
+         "\n        return;",
+         "        return;")), False),
+    ("no_turns", (("named_sync(1 + wq, 256);", ";"),
+                  ("named_arrive(2 - wq, 256);", ";"),
+                  ("if (wq == 1) named_arrive(1, 256);", ";"),
+                  ("if (wq == 0) named_sync(1, 256);", ";")), True),
+    ("stages_2", (("static constexpr int STAGES = DP < 128 ? 4 : 3;",
+                   "static constexpr int STAGES = 2;"),), True),
+)
+
+
+def k3_ablations_main() -> int:
+    """``--k3-ablations``: K3's bf16 prefill and edited copies of it
+    (``K3_ABLATIONS``), each built by ``nvcc`` with the source's flags
+    into ``build/ablations`` and called through its C entry point, timed
+    (``timed``) at the bf16 prefill shapes of ``time_bf16_kernels``; one
+    JSON line of ms and, for variants that still compute the function,
+    the largest gap to the plain version in bf16 ulps."""
+    import ctypes
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _lib
+    dev = torch.device("cuda", 0)
+    out_dir = ROOT / "build" / "ablations"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = (_lib.CSRC / "flash_attention.cu").read_text()
+    jobs = {}
+    for name, edits, _ in K3_ABLATIONS:
+        text = src
+        for a, b in edits:
+            require(a in text, f"ablation {name}: no {a!r} in the source")
+            text = text.replace(a, b)
+        (out_dir / f"{name}.cu").write_text(text)
+        jobs[name] = subprocess.Popen(
+            [_lib._nvcc(), *_lib.flags("flash_attention"), "-o",
+             str(out_dir / f"{name}.so"), str(out_dir / f"{name}.cu")],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    fns = {}
+    for name, job in jobs.items():
+        err = job.communicate()[1]
+        require(job.returncode == 0, f"ablation {name}: nvcc {err[-2000:]}")
+        fn = ctypes.CDLL(str(out_dir / f"{name}.so")) \
+            .flash_attention_prefill_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p]
+        fns[name] = fn
+    rng = np.random.default_rng(29)
+    hq, hk = YI_HEADS
+    dq, dk, dwin = DANUBE_ATTENTION
+    shapes = {"whisper_encoder": (4, 1500, 1500, 20, 20, 64, False, None),
+              "whisper_cross_prefill": (4, 512, 1500, 20, 20, 64, False,
+                                        None),
+              "yi-34b_prefill": (4, 512, 512, hq, hk, 128, True, None),
+              "smollm-135m_prefill": (4, 512, 512, 9, 3, 64, True, None),
+              "h2o-danube-3-4b_prefill": (4, 512, 512, dq, dk, 120, True,
+                                          dwin)}
+    res = {}
+    for label, (b, s, t, h, g, d, causal, win) in shapes.items():
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).bfloat16()
+            for shape in ((b, s, h, d), (b, t, g, d), (b, t, g, d)))
+        qp = torch.arange(t - s, t, dtype=torch.int32, device=dev)
+        kp = torch.arange(t, dtype=torch.int32, device=dev)
+        exp = plain_attention(q, k, v, qp, kp, causal, win)
+        res[label] = {}
+        for name, _, exact in K3_ABLATIONS:
+            o = torch.empty_like(q)
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
+                    kp.data_ptr(), o.data_ptr(), b, s, t, h, g, d,
+                    int(causal), win or 0)
+
+            def call(fn=fns[name], args=args):
+                _lib.check(fn(*args, torch.cuda.current_stream(dev)
+                              .cuda_stream), "flash_attention_prefill_bf16")
+            res[label][name] = {"ms": timed(call, 20)["ms"]}
+            if exact:
+                res[label][name]["max_ulps"] = bf16_rows_gap(o, exp)[0]
+    emit({"phase": "k3_ablations", "nvidia_smi": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip(), "ms": res})
+    return 0
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3366,17 +3680,18 @@ def main() -> int:
     t0 = time.perf_counter()
     probe = start_smem_probe(lib)
     secs = lib.build_all()
-    hmma = sass_hmma_counts(lib)
+    sass = sass_tensor_core_counts(lib)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "per_source": secs,
-          "bf16_prefill_sass_hmma": hmma,
+          "bf16_prefill_sass": sass,
           "ptxas": {n: [ln.strip() for ln in lib.build_log(n).splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n in secs}})
-    print(f"bf16 prefill SASS HMMA instructions {hmma}", flush=True)
-    require(sorted(hmma) == ["D=128", "D=16", "D=32", "D=64"]
-            and all(hmma.values()),
-            f"the bf16 prefill kernel does not use the tensor cores: {hmma}")
+    print(f"bf16 prefill SASS tensor-core instructions {sass}", flush=True)
+    require(sorted(sass) == ["DP=128", "DP=16", "DP=32", "DP=64"]
+            and all(c["HGMMA"] > 0 and c["HMMA"] == 0
+                    for c in sass.values()),
+            f"the bf16 prefill kernel is not on wgmma alone: {sass}")
 
     # ---- 2. kernels against their plain versions -------------------------
     emit({"phase": "sketch_kernel_vs_plain", "cases": check_sketch_kernel(dev)})
@@ -3584,6 +3899,15 @@ def main() -> int:
             rand(4, 1024, hk, 128),
             torch.tensor([543], dtype=torch.int32, device=dev),
             serve_fill_tab(dev), reps=50, window=win)
+    # h2o-danube-3-4b: head dim 120 (GQA 4, window 4,096)
+    dq, dk, dwin = DANUBE_ATTENTION
+    k3_128["h2o-danube-3-4b_prefill"] = time_attention(
+        rand(4, 512, dq, 120), rand(4, 512, dk, 120), rand(4, 512, dk, 120),
+        pos, pos, reps=20, window=dwin)
+    k3_128["h2o-danube-3-4b_decode"] = time_attention(
+        rand(4, 1, dq, 120), rand(4, 1024, dk, 120), rand(4, 1024, dk, 120),
+        torch.tensor([543], dtype=torch.int32, device=dev),
+        serve_fill_tab(dev), reps=50, window=dwin)
     # whisper-large-v3: non-causal, 20 heads of 64 over 1,500 frames
     frames = torch.arange(WHISPER_FRAMES, dtype=torch.int32, device=dev)
     k3_whisper = {
@@ -3698,14 +4022,14 @@ def main() -> int:
                             k3_dec["max_abs_err"],
                             *(t["max_abs_err"] for t in k3_128.values()),
                             *(t["max_abs_err"] for t in k3_whisper.values())),
-         **{k: k3[k] for k in KERNEL_TIME_KEYS}, "plain_device": "cuda",
+         **{k: k3[k] for k in ATTN_TIME_KEYS}, "plain_device": "cuda",
          "shape": "smollm-135m prefill, q [4,512,9,64], kv [4,512,3,64], "
                   "causal, one layer",
-         "decode": {k: k3_dec[k] for k in KERNEL_TIME_KEYS}
+         "decode": {k: k3_dec[k] for k in ATTN_TIME_KEYS}
          | {"live_slots": k3_dec["live_slots"], "shape": "q [4,1,9,64] at position 543 over a 1024-slot "
                      "cache holding 0..543 (the serve run's last decode "
                      "step), one layer"},
-         **{key: {k: t[k] for k in KERNEL_TIME_KEYS}
+         **{key: {k: t[k] for k in ATTN_TIME_KEYS}
             | {"live_slots": t["live_slots"]}
             for key, t in (k3_128 | k3_whisper).items()}},
         {"name": "flash_attention_bwd", "route": "cuda",
@@ -3744,11 +4068,11 @@ def main() -> int:
          "max_abs_err": max(k3b_err, *(t["max_abs_err"]
                                        for t in k3_bf16.values())),
          "max_ulps": k3b_ulps, "pin_max_ulps": bf16_pin_ulps,
-         **{k: k3_bf16["yi-34b_prefill"][k] for k in KERNEL_TIME_KEYS},
-         "plain_device": "cuda", "sass_hmma": hmma,
+         **{k: k3_bf16["yi-34b_prefill"][k] for k in ATTN_TIME_KEYS},
+         "plain_device": "cuda", "sass": sass,
          "shape": "yi-34b prefill, q [4,512,56,128], kv [4,512,8,128], "
                   "causal, one layer, bf16 (tensor cores)",
-         **{key: {k: t[k] for k in KERNEL_TIME_KEYS}
+         **{key: {k: t[k] for k in ATTN_TIME_KEYS}
             | {"live_slots": t["live_slots"]}
             for key, t in k3_bf16.items() if key != "yi-34b_prefill"}},
         {"name": "ssd_scan_bf16", "route": "cuda",
@@ -3794,4 +4118,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--failrank-loops"]:
         sys.exit(failrank_loops_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--k3-digest"]:
+        sys.exit(k3_digest_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--k3-ablations"]:
+        sys.exit(k3_ablations_main())
     sys.exit(main())

@@ -52,29 +52,51 @@
 // matches the plain version to about 1e-6.  No tensor cores: in f32 they
 // mean TF32, which cannot hold 2e-5.
 //
+// Head dims: every entry point takes each D that is a multiple of 8 from 8
+// to 128.  The kernels are built for tile widths DP = 16, 32, 64 and 128
+// and run D at the smallest that holds it (padded_head_dim): they read the
+// D columns of q, k, v and the cache in place (a row of 8 values is 16
+// bytes, the unit of every copy), hold columns D..DP-1 at zero in shared
+// memory, where they add nothing to a score or a product, never write
+// them, and scale by 1/sqrt(D) of the true D.  At D = DP the f32 kernels
+// compute what they computed when D was their template argument, bit for
+// bit.  (D = 120 runs at 128: one instance per width keeps the build
+// short, and the padded columns cost 1/16 of the products.)
+//
 // bf16 (flash_attention_prefill_bf16, flash_attention_decode_bf16): the
 // same TPU kernel as it runs in the reference's working type, on q, k, v
 // and out in bf16, with its algebra (kernel.py:62-84): scores in f32 from
 // the bf16 inputs, the unnormalised P = exp(s - m) rounded to bf16 before
 // P.V, the row sums and the accumulator in f32, one rounding of the
-// normalised result to bf16.
-// Forward only; the backward stays f32.
+// normalised result to bf16.  Forward only; the backward stays f32.
 //
-// Prefill bf16: the same grid, tile classification and two-stage cp.async
-// ring as the f32 prefill, 16 bytes now 8 values.  Bound by bytes at the
-// serving shapes (yi-34b's 4 x 512 prefill, 56 heads of 128 over 8: about
-// 15 GFLOP, 15 us at the 989 TFLOP/s of bf16 tensor cores, against 67 MB,
-// 20 us at 3.35 TB/s), so the products go to the tensor cores and the rest
-// of the block's work (masks, exp, the online softmax) is what a tile
-// costs.  Each of the 4 warps owns 16 query rows: S = Q.K^T by
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate) with Q's fragments taken once
-// by ldmatrix and kept in registers and K's by ldmatrix from the tile; the
-// online softmax runs on the f32 accumulator fragments (a row's max and
-// sum over the four lanes that hold it); P is rounded to bf16 in registers
-// and is the A operand of P.V, with V's fragments by ldmatrix.trans.  Rows
-// of every tile are D + 8 values apart, so the eight row addresses of an
-// ldmatrix fall on distinct banks.  No wgmma, TMA or warp specialisation
-// yet: a simple kernel that is right first.
+// Prefill bf16, on Hopper (flash_prefill_bf16_hopper_kernel): bound by
+// bytes or by tensor-core operations at the serving shapes (yi-34b's
+// 4 x 512 prefill: 67 MB, 20 us at 3.35 TB/s; whisper's encoder: 46 GFLOP,
+// 47 us at 989 TFLOP/s).  One block of three warpgroups takes 128 query
+// rows of one head: warpgroups 0 and 1 own 64 rows each and compute, one
+// warp of warpgroup 2 produces; setmaxnreg moves registers from the
+// producer (40) to the consumers (232).  The producer loads Q once and
+// each live key tile of 128 by TMA (cp.async.bulk.tensor, one box per 64
+// columns, 128-, 64- or 32-byte swizzle as the tile width gives) into a
+// ring of 3 or 4 stages with full and empty mbarriers; the tensor maps
+// address the model layout in place (KV head h / (Hq/Hkv), no repeat),
+// and TMA fills rows past T and columns past D with zeros.  It walks the
+// key tiles from the position tables one tile ahead, skips the dead ones
+// (never loaded), and hands each tile's first key, its class for either
+// warpgroup (straddling or wholly live) and its positions to the
+// consumers in shared memory.  A consumer warpgroup runs S = Q.K^T as
+// wgmma m64n128k16 from shared memory (both K-major), the online softmax
+// on the accumulator registers (a row over four lanes; per-element masks
+// only in straddling tiles; exp2 with scale . log2 e folded into one FMA,
+// by ex2.approx), rounds P to bf16 in registers and runs O += P.V as wgmma
+// with P the register A operand and V read MN-major from shared memory
+// (the transpose bit).  Turn j issues S_j and P_{j-1}.V_{j-1} together
+// and the softmax of S_j runs while P_{j-1}.V_{j-1} does; the two
+// warpgroups take turns to issue (named barriers), so one's softmax
+// overlaps the other's products.  No atomics: two runs are bit-identical.
+// At whisper's shapes the kernel is held by the K/V that every 128-row
+// query tile reads again through L2, not by its products (PERF.md).
 //
 // Decode bf16: the f32 decode's split-key design (bound by bytes: the live
 // K/V read once, half the bytes of an f32 cache), reading K/V and q as bf16
@@ -83,9 +105,11 @@
 // The merge is the f32 path's, in split order: two runs are bit-identical.
 
 #include <climits>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #define FULL 0xffffffffu
 #define BQ 64          // prefill: query rows per block
@@ -132,18 +156,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Rows [r0, r0 + rows) of a [*, Hkv or Hq, D] tensor at head `head`, rows
-// `valid` and beyond zero-filled, into sh[rows][stride] by cp.async.
-template <int D, int NTH>
+// Rows [r0, r0 + rows) of a [*, Hkv or Hq, D] tensor at head `head` into
+// sh[rows][stride] by cp.async, DP columns a row: rows `valid` and beyond
+// and columns D..DP-1 zero-filled (D a multiple of 4, so no 16-byte copy
+// straddles D).
+template <int DP, int NTH>
 __device__ __forceinline__ void stage_rows(float* sh, int stride,
                                            const float* src, size_t row0,
                                            int rows, int valid, int heads,
-                                           int head, int tid) {
-  for (int e = tid; e < rows * (D / 4); e += NTH) {
-    const int r = e / (D / 4), c4 = (e % (D / 4)) * 4;
-    const bool ok = r < valid;
+                                           int head, int D, int tid) {
+  for (int e = tid; e < rows * (DP / 4); e += NTH) {
+    const int r = e / (DP / 4), c4 = (e % (DP / 4)) * 4;
+    const bool ok = r < valid && c4 < D;
     const float* g =
-        src + ((row0 + (ok ? r : 0)) * heads + head) * D + c4;
+        src + ((row0 + (r < valid ? r : 0)) * heads + head) * D +
+        (ok ? c4 : 0);
     cp_async16(sh + r * stride + c4, g, ok);
   }
 }
@@ -194,34 +221,35 @@ __device__ __forceinline__ int next_tile(const int* k_pos, int t0, int T,
   return T;
 }
 
-// Output column e (0 <= e < D/8) of thread tx: float4 groups 32 apart when
-// D >= 32, so the eight threads of a quarter warp read distinct banks.
-template <int D>
+// Output column e (0 <= e < DP/8) of thread tx: float4 groups 32 apart
+// when DP >= 32, so the eight threads of a quarter warp read distinct
+// banks.  Columns D..DP-1 are padding, never written.
+template <int DP>
 __device__ __forceinline__ int out_col(int tx, int e) {
-  if constexpr (D >= 32)
+  if constexpr (DP >= 32)
     return (e >> 2) * 32 + tx * 4 + (e & 3);
   else
-    return tx * (D / 8) + e;
+    return tx * (DP / 8) + e;
 }
 
 // ---------------------------------------------------------------------------
 // prefill
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(PT) flash_prefill_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ q_pos,
     const int* __restrict__ k_pos, float* __restrict__ out,
-    float* __restrict__ lse, int S, int T, int Hq, int Hkv, int causal,
-    int window, float scale) {
-  constexpr int KS = D + 4;  // row stride of Q and K tiles
-  constexpr int DV = D / 8;  // output columns per thread
+    float* __restrict__ lse, int S, int T, int Hq, int Hkv, int D,
+    int causal, int window, float scale) {
+  constexpr int KS = DP + 4;  // row stride of Q and K tiles
+  constexpr int DV = DP / 8;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
   float* q_sh = smem;                 // [BQ][KS]
   float* k_sh = q_sh + BQ * KS;       // 2 x [BK][KS]
-  float* v_sh = k_sh + 2 * BK * KS;   // 2 x [BK][D]
-  float* p_sh = v_sh + 2 * BK * D;    // [BQ][PS]
+  float* v_sh = k_sh + 2 * BK * KS;   // 2 x [BK][DP]
+  float* p_sh = v_sh + 2 * BK * DP;   // [BQ][PS]
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int ty = tid >> 3, tx = tid & 7;  // rows ty + 16i, keys tx + 8j
@@ -250,12 +278,13 @@ __global__ void __launch_bounds__(PT) flash_prefill_kernel(
 
   int cls;
   int cur = next_tile(k_pos, 0, T, q_lo, q_hi, causal, window, lane, cls);
-  stage_rows<D, PT>(q_sh, KS, q, (size_t)b * S + q0, BQ, nq, Hq, h, tid);
+  stage_rows<DP, PT>(q_sh, KS, q, (size_t)b * S + q0, BQ, nq, Hq, h, D,
+                     tid);
   if (cur < T) {
-    stage_rows<D, PT>(k_sh, KS, k, (size_t)b * T + cur, BK, T - cur, Hkv, hk,
-                      tid);
-    stage_rows<D, PT>(v_sh, D, v, (size_t)b * T + cur, BK, T - cur, Hkv, hk,
-                      tid);
+    stage_rows<DP, PT>(k_sh, KS, k, (size_t)b * T + cur, BK, T - cur, Hkv,
+                       hk, D, tid);
+    stage_rows<DP, PT>(v_sh, DP, v, (size_t)b * T + cur, BK, T - cur, Hkv,
+                       hk, D, tid);
   }
   cp_async_commit();
 
@@ -265,10 +294,10 @@ __global__ void __launch_bounds__(PT) flash_prefill_kernel(
     const int nxt = next_tile(k_pos, cur + BK, T, q_lo, q_hi, causal, window,
                               lane, nxt_cls);
     if (nxt < T) {  // the next tile flies while this one computes
-      stage_rows<D, PT>(k_sh + (stage ^ 1) * BK * KS, KS, k,
-                        (size_t)b * T + nxt, BK, T - nxt, Hkv, hk, tid);
-      stage_rows<D, PT>(v_sh + (stage ^ 1) * BK * D, D, v,
-                        (size_t)b * T + nxt, BK, T - nxt, Hkv, hk, tid);
+      stage_rows<DP, PT>(k_sh + (stage ^ 1) * BK * KS, KS, k,
+                         (size_t)b * T + nxt, BK, T - nxt, Hkv, hk, D, tid);
+      stage_rows<DP, PT>(v_sh + (stage ^ 1) * BK * DP, DP, v,
+                         (size_t)b * T + nxt, BK, T - nxt, Hkv, hk, D, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -277,14 +306,14 @@ __global__ void __launch_bounds__(PT) flash_prefill_kernel(
     __syncthreads();  // this tile (and Q) has landed for every thread
 
     const float* ks = k_sh + stage * BK * KS;
-    const float* vs = v_sh + stage * BK * D;
+    const float* vs = v_sh + stage * BK * DP;
     float s[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DP; d += 4) {
       float4 qa[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -366,8 +395,8 @@ __global__ void __launch_bounds__(PT) flash_prefill_kernel(
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
         float vv[DV];
-        const float* vr = vs + (c + cc) * D;
-        if constexpr (D >= 32) {
+        const float* vr = vs + (c + cc) * DP;
+        if constexpr (DP >= 32) {
 #pragma unroll
           for (int e = 0; e < DV; e += 4) {
             const float4 t =
@@ -379,7 +408,7 @@ __global__ void __launch_bounds__(PT) flash_prefill_kernel(
           }
         } else {
 #pragma unroll
-          for (int e = 0; e < DV; ++e) vv[e] = vr[out_col<D>(tx, e)];
+          for (int e = 0; e < DV; ++e) vv[e] = vr[out_col<DP>(tx, e)];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -407,7 +436,8 @@ __global__ void __launch_bounds__(PT) flash_prefill_kernel(
       const float inv = l[i] > 0.0f ? 1.0f / l[i] : 0.0f;
       float* o = out + ((size_t)(b * S + q0 + r) * Hq + h) * D;
 #pragma unroll
-      for (int e = 0; e < DV; ++e) o[out_col<D>(tx, e)] = acc[i][e] * inv;
+      for (int e = 0; e < DV; ++e)
+        if (out_col<DP>(tx, e) < D) o[out_col<DP>(tx, e)] = acc[i][e] * inv;
       // the row's log-sum-exp of scaled scores (every thread of the row
       // holds the same m and l), for the backward
       if (lse != nullptr && tx == 0)
@@ -424,22 +454,22 @@ __global__ void __launch_bounds__(PT) flash_prefill_kernel(
 // Partial of split blockIdx.x for the R = S * (Hq/Hkv) query rows of KV head
 // blockIdx.y (row r = s * group + g reads query head hk * group + g at
 // position s).  Partials are indexed ((b * S + s) * Hq + h) * n_split + split.
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(DT) flash_decode_partial_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ q_pos,
     const int* __restrict__ k_pos, float* __restrict__ part_m,
     float* __restrict__ part_l, float* __restrict__ part_acc, int S, int T,
-    int Hq, int Hkv, int causal, int window, float scale) {
-  constexpr int KS = D + 4;
+    int Hq, int Hkv, int D, int causal, int window, float scale) {
+  constexpr int KS = DP + 4;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int n_split = gridDim.x, group = Hq / Hkv, R = S * group;
   float* q_sh = smem;             // [R][KS]
   float* k_sh = q_sh + R * KS;    // [BK][KS]
-  float* v_sh = k_sh + BK * KS;   // [BK][D]
-  float* p_sh = v_sh + BK * D;    // [R][PS]
+  float* v_sh = k_sh + BK * KS;   // [BK][DP]
+  float* p_sh = v_sh + BK * DP;   // [R][PS]
   const int t0 = split * BK, nk = min(BK, T - t0);
 
   int q_lo, q_hi;
@@ -454,14 +484,17 @@ __global__ void __launch_bounds__(DT) flash_decode_partial_kernel(
     return;
   }
 
-  for (int e = tid; e < R * (D / 4); e += DT) {
-    const int r = e / (D / 4), c4 = (e % (D / 4)) * 4;
+  for (int e = tid; e < R * (DP / 4); e += DT) {
+    const int r = e / (DP / 4), c4 = (e % (DP / 4)) * 4;
     const int s = r / group, h = hk * group + r % group;
-    cp_async16(q_sh + r * KS + c4, q + ((size_t)(b * S + s) * Hq + h) * D + c4,
-               true);
+    cp_async16(q_sh + r * KS + c4,
+               q + ((size_t)(b * S + s) * Hq + h) * D + (c4 < D ? c4 : 0),
+               c4 < D);
   }
-  stage_rows<D, DT>(k_sh, KS, k, (size_t)b * T + t0, BK, nk, Hkv, hk, tid);
-  stage_rows<D, DT>(v_sh, D, v, (size_t)b * T + t0, BK, nk, Hkv, hk, tid);
+  stage_rows<DP, DT>(k_sh, KS, k, (size_t)b * T + t0, BK, nk, Hkv, hk, D,
+                     tid);
+  stage_rows<DP, DT>(v_sh, DP, v, (size_t)b * T + t0, BK, nk, Hkv, hk, D,
+                     tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -472,7 +505,7 @@ __global__ void __launch_bounds__(DT) flash_decode_partial_kernel(
     for (int r = rg; r < R; r += DT / BK) {
       float t = 0.0f;
 #pragma unroll 8
-      for (int d = 0; d < D; d += 4) {
+      for (int d = 0; d < DP; d += 4) {
         const float4 qa = *reinterpret_cast<const float4*>(q_sh + r * KS + d);
         const float4 kb = *reinterpret_cast<const float4*>(k_sh + c * KS + d);
         t = fmaf(qa.x, kb.x, t);
@@ -512,12 +545,13 @@ __global__ void __launch_bounds__(DT) flash_decode_partial_kernel(
   }
   __syncthreads();
 
-  for (int e = tid; e < R * D; e += DT) {
-    const int r = e / D, d = e % D;
+  for (int e = tid; e < R * DP; e += DT) {
+    const int r = e / DP, d = e % DP;
+    if (d >= D) continue;
     float t = 0.0f;
 #pragma unroll 8
     for (int c = 0; c < BK; ++c)
-      t = fmaf(p_sh[r * PS + c], v_sh[c * D + d], t);
+      t = fmaf(p_sh[r * PS + c], v_sh[c * DP + d], t);
     const int s = r / group, h = hk * group + r % group;
     part_acc[(((size_t)(b * S + s) * Hq + h) * n_split + split) * D + d] = t;
   }
@@ -591,14 +625,14 @@ __global__ void __launch_bounds__(DT) flash_decode_combine_kernel(
 // dS^T.Q); a simple design on CUDA cores, one stage of cp.async, no tensor
 // cores.
 
-// The D/8 output columns out_col(tx, e) of one shared-memory row, as
-// float4 loads where D >= 32.
-template <int D>
+// The DP/8 output columns out_col(tx, e) of one shared-memory row, as
+// float4 loads where DP >= 32.
+template <int DP>
 __device__ __forceinline__ void load_cols(const float* row, int tx,
                                           float* out) {
-  if constexpr (D >= 32) {
+  if constexpr (DP >= 32) {
 #pragma unroll
-    for (int e = 0; e < D / 8; e += 4) {
+    for (int e = 0; e < DP / 8; e += 4) {
       const float4 t =
           *reinterpret_cast<const float4*>(row + (e >> 2) * 32 + tx * 4);
       out[e] = t.x;
@@ -608,7 +642,7 @@ __device__ __forceinline__ void load_cols(const float* row, int tx,
     }
   } else {
 #pragma unroll
-    for (int e = 0; e < D / 8; ++e) out[e] = row[out_col<D>(tx, e)];
+    for (int e = 0; e < DP / 8; ++e) out[e] = row[out_col<DP>(tx, e)];
   }
 }
 
@@ -638,16 +672,16 @@ __global__ void __launch_bounds__(DT) flash_bwd_dot_kernel(
 // flash_bwd_group_sum_kernel adds the shares of a group in head order.
 // The thread owns keys ty + 16i and, in the score tile, query rows tx + 8j;
 // its accumulators hold its keys' output columns out_col(tx, e).
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(PT) flash_bwd_dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int* __restrict__ q_pos, const int* __restrict__ k_pos,
     float* __restrict__ dk, float* __restrict__ dv, int S, int T, int Hq,
-    int Hkv, int causal, int window, float scale) {
-  constexpr int KS = D + 4;
-  constexpr int DV = D / 8;
+    int Hkv, int D, int causal, int window, float scale) {
+  constexpr int KS = DP + 4;
+  constexpr int DV = DP / 8;
   extern __shared__ __align__(16) float smem[];
   float* k_sh = smem;                 // [BK][KS]
   float* v_sh = k_sh + BK * KS;       // [BK][KS]
@@ -677,8 +711,10 @@ __global__ void __launch_bounds__(PT) flash_bwd_dkdv_kernel(
 #pragma unroll
     for (int e = 0; e < DV; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.0f;
 
-  stage_rows<D, PT>(k_sh, KS, k, (size_t)b * T + t0, BK, nk, Hkv, hk, tid);
-  stage_rows<D, PT>(v_sh, KS, v, (size_t)b * T + t0, BK, nk, Hkv, hk, tid);
+  stage_rows<DP, PT>(k_sh, KS, k, (size_t)b * T + t0, BK, nk, Hkv, hk, D,
+                     tid);
+  stage_rows<DP, PT>(v_sh, KS, v, (size_t)b * T + t0, BK, nk, Hkv, hk, D,
+                     tid);
   cp_async_commit();
 
   for (int q0 = 0; q0 < S; q0 += BQ) {
@@ -687,9 +723,10 @@ __global__ void __launch_bounds__(PT) flash_bwd_dkdv_kernel(
     pos_range(q_pos + q0, nq, lane, q_lo, q_hi);
     if (!classify(k_pos, t0, T, q_lo, q_hi, causal, window, lane))
       continue;  // no live pair between this query tile and the keys
-    stage_rows<D, PT>(q_sh, KS, q, (size_t)b * S + q0, BQ, nq, Hq, h, tid);
-    stage_rows<D, PT>(do_sh, KS, dout, (size_t)b * S + q0, BQ, nq, Hq, h,
-                      tid);
+    stage_rows<DP, PT>(q_sh, KS, q, (size_t)b * S + q0, BQ, nq, Hq, h, D,
+                       tid);
+    stage_rows<DP, PT>(do_sh, KS, dout, (size_t)b * S + q0, BQ, nq, Hq, h, D,
+                       tid);
     cp_async_commit();
     if (tid < BQ) {
       const bool ok = tid < nq;
@@ -708,7 +745,7 @@ __global__ void __launch_bounds__(PT) flash_bwd_dkdv_kernel(
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DP; d += 4) {
       float4 ka[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -748,7 +785,7 @@ __global__ void __launch_bounds__(PT) flash_bwd_dkdv_kernel(
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DP; d += 4) {
       float4 va[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -794,8 +831,8 @@ __global__ void __launch_bounds__(PT) flash_bwd_dkdv_kernel(
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
         float gv[DV], qv[DV];
-        load_cols<D>(do_sh + (c + cc) * KS, tx, gv);
-        load_cols<D>(q_sh + (c + cc) * KS, tx, qv);
+        load_cols<DP>(do_sh + (c + cc) * KS, tx, gv);
+        load_cols<DP>(q_sh + (c + cc) * KS, tx, qv);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float p = cc == 0 ? pa[i].x
@@ -827,8 +864,11 @@ __global__ void __launch_bounds__(PT) flash_bwd_dkdv_kernel(
                     : ((size_t)(b * T + t0 + c) * Hq + h) * D;
 #pragma unroll
       for (int e = 0; e < DV; ++e) {
-        dk[row + out_col<D>(tx, e)] = dk_acc[i][e] * scale;
-        dv[row + out_col<D>(tx, e)] = dv_acc[i][e];
+        const int col = out_col<DP>(tx, e);
+        if (col < D) {
+          dk[row + col] = dk_acc[i][e] * scale;
+          dv[row + col] = dv_acc[i][e];
+        }
       }
     }
   }
@@ -858,16 +898,16 @@ __global__ void __launch_bounds__(DT) flash_bwd_group_sum_kernel(
 
 // dQ of query tile blockIdx.y for query head blockIdx.x % Hq of batch
 // blockIdx.x / Hq: rows ty + 16i, keys tx + 8j, as the forward.
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(PT) flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-    float* __restrict__ dq, int S, int T, int Hq, int Hkv, int causal,
+    float* __restrict__ dq, int S, int T, int Hq, int Hkv, int D, int causal,
     int window, float scale) {
-  constexpr int KS = D + 4;
-  constexpr int DV = D / 8;
+  constexpr int KS = DP + 4;
+  constexpr int DV = DP / 8;
   extern __shared__ __align__(16) float smem[];
   float* q_sh = smem;                 // [BQ][KS]
   float* do_sh = q_sh + BQ * KS;      // [BQ][KS]
@@ -901,8 +941,10 @@ __global__ void __launch_bounds__(PT) flash_bwd_dq_kernel(
 #pragma unroll
     for (int e = 0; e < DV; ++e) acc[i][e] = 0.0f;
 
-  stage_rows<D, PT>(q_sh, KS, q, (size_t)b * S + q0, BQ, nq, Hq, h, tid);
-  stage_rows<D, PT>(do_sh, KS, dout, (size_t)b * S + q0, BQ, nq, Hq, h, tid);
+  stage_rows<DP, PT>(q_sh, KS, q, (size_t)b * S + q0, BQ, nq, Hq, h, D,
+                     tid);
+  stage_rows<DP, PT>(do_sh, KS, dout, (size_t)b * S + q0, BQ, nq, Hq, h, D,
+                     tid);
   cp_async_commit();
 
   int cls;
@@ -910,10 +952,10 @@ __global__ void __launch_bounds__(PT) flash_bwd_dq_kernel(
        cur < T;
        cur = next_tile(k_pos, cur + BK, T, q_lo, q_hi, causal, window, lane,
                        cls)) {
-    stage_rows<D, PT>(k_sh, KS, k, (size_t)b * T + cur, BK, T - cur, Hkv, hk,
-                      tid);
-    stage_rows<D, PT>(v_sh, KS, v, (size_t)b * T + cur, BK, T - cur, Hkv, hk,
-                      tid);
+    stage_rows<DP, PT>(k_sh, KS, k, (size_t)b * T + cur, BK, T - cur, Hkv,
+                       hk, D, tid);
+    stage_rows<DP, PT>(v_sh, KS, v, (size_t)b * T + cur, BK, T - cur, Hkv,
+                       hk, D, tid);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();  // this key tile (and Q, dO) landed
@@ -924,7 +966,7 @@ __global__ void __launch_bounds__(PT) flash_bwd_dq_kernel(
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DP; d += 4) {
       float4 qa[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -958,7 +1000,7 @@ __global__ void __launch_bounds__(PT) flash_bwd_dq_kernel(
     }
     // dP = dO . V^T
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DP; d += 4) {
       float4 ga[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -996,7 +1038,7 @@ __global__ void __launch_bounds__(PT) flash_bwd_dq_kernel(
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
         float kv[DV];
-        load_cols<D>(k_sh + (c + cc) * KS, tx, kv);
+        load_cols<DP>(k_sh + (c + cc) * KS, tx, kv);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float ds = cc == 0 ? da[i].x
@@ -1018,13 +1060,14 @@ __global__ void __launch_bounds__(PT) flash_bwd_dq_kernel(
     if (r < nq) {
       float* o = dq + ((size_t)(b * S + q0 + r) * Hq + h) * D;
 #pragma unroll
-      for (int e = 0; e < DV; ++e) o[out_col<D>(tx, e)] = acc[i][e] * scale;
+      for (int e = 0; e < DV; ++e)
+        if (out_col<DP>(tx, e) < D) o[out_col<DP>(tx, e)] = acc[i][e] * scale;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward: the prefill on tensor cores, the split-key decode
+// bf16 forward: the prefill on Hopper's tensor cores, the split-key decode
 // ---------------------------------------------------------------------------
 
 typedef __nv_bfloat16 bf16;
@@ -1038,56 +1081,20 @@ __device__ __forceinline__ void cp_async16_any(void* smem, const void* gmem,
                "l"(gmem), "r"(n));
 }
 
-// As stage_rows, for bf16 rows (8 values a copy).
-template <int D, int NTH>
+// As stage_rows, for bf16 rows (8 values a copy; D a multiple of 8).
+template <int DP, int NTH>
 __device__ __forceinline__ void stage_rows_bf16(bf16* sh, int stride,
                                                 const bf16* src, size_t row0,
                                                 int rows, int valid,
-                                                int heads, int head,
+                                                int heads, int head, int D,
                                                 int tid) {
-  for (int e = tid; e < rows * (D / 8); e += NTH) {
-    const int r = e / (D / 8), c8 = (e % (D / 8)) * 8;
-    const bool ok = r < valid;
-    const bf16* g = src + ((row0 + (ok ? r : 0)) * heads + head) * D + c8;
+  for (int e = tid; e < rows * (DP / 8); e += NTH) {
+    const int r = e / (DP / 8), c8 = (e % (DP / 8)) * 8;
+    const bool ok = r < valid && c8 < D;
+    const bf16* g = src + ((row0 + (r < valid ? r : 0)) * heads + head) * D +
+                    (ok ? c8 : 0);
     cp_async16_any(sh + r * stride + c8, g, ok);
   }
-}
-
-// Four 8x8 b16 matrices from shared memory; lane i gives the address of
-// row i % 8 of matrix i / 8 and receives in r[j] its two values of
-// matrix j (row lane / 4, columns 2 (lane % 4) and + 1; with trans, of
-// the matrix transposed).
-__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4],
-                                                  const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// c += a . b for a 16x16 bf16 A (row-major fragments), a 16x8 bf16 B
-// (column-major fragments) and a 16x8 f32 C: c[0], c[1] hold row lane / 4,
-// columns 2 (lane % 4) and + 1, c[2], c[3] the same columns of row
-// lane / 4 + 8.
-__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two floats rounded to bf16 (to nearest even), lo in the low half.
@@ -1096,195 +1103,652 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-template <int D>
-__global__ void __launch_bounds__(PT) flash_prefill_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const int* __restrict__ q_pos,
-    const int* __restrict__ k_pos, bf16* __restrict__ out, int S, int T,
-    int Hq, int Hkv, int causal, int window, float scale) {
-  constexpr int ST = D + 8;   // row stride of every tile, in values
-  constexpr int NKS = D / 16; // k-steps of Q.K^T
-  constexpr int ND = D / 8;   // 8-column tiles of the output
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  bf16* q_sh = reinterpret_cast<bf16*>(smem_bytes);  // [BQ][ST]
-  bf16* k_sh = q_sh + BQ * ST;                       // 2 x [BK][ST]
-  bf16* v_sh = k_sh + 2 * BK * ST;                   // 2 x [BK][ST]
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// mbarriers in shared memory: init with the arrivals a phase takes; a
+// producer's arrival that also expects `bytes` from TMA copies; a wait for
+// the phase of the given parity to complete.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// A wait that outlasts about 10 s of clock (a copy that never lands, an
+// arrival that never comes) traps: a launch error, not a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0)
+      start = clock64();
+    else if (clock64() - start > 20000000000LL)
+      __trap();
+  }
+}
+
+// A TMA copy of one box of a 4-d tensor map at coordinates (c0..c3) into
+// shared memory, completing `bytes` on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (in 16-byte units) and the swizzle (1: 128 bytes,
+// 2: 64, 3: 32).
+__device__ __forceinline__ uint64_t smem_desc(const void* p, unsigned lbo,
+                                              unsigned sbo, unsigned swz) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)swz << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of products are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Named barrier `id` over n threads: sync waits for all n (its own warp
+// counted), arrive counts its warp and goes on.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the N registers d
+// across the asynchronous products (issued before, waited for after).
+template <int N>
+__device__ __forceinline__ void reg_fence(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A.B for A [64 x 16] and B [16 x 128], both bf16 in shared memory,
+// K-major (descriptors da, db); d f32 [64 x 128], the accumulator layout.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d = A.B as wgmma_ss_n128, d written only (scale-d 0).
+__device__ __forceinline__ void wgmma_ss_n128_first(float* d, uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+      "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+      "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+      "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+      "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+      "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+      "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+      "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+      "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+      "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+      "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+      "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+      "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+      "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+      "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+      "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+      "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// d += A.B for A [64 x 16] bf16 in registers (a[4] per thread, each
+// warp's 16 rows in mma.m16n8k16's A layout) and B [16 x 16] bf16 in
+// shared memory, MN-major (descriptor db, transposed); d f32 [64 x 16].
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const unsigned* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A.B for A [64 x 16] bf16 in registers (a[4] per thread, each
+// warp's 16 rows in mma.m16n8k16's A layout) and B [16 x 32] bf16 in
+// shared memory, MN-major (descriptor db, transposed); d f32 [64 x 32].
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const unsigned* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A.B for A [64 x 16] bf16 in registers (a[4] per thread, each
+// warp's 16 rows in mma.m16n8k16's A layout) and B [16 x 64] bf16 in
+// shared memory, MN-major (descriptor db, transposed); d f32 [64 x 64].
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const unsigned* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O += P.V for the PV columns of one slab: CW = 16, 32 or 64.
+template <int CW>
+__device__ __forceinline__ void wgmma_rs(float* d, const unsigned* a,
+                                         uint64_t db) {
+  if constexpr (CW == 64)
+    wgmma_rs_n64(d, a, db);
+  else if constexpr (CW == 32)
+    wgmma_rs_n32(d, a, db);
+  else
+    wgmma_rs_n16(d, a, db);
+}
+
+#define WQ 128        // bf16 prefill: query rows per block (2 x 64)
+#define WK 128        // keys per tile
+#define WTHREADS 384  // consumer warpgroups 0 and 1, producer warpgroup 2
+
+// Shared memory of the bf16 prefill at tile width DP: Q [WQ][DP], then
+// STAGES K tiles and STAGES V tiles of [WK][DP], then the barriers, each
+// stage's tile (its first key, its class for either warpgroup) and its
+// key positions.
+// Each tile is DP / CW column slabs of CW = min(DP, 64) values, as TMA
+// writes them: rows of SPAN = 2 CW bytes, swizzled on SPAN bytes, every
+// slab 1,024-byte aligned.
+template <int DP>
+struct WTile {
+  static constexpr int STAGES = DP < 128 ? 4 : 3;  // K/V tiles in flight
+  static constexpr int CW = DP < 64 ? DP : 64;
+  static constexpr int SPAN = 2 * CW;
+  static constexpr int NS = DP / CW;
+  static constexpr unsigned SWZ = SPAN == 128 ? 1 : SPAN == 64 ? 2 : 3;
+  static constexpr int Q_BYTES = WQ * DP * 2;
+  static constexpr int KV_BYTES = WK * DP * 2;
+  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int META_OFF = BAR_OFF + 8 * (1 + 2 * STAGES);
+  static constexpr int KPOS_OFF = META_OFF + 16 * STAGES;
+  static constexpr size_t SMEM = KPOS_OFF + 4 * WK * STAGES + 1024;
+};
+
+// 2^x by the special-function unit (ex2.approx, subnormal results 0):
+// the exponential of the bf16 prefill's softmax.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one S tile of a warpgroup, in place on the
+// accumulator (s[4j + 2i + c]: the thread's row i, key 8j + fc + c; a
+// row's four lanes are lane ^ 1, ^ 2): s becomes
+// P = 2^(s . scale log2 e - m . scale log2 e), 0 where masked, and alpha
+// the rescale O owes.  MASKED: the bits of `live` (index 4j + 2i + c) say
+// which entries are live.
+template <bool MASKED>
+__device__ __forceinline__ void softmax_tile(float* s,
+                                             unsigned long long live,
+                                             float* m, float* l,
+                                             float* alpha, float sl2) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < WK / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * i + c;
+        if (!MASKED || ((live >> e) & 1)) mx = fmaxf(mx, s[e]);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+    const float m_new = fmaxf(m[i], mx);
+    const float ms = m_new == -INFINITY ? 0.0f : __fmul_rn(m_new, sl2);
+    alpha[i] = fast_exp2(__fmul_rn(m[i], sl2) - ms);
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < WK / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * i + c;
+        const float p = !MASKED || ((live >> e) & 1)
+                            ? fast_exp2(fmaf(s[e], sl2, -ms))
+                            : 0.0f;
+        s[e] = p;
+        sum += p;
+      }
+    l[i] = l[i] * alpha[i] + sum;
+    m[i] = m_new;
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(WTHREADS, 1)
+    flash_prefill_bf16_hopper_kernel(
+        const __grid_constant__ CUtensorMap tm_q,
+        const __grid_constant__ CUtensorMap tm_k,
+        const __grid_constant__ CUtensorMap tm_v,
+        const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+        bf16* __restrict__ out, int S, int T, int Hq, int Hkv, int D,
+        int causal, int window, float scale) {
+  using L = WTile<DP>;
+  extern __shared__ __align__(1024) unsigned char wsmem[];
+  unsigned char* sm =
+      wsmem + ((1024u - (smem_addr(wsmem) & 1023u)) & 1023u);
+  unsigned char* q_sh = sm;
+  unsigned char* k_sh = sm + L::Q_BYTES;
+  unsigned char* v_sh = k_sh + L::STAGES * L::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::BAR_OFF);
+  uint64_t* full = q_full + 1;         // [STAGES]: a K/V tile landed
+  uint64_t* empty = full + L::STAGES;  // [STAGES]: 8 consumer warps done
+  int* meta = reinterpret_cast<int*>(sm + L::META_OFF);  // [STAGES][4]
+  int* kpos_sh = reinterpret_cast<int*>(sm + L::KPOS_OFF);  // [STAGES][WK]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int fr = lane >> 2, fc = (lane & 3) * 2;  // a fragment's row, column
-  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
+  // the query tiles of a head, and the heads of a KV group, are launched
+  // together, so their blocks share K/V through L2; the longest tiles of
+  // a head first
+  const int h = blockIdx.y % Hq, b = blockIdx.y / Hq;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * WQ;
   const int hk = h / (Hq / Hkv);
-  const int nq = min(BQ, S - q0);
-  const int r0 = warp * 16;  // the warp's rows in the tile
 
-  int q_lo, q_hi;
-  pos_range(q_pos + q0, nq, lane, q_lo, q_hi);
-  int qp[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + fr + 8 * i;
-    qp[i] = r < nq ? q_pos[q0 + r] : q_hi;
-  }
-
-  // per row (fr, fr + 8): the running max, this lane's share of the sum
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  float o[ND][4];
-#pragma unroll
-  for (int d = 0; d < ND; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[d][e] = 0.0f;
-  unsigned qf[NKS][4];
-
-  int cls;
-  int cur = next_tile(k_pos, 0, T, q_lo, q_hi, causal, window, lane, cls);
-  stage_rows_bf16<D, PT>(q_sh, ST, q, (size_t)b * S + q0, BQ, nq, Hq, h,
-                         tid);
-  if (cur < T) {
-    stage_rows_bf16<D, PT>(k_sh, ST, k, (size_t)b * T + cur, BK, T - cur,
-                           Hkv, hk, tid);
-    stage_rows_bf16<D, PT>(v_sh, ST, v, (size_t)b * T + cur, BK, T - cur,
-                           Hkv, hk, tid);
-  }
-  cp_async_commit();
-
-  bool have_q = false;
-  int stage = 0;
-  while (cur < T) {
-    int nxt_cls;
-    const int nxt = next_tile(k_pos, cur + BK, T, q_lo, q_hi, causal, window,
-                              lane, nxt_cls);
-    if (nxt < T) {  // the next tile flies while this one computes
-      stage_rows_bf16<D, PT>(k_sh + (stage ^ 1) * BK * ST, ST, k,
-                             (size_t)b * T + nxt, BK, T - nxt, Hkv, hk, tid);
-      stage_rows_bf16<D, PT>(v_sh + (stage ^ 1) * BK * ST, ST, v,
-                             (size_t)b * T + nxt, BK, T - nxt, Hkv, hk, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
     }
-    __syncthreads();  // this tile (and Q) has landed for every thread
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    if (!have_q) {  // Q's A fragments, once
+  if (warp >= 8) {
+    // producer: warp 8 walks the key tiles live for some row of the block,
+    // classifies each for either warpgroup's rows, and its lane 0 issues
+    // every copy; an end marker (first key T) closes the list
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8) {
+      int q_lo, q_hi, w_lo[2], w_hi[2];
+      pos_range(q_pos + q0, min(WQ, S - q0), lane, q_lo, q_hi);
 #pragma unroll
-      for (int kk = 0; kk < NKS; ++kk)
-        ldmatrix_x4(qf[kk],
-                    q_sh + (r0 + (lane & 15)) * ST + kk * 16 + (lane >> 4) * 8);
-      have_q = true;
-    }
-    const bf16* ks = k_sh + stage * BK * ST;
-    const bf16* vs = v_sh + stage * BK * ST;
-
-    // S = Q.K^T: eight 16x8 tiles, keys 8j .. 8j + 7
-    float s[8][4];
+      for (int w = 0; w < 2; ++w)
+        pos_range(q_pos + q0 + 64 * w, min(64, S - q0 - 64 * w), lane,
+                  w_lo[w], w_hi[w]);
+      if (lane == 0) {
+        mbar_expect_tx(q_full, L::Q_BYTES);
+        for (int s = 0; s < L::NS; ++s)
+          tma_load(q_sh + s * WQ * L::SPAN, &tm_q, q_full, s * L::CW, h, q0,
+                   b);
+      }
+      // lane holds the positions of keys t0 + lane + 32u, the next tile's
+      // loading while this one is classified
+      int kv[4], nx[4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int u = 0; u < 4; ++u)
+        kv[u] = lane + 32 * u < T ? __ldg(k_pos + lane + 32 * u) : -1;
+      int stage = 0;
+      unsigned phase = 0;
+      for (int t0 = 0;; t0 += WK) {
+        const bool end = t0 >= T;
+        bool any = false, wany[2] = {false, false}, wall[2] = {true, true};
+        if (!end) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+          for (int u = 0; u < 4; ++u) {
+            const int t = t0 + WK + lane + 32 * u;
+            nx[u] = t < T ? __ldg(k_pos + t) : -1;
+          }
 #pragma unroll
-    for (int kk = 0; kk < NKS; ++kk) {
+          for (int u = 0; u < 4; ++u) {
+            any = any || maybe_live(kv[u], q_lo, q_hi, causal, window);
 #pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        unsigned bf[4];
-        ldmatrix_x4(bf, ks + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * ST +
-                            kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * jp], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], bf[2], bf[3]);
+            for (int w = 0; w < 2; ++w) {
+              wany[w] = wany[w] ||
+                        maybe_live(kv[u], w_lo[w], w_hi[w], causal, window);
+              wall[w] = wall[w] &&
+                        all_live(kv[u], w_lo[w], w_hi[w], causal, window);
+            }
+          }
+        }
+        if (end || __ballot_sync(FULL, any)) {
+          int wc[2];
+#pragma unroll
+          for (int w = 0; w < 2; ++w)
+            wc[w] = !__ballot_sync(FULL, wany[w])          ? 0
+                    : __ballot_sync(FULL, wall[w]) == FULL ? 2
+                                                           : 1;
+          // the stage is free once its last tile's P.V is done (the first
+          // round passes at once)
+          if (lane == 0) mbar_wait(&empty[stage], phase ^ 1);
+          __syncwarp();
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            kpos_sh[stage * WK + lane + 32 * u] = kv[u];
+          __syncwarp();
+          if (lane == 0) {
+            meta[4 * stage] = end ? T : t0;
+            meta[4 * stage + 1] = wc[0];
+            meta[4 * stage + 2] = wc[1];
+            if (end) {
+              mbar_arrive(&full[stage]);
+            } else {
+              mbar_expect_tx(&full[stage], 2 * L::KV_BYTES);
+              for (int s = 0; s < L::NS; ++s) {
+                const int at = stage * L::KV_BYTES + s * WK * L::SPAN;
+                tma_load(k_sh + at, &tm_k, &full[stage], s * L::CW, hk, t0,
+                         b);
+                tma_load(v_sh + at, &tm_v, &full[stage], s * L::CW, hk, t0,
+                         b);
+              }
+            }
+          }
+          __syncwarp();
+          if (end) break;
+          if (++stage == L::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) kv[u] = nx[u];
       }
     }
-    if (cls == 2) {
+  } else {
+    // consumers: warpgroup wq owns rows q0 + 64 wq .. + 63; each warp 16
+    // of them, each thread rows row0 and row0 + 8 (the accumulator layout)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wq = warp >> 2;
+    const int r_wg = q0 + 64 * wq;
+    const int row0 = r_wg + 16 * (warp & 3) + (lane >> 2);
+    const int fc = (lane & 3) * 2;
+    int qp[2];  // (a row past S is computed, never written)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+    for (int i = 0; i < 2; ++i)
+      qp[i] = q_pos[min(row0 + 8 * i, S - 1)];
+
+    // running max (in raw scores), this thread's share of the row sums,
+    // the rescale of O owed from the last softmax, the last P in bf16
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+    float alpha[2] = {1.0f, 1.0f};
+    float o[L::NS][L::CW / 2];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] *= scale;
-    } else {
+    for (int sl = 0; sl < L::NS; ++sl)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int e = 0; e < L::CW / 2; ++e) o[sl][e] = 0.0f;
+    unsigned pa[WK / 16][4];
+    const float sl2 = scale * 1.4426950408889634f;  // scale . log2(e)
+
+    // S_j = Q.K_j^T into s, 16 columns of D a step (both K-major slabs)
+    auto issue_s = [&](int stg, float* s) {
+      const unsigned char* ks = k_sh + stg * L::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int slab = kk * 16 / L::CW, off = (kk * 16 % L::CW) * 2;
+        const uint64_t da = smem_desc(
+            q_sh + slab * WQ * L::SPAN + wq * 64 * L::SPAN + off, 16,
+            8 * L::SPAN, L::SWZ);
+        const uint64_t db = smem_desc(ks + slab * WK * L::SPAN + off, 16,
+                                      8 * L::SPAN, L::SWZ);
+        if (kk == 0)
+          wgmma_ss_n128_first(s, da, db);
+        else
+          wgmma_ss_n128(s, da, db);
+      }
+    };
+    // O += P.V from the A fragments pa, 16 keys a step (V MN-major)
+    auto issue_pv = [&](int stg) {
+      const unsigned char* vs = v_sh + stg * L::KV_BYTES;
+#pragma unroll
+      for (int kc = 0; kc < WK / 16; ++kc)
+#pragma unroll
+        for (int sl = 0; sl < L::NS; ++sl)
+          wgmma_rs<L::CW>(
+              o[sl], pa[kc],
+              smem_desc(vs + sl * WK * L::SPAN + kc * 16 * L::SPAN,
+                        WK * L::SPAN, 8 * L::SPAN, L::SWZ));
+    };
+    // the softmax of the tile in stage stg (its class for this warpgroup
+    // wcls), in s
+    auto softmax = [&](float* s, int stg, int wcls) {
+      if (wcls == 2) {
+        softmax_tile<false>(s, 0, m, l, alpha, sl2);
+        return;
+      }
+      unsigned long long live = 0;
+#pragma unroll
+      for (int j = 0; j < WK / 8; ++j)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const int t = cur + 8 * j + fc + c;
-          const int kp = t < T ? k_pos[t] : -1;
+          const int kp = kpos_sh[stg * WK + 8 * j + fc + c];
 #pragma unroll
           for (int i = 0; i < 2; ++i)
-            s[j][2 * i + c] = live_key(kp, qp[i], causal, window)
-                                  ? s[j][2 * i + c] * scale
-                                  : -INFINITY;
+            if (live_key(kp, qp[i], causal, window))
+              live |= 1ull << (4 * j + 2 * i + c);
         }
-    }
+      softmax_tile<true>(s, live, m, l, alpha, sl2);
+    };
+    // P rounded to bf16: the A fragments of the next P.V
+    auto pack_p = [&](const float* s) {
+#pragma unroll
+      for (int kc = 0; kc < WK / 16; ++kc) {
+        pa[kc][0] = pack_bf16(s[8 * kc], s[8 * kc + 1]);
+        pa[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+        pa[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+        pa[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+      }
+    };
+    auto rescale_o = [&]() {
+#pragma unroll
+      for (int sl = 0; sl < L::NS; ++sl)
+#pragma unroll
+        for (int nb = 0; nb < L::CW / 8; ++nb)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            o[sl][4 * nb + 2 * i] *= alpha[i];
+            o[sl][4 * nb + 2 * i + 1] *= alpha[i];
+          }
+#pragma unroll
+      for (int sl = 0; sl < L::NS; ++sl) reg_fence<L::CW / 2>(o[sl]);
+    };
+    auto release = [&](int stg) {  // this warp is done with the stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stg]);
+    };
 
-    // online softmax on the fragments: a row's four lanes are lane ^ 1, ^ 2
+    // Turn j issues S_j and O += P_{j-1}.V_{j-1} together; the two
+    // warpgroups take turns (named barriers 1 and 2), so one's softmax
+    // overlaps the other's products.  Warpgroup 0 goes first.  The first
+    // turn has no P.V and a last turn no S.
+    mbar_wait(q_full, 0);
+    if (wq == 1) named_arrive(1, 256);
+    int stage = 0;
+    unsigned phase = 0;
+    mbar_wait(&full[stage], phase);
+    int t0 = meta[0];
+    if (t0 < T) {
+      {
+        const int wcls = meta[1 + wq];
+        float s[WK / 2];
+        named_sync(1 + wq, 256);
+        wgmma_fence();
+        issue_s(stage, s);
+        wgmma_commit();
+        named_arrive(2 - wq, 256);
+        wgmma_wait<0>();
+        reg_fence<WK / 2>(s);
+        softmax(s, stage, wcls);
+        pack_p(s);
+      }
+      for (;;) {
+        const int pstage = stage;
+        if (++stage == L::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+        mbar_wait(&full[stage], phase);
+        t0 = meta[4 * stage];
+        if (t0 >= T) {  // the last turn: the last tile's P.V
+          rescale_o();
+          named_sync(1 + wq, 256);
+          wgmma_fence();
+          issue_pv(pstage);
+          wgmma_commit();
+          named_arrive(2 - wq, 256);
+          wgmma_wait<0>();
+#pragma unroll
+          for (int sl = 0; sl < L::NS; ++sl) reg_fence<L::CW / 2>(o[sl]);
+          release(pstage);
+          break;
+        }
+        const int wcls = meta[4 * stage + 1 + wq];
+        rescale_o();
+        float s[WK / 2];
+        named_sync(1 + wq, 256);
+        wgmma_fence();
+        issue_s(stage, s);
+        wgmma_commit();
+        wgmma_fence();
+        issue_pv(pstage);
+        wgmma_commit();
+        named_arrive(2 - wq, 256);
+        wgmma_wait<1>();  // S landed; P.V may still run
+        reg_fence<WK / 2>(s);
+        softmax(s, stage, wcls);
+        wgmma_wait<0>();  // P.V done: the last tile's stage is free
+#pragma unroll
+        for (int sl = 0; sl < L::NS; ++sl) reg_fence<L::CW / 2>(o[sl]);
+        release(pstage);
+        pack_p(s);
+      }
+    }
+    if (wq == 0) named_sync(1, 256);  // warpgroup 1's last arrival
+
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      float mx = -INFINITY;
+      float lt = l[i];
+      lt += __shfl_xor_sync(FULL, lt, 1);
+      lt += __shfl_xor_sync(FULL, lt, 2);
+      const int r = row0 + 8 * i;
+      if (r < S) {
+        const float inv = lt > 0.0f ? 1.0f / lt : 0.0f;
+        bf16* orow = out + ((size_t)(b * S + r) * Hq + h) * D;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
-      const float m_new = fmaxf(m[i], mx);
-      float alpha = 1.0f, sum = 0.0f;
-      if (m_new != -INFINITY) {
-        alpha = expf(m[i] - m_new);
+        for (int sl = 0; sl < L::NS; ++sl)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const float pj = expf(s[j][2 * i + c] - m_new);
-            s[j][2 * i + c] = pj;
-            sum += pj;
+          for (int nb = 0; nb < L::CW / 8; ++nb) {
+            const int col = sl * L::CW + 8 * nb + fc;
+            if (col < D)
+              *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                  __floats2bfloat162_rn(o[sl][4 * nb + 2 * i] * inv,
+                                        o[sl][4 * nb + 2 * i + 1] * inv);
           }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[j][2 * i] = s[j][2 * i + 1] = 0.0f;
       }
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int d = 0; d < ND; ++d) {
-        o[d][2 * i] *= alpha;
-        o[d][2 * i + 1] *= alpha;
-      }
-    }
-
-    // O += P.V: P rounded to bf16 is the A operand, 16 keys a step
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      const unsigned a[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                             pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                             pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                             pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < ND / 2; ++dp) {
-        unsigned bf[4];
-        ldmatrix_x4_trans(bf, vs + (kc * 16 + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * ST +
-                                  dp * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dp], a, bf[0], bf[1]);
-        mma_bf16(o[2 * dp + 1], a, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // this stage is consumed before it refills
-
-    cur = nxt;
-    cls = nxt_cls;
-    stage ^= 1;
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float lt = l[i];
-    lt += __shfl_xor_sync(FULL, lt, 1);
-    lt += __shfl_xor_sync(FULL, lt, 2);
-    const int r = r0 + fr + 8 * i;
-    if (r < nq) {
-      const float inv = lt > 0.0f ? 1.0f / lt : 0.0f;
-      bf16* orow = out + ((size_t)(b * S + q0 + r) * Hq + h) * D;
-#pragma unroll
-      for (int d = 0; d < ND; ++d)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * d + fc) =
-            __floats2bfloat162_rn(o[d][2 * i] * inv, o[d][2 * i + 1] * inv);
     }
   }
 }
@@ -1304,22 +1768,22 @@ __device__ __forceinline__ float dot8_bf16(uint4 a, uint4 b, float t) {
 
 // flash_decode_partial_kernel for bf16 q, k, v: the same partials (f32),
 // p rounded to bf16 before P.V.
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(DT) flash_decode_partial_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const int* __restrict__ q_pos,
     const int* __restrict__ k_pos, float* __restrict__ part_m,
     float* __restrict__ part_l, float* __restrict__ part_acc, int S, int T,
-    int Hq, int Hkv, int causal, int window, float scale) {
-  constexpr int ST = D + 8;
+    int Hq, int Hkv, int D, int causal, int window, float scale) {
+  constexpr int ST = DP + 8;
   extern __shared__ __align__(16) unsigned char smem_bytes[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int n_split = gridDim.x, group = Hq / Hkv, R = S * group;
   bf16* q_sh = reinterpret_cast<bf16*>(smem_bytes);    // [R][ST]
   bf16* k_sh = q_sh + R * ST;                          // [BK][ST]
-  bf16* v_sh = k_sh + BK * ST;                         // [BK][D]
-  float* p_sh = reinterpret_cast<float*>(v_sh + BK * D);  // [R][PS]
+  bf16* v_sh = k_sh + BK * ST;                          // [BK][DP]
+  float* p_sh = reinterpret_cast<float*>(v_sh + BK * DP);  // [R][PS]
   const int t0 = split * BK, nk = min(BK, T - t0);
 
   int q_lo, q_hi;
@@ -1334,16 +1798,17 @@ __global__ void __launch_bounds__(DT) flash_decode_partial_bf16_kernel(
     return;
   }
 
-  for (int e = tid; e < R * (D / 8); e += DT) {
-    const int r = e / (D / 8), c8 = (e % (D / 8)) * 8;
+  for (int e = tid; e < R * (DP / 8); e += DT) {
+    const int r = e / (DP / 8), c8 = (e % (DP / 8)) * 8;
     const int s = r / group, h = hk * group + r % group;
     cp_async16_any(q_sh + r * ST + c8,
-                   q + ((size_t)(b * S + s) * Hq + h) * D + c8, true);
+                   q + ((size_t)(b * S + s) * Hq + h) * D + (c8 < D ? c8 : 0),
+                   c8 < D);
   }
-  stage_rows_bf16<D, DT>(k_sh, ST, k, (size_t)b * T + t0, BK, nk, Hkv, hk,
-                         tid);
-  stage_rows_bf16<D, DT>(v_sh, D, v, (size_t)b * T + t0, BK, nk, Hkv, hk,
-                         tid);
+  stage_rows_bf16<DP, DT>(k_sh, ST, k, (size_t)b * T + t0, BK, nk, Hkv, hk,
+                          D, tid);
+  stage_rows_bf16<DP, DT>(v_sh, DP, v, (size_t)b * T + t0, BK, nk, Hkv, hk,
+                          D, tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -1354,7 +1819,7 @@ __global__ void __launch_bounds__(DT) flash_decode_partial_bf16_kernel(
     for (int r = rg; r < R; r += DT / BK) {
       float t = 0.0f;
 #pragma unroll
-      for (int d = 0; d < D; d += 8)
+      for (int d = 0; d < DP; d += 8)
         t = dot8_bf16(*reinterpret_cast<const uint4*>(q_sh + r * ST + d),
                       *reinterpret_cast<const uint4*>(k_sh + c * ST + d), t);
       p_sh[r * PS + c] =
@@ -1390,12 +1855,13 @@ __global__ void __launch_bounds__(DT) flash_decode_partial_bf16_kernel(
   }
   __syncthreads();
 
-  for (int e = tid; e < R * D; e += DT) {
-    const int r = e / D, d = e % D;
+  for (int e = tid; e < R * DP; e += DT) {
+    const int r = e / DP, d = e % DP;
+    if (d >= D) continue;
     float t = 0.0f;
 #pragma unroll 8
     for (int c = 0; c < BK; ++c)
-      t = fmaf(p_sh[r * PS + c], __bfloat162float(v_sh[c * D + d]), t);
+      t = fmaf(p_sh[r * PS + c], __bfloat162float(v_sh[c * DP + d]), t);
     const int s = r / group, h = hk * group + r % group;
     part_acc[(((size_t)(b * S + s) * Hq + h) * n_split + split) * D + d] = t;
   }
@@ -1405,6 +1871,14 @@ __global__ void __launch_bounds__(DT) flash_decode_partial_bf16_kernel(
 // launchers
 // ---------------------------------------------------------------------------
 
+// The tile width the source builds for head dim D: the smallest of 16, 32,
+// 64 and 128 that holds it, for D a multiple of 8 from 8 to 128; 0 for any
+// other D.
+static int padded_head_dim(int D) {
+  if (D < 8 || D > 128 || D % 8) return 0;
+  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
+}
+
 template <class K>
 static int allow_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
@@ -1412,36 +1886,37 @@ static int allow_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int D>
+template <int DP>
 static int launch_prefill(const float* q, const float* k, const float* v,
                           const int* q_pos, const int* k_pos, float* out,
                           float* lse, int B, int S, int T, int Hq, int Hkv,
-                          int causal, int window, cudaStream_t st) {
+                          int D, int causal, int window, cudaStream_t st) {
   const size_t smem =
-      sizeof(float) * (3 * BQ * (D + 4) + 2 * BK * D + BQ * PS);
-  int e = allow_smem(flash_prefill_kernel<D>, smem);
+      sizeof(float) * (3 * BQ * (DP + 4) + 2 * BK * DP + BQ * PS);
+  int e = allow_smem(flash_prefill_kernel<DP>, smem);
   if (e) return e;
   const dim3 grid(B * Hq, (S + BQ - 1) / BQ);
-  flash_prefill_kernel<D><<<grid, PT, smem, st>>>(
-      q, k, v, q_pos, k_pos, out, lse, S, T, Hq, Hkv, causal, window,
+  flash_prefill_kernel<DP><<<grid, PT, smem, st>>>(
+      q, k, v, q_pos, k_pos, out, lse, S, T, Hq, Hkv, D, causal, window,
       1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DP>
 static int launch_decode(const float* q, const float* k, const float* v,
                          const int* q_pos, const int* k_pos, float* out,
                          float* part_m, float* part_l, float* part_acc, int B,
-                         int S, int T, int Hq, int Hkv, int causal, int window,
-                         cudaStream_t st) {
+                         int S, int T, int Hq, int Hkv, int D, int causal,
+                         int window, cudaStream_t st) {
   const int R = S * (Hq / Hkv);
-  const size_t smem = sizeof(float) * ((R + BK) * (D + 4) + BK * D + R * PS);
-  int e = allow_smem(flash_decode_partial_kernel<D>, smem);
+  const size_t smem =
+      sizeof(float) * ((R + BK) * (DP + 4) + BK * DP + R * PS);
+  int e = allow_smem(flash_decode_partial_kernel<DP>, smem);
   if (e) return e;
   const int n_split = (T + BK - 1) / BK;
-  flash_decode_partial_kernel<D><<<dim3(n_split, Hkv, B), DT, smem, st>>>(
-      q, k, v, q_pos, k_pos, part_m, part_l, part_acc, S, T, Hq, Hkv, causal,
-      window, 1.0f / sqrtf((float)D));
+  flash_decode_partial_kernel<DP><<<dim3(n_split, Hkv, B), DT, smem, st>>>(
+      q, k, v, q_pos, k_pos, part_m, part_l, part_acc, S, T, Hq, Hkv, D,
+      causal, window, 1.0f / sqrtf((float)D));
   e = (int)cudaGetLastError();
   if (e) return e;
   const int rows = B * S * Hq;
@@ -1451,36 +1926,93 @@ static int launch_decode(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a libcuda function, through the runtime's
+// entry-point query (the library does not link libcuda); null if the
+// installed libcuda lacks it.
+static EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    return found == cudaDriverEntryPointSuccess ? (EncodeTiledFn)p : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a row-major [B, rows, heads, D] bf16 tensor in place:
+// boxes of cw values of one head over box_rows rows, swizzled on 2 cw
+// bytes; elements out of bounds (columns D.., rows past `rows`) read as 0.
+static int encode_rows(CUtensorMap* map, const bf16* base, int B, int rows,
+                       int heads, int D, int cw, int box_rows,
+                       CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)rows * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cw, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<bf16*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int DP>
 static int launch_prefill_bf16(const bf16* q, const bf16* k, const bf16* v,
                                const int* q_pos, const int* k_pos, bf16* out,
-                               int B, int S, int T, int Hq, int Hkv,
+                               int B, int S, int T, int Hq, int Hkv, int D,
                                int causal, int window, cudaStream_t st) {
-  const size_t smem = sizeof(bf16) * (size_t)(BQ + 4 * BK) * (D + 8);
-  int e = allow_smem(flash_prefill_bf16_kernel<D>, smem);
+  using L = WTile<DP>;
+  const CUtensorMapSwizzle swizzle =
+      L::SPAN == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : L::SPAN == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap tq, tk, tv;
+  int e = encode_rows(&tq, q, B, S, Hq, D, L::CW, WQ, swizzle);
+  if (!e) e = encode_rows(&tk, k, B, T, Hkv, D, L::CW, WK, swizzle);
+  if (!e) e = encode_rows(&tv, v, B, T, Hkv, D, L::CW, WK, swizzle);
+  if (!e) e = allow_smem(flash_prefill_bf16_hopper_kernel<DP>, L::SMEM);
   if (e) return e;
-  const dim3 grid(B * Hq, (S + BQ - 1) / BQ);
-  flash_prefill_bf16_kernel<D><<<grid, PT, smem, st>>>(
-      q, k, v, q_pos, k_pos, out, S, T, Hq, Hkv, causal, window,
+  const dim3 grid((S + WQ - 1) / WQ, B * Hq);
+  flash_prefill_bf16_hopper_kernel<DP><<<grid, WTHREADS, L::SMEM, st>>>(
+      tq, tk, tv, q_pos, k_pos, out, S, T, Hq, Hkv, D, causal, window,
       1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DP>
 static int launch_decode_bf16(const bf16* q, const bf16* k, const bf16* v,
                               const int* q_pos, const int* k_pos, bf16* out,
                               float* part_m, float* part_l, float* part_acc,
-                              int B, int S, int T, int Hq, int Hkv,
+                              int B, int S, int T, int Hq, int Hkv, int D,
                               int causal, int window, cudaStream_t st) {
   const int R = S * (Hq / Hkv);
-  const size_t smem = sizeof(bf16) * ((size_t)(R + BK) * (D + 8) + BK * D) +
+  const size_t smem = sizeof(bf16) * ((size_t)(R + BK) * (DP + 8) + BK * DP) +
                       sizeof(float) * (size_t)R * PS;
-  int e = allow_smem(flash_decode_partial_bf16_kernel<D>, smem);
+  int e = allow_smem(flash_decode_partial_bf16_kernel<DP>, smem);
   if (e) return e;
   const int n_split = (T + BK - 1) / BK;
-  flash_decode_partial_bf16_kernel<D>
+  flash_decode_partial_bf16_kernel<DP>
       <<<dim3(n_split, Hkv, B), DT, smem, st>>>(
-          q, k, v, q_pos, k_pos, part_m, part_l, part_acc, S, T, Hq, Hkv,
+          q, k, v, q_pos, k_pos, part_m, part_l, part_acc, S, T, Hq, Hkv, D,
           causal, window, 1.0f / sqrtf((float)D));
   e = (int)cudaGetLastError();
   if (e) return e;
@@ -1491,32 +2023,32 @@ static int launch_decode_bf16(const bf16* q, const bf16* k, const bf16* v,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DP>
 static int launch_backward(const float* q, const float* k, const float* v,
                            const float* out, const float* dout,
                            const float* lse, const int* q_pos,
                            const int* k_pos, float* delta, float* part,
                            float* dq, float* dk, float* dv, int B, int S,
-                           int T, int Hq, int Hkv, int causal, int window,
-                           cudaStream_t st) {
+                           int T, int Hq, int Hkv, int D, int causal,
+                           int window, cudaStream_t st) {
   const float scale = 1.0f / sqrtf((float)D);
   const int rows = B * S * Hq;
   flash_bwd_dot_kernel<<<(rows + DT / 32 - 1) / (DT / 32), DT, 0, st>>>(
       out, dout, delta, rows, S, Hq, D);
   int e = (int)cudaGetLastError();
   if (e) return e;
-  const size_t kv_smem = sizeof(float) * (2 * BK * (D + 4) +
-                                          2 * BQ * (D + 4) + 2 * BK * PS +
+  const size_t kv_smem = sizeof(float) * (2 * BK * (DP + 4) +
+                                          2 * BQ * (DP + 4) + 2 * BK * PS +
                                           3 * BQ);
-  e = allow_smem(flash_bwd_dkdv_kernel<D>, kv_smem);
+  e = allow_smem(flash_bwd_dkdv_kernel<DP>, kv_smem);
   if (e) return e;
   // one query head's share per block; a group's shares are added after
   const size_t n_part = (size_t)B * T * Hq * D;
   float* pk = Hq == Hkv ? dk : part;
   float* pv = Hq == Hkv ? dv : part + n_part;
-  flash_bwd_dkdv_kernel<D>
+  flash_bwd_dkdv_kernel<DP>
       <<<dim3(B * Hq, (T + BK - 1) / BK), PT, kv_smem, st>>>(
-          q, k, v, dout, lse, delta, q_pos, k_pos, pk, pv, S, T, Hq, Hkv,
+          q, k, v, dout, lse, delta, q_pos, k_pos, pk, pv, S, T, Hq, Hkv, D,
           causal, window, scale);
   e = (int)cudaGetLastError();
   if (e) return e;
@@ -1528,14 +2060,31 @@ static int launch_backward(const float* q, const float* k, const float* v,
     if (e) return e;
   }
   const size_t q_smem =
-      sizeof(float) * (2 * BQ * (D + 4) + 2 * BK * (D + 4) + BQ * PS);
-  e = allow_smem(flash_bwd_dq_kernel<D>, q_smem);
+      sizeof(float) * (2 * BQ * (DP + 4) + 2 * BK * (DP + 4) + BQ * PS);
+  e = allow_smem(flash_bwd_dq_kernel<DP>, q_smem);
   if (e) return e;
-  flash_bwd_dq_kernel<D><<<dim3(B * Hq, (S + BQ - 1) / BQ), PT, q_smem, st>>>(
-      q, k, v, dout, lse, delta, q_pos, k_pos, dq, S, T, Hq, Hkv, causal,
-      window, scale);
+  flash_bwd_dq_kernel<DP>
+      <<<dim3(B * Hq, (S + BQ - 1) / BQ), PT, q_smem, st>>>(
+          q, k, v, dout, lse, delta, q_pos, k_pos, dq, S, T, Hq, Hkv, D,
+          causal, window, scale);
   return (int)cudaGetLastError();
 }
+
+// Calls LAUNCH<DP>(args...) at the tile width of head dim D; an
+// unsupported D returns cudaErrorInvalidValue.
+#define DISPATCH_HEAD_DIM(D, LAUNCH, ...)                 \
+  switch (padded_head_dim(D)) {                           \
+    case 16:                                              \
+      return LAUNCH<16>(__VA_ARGS__);                     \
+    case 32:                                              \
+      return LAUNCH<32>(__VA_ARGS__);                     \
+    case 64:                                              \
+      return LAUNCH<64>(__VA_ARGS__);                     \
+    case 128:                                             \
+      return LAUNCH<128>(__VA_ARGS__);                    \
+    default:                                              \
+      return (int)cudaErrorInvalidValue;                  \
+  }
 
 extern "C" {
 
@@ -1547,30 +2096,17 @@ int flash_attention_split_keys(void) { return BK; }
 // with 16-byte aligned bases; q_pos [S], k_pos [T] int32; all device
 // memory.  lse, when not null, receives each row's log-sum-exp of scaled
 // scores, [B,Hq,S] f32 (-inf for a row with no live key); when null the
-// kernel writes out only.  window <= 0: no window.  D must be 16, 32, 64
-// or 128 and Hq a multiple of Hkv (the wrapper checks; an unsupported D
-// returns cudaErrorInvalidValue).
+// kernel writes out only.  window <= 0: no window.  D must be a multiple
+// of 8 from 8 to 128 (the kernels run at the tile width padded_head_dim(D)
+// with the columns past D zero in shared memory and never written) and Hq
+// a multiple of Hkv (the wrapper checks; another D returns
+// cudaErrorInvalidValue).
 int flash_attention_prefill(const float* q, const float* k, const float* v,
                             const int* q_pos, const int* k_pos, float* out,
                             float* lse, int B, int S, int T, int Hq, int Hkv,
                             int D, int causal, int window, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 16:
-      return launch_prefill<16>(q, k, v, q_pos, k_pos, out, lse, B, S, T, Hq,
-                                Hkv, causal, window, st);
-    case 32:
-      return launch_prefill<32>(q, k, v, q_pos, k_pos, out, lse, B, S, T, Hq,
-                                Hkv, causal, window, st);
-    case 64:
-      return launch_prefill<64>(q, k, v, q_pos, k_pos, out, lse, B, S, T, Hq,
-                                Hkv, causal, window, st);
-    case 128:
-      return launch_prefill<128>(q, k, v, q_pos, k_pos, out, lse, B, S, T,
-                                 Hq, Hkv, causal, window, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  DISPATCH_HEAD_DIM(D, launch_prefill, q, k, v, q_pos, k_pos, out, lse, B, S,
+                    T, Hq, Hkv, D, causal, window, (cudaStream_t)stream)
 }
 
 // As flash_attention_prefill, with scratch for the partials: part_m and
@@ -1583,24 +2119,9 @@ int flash_attention_decode(const float* q, const float* k, const float* v,
                            float* part_m, float* part_l, float* part_acc,
                            int B, int S, int T, int Hq, int Hkv, int D,
                            int causal, int window, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 16:
-      return launch_decode<16>(q, k, v, q_pos, k_pos, out, part_m, part_l,
-                               part_acc, B, S, T, Hq, Hkv, causal, window, st);
-    case 32:
-      return launch_decode<32>(q, k, v, q_pos, k_pos, out, part_m, part_l,
-                               part_acc, B, S, T, Hq, Hkv, causal, window, st);
-    case 64:
-      return launch_decode<64>(q, k, v, q_pos, k_pos, out, part_m, part_l,
-                               part_acc, B, S, T, Hq, Hkv, causal, window, st);
-    case 128:
-      return launch_decode<128>(q, k, v, q_pos, k_pos, out, part_m, part_l,
-                                part_acc, B, S, T, Hq, Hkv, causal, window,
-                                st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  DISPATCH_HEAD_DIM(D, launch_decode, q, k, v, q_pos, k_pos, out, part_m,
+                    part_l, part_acc, B, S, T, Hq, Hkv, D, causal, window,
+                    (cudaStream_t)stream)
 }
 
 // The backward of flash_attention_prefill: dq [B,S,Hq,D] and dk, dv
@@ -1617,54 +2138,23 @@ int flash_attention_backward(const float* q, const float* k, const float* v,
                              float* dq, float* dk, float* dv, int B, int S,
                              int T, int Hq, int Hkv, int D, int causal,
                              int window, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 16:
-      return launch_backward<16>(q, k, v, out, dout, lse, q_pos, k_pos, delta,
-                                 part, dq, dk, dv, B, S, T, Hq, Hkv, causal,
-                                 window, st);
-    case 32:
-      return launch_backward<32>(q, k, v, out, dout, lse, q_pos, k_pos, delta,
-                                 part, dq, dk, dv, B, S, T, Hq, Hkv, causal,
-                                 window, st);
-    case 64:
-      return launch_backward<64>(q, k, v, out, dout, lse, q_pos, k_pos, delta,
-                                 part, dq, dk, dv, B, S, T, Hq, Hkv, causal,
-                                 window, st);
-    case 128:
-      return launch_backward<128>(q, k, v, out, dout, lse, q_pos, k_pos,
-                                  delta, part, dq, dk, dv, B, S, T, Hq, Hkv,
-                                  causal, window, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  DISPATCH_HEAD_DIM(D, launch_backward, q, k, v, out, dout, lse, q_pos, k_pos,
+                    delta, part, dq, dk, dv, B, S, T, Hq, Hkv, D, causal,
+                    window, (cudaStream_t)stream)
 }
 
 // As flash_attention_prefill for q, k, v and out in bf16 (same layout,
-// 16-byte aligned bases), without the log-sum-exp output: tensor-core
-// products, f32 softmax and accumulation, P and the result rounded to bf16.
+// 16-byte aligned bases), without the log-sum-exp output: the Hopper
+// kernel (TMA, wgmma, a producer warp), f32 softmax and accumulation, P
+// and the result rounded to bf16.  cudaErrorNotSupported if libcuda has
+// no tensor-map encoder.
 int flash_attention_prefill_bf16(const bf16* q, const bf16* k, const bf16* v,
                                  const int* q_pos, const int* k_pos,
                                  bf16* out, int B, int S, int T, int Hq,
                                  int Hkv, int D, int causal, int window,
                                  void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 16:
-      return launch_prefill_bf16<16>(q, k, v, q_pos, k_pos, out, B, S, T, Hq,
-                                     Hkv, causal, window, st);
-    case 32:
-      return launch_prefill_bf16<32>(q, k, v, q_pos, k_pos, out, B, S, T, Hq,
-                                     Hkv, causal, window, st);
-    case 64:
-      return launch_prefill_bf16<64>(q, k, v, q_pos, k_pos, out, B, S, T, Hq,
-                                     Hkv, causal, window, st);
-    case 128:
-      return launch_prefill_bf16<128>(q, k, v, q_pos, k_pos, out, B, S, T,
-                                      Hq, Hkv, causal, window, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  DISPATCH_HEAD_DIM(D, launch_prefill_bf16, q, k, v, q_pos, k_pos, out, B, S,
+                    T, Hq, Hkv, D, causal, window, (cudaStream_t)stream)
 }
 
 // As flash_attention_decode for q, k, v and out in bf16; the partials are
@@ -1675,27 +2165,9 @@ int flash_attention_decode_bf16(const bf16* q, const bf16* k, const bf16* v,
                                 float* part_acc, int B, int S, int T, int Hq,
                                 int Hkv, int D, int causal, int window,
                                 void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 16:
-      return launch_decode_bf16<16>(q, k, v, q_pos, k_pos, out, part_m,
-                                    part_l, part_acc, B, S, T, Hq, Hkv,
-                                    causal, window, st);
-    case 32:
-      return launch_decode_bf16<32>(q, k, v, q_pos, k_pos, out, part_m,
-                                    part_l, part_acc, B, S, T, Hq, Hkv,
-                                    causal, window, st);
-    case 64:
-      return launch_decode_bf16<64>(q, k, v, q_pos, k_pos, out, part_m,
-                                    part_l, part_acc, B, S, T, Hq, Hkv,
-                                    causal, window, st);
-    case 128:
-      return launch_decode_bf16<128>(q, k, v, q_pos, k_pos, out, part_m,
-                                     part_l, part_acc, B, S, T, Hq, Hkv,
-                                     causal, window, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  DISPATCH_HEAD_DIM(D, launch_decode_bf16, q, k, v, q_pos, k_pos, out, part_m,
+                    part_l, part_acc, B, S, T, Hq, Hkv, D, causal, window,
+                    (cudaStream_t)stream)
 }
 
 }  // extern "C"

@@ -15,9 +15,15 @@ prefill.  The decode's split length is the source's own
 (``flash_attention_split_keys``); the wrapper reads it to size the
 partials' scratch.
 
+Every entry point takes each head dim that is a multiple of 8 from 8 to
+128 (:func:`padded_head_dim`): the kernels run at the next tile width the
+source builds and read q, k, v and the cache in place, so the wrapper
+copies none of them.
+
 The source takes f32 and bf16.  A bf16 call (q, k and v all bf16)
 launches the bf16 entry points (``flash_attention_prefill_bf16``, on
-tensor cores, and ``flash_attention_decode_bf16``), counted under
+Hopper's tensor cores by ``wgmma`` over TMA copies, and
+``flash_attention_decode_bf16``), counted under
 ``flash_attention_bf16`` and ``flash_attention_bf16_prefill`` /
 ``flash_attention_bf16_decode``; the f32 keys count f32 launches only.
 Mixed types raise, on every device: nothing is cast quietly.
@@ -43,8 +49,22 @@ import torch
 from .. import _lib
 from .ref import attention_ref
 
-#: Head dims the kernel is built for.
-HEAD_DIMS = (16, 32, 64, 128)
+#: Tile widths the source builds its kernels for, in head-dim columns.
+TILE_WIDTHS = (16, 32, 64, 128)
+
+
+def padded_head_dim(d: int) -> int:
+    """The tile width the kernels run head dim ``d`` at: the smallest of
+    :data:`TILE_WIDTHS` that holds it.  The kernels take every multiple of
+    8 from 8 to 128 (a row of 8 f32 or bf16 values starts on a 16-byte
+    boundary, the unit they copy), read the ``d`` columns in place, keep
+    the columns past ``d`` zero in shared memory and never write them; the
+    scale is 1/√d.  Any other ``d`` raises ``ValueError``; the C entry
+    points apply the same rule (``padded_head_dim`` in the source)."""
+    if not (8 <= d <= TILE_WIDTHS[-1] and d % 8 == 0):
+        raise ValueError(f"flash_attention: head dim {d} is not a multiple "
+                         f"of 8 from 8 to {TILE_WIDTHS[-1]}")
+    return next(w for w in TILE_WIDTHS if w >= d)
 
 #: Most query rows a KV head (``S · Hq/Hkv``) sent to the decode entry
 #: point, which holds them all in one block.
@@ -104,8 +124,7 @@ def _check_inputs(q, k, v, q_pos, k_pos, window):
             ("v", v, q.dtype, (b, t, hk, d)),
             ("q_pos", q_pos, torch.int32, (s,)),
             ("k_pos", k_pos, torch.int32, (t,))), q.device)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    padded_head_dim(d)
     if hk == 0 or hq % hk:
         raise ValueError(f"flash_attention: {hq} query heads over {hk} KV "
                          "heads")

@@ -25,7 +25,10 @@ import torch
 from repro.kernels.flash_attention.ops import gqa_attention as j_gqa
 from repro.models import layers as JL
 from repro_torch.kernels import _lib
-from repro_torch.kernels.flash_attention.ops import gqa_attention, uses_decode
+from repro_torch.kernels.flash_attention.ops import (TILE_WIDTHS,
+                                                     gqa_attention,
+                                                     padded_head_dim,
+                                                     uses_decode)
 from repro_torch.kernels.flash_attention.ref import (attention_ref, live_mask,
                                                      rolled_pos_tab,
                                                      split_attention_ref)
@@ -52,6 +55,11 @@ def _qkv(seed, b, s, t, hq, hk, d, dtype=jnp.float32):
     (2, 100, 200, 4, 1, 16, False, None, jnp.float32),
     (1, 1, 384, 8, 4, 64, True, None, jnp.float32),
     (1, 128, 128, 2, 2, 64, True, None, jnp.bfloat16),
+    # head dims the kernels run at a wider tile (padded_head_dim)
+    (2, 100, 100, 8, 1, 8, True, None, jnp.float32),
+    (1, 150, 150, 6, 2, 24, True, 50, jnp.float32),
+    (1, 130, 130, 8, 2, 120, True, None, jnp.float32),
+    (1, 100, 180, 4, 4, 120, False, None, jnp.float32),
 ])
 def test_gqa_attention_matches_pallas_and_ref(b, s, t, hq, hk, d, causal,
                                               win, dtype):
@@ -162,3 +170,18 @@ def test_split_key_decode_algebra_matches_the_reference_layer():
 ])
 def test_dispatch_line_between_decode_and_prefill(s, hq, hk, decode):
     assert uses_decode(s, hq, hk) is decode
+
+
+@pytest.mark.parametrize("d", range(8, 129, 8))
+def test_every_multiple_of_8_up_to_128_is_a_head_dim(d):
+    """The kernels take head dim d at the smallest tile width that holds
+    it."""
+    w = padded_head_dim(d)
+    assert w in TILE_WIDTHS and w >= d
+    assert all(t < d for t in TILE_WIDTHS if t < w)
+
+
+@pytest.mark.parametrize("d", [12, 136, 0, 4, 129])
+def test_other_head_dims_raise_naming_the_head_dim(d):
+    with pytest.raises(ValueError, match=f"head dim {d} "):
+        padded_head_dim(d)

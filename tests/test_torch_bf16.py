@@ -112,6 +112,10 @@ def _bf16(a):
     (2, 100, 200, 4, 1, 16, False, None),
     (1, 1, 384, 8, 4, 64, True, None),
     (1, 128, 128, 2, 2, 64, True, None),
+    # head dims the kernels run at a wider tile (padded_head_dim)
+    (2, 100, 100, 8, 1, 8, True, None),
+    (1, 150, 150, 6, 2, 24, True, 50),
+    (1, 130, 130, 8, 2, 120, True, None),
 ])
 def test_bf16_attention_plain_matches_pallas(b, s, t, hq, hk, d, causal,
                                              win):

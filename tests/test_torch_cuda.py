@@ -45,7 +45,13 @@ and K4's forward in bf16 against their plain versions in bf16, within four
 bf16 ulps of each output row's largest entry (the kernel and the plain
 version sum in other orders and may round P, or y, on either side of a
 boundary), bit-identical over two runs; mixed types, and a bf16 call that
-needs a gradient, raise.
+needs a gradient, raise.  Head dims that are no tile width (8, 24, 120):
+each of K3's five entry points (the f32 prefill with and without its
+log-sum-exp, the f32 split-key decode, the f32 backward, the bf16 prefill
+and the bf16 decode) against the plain version at the tolerances above,
+causal, windowed and non-causal, over caches with empty slots, GQA 4 at
+120, two runs bit-identical; yi-34b's smoke config (head dim 8) and
+h2o-danube-3-4b's at head dim 120 served on the card through K3 alone.
 """
 
 import numpy as np
@@ -339,9 +345,10 @@ def test_attention_kernel_rejects_what_it_does_not_take(dev):
                              k_pos=pos)
     with pytest.raises(ValueError, match="int32"):
         fa_ops.gqa_attention(q, k, v, q_pos=pos.long(), k_pos=pos)
-    q, k, v = _attn_inputs(dev, 1, 8, 8, 2, 2, 48)
-    with pytest.raises(ValueError, match="head dim"):
-        fa_ops.gqa_attention(q, k, v, q_pos=pos, k_pos=pos)
+    for d in (12, 136):  # not a multiple of 8, wider than 128
+        q, k, v = _attn_inputs(dev, 1, 8, 8, 2, 2, d)
+        with pytest.raises(ValueError, match=f"head dim {d} "):
+            fa_ops.gqa_attention(q, k, v, q_pos=pos, k_pos=pos)
 
 
 def _ssd_inputs(dev, b, s, h, p, g, n, seed):
@@ -1055,4 +1062,138 @@ def test_bf16_kernels_raise_on_mixed_types_and_gradients(dev):
     with pytest.raises(NotImplementedError, match="f32"):
         ssd_ops.ssd(x.bfloat16().requires_grad_(), dt, a, bm.bfloat16(),
                     cm.bfloat16(), chunk=16)
+
+
+# ---------------------------------------------------------------------------
+# head dims that are no tile width
+# ---------------------------------------------------------------------------
+
+#: The entry points of K3, each held at head dims 8, 24 and 120.
+K3_ENTRIES = ("prefill", "prefill_lse", "decode", "backward", "bf16_prefill",
+              "bf16_decode")
+
+
+@pytest.mark.parametrize("entry", K3_ENTRIES)
+@pytest.mark.parametrize("d", [8, 24, 120])
+def test_attention_entry_points_at_head_dims_off_the_tile(dev, d, entry):
+    """Each entry point at a head dim the kernels run at a wider tile
+    (``padded_head_dim``): GQA 4 at 120 (danube's 32 over 8), 4 elsewhere
+    (8 over 2); prefills causal with a window and non-causal with S ≠ T,
+    decodes over a rolled cache with empty slots, without and with a
+    window; against the plain version, two runs bit-identical."""
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+    hq, hk = (32, 8) if d == 120 else (8, 2)
+    bf16 = entry.startswith("bf16")
+    if entry.endswith("decode"):
+        k_pos = torch.from_numpy(rolled_pos_tab(300, 40, 339, [3, 70, 71,
+                                                                200])).to(dev)
+        shapes = [(2, 1, 300, None, True, k_pos, torch.tensor(
+            [339], dtype=torch.int32, device=dev))]
+        shapes.append((2, 1, 300, 100, True, k_pos, shapes[0][-1]))
+    else:
+        shapes = [(2, 150, 150, 50, True, None, None),
+                  (1, 100, 160, None, False, None, None)]
+    for b, s, t, win, causal, k_pos, q_pos in shapes:
+        q, k, v = _attn_inputs(dev, b, s, t, hq, hk, d)
+        if bf16:
+            q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        if k_pos is None:
+            q_pos = torch.arange(t - s, t, dtype=torch.int32, device=dev)
+            k_pos = torch.arange(t, dtype=torch.int32, device=dev)
+        pos = dict(q_pos=q_pos, k_pos=k_pos, causal=causal, window=win)
+        if entry == "backward":
+            dout = _attn_inputs(dev, b, s, s, hq, hk, d)[0]
+            got = [_bwd_grads(q, k, v, dout, fa_ops.gqa_attention, **pos)
+                   for _ in range(2)]
+            exp = _bwd_grads(q, k, v, dout, attention_ref, **pos)
+            for g, g2, e in zip(*got, exp):
+                assert torch.equal(g, g2)
+                assert float((g - e).abs().max()) \
+                    <= 1e-4 * float(e.abs().max())
+            continue
+        kind = "decode" if entry.endswith("decode") else "prefill"
+        key = f"flash_attention{'_bf16' if bf16 else ''}_{kind}"
+        before = _lib.LAUNCHES[key]
+        if entry == "prefill_lse":
+            runs = [fa_ops._prefill(q, k, v, **pos) for _ in range(2)]
+            assert torch.equal(runs[0][1], runs[1][1])
+            torch.testing.assert_close(runs[0][1], attention_lse_ref(
+                q, k, **pos), atol=2e-5, rtol=2e-5)
+            assert torch.equal(runs[0][0], fa_ops.flash_attention_cuda(
+                q, k, v, **pos))
+            runs = [r[0] for r in runs]
+        else:
+            runs = [fa_ops.gqa_attention(q, k, v, **pos) for _ in range(2)]
+            assert _lib.LAUNCHES[key] == before + 2
+        assert torch.equal(*runs)
+        exp = attention_ref(q, k, v, **pos)
+        if bf16:
+            _assert_bf16_rows_close(runs[0], exp)
+        else:
+            torch.testing.assert_close(runs[0], exp, atol=2e-5, rtol=2e-5)
+
+
+def _serve_smoke_twice(cfg, arch, monkeypatch):
+    """``launch.serve.main`` on ``cfg`` on the card, twice: the requests'
+    tokens, and K3's launches, with the plain attention refused."""
+    from repro_torch.launch import serve
+
+    def refuse(*a, **kw):
+        raise AssertionError("attention reached its plain version")
+    monkeypatch.setattr(fa_ops, "attention_ref", refuse)
+    argv = ["--arch", arch, "--smoke", "--requests", "5", "--prompt-len",
+            "40", "--max-new", "4", "--device", "cuda:0"]
+    runs = []
+    for _ in range(2):
+        _lib.reset_launches()
+        done, stats = serve.main(argv, cfg=cfg)
+        runs.append([r.out_tokens for r in done])
+        assert stats["tokens"] == 20
+        assert _lib.LAUNCHES["flash_attention_prefill"] == 2 * cfg.n_layers
+        assert _lib.LAUNCHES["flash_attention_decode"] \
+            == 2 * 4 * cfg.n_layers
+    assert runs[0] == runs[1]
+    assert all(0 <= t < cfg.vocab for r in runs[0] for t in r)
+
+
+def test_yi_34b_smoke_serves_at_head_dim_8(dev, monkeypatch):
+    """yi-34b's smoke config (d 64 over 8 heads: head dim 8, GQA 8) served
+    on the card through K3 alone, twice with equal tokens."""
+    from repro_torch.configs import get_config
+    cfg = get_config("yi-34b", smoke=True)
+    assert cfg.d_model // cfg.n_heads == 8
+    _serve_smoke_twice(cfg, "yi-34b", monkeypatch)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_danube_smoke_serves_at_head_dim_120(dev, dtype, monkeypatch):
+    """h2o-danube-3-4b's smoke config widened to d 480 over its 4 heads
+    (head dim 120, danube's own, GQA 2, window 16) served on the card
+    through K3 alone: by the launcher in f32, twice with equal tokens, and
+    by ``ServeEngine`` in bf16, only bf16 launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b", smoke=True),
+                              d_model=480)
+    assert cfg.d_model // cfg.n_heads == 120
+    if dtype == torch.float32:
+        _serve_smoke_twice(cfg, "h2o-danube-3-4b", monkeypatch)
+        return
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16)
+    engine = ServeEngine(cfg, model, EngineConfig(
+        batch=4, cache_len=64, dtype=torch.bfloat16, device=dev))
+    for req in serve.make_requests(cfg, 5, 40, 4, 0):
+        engine.submit(req)
+    _lib.reset_launches()
+    done = engine.run()
+    assert [len(r.out_tokens) for r in done] == [4] * 5
+    assert _lib.LAUNCHES["flash_attention_bf16_prefill"] == 2 * cfg.n_layers
+    assert _lib.LAUNCHES["flash_attention_bf16_decode"] \
+        == 2 * 4 * cfg.n_layers
+    assert _lib.LAUNCHES["flash_attention"] == 0
 

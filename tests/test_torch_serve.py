@@ -147,10 +147,12 @@ def test_serve_main_serves_a_depth_cut():
 #: (1.54 G draws).  whisper-large-v3 keeps 4 of its 32 encoder and 4 of
 #: its 32 decoder layers: each decode step re-projects the 1,500 frames'
 #: K/V in every decoder layer, which the reference's CPU run cannot afford
-#: at full depth; its frames are :func:`pin_frames`.
+#: at full depth; its frames are :func:`pin_frames`.  h2o-danube-3-4b keeps
+#: 2 of its 24 layers (0.56 G parameters: its embedding and head are a
+#: quarter of a billion).
 PIN_RUNS = (("smollm-135m", None, 48, 16), ("mamba2-1.3b", 4, 48, 16),
             ("mixtral-8x7b", 2, 48, 16), ("qwen2-vl-2b", None, 48, 16),
-            ("whisper-large-v3", 4, 48, 16))
+            ("whisper-large-v3", 4, 48, 16), ("h2o-danube-3-4b", 2, 48, 16))
 PIN_SEED, PIN_PROMPT_SEED, PIN_FRAME_SEED = 0, 4, 5
 
 
@@ -237,9 +239,17 @@ def reference_pin(arch, n_layers, prompt_len, n_new):
 
 #: The bf16 pins of ``chip_smoke.py`` (``BF16_PINS``): (arch, layers kept
 #: or None, prompt length, steps).  yi-34b keeps 2 of its 60 layers at full
-#: width (2.03 G parameters) to spare this machine's CPU.
+#: width (2.03 G parameters) to spare this machine's CPU, h2o-danube-3-4b 2
+#: of its 24.
 BF16_PIN_RUNS = (("smollm-135m", None, 48, 8), ("mamba2-1.3b", 4, 48, 8),
-                 ("yi-34b", 2, 48, 8))
+                 ("yi-34b", 2, 48, 8), ("h2o-danube-3-4b", 2, 48, 8))
+
+
+def selected_pin_runs(argv):
+    """The (f32, bf16) pin runs that ``python tests/test_torch_serve.py
+    [ARCH]`` prints: all of them, or ARCH's alone."""
+    return ([run for run in PIN_RUNS if argv in ([], [run[0]])],
+            [run for run in BF16_PIN_RUNS if argv in ([], [run[0]])])
 
 
 def reference_bf16_pin(arch, n_layers, prompt_len, n_steps):
@@ -277,13 +287,48 @@ def reference_bf16_pin(arch, n_layers, prompt_len, n_steps):
             "top5_ids": ids, "top5_logits": vals, "margins": margins}
 
 
+@pytest.mark.parametrize("argv,f32,bf16", [
+    (["h2o-danube-3-4b"], [("h2o-danube-3-4b", 2, 48, 16)],
+     [("h2o-danube-3-4b", 2, 48, 8)]),
+    (["yi-34b"], [], [("yi-34b", 2, 48, 8)]),
+    ([], list(PIN_RUNS), list(BF16_PIN_RUNS))])
+def test_pin_script_prints_the_named_runs(argv, f32, bf16):
+    """``python tests/test_torch_serve.py [ARCH]`` prints ARCH's pins (f32
+    and bf16, h2o-danube-3-4b at full width with 2 of its 24 layers), or
+    every pin."""
+    assert selected_pin_runs(argv) == (f32, bf16)
+
+
+def test_chip_smoke_holds_every_pin_run():
+    """``chip_smoke.py``'s ``PINS`` and ``BF16_PINS`` hold one pin of each
+    run here, at its depth, prompt length and number of steps."""
+    import importlib
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    try:
+        cs = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.pop(0)
+    pins = {p["arch"]: p for p in cs.PINS}
+    assert sorted(pins) == sorted(run[0] for run in PIN_RUNS)
+    for arch, n_layers, _, n_new in PIN_RUNS:
+        assert pins[arch]["n_layers"] == pin_config(arch, n_layers).n_layers
+        assert [len(t) for t in pins[arch]["tokens"]] == [n_new, n_new]
+    pins = {p["arch"]: p for p in cs.BF16_PINS}
+    assert sorted(pins) == sorted(run[0] for run in BF16_PIN_RUNS)
+    for arch, n_layers, prompt_len, steps in BF16_PIN_RUNS:
+        pin = pins[arch]
+        assert pin["n_layers"] == pin_config(arch, n_layers).n_layers
+        assert pin["prompt_len"] == prompt_len
+        assert len(pin["top5_ids"]) == len(pin["margins"]) == steps
+
+
 if __name__ == "__main__":
     # ``python tests/test_torch_serve.py ARCH`` prints ARCH's pins alone
     # (f32, then bf16)
-    for run in PIN_RUNS:
-        if sys.argv[1:] in ([], [run[0]]):
-            print(json.dumps(reference_pin(*run)), flush=True)
-    for run in BF16_PIN_RUNS:
-        if sys.argv[1:] in ([], [run[0]]):
-            print(json.dumps(reference_bf16_pin(*run)), flush=True)
+    f32_runs, bf16_runs = selected_pin_runs(sys.argv[1:])
+    for run in f32_runs:
+        print(json.dumps(reference_pin(*run)), flush=True)
+    for run in bf16_runs:
+        print(json.dumps(reference_bf16_pin(*run)), flush=True)
     sys.exit(0)
