@@ -5,8 +5,10 @@
 
 1. builds every CUDA source in ``src/repro_torch/csrc`` (one ``nvcc`` each,
    started together) into ``build/``, and counts the tensor-core
-   instructions of the bf16 prefill kernel in ``cuobjdump -sass``: every
-   tile width must have ``HGMMA`` (wgmma) and no ``HMMA`` (mma.sync);
+   instructions of K3's kernels in ``cuobjdump -sass`` at every tile
+   width: the bf16 prefill must have ``HGMMA`` (wgmma) and no ``HMMA``
+   (mma.sync), the bf16 decode ``HMMA``, the backward's dK/dV and dQ
+   kernels ``HMMA`` on TF32 alone (3xTF32);
 2. holds each kernel against its plain torch version on the card: the
    Fail-Slow Sketch insert (random run streams, forced eviction, the
    promotion/steal branches, a per-record stream, a carried state, two
@@ -49,7 +51,8 @@
    mixture-of-experts layer at mixtral-8x7b's and at
    dbrx-132b's full width (4 × 512 tokens; outputs, aux and routing) must
    be bit-identical; and K3's bf16 entry points (every shape above in
-   bf16, and yi-34b's GQA 7 prefill and decode) and K4's bf16 entry (the
+   bf16, yi-34b's GQA 7 prefill and decode, and three edges of the
+   decode's splits) and K4's bf16 entry (the
    SSD shapes, x, b and c in bf16) against their plain versions in bf16,
    within 4 bf16 ulps of each output row's largest entry, each run twice
    and bit-identical;
@@ -125,7 +128,8 @@
    and yi-34b's prefill and decode, whisper-large-v3's non-causal shapes)
    and K4's
    (mamba2-1.3b's prefill) beside their plain versions, bounds (bf16
-   tensor-core rate for the prefill) and SDPA in bf16; serves yi-34b
+   tensor-core rate for the prefill) and SDPA in bf16, each bf16 decode
+   one device kernel a call; serves yi-34b
    (60 layers, 68.8 GB of bf16 weights), smollm-135m, mamba2-1.3b and
    h2o-danube-3-4b whole through
    ``ServeEngine(EngineConfig(dtype=torch.bfloat16))`` on
@@ -137,7 +141,8 @@
    (``BF16_PINS``) teacher-forced, near ties printed;
 10. times K3's backward at smollm-135m's training shape and at
    whisper-large-v3's encoder and cross-attention shapes beside its plain
-   mirror, its bound and SDPA's backward through autograd, and K4's
+   mirror, its bounds (f32 on CUDA cores and 3xTF32 on tensor cores)
+   and SDPA's backward through autograd, and K4's
    backward at mamba2-1.3b's (x [4,512,64,64], chunk 128) beside its plain
    mirror, autograd through the plain scan, its bound and the forward;
 11. drives the train path, ``repro_torch.launch.train.main``, first on
@@ -192,11 +197,17 @@ times only K2's loops (step 4's last phase) for the port in ``SRC``, for
 example an earlier tree's ``src`` unpacked by ``git archive``, whose
 ``failrank_dense`` launched one step at a time.
 
-    python3 chip_smoke.py --k3-digest SRC
+    python3 chip_smoke.py --k3-digest SRC [SAVE.npz]
 
 prints digests of K3's f32 outputs (prefill, log-sum-exp, decode,
 backward) at head dims 16, 32, 64 and 128 for the port in ``SRC``: two
-trees that give the same line compute the same bits.
+trees that give the same line compute the same bits.  With ``SAVE.npz``
+it keeps the outputs, and
+
+    python3 chip_smoke.py --k3-compare A.npz B.npz
+
+prints, for each output of two such files, whether they are bit-equal and
+their largest gap over the largest entry (no card needed).
 
     python3 chip_smoke.py --k3-ablations
 
@@ -226,6 +237,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+#: f32 products as 3xTF32 on tensor cores: three TF32 products (495
+#: TFLOP/s dense) a product.
+TF32X3_FLOP_PER_S = 495e12 / 3
 
 #: Verdicts of the JAX reference (``repro``, recorder_impl="batched", seed 0,
 #: t0=1 s, duration 8 s, slowdown 10×): (flagged, kind, location,
@@ -1791,6 +1805,9 @@ KERNEL_TIME_KEYS = ("ms", "plain_ms", "library_ms", "events_ms",
 #: And of an attention forward's (:func:`time_attention`).
 ATTN_TIME_KEYS = KERNEL_TIME_KEYS + ("library_is", "library_masked_ms")
 
+#: And of an attention backward's (:func:`time_attention_bwd`).
+BWD_TIME_KEYS = KERNEL_TIME_KEYS + ("bound_3xtf32_ms", "kernels_per_call")
+
 
 def time_attention(q, k, v, q_pos, k_pos, reps, window=None, causal=True):
     """Kernel, plain version and SDPA on one case, in q's type (SDPA too).
@@ -2128,7 +2145,8 @@ def bf16_rows_gap(got, exp):
 def bf16_attention_cases(dev):
     """Every :func:`attention_cases` case in bf16, then yi-34b's serving
     shapes: its 4 × 512 prefill (GQA 7, head dim 128) and its last decode
-    step over the serve run's 1,024-slot fill."""
+    step over the serve run's 1,024-slot fill; then three edges of the
+    bf16 decode's splits."""
     import torch
     cases = [(label, q.bfloat16(), k.bfloat16(), v.bfloat16(), qp, kp,
               causal, win)
@@ -2148,6 +2166,20 @@ def bf16_attention_cases(dev):
                   rand(4, 1024, hk, 128),
                   torch.tensor([543], dtype=torch.int32, device=dev),
                   serve_fill_tab(dev), True, None))
+    # the decode's edges: T one past a split's end (the splits follow the
+    # shapes), one live key, every split dead but one
+    from repro_torch.kernels.flash_attention.ref import rolled_pos_tab
+    for label, b, hq, hk, d, tab_args in (
+            ("decode, 513 slots", 2, 8, 2, 64, (513, 0, 512)),
+            ("decode, one live key", 2, 8, 1, 32, (512, 300, 300)),
+            ("decode, every split dead but one", 2, 7, 1, 16,
+             (512, 200, 230))):
+        t, last = tab_args[0], tab_args[2]
+        cases.append((label, rand(b, 1, hq, d), rand(b, t, hk, d),
+                      rand(b, t, hk, d),
+                      torch.tensor([last], dtype=torch.int32, device=dev),
+                      torch.from_numpy(rolled_pos_tab(*tab_args)).to(dev),
+                      True, None))
     return cases
 
 
@@ -2227,29 +2259,56 @@ def check_ssd_bf16(dev, lib):
     return out, worst_ulps, worst
 
 
+#: K3's kernels on tensor cores, whose SASS the build phase reads: the bf16
+#: prefill (wgmma), the bf16 decode (mma.sync, bf16) and the backward's
+#: dK/dV and dQ kernels (mma.sync m16n8k8 on TF32, three a product).
+TENSOR_CORE_KERNELS = ("flash_prefill_bf16_hopper_kernel",
+                       "flash_decode_bf16_kernel", "flash_bwd_dkdv_kernel",
+                       "flash_bwd_dq_kernel")
+
+
 def sass_tensor_core_counts(lib) -> dict:
-    """Tensor-core instructions in the SASS of each instantiation of the
-    bf16 prefill kernel, by tile width: ``HGMMA`` (Hopper's warpgroup
-    products, wgmma) and ``HMMA`` (the warp-level mma.sync of earlier
-    cards), from ``cuobjdump -sass`` of the built library."""
+    """Tensor-core instructions in the SASS of each instantiation of
+    ``TENSOR_CORE_KERNELS``, by kernel and tile width: ``HGMMA`` (Hopper's
+    warpgroup products, wgmma), ``HMMA`` (the warp-level mma.sync of
+    earlier cards) and, of those, ``HMMA_TF32`` (on TF32 operands), from
+    ``cuobjdump -sass`` of the built library."""
     from torch.utils.cpp_extension import CUDA_HOME
     text = subprocess.run(
         [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass",
          str(lib._target("flash_attention"))], capture_output=True,
         text=True, timeout=300, check=True).stdout
+    pattern = re.compile(rf"({'|'.join(TENSOR_CORE_KERNELS)})ILi(\d+)E")
     counts, fn = {}, None
     for line in text.splitlines():
         if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            m = re.search(r"flash_prefill_bf16_hopper_kernelILi(\d+)E",
-                          name)
-            fn = f"DP={m.group(1)}" if m else None
+            m = pattern.search(line.split("Function :")[1])
+            fn = f"{m.group(1)} DP={m.group(2)}" if m else None
             if fn:
-                counts.setdefault(fn, {"HGMMA": 0, "HMMA": 0})
+                counts.setdefault(fn, {"HGMMA": 0, "HMMA": 0, "HMMA_TF32": 0})
         elif fn:
             for op in ("HGMMA", "HMMA"):
                 counts[fn][op] += f" {op}." in line or f" {op} " in line
+            counts[fn]["HMMA_TF32"] += " HMMA." in line and ".TF32" in line
     return counts
+
+
+def check_tensor_core_sass(sass) -> None:
+    """Every tile width of each kernel built; the bf16 prefill on wgmma
+    alone, the bf16 decode on mma.sync, the backward on mma.sync over TF32
+    operands."""
+    want = {f"{k} DP={dp}" for k in TENSOR_CORE_KERNELS
+            for dp in (16, 32, 64, 128)}
+    require(set(sass) == want,
+            f"tensor-core kernels in the SASS: {sorted(sass)}")
+    for fn, c in sass.items():
+        if fn.startswith("flash_prefill_bf16_hopper_kernel"):
+            ok = c["HGMMA"] > 0 and c["HMMA"] == 0
+        elif fn.startswith("flash_decode_bf16_kernel"):
+            ok = c["HMMA"] > 0 and c["HGMMA"] == 0 and c["HMMA_TF32"] == 0
+        else:
+            ok = c["HMMA"] > 0 and c["HMMA_TF32"] == c["HMMA"]
+        require(ok, f"{fn} is not on its tensor-core instructions: {c}")
 
 
 def serve_bf16_run(arch, dev, lib):
@@ -2699,7 +2758,9 @@ def time_attention_bwd(dev, reps, b=4, s=512, t=512, hq=9, hk=3, d=64,
     ``t`` positions): the kernel, the plain mirror (``attention_bwd_ref``)
     and SDPA's backward through autograd.  Bound: 10·D f32 operations per
     live pair (S, dP, dV, dS·K, dSᵀ·Q), or the bytes of q, k, v, out, dout,
-    lse read once and dq, dk, dv written once."""
+    lse read once and dq, dk, dv written once; the operations at the f32
+    rate of CUDA cores (``bound_ms``) and at 3xTF32's on tensor cores
+    (``bound_3xtf32_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -2741,9 +2802,13 @@ def time_attention_bwd(dev, reps, b=4, s=512, t=512, hq=9, hk=3, d=64,
     nbytes = 4 * (3 * q.numel() + 2 * 2 * k.numel() + lse.numel()
                   + q.numel() + q_pos.numel() + k_pos.numel())
     flops = 10 * d * b * hq * live
+    breakdown = launch_breakdown(kernel, reps)
     return {**times(kernel, plain, library, reps), **bound(nbytes, flops),
+            "bound_3xtf32_ms": bound(nbytes, flops,
+                                     TF32X3_FLOP_PER_S)["bound_ms"],
             "live_pairs_per_head": live,
-            "kernel_breakdown_ms": launch_breakdown(kernel, reps),
+            "kernel_breakdown_ms": breakdown,
+            "kernels_per_call": len(breakdown) or None,  # None: no record
             "max_abs_err": max(g for g, _ in gaps),
             "max_rel_err_vs_plain": max(g / m for g, m in gaps),
             "forward_with_lse_ms": fwd_lse["ms"],
@@ -3482,12 +3547,14 @@ K3_DIGEST_CASES = tuple(
         ("decode", (2, 1, 300, 8, 2), True, None)))
 
 
-def k3_digest_main(src: str) -> int:
-    """``--k3-digest SRC``: the port in ``SRC`` (this tree's ``src`` or an
-    earlier tree's, e.g. unpacked by ``git archive``) runs K3's f32
+def k3_digest_main(src: str, save: str | None = None) -> int:
+    """``--k3-digest SRC [SAVE]``: the port in ``SRC`` (this tree's ``src``
+    or an earlier tree's, e.g. unpacked by ``git archive``) runs K3's f32
     prefill (with its log-sum-exp), split-key decode and backward on
     seeded inputs at ``K3_DIGEST_CASES``; one JSON line of sha-256 digests
-    of the outputs' bytes, to compare two trees bit for bit."""
+    of the outputs' bytes, to compare two trees bit for bit.  With
+    ``SAVE``, the outputs also go to that ``.npz`` file, for
+    ``--k3-compare``."""
     import hashlib
 
     import torch
@@ -3501,10 +3568,14 @@ def k3_digest_main(src: str) -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    def digest(*xs):
+    arrays = {}
+
+    def digest(*xs, label=None):
         h = hashlib.sha256()
-        for x in xs:
-            h.update(x.detach().cpu().numpy().tobytes())
+        for i, x in enumerate(xs):
+            a = x.detach().cpu().numpy()
+            h.update(a.tobytes())
+            arrays[f"{label} #{i}"] = a
         return h.hexdigest()[:16]
     out = {}
     for i, (label, b, s, t, hq, hk, d, causal, win) in enumerate(
@@ -3516,14 +3587,37 @@ def k3_digest_main(src: str) -> int:
         q_pos = torch.arange(t - s, t, dtype=torch.int32, device=dev)
         k_pos = torch.arange(t, dtype=torch.int32, device=dev)
         pos = dict(q_pos=q_pos, k_pos=k_pos, causal=causal, window=win)
-        out[label] = digest(ops.flash_attention_cuda(q, k, v, **pos))
+        out[label] = digest(ops.flash_attention_cuda(q, k, v, **pos),
+                            label=label)
         if s > 1:
             o, lse = ops._prefill(q, k, v, **pos)
-            out[f"{label} lse"] = digest(o, lse)
+            out[f"{label} lse"] = digest(o, lse, label=f"{label} lse")
             grads = ops.flash_attention_bwd_cuda(q, k, v, o, dout, lse, **pos)
-            out[f"{label} backward"] = digest(*grads)
+            out[f"{label} backward"] = digest(*grads,
+                                              label=f"{label} backward")
+    if save:
+        np.savez(save, **arrays)
     emit({"phase": "k3_digest", "src": src, "module": _lib.__file__,
           "digests": out})
+    return 0
+
+
+def k3_compare_main(a: str, b: str) -> int:
+    """``--k3-compare A B``: two ``.npz`` files that ``--k3-digest`` saved
+    (for example the parent's and this tree's); one JSON line with, per
+    output, whether the two are bit-equal and their largest gap over the
+    largest |entry| of ``A``."""
+    fa, fb = np.load(a), np.load(b)
+    res = {}
+    for key in fa.files:
+        x, y = fa[key], fb[key]
+        both = np.isfinite(x) & np.isfinite(y)  # -inf: a row with no key
+        gap = np.where(both, np.abs(np.where(both, x, 0.0).astype(np.float64)
+                                    - np.where(both, y, 0.0)), 0.0)
+        top = float(np.abs(np.where(np.isfinite(x), x, 0.0)).max())
+        res[key] = {"equal": bool(np.array_equal(x, y)),
+                    "max_gap_over_max": float(gap.max()) / max(top, 1e-30)}
+    emit({"phase": "k3_compare", "a": a, "b": b, "outputs": res})
     return 0
 
 
@@ -3683,15 +3777,12 @@ def main() -> int:
     sass = sass_tensor_core_counts(lib)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "per_source": secs,
-          "bf16_prefill_sass": sass,
+          "tensor_core_sass": sass,
           "ptxas": {n: [ln.strip() for ln in lib.build_log(n).splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n in secs}})
-    print(f"bf16 prefill SASS tensor-core instructions {sass}", flush=True)
-    require(sorted(sass) == ["DP=128", "DP=16", "DP=32", "DP=64"]
-            and all(c["HGMMA"] > 0 and c["HMMA"] == 0
-                    for c in sass.values()),
-            f"the bf16 prefill kernel is not on wgmma alone: {sass}")
+    print(f"K3 SASS tensor-core instructions {sass}", flush=True)
+    check_tensor_core_sass(sass)
 
     # ---- 2. kernels against their plain versions -------------------------
     emit({"phase": "sketch_kernel_vs_plain", "cases": check_sketch_kernel(dev)})
@@ -3918,7 +4009,8 @@ def main() -> int:
             reps=10 if s > 1 else 50, causal=False)
         for label, s, q0 in WHISPER_ATTENTION}
     k4 = time_ssd(dev, reps=10)
-    emit({"phase": "serving_kernel_times", "flash_attention_prefill": k3,
+    emit({"phase": "serving_kernel_times", "card": card,
+          "flash_attention_prefill": k3,
           "flash_attention_decode": k3_dec, "ssd_scan_prefill": k4,
           **{f"flash_attention_{key}": t for key, t in k3_128.items()},
           **{f"flash_attention_{key}": t for key, t in k3_whisper.items()}})
@@ -3927,9 +4019,15 @@ def main() -> int:
 
     # ---- 9b. bf16 serving: K3 and K4 in bf16, yi-34b whole, pins ----------
     k3_bf16, k4_bf16 = time_bf16_kernels(dev)
-    emit({"phase": "serving_kernel_times_bf16",
+    emit({"phase": "serving_kernel_times_bf16", "card": card,
           **{f"flash_attention_bf16_{key}": t for key, t in k3_bf16.items()},
           "ssd_scan_bf16_prefill": k4_bf16})
+    for key, t in k3_bf16.items():
+        if key.endswith("decode"):  # one launch: a cluster per KV head
+            names = list(t["kernel_breakdown_ms"])
+            require(len(names) <= 1 and all(
+                n.startswith("void flash_decode_bf16_kernel<")
+                for n in names), f"bf16 decode {key}: kernels {names}")
     bf16_launches = {}
     for arch in SERVE_BF16_RUNS:
         bf16_launches[arch], _ = serve_bf16_run(arch, dev, lib)
@@ -3944,7 +4042,8 @@ def main() -> int:
         "whisper_cross": time_attention_bwd(
             dev, 10, 4, 512, WHISPER_FRAMES, 20, 20, 64, False)}
     k4_bwd = time_ssd_bwd(dev, reps=10)
-    emit({"phase": "train_kernel_times", "flash_attention_bwd": k3_bwd,
+    emit({"phase": "train_kernel_times", "card": card,
+          "flash_attention_bwd": k3_bwd,
           **{f"flash_attention_bwd_{key}": t
              for key, t in k3_bwd_whisper.items()},
           "ssd_scan_bwd": k4_bwd})
@@ -4046,10 +4145,11 @@ def main() -> int:
          "max_rel_err": max(k3_bwd_rel, k3_bwd["max_rel_err_vs_plain"],
                             *(t["max_rel_err_vs_plain"]
                               for t in k3_bwd_whisper.values())),
-         **{k: k3_bwd[k] for k in KERNEL_TIME_KEYS}, "plain_device": "cuda",
-         **{key: {k: t[k] for k in KERNEL_TIME_KEYS}
+         **{k: k3_bwd[k] for k in BWD_TIME_KEYS}, "plain_device": "cuda",
+         **{key: {k: t[k] for k in BWD_TIME_KEYS}
             | {"live_pairs_per_head": t["live_pairs_per_head"]}
             for key, t in k3_bwd_whisper.items()},
+         "sass": {fn: c for fn, c in sass.items() if "_bwd_" in fn},
          "plain_is": "attention_bwd_ref (the kernel's algebra in torch)",
          "library_is": "SDPA's backward through autograd",
          "shape": "smollm-135m train, q [4,512,9,64], kv [4,512,3,64], "
@@ -4069,7 +4169,10 @@ def main() -> int:
                                        for t in k3_bf16.values())),
          "max_ulps": k3b_ulps, "pin_max_ulps": bf16_pin_ulps,
          **{k: k3_bf16["yi-34b_prefill"][k] for k in ATTN_TIME_KEYS},
-         "plain_device": "cuda", "sass": sass,
+         "plain_device": "cuda",
+         "sass": {fn: c for fn, c in sass.items() if "_bwd_" not in fn},
+         "kernels_per_call": {key: len(t["kernel_breakdown_ms"]) or None
+                              for key, t in k3_bf16.items()},
          "shape": "yi-34b prefill, q [4,512,56,128], kv [4,512,8,128], "
                   "causal, one layer, bf16 (tensor cores)",
          **{key: {k: t[k] for k in ATTN_TIME_KEYS}
@@ -4119,7 +4222,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--failrank-loops"]:
         sys.exit(failrank_loops_main(sys.argv[2]))
     if sys.argv[1:2] == ["--k3-digest"]:
-        sys.exit(k3_digest_main(sys.argv[2]))
+        sys.exit(k3_digest_main(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--k3-compare"]:
+        sys.exit(k3_compare_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--k3-ablations"]:
         sys.exit(k3_ablations_main())
     sys.exit(main())

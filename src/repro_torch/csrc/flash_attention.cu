@@ -48,9 +48,11 @@
 // is fixed, so the order of every sum depends on the shapes only: no
 // atomics, two runs are bit-identical.
 //
-// f32 products on CUDA cores, built with FMA contraction; the result
-// matches the plain version to about 1e-6.  No tensor cores: in f32 they
-// mean TF32, which cannot hold 2e-5.
+// f32 forward products on CUDA cores, built with FMA contraction; the
+// result matches the plain version to about 1e-6.  No single TF32 product
+// anywhere: TF32 cannot hold 2e-5.  The backward's products run on tensor
+// cores as 3xTF32, three TF32 products that together keep f32's accuracy
+// (below, at the backward).
 //
 // Head dims: every entry point takes each D that is a multiple of 8 from 8
 // to 128.  The kernels are built for tile widths DP = 16, 32, 64 and 128
@@ -98,18 +100,36 @@
 // At whisper's shapes the kernel is held by the K/V that every 128-row
 // query tile reads again through L2, not by its products (PERF.md).
 //
-// Decode bf16: the f32 decode's split-key design (bound by bytes: the live
-// K/V read once, half the bytes of an f32 cache), reading K/V and q as bf16
-// by cp.async; scores, partials and the merge in f32 on CUDA cores, p
-// rounded to bf16 before it multiplies V, the merged row written in bf16.
-// The merge is the f32 path's, in split order: two runs are bit-identical.
+// Decode bf16 (flash_decode_bf16_kernel): bound by bytes, the live K/V
+// read once (yi-34b's last serve step: 8.9 MB, 2.7 us at 3.35 TB/s), in
+// one launch; at these sizes each block's chain of dependent steps, not
+// the bytes, sets the time (PERF.md).  A cluster of n_split blocks per
+// (KV head, batch), each block a split of contiguous keys (n_split and the
+// split length from the shapes and the card's multiprocessor count:
+// ops.decode_splits).  A block marks its live key tiles of 64 in one pass
+// over the positions, puts the first 2 or 3 in flight by cp.async (K, V
+// and their positions) and refills each stage as its tile is consumed;
+// dead tiles are never loaded.  Its four warps take 16 keys of each tile
+// apiece: S = Q.K^T and O += P.V on tensor cores (mma.sync m16n8k16,
+// ldmatrix; the R <= 16 query rows of the KV group as M, zero rows past
+// R, f32 accumulators), the online softmax of the TPU kernel's bf16
+// algebra in registers (f32 scores and sums, P rounded to bf16 from the
+// accumulators into the A operand).  The block merges its warps' (m, l, O)
+// in order into shared memory, for the R live rows; after a cluster
+// barrier every block turns the splits' (m, l) into per-row weights and
+// writes a share of the output, each element the splits' O in split order
+// through distributed shared memory, rounded once to bf16.  No atomics:
+// two runs are bit-identical.
 
 #include <climits>
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 #define FULL 0xffffffffu
 #define BQ 64          // prefill: query rows per block
@@ -557,17 +577,11 @@ __global__ void __launch_bounds__(DT) flash_decode_partial_kernel(
   }
 }
 
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 // One warp per output row ((b * S + s) * Hq + h): merge the splits in
-// index order; the row is rounded to O once.
-template <class O>
+// index order.
 __global__ void __launch_bounds__(DT) flash_decode_combine_kernel(
     const float* __restrict__ part_m, const float* __restrict__ part_l,
-    const float* __restrict__ part_acc, O* __restrict__ out, int rows,
+    const float* __restrict__ part_acc, float* __restrict__ out, int rows,
     int n_split, int D) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (DT / 32) + (threadIdx.x >> 5);
@@ -595,13 +609,13 @@ __global__ void __launch_bounds__(DT) flash_decode_combine_kernel(
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int d = lane + 32 * e;
-    if (d < D) store_out(out + (size_t)row * D + d, acc[e] * inv);
+    if (d < D) out[(size_t)row * D + d] = acc[e] * inv;
   }
 }
 
 // ---------------------------------------------------------------------------
 // backward: D = rowsum(dO o O), then dK/dV and dQ from P recomputed with the
-// forward's log-sum-exp
+// forward's log-sum-exp, every product on tensor cores in 3xTF32
 // ---------------------------------------------------------------------------
 //
 // With s_ij = q_i . k_j / sqrt(D) over the live pairs and lse_i the
@@ -614,37 +628,33 @@ __global__ void __launch_bounds__(DT) flash_decode_combine_kernel(
 //   dK_j  = sum_i dS_ij q_i / sqrt(D)   (summed over the group's query heads)
 // Launches: one warp per row for D; one block per (batch, query head, key
 // tile of 64) for that head's share of dK and dV, looping in index order
-// over the query tiles that hold a live pair (a block per query head, not
-// per KV head, so that a causal prefill's longest blocks are a group's
-// length shorter and three times as many blocks fill the card); with
-// grouped heads, a pass that adds each group's shares in head order; one
-// block per (batch, query head, query tile of 64) for dQ, looping over the
-// key tiles that hold a live pair.  Every sum runs in an order fixed by
-// the shapes: no atomics, two runs are bit-identical.  Bound by
-// operations, 10 * D f32 operations per live pair (S, dP, dV, dS.K,
-// dS^T.Q); a simple design on CUDA cores, one stage of cp.async, no tensor
-// cores.
-
-// The DP/8 output columns out_col(tx, e) of one shared-memory row, as
-// float4 loads where DP >= 32.
-template <int DP>
-__device__ __forceinline__ void load_cols(const float* row, int tx,
-                                          float* out) {
-  if constexpr (DP >= 32) {
-#pragma unroll
-    for (int e = 0; e < DP / 8; e += 4) {
-      const float4 t =
-          *reinterpret_cast<const float4*>(row + (e >> 2) * 32 + tx * 4);
-      out[e] = t.x;
-      out[e + 1] = t.y;
-      out[e + 2] = t.z;
-      out[e + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < DP / 8; ++e) out[e] = row[out_col<DP>(tx, e)];
-  }
-}
+// over the query tiles of 32 that hold a live pair; with grouped heads, a
+// pass that adds each group's shares in head order; one block per (batch,
+// query head, query tile of 64) for dQ, looping over the key tiles of 32
+// that hold a live pair.  Every sum runs in an order fixed by the shapes:
+// no atomics, two runs are bit-identical.
+//
+// Bound by operations: 10 * D per live pair (S, dP, dV, dS.K, dS^T.Q);
+// the dQ pass computes S and dP again, 14 * D in all.  On CUDA cores f32
+// runs at 67 TFLOP/s; the five products run instead on the tensor cores as
+// 3xTF32 (mma.sync m16n8k8): each f32 operand x is split into a TF32 part
+// hi = x with its low 13 mantissa bits cleared and lo = x - hi (exact), of
+// which the tensor core takes the TF32 part, and a.b is taken as
+// a_lo.b_hi + a_hi.b_lo + a_hi.b_hi with f32 accumulators.  The dropped
+// lo.lo term and lo's own cut come to a few parts in 2^20 of each
+// product, so the gradients stay within 1e-4 of each one's largest entry
+// of the f32 algebra (a single TF32 product, 2^-11, would not).  Each of the four
+// warps of a block owns 16 rows of the products' M (keys in the dK/dV
+// pass, queries in the dQ pass); the streamed tiles (Q and dO with their
+// rows' lse, D and positions, or K and V with their positions) arrive by
+// cp.async in a ring of 3 stages, the next two in flight while one
+// computes.  A block first marks, in one pass over the positions, which
+// streamed tiles hold a live pair, so that no global read waits on the
+// way from one tile to the next.  P and dS go from the accumulator layout
+// to the A operand's through 16 x 32 floats of the warp's own shared
+// memory.  Tiles are f32 rows of DP + 4 floats, so that the fragment
+// loads along D fall on distinct banks (those along the streamed rows, two
+// to a bank).
 
 // One warp per row ((b * S + i) * Hq + h): delta[(b * Hq + h) * S + i].
 __global__ void __launch_bounds__(DT) flash_bwd_dot_kernel(
@@ -665,13 +675,112 @@ __global__ void __launch_bounds__(DT) flash_bwd_dot_kernel(
   }
 }
 
+#define BC 32        // backward: streamed tile rows (queries or keys)
+#define BSTAGES 3    // backward: ring depth
+#define SC (BC + 4)  // row stride of a warp's P / dS scratch
+
+// x as TF32 hi + lo: hi is x with its low 13 mantissa bits clear, lo is
+// x - hi (exact), of which the tensor core takes the TF32 part.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A operand (16 x 8) and a B operand (8 x 8) of m16n8k8, split.
+struct FragA {
+  unsigned hi[4], lo[4];
+};
+struct FragB {
+  unsigned hi[2], lo[2];
+};
+
+// c += a.b in 3xTF32, the small terms first.
+__device__ __forceinline__ void mma3(float* c, const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// A = X[0..16)[k0..k0+8) of a row-major X with row stride ld: lane
+// (g, t) = (lane / 4, lane % 4) holds rows g, g + 8 and columns t, t + 4.
+__device__ __forceinline__ FragA frag_a(const float* x, int ld, int k0,
+                                        int g, int t) {
+  const float e[4] = {x[g * ld + k0 + t], x[(g + 8) * ld + k0 + t],
+                      x[g * ld + k0 + t + 4], x[(g + 8) * ld + k0 + t + 4]};
+  FragA f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(e[i], f.hi[i], f.lo[i]);
+  return f;
+}
+
+// B(kk, n) = X[n][k0 + kk] (B is X^T: X row-major over n), n in 0..8.
+__device__ __forceinline__ FragB frag_b_t(const float* x, int ld, int k0,
+                                          int g, int t) {
+  FragB f;
+  split_tf32(x[g * ld + k0 + t], f.hi[0], f.lo[0]);
+  split_tf32(x[g * ld + k0 + t + 4], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// B(kk, n) = X[k0 + kk][n0 + n] (X row-major over k).
+__device__ __forceinline__ FragB frag_b(const float* x, int ld, int k0,
+                                        int n0, int g, int t) {
+  FragB f;
+  split_tf32(x[(k0 + t) * ld + n0 + g], f.hi[0], f.lo[0]);
+  split_tf32(x[(k0 + t + 4) * ld + n0 + g], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// Whether any of the keys t0..t0+31 (< T) is live for a query position in
+// [q_lo, q_hi]; the same in every lane of the calling warp.
+__device__ __forceinline__ bool keys32_live(const int* k_pos, int t0, int T,
+                                            int q_lo, int q_hi, int causal,
+                                            int window, int lane) {
+  const int a = t0 + lane < T ? k_pos[t0 + lane] : -1;
+  return __ballot_sync(FULL, maybe_live(a, q_lo, q_hi, causal, window)) != 0;
+}
+
+template <int DP>
+struct BwdTile {
+  static constexpr int KS = DP + 4;  // f32 row stride of every tile
+  static constexpr int STAGE = 2 * BC * KS;
+  // dK/dV: K, V [BK][KS]; the ring of Q, dO [BC][KS] and the tile's lse,
+  // delta, q_pos [BC]; P^T, dS^T a warp; then a byte a query tile
+  static constexpr size_t KV_SMEM =
+      sizeof(float) * (2 * BK * KS + BSTAGES * (STAGE + 3 * BC) +
+                       4 * 2 * 16 * SC);
+  // dQ: Q, dO [BQ][KS]; the ring of K, V [BC][KS] and the tile's k_pos
+  // [BC]; dS a warp; then a byte a key tile
+  static constexpr size_t Q_SMEM =
+      sizeof(float) * (2 * BQ * KS + BSTAGES * (STAGE + BC) + 4 * 16 * SC);
+};
+
+// 4 bytes from device to shared memory, zeros where !valid.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(smem)),
+               "l"(gmem), "r"(valid ? 4 : 0));
+}
+
 // dK and dV of key tile blockIdx.y from query head blockIdx.x % Hq of
 // batch blockIdx.x / Hq, over the query tiles in index order.  With one
 // query head per KV head the block writes dk/dv [B,T,Hkv,D]; with more, it
 // writes its head's share to dk/dv laid out [B,T,Hq,D], and
 // flash_bwd_group_sum_kernel adds the shares of a group in head order.
-// The thread owns keys ty + 16i and, in the score tile, query rows tx + 8j;
-// its accumulators hold its keys' output columns out_col(tx, e).
+// Warp w owns keys 16w..16w+15 of the tile: S^T and dP^T of its keys
+// against the tile's 32 queries, then dV += P^T.dO and dK += dS^T.Q.
 template <int DP>
 __global__ void __launch_bounds__(PT) flash_bwd_dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -680,195 +789,172 @@ __global__ void __launch_bounds__(PT) flash_bwd_dkdv_kernel(
     const int* __restrict__ q_pos, const int* __restrict__ k_pos,
     float* __restrict__ dk, float* __restrict__ dv, int S, int T, int Hq,
     int Hkv, int D, int causal, int window, float scale) {
-  constexpr int KS = DP + 4;
-  constexpr int DV = DP / 8;
+  using L = BwdTile<DP>;
+  constexpr int KS = L::KS;
   extern __shared__ __align__(16) float smem[];
-  float* k_sh = smem;                 // [BK][KS]
-  float* v_sh = k_sh + BK * KS;       // [BK][KS]
-  float* q_sh = v_sh + BK * KS;       // [BQ][KS]
-  float* do_sh = q_sh + BQ * KS;      // [BQ][KS]
-  float* p_sh = do_sh + BQ * KS;      // [BK][PS], P^T (key, row)
-  float* ds_sh = p_sh + BK * PS;      // [BK][PS], dS^T
-  float* lse_sh = ds_sh + BK * PS;    // [BQ]
-  float* dl_sh = lse_sh + BQ;         // [BQ]
-  int* qp_sh = (int*)(dl_sh + BQ);    // [BQ]
-
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int ty = tid >> 3, tx = tid & 7;
+  float* k_sh = smem;                          // [BK][KS]
+  float* v_sh = k_sh + BK * KS;                // [BK][KS]
+  float* ring = v_sh + BK * KS;                // stages of Q, dO [BC][KS]
+  float* rows = ring + BSTAGES * L::STAGE;     // stages of lse, delta, q_pos
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  float* p_w = rows + BSTAGES * 3 * BC + warp * 2 * 16 * SC;    // P^T
+  float* ds_w = p_w + 16 * SC;                                   // dS^T
+  unsigned char* live_tile =
+      reinterpret_cast<unsigned char*>(rows + BSTAGES * 3 * BC +
+                                       4 * 2 * 16 * SC);
   const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
   const int hk = h / (Hq / Hkv);
   const int t0 = blockIdx.y * BK, nk = min(BK, T - t0);
+  const int c0 = 16 * warp + g;  // this lane's keys c0 and c0 + 8
+  const int kp[2] = {c0 < nk ? k_pos[t0 + c0] : -1,
+                     c0 + 8 < nk ? k_pos[t0 + c0 + 8] : -1};
 
-  int kp[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = ty + 16 * i;
-    kp[i] = c < nk ? k_pos[t0 + c] : -1;
+  // which query tiles hold a live pair with the block's keys: one pass
+  // over q_pos, each warp a tile at a time against the keys lane and
+  // lane + 32 that every lane holds
+  {
+    const int ka = lane < nk ? k_pos[t0 + lane] : -1;
+    const int kb = lane + 32 < nk ? k_pos[t0 + lane + 32] : -1;
+#pragma unroll 4
+    for (int j = warp; j * BC < S; j += PT / 32) {
+      const int i = j * BC + lane;
+      int lo = i < S ? q_pos[i] : INT_MAX, hi = i < S ? q_pos[i] : INT_MIN;
+      for (int off = 16; off > 0; off >>= 1) {
+        lo = min(lo, __shfl_xor_sync(FULL, lo, off));
+        hi = max(hi, __shfl_xor_sync(FULL, hi, off));
+      }
+      const unsigned any =
+          __ballot_sync(FULL, maybe_live(ka, lo, hi, causal, window) ||
+                                  maybe_live(kb, lo, hi, causal, window));
+      if (lane == 0) live_tile[j] = any != 0;
+    }
   }
-  float dk_acc[4][DV], dv_acc[4][DV];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < DV; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.0f;
+  __syncthreads();
+
+  // the next query tile at or after i0 with a live pair (S if none)
+  auto next_live = [&](int i0) {
+    for (; i0 < S; i0 += BC)
+      if (live_tile[i0 / BC]) return i0;
+    return S;
+  };
+  auto load = [&](int i0, int stage) {
+    float* qd = ring + stage * L::STAGE;
+    stage_rows<DP, PT>(qd, KS, q, (size_t)b * S + i0, BC, S - i0, Hq, h, D,
+                       tid);
+    stage_rows<DP, PT>(qd + BC * KS, KS, dout, (size_t)b * S + i0, BC,
+                       S - i0, Hq, h, D, tid);
+    if (tid < BC) {  // the tile's lse, delta and positions (0 past S)
+      float* rd = rows + stage * 3 * BC;
+      const bool ok = i0 + tid < S;
+      const size_t at = ((size_t)b * Hq + h) * S + (ok ? i0 + tid : 0);
+      cp_async4(rd + tid, lse + at, ok);
+      cp_async4(rd + BC + tid, delta + at, ok);
+      cp_async4(rd + 2 * BC + tid, q_pos + (ok ? i0 + tid : 0), ok);
+    }
+  };
 
   stage_rows<DP, PT>(k_sh, KS, k, (size_t)b * T + t0, BK, nk, Hkv, hk, D,
                      tid);
   stage_rows<DP, PT>(v_sh, KS, v, (size_t)b * T + t0, BK, nk, Hkv, hk, D,
                      tid);
-  cp_async_commit();
-
-  for (int q0 = 0; q0 < S; q0 += BQ) {
-    const int nq = min(BQ, S - q0);
-    int q_lo, q_hi;
-    pos_range(q_pos + q0, nq, lane, q_lo, q_hi);
-    if (!classify(k_pos, t0, T, q_lo, q_hi, causal, window, lane))
-      continue;  // no live pair between this query tile and the keys
-    stage_rows<DP, PT>(q_sh, KS, q, (size_t)b * S + q0, BQ, nq, Hq, h, D,
-                       tid);
-    stage_rows<DP, PT>(do_sh, KS, dout, (size_t)b * S + q0, BQ, nq, Hq, h, D,
-                       tid);
+  int ld = next_live(0), cur = ld;
+#pragma unroll
+  for (int st = 0; st < BSTAGES - 1; ++st) {  // K and V go with the first
+    if (ld < S) {
+      load(ld, st);
+      ld = next_live(ld + BC);
+    }
     cp_async_commit();
-    if (tid < BQ) {
-      const bool ok = tid < nq;
-      const size_t at = ((size_t)b * Hq + h) * S + q0 + tid;
-      lse_sh[tid] = ok ? lse[at] : 0.0f;
-      dl_sh[tid] = ok ? delta[at] : 0.0f;
-      qp_sh[tid] = ok ? q_pos[q0 + tid] : 0;
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // K/V (first time), Q, dO and the row values landed
+  }
 
-    // P^T: scores of keys ty + 16i against rows tx + 8j
-    float s[4][8];
+  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < DP; d += 4) {
-      float4 ka[4];
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0f;
+
+  const float* kw = k_sh + 16 * warp * KS;
+  const float* vw = v_sh + 16 * warp * KS;
+  for (int it = 0; cur < S; ++it) {
+    cp_async_wait<BSTAGES - 2>();
+    __syncthreads();  // tile `it` landed; the stage of tile it-1 is free
+    if (ld < S) {
+      load(ld, (it + BSTAGES - 1) % BSTAGES);
+      ld = next_live(ld + BC);
+    }
+    cp_async_commit();
+    const float* qs = ring + (it % BSTAGES) * L::STAGE;
+    const float* gs = qs + BC * KS;
+    const float* rs = rows + (it % BSTAGES) * 3 * BC;  // lse, delta, q_pos
+
+    // S^T and dP^T: this warp's 16 keys against the tile's 32 queries
+    float s[4][4], dp[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ka[i] =
-            *reinterpret_cast<const float4*>(k_sh + (ty + 16 * i) * KS + d);
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 qb =
-            *reinterpret_cast<const float4*>(q_sh + (tx + 8 * j) * KS + d);
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float t = s[i][j];
-          t = fmaf(ka[i].x, qb.x, t);
-          t = fmaf(ka[i].y, qb.y, t);
-          t = fmaf(ka[i].z, qb.z, t);
-          s[i][j] = fmaf(ka[i].w, qb.w, t);
+    for (int kk = 0; kk < DP; kk += 8) {
+      const FragA ak = frag_a(kw, KS, kk, g, t4);
+      const FragA av = frag_a(vw, KS, kk, g, t4);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        mma3(s[n], ak, frag_b_t(qs + 8 * n * KS, KS, kk, g, t4));
+        mma3(dp[n], av, frag_b_t(gs + 8 * n * KS, KS, kk, g, t4));
+      }
+    }
+    // P^T and dS^T into the warp's scratch: element e of block n is key
+    // c0 + 8 (e >> 1), query cur + 8n + 2 t4 + (e & 1)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int col = 8 * n + 2 * t4 + e1;
+        const bool ok = cur + col < S;
+        const int qp = __float_as_int(rs[2 * BC + col]);
+        const float m = rs[col], dl = rs[BC + col];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int e = 2 * half + e1;
+          const bool live = ok && live_key(kp[half], qp, causal, window);
+          const float p = live ? expf(fmaf(s[n][e], scale, -m)) : 0.0f;
+          p_w[(g + 8 * half) * SC + col] = p;
+          ds_w[(g + 8 * half) * SC + col] = p * (dp[n][e] - dl);
         }
       }
-    }
+    __syncwarp();
+    // dV += P^T.dO, dK += dS^T.Q over the tile's queries, in order
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int r = tx + 8 * j;
-      const bool row_ok = r < nq;
-      const int qp = qp_sh[r];
-      const float m = lse_sh[r];
+    for (int kq = 0; kq < BC; kq += 8) {
+      const FragA ap = frag_a(p_w, SC, kq, g, t4);
+      const FragA ad = frag_a(ds_w, SC, kq, g, t4);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool live = row_ok && live_key(kp[i], qp, causal, window);
-        p_sh[(ty + 16 * i) * PS + r] =
-            live ? expf(fmaf(s[i][j], scale, -m)) : 0.0f;
+      for (int n = 0; n < DP / 8; ++n) {
+        mma3(dv_acc[n], ap, frag_b(gs, KS, kq, 8 * n, g, t4));
+        mma3(dk_acc[n], ad, frag_b(qs, KS, kq, 8 * n, g, t4));
       }
     }
-
-    // dP^T = V . dO^T, then dS^T = P^T (dP^T - D), in the same cells
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < DP; d += 4) {
-      float4 va[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        va[i] =
-            *reinterpret_cast<const float4*>(v_sh + (ty + 16 * i) * KS + d);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 gb =
-            *reinterpret_cast<const float4*>(do_sh + (tx + 8 * j) * KS + d);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float t = s[i][j];
-          t = fmaf(va[i].x, gb.x, t);
-          t = fmaf(va[i].y, gb.y, t);
-          t = fmaf(va[i].z, gb.z, t);
-          s[i][j] = fmaf(va[i].w, gb.w, t);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int r = tx + 8 * j;
-      const float dl = dl_sh[r];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int at = (ty + 16 * i) * PS + r;
-        ds_sh[at] = p_sh[at] * (s[i][j] - dl);
-      }
-    }
-    __syncthreads();  // P^T and dS^T are complete
-
-    // dV += P^T . dO, dK += dS^T . Q over the tile's rows, in order
-#pragma unroll 2
-    for (int c = 0; c < BQ; c += 4) {
-      float4 pa[4], da[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] =
-            *reinterpret_cast<const float4*>(p_sh + (ty + 16 * i) * PS + c);
-        da[i] =
-            *reinterpret_cast<const float4*>(ds_sh + (ty + 16 * i) * PS + c);
-      }
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        float gv[DV], qv[DV];
-        load_cols<DP>(do_sh + (c + cc) * KS, tx, gv);
-        load_cols<DP>(q_sh + (c + cc) * KS, tx, qv);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = cc == 0 ? pa[i].x
-                          : cc == 1 ? pa[i].y
-                          : cc == 2 ? pa[i].z
-                                    : pa[i].w;
-          const float ds = cc == 0 ? da[i].x
-                           : cc == 1 ? da[i].y
-                           : cc == 2 ? da[i].z
-                                     : da[i].w;
-#pragma unroll
-          for (int e = 0; e < DV; ++e) {
-            dv_acc[i][e] = fmaf(p, gv[e], dv_acc[i][e]);
-            dk_acc[i][e] = fmaf(ds, qv[e], dk_acc[i][e]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // the tile is consumed before the next one lands
+    __syncwarp();  // the scratch is read before the next tile writes it
+    cur = next_live(cur + BC);
   }
   cp_async_wait<0>();  // K/V of a block that found no live tile
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = ty + 16 * i;
-    if (c < nk) {
-      const size_t row =
-          Hq == Hkv ? ((size_t)(b * T + t0 + c) * Hkv + hk) * D
-                    : ((size_t)(b * T + t0 + c) * Hq + h) * D;
+  for (int half = 0; half < 2; ++half) {
+    const int c = c0 + 8 * half;
+    if (c >= nk) continue;
+    const size_t row = Hq == Hkv ? ((size_t)(b * T + t0 + c) * Hkv + hk) * D
+                                 : ((size_t)(b * T + t0 + c) * Hq + h) * D;
 #pragma unroll
-      for (int e = 0; e < DV; ++e) {
-        const int col = out_col<DP>(tx, e);
-        if (col < D) {
-          dk[row + col] = dk_acc[i][e] * scale;
-          dv[row + col] = dv_acc[i][e];
-        }
+    for (int n = 0; n < DP / 8; ++n) {
+      const int col = 8 * n + 2 * t4;
+      if (col < D) {
+        *reinterpret_cast<float2*>(dk + row + col) =
+            make_float2(dk_acc[n][2 * half] * scale,
+                        dk_acc[n][2 * half + 1] * scale);
+        *reinterpret_cast<float2*>(dv + row + col) =
+            make_float2(dv_acc[n][2 * half], dv_acc[n][2 * half + 1]);
       }
     }
   }
@@ -897,7 +983,8 @@ __global__ void __launch_bounds__(DT) flash_bwd_group_sum_kernel(
 }
 
 // dQ of query tile blockIdx.y for query head blockIdx.x % Hq of batch
-// blockIdx.x / Hq: rows ty + 16i, keys tx + 8j, as the forward.
+// blockIdx.x / Hq.  Warp w owns rows 16w..16w+15 of the tile: S and dP of
+// its rows against each key tile of 32, then dQ += dS.K.
 template <int DP>
 __global__ void __launch_bounds__(PT) flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -906,17 +993,19 @@ __global__ void __launch_bounds__(PT) flash_bwd_dq_kernel(
     const int* __restrict__ q_pos, const int* __restrict__ k_pos,
     float* __restrict__ dq, int S, int T, int Hq, int Hkv, int D, int causal,
     int window, float scale) {
-  constexpr int KS = DP + 4;
-  constexpr int DV = DP / 8;
+  using L = BwdTile<DP>;
+  constexpr int KS = L::KS;
   extern __shared__ __align__(16) float smem[];
   float* q_sh = smem;                 // [BQ][KS]
   float* do_sh = q_sh + BQ * KS;      // [BQ][KS]
-  float* k_sh = do_sh + BQ * KS;      // [BK][KS]
-  float* v_sh = k_sh + BK * KS;       // [BK][KS]
-  float* ds_sh = v_sh + BK * KS;      // [BQ][PS]
-
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int ty = tid >> 3, tx = tid & 7;
+  float* ring = do_sh + BQ * KS;      // stages of K, V [BC][KS]
+  int* kp_sh = reinterpret_cast<int*>(ring + BSTAGES * L::STAGE);  // k_pos
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  float* ds_w = reinterpret_cast<float*>(kp_sh + BSTAGES * BC) +
+                warp * 16 * SC;
+  unsigned char* live_tile = reinterpret_cast<unsigned char*>(
+      reinterpret_cast<float*>(kp_sh + BSTAGES * BC) + 4 * 16 * SC);
   const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
   const int hk = h / (Hq / Hkv);
@@ -924,144 +1013,139 @@ __global__ void __launch_bounds__(PT) flash_bwd_dq_kernel(
 
   int q_lo, q_hi;
   pos_range(q_pos + q0, nq, lane, q_lo, q_hi);
-  int qp[4];
-  float m[4], dl[4];
+  // this lane's rows r0 and r0 + 8 of the tile
+  const int r0 = 16 * warp + g;
+  bool ok[2];
+  int qp[2];
+  float m[2], dl[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const bool ok = r < nq;
-    const size_t at = ((size_t)b * Hq + h) * S + q0 + r;
-    qp[i] = ok ? q_pos[q0 + r] : 0;
-    m[i] = ok ? lse[at] : 0.0f;
-    dl[i] = ok ? delta[at] : 0.0f;
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    ok[half] = r < nq;
+    const size_t at = ((size_t)b * Hq + h) * S + q0 + (ok[half] ? r : 0);
+    qp[half] = ok[half] ? q_pos[q0 + r] : 0;
+    m[half] = ok[half] ? lse[at] : 0.0f;
+    dl[half] = ok[half] ? delta[at] : 0.0f;
   }
-  float acc[4][DV];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < DV; ++e) acc[i][e] = 0.0f;
+
+  // which key tiles hold a live pair with the block's rows: one pass over
+  // k_pos, each warp a tile at a time
+#pragma unroll 4
+  for (int j = warp; j * BC < T; j += PT / 32) {
+    const bool live =
+        keys32_live(k_pos, j * BC, T, q_lo, q_hi, causal, window, lane);
+    if (lane == 0) live_tile[j] = live;
+  }
+  __syncthreads();
+
+  // the next key tile at or after j0 with a live pair (T if none)
+  auto next_live = [&](int j0) {
+    for (; j0 < T; j0 += BC)
+      if (live_tile[j0 / BC]) return j0;
+    return T;
+  };
+  auto load = [&](int j0, int stage) {
+    float* kd = ring + stage * L::STAGE;
+    stage_rows<DP, PT>(kd, KS, k, (size_t)b * T + j0, BC, T - j0, Hkv, hk, D,
+                       tid);
+    stage_rows<DP, PT>(kd + BC * KS, KS, v, (size_t)b * T + j0, BC, T - j0,
+                       Hkv, hk, D, tid);
+    if (tid < BC)  // the tile's positions (0 past T)
+      cp_async4(kp_sh + stage * BC + tid,
+                k_pos + (j0 + tid < T ? j0 + tid : 0), j0 + tid < T);
+  };
 
   stage_rows<DP, PT>(q_sh, KS, q, (size_t)b * S + q0, BQ, nq, Hq, h, D,
                      tid);
   stage_rows<DP, PT>(do_sh, KS, dout, (size_t)b * S + q0, BQ, nq, Hq, h, D,
                      tid);
-  cp_async_commit();
-
-  int cls;
-  for (int cur = next_tile(k_pos, 0, T, q_lo, q_hi, causal, window, lane, cls);
-       cur < T;
-       cur = next_tile(k_pos, cur + BK, T, q_lo, q_hi, causal, window, lane,
-                       cls)) {
-    stage_rows<DP, PT>(k_sh, KS, k, (size_t)b * T + cur, BK, T - cur, Hkv,
-                       hk, D, tid);
-    stage_rows<DP, PT>(v_sh, KS, v, (size_t)b * T + cur, BK, T - cur, Hkv,
-                       hk, D, tid);
+  int ld = next_live(0), cur = ld;
+#pragma unroll
+  for (int st = 0; st < BSTAGES - 1; ++st) {  // Q and dO go with the first
+    if (ld < T) {
+      load(ld, st);
+      ld = next_live(ld + BC);
+    }
     cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();  // this key tile (and Q, dO) landed
+  }
 
-    float s[4][8], p[4][8];
+  float acc[DP / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < DP; d += 4) {
-      float4 qa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] =
-            *reinterpret_cast<const float4*>(q_sh + (ty + 16 * i) * KS + d);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 kb =
-            *reinterpret_cast<const float4*>(k_sh + (tx + 8 * j) * KS + d);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float t = s[i][j];
-          t = fmaf(qa[i].x, kb.x, t);
-          t = fmaf(qa[i].y, kb.y, t);
-          t = fmaf(qa[i].z, kb.z, t);
-          s[i][j] = fmaf(qa[i].w, kb.w, t);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int t = cur + tx + 8 * j;
-      const int kp = t < T ? k_pos[t] : -1;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool live =
-            ty + 16 * i < nq && live_key(kp, qp[i], causal, window);
-        p[i][j] = live ? expf(fmaf(s[i][j], scale, -m[i])) : 0.0f;
-        s[i][j] = 0.0f;
-      }
-    }
-    // dP = dO . V^T
-#pragma unroll 4
-    for (int d = 0; d < DP; d += 4) {
-      float4 ga[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ga[i] =
-            *reinterpret_cast<const float4*>(do_sh + (ty + 16 * i) * KS + d);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 vb =
-            *reinterpret_cast<const float4*>(v_sh + (tx + 8 * j) * KS + d);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float t = s[i][j];
-          t = fmaf(ga[i].x, vb.x, t);
-          t = fmaf(ga[i].y, vb.y, t);
-          t = fmaf(ga[i].z, vb.z, t);
-          s[i][j] = fmaf(ga[i].w, vb.w, t);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        ds_sh[(ty + 16 * i) * PS + tx + 8 * j] = p[i][j] * (s[i][j] - dl[i]);
-    __syncthreads();  // dS is complete
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
 
-    // dQ += dS . K over the tile's keys, in order
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float4 da[4];
+  const float* qw = q_sh + 16 * warp * KS;
+  const float* gw = do_sh + 16 * warp * KS;
+  for (int it = 0; cur < T; ++it) {
+    cp_async_wait<BSTAGES - 2>();
+    __syncthreads();  // tile `it` landed; the stage of tile it-1 is free
+    if (ld < T) {
+      load(ld, (it + BSTAGES - 1) % BSTAGES);
+      ld = next_live(ld + BC);
+    }
+    cp_async_commit();
+    const float* ks = ring + (it % BSTAGES) * L::STAGE;
+    const float* vs = ks + BC * KS;
+    const int* kps = kp_sh + (it % BSTAGES) * BC;
+
+    // S and dP: this warp's 16 rows against the tile's 32 keys
+    float s[4][4], dp[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        da[i] =
-            *reinterpret_cast<const float4*>(ds_sh + (ty + 16 * i) * PS + c);
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        float kv[DV];
-        load_cols<DP>(k_sh + (c + cc) * KS, tx, kv);
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float ds = cc == 0 ? da[i].x
-                           : cc == 1 ? da[i].y
-                           : cc == 2 ? da[i].z
-                                     : da[i].w;
+    for (int kk = 0; kk < DP; kk += 8) {
+      const FragA aq = frag_a(qw, KS, kk, g, t4);
+      const FragA ag = frag_a(gw, KS, kk, g, t4);
 #pragma unroll
-          for (int e = 0; e < DV; ++e) acc[i][e] = fmaf(ds, kv[e], acc[i][e]);
-        }
+      for (int n = 0; n < 4; ++n) {
+        mma3(s[n], aq, frag_b_t(ks + 8 * n * KS, KS, kk, g, t4));
+        mma3(dp[n], ag, frag_b_t(vs + 8 * n * KS, KS, kk, g, t4));
       }
     }
-    __syncthreads();  // K, V and dS are consumed before they refill
+    // dS into the warp's scratch: element e of block n is row
+    // r0 + 8 (e >> 1), key cur + 8n + 2 t4 + (e & 1)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int col = 8 * n + 2 * t4 + e1;
+        const int kp = cur + col < T ? kps[col] : -1;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int e = 2 * half + e1;
+          const bool live = ok[half] && live_key(kp, qp[half], causal, window);
+          const float p = live ? expf(fmaf(s[n][e], scale, -m[half])) : 0.0f;
+          ds_w[(g + 8 * half) * SC + col] = p * (dp[n][e] - dl[half]);
+        }
+      }
+    __syncwarp();
+    // dQ += dS.K over the tile's keys, in order
+#pragma unroll
+    for (int kc = 0; kc < BC; kc += 8) {
+      const FragA ad = frag_a(ds_w, SC, kc, g, t4);
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+        mma3(acc[n], ad, frag_b(ks, KS, kc, 8 * n, g, t4));
+    }
+    __syncwarp();  // the scratch is read before the next tile writes it
+    cur = next_live(cur + BC);
   }
   cp_async_wait<0>();  // Q and dO of a tile with no live key
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r < nq) {
-      float* o = dq + ((size_t)(b * S + q0 + r) * Hq + h) * D;
+  for (int half = 0; half < 2; ++half) {
+    if (!ok[half]) continue;
+    float* o = dq + ((size_t)(b * S + q0 + r0 + 8 * half) * Hq + h) * D;
 #pragma unroll
-      for (int e = 0; e < DV; ++e)
-        if (out_col<DP>(tx, e) < D) o[out_col<DP>(tx, e)] = acc[i][e] * scale;
+    for (int n = 0; n < DP / 8; ++n) {
+      const int col = 8 * n + 2 * t4;
+      if (col < D)
+        *reinterpret_cast<float2*>(o + col) =
+            make_float2(acc[n][2 * half] * scale,
+                        acc[n][2 * half + 1] * scale);
     }
   }
 }
@@ -1753,118 +1837,337 @@ __global__ void __launch_bounds__(WTHREADS, 1)
   }
 }
 
-// t + the dot of eight bf16 pairs, in f32.
-__device__ __forceinline__ float dot8_bf16(uint4 a, uint4 b, float t) {
-  const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
-  const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(pa[i]), y = __bfloat1622float2(pb[i]);
-    t = fmaf(x.x, y.x, t);
-    t = fmaf(x.y, y.y, t);
-  }
-  return t;
+// ---------------------------------------------------------------------------
+// bf16 decode: one cluster launch, the products on tensor cores
+// ---------------------------------------------------------------------------
+
+#define DROWS 16       // M of the products: a group's R <= 16 query rows
+#define DMAX_SPLIT 8   // blocks of a cluster (the portable largest)
+
+template <int DP>
+struct DecodeTile {
+  static constexpr int ST = DP + 8;  // bf16 row stride (ldmatrix: no conflict)
+  static constexpr int STAGES = DP == 128 ? 2 : 3;
+  static constexpr int RING = STAGES * 2 * BK * ST;     // bf16 elements
+  static constexpr int OS = DP + 8;  // f32 row stride of a partial's o
+  static constexpr int PART = 2 * DROWS + DROWS * OS;   // floats: m, l, o
+  // Q, the ring, the block's partial, the rows' weights (of the warps,
+  // then of the splits), each stage's key positions; then a byte a tile
+  // of the split (its liveness)
+  static constexpr size_t SMEM =
+      sizeof(bf16) * (DROWS * ST + RING) +
+      sizeof(float) * (PART + DROWS * DMAX_SPLIT) + sizeof(int) * STAGES * BK;
+  static_assert(4 * PART * sizeof(float) <= RING * sizeof(bf16),
+                "the warps' partials fit in the ring");
+};
+
+
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
 }
 
-// flash_decode_partial_kernel for bf16 q, k, v: the same partials (f32),
-// p rounded to bf16 before P.V.
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// c += a.b, m16n8k16, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The R = S * (Hq/Hkv) query rows of KV head blockIdx.y of batch
+// blockIdx.z (row r reads query head hk * group + r % group at position
+// r / group) over the keys [split * split_keys, + split_keys) of split
+// blockIdx.x, one block of a cluster of gridDim.x.  The block first marks
+// which of its key tiles hold a live key (one pass over its positions),
+// puts the first live tiles in flight, and refills each stage as soon as
+// its tile is consumed; a tile's positions arrive with its K and V.  Warp
+// w takes keys 16w..16w+15 of every live tile of 64 with its own running
+// (m, l, O); the block merges its warps in order, and after a cluster
+// barrier each block writes a share of the output, merging the splits'
+// partials in split order through distributed shared memory.
 template <int DP>
-__global__ void __launch_bounds__(DT) flash_decode_partial_bf16_kernel(
+__global__ void __launch_bounds__(DT) flash_decode_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const int* __restrict__ q_pos,
-    const int* __restrict__ k_pos, float* __restrict__ part_m,
-    float* __restrict__ part_l, float* __restrict__ part_acc, int S, int T,
-    int Hq, int Hkv, int D, int causal, int window, float scale) {
-  constexpr int ST = DP + 8;
+    const int* __restrict__ k_pos, bf16* __restrict__ out, int S, int T,
+    int Hq, int Hkv, int D, int causal, int window, int split_keys,
+    float scale) {
+  using L = DecodeTile<DP>;
+  constexpr int ST = L::ST, NS = L::STAGES;
   extern __shared__ __align__(16) unsigned char smem_bytes[];
+  bf16* q_sh = reinterpret_cast<bf16*>(smem_bytes);         // [DROWS][ST]
+  bf16* ring = q_sh + DROWS * ST;                            // K, V [BK][ST]
+  float* part = reinterpret_cast<float*>(ring + L::RING);    // the block's
+  float* wts = part + L::PART;                    // [DROWS][DMAX_SPLIT]
+  int* kp_sh = reinterpret_cast<int*>(wts + DROWS * DMAX_SPLIT);  // [NS][BK]
+  unsigned char* live_tile =
+      reinterpret_cast<unsigned char*>(kp_sh + NS * BK);     // a tile each
+  float* wpart = reinterpret_cast<float*>(ring);  // the warps', after the loop
+
+  cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int n_split = gridDim.x, group = Hq / Hkv, R = S * group;
-  bf16* q_sh = reinterpret_cast<bf16*>(smem_bytes);    // [R][ST]
-  bf16* k_sh = q_sh + R * ST;                          // [BK][ST]
-  bf16* v_sh = k_sh + BK * ST;                          // [BK][DP]
-  float* p_sh = reinterpret_cast<float*>(v_sh + BK * DP);  // [R][PS]
-  const int t0 = split * BK, nk = min(BK, T - t0);
+  const int k_lo = split * split_keys, k_hi = min(T, k_lo + split_keys);
 
+  for (int e = tid; e < DROWS * (DP / 8); e += DT) {  // rows R.. are zero
+    const int r = e / (DP / 8), c8 = (e % (DP / 8)) * 8;
+    const bool ok = r < R && c8 < D;
+    const int s = ok ? r / group : 0, h = hk * group + (ok ? r % group : 0);
+    cp_async16_any(q_sh + r * ST + c8,
+                   q + ((size_t)(b * S + s) * Hq + h) * D + (ok ? c8 : 0), ok);
+  }
   int q_lo, q_hi;
   pos_range(q_pos, S, lane, q_lo, q_hi);
-  if (!classify(k_pos, t0, T, q_lo, q_hi, causal, window, lane)) {
-    for (int r = tid; r < R; r += DT) {
-      const int s = r / group, h = hk * group + r % group;
-      const size_t at = ((size_t)(b * S + s) * Hq + h) * n_split + split;
-      part_m[at] = -INFINITY;
-      part_l[at] = 0.0f;
-    }
-    return;
+  // this lane's rows g and g + 8
+  const bool row_ok[2] = {g < R, g + 8 < R};
+  const int qp[2] = {row_ok[0] ? q_pos[g / group] : 0,
+                     row_ok[1] ? q_pos[(g + 8) / group] : 0};
+#pragma unroll 4
+  for (int j = warp; k_lo + j * BK < k_hi; j += DT / 32) {
+    const int cls =
+        classify(k_pos, k_lo + j * BK, k_hi, q_lo, q_hi, causal, window, lane);
+    if (lane == 0) live_tile[j] = cls != 0;
   }
-
-  for (int e = tid; e < R * (DP / 8); e += DT) {
-    const int r = e / (DP / 8), c8 = (e % (DP / 8)) * 8;
-    const int s = r / group, h = hk * group + r % group;
-    cp_async16_any(q_sh + r * ST + c8,
-                   q + ((size_t)(b * S + s) * Hq + h) * D + (c8 < D ? c8 : 0),
-                   c8 < D);
-  }
-  stage_rows_bf16<DP, DT>(k_sh, ST, k, (size_t)b * T + t0, BK, nk, Hkv, hk,
-                          D, tid);
-  stage_rows_bf16<DP, DT>(v_sh, DP, v, (size_t)b * T + t0, BK, nk, Hkv, hk,
-                          D, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
 
-  {  // scores: thread owns key c and rows rg, rg + 2, ...
-    const int c = tid & (BK - 1), rg = tid / BK;
-    const int kp = c < nk ? k_pos[t0 + c] : -1;
-    for (int r = rg; r < R; r += DT / BK) {
-      float t = 0.0f;
+  // the next tile at or after t with a live key (k_hi if none)
+  auto next_live = [&](int t) {
+    for (; t < k_hi; t += BK)
+      if (live_tile[(t - k_lo) / BK]) return t;
+    return k_hi;
+  };
+  auto load = [&](int t, int stage) {
+    bf16* kd = ring + stage * 2 * BK * ST;
+    stage_rows_bf16<DP, DT>(kd, ST, k, (size_t)b * T + t, BK, k_hi - t, Hkv,
+                            hk, D, tid);
+    stage_rows_bf16<DP, DT>(kd + BK * ST, ST, v, (size_t)b * T + t, BK,
+                            k_hi - t, Hkv, hk, D, tid);
+    if (tid < BK)
+      cp_async4(kp_sh + stage * BK + tid, k_pos + (t + tid < T ? t + tid : 0),
+                t + tid < T);
+  };
+  int ld = next_live(k_lo), cur = ld;
 #pragma unroll
-      for (int d = 0; d < DP; d += 8)
-        t = dot8_bf16(*reinterpret_cast<const uint4*>(q_sh + r * ST + d),
-                      *reinterpret_cast<const uint4*>(k_sh + c * ST + d), t);
-      p_sh[r * PS + c] =
-          live_key(kp, q_pos[r / group], causal, window) ? t * scale
-                                                         : -INFINITY;
+  for (int st = 0; st < NS; ++st) {  // Q goes with the first
+    if (ld < k_hi) {
+      load(ld, st);
+      ld = next_live(ld + BK);
     }
+    cp_async_commit();
+  }
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float o[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  unsigned qa[DP / 16][4];
+
+  for (int it = 0; cur < k_hi; ++it) {
+    cp_async_wait<NS - 1>();
+    __syncthreads();  // tile `it` (and Q) landed for every thread
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        ldsm_x4(qa[kk], q_sh + (lane & 15) * ST + kk * 16 + (lane >> 4) * 8);
+    }
+    const int stage = it % NS;
+    const bf16* ks = ring + stage * 2 * BK * ST + 16 * warp * ST;
+    const bf16* vs = ks + BK * ST;
+    const int* kps = kp_sh + stage * BK + 16 * warp;
+
+    // S = Q.K^T over the warp's 16 keys: block j holds keys 8j..8j+7,
+    // summed over D in two chains (even and odd k-steps)
+    float sc[2][4], s2[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = s2[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      unsigned kb[4];
+      ldsm_x4(kb, ks + ((lane & 7) + ((lane >> 4) << 3)) * ST + kk * 16 +
+                      ((lane >> 3) & 1) * 8);
+      if (kk & 1) {
+        mma_bf16(s2[0], qa[kk], kb[0], kb[1]);
+        mma_bf16(s2[1], qa[kk], kb[2], kb[3]);
+      } else {
+        mma_bf16(sc[0], qa[kk], kb[0], kb[1]);
+        mma_bf16(sc[1], qa[kk], kb[2], kb[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] += s2[j][e];
+    // element e of block j: row g + 8 (e >> 1), key 8j + 2 t4 + (e & 1)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int c = 8 * j + 2 * t4 + e1;
+        const int kp = cur + 16 * warp + c < k_hi ? kps[c] : -1;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float& x = sc[j][2 * i + e1];
+          x = row_ok[i] && live_key(kp, qp[i], causal, window) ? x * scale
+                                                               : -INFINITY;
+        }
+      }
+    // online softmax of rows g (i = 0) and g + 8: a row is a quad's 4 lanes
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = fmaxf(fmaxf(sc[0][2 * i], sc[0][2 * i + 1]),
+                       fmaxf(sc[1][2 * i], sc[1][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      float alpha = 1.0f, sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          float& x = sc[j][2 * i + e1];
+          x = m_new != -INFINITY ? expf(x - m_new) : 0.0f;
+          sum += x;
+        }
+      if (m_new != -INFINITY) alpha = expf(m[i] - m_new);
+      sum += __shfl_xor_sync(FULL, sum, 1);
+      sum += __shfl_xor_sync(FULL, sum, 2);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        o[n][2 * i] *= alpha;
+        o[n][2 * i + 1] *= alpha;
+      }
+    }
+    // O += P.V with P rounded to bf16: the accumulators are the A operand
+    const unsigned pa[4] = {pack_bf16(sc[0][0], sc[0][1]),
+                            pack_bf16(sc[0][2], sc[0][3]),
+                            pack_bf16(sc[1][0], sc[1][1]),
+                            pack_bf16(sc[1][2], sc[1][3])};
+#pragma unroll
+    for (int n = 0; n < DP / 8; n += 2) {
+      unsigned vb[4];
+      ldsm_x4_trans(vb, vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * ST +
+                            n * 8 + (lane >> 4) * 8);
+      mma_bf16(o[n], pa, vb[0], vb[1]);
+      mma_bf16(o[n + 1], pa, vb[2], vb[3]);
+    }
+    __syncthreads();  // every warp is done with this stage
+    if (ld < k_hi) {
+      load(ld, stage);
+      ld = next_live(ld + BK);
+    }
+    cp_async_commit();
+    cur = next_live(cur + BK);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the warps' partials
+
+  // the warps' partials, rows R.. left out: m [DROWS], l, o [DROWS][OS]
+  float* wp = wpart + warp * L::PART;
+  constexpr int OS = L::OS;
+  if (t4 == 0) {
+    wp[g] = m[0];
+    wp[g + 8] = m[1];
+    wp[DROWS + g] = l[0];
+    wp[DROWS + g + 8] = l[1];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (row_ok[i]) {
+      float* row = wp + 2 * DROWS + (g + 8 * i) * OS + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+        *reinterpret_cast<float2*>(row + 8 * n) =
+            make_float2(o[n][2 * i], o[n][2 * i + 1]);
+    }
+  __syncthreads();
+  // the block's partial: per row the warps' weights once, then o
+  constexpr int NW = DT / 32;
+  if (tid < R) {
+    float mb = -INFINITY, lb = 0.0f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mb = fmaxf(mb, wpart[w * L::PART + tid]);
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float mw = wpart[w * L::PART + tid];
+      const float wt = mw == -INFINITY ? 0.0f : expf(mw - mb);
+      lb = fmaf(wt, wpart[w * L::PART + DROWS + tid], lb);
+      wts[tid * DMAX_SPLIT + w] = wt;
+    }
+    part[tid] = mb;
+    part[DROWS + tid] = lb;
   }
   __syncthreads();
-
-  // softmax of the split, a warp a row: the sum of p in f32, p rounded to
-  // bf16 for P.V
-  for (int r = warp; r < R; r += DT / 32) {
-    const float s0 = p_sh[r * PS + lane], s1 = p_sh[r * PS + lane + 32];
-    float mx = fmaxf(s0, s1);
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-    float p0 = 0.0f, p1 = 0.0f;
-    if (mx != -INFINITY) {
-      p0 = expf(s0 - mx);
-      p1 = expf(s1 - mx);
-    }
-    float sum = p0 + p1;
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(FULL, sum, off);
-    p_sh[r * PS + lane] = __bfloat162float(__float2bfloat16(p0));
-    p_sh[r * PS + lane + 32] = __bfloat162float(__float2bfloat16(p1));
-    if (lane == 0) {
-      const int s = r / group, h = hk * group + r % group;
-      const size_t at = ((size_t)(b * S + s) * Hq + h) * n_split + split;
-      part_m[at] = mx;
-      part_l[at] = sum;
-    }
-  }
-  __syncthreads();
-
   for (int e = tid; e < R * DP; e += DT) {
-    const int r = e / DP, d = e % DP;
-    if (d >= D) continue;
-    float t = 0.0f;
-#pragma unroll 8
-    for (int c = 0; c < BK; ++c)
-      t = fmaf(p_sh[r * PS + c], __bfloat162float(v_sh[c * DP + d]), t);
-    const int s = r / group, h = hk * group + r % group;
-    part_acc[(((size_t)(b * S + s) * Hq + h) * n_split + split) * D + d] = t;
+    const int r = e / DP, c = e % DP;
+    float ob = 0.0f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      ob = fmaf(wts[r * DMAX_SPLIT + w],
+                wpart[w * L::PART + 2 * DROWS + r * OS + c], ob);
+    part[2 * DROWS + r * OS + c] = ob;
   }
+  cluster.sync();  // every block's partial is written
+
+  // per row the splits' weights over the row's sum (0 for a row with no
+  // live key), in every block
+  if (tid < R) {
+    float mj[DMAX_SPLIT], mx = -INFINITY, lt = 0.0f;
+#pragma unroll
+    for (int j = 0; j < DMAX_SPLIT; ++j)
+      if (j < n_split) {
+        mj[j] = cluster.map_shared_rank(part, j)[tid];
+        mx = fmaxf(mx, mj[j]);
+      }
+#pragma unroll
+    for (int j = 0; j < DMAX_SPLIT; ++j)
+      if (j < n_split) {
+        mj[j] = mj[j] == -INFINITY ? 0.0f : expf(mj[j] - mx);
+        lt = fmaf(mj[j], cluster.map_shared_rank(part, j)[DROWS + tid], lt);
+      }
+    const float inv = lt > 0.0f ? 1.0f / lt : 0.0f;
+#pragma unroll
+    for (int j = 0; j < DMAX_SPLIT; ++j)
+      if (j < n_split) wts[tid * DMAX_SPLIT + j] = mj[j] * inv;
+  }
+  __syncthreads();
+  // element (r, d) of the output, by thread split * DT + tid of the
+  // cluster: the splits' o in split order, rounded to bf16 once
+  for (int e = split * DT + tid; e < R * D; e += n_split * DT) {
+    const int r = e / D, d = e % D;
+    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < DMAX_SPLIT; ++j)
+      if (j < n_split)
+        acc = fmaf(wts[r * DMAX_SPLIT + j],
+                   cluster.map_shared_rank(part, j)[2 * DROWS + r * OS + d],
+                   acc);
+    const int s = r / group, h = hk * group + r % group;
+    out[((size_t)(b * S + s) * Hq + h) * D + d] = __float2bfloat16(acc);
+  }
+  cluster.sync();  // no block leaves while another reads its partial
 }
 
 // ---------------------------------------------------------------------------
@@ -1920,9 +2223,9 @@ static int launch_decode(const float* q, const float* k, const float* v,
   e = (int)cudaGetLastError();
   if (e) return e;
   const int rows = B * S * Hq;
-  flash_decode_combine_kernel<float>
-      <<<(rows + DT / 32 - 1) / (DT / 32), DT, 0, st>>>(
-          part_m, part_l, part_acc, out, rows, n_split, D);
+  flash_decode_combine_kernel<<<(rows + DT / 32 - 1) / (DT / 32), DT, 0,
+                                st>>>(part_m, part_l, part_acc, out, rows,
+                                      n_split, D);
   return (int)cudaGetLastError();
 }
 
@@ -2001,25 +2304,35 @@ static int launch_prefill_bf16(const bf16* q, const bf16* k, const bf16* v,
 template <int DP>
 static int launch_decode_bf16(const bf16* q, const bf16* k, const bf16* v,
                               const int* q_pos, const int* k_pos, bf16* out,
-                              float* part_m, float* part_l, float* part_acc,
                               int B, int S, int T, int Hq, int Hkv, int D,
-                              int causal, int window, cudaStream_t st) {
-  const int R = S * (Hq / Hkv);
-  const size_t smem = sizeof(bf16) * ((size_t)(R + BK) * (DP + 8) + BK * DP) +
-                      sizeof(float) * (size_t)R * PS;
-  int e = allow_smem(flash_decode_partial_bf16_kernel<DP>, smem);
+                              int causal, int window, int n_split,
+                              int split_keys, cudaStream_t st) {
+  using L = DecodeTile<DP>;
+  if (S * (Hq / Hkv) > DROWS || n_split < 1 || n_split > DMAX_SPLIT ||
+      split_keys < BK || split_keys % BK ||
+      (long long)n_split * split_keys < T ||
+      (long long)(n_split - 1) * split_keys >= T)
+    return (int)cudaErrorInvalidValue;
+  // and a byte a tile of the split, for its liveness
+  const size_t smem = L::SMEM + (size_t)(split_keys / BK + 15) / 16 * 16;
+  int e = allow_smem(flash_decode_bf16_kernel<DP>, smem);
   if (e) return e;
-  const int n_split = (T + BK - 1) / BK;
-  flash_decode_partial_bf16_kernel<DP>
-      <<<dim3(n_split, Hkv, B), DT, smem, st>>>(
-          q, k, v, q_pos, k_pos, part_m, part_l, part_acc, S, T, Hq, Hkv, D,
-          causal, window, 1.0f / sqrtf((float)D));
-  e = (int)cudaGetLastError();
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = n_split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, Hkv, B);
+  cfg.blockDim = dim3(DT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  e = (int)cudaLaunchKernelEx(&cfg, flash_decode_bf16_kernel<DP>, q, k, v,
+                              q_pos, k_pos, out, S, T, Hq, Hkv, D, causal,
+                              window, split_keys, 1.0f / sqrtf((float)D));
   if (e) return e;
-  const int rows = B * S * Hq;
-  flash_decode_combine_kernel<bf16>
-      <<<(rows + DT / 32 - 1) / (DT / 32), DT, 0, st>>>(
-          part_m, part_l, part_acc, out, rows, n_split, D);
   return (int)cudaGetLastError();
 }
 
@@ -2037,9 +2350,12 @@ static int launch_backward(const float* q, const float* k, const float* v,
       out, dout, delta, rows, S, Hq, D);
   int e = (int)cudaGetLastError();
   if (e) return e;
-  const size_t kv_smem = sizeof(float) * (2 * BK * (DP + 4) +
-                                          2 * BQ * (DP + 4) + 2 * BK * PS +
-                                          3 * BQ);
+  using L = BwdTile<DP>;
+  // and a byte a streamed tile, for its liveness
+  const size_t kv_smem =
+      L::KV_SMEM + (size_t)((S + BC - 1) / BC + 15) / 16 * 16;
+  const size_t q_smem =
+      L::Q_SMEM + (size_t)((T + BC - 1) / BC + 15) / 16 * 16;
   e = allow_smem(flash_bwd_dkdv_kernel<DP>, kv_smem);
   if (e) return e;
   // one query head's share per block; a group's shares are added after
@@ -2059,8 +2375,6 @@ static int launch_backward(const float* q, const float* k, const float* v,
     e = (int)cudaGetLastError();
     if (e) return e;
   }
-  const size_t q_smem =
-      sizeof(float) * (2 * BQ * (DP + 4) + 2 * BK * (DP + 4) + BQ * PS);
   e = allow_smem(flash_bwd_dq_kernel<DP>, q_smem);
   if (e) return e;
   flash_bwd_dq_kernel<DP>
@@ -2157,16 +2471,20 @@ int flash_attention_prefill_bf16(const bf16* q, const bf16* k, const bf16* v,
                     T, Hq, Hkv, D, causal, window, (cudaStream_t)stream)
 }
 
-// As flash_attention_decode for q, k, v and out in bf16; the partials are
-// f32 scratch of the same sizes.
+// As flash_attention_decode for q, k, v and out in bf16, in one launch and
+// without scratch: the keys of each (batch, KV head) cut into n_split
+// splits of split_keys keys (a multiple of 64; n_split from 1 to 8, none
+// empty by shape), one block of a cluster each.  The wrapper picks both
+// from the shapes and the card's multiprocessor count (ops.decode_splits);
+// R = S * Hq/Hkv must be at most 16.  Other values return
+// cudaErrorInvalidValue.
 int flash_attention_decode_bf16(const bf16* q, const bf16* k, const bf16* v,
                                 const int* q_pos, const int* k_pos, bf16* out,
-                                float* part_m, float* part_l,
-                                float* part_acc, int B, int S, int T, int Hq,
-                                int Hkv, int D, int causal, int window,
-                                void* stream) {
-  DISPATCH_HEAD_DIM(D, launch_decode_bf16, q, k, v, q_pos, k_pos, out, part_m,
-                    part_l, part_acc, B, S, T, Hq, Hkv, D, causal, window,
+                                int B, int S, int T, int Hq, int Hkv, int D,
+                                int causal, int window, int n_split,
+                                int split_keys, void* stream) {
+  DISPATCH_HEAD_DIM(D, launch_decode_bf16, q, k, v, q_pos, k_pos, out, B, S,
+                    T, Hq, Hkv, D, causal, window, n_split, split_keys,
                     (cudaStream_t)stream)
 }
 

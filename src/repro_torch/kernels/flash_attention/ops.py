@@ -11,9 +11,10 @@ The source has two forward entry points, picked from the shapes alone
 (:func:`uses_decode`) for calls that need no gradient: the split-key
 decode when the query rows of one KV head, ``S · Hq/Hkv``, are at most
 ``DECODE_MAX_ROWS`` (a serving decode step: S = 1), else the tiled
-prefill.  The decode's split length is the source's own
+prefill.  The f32 decode's split length is the source's own
 (``flash_attention_split_keys``); the wrapper reads it to size the
-partials' scratch.
+partials' scratch.  The bf16 decode is one launch without scratch, a
+cluster of blocks per KV head, its splits from :func:`decode_splits`.
 
 Every entry point takes each head dim that is a multiple of 8 from 8 to
 128 (:func:`padded_head_dim`): the kernels run at the next tile width the
@@ -23,7 +24,8 @@ copies none of them.
 The source takes f32 and bf16.  A bf16 call (q, k and v all bf16)
 launches the bf16 entry points (``flash_attention_prefill_bf16``, on
 Hopper's tensor cores by ``wgmma`` over TMA copies, and
-``flash_attention_decode_bf16``), counted under
+``flash_attention_decode_bf16``, by ``mma.sync`` in one cluster launch),
+counted under
 ``flash_attention_bf16`` and ``flash_attention_bf16_prefill`` /
 ``flash_attention_bf16_decode``; the f32 keys count f32 launches only.
 Mixed types raise, on every device: nothing is cast quietly.
@@ -34,8 +36,8 @@ function: its forward takes the prefill entry point whatever the shape,
 which also writes each row's log-sum-exp, and its backward launches the
 source's backward entry point (:func:`flash_attention_bwd_cuda`, three
 kernels, four with grouped heads, counted as one launch of
-``flash_attention_bwd``).  On the CPU,
-autograd runs through the plain version.  The backward takes f32 only: a
+``flash_attention_bwd``; its products on tensor cores in 3xTF32).  On the
+CPU, autograd runs through the plain version.  The backward takes f32 only: a
 bf16 call on the card that needs a gradient raises (bf16 training, with a
 bf16 backward, is the next item of ROADMAP Queue 1).
 """
@@ -78,19 +80,61 @@ def uses_decode(s: int, hq: int, hk: int) -> bool:
     return s * (hq // hk) <= DECODE_MAX_ROWS
 
 
+#: Most splits of the bf16 decode, the blocks of one cluster (the
+#: portable cluster size).
+DECODE_MAX_SPLITS = 8
+
+#: Keys of a tile, the unit of a bf16 decode split.
+DECODE_TILE = 64
+
+#: Tiles a bf16 decode split streams at most where more splits are
+#: allowed: a block walks its tiles one after another, so a long split is
+#: a long chain (whisper-large-v3's cross decode, 24 tiles over 80 KV
+#: heads, takes 4 splits).
+DECODE_SPLIT_TILES = 6
+
+
+def decode_splits(b: int, t: int, hk: int, sms: int) -> tuple[int, int]:
+    """``(n_split, split_keys)`` of the bf16 decode for batch ``b``, ``t``
+    cache slots and ``hk`` KV heads on a card of ``sms`` multiprocessors:
+    the slots of each (batch, KV head) cut into ``n_split`` contiguous
+    splits of ``split_keys`` (a multiple of :data:`DECODE_TILE`), one block
+    of a cluster each.  Enough splits for a block a multiprocessor and
+    splits of at most :data:`DECODE_SPLIT_TILES` tiles, within
+    :data:`DECODE_MAX_SPLITS` and one a tile; the split length then evens
+    the tiles out, so that no split is empty by shape.  A pure function of
+    the shapes and the card: the order of every sum, and so the bits, are
+    the same from run to run."""
+    tiles = -(-t // DECODE_TILE)
+    want = max(-(-sms // (b * hk)), -(-tiles // DECODE_SPLIT_TILES))
+    want = min(DECODE_MAX_SPLITS, tiles, want)
+    per = -(-tiles // want)
+    return -(-tiles // per), per * DECODE_TILE
+
+
+_sms: dict[int, int] = {}
+
+
+def _sm_count(dev) -> int:
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _sms:
+        _sms[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _sms[i]
+
+
 #: The types the kernel takes; q, k, v and the output share one.
 DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _load():
     lib = _lib.load("flash_attention")
-    for fn, n_ptr in ((lib.flash_attention_prefill, 7),
-                      (lib.flash_attention_decode, 9),
-                      (lib.flash_attention_backward, 13),
-                      (lib.flash_attention_prefill_bf16, 6),
-                      (lib.flash_attention_decode_bf16, 9)):
+    for fn, n_ptr, n_int in ((lib.flash_attention_prefill, 7, 8),
+                             (lib.flash_attention_decode, 9, 8),
+                             (lib.flash_attention_backward, 13, 8),
+                             (lib.flash_attention_prefill_bf16, 6, 8),
+                             (lib.flash_attention_decode_bf16, 6, 10)):
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
     lib.flash_attention_split_keys.restype = ctypes.c_int
     lib.flash_attention_split_keys.argtypes = []
@@ -165,14 +209,17 @@ def _forward(q, k, v, q_pos, k_pos, causal, window, lse):
     decode = lse is None and uses_decode(s, hq, hk)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if decode:
+        if decode and bf16:
+            rc = lib.flash_attention_decode_bf16(
+                *args, *dims, *decode_splits(b, t, hk, _sm_count(dev)),
+                stream)
+        elif decode:
             # per (row, query head, split): running max, sum, accumulator
             n = b * s * hq * -(-t // lib.flash_attention_split_keys())
             part = torch.empty(n * (2 + d), dtype=torch.float32, device=dev)
-            fn = (lib.flash_attention_decode_bf16 if bf16
-                  else lib.flash_attention_decode)
-            rc = fn(*args, part.data_ptr(), part[n:].data_ptr(),
-                    part[2 * n:].data_ptr(), *dims, stream)
+            rc = lib.flash_attention_decode(
+                *args, part.data_ptr(), part[n:].data_ptr(),
+                part[2 * n:].data_ptr(), *dims, stream)
         elif bf16:
             rc = lib.flash_attention_prefill_bf16(*args, *dims, stream)
         else:

@@ -3,9 +3,11 @@
 The reference for ``csrc/flash_attention.cu`` and the path the wrapper
 takes for CPU tensors (autograd runs through it there).
 :func:`attention_lse_ref` and :func:`attention_bwd_ref` mirror the
-kernel's log-sum-exp output and its backward.  It is the model's attention function
-(``models/layers.py`` ``_direct_attention`` in the reference package) in
-the model layout, with the masks that take explicit positions:
+kernel's log-sum-exp output and its backward (the latter also with the
+kernel's 3xTF32 products, :func:`einsum_3xtf32`).  It is the model's
+attention function (``models/layers.py`` ``_direct_attention`` in the
+reference package) in the model layout, with the masks that take
+explicit positions:
 
 * ``k_pos >= 0`` (−1 marks an empty cache slot),
 * causal ``k_pos <= q_pos``,
@@ -67,30 +69,52 @@ def attention_lse_ref(q, k, *, q_pos, k_pos, causal=True, window=None):
     return torch.logsumexp(scores, dim=-1).reshape(b, hq, s)
 
 
+def tf32_split(x):
+    """f32 ``x`` as two TF32 numbers ``(hi, lo)``: ``hi`` is x with the low
+    13 bits of its mantissa cleared, ``lo`` the same of x − hi (which is
+    exact), so x ≈ hi + lo to about 2⁻²⁰ of |x|."""
+    mask = torch.tensor(-8192, dtype=torch.int32)          # 0xffffe000
+    hi = (x.contiguous().view(torch.int32) & mask).view(torch.float32)
+    lo = ((x - hi).contiguous().view(torch.int32) & mask).view(torch.float32)
+    return hi, lo
+
+
+def einsum_3xtf32(eq, a, b):
+    """``torch.einsum(eq, a, b)`` as the backward kernel's tensor cores take
+    it (3xTF32): a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, each product of two
+    TF32 numbers exact in f32, summed in f32; a_lo·b_lo dropped."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
 def attention_bwd_ref(q, k, v, out, dout, lse, *, q_pos, k_pos, causal=True,
-                      window=None):
+                      window=None, tf32x3=False):
     """The algebra of the kernel's backward in plain torch: P recomputed
     from the saved log-sum-exp ``lse [B,Hq,S]``, D = rowsum(dO∘O), then
     dV = Pᵀ·dO, dS = P∘(dO·Vᵀ − D), dQ = dS·K / √D and dK = dSᵀ·Q / √D,
     with dK and dV summed over the query heads of a KV group.  Returns
-    f32 ``(dq [B,S,Hq,D], dk [B,T,Hkv,D], dv [B,T,Hkv,D])``."""
+    f32 ``(dq [B,S,Hq,D], dk [B,T,Hkv,D], dv [B,T,Hkv,D])``.  With
+    ``tf32x3`` the five products are taken as the kernel's tensor cores
+    take them (:func:`einsum_3xtf32`; for tests), else in f32."""
     b, s, hq, d = q.shape
     hk = k.shape[2]
     g = hq // hk
     scale = 1.0 / math.sqrt(d)
+    mm = einsum_3xtf32 if tf32x3 else torch.einsum
     qg = q.float().reshape(b, s, hk, g, d)
     dog = dout.float().reshape(b, s, hk, g, d)
     kf, vf = k.float(), v.float()
     live = live_mask(q_pos, k_pos, causal, window)
-    scores = torch.einsum("bshgd,bthd->bhgst", qg, kf) * scale
+    scores = mm("bshgd,bthd->bhgst", qg, kf) * scale
     m = lse.reshape(b, hk, g, s)[..., None]
     p = torch.where(live, torch.exp(scores - m), 0.0)
     delta = (dog * out.float().reshape(b, s, hk, g, d)).sum(-1)
-    dv = torch.einsum("bhgst,bshgd->bthd", p, dog)
-    dp = torch.einsum("bshgd,bthd->bhgst", dog, vf)
+    dv = mm("bhgst,bshgd->bthd", p, dog)
+    dp = mm("bshgd,bthd->bhgst", dog, vf)
     ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
-    dq = torch.einsum("bhgst,bthd->bshgd", ds, kf) * scale
-    dk = torch.einsum("bhgst,bshgd->bthd", ds, qg) * scale
+    dq = mm("bhgst,bthd->bshgd", ds, kf) * scale
+    dk = mm("bhgst,bshgd->bthd", ds, qg) * scale
     return dq.reshape(b, s, hq, d), dk, dv
 
 

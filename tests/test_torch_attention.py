@@ -15,8 +15,17 @@ reference.
   split-key decode (partials per 64-key split, merged in index order),
   against ``attention_ref`` and the reference's ``layers.attention`` on
   rolled caches with wholly dead splits and windows; f32 within 2e-5.
+* ``decode_splits``, the bf16 decode's split rule: every key in exactly
+  one split, splits a multiple of 64 keys, at most 8, none empty by shape,
+  the serving shapes' splits on 132 and 114 multiprocessors.
+* The backward's 3xTF32 products (``attention_bwd_ref(tf32x3=True)``,
+  TF32 by clearing the low 13 mantissa bits) against ``jax.grad`` of the
+  reference's ``layers.attention``: within 1e-4 of each gradient's
+  largest entry, the kernel's tolerance, at whisper-like non-causal
+  shapes and a windowed GQA one.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,13 +34,19 @@ import torch
 from repro.kernels.flash_attention.ops import gqa_attention as j_gqa
 from repro.models import layers as JL
 from repro_torch.kernels import _lib
-from repro_torch.kernels.flash_attention.ops import (TILE_WIDTHS,
+from repro_torch.kernels.flash_attention.ops import (DECODE_MAX_SPLITS,
+                                                     DECODE_SPLIT_TILES,
+                                                     TILE_WIDTHS,
+                                                     decode_splits,
                                                      gqa_attention,
                                                      padded_head_dim,
                                                      uses_decode)
-from repro_torch.kernels.flash_attention.ref import (attention_ref, live_mask,
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref, live_mask,
                                                      rolled_pos_tab,
-                                                     split_attention_ref)
+                                                     split_attention_ref,
+                                                     tf32_split)
 from repro_torch.models import layers as TL
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
@@ -185,3 +200,83 @@ def test_every_multiple_of_8_up_to_128_is_a_head_dim(d):
 def test_other_head_dims_raise_naming_the_head_dim(d):
     with pytest.raises(ValueError, match=f"head dim {d} "):
         padded_head_dim(d)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("b,t,hk", [
+    (4, 1024, 8), (4, 1500, 20), (4, 1024, 3), (2, 511, 1), (2, 512, 1),
+    (2, 513, 1), (1, 64, 1), (1, 1, 1), (64, 1024, 8), (4, 8192, 8),
+    (1, 100_000, 1)])
+def test_decode_splits_cover_the_keys_once(b, t, hk, sms):
+    n_split, split_keys = decode_splits(b, t, hk, sms)
+    assert 1 <= n_split <= DECODE_MAX_SPLITS and split_keys % 64 == 0
+    assert (n_split - 1) * split_keys < t <= n_split * split_keys
+    # splits of at most DECODE_SPLIT_TILES tiles where the cluster's size
+    # allows it, and never more splits than the rule asks for
+    if n_split < DECODE_MAX_SPLITS:
+        assert split_keys <= 64 * DECODE_SPLIT_TILES
+    assert n_split <= max(-(-sms // (b * hk)),
+                          -(-t // (64 * DECODE_SPLIT_TILES)))
+
+
+@pytest.mark.parametrize("sms,shape,want", [
+    (132, (4, 1024, 8), (4, 256)),     # yi-34b, danube: the serve cache
+    (132, (4, 1500, 20), (4, 384)),    # whisper's cross decode
+    (114, (4, 1500, 20), (4, 384)),
+    (132, (4, 1024, 3), (8, 128)),     # smollm
+    (114, (4, 1024, 3), (8, 128)),
+    (132, (4, 8192, 8), (8, 1024)),    # a long cache: 8 splits at most
+    (132, (64, 1024, 8), (3, 384)),    # blocks enough: splits of 6 tiles
+])
+def test_decode_splits_at_the_serving_shapes(sms, shape, want):
+    assert decode_splits(*shape, sms) == want
+
+
+def test_tf32_split_keeps_19_bits_and_the_rest():
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        1000).astype(np.float32))
+    hi, lo = tf32_split(x)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    assert bool(((x - hi) != 0).any())
+    assert float(((x - hi - lo).abs() / x.abs()).max()) < 2.0 ** -19
+
+
+@pytest.mark.parametrize("b,s,t,hq,hk,d,causal,window", [
+    (1, 40, 150, 4, 4, 64, False, None),   # whisper cross: S != T
+    (1, 96, 96, 4, 4, 64, False, None),    # whisper encoder
+    (2, 48, 48, 6, 2, 32, True, 20)])
+def test_attention_bwd_3xtf32_matches_jax_grad(b, s, t, hq, hk, d, causal,
+                                               window):
+    """The backward kernel's algebra with its 3xTF32 products holds the
+    kernel's tolerance, 1e-4 of each gradient's largest entry, against
+    ``jax.grad`` of the reference attention in f32; it is not the f32
+    algebra bit for bit (the emulation is live)."""
+    rng = np.random.default_rng(s + t)
+    q = rng.standard_normal((b, s, hq, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, t, hk, d)).astype(np.float32)
+            for _ in range(2))
+    dout = rng.standard_normal((b, s, hq, d)).astype(np.float32)
+    q_pos = np.arange(t - s, t, dtype=np.int32)
+    k_pos = np.arange(t, dtype=np.int32)
+
+    def f(q_, k_, v_):
+        out = JL.attention(q_, k_, v_, q_pos=jnp.asarray(q_pos),
+                           k_pos=jnp.asarray(k_pos), causal=causal,
+                           window=window)
+        return jnp.sum(out * dout)
+    exp = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, dout))
+    pos = dict(q_pos=torch.from_numpy(q_pos), k_pos=torch.from_numpy(k_pos),
+               causal=causal, window=window)
+    out = attention_ref(tq, tk, tv, **pos)
+    lse = attention_lse_ref(tq, tk, **pos)
+    got = attention_bwd_ref(tq, tk, tv, out, tdo, lse, tf32x3=True, **pos)
+    f32 = attention_bwd_ref(tq, tk, tv, out, tdo, lse, **pos)
+    assert not all(torch.equal(a, c) for a, c in zip(got, f32))
+    for g, e in zip(got, exp):
+        e = np.asarray(e)
+        assert g.shape == e.shape
+        assert float(np.abs(g.numpy() - e).max()) \
+            <= 1e-4 * float(np.abs(e).max())

@@ -7,7 +7,9 @@ The reference's working type is bf16 (``init_model(dtype=jnp.bfloat16)``,
 * K3's plain version in bf16 against the Pallas kernel in interpret mode on
   the same bf16 inputs, over the shapes of ``test_torch_attention.py:56``
   (causal, windowed, non-causal; mirrors ``test_kernels.py:294-313``), and
-  the plain split-key decode algebra in bf16 against it on rolled caches;
+  the plain split-key decode algebra in bf16 against it on rolled caches,
+  and at the splits the bf16 decode's rule (``decode_splits``) gives on 132
+  and 114 multiprocessors against the Pallas kernel in interpret mode;
 * K4's plain version in bf16 against the Pallas ``ssd_scan`` in interpret
   mode (mirrors ``test_kernels.py:320-354``) and against the model's
   ``ssd_chunked`` in bf16;
@@ -62,7 +64,8 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.convert import (params_from_numpy, params_to_numpy,
                                  reference_params_numpy)
 from repro_torch.kernels import _lib
-from repro_torch.kernels.flash_attention.ops import gqa_attention
+from repro_torch.kernels.flash_attention.ops import (decode_splits,
+                                                     gqa_attention)
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      rolled_pos_tab,
                                                      split_attention_ref)
@@ -156,6 +159,39 @@ def test_bf16_split_key_decode_algebra_matches_attention_ref(
     exp = attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos, window=window)
     assert got.dtype == exp.dtype == BF16
     _rows_close(got, exp.float().numpy(), KERNEL_ULPS)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("label,s,t,hq,hk,d,rule_shape", [
+    # whisper-large-v3's cross decode (R = 1) at the split its serve shape
+    # (4 x 20 KV heads) gets, on 4 of its heads
+    ("whisper cross", 1, 1500, 4, 4, 64, (4, 1500, 20)),
+    # yi-34b's GQA 7 at head dim 128 (R = 7) over its 1,024 slots
+    ("yi-34b", 1, 1024, 14, 2, 128, (4, 1024, 8)),
+    # 16 rows (two positions of GQA 8), the decode's most
+    ("16 rows", 2, 600, 16, 2, 32, (2, 600, 2)),
+])
+def test_bf16_split_key_decode_at_the_rule_matches_pallas(
+        label, s, t, hq, hk, d, rule_shape, sms):
+    """The kernel's split-and-merge decode in bf16 at the split length the
+    bf16 decode's rule gives (``decode_splits``; 384 or 512 keys for
+    whisper's cross decode on 132 or 114 multiprocessors), non-causal (the
+    Pallas kernel counts positions from 0, so a causal decode row would see
+    one key), against the Pallas kernel in interpret mode."""
+    n_split, split = decode_splits(*rule_shape, sms)
+    assert n_split > 1 and split % 64 == 0
+    rng = np.random.default_rng(t + hq)
+    (jq, q), (jk, k), (jv, v) = (
+        _bf16(rng.standard_normal(shape).astype(np.float32)) for shape in
+        ((1, s, hq, d), (1, t, hk, d), (1, t, hk, d)))
+    got = split_attention_ref(q, k, v, q_pos=torch.full((s,), t - 1,
+                                                        dtype=torch.int32),
+                              k_pos=torch.arange(t, dtype=torch.int32),
+                              causal=False, split=split)
+    exp = j_gqa(jq, jk, jv, causal=False, impl="pallas", q_block=8,
+                kv_block=128)
+    assert got.dtype == BF16
+    _rows_close(got, exp.astype(jnp.float32), KERNEL_ULPS)
 
 
 SSD_CASES = [(2, 96, 4, 32, 2, 16, 32), (1, 200, 2, 16, 1, 8, 64),

@@ -21,9 +21,12 @@ launches the sketch kernel once per chunk from the carried state and its
 output equals one-shot recording and the CPU's plain path bit for bit;
 the ``--tiny`` campaign on the card equals the CPU port's (scores within
 ``rel=1e-5``), and its thread executor equals serial exactly.  On the
-train path: K3's backward within 1e-4 of each gradient's largest entry
-against torch autograd through the plain attention, bit-identical over
-two runs; the log-sum-exp output leaves the prefill's output unchanged;
+train path: K3's backward (3xTF32 on tensor cores) within 1e-4 of each
+gradient's largest entry against torch autograd through the plain
+attention, bit-identical over two runs, at smollm-135m's shape, GQA 3 and
+4, a window, head dims 16, 120 and 128 and a cut of whisper's
+cross-attention (non-causal, S != T); the log-sum-exp output leaves the
+prefill's output unchanged;
 K4's backward through its autograd function within 1e-4 of each
 gradient's largest entry against its plain mirror and torch autograd
 through the plain scan, bit-identical over two runs; a full-size
@@ -45,7 +48,13 @@ and K4's forward in bf16 against their plain versions in bf16, within four
 bf16 ulps of each output row's largest entry (the kernel and the plain
 version sum in other orders and may round P, or y, on either side of a
 boundary), bit-identical over two runs; mixed types, and a bf16 call that
-needs a gradient, raise.  Head dims that are no tile width (8, 24, 120):
+needs a gradient, raise.  The bf16 decode (one cluster launch) at its
+edges: T about a split's end, one live key, every split dead but one, a
+row with no live key (0), whisper's R = 1 over 1,500 frames, R = 7 and
+16, head dims 8, 24 and 120 with windows over rolled caches; also against
+the plain split-key algebra at the kernel's own splits, and one device
+kernel a call in a profiler trace.
+Head dims that are no tile width (8, 24, 120):
 each of K3's five entry points (the f32 prefill with and without its
 log-sum-exp, the f32 split-key decode, the f32 backward, the bf16 prefill
 and the bf16 decode) against the plain version at the tolerances above,
@@ -65,6 +74,7 @@ from repro_torch.kernels.failrank_step.ref import (failrank_iterate_ref,
                                                    failrank_step_ref)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     live_mask,
                                                      rolled_pos_tab,
                                                      split_attention_ref)
 from repro_torch.kernels.sketch_update import ops as sk_ops
@@ -688,10 +698,18 @@ def _bwd_grads(q, k, v, dout, attend, **pos):
     return qa.grad, ka.grad, va.grad
 
 
-@pytest.mark.parametrize("b,s,t,hq,hk,d,causal,win", [
+#: K3's backward cases: smollm-135m's train shape (GQA 3), GQA 4 with a
+#: window, head dims 16, 128 and 120 (GQA 4, a window), non-causal S != T,
+#: three queries at the end of their keys, and a cut of whisper's cross
+#: attention (256 queries over 1,500 frames, non-causal).
+BWD_CASES = [
     (4, 512, 512, 9, 3, 64, True, None), (2, 300, 300, 8, 2, 32, True, 100),
     (2, 200, 200, 6, 2, 16, True, None), (2, 130, 130, 8, 2, 128, True, None),
-    (1, 100, 160, 4, 4, 64, False, None), (2, 3, 70, 6, 1, 32, True, 20)])
+    (1, 100, 160, 4, 4, 64, False, None), (2, 3, 70, 6, 1, 32, True, 20),
+    (2, 150, 150, 8, 2, 120, True, 50), (1, 256, 1500, 4, 4, 64, False, None)]
+
+
+@pytest.mark.parametrize("b,s,t,hq,hk,d,causal,win", BWD_CASES)
 def test_attention_backward_matches_autograd_of_plain(dev, b, s, t, hq, hk,
                                                       d, causal, win):
     """K3's backward through ``gqa_attention`` against torch autograd
@@ -715,12 +733,16 @@ def test_attention_backward_matches_autograd_of_plain(dev, b, s, t, hq, hk,
         assert float((g - e).abs().max()) <= 1e-4 * float(e.abs().max())
 
 
-def test_attention_backward_two_runs_bit_identical(dev):
-    q, k, v = _attn_inputs(dev, 4, 512, 512, 9, 3, 64)
-    dout = _attn_inputs(dev, 4, 512, 512, 9, 3, 64)[0]
-    pos = torch.arange(512, dtype=torch.int32, device=dev)
-    a, b = (_bwd_grads(q, k, v, dout, fa_ops.gqa_attention, q_pos=pos,
-                       k_pos=pos) for _ in range(2))
+@pytest.mark.parametrize("b,s,t,hq,hk,d,causal,win", BWD_CASES)
+def test_attention_backward_two_runs_bit_identical(dev, b, s, t, hq, hk, d,
+                                                   causal, win):
+    q, k, v = _attn_inputs(dev, b, s, t, hq, hk, d)
+    dout = _attn_inputs(dev, b, s, s, hq, hk, d)[0]
+    pos = dict(q_pos=torch.arange(t - s, t, dtype=torch.int32, device=dev),
+               k_pos=torch.arange(t, dtype=torch.int32, device=dev),
+               causal=causal, window=win)
+    a, b = (_bwd_grads(q, k, v, dout, fa_ops.gqa_attention, **pos)
+            for _ in range(2))
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
@@ -1021,9 +1043,89 @@ def test_bf16_attention_over_rolled_caches(dev, t_max, first, last, empty, s,
     assert torch.equal(*runs)
     _assert_bf16_rows_close(runs[0], attention_ref(
         q, k, v, q_pos=q_pos, k_pos=k_pos, window=window))
+    split = fa_ops.decode_splits(2, t_max, hk, fa_ops._sm_count(dev))[1] \
+        if fa_ops.uses_decode(s, hq, hk) else 64
     _assert_bf16_rows_close(runs[0].cpu(), split_attention_ref(
         q.cpu(), k.cpu(), v.cpu(), q_pos=q_pos.cpu(), k_pos=k_pos.cpu(),
-        window=window))
+        window=window, split=split))
+
+
+def _device_kernels(fn, calls=5):
+    """The names of the device kernels that ``calls`` calls of ``fn``
+    launch, from a profiler trace (which may drop a record)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+#: (label, B, query positions, Hq, Hkv, D, T, rolled_pos_tab arguments or
+#: None for positions 0..T-1, causal, window) of the bf16 decode's edge
+#: cases: T about a split's end (the split length comes from the shapes),
+#: one live key, every split dead but one, a row with no live key (0),
+#: whisper's R = 1 over 1,500 frames, yi-34b's R = 7, 16 rows, head dims
+#: 8, 24 and 120 with windows over rolled caches.
+BF16_DECODE_CASES = [
+    ("T 511", 2, [510], 8, 2, 64, 511, None, True, None),
+    ("T 512", 2, [511], 8, 2, 64, 512, None, True, None),
+    ("T 513", 2, [512], 8, 2, 64, 513, None, True, None),
+    ("T 1023", 2, [1022], 8, 2, 64, 1023, None, True, None),
+    ("T 1025", 2, [1024], 8, 2, 64, 1025, None, True, None),
+    ("one live key", 2, [300], 8, 1, 32, 512, (512, 300, 300), True, None),
+    ("every split dead but one", 2, [230], 7, 1, 16, 512, (512, 200, 230),
+     True, None),
+    ("a row with no live key", 1, [-5, 299], 6, 3, 24, 300, None, True,
+     None),
+    ("whisper R 1", 4, [543], 20, 20, 64, 1500, None, False, None),
+    ("yi-34b R 7", 4, [543], 56, 8, 128, 1024, (1024, 0, 543), True, None),
+    ("16 rows", 2, [298, 299], 16, 2, 128, 300, None, True, None),
+    ("head dim 8, window", 2, [1299], 16, 1, 8, 1024,
+     (1024, 600, 1299, [5, 77, 700, 1023]), True, 256),
+    ("head dim 24, window", 2, [1299], 8, 2, 24, 1024,
+     (1024, 600, 1299, [5, 77, 700, 1023]), True, 100),
+    ("head dim 120, window", 2, [1299], 32, 8, 120, 1024,
+     (1024, 600, 1299, [5, 77, 700, 1023]), True, 256)]
+
+
+@pytest.mark.parametrize("label,b,qps,hq,hk,d,t,tab,causal,win",
+                         BF16_DECODE_CASES)
+def test_bf16_decode_edge_cases(dev, label, b, qps, hq, hk, d, t, tab,
+                                causal, win):
+    """The bf16 decode (one cluster launch, tensor cores) against the plain
+    version in bf16 and the plain split-key algebra at the kernel's splits,
+    within four bf16 ulps of each row's largest entry; a row with no live
+    key is 0; two runs bit-identical; one launch counted and one device
+    kernel a call."""
+    q, k, v = (x.bfloat16() for x in _attn_inputs(dev, b, len(qps), t, hq,
+                                                  hk, d))
+    q_pos = torch.tensor(qps, dtype=torch.int32, device=dev)
+    k_pos = (torch.arange(t, dtype=torch.int32, device=dev) if tab is None
+             else torch.from_numpy(rolled_pos_tab(*tab)).to(dev))
+    pos = dict(q_pos=q_pos, k_pos=k_pos, causal=causal, window=win)
+    assert fa_ops.uses_decode(len(qps), hq, hk)
+    before = dict(_lib.LAUNCHES)
+    runs = [fa_ops.gqa_attention(q, k, v, **pos) for _ in range(2)]
+    assert _lib.LAUNCHES["flash_attention_bf16_decode"] \
+        == before["flash_attention_bf16_decode"] + 2
+    assert torch.equal(*runs)
+    got = runs[0]
+    has_key = live_mask(q_pos, k_pos, causal, win).any(-1)   # [S]
+    assert bool((got[:, ~has_key] == 0).all())
+    if bool(has_key.any()):
+        exp = attention_ref(q, k, v, **pos)
+        _assert_bf16_rows_close(got[:, has_key], exp[:, has_key])
+    split = fa_ops.decode_splits(b, t, hk, fa_ops._sm_count(dev))[1]
+    _assert_bf16_rows_close(got.cpu(), split_attention_ref(
+        q.cpu(), k.cpu(), v.cpu(), q_pos=q_pos.cpu(), k_pos=k_pos.cpu(),
+        causal=causal, window=win, split=split))
+    names = _device_kernels(lambda: fa_ops.gqa_attention(q, k, v, **pos))
+    assert 1 <= len(names) <= 5
+    assert all(n.startswith("void flash_decode_bf16_kernel<") for n in names)
 
 
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
