@@ -8,7 +8,10 @@
    instructions of K3's kernels in ``cuobjdump -sass`` at every tile
    width: the bf16 prefill must have ``HGMMA`` (wgmma) and no ``HMMA``
    (mma.sync), the bf16 decode ``HMMA``, the backward's dK/dV and dQ
-   kernels ``HMMA`` on TF32 alone (3xTF32);
+   kernels ``HMMA`` on TF32 alone (3xTF32); and of K4's: its backward's
+   product kernels ``HMMA`` on TF32 alone, its bf16 forward's scores
+   ``HMMA`` on bf16 and its other two product kernels on TF32, its f32
+   forward none (``SSD_SASS``);
 2. holds each kernel against its plain torch version on the card: the
    Fail-Slow Sketch insert (random run streams, forced eviction, the
    promotion/steal branches, a per-record stream, a carried state, two
@@ -53,7 +56,8 @@
    be bit-identical; and K3's bf16 entry points (every shape above in
    bf16, yi-34b's GQA 7 prefill and decode, and three edges of the
    decode's splits) and K4's bf16 entry (the
-   SSD shapes, x, b and c in bf16) against their plain versions in bf16,
+   SSD shapes, x, b and c in bf16; tensor cores) against their plain
+   versions in bf16,
    within 4 bf16 ulps of each output row's largest entry, each run twice
    and bit-identical;
 3. drives the detection path, ``Sloth.detect`` with the batched recorder
@@ -144,7 +148,8 @@
    mirror, its bounds (f32 on CUDA cores and 3xTF32 on tensor cores)
    and SDPA's backward through autograd, and K4's
    backward at mamba2-1.3b's (x [4,512,64,64], chunk 128) beside its plain
-   mirror, autograd through the plain scan, its bound and the forward;
+   mirror, autograd through the plain scan, its bounds (the same two
+   rates), its kernels' split and the forward;
 11. drives the train path, ``repro_torch.launch.train.main``, first on
    whisper-large-v3 at full size, 4 steps of 4 × 512 over the launcher's
    zero frames: K3 forward and backward exactly 96 launches a step each
@@ -204,10 +209,15 @@ backward) at head dims 16, 32, 64 and 128 for the port in ``SRC``: two
 trees that give the same line compute the same bits.  With ``SAVE.npz``
 it keeps the outputs, and
 
-    python3 chip_smoke.py --k3-compare A.npz B.npz
+    python3 chip_smoke.py --compare A.npz B.npz
 
 prints, for each output of two such files, whether they are bit-equal and
 their largest gap over the largest entry (no card needed).
+
+    python3 chip_smoke.py --k4-digest SRC [SAVE.npz]
+
+does the same for K4 at ``SSD_CASES``: its f32 forward (y, the final
+state, the scratch its backward reads), its backward and its bf16 forward.
 
     python3 chip_smoke.py --k3-ablations
 
@@ -240,6 +250,9 @@ BF16_FLOP_PER_S = 989e12
 #: f32 products as 3xTF32 on tensor cores: three TF32 products (495
 #: TFLOP/s dense) a product.
 TF32X3_FLOP_PER_S = 495e12 / 3
+#: f32 x bf16 products as two TF32 products (the f32 side split, the bf16
+#: side whole), as K4's bf16 forward takes them.
+TF32X2_FLOP_PER_S = 495e12 / 2
 
 #: Verdicts of the JAX reference (``repro``, recorder_impl="batched", seed 0,
 #: t0=1 s, duration 8 s, slowdown 10×): (flagged, kind, location,
@@ -1806,7 +1819,7 @@ KERNEL_TIME_KEYS = ("ms", "plain_ms", "library_ms", "events_ms",
 ATTN_TIME_KEYS = KERNEL_TIME_KEYS + ("library_is", "library_masked_ms")
 
 #: And of an attention backward's (:func:`time_attention_bwd`).
-BWD_TIME_KEYS = KERNEL_TIME_KEYS + ("bound_3xtf32_ms", "kernels_per_call")
+BWD_TIME_KEYS = KERNEL_TIME_KEYS + ("bound_cuda_core_ms", "kernels_per_call")
 
 
 def time_attention(q, k, v, q_pos, k_pos, reps, window=None, causal=True):
@@ -1913,10 +1926,13 @@ def bound(nbytes, flops, peak=FP32_FLOP_PER_S):
 def time_ssd(dev, reps, bf16=False):
     """Kernel and plain version at mamba2-1.3b's serving prefill (the
     serving path starts from a zero state), with x, b and c in bf16 if
-    ``bf16``; bound from bytes and from the f32 operations (the bf16 entry
-    computes in f32 too) of the causal half of C·Bᵀ (once per group: the
-    heads of a group share C and B), the intra-chunk product, the state
-    update and the inter-chunk term."""
+    ``bf16``; bound from bytes and from the operations of the causal half
+    of C·Bᵀ (once per group: the heads of a group share C and B), the
+    intra-chunk product, the state update and the inter-chunk term, at
+    the rates of the units that run them: the f32 entry's on CUDA cores,
+    the bf16 entry's on tensor cores (C·Bᵀ at the bf16 rate, the other
+    three as two TF32 products each), with its CUDA-core figure beside it
+    (``bound_cuda_core_ms``)."""
     from repro_torch.kernels.ssd_scan.ops import ssd_cuda
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
     b, s, h, p, g, n, q = SSD_CASES[-1]
@@ -1936,10 +1952,19 @@ def time_ssd(dev, reps, bf16=False):
                  for x in (*args, st0, yk, sk))
     pairs = sum(m * (m + 1) // 2 for m in
                 [min(q, s - t0) for t0 in range(0, s, q)])
-    flops = b * (g * 2 * pairs * n + h * (2 * pairs * p + 4 * s * p * n))
-    return {**times(kernel, plain, None, reps), **bound(nbytes, flops),
-            "kernel_breakdown_ms": launch_breakdown(kernel, reps),
-            "max_abs_err": err}
+    scores = b * g * 2 * pairs * n
+    flops = scores + b * h * (2 * pairs * p + 4 * s * p * n)
+    roof = bound(nbytes, flops)
+    if bf16:
+        # the products' mix as one rate: scores at bf16's, the rest at
+        # two TF32 passes'
+        roof = bound(nbytes, flops, flops / (scores / BF16_FLOP_PER_S + (
+            flops - scores) / TF32X2_FLOP_PER_S)) | {
+                "bound_cuda_core_ms": roof["bound_ms"]}
+    breakdown = launch_breakdown(kernel, reps)
+    return {**times(kernel, plain, None, reps), **roof,
+            "kernel_breakdown_ms": breakdown,
+            "kernels_per_call": len(breakdown) or None, "max_abs_err": err}
 
 
 def time_ssd_bwd(dev, reps):
@@ -1952,8 +1977,10 @@ def time_ssd_bwd(dev, reps):
     Ŝ·B_j and dC's and dB's state terms, 8·nl·P·N; dy·uᵀ and (M∘E)ᵀ·dy
     over the causal pairs, 4·pairs·P; ⟨Ŝ, S⟩, 2·P·N; C_i against dC's
     state term, 2·nl·N; per chunk and group dM·B and dMᵀ·C, 4·pairs·N)
-    and from bytes (the inputs, dy and the saved scratch read once, the
-    five gradients written once)."""
+    as 3xTF32 on tensor cores, as the kernel runs them (``bound_ms``), and
+    at the f32 rate of CUDA cores (``bound_cuda_core_ms``), and from bytes
+    (the inputs, dy and the saved scratch read once, the five gradients
+    written once)."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ops
@@ -1985,8 +2012,12 @@ def time_ssd_bwd(dev, reps):
                  + g * 4 * pairs * n)
     nbytes = 4 * (2 * sum(t.numel() for t in args) + dy.numel()
                   + saved.numel())
-    return {**times(kernel, plain, None, reps), **bound(nbytes, flops),
-            "kernel_breakdown_ms": launch_breakdown(kernel, reps),
+    breakdown = launch_breakdown(kernel, reps)
+    return {**times(kernel, plain, None, reps),
+            **bound(nbytes, flops, TF32X3_FLOP_PER_S),
+            "bound_cuda_core_ms": bound(nbytes, flops)["bound_ms"],
+            "kernel_breakdown_ms": breakdown,
+            "kernels_per_call": len(breakdown) or None,
             "max_abs_err": max(gap for gap, _ in gaps),
             "max_rel_err_vs_plain": max(gap / m for gap, m in gaps),
             "autograd_through_plain_ms": auto["ms"],
@@ -2266,46 +2297,81 @@ TENSOR_CORE_KERNELS = ("flash_prefill_bf16_hopper_kernel",
                        "flash_decode_bf16_kernel", "flash_bwd_dkdv_kernel",
                        "flash_bwd_dq_kernel")
 
+#: K4's kernels and the tensor-core instructions their SASS must hold: the
+#: backward's products on TF32 alone (3xTF32), the bf16 forward's scores on
+#: bf16 and its other two products on TF32 (two passes), and none in the
+#: f32 forward.
+SSD_SASS = {"ssd_bwd_agg_kernel": "tf32", "ssd_bwd_dm_kernel": "tf32",
+            "ssd_bwd_dcdb_kernel": "tf32", "ssd_bwd_du_kernel": "tf32",
+            "ssd_scores_bf16_kernel": "bf16",
+            "ssd_chunk_state_bf16_kernel": "tf32",
+            "ssd_output_bf16_kernel": "tf32",
+            "ssd_scores_kernel": "none", "ssd_chunk_kernel": "none",
+            "ssd_state_kernel": "none", "ssd_inter_kernel": "none"}
 
-def sass_tensor_core_counts(lib) -> dict:
-    """Tensor-core instructions in the SASS of each instantiation of
-    ``TENSOR_CORE_KERNELS``, by kernel and tile width: ``HGMMA`` (Hopper's
-    warpgroup products, wgmma), ``HMMA`` (the warp-level mma.sync of
-    earlier cards) and, of those, ``HMMA_TF32`` (on TF32 operands), from
-    ``cuobjdump -sass`` of the built library."""
+
+def sass_counts(path, name_of) -> dict:
+    """Tensor-core instructions by kernel in ``cuobjdump -sass`` of the
+    library at ``path``: ``HGMMA`` (Hopper's warpgroup products, wgmma),
+    ``HMMA`` (the warp-level mma.sync of earlier cards) and, of those,
+    ``HMMA_TF32`` and ``HMMA_BF16`` (by operand type), for each function
+    whose mangled name ``name_of`` maps to a key (None: skipped)."""
     from torch.utils.cpp_extension import CUDA_HOME
     text = subprocess.run(
-        [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass",
-         str(lib._target("flash_attention"))], capture_output=True,
-        text=True, timeout=300, check=True).stdout
-    pattern = re.compile(rf"({'|'.join(TENSOR_CORE_KERNELS)})ILi(\d+)E")
+        [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(path)],
+        capture_output=True, text=True, timeout=300, check=True).stdout
     counts, fn = {}, None
     for line in text.splitlines():
         if "Function :" in line:
-            m = pattern.search(line.split("Function :")[1])
-            fn = f"{m.group(1)} DP={m.group(2)}" if m else None
+            fn = name_of(line.split("Function :")[1].strip())
             if fn:
-                counts.setdefault(fn, {"HGMMA": 0, "HMMA": 0, "HMMA_TF32": 0})
+                counts.setdefault(fn, {"HGMMA": 0, "HMMA": 0, "HMMA_TF32": 0,
+                                       "HMMA_BF16": 0})
         elif fn:
             for op in ("HGMMA", "HMMA"):
                 counts[fn][op] += f" {op}." in line or f" {op} " in line
-            counts[fn]["HMMA_TF32"] += " HMMA." in line and ".TF32" in line
+            hmma = " HMMA." in line
+            counts[fn]["HMMA_TF32"] += hmma and ".TF32" in line
+            counts[fn]["HMMA_BF16"] += hmma and ".BF16" in line
     return counts
 
 
+def sass_tensor_core_counts(lib) -> dict:
+    """:func:`sass_counts` of K3's ``TENSOR_CORE_KERNELS``, by kernel and
+    tile width (``"name DP=64"``), and of K4's ``SSD_SASS``, by kernel."""
+    k3 = re.compile(rf"({'|'.join(TENSOR_CORE_KERNELS)})ILi(\d+)E")
+
+    def k3_name(mangled):
+        m = k3.search(mangled)
+        return f"{m.group(1)} DP={m.group(2)}" if m else None
+
+    def k4_name(mangled):
+        m = re.match(r"_Z(\d+)", mangled)
+        name = m and mangled[m.end():m.end() + int(m.group(1))]
+        return name if name in SSD_SASS else None
+    return {**sass_counts(lib._target("flash_attention"), k3_name),
+            **sass_counts(lib._target("ssd_scan"), k4_name)}
+
+
 def check_tensor_core_sass(sass) -> None:
-    """Every tile width of each kernel built; the bf16 prefill on wgmma
-    alone, the bf16 decode on mma.sync, the backward on mma.sync over TF32
-    operands."""
+    """Every tile width of each K3 kernel built, and every K4 kernel; the
+    bf16 prefill on wgmma alone, the bf16 decode on mma.sync, K3's
+    backward on mma.sync over TF32 operands; K4's kernels as ``SSD_SASS``
+    says."""
     want = {f"{k} DP={dp}" for k in TENSOR_CORE_KERNELS
-            for dp in (16, 32, 64, 128)}
+            for dp in (16, 32, 64, 128)} | set(SSD_SASS)
     require(set(sass) == want,
             f"tensor-core kernels in the SASS: {sorted(sass)}")
     for fn, c in sass.items():
+        kind = SSD_SASS.get(fn)
         if fn.startswith("flash_prefill_bf16_hopper_kernel"):
             ok = c["HGMMA"] > 0 and c["HMMA"] == 0
         elif fn.startswith("flash_decode_bf16_kernel"):
             ok = c["HMMA"] > 0 and c["HGMMA"] == 0 and c["HMMA_TF32"] == 0
+        elif kind == "none":
+            ok = c["HMMA"] == 0 and c["HGMMA"] == 0
+        elif kind == "bf16":
+            ok = c["HMMA"] > 0 and c["HMMA_BF16"] == c["HMMA"]
         else:
             ok = c["HMMA"] > 0 and c["HMMA_TF32"] == c["HMMA"]
         require(ok, f"{fn} is not on its tensor-core instructions: {c}")
@@ -2758,9 +2824,9 @@ def time_attention_bwd(dev, reps, b=4, s=512, t=512, hq=9, hk=3, d=64,
     ``t`` positions): the kernel, the plain mirror (``attention_bwd_ref``)
     and SDPA's backward through autograd.  Bound: 10·D f32 operations per
     live pair (S, dP, dV, dS·K, dSᵀ·Q), or the bytes of q, k, v, out, dout,
-    lse read once and dq, dk, dv written once; the operations at the f32
-    rate of CUDA cores (``bound_ms``) and at 3xTF32's on tensor cores
-    (``bound_3xtf32_ms``)."""
+    lse read once and dq, dk, dv written once; the operations at 3xTF32's
+    rate on tensor cores, as the kernel runs them (``bound_ms``), and at
+    the f32 rate of CUDA cores (``bound_cuda_core_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -2803,9 +2869,9 @@ def time_attention_bwd(dev, reps, b=4, s=512, t=512, hq=9, hk=3, d=64,
                   + q.numel() + q_pos.numel() + k_pos.numel())
     flops = 10 * d * b * hq * live
     breakdown = launch_breakdown(kernel, reps)
-    return {**times(kernel, plain, library, reps), **bound(nbytes, flops),
-            "bound_3xtf32_ms": bound(nbytes, flops,
-                                     TF32X3_FLOP_PER_S)["bound_ms"],
+    return {**times(kernel, plain, library, reps),
+            **bound(nbytes, flops, TF32X3_FLOP_PER_S),
+            "bound_cuda_core_ms": bound(nbytes, flops)["bound_ms"],
             "live_pairs_per_head": live,
             "kernel_breakdown_ms": breakdown,
             "kernels_per_call": len(breakdown) or None,  # None: no record
@@ -3554,7 +3620,7 @@ def k3_digest_main(src: str, save: str | None = None) -> int:
     seeded inputs at ``K3_DIGEST_CASES``; one JSON line of sha-256 digests
     of the outputs' bytes, to compare two trees bit for bit.  With
     ``SAVE``, the outputs also go to that ``.npz`` file, for
-    ``--k3-compare``."""
+    ``--compare``."""
     import hashlib
 
     import torch
@@ -3602,11 +3668,71 @@ def k3_digest_main(src: str, save: str | None = None) -> int:
     return 0
 
 
-def k3_compare_main(a: str, b: str) -> int:
-    """``--k3-compare A B``: two ``.npz`` files that ``--k3-digest`` saved
-    (for example the parent's and this tree's); one JSON line with, per
-    output, whether the two are bit-equal and their largest gap over the
-    largest |entry| of ``A``."""
+def written_scratch(saved, case):
+    """K4's forward scratch as its kernels write it: C·Bᵀ
+    ``[B, nc, G, Q, Q]`` with the 64 × 64 tiles above the diagonal zeroed
+    (no kernel writes or reads them), then the cumsums and entry states."""
+    import torch
+    b, s, _, _, g, _, q = case
+    cut = b * -(-s // q) * g * q * q
+    tiles = torch.arange(q, device=saved.device) // 64
+    cbt = saved[:cut].view(-1, q, q)
+    return (torch.where(tiles[:, None] <= tiles[None, :], cbt, 0.0),
+            saved[cut:])
+
+
+def k4_digest_main(src: str, save: str | None = None) -> int:
+    """``--k4-digest SRC [SAVE]``: the port in ``SRC`` (as ``--k3-digest``)
+    runs K4's f32 forward (y, the final state and the scratch the backward
+    reads, :func:`written_scratch`), its backward (from an initial state,
+    with a final-state cotangent) and its bf16 forward on seeded inputs at
+    ``SSD_CASES``; one JSON line of sha-256 digests of the outputs' bytes
+    (bf16 outputs as their exact f32 values).  With ``SAVE``, the outputs
+    also go to that ``.npz`` file, for ``--compare``."""
+    import hashlib
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    sys.path.remove(str(ROOT / "src"))
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.ssd_scan import ops
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arrays, out = {}, {}
+
+    def digest(label, *xs):
+        h = hashlib.sha256()
+        for i, x in enumerate(xs):
+            a = x.detach().float().cpu().numpy()
+            h.update(a.tobytes())
+            arrays[f"{label} #{i}"] = a
+        out[label] = h.hexdigest()[:16]
+    for i, case in enumerate(SSD_CASES):
+        q = case[-1]
+        label = "B{} S{} H{} P{} G{} N{} Q{}".format(*case)
+        args, st0, dy, ds = ssd_bwd_inputs(dev, case, 200 + i, True, True)
+        y, state, saved = ops.ssd_fwd_cuda(*args, chunk=q, init_state=st0)
+        digest(f"{label} forward", y, state, *written_scratch(saved, case))
+        digest(f"{label} backward",
+               *ops.ssd_bwd_cuda(*args, dy, ds, saved=saved, chunk=q,
+                                 init_state=st0))
+        digest(f"{label} bf16", *ops.ssd_cuda(*bf16_ssd_args(args), chunk=q,
+                                              init_state=st0))
+    if save:
+        np.savez(save, **arrays)
+    emit({"phase": "k4_digest", "src": src, "module": _lib.__file__,
+          "digests": out})
+    return 0
+
+
+def compare_main(a: str, b: str) -> int:
+    """``--compare A B``: two ``.npz`` files that
+    ``--k3-digest`` or ``--k4-digest`` saved (for example the parent's and
+    this tree's); one JSON line with, per output, whether the two are
+    bit-equal and their largest gap over the largest |entry| of ``A``."""
     fa, fb = np.load(a), np.load(b)
     res = {}
     for key in fa.files:
@@ -3617,7 +3743,7 @@ def k3_compare_main(a: str, b: str) -> int:
         top = float(np.abs(np.where(np.isfinite(x), x, 0.0)).max())
         res[key] = {"equal": bool(np.array_equal(x, y)),
                     "max_gap_over_max": float(gap.max()) / max(top, 1e-30)}
-    emit({"phase": "k3_compare", "a": a, "b": b, "outputs": res})
+    emit({"phase": "compare", "a": a, "b": b, "outputs": res})
     return 0
 
 
@@ -3781,7 +3907,7 @@ def main() -> int:
           "ptxas": {n: [ln.strip() for ln in lib.build_log(n).splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n in secs}})
-    print(f"K3 SASS tensor-core instructions {sass}", flush=True)
+    print(f"K3/K4 SASS tensor-core instructions {sass}", flush=True)
     check_tensor_core_sass(sass)
 
     # ---- 2. kernels against their plain versions -------------------------
@@ -4149,7 +4275,8 @@ def main() -> int:
          **{key: {k: t[k] for k in BWD_TIME_KEYS}
             | {"live_pairs_per_head": t["live_pairs_per_head"]}
             for key, t in k3_bwd_whisper.items()},
-         "sass": {fn: c for fn, c in sass.items() if "_bwd_" in fn},
+         "sass": {fn: c for fn, c in sass.items()
+                  if fn.startswith("flash_bwd_")},
          "plain_is": "attention_bwd_ref (the kernel's algebra in torch)",
          "library_is": "SDPA's backward through autograd",
          "shape": "smollm-135m train, q [4,512,9,64], kv [4,512,3,64], "
@@ -4170,7 +4297,8 @@ def main() -> int:
          "max_ulps": k3b_ulps, "pin_max_ulps": bf16_pin_ulps,
          **{k: k3_bf16["yi-34b_prefill"][k] for k in ATTN_TIME_KEYS},
          "plain_device": "cuda",
-         "sass": {fn: c for fn, c in sass.items() if "_bwd_" not in fn},
+         "sass": {fn: c for fn, c in sass.items()
+                  if fn.startswith("flash_") and "_bwd_" not in fn},
          "kernels_per_call": {key: len(t["kernel_breakdown_ms"]) or None
                               for key, t in k3_bf16.items()},
          "shape": "yi-34b prefill, q [4,512,56,128], kv [4,512,8,128], "
@@ -4185,8 +4313,13 @@ def main() -> int:
          "max_abs_err": max(k4b_err, k4_bf16["max_abs_err"]),
          "max_ulps": k4b_ulps,
          **{k: k4_bf16[k] for k in KERNEL_TIME_KEYS}, "plain_device": "cuda",
+         "bound_cuda_core_ms": k4_bf16["bound_cuda_core_ms"],
+         "kernel_breakdown_ms": k4_bf16["kernel_breakdown_ms"],
+         "kernels_per_call": k4_bf16["kernels_per_call"],
+         "sass": {fn: c for fn, c in sass.items()
+                  if fn in SSD_SASS and "_bwd_" not in fn},
          "shape": "mamba2-1.3b prefill, x [4,512,64,64], b/c [4,512,8,128] "
-                  "in bf16, chunk 128, one layer"},
+                  "in bf16, chunk 128, one layer (tensor cores)"},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:83",
@@ -4203,14 +4336,17 @@ def main() -> int:
          "launches": train_mamba2["launches"]["ssd_scan_bwd"],
          "max_abs_err": max(k4_bwd_err, k4_bwd["max_abs_err"]),
          "max_rel_err": max(k4_bwd_rel, k4_bwd["max_rel_err_vs_plain"]),
-         **{k: k4_bwd[k] for k in KERNEL_TIME_KEYS}, "plain_device": "cuda",
+         **{k: k4_bwd[k] for k in BWD_TIME_KEYS}, "plain_device": "cuda",
+         "kernel_breakdown_ms": k4_bwd["kernel_breakdown_ms"],
+         "sass": {fn: c for fn, c in sass.items()
+                  if fn.startswith("ssd_bwd_")},
          "plain_is": "ssd_bwd_ref (the kernel's algebra in torch)",
          "autograd_through_plain_ms": k4_bwd["autograd_through_plain_ms"],
          "autograd_is": "torch autograd through ssd_ref: a composite of "
                         "torch ops, not one library call",
          "forward_ms": k4_bwd["forward_ms"],
          "shape": "mamba2-1.3b train, x [4,512,64,64], b/c [4,512,8,128], "
-                  "chunk 128, one layer (five kernels a call)"},
+                  "chunk 128, one layer (3xTF32 on tensor cores)"},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -4223,8 +4359,10 @@ if __name__ == "__main__":
         sys.exit(failrank_loops_main(sys.argv[2]))
     if sys.argv[1:2] == ["--k3-digest"]:
         sys.exit(k3_digest_main(*sys.argv[2:4]))
-    if sys.argv[1:2] == ["--k3-compare"]:
-        sys.exit(k3_compare_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--k4-digest"]:
+        sys.exit(k4_digest_main(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--compare"]:
+        sys.exit(compare_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--k3-ablations"]:
         sys.exit(k3_ablations_main())
     sys.exit(main())

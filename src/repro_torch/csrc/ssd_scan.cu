@@ -1,4 +1,5 @@
-// Chunked Mamba-2 SSD scan in f32, chunk-parallel, from an initial state.
+// Chunked Mamba-2 SSD scan, chunk-parallel, from an initial state: its
+// forward in f32 and in bf16, and its backward in f32.
 //
 // Per chunk of Q steps, with cum = inclusive cumsum(dt * a) in the chunk:
 //   y[i]  = sum_{j<=i} (C_i . B_j) exp(min(cum_i - cum_j, 0)) dt_j x_j
@@ -20,11 +21,11 @@
 // (4 x 512 tokens, 64 heads over 8 groups, P 64, N 128, Q 128) the causal
 // half of C.B^T once per group (0.27 GFLOP), the intra-chunk product
 // (1.08 GFLOP), the chunk states and the inter-chunk term (4.29 GFLOP) are
-// about 5.6 GFLOP per layer in f32 on CUDA cores (84 us at 67 TFLOP/s),
-// against about 101 MB of inputs and outputs (30 us at 3.35 TB/s).
+// about 5.6 GFLOP per layer (84 us in f32 on CUDA cores at 67 TFLOP/s),
+// against about 101 MB of inputs and outputs in f32 (30 us at 3.35 TB/s).
 //
-// What the design does about it: four launches, the decomposition of the
-// plain version (kernels/ssd_scan/ref.py):
+// f32 (ssd_scan), four launches, the decomposition of the plain version
+// (kernels/ssd_scan/ref.py):
 //   1. ssd_scores_kernel, per (64x64 tile on or above the diagonal, chunk,
 //      group, batch): C.B^T of the chunk, once for all heads of the group,
 //      written transposed (cbt[j][i] = B_j . C_i) so that step 2 reads it
@@ -44,24 +45,48 @@
 // memory (18 KB a block, so several blocks share an SM) and read as float4:
 // one shared load feeds four to eight multiply-adds.  The state pass keeps
 // eight chunks' loads in flight per thread.  Built with FMA
-// contraction; no atomics, so two runs are bit-identical.  No tensor cores:
-// in f32 they mean TF32, which cannot hold the plain version's 2e-4.
+// contraction; no atomics, so two runs are bit-identical.  The f32 forward
+// runs on CUDA cores: a single TF32 product cannot hold the plain version's
+// 2e-4, and the backward reads the scratch it leaves (C.B^T, the cumsums,
+// the entry states) bit for bit.
 //
 // bf16 (ssd_scan_bf16): the same TPU kernel in the reference's working
-// type, x, b, c and y in bf16, dt, a, the states and the scratch in f32,
-// as the Pallas kernel takes them (kernel.py:36-40, :75):
-// the four kernels are templated on the element type, convert each value
-// to f32 as they stage it and do every product in f32 on CUDA cores, as
-// the f32 path does; the intra-chunk term goes to an f32 copy of y, and
-// the inter-chunk kernel rounds y to bf16 once.  The inputs' bytes halve
-// (about 59 MB at mamba2-1.3b's prefill, 18 us at 3.35 TB/s); what bounds
-// it is still the 5.6 GFLOP of f32 operations, 84 us.  The products of C.B^T
-// and of the chunk states take bf16 operands with f32 sums, so they could
-// go to the tensor cores with exact products: that is a later design.
+// type, x, b, c and y in bf16, dt, a, the states and the scratch in f32, as
+// the Pallas kernel takes them (kernel.py:36-40, :75), on tensor cores:
+//   1. ssd_scores_bf16_kernel: C.B^T by mma.sync m16n8k16 on the bf16 C
+//      and B as they come, f32 sums (a product of two bf16 values is exact
+//      in f32: only the order of the sums differs from the f32 algebra);
+//   2. ssd_chunk_state_bf16_kernel: the cumsum, then dS with
+//      w_j = exp(cum_end - cum_j) dt_j folded into the f32 side (w_j x_j),
+//      B_j whole;
+//   3. ssd_state_kernel, as in f32;
+//   4. ssd_output_bf16_kernel, per (64x64 tile of y, chunk, head): the
+//      intra-chunk product with C.B^T o decay o dt on the f32 side and x
+//      whole, and the inter term C_i . S_entry^T with C whole, summed in f32
+//      and rounded to bf16 once: y makes no f32 round trip through memory.
+// Those three products each have one f32 operand.  They run as TF32 on
+// mma.sync m16n8k8 with the f32 operand split into a TF32 high part and
+// the rest (hi = x with its low 13 mantissa bits clear, lo = x - hi) and
+// the bf16 operand whole (exact in TF32: 8 mantissa bits against 10): two
+// products where 3xTF32 takes three, within a few parts in 2^20 of the f32
+// algebra.  No f32 operand is rounded to bf16.  The inputs' bytes halve
+// (about 59 MB at mamba2-1.3b's prefill, 18 us at 3.35 TB/s); the
+// operations take about 30 us at the tensor cores' rates (bf16 989, TF32
+// 495 TFLOP/s, two passes).
+//
+// The tensor-core kernels (the bf16 forward's and the backward's) share
+// one shape: 128 threads, four warps of 32x32 outputs over a 64x64 tile,
+// each contraction in slices of 32 (64 for the bf16 scores) brought by
+// cp.async into a ring of three stages, two in flight while one computes;
+// operand tiles are kept with a row stride that puts the fragment loads of
+// a warp on distinct banks, zero past the shapes' edges (an unaligned
+// shape is staged by plain loads instead).  Scale factors (exp(cum),
+// dt) are staged once per block in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #define NT 256         // threads of a tile-product block (16 x 16 of them)
 #define NT_STATE 256   // threads of a state-pass block
@@ -73,15 +98,7 @@
 #define CHUNKS_IN_FLIGHT 8
 #define FULL 0xffffffffu
 
-// One input value as f32: x, b and c come as f32 or bf16.
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ void store_y(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+typedef __nv_bfloat16 bf16;
 
 // acc[a][b] += sum_k A[ty + 16a][k] B[tx + 16b][k] over one slice kept row
 // by row (as, bs: [TILE][RS]).  Rows 36 floats apart put the eight threads
@@ -127,10 +144,41 @@ __device__ __forceinline__ void mma_cols(const float* as, const float* bs,
   }
 }
 
+// cum_s[j] = inclusive cumsum of dt_s[j] * a_h over the chunk (j < Q) by
+// the block's first warp: each lane runs over its ceil(Q / 32) steps, then
+// the lanes' totals are scanned.
+__device__ __forceinline__ void chunk_cumsum(const float* dt_s, float* cum_s,
+                                             const float* a_h, int Q) {
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) {
+    const float ah = *a_h;
+    const int per = (Q + 31) / 32;
+    float loc[MAX_Q / 32];
+    float run = 0.0f;
+#pragma unroll
+    for (int e = 0; e < MAX_Q / 32; ++e) {
+      const int j = lane * per + e;
+      if (e < per && j < Q) run = run + dt_s[j] * ah;
+      loc[e] = run;
+    }
+    float incl = run;
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl = incl + o;
+    }
+    float excl = __shfl_up_sync(FULL, incl, 1);
+    if (lane == 0) excl = 0.0f;
+#pragma unroll
+    for (int e = 0; e < MAX_Q / 32; ++e) {
+      const int j = lane * per + e;
+      if (e < per && j < Q) cum_s[j] = excl + loc[e];
+    }
+  }
+}
+
 // 1. cbt[b,c,g][j][i] = B_j . C_i for the tile pair (jt <= it).
-template <class T>
 __global__ void __launch_bounds__(NT) ssd_scores_kernel(
-    const T* __restrict__ bm, const T* __restrict__ cm,
+    const float* __restrict__ bm, const float* __restrict__ cm,
     float* __restrict__ cbt, int S, int G, int N, int Q, int nc) {
   __shared__ __align__(16) float sa[TILE * RS];
   __shared__ __align__(16) float sb[TILE * RS];
@@ -150,10 +198,10 @@ __global__ void __launch_bounds__(NT) ssd_scores_kernel(
       const int m = e / KC, kk = e % KC, n = k0 + kk;
       const int j = j0 + m, i = i0 + m;
       sa[m * RS + kk] =
-          j < nl && n < N ? ld(bm + ((size_t)(b * S + t0 + j) * G + g) * N + n)
+          j < nl && n < N ? bm[((size_t)(b * S + t0 + j) * G + g) * N + n]
                           : 0.0f;
       sb[m * RS + kk] =
-          i < nl && n < N ? ld(cm + ((size_t)(b * S + t0 + i) * G + g) * N + n)
+          i < nl && n < N ? cm[((size_t)(b * S + t0 + i) * G + g) * N + n]
                           : 0.0f;
     }
     __syncthreads();
@@ -171,18 +219,17 @@ __global__ void __launch_bounds__(NT) ssd_scores_kernel(
   }
 }
 
-// 2. The chunk's cumsum, then one tile of y_intra (in f32) or of dS.
-template <class T>
+// 2. The chunk's cumsum, then one tile of y_intra or of dS.
 __global__ void __launch_bounds__(NT) ssd_chunk_kernel(
-    const T* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ a, const T* __restrict__ bm,
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ a, const float* __restrict__ bm,
     const float* __restrict__ cbt, float* __restrict__ y,
     float* __restrict__ cum, float* __restrict__ dstate, int S, int H,
     int P, int G, int N, int Q, int nc) {
   __shared__ __align__(16) float sa[KC * CS];
   __shared__ __align__(16) float sb[KC * CS];
   __shared__ float dt_s[MAX_Q], cum_s[MAX_Q];
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15, lane = tid & 31;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
   const int g = h / (H / G);
   const int t0 = c * Q, nl = min(Q, S - t0);
@@ -191,30 +238,7 @@ __global__ void __launch_bounds__(NT) ssd_chunk_kernel(
   for (int j = tid; j < Q; j += NT)
     dt_s[j] = j < nl ? dt[(size_t)(b * S + t0 + j) * H + h] : 0.0f;
   __syncthreads();
-  if (tid < 32) {  // inclusive cumsum of dt * a over the chunk
-    const float a_h = a[h];
-    const int per = (Q + 31) / 32;
-    float loc[MAX_Q / 32];
-    float run = 0.0f;
-#pragma unroll
-    for (int e = 0; e < MAX_Q / 32; ++e) {
-      const int j = lane * per + e;
-      if (e < per && j < Q) run = run + dt_s[j] * a_h;
-      loc[e] = run;
-    }
-    float incl = run;
-    for (int off = 1; off < 32; off <<= 1) {
-      const float o = __shfl_up_sync(FULL, incl, off);
-      if (lane >= off) incl = incl + o;
-    }
-    float excl = __shfl_up_sync(FULL, incl, 1);
-    if (lane == 0) excl = 0.0f;
-#pragma unroll
-    for (int e = 0; e < MAX_Q / 32; ++e) {
-      const int j = lane * per + e;
-      if (e < per && j < Q) cum_s[j] = excl + loc[e];
-    }
-  }
+  chunk_cumsum(dt_s, cum_s, a + h, Q);
   __syncthreads();
   if (blockIdx.x == 0)
     for (int j = tid; j < Q; j += NT) cum[ch * Q + j] = cum_s[j];
@@ -240,7 +264,7 @@ __global__ void __launch_bounds__(NT) ssd_chunk_kernel(
                 : 0.0f;
         sb[kk * CS + m] =
             j < nl && p < P
-                ? ld(x + ((size_t)(b * S + t0 + j) * H + h) * P + p) * dt_s[j]
+                ? x[((size_t)(b * S + t0 + j) * H + h) * P + p] * dt_s[j]
                 : 0.0f;
       }
       __syncthreads();
@@ -268,13 +292,12 @@ __global__ void __launch_bounds__(NT) ssd_chunk_kernel(
         const int p = p0 + m, n = n0 + m;
         sa[kk * CS + m] =
             j < nl && p < P
-                ? ld(x + ((size_t)(b * S + t0 + j) * H + h) * P + p) *
+                ? x[((size_t)(b * S + t0 + j) * H + h) * P + p] *
                       (dt_s[j] * expf(cum_end - cum_s[j]))
                 : 0.0f;
         sb[kk * CS + m] =
-            j < nl && n < N
-                ? ld(bm + ((size_t)(b * S + t0 + j) * G + g) * N + n)
-                : 0.0f;
+            j < nl && n < N ? bm[((size_t)(b * S + t0 + j) * G + g) * N + n]
+                            : 0.0f;
       }
       __syncthreads();
       mma_cols(sa, sb, ty, tx, acc);
@@ -325,18 +348,15 @@ __global__ void __launch_bounds__(NT_STATE) ssd_state_kernel(
   state_out[bh * PN + e] = s;
 }
 
-// 4. y[i][p] += exp(cum_i) sum_n C[i][n] S_entry[p][n]: in place in the
-// f32 path; in bf16, y = round(yin + ...) with y_intra in yin (f32).
+// 4. y[i][p] += exp(cum_i) sum_n C[i][n] S_entry[p][n], in place.
 // Bounded to five blocks an SM (at most 51 registers a thread), which made
 // it faster at mamba2-1.3b's prefill on an H100; the same bound made the
-// other two products slower.  The bf16 instantiation, which converts C as
-// it stages it, gets four (64 registers): at five it spilled.
-template <class T>
-__global__ void __launch_bounds__(NT, sizeof(T) == sizeof(float) ? 5 : 4)
-    ssd_inter_kernel(const T* __restrict__ cm, const float* __restrict__ cum,
-                     const float* __restrict__ states,
-                     const float* __restrict__ yin, T* __restrict__ y, int S,
-                     int H, int P, int G, int N, int Q, int nc) {
+// other two products slower.
+__global__ void __launch_bounds__(NT, 5)
+    ssd_inter_kernel(const float* __restrict__ cm,
+                     const float* __restrict__ cum,
+                     const float* __restrict__ states, float* __restrict__ y,
+                     int S, int H, int P, int G, int N, int Q, int nc) {
   __shared__ __align__(16) float sa[TILE * RS];
   __shared__ __align__(16) float sb[TILE * RS];
   const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
@@ -354,7 +374,7 @@ __global__ void __launch_bounds__(NT, sizeof(T) == sizeof(float) ? 5 : 4)
       const int m = e / KC, kk = e % KC, n = k0 + kk;
       const int i = i0 + m, p = p0 + m;
       sa[m * RS + kk] =
-          i < nl && n < N ? ld(cm + ((size_t)(b * S + t0 + i) * G + g) * N + n)
+          i < nl && n < N ? cm[((size_t)(b * S + t0 + i) * G + g) * N + n]
                           : 0.0f;
       sb[m * RS + kk] = p < P && n < N ? sp[(size_t)p * N + n] : 0.0f;
     }
@@ -371,14 +391,472 @@ __global__ void __launch_bounds__(NT, sizeof(T) == sizeof(float) ? 5 : 4)
       const int p = p0 + tx + 16 * q;
       if (p < P) {
         const size_t at = ((size_t)(b * S + t0 + i) * H + h) * P + p;
-        if constexpr (sizeof(T) == sizeof(float)) {
-          y[at] = y[at] + w * acc[r][q];
-        } else {
-          store_y(y + at, yin[at] + w * acc[r][q]);
-        }
+        y[at] = y[at] + w * acc[r][q];
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core blocks: 128 threads, warp w owns rows 32 (w / 2) and columns
+// 32 (w % 2) of a 64x64 output tile, the contraction in slices through a
+// cp.async ring.
+// ---------------------------------------------------------------------------
+
+#define TT 128             // threads of a tensor-core block
+#define KS 32              // contraction slice of a ring stage
+#define LDR (KS + 4)       // f32 row stride of a slice kept row by row
+#define LDK (TILE + 8)     // f32 row stride of a slice kept k by k
+#define SLICE (TILE * LDR)  // floats of one operand's slice in a stage
+#define RING 3             // ring stages
+#define MT (TILE + 4)      // f32 row stride of a whole 64x64 tile
+#define LDH (TILE + 8)     // bf16 row stride, [TILE][64] or [KS][TILE]
+#define LDHR (KS + 8)      // bf16 row stride, [TILE][KS]
+#define RING_FLOATS (RING * 2 * SLICE)
+static_assert(TILE * LDR == KS * LDK, "both slice shapes fill a stage");
+
+// 16 bytes from device to shared memory, zeros where !valid.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float zero_like(float) { return 0.0f; }
+__device__ __forceinline__ bf16 zero_like(bf16) {
+  return __float2bfloat16(0.0f);
+}
+
+// Rows [0, rows) and columns [0, cols) of the row-major matrix at src (row
+// stride lds elements) into dst (row stride ld elements): rows below nr and
+// columns below nc copied, zeros elsewhere.  By cp.async, 16 bytes a copy,
+// when every row starts on 16 bytes and the copies do not cross nc; else
+// by plain loads and stores (shapes off the alignment).  `safe` is an
+// address that a copy of zero bytes may name.
+template <class T>
+__device__ __forceinline__ void stage(T* dst, int ld, const T* src,
+                                      size_t lds, int rows, int cols, int nr,
+                                      int nc, const T* safe) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = lds % V == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0 &&
+                   (nc >= cols || nc % V == 0);
+  if (vec) {
+    const int per = cols / V;
+    for (int e = threadIdx.x; e < rows * per; e += TT) {
+      const int r = e / per, c = e % per * V;
+      const bool ok = r < nr && c < nc;
+      cp_async16(dst + r * ld + c, ok ? src + r * lds + c : safe, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += TT) {
+      const int r = e / cols, c = e % cols;
+      dst[r * ld + c] = r < nr && c < nc ? src[r * lds + c] : zero_like(T());
+    }
+  }
+}
+
+// Runs n slices through the ring: stage(s, buf) issues slice s into stage
+// buffer buf, compute(s, buf) consumes it; two slices in flight while one
+// computes.  Every thread of the block calls it.
+template <class Stage, class Compute>
+__device__ __forceinline__ void ring_run(int n, Stage stage_slice,
+                                         Compute compute) {
+#pragma unroll
+  for (int s = 0; s < RING - 1; ++s) {
+    if (s < n) stage_slice(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n; ++s) {
+    cp_async_wait<RING - 2>();
+    __syncthreads();  // slice s landed; the buffer of slice s - 1 is free
+    if (s + RING - 1 < n) stage_slice(s + RING - 1, (s + RING - 1) % RING);
+    cp_async_commit();
+    compute(s, s % RING);
+  }
+  cp_async_wait<0>();
+}
+
+// x as TF32 hi + lo: hi is x with its low 13 mantissa bits clear, lo is
+// x - hi (exact), of which the tensor core takes the TF32 part.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+typedef float Acc[2][4][4];  // a warp's 32x32 outputs, mma's C layout
+
+// The tile row and column of this thread's accumulator element [mf][nf][e].
+__device__ __forceinline__ int acc_row(int mf, int e) {
+  return 32 * (threadIdx.x >> 6) + 16 * mf + ((threadIdx.x & 31) >> 2) +
+         8 * (e >> 1);
+}
+__device__ __forceinline__ int acc_col(int nf, int e) {
+  return 32 * ((threadIdx.x >> 5) & 1) + 8 * nf + 2 * (threadIdx.x & 3) +
+         (e & 1);
+}
+
+// acc += A.B over one KS-deep slice on mma.sync m16n8k8 (TF32), A(m, k) and
+// B(k, n) given by fa and fb over the block's tile.  A split operand (SA,
+// SB) is f32 taken as hi + lo; the other must be exact in TF32 (a bf16
+// value).  Both split: 3xTF32 (lo.hi + hi.lo + hi.hi); one: two products
+// (lo then hi).  The small terms first.
+template <bool SA, bool SB, class FA, class FB>
+__device__ __forceinline__ void slice_mma(Acc& acc, FA fa, FB fb) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = 32 * (w >> 1) + g, n0 = 32 * (w & 1) + g;
+#pragma unroll
+  for (int kk = 0; kk < KS; kk += 8) {
+    unsigned ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float v = fa(m0 + 16 * mf + 8 * (i & 1), kk + t + 4 * (i >> 1));
+        if constexpr (SA) split_tf32(v, ah[mf][i], al[mf][i]);
+        else ah[mf][i] = __float_as_uint(v);
+      }
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float v = fb(kk + t + 4 * i, n0 + 8 * nf);
+        if constexpr (SB) split_tf32(v, bh[nf][i], bl[nf][i]);
+        else bh[nf][i] = __float_as_uint(v);
+      }
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf) {
+        if constexpr (SA) mma_tf32(acc[mf][nf], al[mf], bh[nf][0], bh[nf][1]);
+        if constexpr (SB) mma_tf32(acc[mf][nf], ah[mf], bl[nf][0], bl[nf][1]);
+        mma_tf32(acc[mf][nf], ah[mf], bh[nf][0], bh[nf][1]);
+      }
+  }
+}
+
+// acc += A.B over a 64-deep bf16 slice on mma.sync m16n8k16: A(m, k) =
+// a[m * LDH + k], B(k, n) = b[n * LDH + k] (both kept with k contiguous).
+__device__ __forceinline__ void slice_mma_bf16(Acc& acc, const bf16* a,
+                                               const bf16* b) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = 32 * (w >> 1) + g, n0 = 32 * (w & 1) + g;
+  auto u32 = [](const bf16* p) {
+    return *reinterpret_cast<const unsigned*>(p);
+  };
+#pragma unroll
+  for (int kk = 0; kk < 64; kk += 16) {
+    unsigned af[2][4], bf[4][2];
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf) {
+      const bf16* p = a + (m0 + 16 * mf) * LDH + kk + 2 * t;
+      af[mf][0] = u32(p);
+      af[mf][1] = u32(p + 8 * LDH);
+      af[mf][2] = u32(p + 8);
+      af[mf][3] = u32(p + 8 * LDH + 8);
+    }
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf) {
+      const bf16* q = b + (n0 + 8 * nf) * LDH + kk + 2 * t;
+      bf[nf][0] = u32(q);
+      bf[nf][1] = u32(q + 8);
+    }
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf)
+        mma_bf16(acc[mf][nf], af[mf], bf[nf][0], bf[nf][1]);
+  }
+}
+
+__device__ __forceinline__ void zero_acc(Acc& acc) {
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mf][nf][e] = 0.0f;
+}
+
+// The sum over the tile's 64 columns of v's row threadIdx.x (threads below
+// 64; 0 for the others), in a fixed order: each thread's 8 values of a row,
+// then the row's four lanes by shuffles, then its two warps in order.  red
+// holds 2 * TILE floats of shared memory; every thread of the block calls.
+__device__ __forceinline__ float row_sums(const Acc& v, float* red) {
+  const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) & 1;
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float s = 0.0f;
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf)
+        s += v[mf][nf][2 * half] + v[mf][nf][2 * half + 1];
+      s += __shfl_xor_sync(FULL, s, 1);
+      s += __shfl_xor_sync(FULL, s, 2);
+      if ((lane & 3) == 0) red[wn * TILE + acc_row(mf, 2 * half)] = s;
+    }
+  __syncthreads();
+  const float r = threadIdx.x < TILE
+                      ? red[threadIdx.x] + red[TILE + threadIdx.x]
+                      : 0.0f;
+  __syncthreads();
+  return r;
+}
+
+// As row_sums, over the tile's 64 rows of v's column threadIdx.x.
+__device__ __forceinline__ float col_sums(const Acc& v, float* red) {
+  const int lane = threadIdx.x & 31, wm = threadIdx.x >> 6;
+#pragma unroll
+  for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+    for (int e1 = 0; e1 < 2; ++e1) {
+      float s = (v[0][nf][e1] + v[0][nf][2 + e1]) +
+                (v[1][nf][e1] + v[1][nf][2 + e1]);
+      s += __shfl_xor_sync(FULL, s, 4);
+      s += __shfl_xor_sync(FULL, s, 8);
+      s += __shfl_xor_sync(FULL, s, 16);
+      if (lane < 4) red[wm * TILE + acc_col(nf, e1)] = s;
+    }
+  __syncthreads();
+  const float r = threadIdx.x < TILE
+                      ? red[threadIdx.x] + red[TILE + threadIdx.x]
+                      : 0.0f;
+  __syncthreads();
+  return r;
+}
+
+// The tile pair (jt <= it) that blockIdx.x enumerates.
+__device__ __forceinline__ void tile_pair(int& jt, int& it) {
+  jt = blockIdx.x;
+  it = 0;
+  while (jt > it) {
+    jt -= it + 1;
+    ++it;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 forward on tensor cores
+// ---------------------------------------------------------------------------
+
+// 1. cbt[b,c,g][j][i] = B_j . C_i for the tile pair (jt <= it), bf16
+// products, f32 sums.
+__global__ void __launch_bounds__(TT) ssd_scores_bf16_kernel(
+    const bf16* __restrict__ bm, const bf16* __restrict__ cm,
+    float* __restrict__ cbt, int S, int G, int N, int Q, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  int jt, it;
+  tile_pair(jt, it);
+  const int c = blockIdx.y % nc, g = blockIdx.y / nc, b = blockIdx.z;
+  const int t0 = c * Q, nl = min(Q, S - t0);
+  const int j0 = jt * TILE, i0 = it * TILE;
+  const size_t gn = (size_t)G * N;
+  const bf16* bg = bm + ((size_t)b * S + t0) * gn + (size_t)g * N;
+  const bf16* cg = cm + ((size_t)b * S + t0) * gn + (size_t)g * N;
+  Acc acc = {};
+  ring_run(
+      (N + 63) / 64,
+      [&](int s, int buf) {
+        bf16* sa = reinterpret_cast<bf16*>(smem + buf * 2 * SLICE);
+        bf16* sb = reinterpret_cast<bf16*>(smem + buf * 2 * SLICE + SLICE);
+        stage(sa, LDH, bg + j0 * gn + s * 64, gn, TILE, 64, nl - j0,
+              N - s * 64, bg);
+        stage(sb, LDH, cg + i0 * gn + s * 64, gn, TILE, 64, nl - i0,
+              N - s * 64, cg);
+      },
+      [&](int, int buf) {
+        slice_mma_bf16(
+            acc, reinterpret_cast<const bf16*>(smem + buf * 2 * SLICE),
+            reinterpret_cast<const bf16*>(smem + buf * 2 * SLICE + SLICE));
+      });
+  float* out = cbt + ((size_t)(b * nc + c) * G + g) * Q * Q;
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + acc_row(mf, e), i = i0 + acc_col(nf, e);
+        if (j < Q && i < Q) out[(size_t)j * Q + i] = acc[mf][nf][e];
+      }
+}
+
+// 2. The chunk's cumsum, then one 64x64 tile of the chunk's own state
+// dS[p][n] = sum_j (w_j x[j][p]) B[j][n], w_j = dt_j exp(cum_end - cum_j).
+__global__ void __launch_bounds__(TT) ssd_chunk_state_bf16_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ a, const bf16* __restrict__ bm,
+    float* __restrict__ cum, float* __restrict__ dstate, int S, int H, int P,
+    int G, int N, int Q, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  float* dt_s = smem + RING_FLOATS;
+  float* cum_s = dt_s + MAX_Q;
+  float* w_s = cum_s + MAX_Q;
+  const int n_nt = (N + TILE - 1) / TILE;
+  const int p0 = blockIdx.x / n_nt * TILE, n0 = blockIdx.x % n_nt * TILE;
+  const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
+  const int g = h / (H / G), t0 = c * Q, nl = min(Q, S - t0);
+  const size_t ch = (size_t)(b * nc + c) * H + h, row0 = (size_t)b * S + t0;
+  for (int j = threadIdx.x; j < Q; j += TT)
+    dt_s[j] = j < nl ? dt[(row0 + j) * H + h] : 0.0f;
+  __syncthreads();
+  chunk_cumsum(dt_s, cum_s, a + h, Q);
+  __syncthreads();
+  if (blockIdx.x == 0)
+    for (int j = threadIdx.x; j < Q; j += TT) cum[ch * Q + j] = cum_s[j];
+  const float cum_end = cum_s[Q - 1];
+  for (int j = threadIdx.x; j < MAX_Q; j += TT)
+    w_s[j] = j < nl ? dt_s[j] * expf(cum_end - cum_s[j]) : 0.0f;
+
+  const size_t hp = (size_t)H * P, gn = (size_t)G * N;
+  const bf16* xh = x + row0 * hp + (size_t)h * P;
+  const bf16* bg = bm + row0 * gn + (size_t)g * N;
+  Acc acc = {};
+  ring_run(
+      (nl + KS - 1) / KS,
+      [&](int s, int buf) {
+        bf16* sa = reinterpret_cast<bf16*>(smem + buf * 2 * SLICE);
+        bf16* sb = reinterpret_cast<bf16*>(smem + buf * 2 * SLICE + SLICE);
+        const int k0 = s * KS;
+        stage(sa, LDH, xh + k0 * hp + p0, hp, KS, TILE, nl - k0, P - p0, xh);
+        stage(sb, LDH, bg + k0 * gn + n0, gn, KS, TILE, nl - k0, N - n0, bg);
+      },
+      [&](int s, int buf) {
+        const bf16* sa = reinterpret_cast<const bf16*>(smem + buf * 2 * SLICE);
+        const bf16* sb =
+            reinterpret_cast<const bf16*>(smem + buf * 2 * SLICE + SLICE);
+        const float* w = w_s + s * KS;
+        slice_mma<true, false>(
+            acc,
+            [&](int m, int k) { return __bfloat162float(sa[k * LDH + m]) * w[k]; },
+            [&](int k, int n) { return __bfloat162float(sb[k * LDH + n]); });
+      });
+  float* ds = dstate + ch * P * N;
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = p0 + acc_row(mf, e), n = n0 + acc_col(nf, e);
+        if (p < P && n < N) ds[(size_t)p * N + n] = acc[mf][nf][e];
+      }
+}
+
+// 4. y[i][p] = bf16(sum_{j<=i} (cbt[j][i] exp(min(cum_i - cum_j, 0)) dt_j)
+// x[j][p] + exp(cum_i) sum_n C[i][n] S_entry[p][n]) for a 64x64 tile.
+__global__ void __launch_bounds__(TT) ssd_output_bf16_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ dt,
+    const bf16* __restrict__ cm, const float* __restrict__ cbt,
+    const float* __restrict__ cum, const float* __restrict__ states,
+    bf16* __restrict__ y, int S, int H, int P, int G, int N, int Q, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  float* cum_s = smem + RING_FLOATS;
+  float* dt_s = cum_s + MAX_Q;
+  const int n_pt = (P + TILE - 1) / TILE;
+  const int i0 = blockIdx.x / n_pt * TILE, p0 = blockIdx.x % n_pt * TILE;
+  const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
+  const int g = h / (H / G), t0 = c * Q, nl = min(Q, S - t0);
+  if (i0 >= nl) return;
+  const size_t ch = (size_t)(b * nc + c) * H + h, row0 = (size_t)b * S + t0;
+  for (int j = threadIdx.x; j < MAX_Q; j += TT) {
+    cum_s[j] = j < Q ? cum[ch * Q + j] : 0.0f;
+    dt_s[j] = j < nl ? dt[(row0 + j) * H + h] : 0.0f;
+  }
+  const size_t hp = (size_t)H * P, gn = (size_t)G * N;
+  const float* mg = cbt + ((size_t)(b * nc + c) * G + g) * Q * Q;
+  const bf16* xh = x + row0 * hp + (size_t)h * P;
+  const bf16* cg = cm + row0 * gn + (size_t)g * N;
+  const float* sp = states + ch * P * N;
+  const int k_hi = min(nl, i0 + TILE);
+  const int n1 = (k_hi + KS - 1) / KS, n2 = (N + KS - 1) / KS;
+  Acc ai = {}, ae = {};
+  ring_run(
+      n1 + n2,
+      [&](int s, int buf) {
+        float* sa = smem + buf * 2 * SLICE;
+        float* sb = sa + SLICE;
+        if (s < n1) {  // cbt rows j, columns i; x rows j, columns p
+          const int k0 = s * KS;
+          stage(sa, LDK, mg + (size_t)k0 * Q + i0, Q, KS, TILE, k_hi - k0,
+                Q - i0, mg);
+          stage(reinterpret_cast<bf16*>(sb), LDH, xh + k0 * hp + p0, hp, KS,
+                TILE, k_hi - k0, P - p0, xh);
+        } else {  // C rows i, columns n; S rows p, columns n
+          const int n0 = (s - n1) * KS;
+          stage(reinterpret_cast<bf16*>(sa), LDHR, cg + i0 * gn + n0, gn,
+                TILE, KS, nl - i0, N - n0, cg);
+          stage(sb, LDR, sp + (size_t)p0 * N + n0, (size_t)N, TILE, KS,
+                P - p0, N - n0, sp);
+        }
+      },
+      [&](int s, int buf) {
+        float* sa = smem + buf * 2 * SLICE;
+        const float* sb = sa + SLICE;
+        if (s < n1) {
+          // the slice of C.B^T becomes C.B^T o decay o dt, once
+          const int k0 = s * KS;
+          for (int e = threadIdx.x; e < KS * TILE; e += TT) {
+            const int k = e / TILE, m = e % TILE, i = i0 + m, j = k0 + k;
+            float& v = sa[k * LDK + m];
+            v = j <= i ? v * expf(fminf(cum_s[i] - cum_s[j], 0.0f)) * dt_s[j]
+                       : 0.0f;
+          }
+          __syncthreads();
+          const bf16* xb = reinterpret_cast<const bf16*>(sb);
+          slice_mma<true, false>(
+              ai, [&](int m, int k) { return sa[k * LDK + m]; },
+              [&](int k, int n) { return __bfloat162float(xb[k * LDH + n]); });
+        } else {
+          const bf16* cb = reinterpret_cast<const bf16*>(sa);
+          slice_mma<false, true>(
+              ae,
+              [&](int m, int k) { return __bfloat162float(cb[m * LDHR + k]); },
+              [&](int k, int n) { return sb[n * LDR + k]; });
+        }
+      });
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + acc_row(mf, e), p = p0 + acc_col(nf, e);
+        if (i < nl && p < P)
+          y[((row0 + i) * H + h) * P + p] = __float2bfloat16(
+              ai[mf][nf][e] + expf(cum_s[i]) * ae[mf][nf][e]);
+      }
 }
 
 // ---------------------------------------------------------------------------
@@ -391,177 +869,198 @@ __global__ void __launch_bounds__(NT, sizeof(T) == sizeof(float) ? 5 : 4)
 //   du_j  = sum_{i>=j} M_ij E_ij dy_i + exp(cum_end - cum_j) Shat_c B_j
 //   dM_ij = sum_{h in group} E_ij (dy_i . u_j)            (heads in order)
 //   dC_i  = sum_j dM_ij B_j + sum_h exp(cum_i) S_{c-1}^T dy_i
-//   dB_j  = sum_i dM_ij C_i + sum_h exp(cum_end - cum_j) Shat_c^T u_j
+//   dB_j  = sum_i dM_ij C_i + sum_h exp(cum_end - cum_j) dt_j Shat_c^T x_j
 // and dcum (from E, the inter term and the state update), whose reverse
 // in-chunk cumsum dl gives ddt_j = x_j . du_j + a dl_j and da = sum dt dl.
 // E's diagonal adds g and -g to the same dcum_i, so the sums leave it out.
 // The inter term's share of dcum_i is C_i . (exp(cum_i) S_{c-1}^T dy_i),
-// the dot of C_i with the head's state term of dC, which the group kernel
-// forms anyway.  The plain mirror is ssd_bwd_ref in kernels/ssd_scan/ref.py.
+// the dot of C_i with the head's state term of dC, which the dC blocks
+// form anyway.  The plain mirror is ssd_bwd_ref in kernels/ssd_scan/ref.py
+// (with tf32x3 it takes the products as the tensor cores below do).
 //
 // What bounds it: operations.  At mamba2-1.3b's training shape (4 x 512
 // tokens, 64 heads over 8 groups, P 64, N 128, Q 128) the per-head
 // products (the state aggregate, Shat B_j, dC's and dB's state terms:
 // 8 nl P N a chunk; dy u^T and (M o E)^T dy over the causal half) and dM's
-// two products per group come to about 11.3 GFLOP per layer in f32
-// (0.17 ms at 67 TFLOP/s), against about 180 MB read and written.
+// two products per group come to about 11.3 GFLOP per layer (0.17 ms in
+// f32 on CUDA cores at 67 TFLOP/s, 0.069 ms as 3xTF32 at 165), against
+// about 180 MB read and written.
 //
-// Five launches, the same 64x64 register tiles as the forward:
-//   1. ssd_bwd_chunk_kernel, a block per (chunk, head, batch): the chunk's
-//      aggregate sum_i exp(cum_i) dy_i (x) C_i; dy u^T over the causal
-//      tiles, giving the head's share of dM (written to scratch) and the
-//      row and column sums of M o dM^h below the diagonal;
-//   2. ssd_bwd_state_kernel, the reverse state pass from dstate, writing
+// Every product runs on the tensor cores as 3xTF32 (mma.sync m16n8k8, each
+// f32 operand split into TF32 hi + lo, a.b = lo.hi + hi.lo + hi.hi with f32
+// sums; the dropped lo.lo and lo's own cut come to a few parts in 2^20, so
+// the gradients stay within 1e-4 of each one's largest entry).  Seven
+// launches, each product a 64x64 tile of 128 threads through the ring:
+//   1. ssd_bwd_agg_kernel, per (P x N tile, chunk, head): the chunk's
+//      aggregate sum_i exp(cum_i) dy_i (x) C_i;
+//   2. ssd_bwd_dm_kernel, per (causal tile pair, chunk, group): walks the
+//      group's heads in order, forming dy^h u^h^T, E^h and the head's
+//      share of dM, adding it to the group's sum in registers, and the row
+//      and column sums of M o dM^h below the diagonal (written per tile);
+//      the group's dM is written once (no per-head dM in memory);
+//   3. ssd_bwd_state_kernel, the reverse state pass from dstate, writing
 //      each chunk's Shat_c over its aggregate, and dinit;
-//   3. ssd_bwd_group_kernel, a block per (64x64 tile of dC or dB, chunk,
-//      group, batch): dM summed over the group's heads in order as it is
-//      staged, then dM with B or C, then each head's state term in head
-//      order; a dC block also writes each head's C_i . (state term) over
-//      its 64 columns;
-//   4. ssd_bwd_du_kernel, a block per (chunk, head, batch): du, dx, x . du,
-//      the state terms of dcum, <Shat_c, S_{c-1}>, the inter term's share
-//      (the group kernel's column tiles summed in order), the reverse
-//      cumsum, ddt and the block's share of da;
-//   5. ssd_bwd_da_kernel: da summed over batches and chunks in order.
-// Row and column sums go through a staged tile and are added in index
-// order; no atomics, so two runs are bit-identical.
+//   4. ssd_bwd_dcdb_kernel, per (64x64 tile of dC or dB, chunk, group): dM
+//      with B or C, then each head's state term in head order (its rows
+//      scaled after the product); a dC block also writes each head's
+//      C_i . (state term) over its columns;
+//   5. ssd_bwd_du_kernel, per (64x64 tile of du, chunk, head): (M o E)^T dy
+//      and B Shat^T, then dx, and x . du and u . (state du) over the tile's
+//      columns;
+//   6. ssd_bwd_dcum_kernel, per (chunk, head): the tile sums added in
+//      order, <Shat_c, S_{c-1}>, the reverse cumsum, ddt and the block's
+//      share of da;
+//   7. ssd_bwd_da_kernel: da summed over batches and chunks in order.
+// Row and column sums run by shuffles in a fixed order, then across warps
+// and tiles in index order; no atomics, so two runs are bit-identical.
 
-#define RED (TILE + 1)  // row stride of a 64x64 tile staged for its sums
-
-// acc[r][q] += sum_{k0 <= k < k1} A(4 ty + r, k) B(k, 4 tx + q) over a
-// 64x64 output tile.  la(m, k) and lb(k, m) return an operand's element
-// (0 outside it; m is the tile's row or column); each slice of KC is
-// staged k by k.  KFA / KFB: the operand is contiguous along k in device
-// memory, so neighbouring threads load neighbouring k (else neighbouring m).
-template <bool KFA, bool KFB, class LA, class LB>
-__device__ __forceinline__ void tile_product(float* sa, float* sb, int k0,
-                                             int k1, LA la, LB lb,
-                                             float acc[4][4]) {
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  for (int kb = k0; kb < k1; kb += KC) {
-    __syncthreads();  // the previous slice (or a staged tile) is consumed
-    for (int e = tid; e < KC * TILE; e += NT) {
-      const int ka = KFA ? e % KC : e / TILE, ma = KFA ? e / KC : e % TILE;
-      const int kq = KFB ? e % KC : e / TILE, mb = KFB ? e / KC : e % TILE;
-      sa[ka * CS + ma] = kb + ka < k1 ? la(ma, kb + ka) : 0.0f;
-      sb[kq * CS + mb] = kb + kq < k1 ? lb(kb + kq, mb) : 0.0f;
-    }
-    __syncthreads();
-    mma_cols(sa, sb, ty, tx, acc);
-  }
-}
-
-// rows[r0 + m] += sum_q red[m][q] and cols[c0 + m] += sum_r red[r][m] for
-// the staged tile red [TILE][RED], in index order, below `lim`; either
-// output may be null.
-__device__ __forceinline__ void tile_sums(const float* red, float* rows,
-                                          int r0, float* cols, int c0,
-                                          int lim) {
-  const int tid = threadIdx.x;
-  __syncthreads();  // the tile is staged
-  if (tid < TILE) {
-    if (rows && r0 + tid < lim) {
-      float s = 0.0f;
-      for (int q = 0; q < TILE; ++q) s += red[tid * RED + q];
-      rows[r0 + tid] += s;
-    }
-  } else if (tid < 2 * TILE) {
-    const int m = tid - TILE;
-    if (cols && c0 + m < lim) {
-      float s = 0.0f;
-      for (int r = 0; r < TILE; ++r) s += red[r * RED + m];
-      cols[c0 + m] += s;
-    }
-  }
-  __syncthreads();
-}
-
-// 1. Per (chunk, head): the aggregate, the head's dM and the dcum terms
-// that need no Shat.
-__global__ void __launch_bounds__(NT) ssd_bwd_chunk_kernel(
-    const float* __restrict__ x, const float* __restrict__ dt,
+// 1. agg[p][n] = sum_i exp(cum_i) dy[i][p] C[i][n], a 64x64 tile.
+__global__ void __launch_bounds__(TT) ssd_bwd_agg_kernel(
     const float* __restrict__ cm, const float* __restrict__ dy,
-    const float* __restrict__ cbt, const float* __restrict__ cum,
-    float* __restrict__ hat, float* __restrict__ dm,
-    float* __restrict__ dcum, int S, int H, int P, int G, int N, int Q,
-    int nc) {
-  __shared__ __align__(16) float sm[2 * KC * CS];
-  __shared__ float dt_s[MAX_Q], cum_s[MAX_Q], ec_s[MAX_Q], rs[MAX_Q],
-      cs[MAX_Q];
-  float* sa = sm;
-  float* sb = sm + KC * CS;
-  float* red = sm;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+    const float* __restrict__ cum, float* __restrict__ hat, int S, int H,
+    int P, int G, int N, int Q, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  float* ec = smem + RING_FLOATS;  // exp(cum_i), 0 past the chunk's end
+  const int n_nt = (N + TILE - 1) / TILE;
+  const int p0 = blockIdx.x / n_nt * TILE, n0 = blockIdx.x % n_nt * TILE;
   const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
   const int g = h / (H / G), t0 = c * Q, nl = min(Q, S - t0);
-  const size_t ch = (size_t)(b * nc + c) * H + h;
-  const size_t row0 = (size_t)b * S + t0;  // the chunk's first step
-  for (int j = tid; j < Q; j += NT) {
-    dt_s[j] = j < nl ? dt[(row0 + j) * H + h] : 0.0f;
-    cum_s[j] = cum[ch * Q + j];
-    ec_s[j] = expf(cum_s[j]);
-    rs[j] = cs[j] = 0.0f;
-  }
-  __syncthreads();
-  auto dyv = [&](int i, int p) { return dy[((row0 + i) * H + h) * P + p]; };
-  auto cv = [&](int i, int n) { return cm[((row0 + i) * G + g) * N + n]; };
-  const int n_pt = (P + TILE - 1) / TILE, n_nt = (N + TILE - 1) / TILE;
-  const int n_qt = (Q + TILE - 1) / TILE;
-
-  // agg[p][n] = sum_i exp(cum_i) dy[i][p] C[i][n]
-  for (int tile = 0; tile < n_pt * n_nt; ++tile) {
-    const int p0 = tile / n_nt * TILE, n0 = tile % n_nt * TILE;
-    float acc[4][4] = {};
-    tile_product<false, false>(
-        sa, sb, 0, nl,
-        [&](int m, int i) { return p0 + m < P ? ec_s[i] * dyv(i, p0 + m) : 0.0f; },
-        [&](int i, int m) { return n0 + m < N ? cv(i, n0 + m) : 0.0f; }, acc);
-    float* out = hat + ch * P * N;
+  const size_t ch = (size_t)(b * nc + c) * H + h, row0 = (size_t)b * S + t0;
+  for (int i = threadIdx.x; i < MAX_Q; i += TT)
+    ec[i] = i < nl ? expf(cum[ch * Q + i]) : 0.0f;
+  const size_t hp = (size_t)H * P, gn = (size_t)G * N;
+  const float* dyh = dy + row0 * hp + (size_t)h * P;
+  const float* cg = cm + row0 * gn + (size_t)g * N;
+  Acc acc = {};
+  ring_run(
+      (nl + KS - 1) / KS,
+      [&](int s, int buf) {  // dy rows i, columns p; C rows i, columns n
+        float* sa = smem + buf * 2 * SLICE;
+        const int k0 = s * KS;
+        stage(sa, LDK, dyh + k0 * hp + p0, hp, KS, TILE, nl - k0, P - p0, dyh);
+        stage(sa + SLICE, LDK, cg + k0 * gn + n0, gn, KS, TILE, nl - k0,
+              N - n0, cg);
+      },
+      [&](int s, int buf) {
+        const float* sa = smem + buf * 2 * SLICE;
+        const float* sb = sa + SLICE;
+        const float* e = ec + s * KS;
+        slice_mma<true, true>(
+            acc, [&](int m, int k) { return sa[k * LDK + m] * e[k]; },
+            [&](int k, int n) { return sb[k * LDK + n]; });
+      });
+  float* out = hat + ch * P * N;
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+  for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int p = p0 + ty * 4 + r, n = n0 + tx * 4 + q;
-        if (p < P && n < N) out[(size_t)p * N + n] = acc[r][q];
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = p0 + acc_row(mf, e), n = n0 + acc_col(nf, e);
+        if (p < P && n < N) out[(size_t)p * N + n] = acc[mf][nf][e];
       }
-  }
-
-  // dM^h[i][j] = E_ij (dy_i . u_j) on the causal tiles; sums of M o dM^h
-  // below the diagonal
-  const float* cb = cbt + ((size_t)(b * nc + c) * G + g) * Q * Q;
-  float* dmo = dm + ch * Q * Q;
-  for (int it = 0; it < n_qt; ++it)
-    for (int jt = 0; jt <= it; ++jt) {
-      const int i0 = it * TILE, j0 = jt * TILE;
-      float acc[4][4] = {};
-      tile_product<true, true>(
-          sa, sb, 0, P,
-          [&](int m, int p) { return i0 + m < nl ? dyv(i0 + m, p) : 0.0f; },
-          [&](int p, int m) {
-            const int j = j0 + m;
-            return j < nl ? dt_s[j] * x[((row0 + j) * H + h) * P + p] : 0.0f;
-          },
-          acc);
-      __syncthreads();  // red overlays the slices
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int i = i0 + ty * 4 + r, j = j0 + tx * 4 + q;
-          float d = 0.0f, gm = 0.0f;
-          if (j <= i && i < nl) {
-            d = expf(fminf(cum_s[i] - cum_s[j], 0.0f)) * acc[r][q];
-            if (j < i) gm = cb[(size_t)j * Q + i] * d;
-          }
-          if (i < Q && j < Q) dmo[(size_t)i * Q + j] = d;
-          red[(ty * 4 + r) * RED + tx * 4 + q] = gm;
-        }
-      tile_sums(red, rs, i0, cs, j0, Q);
-    }
-  for (int j = tid; j < Q; j += NT) dcum[ch * Q + j] = rs[j] - cs[j];
 }
 
-// 2. The reverse state pass: one thread per state element walks the chunks
+// 2. Per causal tile pair (rows i of tile it, columns j of tile jt <= it),
+// chunk and group: for each head of the group in order, dM^h_ij =
+// E_ij (dy_i . u_j) on tensor cores, added to the group's dM in registers;
+// the head's sums of M o dM^h below the diagonal over the tile's columns
+// (rpart [B, nc, H, column tile, Q]) and rows (cpart [B, nc, H, row tile,
+// Q]).  The group's dM [B, nc, G, Q, Q] is written once per tile pair.
+__global__ void __launch_bounds__(TT) ssd_bwd_dm_kernel(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ dy, const float* __restrict__ cbt,
+    const float* __restrict__ cum, float* __restrict__ dm,
+    float* __restrict__ rpart, float* __restrict__ cpart, int S, int H,
+    int P, int G, int Q, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  const int rep = H / G;
+  float* mt = smem + RING_FLOATS;  // M's tile, [j][i]
+  float* cu_i = mt + TILE * MT;    // per head: cum over the row tile
+  float* cu_j = cu_i + rep * TILE;  // cum over the column tile
+  float* dt_j = cu_j + rep * TILE;  // dt over the column tile
+  float* red = dt_j + rep * TILE;
+  int jt, it;
+  tile_pair(jt, it);
+  const int i0 = it * TILE, j0 = jt * TILE;
+  const int c = blockIdx.y % nc, g = blockIdx.y / nc, b = blockIdx.z;
+  const int t0 = c * Q, nl = min(Q, S - t0), n_qt = (Q + TILE - 1) / TILE;
+  const size_t ch0 = (size_t)(b * nc + c) * H + g * rep;  // head 0 of g
+  const size_t row0 = (size_t)b * S + t0;
+  const float* mg = cbt + ((size_t)(b * nc + c) * G + g) * Q * Q;
+  stage(mt, MT, mg + (size_t)j0 * Q + i0, (size_t)Q, TILE, TILE, Q - j0,
+        Q - i0, mg);  // lands with the ring's first slice
+  for (int e = threadIdx.x; e < rep * TILE; e += TT) {
+    const int hh = e / TILE, r = e % TILE;
+    const float* cu = cum + (ch0 + hh) * Q;
+    cu_i[e] = i0 + r < Q ? cu[i0 + r] : 0.0f;
+    cu_j[e] = j0 + r < Q ? cu[j0 + r] : 0.0f;
+    dt_j[e] = j0 + r < nl ? dt[(row0 + j0 + r) * H + g * rep + hh] : 0.0f;
+  }
+  const size_t hp = (size_t)H * P;
+  const float* dyg = dy + row0 * hp + (size_t)g * rep * P;
+  const float* xg = x + row0 * hp + (size_t)g * rep * P;
+  const int n_ps = (P + KS - 1) / KS;
+  Acc dacc = {}, hacc;
+  ring_run(
+      rep * n_ps,
+      [&](int s, int buf) {  // dy^h rows i, x^h rows j, columns p
+        const int hh = s / n_ps, k0 = s % n_ps * KS;
+        float* sa = smem + buf * 2 * SLICE;
+        stage(sa, LDR, dyg + i0 * hp + hh * P + k0, hp, TILE, KS, nl - i0,
+              P - k0, dyg);
+        stage(sa + SLICE, LDR, xg + j0 * hp + hh * P + k0, hp, TILE, KS,
+              nl - j0, P - k0, xg);
+      },
+      [&](int s, int buf) {
+        const int hh = s / n_ps, ps = s % n_ps;
+        const float* sa = smem + buf * 2 * SLICE;
+        const float* sb = sa + SLICE;
+        const float* dth = dt_j + hh * TILE;
+        if (ps == 0) zero_acc(hacc);
+        slice_mma<true, true>(
+            hacc, [&](int m, int k) { return sa[m * LDR + k]; },
+            [&](int k, int n) { return sb[n * LDR + k] * dth[n]; });
+        if (ps < n_ps - 1) return;
+        // head hh: E o (dy u^T), its share of dM, M o dM^h below the diagonal
+        const float* ci = cu_i + hh * TILE;
+        const float* cj = cu_j + hh * TILE;
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+          for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = acc_row(mf, e), q = acc_col(nf, e);
+              const int i = i0 + r, j = j0 + q;
+              float d = 0.0f, gm = 0.0f;
+              if (j <= i && i < nl) {
+                d = expf(fminf(ci[r] - cj[q], 0.0f)) * hacc[mf][nf][e];
+                if (j < i) gm = mt[q * MT + r] * d;
+              }
+              dacc[mf][nf][e] += d;
+              hacc[mf][nf][e] = gm;
+            }
+        const float rs = row_sums(hacc, red);
+        if (threadIdx.x < TILE && i0 + threadIdx.x < Q)
+          rpart[((ch0 + hh) * n_qt + jt) * Q + i0 + threadIdx.x] = rs;
+        const float cs = col_sums(hacc, red);
+        if (threadIdx.x < TILE && j0 + threadIdx.x < Q)
+          cpart[((ch0 + hh) * n_qt + it) * Q + j0 + threadIdx.x] = cs;
+      });
+  float* dmg = dm + ((size_t)(b * nc + c) * G + g) * Q * Q;
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + acc_row(mf, e), j = j0 + acc_col(nf, e);
+        if (i < Q && j < Q) dmg[(size_t)i * Q + j] = dacc[mf][nf][e];
+      }
+}
+
+// 3. The reverse state pass: one thread per state element walks the chunks
 // from the last, Shat_{c-1} = exp(cum_end) Shat_c + agg_c, writing Shat_c
 // over agg_c, and dinit = Shat_{-1}.
 __global__ void __launch_bounds__(NT_STATE) ssd_bwd_state_kernel(
@@ -595,109 +1094,292 @@ __global__ void __launch_bounds__(NT_STATE) ssd_bwd_state_kernel(
   if (dinit) dinit[bh * PN + e] = s;
 }
 
-// 4. Per (chunk, head): du = (M o E)^T dy + exp(cum_end - cum_j) Shat_c B_j,
-// dx, x . du, the state terms of dcum, the inter term's share (dcs: the
-// group kernel's n tiles, summed in order), the reverse cumsum, ddt and the
-// block's share of da.
-__global__ void __launch_bounds__(NT) ssd_bwd_du_kernel(
+// 4. One 64x64 tile (rows r0.. of the chunk, columns n0..) of dC (DB
+// false) or dB: dM with B (dC_i = sum_{j<=i} dM_ij B_j) or with C (dB_j =
+// sum_{i>=j} dM_ij C_i), then each head's state term in head order,
+// dy^h S^h (rows scaled by exp(cum_i)) or x^h Shat^h (rows scaled by
+// exp(cum_end - cum_j) dt_j); a dC tile writes each head's C_i . (state
+// term) over its columns to dcs [B, nc, H, column tile, Q].
+template <bool DB>
+__device__ __forceinline__ void dcdb_tile(
     const float* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ a, const float* __restrict__ bm,
-    const float* __restrict__ dy, const float* __restrict__ cbt,
-    const float* __restrict__ cum, const float* __restrict__ states,
-    const float* __restrict__ hat, const float* __restrict__ dcum,
-    const float* __restrict__ dcs, float* __restrict__ dx,
-    float* __restrict__ ddt, float* __restrict__ dapart, int S, int H, int P,
+    const float* __restrict__ bm, const float* __restrict__ cm,
+    const float* __restrict__ dy, const float* __restrict__ cum,
+    const float* __restrict__ states, const float* __restrict__ hat,
+    const float* __restrict__ dm, float* __restrict__ out,
+    float* __restrict__ dcs, int S, int H, int P, int G, int N, int Q,
+    int nc, int tile, float* smem) {
+  const int rep = H / G, n_nt = (N + TILE - 1) / TILE;
+  const int r0 = tile / n_nt * TILE, n0 = tile % n_nt * TILE;
+  const int c = blockIdx.y % nc, g = blockIdx.y / nc, b = blockIdx.z;
+  const int t0 = c * Q, nl = min(Q, S - t0);
+  if (r0 >= nl) return;
+  const size_t ch0 = (size_t)(b * nc + c) * H + g * rep;
+  const size_t row0 = (size_t)b * S + t0;
+  float* sc = smem + RING_FLOATS;  // per head, each row's scale
+  float* ct = sc + rep * TILE;     // dC: C's tile, [i][n]
+  float* red = ct + TILE * MT;
+  const size_t hp = (size_t)H * P, gn = (size_t)G * N;
+  for (int e = threadIdx.x; e < rep * TILE; e += TT) {
+    const int hh = e / TILE, i = r0 + e % TILE;
+    const float* cu = cum + (ch0 + hh) * Q;
+    sc[e] = i >= nl ? 0.0f
+            : DB    ? expf(cu[Q - 1] - cu[i]) *
+                       dt[(row0 + i) * H + g * rep + hh]
+                    : expf(cu[i]);
+  }
+  const float* cg = cm + row0 * gn + (size_t)g * N;
+  if (!DB)
+    stage(ct, MT, cg + r0 * gn + n0, gn, TILE, TILE, nl - r0, N - n0, cg);
+  const float* dmg = dm + ((size_t)(b * nc + c) * G + g) * Q * Q;
+  const float* og = (DB ? cm : bm) + row0 * gn + (size_t)g * N;
+  const float* side = (DB ? x : dy) + row0 * hp + (size_t)g * rep * P;
+  const float* mats = DB ? hat : states;
+  // dM's contraction: j in [0, min(nl, r0 + 64)) for dC, i in [r0, nl) for dB
+  const int k_lo = DB ? r0 : 0, k_hi = DB ? nl : min(nl, r0 + TILE);
+  const int n1 = (k_hi - k_lo + KS - 1) / KS, n_ps = (P + KS - 1) / KS;
+  Acc acc = {}, hacc;
+  ring_run(
+      n1 + rep * n_ps,
+      [&](int s, int buf) {
+        float* sa = smem + buf * 2 * SLICE;
+        float* sb = sa + SLICE;
+        if (s < n1) {
+          const int k0 = k_lo + s * KS;
+          if (DB)  // dM rows i (the contraction), columns j
+            stage(sa, LDK, dmg + (size_t)k0 * Q + r0, (size_t)Q, KS, TILE,
+                  nl - k0, nl - r0, dmg);
+          else  // dM rows i, columns j (the contraction)
+            stage(sa, LDR, dmg + (size_t)r0 * Q + k0, (size_t)Q, TILE, KS,
+                  nl - r0, k_hi - k0, dmg);
+          stage(sb, LDK, og + k0 * gn + n0, gn, KS, TILE, k_hi - k0, N - n0,
+                og);
+        } else {  // dy^h or x^h rows r, columns p; S^h or Shat^h rows p
+          const int hh = (s - n1) / n_ps, k0 = (s - n1) % n_ps * KS;
+          stage(sa, LDR, side + r0 * hp + hh * P + k0, hp, TILE, KS, nl - r0,
+                P - k0, side);
+          const float* mh = mats + (ch0 + hh) * P * N;
+          stage(sb, LDK, mh + (size_t)k0 * N + n0, (size_t)N, KS, TILE,
+                P - k0, N - n0, mh);
+        }
+      },
+      [&](int s, int buf) {
+        const float* sa = smem + buf * 2 * SLICE;
+        const float* sb = sa + SLICE;
+        auto fb = [&](int k, int n) { return sb[k * LDK + n]; };
+        if (s < n1) {
+          if (DB)
+            slice_mma<true, true>(
+                acc, [&](int m, int k) { return sa[k * LDK + m]; }, fb);
+          else
+            slice_mma<true, true>(
+                acc, [&](int m, int k) { return sa[m * LDR + k]; }, fb);
+          return;
+        }
+        const int hh = (s - n1) / n_ps, ps = (s - n1) % n_ps;
+        if (ps == 0) zero_acc(hacc);
+        slice_mma<true, true>(
+            hacc, [&](int m, int k) { return sa[m * LDR + k]; }, fb);
+        if (ps < n_ps - 1) return;
+        const float* sch = sc + hh * TILE;
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+          for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float v = hacc[mf][nf][e] * sch[acc_row(mf, e)];
+              acc[mf][nf][e] += v;
+              if (!DB)
+                hacc[mf][nf][e] =
+                    ct[acc_row(mf, e) * MT + acc_col(nf, e)] * v;
+            }
+        if (!DB) {
+          const float d = row_sums(hacc, red);
+          if (threadIdx.x < TILE && r0 + threadIdx.x < nl)
+            dcs[((ch0 + hh) * n_nt + n0 / TILE) * Q + r0 + threadIdx.x] = d;
+        }
+      });
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + acc_row(mf, e), n = n0 + acc_col(nf, e);
+        if (r < nl && n < N) out[(row0 + r) * gn + (size_t)g * N + n] =
+            acc[mf][nf][e];
+      }
+}
+
+__global__ void __launch_bounds__(TT) ssd_bwd_dcdb_kernel(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ bm, const float* __restrict__ cm,
+    const float* __restrict__ dy, const float* __restrict__ cum,
+    const float* __restrict__ states, const float* __restrict__ hat,
+    const float* __restrict__ dm, float* __restrict__ db,
+    float* __restrict__ dc, float* __restrict__ dcs, int S, int H, int P,
     int G, int N, int Q, int nc) {
-  __shared__ __align__(16) float sm[2 * KC * CS];
-  __shared__ float dt_s[MAX_Q], cum_s[MAX_Q], xd_s[MAX_Q], w_s[MAX_Q],
-      dl_s[MAX_Q], dc_s[MAX_Q], part[NT];
-  float* sa = sm;
-  float* sb = sm + KC * CS;
-  float* red = sm;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  extern __shared__ __align__(16) float smem[];
+  const int per = (Q + TILE - 1) / TILE * ((N + TILE - 1) / TILE);
+  if ((int)blockIdx.x < per)
+    dcdb_tile<false>(x, dt, bm, cm, dy, cum, states, hat, dm, dc, dcs, S, H,
+                     P, G, N, Q, nc, blockIdx.x, smem);
+  else
+    dcdb_tile<true>(x, dt, bm, cm, dy, cum, states, hat, dm, db, dcs, S, H,
+                    P, G, N, Q, nc, blockIdx.x - per, smem);
+}
+
+// 5. One 64x64 tile (rows j0.., columns p0..) of du = (M o E)^T dy +
+// exp(cum_end - cum_j) B Shat^T for one head: dx, and the tile's shares of
+// x_j . du_j (xdpart) and u_j . (state du_j) (wpart) [B, nc, H, p tile, Q].
+__global__ void __launch_bounds__(TT) ssd_bwd_du_kernel(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ bm, const float* __restrict__ dy,
+    const float* __restrict__ cbt, const float* __restrict__ cum,
+    const float* __restrict__ hat, float* __restrict__ dx,
+    float* __restrict__ xdpart, float* __restrict__ wpart, int S, int H,
+    int P, int G, int N, int Q, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  float* cum_s = smem + RING_FLOATS;
+  float* dt_s = cum_s + MAX_Q;
+  float* red = dt_s + MAX_Q;
+  const int n_pt = (P + TILE - 1) / TILE;
+  const int pt = blockIdx.x % n_pt;
+  const int j0 = blockIdx.x / n_pt * TILE, p0 = pt * TILE;
   const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
   const int g = h / (H / G), t0 = c * Q, nl = min(Q, S - t0);
-  const size_t ch = (size_t)(b * nc + c) * H + h;
-  const size_t row0 = (size_t)b * S + t0;
-  const int n_nt = (N + TILE - 1) / TILE;
-  for (int j = tid; j < Q; j += NT) {
+  if (j0 >= nl) return;
+  const size_t ch = (size_t)(b * nc + c) * H + h, row0 = (size_t)b * S + t0;
+  for (int j = threadIdx.x; j < MAX_Q; j += TT) {
+    cum_s[j] = j < Q ? cum[ch * Q + j] : 0.0f;
     dt_s[j] = j < nl ? dt[(row0 + j) * H + h] : 0.0f;
-    cum_s[j] = cum[ch * Q + j];
-    xd_s[j] = w_s[j] = 0.0f;
-    float it = 0.0f;
-    for (int nt = 0; nt < n_nt; ++nt) it += dcs[(ch * n_nt + nt) * Q + j];
-    dc_s[j] = dcum[ch * Q + j] + it;
   }
-  __syncthreads();
+  const size_t hp = (size_t)H * P, gn = (size_t)G * N;
+  const float* mg = cbt + ((size_t)(b * nc + c) * G + g) * Q * Q;
+  const float* dyh = dy + row0 * hp + (size_t)h * P;
+  const float* bg = bm + row0 * gn + (size_t)g * N;
+  const float* sh = hat + ch * P * N;
+  const int n1 = (nl - j0 + KS - 1) / KS, n2 = (N + KS - 1) / KS;
+  Acc ai = {}, as = {};
+  ring_run(
+      n1 + n2,
+      [&](int s, int buf) {
+        float* sa = smem + buf * 2 * SLICE;
+        float* sb = sa + SLICE;
+        if (s < n1) {  // cbt rows j, columns i; dy rows i, columns p
+          const int k0 = j0 + s * KS;
+          stage(sa, LDR, mg + (size_t)j0 * Q + k0, (size_t)Q, TILE, KS,
+                Q - j0, nl - k0, mg);
+          stage(sb, LDK, dyh + k0 * hp + p0, hp, KS, TILE, nl - k0, P - p0,
+                dyh);
+        } else {  // B rows j, columns n; Shat rows p, columns n
+          const int k0 = (s - n1) * KS;
+          stage(sa, LDR, bg + j0 * gn + k0, gn, TILE, KS, nl - j0, N - k0,
+                bg);
+          stage(sb, LDR, sh + (size_t)p0 * N + k0, (size_t)N, TILE, KS,
+                P - p0, N - k0, sh);
+        }
+      },
+      [&](int s, int buf) {
+        float* sa = smem + buf * 2 * SLICE;
+        const float* sb = sa + SLICE;
+        if (s < n1) {
+          // the slice of M^T becomes (M o E)^T, once
+          const int k0 = j0 + s * KS;
+          for (int e = threadIdx.x; e < TILE * KS; e += TT) {
+            const int m = e / KS, k = e % KS, j = j0 + m, i = k0 + k;
+            float& v = sa[m * LDR + k];
+            v = i >= j ? v * expf(fminf(cum_s[i] - cum_s[j], 0.0f)) : 0.0f;
+          }
+          __syncthreads();
+          slice_mma<true, true>(
+              ai, [&](int m, int k) { return sa[m * LDR + k]; },
+              [&](int k, int n) { return sb[k * LDK + n]; });
+        } else {
+          slice_mma<true, true>(
+              as, [&](int m, int k) { return sa[m * LDR + k]; },
+              [&](int k, int n) { return sb[n * LDR + k]; });
+        }
+      });
   const float cum_end = cum_s[Q - 1];
-  const float* cb = cbt + ((size_t)(b * nc + c) * G + g) * Q * Q;
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + acc_row(mf, e), p = p0 + acc_col(nf, e);
+        const bool live = j < nl && p < P;
+        const size_t at = ((row0 + j) * H + h) * P + p;
+        const float xs = live ? x[at] : 0.0f;
+        const float sd =
+            live ? expf(cum_end - cum_s[j]) * as[mf][nf][e] : 0.0f;
+        const float du = ai[mf][nf][e] + sd;
+        if (live) dx[at] = dt_s[j] * du;
+        ai[mf][nf][e] = xs * du;                // x_j . du_j
+        as[mf][nf][e] = live ? dt_s[j] * xs * sd : 0.0f;  // u_j . (state du)
+      }
+  const float xd = row_sums(ai, red);
+  const size_t part = (ch * n_pt + pt) * Q + j0 + threadIdx.x;
+  if (threadIdx.x < TILE && j0 + threadIdx.x < nl) xdpart[part] = xd;
+  const float w = row_sums(as, red);
+  if (threadIdx.x < TILE && j0 + threadIdx.x < nl) wpart[part] = w;
+}
+
+// 6. Per (chunk, head): dcum from the tiles' sums (in tile order), then
+// d cum_end's own terms (<Shat_c, S_{c-1}> and sum_j w_j), the reverse
+// cumsum dl, ddt and the block's share of da.
+__global__ void __launch_bounds__(TT) ssd_bwd_dcum_kernel(
+    const float* __restrict__ dt, const float* __restrict__ a,
+    const float* __restrict__ cum, const float* __restrict__ states,
+    const float* __restrict__ hat, const float* __restrict__ rpart,
+    const float* __restrict__ cpart, const float* __restrict__ dcs,
+    const float* __restrict__ xdpart, const float* __restrict__ wpart,
+    float* __restrict__ ddt, float* __restrict__ dapart, int S, int H, int P,
+    int N, int Q, int nc) {
+  __shared__ float dt_s[MAX_Q], dc_s[MAX_Q], w_s[MAX_Q], xd_s[MAX_Q],
+      dl_s[MAX_Q], part[TT / 32];
+  const int c = blockIdx.x % nc, h = blockIdx.x / nc, b = blockIdx.y;
+  const int t0 = c * Q, nl = min(Q, S - t0);
+  const int n_qt = (Q + TILE - 1) / TILE, n_nt = (N + TILE - 1) / TILE,
+            n_pt = (P + TILE - 1) / TILE;
+  const size_t ch = (size_t)(b * nc + c) * H + h, row0 = (size_t)b * S + t0;
+  for (int j = threadIdx.x; j < Q; j += TT) {
+    float dcj = 0.0f, wj = 0.0f, xdj = 0.0f, dtj = 0.0f;
+    if (j < nl) {
+      const int jt = j / TILE;
+      float rs = 0.0f, cs = 0.0f, it = 0.0f;
+      for (int t = 0; t <= jt; ++t) rs += rpart[(ch * n_qt + t) * Q + j];
+      for (int t = jt; t < n_qt; ++t) cs += cpart[(ch * n_qt + t) * Q + j];
+      for (int t = 0; t < n_nt; ++t) it += dcs[(ch * n_nt + t) * Q + j];
+      for (int t = 0; t < n_pt; ++t) {
+        xdj += xdpart[(ch * n_pt + t) * Q + j];
+        wj += wpart[(ch * n_pt + t) * Q + j];
+      }
+      dcj = (rs - cs) + it;
+      dtj = dt[(row0 + j) * H + h];
+    }
+    dt_s[j] = dtj;
+    dc_s[j] = dcj;
+    w_s[j] = wj;
+    xd_s[j] = xdj;
+  }
+  // <Shat_c, S_{c-1}>: each thread's strided part, the warp's by shuffles,
+  // the warps' in order
   const float* sh = hat + ch * P * N;
   const float* st = states + ch * P * N;
-  auto xv = [&](int j, int p) { return x[((row0 + j) * H + h) * P + p]; };
-  const int n_pt = (P + TILE - 1) / TILE, n_qt = (Q + TILE - 1) / TILE;
-  for (int jt = 0; jt < n_qt; ++jt)
-    for (int pt = 0; pt < n_pt; ++pt) {
-      const int j0 = jt * TILE, p0 = pt * TILE;
-      float ai[4][4] = {}, as[4][4] = {};
-      // sum_{i>=j} M_ij E_ij dy[i][p] (cbt[j][i] = M_ij, valid for i >= j)
-      tile_product<true, false>(
-          sa, sb, j0, nl,
-          [&](int m, int i) {
-            const int j = j0 + m;
-            return j <= i ? cb[(size_t)j * Q + i] *
-                                expf(fminf(cum_s[i] - cum_s[j], 0.0f))
-                          : 0.0f;
-          },
-          [&](int i, int m) {
-            return p0 + m < P ? dy[((row0 + i) * H + h) * P + p0 + m] : 0.0f;
-          },
-          ai);
-      // sum_n B[j][n] Shat[p][n]
-      tile_product<true, true>(
-          sa, sb, 0, N,
-          [&](int m, int n) {
-            return j0 + m < nl ? bm[((row0 + j0 + m) * G + g) * N + n] : 0.0f;
-          },
-          [&](int n, int m) {
-            return p0 + m < P ? sh[(size_t)(p0 + m) * N + n] : 0.0f;
-          },
-          as);
-      __syncthreads();
-      float du[4][4], su[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int j = j0 + ty * 4 + r, p = p0 + tx * 4 + q;
-          const bool live = j < nl && p < P;
-          const float xs = live ? xv(j, p) : 0.0f;
-          const float sd = live ? expf(cum_end - cum_s[j]) * as[r][q] : 0.0f;
-          du[r][q] = ai[r][q] + sd;
-          su[r][q] = live ? dt_s[j] * xs * sd : 0.0f;  // u_j . (state du)
-          if (live) dx[((row0 + j) * H + h) * P + p] = dt_s[j] * du[r][q];
-          red[(ty * 4 + r) * RED + tx * 4 + q] = xs * du[r][q];
-        }
-      tile_sums(red, xd_s, j0, nullptr, 0, Q);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          red[(ty * 4 + r) * RED + tx * 4 + q] = su[r][q];
-      tile_sums(red, w_s, j0, nullptr, 0, Q);
-    }
-  // <Shat_c, S_{c-1}>, each thread's strided part then a fixed tree
   float es = 0.0f;
-  for (int e = tid; e < P * N; e += NT) es += sh[e] * st[e];
-  part[tid] = es;
+  for (int e = threadIdx.x; e < P * N; e += TT) es = fmaf(sh[e], st[e], es);
+  for (int off = 16; off > 0; off >>= 1) es += __shfl_xor_sync(FULL, es, off);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = es;
   __syncthreads();
-  for (int off = NT / 2; off > 0; off >>= 1) {
-    if (tid < off) part[tid] += part[tid + off];
-    __syncthreads();
-  }
-  if (tid == 0) {
+  if (threadIdx.x == 0) {
+    float dot = 0.0f;
+    for (int w = 0; w < TT / 32; ++w) dot += part[w];
     float wsum = 0.0f;
     for (int j = 0; j < Q; ++j) wsum += w_s[j];
-    float run = expf(cum_end) * part[0] + wsum;  // d cum_end's own terms
+    float run = expf(cum[ch * Q + Q - 1]) * dot + wsum;  // d cum_end's terms
     for (int j = Q - 1; j >= 0; --j) {
       run += dc_s[j] - w_s[j];
       dl_s[j] = run;
@@ -708,122 +1390,11 @@ __global__ void __launch_bounds__(NT) ssd_bwd_du_kernel(
   }
   __syncthreads();
   const float a_h = a[h];
-  for (int j = tid; j < nl; j += NT)
+  for (int j = threadIdx.x; j < nl; j += TT)
     ddt[(row0 + j) * H + h] = xd_s[j] + a_h * dl_s[j];
 }
 
-// 3. Per (64x64 tile of dC or dB, chunk, group): dM summed over the group's
-// heads in order, then dM with B or C, then each head's state term in head
-// order; a dC block writes each head's C_i . (state term) over its columns
-// to dcs [B, nc, H, n tiles, Q].
-__global__ void __launch_bounds__(NT) ssd_bwd_group_kernel(
-    const float* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ bm, const float* __restrict__ cm,
-    const float* __restrict__ dy, const float* __restrict__ cum,
-    const float* __restrict__ states, const float* __restrict__ hat,
-    const float* __restrict__ dm, float* __restrict__ db,
-    float* __restrict__ dc, float* __restrict__ dcs, int S, int H, int P,
-    int G, int N, int Q, int nc) {
-  __shared__ __align__(16) float sm[2 * KC * CS];
-  float* sa = sm;
-  float* sb = sm + KC * CS;
-  float* red = sm;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int n_qt = (Q + TILE - 1) / TILE, n_nt = (N + TILE - 1) / TILE;
-  const int per = n_qt * n_nt, is_db = blockIdx.x / per,
-            tile = blockIdx.x % per;
-  const int r0 = tile / n_nt * TILE, n0 = tile % n_nt * TILE;
-  const int c = blockIdx.y % nc, g = blockIdx.y / nc, b = blockIdx.z;
-  const int rep = H / G, t0 = c * Q, nl = min(Q, S - t0);
-  const size_t ch0 = (size_t)(b * nc + c) * H + g * rep;  // the group's head 0
-  const size_t row0 = (size_t)b * S + t0;
-  auto dmsum = [&](int i, int j) {
-    float s = 0.0f;
-    for (int hh = 0; hh < rep; ++hh)
-      s += dm[((ch0 + hh) * Q + i) * Q + j];
-    return s;
-  };
-  const float* bc = is_db ? cm : bm;  // the other side of M
-  float acc[4][4] = {};
-  if (!is_db) {
-    // dC[i][n] = sum_{j <= i} dM[i][j] B[j][n] + sum_h sum_p
-    //            exp(cum_i) dy[i][p] S[p][n]
-    tile_product<true, false>(
-        sa, sb, 0, min(nl, r0 + TILE),
-        [&](int m, int j) { return r0 + m < nl ? dmsum(r0 + m, j) : 0.0f; },
-        [&](int j, int m) {
-          return n0 + m < N ? bc[((row0 + j) * G + g) * N + n0 + m] : 0.0f;
-        },
-        acc);
-    for (int hh = 0; hh < rep; ++hh) {
-      float ah[4][4] = {};
-      tile_product<true, false>(
-          sa, sb, 0, P,
-          [&](int m, int p) {
-            const int i = r0 + m;
-            return i < nl ? expf(cum[(ch0 + hh) * Q + i]) *
-                                dy[((row0 + i) * H + g * rep + hh) * P + p]
-                          : 0.0f;
-          },
-          [&](int p, int m) {
-            return n0 + m < N ? states[((ch0 + hh) * P + p) * N + n0 + m]
-                              : 0.0f;
-          },
-          ah);
-      __syncthreads();  // red overlays the slices
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int i = r0 + ty * 4 + r, n = n0 + tx * 4 + q;
-          acc[r][q] += ah[r][q];
-          red[(ty * 4 + r) * RED + tx * 4 + q] =
-              i < nl && n < N ? cm[((row0 + i) * G + g) * N + n] * ah[r][q]
-                              : 0.0f;
-        }
-      __syncthreads();
-      if (tid < TILE && r0 + tid < Q) {
-        float t = 0.0f;
-        for (int q = 0; q < TILE; ++q) t += red[tid * RED + q];
-        dcs[((ch0 + hh) * n_nt + n0 / TILE) * Q + r0 + tid] = t;
-      }
-    }
-  } else {
-    // dB[j][n] = sum_{i >= j} dM[i][j] C[i][n] + sum_h sum_p
-    //            exp(cum_end - cum_j) u[j][p] Shat[p][n]
-    tile_product<false, false>(
-        sa, sb, r0, nl,
-        [&](int m, int i) { return r0 + m < nl ? dmsum(i, r0 + m) : 0.0f; },
-        [&](int i, int m) {
-          return n0 + m < N ? bc[((row0 + i) * G + g) * N + n0 + m] : 0.0f;
-        },
-        acc);
-    tile_product<true, false>(
-        sa, sb, 0, rep * P,
-        [&](int m, int k) {
-          const int j = r0 + m, hh = k / P, p = k % P;
-          if (j >= nl) return 0.0f;
-          const float* cu = cum + (ch0 + hh) * Q;
-          const size_t at = (row0 + j) * H + g * rep + hh;
-          return expf(cu[Q - 1] - cu[j]) * dt[at] * x[at * P + p];
-        },
-        [&](int k, int m) {
-          const int hh = k / P, p = k % P;
-          return n0 + m < N ? hat[((ch0 + hh) * P + p) * N + n0 + m] : 0.0f;
-        },
-        acc);
-  }
-  float* out = is_db ? db : dc;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = r0 + ty * 4 + r, n = n0 + tx * 4 + q;
-      if (i < nl && n < N) out[((row0 + i) * G + g) * N + n] = acc[r][q];
-    }
-}
-
-// 5. da[h] = sum over batches and chunks of the blocks' shares, in order.
+// 7. da[h] = sum over batches and chunks of the blocks' shares, in order.
 __global__ void ssd_bwd_da_kernel(const float* __restrict__ dapart,
                                   float* __restrict__ da, int B, int H,
                                   int nc) {
@@ -834,40 +1405,22 @@ __global__ void ssd_bwd_da_kernel(const float* __restrict__ dapart,
   da[h] = s;
 }
 
-// The four launches of the forward for element type T; y32 holds y_intra
-// in f32 (y itself when T is float, updated in place by the last).
-template <class T>
-static int launch_forward(const T* x, const float* dt, const float* a,
-                          const T* b, const T* c, const float* init_state,
-                          T* y, float* y32, float* state_out, float* scratch,
-                          int B, int S, int H, int P, int G, int N, int Q,
-                          void* stream) {
-  if (Q < 1 || Q > MAX_Q || G < 1 || H % G) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int nc = (S + Q - 1) / Q, nt = (Q + TILE - 1) / TILE;
-  const int n_pt = (P + TILE - 1) / TILE, n_nt = (N + TILE - 1) / TILE;
-  float* cbt = scratch;
-  float* cum = cbt + (size_t)B * nc * G * Q * Q;
-  float* states = cum + (size_t)B * nc * H * Q;
-  ssd_scores_kernel<T><<<dim3(nt * (nt + 1) / 2, nc * G, B), NT, 0, st>>>(
-      b, c, cbt, S, G, N, Q, nc);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  ssd_chunk_kernel<T>
-      <<<dim3(nt * n_pt + n_pt * n_nt, nc * H, B), NT, 0, st>>>(
-          x, dt, a, b, cbt, y32, cum, states, S, H, P, G, N, Q, nc);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  ssd_state_kernel<<<dim3((P * N + NT_STATE - 1) / NT_STATE, H, B),
-                     NT_STATE, 0, st>>>(
-      init_state, cum, states, state_out, H, P * N, Q, nc);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  ssd_inter_kernel<T><<<dim3(nt * n_pt, nc * H, B), NT, 0, st>>>(
-      c, cum, states, sizeof(T) == sizeof(float) ? nullptr : y32, y, S, H, P,
-      G, N, Q, nc);
-  return (int)cudaGetLastError();
+// Dynamic shared memory of a tensor-core kernel: the ring and `extra`
+// floats; sets the kernel's limit when it passes 48 KB.
+template <class K>
+static cudaError_t smem_for(K kernel, size_t extra, size_t* bytes) {
+  *bytes = sizeof(float) * (RING_FLOATS + extra);
+  if (*bytes > 232448) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*bytes);
 }
+
+#define CHECK(x)                                  \
+  do {                                            \
+    const cudaError_t e_ = (x);                   \
+    if (e_ != cudaSuccess) return (int)e_;        \
+  } while (0)
 
 extern "C" {
 
@@ -890,39 +1443,84 @@ int ssd_scan(const float* x, const float* dt, const float* a, const float* b,
              const float* c, const float* init_state, float* y,
              float* state_out, float* scratch, int B, int S, int H, int P,
              int G, int N, int Q, void* stream) {
-  return launch_forward<float>(x, dt, a, b, c, init_state, y, y, state_out,
-                               scratch, B, S, H, P, G, N, Q, stream);
+  if (Q < 1 || Q > MAX_Q || G < 1 || H % G) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nc = (S + Q - 1) / Q, nt = (Q + TILE - 1) / TILE;
+  const int n_pt = (P + TILE - 1) / TILE, n_nt = (N + TILE - 1) / TILE;
+  float* cbt = scratch;
+  float* cum = cbt + (size_t)B * nc * G * Q * Q;
+  float* states = cum + (size_t)B * nc * H * Q;
+  ssd_scores_kernel<<<dim3(nt * (nt + 1) / 2, nc * G, B), NT, 0, st>>>(
+      b, c, cbt, S, G, N, Q, nc);
+  CHECK(cudaGetLastError());
+  ssd_chunk_kernel<<<dim3(nt * n_pt + n_pt * n_nt, nc * H, B), NT, 0, st>>>(
+      x, dt, a, b, cbt, y, cum, states, S, H, P, G, N, Q, nc);
+  CHECK(cudaGetLastError());
+  ssd_state_kernel<<<dim3((P * N + NT_STATE - 1) / NT_STATE, H, B),
+                     NT_STATE, 0, st>>>(
+      init_state, cum, states, state_out, H, P * N, Q, nc);
+  CHECK(cudaGetLastError());
+  ssd_inter_kernel<<<dim3(nt * n_pt, nc * H, B), NT, 0, st>>>(
+      c, cum, states, y, S, H, P, G, N, Q, nc);
+  return (int)cudaGetLastError();
 }
 
 // As ssd_scan for x, b, c and y in bf16 (dt, a, the states and the scratch
-// f32); y32, B*S*H*P floats, holds y in f32 until its one rounding.
-int ssd_scan_bf16(const __nv_bfloat16* x, const float* dt, const float* a,
-                  const __nv_bfloat16* b, const __nv_bfloat16* c,
-                  const float* init_state, __nv_bfloat16* y, float* y32,
-                  float* state_out, float* scratch, int B, int S, int H,
-                  int P, int G, int N, int Q, void* stream) {
-  return launch_forward<__nv_bfloat16>(x, dt, a, b, c, init_state, y, y32,
-                                       state_out, scratch, B, S, H, P, G, N,
-                                       Q, stream);
+// f32, the same scratch layout), on tensor cores: four launches.
+int ssd_scan_bf16(const bf16* x, const float* dt, const float* a,
+                  const bf16* b, const bf16* c, const float* init_state,
+                  bf16* y, float* state_out, float* scratch, int B, int S,
+                  int H, int P, int G, int N, int Q, void* stream) {
+  if (Q < 1 || Q > MAX_Q || G < 1 || H % G) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nc = (S + Q - 1) / Q, nt = (Q + TILE - 1) / TILE;
+  const int n_pt = (P + TILE - 1) / TILE, n_nt = (N + TILE - 1) / TILE;
+  float* cbt = scratch;
+  float* cum = cbt + (size_t)B * nc * G * Q * Q;
+  float* states = cum + (size_t)B * nc * H * Q;
+  size_t sm_scores, sm_chunk, sm_out;
+  CHECK(smem_for(ssd_scores_bf16_kernel, 0, &sm_scores));
+  CHECK(smem_for(ssd_chunk_state_bf16_kernel, 3 * MAX_Q, &sm_chunk));
+  CHECK(smem_for(ssd_output_bf16_kernel, 2 * MAX_Q, &sm_out));
+  ssd_scores_bf16_kernel<<<dim3(nt * (nt + 1) / 2, nc * G, B), TT, sm_scores,
+                           st>>>(b, c, cbt, S, G, N, Q, nc);
+  CHECK(cudaGetLastError());
+  ssd_chunk_state_bf16_kernel<<<dim3(n_pt * n_nt, nc * H, B), TT, sm_chunk,
+                                st>>>(x, dt, a, b, cum, states, S, H, P, G,
+                                      N, Q, nc);
+  CHECK(cudaGetLastError());
+  ssd_state_kernel<<<dim3((P * N + NT_STATE - 1) / NT_STATE, H, B),
+                     NT_STATE, 0, st>>>(
+      init_state, cum, states, state_out, H, P * N, Q, nc);
+  CHECK(cudaGetLastError());
+  ssd_output_bf16_kernel<<<dim3(nt * n_pt, nc * H, B), TT, sm_out, st>>>(
+      x, dt, c, cbt, cum, states, y, S, H, P, G, N, Q, nc);
+  return (int)cudaGetLastError();
 }
+
 // Floats of scratch ssd_scan_backward needs: the aggregates, then the
-// cotangents Shat [B, nc, H, P, N]; each head's dM [B, nc, H, Q, Q]; dcum
-// [B, nc, H, Q]; the inter term's share of dcum per n tile [B, nc, H,
-// n tiles, Q]; the blocks' shares of da [B, nc, H].
+// cotangents Shat [B, nc, H, P, N]; the group's dM [B, nc, G, Q, Q]; the
+// sums of M o dM^h by column tile and by row tile [B, nc, H, Q tiles, Q]
+// each; the inter term's share of dcum by n tile [B, nc, H, N tiles, Q];
+// x . du and u . (state du) by p tile [B, nc, H, P tiles, Q] each; the
+// blocks' shares of da [B, nc, H].
 size_t ssd_scan_backward_scratch_floats(int B, int S, int H, int P, int G,
                                         int N, int Q) {
-  const size_t nc = (S + Q - 1) / Q, n_nt = (N + TILE - 1) / TILE;
-  return (size_t)B * nc * H *
-         ((size_t)P * N + (size_t)Q * Q + (size_t)Q + n_nt * Q + 1);
+  const size_t nc = (S + Q - 1) / Q, n_qt = (Q + TILE - 1) / TILE,
+               n_nt = (N + TILE - 1) / TILE, n_pt = (P + TILE - 1) / TILE;
+  return (size_t)B * nc *
+         ((size_t)H * P * N + (size_t)G * Q * Q +
+          (size_t)H * Q * (2 * n_qt + n_nt + 2 * n_pt) + H);
 }
 
 // The gradients of ssd_scan's (y, state_out) given their cotangents dy and
 // dstate (null: zero): dx, ddt, da [H], db, dc and, unless null, dinit
 // [B,H,P,N].  `saved` is the scratch of the forward call on the same
 // inputs (its C.B^T, cumsums and entry states); scratch holds
-// ssd_scan_backward_scratch_floats(...) floats.  Launches five kernels on
+// ssd_scan_backward_scratch_floats(...) floats.  Launches seven kernels on
 // `stream`, allocates nothing, does not synchronise; the same limits as
-// ssd_scan.
+// ssd_scan, and the group's H / G heads' scale vectors within a block's
+// shared memory.
 int ssd_scan_backward(const float* x, const float* dt, const float* a,
                       const float* b, const float* c, const float* dy,
                       const float* dstate, const float* saved, float* dx,
@@ -932,34 +1530,48 @@ int ssd_scan_backward(const float* x, const float* dt, const float* a,
   if (Q < 1 || Q > MAX_Q || G < 1 || H % G) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int nc = (S + Q - 1) / Q, nt = (Q + TILE - 1) / TILE;
-  const int n_nt = (N + TILE - 1) / TILE;
+  const int n_nt = (N + TILE - 1) / TILE, n_pt = (P + TILE - 1) / TILE;
+  const int rep = H / G;
   const float* cbt = saved;
   const float* cum = cbt + (size_t)B * nc * G * Q * Q;
   const float* states = cum + (size_t)B * nc * H * Q;
+  const size_t bch = (size_t)B * nc * H;
   float* hat = scratch;
-  float* dm = hat + (size_t)B * nc * H * P * N;
-  float* dcum = dm + (size_t)B * nc * H * Q * Q;
-  float* dcs = dcum + (size_t)B * nc * H * Q;
-  float* dapart = dcs + (size_t)B * nc * H * n_nt * Q;
-  ssd_bwd_chunk_kernel<<<dim3(1, nc * H, B), NT, 0, st>>>(
-      x, dt, c, dy, cbt, cum, hat, dm, dcum, S, H, P, G, N, Q, nc);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  float* dm = hat + bch * P * N;
+  float* rpart = dm + (size_t)B * nc * G * Q * Q;
+  float* cpart = rpart + bch * nt * Q;
+  float* dcs = cpart + bch * nt * Q;
+  float* xdpart = dcs + bch * n_nt * Q;
+  float* wpart = xdpart + bch * n_pt * Q;
+  float* dapart = wpart + bch * n_pt * Q;
+  size_t sm_agg, sm_dm, sm_dcdb, sm_du;
+  CHECK(smem_for(ssd_bwd_agg_kernel, MAX_Q, &sm_agg));
+  CHECK(smem_for(ssd_bwd_dm_kernel, TILE * MT + 3 * rep * TILE + 2 * TILE,
+                 &sm_dm));
+  CHECK(smem_for(ssd_bwd_dcdb_kernel, rep * TILE + TILE * MT + 2 * TILE,
+                 &sm_dcdb));
+  CHECK(smem_for(ssd_bwd_du_kernel, 2 * MAX_Q + 2 * TILE, &sm_du));
+  ssd_bwd_agg_kernel<<<dim3(n_pt * n_nt, nc * H, B), TT, sm_agg, st>>>(
+      c, dy, cum, hat, S, H, P, G, N, Q, nc);
+  CHECK(cudaGetLastError());
+  ssd_bwd_dm_kernel<<<dim3(nt * (nt + 1) / 2, nc * G, B), TT, sm_dm, st>>>(
+      x, dt, dy, cbt, cum, dm, rpart, cpart, S, H, P, G, Q, nc);
+  CHECK(cudaGetLastError());
   ssd_bwd_state_kernel<<<dim3((P * N + NT_STATE - 1) / NT_STATE, H, B),
                          NT_STATE, 0, st>>>(dstate, cum, hat, dinit, H,
                                             P * N, Q, nc);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  ssd_bwd_group_kernel<<<dim3(2 * nt * n_nt, nc * G, B), NT, 0, st>>>(
+  CHECK(cudaGetLastError());
+  ssd_bwd_dcdb_kernel<<<dim3(2 * nt * n_nt, nc * G, B), TT, sm_dcdb, st>>>(
       x, dt, b, c, dy, cum, states, hat, dm, db, dc, dcs, S, H, P, G, N, Q,
       nc);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  ssd_bwd_du_kernel<<<dim3(1, nc * H, B), NT, 0, st>>>(
-      x, dt, a, b, dy, cbt, cum, states, hat, dcum, dcs, dx, ddt, dapart, S,
-      H, P, G, N, Q, nc);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  CHECK(cudaGetLastError());
+  ssd_bwd_du_kernel<<<dim3(nt * n_pt, nc * H, B), TT, sm_du, st>>>(
+      x, dt, b, dy, cbt, cum, hat, dx, xdpart, wpart, S, H, P, G, N, Q, nc);
+  CHECK(cudaGetLastError());
+  ssd_bwd_dcum_kernel<<<dim3(nc * H, B), TT, 0, st>>>(
+      dt, a, cum, states, hat, rpart, cpart, dcs, xdpart, wpart, ddt, dapart,
+      S, H, P, N, Q, nc);
+  CHECK(cudaGetLastError());
   ssd_bwd_da_kernel<<<(H + 127) / 128, 128, 0, st>>>(dapart, da, B, H, nc);
   return (int)cudaGetLastError();
 }

@@ -50,7 +50,7 @@ MAX_SMEM_BYTES = 232_448
 #: ``flash_attention_bwd`` counts calls of K3's backward entry point
 #: (three kernels a call, four with grouped heads).  ``ssd_scan``,
 #: ``ssd_scan_bf16`` and ``ssd_scan_bwd`` count calls of K4's forward
-#: (four kernels) on f32 and on bf16 inputs and of its backward (five
+#: (four kernels) on f32 and on bf16 inputs and of its backward (seven
 #: kernels).
 LAUNCHES: dict[str, int] = {"sketch_insert_runs": 0, "failrank_step": 0,
                              "flash_attention": 0,

@@ -10,17 +10,19 @@ products and chunk states, the state pass over chunks, the inter-chunk
 term) through scratch the wrapper allocates.
 
 x, b and c may be bf16 (all three; dt, a and the state stay f32): the
-source's bf16 entry point ``ssd_scan_bf16`` converts them to f32 as it
-loads them, computes in f32 and rounds y to bf16 once, through an f32
-scratch for y.  It is counted under ``ssd_scan_bf16``; ``ssd_scan``
-counts f32 calls only.
+source's bf16 entry point ``ssd_scan_bf16`` runs its products on tensor
+cores (C·Bᵀ in bf16, the other three as TF32 with the f32 operand split
+in two and the bf16 one whole) and rounds y to bf16 once, from an f32 sum
+of the intra- and inter-chunk terms.  It is counted under
+``ssd_scan_bf16``; ``ssd_scan`` counts f32 calls only.
 
 A call that needs a gradient goes through :class:`SSDScan`: its forward
 keeps the kernel's scratch (C·Bᵀ per group, the cumsums and each chunk's
 entry state), and its backward launches the source's second entry point,
-``ssd_scan_backward`` (five launches), on it.  The backward takes f32
-only: a bf16 call on the card that needs a gradient raises (bf16 training
-is the next item of ROADMAP Queue 1).
+``ssd_scan_backward`` (seven launches, every product 3xTF32 on tensor
+cores), on it.  The backward takes f32 only: a bf16 call on the card that
+needs a gradient raises (bf16 training is the next item of ROADMAP Queue
+1).
 """
 
 from __future__ import annotations
@@ -47,8 +49,7 @@ def _load():
     lib.ssd_scan.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     lib.ssd_scan_bf16.restype = ctypes.c_int
-    lib.ssd_scan_bf16.argtypes = [ctypes.c_void_p] * 10 \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.ssd_scan_bf16.argtypes = lib.ssd_scan.argtypes
     lib.ssd_scan_backward_scratch_floats.restype = ctypes.c_size_t
     lib.ssd_scan_backward_scratch_floats.argtypes = [ctypes.c_int] * 7
     lib.ssd_scan_backward.restype = ctypes.c_int
@@ -114,10 +115,6 @@ def ssd_fwd_cuda(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
     args = [x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), 0 if init_state is None else init_state.data_ptr(),
             y.data_ptr()]
-    if bf16:
-        # y in f32 until its one rounding
-        y32 = torch.empty(x.shape, dtype=torch.float32, device=dev)
-        args.append(y32.data_ptr())
     entry = "ssd_scan_bf16" if bf16 else "ssd_scan"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -157,8 +154,8 @@ def ssd_bwd_cuda(x, dt, a, b, c, dy, dstate, *, saved, chunk: int = 128,
                          f"scratch, {want} float32 on {dev}")
     dx, ddt, da, db, dc = (torch.empty_like(t) for t in (x, dt, a, b, c))
     dinit = None if init_state is None else torch.empty_like(init_state)
-    # aggregates then Ŝ per chunk, each head's dM, dcum, the inter term's
-    # share of dcum per 64-column tile, the shares of da
+    # aggregates then Ŝ per chunk, the group's dM, the tiles' sums for
+    # dcum and ddt, the shares of da
     scratch = torch.empty(lib.ssd_scan_backward_scratch_floats(
         bsz, s, h, p, g, n, chunk), dtype=torch.float32, device=dev)
 

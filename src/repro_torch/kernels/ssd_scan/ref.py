@@ -18,9 +18,10 @@ half weight, as in the reference, and not at the full weight of
 state).
 
 In bf16 (x, b and c; dt, a and the state stay f32) the algebra is the
-kernel's and the Pallas kernel's (``kernel.py:36-40``, ``:75``): the
-inputs are converted to f32, everything after runs in f32, and y is
-rounded to x's type once.
+Pallas kernel's (``kernel.py:36-40``, ``:75``): the inputs are converted to
+f32, everything after runs in f32, and y is rounded to x's type once.
+With ``tensor_cores`` the products are taken as the bf16 kernel's tensor
+cores take them (:func:`einsum_2xtf32`; for tests).
 """
 
 from __future__ import annotations
@@ -29,12 +30,29 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..flash_attention.ref import einsum_3xtf32, tf32_split
 
-def ssd_ref(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
+
+def einsum_2xtf32(eq, a, b):
+    """``torch.einsum(eq, a, b)`` as the bf16 forward's tensor cores take
+    it: ``a`` f32, split into TF32 hi + lo (:func:`tf32_split`), ``b`` exact
+    in TF32 (a bf16 value, whole): a_lo·b + a_hi·b, each product exact in
+    f32, summed in f32."""
+    hi, lo = tf32_split(a)
+    return torch.einsum(eq, lo, b) + torch.einsum(eq, hi, b)
+
+
+def ssd_ref(x, dt, a, b, c, *, chunk: int = 128, init_state=None,
+            tensor_cores=False):
     """x [B,S,H,P], dt [B,S,H] (post-softplus), a [H] (negative),
     b/c [B,S,G,N], init_state [B,H,P,N] or None →
-    (y [B,S,H,P] in x's type, final state [B,H,P,N] f32)."""
+    (y [B,S,H,P] in x's type, final state [B,H,P,N] f32).  With
+    ``tensor_cores`` and bf16 inputs, the intra-chunk product, the chunk
+    states and the inter-chunk term keep their bf16 side (x, B, C) whole
+    and split their f32 side (C·Bᵀ∘decay∘dt, exp(cum_end − cum)·dt·x, the
+    entry states) as the kernel does; C·Bᵀ is exact either way."""
     y_dtype = x.dtype
+    split = tensor_cores and y_dtype == torch.bfloat16
     x, b, c = x.float(), b.float(), c.float()
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
@@ -63,11 +81,16 @@ def ssd_ref(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
                         device=x.device).tril()
     gmat = torch.where(causal, scores * decay, 0.0)
     xdt = xc * dtc[..., None]
-    y = torch.einsum("bchqk,bckhp->bcqhp", gmat.to(x.dtype), xdt)
-
     w_end = torch.exp(cum_end[:, :, None, :] - cum)    # [B,nc,Q,H]
-    s_chunk = torch.einsum("bcqhn,bcqhp,bcqh->bchpn", bh, xdt,
-                           w_end.to(x.dtype))
+    if split:
+        y = einsum_2xtf32("bchqk,bckhp->bcqhp",
+                          gmat * dtc.permute(0, 1, 3, 2)[:, :, :, None], xc)
+        s_chunk = einsum_2xtf32("bcqhp,bcqhn->bchpn",
+                                (dtc * w_end)[..., None] * xc, bh)
+    else:
+        y = torch.einsum("bchqk,bckhp->bcqhp", gmat.to(x.dtype), xdt)
+        s_chunk = torch.einsum("bcqhn,bcqhp,bcqh->bchpn", bh, xdt,
+                               w_end.to(x.dtype))
 
     state = (torch.zeros(bsz, h, p, n, dtype=torch.float32, device=x.device)
              if init_state is None else init_state.float())
@@ -78,9 +101,13 @@ def ssd_ref(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
                  + s_chunk[:, ci].float())
     entry_states = torch.stack(entry, dim=1)           # [B,nc,H,P,N]
 
-    y_inter = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", ch,
-                           entry_states.to(x.dtype),
-                           torch.exp(cum).to(x.dtype))
+    if split:
+        y_inter = torch.exp(cum)[..., None] * einsum_2xtf32(
+            "bchpn,bcqhn->bcqhp", entry_states, ch)
+    else:
+        y_inter = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", ch,
+                               entry_states.to(x.dtype),
+                               torch.exp(cum).to(x.dtype))
     y = (y + y_inter).reshape(bsz, nc * chunk, h, p)
     return y[:, :s].to(y_dtype), state
 
@@ -124,12 +151,16 @@ def autograd_grads(fn, args, init, dy, dstate, *, chunk: int = 128):
 
 
 def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
-                init_state=None):
+                init_state=None, tf32x3=False):
     """The algebra of the kernel's backward in plain torch (not autograd):
     the gradients of :func:`ssd_ref`'s ``(y, final state)`` given their
     cotangents ``dy [B,S,H,P]`` and ``dstate [B,H,P,N]`` (or None, a zero
     cotangent).  Returns f32 ``(dx, ddt, da, db, dc, dinit)``; ``dinit`` is
-    None without an ``init_state``.
+    None without an ``init_state``.  The products are grouped as the
+    kernel's: exp(cum) enters the aggregate's dy, dt enters u, the state
+    terms of dC, dB and du scale their rows after the product.  With
+    ``tf32x3`` each product is taken as the kernel's tensor cores take it
+    (:func:`einsum_3xtf32`; for tests), else in f32.
 
     Per chunk, with u = dt·x, E_ij = exp(min(cum_i − cum_j, 0)) for j ≤ i,
     M_ij = C_i·B_j (per group), S_{c−1} the state entering the chunk and
@@ -141,7 +172,7 @@ def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
         dx_j  = dt_j·du_j,  ddt_j = x_j·du_j + a·dl_j
         dM_ij = Σ_{h∈group} E_ij (dy_i·u_j)          (heads in order)
         dC_i  = Σ_j dM_ij B_j + Σ_h exp(cum_i)·S_{c−1}ᵀ dy_i
-        dB_j  = Σ_i dM_ij C_i + Σ_h exp(cum_end − cum_j)·Ŝ_cᵀ u_j
+        dB_j  = Σ_i dM_ij C_i + Σ_h exp(cum_end − cum_j)·dt_j·Ŝ_cᵀ x_j
         dcum  = rowsum(M∘dMʰ) − colsum(M∘dMʰ) (the diagonal left out: it
                 adds g and −g to one entry) + C_i·dC_iʰ (dC_iʰ the head's
                 state term of dC, exp(cum_i)·S_{c−1}ᵀ dy_i) − w_j,
@@ -149,6 +180,7 @@ def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
                 exp(cum_end)·⟨Ŝ_c, S_{c−1}⟩ + Σ_j w_j at the chunk's end
         dl    = the reverse in-chunk cumsum of dcum;  da = Σ dt_j·dl_j
     """
+    mm = einsum_3xtf32 if tf32x3 else torch.einsum
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     rep = h // g
@@ -190,7 +222,8 @@ def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
     s_in = torch.stack(entry, dim=1)                    # [B,nc,H,P,N]
 
     # reverse state pass: the cotangent of the state leaving each chunk
-    agg = torch.einsum("bcqh,bcqhp,bcqhn->bchpn", torch.exp(cum), dyc, ch)
+    ec = torch.exp(cum)                                 # [B,nc,Q,H]
+    agg = mm("bcqhp,bcqhn->bchpn", ec[..., None] * dyc, ch)
     shat = (torch.zeros_like(state) if dstate is None else dstate.float())
     hats = [None] * nc
     for ci in reversed(range(nc)):
@@ -201,14 +234,14 @@ def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
 
     # per (chunk, head): dMʰ, the state terms of dC and dB, du, dx, the
     # direct ddt, dcum
-    dmh = e * torch.einsum("bcihp,bcjhp->bchij", dyc, u)
+    dmh = e * mm("bcihp,bcjhp->bchij", dyc, u)
     gm = torch.where(below, m * dmh, 0.0)
     dcum = gm.sum(-1) - gm.sum(-2)                      # [B,nc,H,Q]
-    dc_h = torch.einsum("bcih,bcihp,bchpn->bcihn", torch.exp(cum), dyc, s_in)
-    db_h = torch.einsum("bcjh,bcjhp,bchpn->bcjhn", w_end, u, hat)
+    dc_h = ec[..., None] * mm("bcihp,bchpn->bcihn", dyc, s_in)
+    db_h = (w_end * dtc)[..., None] * mm("bcjhp,bchpn->bcjhn", xc, hat)
     dcum = dcum + (ch * dc_h).sum(-1).permute(0, 1, 3, 2)
-    du_state = w_end[..., None] * torch.einsum("bcjhn,bchpn->bcjhp", bh, hat)
-    du = torch.einsum("bchij,bcihp->bcjhp", m * e, dyc) + du_state
+    du_state = w_end[..., None] * mm("bcjhn,bchpn->bcjhp", bh, hat)
+    du = mm("bchij,bcihp->bcjhp", m * e, dyc) + du_state
     w = (u * du_state).sum(-1).permute(0, 1, 3, 2)      # [B,nc,H,Q]
     dcum = dcum - w
     dcum[..., -1] += torch.exp(cum_end) * (hat * s_in).sum((-1, -2)) \
@@ -220,9 +253,9 @@ def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
 
     # per (chunk, group): dM summed over the group's heads, dC and dB
     dm = dmh.reshape(bsz, nc, g, rep, q, q).sum(3)
-    dc = torch.einsum("bcgij,bcjgn->bcign", dm, bc) \
+    dc = mm("bcgij,bcjgn->bcign", dm, bc) \
         + dc_h.reshape(bsz, nc, q, g, rep, n).sum(4)
-    db = torch.einsum("bcgij,bcign->bcjgn", dm, cc) \
+    db = mm("bcgij,bcign->bcjgn", dm, cc) \
         + db_h.reshape(bsz, nc, q, g, rep, n).sum(4)
 
     def cut(t_):

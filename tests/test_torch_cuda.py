@@ -27,9 +27,11 @@ attention, bit-identical over two runs, at smollm-135m's shape, GQA 3 and
 4, a window, head dims 16, 120 and 128 and a cut of whisper's
 cross-attention (non-causal, S != T); the log-sum-exp output leaves the
 prefill's output unchanged;
-K4's backward through its autograd function within 1e-4 of each
-gradient's largest entry against its plain mirror and torch autograd
-through the plain scan, bit-identical over two runs; a full-size
+K4's backward (3xTF32 on tensor cores) through its autograd function
+within 1e-4 of each gradient's largest entry against its plain mirror and
+torch autograd through the plain scan, bit-identical over two runs, also
+at P and N off the 64-wide tiles and chunks 16, 24 and 128 with ragged
+tails; a full-size
 smollm-135m train step launches K3's forward and backward 30 times each
 and never the plain attention, and a full-size mamba2-1.3b step K4's
 forward and backward 48 times each and never the plain scan.  At the
@@ -44,7 +46,8 @@ tolerances and bit-identical twice; whisper's smoke config served twice
 gives equal tokens.  MoE training: three train steps of the mixtral smoke
 config, and of dbrx's routing (16 experts, top-4), twice from one seed
 give the same bits.  bf16: K3's prefill (tensor cores) and split-key decode
-and K4's forward in bf16 against their plain versions in bf16, within four
+and K4's forward (tensor cores) in bf16 against their plain versions in
+bf16, within four
 bf16 ulps of each output row's largest entry (the kernel and the plain
 version sum in other orders and may round P, or y, on either side of a
 boundary), bit-identical over two runs; mixed types, and a bf16 call that
@@ -775,14 +778,19 @@ def _ssd_cotangents(dev, b, s, h, p, n, seed):
     (2, 96, 4, 32, 2, 16, 32), (1, 200, 2, 16, 1, 8, 64),
     (2, 64, 8, 8, 4, 8, 16), (2, 80, 4, 16, 2, 8, 32),
     (1, 300, 16, 64, 2, 128, 128), (2, 24, 4, 32, 2, 16, 24),
-    (1, 130, 2, 72, 1, 70, 128), (4, 512, 64, 64, 8, 128, 128)])
+    (1, 130, 2, 72, 1, 70, 128), (4, 512, 64, 64, 8, 128, 128),
+    (2, 100, 8, 64, 2, 128, 16), (1, 100, 4, 32, 4, 64, 24),
+    (2, 300, 16, 64, 8, 128, 128), (3, 77, 6, 16, 3, 16, 24),
+    (1, 300, 4, 16, 2, 16, 16)])
 def test_ssd_backward_matches_plain_and_autograd(dev, b, s, h, p, g, n,
                                                  chunk):
     """K4's backward through ``ssd`` (``SSDScan``) against its plain
     mirror and torch autograd through the plain scan, from a zero and a
     non-zero state, with and without a final-state cotangent: within 1e-4
     of each gradient's largest entry; one forward and one backward launch
-    a call."""
+    a call; two calls give the same bits.  Chunks 16, 24 and 128 with a
+    ragged last chunk, P and N off the 64-wide tiles (P 72, N 70), more
+    chunks than the state pass keeps in flight."""
     *args, s0 = _ssd_inputs(dev, b, s, h, p, g, n, s + chunk)
     dy, ds_rand = _ssd_cotangents(dev, b, s, h, p, n, s + chunk)
     for init in (None, s0):
@@ -792,6 +800,10 @@ def test_ssd_backward_matches_plain_and_autograd(dev, b, s, h, p, g, n,
                                            chunk=chunk)
             assert _lib.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
             assert _lib.LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+            again = ssd_plain.autograd_grads(ssd_ops.ssd, args, init, dy,
+                                             ds, chunk=chunk)
+            assert all(u is None or torch.equal(u, v)
+                       for u, v in zip(got, again))
             mirror = ssd_bwd_ref(*args, dy, ds, chunk=chunk, init_state=init)
             auto = ssd_plain.autograd_grads(ssd_ref, args, init, dy, ds,
                                             chunk=chunk)
@@ -1130,11 +1142,14 @@ def test_bf16_decode_edge_cases(dev, label, b, qps, hq, hk, d, t, tab,
 
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
     (2, 96, 4, 32, 2, 16, 32), (2, 100, 8, 64, 2, 128, 16),
-    (1, 130, 2, 72, 1, 70, 128), (2, 300, 16, 64, 8, 128, 128)])
+    (1, 130, 2, 72, 1, 70, 128), (2, 300, 16, 64, 8, 128, 128),
+    (1, 100, 4, 32, 4, 64, 24), (3, 77, 6, 16, 3, 16, 24),
+    (1, 300, 4, 16, 2, 16, 16), (4, 512, 64, 64, 8, 128, 128)])
 def test_bf16_ssd_kernel_matches_plain(dev, b, s, h, p, g, n, chunk):
-    """K4 in bf16 (x, b, c; dt, a and the state f32) against the plain
-    version in bf16: y within the bf16 rows' ulps, the f32 state at 2e-4,
-    two runs bit-identical."""
+    """K4 in bf16 (x, b, c; dt, a and the state f32; tensor cores) against
+    the plain version in bf16: y within the bf16 rows' ulps, the f32 state
+    at 2e-4, two runs bit-identical.  The off-tile shapes of
+    ``test_ssd_kernel_chunk_parallel_phases`` and mamba2-1.3b's prefill."""
     x, dt, a, bm, cm, s0 = _ssd_inputs(dev, b, s, h, p, g, n, s + chunk)
     args = (x.bfloat16(), dt, a, bm.bfloat16(), cm.bfloat16())
     for init in (None, s0):
