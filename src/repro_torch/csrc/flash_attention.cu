@@ -70,7 +70,8 @@
 // and out in bf16, with its algebra (kernel.py:62-84): scores in f32 from
 // the bf16 inputs, the unnormalised P = exp(s - m) rounded to bf16 before
 // P.V, the row sums and the accumulator in f32, one rounding of the
-// normalised result to bf16.  Forward only; the backward stays f32.
+// normalised result to bf16.  Its backward (flash_attention_backward_bf16,
+// below the decode) runs the f32 backward's launches on bf16 operands.
 //
 // Prefill bf16, on Hopper (flash_prefill_bf16_hopper_kernel): bound by
 // bytes or by tensor-core operations at the serving shapes (yi-34b's
@@ -656,17 +657,31 @@ __global__ void __launch_bounds__(DT) flash_decode_combine_kernel(
 // loads along D fall on distinct banks (those along the streamed rows, two
 // to a bank).
 
-// One warp per row ((b * S + i) * Hq + h): delta[(b * Hq + h) * S + i].
+// An f32 or bf16 value as f32, and an f32 result stored in either type
+// (bf16 rounded to nearest even).
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// One warp per row ((b * S + i) * Hq + h): delta[(b * Hq + h) * S + i], the
+// row's dO . O summed in f32 (out and dout f32, or bf16 for the bf16
+// backward).
+template <class T>
 __global__ void __launch_bounds__(DT) flash_bwd_dot_kernel(
-    const float* __restrict__ out, const float* __restrict__ dout,
+    const T* __restrict__ out, const T* __restrict__ dout,
     float* __restrict__ delta, int rows, int S, int Hq, int D) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (DT / 32) + (threadIdx.x >> 5);
   if (row >= rows) return;
-  const float* o = out + (size_t)row * D;
-  const float* g = dout + (size_t)row * D;
+  const T* o = out + (size_t)row * D;
+  const T* g = dout + (size_t)row * D;
   float t = 0.0f;
-  for (int d = lane; d < D; d += 32) t = fmaf(o[d], g[d], t);
+  for (int d = lane; d < D; d += 32) t = fmaf(to_f32(o[d]), to_f32(g[d]), t);
   for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(FULL, t, off);
   if (lane == 0) {
     const int h = row % Hq, bi = row / Hq;  // bi = b * S + i
@@ -960,12 +975,14 @@ __global__ void __launch_bounds__(PT) flash_bwd_dkdv_kernel(
   }
 }
 
-// dk/dv [B,T,Hkv,D] from the query heads' shares [B,T,Hq,D]: the G
-// shares of each KV head added in head order, one thread per output.
+// dk/dv [B,T,Hkv,D] from the query heads' f32 shares [B,T,Hq,D]: the G
+// shares of each KV head added in head order, one thread per output,
+// stored in T (f32, or bf16 rounded once).
+template <class T>
 __global__ void __launch_bounds__(DT) flash_bwd_group_sum_kernel(
     const float* __restrict__ part_k, const float* __restrict__ part_v,
-    float* __restrict__ dk, float* __restrict__ dv, size_t n, int Hq,
-    int Hkv, int D) {
+    T* __restrict__ dk, T* __restrict__ dv, size_t n, int Hq, int Hkv,
+    int D) {
   const size_t e = (size_t)blockIdx.x * DT + threadIdx.x;
   if (e >= n) return;
   const int group = Hq / Hkv;
@@ -978,8 +995,8 @@ __global__ void __launch_bounds__(DT) flash_bwd_group_sum_kernel(
     sk += part_k[src + (size_t)g * D];
     sv += part_v[src + (size_t)g * D];
   }
-  dk[e] = sk;
-  dv[e] = sv;
+  store(dk + e, sk);
+  store(dv + e, sv);
 }
 
 // dQ of query tile blockIdx.y for query head blockIdx.x % Hq of batch
@@ -1520,8 +1537,8 @@ __global__ void __launch_bounds__(WTHREADS, 1)
         const __grid_constant__ CUtensorMap tm_k,
         const __grid_constant__ CUtensorMap tm_v,
         const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-        bf16* __restrict__ out, int S, int T, int Hq, int Hkv, int D,
-        int causal, int window, float scale) {
+        bf16* __restrict__ out, float* __restrict__ lse, int S, int T,
+        int Hq, int Hkv, int D, int causal, int window, float scale) {
   using L = WTile<DP>;
   extern __shared__ __align__(1024) unsigned char wsmem[];
   unsigned char* sm =
@@ -1832,6 +1849,11 @@ __global__ void __launch_bounds__(WTHREADS, 1)
                   __floats2bfloat162_rn(o[sl][4 * nb + 2 * i] * inv,
                                         o[sl][4 * nb + 2 * i + 1] * inv);
           }
+        // the row's log-sum-exp of scaled scores (m is in raw scores), for
+        // the backward
+        if (lse != nullptr && fc == 0)
+          lse[((size_t)b * Hq + h) * S + r] =
+              lt > 0.0f ? m[i] * scale + logf(lt) : -INFINITY;
       }
     }
   }
@@ -2171,6 +2193,454 @@ __global__ void __launch_bounds__(DT) flash_decode_bf16_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// bf16 backward: the f32 backward's structure on bf16 operands, mma.sync
+// m16n8k16
+// ---------------------------------------------------------------------------
+//
+// The backward of the bf16 prefill, for bf16 training: q, k, v, the
+// forward's out and dout in bf16, its lse and D in f32; dq, dk, dv in bf16.
+// No TPU twin (the reference differentiates XLA attention,
+// src/repro/models/layers.py:225, by jax.grad).  The same four launches as
+// the f32 backward (its D and group-sum kernels, instantiated for bf16):
+// D = rowsum(dO o O) in f32, one warp a row; dK/dV, a
+// block per (batch, query head, key tile of 64) over the query tiles of 32
+// that hold a live pair, in index order; with grouped heads the group's
+// shares (f32) added in head order; dQ, a block per (batch, query head,
+// query tile of 64) over the key tiles of 32.  No atomics: two runs are
+// bit-identical.
+//
+// What bounds it: 10 * D operations per live pair on bf16 tensor cores
+// (989 TFLOP/s) or the bytes of q, k, v, out, dout and the gradients read
+// or written once, whichever is larger: bytes at smollm-135m's and
+// h2o-danube-3-4b's training shapes, operations at whisper-large-v3's
+// 1,500 frames.  Every product is mma.sync m16n8k16 with bf16 operands and f32
+// accumulators (no TF32 split): S and dP from the inputs as they are, dV
+// from P rounded to bf16, dK and dQ from dS rounded to bf16 (P and dS are
+// formed in f32 from the f32 accumulators).  Tiles live in shared memory
+// as bf16 rows of DP + 8 values (16-byte rows for ldmatrix, no bank
+// conflict), fed by a 3-stage cp.async ring; the operands come by
+// ldmatrix (.trans where the product walks a tile's rows).  A warp owns 16
+// rows of M; S^T (or S) and dP^T (or dP) stay in the accumulator
+// registers, and P and dS go from there to the next product's A operand
+// without shared memory: the accumulator layout of two n-blocks of 8 is
+// the A layout of one k-step of 16.  Each result is rounded to bf16 once;
+// dK and dV after the group's sum.
+
+template <int DP>
+struct BwdTileBf16 {
+  static constexpr int ST = DP + 8;          // bf16 row stride of every tile
+  static constexpr int STAGE = 2 * BC * ST;  // bf16: two streamed tiles
+  // dK/dV: K, V [BK][ST]; the ring of Q, dO [BC][ST]; each stage's lse,
+  // delta, q_pos [BC]; then a byte a query tile
+  static constexpr size_t KV_SMEM = sizeof(bf16) *
+                                        (2 * BK * ST + BSTAGES * STAGE) +
+                                    sizeof(float) * BSTAGES * 3 * BC;
+  // dQ: Q, dO [BQ][ST]; the ring of K, V [BC][ST]; each stage's k_pos
+  // [BC]; then a byte a key tile
+  static constexpr size_t Q_SMEM = sizeof(bf16) *
+                                       (2 * BQ * ST + BSTAGES * STAGE) +
+                                   sizeof(int) * BSTAGES * BC;
+};
+
+// A fragments of one k-step of 16 from the accumulators of two n-blocks of
+// 8 (x[n][e]: row g + 8 (e >> 1), column 8n + 2 t4 + (e & 1)), rounded to
+// bf16.
+__device__ __forceinline__ void acc_to_a(unsigned* a, const float* x0,
+                                         const float* x1) {
+  a[0] = pack_bf16(x0[0], x0[1]);
+  a[1] = pack_bf16(x0[2], x0[3]);
+  a[2] = pack_bf16(x1[0], x1[1]);
+  a[3] = pack_bf16(x1[2], x1[3]);
+}
+
+// The A fragment of rows 0..15, columns k0..k0+15 of a bf16 tile (row
+// stride st), and B fragments for the n-blocks of rows n0..n0+7 and
+// n0+8..n0+15 of a tile whose rows are the product's n (B = X^T), or of
+// columns n0.. of a tile whose rows are the product's k (B = X, .trans).
+__device__ __forceinline__ void ld_a(unsigned* a, const bf16* x, int st,
+                                     int k0, int lane) {
+  ldsm_x4(a, x + (lane & 15) * st + k0 + (lane >> 4) * 8);
+}
+__device__ __forceinline__ void ld_b_t(unsigned* b, const bf16* x, int st,
+                                       int n0, int k0, int lane) {
+  ldsm_x4(b, x + (n0 + (lane & 7) + ((lane >> 4) << 3)) * st + k0 +
+                 ((lane >> 3) & 1) * 8);
+}
+__device__ __forceinline__ void ld_b(unsigned* b, const bf16* x, int st,
+                                     int k0, int n0, int lane) {
+  ldsm_x4_trans(b, x + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * st + n0 +
+                       (lane >> 4) * 8);
+}
+
+// dK and dV of key tile blockIdx.y from query head blockIdx.x % Hq of
+// batch blockIdx.x / Hq, over the query tiles in index order, as
+// flash_bwd_dkdv_kernel: with one query head per KV head the block writes
+// dk/dv [B,T,Hkv,D] in bf16; with more, its head's f32 share to
+// part_k/part_v [B,T,Hq,D].  Warp w owns keys 16w..16w+15 of the tile.
+template <int DP>
+__global__ void __launch_bounds__(PT) flash_bwd_dkdv_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+    float* __restrict__ part_k, float* __restrict__ part_v,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int T, int Hq,
+    int Hkv, int D, int causal, int window, float scale) {
+  using L = BwdTileBf16<DP>;
+  constexpr int ST = L::ST;
+  extern __shared__ __align__(16) unsigned char smem_kv[];
+  bf16* k_sh = reinterpret_cast<bf16*>(smem_kv);  // [BK][ST]
+  bf16* v_sh = k_sh + BK * ST;                    // [BK][ST]
+  bf16* ring = v_sh + BK * ST;                    // stages of Q, dO [BC][ST]
+  float* rows = reinterpret_cast<float*>(ring + BSTAGES * L::STAGE);
+  unsigned char* live_tile =
+      reinterpret_cast<unsigned char*>(rows + BSTAGES * 3 * BC);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
+  const int hk = h / (Hq / Hkv);
+  const int t0 = blockIdx.y * BK, nk = min(BK, T - t0);
+  const int c0 = 16 * warp + g;  // this lane's keys c0 and c0 + 8
+  const int kp[2] = {c0 < nk ? k_pos[t0 + c0] : -1,
+                     c0 + 8 < nk ? k_pos[t0 + c0 + 8] : -1};
+
+  // which query tiles hold a live pair with the block's keys
+  {
+    const int ka = lane < nk ? k_pos[t0 + lane] : -1;
+    const int kb = lane + 32 < nk ? k_pos[t0 + lane + 32] : -1;
+#pragma unroll 4
+    for (int j = warp; j * BC < S; j += PT / 32) {
+      const int i = j * BC + lane;
+      int lo = i < S ? q_pos[i] : INT_MAX, hi = i < S ? q_pos[i] : INT_MIN;
+      for (int off = 16; off > 0; off >>= 1) {
+        lo = min(lo, __shfl_xor_sync(FULL, lo, off));
+        hi = max(hi, __shfl_xor_sync(FULL, hi, off));
+      }
+      const unsigned any =
+          __ballot_sync(FULL, maybe_live(ka, lo, hi, causal, window) ||
+                                  maybe_live(kb, lo, hi, causal, window));
+      if (lane == 0) live_tile[j] = any != 0;
+    }
+  }
+  __syncthreads();
+
+  auto next_live = [&](int i0) {
+    for (; i0 < S; i0 += BC)
+      if (live_tile[i0 / BC]) return i0;
+    return S;
+  };
+  auto load = [&](int i0, int stage) {
+    bf16* qd = ring + stage * L::STAGE;
+    stage_rows_bf16<DP, PT>(qd, ST, q, (size_t)b * S + i0, BC, S - i0, Hq, h,
+                            D, tid);
+    stage_rows_bf16<DP, PT>(qd + BC * ST, ST, dout, (size_t)b * S + i0, BC,
+                            S - i0, Hq, h, D, tid);
+    if (tid < BC) {  // the tile's lse, delta and positions (0 past S)
+      float* rd = rows + stage * 3 * BC;
+      const bool ok = i0 + tid < S;
+      const size_t at = ((size_t)b * Hq + h) * S + (ok ? i0 + tid : 0);
+      cp_async4(rd + tid, lse + at, ok);
+      cp_async4(rd + BC + tid, delta + at, ok);
+      cp_async4(rd + 2 * BC + tid, q_pos + (ok ? i0 + tid : 0), ok);
+    }
+  };
+
+  stage_rows_bf16<DP, PT>(k_sh, ST, k, (size_t)b * T + t0, BK, nk, Hkv, hk,
+                          D, tid);
+  stage_rows_bf16<DP, PT>(v_sh, ST, v, (size_t)b * T + t0, BK, nk, Hkv, hk,
+                          D, tid);
+  int ld = next_live(0), cur = ld;
+#pragma unroll
+  for (int st = 0; st < BSTAGES - 1; ++st) {  // K and V go with the first
+    if (ld < S) {
+      load(ld, st);
+      ld = next_live(ld + BC);
+    }
+    cp_async_commit();
+  }
+
+  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0f;
+
+  const bf16* kw = k_sh + 16 * warp * ST;
+  const bf16* vw = v_sh + 16 * warp * ST;
+  for (int it = 0; cur < S; ++it) {
+    cp_async_wait<BSTAGES - 2>();
+    __syncthreads();  // tile `it` landed; the stage of tile it-1 is free
+    if (ld < S) {
+      load(ld, (it + BSTAGES - 1) % BSTAGES);
+      ld = next_live(ld + BC);
+    }
+    cp_async_commit();
+    const bf16* qs = ring + (it % BSTAGES) * L::STAGE;
+    const bf16* gs = qs + BC * ST;
+    const float* rs = rows + (it % BSTAGES) * 3 * BC;  // lse, delta, q_pos
+
+    // S^T and dP^T: this warp's 16 keys against the tile's 32 queries
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16) {
+      unsigned ak[4], av[4];
+      ld_a(ak, kw, ST, kk, lane);
+      ld_a(av, vw, ST, kk, lane);
+#pragma unroll
+      for (int n = 0; n < 4; n += 2) {
+        unsigned qb[4], gb[4];
+        ld_b_t(qb, qs, ST, 8 * n, kk, lane);
+        ld_b_t(gb, gs, ST, 8 * n, kk, lane);
+        mma_bf16(s[n], ak, qb[0], qb[1]);
+        mma_bf16(s[n + 1], ak, qb[2], qb[3]);
+        mma_bf16(dp[n], av, gb[0], gb[1]);
+        mma_bf16(dp[n + 1], av, gb[2], gb[3]);
+      }
+    }
+    // P^T and dS^T in place: element e of block n is key c0 + 8 (e >> 1),
+    // query cur + 8n + 2 t4 + (e & 1)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int col = 8 * n + 2 * t4 + e1;
+        const bool ok = cur + col < S;
+        const int qp = __float_as_int(rs[2 * BC + col]);
+        const float m = rs[col], dl = rs[BC + col];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int e = 2 * half + e1;
+          const bool live = ok && live_key(kp[half], qp, causal, window);
+          const float p = live ? expf(fmaf(s[n][e], scale, -m)) : 0.0f;
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - dl);
+        }
+      }
+    // dV += P^T.dO, dK += dS^T.Q over the tile's queries, in order
+#pragma unroll
+    for (int kq = 0; kq < 2; ++kq) {
+      unsigned pa[4], da[4];
+      acc_to_a(pa, s[2 * kq], s[2 * kq + 1]);
+      acc_to_a(da, dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+      for (int n = 0; n < DP / 8; n += 2) {
+        unsigned gb[4], qb[4];
+        ld_b(gb, gs, ST, 16 * kq, 8 * n, lane);
+        ld_b(qb, qs, ST, 16 * kq, 8 * n, lane);
+        mma_bf16(dv_acc[n], pa, gb[0], gb[1]);
+        mma_bf16(dv_acc[n + 1], pa, gb[2], gb[3]);
+        mma_bf16(dk_acc[n], da, qb[0], qb[1]);
+        mma_bf16(dk_acc[n + 1], da, qb[2], qb[3]);
+      }
+    }
+    cur = next_live(cur + BC);
+  }
+  cp_async_wait<0>();  // K/V of a block that found no live tile
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int c = c0 + 8 * half;
+    if (c >= nk) continue;
+    const size_t row = Hq == Hkv ? ((size_t)(b * T + t0 + c) * Hkv + hk) * D
+                                 : ((size_t)(b * T + t0 + c) * Hq + h) * D;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int col = 8 * n + 2 * t4;
+      if (col >= D) continue;
+      const float k0 = dk_acc[n][2 * half] * scale,
+                  k1 = dk_acc[n][2 * half + 1] * scale;
+      const float v0 = dv_acc[n][2 * half], v1 = dv_acc[n][2 * half + 1];
+      if (Hq == Hkv) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + row + col) =
+            __floats2bfloat162_rn(k0, k1);
+        *reinterpret_cast<__nv_bfloat162*>(dv + row + col) =
+            __floats2bfloat162_rn(v0, v1);
+      } else {
+        *reinterpret_cast<float2*>(part_k + row + col) = make_float2(k0, k1);
+        *reinterpret_cast<float2*>(part_v + row + col) = make_float2(v0, v1);
+      }
+    }
+  }
+}
+
+// dQ of query tile blockIdx.y for query head blockIdx.x % Hq of batch
+// blockIdx.x / Hq, as flash_bwd_dq_kernel.  Warp w owns rows 16w..16w+15 of
+// the tile: S and dP of its rows against each key tile of 32, then
+// dQ += dS.K.
+template <int DP>
+__global__ void __launch_bounds__(PT) flash_bwd_dq_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+    bf16* __restrict__ dq, int S, int T, int Hq, int Hkv, int D, int causal,
+    int window, float scale) {
+  using L = BwdTileBf16<DP>;
+  constexpr int ST = L::ST;
+  extern __shared__ __align__(16) unsigned char smem_q[];
+  bf16* q_sh = reinterpret_cast<bf16*>(smem_q);  // [BQ][ST]
+  bf16* do_sh = q_sh + BQ * ST;                  // [BQ][ST]
+  bf16* ring = do_sh + BQ * ST;                  // stages of K, V [BC][ST]
+  int* kp_sh = reinterpret_cast<int*>(ring + BSTAGES * L::STAGE);  // k_pos
+  unsigned char* live_tile =
+      reinterpret_cast<unsigned char*>(kp_sh + BSTAGES * BC);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
+  const int hk = h / (Hq / Hkv);
+  const int nq = min(BQ, S - q0);
+
+  int q_lo, q_hi;
+  pos_range(q_pos + q0, nq, lane, q_lo, q_hi);
+  // this lane's rows r0 and r0 + 8 of the tile
+  const int r0 = 16 * warp + g;
+  bool ok[2];
+  int qp[2];
+  float m[2], dl[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    ok[half] = r < nq;
+    const size_t at = ((size_t)b * Hq + h) * S + q0 + (ok[half] ? r : 0);
+    qp[half] = ok[half] ? q_pos[q0 + r] : 0;
+    m[half] = ok[half] ? lse[at] : 0.0f;
+    dl[half] = ok[half] ? delta[at] : 0.0f;
+  }
+
+  // which key tiles hold a live pair with the block's rows
+#pragma unroll 4
+  for (int j = warp; j * BC < T; j += PT / 32) {
+    const bool live =
+        keys32_live(k_pos, j * BC, T, q_lo, q_hi, causal, window, lane);
+    if (lane == 0) live_tile[j] = live;
+  }
+  __syncthreads();
+
+  auto next_live = [&](int j0) {
+    for (; j0 < T; j0 += BC)
+      if (live_tile[j0 / BC]) return j0;
+    return T;
+  };
+  auto load = [&](int j0, int stage) {
+    bf16* kd = ring + stage * L::STAGE;
+    stage_rows_bf16<DP, PT>(kd, ST, k, (size_t)b * T + j0, BC, T - j0, Hkv,
+                            hk, D, tid);
+    stage_rows_bf16<DP, PT>(kd + BC * ST, ST, v, (size_t)b * T + j0, BC,
+                            T - j0, Hkv, hk, D, tid);
+    if (tid < BC)  // the tile's positions (0 past T)
+      cp_async4(kp_sh + stage * BC + tid,
+                k_pos + (j0 + tid < T ? j0 + tid : 0), j0 + tid < T);
+  };
+
+  stage_rows_bf16<DP, PT>(q_sh, ST, q, (size_t)b * S + q0, BQ, nq, Hq, h, D,
+                          tid);
+  stage_rows_bf16<DP, PT>(do_sh, ST, dout, (size_t)b * S + q0, BQ, nq, Hq, h,
+                          D, tid);
+  int ld = next_live(0), cur = ld;
+#pragma unroll
+  for (int st = 0; st < BSTAGES - 1; ++st) {  // Q and dO go with the first
+    if (ld < T) {
+      load(ld, st);
+      ld = next_live(ld + BC);
+    }
+    cp_async_commit();
+  }
+
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  const bf16* qw = q_sh + 16 * warp * ST;
+  const bf16* gw = do_sh + 16 * warp * ST;
+  for (int it = 0; cur < T; ++it) {
+    cp_async_wait<BSTAGES - 2>();
+    __syncthreads();  // tile `it` landed; the stage of tile it-1 is free
+    if (ld < T) {
+      load(ld, (it + BSTAGES - 1) % BSTAGES);
+      ld = next_live(ld + BC);
+    }
+    cp_async_commit();
+    const bf16* ks = ring + (it % BSTAGES) * L::STAGE;
+    const bf16* vs = ks + BC * ST;
+    const int* kps = kp_sh + (it % BSTAGES) * BC;
+
+    // S and dP: this warp's 16 rows against the tile's 32 keys
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16) {
+      unsigned aq[4], ag[4];
+      ld_a(aq, qw, ST, kk, lane);
+      ld_a(ag, gw, ST, kk, lane);
+#pragma unroll
+      for (int n = 0; n < 4; n += 2) {
+        unsigned kb[4], vb[4];
+        ld_b_t(kb, ks, ST, 8 * n, kk, lane);
+        ld_b_t(vb, vs, ST, 8 * n, kk, lane);
+        mma_bf16(s[n], aq, kb[0], kb[1]);
+        mma_bf16(s[n + 1], aq, kb[2], kb[3]);
+        mma_bf16(dp[n], ag, vb[0], vb[1]);
+        mma_bf16(dp[n + 1], ag, vb[2], vb[3]);
+      }
+    }
+    // dS in place: element e of block n is row r0 + 8 (e >> 1), key
+    // cur + 8n + 2 t4 + (e & 1)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int col = 8 * n + 2 * t4 + e1;
+        const int kp = cur + col < T ? kps[col] : -1;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int e = 2 * half + e1;
+          const bool live = ok[half] && live_key(kp, qp[half], causal, window);
+          const float p = live ? expf(fmaf(s[n][e], scale, -m[half])) : 0.0f;
+          dp[n][e] = p * (dp[n][e] - dl[half]);
+        }
+      }
+    // dQ += dS.K over the tile's keys, in order
+#pragma unroll
+    for (int kc = 0; kc < 2; ++kc) {
+      unsigned da[4];
+      acc_to_a(da, dp[2 * kc], dp[2 * kc + 1]);
+#pragma unroll
+      for (int n = 0; n < DP / 8; n += 2) {
+        unsigned kb[4];
+        ld_b(kb, ks, ST, 16 * kc, 8 * n, lane);
+        mma_bf16(acc[n], da, kb[0], kb[1]);
+        mma_bf16(acc[n + 1], da, kb[2], kb[3]);
+      }
+    }
+    cur = next_live(cur + BC);
+  }
+  cp_async_wait<0>();  // Q and dO of a tile with no live key
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (!ok[half]) continue;
+    bf16* o = dq + ((size_t)(b * S + q0 + r0 + 8 * half) * Hq + h) * D;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int col = 8 * n + 2 * t4;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(o + col) = __floats2bfloat162_rn(
+            acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -2281,8 +2751,9 @@ static int encode_rows(CUtensorMap* map, const bf16* base, int B, int rows,
 template <int DP>
 static int launch_prefill_bf16(const bf16* q, const bf16* k, const bf16* v,
                                const int* q_pos, const int* k_pos, bf16* out,
-                               int B, int S, int T, int Hq, int Hkv, int D,
-                               int causal, int window, cudaStream_t st) {
+                               float* lse, int B, int S, int T, int Hq,
+                               int Hkv, int D, int causal, int window,
+                               cudaStream_t st) {
   using L = WTile<DP>;
   const CUtensorMapSwizzle swizzle =
       L::SPAN == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -2296,7 +2767,7 @@ static int launch_prefill_bf16(const bf16* q, const bf16* k, const bf16* v,
   if (e) return e;
   const dim3 grid((S + WQ - 1) / WQ, B * Hq);
   flash_prefill_bf16_hopper_kernel<DP><<<grid, WTHREADS, L::SMEM, st>>>(
-      tq, tk, tv, q_pos, k_pos, out, S, T, Hq, Hkv, D, causal, window,
+      tq, tk, tv, q_pos, k_pos, out, lse, S, T, Hq, Hkv, D, causal, window,
       1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
@@ -2384,6 +2855,54 @@ static int launch_backward(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
+template <int DP>
+static int launch_backward_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                const bf16* out, const bf16* dout,
+                                const float* lse, const int* q_pos,
+                                const int* k_pos, float* delta, float* part,
+                                bf16* dq, bf16* dk, bf16* dv, int B, int S,
+                                int T, int Hq, int Hkv, int D, int causal,
+                                int window, cudaStream_t st) {
+  const float scale = 1.0f / sqrtf((float)D);
+  const int rows = B * S * Hq;
+  flash_bwd_dot_kernel<<<(rows + DT / 32 - 1) / (DT / 32), DT, 0, st>>>(
+      out, dout, delta, rows, S, Hq, D);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  using L = BwdTileBf16<DP>;
+  // and a byte a streamed tile, for its liveness
+  const size_t kv_smem =
+      L::KV_SMEM + (size_t)((S + BC - 1) / BC + 15) / 16 * 16;
+  const size_t q_smem =
+      L::Q_SMEM + (size_t)((T + BC - 1) / BC + 15) / 16 * 16;
+  e = allow_smem(flash_bwd_dkdv_bf16_kernel<DP>, kv_smem);
+  if (e) return e;
+  // one query head's share per block; a group's shares are added after
+  const size_t n_part = (size_t)B * T * Hq * D;
+  float* pk = Hq == Hkv ? nullptr : part;
+  float* pv = Hq == Hkv ? nullptr : part + n_part;
+  flash_bwd_dkdv_bf16_kernel<DP>
+      <<<dim3(B * Hq, (T + BK - 1) / BK), PT, kv_smem, st>>>(
+          q, k, v, dout, lse, delta, q_pos, k_pos, pk, pv, dk, dv, S, T, Hq,
+          Hkv, D, causal, window, scale);
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  if (Hq != Hkv) {
+    const size_t n = (size_t)B * T * Hkv * D;
+    flash_bwd_group_sum_kernel<<<(unsigned)((n + DT - 1) / DT), DT, 0, st>>>(
+        pk, pv, dk, dv, n, Hq, Hkv, D);
+    e = (int)cudaGetLastError();
+    if (e) return e;
+  }
+  e = allow_smem(flash_bwd_dq_bf16_kernel<DP>, q_smem);
+  if (e) return e;
+  flash_bwd_dq_bf16_kernel<DP>
+      <<<dim3(B * Hq, (S + BQ - 1) / BQ), PT, q_smem, st>>>(
+          q, k, v, dout, lse, delta, q_pos, k_pos, dq, S, T, Hq, Hkv, D,
+          causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
 // Calls LAUNCH<DP>(args...) at the tile width of head dim D; an
 // unsupported D returns cudaErrorInvalidValue.
 #define DISPATCH_HEAD_DIM(D, LAUNCH, ...)                 \
@@ -2458,17 +2977,39 @@ int flash_attention_backward(const float* q, const float* k, const float* v,
 }
 
 // As flash_attention_prefill for q, k, v and out in bf16 (same layout,
-// 16-byte aligned bases), without the log-sum-exp output: the Hopper
+// 16-byte aligned bases; lse, when not null, f32 as there): the Hopper
 // kernel (TMA, wgmma, a producer warp), f32 softmax and accumulation, P
 // and the result rounded to bf16.  cudaErrorNotSupported if libcuda has
 // no tensor-map encoder.
 int flash_attention_prefill_bf16(const bf16* q, const bf16* k, const bf16* v,
                                  const int* q_pos, const int* k_pos,
-                                 bf16* out, int B, int S, int T, int Hq,
-                                 int Hkv, int D, int causal, int window,
-                                 void* stream) {
-  DISPATCH_HEAD_DIM(D, launch_prefill_bf16, q, k, v, q_pos, k_pos, out, B, S,
-                    T, Hq, Hkv, D, causal, window, (cudaStream_t)stream)
+                                 bf16* out, float* lse, int B, int S, int T,
+                                 int Hq, int Hkv, int D, int causal,
+                                 int window, void* stream) {
+  DISPATCH_HEAD_DIM(D, launch_prefill_bf16, q, k, v, q_pos, k_pos, out, lse,
+                    B, S, T, Hq, Hkv, D, causal, window,
+                    (cudaStream_t)stream)
+}
+
+// The backward of flash_attention_prefill_bf16: dq [B,S,Hq,D] and dk, dv
+// [B,T,Hkv,D] in bf16, from q, k, v, the forward's bf16 out and its f32
+// lse, and dout [B,S,Hq,D] in bf16, with the forward's positions and
+// masks.  delta (f32, B*Hq*S) and part (f32, 2*B*T*Hq*D; may be null when
+// Hq == Hkv) are scratch.  Four launches as flash_attention_backward (the
+// group sum only when Hq > Hkv), every product on bf16 operands (mma.sync
+// m16n8k16, f32 sums); allocates nothing, does not synchronise, returns
+// cudaGetLastError().
+int flash_attention_backward_bf16(const bf16* q, const bf16* k,
+                                  const bf16* v, const bf16* out,
+                                  const bf16* dout, const float* lse,
+                                  const int* q_pos, const int* k_pos,
+                                  float* delta, float* part, bf16* dq,
+                                  bf16* dk, bf16* dv, int B, int S, int T,
+                                  int Hq, int Hkv, int D, int causal,
+                                  int window, void* stream) {
+  DISPATCH_HEAD_DIM(D, launch_backward_bf16, q, k, v, out, dout, lse, q_pos,
+                    k_pos, delta, part, dq, dk, dv, B, S, T, Hq, Hkv, D,
+                    causal, window, (cudaStream_t)stream)
 }
 
 // As flash_attention_decode for q, k, v and out in bf16, in one launch and

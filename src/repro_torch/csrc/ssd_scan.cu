@@ -1,5 +1,5 @@
 // Chunked Mamba-2 SSD scan, chunk-parallel, from an initial state: its
-// forward in f32 and in bf16, and its backward in f32.
+// forward and its backward, each in f32 and in bf16.
 //
 // Per chunk of Q steps, with cum = inclusive cumsum(dt * a) in the chunk:
 //   y[i]  = sum_{j<=i} (C_i . B_j) exp(min(cum_i - cum_j, 0)) dt_j x_j
@@ -564,10 +564,11 @@ __device__ __forceinline__ void slice_mma(Acc& acc, FA fa, FB fb) {
   }
 }
 
-// acc += A.B over a 64-deep bf16 slice on mma.sync m16n8k16: A(m, k) =
-// a[m * LDH + k], B(k, n) = b[n * LDH + k] (both kept with k contiguous).
-__device__ __forceinline__ void slice_mma_bf16(Acc& acc, const bf16* a,
-                                               const bf16* b) {
+// acc += A.B over a DEPTH-deep bf16 slice on mma.sync m16n8k16: A(m, k) =
+// a[m * LD + k], B(k, n) = b[n * LD + k] (both kept with k contiguous).
+template <int DEPTH, int LD>
+__device__ __forceinline__ void slice_mma_bf16_ld(Acc& acc, const bf16* a,
+                                                  const bf16* b) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int m0 = 32 * (w >> 1) + g, n0 = 32 * (w & 1) + g;
@@ -575,19 +576,19 @@ __device__ __forceinline__ void slice_mma_bf16(Acc& acc, const bf16* a,
     return *reinterpret_cast<const unsigned*>(p);
   };
 #pragma unroll
-  for (int kk = 0; kk < 64; kk += 16) {
+  for (int kk = 0; kk < DEPTH; kk += 16) {
     unsigned af[2][4], bf[4][2];
 #pragma unroll
     for (int mf = 0; mf < 2; ++mf) {
-      const bf16* p = a + (m0 + 16 * mf) * LDH + kk + 2 * t;
+      const bf16* p = a + (m0 + 16 * mf) * LD + kk + 2 * t;
       af[mf][0] = u32(p);
-      af[mf][1] = u32(p + 8 * LDH);
+      af[mf][1] = u32(p + 8 * LD);
       af[mf][2] = u32(p + 8);
-      af[mf][3] = u32(p + 8 * LDH + 8);
+      af[mf][3] = u32(p + 8 * LD + 8);
     }
 #pragma unroll
     for (int nf = 0; nf < 4; ++nf) {
-      const bf16* q = b + (n0 + 8 * nf) * LDH + kk + 2 * t;
+      const bf16* q = b + (n0 + 8 * nf) * LD + kk + 2 * t;
       bf[nf][0] = u32(q);
       bf[nf][1] = u32(q + 8);
     }
@@ -597,6 +598,13 @@ __device__ __forceinline__ void slice_mma_bf16(Acc& acc, const bf16* a,
       for (int nf = 0; nf < 4; ++nf)
         mma_bf16(acc[mf][nf], af[mf], bf[nf][0], bf[nf][1]);
   }
+}
+
+// acc += A.B over a 64-deep bf16 slice: A(m, k) = a[m * LDH + k], B(k, n) =
+// b[n * LDH + k].
+__device__ __forceinline__ void slice_mma_bf16(Acc& acc, const bf16* a,
+                                               const bf16* b) {
+  slice_mma_bf16_ld<64, LDH>(acc, a, b);
 }
 
 __device__ __forceinline__ void zero_acc(Acc& acc) {
@@ -913,13 +921,58 @@ __global__ void __launch_bounds__(TT) ssd_output_bf16_kernel(
 //   7. ssd_bwd_da_kernel: da summed over batches and chunks in order.
 // Row and column sums run by shuffles in a fixed order, then across warps
 // and tiles in index order; no atomics, so two runs are bit-identical.
+//
+// bf16 (ssd_scan_backward_bf16, for the bf16 forward's training): x, b, c
+// and dy in bf16, read in place and held in shared memory as bf16; dt, a,
+// dstate, the forward's scratch and every intermediate (cumsums, M, dM,
+// Shat, the states) f32; dx, db and dc rounded to bf16 once as they are
+// written, ddt, da and dinit f32.  The same seven launches (the kernels'
+// bodies are templates on the input type).  dy.x^T, both sides bf16, runs
+// on mma.sync m16n8k16 with dt_j scaling its columns after; every other
+// product has an f32 side (dM, M o E, Shat, the entry states, or a bf16
+// value times an f32 scale) and runs as the bf16 forward's do, two TF32
+// passes with the f32 side split and the bf16 side whole.  Bound by
+// operations as in f32; the bf16 inputs halve their bytes.
+
+// The backward reads x, b, c and dy in the forward's type T: f32, or bf16
+// (ssd_scan_backward_bf16).  A bf16 operand is exact in TF32, so it enters
+// a product whole (two TF32 passes where its other side is f32) where an
+// f32 one is split (3xTF32); dy.x^T, whose sides are both bf16, runs on
+// mma.sync m16n8k16 in bf16.  The kernels' bodies below are templates on
+// T; each __global__ kernel is one instance.
+
+__device__ __forceinline__ float f32(float v) { return v; }
+__device__ __forceinline__ float f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// Row strides of a slice of T kept k by k ([KS][TILE]: K) or row by row
+// ([TILE][KS]: R) and of a whole 64x64 tile (M); whether an operand of T is
+// split into TF32 hi + lo.
+template <class T>
+struct Lay;
+template <>
+struct Lay<float> {
+  static constexpr int K = LDK, R = LDR, M = MT;
+  static constexpr bool SPLIT = true;
+};
+template <>
+struct Lay<bf16> {
+  static constexpr int K = LDH, R = LDHR, M = LDH;
+  static constexpr bool SPLIT = false;
+};
 
 // 1. agg[p][n] = sum_i exp(cum_i) dy[i][p] C[i][n], a 64x64 tile.
-__global__ void __launch_bounds__(TT) ssd_bwd_agg_kernel(
-    const float* __restrict__ cm, const float* __restrict__ dy,
-    const float* __restrict__ cum, float* __restrict__ hat, int S, int H,
-    int P, int G, int N, int Q, int nc) {
-  extern __shared__ __align__(16) float smem[];
+template <class T>
+__device__ __forceinline__ void bwd_agg(const T* __restrict__ cm,
+                                        const T* __restrict__ dy,
+                                        const float* __restrict__ cum,
+                                        float* __restrict__ hat, int S, int H,
+                                        int P, int G, int N, int Q, int nc,
+                                        float* smem) {
+  constexpr int LK = Lay<T>::K;
   float* ec = smem + RING_FLOATS;  // exp(cum_i), 0 past the chunk's end
   const int n_nt = (N + TILE - 1) / TILE;
   const int p0 = blockIdx.x / n_nt * TILE, n0 = blockIdx.x % n_nt * TILE;
@@ -929,25 +982,26 @@ __global__ void __launch_bounds__(TT) ssd_bwd_agg_kernel(
   for (int i = threadIdx.x; i < MAX_Q; i += TT)
     ec[i] = i < nl ? expf(cum[ch * Q + i]) : 0.0f;
   const size_t hp = (size_t)H * P, gn = (size_t)G * N;
-  const float* dyh = dy + row0 * hp + (size_t)h * P;
-  const float* cg = cm + row0 * gn + (size_t)g * N;
+  const T* dyh = dy + row0 * hp + (size_t)h * P;
+  const T* cg = cm + row0 * gn + (size_t)g * N;
   Acc acc = {};
   ring_run(
       (nl + KS - 1) / KS,
       [&](int s, int buf) {  // dy rows i, columns p; C rows i, columns n
-        float* sa = smem + buf * 2 * SLICE;
+        T* sa = reinterpret_cast<T*>(smem + buf * 2 * SLICE);
+        T* sb = reinterpret_cast<T*>(smem + buf * 2 * SLICE + SLICE);
         const int k0 = s * KS;
-        stage(sa, LDK, dyh + k0 * hp + p0, hp, KS, TILE, nl - k0, P - p0, dyh);
-        stage(sa + SLICE, LDK, cg + k0 * gn + n0, gn, KS, TILE, nl - k0,
-              N - n0, cg);
+        stage(sa, LK, dyh + k0 * hp + p0, hp, KS, TILE, nl - k0, P - p0, dyh);
+        stage(sb, LK, cg + k0 * gn + n0, gn, KS, TILE, nl - k0, N - n0, cg);
       },
       [&](int s, int buf) {
-        const float* sa = smem + buf * 2 * SLICE;
-        const float* sb = sa + SLICE;
+        const T* sa = reinterpret_cast<const T*>(smem + buf * 2 * SLICE);
+        const T* sb =
+            reinterpret_cast<const T*>(smem + buf * 2 * SLICE + SLICE);
         const float* e = ec + s * KS;
-        slice_mma<true, true>(
-            acc, [&](int m, int k) { return sa[k * LDK + m] * e[k]; },
-            [&](int k, int n) { return sb[k * LDK + n]; });
+        slice_mma<true, Lay<T>::SPLIT>(
+            acc, [&](int m, int k) { return f32(sa[k * LK + m]) * e[k]; },
+            [&](int k, int n) { return f32(sb[k * LK + n]); });
       });
   float* out = hat + ch * P * N;
 #pragma unroll
@@ -961,19 +1015,38 @@ __global__ void __launch_bounds__(TT) ssd_bwd_agg_kernel(
       }
 }
 
+__global__ void __launch_bounds__(TT) ssd_bwd_agg_kernel(
+    const float* __restrict__ cm, const float* __restrict__ dy,
+    const float* __restrict__ cum, float* __restrict__ hat, int S, int H,
+    int P, int G, int N, int Q, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  bwd_agg(cm, dy, cum, hat, S, H, P, G, N, Q, nc, smem);
+}
+
+__global__ void __launch_bounds__(TT) ssd_bwd_agg_bf16_kernel(
+    const bf16* __restrict__ cm, const bf16* __restrict__ dy,
+    const float* __restrict__ cum, float* __restrict__ hat, int S, int H,
+    int P, int G, int N, int Q, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  bwd_agg(cm, dy, cum, hat, S, H, P, G, N, Q, nc, smem);
+}
+
 // 2. Per causal tile pair (rows i of tile it, columns j of tile jt <= it),
 // chunk and group: for each head of the group in order, dM^h_ij =
 // E_ij (dy_i . u_j) on tensor cores, added to the group's dM in registers;
 // the head's sums of M o dM^h below the diagonal over the tile's columns
 // (rpart [B, nc, H, column tile, Q]) and rows (cpart [B, nc, H, row tile,
-// Q]).  The group's dM [B, nc, G, Q, Q] is written once per tile pair.
-__global__ void __launch_bounds__(TT) ssd_bwd_dm_kernel(
-    const float* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ dy, const float* __restrict__ cbt,
+// Q]).  The group's dM [B, nc, G, Q, Q] is written once per tile pair.  In
+// f32 u_j = dt_j x_j enters the product (3xTF32); in bf16 the product is
+// dy . x^T on bf16 operands and dt_j scales its column after.
+template <class T>
+__device__ __forceinline__ void bwd_dm(
+    const T* __restrict__ x, const float* __restrict__ dt,
+    const T* __restrict__ dy, const float* __restrict__ cbt,
     const float* __restrict__ cum, float* __restrict__ dm,
     float* __restrict__ rpart, float* __restrict__ cpart, int S, int H,
-    int P, int G, int Q, int nc) {
-  extern __shared__ __align__(16) float smem[];
+    int P, int G, int Q, int nc, float* smem) {
+  constexpr int LR = Lay<T>::R;
   const int rep = H / G;
   float* mt = smem + RING_FLOATS;  // M's tile, [j][i]
   float* cu_i = mt + TILE * MT;    // per head: cum over the row tile
@@ -998,29 +1071,34 @@ __global__ void __launch_bounds__(TT) ssd_bwd_dm_kernel(
     dt_j[e] = j0 + r < nl ? dt[(row0 + j0 + r) * H + g * rep + hh] : 0.0f;
   }
   const size_t hp = (size_t)H * P;
-  const float* dyg = dy + row0 * hp + (size_t)g * rep * P;
-  const float* xg = x + row0 * hp + (size_t)g * rep * P;
+  const T* dyg = dy + row0 * hp + (size_t)g * rep * P;
+  const T* xg = x + row0 * hp + (size_t)g * rep * P;
   const int n_ps = (P + KS - 1) / KS;
   Acc dacc = {}, hacc;
   ring_run(
       rep * n_ps,
       [&](int s, int buf) {  // dy^h rows i, x^h rows j, columns p
         const int hh = s / n_ps, k0 = s % n_ps * KS;
-        float* sa = smem + buf * 2 * SLICE;
-        stage(sa, LDR, dyg + i0 * hp + hh * P + k0, hp, TILE, KS, nl - i0,
+        T* sa = reinterpret_cast<T*>(smem + buf * 2 * SLICE);
+        T* sb = reinterpret_cast<T*>(smem + buf * 2 * SLICE + SLICE);
+        stage(sa, LR, dyg + i0 * hp + hh * P + k0, hp, TILE, KS, nl - i0,
               P - k0, dyg);
-        stage(sa + SLICE, LDR, xg + j0 * hp + hh * P + k0, hp, TILE, KS,
-              nl - j0, P - k0, xg);
+        stage(sb, LR, xg + j0 * hp + hh * P + k0, hp, TILE, KS, nl - j0,
+              P - k0, xg);
       },
       [&](int s, int buf) {
         const int hh = s / n_ps, ps = s % n_ps;
-        const float* sa = smem + buf * 2 * SLICE;
-        const float* sb = sa + SLICE;
+        const T* sa = reinterpret_cast<const T*>(smem + buf * 2 * SLICE);
+        const T* sb =
+            reinterpret_cast<const T*>(smem + buf * 2 * SLICE + SLICE);
         const float* dth = dt_j + hh * TILE;
         if (ps == 0) zero_acc(hacc);
-        slice_mma<true, true>(
-            hacc, [&](int m, int k) { return sa[m * LDR + k]; },
-            [&](int k, int n) { return sb[n * LDR + k] * dth[n]; });
+        if constexpr (Lay<T>::SPLIT)
+          slice_mma<true, true>(
+              hacc, [&](int m, int k) { return sa[m * LR + k]; },
+              [&](int k, int n) { return sb[n * LR + k] * dth[n]; });
+        else
+          slice_mma_bf16_ld<KS, LR>(hacc, sa, sb);
         if (ps < n_ps - 1) return;
         // head hh: E o (dy u^T), its share of dM, M o dM^h below the diagonal
         const float* ci = cu_i + hh * TILE;
@@ -1035,7 +1113,11 @@ __global__ void __launch_bounds__(TT) ssd_bwd_dm_kernel(
               const int i = i0 + r, j = j0 + q;
               float d = 0.0f, gm = 0.0f;
               if (j <= i && i < nl) {
-                d = expf(fminf(ci[r] - cj[q], 0.0f)) * hacc[mf][nf][e];
+                if constexpr (Lay<T>::SPLIT)
+                  d = expf(fminf(ci[r] - cj[q], 0.0f)) * hacc[mf][nf][e];
+                else
+                  d = expf(fminf(ci[r] - cj[q], 0.0f)) *
+                      (dth[q] * hacc[mf][nf][e]);
                 if (j < i) gm = mt[q * MT + r] * d;
               }
               dacc[mf][nf][e] += d;
@@ -1058,6 +1140,26 @@ __global__ void __launch_bounds__(TT) ssd_bwd_dm_kernel(
         const int i = i0 + acc_row(mf, e), j = j0 + acc_col(nf, e);
         if (i < Q && j < Q) dmg[(size_t)i * Q + j] = dacc[mf][nf][e];
       }
+}
+
+__global__ void __launch_bounds__(TT) ssd_bwd_dm_kernel(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ dy, const float* __restrict__ cbt,
+    const float* __restrict__ cum, float* __restrict__ dm,
+    float* __restrict__ rpart, float* __restrict__ cpart, int S, int H,
+    int P, int G, int Q, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  bwd_dm(x, dt, dy, cbt, cum, dm, rpart, cpart, S, H, P, G, Q, nc, smem);
+}
+
+__global__ void __launch_bounds__(TT) ssd_bwd_dm_bf16_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ dt,
+    const bf16* __restrict__ dy, const float* __restrict__ cbt,
+    const float* __restrict__ cum, float* __restrict__ dm,
+    float* __restrict__ rpart, float* __restrict__ cpart, int S, int H,
+    int P, int G, int Q, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  bwd_dm(x, dt, dy, cbt, cum, dm, rpart, cpart, S, H, P, G, Q, nc, smem);
 }
 
 // 3. The reverse state pass: one thread per state element walks the chunks
@@ -1100,15 +1202,16 @@ __global__ void __launch_bounds__(NT_STATE) ssd_bwd_state_kernel(
 // dy^h S^h (rows scaled by exp(cum_i)) or x^h Shat^h (rows scaled by
 // exp(cum_end - cum_j) dt_j); a dC tile writes each head's C_i . (state
 // term) over its columns to dcs [B, nc, H, column tile, Q].
-template <bool DB>
+template <bool DB, class T>
 __device__ __forceinline__ void dcdb_tile(
-    const float* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ bm, const float* __restrict__ cm,
-    const float* __restrict__ dy, const float* __restrict__ cum,
+    const T* __restrict__ x, const float* __restrict__ dt,
+    const T* __restrict__ bm, const T* __restrict__ cm,
+    const T* __restrict__ dy, const float* __restrict__ cum,
     const float* __restrict__ states, const float* __restrict__ hat,
-    const float* __restrict__ dm, float* __restrict__ out,
+    const float* __restrict__ dm, T* __restrict__ out,
     float* __restrict__ dcs, int S, int H, int P, int G, int N, int Q,
     int nc, int tile, float* smem) {
+  constexpr int LK = Lay<T>::K, LR = Lay<T>::R, LM = Lay<T>::M;
   const int rep = H / G, n_nt = (N + TILE - 1) / TILE;
   const int r0 = tile / n_nt * TILE, n0 = tile % n_nt * TILE;
   const int c = blockIdx.y % nc, g = blockIdx.y / nc, b = blockIdx.z;
@@ -1117,8 +1220,8 @@ __device__ __forceinline__ void dcdb_tile(
   const size_t ch0 = (size_t)(b * nc + c) * H + g * rep;
   const size_t row0 = (size_t)b * S + t0;
   float* sc = smem + RING_FLOATS;  // per head, each row's scale
-  float* ct = sc + rep * TILE;     // dC: C's tile, [i][n]
-  float* red = ct + TILE * MT;
+  T* ct = reinterpret_cast<T*>(sc + rep * TILE);  // dC: C's tile, [i][n]
+  float* red = sc + rep * TILE + TILE * MT;
   const size_t hp = (size_t)H * P, gn = (size_t)G * N;
   for (int e = threadIdx.x; e < rep * TILE; e += TT) {
     const int hh = e / TILE, i = r0 + e % TILE;
@@ -1128,12 +1231,12 @@ __device__ __forceinline__ void dcdb_tile(
                        dt[(row0 + i) * H + g * rep + hh]
                     : expf(cu[i]);
   }
-  const float* cg = cm + row0 * gn + (size_t)g * N;
+  const T* cg = cm + row0 * gn + (size_t)g * N;
   if (!DB)
-    stage(ct, MT, cg + r0 * gn + n0, gn, TILE, TILE, nl - r0, N - n0, cg);
+    stage(ct, LM, cg + r0 * gn + n0, gn, TILE, TILE, nl - r0, N - n0, cg);
   const float* dmg = dm + ((size_t)(b * nc + c) * G + g) * Q * Q;
-  const float* og = (DB ? cm : bm) + row0 * gn + (size_t)g * N;
-  const float* side = (DB ? x : dy) + row0 * hp + (size_t)g * rep * P;
+  const T* og = (DB ? cm : bm) + row0 * gn + (size_t)g * N;
+  const T* side = (DB ? x : dy) + row0 * hp + (size_t)g * rep * P;
   const float* mats = DB ? hat : states;
   // dM's contraction: j in [0, min(nl, r0 + 64)) for dC, i in [r0, nl) for dB
   const int k_lo = DB ? r0 : 0, k_hi = DB ? nl : min(nl, r0 + TILE);
@@ -1152,12 +1255,12 @@ __device__ __forceinline__ void dcdb_tile(
           else  // dM rows i, columns j (the contraction)
             stage(sa, LDR, dmg + (size_t)r0 * Q + k0, (size_t)Q, TILE, KS,
                   nl - r0, k_hi - k0, dmg);
-          stage(sb, LDK, og + k0 * gn + n0, gn, KS, TILE, k_hi - k0, N - n0,
-                og);
+          stage(reinterpret_cast<T*>(sb), LK, og + k0 * gn + n0, gn, KS,
+                TILE, k_hi - k0, N - n0, og);
         } else {  // dy^h or x^h rows r, columns p; S^h or Shat^h rows p
           const int hh = (s - n1) / n_ps, k0 = (s - n1) % n_ps * KS;
-          stage(sa, LDR, side + r0 * hp + hh * P + k0, hp, TILE, KS, nl - r0,
-                P - k0, side);
+          stage(reinterpret_cast<T*>(sa), LR, side + r0 * hp + hh * P + k0,
+                hp, TILE, KS, nl - r0, P - k0, side);
           const float* mh = mats + (ch0 + hh) * P * N;
           stage(sb, LDK, mh + (size_t)k0 * N + n0, (size_t)N, KS, TILE,
                 P - k0, N - n0, mh);
@@ -1166,20 +1269,23 @@ __device__ __forceinline__ void dcdb_tile(
       [&](int s, int buf) {
         const float* sa = smem + buf * 2 * SLICE;
         const float* sb = sa + SLICE;
-        auto fb = [&](int k, int n) { return sb[k * LDK + n]; };
         if (s < n1) {
+          const T* ob = reinterpret_cast<const T*>(sb);
+          auto fo = [&](int k, int n) { return f32(ob[k * LK + n]); };
           if (DB)
-            slice_mma<true, true>(
-                acc, [&](int m, int k) { return sa[k * LDK + m]; }, fb);
+            slice_mma<true, Lay<T>::SPLIT>(
+                acc, [&](int m, int k) { return sa[k * LDK + m]; }, fo);
           else
-            slice_mma<true, true>(
-                acc, [&](int m, int k) { return sa[m * LDR + k]; }, fb);
+            slice_mma<true, Lay<T>::SPLIT>(
+                acc, [&](int m, int k) { return sa[m * LDR + k]; }, fo);
           return;
         }
         const int hh = (s - n1) / n_ps, ps = (s - n1) % n_ps;
         if (ps == 0) zero_acc(hacc);
-        slice_mma<true, true>(
-            hacc, [&](int m, int k) { return sa[m * LDR + k]; }, fb);
+        const T* sd = reinterpret_cast<const T*>(sa);
+        slice_mma<Lay<T>::SPLIT, true>(
+            hacc, [&](int m, int k) { return f32(sd[m * LR + k]); },
+            [&](int k, int n) { return sb[k * LDK + n]; });
         if (ps < n_ps - 1) return;
         const float* sch = sc + hh * TILE;
 #pragma unroll
@@ -1192,7 +1298,7 @@ __device__ __forceinline__ void dcdb_tile(
               acc[mf][nf][e] += v;
               if (!DB)
                 hacc[mf][nf][e] =
-                    ct[acc_row(mf, e) * MT + acc_col(nf, e)] * v;
+                    f32(ct[acc_row(mf, e) * LM + acc_col(nf, e)]) * v;
             }
         if (!DB) {
           const float d = row_sums(hacc, red);
@@ -1207,9 +1313,27 @@ __device__ __forceinline__ void dcdb_tile(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = r0 + acc_row(mf, e), n = n0 + acc_col(nf, e);
-        if (r < nl && n < N) out[(row0 + r) * gn + (size_t)g * N + n] =
-            acc[mf][nf][e];
+        if (r < nl && n < N)
+          put(out + (row0 + r) * gn + (size_t)g * N + n, acc[mf][nf][e]);
       }
+}
+
+template <class T>
+__device__ __forceinline__ void bwd_dcdb(
+    const T* __restrict__ x, const float* __restrict__ dt,
+    const T* __restrict__ bm, const T* __restrict__ cm,
+    const T* __restrict__ dy, const float* __restrict__ cum,
+    const float* __restrict__ states, const float* __restrict__ hat,
+    const float* __restrict__ dm, T* __restrict__ db, T* __restrict__ dc,
+    float* __restrict__ dcs, int S, int H, int P, int G, int N, int Q,
+    int nc, float* smem) {
+  const int per = (Q + TILE - 1) / TILE * ((N + TILE - 1) / TILE);
+  if ((int)blockIdx.x < per)
+    dcdb_tile<false>(x, dt, bm, cm, dy, cum, states, hat, dm, dc, dcs, S, H,
+                     P, G, N, Q, nc, blockIdx.x, smem);
+  else
+    dcdb_tile<true>(x, dt, bm, cm, dy, cum, states, hat, dm, db, dcs, S, H,
+                    P, G, N, Q, nc, blockIdx.x - per, smem);
 }
 
 __global__ void __launch_bounds__(TT) ssd_bwd_dcdb_kernel(
@@ -1221,26 +1345,35 @@ __global__ void __launch_bounds__(TT) ssd_bwd_dcdb_kernel(
     float* __restrict__ dc, float* __restrict__ dcs, int S, int H, int P,
     int G, int N, int Q, int nc) {
   extern __shared__ __align__(16) float smem[];
-  const int per = (Q + TILE - 1) / TILE * ((N + TILE - 1) / TILE);
-  if ((int)blockIdx.x < per)
-    dcdb_tile<false>(x, dt, bm, cm, dy, cum, states, hat, dm, dc, dcs, S, H,
-                     P, G, N, Q, nc, blockIdx.x, smem);
-  else
-    dcdb_tile<true>(x, dt, bm, cm, dy, cum, states, hat, dm, db, dcs, S, H,
-                    P, G, N, Q, nc, blockIdx.x - per, smem);
+  bwd_dcdb(x, dt, bm, cm, dy, cum, states, hat, dm, db, dc, dcs, S, H, P, G,
+           N, Q, nc, smem);
+}
+
+__global__ void __launch_bounds__(TT) ssd_bwd_dcdb_bf16_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ dt,
+    const bf16* __restrict__ bm, const bf16* __restrict__ cm,
+    const bf16* __restrict__ dy, const float* __restrict__ cum,
+    const float* __restrict__ states, const float* __restrict__ hat,
+    const float* __restrict__ dm, bf16* __restrict__ db,
+    bf16* __restrict__ dc, float* __restrict__ dcs, int S, int H, int P,
+    int G, int N, int Q, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  bwd_dcdb(x, dt, bm, cm, dy, cum, states, hat, dm, db, dc, dcs, S, H, P, G,
+           N, Q, nc, smem);
 }
 
 // 5. One 64x64 tile (rows j0.., columns p0..) of du = (M o E)^T dy +
 // exp(cum_end - cum_j) B Shat^T for one head: dx, and the tile's shares of
 // x_j . du_j (xdpart) and u_j . (state du_j) (wpart) [B, nc, H, p tile, Q].
-__global__ void __launch_bounds__(TT) ssd_bwd_du_kernel(
-    const float* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ bm, const float* __restrict__ dy,
+template <class T>
+__device__ __forceinline__ void bwd_du(
+    const T* __restrict__ x, const float* __restrict__ dt,
+    const T* __restrict__ bm, const T* __restrict__ dy,
     const float* __restrict__ cbt, const float* __restrict__ cum,
-    const float* __restrict__ hat, float* __restrict__ dx,
+    const float* __restrict__ hat, T* __restrict__ dx,
     float* __restrict__ xdpart, float* __restrict__ wpart, int S, int H,
-    int P, int G, int N, int Q, int nc) {
-  extern __shared__ __align__(16) float smem[];
+    int P, int G, int N, int Q, int nc, float* smem) {
+  constexpr int LK = Lay<T>::K, LR = Lay<T>::R;
   float* cum_s = smem + RING_FLOATS;
   float* dt_s = cum_s + MAX_Q;
   float* red = dt_s + MAX_Q;
@@ -1257,8 +1390,8 @@ __global__ void __launch_bounds__(TT) ssd_bwd_du_kernel(
   }
   const size_t hp = (size_t)H * P, gn = (size_t)G * N;
   const float* mg = cbt + ((size_t)(b * nc + c) * G + g) * Q * Q;
-  const float* dyh = dy + row0 * hp + (size_t)h * P;
-  const float* bg = bm + row0 * gn + (size_t)g * N;
+  const T* dyh = dy + row0 * hp + (size_t)h * P;
+  const T* bg = bm + row0 * gn + (size_t)g * N;
   const float* sh = hat + ch * P * N;
   const int n1 = (nl - j0 + KS - 1) / KS, n2 = (N + KS - 1) / KS;
   Acc ai = {}, as = {};
@@ -1271,12 +1404,12 @@ __global__ void __launch_bounds__(TT) ssd_bwd_du_kernel(
           const int k0 = j0 + s * KS;
           stage(sa, LDR, mg + (size_t)j0 * Q + k0, (size_t)Q, TILE, KS,
                 Q - j0, nl - k0, mg);
-          stage(sb, LDK, dyh + k0 * hp + p0, hp, KS, TILE, nl - k0, P - p0,
-                dyh);
+          stage(reinterpret_cast<T*>(sb), LK, dyh + k0 * hp + p0, hp, KS,
+                TILE, nl - k0, P - p0, dyh);
         } else {  // B rows j, columns n; Shat rows p, columns n
           const int k0 = (s - n1) * KS;
-          stage(sa, LDR, bg + j0 * gn + k0, gn, TILE, KS, nl - j0, N - k0,
-                bg);
+          stage(reinterpret_cast<T*>(sa), LR, bg + j0 * gn + k0, gn, TILE,
+                KS, nl - j0, N - k0, bg);
           stage(sb, LDR, sh + (size_t)p0 * N + k0, (size_t)N, TILE, KS,
                 P - p0, N - k0, sh);
         }
@@ -1293,12 +1426,14 @@ __global__ void __launch_bounds__(TT) ssd_bwd_du_kernel(
             v = i >= j ? v * expf(fminf(cum_s[i] - cum_s[j], 0.0f)) : 0.0f;
           }
           __syncthreads();
-          slice_mma<true, true>(
+          const T* dys = reinterpret_cast<const T*>(sb);
+          slice_mma<true, Lay<T>::SPLIT>(
               ai, [&](int m, int k) { return sa[m * LDR + k]; },
-              [&](int k, int n) { return sb[k * LDK + n]; });
+              [&](int k, int n) { return f32(dys[k * LK + n]); });
         } else {
-          slice_mma<true, true>(
-              as, [&](int m, int k) { return sa[m * LDR + k]; },
+          const T* bs = reinterpret_cast<const T*>(sa);
+          slice_mma<Lay<T>::SPLIT, true>(
+              as, [&](int m, int k) { return f32(bs[m * LR + k]); },
               [&](int k, int n) { return sb[n * LDR + k]; });
         }
       });
@@ -1312,11 +1447,11 @@ __global__ void __launch_bounds__(TT) ssd_bwd_du_kernel(
         const int j = j0 + acc_row(mf, e), p = p0 + acc_col(nf, e);
         const bool live = j < nl && p < P;
         const size_t at = ((row0 + j) * H + h) * P + p;
-        const float xs = live ? x[at] : 0.0f;
+        const float xs = live ? f32(x[at]) : 0.0f;
         const float sd =
             live ? expf(cum_end - cum_s[j]) * as[mf][nf][e] : 0.0f;
         const float du = ai[mf][nf][e] + sd;
-        if (live) dx[at] = dt_s[j] * du;
+        if (live) put(dx + at, dt_s[j] * du);
         ai[mf][nf][e] = xs * du;                // x_j . du_j
         as[mf][nf][e] = live ? dt_s[j] * xs * sd : 0.0f;  // u_j . (state du)
       }
@@ -1325,6 +1460,30 @@ __global__ void __launch_bounds__(TT) ssd_bwd_du_kernel(
   if (threadIdx.x < TILE && j0 + threadIdx.x < nl) xdpart[part] = xd;
   const float w = row_sums(as, red);
   if (threadIdx.x < TILE && j0 + threadIdx.x < nl) wpart[part] = w;
+}
+
+__global__ void __launch_bounds__(TT) ssd_bwd_du_kernel(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ bm, const float* __restrict__ dy,
+    const float* __restrict__ cbt, const float* __restrict__ cum,
+    const float* __restrict__ hat, float* __restrict__ dx,
+    float* __restrict__ xdpart, float* __restrict__ wpart, int S, int H,
+    int P, int G, int N, int Q, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  bwd_du(x, dt, bm, dy, cbt, cum, hat, dx, xdpart, wpart, S, H, P, G, N, Q,
+         nc, smem);
+}
+
+__global__ void __launch_bounds__(TT) ssd_bwd_du_bf16_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ dt,
+    const bf16* __restrict__ bm, const bf16* __restrict__ dy,
+    const float* __restrict__ cbt, const float* __restrict__ cum,
+    const float* __restrict__ hat, bf16* __restrict__ dx,
+    float* __restrict__ xdpart, float* __restrict__ wpart, int S, int H,
+    int P, int G, int N, int Q, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  bwd_du(x, dt, bm, dy, cbt, cum, hat, dx, xdpart, wpart, S, H, P, G, N, Q,
+         nc, smem);
 }
 
 // 6. Per (chunk, head): dcum from the tiles' sums (in tile order), then
@@ -1513,22 +1672,17 @@ size_t ssd_scan_backward_scratch_floats(int B, int S, int H, int P, int G,
           (size_t)H * Q * (2 * n_qt + n_nt + 2 * n_pt) + H);
 }
 
-// The gradients of ssd_scan's (y, state_out) given their cotangents dy and
-// dstate (null: zero): dx, ddt, da [H], db, dc and, unless null, dinit
-// [B,H,P,N].  `saved` is the scratch of the forward call on the same
-// inputs (its C.B^T, cumsums and entry states); scratch holds
-// ssd_scan_backward_scratch_floats(...) floats.  Launches seven kernels on
-// `stream`, allocates nothing, does not synchronise; the same limits as
-// ssd_scan, and the group's H / G heads' scale vectors within a block's
-// shared memory.
-int ssd_scan_backward(const float* x, const float* dt, const float* a,
-                      const float* b, const float* c, const float* dy,
-                      const float* dstate, const float* saved, float* dx,
-                      float* ddt, float* da, float* db, float* dc,
-                      float* dinit, float* scratch, int B, int S, int H,
-                      int P, int G, int N, int Q, void* stream) {
+}  // extern "C"
+
+// The seven launches of the backward, on the kernels of input type T.
+template <class T, class AggK, class DmK, class DcdbK, class DuK>
+static int backward(const T* x, const float* dt, const float* a, const T* b,
+                    const T* c, const T* dy, const float* dstate,
+                    const float* saved, T* dx, float* ddt, float* da, T* db,
+                    T* dc, float* dinit, float* scratch, int B, int S, int H,
+                    int P, int G, int N, int Q, cudaStream_t st,
+                    AggK agg_k, DmK dm_k, DcdbK dcdb_k, DuK du_k) {
   if (Q < 1 || Q > MAX_Q || G < 1 || H % G) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   const int nc = (S + Q - 1) / Q, nt = (Q + TILE - 1) / TILE;
   const int n_nt = (N + TILE - 1) / TILE, n_pt = (P + TILE - 1) / TILE;
   const int rep = H / G;
@@ -1545,27 +1699,25 @@ int ssd_scan_backward(const float* x, const float* dt, const float* a,
   float* wpart = xdpart + bch * n_pt * Q;
   float* dapart = wpart + bch * n_pt * Q;
   size_t sm_agg, sm_dm, sm_dcdb, sm_du;
-  CHECK(smem_for(ssd_bwd_agg_kernel, MAX_Q, &sm_agg));
-  CHECK(smem_for(ssd_bwd_dm_kernel, TILE * MT + 3 * rep * TILE + 2 * TILE,
-                 &sm_dm));
-  CHECK(smem_for(ssd_bwd_dcdb_kernel, rep * TILE + TILE * MT + 2 * TILE,
-                 &sm_dcdb));
-  CHECK(smem_for(ssd_bwd_du_kernel, 2 * MAX_Q + 2 * TILE, &sm_du));
-  ssd_bwd_agg_kernel<<<dim3(n_pt * n_nt, nc * H, B), TT, sm_agg, st>>>(
+  CHECK(smem_for(agg_k, MAX_Q, &sm_agg));
+  CHECK(smem_for(dm_k, TILE * MT + 3 * rep * TILE + 2 * TILE, &sm_dm));
+  CHECK(smem_for(dcdb_k, rep * TILE + TILE * MT + 2 * TILE, &sm_dcdb));
+  CHECK(smem_for(du_k, 2 * MAX_Q + 2 * TILE, &sm_du));
+  agg_k<<<dim3(n_pt * n_nt, nc * H, B), TT, sm_agg, st>>>(
       c, dy, cum, hat, S, H, P, G, N, Q, nc);
   CHECK(cudaGetLastError());
-  ssd_bwd_dm_kernel<<<dim3(nt * (nt + 1) / 2, nc * G, B), TT, sm_dm, st>>>(
+  dm_k<<<dim3(nt * (nt + 1) / 2, nc * G, B), TT, sm_dm, st>>>(
       x, dt, dy, cbt, cum, dm, rpart, cpart, S, H, P, G, Q, nc);
   CHECK(cudaGetLastError());
   ssd_bwd_state_kernel<<<dim3((P * N + NT_STATE - 1) / NT_STATE, H, B),
                          NT_STATE, 0, st>>>(dstate, cum, hat, dinit, H,
                                             P * N, Q, nc);
   CHECK(cudaGetLastError());
-  ssd_bwd_dcdb_kernel<<<dim3(2 * nt * n_nt, nc * G, B), TT, sm_dcdb, st>>>(
+  dcdb_k<<<dim3(2 * nt * n_nt, nc * G, B), TT, sm_dcdb, st>>>(
       x, dt, b, c, dy, cum, states, hat, dm, db, dc, dcs, S, H, P, G, N, Q,
       nc);
   CHECK(cudaGetLastError());
-  ssd_bwd_du_kernel<<<dim3(nt * n_pt, nc * H, B), TT, sm_du, st>>>(
+  du_k<<<dim3(nt * n_pt, nc * H, B), TT, sm_du, st>>>(
       x, dt, b, dy, cbt, cum, hat, dx, xdpart, wpart, S, H, P, G, N, Q, nc);
   CHECK(cudaGetLastError());
   ssd_bwd_dcum_kernel<<<dim3(nc * H, B), TT, 0, st>>>(
@@ -1574,6 +1726,45 @@ int ssd_scan_backward(const float* x, const float* dt, const float* a,
   CHECK(cudaGetLastError());
   ssd_bwd_da_kernel<<<(H + 127) / 128, 128, 0, st>>>(dapart, da, B, H, nc);
   return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// The gradients of ssd_scan's (y, state_out) given their cotangents dy and
+// dstate (null: zero): dx, ddt, da [H], db, dc and, unless null, dinit
+// [B,H,P,N].  `saved` is the scratch of the forward call on the same
+// inputs (its C.B^T, cumsums and entry states); scratch holds
+// ssd_scan_backward_scratch_floats(...) floats.  Launches seven kernels on
+// `stream`, allocates nothing, does not synchronise; the same limits as
+// ssd_scan, and the group's H / G heads' scale vectors within a block's
+// shared memory.
+int ssd_scan_backward(const float* x, const float* dt, const float* a,
+                      const float* b, const float* c, const float* dy,
+                      const float* dstate, const float* saved, float* dx,
+                      float* ddt, float* da, float* db, float* dc,
+                      float* dinit, float* scratch, int B, int S, int H,
+                      int P, int G, int N, int Q, void* stream) {
+  return backward(x, dt, a, b, c, dy, dstate, saved, dx, ddt, da, db, dc,
+                  dinit, scratch, B, S, H, P, G, N, Q, (cudaStream_t)stream,
+                  ssd_bwd_agg_kernel, ssd_bwd_dm_kernel, ssd_bwd_dcdb_kernel,
+                  ssd_bwd_du_kernel);
+}
+
+// As ssd_scan_backward for ssd_scan_bf16: x, b, c, dy and the gradients
+// dx, db, dc in bf16 (each rounded once, from f32 sums), dt, a, dstate,
+// ddt, da, dinit, saved (the bf16 forward's scratch, the same layout) and
+// the scratch f32.  The same seven launches: dy.x^T on bf16 operands, every
+// other product with its bf16 side whole and its f32 side split in two.
+int ssd_scan_backward_bf16(const bf16* x, const float* dt, const float* a,
+                           const bf16* b, const bf16* c, const bf16* dy,
+                           const float* dstate, const float* saved, bf16* dx,
+                           float* ddt, float* da, bf16* db, bf16* dc,
+                           float* dinit, float* scratch, int B, int S, int H,
+                           int P, int G, int N, int Q, void* stream) {
+  return backward(x, dt, a, b, c, dy, dstate, saved, dx, ddt, da, db, dc,
+                  dinit, scratch, B, S, H, P, G, N, Q, (cudaStream_t)stream,
+                  ssd_bwd_agg_bf16_kernel, ssd_bwd_dm_bf16_kernel,
+                  ssd_bwd_dcdb_bf16_kernel, ssd_bwd_du_bf16_kernel);
 }
 
 }  // extern "C"

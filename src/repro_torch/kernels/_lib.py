@@ -47,11 +47,12 @@ MAX_SMEM_BYTES = 232_448
 #: each call launches one of its two forward entry points, counted again
 #: under its own name.  ``flash_attention_bf16`` and its ``_prefill`` /
 #: ``_decode`` keys count the same for bf16 inputs.
-#: ``flash_attention_bwd`` counts calls of K3's backward entry point
-#: (three kernels a call, four with grouped heads).  ``ssd_scan``,
-#: ``ssd_scan_bf16`` and ``ssd_scan_bwd`` count calls of K4's forward
-#: (four kernels) on f32 and on bf16 inputs and of its backward (seven
-#: kernels).
+#: ``flash_attention_bwd`` and ``flash_attention_bf16_bwd`` count calls of
+#: K3's backward entry points on f32 and on bf16 inputs (three kernels a
+#: call, four with grouped heads).  ``ssd_scan``, ``ssd_scan_bf16``,
+#: ``ssd_scan_bwd`` and ``ssd_scan_bf16_bwd`` count calls of K4's forward
+#: (four kernels) and of its backward (seven kernels) on f32 and on bf16
+#: inputs.
 LAUNCHES: dict[str, int] = {"sketch_insert_runs": 0, "failrank_step": 0,
                              "flash_attention": 0,
                              "flash_attention_prefill": 0,
@@ -59,8 +60,10 @@ LAUNCHES: dict[str, int] = {"sketch_insert_runs": 0, "failrank_step": 0,
                              "flash_attention_bf16": 0,
                              "flash_attention_bf16_prefill": 0,
                              "flash_attention_bf16_decode": 0,
-                             "flash_attention_bwd": 0, "ssd_scan": 0,
-                             "ssd_scan_bf16": 0, "ssd_scan_bwd": 0}
+                             "flash_attention_bwd": 0,
+                             "flash_attention_bf16_bwd": 0, "ssd_scan": 0,
+                             "ssd_scan_bf16": 0, "ssd_scan_bwd": 0,
+                             "ssd_scan_bf16_bwd": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 # one thread builds and loads a library while the others wait for it (two

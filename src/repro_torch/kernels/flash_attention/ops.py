@@ -32,14 +32,14 @@ Mixed types raise, on every device: nothing is cast quietly.
 
 When a gradient is needed (grad mode on and q, k or v requiring grad),
 :func:`gqa_attention` goes through :class:`FlashAttention`, an autograd
-function: its forward takes the prefill entry point whatever the shape,
-which also writes each row's log-sum-exp, and its backward launches the
-source's backward entry point (:func:`flash_attention_bwd_cuda`, three
-kernels, four with grouped heads, counted as one launch of
-``flash_attention_bwd``; its products on tensor cores in 3xTF32).  On the
-CPU, autograd runs through the plain version.  The backward takes f32 only: a
-bf16 call on the card that needs a gradient raises (bf16 training, with a
-bf16 backward, is the next item of ROADMAP Queue 1).
+function: its forward takes the prefill entry point of the inputs' type
+whatever the shape, which also writes each row's log-sum-exp, and its
+backward launches the source's backward entry point of that type
+(:func:`flash_attention_bwd_cuda`, three kernels, four with grouped heads,
+counted as one launch of ``flash_attention_bwd``, f32, its products on
+tensor cores in 3xTF32, or ``flash_attention_bf16_bwd``, bf16, its products
+on bf16 tensor cores).  On the CPU, autograd runs through the plain
+version.
 """
 
 from __future__ import annotations
@@ -131,8 +131,9 @@ def _load():
     for fn, n_ptr, n_int in ((lib.flash_attention_prefill, 7, 8),
                              (lib.flash_attention_decode, 9, 8),
                              (lib.flash_attention_backward, 13, 8),
-                             (lib.flash_attention_prefill_bf16, 6, 8),
-                             (lib.flash_attention_decode_bf16, 6, 10)):
+                             (lib.flash_attention_prefill_bf16, 7, 8),
+                             (lib.flash_attention_decode_bf16, 6, 10),
+                             (lib.flash_attention_backward_bf16, 13, 8)):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
@@ -190,17 +191,14 @@ def _dims(q, k, causal, window):
 
 
 def _forward(q, k, v, q_pos, k_pos, causal, window, lse):
-    """Check and launch a forward entry point; ``lse`` (f32 [B,Hq,S], f32
-    inputs only) takes the prefill whatever the shape and gets each row's
+    """Check and launch a forward entry point; ``lse`` (f32 [B,Hq,S])
+    takes the prefill whatever the shape and gets each row's
     log-sum-exp."""
     _check_inputs(q, k, v, q_pos, k_pos, window)
     b, s, hq, d = q.shape
     t, hk = k.shape[1], k.shape[2]
     dev = q.device
     bf16 = q.dtype == torch.bfloat16
-    if bf16 and lse is not None:
-        raise ValueError("flash_attention: the log-sum-exp output (for the "
-                         "backward) takes f32 inputs only")
     out = torch.empty_like(q)
     lib = _load()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
@@ -220,11 +218,11 @@ def _forward(q, k, v, q_pos, k_pos, causal, window, lse):
             rc = lib.flash_attention_decode(
                 *args, part.data_ptr(), part[n:].data_ptr(),
                 part[2 * n:].data_ptr(), *dims, stream)
-        elif bf16:
-            rc = lib.flash_attention_prefill_bf16(*args, *dims, stream)
         else:
-            rc = lib.flash_attention_prefill(
-                *args, 0 if lse is None else lse.data_ptr(), *dims, stream)
+            prefill = lib.flash_attention_prefill_bf16 if bf16 \
+                else lib.flash_attention_prefill
+            rc = prefill(*args, 0 if lse is None else lse.data_ptr(), *dims,
+                         stream)
     kind = "decode" if decode else "prefill"
     _lib.check(rc, f"flash_attention_{kind}{'_bf16' if bf16 else ''}")
     family = "flash_attention_bf16" if bf16 else "flash_attention"
@@ -253,42 +251,46 @@ def _prefill(q, k, v, *, q_pos, k_pos, causal=True, window=None):
 def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, q_pos, k_pos,
                              causal=True, window=None):
     """Launch the backward: from the forward's inputs, its ``out`` and
-    ``lse`` (:func:`_prefill`) and ``dout``
-    [B,S,Hq,D], returns f32 ``(dq [B,S,Hq,D], dk [B,T,Hkv,D], dv)``; dk and
-    dv summed over the query heads of each KV head.  Every tensor
-    contiguous f32 (positions int32) on one CUDA device."""
+    ``lse`` (:func:`_prefill`) and ``dout`` [B,S,Hq,D], returns ``(dq
+    [B,S,Hq,D], dk [B,T,Hkv,D], dv)`` in the inputs' type; dk and dv summed
+    over the query heads of each KV head.  q, k, v, out and dout one type
+    (f32 or bf16), ``lse`` f32, positions int32, every tensor contiguous on
+    one CUDA device."""
     _check_inputs(q, k, v, q_pos, k_pos, window)
-    if q.dtype != torch.float32:
-        raise ValueError("flash_attention backward: f32 inputs only")
     b, s, hq, d = q.shape
     dev = q.device
-    _check((("out", out, torch.float32, tuple(q.shape)),
-            ("dout", dout, torch.float32, tuple(q.shape)),
+    bf16 = q.dtype == torch.bfloat16
+    _check((("out", out, q.dtype, tuple(q.shape)),
+            ("dout", dout, q.dtype, tuple(q.shape)),
             ("lse", lse, torch.float32, (b, hq, s))), dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     delta = torch.empty(b, hq, s, dtype=torch.float32, device=dev)
-    # each query head's share of dK and dV, added per group by the kernel
+    # each query head's share of dK and dV (f32), added per group by the
+    # kernel
     part = torch.empty(2 * b * k.shape[1] * hq * d, dtype=torch.float32,
                        device=dev) if hq != k.shape[2] else None
     lib = _load()
+    entry = "flash_attention_backward_bf16" if bf16 \
+        else "flash_attention_backward"
     with torch.cuda.device(dev):
-        rc = lib.flash_attention_backward(
+        rc = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), q_pos.data_ptr(),
             k_pos.data_ptr(), delta.data_ptr(),
             0 if part is None else part.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), *_dims(q, k, causal, window),
             torch.cuda.current_stream(dev).cuda_stream)
-    _lib.check(rc, "flash_attention_backward")
-    _lib.count("flash_attention_bwd")
+    _lib.check(rc, entry)
+    _lib.count("flash_attention_bf16_bwd" if bf16 else "flash_attention_bwd")
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """K3 with a gradient: the forward launches the prefill entry point
     and keeps its log-sum-exp, the backward launches the backward entry
-    point.  Positions, ``causal`` and ``window`` take no gradient."""
+    point, each of the inputs' type (f32 or bf16).  Positions, ``causal``
+    and ``window`` take no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, k_pos, causal, window):
@@ -312,16 +314,12 @@ def gqa_attention(q, k, v, *, q_pos, k_pos, causal=True, window=None):
     """q [B,S,Hq,D], k/v [B,T,Hkv,D], q_pos [S] / k_pos [T] int32 →
     [B,S,Hq,D] in q's type; q, k and v share one type (f32 or bf16).  The
     kernel for CUDA tensors, through :class:`FlashAttention` when a
-    gradient is needed (f32 only)."""
+    gradient is needed."""
     check_types(q, k, v)
     if q.device.type != "cuda":
         return attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos,
                              causal=causal, window=window)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        if q.dtype != torch.float32:
-            raise NotImplementedError(
-                "flash_attention: the backward takes f32 only; a bf16 "
-                "backward comes with bf16 training (ROADMAP Queue 1)")
         return FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window)
     return flash_attention_cuda(q, k, v, q_pos=q_pos, k_pos=k_pos,
                                 causal=causal, window=window)

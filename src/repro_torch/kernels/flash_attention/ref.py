@@ -3,8 +3,9 @@
 The reference for ``csrc/flash_attention.cu`` and the path the wrapper
 takes for CPU tensors (autograd runs through it there).
 :func:`attention_lse_ref` and :func:`attention_bwd_ref` mirror the
-kernel's log-sum-exp output and its backward (the latter also with the
-kernel's 3xTF32 products, :func:`einsum_3xtf32`).  It is the model's
+kernel's log-sum-exp output and its backward (the latter in f32, also
+with the f32 kernel's 3xTF32 products, :func:`einsum_3xtf32`, and in
+bf16 with the bf16 kernel's rounding).  It is the model's
 attention function (``models/layers.py`` ``_direct_attention`` in the
 reference package) in the model layout, with the masks that take
 explicit positions:
@@ -94,14 +95,25 @@ def attention_bwd_ref(q, k, v, out, dout, lse, *, q_pos, k_pos, causal=True,
     from the saved log-sum-exp ``lse [B,Hq,S]``, D = rowsum(dO∘O), then
     dV = Pᵀ·dO, dS = P∘(dO·Vᵀ − D), dQ = dS·K / √D and dK = dSᵀ·Q / √D,
     with dK and dV summed over the query heads of a KV group.  Returns
-    f32 ``(dq [B,S,Hq,D], dk [B,T,Hkv,D], dv [B,T,Hkv,D])``.  With
-    ``tf32x3`` the five products are taken as the kernel's tensor cores
-    take them (:func:`einsum_3xtf32`; for tests), else in f32."""
+    ``(dq [B,S,Hq,D], dk [B,T,Hkv,D], dv [B,T,Hkv,D])`` in q's type.
+
+    f32 inputs: every product in f32, or with ``tf32x3`` as the f32
+    kernel's tensor cores take them (:func:`einsum_3xtf32`; for tests).
+    bf16 inputs (q, k, v, the forward's bf16 ``out`` and ``dout``; ``lse``
+    f32): the bf16 kernel's rounding.  Every product takes bf16 operands
+    and sums in f32: S and dP from the inputs as they are, dV from P
+    rounded to bf16, dQ and dK from dS rounded to bf16 (P and dS are
+    formed in f32 first); D from the bf16 ``out`` and ``dout`` in f32; dq,
+    dk and dv rounded to bf16 once, dk and dv after the group's sum."""
     b, s, hq, d = q.shape
     hk = k.shape[2]
     g = hq // hk
     scale = 1.0 / math.sqrt(d)
     mm = einsum_3xtf32 if tf32x3 else torch.einsum
+    bf16 = q.dtype == torch.bfloat16
+
+    def operand(x):  # a product's operand as the kernel takes it
+        return x.to(torch.bfloat16).float() if bf16 else x
     qg = q.float().reshape(b, s, hk, g, d)
     dog = dout.float().reshape(b, s, hk, g, d)
     kf, vf = k.float(), v.float()
@@ -110,12 +122,13 @@ def attention_bwd_ref(q, k, v, out, dout, lse, *, q_pos, k_pos, causal=True,
     m = lse.reshape(b, hk, g, s)[..., None]
     p = torch.where(live, torch.exp(scores - m), 0.0)
     delta = (dog * out.float().reshape(b, s, hk, g, d)).sum(-1)
-    dv = mm("bhgst,bshgd->bthd", p, dog)
+    dv = mm("bhgst,bshgd->bthd", operand(p), dog)
     dp = mm("bshgd,bthd->bhgst", dog, vf)
-    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    ds = operand(p * (dp - delta.permute(0, 2, 3, 1)[..., None]))
     dq = mm("bhgst,bthd->bshgd", ds, kf) * scale
     dk = mm("bhgst,bshgd->bthd", ds, qg) * scale
-    return dq.reshape(b, s, hq, d), dk, dv
+    return dq.reshape(b, s, hq, d).to(q.dtype), dk.to(q.dtype), \
+        dv.to(q.dtype)
 
 
 def live_mask(q_pos, k_pos, causal=True, window=None):

@@ -18,11 +18,12 @@ of the intra- and inter-chunk terms.  It is counted under
 
 A call that needs a gradient goes through :class:`SSDScan`: its forward
 keeps the kernel's scratch (C·Bᵀ per group, the cumsums and each chunk's
-entry state), and its backward launches the source's second entry point,
-``ssd_scan_backward`` (seven launches, every product 3xTF32 on tensor
-cores), on it.  The backward takes f32 only: a bf16 call on the card that
-needs a gradient raises (bf16 training is the next item of ROADMAP Queue
-1).
+entry state), and its backward launches the source's backward entry
+point of the inputs' type on it: ``ssd_scan_backward`` (seven launches,
+every product 3xTF32 on tensor cores; counted under ``ssd_scan_bwd``) or
+``ssd_scan_backward_bf16`` (the same seven, x, b, c, dy and dx, db, dc in
+bf16, dy·xᵀ on bf16 tensor cores and the other products with the f32
+side split in two; ``ssd_scan_bf16_bwd``).
 """
 
 from __future__ import annotations
@@ -55,6 +56,8 @@ def _load():
     lib.ssd_scan_backward.restype = ctypes.c_int
     lib.ssd_scan_backward.argtypes = [ctypes.c_void_p] * 15 \
         + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.ssd_scan_backward_bf16.restype = ctypes.c_int
+    lib.ssd_scan_backward_bf16.argtypes = lib.ssd_scan_backward.argtypes
     return lib
 
 
@@ -97,8 +100,8 @@ def _check(x, dt, a, b, c, chunk, named=()):
 def ssd_fwd_cuda(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
     """Launch the kernel; every tensor contiguous on one CUDA device, x, b
     and c f32 or bf16, the rest f32.  Returns ``(y [B,S,H,P] in x's type,
-    state [B,H,P,N] f32, saved)``: ``saved`` is the kernel's scratch, which
-    :func:`ssd_bwd_cuda` reads (f32 calls)."""
+    state [B,H,P,N] f32, saved)``: ``saved`` is the kernel's f32 scratch
+    (the same layout in either type), which :func:`ssd_bwd_cuda` reads."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     dev = x.device
@@ -135,17 +138,23 @@ def ssd_bwd_cuda(x, dt, a, b, c, dy, dstate, *, saved, chunk: int = 128,
                  init_state=None):
     """Launch the backward: from the forward's inputs, its ``saved``
     scratch (:func:`ssd_fwd_cuda` on the same inputs) and the cotangents
-    ``dy [B,S,H,P]`` and ``dstate [B,H,P,N]`` (None: zero), returns f32
-    ``(dx, ddt, da, db, dc, dinit)``; ``dinit`` is None without an
-    ``init_state``.  Every tensor contiguous f32 on one CUDA device."""
+    ``dy [B,S,H,P]`` (x's type) and ``dstate [B,H,P,N]`` (f32; None: zero),
+    returns ``(dx, ddt, da, db, dc, dinit)``, dx, db and dc in x's type,
+    the rest f32; ``dinit`` is None without an ``init_state``.  Every
+    tensor contiguous on one CUDA device; x, b, c and dy f32 or bf16, the
+    rest f32."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     dev = x.device
-    if x.dtype != torch.float32:
-        raise ValueError("ssd_scan backward: f32 inputs only")
     _check(x, dt, a, b, c, chunk,
            [("init_state", init_state, (bsz, h, p, n)),
-            ("dy", dy, (bsz, s, h, p)), ("dstate", dstate, (bsz, h, p, n))])
+            ("dstate", dstate, (bsz, h, p, n))])
+    if dy.device != dev or dy.dtype != x.dtype \
+            or tuple(dy.shape) != (bsz, s, h, p) or not dy.is_contiguous():
+        raise ValueError(
+            f"ssd_scan: dy must be a contiguous {x.dtype} tensor of shape "
+            f"{(bsz, s, h, p)} on {dev}, got {dy.dtype} {tuple(dy.shape)} "
+            f"on {dy.device}")
     lib = _load()
     want = lib.ssd_scan_scratch_floats(bsz, s, h, p, g, n, chunk)
     if saved.device != dev or saved.dtype != torch.float32 \
@@ -161,13 +170,15 @@ def ssd_bwd_cuda(x, dt, a, b, c, dy, dstate, *, saved, chunk: int = 128,
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
+    bf16 = x.dtype == torch.bfloat16
+    entry = "ssd_scan_backward_bf16" if bf16 else "ssd_scan_backward"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _lib.check(lib.ssd_scan_backward(
+        _lib.check(getattr(lib, entry)(
             *map(ptr, (x, dt, a, b, c, dy, dstate, saved, dx, ddt, da, db,
                        dc, dinit, scratch)), bsz, s, h, p, g, n, chunk,
-            stream), "ssd_scan_backward")
-    _lib.count("ssd_scan_bwd")
+            stream), entry)
+    _lib.count("ssd_scan_bf16_bwd" if bf16 else "ssd_scan_bwd")
     return dx, ddt, da, db, dc, dinit
 
 
@@ -201,16 +212,12 @@ class SSDScan(torch.autograd.Function):
 def ssd(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
     """Model layout → ``(y [B,S,H,P] in x's type, final state [B,H,P,N]
     f32)``; the kernel for CUDA tensors, through :class:`SSDScan` when a
-    gradient is needed (grad mode on and any input requiring grad; f32
-    only).  On the CPU, autograd runs through the plain version."""
+    gradient is needed (grad mode on and any input requiring grad).  On
+    the CPU, autograd runs through the plain version."""
     if x.device.type != "cuda":
         return ssd_ref(x, dt, a, b, c, chunk=chunk, init_state=init_state)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, a, b, c, init_state)):
-        if x.dtype != torch.float32:
-            raise NotImplementedError(
-                "ssd_scan: the backward takes f32 only; a bf16 backward "
-                "comes with bf16 training (ROADMAP Queue 1)")
         return SSDScan.apply(x, dt, a, b, c, init_state, chunk)
     return ssd_cuda(x, dt, a, b, c, chunk=chunk, init_state=init_state)

@@ -162,6 +162,12 @@ def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
     ``tf32x3`` each product is taken as the kernel's tensor cores take it
     (:func:`einsum_3xtf32`; for tests), else in f32.
 
+    bf16 inputs (x, b, c and dy; dt, a, the states and ``dstate`` f32):
+    the bf16 kernel's rounding, which is the f32 algebra on the inputs as
+    they are (every product of two bf16 values is exact in f32, the f32
+    side of the others kept whole to a few parts in 2²⁰) with dx, db and
+    dc rounded to bf16 once; ddt, da and dinit stay f32.
+
     Per chunk, with u = dt·x, E_ij = exp(min(cum_i − cum_j, 0)) for j ≤ i,
     M_ij = C_i·B_j (per group), S_{c−1} the state entering the chunk and
     Ŝ_c the cotangent of the state leaving it:
@@ -181,6 +187,7 @@ def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
         dl    = the reverse in-chunk cumsum of dcum;  da = Σ dt_j·dl_j
     """
     mm = einsum_3xtf32 if tf32x3 else torch.einsum
+    io_dtype = x.dtype
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     rep = h // g
@@ -260,5 +267,5 @@ def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
 
     def cut(t_):
         return t_.reshape(bsz, nc * q, *t_.shape[3:])[:, :s]
-    return (cut(dx), cut(ddt), da, cut(db), cut(dc),
-            None if init_state is None else shat)
+    return (cut(dx).to(io_dtype), cut(ddt), da, cut(db).to(io_dtype),
+            cut(dc).to(io_dtype), None if init_state is None else shat)

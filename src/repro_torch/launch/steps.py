@@ -11,7 +11,9 @@ mesh; on one card they have no counterpart (serving is
 
 Gradients come from autograd; on the card, attention's backward is K3's
 backward kernel (``kernels/flash_attention/ops.FlashAttention``) and the
-Mamba-2 SSD scan's is K4's (``kernels/ssd_scan/ops.SSDScan``).
+Mamba-2 SSD scan's is K4's (``kernels/ssd_scan/ops.SSDScan``), each in
+the parameters' type: the reference's plan trains bf16 parameters (with
+the leaves it keeps in f32) and f32 AdamW moments.
 """
 
 from __future__ import annotations
@@ -27,10 +29,11 @@ from ..optim import adamw
 @dataclasses.dataclass(frozen=True)
 class CellPlan:
     """``grad_accum`` micro-batches a step, their gradients added in
-    order; the parameters' dtype (the train step checks it); the AdamW
-    moments' dtype."""
+    order; the parameters' working type, the reference's default bf16
+    (the train step checks each parameter against it, by the rule of
+    ``init_model``: ``layers.leaf_dtype``); the AdamW moments' type."""
     grad_accum: int = 1
-    param_dtype: torch.dtype = torch.float32
+    param_dtype: torch.dtype = torch.bfloat16
     opt_state_dtype: torch.dtype = torch.float32
 
 
@@ -58,27 +61,45 @@ def make_train_step(cfg, plan: CellPlan, opt_cfg=None):
 
     def train_step(model, opt_state, tokens, enc_frames=None):
         params = list(model.parameters())
-        for p in params:
-            if p.dtype != plan.param_dtype:
-                raise ValueError(f"parameter of {p.dtype}, the plan says "
-                                 f"{plan.param_dtype}")
+        for (name, p), dtype in zip(model.named_parameters(),
+                                    T.param_dtypes(model, plan.param_dtype)):
+            if p.dtype != dtype:
+                raise ValueError(f"parameter {name} of {p.dtype}, the plan "
+                                 f"says {dtype}")
             p.grad = None
         a = plan.grad_accum
         if tokens.shape[0] % a:
             raise ValueError(f"batch {tokens.shape[0]} does not split into "
                              f"{a} micro-batches")
-        loss = None
+        loss, acc = None, None
         toks = tokens.reshape(a, -1, tokens.shape[1])
         frames = [None] * a if enc_frames is None else \
             enc_frames.reshape(a, -1, *enc_frames.shape[1:])
-        # autograd adds each micro-batch's gradients into .grad in order
         for tb, fb in zip(toks, frames):
             micro, _ = loss_fn(cfg, model, tb, fb)
             micro.backward()
             micro = micro.detach()
             loss = micro if loss is None else loss + micro
-        grads = [torch.zeros_like(p) if p.grad is None
-                 else p.grad if a == 1 else p.grad / a for p in params]
+            if a > 1:
+                # the micro-batches' gradients added into f32 in order, as
+                # the reference's scan adds them into f32 zeros
+                with torch.no_grad():
+                    if acc is None:
+                        acc = [torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device) if p.grad is None
+                               else p.grad.float() for p in params]
+                    else:
+                        for g, p in zip(acc, params):
+                            if p.grad is not None:
+                                g.add_(p.grad)
+                for p in params:
+                    p.grad = None
+        if a > 1:
+            grads = acc
+            torch._foreach_div_(grads, a)
+        else:
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in params]
         opt_state, stats = adamw.apply(params, grads, opt_state, opt_cfg)
         for p in params:
             p.grad = None

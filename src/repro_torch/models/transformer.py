@@ -188,6 +188,28 @@ def init_model(cfg, generator: torch.Generator,
                  L.ParamBlock(top["enc_final_norm"]))
 
 
+def param_dtypes(model: Model, dtype: torch.dtype) -> list[torch.dtype]:
+    """The type of each parameter of ``model``, in ``named_parameters``
+    order, when its working type is ``dtype``: ``layers.leaf_dtype`` of the
+    parameter's leaf in :func:`param_spec` (bf16, say, with the leaves the
+    reference keeps in f32)."""
+    spec = param_spec(model.cfg)
+    slots = list(spec["periods"].values())
+    out = []
+    for name, _ in model.named_parameters():
+        keys = name.split(".")
+        if keys[0] == "layers":
+            node, keys = slots[int(keys[1]) % len(slots)], keys[2:]
+        elif keys[0] == "encoder":
+            node, keys = spec["encoder"], keys[2:]
+        else:
+            node = spec
+        for key in keys:
+            node = node[key]
+        out.append(L.leaf_dtype(node, dtype))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # pieces
 # ---------------------------------------------------------------------------

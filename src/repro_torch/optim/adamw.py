@@ -5,7 +5,8 @@ of tensors, the model's parameters in one fixed order
 (``list(model.parameters())``), with the state's moments in the same
 order.  ``torch.optim.AdamW`` is not used: its clipping and schedule
 differ.  ``state_dtype`` keeps the moments in bf16 where asked (the update
-is computed in f32).
+is computed in f32).  A bf16 parameter is updated in f32 and rounded back
+to nearest even, as the reference's ``astype(p.dtype)`` rounds.
 
 Unlike the reference, which returns new arrays, :func:`apply` updates the
 parameters and the moments in place: a train step holds one copy of
@@ -67,17 +68,29 @@ def schedule(step: int, cfg: AdamWConfig) -> float:
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every entry (an f32 scalar on the
-    tensors' device), from each leaf's L2 norm, summed in leaf order.  On
-    the card the norms are one multi-tensor launch (tree reductions).  On
-    the CPU each leaf's norm accumulates in f64: torch's f32 norm there
-    drifts with the leaf's size (3e-4 of the norm at 2²⁰ entries, 2e-2 at
+    tensors' device), from each leaf's L2 norm in f32, summed in leaf
+    order.  On the card the norms are a multi-tensor launch (tree
+    reductions) per group of :func:`apply`'s (:func:`_groups`), so at most
+    one group's f32 copy of bf16 leaves is alive (f32 leaves are read in
+    place); a leaf's norm is the same bits whatever its group.  On the
+    CPU each leaf's norm accumulates in f64: torch's f32 norm there drifts
+    with the leaf's size (3e-4 of the norm at 2²⁰ entries, 2e-2 at
     whisper's 66 M-entry embedding)."""
     if tensors[0].device.type == "cuda":
-        norms = torch._foreach_norm([x.float() for x in tensors])
+        norms = _group_norms(tensors)
     else:
         norms = [torch.linalg.vector_norm(x, dtype=torch.float64).float()
                  for x in tensors]
     return torch.stack(norms).square().sum().sqrt()
+
+
+def _group_norms(tensors) -> list:
+    """Each leaf's L2 norm in f32, one multi-tensor call per group of
+    :func:`_groups`, on that group's f32 copies alone."""
+    norms = []
+    for idx in _groups(tensors):
+        norms += torch._foreach_norm([tensors[i].float() for i in idx])
+    return norms
 
 
 @torch.no_grad()

@@ -147,3 +147,34 @@ class _EmptyMCG:
     edge_link_path = []
     s0 = np.arange(5.0)
     node_window = np.zeros(5, np.int64)
+
+
+def _chip_smoke():
+    import importlib
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    try:
+        return importlib.import_module("chip_smoke")
+    finally:
+        sys.path.pop(0)
+
+
+@pytest.mark.parametrize("n", [68, 260, 1028])
+def test_pallas_iteration_counts_are_the_pinned_ones(n):
+    """The reference's Pallas ``failrank_step`` (interpret mode) iterated on
+    ``chip_smoke.failrank_inputs``' seeded inputs at n, stopping as
+    ``failrank_dense`` stops (the L1 residual below 1e-4, or 100 steps),
+    takes the steps ``chip_smoke.REFERENCE[("failrank_loop", n)]`` pins,
+    which the card holds K2's whole iteration to."""
+    cs = _chip_smoke()
+    w, l, s, s0 = (jnp.asarray(x.numpy())
+                   for x in cs.failrank_inputs("cpu", n))
+    it = 0
+    for it in range(1, 101):
+        s_new, l_new = j_step(w, l, s, s0, interpret=True)
+        delta = float(abs(s_new - s).sum() + abs(l_new - l).sum())
+        s, l = s_new, l_new
+        if delta < 1e-4:
+            break
+    assert it == cs.REFERENCE[("failrank_loop", n)]

@@ -45,8 +45,8 @@ def test_every_source_has_launch_counters():
             "flash_attention_prefill", "flash_attention_decode",
             "flash_attention_bf16", "flash_attention_bf16_prefill",
             "flash_attention_bf16_decode", "flash_attention_bwd",
-            "ssd_scan", "ssd_scan_bf16", "ssd_scan_bwd"} \
-        == set(_lib.LAUNCHES)
+            "flash_attention_bf16_bwd", "ssd_scan", "ssd_scan_bf16",
+            "ssd_scan_bwd", "ssd_scan_bf16_bwd"} == set(_lib.LAUNCHES)
     _lib.LAUNCHES["flash_attention_decode"] += 3
     _lib.reset_launches()
     assert not any(_lib.LAUNCHES.values())

@@ -149,10 +149,12 @@ def test_serve_main_serves_a_depth_cut():
 #: K/V in every decoder layer, which the reference's CPU run cannot afford
 #: at full depth; its frames are :func:`pin_frames`.  h2o-danube-3-4b keeps
 #: 2 of its 24 layers (0.56 G parameters: its embedding and head are a
-#: quarter of a billion).
+#: quarter of a billion), stablelm-1.6b 2 of its 24 (0.51 G parameters:
+#: its untied embedding and head over a vocabulary of 100,352).
 PIN_RUNS = (("smollm-135m", None, 48, 16), ("mamba2-1.3b", 4, 48, 16),
             ("mixtral-8x7b", 2, 48, 16), ("qwen2-vl-2b", None, 48, 16),
-            ("whisper-large-v3", 4, 48, 16), ("h2o-danube-3-4b", 2, 48, 16))
+            ("whisper-large-v3", 4, 48, 16), ("h2o-danube-3-4b", 2, 48, 16),
+            ("stablelm-1.6b", 2, 48, 16))
 PIN_SEED, PIN_PROMPT_SEED, PIN_FRAME_SEED = 0, 4, 5
 
 

@@ -357,7 +357,8 @@ def _check_train_step(arch, seq):
     jstep = jax.jit(JS.make_train_step(
         jcfg, JS.CellPlan(grad_accum=1, remat=False,
                           param_dtype=jnp.float32), jopt_cfg))
-    step = S.make_train_step(cfg, S.CellPlan(), opt_cfg)
+    step = S.make_train_step(cfg, S.CellPlan(param_dtype=torch.float32),
+                             opt_cfg)
     state = adamw.init_state(list(model.parameters()), opt_cfg)
     jstate = JA.init_state(jparams, jopt_cfg)
     for i in range(4):
@@ -390,14 +391,16 @@ def test_train_step_accumulates_micro_batches():
     *_, jloss, jgnorm = jstep(jparams, JA.init_state(
         jparams, JA.AdamWConfig(**kw)), jnp.asarray(toks))
     opt_cfg = adamw.AdamWConfig(**kw)
-    _, loss, gnorm = S.make_train_step(cfg, S.CellPlan(grad_accum=2),
-                                       opt_cfg)(
+    _, loss, gnorm = S.make_train_step(
+        cfg, S.CellPlan(grad_accum=2, param_dtype=torch.float32), opt_cfg)(
         model, adamw.init_state(list(model.parameters()), opt_cfg),
         torch.from_numpy(toks))
     assert float(loss) == pytest.approx(float(jloss), rel=1e-5)
     assert float(gnorm) == pytest.approx(float(jgnorm), rel=1e-5)
     with pytest.raises(ValueError, match="micro-batches"):
-        S.make_train_step(cfg, S.CellPlan(grad_accum=3), opt_cfg)(
+        S.make_train_step(cfg, S.CellPlan(grad_accum=3,
+                                          param_dtype=torch.float32),
+                          opt_cfg)(
             model, adamw.init_state(list(model.parameters()), opt_cfg),
             torch.from_numpy(toks))
 
@@ -456,7 +459,8 @@ def test_training_loss_decreases():
     opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=2000,
                                 min_lr_frac=1.0)
     state = adamw.init_state(list(model.parameters()), opt_cfg)
-    step = S.make_train_step(cfg, S.CellPlan(), opt_cfg)
+    step = S.make_train_step(cfg, S.CellPlan(param_dtype=torch.float32),
+                             opt_cfg)
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, (4, 64)).astype(np.int32))
     losses = []

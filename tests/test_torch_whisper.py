@@ -240,7 +240,8 @@ def _steps(plan_accum, n_steps, grads=False):
     jstep = jax.jit(JS.make_train_step(
         jcfg, JS.CellPlan(grad_accum=plan_accum, remat=False,
                           param_dtype=jnp.float32), jopt_cfg))
-    step = S.make_train_step(cfg, S.CellPlan(grad_accum=plan_accum),
+    step = S.make_train_step(cfg, S.CellPlan(grad_accum=plan_accum,
+                                             param_dtype=torch.float32),
                              opt_cfg)
     state = adamw.init_state(list(model.parameters()), opt_cfg)
     jstate = JA.init_state(jparams, jopt_cfg)
