@@ -6,10 +6,10 @@
 1. builds every CUDA source in ``src/repro_torch/csrc`` (one ``nvcc`` each,
    started together) into ``build/``, and counts the tensor-core
    instructions of K3's kernels in ``cuobjdump -sass`` at every tile
-   width: the bf16 prefill must have ``HGMMA`` (wgmma) and no ``HMMA``
-   (mma.sync), the bf16 decode and the bf16 backward's dK/dV and dQ
-   kernels ``HMMA`` on bf16 alone, the f32 backward's ``HMMA`` on TF32
-   alone (3xTF32); and of K4's: its f32 backward's product kernels
+   width: the bf16 prefill and the bf16 backward's main kernel must have
+   ``HGMMA`` (wgmma) and no ``HMMA`` (mma.sync), the bf16 decode ``HMMA``
+   on bf16 alone, the f32 backward's ``HMMA`` on TF32 alone (3xTF32); and
+   of K4's: its f32 backward's product kernels
    ``HMMA`` on TF32 alone, its bf16 backward's dy·xᵀ kernel on bf16 and
    its other three on TF32, its bf16 forward's scores ``HMMA`` on bf16 and
    its other two product kernels on TF32, its f32 forward none
@@ -64,10 +64,14 @@
    versions in bf16,
    within 4 bf16 ulps of each output row's largest entry, each run twice
    and bit-identical; and the bf16 backwards: K3's through its autograd
-   function against its plain mirror ``attention_bwd_ref`` in bf16 (the
-   backward's cases above in bf16, head dims 8 and 24, h2o-danube-3-4b's
-   training shape; the bf16 prefill's output with its log-sum-exp equal
-   to the one without) and K4's against ``ssd_bwd_ref`` in bf16 (the SSD
+   function against its plain mirror ``attention_bwd_ref`` in bf16 and
+   against ``attention_bwd_tiled_ref``, the mirror of its order of sums
+   (the backward's cases above in bf16, head dims 8 and 24,
+   h2o-danube-3-4b's training shape, and the edges of its ordered adds: a
+   window of 16, a block of empty slots wider than a key tile, GQA 8 over
+   16 key tiles, one key tile; rows with no live key and keys with no
+   live query exactly 0; the bf16 prefill's output with its log-sum-exp
+   equal to the one without) and K4's against ``ssd_bwd_ref`` in bf16 (the SSD
    cases, with and without a state and a final-state cotangent), within
    ``BF16_BWD_ULPS`` of each gradient's largest entry (f32 gradients of
    K4 within 1e-4 of it), two runs bit-identical;
@@ -256,6 +260,12 @@ times K3's bf16 prefill beside copies of it with one part removed (its
 products, its P.V, its softmax, both products and softmax, the
 warpgroups' turns) or its ring cut to 2 stages, at the bf16 serving
 shapes (``K3_ABLATIONS``).
+
+    python3 chip_smoke.py --k3-bwd-ablations
+
+does the same for K3's bf16 backward at its training shapes: copies
+without the dQ writers' turns and adds, without dQ at all, without the
+exponent, without the warpgroups' turns (``K3_BWD_ABLATIONS``).
 """
 
 from __future__ import annotations
@@ -2374,11 +2384,10 @@ def check_ssd_bf16(dev, lib):
 #: K3's kernels on tensor cores, whose SASS the build phase reads: the bf16
 #: prefill (wgmma), the bf16 decode (mma.sync, bf16), the f32 backward's
 #: dK/dV and dQ kernels (mma.sync m16n8k8 on TF32, three a product) and the
-#: bf16 backward's (mma.sync m16n8k16 on bf16).
+#: bf16 backward's main kernel (wgmma).
 TENSOR_CORE_KERNELS = ("flash_prefill_bf16_hopper_kernel",
                        "flash_decode_bf16_kernel", "flash_bwd_dkdv_kernel",
-                       "flash_bwd_dq_kernel", "flash_bwd_dkdv_bf16_kernel",
-                       "flash_bwd_dq_bf16_kernel")
+                       "flash_bwd_dq_kernel", "flash_bwd_bf16_hopper_kernel")
 
 #: K4's kernels and the tensor-core instructions their SASS must hold: the
 #: f32 backward's products on TF32 alone (3xTF32), the bf16 backward's dy·xᵀ
@@ -2443,7 +2452,7 @@ def sass_tensor_core_counts(lib) -> dict:
 
 def check_tensor_core_sass(sass) -> None:
     """Every tile width of each K3 kernel built, and every K4 kernel; the
-    bf16 prefill on wgmma alone, the bf16 decode and the bf16 backward on
+    bf16 prefill and the bf16 backward on wgmma alone, the bf16 decode on
     mma.sync over bf16 operands alone, the f32 backward on mma.sync over
     TF32 operands; K4's kernels as ``SSD_SASS`` says."""
     want = {f"{k} DP={dp}" for k in TENSOR_CORE_KERNELS
@@ -2452,10 +2461,9 @@ def check_tensor_core_sass(sass) -> None:
             f"tensor-core kernels in the SASS: {sorted(sass)}")
     for fn, c in sass.items():
         kind = SSD_SASS.get(fn)
-        if fn.startswith("flash_prefill_bf16_hopper_kernel"):
+        if "_hopper_kernel" in fn:
             ok = c["HGMMA"] > 0 and c["HMMA"] == 0
-        elif fn.startswith("flash_decode_bf16_kernel") or (
-                fn.startswith("flash_bwd_") and "_bf16_" in fn):
+        elif fn.startswith("flash_decode_bf16_kernel"):
             ok = c["HMMA"] > 0 and c["HGMMA"] == 0 \
                 and c["HMMA_BF16"] == c["HMMA"]
         elif kind == "none":
@@ -3052,8 +3060,9 @@ def train_run(lib, inject: bool) -> dict:
     injected slowdown (steps 10-15, 10x), the slowed host (core 0) must be
     named in the window that holds the burst or the one after: the
     detector's verdict names one resource a window, over the cumulative
-    history, and on noisy host times it can name the slowest synthetic
-    peer first (ROADMAP Queue 3); such a flag is printed as a finding."""
+    history.  ``StepTelemetry`` names only the measured host, never a
+    synthetic peer (ROADMAP Queue 3); any other flag in the burst's
+    windows is printed as a finding."""
     import contextlib
     import io
 
@@ -3927,26 +3936,19 @@ K3_ABLATIONS = (
 )
 
 
-def k3_ablations_main() -> int:
-    """``--k3-ablations``: K3's bf16 prefill and edited copies of it
-    (``K3_ABLATIONS``), each built by ``nvcc`` with the source's flags
-    into ``build/ablations`` and called through its C entry point, timed
-    (``timed``) at the bf16 prefill shapes of ``time_bf16_kernels``; one
-    JSON line of ms and, for variants that still compute the function,
-    the largest gap to the plain version in bf16 ulps."""
+def build_ablations(table, out, entry, n_ptr, n_int) -> dict:
+    """Each variant of ``table`` (name, edits of
+    ``csrc/flash_attention.cu``, exact) built by ``nvcc`` with the
+    source's flags into ``build/<out>``, all in parallel; its C entry
+    ``entry`` (``n_ptr`` pointers, ``n_int`` ints, a stream) by name."""
     import ctypes
 
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
-        return 2
     from repro_torch.kernels import _lib
-    dev = torch.device("cuda", 0)
-    out_dir = ROOT / "build" / "ablations"
+    out_dir = ROOT / "build" / out
     out_dir.mkdir(parents=True, exist_ok=True)
     src = (_lib.CSRC / "flash_attention.cu").read_text()
     jobs = {}
-    for name, edits, _ in K3_ABLATIONS:
+    for name, edits, _ in table:
         text = src
         for a, b in edits:
             require(a in text, f"ablation {name}: no {a!r} in the source")
@@ -3960,12 +3962,29 @@ def k3_ablations_main() -> int:
     for name, job in jobs.items():
         err = job.communicate()[1]
         require(job.returncode == 0, f"ablation {name}: nvcc {err[-2000:]}")
-        fn = ctypes.CDLL(str(out_dir / f"{name}.so")) \
-            .flash_attention_prefill_bf16
+        fn = getattr(ctypes.CDLL(str(out_dir / f"{name}.so")), entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
         fns[name] = fn
+    return fns
+
+
+def k3_ablations_main() -> int:
+    """``--k3-ablations``: K3's bf16 prefill and edited copies of it
+    (``K3_ABLATIONS``), each built by ``nvcc`` with the source's flags
+    into ``build/ablations`` and called through its C entry point, timed
+    (``timed``) at the bf16 prefill shapes of ``time_bf16_kernels``; one
+    JSON line of ms and, for variants that still compute the function,
+    the largest gap to the plain version in bf16 ulps."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _lib
+    dev = torch.device("cuda", 0)
+    fns = build_ablations(K3_ABLATIONS, "ablations",
+                          "flash_attention_prefill_bf16", 7, 8)
     rng = np.random.default_rng(29)
     hq, hk = YI_HEADS
     dq, dk, dwin = DANUBE_ATTENTION
@@ -4003,6 +4022,98 @@ def k3_ablations_main() -> int:
         timeout=60, check=True).stdout.strip(), "ms": res})
     return 0
 
+#: Ablations of K3's bf16 backward for ``--k3-bwd-ablations``, as
+#: ``K3_ABLATIONS``: without the dQ writers (no turns, no adds, the
+#: consumers never wait for a staging buffer), without dQ at all, without
+#: the exponent of P, without the warpgroups' turns.
+K3_BWD_NO_WRITERS = (
+    ("        const int buf = nq % L::NQB;\n"
+     "        const unsigned use = (nq / L::NQB) & 1;\n        int* turn",
+     "        if (i >= 0) continue;\n        const int buf = nq % L::NQB;\n"
+     "        const unsigned use = (nq / L::NQB) & 1;\n        int* turn"),
+    ("      if (w == 0)\n        mbar_wait(&dq_empty[buf], use ^ 1);\n"
+     "      else\n        mbar_wait(&dq_half[buf], use);", ""),
+    ("      if (lane == 0) mbar_arrive(w == 0 ? &dq_half[buf] : "
+     "&dq_full[buf]);", ""))
+K3_BWD_ABLATIONS = (
+    ("kernel", (), True),
+    ("no_dq_writers", K3_BWD_NO_WRITERS, False),
+    ("no_dq", K3_BWD_NO_WRITERS + (
+        ("          wgmma_ss_tt<CW>(\n", "          if (kc < 0) "
+         "wgmma_ss_tt<CW>(\n"),), False),
+    ("no_exp", (("              s[e] = fast_exp2(fmaf(s[e], sl2, -nl));",
+                 "              s[e] = fmaf(s[e], sl2, -nl);"),), False),
+    ("no_turns", (("named_sync(1 + w, 256);", ";"),
+                  ("named_arrive(2 - w, 256);", ";"),
+                  ("if (w == 1) named_arrive(1, 256);", ";"),
+                  ("if (w == 0) named_sync(1, 256);", ";")), True),
+)
+
+
+def k3_bwd_ablations_main() -> int:
+    """``--k3-bwd-ablations``: K3's bf16 backward and edited copies of it
+    (``K3_BWD_ABLATIONS``), built as ``--k3-ablations`` builds its, called
+    through ``flash_attention_backward_bf16`` with the wrapper's scratch
+    (``ops.bwd_bf16_scratch``) and timed (``timed``) at the bf16 training
+    shapes of ``time_bf16_backwards``; one JSON line of ms and, for
+    variants that still compute the function, the largest gap to
+    ``attention_bwd_ref`` in bf16 ulps of each gradient's largest
+    entry."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    dev = torch.device("cuda", 0)
+    fns = build_ablations(K3_BWD_ABLATIONS, "bwd_ablations",
+                          "flash_attention_backward_bf16", 15, 8)
+    rng = np.random.default_rng(37)
+    dq_h, dk_h, dwin = DANUBE_ATTENTION
+    shapes = {"smollm-135m": (4, 512, 512, 9, 3, 64, True, None),
+              "h2o-danube-3-4b": (4, 512, 512, dq_h, dk_h, 120, True, dwin),
+              "whisper_encoder": (4, WHISPER_FRAMES, WHISPER_FRAMES, 20, 20,
+                                  64, False, None),
+              "whisper_cross": (4, 512, WHISPER_FRAMES, 20, 20, 64, False,
+                                None)}
+    res = {}
+    for label, (b, s, t, h, g, d, causal, win) in shapes.items():
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).bfloat16() for shape in (
+                (b, s, h, d), (b, t, g, d), (b, t, g, d), (b, s, h, d)))
+        kp = torch.arange(t, dtype=torch.int32, device=dev)
+        pos = dict(q_pos=kp[t - s:], k_pos=kp, causal=causal, window=win)
+        out, lse = ops._prefill(q, k, v, **pos)
+        n = ops.bwd_bf16_scratch(b, s, t, h, g, d)
+        scratch = {key: torch.empty(max(size, 1), dtype=torch.int32
+                                    if key == "ws" else torch.float32,
+                                    device=dev) for key, size in n.items()}
+        grads = [torch.empty_like(x) for x in (q, k, v)]
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), pos["q_pos"].data_ptr(),
+                kp.data_ptr(), scratch["delta"].data_ptr(),
+                scratch["ws"].data_ptr(), scratch["dq_acc"].data_ptr(),
+                scratch["dkv_acc"].data_ptr() if n["dkv_acc"] else 0,
+                *(x.data_ptr() for x in grads), b, s, t, h, g, d,
+                int(causal), win or 0)
+        exp = attention_bwd_ref(q, k, v, out, dout, lse, **pos)
+        res[label] = {}
+        for name, _, exact in K3_BWD_ABLATIONS:
+            def call(fn=fns[name], args=args):
+                _lib.check(fn(*args, torch.cuda.current_stream(dev)
+                              .cuda_stream), "flash_attention_backward_bf16")
+            res[label][name] = {"ms": timed(call, 10)["ms"]}
+            if exact:
+                call()
+                res[label][name]["max_ulps"] = max(
+                    bf16_grad_ulps(gr, e) for gr, e in zip(grads, exp))
+    emit({"phase": "k3_bwd_ablations", "nvidia_smi": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip(), "ms": res})
+    return 0
+
 # ---------------------------------------------------------------------------
 # bf16 training: K3's and K4's bf16 backwards, the bf16 train runs and pins
 # ---------------------------------------------------------------------------
@@ -4027,8 +4138,13 @@ def attention_bwd_bf16_cases(dev):
     """:func:`attention_bwd_cases` in bf16 (causal, windowed, non-causal
     with S != T; GQA 1, 3, 4 and 6; head dims 16 to 128; whisper's encoder
     and cross-attention), then head dims 8 (GQA 8) and 24 (off their
-    tiles) and h2o-danube-3-4b's training shape (head dim 120, GQA 4, its
-    4,096 window)."""
+    tiles), h2o-danube-3-4b's training shape (head dim 120, GQA 4, its
+    4,096 window), and the edges of the kernel's ordered adds: a window of
+    16 at S = T = 300 (most query tiles meet one key tile), slots 100..299
+    empty (-1) under a window of 64 (key tile 1 holds no live key, query
+    tile 3 meets no key tile, the rows at 164..299 see no live key), GQA 8
+    at T = 2,048 (a chain of 16 key tiles and 8 heads), and B = 1 with a
+    single key tile."""
     import torch
     cases = [(label, *(x.bfloat16() for x in (q, k, v, dout)), qp, kp,
               causal, win)
@@ -4036,34 +4152,47 @@ def attention_bwd_bf16_cases(dev):
              in attention_bwd_cases(dev)]
     rng = np.random.default_rng(31)
     dq, dk, dwin = DANUBE_ATTENTION
-    for label, b, s, t, hq, hk, d, causal, win in (
-            ("head dim 8, GQA 8:1", 2, 100, 100, 8, 1, 8, True, None),
+    holes = torch.arange(512, dtype=torch.int32, device=dev)
+    holes[100:300] = -1
+    for label, b, s, t, hq, hk, d, causal, win, k_pos in (
+            ("head dim 8, GQA 8:1", 2, 100, 100, 8, 1, 8, True, None, None),
             ("head dim 24, GQA 3:1, window 50", 1, 150, 150, 6, 2, 24, True,
-             50),
+             50, None),
             (f"h2o-danube-3-4b train [4,512,{dq},120], window {dwin}", 4,
-             512, 512, dq, dk, 120, True, dwin)):
+             512, 512, dq, dk, 120, True, dwin, None),
+            ("window 16 at S = T = 300, GQA 2:1", 2, 300, 300, 4, 2, 64,
+             True, 16, None),
+            ("slots 100..299 empty, window 64, GQA 4:1", 2, 512, 512, 4, 1,
+             32, True, 64, holes),
+            ("GQA 8:1 at T = 2,048", 1, 2048, 2048, 8, 1, 64, True, None,
+             None),
+            ("B = 1, one key tile, non-causal", 1, 100, 120, 3, 1, 16,
+             False, None, None)):
         q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dev).bfloat16() for shape in (
                 (b, s, hq, d), (b, t, hk, d), (b, t, hk, d), (b, s, hq, d)))
         cases.append((label, q, k, v, dout,
                       torch.arange(t - s, t, dtype=torch.int32, device=dev),
-                      torch.arange(t, dtype=torch.int32, device=dev), causal,
-                      win))
+                      torch.arange(t, dtype=torch.int32, device=dev)
+                      if k_pos is None else k_pos, causal, win))
     return cases
 
 
 def check_attention_bwd_bf16(dev, lib):
     """K3's bf16 backward through ``FlashAttention`` (the bf16 prefill with
     its log-sum-exp, then ``flash_attention_backward_bf16``) against its
-    plain mirror ``attention_bwd_ref`` in bf16 on the forward's own out and
-    lse, within ``BF16_BWD_ULPS``; the prefill with the log-sum-exp writes
-    what it writes without, bit for bit; two runs bit-identical; the bf16
-    launches counted, the f32 ones not."""
+    plain mirror ``attention_bwd_ref`` in bf16 and the mirror of its order
+    of sums ``attention_bwd_tiled_ref``, on the forward's own out and lse,
+    within ``BF16_BWD_ULPS``; dq of rows with no live key and dk, dv of
+    keys with no live query exactly 0; the prefill with the log-sum-exp
+    writes what it writes without, bit for bit; two runs bit-identical;
+    the bf16 launches counted, the f32 ones not."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
-                                                         attention_lse_ref)
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_bwd_tiled_ref, attention_lse_ref,
+        live_mask)
     out, worst_ulps, worst = [], 0.0, 0.0
     for label, q, k, v, dout, qp, kp, causal, win in \
             attention_bwd_bf16_cases(dev):
@@ -4090,19 +4219,36 @@ def check_attention_bwd_bf16(dev, lib):
                 == before["flash_attention_bwd"],
                 f"{label}: the gradient did not go through the bf16 kernels")
         exp = attention_bwd_ref(q, k, v, o, dout, lse, **pos)
+        tiled = attention_bwd_tiled_ref(q, k, v, o, dout, lse, **pos)
         ulps = {name: bf16_grad_ulps(g, e)
                 for name, g, e in zip(("dq", "dk", "dv"), grads[0], exp)}
+        ulps_tiled = {name: bf16_grad_ulps(g, e) for name, g, e
+                      in zip(("dq", "dk", "dv"), grads[0], tiled)}
         err = max(float((g.float() - e.float()).abs().max())
                   for g, e in zip(grads[0], exp))
         same = all(torch.equal(a, b) for a, b in zip(*grads))
-        worst_ulps, worst = max(worst_ulps, *ulps.values()), max(worst, err)
+        mask = live_mask(qp, kp, causal, win).expand(len(qp), len(kp))
+        dead_rows, dead_keys = ~mask.any(1), ~mask.any(0)
+        zeros = bool((grads[0][0][:, dead_rows] == 0).all()
+                     and (grads[0][1][:, dead_keys] == 0).all()
+                     and (grads[0][2][:, dead_keys] == 0).all())
+        worst_ulps, worst = max(worst_ulps, *ulps.values(),
+                                *ulps_tiled.values()), max(worst, err)
         out.append({"case": label, "shape_q": list(q.shape),
                     "shape_kv": list(k.shape), "window": win,
-                    "ulps": ulps, "lse_max_abs_err": lse_err,
+                    "ulps": ulps, "ulps_vs_tiled": ulps_tiled,
+                    "dead_rows": int(dead_rows.sum()),
+                    "dead_keys": int(dead_keys.sum()),
+                    "dead_exactly_zero": zeros,
+                    "lse_max_abs_err": lse_err,
                     "two_runs_bit_identical": same})
         require(all(g.dtype == torch.bfloat16 for g in grads[0])
-                and max(ulps.values()) <= BF16_BWD_ULPS,
-                f"K3 bf16 backward vs plain, {label}: {ulps}")
+                and max(ulps.values()) <= BF16_BWD_ULPS
+                and max(ulps_tiled.values()) <= BF16_BWD_ULPS,
+                f"K3 bf16 backward vs plain, {label}: {ulps}, tiled "
+                f"{ulps_tiled}")
+        require(zeros, f"K3 bf16 backward, {label}: a dead row or key is "
+                "not 0")
         require(same, f"K3 bf16 backward, {label}: two runs differ")
     return out, worst_ulps, worst
 
@@ -4383,7 +4529,9 @@ def time_bf16_backwards(dev) -> dict:
     """K3's bf16 backward at the bf16 training shapes (smollm-135m's q
     [4,512,9,64], h2o-danube-3-4b's [4,512,32,120] with its window,
     whisper-large-v3's encoder and cross-attention) beside its plain
-    mirror and SDPA's bf16 backward through autograd, and K4's at
+    mirror and SDPA's bf16 backward through autograd, two kernels a call
+    (D, then the main kernel; None where the profiler recorded none), and
+    K4's at
     mamba2-1.3b's x [4,512,64,64] beside its mirror and autograd through
     the plain scan (:func:`time_attention_bwd`, :func:`time_ssd_bwd` in
     bf16)."""
@@ -4399,6 +4547,10 @@ def time_bf16_backwards(dev) -> dict:
               dtype=bf),
           "whisper_cross": time_attention_bwd(
               dev, 10, 4, 512, WHISPER_FRAMES, 20, 20, 64, False, dtype=bf)}
+    for key, t in k3.items():  # D, then the main kernel
+        require(t["kernels_per_call"] in (2, None),
+                f"K3 bf16 backward {key}: {t['kernels_per_call']} kernels "
+                "a call")
     return k3, time_ssd_bwd(dev, reps=10, bf16=True)
 
 
@@ -4932,7 +5084,7 @@ def main() -> int:
                      "torch)",
          "library_is": "SDPA's bf16 backward through autograd",
          "shape": "smollm-135m train, q [4,512,9,64], kv [4,512,3,64], "
-                  "causal, bf16, one layer (four kernels a call)"},
+                  "causal, bf16, one layer (two kernels a call)"},
         {"name": "ssd_scan_bf16_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "none: the reference differentiates ssd_chunked "
@@ -4975,4 +5127,6 @@ if __name__ == "__main__":
         sys.exit(compare_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--k3-ablations"]:
         sys.exit(k3_ablations_main())
+    if sys.argv[1:2] == ["--k3-bwd-ablations"]:
+        sys.exit(k3_bwd_ablations_main())
     sys.exit(main())

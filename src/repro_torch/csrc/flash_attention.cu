@@ -71,7 +71,8 @@
 // the bf16 inputs, the unnormalised P = exp(s - m) rounded to bf16 before
 // P.V, the row sums and the accumulator in f32, one rounding of the
 // normalised result to bf16.  Its backward (flash_attention_backward_bf16,
-// below the decode) runs the f32 backward's launches on bf16 operands.
+// below the decode) is a Hopper kernel of its own: one launch over key
+// tiles after the D launch.
 //
 // Prefill bf16, on Hopper (flash_prefill_bf16_hopper_kernel): bound by
 // bytes or by tensor-core operations at the serving shapes (yi-34b's
@@ -129,6 +130,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -657,24 +660,74 @@ __global__ void __launch_bounds__(DT) flash_decode_combine_kernel(
 // loads along D fall on distinct banks (those along the streamed rows, two
 // to a bank).
 
-// An f32 or bf16 value as f32, and an f32 result stored in either type
-// (bf16 rounded to nearest even).
+// An f32 or bf16 value as f32, and an f32 result stored.
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+
+#define BKT 128  // bf16 backward: keys per block (two warpgroups of 64)
+#define BQT 64   // bf16 backward: query rows per streamed tile
 
 // One warp per row ((b * S + i) * Hq + h): delta[(b * Hq + h) * S + i], the
 // row's dO . O summed in f32 (out and dout f32, or bf16 for the bf16
-// backward).
+// backward).  The bf16 instance also readies the bf16 backward's integer
+// scratch ws (null for f32): its first n_zero ints (the ticket and every
+// turn counter) set to 0, then the position range of each query tile of
+// BQT rows (lo[I], hi[I]) and of the live keys of each key tile of BKT
+// (lo[J], hi[J]: INT_MAX, INT_MIN for a tile with none; full[J]: every key
+// of the tile inside T and live).
 template <class T>
 __global__ void __launch_bounds__(DT) flash_bwd_dot_kernel(
     const T* __restrict__ out, const T* __restrict__ dout,
-    float* __restrict__ delta, int rows, int S, int Hq, int D) {
+    float* __restrict__ delta, int rows, int S, int Hq, int D,
+    int* __restrict__ ws, int n_zero, const int* __restrict__ q_pos,
+    const int* __restrict__ k_pos, int n_keys) {
+  if constexpr (!std::is_same<T, float>::value) {
+    for (int e = blockIdx.x * DT + threadIdx.x; e < n_zero;
+         e += gridDim.x * DT)
+      ws[e] = 0;
+    const int I = (S + BQT - 1) / BQT, J = (n_keys + BKT - 1) / BKT;
+    int* ranges = ws + n_zero;  // q lo, q hi, k lo, k hi, k full
+    const int ln = threadIdx.x & 31;
+    for (int it = blockIdx.x * (DT / 32) + (threadIdx.x >> 5); it < I + J;
+         it += gridDim.x * (DT / 32)) {
+      int lo = INT_MAX, hi = INT_MIN;
+      bool full = true;
+      if (it < I) {
+        for (int r = BQT * it + ln; r < min(S, BQT * it + BQT); r += 32) {
+          lo = min(lo, q_pos[r]);
+          hi = max(hi, q_pos[r]);
+        }
+      } else {
+        for (int t = BKT * (it - I) + ln; t < BKT * (it - I + 1); t += 32) {
+          const int kp = t < n_keys ? k_pos[t] : -1;
+          if (kp >= 0) {
+            lo = min(lo, kp);
+            hi = max(hi, kp);
+          } else {
+            full = false;
+          }
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        lo = min(lo, __shfl_xor_sync(FULL, lo, off));
+        hi = max(hi, __shfl_xor_sync(FULL, hi, off));
+      }
+      full = __all_sync(FULL, full);
+      if (ln == 0) {
+        if (it < I) {
+          ranges[it] = lo;
+          ranges[I + it] = hi;
+        } else {
+          ranges[2 * I + it - I] = lo;
+          ranges[2 * I + J + it - I] = hi;
+          ranges[2 * I + 2 * J + it - I] = full;
+        }
+      }
+    }
+  }
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (DT / 32) + (threadIdx.x >> 5);
   if (row >= rows) return;
@@ -977,7 +1030,8 @@ __global__ void __launch_bounds__(PT) flash_bwd_dkdv_kernel(
 
 // dk/dv [B,T,Hkv,D] from the query heads' f32 shares [B,T,Hq,D]: the G
 // shares of each KV head added in head order, one thread per output,
-// stored in T (f32, or bf16 rounded once).
+// stored in T (the f32 backward's; the bf16 backward adds its group's
+// shares in its own kernel).
 template <class T>
 __global__ void __launch_bounds__(DT) flash_bwd_group_sum_kernel(
     const float* __restrict__ part_k, const float* __restrict__ part_v,
@@ -2193,449 +2247,815 @@ __global__ void __launch_bounds__(DT) flash_decode_bf16_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 backward: the f32 backward's structure on bf16 operands, mma.sync
-// m16n8k16
+// bf16 backward on Hopper: one launch over key tiles, wgmma from a TMA ring
 // ---------------------------------------------------------------------------
 //
 // The backward of the bf16 prefill, for bf16 training: q, k, v, the
 // forward's out and dout in bf16, its lse and D in f32; dq, dk, dv in bf16.
 // No TPU twin (the reference differentiates XLA attention,
-// src/repro/models/layers.py:225, by jax.grad).  The same four launches as
-// the f32 backward (its D and group-sum kernels, instantiated for bf16):
-// D = rowsum(dO o O) in f32, one warp a row; dK/dV, a
-// block per (batch, query head, key tile of 64) over the query tiles of 32
-// that hold a live pair, in index order; with grouped heads the group's
-// shares (f32) added in head order; dQ, a block per (batch, query head,
-// query tile of 64) over the key tiles of 32.  No atomics: two runs are
-// bit-identical.
+// src/repro/models/layers.py:225, by jax.grad).  Two launches: D =
+// rowsum(dO o O) in f32, one warp a row (flash_bwd_dot_kernel<bf16>, which
+// also zeroes the scratch's ticket and turn counters and writes each
+// tile's position range), then flash_bwd_bf16_hopper_kernel.
 //
 // What bounds it: 10 * D operations per live pair on bf16 tensor cores
 // (989 TFLOP/s) or the bytes of q, k, v, out, dout and the gradients read
 // or written once, whichever is larger: bytes at smollm-135m's and
 // h2o-danube-3-4b's training shapes, operations at whisper-large-v3's
-// 1,500 frames.  Every product is mma.sync m16n8k16 with bf16 operands and f32
-// accumulators (no TF32 split): S and dP from the inputs as they are, dV
-// from P rounded to bf16, dK and dQ from dS rounded to bf16 (P and dS are
-// formed in f32 from the f32 accumulators).  Tiles live in shared memory
-// as bf16 rows of DP + 8 values (16-byte rows for ldmatrix, no bank
-// conflict), fed by a 3-stage cp.async ring; the operands come by
-// ldmatrix (.trans where the product walks a tile's rows).  A warp owns 16
-// rows of M; S^T (or S) and dP^T (or dP) stay in the accumulator
-// registers, and P and dS go from there to the next product's A operand
-// without shared memory: the accumulator layout of two n-blocks of 8 is
-// the A layout of one k-step of 16.  Each result is rounded to bf16 once;
-// dK and dV after the group's sum.
+// 1,500 frames.  The kernel's answer to both: each product once (S^T, dP^T,
+// dV, dK and dQ: five per live pair, none recomputed), K and V read once
+// per (key tile, query head), Q and dO streamed by TMA, every product on
+// wgmma.  What holds it (PERF.md): shared-memory traffic and the writers'
+// turns, about a third of the time at whisper-large-v3's encoder shape.
+//
+// A block owns one key tile of BKT = 128 keys of one query head of one
+// batch, three warpgroups: warpgroups 0 and 1 take 64 keys each and
+// compute, taking turns to issue their products (named barriers, as the
+// prefill's), so that one's elementwise work runs while the other's
+// products do; warp 8 is the producer; warps 9-11 add dQ (setmaxnreg
+// moves registers from warpgroup 2 to the consumers: 56 and 224 at tile
+// widths up to 64, 40 and 232 at 128, of the block's 384 x 168 at
+// launch).  The producer
+// loads K and V once by TMA (kept in shared memory), then walks the query
+// tiles of BQT = 64 rows that meet the key tile (from the tiles' position
+// ranges; the others are never loaded) and streams each one's Q and dO by
+// TMA, with its rows' lse, D and positions, into a ring of 2 or 3 stages
+// with full and empty mbarriers.  A consumer warpgroup runs
+//   S^T = K.Q^T and dP^T = V.dO^T   wgmma m64n64k16: at tile widths up
+//                                    to 64 with the warpgroup's K and V
+//                                    held in registers for the whole walk
+//                                    (the A operand, by ldmatrix once),
+//                                    at 128 both from shared memory; Q and
+//                                    dO K-major
+//   P^T = exp(S^T scale - lse), dS^T = P^T o (dP^T - D)
+//                                    in f32 on the accumulator registers,
+//                                    without branches (a masked pair's
+//                                    exponent is -inf; no masks at all
+//                                    where the tiles' ranges leave every
+//                                    pair live; exp2 by ex2.approx)
+//   dV += P^T.dO, dK += dS^T.Q       P^T, dS^T rounded to bf16 into the
+//                                    register A operand; dO, Q MN-major
+//   dQ_w = dS_w.K_w                  dS^T staged in shared memory (bf16,
+//                                    128-byte swizzle), read as a
+//                                    transposed A, K MN-major
+// Warpgroup 0 writes its dQ share of the query tile to shared memory in
+// f32 and warpgroup 1 adds its own (keys 0-63, then 64-127); a writer
+// warp copies the sums so far in (cp.async) once it is the block's turn,
+// adds the share and stores the sums to dq_acc (f32), or, for the last
+// key tile, rounds dq once, dq = bf16(scale * sum), then hands the turn
+// on.  Three staging buffers and three writer warps taking the query
+// tiles in turns, so that the consumers go on to the next query tiles
+// while a writer waits for its turn or its fence (at tile width 128,
+// whose steps are long enough, one buffer, and the three warps split each
+// tile).  dK and dV stay in registers over the whole walk; with one
+// query head a KV head they are rounded and written, with more the group's
+// heads add their f32 shares (dK scaled) into dk_acc / dv_acc in head
+// order and the last head rounds dk and dv once.
+//
+// Turns.  Each (batch, query head, query tile) has a counter in ws: the
+// block whose key tile is the j-th of those that meet the query tile
+// (in key-tile order) waits until it reads j (ld.acquire.gpu), stores its
+// share (j = 0) or adds it, and then sets it to j + 1 (fence.acq_rel.gpu,
+// then a store); the last one writes dq instead.  Each (batch, KV head,
+// key tile) has one for the group's heads the same way.  The only atomic
+// is on an int: each block takes a ticket (atomicAdd) when it starts and
+// maps it to its work item, in the order (key tile, batch, KV head, head
+// of the group), so key tile j - 1 of a head comes before key tile j (a
+// wave or so before it: its shares are mostly in when they are wanted)
+// and head r - 1 of a group before head r.  Why this cannot deadlock: every
+// wait is on a block with a smaller ticket, and a block that holds a
+// ticket is running or done (it took the ticket when it started), so by
+// induction on the ticket every block that waits is waited for by none
+// that has not started, and every wait ends.  Every float sum has a fixed
+// order (the j-th share after the (j-1)-th, head r after head r - 1), so
+// two runs are bit-identical.  A query tile that meets no key tile gets dq
+// = 0 from the writers of its head's key tile 0; rows and keys with no
+// live pair get 0 through their zero shares.  The D launch zeroes the
+// ticket and the counters (dq_acc, dk_acc, dv_acc need no zeroing: the
+// first share is stored).
 
+#define BTHREADS 384  // consumer warpgroups 0, 1; warpgroup 2 produces, adds
+
+// Shared memory of the bf16 backward at tile width DP: K and V [BKT][DP];
+// STAGES of Q and dO [BQT][DP]; dS^T of either warpgroup [64][BQT]; two f32
+// dQ shares [BQT][DP + 8]; each stage's lse, D and positions [BQT]; each
+// stage's query tile and class; the work item; the barriers.  K, V, Q and
+// dO are DP / CW column slabs of CW = min(DP, 64) values as TMA writes them
+// (rows of SPAN = 2 CW bytes, swizzled on SPAN bytes, 1,024-byte aligned);
+// dS^T is rows of 64 bf16, swizzled on 128 bytes.
 template <int DP>
-struct BwdTileBf16 {
-  static constexpr int ST = DP + 8;          // bf16 row stride of every tile
-  static constexpr int STAGE = 2 * BC * ST;  // bf16: two streamed tiles
-  // dK/dV: K, V [BK][ST]; the ring of Q, dO [BC][ST]; each stage's lse,
-  // delta, q_pos [BC]; then a byte a query tile
-  static constexpr size_t KV_SMEM = sizeof(bf16) *
-                                        (2 * BK * ST + BSTAGES * STAGE) +
-                                    sizeof(float) * BSTAGES * 3 * BC;
-  // dQ: Q, dO [BQ][ST]; the ring of K, V [BC][ST]; each stage's k_pos
-  // [BC]; then a byte a key tile
-  static constexpr size_t Q_SMEM = sizeof(bf16) *
-                                       (2 * BQ * ST + BSTAGES * STAGE) +
-                                   sizeof(int) * BSTAGES * BC;
+struct BTile {
+  static constexpr int STAGES = DP < 128 ? 3 : 2;  // query tiles in flight
+  static constexpr int CW = DP < 64 ? DP : 64;
+  static constexpr int SPAN = 2 * CW;
+  static constexpr int NS = DP / CW;
+  static constexpr unsigned SWZ = SPAN == 128 ? 1 : SPAN == 64 ? 2 : 3;
+  static constexpr int KV_BYTES = BKT * DP * 2;
+  static constexpr int QD_BYTES = BQT * DP * 2;
+  static constexpr int DS_BYTES = 64 * BQT * 2;
+  static constexpr int DQS = DP + 8;  // f32 row stride of a dQ share
+  static constexpr int DQ_BYTES = BQT * DQS * 4;
+  // dQ shares in flight, one a writer warp: three, but one at DP = 128
+  // (no room; its longer steps cover the writers' turn)
+  static constexpr int NQB = DP < 128 ? 3 : 1;
+  static constexpr int RING_OFF = 2 * KV_BYTES;
+  static constexpr int DS_OFF = RING_OFF + STAGES * 2 * QD_BYTES;
+  static constexpr int DQ_OFF = DS_OFF + 2 * DS_BYTES;
+  static constexpr int ACC_OFF = DQ_OFF + NQB * DQ_BYTES;  // the sums so far
+  static constexpr int ROWS_OFF = ACC_OFF + NQB * DQ_BYTES;
+  static constexpr int META_OFF = ROWS_OFF + STAGES * 3 * BQT * 4;
+  static constexpr int BAR_OFF = META_OFF + 16 * STAGES + 16;
+  // kv_full, full[STAGES], empty[STAGES], dq_half[3], dq_full[3],
+  // dq_empty[3]
+  static constexpr int NBAR = 1 + 2 * STAGES + 9;
+  static constexpr size_t SMEM = BAR_OFF + 8 * NBAR + 1024;
 };
 
-// A fragments of one k-step of 16 from the accumulators of two n-blocks of
-// 8 (x[n][e]: row g + 8 (e >> 1), column 8n + 2 t4 + (e & 1)), rounded to
-// bf16.
-__device__ __forceinline__ void acc_to_a(unsigned* a, const float* x0,
-                                         const float* x1) {
-  a[0] = pack_bf16(x0[0], x0[1]);
-  a[1] = pack_bf16(x0[2], x0[3]);
-  a[2] = pack_bf16(x1[0], x1[1]);
-  a[3] = pack_bf16(x1[2], x1[3]);
+#define WG_D8(C, d) \
+  C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7])
+#define WG_D16(C, d) WG_D8(C, d), WG_D8(C, (d + 8))
+#define WG_D32(C, d) WG_D16(C, d), WG_D16(C, (d + 16))
+
+// d (+)= A.B for A [64 x 16] and B [16 x 64], both bf16 in shared memory,
+// K-major; ACC false writes d only (scale-d 0).
+template <bool ACC>
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db) {
+  if constexpr (ACC)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_D32("+f", d)
+        : "l"(da), "l"(db), "r"(1));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_D32("=f", d)
+        : "l"(da), "l"(db), "r"(0));
 }
 
-// The A fragment of rows 0..15, columns k0..k0+15 of a bf16 tile (row
-// stride st), and B fragments for the n-blocks of rows n0..n0+7 and
-// n0+8..n0+15 of a tile whose rows are the product's n (B = X^T), or of
-// columns n0.. of a tile whose rows are the product's k (B = X, .trans).
-__device__ __forceinline__ void ld_a(unsigned* a, const bf16* x, int st,
-                                     int k0, int lane) {
-  ldsm_x4(a, x + (lane & 15) * st + k0 + (lane >> 4) * 8);
-}
-__device__ __forceinline__ void ld_b_t(unsigned* b, const bf16* x, int st,
-                                       int n0, int k0, int lane) {
-  ldsm_x4(b, x + (n0 + (lane & 7) + ((lane >> 4) << 3)) * st + k0 +
-                 ((lane >> 3) & 1) * 8);
-}
-__device__ __forceinline__ void ld_b(unsigned* b, const bf16* x, int st,
-                                     int k0, int n0, int lane) {
-  ldsm_x4_trans(b, x + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * st + n0 +
-                       (lane >> 4) * 8);
+// d (+)= A.B for A [64 x 16] and B [16 x CW], both bf16 in shared memory
+// and MN-major (both transposed: A's 64 rows and B's CW columns run along
+// the rows of 128 and 2 CW bytes); acc 0 writes d only.
+template <int CW>
+__device__ __forceinline__ void wgmma_ss_tt(float* d, uint64_t da,
+                                            uint64_t db, int acc) {
+  if constexpr (CW == 64)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+        : WG_D32("+f", d)
+        : "l"(da), "l"(db), "r"(acc));
+  else if constexpr (CW == 32)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+        : WG_D16("+f", d)
+        : "l"(da), "l"(db), "r"(acc));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+        : WG_D8("+f", d)
+        : "l"(da), "l"(db), "r"(acc));
 }
 
-// dK and dV of key tile blockIdx.y from query head blockIdx.x % Hq of
-// batch blockIdx.x / Hq, over the query tiles in index order, as
-// flash_bwd_dkdv_kernel: with one query head per KV head the block writes
-// dk/dv [B,T,Hkv,D] in bf16; with more, its head's f32 share to
-// part_k/part_v [B,T,Hq,D].  Warp w owns keys 16w..16w+15 of the tile.
+// d (+)= A.B for A [64 x 16] bf16 in registers (the m16n8k16 A layout of
+// each warp's 16 rows) and B [16 x 64] bf16 in shared memory, K-major;
+// ACC false writes d only.
+template <bool ACC>
+__device__ __forceinline__ void wgmma_rs_n64_k(float* d, const unsigned* a,
+                                               uint64_t db) {
+  if constexpr (ACC)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : WG_D32("+f", d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : WG_D32("=f", d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Wait until *turn reads `want` (the blocks before have added their
+// shares); traps after about 10 s of clock, as mbar_wait.
+__device__ __forceinline__ void wait_turn(const int* turn, int want) {
+  long long start = 0;
+  while (ld_acquire(turn) != want) {
+    if (start == 0)
+      start = clock64();
+    else if (clock64() - start > 20000000000LL)
+      __trap();
+  }
+}
+
+// Hand the turn on: the threads that stored the shares have met the caller
+// at a barrier (or an mbarrier); the fence orders those stores before the
+// new value (the pattern of CUTLASS's semaphore).
+__device__ __forceinline__ void pass_turn(int* turn, int next) {
+  asm volatile(
+      "fence.acq_rel.gpu;\n"
+      "st.relaxed.gpu.global.b32 [%0], %1;\n" ::"l"(turn),
+      "r"(next)
+      : "memory");
+}
+
+// Whether query tile (positions q_lo..q_hi) and key tile (live keys' range
+// k_lo..k_hi) may hold a live pair: one test, from the ranges the D launch
+// wrote, in every role of every block, so that all agree on which tiles
+// meet.  And whether every pair is live (every key of the tile inside T
+// and live, and the masks leave the whole rectangle).
+__device__ __forceinline__ bool tiles_meet(int q_lo, int q_hi, int k_lo,
+                                           int k_hi, int causal,
+                                           int window) {
+  return k_lo <= k_hi && (!causal || k_lo <= q_hi) &&
+         (window <= 0 || k_hi > q_lo - window);
+}
+
+__device__ __forceinline__ bool tiles_all_live(int q_lo, int q_hi, int k_lo,
+                                               int k_hi, int k_full,
+                                               int causal, int window) {
+  return k_full && (!causal || k_hi <= q_lo) &&
+         (window <= 0 || k_lo > q_hi - window);
+}
+
 template <int DP>
-__global__ void __launch_bounds__(PT) flash_bwd_dkdv_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-    float* __restrict__ part_k, float* __restrict__ part_v,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int T, int Hq,
-    int Hkv, int D, int causal, int window, float scale) {
-  using L = BwdTileBf16<DP>;
-  constexpr int ST = L::ST;
-  extern __shared__ __align__(16) unsigned char smem_kv[];
-  bf16* k_sh = reinterpret_cast<bf16*>(smem_kv);  // [BK][ST]
-  bf16* v_sh = k_sh + BK * ST;                    // [BK][ST]
-  bf16* ring = v_sh + BK * ST;                    // stages of Q, dO [BC][ST]
-  float* rows = reinterpret_cast<float*>(ring + BSTAGES * L::STAGE);
-  unsigned char* live_tile =
-      reinterpret_cast<unsigned char*>(rows + BSTAGES * 3 * BC);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
-  const int hk = h / (Hq / Hkv);
-  const int t0 = blockIdx.y * BK, nk = min(BK, T - t0);
-  const int c0 = 16 * warp + g;  // this lane's keys c0 and c0 + 8
-  const int kp[2] = {c0 < nk ? k_pos[t0 + c0] : -1,
-                     c0 + 8 < nk ? k_pos[t0 + c0 + 8] : -1};
+__global__ void __launch_bounds__(BTHREADS, 1) flash_bwd_bf16_hopper_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ q_pos,
+    const int* __restrict__ k_pos, int* __restrict__ ws, int n_zero,
+    float* __restrict__ dq_acc, float* __restrict__ dk_acc,
+    float* __restrict__ dv_acc, bf16* __restrict__ dq, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int B, int S, int T, int Hq, int Hkv, int D,
+    int causal, int window, float scale) {
+  using L = BTile<DP>;
+  constexpr int CW = L::CW, SPAN = L::SPAN, NS = L::NS;
+  extern __shared__ __align__(1024) unsigned char bsmem[];
+  unsigned char* sm =
+      bsmem + ((1024u - (smem_addr(bsmem) & 1023u)) & 1023u);
+  unsigned char* k_sh = sm;
+  unsigned char* v_sh = sm + L::KV_BYTES;
+  unsigned char* ring = sm + L::RING_OFF;  // stage: Q, then dO
+  unsigned char* ds_sh = sm + L::DS_OFF;   // [2][64][BQT] bf16
+  float* dq_sh = reinterpret_cast<float*>(sm + L::DQ_OFF);  // [NQB][BQT][DQS]
+  float* acc_sh = reinterpret_cast<float*>(sm + L::ACC_OFF);  // [NQB][BQT][DQS]
+  float* rows_sh = reinterpret_cast<float*>(sm + L::ROWS_OFF);
+  int* meta = reinterpret_cast<int*>(sm + L::META_OFF);  // [STAGES][4]
+  int* work_sh = meta + 4 * L::STAGES;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::BAR_OFF);
+  uint64_t* full = kv_full + 1;          // [STAGES]: a query tile landed
+  uint64_t* empty = full + L::STAGES;    // [STAGES]: 8 consumer warps done
+  uint64_t* dq_half = empty + L::STAGES;  // [3]: warpgroup 0's share written
+  uint64_t* dq_full = dq_half + 3;        // [3]: the tile's share written
+  uint64_t* dq_empty = dq_full + 3;       // [3]: the writers are done with it
 
-  // which query tiles hold a live pair with the block's keys
-  {
-    const int ka = lane < nk ? k_pos[t0 + lane] : -1;
-    const int kb = lane + 32 < nk ? k_pos[t0 + lane + 32] : -1;
-#pragma unroll 4
-    for (int j = warp; j * BC < S; j += PT / 32) {
-      const int i = j * BC + lane;
-      int lo = i < S ? q_pos[i] : INT_MAX, hi = i < S ? q_pos[i] : INT_MIN;
-      for (int off = 16; off > 0; off >>= 1) {
-        lo = min(lo, __shfl_xor_sync(FULL, lo, off));
-        hi = max(hi, __shfl_xor_sync(FULL, hi, off));
-      }
-      const unsigned any =
-          __ballot_sync(FULL, maybe_live(ka, lo, hi, causal, window) ||
-                                  maybe_live(kb, lo, hi, causal, window));
-      if (lane == 0) live_tile[j] = any != 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int I = (S + BQT - 1) / BQT, J = (T + BKT - 1) / BKT;
+  const int G = Hq / Hkv;
+  const int* qlo = ws + n_zero;
+  const int* qhi = qlo + I;
+  const int* klo = qhi + I;
+  const int* khi = klo + J;
+  const int* kfull = khi + J;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
     }
+    for (int s = 0; s < 3; ++s) {
+      mbar_init(&dq_half[s], 4);
+      mbar_init(&dq_full[s], 4);
+      mbar_init(&dq_empty[s], L::NQB > 1 ? 1 : 3);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    *work_sh = atomicAdd(ws, 1);  // the ticket
   }
   __syncthreads();
-
-  auto next_live = [&](int i0) {
-    for (; i0 < S; i0 += BC)
-      if (live_tile[i0 / BC]) return i0;
-    return S;
-  };
-  auto load = [&](int i0, int stage) {
-    bf16* qd = ring + stage * L::STAGE;
-    stage_rows_bf16<DP, PT>(qd, ST, q, (size_t)b * S + i0, BC, S - i0, Hq, h,
-                            D, tid);
-    stage_rows_bf16<DP, PT>(qd + BC * ST, ST, dout, (size_t)b * S + i0, BC,
-                            S - i0, Hq, h, D, tid);
-    if (tid < BC) {  // the tile's lse, delta and positions (0 past S)
-      float* rd = rows + stage * 3 * BC;
-      const bool ok = i0 + tid < S;
-      const size_t at = ((size_t)b * Hq + h) * S + (ok ? i0 + tid : 0);
-      cp_async4(rd + tid, lse + at, ok);
-      cp_async4(rd + BC + tid, delta + at, ok);
-      cp_async4(rd + 2 * BC + tid, q_pos + (ok ? i0 + tid : 0), ok);
-    }
+  // the ticket's work item: (key tile, batch, KV head, head of the group)
+  // in that order
+  int item = *work_sh;
+  const int r = item % G;
+  item /= G;
+  const int hk = item % Hkv;
+  item /= Hkv;
+  const int b = item % B, kt = item / B;
+  const int h = hk * G + r;
+  const int t0 = kt * BKT;
+  const int my_klo = klo[kt], my_khi = khi[kt], my_kfull = kfull[kt];
+  auto meets = [&](int i) {
+    return tiles_meet(qlo[i], qhi[i], my_klo, my_khi, causal, window);
   };
 
-  stage_rows_bf16<DP, PT>(k_sh, ST, k, (size_t)b * T + t0, BK, nk, Hkv, hk,
-                          D, tid);
-  stage_rows_bf16<DP, PT>(v_sh, ST, v, (size_t)b * T + t0, BK, nk, Hkv, hk,
-                          D, tid);
-  int ld = next_live(0), cur = ld;
-#pragma unroll
-  for (int st = 0; st < BSTAGES - 1; ++st) {  // K and V go with the first
-    if (ld < S) {
-      load(ld, st);
-      ld = next_live(ld + BC);
-    }
-    cp_async_commit();
-  }
-
-  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0f;
-
-  const bf16* kw = k_sh + 16 * warp * ST;
-  const bf16* vw = v_sh + 16 * warp * ST;
-  for (int it = 0; cur < S; ++it) {
-    cp_async_wait<BSTAGES - 2>();
-    __syncthreads();  // tile `it` landed; the stage of tile it-1 is free
-    if (ld < S) {
-      load(ld, (it + BSTAGES - 1) % BSTAGES);
-      ld = next_live(ld + BC);
-    }
-    cp_async_commit();
-    const bf16* qs = ring + (it % BSTAGES) * L::STAGE;
-    const bf16* gs = qs + BC * ST;
-    const float* rs = rows + (it % BSTAGES) * 3 * BC;  // lse, delta, q_pos
-
-    // S^T and dP^T: this warp's 16 keys against the tile's 32 queries
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      unsigned ak[4], av[4];
-      ld_a(ak, kw, ST, kk, lane);
-      ld_a(av, vw, ST, kk, lane);
-#pragma unroll
-      for (int n = 0; n < 4; n += 2) {
-        unsigned qb[4], gb[4];
-        ld_b_t(qb, qs, ST, 8 * n, kk, lane);
-        ld_b_t(gb, gs, ST, 8 * n, kk, lane);
-        mma_bf16(s[n], ak, qb[0], qb[1]);
-        mma_bf16(s[n + 1], ak, qb[2], qb[3]);
-        mma_bf16(dp[n], av, gb[0], gb[1]);
-        mma_bf16(dp[n + 1], av, gb[2], gb[3]);
-      }
-    }
-    // P^T and dS^T in place: element e of block n is key c0 + 8 (e >> 1),
-    // query cur + 8n + 2 t4 + (e & 1)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e1 = 0; e1 < 2; ++e1) {
-        const int col = 8 * n + 2 * t4 + e1;
-        const bool ok = cur + col < S;
-        const int qp = __float_as_int(rs[2 * BC + col]);
-        const float m = rs[col], dl = rs[BC + col];
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int e = 2 * half + e1;
-          const bool live = ok && live_key(kp[half], qp, causal, window);
-          const float p = live ? expf(fmaf(s[n][e], scale, -m)) : 0.0f;
-          s[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - dl);
+  if (warp >= 8) {
+    if constexpr (DP <= 64)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    else
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8) {
+      // producer: K and V once, then each query tile that meets the key
+      // tile, in order; an end marker (query tile -1) closes the list
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
+        for (int s = 0; s < NS; ++s) {
+          tma_load(k_sh + s * BKT * SPAN, &tm_k, kv_full, s * CW, hk, t0, b);
+          tma_load(v_sh + s * BKT * SPAN, &tm_v, kv_full, s * CW, hk, t0, b);
         }
       }
-    // dV += P^T.dO, dK += dS^T.Q over the tile's queries, in order
+      int stage = 0;
+      unsigned phase = 0;
+      for (int i = 0;; ++i) {
+        const bool end = i >= I;
+        if (!end && !meets(i)) continue;
+        if (lane == 0) mbar_wait(&empty[stage], phase ^ 1);
+        __syncwarp();
+        if (!end) {
+          float* rs = rows_sh + stage * 3 * BQT;
+          for (int rr = lane; rr < BQT; rr += 32) {
+            const int gi = BQT * i + rr;
+            const bool ok = gi < S;
+            const size_t at = ((size_t)b * Hq + h) * S + (ok ? gi : 0);
+            // a row past S: P = exp(s - inf) = 0
+            rs[rr] = ok ? lse[at] : INFINITY;
+            rs[BQT + rr] = ok ? delta[at] : 0.0f;
+            reinterpret_cast<int*>(rs)[2 * BQT + rr] = ok ? q_pos[gi] : 0;
+          }
+        }
+        __syncwarp();
+        if (lane == 0) {
+          meta[4 * stage] = end ? -1 : i;
+          if (end) {
+            mbar_arrive(&full[stage]);
+          } else {
+            meta[4 * stage + 1] = tiles_all_live(qlo[i], qhi[i], my_klo,
+                                                 my_khi, my_kfull, causal,
+                                                 window);
+            unsigned char* qs = ring + stage * 2 * L::QD_BYTES;
+            mbar_expect_tx(&full[stage], 2 * L::QD_BYTES);
+            for (int s = 0; s < NS; ++s) {
+              tma_load(qs + s * BQT * SPAN, &tm_q, &full[stage], s * CW, h,
+                       BQT * i, b);
+              tma_load(qs + L::QD_BYTES + s * BQT * SPAN, &tm_do,
+                       &full[stage], s * CW, h, BQT * i, b);
+            }
+          }
+        }
+        __syncwarp();
+        if (end) break;
+        if (++stage == L::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    } else {
+      // The dQ share of each query tile the block meets, added in its turn
+      // (dq = 0 for the query tiles that no key tile meets, from key tile
+      // 0): the writers read the sums so far once a lane 0 has seen the
+      // turn, store the new ones and hand the turn on.  With three staging
+      // buffers, warps 9-11 take the tiles in turns, each with a copy
+      // buffer of its own (one waits for a turn or a fence while the others
+      // add); with one, they split each tile and meet at a barrier before
+      // the turn is handed on.
+      constexpr bool ALT = L::NQB > 1;
+      const int wt = tid - 9 * 32;  // 0..95
+      // its float4 of a tile: column wc, rows wr0, wr0 + RS, ...
+      constexpr int C4 = DP / 4, RS = (ALT ? 32 : 96) / C4;
+      const int wk = ALT ? lane : wt;
+      const int wc = (wk % C4) * 4, wr0 = wk / C4;
+      int nq = 0;
+      for (int i = 0; i < I; ++i) {
+        // this key tile's place among those that meet query tile i
+        int before = 0, total = 0;
+        for (int k0 = 0; k0 < J; k0 += 32) {
+          const int kk = k0 + lane;
+          const unsigned m = __ballot_sync(
+              FULL, kk < J && tiles_meet(qlo[i], qhi[i], klo[kk], khi[kk],
+                                         causal, window));
+          total += __popc(m);
+          const int below = kt - k0;
+          before += __popc(below >= 32 ? m
+                           : below <= 0 ? 0u
+                                        : m & ((1u << below) - 1u));
+        }
+        const int rows = min(BQT, S - BQT * i);
+        const size_t row0 = (size_t)b * S + BQT * i;
+        if (!meets(i)) {
+          if (kt == 0 && total == 0)
+            for (int e = wt; e < rows * (D / 8); e += 96) {
+              const int rr = e / (D / 8), c = (e % (D / 8)) * 8;
+              *reinterpret_cast<uint4*>(dq + ((row0 + rr) * Hq + h) * D +
+                                        c) = make_uint4(0, 0, 0, 0);
+            }
+          continue;
+        }
+        const int buf = nq % L::NQB;
+        const unsigned use = (nq / L::NQB) & 1;
+        int* turn = ws + 1 + ((size_t)b * Hq + h) * I + i;
+        const bool last = before == total - 1;
+        ++nq;
+        if (ALT && warp != 9 + buf) continue;  // another writer's
+        float* acc = acc_sh + (ALT ? buf : 0) * BQT * L::DQS;
+        // the turn, then the sums so far copied in (cp.async: no registers
+        // held, all in flight), then the share; the thread's float4 are
+        // rows wr0 + RS u of its column wc
+        const size_t tile0 = (row0 * Hq + h) * D;
+        const int rstride = Hq * D;
+        if (before > 0) {
+          if (lane == 0) wait_turn(turn, before);
+          __syncwarp();
+          if (wc < D)
+#pragma unroll 4
+            for (int rr = wr0; rr < rows; rr += RS)
+              cp_async16_any(acc + rr * L::DQS + wc,
+                             dq_acc + tile0 + rr * rstride + wc, true);
+          cp_async_commit();
+        }
+        mbar_wait(&dq_full[buf], use);
+        cp_async_wait<0>();
+        // sum = share (first) or sums so far + share, four rows at a time
+        // (their loads first); stored in f32, or as dq (scaled, rounded
+        // once) by the last
+        const float* sh = dq_sh + buf * BQT * L::DQS + wc;
+        const float* ac = acc + wc;
+        if (wc < D)
+          for (int r0 = wr0; r0 < rows; r0 += 4 * RS) {
+            float4 x[4];
 #pragma unroll
-    for (int kq = 0; kq < 2; ++kq) {
-      unsigned pa[4], da[4];
-      acc_to_a(pa, s[2 * kq], s[2 * kq + 1]);
-      acc_to_a(da, dp[2 * kq], dp[2 * kq + 1]);
+            for (int u = 0; u < 4; ++u) {
+              const int rr = min(r0 + u * RS, rows - 1);
+              x[u] = *reinterpret_cast<const float4*>(sh + rr * L::DQS);
+              if (before > 0) {
+                const float4 a =
+                    *reinterpret_cast<const float4*>(ac + rr * L::DQS);
+                x[u] = make_float4(a.x + x[u].x, a.y + x[u].y, a.z + x[u].z,
+                                   a.w + x[u].w);
+              }
+            }
 #pragma unroll
-      for (int n = 0; n < DP / 8; n += 2) {
-        unsigned gb[4], qb[4];
-        ld_b(gb, gs, ST, 16 * kq, 8 * n, lane);
-        ld_b(qb, qs, ST, 16 * kq, 8 * n, lane);
-        mma_bf16(dv_acc[n], pa, gb[0], gb[1]);
-        mma_bf16(dv_acc[n + 1], pa, gb[2], gb[3]);
-        mma_bf16(dk_acc[n], da, qb[0], qb[1]);
-        mma_bf16(dk_acc[n + 1], da, qb[2], qb[3]);
+            for (int u = 0; u < 4; ++u) {
+              const int rr = r0 + u * RS;
+              if (rr >= rows) break;
+              const size_t at = tile0 + rr * rstride + wc;
+              if (last) {
+                uint2 o;
+                o.x = pack_bf16(x[u].x * scale, x[u].y * scale);
+                o.y = pack_bf16(x[u].z * scale, x[u].w * scale);
+                *reinterpret_cast<uint2*>(dq + at) = o;
+              } else {
+                *reinterpret_cast<float4*>(dq_acc + at) = x[u];
+              }
+            }
+          }
+        if constexpr (ALT) {
+          __syncwarp();
+        } else {
+          named_sync(5, 96);
+        }
+        if (lane == 0) mbar_arrive(&dq_empty[buf]);
+        if (wk == 0 && !last) pass_turn(turn, before + 1);
       }
     }
-    cur = next_live(cur + BC);
-  }
-  cp_async_wait<0>();  // K/V of a block that found no live tile
+  } else {
+    // consumers: warpgroup w owns keys t0 + 64 w .. + 63; each warp 16 of
+    // them, each thread keys kr and kr + 8 (the accumulator layout's rows),
+    // and the tile's query columns 8 j + fc, + 1
+    if constexpr (DP <= 64)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    else
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int w = warp >> 2, wi = warp & 3, g = lane >> 2;
+    const int fc = (lane & 3) * 2;
+    const int kr = 64 * w + 16 * wi + g;
+    int kp[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      kp[i] = t0 + kr + 8 * i < T ? k_pos[t0 + kr + 8 * i] : -1;
+    float dkr[NS][CW / 2], dvr[NS][CW / 2];
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl)
+#pragma unroll
+      for (int e = 0; e < CW / 2; ++e) dkr[sl][e] = dvr[sl][e] = 0.0f;
+    const float sl2 = scale * 1.4426950408889634f;  // scale . log2(e)
+    unsigned char* ds_w = ds_sh + w * L::DS_BYTES;
+    // the A operands of S^T and dP^T at DP <= 64: this warp's 16 keys of K
+    // and V in registers for the whole walk (ldmatrix from the swizzled
+    // tiles; at DP = 128 they would not fit, and both come from shared
+    // memory)
+    constexpr bool KV_REGS = DP <= 64;
+    unsigned ka[KV_REGS ? DP / 16 : 1][4], va[KV_REGS ? DP / 16 : 1][4];
 
+    // The two warpgroups take turns to issue their products (named
+    // barriers 1 and 2, warpgroup 0 first), so that one's elementwise work
+    // runs while the other's products do
+    mbar_wait(kv_full, 0);
+    if constexpr (KV_REGS) {
+      const int row = 64 * w + 16 * wi + (lane & 15);
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int c = c0 + 8 * half;
-    if (c >= nk) continue;
-    const size_t row = Hq == Hkv ? ((size_t)(b * T + t0 + c) * Hkv + hk) * D
-                                 : ((size_t)(b * T + t0 + c) * Hq + h) * D;
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int ch = (kk * 16 % CW) / 8 + (lane >> 4);
+        const int at = (kk * 16 / CW) * BKT * SPAN + row * SPAN +
+                       ((ch ^ ((row * SPAN >> 7) & (SPAN / 16 - 1))) << 4);
+        ldsm_x4(ka[kk], reinterpret_cast<const bf16*>(k_sh + at));
+        ldsm_x4(va[kk], reinterpret_cast<const bf16*>(v_sh + at));
+      }
+    }
+    if (w == 1) named_arrive(1, 256);
+    int stage = 0, nq = 0;
+    unsigned phase = 0;
+    for (;; ++nq) {
+      mbar_wait(&full[stage], phase);
+      const int i = meta[4 * stage];
+      if (i < 0) break;
+      const bool all_live = meta[4 * stage + 1] != 0;
+      const unsigned char* qs = ring + stage * 2 * L::QD_BYTES;
+      const unsigned char* gs = qs + L::QD_BYTES;
+      const float* rs = rows_sh + stage * 3 * BQT;
+      const int* qps = reinterpret_cast<const int*>(rs + 2 * BQT);
+
+      // S^T and dP^T: this warpgroup's 64 keys against the tile's 64
+      // queries, 16 columns of D a step
+      float s[32], dp[32];
+      named_sync(1 + w, 256);
+      wgmma_fence();
+      // X = s with K, Q or dp with V, dO
+      auto issue = [&](float* x, const unsigned char* kv,
+                       const unsigned (*frag)[4], const unsigned char* qd) {
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int col = 8 * n + 2 * t4;
-      if (col >= D) continue;
-      const float k0 = dk_acc[n][2 * half] * scale,
-                  k1 = dk_acc[n][2 * half + 1] * scale;
-      const float v0 = dv_acc[n][2 * half], v1 = dv_acc[n][2 * half + 1];
-      if (Hq == Hkv) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + row + col) =
-            __floats2bfloat162_rn(k0, k1);
-        *reinterpret_cast<__nv_bfloat162*>(dv + row + col) =
-            __floats2bfloat162_rn(v0, v1);
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const int slab = kk * 16 / CW, off = (kk * 16 % CW) * 2;
+          const uint64_t db =
+              smem_desc(qd + slab * BQT * SPAN + off, 16, 8 * SPAN, L::SWZ);
+          if constexpr (KV_REGS) {
+            if (kk == 0)
+              wgmma_rs_n64_k<false>(x, frag[kk], db);
+            else
+              wgmma_rs_n64_k<true>(x, frag[kk], db);
+          } else {
+            const uint64_t da = smem_desc(
+                kv + slab * BKT * SPAN + 64 * w * SPAN + off, 16, 8 * SPAN,
+                L::SWZ);
+            if (kk == 0)
+              wgmma_ss_n64<false>(x, da, db);
+            else
+              wgmma_ss_n64<true>(x, da, db);
+          }
+        }
+        wgmma_commit();
+      };
+      issue(s, k_sh, ka, qs);
+      issue(dp, v_sh, va, gs);
+      named_arrive(2 - w, 256);
+
+      // P^T in place (s[4j + 2i + c]: key kr + 8i, query 8j + fc + c),
+      // without branches: a masked pair's exponent is -inf
+      wgmma_wait<1>();
+      reg_fence<32>(s);
+      if (all_live) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float nl = rs[8 * j + fc + c] * 1.4426950408889634f;
+#pragma unroll
+            for (int i2 = 0; i2 < 2; ++i2) {
+              const int e = 4 * j + 2 * i2 + c;
+              s[e] = fast_exp2(fmaf(s[e], sl2, -nl));
+            }
+          }
       } else {
-        *reinterpret_cast<float2*>(part_k + row + col) = make_float2(k0, k1);
-        *reinterpret_cast<float2*>(part_v + row + col) = make_float2(v0, v1);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = 8 * j + fc + c;
+            const float nl = rs[col] * 1.4426950408889634f;
+            const int qp = qps[col];
+#pragma unroll
+            for (int i2 = 0; i2 < 2; ++i2) {
+              const int e = 4 * j + 2 * i2 + c;
+              const float x = fmaf(s[e], sl2, -nl);
+              s[e] = fast_exp2(live_key(kp[i2], qp, causal, window)
+                                   ? x
+                                   : -INFINITY);
+            }
+          }
       }
-    }
-  }
-}
-
-// dQ of query tile blockIdx.y for query head blockIdx.x % Hq of batch
-// blockIdx.x / Hq, as flash_bwd_dq_kernel.  Warp w owns rows 16w..16w+15 of
-// the tile: S and dP of its rows against each key tile of 32, then
-// dQ += dS.K.
-template <int DP>
-__global__ void __launch_bounds__(PT) flash_bwd_dq_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-    bf16* __restrict__ dq, int S, int T, int Hq, int Hkv, int D, int causal,
-    int window, float scale) {
-  using L = BwdTileBf16<DP>;
-  constexpr int ST = L::ST;
-  extern __shared__ __align__(16) unsigned char smem_q[];
-  bf16* q_sh = reinterpret_cast<bf16*>(smem_q);  // [BQ][ST]
-  bf16* do_sh = q_sh + BQ * ST;                  // [BQ][ST]
-  bf16* ring = do_sh + BQ * ST;                  // stages of K, V [BC][ST]
-  int* kp_sh = reinterpret_cast<int*>(ring + BSTAGES * L::STAGE);  // k_pos
-  unsigned char* live_tile =
-      reinterpret_cast<unsigned char*>(kp_sh + BSTAGES * BC);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
-  const int hk = h / (Hq / Hkv);
-  const int nq = min(BQ, S - q0);
-
-  int q_lo, q_hi;
-  pos_range(q_pos + q0, nq, lane, q_lo, q_hi);
-  // this lane's rows r0 and r0 + 8 of the tile
-  const int r0 = 16 * warp + g;
-  bool ok[2];
-  int qp[2];
-  float m[2], dl[2];
+      // dS^T in place, then both rounded to bf16: the A operands of dV and
+      // dK, and dS^T to shared memory for dQ (row kr + 8i - 64 w of ds_w,
+      // 16-byte chunk j at j ^ g: the 128-byte swizzle)
+      wgmma_wait<0>();
+      reg_fence<32>(dp);
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + 8 * half;
-    ok[half] = r < nq;
-    const size_t at = ((size_t)b * Hq + h) * S + q0 + (ok[half] ? r : 0);
-    qp[half] = ok[half] ? q_pos[q0 + r] : 0;
-    m[half] = ok[half] ? lse[at] : 0.0f;
-    dl[half] = ok[half] ? delta[at] : 0.0f;
-  }
-
-  // which key tiles hold a live pair with the block's rows
-#pragma unroll 4
-  for (int j = warp; j * BC < T; j += PT / 32) {
-    const bool live =
-        keys32_live(k_pos, j * BC, T, q_lo, q_hi, causal, window, lane);
-    if (lane == 0) live_tile[j] = live;
-  }
-  __syncthreads();
-
-  auto next_live = [&](int j0) {
-    for (; j0 < T; j0 += BC)
-      if (live_tile[j0 / BC]) return j0;
-    return T;
-  };
-  auto load = [&](int j0, int stage) {
-    bf16* kd = ring + stage * L::STAGE;
-    stage_rows_bf16<DP, PT>(kd, ST, k, (size_t)b * T + j0, BC, T - j0, Hkv,
-                            hk, D, tid);
-    stage_rows_bf16<DP, PT>(kd + BC * ST, ST, v, (size_t)b * T + j0, BC,
-                            T - j0, Hkv, hk, D, tid);
-    if (tid < BC)  // the tile's positions (0 past T)
-      cp_async4(kp_sh + stage * BC + tid,
-                k_pos + (j0 + tid < T ? j0 + tid : 0), j0 + tid < T);
-  };
-
-  stage_rows_bf16<DP, PT>(q_sh, ST, q, (size_t)b * S + q0, BQ, nq, Hq, h, D,
-                          tid);
-  stage_rows_bf16<DP, PT>(do_sh, ST, dout, (size_t)b * S + q0, BQ, nq, Hq, h,
-                          D, tid);
-  int ld = next_live(0), cur = ld;
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-  for (int st = 0; st < BSTAGES - 1; ++st) {  // Q and dO go with the first
-    if (ld < T) {
-      load(ld, st);
-      ld = next_live(ld + BC);
-    }
-    cp_async_commit();
-  }
-
-  float acc[DP / 8][4];
+        for (int c = 0; c < 2; ++c) {
+          const float dl = rs[BQT + 8 * j + fc + c];
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-
-  const bf16* qw = q_sh + 16 * warp * ST;
-  const bf16* gw = do_sh + 16 * warp * ST;
-  for (int it = 0; cur < T; ++it) {
-    cp_async_wait<BSTAGES - 2>();
-    __syncthreads();  // tile `it` landed; the stage of tile it-1 is free
-    if (ld < T) {
-      load(ld, (it + BSTAGES - 1) % BSTAGES);
-      ld = next_live(ld + BC);
-    }
-    cp_async_commit();
-    const bf16* ks = ring + (it % BSTAGES) * L::STAGE;
-    const bf16* vs = ks + BC * ST;
-    const int* kps = kp_sh + (it % BSTAGES) * BC;
-
-    // S and dP: this warp's 16 rows against the tile's 32 keys
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      unsigned aq[4], ag[4];
-      ld_a(aq, qw, ST, kk, lane);
-      ld_a(ag, gw, ST, kk, lane);
-#pragma unroll
-      for (int n = 0; n < 4; n += 2) {
-        unsigned kb[4], vb[4];
-        ld_b_t(kb, ks, ST, 8 * n, kk, lane);
-        ld_b_t(vb, vs, ST, 8 * n, kk, lane);
-        mma_bf16(s[n], aq, kb[0], kb[1]);
-        mma_bf16(s[n + 1], aq, kb[2], kb[3]);
-        mma_bf16(dp[n], ag, vb[0], vb[1]);
-        mma_bf16(dp[n + 1], ag, vb[2], vb[3]);
-      }
-    }
-    // dS in place: element e of block n is row r0 + 8 (e >> 1), key
-    // cur + 8n + 2 t4 + (e & 1)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e1 = 0; e1 < 2; ++e1) {
-        const int col = 8 * n + 2 * t4 + e1;
-        const int kp = cur + col < T ? kps[col] : -1;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int e = 2 * half + e1;
-          const bool live = ok[half] && live_key(kp, qp[half], causal, window);
-          const float p = live ? expf(fmaf(s[n][e], scale, -m[half])) : 0.0f;
-          dp[n][e] = p * (dp[n][e] - dl[half]);
+          for (int i2 = 0; i2 < 2; ++i2) {
+            const int e = 4 * j + 2 * i2 + c;
+            dp[e] = s[e] * (dp[e] - dl);
+          }
         }
+      unsigned pa[4][4], da4[4][4];
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          pa[kc][u] = pack_bf16(s[8 * kc + 2 * u], s[8 * kc + 2 * u + 1]);
+          da4[kc][u] = pack_bf16(dp[8 * kc + 2 * u], dp[8 * kc + 2 * u + 1]);
+          const int j = 2 * kc + (u >> 1), row = 16 * wi + g + 8 * (u & 1);
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                           smem_addr(ds_w + row * 128 + ((j ^ g) << 4) +
+                                     2 * fc)),
+                       "r"(da4[kc][u])
+                       : "memory");
+        }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_sync(3 + w, 128);  // the warpgroup's dS^T is in shared memory
+
+      // dV += P^T.dO and dK += dS^T.Q over the tile's queries (dO and Q
+      // MN-major), then dQ_w = dS_w.K_w over this warpgroup's keys (dS^T
+      // and K MN-major)
+      float dqs[NS][CW / 2];
+#pragma unroll
+      for (int sl = 0; sl < NS; ++sl)
+#pragma unroll
+        for (int e = 0; e < CW / 2; ++e) dqs[sl][e] = 0.0f;
+      named_sync(1 + w, 256);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int sl = 0; sl < NS; ++sl) {
+          wgmma_rs<CW>(dvr[sl], pa[kc],
+                       smem_desc(gs + sl * BQT * SPAN + kc * 16 * SPAN,
+                                 BQT * SPAN, 8 * SPAN, L::SWZ));
+          wgmma_rs<CW>(dkr[sl], da4[kc],
+                       smem_desc(qs + sl * BQT * SPAN + kc * 16 * SPAN,
+                                 BQT * SPAN, 8 * SPAN, L::SWZ));
+        }
+      wgmma_commit();
+      if constexpr (DP == 128) {  // registers: dQ only after dV and dK
+        named_arrive(2 - w, 256);
+        wgmma_wait<0>();
+#pragma unroll
+        for (int sl = 0; sl < NS; ++sl) {
+          reg_fence<CW / 2>(dvr[sl]);
+          reg_fence<CW / 2>(dkr[sl]);
+        }
+        named_sync(1 + w, 256);
+        wgmma_fence();
       }
-    // dQ += dS.K over the tile's keys, in order
 #pragma unroll
-    for (int kc = 0; kc < 2; ++kc) {
-      unsigned da[4];
-      acc_to_a(da, dp[2 * kc], dp[2 * kc + 1]);
+      for (int kc = 0; kc < 4; ++kc)
 #pragma unroll
-      for (int n = 0; n < DP / 8; n += 2) {
-        unsigned kb[4];
-        ld_b(kb, ks, ST, 16 * kc, 8 * n, lane);
-        mma_bf16(acc[n], da, kb[0], kb[1]);
-        mma_bf16(acc[n + 1], da, kb[2], kb[3]);
+        for (int sl = 0; sl < NS; ++sl)
+          wgmma_ss_tt<CW>(
+              dqs[sl],
+              smem_desc(ds_w + kc * 16 * 128, 64 * 128, 8 * 128, 1),
+              smem_desc(k_sh + sl * BKT * SPAN + (64 * w + 16 * kc) * SPAN,
+                        BKT * SPAN, 8 * SPAN, L::SWZ),
+              kc > 0);
+      wgmma_commit();
+      named_arrive(2 - w, 256);
+      wgmma_wait<1>();  // dV and dK done: the stage is free
+#pragma unroll
+      for (int sl = 0; sl < NS; ++sl) {
+        reg_fence<CW / 2>(dvr[sl]);
+        reg_fence<CW / 2>(dkr[sl]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int sl = 0; sl < NS; ++sl) reg_fence<CW / 2>(dqs[sl]);
+
+      // the tile's dQ share: warpgroup 0 writes its keys' part, warpgroup 1
+      // adds its own, the writers take it (query row 16 wi + g + 8 i2,
+      // column sl CW + 8 jj + fc)
+      const int buf = nq % L::NQB;
+      const unsigned use = (nq / L::NQB) & 1;  // the parity of this use
+      float* sh = dq_sh + buf * BQT * L::DQS;
+      if (w == 0)
+        mbar_wait(&dq_empty[buf], use ^ 1);
+      else
+        mbar_wait(&dq_half[buf], use);
+#pragma unroll
+      for (int sl = 0; sl < NS; ++sl)
+#pragma unroll
+        for (int jj = 0; jj < CW / 8; ++jj)
+#pragma unroll
+          for (int i2 = 0; i2 < 2; ++i2) {
+            float2* p = reinterpret_cast<float2*>(
+                sh + (16 * wi + g + 8 * i2) * L::DQS + sl * CW + 8 * jj + fc);
+            float2 x = make_float2(dqs[sl][4 * jj + 2 * i2],
+                                   dqs[sl][4 * jj + 2 * i2 + 1]);
+            if (w == 1) {
+              const float2 a = *p;
+              x = make_float2(a.x + x.x, a.y + x.y);
+            }
+            *p = x;
+          }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(w == 0 ? &dq_half[buf] : &dq_full[buf]);
+      if (++stage == L::STAGES) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-    cur = next_live(cur + BC);
-  }
-  cp_async_wait<0>();  // Q and dO of a tile with no live key
+    if (w == 0) named_sync(1, 256);  // warpgroup 1's last arrival
 
+    // dK (scaled) and dV of the block's keys: written in bf16, or with
+    // grouped heads added to the group's f32 sums in head order
+    int* turn = ws + 1 + (size_t)B * Hq * I + ((size_t)b * Hkv + hk) * J + kt;
+    if (G > 1) {
+      if (r > 0 && tid == 0) wait_turn(turn, r);
+      named_sync(6, 256);
+    }
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    if (!ok[half]) continue;
-    bf16* o = dq + ((size_t)(b * S + q0 + r0 + 8 * half) * Hq + h) * D;
+    for (int i2 = 0; i2 < 2; ++i2) {
+      const int key = t0 + kr + 8 * i2;
+      if (key >= T) continue;
+      const size_t row = ((size_t)(b * T + key) * Hkv + hk) * D;
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int col = 8 * n + 2 * t4;
-      if (col < D)
-        *reinterpret_cast<__nv_bfloat162*>(o + col) = __floats2bfloat162_rn(
-            acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale);
+      for (int sl = 0; sl < NS; ++sl)
+#pragma unroll
+        for (int jj = 0; jj < CW / 8; ++jj) {
+          const int col = sl * CW + 8 * jj + fc;
+          if (col >= D) continue;
+          float2 xk = make_float2(dkr[sl][4 * jj + 2 * i2] * scale,
+                                  dkr[sl][4 * jj + 2 * i2 + 1] * scale);
+          float2 xv = make_float2(dvr[sl][4 * jj + 2 * i2],
+                                  dvr[sl][4 * jj + 2 * i2 + 1]);
+          if (G > 1 && r > 0) {
+            const float2 ak = __ldcg(
+                reinterpret_cast<const float2*>(dk_acc + row + col));
+            const float2 av = __ldcg(
+                reinterpret_cast<const float2*>(dv_acc + row + col));
+            xk = make_float2(ak.x + xk.x, ak.y + xk.y);
+            xv = make_float2(av.x + xv.x, av.y + xv.y);
+          }
+          if (r == G - 1) {
+            *reinterpret_cast<unsigned*>(dk + row + col) =
+                pack_bf16(xk.x, xk.y);
+            *reinterpret_cast<unsigned*>(dv + row + col) =
+                pack_bf16(xv.x, xv.y);
+          } else {
+            __stcg(reinterpret_cast<float2*>(dk_acc + row + col), xk);
+            __stcg(reinterpret_cast<float2*>(dv_acc + row + col), xv);
+          }
+        }
+    }
+    if (G > 1 && r < G - 1) {
+      named_sync(6, 256);
+      if (tid == 0) pass_turn(turn, r + 1);
     }
   }
 }
@@ -2818,7 +3238,7 @@ static int launch_backward(const float* q, const float* k, const float* v,
   const float scale = 1.0f / sqrtf((float)D);
   const int rows = B * S * Hq;
   flash_bwd_dot_kernel<<<(rows + DT / 32 - 1) / (DT / 32), DT, 0, st>>>(
-      out, dout, delta, rows, S, Hq, D);
+      out, dout, delta, rows, S, Hq, D, nullptr, 0, nullptr, nullptr, T);
   int e = (int)cudaGetLastError();
   if (e) return e;
   using L = BwdTile<DP>;
@@ -2859,47 +3279,37 @@ template <int DP>
 static int launch_backward_bf16(const bf16* q, const bf16* k, const bf16* v,
                                 const bf16* out, const bf16* dout,
                                 const float* lse, const int* q_pos,
-                                const int* k_pos, float* delta, float* part,
-                                bf16* dq, bf16* dk, bf16* dv, int B, int S,
-                                int T, int Hq, int Hkv, int D, int causal,
+                                const int* k_pos, float* delta, int* ws,
+                                float* dq_acc, float* dkv_acc, bf16* dq,
+                                bf16* dk, bf16* dv, int B, int S, int T,
+                                int Hq, int Hkv, int D, int causal,
                                 int window, cudaStream_t st) {
-  const float scale = 1.0f / sqrtf((float)D);
+  using L = BTile<DP>;
+  const CUtensorMapSwizzle swizzle =
+      L::SPAN == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : L::SPAN == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap tq, tdo, tk, tv;
+  int e = encode_rows(&tq, q, B, S, Hq, D, L::CW, BQT, swizzle);
+  if (!e) e = encode_rows(&tdo, dout, B, S, Hq, D, L::CW, BQT, swizzle);
+  if (!e) e = encode_rows(&tk, k, B, T, Hkv, D, L::CW, BKT, swizzle);
+  if (!e) e = encode_rows(&tv, v, B, T, Hkv, D, L::CW, BKT, swizzle);
+  if (!e) e = allow_smem(flash_bwd_bf16_hopper_kernel<DP>, L::SMEM);
+  if (e) return e;
+  const int I = (S + BQT - 1) / BQT, J = (T + BKT - 1) / BKT;
+  // the ticket, a turn counter per (batch, query head, query tile) and,
+  // with grouped heads, per (batch, KV head, key tile)
+  const int n_zero = 1 + B * Hq * I + (Hq > Hkv ? B * Hkv * J : 0);
   const int rows = B * S * Hq;
   flash_bwd_dot_kernel<<<(rows + DT / 32 - 1) / (DT / 32), DT, 0, st>>>(
-      out, dout, delta, rows, S, Hq, D);
-  int e = (int)cudaGetLastError();
-  if (e) return e;
-  using L = BwdTileBf16<DP>;
-  // and a byte a streamed tile, for its liveness
-  const size_t kv_smem =
-      L::KV_SMEM + (size_t)((S + BC - 1) / BC + 15) / 16 * 16;
-  const size_t q_smem =
-      L::Q_SMEM + (size_t)((T + BC - 1) / BC + 15) / 16 * 16;
-  e = allow_smem(flash_bwd_dkdv_bf16_kernel<DP>, kv_smem);
-  if (e) return e;
-  // one query head's share per block; a group's shares are added after
-  const size_t n_part = (size_t)B * T * Hq * D;
-  float* pk = Hq == Hkv ? nullptr : part;
-  float* pv = Hq == Hkv ? nullptr : part + n_part;
-  flash_bwd_dkdv_bf16_kernel<DP>
-      <<<dim3(B * Hq, (T + BK - 1) / BK), PT, kv_smem, st>>>(
-          q, k, v, dout, lse, delta, q_pos, k_pos, pk, pv, dk, dv, S, T, Hq,
-          Hkv, D, causal, window, scale);
+      out, dout, delta, rows, S, Hq, D, ws, n_zero, q_pos, k_pos, T);
   e = (int)cudaGetLastError();
   if (e) return e;
-  if (Hq != Hkv) {
-    const size_t n = (size_t)B * T * Hkv * D;
-    flash_bwd_group_sum_kernel<<<(unsigned)((n + DT - 1) / DT), DT, 0, st>>>(
-        pk, pv, dk, dv, n, Hq, Hkv, D);
-    e = (int)cudaGetLastError();
-    if (e) return e;
-  }
-  e = allow_smem(flash_bwd_dq_bf16_kernel<DP>, q_smem);
-  if (e) return e;
-  flash_bwd_dq_bf16_kernel<DP>
-      <<<dim3(B * Hq, (S + BQ - 1) / BQ), PT, q_smem, st>>>(
-          q, k, v, dout, lse, delta, q_pos, k_pos, dq, S, T, Hq, Hkv, D,
-          causal, window, scale);
+  const size_t n_kv = (size_t)B * T * Hkv * D;
+  flash_bwd_bf16_hopper_kernel<DP><<<B * Hq * J, BTHREADS, L::SMEM, st>>>(
+      tq, tdo, tk, tv, lse, delta, q_pos, k_pos, ws, n_zero, dq_acc,
+      dkv_acc, dkv_acc == nullptr ? nullptr : dkv_acc + n_kv, dq, dk, dv, B,
+      S, T, Hq, Hkv, D, causal, window, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -2994,22 +3404,27 @@ int flash_attention_prefill_bf16(const bf16* q, const bf16* k, const bf16* v,
 // The backward of flash_attention_prefill_bf16: dq [B,S,Hq,D] and dk, dv
 // [B,T,Hkv,D] in bf16, from q, k, v, the forward's bf16 out and its f32
 // lse, and dout [B,S,Hq,D] in bf16, with the forward's positions and
-// masks.  delta (f32, B*Hq*S) and part (f32, 2*B*T*Hq*D; may be null when
-// Hq == Hkv) are scratch.  Four launches as flash_attention_backward (the
-// group sum only when Hq > Hkv), every product on bf16 operands (mma.sync
-// m16n8k16, f32 sums); allocates nothing, does not synchronise, returns
-// cudaGetLastError().
+// masks.  Scratch: delta (f32, B*Hq*S); ws (int32, 1 + B*Hq*I + (Hq > Hkv ?
+// B*Hkv*J : 0) + 2 I + 3 J, with I = ceil(S / 64) query tiles and J =
+// ceil(T / 128) key tiles); dq_acc (f32, B*S*Hq*D); dkv_acc (f32,
+// 2*B*T*Hkv*D; null when Hq == Hkv).  Two launches on `stream`: D (which
+// readies ws), then the Hopper kernel (TMA, wgmma, a producer warp, dQ
+// and the group's dK/dV added in a fixed order); every product on bf16
+// operands with f32 sums.  Allocates nothing, does not synchronise,
+// returns cudaGetLastError(); cudaErrorNotSupported if libcuda has no
+// tensor-map encoder.
 int flash_attention_backward_bf16(const bf16* q, const bf16* k,
                                   const bf16* v, const bf16* out,
                                   const bf16* dout, const float* lse,
                                   const int* q_pos, const int* k_pos,
-                                  float* delta, float* part, bf16* dq,
-                                  bf16* dk, bf16* dv, int B, int S, int T,
-                                  int Hq, int Hkv, int D, int causal,
-                                  int window, void* stream) {
+                                  float* delta, int* ws, float* dq_acc,
+                                  float* dkv_acc, bf16* dq, bf16* dk,
+                                  bf16* dv, int B, int S, int T, int Hq,
+                                  int Hkv, int D, int causal, int window,
+                                  void* stream) {
   DISPATCH_HEAD_DIM(D, launch_backward_bf16, q, k, v, out, dout, lse, q_pos,
-                    k_pos, delta, part, dq, dk, dv, B, S, T, Hq, Hkv, D,
-                    causal, window, (cudaStream_t)stream)
+                    k_pos, delta, ws, dq_acc, dkv_acc, dq, dk, dv, B, S, T,
+                    Hq, Hkv, D, causal, window, (cudaStream_t)stream)
 }
 
 // As flash_attention_decode for q, k, v and out in bf16, in one launch and

@@ -48,11 +48,11 @@ MAX_SMEM_BYTES = 232_448
 #: under its own name.  ``flash_attention_bf16`` and its ``_prefill`` /
 #: ``_decode`` keys count the same for bf16 inputs.
 #: ``flash_attention_bwd`` and ``flash_attention_bf16_bwd`` count calls of
-#: K3's backward entry points on f32 and on bf16 inputs (three kernels a
-#: call, four with grouped heads).  ``ssd_scan``, ``ssd_scan_bf16``,
-#: ``ssd_scan_bwd`` and ``ssd_scan_bf16_bwd`` count calls of K4's forward
-#: (four kernels) and of its backward (seven kernels) on f32 and on bf16
-#: inputs.
+#: K3's backward entry points on f32 inputs (three kernels a call, four
+#: with grouped heads) and on bf16 inputs (two).  ``ssd_scan``,
+#: ``ssd_scan_bf16``, ``ssd_scan_bwd`` and ``ssd_scan_bf16_bwd`` count calls
+#: of K4's forward (four kernels) and of its backward (seven kernels) on f32
+#: and on bf16 inputs.
 LAUNCHES: dict[str, int] = {"sketch_insert_runs": 0, "failrank_step": 0,
                              "flash_attention": 0,
                              "flash_attention_prefill": 0,

@@ -35,11 +35,13 @@ When a gradient is needed (grad mode on and q, k or v requiring grad),
 function: its forward takes the prefill entry point of the inputs' type
 whatever the shape, which also writes each row's log-sum-exp, and its
 backward launches the source's backward entry point of that type
-(:func:`flash_attention_bwd_cuda`, three kernels, four with grouped heads,
-counted as one launch of ``flash_attention_bwd``, f32, its products on
-tensor cores in 3xTF32, or ``flash_attention_bf16_bwd``, bf16, its products
-on bf16 tensor cores).  On the CPU, autograd runs through the plain
-version.
+(:func:`flash_attention_bwd_cuda`, counted as one launch of
+``flash_attention_bwd``, f32: three kernels, four with grouped heads, its
+products on tensor cores in 3xTF32; or ``flash_attention_bf16_bwd``, bf16:
+two kernels, the second a Hopper kernel on ``wgmma`` over key tiles that
+adds dQ and the group's dK/dV in a fixed order through turn counters in
+its scratch, :func:`bwd_bf16_scratch`).  On the CPU, autograd runs through
+the plain version.
 """
 
 from __future__ import annotations
@@ -125,6 +127,35 @@ def _sm_count(dev) -> int:
 #: The types the kernel takes; q, k, v and the output share one.
 DTYPES = (torch.float32, torch.bfloat16)
 
+#: The bf16 backward's tiles: keys a block owns (two warpgroups of 64) and
+#: query rows a streamed tile holds (``BKT``, ``BQT`` in the source).
+BWD_KEY_TILE = 128
+BWD_QUERY_TILE = 64
+
+
+def _bwd_tiles(s: int, t: int) -> tuple[int, int]:
+    return -(-s // BWD_QUERY_TILE), -(-t // BWD_KEY_TILE)
+
+
+def bwd_bf16_scratch(b: int, s: int, t: int, hq: int, hk: int,
+                     d: int) -> dict[str, int]:
+    """Elements of each scratch buffer of the bf16 backward for q
+    ``[b,s,hq,d]`` and k/v ``[b,t,hk,d]``: ``delta`` (f32, each row's
+    rowsum(dO∘O)), ``dq_acc`` (f32, dQ summed over the key tiles so far),
+    ``dkv_acc`` (f32, dK then dV summed over a group's heads so far; 0 when
+    ``hq == hk``, where each block writes its own) and ``ws`` (int32: the
+    ticket, a turn counter per (batch, query head, query tile) and, with
+    grouped heads, per (batch, KV head, key tile), all zeroed by the D
+    launch; then each query tile's position range and each key tile's
+    range of live keys and whether all of its keys are live, written by
+    it).  A pure function of the shapes; the wrapper allocates exactly
+    these with ``torch.empty``."""
+    i, j = _bwd_tiles(s, t)
+    zeroed = 1 + b * hq * i + (b * hk * j if hq != hk else 0)
+    return {"delta": b * hq * s, "dq_acc": b * s * hq * d,
+            "dkv_acc": 2 * b * t * hk * d if hq != hk else 0,
+            "ws": zeroed + 2 * i + 3 * j}
+
 
 def _load():
     lib = _lib.load("flash_attention")
@@ -133,7 +164,7 @@ def _load():
                              (lib.flash_attention_backward, 13, 8),
                              (lib.flash_attention_prefill_bf16, 7, 8),
                              (lib.flash_attention_decode_bf16, 6, 10),
-                             (lib.flash_attention_backward_bf16, 13, 8)):
+                             (lib.flash_attention_backward_bf16, 15, 8)):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
@@ -263,23 +294,35 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, q_pos, k_pos,
     _check((("out", out, q.dtype, tuple(q.shape)),
             ("dout", dout, q.dtype, tuple(q.shape)),
             ("lse", lse, torch.float32, (b, hq, s))), dev)
+    t, hk = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
-    delta = torch.empty(b, hq, s, dtype=torch.float32, device=dev)
-    # each query head's share of dK and dV (f32), added per group by the
-    # kernel
-    part = torch.empty(2 * b * k.shape[1] * hq * d, dtype=torch.float32,
-                       device=dev) if hq != k.shape[2] else None
     lib = _load()
-    entry = "flash_attention_backward_bf16" if bf16 \
-        else "flash_attention_backward"
+    if bf16:
+        n = bwd_bf16_scratch(b, s, t, hq, hk, d)
+        f32 = dict(dtype=torch.float32, device=dev)
+        delta = torch.empty(n["delta"], **f32)
+        ws = torch.empty(n["ws"], dtype=torch.int32, device=dev)
+        dq_acc = torch.empty(n["dq_acc"], **f32)
+        dkv_acc = torch.empty(n["dkv_acc"], **f32) if n["dkv_acc"] \
+            else None
+        scratch = (delta.data_ptr(), ws.data_ptr(), dq_acc.data_ptr(),
+                   0 if dkv_acc is None else dkv_acc.data_ptr())
+        entry = "flash_attention_backward_bf16"
+    else:
+        delta = torch.empty(b, hq, s, dtype=torch.float32, device=dev)
+        # each query head's share of dK and dV (f32), added per group by
+        # the kernel
+        part = torch.empty(2 * b * t * hq * d, dtype=torch.float32,
+                           device=dev) if hq != hk else None
+        scratch = (delta.data_ptr(), 0 if part is None else part.data_ptr())
+        entry = "flash_attention_backward"
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), q_pos.data_ptr(),
-            k_pos.data_ptr(), delta.data_ptr(),
-            0 if part is None else part.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), *_dims(q, k, causal, window),
+            k_pos.data_ptr(), *scratch, dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *_dims(q, k, causal, window),
             torch.cuda.current_stream(dev).cuda_stream)
     _lib.check(rc, entry)
     _lib.count("flash_attention_bf16_bwd" if bf16 else "flash_attention_bwd")

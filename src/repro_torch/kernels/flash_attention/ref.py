@@ -5,7 +5,9 @@ takes for CPU tensors (autograd runs through it there).
 :func:`attention_lse_ref` and :func:`attention_bwd_ref` mirror the
 kernel's log-sum-exp output and its backward (the latter in f32, also
 with the f32 kernel's 3xTF32 products, :func:`einsum_3xtf32`, and in
-bf16 with the bf16 kernel's rounding).  It is the model's
+bf16 with the bf16 kernel's rounding); :func:`attention_bwd_tiled_ref`
+also keeps the bf16 backward kernel's order of f32 sums (dQ by key
+tiles, dK and dV by the heads of a group).  It is the model's
 attention function (``models/layers.py`` ``_direct_attention`` in the
 reference package) in the model layout, with the masks that take
 explicit positions:
@@ -106,9 +108,24 @@ def attention_bwd_ref(q, k, v, out, dout, lse, *, q_pos, k_pos, causal=True,
     formed in f32 first); D from the bf16 ``out`` and ``dout`` in f32; dq,
     dk and dv rounded to bf16 once, dk and dv after the group's sum."""
     b, s, hq, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qg, dog, kf, p, ds, mm = _bwd_terms(q, k, v, out, dout, lse, q_pos,
+                                        k_pos, causal, window, tf32x3)
+    dv = mm("bhgst,bshgd->bthd", p, dog)
+    dq = mm("bhgst,bthd->bshgd", ds, kf) * scale
+    dk = mm("bhgst,bshgd->bthd", ds, qg) * scale
+    return dq.reshape(b, s, hq, d).to(q.dtype), dk.to(q.dtype), \
+        dv.to(q.dtype)
+
+
+def _bwd_terms(q, k, v, out, dout, lse, q_pos, k_pos, causal, window,
+               tf32x3):
+    """The backward's operands as the kernels take them: q and dout by
+    group ``[B,S,Hkv,G,D]``, k in f32, P and dS ``[B,Hkv,G,S,T]`` (rounded
+    to bf16 for bf16 inputs) and the product function."""
+    b, s, hq, d = q.shape
     hk = k.shape[2]
     g = hq // hk
-    scale = 1.0 / math.sqrt(d)
     mm = einsum_3xtf32 if tf32x3 else torch.einsum
     bf16 = q.dtype == torch.bfloat16
 
@@ -118,16 +135,41 @@ def attention_bwd_ref(q, k, v, out, dout, lse, *, q_pos, k_pos, causal=True,
     dog = dout.float().reshape(b, s, hk, g, d)
     kf, vf = k.float(), v.float()
     live = live_mask(q_pos, k_pos, causal, window)
-    scores = mm("bshgd,bthd->bhgst", qg, kf) * scale
+    scores = mm("bshgd,bthd->bhgst", qg, kf) * (1.0 / math.sqrt(d))
     m = lse.reshape(b, hk, g, s)[..., None]
     p = torch.where(live, torch.exp(scores - m), 0.0)
     delta = (dog * out.float().reshape(b, s, hk, g, d)).sum(-1)
-    dv = mm("bhgst,bshgd->bthd", operand(p), dog)
     dp = mm("bshgd,bthd->bhgst", dog, vf)
     ds = operand(p * (dp - delta.permute(0, 2, 3, 1)[..., None]))
-    dq = mm("bhgst,bthd->bshgd", ds, kf) * scale
-    dk = mm("bhgst,bshgd->bthd", ds, qg) * scale
-    return dq.reshape(b, s, hq, d).to(q.dtype), dk.to(q.dtype), \
+    return qg, dog, kf, operand(p), ds, mm
+
+
+def attention_bwd_tiled_ref(q, k, v, out, dout, lse, *, q_pos, k_pos,
+                            causal=True, window=None, key_tile=128):
+    """:func:`attention_bwd_ref` with the bf16 backward kernel's order of
+    f32 sums: dQ as the sum of the shares of key tiles of ``key_tile``
+    keys (dS[:, tile]·K[tile] in f32), the first stored and each next one
+    added in key-tile order, then scaled by 1/√D; dK and dV as the sum of
+    each query head's share (dSᵀ·Q / √D and Pᵀ·dO in f32) over the heads of
+    a group, in head order.  Each gradient rounded to q's type once.  A row
+    with no live key gets dq = 0 and a key with no live query dk = dv = 0,
+    exactly, as in :func:`attention_bwd_ref`."""
+    b, s, hq, d = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    qg, dog, kf, p, ds, mm = _bwd_terms(q, k, v, out, dout, lse, q_pos,
+                                        k_pos, causal, window, False)
+    dq = None
+    for t0 in range(0, t, key_tile):
+        share = mm("bhgst,bthd->bshgd", ds[..., t0:t0 + key_tile],
+                   kf[:, t0:t0 + key_tile])
+        dq = share if dq is None else dq + share
+    dk_h = mm("bhgst,bshgd->bthgd", ds, qg) * scale
+    dv_h = mm("bhgst,bshgd->bthgd", p, dog)
+    dk, dv = dk_h[..., 0, :], dv_h[..., 0, :]
+    for r in range(1, hq // hk):
+        dk, dv = dk + dk_h[..., r, :], dv + dv_h[..., r, :]
+    return (dq * scale).reshape(b, s, hq, d).to(q.dtype), dk.to(q.dtype), \
         dv.to(q.dtype)
 
 

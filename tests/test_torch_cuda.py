@@ -55,7 +55,12 @@ bf16 ulps of each output row's largest entry (the kernel and the plain
 version sum in other orders and may round P, or y, on either side of a
 boundary), bit-identical over two runs; mixed types raise.  bf16
 training: K3's bf16 backward (``BF16_BWD_CASES``: GQA 1 to 8, causal,
-windowed, non-causal with S != T, head dims 8 to 128) and K4's (off-tile
+windowed, non-causal with S != T, head dims 8 to 128, and the edges of its
+ordered adds: a window of 16, a block of empty slots wider than a key
+tile, GQA 8 over 16 key tiles, a single key tile; also against the mirror
+of its order of sums, dead rows and keys exactly 0; 20 calls on one
+stream and on two bit-identical to one call; its scratch the sizes of
+``bwd_bf16_scratch``) and K4's (off-tile
 shapes, chunks 16, 24 and 128, with and without a state and a final-state
 cotangent) against their plain mirrors in bf16, within ``BF16_BWD_ULPS``
 of each gradient's largest entry, bit-identical over two runs, the bf16
@@ -1380,11 +1385,32 @@ def test_danube_smoke_serves_at_head_dim_120(dev, dtype, monkeypatch):
 #: rowsum(dO∘O)), so a row's own largest entry is no scale of its error.
 BF16_BWD_ULPS = 4
 
-#: K3's bf16 backward cases: ``BWD_CASES`` (GQA 1, 3, 4 and 6; causal,
-#: windowed, non-causal with S != T; head dims 16 to 128) and head dims 8
-#: (GQA 8) and 24 off the tile.
-BF16_BWD_CASES = BWD_CASES + [(2, 100, 100, 8, 1, 8, True, None),
-                              (1, 150, 150, 6, 2, 24, True, 50)]
+#: K3's bf16 backward cases, ``(b, s, t, hq, hk, d, causal, window,
+#: empty)`` with ``empty`` a range of cache slots set to -1: ``BWD_CASES``
+#: (GQA 1, 3, 4 and 6; causal, windowed, non-causal with S != T; head dims
+#: 16 to 128), head dims 8 (GQA 8) and 24 off the tile, and the edges of
+#: the kernel's ordered adds: a window of 16 (most query tiles meet one key
+#: tile), slots 100..299 empty under a window of 64 (a key tile with no
+#: live key, a query tile that meets no key tile, rows with no live key),
+#: GQA 8 at T = 2,048 (16 key tiles, 8 heads in turn), one key tile.
+BF16_BWD_CASES = [c + (None,) for c in BWD_CASES] + [
+    (2, 100, 100, 8, 1, 8, True, None, None),
+    (1, 150, 150, 6, 2, 24, True, 50, None),
+    (2, 300, 300, 4, 2, 64, True, 16, None),
+    (2, 512, 512, 4, 1, 32, True, 64, (100, 300)),
+    (1, 2048, 2048, 8, 1, 64, True, None, None),
+    (1, 100, 120, 3, 1, 16, False, None, None)]
+
+
+def _bf16_bwd_inputs(dev, b, s, t, hq, hk, d, causal, win, empty):
+    q, k, v = (x.bfloat16() for x in _attn_inputs(dev, b, s, t, hq, hk, d))
+    dout = _attn_inputs(dev, b, s, s, hq, hk, d)[0].bfloat16()
+    k_pos = torch.arange(t, dtype=torch.int32, device=dev)
+    if empty:
+        k_pos[empty[0]:empty[1]] = -1
+    pos = dict(q_pos=torch.arange(t - s, t, dtype=torch.int32, device=dev),
+               k_pos=k_pos, causal=causal, window=win)
+    return q, k, v, dout, pos
 
 
 def _assert_bf16_grad_close(got, exp, ulps=BF16_BWD_ULPS):
@@ -1396,21 +1422,21 @@ def _assert_bf16_grad_close(got, exp, ulps=BF16_BWD_ULPS):
     assert gap <= ulps * ulp, gap / ulp
 
 
-@pytest.mark.parametrize("b,s,t,hq,hk,d,causal,win", BF16_BWD_CASES)
+@pytest.mark.parametrize("b,s,t,hq,hk,d,causal,win,empty", BF16_BWD_CASES)
 def test_bf16_attention_backward_matches_plain(dev, b, s, t, hq, hk, d,
-                                               causal, win):
+                                               causal, win, empty):
     """K3's bf16 backward through ``gqa_attention`` (``FlashAttention``: the
     bf16 prefill with its log-sum-exp, then ``flash_attention_backward_bf16``)
-    against its plain mirror ``attention_bwd_ref`` in bf16 on the forward's
-    own ``out`` and ``lse``: within ``BF16_BWD_ULPS``, bf16 gradients, one
-    bf16 prefill and one bf16 backward launch a call and no f32 one, two
+    against its plain mirror ``attention_bwd_ref`` in bf16 and the mirror of
+    its order of sums ``attention_bwd_tiled_ref``, on the forward's own
+    ``out`` and ``lse``: within ``BF16_BWD_ULPS``, bf16 gradients, dq of
+    rows with no live key and dk, dv of keys with no live query exactly 0,
+    one bf16 prefill and one bf16 backward launch a call and no f32 one, two
     runs bit-identical."""
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
-    q, k, v = (x.bfloat16() for x in _attn_inputs(dev, b, s, t, hq, hk, d))
-    dout = _attn_inputs(dev, b, s, s, hq, hk, d)[0].bfloat16()
-    pos = dict(q_pos=torch.arange(t - s, t, dtype=torch.int32, device=dev),
-               k_pos=torch.arange(t, dtype=torch.int32, device=dev),
-               causal=causal, window=win)
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_bwd_tiled_ref, live_mask)
+    q, k, v, dout, pos = _bf16_bwd_inputs(dev, b, s, t, hq, hk, d, causal,
+                                          win, empty)
     before = dict(_lib.LAUNCHES)
     got = [_bwd_grads(q, k, v, dout, fa_ops.gqa_attention, **pos)
            for _ in range(2)]
@@ -1422,9 +1448,70 @@ def test_bf16_attention_backward_matches_plain(dev, b, s, t, hq, hk, d,
         == before["flash_attention_bwd"]
     out, lse = fa_ops._prefill(q, k, v, **pos)
     exp = attention_bwd_ref(q, k, v, out, dout, lse, **pos)
-    for g, g2, e in zip(*got, exp):
+    tiled = attention_bwd_tiled_ref(q, k, v, out, dout, lse, **pos)
+    for g, g2, e, e2 in zip(*got, exp, tiled):
         assert torch.equal(g, g2)
         _assert_bf16_grad_close(g, e)
+        _assert_bf16_grad_close(g, e2)
+    live = live_mask(pos["q_pos"], pos["k_pos"], causal, win).expand(s, t)
+    dq, dk, dv = got[0]
+    assert (dq[:, ~live.any(1)] == 0).all()
+    assert (dk[:, ~live.any(0)] == 0).all()
+    assert (dv[:, ~live.any(0)] == 0).all()
+
+
+def _bf16_bwd_call(q, k, v, dout, pos):
+    out, lse = fa_ops._prefill(q, k, v, **pos)
+    return lambda: fa_ops.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                                   **pos)
+
+
+@pytest.mark.parametrize("case", [BF16_BWD_CASES[0], BF16_BWD_CASES[-3]])
+def test_bf16_attention_backward_calls_carry_nothing_over(dev, case):
+    """20 calls back to back on one stream, then 20 alternating between two
+    streams, each bit-identical to a single call: the D launch zeroes the
+    ticket and the turn counters of each call's own scratch."""
+    call = _bf16_bwd_call(*_bf16_bwd_inputs(dev, *case))
+    one = call()
+    torch.cuda.synchronize()
+    same = [call() for _ in range(20)]
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for n in range(20):
+        with torch.cuda.stream(streams[n % 2]):
+            same.append(call())
+    torch.cuda.synchronize()
+    for grads in same:
+        assert all(torch.equal(a, b) for a, b in zip(grads, one))
+
+
+@pytest.mark.parametrize("case", [BF16_BWD_CASES[0], BF16_BWD_CASES[4],
+                                  BF16_BWD_CASES[-1]])
+def test_bf16_attention_backward_scratch_is_bwd_bf16_scratch(dev, case,
+                                                             monkeypatch):
+    """The scratch the wrapper allocates (``torch.empty``; the gradients are
+    ``torch.empty_like``) is ``bwd_bf16_scratch``'s, buffer for buffer: the
+    f32 delta and dQ sums, the f32 dK/dV sums only with grouped heads, and
+    the int32 ticket, turn counters and tile ranges."""
+    b, s, t, hq, hk, d = case[:6]
+    call = _bf16_bwd_call(*_bf16_bwd_inputs(dev, *case))
+    real, made = torch.empty, []
+
+    def spy(*args, **kw):
+        x = real(*args, **kw)
+        made.append((x.numel(), x.dtype))
+        return x
+    monkeypatch.setattr(torch, "empty", spy)
+    call()
+    monkeypatch.undo()
+    n = fa_ops.bwd_bf16_scratch(b, s, t, hq, hk, d)
+    want = [(n["delta"], torch.float32), (n["ws"], torch.int32),
+            (n["dq_acc"], torch.float32)]
+    if hq != hk:
+        want.append((n["dkv_acc"], torch.float32))
+    assert n["dkv_acc"] == (0 if hq == hk else 2 * b * t * hk * d)
+    assert made == want
 
 
 def test_bf16_attention_lse_output_leaves_the_prefill_unchanged(dev):
@@ -1432,13 +1519,9 @@ def test_bf16_attention_lse_output_leaves_the_prefill_unchanged(dev):
     bit for bit, and the log-sum-exp is the plain one (f32, from the bf16
     inputs)."""
     from repro_torch.kernels.flash_attention.ref import attention_lse_ref
-    for b, s, t, hq, hk, d, causal, win in BF16_BWD_CASES:
-        q, k, v = (x.bfloat16() for x in _attn_inputs(dev, b, s, t, hq, hk,
-                                                      d))
-        pos = dict(q_pos=torch.arange(t - s, t, dtype=torch.int32,
-                                      device=dev),
-                   k_pos=torch.arange(t, dtype=torch.int32, device=dev),
-                   causal=causal, window=win)
+    for case in BF16_BWD_CASES:
+        q, k, v, _, pos = _bf16_bwd_inputs(dev, *case)
+        s, hq, hk = q.shape[1], q.shape[2], k.shape[2]
         out, lse = fa_ops._prefill(q, k, v, **pos)
         if not fa_ops.uses_decode(s, hq, hk):
             assert torch.equal(out, fa_ops.flash_attention_cuda(q, k, v,

@@ -11,7 +11,10 @@ live windows, ``StepTelemetry``):
   (flag, kind, location, severity within rel 1e-9, action) for both
   recorder impls, on the mesh and the torus;
 * ``StepTelemetry`` gives the reference's verdicts and plans window by
-  window, with a slow burst, on a clean loop and through its warmup;
+  window, with a slow burst, on a clean loop and through its warmup; it
+  departs from the reference in one way, pinned on step times from the
+  card: its verdicts name only the measured host, never a synthetic peer
+  (``PodDetector(measured=...)``);
 * ``PodMitigationPolicy`` plans the reference's actions;
 * the reference's CI smoke (``launch.train --telemetry ...
   --expect-flagged``) and ``launch.serve --telemetry`` run with
@@ -226,23 +229,29 @@ INJECTED_MISSED_STEP_MS = [
 NOISY_STEP_MS = list(100 * (1 + 0.3 * np.abs(
     np.random.default_rng(5).standard_normal(24))))
 PEER, HOST = (True, "core", 14), (True, "core", 0)
+NONE = (False, None, None)
 
 
-@pytest.mark.parametrize("step_ms,expected,z", [
-    (CLEAN_CARD_STEP_MS, [PEER, PEER], (6.0, 7.0)),
-    (NOISY_STEP_MS, [PEER, PEER], (9.7, 9.9)),
-    (INJECTED_CARD_STEP_MS, [PEER, HOST], (9.7, 9.9)),
-    (INJECTED_MISSED_STEP_MS, [PEER, PEER], (10.1, 10.3))])
+@pytest.mark.parametrize("step_ms,expected,z,port,host_z", [
+    (CLEAN_CARD_STEP_MS, [PEER, PEER], (6.0, 7.0), [NONE, NONE], None),
+    (NOISY_STEP_MS, [PEER, PEER], (9.7, 9.9), [NONE, NONE], None),
+    (INJECTED_CARD_STEP_MS, [PEER, HOST], (9.7, 9.9), [HOST, HOST],
+     (37.7, 37.9)),
+    (INJECTED_MISSED_STEP_MS, [PEER, PEER], (10.1, 10.3), [HOST, HOST],
+     (41.4, 41.6))])
 def test_step_telemetry_flags_a_peer_on_noisy_clean_steps(step_ms, expected,
-                                                          z):
-    """A false flag that is the reference's behaviour, pinned: on step
-    times with a few per cent of noise the second window flags a
-    synthetic peer, core 14 (the slowest of the simulated chips, speed
-    0.978 at seed 0), in both packages; at the noise cap its z is 9.8
-    whatever the times.  With a 10× slowdown of this host in steps 10-15,
-    that window names the peer all the same, and only the next one names
-    the host (core 0), or, on another run's noise, neither does: the host's
-    z is 41.5 there, but FailRank's weighting favours the peer."""
+                                                          z, port, host_z):
+    """A false flag that is the reference's behaviour, pinned there and
+    fixed in the port: on step times with a few per cent of noise the
+    reference's second window flags a synthetic peer, core 14 (the slowest
+    of the simulated chips, speed 0.978 at seed 0); at the noise cap its z
+    is 9.8 whatever the times.  With a 10× slowdown of this host in steps
+    10-15, that window names the peer all the same, and only the next one
+    names the host (core 0), or, on another run's noise, neither does: the
+    host's z is 41.5 there, but FailRank's weighting favours the peer.
+    The port's ``StepTelemetry`` names only the host, whose times are the
+    only measured ones: the clean series flag nothing, and the burst's own
+    window names the host at the reference's z for it."""
     cfg = T.PodTelemetryConfig(mesh_w=4, mesh_h=4, window_steps=8)
     jcfg = JT.PodTelemetryConfig(mesh_w=4, mesh_h=4, window_steps=8)
     tel = T.StepTelemetry(cfg, seed=0, device="cpu")
@@ -252,12 +261,65 @@ def test_step_telemetry_flags_a_peer_on_noisy_clean_steps(step_ms, expected,
         jtel.record_step(ms / 1e3)
     tel.flush()
     jtel.flush()
-    for g, e in zip(tel.verdicts, jtel.verdicts):
-        _same_verdict(g, e)
-    assert [_verdict(v)[:3] for v in tel.verdicts] == [
-        (False, None, None), *expected]
-    assert z[0] < tel.verdicts[1].severity < z[1]
+    assert [_verdict(v)[:3] for v in jtel.verdicts] == [NONE, *expected]
+    assert z[0] < jtel.verdicts[1].severity < z[1]
+    assert [_verdict(v)[:3] for v in tel.verdicts] == [NONE, *port]
+    for v in tel.verdicts[1:]:
+        if host_z is None:
+            assert v.severity == 0.0 and v.action == "none"
+        else:
+            assert host_z[0] < v.severity < host_z[1]
     assert int(np.argmin(tel.pod.chip_speed)) == 14
+
+
+@pytest.mark.parametrize("step_ms", [CLEAN_CARD_STEP_MS, NOISY_STEP_MS,
+                                     INJECTED_CARD_STEP_MS,
+                                     INJECTED_MISSED_STEP_MS])
+def test_step_telemetry_names_only_the_measured_host(step_ms):
+    """The port's one departure from the reference's ``StepTelemetry``:
+    its detector reads the same windows (the synthetic traces equal the
+    reference's) and names a resource exactly when the reference's
+    detector, restricted to the measured host (core 0), would; a window
+    the reference gives to the host is the port's too, at the same
+    severity."""
+    cfg = T.PodTelemetryConfig(mesh_w=4, mesh_h=4, window_steps=8)
+    jcfg = JT.PodTelemetryConfig(mesh_w=4, mesh_h=4, window_steps=8)
+    tel = T.StepTelemetry(cfg, seed=0, device="cpu")
+    jtel = JT.StepTelemetry(jcfg, seed=0)
+    assert tel.detector.measured == {("core", 0)}
+    for ms in step_ms:
+        tel.record_step(ms / 1e3)
+        jtel.record_step(ms / 1e3)
+    tel.flush()
+    jtel.flush()
+    assert len(tel.verdicts) == len(jtel.verdicts) == 3
+    for g, e in zip(tel.verdicts, jtel.verdicts):
+        assert g.kind in (None, "core") and g.location in (None, 0)
+        if (e.kind, e.location) == ("core", 0):
+            _same_verdict(g, e)
+
+
+@pytest.mark.parametrize("topology,fault", [
+    ("mesh", ("core", 5, 10.0)), ("mesh", ("link", 11, 8.0)),
+    ("torus", ("core", 9, 10.0))])
+def test_pod_detector_measured_set(topology, fault):
+    """``PodDetector(measured=...)``: with every resource measured, the
+    reference's verdicts; with the faulty one left out, no flag from it;
+    with only it, the reference's verdict."""
+    cfg, jcfg, pod, jpod = _pods(topology, fault)
+    sim, jsim = pod.run_steps(48), jpod.run_steps(48)
+    exp = JT.PodDetector(jcfg).analyse(jsim)
+    assert _verdict(exp)[:3] == (True, fault[0], fault[1])
+    mesh = T.PodDetector(cfg, device="cpu").mesh
+    every = [("core", c) for c in range(mesh.n_cores)] + \
+        [("link", lid) for lid in range(mesh.n_links)]
+    _same_verdict(T.PodDetector(cfg, device="cpu", measured=every)
+                  .analyse(sim), exp)
+    _same_verdict(T.PodDetector(cfg, device="cpu", measured=[fault[:2]])
+                  .analyse(sim), exp)
+    rest = [r for r in every if r != fault[:2]]
+    got = T.PodDetector(cfg, device="cpu", measured=rest).analyse(sim)
+    assert (got.kind, got.location) != fault[:2]
 
 
 def test_mitigation_policy_actions():
