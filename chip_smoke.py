@@ -10,10 +10,12 @@
    ``HGMMA`` (wgmma) and no ``HMMA`` (mma.sync), the bf16 decode ``HMMA``
    on bf16 alone, the f32 backward's ``HMMA`` on TF32 alone (3xTF32); and
    of K4's: its f32 backward's product kernels
-   ``HMMA`` on TF32 alone, its bf16 backward's dy·xᵀ kernel on bf16 and
-   its other three on TF32, its bf16 forward's scores ``HMMA`` on bf16 and
-   its other two product kernels on TF32, its f32 forward none
-   (``SSD_SASS``);
+   ``HMMA`` on TF32 alone, its bf16 backward's four Hopper kernels
+   ``HGMMA`` alone (and the ``mma.sync`` design's, which the shapes TMA
+   cannot take keep:
+   dy·xᵀ on bf16, the other three on TF32), its bf16 forward's scores
+   ``HMMA`` on bf16 and its other two product kernels on TF32, its f32
+   forward none (``SSD_SASS``);
 2. holds each kernel against its plain torch version on the card: the
    Fail-Slow Sketch insert (random run streams, forced eviction, the
    promotion/steal branches, a per-record stream, a carried state, two
@@ -24,9 +26,10 @@
    precondition must raise) and the FailRank kernel (one step: s within
    1e-5, L exact; the whole iteration at n = 68, 260 and 1,028 against the
    plain loop, at 68 and 260 also with W and L forced into device memory:
-   steps equal to the reference's Pallas count, ``REFERENCE``, but on the
-   two paths of ``FAILRANK_LOOP_OFF_BY_ONE`` within one of the plain loop,
-   s and L within 1e-5, or 1e-4 when the step counts differ); then flash
+   steps equal to the reference's Pallas count, ``REFERENCE``, on every
+   path, s and L within 1e-5, or 1e-4 when the step counts differ; the
+   device-memory path's last residual at n = 1,028 equal to that of its
+   order's CPU mirror, ``failrank_iterate_ordered``); then flash
    attention through both its entry points
    (f32 test shapes, a smollm-135m prefill of 4×512, decodes over a
    rolled, partly empty 1,024-slot cache and over the serve run's own
@@ -170,7 +173,9 @@
    and whisper-large-v3's training shapes beside its mirror and SDPA's
    bf16 backward, K4's at mamba2-1.3b's beside its mirror, bounds at the
    rates of the units that run their products (bf16 tensor cores; K4's
-   two-TF32-pass share at 247.5 TFLOP/s);
+   f32 sides as three bf16 passes at 989/3 TFLOP/s, and at the ``mma.sync``
+   design's two
+   TF32 passes beside it);
 11. drives the train path, ``repro_torch.launch.train.main``, first on
    whisper-large-v3 at full size, 4 steps of 4 × 512 over the launcher's
    zero frames: K3 forward and backward exactly 96 launches a step each
@@ -254,6 +259,12 @@ does the same for K4 at ``SSD_CASES``: its f32 forward (y, the final
 state, the scratch its backward reads), its backward and its bf16 forward.
 The K3 digest also holds the bf16 prefill's and decode's outputs.
 
+    python3 chip_smoke.py --k4-bwd-times SRC
+
+times K4's bf16 backward at mamba2-1.3b's training shape, with its split
+per launch, for the port in ``SRC``: run it for two trees in turns to
+compare them on one card.
+
     python3 chip_smoke.py --k3-ablations
 
 times K3's bf16 prefill beside copies of it with one part removed (its
@@ -266,6 +277,12 @@ shapes (``K3_ABLATIONS``).
 does the same for K3's bf16 backward at its training shapes: copies
 without the dQ writers' turns and adds, without dQ at all, without the
 exponent, without the warpgroups' turns (``K3_BWD_ABLATIONS``).
+
+    python3 chip_smoke.py --k4-bwd-ablations
+
+does the same for K4's bf16 backward at mamba2-1.3b's training shape:
+copies without the products, without the three-part conversion, without
+the exponents (``K4_BWD_ABLATIONS``), each with its split per launch.
 """
 
 from __future__ import annotations
@@ -294,6 +311,9 @@ TF32X3_FLOP_PER_S = 495e12 / 3
 #: f32 x bf16 products as two TF32 products (the f32 side split, the bf16
 #: side whole), as K4's bf16 forward takes them.
 TF32X2_FLOP_PER_S = 495e12 / 2
+#: f32 x bf16 products as three bf16 products (the f32 side split into
+#: three exact bf16 parts), as K4's bf16 backward takes them on wgmma.
+BF16X3_FLOP_PER_S = BF16_FLOP_PER_S / 3
 
 #: Verdicts of the JAX reference (``repro``, recorder_impl="batched", seed 0,
 #: t0=1 s, duration 8 s, slowdown 10×): (flagged, kind, location,
@@ -312,12 +332,6 @@ REFERENCE = {
     ("failrank_loop", 260): 35,
     ("failrank_loop", 1028): 37,
 }
-
-#: (n, path) where K2's iteration stops one step from the Pallas count:
-#: the device-memory path at n = 68 and at 1,028 stops where the plain loop
-#: does (ROADMAP Queue 3, "K2's iteration count at n = 68 and 1,028").
-#: These keep the plain loop's check: steps within one of it.
-FAILRANK_LOOP_OFF_BY_ONE = {(68, "device"), (1028, "device")}
 
 
 #: The JAX reference's greedy serving on ``reference_params_numpy(cfg, 0)``
@@ -521,23 +535,30 @@ def timed(fn, reps: int) -> dict:
     return {"ms": events, "events_ms": events, "ahead": False}
 
 
-def launch_breakdown(fn, reps: int) -> dict:
+def launch_breakdown(fn, reps: int, kernels: int | None = None) -> dict:
     """Device ms per launch of each kernel that ``fn`` launches, averaged
     over the launches recorded in a profiler trace of ``reps`` calls
     (after a warm-up call); for a kernel launched once a call, its ms per
-    call.  The profiler drops records (two calls of ten in PERF.md §6), so
-    a kernel's sum over ``reps`` would undercount it.  These split a time
-    that ``timed`` measured, they do not replace it."""
+    call.  The profiler drops records (two calls of ten in PERF.md §6;
+    late in a long process, every record of a kernel in a trace), so a
+    kernel's sum over ``reps`` would undercount it.  With ``kernels``, the
+    number of kernels ``fn`` launches, a trace that recorded some of them
+    but fewer is followed by up to two more, their records added: a kernel
+    that ``fn`` does not launch can never appear.  These split a time that
+    ``timed`` measured, they do not replace it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     by_name, counts = {}, {}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device_us(prof, by_name, counts)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device_us(prof, by_name, counts)
+        if kernels is None or not by_name or len(by_name) >= kernels:
+            break
     return {name.split("(")[0][:60]: us / counts[name] / 1e3
             for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])}
 
@@ -742,14 +763,12 @@ def check_failrank_loop(kernel, plain, n=None, path=None):
     and L within 1e-5 at equal counts, else within the L1 tolerance 1e-4;
     the steps equal to the reference's Pallas count at n
     (``REFERENCE[("failrank_loop", n)]``), or within one of the plain
-    loop's where no count is pinned (the MCG of a ``detect``) or the path
-    is listed in ``FAILRANK_LOOP_OFF_BY_ONE``."""
+    loop's where no count is pinned (the MCG of a ``detect``)."""
     (s_k, l_k, it_k), (s_p, l_p, it_p) = kernel, plain
     it_k, it_p = int(it_k), int(it_p)
     err = max(float((s_k - s_p).abs().max()), float((l_k - l_p).abs().max()))
     tol = 1e-5 if it_k == it_p else 1e-4
-    want = None if n is None or (n, path) in FAILRANK_LOOP_OFF_BY_ONE \
-        else REFERENCE[("failrank_loop", n)]
+    want = None if n is None else REFERENCE[("failrank_loop", n)]
     require((it_k == want if want is not None else abs(it_k - it_p) <= 1)
             and err <= tol,
             f"failrank loop n={n} {path}: {it_k} steps (Pallas {want}, "
@@ -760,8 +779,8 @@ def check_failrank_loop(kernel, plain, n=None, path=None):
 
 def check_failrank_kernel(dev):
     from repro_torch.kernels.failrank_step import ops
-    from repro_torch.kernels.failrank_step.ref import (failrank_iterate_ref,
-                                                       failrank_step_ref)
+    from repro_torch.kernels.failrank_step.ref import (
+        failrank_iterate_ordered, failrank_iterate_ref, failrank_step_ref)
     x = failrank_inputs(dev, 260)
     s_k, l_k = ops.failrank_step(*x)
     s_p, l_p = failrank_step_ref(*x)
@@ -779,8 +798,21 @@ def check_failrank_kernel(dev):
             loops[f"{n}_device"] = check_failrank_loop(
                 ops.failrank_iterate_cuda(*x, stripes="device"),
                 failrank_iterate_ref(*x), n, "device")
+    # the device-memory path's residuals at n = 1,028 against its order's
+    # CPU mirror, bit for bit, at the stopping step and the one before
+    x = failrank_inputs(dev, 1028)
+    classes, threads = ops.row_classes(1028, on_chip=False)
+    mirror = failrank_iterate_ordered(*(t.cpu() for t in x),
+                                      classes=classes, threads=threads)[3]
+    kernel = [float(ops.failrank_iterate_cuda(
+        *x, eps=-1.0, max_iters=k, with_residual=True)[3])
+        for k in (len(mirror) - 1, len(mirror))]
+    require(kernel == mirror[-2:], f"failrank residuals at n = 1028: "
+            f"kernel {kernel}, its order's mirror {mirror[-2:]}")
     return {"step": {"n": 260, "s_max_abs_err": es, "l_max_abs_err": el},
-            "loop": loops}
+            "loop": loops, "residuals_1028_device": {
+                "steps": [len(mirror) - 1, len(mirror)], "kernel": kernel,
+                "classes": classes}}
 
 
 def allclose(got, exp, tol):
@@ -2059,9 +2091,11 @@ def time_ssd_bwd(dev, reps, bf16=False):
     2·P·N; C_i against dC's state term, 2·nl·N; per chunk and group dM·B
     and dMᵀ·C, 4·pairs·N) at the rates of the units the kernel runs them
     on (``bound_ms``: in f32 all as 3xTF32; in bf16 dy·xᵀ at the bf16 rate
-    and the rest as two TF32 passes), and at the f32 rate of CUDA cores
-    (``bound_cuda_core_ms``), and from bytes (the inputs, dy and the saved
-    scratch read once, the five gradients written once)."""
+    and the rest as three bf16 passes, and beside it at the units of the
+    ``mma.sync`` design that shapes TMA cannot take still run, the
+    rest as two TF32 passes, ``bound_two_tf32_ms``), and at the f32 rate
+    of CUDA cores (``bound_cuda_core_ms``), and from bytes (the inputs, dy
+    and the saved scratch read once, the five gradients written once)."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ops
@@ -2097,14 +2131,19 @@ def time_ssd_bwd(dev, reps, bf16=False):
                  + g * 4 * pairs * n)
     nbytes = 2 * sum(t.numel() * t.element_size() for t in args) \
         + dy.numel() * dy.element_size() + 4 * saved.numel()
-    # in bf16, dy·xᵀ on bf16 tensor cores and the rest as two TF32 passes,
-    # their mix as one rate
+    # in bf16, dy·xᵀ on bf16 tensor cores and the rest as three bf16
+    # passes (the mma.sync design: two TF32 passes), their mix as one rate
     mixed = b * h * 2 * pairs * p
-    rate = flops / (mixed / BF16_FLOP_PER_S + (flops - mixed)
-                    / TF32X2_FLOP_PER_S) if bf16 else TF32X3_FLOP_PER_S
+
+    def mix(rest):
+        return flops / (mixed / BF16_FLOP_PER_S + (flops - mixed) / rest)
+    rate = mix(BF16X3_FLOP_PER_S) if bf16 else TF32X3_FLOP_PER_S
     breakdown = launch_breakdown(kernel, reps)
     ulps = {"max_ulps_vs_plain": max(bf16_grad_ulps(got[i], exp[i])
                                      for i in (0, 3, 4))} if bf16 else {}
+    if bf16:
+        ulps["bound_two_tf32_ms"] = bound(nbytes, flops,
+                                          mix(TF32X2_FLOP_PER_S))["bound_ms"]
     return {**times(kernel, plain, None, reps), **bound(nbytes, flops, rate),
             "bound_cuda_core_ms": bound(nbytes, flops)["bound_ms"], **ulps,
             "kernel_breakdown_ms": breakdown,
@@ -2390,12 +2429,18 @@ TENSOR_CORE_KERNELS = ("flash_prefill_bf16_hopper_kernel",
                        "flash_bwd_dq_kernel", "flash_bwd_bf16_hopper_kernel")
 
 #: K4's kernels and the tensor-core instructions their SASS must hold: the
-#: f32 backward's products on TF32 alone (3xTF32), the bf16 backward's dy·xᵀ
-#: on bf16 and its other products on TF32 (two passes), the bf16 forward's
-#: scores on bf16 and its other two products on TF32 (two passes), and none
-#: in the f32 forward.
+#: f32 backward's products on TF32 alone (3xTF32); the bf16 backward's on
+#: Hopper's wgmma alone (``_hopper_``: dy·xᵀ on bf16, the other products
+#: with their f32 side as three bf16 parts), and those of the mma.sync design,
+#: which takes the shapes TMA cannot (dy·xᵀ on bf16 mma.sync, the other
+#: products on TF32, two passes); the bf16 forward's scores on bf16 and its
+#: other two products on TF32 (two passes), and none in the f32 forward.
 SSD_SASS = {"ssd_bwd_agg_kernel": "tf32", "ssd_bwd_dm_kernel": "tf32",
             "ssd_bwd_dcdb_kernel": "tf32", "ssd_bwd_du_kernel": "tf32",
+            "ssd_bwd_agg_hopper_kernel": "wgmma",
+            "ssd_bwd_dm_hopper_kernel": "wgmma",
+            "ssd_bwd_dcdb_hopper_kernel": "wgmma",
+            "ssd_bwd_du_hopper_kernel": "wgmma",
             "ssd_bwd_agg_bf16_kernel": "tf32",
             "ssd_bwd_dm_bf16_kernel": "bf16",
             "ssd_bwd_dcdb_bf16_kernel": "tf32",
@@ -3005,7 +3050,8 @@ def time_attention_bwd(dev, reps, b=4, s=512, t=512, hq=9, hk=3, d=64,
     nbytes = es * (3 * q.numel() + 2 * 2 * k.numel() + q.numel()) \
         + 4 * (lse.numel() + q_pos.numel() + k_pos.numel())
     flops = 10 * d * b * hq * live
-    breakdown = launch_breakdown(kernel, reps)
+    # K3's bf16 backward: D, then the main kernel
+    breakdown = launch_breakdown(kernel, reps, 2 if bf16 else None)
     ulps = {"max_ulps_vs_plain": max(bf16_grad_ulps(a, e)
                                      for a, e in zip(got, exp))} \
         if bf16 else {}
@@ -3837,8 +3883,12 @@ def k4_digest_main(src: str, save: str | None = None) -> int:
     reads, :func:`written_scratch`), its backward (from an initial state,
     with a final-state cotangent) and its bf16 forward on seeded inputs at
     ``SSD_CASES``; one JSON line of sha-256 digests of the outputs' bytes
-    (bf16 outputs as their exact f32 values).  With ``SAVE``, the outputs
-    also go to that ``.npz`` file, for ``--compare``."""
+    (bf16 outputs as their exact f32 values).  The bf16 backward (on the
+    bf16 forward's scratch, the same inputs) is held to its plain mirror
+    ``ssd_bwd_ref`` instead: its largest gap in bf16 ulps of each bf16
+    gradient's largest entry and, relative to each one's largest entry,
+    of the f32 ones (``bf16_backward``).  With ``SAVE``, the outputs also
+    go to that ``.npz`` file, for ``--compare``."""
     import hashlib
 
     import torch
@@ -3849,9 +3899,10 @@ def k4_digest_main(src: str, save: str | None = None) -> int:
     sys.path.insert(0, str(Path(src).resolve()))
     from repro_torch.kernels import _lib
     from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
-    arrays, out = {}, {}
+    arrays, out, bf16_bwd = {}, {}, {}
 
     def digest(label, *xs):
         h = hashlib.sha256()
@@ -3869,12 +3920,46 @@ def k4_digest_main(src: str, save: str | None = None) -> int:
         digest(f"{label} backward",
                *ops.ssd_bwd_cuda(*args, dy, ds, saved=saved, chunk=q,
                                  init_state=st0))
-        digest(f"{label} bf16", *ops.ssd_cuda(*bf16_ssd_args(args), chunk=q,
+        bargs = bf16_ssd_args(args)
+        digest(f"{label} bf16", *ops.ssd_cuda(*bargs, chunk=q,
                                               init_state=st0))
+        saved = ops.ssd_fwd_cuda(*bargs, chunk=q, init_state=st0)[2]
+        got = ops.ssd_bwd_cuda(*bargs, dy.bfloat16(), ds, saved=saved,
+                               chunk=q, init_state=st0)
+        exp = ssd_bwd_ref(*bargs, dy.bfloat16(), ds, chunk=q,
+                          init_state=st0)
+        bf16_bwd[label] = {
+            "max_ulps": max(bf16_grad_ulps(got[i], exp[i])
+                            for i in (0, 3, 4)),
+            "max_rel_f32": max(float((got[i] - exp[i]).abs().max())
+                               / float(exp[i].abs().max())
+                               for i in (1, 2, 5))}
     if save:
         np.savez(save, **arrays)
     emit({"phase": "k4_digest", "src": src, "module": _lib.__file__,
-          "digests": out})
+          "digests": out, "bf16_backward": bf16_bwd})
+    return 0
+
+
+def k4_bwd_times_main(src: str) -> int:
+    """``--k4-bwd-times SRC``: K4's bf16 backward for the port in ``SRC``
+    (as ``--k3-digest``) at mamba2-1.3b's training shape,
+    :func:`time_ssd_bwd` in bf16 with its split per launch, one JSON
+    line.  Run it for two trees in turns (parent, change, change, parent)
+    in one call to compare them on one card."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    sys.path.remove(str(ROOT / "src"))
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.kernels import _lib
+    emit({"phase": "k4_bwd_times", "src": src, "module": _lib.__file__,
+          "nvidia_smi": subprocess.run(
+              ["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"], capture_output=True, text=True,
+              timeout=60, check=True).stdout.strip(),
+          "times": time_ssd_bwd(torch.device("cuda", 0), 10, bf16=True)})
     return 0
 
 
@@ -3936,17 +4021,18 @@ K3_ABLATIONS = (
 )
 
 
-def build_ablations(table, out, entry, n_ptr, n_int) -> dict:
-    """Each variant of ``table`` (name, edits of
-    ``csrc/flash_attention.cu``, exact) built by ``nvcc`` with the
-    source's flags into ``build/<out>``, all in parallel; its C entry
-    ``entry`` (``n_ptr`` pointers, ``n_int`` ints, a stream) by name."""
+def build_ablations(table, out, entry, n_ptr, n_int,
+                    source="flash_attention") -> dict:
+    """Each variant of ``table`` (name, edits of ``csrc/<source>.cu``,
+    exact) built by ``nvcc`` with the source's flags into
+    ``build/<out>``, all in parallel; its C entry ``entry`` (``n_ptr``
+    pointers, ``n_int`` ints, a stream) by name."""
     import ctypes
 
     from repro_torch.kernels import _lib
     out_dir = ROOT / "build" / out
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = (_lib.CSRC / "flash_attention.cu").read_text()
+    src = (_lib.CSRC / f"{source}.cu").read_text()
     jobs = {}
     for name, edits, _ in table:
         text = src
@@ -3955,7 +4041,7 @@ def build_ablations(table, out, entry, n_ptr, n_int) -> dict:
             text = text.replace(a, b)
         (out_dir / f"{name}.cu").write_text(text)
         jobs[name] = subprocess.Popen(
-            [_lib._nvcc(), *_lib.flags("flash_attention"), "-o",
+            [_lib._nvcc(), *_lib.flags(source), "-o",
              str(out_dir / f"{name}.so"), str(out_dir / f"{name}.cu")],
             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     fns = {}
@@ -4109,6 +4195,76 @@ def k3_bwd_ablations_main() -> int:
                 res[label][name]["max_ulps"] = max(
                     bf16_grad_ulps(gr, e) for gr, e in zip(grads, exp))
     emit({"phase": "k3_bwd_ablations", "nvidia_smi": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip(), "ms": res})
+    return 0
+
+#: Ablations of K4's bf16 backward for ``--k4-bwd-ablations``, as
+#: ``K3_BWD_ABLATIONS``: without the products, without the f32 sides'
+#: conversion into three bf16 parts, without the exponents (ex2.approx).
+K4_BWD_ABLATIONS = (
+    ("kernel", (), True),
+    ("no_products", (("    wg64<TA, TB>(d, tile_desc(",
+                      "    if (k < 0) wg64<TA, TB>(d, tile_desc("),), False),
+    ("no_parts", (("  for (int u = 0; u < 16; ++u) {\n"
+                   "    const int e = threadIdx.x + HC * u",
+                   "  for (int u = 0; u < 0; ++u) {\n"
+                   "    const int e = threadIdx.x + HC * u"),), False),
+    ("no_exp", (('  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : '
+                 '"f"(x * 1.4426950408889634f));', "  y = x;"),), False),
+    ("no_epilogues", (("    ring.release(hh);\n    const float* ci",
+                       "    ring.release(hh);\n    if (hh >= 0) return;\n"
+                       "    const float* ci"),
+                      ("    {\n      const int hh = k - n1;",
+                       "    if (k < 0) {\n      const int hh = k - n1;")),
+     False),
+)
+
+
+def k4_bwd_ablations_main() -> int:
+    """``--k4-bwd-ablations``: K4's bf16 backward and edited copies of it
+    (``K4_BWD_ABLATIONS``), built as ``--k3-ablations`` builds its, called
+    through ``ssd_scan_backward_bf16`` on the bf16 forward's scratch at
+    mamba2-1.3b's training shape (``time_ssd_bwd``'s inputs) and timed
+    (``timed``), with the split per launch (``launch_breakdown``); one
+    JSON line of ms and, for the variant that still computes the function,
+    the largest gap to ``ssd_bwd_ref`` in bf16 ulps of each bf16
+    gradient's largest entry."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref
+    dev = torch.device("cuda", 0)
+    fns = build_ablations(K4_BWD_ABLATIONS, "k4_bwd_ablations",
+                          "ssd_scan_backward_bf16", 15, 7, source="ssd_scan")
+    case = SSD_CASES[-1]
+    b, s, h, p, g, n, q = case
+    args, _, dy, _ = ssd_bwd_inputs(dev, case, 98, False, False)
+    args, dy = bf16_ssd_args(args), dy.bfloat16()
+    saved = ops.ssd_fwd_cuda(*args, chunk=q)[2]
+    grads = [torch.empty_like(t) for t in args]
+    scratch = torch.empty(ops._load().ssd_scan_backward_scratch_floats(
+        b, s, h, p, g, n, q), dtype=torch.float32, device=dev)
+    ptrs = (*(t.data_ptr() for t in args), dy.data_ptr(), 0,
+            saved.data_ptr(), *(t.data_ptr() for t in grads), 0,
+            scratch.data_ptr(), b, s, h, p, g, n, q)
+    exp = ssd_bwd_ref(*args, dy, None, chunk=q)
+    res = {}
+    for name, _, exact in K4_BWD_ABLATIONS:
+        def call(fn=fns[name]):
+            _lib.check(fn(*ptrs, torch.cuda.current_stream(dev)
+                          .cuda_stream), "ssd_scan_backward_bf16")
+        res[name] = {"ms": timed(call, 10)["ms"],
+                     "kernel_breakdown_ms": launch_breakdown(call, 10)}
+        if exact:
+            call()
+            res[name]["max_ulps"] = max(bf16_grad_ulps(grads[i], exp[i])
+                                        for i in (0, 3, 4))
+    emit({"phase": "k4_bwd_ablations", "nvidia_smi": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip(), "ms": res})
@@ -5052,7 +5208,8 @@ def main() -> int:
          **{k: k4_bwd[k] for k in BWD_TIME_KEYS}, "plain_device": "cuda",
          "kernel_breakdown_ms": k4_bwd["kernel_breakdown_ms"],
          "sass": {fn: c for fn, c in sass.items()
-                  if fn.startswith("ssd_bwd_") and "_bf16_" not in fn},
+                  if fn.startswith("ssd_bwd_") and "_bf16_" not in fn
+                  and "_hopper_" not in fn},
          "plain_is": "ssd_bwd_ref (the kernel's algebra in torch)",
          "autograd_through_plain_ms": k4_bwd["autograd_through_plain_ms"],
          "autograd_is": "torch autograd through ssd_ref: a composite of "
@@ -5098,17 +5255,18 @@ def main() -> int:
          "max_ulps": max(k4bb_ulps, k4_bwd_bf16["max_ulps_vs_plain"]),
          "max_rel_err_f32": k4bb_rel,
          **{k: k4_bwd_bf16[k] for k in BWD_TIME_KEYS},
+         "bound_two_tf32_ms": k4_bwd_bf16["bound_two_tf32_ms"],
          "plain_device": "cuda",
          "kernel_breakdown_ms": k4_bwd_bf16["kernel_breakdown_ms"],
          "sass": {fn: c for fn, c in sass.items()
-                  if fn.startswith("ssd_bwd_") and "_bf16_" in fn},
+                  if fn.startswith("ssd_bwd_") and "_hopper_" in fn},
          "plain_is": "ssd_bwd_ref in bf16 (the kernel's rounding in torch)",
          "autograd_through_plain_ms":
              k4_bwd_bf16["autograd_through_plain_ms"],
          "forward_ms": k4_bwd_bf16["forward_ms"],
          "shape": "mamba2-1.3b train, x [4,512,64,64], b/c [4,512,8,128] "
-                  "in bf16, chunk 128, one layer (dy·xᵀ on bf16 tensor "
-                  "cores, the rest as two TF32 passes)"},
+                  "in bf16, chunk 128, one layer (wgmma: dy·xᵀ on bf16, "
+                  "the rest with the f32 side as three bf16 parts)"},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -5123,10 +5281,14 @@ if __name__ == "__main__":
         sys.exit(k3_digest_main(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--k4-digest"]:
         sys.exit(k4_digest_main(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--k4-bwd-times"]:
+        sys.exit(k4_bwd_times_main(sys.argv[2]))
     if sys.argv[1:2] == ["--compare"]:
         sys.exit(compare_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--k3-ablations"]:
         sys.exit(k3_ablations_main())
+    if sys.argv[1:2] == ["--k4-bwd-ablations"]:
+        sys.exit(k4_bwd_ablations_main())
     if sys.argv[1:2] == ["--k3-bwd-ablations"]:
         sys.exit(k3_bwd_ablations_main())
     sys.exit(main())

@@ -31,9 +31,17 @@
 // and writes its partial residuals into every block.  One cluster barrier
 // per step publishes both, then every block sums the partials in rank
 // order, so all take the same eps decision.  The host reads s, L and the
-// step count once.  Every sum runs in an order fixed by n, so two runs are
-// bit-identical.  Build with -fmad=false: L' then equals the plain torch
-// version bit for bit.
+// step count once (and, on request, the residual of the last step).  Every
+// sum runs in an order fixed by n, so two runs are bit-identical.  Build
+// with -fmad=false: L' then equals the plain torch version bit for bit.
+//
+// The order of the sums decides the step at which the residual, which sits
+// at eps, first falls below it.  A column's sum runs over `parts` classes
+// of rows (below); the shared-memory path takes nt / cw classes, the
+// device-memory path the number its caller gives (ops.DEVICE_ROW_CLASSES,
+// 39), the order in which it stops at the reference's Pallas step counts
+// at n = 68 and 1,028 (kernels/failrank_step/ref.py,
+// failrank_iterate_ordered, mirrors the order on the CPU).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -47,26 +55,33 @@ __host__ __device__ constexpr int threads(bool on_chip) { return on_chip ? 256 :
 
 struct FailRankArgs {
   const float* w; const float* l; const float* s; const float* s0;
-  float* s_out; float* l_out; int* iters;
-  int n, max_iters;
+  float* s_out; float* l_out; int* iters; float* residual;
+  int n, max_iters, device_parts;
   float one_minus_lam, lam, alpha, beta, gamma;
   double eps;
 };
 
-// Rows split into `parts` classes u = p (mod parts), so that a block of nt
-// threads has about nt (class, column) items.
-__host__ __device__ inline int col_parts(int cw, int n, int nt) {
-  const int p = nt / (cw > 0 ? cw : 1);
+// Rows split into `parts` classes u = p (mod parts): on chip nt / cw, so
+// that a block of nt threads has about nt (class, column) items; in device
+// memory `device_parts`, but at most 8 nt / cw (eight items a thread, and
+// the column partial sums within shared memory); at most n.
+__host__ __device__ inline int col_parts(int n, bool on_chip,
+                                         int device_parts) {
+  const int cw = (n + CLUSTER - 1) / CLUSTER, w = cw > 0 ? cw : 1;
+  const int cap = 8 * threads(false) / w;
+  const int p = on_chip ? threads(true) / w
+                        : device_parts < cap ? device_parts : cap;
   return p < 1 ? 1 : p > n ? n : p;
 }
 
 // Floats of shared memory: s twice, partial residuals twice, the block
 // reduction, s0 of the stripe, the column partial sums and, on chip, the W
 // and L stripes.
-__host__ __device__ inline size_t smem_floats(int n, bool on_chip) {
+__host__ __device__ inline size_t smem_floats(int n, bool on_chip,
+                                              int device_parts) {
   const int cw = (n + CLUSTER - 1) / CLUSTER;
   return (size_t)2 * n + 4 * CLUSTER + 2 * (threads(on_chip) / 32) + cw
-         + (size_t)col_parts(cw, n, threads(on_chip)) * cw
+         + (size_t)col_parts(n, on_chip, device_parts) * cw
          + (on_chip ? (size_t)2 * n * cw : 0);
 }
 
@@ -122,7 +137,8 @@ failrank_kernel(const __grid_constant__ FailRankArgs a) {
   constexpr int NT = threads(ON_CHIP), NWARPS = NT / 32;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int n = a.n, cw = (n + CLUSTER - 1) / CLUSTER, P = col_parts(cw, n, NT);
+  const int n = a.n, cw = (n + CLUSTER - 1) / CLUSTER;
+  const int P = col_parts(n, ON_CHIP, a.device_parts);
   const int c0 = min(n, rank * cw), nc = min(n, c0 + cw) - c0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   extern __shared__ float sm[];
@@ -158,6 +174,7 @@ failrank_kernel(const __grid_constant__ FailRankArgs a) {
   cluster.sync();                              // every block set up
 
   int cur = 0, done = 0;
+  float last = 0.0f;  // the residual of the last step
   for (int it = 0; it < a.max_iters; ++it) {
     const float* s = sbuf + cur * n;
     float* s_next = sbuf + (cur ^ 1) * n;
@@ -193,7 +210,8 @@ failrank_kernel(const __grid_constant__ FailRankArgs a) {
     for (int r = 0; r < CLUSTER; ++r) { rs = rs + pr[2 * r]; rl = rl + pr[2 * r + 1]; }
     cur ^= 1;
     done = it + 1;
-    if ((double)(rs + rl) < a.eps) break;      // the same in every block
+    last = rs + rl;
+    if ((double)last < a.eps) break;           // the same in every block
   }
 
   for (int v = tid; v < nc; v += NT) a.s_out[c0 + v] = sbuf[cur * n + c0 + v];
@@ -203,7 +221,10 @@ failrank_kernel(const __grid_constant__ FailRankArgs a) {
       a.l_out[(size_t)u * n + c0 + v] = Ls[u * cw + v];
     }
   }
-  if (rank == 0 && tid == 0) *a.iters = done;
+  if (rank == 0 && tid == 0) {
+    *a.iters = done;
+    if (a.residual) *a.residual = last;
+  }
 }
 
 extern "C" {
@@ -211,19 +232,23 @@ extern "C" {
 // Run up to max_iters steps on `stream` (max_iters = 1 and eps < 0: one
 // step); allocates nothing, does not synchronise, returns
 // cudaGetLastError().  All pointers are device memory, row-major [n, n]
-// for w, l and l_out; iters receives the number of steps run.  stripes:
-// 1 keeps W and L in shared memory, 0 in device memory, -1 picks shared
-// memory where they fit.
+// for w, l and l_out; iters receives the number of steps run and, unless
+// null, residual the last step's L1 residual.  stripes: 1 keeps W and L in
+// shared memory, 0 in device memory, -1 picks shared memory where they
+// fit; device_parts is the number of row classes in device memory.
 int failrank_iterate(const float* w, const float* l, const float* s,
                      const float* s0, float* s_out, float* l_out, int* iters,
-                     int n, int max_iters, float one_minus_lam, float lam,
-                     float alpha, float beta, float gamma, double eps,
-                     int stripes, void* stream) {
-  const FailRankArgs a = {w, l, s, s0, s_out, l_out, iters, n, max_iters,
-                          one_minus_lam, lam, alpha, beta, gamma, eps};
-  const bool on_chip = stripes < 0 ? smem_floats(n, true) * sizeof(float) <= 232448
-                                   : stripes == 1;
-  const size_t smem = smem_floats(n, on_chip) * sizeof(float);
+                     float* residual, int n, int max_iters, int device_parts,
+                     float one_minus_lam, float lam, float alpha, float beta,
+                     float gamma, double eps, int stripes, void* stream) {
+  if (device_parts < 1) return (int)cudaErrorInvalidValue;
+  const FailRankArgs a = {w, l, s, s0, s_out, l_out, iters, residual, n,
+                          max_iters, device_parts, one_minus_lam, lam,
+                          alpha, beta, gamma, eps};
+  const bool on_chip =
+      stripes < 0 ? smem_floats(n, true, device_parts) * sizeof(float) <= 232448
+                  : stripes == 1;
+  const size_t smem = smem_floats(n, on_chip, device_parts) * sizeof(float);
   auto kernel = on_chip ? failrank_kernel<true> : failrank_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -83,6 +83,7 @@
 // shape is staged by plain loads instead).  Scale factors (exp(cum),
 // dt) are staged once per block in shared memory.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -926,13 +927,30 @@ __global__ void __launch_bounds__(TT) ssd_output_bf16_kernel(
 // and dy in bf16, read in place and held in shared memory as bf16; dt, a,
 // dstate, the forward's scratch and every intermediate (cumsums, M, dM,
 // Shat, the states) f32; dx, db and dc rounded to bf16 once as they are
-// written, ddt, da and dinit f32.  The same seven launches (the kernels'
-// bodies are templates on the input type).  dy.x^T, both sides bf16, runs
-// on mma.sync m16n8k16 with dt_j scaling its columns after; every other
-// product has an f32 side (dM, M o E, Shat, the entry states, or a bf16
-// value times an f32 scale) and runs as the bf16 forward's do, two TF32
-// passes with the f32 side split and the bf16 side whole.  Bound by
-// operations as in f32; the bf16 inputs halve their bytes.
+// written, ddt, da and dinit f32.  No TPU twin either: the reference's
+// gradient is jax.grad of ssd_chunked in bf16.  The same seven launches
+// and scratch.  dy.x^T has two bf16 sides; every other product has an f32
+// side (dM, M o E, Shat, the entry states, or a bf16 value times an f32
+// scale).
+//
+// What bounds it, at mamba2-1.3b's training shape: bytes, 110.6 MB (x,
+// dt, b, c and their gradients 51.4 MB, dy 16.8, the forward's f32
+// scratch 42.4) in 0.033 ms at 3.35 TB/s, against 11.35 GFLOP in 0.031 ms
+// on bf16 wgmma with every f32 side in three bf16 passes (989 TFLOP/s,
+// 989/3 for those); at the mma.sync design's units (dy.x^T on bf16, the
+// rest as two TF32 passes at 495/2) operations bound it at 0.0426 ms.
+// Seven launches with f32 intermediates in device memory (the aggregates
+// and Shat, 33.5 MB, make four trips) cannot reach either: the design's
+// answer is the products at the tensor cores' full rate and the operand
+// tiles brought by TMA ahead of use (below).
+//
+// Two designs: on Hopper's wgmma with the f32 sides as three bf16 parts
+// (the section "The bf16 backward on Hopper" below), for every shape
+// whose strides TMA takes (P and N multiples of 8, Q of 4) with P <= 64
+// and N <= 128; otherwise the mma.sync design (the bodies below are templates
+// on the input type): dy.x^T on mma.sync m16n8k16 in bf16 with dt_j
+// scaling its columns after, every other product as the bf16 forward's,
+// two TF32 passes with the f32 side split and the bf16 side whole.
 
 // The backward reads x, b, c and dy in the forward's type T: f32, or bf16
 // (ssd_scan_backward_bf16).  A bf16 operand is exact in TF32, so it enters
@@ -1728,6 +1746,1080 @@ static int backward(const T* x, const float* dt, const float* a, const T* b,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 backward on Hopper: wgmma from TMA rings, f32 sides as three
+// exact bf16 parts
+// ---------------------------------------------------------------------------
+//
+// ssd_scan_backward_bf16 for the shapes it takes on this path (P and N
+// multiples of 8 and Q of 4, TMA's 16-byte strides; P <= 64, N <= 128,
+// one tile of P, two slabs of N; mamba2-1.3b and jamba take it): the same
+// seven launches and the same scratch as the mma.sync design that the other
+// shapes keep (the templated bodies above, instanced for bf16), with its
+// four product kernels redesigned.  Each is one consumer warpgroup and
+// one producer warp (160 threads):
+//   - the producer takes each operand tile by TMA into a ring of stages
+//     with full and empty mbarriers, ahead of the consumers: the bf16 ones
+//     (x, dy, b, c: 64 rows of 64 values, the 128-byte swizzle) and the
+//     f32 sides (C.B^T, dM, the entry states, Shat: 64 x 64);
+//   - the consumers run every product as wgmma m64n64k16 from shared
+//     memory, f32 accumulators in registers;
+//   - a product with an f32 side (dM, M o E, the states, or a bf16 value
+//     times an f32 scale) takes that side as three bf16 parts, hi =
+//     bf16(v), mid = bf16(v - hi), lo = v - hi - mid, whose sum is v
+//     exactly (24 bits of mantissa in 8 + 8 + 8; away from the bottom of
+//     the exponent range, where lo would be subnormal): each part times a
+//     bf16 value is exact in f32, so lo.b, mid.b and hi.b (in that order,
+//     the small terms first) into one f32 accumulator are the f32 product
+//     to the order of its sums.  The consumers write the parts, 64 x 64 a
+//     chunk, into shared memory in the swizzled layout (in the aggregates'
+//     kernel two buffers, the next head's written while this one's
+//     products run); scales along the contraction (exp(cum_i) on dy, E on
+//     M) enter before the split, scales of output rows after the product;
+//     exponents by ex2.approx.
+// The kernels:
+//   1. ssd_bwd_agg_hopper_kernel, per (chunk, group): C once, each head's
+//      dy through the ring; agg_h = (exp(cum) o dy_h)^T C, N whole;
+//   2. ssd_bwd_dm_hopper_kernel, per (causal 64 x 64 tile pair, chunk,
+//      group): dy_h.x_h^T on bf16 operands for each head in order, head
+//      h + 1's products issued (a group of their own) before head h's
+//      epilogue (E, dt, the group's dM in registers, the row and column
+//      sums of M o dM^h: rows within a warp by shuffles, each warp's
+//      column sums kept in shared memory and added across the warps in
+//      order once the heads are done) and waited for after it;
+//   3. ssd_bwd_dcdb_hopper_kernel, per (64 rows of dC or dB, 64 columns of
+//      N, chunk, group): dM's parts with B or C, then each head's state
+//      term, dy_h or x_h with the parts of S_h or Shat_h, its rows scaled
+//      after; a dC block's C_i . (state term) per head by shuffles;
+//   4. ssd_bwd_du_hopper_kernel, per (64 rows of du, chunk, head): the
+//      parts of (M o E)^T with dy, B with the parts of Shat^T, then dx and
+//      the row sums x . du and u . (state du) by shuffles (a warp owns
+//      whole rows of wgmma's accumulator).
+// Sums in a fixed order, no atomics: two runs are bit-identical.
+
+#define HC 128   // consumer threads: one warpgroup
+#define HTH 160  // and a producer warp
+#define TBYTES 8192   // a 64 x 64 bf16 tile
+#define FBYTES 16384  // a 64 x 64 f32 tile
+#define PARTS_BYTES (3 * TBYTES)
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// A wait that outlasts about 10 s of clock traps: a launch error, not a
+// hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0)
+      start = clock64();
+    else if (clock64() - start > 20000000000LL)
+      __trap();
+  }
+}
+
+// One 64 x 64 box of a 4-d bf16 tensor map at (c0, c1, c2, c3), or of a
+// 3-d f32 one at (c0, c1, c2), into shared memory, completing its bytes on
+// `bar`.
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_f32(void* dst, const CUtensorMap* map,
+                                        uint64_t* bar, int c0, int c1,
+                                        int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma's descriptor of a 64 x 64 bf16 tile at p (rows of 128 bytes, the
+// 128-byte swizzle, 1,024-byte aligned): K-major (k contiguous along a
+// row; p already offset by the k step's 32 bytes) or MN-major (k down the
+// rows; p offset by the k step's 16 rows).
+__device__ __forceinline__ uint64_t tile_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(16 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of d across the
+// asynchronous products.
+__device__ __forceinline__ void reg_fence(float* d) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The consumers' barrier (named barrier 1, 128 threads).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+#define WG_D8(C, d) \
+  C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7])
+#define WG_D32(C, d) \
+  WG_D8(C, d), WG_D8(C, (d + 8)), WG_D8(C, (d + 16)), WG_D8(C, (d + 24))
+
+// d (+)= A.B for A [64 x 16] and B [16 x 64], bf16 in shared memory; TA /
+// TB: the operand is MN-major (1) or K-major (0); acc 0 writes d only.
+template <int TA, int TB>
+__device__ __forceinline__ void wg64(float* d, uint64_t da, uint64_t db,
+                                     int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : WG_D32("+f", d)
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// d (+)= A.B over 64 of the contraction for 64 x 64 tiles a and b (four k
+// steps of 16): A K-major (row m, k) or MN-major (row k, m); B likewise.
+// Past the operands' valid depth one of the two holds zeros.
+template <int TA, int TB>
+__device__ __forceinline__ void tile_mma(float* d, const unsigned char* a,
+                                         const unsigned char* b, int acc) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    wg64<TA, TB>(d, tile_desc(a + (TA ? k * 16 * 128 : k * 32)),
+                 tile_desc(b + (TB ? k * 16 * 128 : k * 32)), acc || k > 0);
+}
+
+// As tile_mma with A given as three parts (lo, mid, hi: 64 x 64 tiles one
+// after another at a), the three products in that order; mma_parts with B
+// as the three parts.
+template <int TA, int TB>
+__device__ __forceinline__ void parts_mma(float* d, const unsigned char* a,
+                                          const unsigned char* b, int acc) {
+#pragma unroll
+  for (int part = 0; part < 3; ++part)
+    tile_mma<TA, TB>(d, a + part * TBYTES, b, acc || part > 0);
+}
+template <int TA, int TB>
+__device__ __forceinline__ void mma_parts(float* d, const unsigned char* a,
+                                          const unsigned char* b, int acc) {
+#pragma unroll
+  for (int part = 0; part < 3; ++part)
+    tile_mma<TA, TB>(d, a, b + part * TBYTES, acc || part > 0);
+}
+
+// Byte offset of element (r, c) of a 64 x 64 bf16 tile kept as TMA writes
+// it with the 128-byte swizzle: rows of 128 bytes, 16-byte chunk c / 8 of
+// row r at chunk (c / 8) ^ (r % 8).
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+__device__ __forceinline__ unsigned bits2(__nv_bfloat162 v) {
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Two values as hi + mid + lo, each a pair of bf16 values (the first in
+// the low half), the sums exact (the subtractions are exact and never
+// contracted).
+__device__ __forceinline__ void split3(float2 v, unsigned& hi,
+                                       unsigned& mid, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  const float2 hf = __bfloat1622float2(h);
+  const float2 r = make_float2(__fsub_rn(v.x, hf.x), __fsub_rn(v.y, hf.y));
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r.x, r.y);
+  const float2 mf = __bfloat1622float2(m);
+  hi = bits2(h);
+  mid = bits2(m);
+  lo = bits2(__floats2bfloat162_rn(__fsub_rn(r.x, mf.x),
+                                   __fsub_rn(r.y, mf.y)));
+}
+
+// exp(x) by the SFU's ex2.approx (a few ulps of f32; the bf16 backward's
+// decays and scales).
+__device__ __forceinline__ float fast_exp(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// The parts (lo, mid, hi tiles at `parts`) of a 64 x 64 f32 chunk: each of
+// the 128 consumers takes 16 pairs (r, c..c+1), 32 pairs a row, v(r, c)
+// giving the pair's two values; then the writes are made visible to wgmma
+// (the async proxy).  The caller meets the other consumers before a
+// product reads them.
+template <class F>
+__device__ __forceinline__ void write_parts(unsigned char* parts, F v) {
+#pragma unroll 8
+  for (int u = 0; u < 16; ++u) {
+    const int e = threadIdx.x + HC * u, r = e >> 5, c = (e & 31) * 2;
+    unsigned hi, mid, lo;
+    split3(v(r, c), hi, mid, lo);
+    const int at = sw(r, c);
+    *reinterpret_cast<unsigned*>(parts + at) = lo;
+    *reinterpret_cast<unsigned*>(parts + TBYTES + at) = mid;
+    *reinterpret_cast<unsigned*>(parts + 2 * TBYTES + at) = hi;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Elements (r, c) and (r, c + 1) of an f32 tile that TMA wrote (rows of 64
+// floats), or element (r, c) of a bf16 one, as f32.
+__device__ __forceinline__ float2 f32_at(const unsigned char* t, int r,
+                                         int c) {
+  return *reinterpret_cast<const float2*>(t + r * 256 + c * 4);
+}
+__device__ __forceinline__ float tile_at(const unsigned char* t, int r,
+                                         int c) {
+  return __bfloat162float(*reinterpret_cast<const bf16*>(t + sw(r, c)));
+}
+
+// wgmma's accumulator of a 64 x 64 product: element 4 jj + 2 i2 + c of
+// this consumer is row acc_r(i2), column acc_c(jj, c).
+__device__ __forceinline__ int acc_r(int i2) {
+  return 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2) + 8 * i2;
+}
+__device__ __forceinline__ int acc_c(int jj, int c) {
+  return 8 * jj + 2 * (threadIdx.x & 3) + c;
+}
+
+// The sum over a row of the accumulator's 64 columns, in the layout's
+// order: this thread's 16 values, then its quad's four lanes by shuffles
+// (the same in all four lanes).
+__device__ __forceinline__ float quad_row_sum(const float* v, int i2) {
+  float s = 0.0f;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+    s += v[4 * jj + 2 * i2] + v[4 * jj + 2 * i2 + 1];
+  s += __shfl_xor_sync(FULL, s, 1);
+  s += __shfl_xor_sync(FULL, s, 2);
+  return s;
+}
+
+// A ring of `stages` stages of `bytes` each: step k sits in stage k %
+// stages, its use k / stages.  The producer's begin() waits for the stage
+// to be free and sets the bytes its copies will bring; the consumers
+// wait() for them and release() the stage once their products that read
+// it are complete (one arrival a warp).
+struct Ring {
+  unsigned char* base;
+  uint64_t* full;
+  uint64_t* empty;
+  int stages, bytes;
+  __device__ unsigned char* stage(int k) const {
+    return base + (k % stages) * bytes;
+  }
+  __device__ uint64_t* bar(int k) const { return &full[k % stages]; }
+  __device__ unsigned char* begin(int k, unsigned tx) const {
+    const int s = k % stages;
+    mbar_wait(&empty[s], ((k / stages) & 1) ^ 1);
+    mbar_expect_tx(&full[s], tx);
+    return base + s * bytes;
+  }
+  __device__ void wait(int k) const {
+    mbar_wait(&full[k % stages], (k / stages) & 1);
+  }
+  __device__ void release(int k) const {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[k % stages]);
+  }
+};
+
+// The dynamic shared memory, 1,024-byte aligned: `bytes` of tiles, then
+// floats, then mbarriers.
+__device__ __forceinline__ unsigned char* smem_base(unsigned char* raw) {
+  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
+}
+
+static size_t hsmem_bytes(size_t bytes, int floats, int bars) {
+  return 1024 + bytes + ((floats * 4 + 7) & ~7) + 8 * bars;
+}
+
+// The ring over `stages` stages of `bytes` at `tiles`, its barriers at
+// `bars` and `extra` more single-arrival barriers after them; thread 0
+// sets them up and the block meets.
+__device__ __forceinline__ Ring ring_init(unsigned char* tiles,
+                                          uint64_t* bars, int stages,
+                                          int bytes, int extra) {
+  Ring r{tiles, bars, bars + stages, stages, bytes};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&r.full[s], 1);
+      mbar_init(&r.empty[s], HC / 32);
+    }
+    for (int s = 0; s < extra; ++s) mbar_init(&bars[2 * stages + s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// 1. agg_h[p][n] = sum_i exp(cum_i) dy_h[i][p] C[i][n] for each head h of
+// group g in order: C [rows i][N] once (two slabs of 64 columns per 64
+// rows), dy_h's row tiles through the ring; A = (exp(cum) o dy_h)^T as
+// parts, MN-major (rows i), B = C MN-major.
+#define AGG_STAGES 4
+__global__ void __launch_bounds__(HTH, 1) ssd_bwd_agg_hopper_kernel(
+    const __grid_constant__ CUtensorMap tm_dy,
+    const __grid_constant__ CUtensorMap tm_c, const float* __restrict__ cum,
+    float* __restrict__ hat, int S, int H, int P, int G, int N, int Q,
+    int nc) {
+  extern __shared__ __align__(1024) unsigned char hraw[];
+  unsigned char* sm = smem_base(hraw);
+  const int rep = H / G, nt = (Q + TILE - 1) / TILE, nsl = (N + 63) / 64;
+  const int c = blockIdx.x % nc, g = blockIdx.x / nc, b = blockIdx.y;
+  const int t0 = c * Q, nl = min(Q, S - t0);
+  // C [row tile][slab], the ring, two part buffers of two row tiles
+  unsigned char* ct = sm;
+  unsigned char* parts = sm + (4 + AGG_STAGES) * TBYTES;
+  float* ec = reinterpret_cast<float*>(parts + 4 * PARTS_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ec + rep * 128);
+  const Ring ring = ring_init(sm + 4 * TBYTES, bars, AGG_STAGES, TBYTES, 1);
+  uint64_t* c_full = bars + 2 * AGG_STAGES;
+  const size_t ch0 = (size_t)(b * nc + c) * H + g * rep;
+
+  if (threadIdx.x >= HC) {  // the producer
+    if (threadIdx.x == HC) {
+      mbar_expect_tx(c_full, nt * nsl * TBYTES);
+      for (int rt = 0; rt < nt; ++rt)
+        for (int s = 0; s < nsl; ++s)
+          tma_tile(ct + (rt * 2 + s) * TBYTES, &tm_c, c_full, 64 * s, g,
+                   t0 + 64 * rt, b);
+      for (int k = 0; k < rep * nt; ++k)
+        tma_tile(ring.begin(k, TBYTES), &tm_dy, ring.bar(k), 0,
+                 g * rep + k / nt, t0 + 64 * (k % nt), b);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < rep * nt * 64; e += HC) {
+    const int hh = e / (nt * 64), i = e % (nt * 64);
+    ec[e] = i < nl ? expf(cum[(ch0 + hh) * Q + i]) : 0.0f;
+  }
+  consumers_sync();
+  mbar_wait(c_full, 0);
+  float acc[2][32];
+  // the parts of head hh into buffer hh & 1: row tile rt of A^T (rows i,
+  // columns p)
+  auto convert = [&](int hh) {
+    unsigned char* pb = parts + (hh & 1) * 2 * PARTS_BYTES;
+    for (int rt = 0; rt < nt; ++rt) {
+      const int k = hh * nt + rt;
+      ring.wait(k);
+      const unsigned char* dyt = ring.stage(k);
+      const float* e = ec + hh * nt * 64 + 64 * rt;
+      write_parts(pb + rt * PARTS_BYTES, [&](int r, int cc) {
+        return make_float2(__fmul_rn(e[r], tile_at(dyt, r, cc)),
+                           __fmul_rn(e[r], tile_at(dyt, r, cc + 1)));
+      });
+      ring.release(k);
+    }
+  };
+  convert(0);
+  consumers_sync();
+  for (int hh = 0; hh < rep; ++hh) {
+    const unsigned char* pb = parts + (hh & 1) * 2 * PARTS_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int rt = 0; rt < 2; ++rt)
+        if (s < nsl && rt < nt)
+          parts_mma<1, 1>(acc[s], pb + rt * PARTS_BYTES,
+                          ct + (rt * 2 + s) * TBYTES, rt > 0);
+    wgmma_commit();
+    if (hh + 1 < rep) convert(hh + 1);  // behind the products
+    wgmma_wait<0>();
+    reg_fence(acc[0]);
+    reg_fence(acc[1]);
+    float* out = hat + (ch0 + hh) * P * N;
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) {
+          const int p = acc_r(i2), n = 64 * s + acc_c(jj, 0);
+          if (s < nsl && p < P && n < N)
+            *reinterpret_cast<float2*>(out + (size_t)p * N + n) =
+                make_float2(acc[s][4 * jj + 2 * i2],
+                            acc[s][4 * jj + 2 * i2 + 1]);
+        }
+    consumers_sync();  // the next head's parts are all written
+  }
+}
+
+// 2. dM per causal tile pair (rows i of tile it, columns j of tile jt <=
+// it), chunk and group, the group's heads in order: dy_h.x_h^T on bf16
+// operands (both K-major), E_ij dt_j, the group's dM in registers, and the
+// head's row and column sums of M o dM^h below the diagonal (rpart,
+// cpart, the layouts of ssd_bwd_dm_kernel).  Head h + 1's products are
+// issued before head h's epilogue and waited for after it, two
+// accumulators taking turns.
+#define DM_STAGES 3  // heads in flight: dy and x tiles
+#define DM_MS (TILE + 4)
+__global__ void __launch_bounds__(HTH, 3) ssd_bwd_dm_hopper_kernel(
+    const __grid_constant__ CUtensorMap tm_x,
+    const __grid_constant__ CUtensorMap tm_dy, const float* __restrict__ dt,
+    const float* __restrict__ cbt, const float* __restrict__ cum,
+    float* __restrict__ dm, float* __restrict__ rpart,
+    float* __restrict__ cpart, int S, int H, int P, int G, int Q, int nc) {
+  extern __shared__ __align__(1024) unsigned char hraw[];
+  unsigned char* sm = smem_base(hraw);
+  const int rep = H / G, n_qt = (Q + TILE - 1) / TILE;
+  int jt, it;
+  tile_pair(jt, it);
+  const int i0 = it * TILE, j0 = jt * TILE;
+  const int c = blockIdx.y % nc, g = blockIdx.y / nc, b = blockIdx.z;
+  const int t0 = c * Q, nl = min(Q, S - t0);
+  float* mt = reinterpret_cast<float*>(sm + DM_STAGES * 2 * TBYTES);
+  float* cu_i = mt + TILE * DM_MS;  // [rep][64]
+  float* cu_j = cu_i + rep * TILE;
+  float* dt_j = cu_j + rep * TILE;
+  float* colp = dt_j + rep * TILE;  // [rep][4 warps][64] column sums
+  const Ring ring =
+      ring_init(sm, reinterpret_cast<uint64_t*>(colp + rep * 4 * TILE),
+                DM_STAGES, 2 * TBYTES, 0);
+  const size_t ch0 = (size_t)(b * nc + c) * H + g * rep;
+  const size_t row0 = (size_t)b * S + t0;
+  if (threadIdx.x >= HC) {
+    if (threadIdx.x == HC)
+      for (int hh = 0; hh < rep; ++hh) {  // dy (rows i), x (rows j)
+        unsigned char* st = ring.begin(hh, 2 * TBYTES);
+        tma_tile(st, &tm_dy, ring.bar(hh), 0, g * rep + hh, t0 + i0, b);
+        tma_tile(st + TBYTES, &tm_x, ring.bar(hh), 0, g * rep + hh, t0 + j0,
+                 b);
+      }
+    return;
+  }
+  const float* mg = cbt + ((size_t)(b * nc + c) * G + g) * Q * Q;
+  for (int e = threadIdx.x; e < TILE * TILE; e += HC) {
+    const int q = e / TILE, r = e % TILE;  // M's tile, row j0 + q
+    mt[q * DM_MS + r] =
+        j0 + q < Q && i0 + r < Q ? mg[(size_t)(j0 + q) * Q + i0 + r] : 0.0f;
+  }
+  for (int e = threadIdx.x; e < rep * TILE; e += HC) {
+    const int hh = e / TILE, r = e % TILE;
+    const float* cu = cum + (ch0 + hh) * Q;
+    cu_i[e] = i0 + r < Q ? cu[i0 + r] : 0.0f;
+    cu_j[e] = j0 + r < Q ? cu[j0 + r] : 0.0f;
+    dt_j[e] = j0 + r < nl ? dt[(row0 + j0 + r) * H + g * rep + hh] : 0.0f;
+  }
+  consumers_sync();
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  float dacc[32], ha[32], hb[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dacc[e] = 0.0f;
+  auto issue = [&](float* h, int hh) {
+    ring.wait(hh);
+    wgmma_fence();
+    tile_mma<0, 0>(h, ring.stage(hh), ring.stage(hh) + TBYTES, 0);
+    wgmma_commit();
+  };
+  // head hh's epilogue on its product h: E, dt, dM; the row sums of M o
+  // dM^h by shuffles within the warp, its warp's column sums into colp
+  auto epilogue = [&](float* h, int hh) {
+    reg_fence(h);
+    ring.release(hh);
+    const float* ci = cu_i + hh * TILE;
+    const float* cj = cu_j + hh * TILE;
+    const float* dth = dt_j + hh * TILE;
+    float rs[2] = {0.0f, 0.0f}, cs[16];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        float gv[2];
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) {
+          const int e = 4 * jj + 2 * i2 + cc;
+          const int r = acc_r(i2), q = acc_c(jj, cc);
+          const int i = i0 + r, j = j0 + q;
+          // computed everywhere, kept where live: no branches
+          const float ex = fast_exp(fminf(ci[r] - cj[q], 0.0f));
+          const float d = j <= i && i < nl ? ex * (dth[q] * h[e]) : 0.0f;
+          gv[i2] = j < i ? mt[q * DM_MS + r] * d : 0.0f;
+          dacc[e] += d;
+          rs[i2] += gv[i2];
+        }
+        cs[2 * jj + cc] = gv[0] + gv[1];
+      }
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      float v = rs[i2];
+      v += __shfl_xor_sync(FULL, v, 1);
+      v += __shfl_xor_sync(FULL, v, 2);
+      const int r = acc_r(i2);
+      if ((lane & 3) == 0 && i0 + r < Q)
+        rpart[((ch0 + hh) * n_qt + jt) * Q + i0 + r] = v;
+    }
+    float* cw = colp + (hh * 4 + w) * TILE;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      float v = cs[k];
+      v += __shfl_xor_sync(FULL, v, 4);
+      v += __shfl_xor_sync(FULL, v, 8);
+      v += __shfl_xor_sync(FULL, v, 16);
+      if (lane < 4) cw[acc_c(k >> 1, k & 1)] = v;
+    }
+  };
+  issue(ha, 0);
+  int hh = 0;
+  for (; hh + 2 < rep; hh += 2) {  // heads hh + 1 and hh + 2 follow
+    issue(hb, hh + 1);
+    wgmma_wait<1>();
+    epilogue(ha, hh);
+    issue(ha, hh + 2);
+    wgmma_wait<1>();
+    epilogue(hb, hh + 1);
+  }
+  if (hh + 1 < rep) {  // the last two heads
+    issue(hb, hh + 1);
+    wgmma_wait<1>();
+    epilogue(ha, hh);
+    wgmma_wait<0>();
+    epilogue(hb, hh + 1);
+  } else {
+    wgmma_wait<0>();
+    epilogue(ha, hh);
+  }
+  // each head's column sums: its four warps' in order
+  consumers_sync();
+  for (int e = threadIdx.x; e < rep * TILE; e += HC) {
+    const int hh = e / TILE, q = e % TILE;
+    const float* cw = colp + hh * 4 * TILE + q;
+    if (j0 + q < Q)
+      cpart[((ch0 + hh) * n_qt + it) * Q + j0 + q] =
+          ((cw[0] + cw[TILE]) + cw[2 * TILE]) + cw[3 * TILE];
+  }
+  float* dmg = dm + ((size_t)(b * nc + c) * G + g) * Q * Q;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      const int i = i0 + acc_r(i2), j = j0 + acc_c(jj, 0);
+      if (i < Q && j < Q) {
+        float* o = dmg + (size_t)i * Q + j;
+        o[0] = dacc[4 * jj + 2 * i2];
+        if (j + 1 < Q) o[1] = dacc[4 * jj + 2 * i2 + 1];
+      }
+    }
+}
+
+// 3. 64 rows (r0..) and 64 columns (n0..) of dC (DB false) or dB for a
+// chunk and group: dM's parts with B_j (dC_i = sum_{j<=i} dM_ij B_j; A =
+// dM K-major) or with C_i (dB_j = sum_{i>=j} dM_ij C_i; A = dM^T,
+// MN-major), 64 of the contraction a step; then for each head in order
+// dy_h or x_h (K-major, rows r) with the parts of S_h or Shat_h (MN-major,
+// rows p), its rows scaled after by exp(cum_i) or exp(cum_end - cum_j)
+// dt_j; a dC block writes each head's C_i . (state term) over its columns
+// to dcs (the layout of ssd_bwd_dcdb_kernel).  A stage holds a step's bf16
+// tile and its f32 tile (dM's, or the head's state's), both by TMA.
+#define DCDB_STAGES 3
+template <bool DB>
+__device__ __forceinline__ void dcdb_hopper(
+    const CUtensorMap* tm_side, const CUtensorMap* tm_other,
+    const CUtensorMap* tm_c, const CUtensorMap* tm_dm,
+    const CUtensorMap* tm_mats, const float* __restrict__ dt,
+    const float* __restrict__ cum, bf16* __restrict__ out,
+    float* __restrict__ dcs, int S, int H, int P, int G, int N, int Q,
+    int nc, int rt, int ntile) {
+  extern __shared__ __align__(1024) unsigned char hraw[];
+  unsigned char* sm = smem_base(hraw);
+  const int rep = H / G, n_nt = (N + 63) / 64;
+  const int r0 = rt * TILE, n0 = ntile * 64;
+  const int c = blockIdx.y % nc, g = blockIdx.y / nc, b = blockIdx.z;
+  const int t0 = c * Q, nl = min(Q, S - t0);
+  if (r0 >= nl) return;
+  // dM's contraction: j in [0, min(nl, r0 + 64)) for dC, i in [r0, nl)
+  // for dB, in steps of 64
+  const int k_lo = DB ? r0 : 0, k_hi = DB ? nl : min(nl, r0 + TILE);
+  const int n1 = (k_hi - k_lo + 63) / 64;
+  constexpr int SB = TBYTES + FBYTES;  // a stage: bf16 tile, f32 tile
+  unsigned char* parts = sm + DCDB_STAGES * SB;
+  unsigned char* ct = parts + PARTS_BYTES;  // dC: C [rows i][n0..]
+  float* sc = reinterpret_cast<float*>(ct + TBYTES);  // [rep][64]
+  const Ring ring =
+      ring_init(sm, reinterpret_cast<uint64_t*>(sc + rep * TILE),
+                DCDB_STAGES, SB, 1);
+  uint64_t* c_full = ring.empty + DCDB_STAGES;
+  const size_t ch0 = (size_t)(b * nc + c) * H + g * rep;
+  const size_t row0 = (size_t)b * S + t0;
+  const int gm = (b * nc + c) * G + g;  // dM's matrix
+  if (threadIdx.x >= HC) {
+    if (threadIdx.x == HC) {
+      if (!DB) {
+        mbar_expect_tx(c_full, TBYTES);
+        tma_tile(ct, tm_c, c_full, n0, g, t0 + r0, b);
+      }
+      for (int k = 0; k < n1 + rep; ++k) {
+        unsigned char* st = ring.begin(k, TBYTES + FBYTES);
+        if (k < n1) {  // B_j or C_i rows kb.., columns n0..; dM
+          const int kb = k_lo + 64 * k;
+          tma_tile(st, tm_other, ring.bar(k), n0, g, t0 + kb, b);
+          tma_f32(st + TBYTES, tm_dm, ring.bar(k), DB ? r0 : kb,
+                  DB ? kb : r0, gm);
+        } else {  // dy_h or x_h rows r0.., columns p; S_h or Shat_h
+          const int h = g * rep + k - n1;
+          tma_tile(st, tm_side, ring.bar(k), 0, h, t0 + r0, b);
+          tma_f32(st + TBYTES, tm_mats, ring.bar(k), n0, 0,
+                  (b * nc + c) * H + h);
+        }
+      }
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < rep * TILE; e += HC) {
+    const int hh = e / TILE, i = r0 + e % TILE;
+    const float* cu = cum + (ch0 + hh) * Q;
+    sc[e] = i >= nl ? 0.0f
+            : DB    ? expf(cu[Q - 1] - cu[i]) *
+                       dt[(row0 + i) * H + g * rep + hh]
+                    : expf(cu[i]);
+  }
+  // the parts of step k: dM's (rows r, columns k of the contraction for
+  // dC; rows k, columns r for dB; zero past the chunk) or the head's
+  // state's (rows p, columns n; TMA's zeros past P and N)
+  auto convert = [&](int k) {
+    unsigned char* pb = parts;
+    ring.wait(k);
+    const unsigned char* ft = ring.stage(k) + TBYTES;
+    if (k < n1) {
+      const int kb = k_lo + 64 * k;
+      write_parts(pb, [&](int r, int cc) {
+        const float2 v = f32_at(ft, r, cc);
+        const int kk = DB ? kb + r : kb + cc;  // the contraction index
+        return make_float2(kk < k_hi ? v.x : 0.0f,
+                           (DB ? kk : kk + 1) < k_hi ? v.y : 0.0f);
+      });
+    } else {
+      write_parts(pb, [&](int r, int cc) { return f32_at(ft, r, cc); });
+    }
+  };
+  float acc[32], hacc[32];
+  if (!DB) mbar_wait(c_full, 0);
+  for (int k = 0; k < n1; ++k) {  // dM's steps
+    convert(k);
+    consumers_sync();  // the step's parts are all written
+    wgmma_fence();
+    parts_mma<DB ? 1 : 0, 1>(acc, parts, ring.stage(k), k > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    ring.release(k);
+  }
+  for (int k = n1; k < n1 + rep; ++k) {  // the heads' state terms
+    convert(k);
+    consumers_sync();
+    wgmma_fence();
+    mma_parts<0, 1>(hacc, ring.stage(k), parts, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(hacc);
+    ring.release(k);
+    {
+      const int hh = k - n1;
+      const float* sch = sc + hh * TILE;
+      float cs[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = acc_r((e >> 1) & 1), q = acc_c(e >> 2, e & 1);
+        const float v = hacc[e] * sch[r];
+        acc[e] += v;
+        if (!DB) cs[e] = tile_at(ct, r, q) * v;
+      }
+      if (!DB)
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) {
+          const float d = quad_row_sum(cs, i2);
+          const int r = acc_r(i2);
+          if ((threadIdx.x & 3) == 0 && r0 + r < nl)
+            dcs[((ch0 + hh) * n_nt + ntile) * Q + r0 + r] = d;
+        }
+    }
+  }
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      const int r = r0 + acc_r(i2), n = n0 + acc_c(jj, 0);
+      if (r < nl && n < N)
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + (row0 + r) * G * N + (size_t)g * N + n) =
+            __floats2bfloat162_rn(acc[4 * jj + 2 * i2],
+                                  acc[4 * jj + 2 * i2 + 1]);
+    }
+}
+
+__global__ void __launch_bounds__(HTH, 2) ssd_bwd_dcdb_hopper_kernel(
+    const __grid_constant__ CUtensorMap tm_x,
+    const __grid_constant__ CUtensorMap tm_dy,
+    const __grid_constant__ CUtensorMap tm_b,
+    const __grid_constant__ CUtensorMap tm_c,
+    const __grid_constant__ CUtensorMap tm_dm,
+    const __grid_constant__ CUtensorMap tm_states,
+    const __grid_constant__ CUtensorMap tm_hat, const float* __restrict__ dt,
+    const float* __restrict__ cum, bf16* __restrict__ db,
+    bf16* __restrict__ dc, float* __restrict__ dcs, int S, int H, int P,
+    int G, int N, int Q, int nc) {
+  const int nt = (Q + TILE - 1) / TILE, n_nt = (N + 63) / 64;
+  const int per = nt * n_nt, x = blockIdx.x % per;
+  if ((int)blockIdx.x < per)
+    dcdb_hopper<false>(&tm_dy, &tm_b, &tm_c, &tm_dm, &tm_states, dt, cum, dc,
+                       dcs, S, H, P, G, N, Q, nc, x / n_nt, x % n_nt);
+  else
+    dcdb_hopper<true>(&tm_x, &tm_c, &tm_c, &tm_dm, &tm_hat, dt, cum, db, dcs,
+                      S, H, P, G, N, Q, nc, x / n_nt, x % n_nt);
+}
+
+// 4. 64 rows (j0..) of du = (M o E)^T dy + exp(cum_end - cum_j) B Shat^T
+// for one head (P <= 64 columns): the parts of (M o E)^T (K-major, from
+// C.B^T's rows j) with dy (MN-major), 64 of i a step; then B (K-major)
+// with the parts of Shat (rows p, columns n: K-major), 64 of n a step;
+// then dx and the row sums x . du and u . (state du) (xdpart, wpart).  A
+// stage holds a step's bf16 tile and its f32 tile (C.B^T's or Shat's).
+#define DU_STAGES 3
+__global__ void __launch_bounds__(HTH, 2) ssd_bwd_du_hopper_kernel(
+    const __grid_constant__ CUtensorMap tm_dy,
+    const __grid_constant__ CUtensorMap tm_b,
+    const __grid_constant__ CUtensorMap tm_cbt,
+    const __grid_constant__ CUtensorMap tm_hat, const bf16* __restrict__ x,
+    const float* __restrict__ dt, const float* __restrict__ cum,
+    bf16* __restrict__ dx, float* __restrict__ xdpart,
+    float* __restrict__ wpart, int S, int H, int P, int G, int N, int Q,
+    int nc) {
+  extern __shared__ __align__(1024) unsigned char hraw[];
+  unsigned char* sm = smem_base(hraw);
+  const int j0 = blockIdx.x * TILE;
+  const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
+  const int g = h / (H / G), t0 = c * Q, nl = min(Q, S - t0);
+  if (j0 >= nl) return;
+  const int n1 = (nl - j0 + 63) / 64, n2 = (N + 63) / 64;
+  constexpr int SB = TBYTES + FBYTES;
+  unsigned char* parts = sm + DU_STAGES * SB;
+  float* cum_s = reinterpret_cast<float*>(parts + PARTS_BYTES);
+  float* dt_s = cum_s + MAX_Q;
+  const Ring ring = ring_init(
+      sm, reinterpret_cast<uint64_t*>(dt_s + MAX_Q), DU_STAGES, SB, 0);
+  const size_t ch = (size_t)(b * nc + c) * H + h, row0 = (size_t)b * S + t0;
+  if (threadIdx.x >= HC) {
+    if (threadIdx.x == HC)
+      for (int k = 0; k < n1 + n2; ++k) {
+        unsigned char* st = ring.begin(k, TBYTES + FBYTES);
+        if (k < n1) {  // dy rows kb.., columns p; C.B^T rows j0.., i = kb..
+          const int kb = j0 + 64 * k;
+          tma_tile(st, &tm_dy, ring.bar(k), 0, h, t0 + kb, b);
+          tma_f32(st + TBYTES, &tm_cbt, ring.bar(k), kb, j0,
+                  (b * nc + c) * G + g);
+        } else {  // B rows j0.., columns nb..; Shat rows p, columns nb..
+          const int nb = 64 * (k - n1);
+          tma_tile(st, &tm_b, ring.bar(k), nb, g, t0 + j0, b);
+          tma_f32(st + TBYTES, &tm_hat, ring.bar(k), nb, 0, (int)ch);
+        }
+      }
+    return;
+  }
+  for (int j = threadIdx.x; j < MAX_Q; j += HC) {
+    cum_s[j] = j < Q ? cum[ch * Q + j] : 0.0f;
+    dt_s[j] = j < nl ? dt[(row0 + j) * H + h] : 0.0f;
+  }
+  consumers_sync();
+  auto convert = [&](int k) {
+    unsigned char* pb = parts;
+    ring.wait(k);
+    const unsigned char* ft = ring.stage(k) + TBYTES;
+    if (k < n1) {  // (M o E)^T: rows j, columns i = kb + cc
+      const int kb = j0 + 64 * k;
+      write_parts(pb, [&](int r, int cc) {
+        const int j = j0 + r;
+        const float2 m = f32_at(ft, r, cc);
+        float v[2] = {m.x, m.y};
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int i = kb + cc + u;
+          v[u] = i >= j && i < nl
+                     ? v[u] * fast_exp(fminf(cum_s[i] - cum_s[j], 0.0f))
+                     : 0.0f;
+        }
+        return make_float2(v[0], v[1]);
+      });
+    } else {  // Shat: rows p, columns n (TMA's zeros past P and N)
+      write_parts(pb, [&](int r, int cc) { return f32_at(ft, r, cc); });
+    }
+  };
+  float ai[32], as[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) ai[e] = as[e] = 0.0f;
+  for (int k = 0; k < n1; ++k) {  // (M o E)^T dy
+    convert(k);
+    consumers_sync();  // the step's parts are all written
+    wgmma_fence();
+    parts_mma<0, 1>(ai, parts, ring.stage(k), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(ai);
+    ring.release(k);
+  }
+  for (int k = n1; k < n1 + n2; ++k) {  // B Shat^T
+    convert(k);
+    consumers_sync();
+    wgmma_fence();
+    mma_parts<0, 0>(as, ring.stage(k), parts, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(as);
+    ring.release(k);
+  }
+  const float cum_end = cum_s[Q - 1];
+  const size_t hp = (size_t)H * P;
+  float xd[32], wv[32];
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      const int r = acc_r(i2), j = j0 + r, p = acc_c(jj, 0);
+      const int e = 4 * jj + 2 * i2;
+      const bool live = j < nl && p < P;
+      const size_t at = (row0 + j) * hp + (size_t)h * P + p;
+      const float2 xs = live ? __bfloat1622float2(
+                                   *reinterpret_cast<const __nv_bfloat162*>(
+                                       x + at))
+                             : make_float2(0.0f, 0.0f);
+      const float ws = live ? expf(cum_end - cum_s[j]) : 0.0f;
+      const float sd0 = ws * as[e], sd1 = ws * as[e + 1];
+      const float du0 = ai[e] + sd0, du1 = ai[e + 1] + sd1;
+      if (live)
+        *reinterpret_cast<__nv_bfloat162*>(dx + at) =
+            __floats2bfloat162_rn(dt_s[j] * du0, dt_s[j] * du1);
+      xd[e] = xs.x * du0;
+      xd[e + 1] = xs.y * du1;
+      wv[e] = live ? dt_s[j] * xs.x * sd0 : 0.0f;
+      wv[e + 1] = live ? dt_s[j] * xs.y * sd1 : 0.0f;
+    }
+#pragma unroll
+  for (int i2 = 0; i2 < 2; ++i2) {
+    const float a = quad_row_sum(xd, i2), w = quad_row_sum(wv, i2);
+    const int j = j0 + acc_r(i2);
+    if ((threadIdx.x & 3) == 0 && j < nl) {
+      xdpart[ch * Q + j] = a;  // one p tile (P <= 64)
+      wpart[ch * Q + j] = w;
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a libcuda function, through the runtime's
+// entry-point query (the library does not link libcuda); null if the
+// installed libcuda lacks it.
+static EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    return found == cudaDriverEntryPointSuccess ? (EncodeTiledFn)p : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a row-major [B, rows, heads, D] bf16 tensor in place:
+// boxes of 64 values of one head over 64 rows, the 128-byte swizzle;
+// elements out of bounds (columns D.., rows past `rows`) read as 0.
+static int encode_tiles(CUtensorMap* map, const bf16* base, int B, int rows,
+                        int heads, int D) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)rows * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<bf16*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The TMA map of a row-major [mats, rows, cols] f32 tensor in place:
+// boxes of 64 x 64, no swizzle; elements out of bounds read as 0.
+static int encode_f32(CUtensorMap* map, const float* base, int mats,
+                      int rows, int cols) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 4,
+                                 (cuuint64_t)rows * cols * 4};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                        const_cast<float*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Sets a kernel's dynamic shared memory limit to `bytes`.
+template <class K>
+static cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes > 232448) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Whether the Hopper design takes the shape: TMA's 16-byte strides (P and
+// N multiples of 8, Q of 4), one tile of P, two slabs of N.
+static bool hopper_takes(int P, int N, int Q) {
+  return P % 8 == 0 && N % 8 == 0 && Q % 4 == 0 && P <= 64 && N <= 128;
+}
+
+// The seven launches of the bf16 backward on Hopper (the scratch of
+// backward()).
+static int backward_bf16_hopper(const bf16* x, const float* dt,
+                                const float* a, const bf16* b, const bf16* c,
+                                const bf16* dy, const float* dstate,
+                                const float* saved, bf16* dx, float* ddt,
+                                float* da, bf16* db, bf16* dc, float* dinit,
+                                float* scratch, int B, int S, int H, int P,
+                                int G, int N, int Q, cudaStream_t st) {
+  const int nc = (S + Q - 1) / Q, nt = (Q + TILE - 1) / TILE;
+  const int n_nt = (N + TILE - 1) / TILE, n_pt = (P + TILE - 1) / TILE;
+  const int rep = H / G;
+  const float* cbt = saved;
+  const float* cum = cbt + (size_t)B * nc * G * Q * Q;
+  const float* states = cum + (size_t)B * nc * H * Q;
+  const size_t bch = (size_t)B * nc * H;
+  float* hat = scratch;
+  float* dm = hat + bch * P * N;
+  float* rpart = dm + (size_t)B * nc * G * Q * Q;
+  float* cpart = rpart + bch * nt * Q;
+  float* dcs = cpart + bch * nt * Q;
+  float* xdpart = dcs + bch * n_nt * Q;
+  float* wpart = xdpart + bch * n_pt * Q;
+  float* dapart = wpart + bch * n_pt * Q;
+  CUtensorMap tx, tdy, tb, tc, tcbt, tdm, tstates, that;
+  int e = encode_tiles(&tx, x, B, S, H, P);
+  if (!e) e = encode_tiles(&tdy, dy, B, S, H, P);
+  if (!e) e = encode_tiles(&tb, b, B, S, G, N);
+  if (!e) e = encode_tiles(&tc, c, B, S, G, N);
+  if (!e) e = encode_f32(&tcbt, cbt, B * nc * G, Q, Q);
+  if (!e) e = encode_f32(&tdm, dm, B * nc * G, Q, Q);
+  if (!e) e = encode_f32(&tstates, states, B * nc * H, P, N);
+  if (!e) e = encode_f32(&that, hat, B * nc * H, P, N);
+  if (e) return e;
+  const size_t sm_agg = hsmem_bytes(
+      (4 + AGG_STAGES) * TBYTES + 4 * PARTS_BYTES, rep * 128,
+      2 * AGG_STAGES + 1);
+  const size_t sm_dm = hsmem_bytes(DM_STAGES * 2 * TBYTES,
+                                   TILE * DM_MS + 7 * rep * TILE,
+                                   2 * DM_STAGES);
+  const size_t sm_dcdb = hsmem_bytes(
+      DCDB_STAGES * (TBYTES + FBYTES) + PARTS_BYTES + TBYTES,
+      rep * TILE, 2 * DCDB_STAGES + 1);
+  const size_t sm_du = hsmem_bytes(
+      DU_STAGES * (TBYTES + FBYTES) + PARTS_BYTES, 2 * MAX_Q,
+      2 * DU_STAGES);
+  CHECK(allow_smem(ssd_bwd_agg_hopper_kernel, sm_agg));
+  CHECK(allow_smem(ssd_bwd_dm_hopper_kernel, sm_dm));
+  CHECK(allow_smem(ssd_bwd_dcdb_hopper_kernel, sm_dcdb));
+  CHECK(allow_smem(ssd_bwd_du_hopper_kernel, sm_du));
+  ssd_bwd_agg_hopper_kernel<<<dim3(nc * G, B), HTH, sm_agg, st>>>(
+      tdy, tc, cum, hat, S, H, P, G, N, Q, nc);
+  CHECK(cudaGetLastError());
+  ssd_bwd_dm_hopper_kernel<<<dim3(nt * (nt + 1) / 2, nc * G, B), HTH, sm_dm,
+                             st>>>(tx, tdy, dt, cbt, cum, dm, rpart, cpart,
+                                   S, H, P, G, Q, nc);
+  CHECK(cudaGetLastError());
+  ssd_bwd_state_kernel<<<dim3((P * N + NT_STATE - 1) / NT_STATE, H, B),
+                         NT_STATE, 0, st>>>(dstate, cum, hat, dinit, H,
+                                            P * N, Q, nc);
+  CHECK(cudaGetLastError());
+  ssd_bwd_dcdb_hopper_kernel<<<dim3(2 * nt * n_nt, nc * G, B), HTH, sm_dcdb,
+                               st>>>(tx, tdy, tb, tc, tdm, tstates, that, dt,
+                                     cum, db, dc, dcs, S, H, P, G, N, Q, nc);
+  CHECK(cudaGetLastError());
+  ssd_bwd_du_hopper_kernel<<<dim3(nt, nc * H, B), HTH, sm_du, st>>>(
+      tdy, tb, tcbt, that, x, dt, cum, dx, xdpart, wpart, S, H, P, G, N, Q,
+      nc);
+  CHECK(cudaGetLastError());
+  ssd_bwd_dcum_kernel<<<dim3(nc * H, B), TT, 0, st>>>(
+      dt, a, cum, states, hat, rpart, cpart, dcs, xdpart, wpart, ddt, dapart,
+      S, H, P, N, Q, nc);
+  CHECK(cudaGetLastError());
+  ssd_bwd_da_kernel<<<(H + 127) / 128, 128, 0, st>>>(dapart, da, B, H, nc);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 // The gradients of ssd_scan's (y, state_out) given their cotangents dy and
@@ -1753,14 +2845,21 @@ int ssd_scan_backward(const float* x, const float* dt, const float* a,
 // As ssd_scan_backward for ssd_scan_bf16: x, b, c, dy and the gradients
 // dx, db, dc in bf16 (each rounded once, from f32 sums), dt, a, dstate,
 // ddt, da, dinit, saved (the bf16 forward's scratch, the same layout) and
-// the scratch f32.  The same seven launches: dy.x^T on bf16 operands, every
-// other product with its bf16 side whole and its f32 side split in two.
+// the scratch f32.  Seven launches: on Hopper's wgmma with the f32 sides as
+// three bf16 parts where the shape allows (hopper_takes: P and N multiples
+// of 8, Q of 4, P <= 64, N <= 128), else the mma.sync design (dy.x^T in
+// bf16, every other product with its f32 side split in two TF32 parts).
 int ssd_scan_backward_bf16(const bf16* x, const float* dt, const float* a,
                            const bf16* b, const bf16* c, const bf16* dy,
                            const float* dstate, const float* saved, bf16* dx,
                            float* ddt, float* da, bf16* db, bf16* dc,
                            float* dinit, float* scratch, int B, int S, int H,
                            int P, int G, int N, int Q, void* stream) {
+  if (Q < 1 || Q > MAX_Q || G < 1 || H % G) return (int)cudaErrorInvalidValue;
+  if (hopper_takes(P, N, Q))
+    return backward_bf16_hopper(x, dt, a, b, c, dy, dstate, saved, dx, ddt,
+                                da, db, dc, dinit, scratch, B, S, H, P, G, N,
+                                Q, (cudaStream_t)stream);
   return backward(x, dt, a, b, c, dy, dstate, saved, dx, ddt, da, db, dc,
                   dinit, scratch, B, S, H, P, G, N, Q, (cudaStream_t)stream,
                   ssd_bwd_agg_bf16_kernel, ssd_bwd_dm_bf16_kernel,

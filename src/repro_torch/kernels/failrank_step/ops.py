@@ -28,9 +28,32 @@ def _load():
     lib = _lib.load("failrank_step")
     lib.failrank_iterate.restype = ctypes.c_int
     lib.failrank_iterate.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float] * 5
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
         + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p])
     return lib
+
+
+#: Row classes of a column's sum on the device-memory path (the
+#: shared-memory path takes 256 threads over the stripe's width).  The
+#: residual sits at eps when the iteration stops, so the order of the sums
+#: decides the step: with 39 classes the kernel stops at the reference's
+#: Pallas step counts at n = 68 and 1,028 (33 and 37), as
+#: :func:`.ref.failrank_iterate_ordered` shows on the CPU; with 1,024
+#: threads over the stripe's width (68 and 7 classes) it stopped one step
+#: early at both.
+DEVICE_ROW_CLASSES = 39
+
+
+def row_classes(n: int, on_chip: bool) -> tuple[int, int]:
+    """``(classes, threads)`` of the kernel's path at n, as
+    ``col_parts`` in ``csrc/failrank_step.cu`` takes them: on chip 256
+    threads and 256 // cw classes, in device memory 1,024 threads and
+    :data:`DEVICE_ROW_CLASSES` (at most 8,192 // cw); at most n, at least
+    one (cw = ceil(n / 8), the width of a block's stripe)."""
+    cw = max(1, -(-n // 8))
+    classes = 256 // cw if on_chip \
+        else min(DEVICE_ROW_CLASSES, 8 * 1024 // cw)
+    return max(1, min(classes, n)), 256 if on_chip else 1024
 
 
 #: ``stripes`` of :func:`failrank_iterate_cuda`: where the kernel keeps W
@@ -39,11 +62,13 @@ STRIPES = {None: -1, "device": 0, "shared": 1}
 
 
 def failrank_iterate_cuda(w, l, s, s0, *, lam=0.55, alpha=0.1, beta=0.3,
-                          gamma=0.6, eps=1e-4, max_iters=100, stripes=None):
+                          gamma=0.6, eps=1e-4, max_iters=100, stripes=None,
+                          with_residual=False):
     """One launch for up to ``max_iters`` steps; returns ``(s, L, steps)``
-    on the card without waiting for them (``steps``: int32 scalar).
-    ``stripes`` (a key of :data:`STRIPES`) forces where W and L live, so
-    that the two paths can be timed at one n."""
+    on the card without waiting for them (``steps``: int32 scalar), and
+    with ``with_residual`` the last step's L1 residual (f32 scalar) after
+    them.  ``stripes`` (a key of :data:`STRIPES`) forces where W and L
+    live, so that the two paths can be timed at one n."""
     n = s.shape[0]
     dev = w.device
     for name, x, shape in (("w", w, (n, n)), ("l", l, (n, n)),
@@ -59,15 +84,20 @@ def failrank_iterate_cuda(w, l, s, s0, *, lam=0.55, alpha=0.1, beta=0.3,
     s_new = torch.empty_like(s)
     l_new = torch.empty_like(l)
     steps = torch.empty((), dtype=torch.int32, device=dev)
+    residual = torch.empty((), dtype=torch.float32, device=dev) \
+        if with_residual else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _lib.check(_load().failrank_iterate(
             w.data_ptr(), l.data_ptr(), s.data_ptr(), s0.data_ptr(),
-            s_new.data_ptr(), l_new.data_ptr(), steps.data_ptr(), n,
-            max_iters, 1.0 - lam, lam, alpha, beta, gamma, eps,
+            s_new.data_ptr(), l_new.data_ptr(), steps.data_ptr(),
+            0 if residual is None else residual.data_ptr(), n, max_iters,
+            DEVICE_ROW_CLASSES, 1.0 - lam, lam, alpha, beta, gamma, eps,
             STRIPES[stripes], stream),
             "failrank_step")
     _lib.count("failrank_step")
+    if with_residual:
+        return s_new, l_new, steps, residual
     return s_new, l_new, steps
 
 

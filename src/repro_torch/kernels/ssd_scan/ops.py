@@ -21,9 +21,12 @@ keeps the kernel's scratch (C·Bᵀ per group, the cumsums and each chunk's
 entry state), and its backward launches the source's backward entry
 point of the inputs' type on it: ``ssd_scan_backward`` (seven launches,
 every product 3xTF32 on tensor cores; counted under ``ssd_scan_bwd``) or
-``ssd_scan_backward_bf16`` (the same seven, x, b, c, dy and dx, db, dc in
-bf16, dy·xᵀ on bf16 tensor cores and the other products with the f32
-side split in two; ``ssd_scan_bf16_bwd``).
+``ssd_scan_backward_bf16`` (seven launches, x, b, c, dy and dx, db, dc in
+bf16; on Hopper's ``wgmma`` from TMA rings with every f32 side as three
+exact bf16 parts where TMA takes the shape (p and n multiples of 8, the
+chunk of 4, p ≤ 64, n ≤ 128), else dy·xᵀ on bf16 ``mma.sync`` and the
+other products with the f32 side split in two TF32 parts;
+``ssd_scan_bf16_bwd``).
 """
 
 from __future__ import annotations

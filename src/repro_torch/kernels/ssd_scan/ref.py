@@ -42,6 +42,28 @@ def einsum_2xtf32(eq, a, b):
     return torch.einsum(eq, lo, b) + torch.einsum(eq, hi, b)
 
 
+def bf16_split3(x):
+    """f32 ``x`` as three bf16 tensors ``(hi, mid, lo)``: hi = bf16(x), mid
+    = bf16(x − hi), lo = bf16(x − hi − mid), each rounded to nearest.  The
+    two differences are exact in f32, and hi + mid + lo equals x exactly
+    (24 bits of mantissa in three of 8) unless lo falls below bf16's
+    normal range."""
+    hi = x.bfloat16()
+    r = x - hi.float()
+    mid = r.bfloat16()
+    return hi, mid, (r - mid.float()).bfloat16()
+
+
+def einsum_3xbf16(eq, a, b):
+    """``torch.einsum(eq, a, b)`` as the bf16 backward's ``wgmma`` takes
+    it: ``a`` f32, split into three bf16 parts (:func:`bf16_split3`), ``b``
+    bf16 values (whole): lo·b + mid·b + hi·b, each product exact in f32,
+    summed in f32, the small terms first."""
+    hi, mid, lo = bf16_split3(a)
+    return (torch.einsum(eq, lo.float(), b) + torch.einsum(eq, mid.float(), b)
+            + torch.einsum(eq, hi.float(), b))
+
+
 def ssd_ref(x, dt, a, b, c, *, chunk: int = 128, init_state=None,
             tensor_cores=False):
     """x [B,S,H,P], dt [B,S,H] (post-softplus), a [H] (negative),
@@ -151,7 +173,7 @@ def autograd_grads(fn, args, init, dy, dstate, *, chunk: int = 128):
 
 
 def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
-                init_state=None, tf32x3=False):
+                init_state=None, tf32x3=False, tensor_cores=False):
     """The algebra of the kernel's backward in plain torch (not autograd):
     the gradients of :func:`ssd_ref`'s ``(y, final state)`` given their
     cotangents ``dy [B,S,H,P]`` and ``dstate [B,H,P,N]`` (or None, a zero
@@ -165,8 +187,12 @@ def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
     bf16 inputs (x, b, c and dy; dt, a, the states and ``dstate`` f32):
     the bf16 kernel's rounding, which is the f32 algebra on the inputs as
     they are (every product of two bf16 values is exact in f32, the f32
-    side of the others kept whole to a few parts in 2²⁰) with dx, db and
-    dc rounded to bf16 once; ddt, da and dinit stay f32.
+    side of the others kept whole to the order of its sums) with dx, db
+    and dc rounded to bf16 once; ddt, da and dinit stay f32.  With
+    ``tensor_cores`` (bf16 inputs only) each product is taken as the
+    kernel's ``wgmma`` takes it: dy·xᵀ on the bf16 values with dt_j and E
+    after, every other product with its f32 side split into three bf16
+    parts (:func:`einsum_3xbf16`; for tests).
 
     Per chunk, with u = dt·x, E_ij = exp(min(cum_i − cum_j, 0)) for j ≤ i,
     M_ij = C_i·B_j (per group), S_{c−1} the state entering the chunk and
@@ -186,8 +212,16 @@ def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
                 exp(cum_end)·⟨Ŝ_c, S_{c−1}⟩ + Σ_j w_j at the chunk's end
         dl    = the reverse in-chunk cumsum of dcum;  da = Σ dt_j·dl_j
     """
-    mm = einsum_3xtf32 if tf32x3 else torch.einsum
     io_dtype = x.dtype
+    parts = tensor_cores and io_dtype == torch.bfloat16
+    mm = einsum_3xtf32 if tf32x3 else torch.einsum
+
+    def mp(eq, f, v):  # a product with its f32 side f and its bf16 side v
+        if not parts:
+            return mm(eq, f, v)
+        lhs, out = eq.split("->")
+        fs, vs = lhs.split(",")
+        return einsum_3xbf16(f"{fs},{vs}->{out}", f, v)
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     rep = h // g
@@ -230,7 +264,7 @@ def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
 
     # reverse state pass: the cotangent of the state leaving each chunk
     ec = torch.exp(cum)                                 # [B,nc,Q,H]
-    agg = mm("bcqhp,bcqhn->bchpn", ec[..., None] * dyc, ch)
+    agg = mp("bcqhp,bcqhn->bchpn", ec[..., None] * dyc, ch)
     shat = (torch.zeros_like(state) if dstate is None else dstate.float())
     hats = [None] * nc
     for ci in reversed(range(nc)):
@@ -241,14 +275,18 @@ def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
 
     # per (chunk, head): dMʰ, the state terms of dC and dB, du, dx, the
     # direct ddt, dcum
-    dmh = e * mm("bcihp,bcjhp->bchij", dyc, u)
+    if parts:  # dy·xᵀ, then dt_j and E
+        dmh = e * (dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
+                   * torch.einsum("bcihp,bcjhp->bchij", dyc, xc))
+    else:
+        dmh = e * mm("bcihp,bcjhp->bchij", dyc, u)
     gm = torch.where(below, m * dmh, 0.0)
     dcum = gm.sum(-1) - gm.sum(-2)                      # [B,nc,H,Q]
-    dc_h = ec[..., None] * mm("bcihp,bchpn->bcihn", dyc, s_in)
-    db_h = (w_end * dtc)[..., None] * mm("bcjhp,bchpn->bcjhn", xc, hat)
+    dc_h = ec[..., None] * mp("bchpn,bcihp->bcihn", s_in, dyc)
+    db_h = (w_end * dtc)[..., None] * mp("bchpn,bcjhp->bcjhn", hat, xc)
     dcum = dcum + (ch * dc_h).sum(-1).permute(0, 1, 3, 2)
-    du_state = w_end[..., None] * mm("bcjhn,bchpn->bcjhp", bh, hat)
-    du = mm("bchij,bcihp->bcjhp", m * e, dyc) + du_state
+    du_state = w_end[..., None] * mp("bchpn,bcjhn->bcjhp", hat, bh)
+    du = mp("bchij,bcihp->bcjhp", m * e, dyc) + du_state
     w = (u * du_state).sum(-1).permute(0, 1, 3, 2)      # [B,nc,H,Q]
     dcum = dcum - w
     dcum[..., -1] += torch.exp(cum_end) * (hat * s_in).sum((-1, -2)) \
@@ -260,9 +298,9 @@ def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
 
     # per (chunk, group): dM summed over the group's heads, dC and dB
     dm = dmh.reshape(bsz, nc, g, rep, q, q).sum(3)
-    dc = mm("bcgij,bcjgn->bcign", dm, bc) \
+    dc = mp("bcgij,bcjgn->bcign", dm, bc) \
         + dc_h.reshape(bsz, nc, q, g, rep, n).sum(4)
-    db = mm("bcgij,bcign->bcjgn", dm, cc) \
+    db = mp("bcgij,bcign->bcjgn", dm, cc) \
         + db_h.reshape(bsz, nc, q, g, rep, n).sum(4)
 
     def cut(t_):

@@ -90,7 +90,8 @@ import torch
 from repro_torch.core.sketch import SketchParams, split_key
 from repro_torch.kernels import _lib
 from repro_torch.kernels.failrank_step import ops as fr_ops
-from repro_torch.kernels.failrank_step.ref import (failrank_iterate_ref,
+from repro_torch.kernels.failrank_step.ref import (failrank_iterate_ordered,
+                                                   failrank_iterate_ref,
                                                    failrank_step_ref)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
@@ -312,14 +313,8 @@ def _chip_smoke():
 
 def _assert_failrank_steps(n, path, it_k, it_p):
     """K2's step count: the reference's Pallas count at n
-    (``chip_smoke.REFERENCE``), except on the paths that
-    ``FAILRANK_LOOP_OFF_BY_ONE`` lists (ROADMAP Queue 3), which stop where
-    the plain loop does and keep its check, within one of it."""
-    cs = _chip_smoke()
-    if (n, path) in cs.FAILRANK_LOOP_OFF_BY_ONE:
-        assert abs(it_k - it_p) <= 1 and it_k > 1
-    else:
-        assert it_k == cs.REFERENCE[("failrank_loop", n)]
+    (``chip_smoke.REFERENCE``) on either path."""
+    assert it_k == _chip_smoke().REFERENCE[("failrank_loop", n)], path
 
 
 @pytest.mark.parametrize("n", [68, 260, 1028])
@@ -349,6 +344,22 @@ def test_failrank_loop_in_device_memory_matches_plain_loop(dev, n):
     tol = 1e-5 if int(it_k) == int(it_p) else 1e-4
     torch.testing.assert_close(s_k, s_p, atol=tol, rtol=0)
     torch.testing.assert_close(l_k, l_p, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("n,stripes", [(68, "device"), (260, "shared"),
+                                       (1028, "device")])
+def test_failrank_residual_matches_its_order_mirror(dev, n, stripes):
+    """The kernel's steps and last residual equal those of its order of
+    sums mirrored on the CPU (``failrank_iterate_ordered`` at the path's
+    ``row_classes``), bit for bit, and so do s and L."""
+    x = _failrank_inputs(dev, n)
+    s_k, l_k, it_k, res_k = fr_ops.failrank_iterate_cuda(
+        *x, stripes=stripes, with_residual=True)
+    classes, threads = fr_ops.row_classes(n, on_chip=stripes == "shared")
+    s_m, l_m, it_m, res_m = failrank_iterate_ordered(
+        *(t.cpu() for t in x), classes=classes, threads=threads)
+    assert int(it_k) == it_m and float(res_k) == res_m[-1]
+    assert torch.equal(s_k.cpu(), s_m) and torch.equal(l_k.cpu(), l_m)
 
 
 def _attn_inputs(dev, b, s, t, hq, hk, d):
@@ -1535,7 +1546,12 @@ def test_bf16_attention_lse_output_leaves_the_prefill_unchanged(dev):
     (2, 64, 8, 8, 4, 8, 16), (2, 80, 4, 16, 2, 8, 32),
     (1, 300, 16, 64, 2, 128, 128), (2, 24, 4, 32, 2, 16, 24),
     (1, 130, 2, 72, 1, 70, 128), (4, 512, 64, 64, 8, 128, 128),
-    (3, 77, 6, 16, 3, 16, 24), (1, 300, 4, 16, 2, 16, 16)])
+    (3, 77, 6, 16, 3, 16, 24), (1, 300, 4, 16, 2, 16, 16),
+    # the Hopper design's edges: chunks 16 and 24 with a ragged last
+    # chunk and one head a group (G = H), a last chunk of 72 rows at 128
+    # (a second row tile of 8), whole row tiles at 64
+    (2, 100, 8, 64, 8, 128, 16), (1, 130, 4, 64, 4, 128, 24),
+    (1, 200, 16, 64, 8, 128, 128), (2, 192, 8, 32, 2, 64, 64)])
 def test_bf16_ssd_backward_matches_plain(dev, b, s, h, p, g, n, chunk):
     """K4's bf16 backward through ``ssd`` (``SSDScan``: the bf16 forward,
     then ``ssd_scan_backward_bf16`` on its scratch) against its plain mirror
@@ -1573,6 +1589,22 @@ def test_bf16_ssd_backward_matches_plain(dev, b, s, h, p, g, n, chunk):
                     assert g_.dtype == torch.float32, name
                     assert float((g_ - m_).abs().max()) \
                         <= 1e-4 * float(m_.abs().max()), name
+
+
+def test_bf16_ssd_backward_hopper_kernels_add_without_atomics():
+    """The Hopper design's four kernels (``ssd_bwd_*_hopper_kernel`` and
+    what they call, from the section's first line to the host code) hold no
+    atomic operation: every sum runs in a fixed order."""
+    from pathlib import Path
+    src = (Path(ssd_ops.__file__).resolve().parents[2] / "csrc"
+           / "ssd_scan.cu").read_text()
+    start = src.index("#define HC 128")
+    end = src.index("typedef CUresult (*EncodeTiledFn)")
+    body = src[start:end]
+    assert "ssd_bwd_dcdb_hopper_kernel" in body
+    assert not any(op in body for op in ("atomicAdd", "atomicExch",
+                                         "atom.", "red.global",
+                                         "red.shared"))
 
 
 def _bf16_train_step(dev, arch, batch, seq, steps=1, seed=0, smoke=False):

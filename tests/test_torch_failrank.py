@@ -25,8 +25,11 @@ from repro_torch.core.failrank import FailRankParams, failrank
 from repro_torch.kernels import _lib
 from repro_torch.kernels.failrank_step.ops import (failrank_dense,
                                                    failrank_iterate,
-                                                   failrank_step, mcg_dense)
-from repro_torch.kernels.failrank_step.ref import failrank_step_ref
+                                                   failrank_step, mcg_dense,
+                                                   row_classes)
+from repro_torch.kernels.failrank_step.ref import (failrank_iterate_ordered,
+                                                   failrank_iterate_ref,
+                                                   failrank_step_ref)
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
@@ -178,3 +181,35 @@ def test_pallas_iteration_counts_are_the_pinned_ones(n):
         if delta < 1e-4:
             break
     assert it == cs.REFERENCE[("failrank_loop", n)]
+
+
+@pytest.mark.parametrize("n,on_chip", [(68, True), (260, True), (68, False),
+                                       (260, False), (1028, False)])
+def test_kernel_order_stops_at_the_pallas_counts(n, on_chip):
+    """K2's order of sums, mirrored in f32 on the CPU
+    (``failrank_iterate_ordered`` at the path's row classes and threads,
+    ``row_classes``), stops at the reference's Pallas step count at n on
+    both paths: the residual sits at eps there, so the order decides the
+    step.  The card holds the kernel to the same count and to the mirror's
+    residual bit for bit."""
+    cs = _chip_smoke()
+    classes, threads = row_classes(n, on_chip)
+    x = cs.failrank_inputs("cpu", n)
+    s, l, steps, res = failrank_iterate_ordered(*x, classes=classes,
+                                                threads=threads)
+    assert steps == cs.REFERENCE[("failrank_loop", n)]
+    assert res[-2] >= 1e-4 > res[-1]
+    s_p, l_p, it_p = failrank_iterate_ref(*x, max_iters=steps, eps=-1.0)
+    torch.testing.assert_close(s, s_p, atol=1e-6, rtol=0)
+    torch.testing.assert_close(l, l_p, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("n,classes,want", [(68, 68, 32), (1028, 7, 36)])
+def test_former_device_order_stopped_one_step_early(n, classes, want):
+    """The device-memory path's former order (1,024 threads over the
+    stripe's width: 68 classes at n = 68, 7 at 1,028) stops one step before
+    the Pallas count, as the card showed."""
+    cs = _chip_smoke()
+    x = cs.failrank_inputs("cpu", n)
+    steps = failrank_iterate_ordered(*x, classes=classes, threads=1024)[2]
+    assert steps == want == cs.REFERENCE[("failrank_loop", n)] - 1
