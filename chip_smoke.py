@@ -16,6 +16,18 @@
    dy·xᵀ on bf16, the other three on TF32), its bf16 forward's scores
    ``HMMA`` on bf16 and its other two product kernels on TF32, its f32
    forward none (``SSD_SASS``);
+1b. the ``analysis`` phase: ``python -m repro_torch.analysis --check all
+   --baseline analysis/baseline.json`` and ``--self-test`` must exit 0;
+   the memory model's ``hopper_smem_bytes`` must equal the built K1
+   library's ``sketch_insert_smem_bytes(d, m, L)`` at every d in {1, 2,
+   4, 8}, m in {16, 64, 257, 1,024, 4,096} and L in {8, 33, 256, 1,024,
+   2,048, 4,096} (those that fit a block counted apart) and at the default
+   and pod geometries; in ``cuobjdump -sass`` of all four libraries no
+   kernel may have an ``ATOM``, ``ATOMS``, ``ATOMG`` or ``RED`` on
+   ``F16``, ``BF16``, ``F32`` or ``F64``, and the kernels with integer
+   atomics must be exactly those each ``ops.AUDIT["int_atomics"]`` lists;
+   ``examples/torch_quickstart.py`` on the card must print the CPU run's
+   verdict lines and launch K1 once;
 2. holds each kernel against its plain torch version on the card: the
    Fail-Slow Sketch insert (random run streams, forced eviction, the
    promotion/steal branches, a per-record stream, a carried state, two
@@ -222,12 +234,12 @@
    2e-3, grad norms within rel 5e-3 at step 1 and 4e-2 over three steps;
    two runs bit-equal);
 15. drives ``PodDetector.observe`` on the default 16×16 pod (3 windows of
-   32 steps; a core and a link fault on the mesh, a link fault on the
+   16 steps; a core and a link fault on the mesh, a link fault on the
    torus) with both recorder impls on the card: verdicts equal to each
    other and to ``POD_PINS``, K1 exactly once per batched window; times
-   K1 per window from the carried state at L = 2,048 beside one launch
-   over the whole trace, also for the train launcher's 4×4 pod with
-   8-step windows;
+   K1 per 32-step window from the carried state at L = 2,048 beside one
+   launch over the whole trace, also for the train launcher's 4×4 pod
+   with 8-step windows;
 16. serves smollm-135m at full size with ``--telemetry`` (a separate run
    from phase 7's timed ones).
 
@@ -287,8 +299,10 @@ the exponents (``K4_BWD_ABLATIONS``), each with its split per launch.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2452,18 +2466,23 @@ SSD_SASS = {"ssd_bwd_agg_kernel": "tf32", "ssd_bwd_dm_kernel": "tf32",
             "ssd_state_kernel": "none", "ssd_inter_kernel": "none"}
 
 
+@functools.cache
+def sass_text(path) -> str:
+    """``cuobjdump -sass`` of the library at ``path``, run once a path."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    return subprocess.run(
+        [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(path)],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+
+
 def sass_counts(path, name_of) -> dict:
     """Tensor-core instructions by kernel in ``cuobjdump -sass`` of the
     library at ``path``: ``HGMMA`` (Hopper's warpgroup products, wgmma),
     ``HMMA`` (the warp-level mma.sync of earlier cards) and, of those,
     ``HMMA_TF32`` and ``HMMA_BF16`` (by operand type), for each function
     whose mangled name ``name_of`` maps to a key (None: skipped)."""
-    from torch.utils.cpp_extension import CUDA_HOME
-    text = subprocess.run(
-        [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(path)],
-        capture_output=True, text=True, timeout=300, check=True).stdout
     counts, fn = {}, None
-    for line in text.splitlines():
+    for line in sass_text(path).splitlines():
         if "Function :" in line:
             fn = name_of(line.split("Function :")[1].strip())
             if fn:
@@ -2488,8 +2507,7 @@ def sass_tensor_core_counts(lib) -> dict:
         return f"{m.group(1)} DP={m.group(2)}" if m else None
 
     def k4_name(mangled):
-        m = re.match(r"_Z(\d+)", mangled)
-        name = m and mangled[m.end():m.end() + int(m.group(1))]
+        name = kernel_name(mangled)
         return name if name in SSD_SASS else None
     return {**sass_counts(lib._target("flash_attention"), k3_name),
             **sass_counts(lib._target("ssd_scan"), k4_name)}
@@ -2518,6 +2536,141 @@ def check_tensor_core_sass(sass) -> None:
         else:
             ok = c["HMMA"] > 0 and c["HMMA_TF32"] == c["HMMA"]
         require(ok, f"{fn} is not on its tensor-core instructions: {c}")
+
+
+#: An atomic instruction of Hopper's SASS (generic, global, shared, or a
+#: reduction without a result) and its operand type where it is a float.
+SASS_ATOMIC = re.compile(r"\s(ATOMG|ATOMS|ATOM|RED)((?:\.\w+)*)\s")
+SASS_FLOAT = re.compile(r"\.(?:B?F16(?:X2)?|F32|F64)(?:\.|$)", re.I)
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled one (``_Z<len><name>...``; the
+    template arguments dropped)."""
+    m = re.match(r"_Z(\d+)", mangled)
+    return mangled[m.end():m.end() + int(m.group(1))] if m else mangled
+
+
+def sass_atomics(lib) -> dict:
+    """Atomic instructions by library and kernel in ``cuobjdump -sass``:
+    ``float`` and ``int`` counts and the opcodes seen (every template
+    instance of a kernel counted under its name)."""
+    out = {}
+    for stem in sorted(p.stem for p in lib.CSRC.glob("*.cu")):
+        kernels, fn = {}, None
+        for line in sass_text(lib._target(stem)).splitlines():
+            if "Function :" in line:
+                fn = kernel_name(line.split("Function :")[1].strip())
+                kernels.setdefault(fn, {"float": 0, "int": 0, "ops": set()})
+            elif fn and (m := SASS_ATOMIC.search(line)):
+                op = m.group(1) + m.group(2)
+                kind = "float" if SASS_FLOAT.search(m.group(2)) else "int"
+                kernels[fn][kind] += 1
+                kernels[fn]["ops"].add(op)
+        out[stem] = {k: {**c, "ops": sorted(c["ops"])}
+                     for k, c in kernels.items() if c["float"] or c["int"]}
+    return out
+
+
+#: K1's shared-memory sweep: the model against the built library.
+SMEM_D, SMEM_M = (1, 2, 4, 8), (16, 64, 257, 1024, 4096)
+SMEM_L = (8, 33, 256, 1024, 2048, 4096)
+
+
+def start_analysis_runs() -> dict:
+    """The analysis CLI (the gate and the self-test) and the quickstart
+    twin on the CPU and on the card, started together."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    py = sys.executable
+    quick = str(ROOT / "examples" / "torch_quickstart.py")
+    argvs = {"gate": [py, "-m", "repro_torch.analysis", "--check", "all",
+                      "--baseline", "analysis/baseline.json"],
+             "self_test": [py, "-m", "repro_torch.analysis", "--self-test"],
+             "quickstart_cpu": [py, quick, "--device", "cpu"],
+             "quickstart_cuda": [py, quick]}
+    return {k: subprocess.Popen(a, cwd=ROOT, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+            for k, a in argvs.items()}
+
+
+def run_analysis_phase(lib) -> dict:
+    """The ``analysis`` phase (module docstring, 1b); returns what it
+    measured.  Its subprocesses are stopped if a check fails first."""
+    t0 = time.perf_counter()
+    procs = start_analysis_runs()
+    try:
+        found = check_analysis(lib, procs)
+        return {"seconds": round(time.perf_counter() - t0, 3), **found}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def check_analysis(lib, procs) -> dict:
+    """The phase's checks: K1's shared-memory model against the library,
+    the SASS's atomics against the contracts, then the outputs of
+    ``procs`` (:func:`start_analysis_runs`)."""
+    from repro_torch.analysis import kernel_audit, memory_model
+    from repro_torch.core.sketch import SketchParams
+    from repro_torch.distributed.telemetry import PodTelemetryConfig
+    from repro_torch.kernels.sketch_update import ops as sk_ops
+    k1 = sk_ops._load()
+    grid = [SketchParams(d=d, m=m, H=4, L=L) for d in SMEM_D
+            for m in SMEM_M for L in SMEM_L]
+    named = {"default": SketchParams(),
+             "pod": PodTelemetryConfig().sketch}
+    pairs = [(p.d, p.m, p.L, memory_model.hopper_smem_bytes(p),
+              k1.sketch_insert_smem_bytes(p.d, p.m, p.L))
+             for p in grid + list(named.values())]
+    diff = [pair for pair in pairs if pair[3] != pair[4]]
+    require(not diff, f"hopper_smem_bytes != sketch_insert_smem_bytes "
+                      f"(d, m, L, model, library): {diff}")
+    atomics = sass_atomics(lib)
+    contracts = kernel_audit.contracts()
+    floats = {f"{stem} {k}": c for stem, ks in atomics.items()
+              for k, c in ks.items() if c["float"]}
+    require(not floats, f"float atomics in the SASS: {floats}")
+    for stem, ks in atomics.items():
+        want = set(contracts[stem]["int_atomics"])
+        require(set(ks) == want,
+                f"{stem}: kernels with integer atomics in the SASS "
+                f"{sorted(ks)}, AUDIT lists {sorted(want)}")
+    out = {k: (p.communicate(timeout=600)[0], p.returncode)
+           for k, p in procs.items()}
+    for k, (text, rc) in out.items():
+        require(rc == 0, f"{k} exit {rc}:\n{text}")
+    lines = {k: out[k][0].splitlines()
+             for k in ("quickstart_cpu", "quickstart_cuda")}
+    launches = {k: [ln for ln in v if ln.startswith("kernel launches")]
+                for k, v in lines.items()}
+    require(launches == {
+        "quickstart_cpu": ["kernel launches on cpu: {}"],
+        "quickstart_cuda": ["kernel launches on cuda:0: "
+                            "{'sketch_insert_runs': 1}"]},
+            f"quickstart launches {launches}")
+    verdict = [ln for ln in lines["quickstart_cpu"]
+               if not ln.startswith("kernel launches")]
+    require(verdict == [ln for ln in lines["quickstart_cuda"]
+                        if not ln.startswith("kernel launches")],
+            f"quickstart on the card:\n{out['quickstart_cuda'][0]}\n"
+            f"on the CPU:\n{out['quickstart_cpu'][0]}")
+    return {"gate": out["gate"][0].strip().splitlines()[-1],
+            "self_test": out["self_test"][0].strip().splitlines()[-1],
+            "smem_geometries": len(pairs),
+            "smem_geometries_that_fit": sum(
+                pair[3] <= lib.MAX_SMEM_BYTES for pair in pairs[:len(grid)]),
+            "smem_bytes": dict(zip(named, (pair[4]
+                                           for pair in pairs[len(grid):]))),
+            "max_smem_bytes": lib.MAX_SMEM_BYTES,
+            "sass_atomics": atomics,
+            "quickstart_verdict": [ln for ln in verdict
+                                   if ln.startswith(("flagged", "root",
+                                                     "top-3", "FailRank",
+                                                     "trace"))],
+            "quickstart_launches": launches["quickstart_cuda"]}
 
 
 def serve_bf16_run(arch, dev, lib):
@@ -2855,23 +3008,27 @@ BF16_TRAIN_PINS = json.loads("""
 #: The JAX reference's pod verdicts (``python tests/test_torch_telemetry.py``,
 #: CPU): ``PodDetector.observe`` on the default 16×16 pod, seed 1,
 #: step_flops 5e12, collective_bytes 4e9, a fault from t = 0 (core 10×, link
-#: 8×), three windows of 32 steps; per window (flagged, kind, location,
-#: severity, action).
+#: 8×), three windows of 16 steps (the link faults flag from the third);
+#: per window (flagged, kind, location, severity, action).
 POD_PINS = json.loads("""
 [
  {"topology": "mesh", "fault": ["core", 37], "links": 960, "verdicts": [
   [true, "core", 37, 45.124928198487105, "exclude_and_restart"],
-  [true, "core", 37, 45.12708936384893, "exclude_and_restart"],
-  [true, "core", 37, 45.134477145353685, "exclude_and_restart"]]},
+  [true, "core", 37, 45.124928198487105, "exclude_and_restart"],
+  [true, "core", 37, 45.12708936384893, "exclude_and_restart"]]},
  {"topology": "mesh", "fault": ["link", 100], "links": 960, "verdicts": [
   [false, null, null, 0.0, "none"],
-  [true, "link", 100, 8.916650405849754, "reroute_or_restart"],
-  [true, "link", 100, 8.748944011571714, "reroute_or_restart"]]},
+  [false, null, null, 0.0, "none"],
+  [true, "link", 100, 9.034305120092315, "reroute_or_restart"]]},
  {"topology": "torus", "fault": ["link", 300], "links": 1024, "verdicts": [
   [false, null, null, 0.0, "none"],
-  [true, "link", 300, 8.69731870998997, "reroute_or_restart"],
-  [true, "link", 300, 8.62254734725792, "reroute_or_restart"]]}]
+  [false, null, null, 0.0, "none"],
+  [true, "link", 300, 8.452668873212911, "reroute_or_restart"]]}]
 """)
+
+#: Steps of a pinned pod window.  Sixteen since PR 27 (32 before): the
+#: phase took ~230 s of the script's 1,200 at 32, ~115 s at 16.
+POD_WINDOW_STEPS = 16
 
 #: The train run of phase 11 (``launch/train.py`` flags, the reference's
 #: CI smoke at full size and batch 4 × 512).
@@ -3570,11 +3727,12 @@ def pod_windows(cfg, fault, n_windows, steps):
 
 def run_pod_phase(dev, lib) -> dict:
     """``PodDetector.observe`` on the default 16×16 pod, three windows of
-    32 steps, both recorder impls on the card: verdicts equal to each
-    other and to ``POD_PINS``, K1 exactly once per batched window; then K1
-    per window from the carried state beside one launch over the whole
-    trace, at L = 2,048, for the 16×16 pod and the train launcher's 4×4
-    pod with 8-step windows."""
+    ``POD_WINDOW_STEPS``, both recorder impls on the card: verdicts equal
+    to each other and to ``POD_PINS``, K1 exactly once per batched window;
+    then K1 per window from the carried state beside one launch over the
+    whole trace, at L = 2,048, for the 16×16 pod's core fault in three
+    windows of 32 steps and the train launcher's 4×4 pod with 8-step
+    windows."""
     import dataclasses
 
     from repro_torch.distributed.telemetry import (PodDetector,
@@ -3582,8 +3740,10 @@ def run_pod_phase(dev, lib) -> dict:
     t_phase = time.perf_counter()
     k1_times = {}
     for pin in POD_PINS:
-        base = PodTelemetryConfig(topology=pin["topology"], window_steps=32)
-        windows = pod_windows(base, tuple(pin["fault"]), 3, 32)
+        base = PodTelemetryConfig(topology=pin["topology"],
+                                  window_steps=POD_WINDOW_STEPS)
+        windows = pod_windows(base, tuple(pin["fault"]), 3,
+                              POD_WINDOW_STEPS)
         verdicts, secs = {}, {}
         for impl in ("ref", "batched"):
             det = PodDetector(dataclasses.replace(base, recorder_impl=impl),
@@ -3616,6 +3776,7 @@ def run_pod_phase(dev, lib) -> dict:
                         <= tol * max(abs(exp[3]), 1),
                         f"{label} {impl}: verdict {got} vs reference {exp}")
         if pin["fault"][0] == "core":
+            windows = pod_windows(base, tuple(pin["fault"]), 3, 32)
             k1_times["16x16"] = k1_stream_times(
                 base.sketch, 1, 0.0, windows, concat_sims(windows), dev)
     small = PodTelemetryConfig(mesh_w=4, mesh_h=4, window_steps=8)
@@ -4757,6 +4918,9 @@ def main() -> int:
                     for n in secs}})
     print(f"K3/K4 SASS tensor-core instructions {sass}", flush=True)
     check_tensor_core_sass(sass)
+
+    # ---- 1b. static analysis, held to the built libraries ------------
+    emit({"phase": "analysis", **run_analysis_phase(lib)})
 
     # ---- 2. kernels against their plain versions -------------------------
     emit({"phase": "sketch_kernel_vs_plain", "cases": check_sketch_kernel(dev)})

@@ -256,7 +256,7 @@ def _wall_clock() -> float:
     ``compare=False`` wall-time telemetry only (``wall_time_stats``) —
     never a scenario outcome, verdict, or RNG stream.  Centralised so a
     determinism audit has exactly one reader to check."""
-    return time.perf_counter()
+    return time.perf_counter()  # lint: allow-wallclock
 
 
 def _normalise_kind(kind) -> str:

@@ -75,3 +75,16 @@ def plan_probes(graph: CompGraph, mapped: MappedGraph | None = None,
     return InstrumentationPlan(specs=specs, exec_ops=tuple(sorted(exec_ops)),
                                route_stages=tuple(sorted(route_stages)),
                                sim_plan=sim_plan)
+
+
+def plan_for_mode(mode: str) -> ProbePlan:
+    """The three instrumentation configurations evaluated in Fig 10."""
+    if mode == "comm":
+        return ProbePlan(comp=False, comm=True, level="inst")
+    if mode == "comp":
+        return ProbePlan(comp=True, comm=False, level="inst")
+    if mode == "full":
+        return ProbePlan(comp=True, comm=True, level="inst")
+    if mode == "none":
+        return None  # type: ignore[return-value]
+    raise ValueError(mode)

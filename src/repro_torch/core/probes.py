@@ -10,7 +10,8 @@ A probe is a five-tuple (Fragment, Type, Location, Level, Structure):
 
 The simulator emits task/flow-level records; real probes fire per
 *instruction* (per sample in the batch, per packet on a link).  The
-recorder feeds that expansion to the sketch as exact runs
+``expand_*`` helpers perform that expansion record by record; the recorder
+feeds the same expansion to the sketch as exact runs
 (``core/recorder.py``), and the raw-format storage accounting below is
 the paper's instruction-level log size.
 """
@@ -74,6 +75,49 @@ COMM_RECORD_BYTES = 56   # index, src, dst, stage, bytes, t_depart, t_arrive
 PACKET_BYTES = 1024      # NoC packetisation for per-packet Route probes
 
 
+def expand_comp_trace(comp: dict[str, np.ndarray],
+                      instr_per_task: int = 64) -> dict[str, np.ndarray]:
+    """Expand task-level compute records to per-instruction records.
+
+    Each mapped task executes ``instr_per_task`` volume-equivalent
+    instructions (one per batch sample in the throughput-inference setting);
+    they share a pattern key and split the task's duration and FLOPs.
+    """
+    n = len(comp["core"])
+    if n == 0:
+        return {k: v.copy() for k, v in comp.items()}
+    k = instr_per_task
+    rep = {key: np.repeat(v, k) for key, v in comp.items()}
+    frac = np.tile(np.arange(k, dtype=np.float64), n)
+    dur = np.repeat((comp["t_end"] - comp["t_start"]) / k, k)
+    rep["t_start"] = rep["t_start"] + frac * dur
+    rep["t_end"] = rep["t_start"] + dur
+    rep["flops"] = rep["flops"] / k
+    return rep
+
+
+def expand_comm_trace(comm: dict[str, np.ndarray],
+                      packet_bytes: int = PACKET_BYTES,
+                      max_packets: int = 64) -> dict[str, np.ndarray]:
+    """Expand flow-level records to per-packet records (capped per flow)."""
+    n = len(comm["src"])
+    if n == 0:
+        return {k: v.copy() for k, v in comm.items()}
+    pk = np.clip(np.ceil(comm["bytes"] / packet_bytes).astype(np.int64),
+                 1, max_packets)
+    rep = {key: np.repeat(v, pk) for key, v in comm.items()}
+    idx = np.concatenate([np.arange(p) for p in pk]).astype(np.float64)
+    per = np.repeat((comm["t_arrive"] - comm["t_depart"]) / pk, pk)
+    rep["t_depart"] = rep["t_depart"] + idx * per
+    rep["t_arrive"] = rep["t_depart"] + per
+    rep["bytes"] = np.repeat(comm["bytes"] / pk, pk)
+    return rep
+
+
+def raw_bytes(comp_records: int, comm_records: int) -> int:
+    return comp_records * COMP_RECORD_BYTES + comm_records * COMM_RECORD_BYTES
+
+
 # -- pattern keys ------------------------------------------------------------
 # A pattern identifies traces "with similar execution behaviours" (§III-C):
 # compute: (core, stage, op-type, flops bucket); comm: (src, dst, volume
@@ -110,3 +154,13 @@ def comm_pattern_keys(comm: dict[str, np.ndarray]) -> np.ndarray:
             + (comm["dst"].astype(np.int64) << 12)
             + (comm["stage"].astype(np.int64) << 24)
             + (vb << 40) + COMM_KEY_TAG)
+
+
+def decode_comp_key(key: int) -> dict:
+    return {"core": int(key & 0xFFF), "stage": int((key >> 12) & 0xFFFF),
+            "op": int((key >> 28) & 0x3F)}
+
+
+def decode_comm_key(key: int) -> dict:
+    return {"src": int(key & 0xFFF), "dst": int((key >> 12) & 0xFFF),
+            "stage": int((key >> 24) & 0xFFFF)}

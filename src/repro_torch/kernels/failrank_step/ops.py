@@ -23,6 +23,12 @@ from ...device import resolve_device
 from .. import _lib
 from .ref import failrank_iterate_ref, failrank_step_ref
 
+#: What ``analysis/kernel_audit.py`` (and, on the card, ``chip_smoke.py``
+#: in the SASS) holds ``csrc/failrank_step.cu`` to: no atomics; the
+#: cluster's blocks exchange sums through distributed shared memory in a
+#: fixed order.
+AUDIT = {"float_atomics": 0, "int_atomics": {}, "one_block_per": {}}
+
 
 def _load():
     lib = _lib.load("failrank_step")

@@ -53,6 +53,14 @@ import torch
 from .. import _lib
 from .ref import attention_ref
 
+#: What ``analysis/kernel_audit.py`` (and, on the card, ``chip_smoke.py``
+#: in the SASS) holds ``csrc/flash_attention.cu`` to: no float atomics
+#: (the backwards add dQ and a group's dK/dV in a fixed order); one
+#: integer atomic, the bf16 backward's work ticket.
+AUDIT = {"float_atomics": 0,
+         "int_atomics": {"flash_bwd_bf16_hopper_kernel": ("atomicAdd",)},
+         "one_block_per": {}}
+
 #: Tile widths the source builds its kernels for, in head-dim columns.
 TILE_WIDTHS = (16, 32, 64, 128)
 

@@ -23,6 +23,18 @@ from ...core.sketch import Pattern, SketchParams, accumulate_pattern
 from .. import _lib
 from . import ref as R
 
+#: What ``analysis/kernel_audit.py`` (and, on the card, ``chip_smoke.py``
+#: in the SASS) holds ``csrc/sketch_insert.cu`` to: no float atomics; the
+#: integer atomics of the Stage-2 build (the live-row count, the ring and
+#: index slots claimed by CAS, the precondition bits); one block per
+#: sketch, so the grid is the launch's sketch count ``count`` and no
+#: sketch's runs are split across blocks (their order is semantic).
+AUDIT = {"float_atomics": 0,
+         "int_atomics": {"sketch_insert_runs_kernel": ("atomicAdd",
+                                                       "atomicCAS",
+                                                       "atomicOr")},
+         "one_block_per": {"sketch_insert_runs_kernel": "count"}}
+
 make_state = R.make_state
 make_drain = R.make_drain
 

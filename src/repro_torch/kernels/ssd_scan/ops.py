@@ -38,6 +38,11 @@ import torch
 from .. import _lib
 from .ref import ssd_ref
 
+#: What ``analysis/kernel_audit.py`` (and, on the card, ``chip_smoke.py``
+#: in the SASS) holds ``csrc/ssd_scan.cu`` to: no atomics; sums over
+#: heads, chunks and tiles run in a fixed order.
+AUDIT = {"float_atomics": 0, "int_atomics": {}, "one_block_per": {}}
+
 #: Longest chunk the kernel takes (the model uses 16-128).
 MAX_CHUNK = 128
 

@@ -95,24 +95,26 @@ class ServeEngine:
             toks = torch.from_numpy(np.stack(
                 [np.pad(r.prompt, (s - len(r.prompt), 0)) for r in batch])
                 .astype(np.int32)).to(self.device)
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # lint: allow-wallclock (measured)
             cache = T.init_cache(cfg, ecfg.batch, ecfg.cache_len,
                                  device=self.device, dtype=ecfg.dtype)
             last, cache, memory = T.prefill(cfg, model, toks, cache,
                                             enc_frames)
             nxt = last[:, -1].argmax(dim=-1)[:, None]
             self._sync()
-            self._record("prefill", time.perf_counter() - t0)
+            self._record("prefill",
+                         time.perf_counter() - t0)  # lint: allow-wallclock
             max_new = max(r.max_new for r in batch)
             for k in range(max_new):
                 for r, t in zip(batch, nxt[:, 0].tolist()):
                     if r.rid >= 0 and len(r.out_tokens) < r.max_new:
                         r.out_tokens.append(int(t))
-                t0 = time.perf_counter()
+                t0 = time.perf_counter()  # lint: allow-wallclock
                 logits, cache = T.decode_step(cfg, model, nxt, cache, s + k,
                                               memory)
                 nxt = logits[:, -1].argmax(dim=-1)[:, None]
                 self._sync()
-                self._record("decode", time.perf_counter() - t0)
+                self._record("decode",
+                             time.perf_counter() - t0)  # lint: allow-wallclock
             done.extend(r for r in batch if r.rid >= 0)
         return done

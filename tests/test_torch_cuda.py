@@ -1698,3 +1698,55 @@ def test_global_norm_by_groups_keeps_the_f32_bits(dev, monkeypatch):
         got = adamw._group_norms(bf16)
         assert all(torch.equal(a, torch._foreach_norm([x.float()])[0])
                    for a, x in zip(got, bf16))
+
+
+def test_k1_smem_model_equals_the_library(dev):
+    """``analysis.memory_model.hopper_smem_bytes`` is the built K1 library's
+    ``sketch_insert_smem_bytes`` at every swept geometry (the same sweep as
+    ``chip_smoke.py``'s analysis phase) and at the default and pod ones."""
+    from repro_torch.analysis import memory_model
+    cs = _chip_smoke()
+    lib = sk_ops._load()
+    geometries = [SketchParams(d=d, m=m, H=4, L=L) for d in cs.SMEM_D
+                  for m in cs.SMEM_M for L in cs.SMEM_L]
+    geometries += [SketchParams(), SketchParams(d=2, m=1024, H=4, L=2048)]
+    for p in geometries:
+        assert memory_model.hopper_smem_bytes(p) \
+            == lib.sketch_insert_smem_bytes(p.d, p.m, p.L), p
+    assert lib.sketch_insert_smem_bytes(2, 1024, 2048) == 228_992
+
+
+def test_sass_has_no_float_atomics_and_only_the_declared_int_ones(dev):
+    """In ``cuobjdump -sass`` of all four libraries no kernel has a float
+    atomic, and the kernels with integer atomics are those each
+    ``ops.AUDIT["int_atomics"]`` lists."""
+    from repro_torch.analysis import kernel_audit
+    _lib.build_all()
+    atomics = _chip_smoke().sass_atomics(_lib)
+    contracts = kernel_audit.contracts()
+    assert set(atomics) == set(contracts)
+    for stem, kernels in atomics.items():
+        assert all(c["float"] == 0 for c in kernels.values()), kernels
+        assert set(kernels) == set(contracts[stem]["int_atomics"]), stem
+    assert atomics["sketch_insert"]["sketch_insert_runs_kernel"]["int"] > 0
+
+
+def test_straggler_drill_twin_on_the_card(dev):
+    """``examples/torch_straggler_drill.py`` on the card prints the CPU
+    run's lines (which are the reference example's,
+    ``tests/test_torch_example_drill.py``)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(repo / "src")}
+    drill = str(repo / "examples" / "torch_straggler_drill.py")
+    procs = [subprocess.Popen([sys.executable, drill, *extra], cwd=repo,
+                              env=env, text=True, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for extra in ([], ["--device", "cpu"])]
+    (card, _), (cpu, _) = (p.communicate(timeout=600) for p in procs)
+    assert [p.returncode for p in procs] == [0, 0], card + cpu
+    assert card == cpu
+    assert "loc=126 (injected chip 126)" in card

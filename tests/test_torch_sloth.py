@@ -107,7 +107,13 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.launch.campaign, repro_torch.launch.train, "
             "repro_torch.launch.steps, repro_torch.distributed.telemetry, "
             "repro_torch.optim.adamw, repro_torch.data.pipeline, "
-            "repro_torch.checkpoint.store; "
+            "repro_torch.checkpoint.store, repro_torch.core.compiler, "
+            "repro_torch.core.probes, repro_torch.analysis, "
+            "repro_torch.analysis.__main__, repro_torch.analysis.report, "
+            "repro_torch.analysis.memory_model, "
+            "repro_torch.analysis.kernel_audit, repro_torch.analysis.lints, "
+            "repro_torch.analysis.callgraph, repro_torch.analysis.dataflow; "
+            "from repro_torch.analysis import run_checks; run_checks(); "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]; print(bad); sys.exit(bool(bad))")

@@ -22,8 +22,8 @@ live windows, ``StepTelemetry``):
 
 Run as a script, this file prints the reference's ``POD_PINS`` that
 ``chip_smoke.py`` holds the card to: ``PodDetector.observe`` on the
-default 16×16 pod, three windows of 32 steps, for a core and a link fault
-on the mesh and a link fault on the torus (about two minutes):
+default 16×16 pod, three windows of 16 steps, for a core and a link fault
+on the mesh and a link fault on the torus (about a minute):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_telemetry.py
 """
@@ -50,7 +50,7 @@ pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 #: collective_bytes 4e9, slowdown 10× (core) or 8× (link) from t = 0.
 POD_PIN_CASES = (("mesh", "core", 37), ("mesh", "link", 100),
                  ("torus", "link", 300))
-POD_PIN_WINDOWS, POD_PIN_WINDOW_STEPS = 3, 32
+POD_PIN_WINDOWS, POD_PIN_WINDOW_STEPS = 3, 16
 
 
 def _verdict(v):
