@@ -190,9 +190,12 @@
    TF32 passes beside it);
 11. drives the train path, ``repro_torch.launch.train.main``, first on
    whisper-large-v3 at full size, 4 steps of 4 × 512 over the launcher's
-   zero frames: K3 forward and backward exactly 96 launches a step each
-   (32 encoder, 32 self, 32 cross), no plain attention, peak memory, five
-   steps timed and one profiled (device ms by kernel and by class, the
+   zero frames: K3's backward exactly 96 launches a step (32 encoder, 32
+   self, 32 cross) and its forward 128 (the launcher's plan has no remat,
+   but the encoder's layers are checkpointed always, as the reference's
+   are: each runs again in the backward), no plain attention, peak
+   memory, three steps timed and one profiled (device ms by kernel and
+   by class, the
    device's idle share against the unprofiled step time); then
    mixtral-8x7b at full width with 2 of its 32 layers, 3 steps of
    4 × 512, twice: K3 forward and backward exactly 2 a step, the two
@@ -205,7 +208,7 @@
    attention, the slowed host (core 0) named in the window of the burst
    or the next; prints ms per step (the launcher's own, ``--log-every
    1``), then times and profiles steps as above; then the same for
-   mamba2-1.3b at full size, 12 steps of 4 × 512: K4's
+   mamba2-1.3b at full size, 6 steps of 4 × 512: K4's
    forward and backward exactly 48 launches a step each, no call of
    ``ssd_ref``, ``ssd_bwd_ref`` or the plain attention, no attention
    launch, the run's peak device memory;
@@ -221,18 +224,29 @@
    crash-resume on the smoke config (10 steps, save, resume, 10 more
    within rel 1e-4 of 20 straight);
 14b. bf16 training (``train_bf16``): ``make_train_step`` with the
-   reference's plan (bf16 parameters with its f32 leaves, f32 AdamW
-   moments) at 4 × 512 on ``init_model(dtype=bf16)`` weights, twice each
-   (losses, grad norms and leaf checksums bit-equal): smollm-135m,
-   mamba2-1.3b, h2o-danube-3-4b, whisper-large-v3 (zero frames) and
-   stablelm-1.6b whole, mixtral-8x7b at 3 of 32 layers
-   (``BF16_TRAIN_RUNS``); K3's bf16 prefill and backward exactly once per
-   attention a step, K4's bf16 forward and backward once per Mamba layer,
-   no f32 kernel, no plain version; ms a step, one step profiled (device
-   ms by class, idle share), peak memory below 80 GB; then the
-   reference's bf16 train pins (``BF16_TRAIN_PINS``: losses within rel
-   2e-3, grad norms within rel 5e-3 at step 1 and 4e-2 over three steps;
-   two runs bit-equal);
+   reference's plan (remat: one checkpoint per period of layers; bf16
+   parameters with its f32 leaves, f32 AdamW moments) at 4 × 512 on
+   ``init_model(dtype=bf16)`` weights, twice each (losses, grad norms and
+   leaf checksums bit-equal): smollm-135m, mamba2-1.3b, h2o-danube-3-4b,
+   whisper-large-v3 (zero frames) and stablelm-1.6b whole, mixtral-8x7b
+   at 3 of 32 layers (``BF16_TRAIN_RUNS``); K3's bf16 backward exactly
+   once per attention a step and its prefill twice (the forward and the
+   recompute), K4's bf16 backward once per Mamba layer and its forward
+   twice, no f32 kernel, no plain version; ms a step, one step profiled
+   (device ms by class, idle share), peak memory below 80 GB beside the
+   peak without remat, and the memory the forward keeps for the
+   backward; h2o-danube-3-4b also 2 steps with ``CellPlan(remat=False)``
+   (``BF16_NO_REMAT_STEPS``; each forward once), bit-equal to the remat
+   run's first two, both peaks printed; then the reference's bf16 train
+   pins (``BF16_TRAIN_PINS``: losses within rel 2e-3, grad norms within
+   rel 5e-3 at step 1 and 4e-2 over three steps; two runs bit-equal);
+14c. the reference's ``train_4k`` sequence (``train_4k``, ``TRAIN_4K``):
+   h2o-danube-3-4b whole in bf16 with the default plan at 4 × 4,096, 3
+   steps twice, bit-equal, K3's bf16 prefill 2 × 24 and backward 24
+   launches a step, no plain version, peak below 80 GB; ms a step, one
+   step profiled; beside the peak the reckoned peak without remat (the
+   peak, less what the forward keeps with remat, plus what the 4 × 512
+   run's forward kept without remat scaled to 16,384 tokens);
 15. drives ``PodDetector.observe`` on the default 16×16 pod (3 windows of
    16 steps; a core and a link fault on the mesh, a link fault on the
    torus) with both recorder impls on the card: verdicts equal to each
@@ -2320,7 +2334,8 @@ def bf16_rows_gap(got, exp):
 def bf16_attention_cases(dev):
     """Every :func:`attention_cases` case in bf16, then yi-34b's serving
     shapes: its 4 × 512 prefill (GQA 7, head dim 128) and its last decode
-    step over the serve run's 1,024-slot fill; then three edges of the
+    step over the serve run's 1,024-slot fill, with h2o-danube-3-4b's
+    ``TRAIN_4K`` prefill (batch 1) between them; then three edges of the
     bf16 decode's splits."""
     import torch
     cases = [(label, q.bfloat16(), k.bfloat16(), v.bfloat16(), qp, kp,
@@ -2336,6 +2351,12 @@ def bf16_attention_cases(dev):
     cases.append((f"yi-34b prefill [4,512,{hq},128]", rand(4, 512, hq, 128),
                   rand(4, 512, hk, 128), rand(4, 512, hk, 128), pos, pos,
                   True, None))
+    # h2o-danube-3-4b's train_4k prefill: 4,096 keys under its 4,096 window
+    dq, dk, dwin = DANUBE_ATTENTION
+    pos4k = torch.arange(4096, dtype=torch.int32, device=dev)
+    cases.append((f"h2o-danube-3-4b train_4k prefill [1,4096,{dq},120]",
+                  rand(1, 4096, dq, 120), rand(1, 4096, dk, 120),
+                  rand(1, 4096, dk, 120), pos4k, pos4k, True, dwin))
     cases.append((f"yi-34b decode [4,1,{hq},128] at the serve fill",
                   rand(4, 1, hq, 128), rand(4, 1024, hk, 128),
                   rand(4, 1024, hk, 128),
@@ -2861,7 +2882,7 @@ def time_bf16_kernels(dev):
 
 def profile_serving(arch, dev, n_layers=None, model=None):
     """A prefill of 4 × 512 tokens (an encoder-decoder's over zero frames)
-    into a 1,024-slot cache and 8 decode steps at full width (and depth
+    into a 1,024-slot cache and 4 decode steps at full width (and depth
     unless ``n_layers`` cuts it), on ``model`` (else f32 weights drawn
     here) with a cache in its type:
     host-clock ms without the profiler, then device time by kernel and by
@@ -2886,7 +2907,7 @@ def profile_serving(arch, dev, n_layers=None, model=None):
     # an encoder-decoder encodes the launcher's zero frames at the prefill
     frames = torch.zeros(4, cfg.n_frames, cfg.d_model, device=dev,
                          dtype=dtype) if cfg.enc_dec else None
-    n_dec = 8
+    n_dec = 4
 
     def prefill():
         cache = T.init_cache(cfg, 4, 1024, device=dev, dtype=dtype)
@@ -3038,7 +3059,7 @@ TRAIN_ARGV = ["--arch", "smollm-135m", "--steps", "24", "--batch", "4",
 INJECT_ARGV = ["--inject-slow-at", "10", "--inject-slow-steps", "6",
                "--inject-slow-factor", "10", "--expect-flagged"]
 #: The mamba2-1.3b train run (full width and depth, batch 4 × 512).
-MAMBA2_TRAIN_ARGV = ["--arch", "mamba2-1.3b", "--steps", "12", "--batch",
+MAMBA2_TRAIN_ARGV = ["--arch", "mamba2-1.3b", "--steps", "6", "--batch",
                      "4", "--seq", "512", "--log-every", "1"]
 #: The whisper-large-v3 train run (full size, batch 4 × 512, 1,500 zero
 #: frames a sequence).
@@ -3376,7 +3397,7 @@ def train_launcher_run(dev, lib, phase, argv, want, plain_targets) -> dict:
 
 
 def train_mamba2_run(dev, lib) -> dict:
-    """mamba2-1.3b at full size (48 SSD layers, 12 steps of 4 × 512): K4's
+    """mamba2-1.3b at full size (48 SSD layers, 6 steps of 4 × 512): K4's
     forward and backward exactly 48 launches a step each, no attention
     launch, no call of ``ssd_ref``, ``ssd_bwd_ref`` or the plain
     attention."""
@@ -3397,15 +3418,19 @@ def train_mamba2_run(dev, lib) -> dict:
 
 def train_whisper_run(dev, lib) -> dict:
     """whisper-large-v3 at full size (32 encoder and 32 decoder layers, 4
-    steps of 4 × 512 over the launcher's zero frames): K3's forward and
-    backward exactly 96 launches a step each (the encoder's self-attention,
-    the decoder's self- and cross-attention), all through the prefill
-    entry point, no K4, no call of the plain attention."""
+    steps of 4 × 512 over the launcher's zero frames): K3's backward
+    exactly 96 launches a step (the encoder's self-attention, the
+    decoder's self- and cross-attention) and its forward 128, all through
+    the prefill entry point: the launcher's plan has no remat, but the
+    encoder's layers are checkpointed always, as the reference's are, so
+    each runs its forward again in the backward.  No K4, no call of the
+    plain attention."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     cfg = get_config("whisper-large-v3")
     n = cfg.n_enc_layers + 2 * cfg.n_attn_layers
-    want = {"flash_attention": n, "flash_attention_prefill": n,
+    fwd = n + cfg.n_enc_layers
+    want = {"flash_attention": fwd, "flash_attention_prefill": fwd,
             "flash_attention_decode": 0, "flash_attention_bwd": n,
             "ssd_scan": 0, "ssd_scan_bwd": 0, "sketch_insert_runs": 0,
             "failrank_step": 0}
@@ -3445,7 +3470,7 @@ def train_moe_run(dev, lib) -> dict:
         opt_cfg = adamw.AdamWConfig(warmup_steps=10, total_steps=n_steps)
         state = adamw.init_state(list(model.parameters()), opt_cfg)
         step = S.make_train_step(
-            cfg, S.CellPlan(param_dtype=torch.float32), opt_cfg)
+            cfg, S.CellPlan(remat=False, param_dtype=torch.float32), opt_cfg)
         pipe = TokenPipeline(DataConfig(vocab=cfg.vocab,
                                         batch=MOE_TRAIN["batch"],
                                         seq=MOE_TRAIN["seq"], seed=0))
@@ -3519,7 +3544,7 @@ def kernel_class(name: str) -> str:
 def profile_train_step(dev, arch, n_layers=None) -> dict:
     """Full-size train steps (batch 4 × 512; an encoder-decoder's over
     zero frames; the depth cut to ``n_layers`` where given) after a
-    warm-up step: the host ms of five unprofiled steps, then one step
+    warm-up step: the host ms of three unprofiled steps, then one step
     under the profiler for the device ms by kernel.  The device's idle
     share is 1 − device ms over the unprofiled median (the profiler slows
     the host, not the kernels); the peak device memory is that of these
@@ -3547,18 +3572,18 @@ def profile_train_step(dev, arch, n_layers=None) -> dict:
     opt_cfg = adamw.AdamWConfig(warmup_steps=10, total_steps=24)
     state = adamw.init_state(list(model.parameters()), opt_cfg)
     train_step = S.make_train_step(
-        cfg, S.CellPlan(param_dtype=torch.float32), opt_cfg)
+        cfg, S.CellPlan(remat=False, param_dtype=torch.float32), opt_cfg)
     frames = torch.zeros(4, cfg.n_frames, cfg.d_model, device=dev) \
         if cfg.enc_dec else None
 
     def step(model, state, tok):
         return train_step(model, state, tok, frames)
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=4, seq=512))
-    toks = [torch.from_numpy(next(pipe)).to(dev) for _ in range(7)]
+    toks = [torch.from_numpy(next(pipe)).to(dev) for _ in range(5)]
     state, loss, _ = step(model, state, toks[0])
     torch.cuda.synchronize()
     host_ms = []
-    for tok in toks[1:6]:
+    for tok in toks[1:4]:
         t0 = time.perf_counter()
         state, loss, _ = step(model, state, tok)
         loss.item()
@@ -3567,7 +3592,7 @@ def profile_train_step(dev, arch, n_layers=None) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, loss, _ = step(model, state, toks[6])
+        state, loss, _ = step(model, state, toks[4])
         loss.item()
         prof_ms = (time.perf_counter() - t0) * 1e3
     dev_ms = device_us(prof, by_name) / 1e3
@@ -3622,7 +3647,7 @@ def check_train_pins(dev, pin) -> dict:
                                     total_steps=pin["steps"])
         state = adamw.init_state(list(model.parameters()), opt_cfg)
         step = S.make_train_step(
-            cfg, S.CellPlan(param_dtype=torch.float32), opt_cfg)
+            cfg, S.CellPlan(remat=False, param_dtype=torch.float32), opt_cfg)
         pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=pin["batch"],
                                         seq=pin["seq"], seed=0))
         losses, gnorms = [], []
@@ -4455,8 +4480,9 @@ def attention_bwd_bf16_cases(dev):
     """:func:`attention_bwd_cases` in bf16 (causal, windowed, non-causal
     with S != T; GQA 1, 3, 4 and 6; head dims 16 to 128; whisper's encoder
     and cross-attention), then head dims 8 (GQA 8) and 24 (off their
-    tiles), h2o-danube-3-4b's training shape (head dim 120, GQA 4, its
-    4,096 window), and the edges of the kernel's ordered adds: a window of
+    tiles), h2o-danube-3-4b's training shapes (head dim 120, GQA 4, its
+    4,096 window; at 512 and, batch 1, at ``TRAIN_4K``'s 4,096), and the
+    edges of the kernel's ordered adds: a window of
     16 at S = T = 300 (most query tiles meet one key tile), slots 100..299
     empty (-1) under a window of 64 (key tile 1 holds no live key, query
     tile 3 meets no key tile, the rows at 164..299 see no live key), GQA 8
@@ -4477,6 +4503,8 @@ def attention_bwd_bf16_cases(dev):
              50, None),
             (f"h2o-danube-3-4b train [4,512,{dq},120], window {dwin}", 4,
              512, 512, dq, dk, 120, True, dwin, None),
+            (f"h2o-danube-3-4b train_4k [1,4096,{dq},120], window {dwin}",
+             1, 4096, 4096, dq, dk, 120, True, dwin, None),
             ("window 16 at S = T = 300, GQA 2:1", 2, 300, 300, 4, 2, 64,
              True, 16, None),
             ("slots 100..299 empty, window 64, GQA 4:1", 2, 512, 512, 4, 1,
@@ -4631,15 +4659,33 @@ def check_ssd_bwd_bf16(dev, lib):
 
 
 #: The bf16 train runs of ``train_bf16``: (config, layers kept or None for
-#: all, steps), each at batch 4 × 512 with the reference's plan (bf16
-#: parameters with its f32 leaves, f32 AdamW moments), twice.  Whole but
-#: for mixtral-8x7b, whose 3 of 32 layers with embedding and head are
+#: all, steps), each at batch 4 × 512 with the reference's plan (remat,
+#: bf16 parameters with its f32 leaves, f32 AdamW moments), twice.  Whole
+#: but for mixtral-8x7b, whose 3 of 32 layers with embedding and head are
 #: 4.62 G parameters, 55 GB of weights, gradients and moments at 12 bytes
 #: a parameter (4 layers would be 73 GB, no room for activations).
-BF16_TRAIN_RUNS = (("smollm-135m", None, 4), ("mamba2-1.3b", None, 4),
-                   ("h2o-danube-3-4b", None, 4),
+BF16_TRAIN_RUNS = (("smollm-135m", None, 4), ("mamba2-1.3b", None, 3),
+                   ("h2o-danube-3-4b", None, 3),
                    ("whisper-large-v3", None, 2), ("mixtral-8x7b", 3, 3),
                    ("stablelm-1.6b", None, 3))
+
+#: Peak device memory (GB) of the ``BF16_TRAIN_RUNS`` when their plan did
+#: not checkpoint its periods: this script's runs on an NVIDIA H100 80GB
+#: HBM3 at 700 W, printed beside each run's peak with remat.
+BF16_TRAIN_PEAK_GB_NO_REMAT = {
+    "smollm-135m": 6.094184448, "mamba2-1.3b": 35.007139328,
+    "h2o-danube-3-4b": 58.858992128, "whisper-large-v3": 38.55225344,
+    "mixtral-8x7b": 76.13229824, "stablelm-1.6b": 31.478181376}
+
+#: The ``BF16_TRAIN_RUNS`` that also train this many steps with
+#: ``CellPlan(remat=False)``, held bit-equal to the remat run's first
+#: steps: the activations remat frees, measured.
+BF16_NO_REMAT_STEPS = {"h2o-danube-3-4b": 2}
+
+#: ``train_4k``: h2o-danube-3-4b whole at the reference's ``train_4k``
+#: sequence of 4,096 (its ``SHAPES``), batch 4, 3 steps twice, with the
+#: default plan (remat).
+TRAIN_4K = {"arch": "h2o-danube-3-4b", "batch": 4, "seq": 4096, "steps": 3}
 
 
 def leaf_checksums(model) -> list:
@@ -4652,18 +4698,56 @@ def leaf_checksums(model) -> list:
                 for p in model.parameters()]
 
 
-def train_bf16_run(dev, lib, arch, n_layers, steps) -> dict:
-    """``make_train_step`` with the reference's bf16 plan on
+def saved_activation_gb(dev, cfg, model, tok, frames, remat) -> float:
+    """Device memory (GB) that ``loss_fn``'s forward keeps for the backward
+    (the graph's saved tensors, the logits among them), with or without
+    remat; freed again before this returns."""
+    import torch
+
+    from repro_torch.launch import steps as S
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    loss, _ = S.loss_fn(cfg, model, tok, frames, remat=remat)
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev) - before
+    del loss
+    return held / 1e9
+
+
+def bf16_train_launches(cfg, remat, steps) -> dict:
+    """The exact launch counts of ``steps`` bf16 train steps: K3's bf16
+    backward once per attention a step (the encoder's, the decoder's self-
+    and cross-attention) and K4's once per Mamba layer; their forwards
+    twice where a checkpoint runs the layer again in the backward (every
+    layer with remat, an encoder's always), else once; nothing else."""
+    attn = cfg.n_attn_layers * (2 if cfg.enc_dec else 1) + cfg.n_enc_layers
+    mamba = cfg.n_layers - cfg.n_attn_layers
+    again = attn if remat else cfg.n_enc_layers
+    return {"flash_attention_bf16_prefill": (attn + again) * steps,
+            "flash_attention_bf16_bwd": attn * steps,
+            "flash_attention_bf16_decode": 0,
+            "ssd_scan_bf16": mamba * (2 if remat else 1) * steps,
+            "ssd_scan_bf16_bwd": mamba * steps,
+            "flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 0,
+            "ssd_scan_bwd": 0}
+
+
+def train_bf16_run(dev, lib, arch, n_layers, steps, batch=4, seq=512,
+                   no_remat_steps=0, phase="train_bf16") -> dict:
+    """``make_train_step`` with the reference's bf16 plan (remat) on
     ``init_model(dtype=bf16)`` weights (an encoder-decoder over zero bf16
-    frames), ``steps`` steps of 4 × 512 ``TokenPipeline`` tokens, twice
-    from one seed with the counts set to 0 just before each: K3's bf16
-    prefill and backward exactly once per attention a step, K4's bf16
-    forward and backward once per Mamba layer a step, no f32 kernel, no
-    plain version; the two runs' losses, grad norms and leaf checksums
-    equal bit for bit.  Prints ms a step (host clock ending in a sync;
-    the first step is a warm-up), then one more step under the profiler
-    (device ms by kernel class, the idle share against the median step),
-    and the peak device memory."""
+    frames), ``steps`` steps of ``batch`` × ``seq`` ``TokenPipeline``
+    tokens, twice from one seed with the counts set to 0 just before each:
+    the launches of :func:`bf16_train_launches` exactly, no plain version;
+    the two runs' losses, grad norms and leaf checksums equal bit for bit.
+    Prints ms a step (host clock ending in a sync; the first step is a
+    warm-up), then one more step under the profiler (device ms by kernel
+    class, the idle share against the median step), the peak device
+    memory and the memory the forward keeps for the backward.  With
+    ``no_remat_steps``, a third run of that many steps with
+    ``CellPlan(remat=False)``: its own exact counts, its numbers and leaf
+    checksums equal to the remat run's after as many steps, its peak and
+    kept memory printed beside the remat run's."""
     import dataclasses
 
     import torch
@@ -4679,35 +4763,44 @@ def train_bf16_run(dev, lib, arch, n_layers, steps) -> dict:
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    frames = torch.zeros(batch, cfg.n_frames, cfg.d_model, device=dev,
+                         dtype=torch.bfloat16) if cfg.enc_dec else None
+    opt_cfg = adamw.AdamWConfig(warmup_steps=10, total_steps=steps)
     runs, prof_out = [], {}
-    for run in range(2):
+    for run, remat in enumerate([True, True]
+                                + [False] * bool(no_remat_steps)):
+        n_steps = steps if remat else no_remat_steps
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
                              dtype=torch.bfloat16)
-        opt_cfg = adamw.AdamWConfig(warmup_steps=10, total_steps=steps)
         state = adamw.init_state(list(model.parameters()), opt_cfg)
-        step = S.make_train_step(cfg, S.CellPlan(), opt_cfg)
-        frames = torch.zeros(4, cfg.n_frames, cfg.d_model, device=dev,
-                             dtype=torch.bfloat16) if cfg.enc_dec else None
-        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=4, seq=512,
-                                        seed=0))
-        losses, gnorms, ms = [], [], []
+        state_gb = torch.cuda.memory_allocated(dev) / 1e9
+        step = S.make_train_step(cfg, S.CellPlan(remat=remat), opt_cfg)
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=batch,
+                                        seq=seq, seed=0))
+        losses, gnorms, ms, early = [], [], [], None
         lib.reset_launches()
         with PlainCalls((fa_ops, "attention_ref"),
                         (ssd_ops, "ssd_ref")) as plain:
-            for _ in range(steps):
+            for i in range(n_steps):
                 tok = torch.from_numpy(next(pipe)).to(dev)
                 t0 = time.perf_counter()
                 state, loss, gnorm = step(model, state, tok, frames)
                 losses.append(loss.item())
                 ms.append((time.perf_counter() - t0) * 1e3)
                 gnorms.append(gnorm.item())
+                if remat and i + 1 == no_remat_steps:
+                    early = leaf_checksums(model)
         launches = dict(lib.LAUNCHES)
-        runs.append({"losses": losses, "grad_norms": gnorms,
-                     "checksum": leaf_checksums(model), "ms_per_step": ms,
-                     "launches": launches, "plain_calls": plain.n,
+        runs.append({"remat": remat, "losses": losses, "grad_norms": gnorms,
+                     "checksum": leaf_checksums(model),
+                     "checksum_early": early, "ms_per_step": ms,
+                     "launches": launches,
+                     "expected_launches": bf16_train_launches(cfg, remat,
+                                                              n_steps),
+                     "plain_calls": plain.n, "state_gb": state_gb,
                      "peak_mem_gb":
                      torch.cuda.max_memory_allocated(dev) / 1e9})
         if run == 0:
@@ -4729,44 +4822,86 @@ def train_bf16_run(dev, lib, arch, n_layers, steps) -> dict:
                         "top_kernels_ms": [
                             [name[:80], us / 1e3] for name, us in sorted(
                                 by_name.items(), key=lambda kv: -kv[1])[:8]]}
+        if run in (0, 2):
+            runs[-1]["saved_activation_gb"] = saved_activation_gb(
+                dev, cfg, model, tok, frames, remat)
         del model, state, step
-    a, b = runs
+    a, b = runs[:2]
     same = all(a[k] == b[k] for k in ("losses", "grad_norms", "checksum"))
-    per_step = cfg.n_attn_layers * (2 if cfg.enc_dec else 1) \
-        + cfg.n_enc_layers
-    mamba = cfg.n_layers - cfg.n_attn_layers
-    want = {"flash_attention_bf16_prefill": per_step * steps,
-            "flash_attention_bf16_bwd": per_step * steps,
-            "flash_attention_bf16_decode": 0,
-            "ssd_scan_bf16": mamba * steps, "ssd_scan_bf16_bwd": mamba * steps,
-            "flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 0,
-            "ssd_scan_bwd": 0}
-    out = {"phase": "train_bf16", "arch": arch, "layers": cfg.n_layers,
-           "encoder_layers": cfg.n_enc_layers, "steps": steps, "batch": 4,
-           "seq": 512, "parameters": cfg.param_count(),
-           "losses": a["losses"], "grad_norms": a["grad_norms"],
+    out = {"phase": phase, "arch": arch, "layers": cfg.n_layers,
+           "encoder_layers": cfg.n_enc_layers, "steps": steps,
+           "batch": batch, "seq": seq, "parameters": cfg.param_count(),
+           "remat": True, "losses": a["losses"], "grad_norms": a["grad_norms"],
            "two_runs_bit_identical": same,
-           "ms_per_step": [r["ms_per_step"] for r in runs],
+           "ms_per_step": [r["ms_per_step"] for r in runs[:2]],
            "ms_per_step_median": float(np.median(
-               [m for r in runs for m in r["ms_per_step"][1:]] or
+               [m for r in runs[:2] for m in r["ms_per_step"][1:]] or
                a["ms_per_step"])),
-           "launches": a["launches"], "expected_launches": want,
+           "launches": a["launches"],
+           "expected_launches": a["expected_launches"],
            "plain_calls": a["plain_calls"] + b["plain_calls"],
-           "peak_mem_gb": max(r["peak_mem_gb"] for r in runs), **prof_out}
+           "state_gb": a["state_gb"],
+           "saved_activation_gb": a["saved_activation_gb"],
+           "peak_mem_gb": max(r["peak_mem_gb"] for r in runs[:2]),
+           "peak_mem_gb_no_remat_before":
+               BF16_TRAIN_PEAK_GB_NO_REMAT.get(arch) if seq == 512 else None,
+           **prof_out}
+    if no_remat_steps:
+        c = runs[2]
+        n = no_remat_steps
+        c["equal_to_remat"] = (c["losses"] == a["losses"][:n]
+                               and c["grad_norms"] == a["grad_norms"][:n]
+                               and c["checksum"] == a["checksum_early"])
+        out["no_remat"] = {k: c[k] for k in (
+            "losses", "grad_norms", "ms_per_step", "launches",
+            "expected_launches", "plain_calls", "peak_mem_gb",
+            "saved_activation_gb", "equal_to_remat")} | {"steps": n}
+        out["peak_difference_gb"] = c["peak_mem_gb"] - out["peak_mem_gb"]
     emit(out)
     for r in runs:
-        for name, n in want.items():
+        for name, n in r["expected_launches"].items():
             require(r["launches"][name] == n,
-                    f"train_bf16 {arch}: {name} launched "
+                    f"{phase} {arch} remat={r['remat']}: {name} launched "
                     f"{r['launches'][name]} times, not {n}")
-        require(r["plain_calls"] == 0, f"train_bf16 {arch}: a plain version "
+        require(r["plain_calls"] == 0, f"{phase} {arch}: a plain version "
                                        "ran")
         require(all(np.isfinite(r["losses"] + r["grad_norms"])),
-                f"train_bf16 {arch}: losses")
-    require(out["peak_mem_gb"] < 80.0, f"train_bf16 {arch}: peak memory")
-    require(same, f"train_bf16 {arch}: two runs differ")
+                f"{phase} {arch}: losses")
+        require(r["peak_mem_gb"] < 80.0, f"{phase} {arch}: peak memory")
+    require(same, f"{phase} {arch}: two runs differ")
+    require(not no_remat_steps or runs[2]["equal_to_remat"],
+            f"{phase} {arch}: remat and no remat differ")
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def train_4k_run(dev, lib, short) -> dict:
+    """``TRAIN_4K`` through :func:`train_bf16_run` (the default plan,
+    remat), then its memory: the peak beside the reckoned peak without
+    remat, which keeps every layer's activations instead of each period's
+    input: the remat peak, less what the forward keeps with remat, plus
+    what ``short`` (the 4 × 512 ``train_bf16`` run of the same config)
+    kept without remat, scaled by the tokens."""
+    import torch
+    out = train_bf16_run(dev, lib, TRAIN_4K["arch"], None, TRAIN_4K["steps"],
+                         batch=TRAIN_4K["batch"], seq=TRAIN_4K["seq"],
+                         phase="train_4k")
+    scale = TRAIN_4K["batch"] * TRAIN_4K["seq"] / (short["batch"]
+                                                   * short["seq"])
+    kept = short["no_remat"]["saved_activation_gb"]
+    reckoned = out["peak_mem_gb"] - out["saved_activation_gb"] + kept * scale
+    emit({"phase": "train_4k_memory", "arch": TRAIN_4K["arch"],
+          "tokens": TRAIN_4K["batch"] * TRAIN_4K["seq"],
+          "peak_mem_gb": out["peak_mem_gb"], "state_gb": out["state_gb"],
+          "saved_activation_gb": out["saved_activation_gb"],
+          "short_saved_activation_gb_no_remat": kept,
+          "short_saved_activation_gb": short["saved_activation_gb"],
+          "short_peak_difference_gb": short["peak_difference_gb"],
+          "token_scale": scale, "reckoned_peak_gb_no_remat": reckoned,
+          "card_gb": torch.cuda.get_device_properties(dev).total_memory
+          / 1e9})
+    require(out["peak_mem_gb"] < 80.0, "train_4k: peak memory")
     return out
 
 
@@ -5221,11 +5356,18 @@ def main() -> int:
 
     # ---- 14b. bf16 training: the reference's plan through make_train_step
     t0 = time.perf_counter()
-    train_bf16 = {arch: train_bf16_run(dev, lib, arch, n_layers, steps)
-                  for arch, n_layers, steps in BF16_TRAIN_RUNS}
+    train_bf16 = {arch: train_bf16_run(
+        dev, lib, arch, n_layers, steps,
+        no_remat_steps=BF16_NO_REMAT_STEPS.get(arch, 0))
+        for arch, n_layers, steps in BF16_TRAIN_RUNS}
     for pin in BF16_TRAIN_PINS:
         check_bf16_train_pins(dev, pin)
     emit({"phase": "train_bf16_wall_s", "seconds": time.perf_counter() - t0})
+
+    # ---- 14c. the reference's train_4k sequence: danube whole, 4 × 4,096 --
+    t0 = time.perf_counter()
+    train_4k = train_4k_run(dev, lib, train_bf16[TRAIN_4K["arch"]])
+    emit({"phase": "train_4k_wall_s", "seconds": time.perf_counter() - t0})
 
     # ---- 15. pod telemetry: the 16x16 pod, both recorder impls --------------
     k1_pod = run_pod_phase(dev, lib)
@@ -5325,6 +5467,10 @@ def main() -> int:
                                 for n in bf16_launches.values()),
          "launches_by_serve_run": {arch: n["flash_attention_bf16"]
                                    for arch, n in bf16_launches.items()},
+         "launches_by_train_run": {
+             arch: r["launches"]["flash_attention_bf16_prefill"]
+             for arch, r in train_bf16.items()}
+         | {"train_4k": train_4k["launches"]["flash_attention_bf16_prefill"]},
          "max_abs_err": max(k3b_err, *(t["max_abs_err"]
                                        for t in k3_bf16.values())),
          "max_ulps": k3b_ulps, "pin_max_ulps": bf16_pin_ulps,
@@ -5343,6 +5489,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:83",
          "launches": bf16_launches["mamba2-1.3b"]["ssd_scan_bf16"],
+         "launches_by_train_run": {arch: r["launches"]["ssd_scan_bf16"]
+                                   for arch, r in train_bf16.items()},
          "max_abs_err": max(k4b_err, k4_bf16["max_abs_err"]),
          "max_ulps": k4b_ulps,
          **{k: k4_bf16[k] for k in KERNEL_TIME_KEYS}, "plain_device": "cuda",
@@ -5389,7 +5537,8 @@ def main() -> int:
                          for r in train_bf16.values()),
          "launches_by_train_run": {
              arch: r["launches"]["flash_attention_bf16_bwd"]
-             for arch, r in train_bf16.items()},
+             for arch, r in train_bf16.items()}
+         | {"train_4k": train_4k["launches"]["flash_attention_bf16_bwd"]},
          "max_abs_err": max(k3bb_err, *(t["max_abs_err"]
                                         for t in k3_bwd_bf16.values())),
          "max_ulps": max(k3bb_ulps, *(t["max_ulps_vs_plain"]

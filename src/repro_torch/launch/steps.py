@@ -29,19 +29,24 @@ from ..optim import adamw
 @dataclasses.dataclass(frozen=True)
 class CellPlan:
     """``grad_accum`` micro-batches a step, their gradients added in
-    order; the parameters' working type, the reference's default bf16
-    (the train step checks each parameter against it, by the rule of
-    ``init_model``: ``layers.leaf_dtype``); the AdamW moments' type."""
+    order; ``remat``, the reference's rematerialisation: each period of
+    layers keeps only its input for the backward and runs its forward
+    again there (``forward_train(remat=)``); the parameters' working
+    type, the reference's default bf16 (the train step checks each
+    parameter against it, by the rule of ``init_model``:
+    ``layers.leaf_dtype``); the AdamW moments' type."""
     grad_accum: int = 1
+    remat: bool = True
     param_dtype: torch.dtype = torch.bfloat16
     opt_state_dtype: torch.dtype = torch.float32
 
 
-def loss_fn(cfg, model, tokens, enc_frames=None):
+def loss_fn(cfg, model, tokens, enc_frames=None, remat=True):
     """tokens [B,S] (and an encoder-decoder's enc_frames [B,F,d]) →
     (loss, ce): the mean next-token cross entropy over positions 0..S−2 in
-    f32, plus 0.01 × the aux loss."""
-    logits, aux = T.forward_train(cfg, model, tokens, enc_frames)
+    f32, plus 0.01 × the aux loss; ``remat`` as ``forward_train``'s."""
+    logits, aux = T.forward_train(cfg, model, tokens, enc_frames,
+                                  remat=remat)
     logits = logits[:, :-1].float()
     targets = tokens[:, 1:].long()
     logz = torch.logsumexp(logits, dim=-1)
@@ -76,7 +81,7 @@ def make_train_step(cfg, plan: CellPlan, opt_cfg=None):
         frames = [None] * a if enc_frames is None else \
             enc_frames.reshape(a, -1, *enc_frames.shape[1:])
         for tb, fb in zip(toks, frames):
-            micro, _ = loss_fn(cfg, model, tb, fb)
+            micro, _ = loss_fn(cfg, model, tb, fb, remat=plan.remat)
             micro.backward()
             micro = micro.detach()
             loss = micro if loss is None else loss + micro

@@ -131,7 +131,8 @@ def main(argv=None):
             start_step = latest
             print(f"[resume] step {latest}")
 
-    plan = steps_mod.CellPlan(grad_accum=1, param_dtype=torch.float32)
+    plan = steps_mod.CellPlan(grad_accum=1, remat=False,
+                              param_dtype=torch.float32)
     train_step = steps_mod.make_train_step(cfg, plan, opt_cfg)
 
     telemetry = None

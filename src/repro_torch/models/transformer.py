@@ -21,7 +21,8 @@ cross-attention cache.
 Three entry points:
   * ``forward_train`` — full-sequence causal forward (no cache) → logits
                         and the MoE aux loss, with its autograd graph (the
-                        train step's forward)
+                        train step's forward); with ``remat``, as the
+                        reference's default, one checkpoint per period
   * ``prefill``       — fills a KV/SSM cache, returns last-token logits,
                         the cache and the memory (None without an encoder)
   * ``decode_step``   — one token with the cache (rolling buffer for SWA)
@@ -41,10 +42,12 @@ reference does; logits come out in the working type.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..device import resolve_device
 from . import layers as L
@@ -335,10 +338,30 @@ def run_encoder(cfg, model, frames):
                        device=frames.device)
     x = frames + _sinusoid(pos, cfg.d_model)[None].to(frames.dtype)
     for p in model.encoder:
-        a = L.apply_norm(cfg, x, p.norm1)
-        x = x + _attn_sublayer(cfg, p.attn, a, pos, pos, causal=False)
-        x = x + L.mlp(cfg, p.mlp, L.apply_norm(cfg, x, p.norm2))
+        layer = functools.partial(_encoder_layer, cfg, p, pos)
+        # checkpointed whenever a gradient is taken, with remat or
+        # without it, as the reference's scan of ``jax.checkpoint(body)``
+        x = _checkpoint(layer, x) if torch.is_grad_enabled() else layer(x)
     return L.apply_norm(cfg, x, model.enc_final_norm)
+
+
+def _encoder_layer(cfg, p, pos, x):
+    """One encoder layer: non-causal self-attention and MLP, each after
+    its norm, with their residuals."""
+    a = L.apply_norm(cfg, x, p.norm1)
+    x = x + _attn_sublayer(cfg, p.attn, a, pos, pos, causal=False)
+    return x + L.mlp(cfg, p.mlp, L.apply_norm(cfg, x, p.norm2))
+
+
+def _checkpoint(fn, *args):
+    """``fn(*args)`` keeping only its inputs for the backward, which runs
+    it again (the reference's ``jax.checkpoint``).  Non-reentrant: the
+    recompute runs with grad mode on, so K3's and K4's autograd Functions
+    launch the same kernels both times, and their ``save_for_backward``
+    tensors are freed after the forward."""
+    # the forward draws no random numbers: no RNG state to restore
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def _memory(cfg, model, enc_frames):
@@ -370,31 +393,51 @@ def _logits(cfg, model, x):
     return x @ model.lm_head
 
 
-def _run_layers(cfg, model, x, q_pos, memory=None, caches=None):
-    """The layers in order → (x, the sum of the MoE layers' aux losses in
-    layer order, as the reference's scan carries it; None without MoE)."""
+def _run_layers(cfg, model, x, q_pos, memory=None, caches=None,
+                remat=False):
+    """The layers in order, a period (``period_len`` layers, the
+    reference's scan step) at a time → (x, the sum of the MoE layers' aux
+    losses in layer order, as the reference's scan carries it; None
+    without MoE).  With ``remat`` and grad mode on, each period is one
+    checkpoint."""
     slots = period_slots(cfg)
+    wrap = remat and torch.is_grad_enabled()
     total = None
-    for li, p in enumerate(model.layers):
-        kind, is_moe = slots[li % len(slots)]
+    for first in range(0, len(model.layers), len(slots)):
+        period = functools.partial(
+            _run_period, cfg, model.layers[first:first + len(slots)],
+            slots, q_pos, None if caches is None
+            else caches[first:first + len(slots)])
+        x, total = _checkpoint(period, x, total, memory) if wrap \
+            else period(x, total, memory)
+    return x, total
+
+
+def _run_period(cfg, layers, slots, q_pos, caches, x, total, memory):
+    """One period's layers in order, ``total`` carrying the aux sum."""
+    for i, p in enumerate(layers):
+        kind, is_moe = slots[i]
         x, aux = _apply_slot(cfg, p, kind, is_moe, x, q_pos, memory=memory,
                              slot_cache=None if caches is None
-                             else caches[li])
+                             else caches[i])
         if aux is not None:
             total = aux if total is None else total + aux
     return x, total
 
 
-def forward_train(cfg, model, tokens, enc_frames=None):
+def forward_train(cfg, model, tokens, enc_frames=None, remat=True):
     """tokens [B,S] (and, for an encoder-decoder, enc_frames [B,F,d]) →
     (logits [B,S,V], aux loss), keeping the autograd graph (the parameters
     are trainable).  The aux loss is the sum of the MoE layers'
-    load-balancing terms, 0 without experts."""
+    load-balancing terms, 0 without experts.  ``remat`` (the reference's
+    default) checkpoints each period of layers: the backward keeps only
+    each period's input and runs its forward again.  An encoder's layers
+    are checkpointed either way."""
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
     x = _embed(cfg, model, tokens, positions)
     memory = _memory(cfg, model, enc_frames)
-    x, aux = _run_layers(cfg, model, x, positions, memory)
+    x, aux = _run_layers(cfg, model, x, positions, memory, remat=remat)
     if aux is None:
         aux = torch.zeros((), device=x.device)
     return _logits(cfg, model, x), aux

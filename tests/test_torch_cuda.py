@@ -65,7 +65,10 @@ shapes, chunks 16, 24 and 128, with and without a state and a final-state
 cotangent) against their plain mirrors in bf16, within ``BF16_BWD_ULPS``
 of each gradient's largest entry, bit-identical over two runs, the bf16
 prefill's output unchanged by its log-sum-exp; a full-size smollm-135m
-and mamba2-1.3b bf16 train step through the bf16 kernels alone; three
+and mamba2-1.3b bf16 train step through the bf16 kernels alone (with
+remat, the default plan: each forward kernel twice a layer); two bf16
+steps of h2o-danube-3-4b and mamba2-1.3b at full width with 2 layers
+with and without remat, bit-equal; three
 bf16 smoke train steps of smollm, mamba2, mixtral and whisper twice with
 the same bits; the global norm by groups keeps the f32 bits.  The bf16
 decode (one cluster launch) at its
@@ -893,7 +896,7 @@ def test_full_size_mamba2_train_step_goes_through_the_kernels(dev,
                          dtype=torch.int32)
     _lib.reset_launches()
     state, loss, gnorm = S.make_train_step(
-        cfg, S.CellPlan(param_dtype=torch.float32), opt_cfg)(
+        cfg, S.CellPlan(remat=False, param_dtype=torch.float32), opt_cfg)(
         model, state, toks)
     assert _lib.LAUNCHES["ssd_scan"] == 48
     assert _lib.LAUNCHES["ssd_scan_bwd"] == 48
@@ -923,7 +926,7 @@ def test_full_size_train_step_goes_through_the_kernels(dev, monkeypatch):
                          dtype=torch.int32)
     _lib.reset_launches()
     state, loss, gnorm = S.make_train_step(
-        cfg, S.CellPlan(param_dtype=torch.float32), opt_cfg)(
+        cfg, S.CellPlan(remat=False, param_dtype=torch.float32), opt_cfg)(
         model, state, toks)
     assert _lib.LAUNCHES["flash_attention_prefill"] == 30
     assert _lib.LAUNCHES["flash_attention_bwd"] == 30
@@ -1607,21 +1610,27 @@ def test_bf16_ssd_backward_hopper_kernels_add_without_atomics():
                                          "red.shared"))
 
 
-def _bf16_train_step(dev, arch, batch, seq, steps=1, seed=0, smoke=False):
-    """``steps`` bf16 train steps (the reference's plan) of ``arch`` on
-    random ``init_model(dtype=bf16)`` weights (an encoder-decoder over
-    seeded bf16 frames): the losses, grad norms and parameters after, and
-    the launch counts."""
+def _bf16_train_step(dev, arch, batch, seq, steps=1, seed=0, smoke=False,
+                     n_layers=None, remat=True):
+    """``steps`` bf16 train steps (the reference's plan, ``remat`` as
+    given) of ``arch`` (cut to ``n_layers``) on random
+    ``init_model(dtype=bf16)`` weights (an encoder-decoder over seeded
+    bf16 frames): the losses, grad norms and parameters after, and the
+    launch counts."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.launch import steps as S
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
     cfg = get_config(arch, smoke=smoke)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
                          dtype=torch.bfloat16)
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     state = adamw.init_state(list(model.parameters()), opt_cfg)
-    step = S.make_train_step(cfg, S.CellPlan(), opt_cfg)
+    step = S.make_train_step(cfg, S.CellPlan(remat=remat), opt_cfg)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     frames = (torch.randn(batch, cfg.n_frames, cfg.d_model, device=dev,
                           generator=gen) * 0.02).bfloat16() \
@@ -1640,25 +1649,58 @@ def _bf16_train_step(dev, arch, batch, seq, steps=1, seed=0, smoke=False):
 def test_full_size_bf16_train_step_goes_through_the_kernels(dev,
                                                             monkeypatch):
     """One smollm-135m and one mamba2-1.3b train step at full size in bf16
-    (batch 2 × 128, and 2 × 256: two chunks): 30 K3 bf16 prefills and
-    backwards, 48 K4 bf16 forwards and backwards, no f32 launch, no call
-    of a plain version or mirror, finite losses and grad norms."""
+    with the default plan, remat (batch 2 × 128, and 2 × 256: two
+    chunks): 60 K3 bf16 prefills (each layer's forward and its recompute)
+    and 30 backwards, 96 K4 bf16 forwards and 48 backwards, no f32
+    launch, no call of a plain version or mirror, finite losses and grad
+    norms."""
     def refuse(*a, **kw):
         raise AssertionError("a kernel's plain version ran")
     monkeypatch.setattr(fa_ops, "attention_ref", refuse)
     monkeypatch.setattr(ssd_ops, "ssd_ref", refuse)
     monkeypatch.setattr(ssd_plain, "ssd_bwd_ref", refuse)
     (loss, gnorm), _, n = _bf16_train_step(dev, "smollm-135m", 2, 128)
-    assert n["flash_attention_bf16_prefill"] == 30
+    assert n["flash_attention_bf16_prefill"] == 60
     assert n["flash_attention_bf16_bwd"] == 30
     assert n["flash_attention_bf16_decode"] == 0
     assert n["flash_attention"] == n["flash_attention_bwd"] == 0
     assert np.isfinite(loss.item()) and np.isfinite(gnorm.item())
     (loss, gnorm), _, n = _bf16_train_step(dev, "mamba2-1.3b", 2, 256)
-    assert n["ssd_scan_bf16"] == n["ssd_scan_bf16_bwd"] == 48
+    assert n["ssd_scan_bf16"] == 96 and n["ssd_scan_bf16_bwd"] == 48
     assert n["ssd_scan"] == n["ssd_scan_bwd"] == 0
     assert n["flash_attention_bf16"] == 0
     assert np.isfinite(loss.item()) and np.isfinite(gnorm.item())
+
+
+@pytest.mark.parametrize("arch,fwd,bwd", [
+    ("h2o-danube-3-4b", "flash_attention_bf16_prefill",
+     "flash_attention_bf16_bwd"),
+    ("mamba2-1.3b", "ssd_scan_bf16", "ssd_scan_bf16_bwd")])
+def test_bf16_remat_train_steps_equal_no_remat(dev, arch, fwd, bwd,
+                                               monkeypatch):
+    """Two bf16 train steps at full width with 2 layers, batch 4 × 512,
+    with ``CellPlan(remat=True)`` and with ``remat=False`` from one seed:
+    the same losses, grad norms and parameters, bit for bit (the
+    recompute launches the same kernels on the same inputs).  The forward
+    kernel (K3's bf16 prefill, K4's bf16 forward) twice per layer a step
+    under remat and once without, the backward once either way; no plain
+    version."""
+    def refuse(*a, **kw):
+        raise AssertionError("a kernel's plain version ran")
+    monkeypatch.setattr(fa_ops, "attention_ref", refuse)
+    monkeypatch.setattr(ssd_ops, "ssd_ref", refuse)
+    monkeypatch.setattr(ssd_plain, "ssd_bwd_ref", refuse)
+    (out_on, par_on, n_on), (out_off, par_off, n_off) = (
+        _bf16_train_step(dev, arch, 4, 512, steps=2, n_layers=2, remat=r)
+        for r in (True, False))
+    assert all(torch.equal(x, y) for x, y in zip(out_on + par_on,
+                                                 out_off + par_off))
+    assert all(bool(torch.isfinite(x).all()) for x in out_on)
+    assert (n_on[fwd], n_on[bwd]) == (8, 4)
+    assert (n_off[fwd], n_off[bwd]) == (4, 4)
+    for n in (n_on, n_off):
+        assert n["flash_attention"] == n["ssd_scan"] == 0
+        assert n["flash_attention_bwd"] == n["ssd_scan_bwd"] == 0
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-1.3b",

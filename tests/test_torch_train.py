@@ -343,7 +343,7 @@ def _check_train_step(arch, seq):
     tokens = pipe.batch_at(0)
     jgrads = jax.grad(lambda p: JS.loss_fn(jcfg, p, jnp.asarray(tokens),
                                            remat=False)[0])(jparams)
-    S.loss_fn(cfg, model, torch.from_numpy(tokens))[0].backward()
+    S.loss_fn(cfg, model, torch.from_numpy(tokens), remat=False)[0].backward()
     grads = params_to_numpy(cfg, model, {n: p.grad for n, p
                                          in model.named_parameters()})
     exp, got = _leaves(jgrads), _leaves(grads)
@@ -357,7 +357,8 @@ def _check_train_step(arch, seq):
     jstep = jax.jit(JS.make_train_step(
         jcfg, JS.CellPlan(grad_accum=1, remat=False,
                           param_dtype=jnp.float32), jopt_cfg))
-    step = S.make_train_step(cfg, S.CellPlan(param_dtype=torch.float32),
+    step = S.make_train_step(cfg, S.CellPlan(remat=False,
+                                             param_dtype=torch.float32),
                              opt_cfg)
     state = adamw.init_state(list(model.parameters()), opt_cfg)
     jstate = JA.init_state(jparams, jopt_cfg)
@@ -392,7 +393,8 @@ def test_train_step_accumulates_micro_batches():
         jparams, JA.AdamWConfig(**kw)), jnp.asarray(toks))
     opt_cfg = adamw.AdamWConfig(**kw)
     _, loss, gnorm = S.make_train_step(
-        cfg, S.CellPlan(grad_accum=2, param_dtype=torch.float32), opt_cfg)(
+        cfg, S.CellPlan(grad_accum=2, remat=False,
+                        param_dtype=torch.float32), opt_cfg)(
         model, adamw.init_state(list(model.parameters()), opt_cfg),
         torch.from_numpy(toks))
     assert float(loss) == pytest.approx(float(jloss), rel=1e-5)

@@ -145,7 +145,8 @@ def check_first_step_gradients(arch, seq):
     jframes, frames = frames_bf16(cfg, 2)
     jgrads = jax.jit(jax.grad(lambda p: JS.loss_fn(
         jcfg, p, jnp.asarray(tokens), jframes, remat=False)[0]))(jparams)
-    S.loss_fn(cfg, model, torch.from_numpy(tokens), frames)[0].backward()
+    S.loss_fn(cfg, model, torch.from_numpy(tokens), frames,
+              remat=False)[0].backward()
     named = dict(model.named_parameters())
     assert all(named[n].grad.dtype == named[n].dtype for n in named)
     grads = params_to_numpy(cfg, model, {n: p.grad for n, p in

@@ -53,7 +53,8 @@ def _steps(arch, n_steps, batch, seq, accum):
     opt_cfg, jopt_cfg = adamw.AdamWConfig(**kw), JA.AdamWConfig(**kw)
     jstep = jax.jit(JS.make_train_step(
         jcfg, JS.CellPlan(grad_accum=accum, remat=False), jopt_cfg))
-    step = S.make_train_step(cfg, S.CellPlan(grad_accum=accum), opt_cfg)
+    step = S.make_train_step(cfg, S.CellPlan(grad_accum=accum, remat=False),
+                             opt_cfg)
     state = adamw.init_state(list(model.parameters()), opt_cfg)
     jstate = JA.init_state(jparams, jopt_cfg)
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=batch, seq=seq))

@@ -230,7 +230,7 @@ def _steps(plan_accum, n_steps, grads=False):
             jcfg, p, jnp.asarray(toks), jnp.asarray(frames),
             remat=False)[0])(jparams))
         S.loss_fn(cfg, model, torch.from_numpy(toks),
-                  torch.from_numpy(frames))[0].backward()
+                  torch.from_numpy(frames), remat=False)[0].backward()
         out["grads"] = _leaves(params_to_numpy(
             cfg, model, {n: p.grad for n, p in model.named_parameters()}))
         for p in model.parameters():
@@ -241,6 +241,7 @@ def _steps(plan_accum, n_steps, grads=False):
         jcfg, JS.CellPlan(grad_accum=plan_accum, remat=False,
                           param_dtype=jnp.float32), jopt_cfg))
     step = S.make_train_step(cfg, S.CellPlan(grad_accum=plan_accum,
+                                             remat=False,
                                              param_dtype=torch.float32),
                              opt_cfg)
     state = adamw.init_state(list(model.parameters()), opt_cfg)
