@@ -90,6 +90,17 @@
    cases, with and without a state and a final-state cotangent), within
    ``BF16_BWD_ULPS`` of each gradient's largest entry (f32 gradients of
    K4 within 1e-4 of it), two runs bit-identical;
+2c. holds K3 and K4 at the serving cells' shapes (``K3_LONG``,
+   ``K3_DECODE_CELLS``, ``K4_BIG``, ``K4_CELLS``): K3's bf16 prefill at
+   h2o-danube-3-4b's 32,768 and 524,288 tokens (window 4,096), its walk
+   bounded to the live key tiles bit-equal to the walk from key 0 (f32
+   too at 32k), the last query tile within 4 bf16 ulps of the plain
+   version over every key; K3's bf16 decode at the cells' last step
+   (smollm-135m's 64 rows over 32,768 slots, danube's 128 rows and 1 row
+   over its 4,096-slot ring wrapped) within 4 ulps of the plain version;
+   K4's bf16 forward on x of [2, 524,288, 64, 64] (past 2^31 elements)
+   against the plain version over 32,768-token segments; each timed
+   beside its bound;
 3. drives the detection path, ``Sloth.detect`` with the batched recorder
    on the card, for resnet50 on an 8×8 mesh (core 6, link 20, no fault)
    with the launch counts set to 0 just before and read just after, plus
@@ -115,7 +126,7 @@
    with a record, one per post-hoc recording of the launcher's streaming
    gate), K2, K3 and K4 never; every judged field must equal the JAX
    reference's pins (scores within ``rel=1e-5``); the thread (4 workers)
-   and process (2 workers) executors must give ``==`` outcomes; the grid
+   and process (4 workers) executors must give ``==`` outcomes; the grid
    of ``tests/data/mesh_campaign_baseline.json`` must be reproduced on the
    card; prints each scenario's simulate / analyse / mitigate seconds, a
    profile of the core scenario (device ms, idle share), and K1 per
@@ -174,6 +185,12 @@
    K4's 96, no f32 kernel launch, no plain version, peak device memory below
    the card's; profiles each; holds the reference's bf16 pins
    (``BF16_PINS``) teacher-forced, near ties printed;
+9c. runs the reference's serving cells (``SERVE_CELLS``: ``prefill_32k``,
+   ``decode_32k``, ``long_500k`` of ``launch/steps.py``) in bf16 through
+   ``make_prefill_step`` / ``make_decode_step``, each twice and bit-equal
+   but ``long_500k``, with exact K3/K4 launch counts, replicated decode
+   rows' tokens equal, the peak beside the reckoned one, and device ms by
+   class and the idle share of a profiled prefill or decode step;
 10. times K3's backward at smollm-135m's training shape and at
    whisper-large-v3's encoder and cross-attention shapes beside its plain
    mirror, its bounds (f32 on CUDA cores and 3xTF32 on tensor cores)
@@ -285,6 +302,13 @@ does the same for K4 at ``SSD_CASES``: its f32 forward (y, the final
 state, the scratch its backward reads), its backward and its bf16 forward.
 The K3 digest also holds the bf16 prefill's and decode's outputs.
 
+    python3 chip_smoke.py --k3-walk SRC
+
+times K3's prefills (``K3_WALK_CASES``: the 4 × 512 serving shapes and
+512 to 8,192 tokens) walking every key tile from key 0 and, where the
+tree bounds its walk, searching for each block's live tiles, for the port
+in ``SRC``: run it for two trees in turns to compare them on one card.
+
     python3 chip_smoke.py --k4-bwd-times SRC
 
 times K4's bf16 backward at mamba2-1.3b's training shape, with its split
@@ -313,6 +337,7 @@ the exponents (``K4_BWD_ABLATIONS``), each with its split per launch.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -1744,7 +1769,7 @@ def run_campaign_phase(dev, lib) -> dict:
               "mitigate_s": sum(m.wall_time for m in o.mitigation_results)})
 
     same = {}
-    for executor, workers in (("thread", "4"), ("process", "2")):
+    for executor, workers in (("thread", "4"), ("process", "4")):
         lib.reset_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
@@ -1989,9 +2014,13 @@ def time_attention(q, k, v, q_pos, k_pos, reps, window=None, causal=True):
         s_len, t_len, dtype=torch.bool, device=q.device).tril()))
     lib_mask = None if bool(mask.all()) or lower else mask
 
+    # the model's prefills mark their own arange: the bounded walk
+    sorted_keys = bool((k_pos[1:] >= k_pos[:-1]).all())
+
     def kernel():
         return flash_attention_cuda(q, k, v, q_pos=q_pos, k_pos=k_pos,
-                                    causal=causal, window=window)
+                                    causal=causal, window=window,
+                                    sorted_keys=sorted_keys)
 
     def plain():
         return attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos,
@@ -2063,6 +2092,27 @@ def bound(nbytes, flops, peak=FP32_FLOP_PER_S):
             "bytes": nbytes, "flops": flops}
 
 
+def ssd_bound(nbytes, b, s, h, p, g, n, q, bf16):
+    """K4's forward bound: ``nbytes`` over the memory rate, or the
+    operations of the causal half of C·Bᵀ (once per group), the
+    intra-chunk product, the state update and the inter-chunk term at the
+    rate of the f32 entry's CUDA cores, or for the bf16 entry C·Bᵀ at the
+    bf16 rate and the rest as two TF32 passes (its CUDA-core figure in
+    ``bound_cuda_core_ms``)."""
+    pairs = sum(m * (m + 1) // 2 for m in
+                [min(q, s - t0) for t0 in range(0, s, q)])
+    scores = b * g * 2 * pairs * n
+    flops = scores + b * h * (2 * pairs * p + 4 * s * p * n)
+    roof = bound(nbytes, flops)
+    if bf16:
+        # the products' mix as one rate: scores at bf16's, the rest at
+        # two TF32 passes'
+        roof = bound(nbytes, flops, flops / (scores / BF16_FLOP_PER_S + (
+            flops - scores) / TF32X2_FLOP_PER_S)) | {
+                "bound_cuda_core_ms": roof["bound_ms"]}
+    return roof
+
+
 def time_ssd(dev, reps, bf16=False):
     """Kernel and plain version at mamba2-1.3b's serving prefill (the
     serving path starts from a zero state), with x, b and c in bf16 if
@@ -2090,17 +2140,7 @@ def time_ssd(dev, reps, bf16=False):
     err = max(allclose(yk, yp, 2e-4)[0], allclose(sk, sp, 2e-4)[0])
     nbytes = sum(x.numel() * x.element_size()
                  for x in (*args, st0, yk, sk))
-    pairs = sum(m * (m + 1) // 2 for m in
-                [min(q, s - t0) for t0 in range(0, s, q)])
-    scores = b * g * 2 * pairs * n
-    flops = scores + b * h * (2 * pairs * p + 4 * s * p * n)
-    roof = bound(nbytes, flops)
-    if bf16:
-        # the products' mix as one rate: scores at bf16's, the rest at
-        # two TF32 passes'
-        roof = bound(nbytes, flops, flops / (scores / BF16_FLOP_PER_S + (
-            flops - scores) / TF32X2_FLOP_PER_S)) | {
-                "bound_cuda_core_ms": roof["bound_ms"]}
+    roof = ssd_bound(nbytes, b, s, h, p, g, n, q, bf16)
     breakdown = launch_breakdown(kernel, reps)
     return {**times(kernel, plain, None, reps), **roof,
             "kernel_breakdown_ms": breakdown,
@@ -2882,7 +2922,7 @@ def time_bf16_kernels(dev):
 
 def profile_serving(arch, dev, n_layers=None, model=None):
     """A prefill of 4 × 512 tokens (an encoder-decoder's over zero frames)
-    into a 1,024-slot cache and 4 decode steps at full width (and depth
+    into a 1,024-slot cache and 2 decode steps at full width (and depth
     unless ``n_layers`` cuts it), on ``model`` (else f32 weights drawn
     here) with a cache in its type:
     host-clock ms without the profiler, then device time by kernel and by
@@ -2907,7 +2947,7 @@ def profile_serving(arch, dev, n_layers=None, model=None):
     # an encoder-decoder encodes the launcher's zero frames at the prefill
     frames = torch.zeros(4, cfg.n_frames, cfg.d_model, device=dev,
                          dtype=dtype) if cfg.enc_dec else None
-    n_dec = 4
+    n_dec = 2
 
     def prefill():
         cache = T.init_cache(cfg, 4, 1024, device=dev, dtype=dtype)
@@ -2934,8 +2974,8 @@ def profile_serving(arch, dev, n_layers=None, model=None):
                                  ("decode_step", lambda: decode(*state),
                                   t2 - t1, n_dec)):
         by_name = {}
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # device activities only: the host's op records are not read here
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             work()
             torch.cuda.synchronize()
         dev_ms = device_us(prof, by_name) / n / 1e3
@@ -3979,7 +4019,9 @@ def failrank_loops_main(src: str) -> int:
 
 #: K3's f32 outputs digested by ``--k3-digest SRC``: (label, B, S, T, Hq,
 #: Hkv, D, causal, window) at each head dim the kernels were built for
-#: before any other was taken; S = 1 takes the split-key decode.
+#: before any other was taken; S = 1 takes the split-key decode.  The
+#: long windowed prefill (20 key tiles of 128, most of each block's
+#: dead) is where a bounded walk skips tiles at both ends.
 K3_DIGEST_CASES = tuple(
     (f"{kind} D={d}", *shape, d, causal, win)
     for d in (16, 32, 64, 128)
@@ -3987,7 +4029,8 @@ K3_DIGEST_CASES = tuple(
         ("prefill", (2, 200, 200, 8, 2), True, None),
         ("prefill windowed", (2, 200, 200, 8, 2), True, 50),
         ("prefill non-causal", (2, 100, 160, 4, 4), False, None),
-        ("decode", (2, 1, 300, 8, 2), True, None)))
+        ("decode", (2, 1, 300, 8, 2), True, None),
+        ("prefill long windowed", (1, 2500, 2500, 4, 2), True, 300)))
 
 
 def k3_digest_main(src: str, save: str | None = None) -> int:
@@ -4007,10 +4050,17 @@ def k3_digest_main(src: str, save: str | None = None) -> int:
         return 2
     sys.path.remove(str(ROOT / "src"))
     sys.path.insert(0, str(Path(src).resolve()))
+    import inspect
+
     from repro_torch.kernels import _lib
     from repro_torch.kernels.flash_attention import ops
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
+    # a tree whose prefills bound their walk by a sorted table is called
+    # as its model calls it (k_pos below is an arange)
+    bounded = "sorted_keys" in inspect.signature(
+        ops.flash_attention_cuda).parameters
+    walk = {"sorted_keys": True} if bounded else {}
 
     arrays = {}
 
@@ -4031,14 +4081,14 @@ def k3_digest_main(src: str, save: str | None = None) -> int:
         q_pos = torch.arange(t - s, t, dtype=torch.int32, device=dev)
         k_pos = torch.arange(t, dtype=torch.int32, device=dev)
         pos = dict(q_pos=q_pos, k_pos=k_pos, causal=causal, window=win)
-        out[label] = digest(ops.flash_attention_cuda(q, k, v, **pos),
-                            label=label)
+        out[label] = digest(ops.flash_attention_cuda(q, k, v, **pos,
+                                                     **walk), label=label)
         # the bf16 entry on the same numbers (its output in f32, exactly)
         out[f"{label} bf16"] = digest(ops.flash_attention_cuda(
-            q.bfloat16(), k.bfloat16(), v.bfloat16(), **pos).float(),
+            q.bfloat16(), k.bfloat16(), v.bfloat16(), **pos, **walk).float(),
             label=f"{label} bf16")
         if s > 1:
-            o, lse = ops._prefill(q, k, v, **pos)
+            o, lse = ops._prefill(q, k, v, **pos, **walk)
             out[f"{label} lse"] = digest(o, lse, label=f"{label} lse")
             grads = ops.flash_attention_bwd_cuda(q, k, v, o, dout, lse, **pos)
             out[f"{label} backward"] = digest(*grads,
@@ -4046,7 +4096,7 @@ def k3_digest_main(src: str, save: str | None = None) -> int:
     if save:
         np.savez(save, **arrays)
     emit({"phase": "k3_digest", "src": src, "module": _lib.__file__,
-          "digests": out})
+          "bounded_walk": bounded, "digests": out})
     return 0
 
 
@@ -4124,6 +4174,98 @@ def k4_digest_main(src: str, save: str | None = None) -> int:
         np.savez(save, **arrays)
     emit({"phase": "k4_digest", "src": src, "module": _lib.__file__,
           "digests": out, "bf16_backward": bf16_bwd})
+    return 0
+
+
+#: K3's prefills for ``--k3-walk``: (label, batch, tokens, query heads, KV
+#: heads, head dim, window, causal, bf16).  The serving shapes at 4 × 512
+#: (and whisper's encoder, non-causal over 1,500), f32 at head dims 16 and
+#: 32, then danube's and smollm's heads at 512 to 8,192 tokens (4 to 64
+#: bf16 key tiles, 8 to 128 f32 ones), 16,384 tokens a call.
+K3_WALK_CASES = (
+    *((f"{'bf16' if bf16 else 'f32'} {name} 4x{s}", 4, s, hq, hk, d, win,
+       causal, bf16)
+      for bf16 in (True, False)
+      for name, s, hq, hk, d, win, causal in (
+          ("danube", 512, 32, 8, 120, 4096, True),
+          ("smollm", 512, 9, 3, 64, None, True),
+          ("yi" if bf16 else "mixtral", 512, 56 if bf16 else 32, 8, 128,
+           None if bf16 else 4096, True),
+          ("whisper encoder", 1500, 20, 20, 64, None, False))),
+    ("f32 d16 4x512", 4, 512, 8, 2, 16, None, True, False),
+    ("f32 d32 4x512", 4, 512, 8, 2, 32, None, True, False),
+    *((f"{'bf16' if bf16 else 'f32'} {name} {16384 // s}x{s}", 16384 // s,
+       s, hq, hk, d, win, True, bf16)
+      for bf16 in (True, False)
+      for name, hq, hk, d, win in (("danube", 32, 8, 120, 4096),
+                                   ("smollm", 9, 3, 64, None))
+      for s in (512, 1024, 2048, 4096, 8192)),
+)
+
+
+def k3_walk_main(src: str, reps: int = 20) -> int:
+    """``--k3-walk SRC``: the port in ``SRC`` (as ``--k3-digest``) times
+    K3's prefill at ``K3_WALK_CASES`` over an arange, as the model calls
+    it: the walk from key 0 (``full_ms``) and, on a tree that bounds its
+    walk, the search at every length (``search_ms``, ``SEARCH_MIN_KEYS``
+    set to 0 for the call), in the order full, search, search, full, each
+    ``reps`` calls behind a spin (``timed``); the two outputs bit-equal.
+    One JSON line; run it for two trees in turns (parent, change, change,
+    parent) to compare them on one card, and to set
+    ``ops.SEARCH_MIN_KEYS`` where the search starts to pay."""
+    import inspect
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    sys.path.remove(str(ROOT / "src"))
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import ops
+    dev = torch.device("cuda", 0)
+    bounded = "sorted_keys" in inspect.signature(
+        ops.flash_attention_cuda).parameters
+    min_keys = getattr(ops, "SEARCH_MIN_KEYS", None)
+    out = {}
+    for label, b, s, hq, hk, d, win, causal, bf16 in K3_WALK_CASES:
+        gen = torch.Generator(device=dev).manual_seed(3)
+        dt = torch.bfloat16 if bf16 else torch.float32
+        q, k, v = (torch.randn(b, s, h, d, device=dev, generator=gen).to(dt)
+                   for h in (hq, hk, hk))
+        pos = torch.arange(s, dtype=torch.int32, device=dev)
+
+        def call(search, q=q, k=k, v=v, pos=pos, win=win, causal=causal):
+            if not bounded:
+                return ops.flash_attention_cuda(
+                    q, k, v, q_pos=pos, k_pos=pos, causal=causal,
+                    window=win)
+            if min_keys is not None:
+                ops.SEARCH_MIN_KEYS = 0 if search else min_keys
+            try:
+                return ops.flash_attention_cuda(
+                    q, k, v, q_pos=pos, k_pos=pos, causal=causal,
+                    window=win, sorted_keys=search)
+            finally:
+                if min_keys is not None:
+                    ops.SEARCH_MIN_KEYS = min_keys
+        res = {"shape": [b, s, hq, hk, d], "window": win, "causal": causal}
+        order = (False, True, True, False) if bounded else (False, False)
+        for search in order:
+            res.setdefault("search_ms" if search else "full_ms", []).append(
+                timed(lambda search=search: call(search), reps)["ms"])
+        if bounded:
+            same = bool(torch.equal(call(True), call(False)))
+            require(same, f"K3 {label}: search != full walk")
+            res["search_equals_full"] = same
+        out[label] = res
+        del q, k, v
+    emit({"phase": "k3_walk", "src": src, "module": _lib.__file__,
+          "nvidia_smi": subprocess.run(
+              ["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"], capture_output=True, text=True,
+              timeout=60, check=True).stdout.strip(),
+          "search_min_keys": min_keys, "reps": reps, "cases": out})
     return 0
 
 
@@ -4256,7 +4398,7 @@ def k3_ablations_main() -> int:
     from repro_torch.kernels import _lib
     dev = torch.device("cuda", 0)
     fns = build_ablations(K3_ABLATIONS, "ablations",
-                          "flash_attention_prefill_bf16", 7, 8)
+                          "flash_attention_prefill_bf16", 7, 9)
     rng = np.random.default_rng(29)
     hq, hk = YI_HEADS
     dq, dk, dwin = DANUBE_ATTENTION
@@ -4280,7 +4422,7 @@ def k3_ablations_main() -> int:
             o = torch.empty_like(q)
             args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
                     kp.data_ptr(), o.data_ptr(), 0, b, s, t, h, g, d,
-                    int(causal), win or 0)
+                    int(causal), win or 0, 1)
 
             def call(fn=fns[name], args=args):
                 _lib.check(fn(*args, torch.cuda.current_stream(dev)
@@ -5006,6 +5148,608 @@ def time_bf16_backwards(dev) -> dict:
     return k3, time_ssd_bwd(dev, reps=10, bf16=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 2c and 17: the reference's serving cells (``launch/steps.py``
+# ``SHAPES``) on one card in bf16
+# ---------------------------------------------------------------------------
+
+#: K3's bf16 prefill at h2o-danube-3-4b's serving cells, (label, batch,
+#: tokens): ``prefill_32k``'s per-card batch and ``long_500k``'s whole
+#: context; 32 query heads over 8 KV heads of 120, window 4,096.
+K3_LONG = (("prefill_32k", 4, 32768), ("long_500k", 1, 524288))
+
+#: Query rows of the last tile that phase 2c holds to the plain version
+#: over every key (the tile of the kernels' bf16 prefill).
+K3_LAST_TILE = 128
+
+
+def causal_window_pairs(s: int, window: int) -> int:
+    """Live (query, key) pairs of a causal prefill of ``s`` positions
+    (arange) under ``window``: query i sees min(i + 1, window) keys."""
+    w = min(s, window)
+    return w * (w + 1) // 2 + (s - w) * window
+
+
+def k3_long_inputs(dev, b, s, dtype, seed):
+    """q [b,s,32,120], k/v [b,s,8,120] (normal draws on the card from
+    ``seed``) and the positions arange(s)."""
+    import torch
+    dq, dk, _ = DANUBE_ATTENTION
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, s, h, 120, device=dev, generator=gen,
+                           dtype=torch.float32).to(dtype)
+               for h in (dq, dk, dk))
+    return q, k, v, torch.arange(s, dtype=torch.int32, device=dev)
+
+
+def check_attention_long(dev, full_walk_500k=False, reps=3):
+    """K3's prefill at danube's ``K3_LONG`` shapes (window 4,096): in bf16
+    (and in f32 at ``prefill_32k``) the walk bounded to the live key tiles
+    (``sorted_keys``, the model's prefill) bit-equal to the full walk from
+    key 0 (at ``long_500k`` only with ``full_walk_500k``: ~2 s a call);
+    the last ``K3_LAST_TILE`` query rows within ``BF16_ULPS`` of the plain
+    version over every key; the bounded call timed (and the full walk
+    where it ran) beside its bound and, at ``prefill_32k``, SDPA with the
+    boolean window mask (at ``long_500k`` the mask alone would be 275 GB:
+    no library time)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import live_mask
+    _, _, win = DANUBE_ATTENTION
+    out, worst_ulps, worst = {}, 0.0, 0.0
+    for label, b, s in K3_LONG:
+        q, k, v, pos = k3_long_inputs(dev, b, s, torch.bfloat16, 31)
+
+        def call(sorted_keys, q=q, k=k, v=v, pos=pos):
+            return flash_attention_cuda(q, k, v, q_pos=pos, k_pos=pos,
+                                        causal=True, window=win,
+                                        sorted_keys=sorted_keys)
+        got = call(True)
+        res = {"shape": [b, s, 32, 120], "window": win}
+        if label == "prefill_32k" or full_walk_500k:
+            same = bool(torch.equal(got, call(False)))
+            res["bounded_equals_full_walk"] = same
+            require(same, f"K3 bf16 {label}: bounded walk != full walk")
+        tail = slice(s - K3_LAST_TILE, s)
+        exp = plain_attention(q[:, tail], k, v, pos[tail], pos, True, win)
+        ulps, err = bf16_rows_gap(got[:, tail], exp)
+        require(ulps <= BF16_ULPS, f"K3 bf16 {label} last tile: {ulps} ulps")
+        worst_ulps, worst = max(worst_ulps, ulps), max(worst, err)
+        res.update(last_tile_max_ulps=ulps, last_tile_max_abs_err=err)
+        t = timed(lambda: call(True), reps)
+        res.update(ms=t["ms"], events_ms=t["events_ms"],
+                   timing=timing_label([] if t["ahead"] else ["ms"]))
+        if label == "prefill_32k" or full_walk_500k:
+            res["full_walk_ms"] = timed(lambda: call(False),
+                                        reps if s <= 32768 else 1)["ms"]
+        # q and the output, K and V (every key is some row's), the
+        # positions; 4·D operations a live pair on bf16 tensor cores
+        pairs = b * 32 * causal_window_pairs(s, win)
+        res.update(**bound(2 * q.numel() * 2 + 2 * k.numel() * 2 + 2 * s * 4,
+                           4 * 120 * pairs, BF16_FLOP_PER_S),
+                   live_pairs=pairs)
+        res["plain_last_tile_ms"] = timed(
+            lambda: plain_attention(q[:, tail], k, v, pos[tail], pos, True,
+                                    win), 1)["ms"]
+        if label == "prefill_32k":
+            # K/V repeated to the query heads and the memory-efficient
+            # backend asked for: its math fallback would hold every score
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            mask = live_mask(pos, pos, causal=True, window=win)
+            qt = q.transpose(1, 2)
+            kt, vt = (x.repeat_interleave(4, dim=2).transpose(1, 2)
+                      for x in (k, v))
+            try:
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    res["library_ms"] = timed(
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, attn_mask=mask), 1)["ms"]
+                res["library_is"] = ("SDPA, boolean mask, memory-efficient "
+                                     "backend, K/V repeated to 32 heads")
+            except RuntimeError as e:
+                res["library_ms"] = None
+                res["library_is"] = f"SDPA refused: {str(e)[:200]}"
+            del mask, qt, kt, vt
+        else:
+            res["library_ms"] = None
+            res["library_is"] = ("none: SDPA's boolean mask at 524,288 "
+                                 "positions is 275 GB")
+        out[label] = res
+        del q, k, v, got, exp
+        torch.cuda.empty_cache()
+    # the f32 prefill's bounded walk at prefill_32k
+    q, k, v, pos = k3_long_inputs(dev, 4, 32768, torch.float32, 32)
+    f32 = [flash_attention_cuda(q, k, v, q_pos=pos, k_pos=pos, causal=True,
+                                window=win, sorted_keys=sk)
+           for sk in (True, False)]
+    same = bool(torch.equal(*f32))
+    require(same, "K3 f32 prefill_32k: bounded walk != full walk")
+    out["prefill_32k_f32_bounded_equals_full_walk"] = same
+    del q, k, v, f32
+    torch.cuda.empty_cache()
+    return out, worst_ulps, worst
+
+
+#: K3's bf16 decode at the serving cells' last step: (label, rows, query
+#: heads, KV heads, head dim, cache slots, query position, window).  The
+#: slot of position p is p mod slots, so smollm's 32,768 slots hold
+#: 0..32,767 in order and danube's 4,096-slot ring holds the last 4,096
+#: positions rolled (wrapped 8 and 128 times).
+K3_DECODE_CELLS = (
+    ("decode_32k smollm-135m", 64, 9, 3, 64, 32768, 32767, None),
+    ("decode_32k h2o-danube-3-4b", 128, 32, 8, 120, 4096, 32767, 4096),
+    ("long_500k h2o-danube-3-4b", 1, 32, 8, 120, 4096, 524287, 4096),
+)
+
+
+def check_decode_cells(dev, reps=3):
+    """K3's bf16 decode at ``K3_DECODE_CELLS`` (inputs drawn on the card,
+    the position table as the model's cache holds it) within
+    ``BF16_ULPS`` of the plain version over every slot; timed beside its
+    bound (every slot live: K and V read once), the plain version and SDPA
+    with the boolean mask (K/V repeated to the query heads)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (live_mask,
+                                                         rolled_pos_tab)
+    out, worst_ulps, worst = {}, 0.0, 0.0
+    for label, b, hq, hk, d, slots, pos, win in K3_DECODE_CELLS:
+        gen = torch.Generator(device=dev).manual_seed(33)
+        q, k, v = (torch.randn(b, t, h, d, device=dev, generator=gen)
+                   .bfloat16() for t, h in ((1, hq), (slots, hk),
+                                            (slots, hk)))
+        k_pos = torch.from_numpy(rolled_pos_tab(slots, 0, pos)).to(dev)
+        q_pos = torch.tensor([pos], dtype=torch.int32, device=dev)
+        require(ops.uses_decode(1, hq, hk), f"K3 {label}: not a decode")
+
+        def call(q=q, k=k, v=v, q_pos=q_pos, k_pos=k_pos, win=win):
+            return ops.flash_attention_cuda(q, k, v, q_pos=q_pos,
+                                            k_pos=k_pos, causal=True,
+                                            window=win)
+        got = call()
+        exp = plain_attention(q, k, v, q_pos, k_pos, True, win)
+        ulps, err = bf16_rows_gap(got, exp)
+        require(ulps <= BF16_ULPS, f"K3 bf16 decode {label}: {ulps} ulps")
+        worst_ulps, worst = max(worst_ulps, ulps), max(worst, err)
+        n_split, split_keys = ops.decode_splits(
+            b, slots, hk, ops._sm_count(dev))
+        res = {"q": [b, 1, hq, d], "kv": [b, slots, hk, d],
+               "query_position": pos, "window": win,
+               "wrapped": pos >= slots, "splits": n_split,
+               "split_keys": split_keys, "max_ulps": ulps,
+               "max_abs_err": err}
+        t = timed(call, reps)
+        res.update(ms=t["ms"], events_ms=t["events_ms"],
+                   timing=timing_label([] if t["ahead"] else ["ms"]))
+        res.update(**bound(
+            sum(x.numel() * 2 for x in (q, k, v, got)) + 4 * (slots + 1),
+            4 * d * b * hq * slots, BF16_FLOP_PER_S))
+        res["plain_ms"] = timed(lambda q=q, k=k, v=v, q_pos=q_pos,
+                                k_pos=k_pos, win=win: plain_attention(
+                                    q, k, v, q_pos, k_pos, True, win),
+                                1)["ms"]
+        mask = live_mask(q_pos, k_pos, causal=True, window=win)
+        qt = q.transpose(1, 2)
+        kt, vt = (x.repeat_interleave(hq // hk, dim=2).transpose(1, 2)
+                  for x in (k, v))
+        res["library_ms"] = timed(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), 1)["ms"]
+        res["library_is"] = "SDPA, boolean mask, K/V repeated"
+        out[label] = res
+        del q, k, v, got, exp, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out, worst_ulps, worst
+
+
+#: K4's bf16 forward past 2^31 elements of x: [2, 524,288, 64, 64]
+#: (mamba2-1.3b's heads, two rows of ``long_500k``), held to the plain
+#: version run over segments of ``K4_SEGMENT`` tokens with the state
+#: carried (the same chunks of 128: the same function).
+K4_BIG = (2, 524288, 64, 64, 1, 128)
+K4_SEGMENT = 32768
+
+
+def check_ssd_past_2_31(dev):
+    """``K4_BIG`` in bf16 on the card: the final state and the last chunk's
+    outputs within ``BF16_ULPS`` (y) and 2e-4 (state) of the plain
+    version over segments."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import ssd_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    b, s, h, p, g, n = K4_BIG
+    gen = torch.Generator(device=dev).manual_seed(41)
+
+    def randn(*shape, scale):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+    x = randn(b, s, h, p, scale=0.5).bfloat16()
+    dt = torch.nn.functional.softplus(randn(b, s, h, scale=1.0)) * 0.3
+    a = -torch.exp(randn(h, scale=0.3))
+    bm, cm = (randn(b, s, g, n, scale=0.4).bfloat16() for _ in range(2))
+    require(x.numel() > 2 ** 31, f"K4 past 2^31: {x.numel()} elements")
+    t0 = time.perf_counter()
+    y, state = ssd_cuda(x, dt, a, bm, cm, chunk=128)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    st = None
+    for i in range(0, s, K4_SEGMENT):
+        seg = slice(i, i + K4_SEGMENT)
+        yp, st = ssd_ref(x[:, seg].contiguous(), dt[:, seg].contiguous(), a,
+                         bm[:, seg].contiguous(), cm[:, seg].contiguous(),
+                         chunk=128, init_state=st)
+    ulps, err = bf16_rows_gap(y[:, -128:], yp[:, -128:])
+    es, oks = allclose(state, st, 2e-4)
+    require(ulps <= BF16_ULPS and oks,
+            f"K4 bf16 past 2^31: y {ulps} ulps, state {es}")
+    out = {"shape": list(K4_BIG), "x_elements": x.numel(),
+           "last_chunk_max_ulps": ulps, "last_chunk_max_abs_err": err,
+           "state_max_abs_err": es, "kernel_host_s": kernel_s}
+    del x, dt, bm, cm, y, yp
+    torch.cuda.empty_cache()
+    return out
+
+
+#: K4's bf16 forward at mamba2-1.3b's serving cells: (label, batch,
+#: tokens), chunk 128, from a zero state.
+K4_CELLS = (("prefill_32k", 4, 32768), ("long_500k", 1, 524256))
+
+
+def time_ssd_cells(dev, reps=3) -> dict:
+    """K4's bf16 forward at ``K4_CELLS`` (inputs drawn on the card) timed
+    beside its bound; the plain version at ``prefill_32k`` (its decay
+    matrices at ``long_500k`` would be 17 GB), within ``BF16_ULPS``."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import ssd_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    _, _, h, p, g, n = K4_BIG
+    out = {}
+    for label, b, s in K4_CELLS:
+        gen = torch.Generator(device=dev).manual_seed(43)
+
+        def randn(*shape, scale):
+            return torch.randn(*shape, device=dev, generator=gen) * scale
+        args = (randn(b, s, h, p, scale=0.5).bfloat16(),
+                torch.nn.functional.softplus(randn(b, s, h, scale=1.0)) * 0.3,
+                -torch.exp(randn(h, scale=0.3)),
+                randn(b, s, g, n, scale=0.4).bfloat16(),
+                randn(b, s, g, n, scale=0.4).bfloat16())
+
+        def kernel(args=args):
+            return ssd_cuda(*args, chunk=128)
+        y, st = kernel()
+        nbytes = sum(x.numel() * x.element_size() for x in (*args, y, st))
+        res = {"shape": [b, s, h, p, g, n, 128],
+               **ssd_bound(nbytes, b, s, h, p, g, n, 128, True)}
+        t = timed(kernel, reps)
+        res.update(ms=t["ms"], events_ms=t["events_ms"],
+                   timing=timing_label([] if t["ahead"] else ["ms"]),
+                   library_ms=None)
+        if s <= 32768:
+            yp, sp = ssd_ref(*args, chunk=128)
+            res["max_ulps"], res["max_abs_err"] = bf16_rows_gap(y, yp)
+            require(res["max_ulps"] <= BF16_ULPS,
+                    f"K4 bf16 {label}: {res['max_ulps']} ulps")
+            res["plain_ms"] = timed(lambda args=args: ssd_ref(
+                *args, chunk=128), 1)["ms"]
+            del yp, sp
+        else:
+            res["plain_ms"] = None
+        out[label] = res
+        del args, y, st
+        torch.cuda.empty_cache()
+    return out
+
+
+#: The reference's serving cells on one card in bf16 (``SHAPES``, the
+#: reference's default plan): (shape, arch, per-card batch, prompt tokens,
+#: decode steps, prefill sub-batch, reckoned peak GB, written in PERF.md
+#: before the first run).  Widths and depths are whole; the batch is cut
+#: from the shape's global one to what one card holds.  A decode cell
+#: prefills ``DECODE_PROMPTS`` distinct prompts (in sub-batches) and
+#: replicates their cache rows to its batch, so that every row's whole
+#: cache is read each step; its 32 steps end at position 32,767.
+SERVE_CELLS = (
+    ("prefill_32k", "smollm-135m", 8, 32768, 0, 8, 10.0),
+    ("prefill_32k", "h2o-danube-3-4b", 4, 32768, 0, 4, 21.0),
+    ("prefill_32k", "mamba2-1.3b", 4, 32768, 0, 4, 17.0),
+    ("prefill_32k", "qwen2-vl-2b", 4, 32768, 0, 4, 18.0),
+    ("prefill_32k", "stablelm-1.6b", 2, 32768, 0, 2, 20.0),
+    ("decode_32k", "smollm-135m", 64, 32736, 32, 8, 55.0),
+    ("decode_32k", "h2o-danube-3-4b", 128, 32736, 32, 2, 60.0),
+    ("decode_32k", "mamba2-1.3b", 128, 32736, 32, 4, 17.0),
+    ("long_500k", "h2o-danube-3-4b", 1, 524256, 32, 1, 50.0),
+    ("long_500k", "mamba2-1.3b", 1, 524256, 32, 1, 52.0),
+)
+DECODE_PROMPTS = 8
+SERVE_CELL_SEED = 0
+
+
+def cell_cache(cfg, plan, parts, batch, seq, dev):
+    """A cache of ``batch`` rows whose row r holds the prefilled row
+    r mod n of ``parts`` (the sub-batches' caches, n rows in all)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    cache = T.init_cache(cfg, batch, seq, device=dev, dtype=plan.param_dtype)
+    for li, layer in enumerate(cache):
+        srcs = [c[li] for c in parts]
+        for key, t in layer.items():
+            if key == "pos":
+                layer[key] = srcs[0][key]
+            elif key == "pos_tab":
+                require(all(torch.equal(c[key], srcs[0][key]) for c in srcs),
+                        "sub-batches' position tables differ")
+                t.copy_(srcs[0][key])
+            else:
+                src = torch.cat([c[key] for c in srcs])
+                t.view(batch // len(src), *src.shape).copy_(
+                    src.expand(batch // len(src), *src.shape))
+    return cache
+
+
+def serve_cell_run(dev, lib, cell, model, profile_run=False) -> dict:
+    """One run of ``cell`` through ``steps.make_prefill_step`` and
+    ``make_decode_step`` on ``model``, the counts set to 0 just before and
+    read just after: host ms of the prefill (all sub-batches) and of each
+    decode step (each ending in a sync); its outputs on the host for the
+    bit-equality of runs.  With ``profile_run``, a prefill cell's prefill
+    runs under the profiler; a decode cell takes one more decode step
+    under the profiler after the counted ones (its prefill unprofiled).
+    ``profiled_wall_s`` is the host time of what the profiler traced, for
+    the idle share of the same run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import steps
+    shape, arch, batch, prompt, n_dec, sub, _ = cell
+    cfg = get_config(arch)
+    plan = steps.default_plan(cfg, shape)
+    seq = steps.SHAPES[shape]["seq"]
+    n_prompts = min(batch, DECODE_PROMPTS) if n_dec else batch
+    gen = torch.Generator(device=dev).manual_seed(SERVE_CELL_SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (n_prompts, prompt), device=dev,
+                            generator=gen, dtype=torch.int32)
+    prefill = steps.make_prefill_step(cfg, plan, seq, sub)
+    decode = steps.make_decode_step(cfg, plan)
+    prof = profile(activities=[ProfilerActivity.CUDA]) \
+        if profile_run and not n_dec else contextlib.nullcontext()
+    lib.reset_launches()
+    with PlainCalls((fa_ops, "attention_ref"), (ssd_ops, "ssd_ref")) as plain:
+        with prof:
+            # the clock inside: the profiler's start is not the prefill's
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts = [prefill(model, prompts[i:i + sub])
+                     for i in range(0, n_prompts, sub)]
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        # weights and prefill (the first run's: the counter starts at the
+        # cell's start)
+        prefill_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        last = torch.cat([p[0] for p in parts])[:, -1]        # [n, V]
+        tok = last.argmax(-1, keepdim=True).to(torch.int32)
+        if len(parts) == 1 and batch == n_prompts:
+            cache = parts[0][1]
+        else:
+            cache = cell_cache(cfg, plan, [p[1] for p in parts], batch, seq,
+                               dev)
+            tok = tok.repeat(batch // n_prompts, 1)
+        del parts
+        toks, step_s, logits = [tok], [], None
+        for k in range(n_dec):
+            t0 = time.perf_counter()
+            tok, logits, cache = decode(model, tok, cache, prompt + k)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            toks.append(tok)
+    res = {"prefill_s": prefill_s, "prefill_peak_gb": prefill_peak,
+           "step_s": step_s,
+           "launches": dict(lib.LAUNCHES), "plain_calls": plain.n,
+           "n_prompts": n_prompts, "last": last.float().cpu(),
+           "tokens": torch.cat(toks, 1).cpu(),
+           "final_logits": None if logits is None
+           else logits[:, -1].float().cpu(),
+           "pos_tab": [c["pos_tab"].to("cpu", copy=True) for c in cache
+                       if "pos_tab" in c],
+           "pos": [c["pos"] for c in cache],
+           "profile": prof if profile_run and not n_dec else None,
+           "prefill_profiled": profile_run and not n_dec,
+           "profiled_wall_s": prefill_s if profile_run and not n_dec
+           else None}
+    if profile_run and n_dec:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            decode(model, tok, cache, prompt + n_dec)
+            torch.cuda.synchronize()
+            res["profiled_wall_s"] = time.perf_counter() - t0
+        res["profile"] = prof
+    del cache
+    return res
+
+
+def serve_cell_want(cfg, cell, n_prompts) -> dict:
+    """The exact launches of one run: K3's bf16 prefill once per attention
+    layer per prefill call and its decode once per attention layer per
+    step; K4's bf16 forward once per Mamba layer per prefill call (a
+    decode step is the plain recurrence, as in the reference); nothing
+    else."""
+    _, _, _, _, n_dec, sub, _ = cell
+    calls = -(-n_prompts // sub)
+    n_attn, n_ssd = cfg.n_attn_layers, cfg.n_layers - cfg.n_attn_layers
+    want = {"ssd_scan_bf16": n_ssd * calls}
+    if n_attn:
+        want.update(flash_attention_bf16=n_attn * (calls + n_dec),
+                    flash_attention_bf16_prefill=n_attn * calls,
+                    flash_attention_bf16_decode=n_attn * n_dec)
+    return {k: v for k, v in want.items() if v}
+
+
+def serve_cell(dev, lib, cell) -> dict:
+    """One cell of ``SERVE_CELLS``: bf16 weights drawn on the card from
+    ``SERVE_CELL_SEED``; the run twice (once for ``long_500k``), the two
+    bit-equal in the prefill's last logits, the greedy tokens, the last
+    decode step's logits and every layer's ``pos_tab`` and ``pos``;
+    exact launch counts; replicated decode rows giving equal tokens;
+    finite logits; the peak device memory below the card's, beside the
+    reckoned one.  Prints prefill and decode ms, tok/s and, from a
+    profiled prefill (a prefill cell's last run) or an extra decode step
+    (a decode cell), device ms by class and the idle share against that
+    same prefill's or step's host time.  tok/s and the decode ms come
+    from unprofiled work."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    shape, arch, batch, prompt, n_dec, sub, reckoned = cell
+    cfg = get_config(arch)
+    require(steps.skip_reason(cfg, shape) is None, f"{shape} skips {arch}")
+    n = min(batch, DECODE_PROMPTS) if n_dec else batch
+    require(n % sub == 0 and batch % n == 0,
+            f"{shape} {arch}: batch {batch}, sub-batch {sub}")
+    plan = steps.default_plan(cfg, shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(
+        SERVE_CELL_SEED), dtype=plan.param_dtype)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    repeats = 1 if shape == "long_500k" else 2
+    runs = [serve_cell_run(dev, lib, cell, model,
+                           profile_run=i == repeats - 1)
+            for i in range(repeats)]
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    total = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    first = runs[0]
+    want = serve_cell_want(cfg, cell, first["n_prompts"])
+    for run in runs:
+        for name, n in run["launches"].items():
+            require(n == want.get(name, 0),
+                    f"{shape} {arch}: {name} launched {n} times, not "
+                    f"{want.get(name, 0)}")
+        require(run["plain_calls"] == 0, f"{shape} {arch}: a plain version "
+                                         f"ran {run['plain_calls']} times")
+    same = all(
+        torch.equal(r["last"], first["last"])
+        and torch.equal(r["tokens"], first["tokens"])
+        and (r["final_logits"] is None
+             or torch.equal(r["final_logits"], first["final_logits"]))
+        and all(torch.equal(a, b) for a, b in zip(r["pos_tab"],
+                                                  first["pos_tab"]))
+        and r["pos"] == first["pos"] for r in runs[1:])
+    require(same, f"{shape} {arch}: the two runs differ")
+    toks = first["tokens"]
+    n = first["n_prompts"]
+    replicated = bool(torch.equal(toks, toks[:n].repeat(batch // n, 1)))
+    require(replicated, f"{shape} {arch}: replicated rows' tokens differ")
+    require(bool(torch.isfinite(first["last"]).all()) and (
+        first["final_logits"] is None
+        or bool(torch.isfinite(first["final_logits"]).all())),
+        f"{shape} {arch}: logits not finite")
+    require(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+            f"{shape} {arch}: tokens out of range")
+    require(all(p == prompt + n_dec for p in first["pos"]),
+            f"{shape} {arch}: cache positions {set(first['pos'])}")
+    require(peak < total, f"{shape} {arch}: peak {peak} of {total} GB")
+    steps_ms = sorted(s * 1e3 for s in first["step_s"])
+    median_ms = steps_ms[len(steps_ms) // 2] if steps_ms else None
+    prof = runs[-1]["profile"]
+    by_name = {}
+    dev_ms = device_us(prof, by_name) / 1e3
+    by_class = {}
+    for name, us in by_name.items():
+        c = kernel_class(name)
+        by_class[c] = by_class.get(c, 0.0) + us / 1e3
+    wall_ms = runs[-1]["profiled_wall_s"] * 1e3
+    out = {"phase": "serve_cell", "shape": shape, "arch": arch,
+           "batch": batch, "global_batch": steps.SHAPES[shape]["batch"],
+           "prompt": prompt, "cache_slots": steps.SHAPES[shape]["seq"],
+           "decode_steps": n_dec, "distinct_prompts": n,
+           "prefill_sub_batch": sub, "layers": cfg.n_layers,
+           "weights_gb": sum(p.numel() * p.element_size()
+                             for p in model.parameters()) / 1e9,
+           "init_s": init_s, "runs": repeats,
+           "prefill_ms": [r["prefill_s"] * 1e3 for r in runs],
+           "prefill_profiled": [r["prefill_profiled"] for r in runs],
+           "prefill_tok_per_s": n * prompt / first["prefill_s"],
+           "decode_ms_median": median_ms,
+           "decode_ms_mean": sum(steps_ms) / len(steps_ms) if steps_ms
+           else None,
+           "decode_tok_per_s": batch / median_ms * 1e3 if median_ms
+           else None,
+           "peak_mem_gb": peak, "reckoned_peak_gb": reckoned,
+           "prefill_peak_gb": first["prefill_peak_gb"],
+           "card_gb": total, "launches": first["launches"],
+           "expected_launches": want, "bit_identical_runs": same,
+           "replicated_rows_equal": replicated,
+           "profiled": "decode step" if n_dec else "prefill",
+           "device_ms": dev_ms, "device_ms_by_class": by_class,
+           "profiled_wall_ms": wall_ms,
+           "device_idle_share": 1.0 - dev_ms / wall_ms,
+           "top_kernels_ms": [[k[:80], v / 1e3] for k, v in sorted(
+               by_name.items(), key=lambda kv: -kv[1])[:6]]}
+    emit(out)
+    print(f"{shape} {arch} prefill_ms {out['prefill_ms']} decode_ms "
+          f"{median_ms} peak_gb {peak:.2f} (reckoned {reckoned})", flush=True)
+    del model, runs, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_serve_cells(dev, lib) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    # the profiler's first start sets up its tracing (seconds): done here,
+    # not in the first cell's profiled prefill
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+    cells = {f"{c[0]}/{c[1]}": serve_cell(dev, lib, c) for c in SERVE_CELLS}
+    emit({"phase": "serve_cells_wall_s", "seconds": time.perf_counter() - t0})
+    return cells
+
+
+def cells_main() -> int:
+    """``--cells``: the build, phase 2c (K3 at danube's long shapes, the
+    bounded walk against the full walk also at ``long_500k``, and K4 past
+    2^31) and phase 17 (``SERVE_CELLS``) alone."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _lib as lib
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip(),
+          flush=True)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device("cuda", 0)
+    emit({"phase": "build", "per_source": lib.build_all()})
+    long, ulps, _ = check_attention_long(dev, full_walk_500k=True)
+    emit({"phase": "attention_long_vs_plain", "tol_ulps": BF16_ULPS,
+          "max_ulps": ulps, **long})
+    dec, ulps, _ = check_decode_cells(dev)
+    emit({"phase": "attention_decode_cells_vs_plain", "tol_ulps": BF16_ULPS,
+          "max_ulps": ulps, **dec})
+    emit({"phase": "ssd_bf16_past_2_31", **check_ssd_past_2_31(dev)})
+    emit({"phase": "ssd_bf16_cell_times", **time_ssd_cells(dev)})
+    run_serve_cells(dev, lib)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5086,6 +5830,17 @@ def main() -> int:
           "tol_f32": K4_BWD_TOL, "max_ulps": k4bb_ulps,
           "max_rel_err_f32": k4bb_rel, "cases": ssd_bwd_bf16_cases})
     emit({"phase": "bit_identical", **check_bit_identical(dev)})
+    # 2c. K3 at danube's serving cells, K4 past 2^31 elements
+    k3_long, k3l_ulps, k3l_err = check_attention_long(dev)
+    emit({"phase": "attention_long_vs_plain", "tol_ulps": BF16_ULPS,
+          "max_ulps": k3l_ulps, **k3_long})
+    k3_dec, k3d_ulps, k3d_err = check_decode_cells(dev)
+    emit({"phase": "attention_decode_cells_vs_plain", "tol_ulps": BF16_ULPS,
+          "max_ulps": k3d_ulps, **k3_dec})
+    k4_big = check_ssd_past_2_31(dev)
+    emit({"phase": "ssd_bf16_past_2_31", "tol_ulps": BF16_ULPS, **k4_big})
+    k4_cells = time_ssd_cells(dev)
+    emit({"phase": "ssd_bf16_cell_times", **k4_cells})
 
     # ---- 3. the main path: resnet50 on 8×8 -------------------------------
     cfg = SlothConfig(recorder_impl="batched")
@@ -5314,6 +6069,9 @@ def main() -> int:
         bf16_launches[arch], _ = serve_bf16_run(arch, dev, lib)
     bf16_pin_ulps = max(check_bf16_pin(pin, dev, lib) for pin in BF16_PINS)
 
+    # ---- 9c. the reference's serving cells: prefill_32k, decode_32k, long_500k
+    cells = run_serve_cells(dev, lib)
+
     # ---- 10. K3's and K4's backward at the training shapes ------------------
     k3_bwd = time_attention_bwd(dev, reps=20)
     # whisper-large-v3's encoder and cross-attention, non-causal
@@ -5471,9 +6229,15 @@ def main() -> int:
              arch: r["launches"]["flash_attention_bf16_prefill"]
              for arch, r in train_bf16.items()}
          | {"train_4k": train_4k["launches"]["flash_attention_bf16_prefill"]},
-         "max_abs_err": max(k3b_err, *(t["max_abs_err"]
-                                       for t in k3_bf16.values())),
-         "max_ulps": k3b_ulps, "pin_max_ulps": bf16_pin_ulps,
+         "launches_by_serve_cell": {
+             key: {k: n for k, n in c["launches"].items()
+                   if k.startswith("flash_attention_bf16")}
+             for key, c in cells.items()
+             if c["launches"].get("flash_attention_bf16")},
+         "max_abs_err": max(k3b_err, k3l_err, k3d_err,
+                            *(t["max_abs_err"] for t in k3_bf16.values())),
+         "max_ulps": max(k3b_ulps, k3l_ulps, k3d_ulps),
+         "pin_max_ulps": bf16_pin_ulps,
          **{k: k3_bf16["yi-34b_prefill"][k] for k in ATTN_TIME_KEYS},
          "plain_device": "cuda",
          "sass": {fn: c for fn, c in sass.items()
@@ -5484,15 +6248,30 @@ def main() -> int:
                   "causal, one layer, bf16 (tensor cores)",
          **{key: {k: t[k] for k in ATTN_TIME_KEYS}
             | {"live_slots": t["live_slots"]}
-            for key, t in k3_bf16.items() if key != "yi-34b_prefill"}},
+            for key, t in k3_bf16.items() if key != "yi-34b_prefill"},
+         **{f"h2o-danube-3-4b_{key}": t for key, t in k3_long.items()
+            if isinstance(t, dict)},
+         **{f"decode {key}": t for key, t in k3_dec.items()}},
         {"name": "ssd_scan_bf16", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:83",
          "launches": bf16_launches["mamba2-1.3b"]["ssd_scan_bf16"],
          "launches_by_train_run": {arch: r["launches"]["ssd_scan_bf16"]
                                    for arch, r in train_bf16.items()},
-         "max_abs_err": max(k4b_err, k4_bf16["max_abs_err"]),
-         "max_ulps": k4b_ulps,
+         "launches_by_serve_cell": {
+             key: c["launches"]["ssd_scan_bf16"]
+             for key, c in cells.items()
+             if c["launches"].get("ssd_scan_bf16")},
+         "past_2_31": k4_big,
+         **{f"mamba2-1.3b_{key}": t for key, t in k4_cells.items()},
+         "max_abs_err": max(k4b_err, k4_bf16["max_abs_err"],
+                            k4_big["last_chunk_max_abs_err"],
+                            k4_big["state_max_abs_err"],
+                            *(t["max_abs_err"] for t in k4_cells.values()
+                              if "max_abs_err" in t)),
+         "max_ulps": max(k4b_ulps, k4_big["last_chunk_max_ulps"],
+                         *(t["max_ulps"] for t in k4_cells.values()
+                           if "max_ulps" in t)),
          **{k: k4_bf16[k] for k in KERNEL_TIME_KEYS}, "plain_device": "cuda",
          "bound_cuda_core_ms": k4_bf16["bound_cuda_core_ms"],
          "kernel_breakdown_ms": k4_bf16["kernel_breakdown_ms"],
@@ -5594,6 +6373,8 @@ if __name__ == "__main__":
         sys.exit(k3_digest_main(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--k4-digest"]:
         sys.exit(k4_digest_main(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--k3-walk"]:
+        sys.exit(k3_walk_main(sys.argv[2]))
     if sys.argv[1:2] == ["--k4-bwd-times"]:
         sys.exit(k4_bwd_times_main(sys.argv[2]))
     if sys.argv[1:2] == ["--compare"]:
@@ -5604,4 +6385,6 @@ if __name__ == "__main__":
         sys.exit(k4_bwd_ablations_main())
     if sys.argv[1:2] == ["--k3-bwd-ablations"]:
         sys.exit(k3_bwd_ablations_main())
+    if sys.argv[1:2] == ["--cells"]:
+        sys.exit(cells_main())
     sys.exit(main())

@@ -31,10 +31,11 @@
 // (K) or sixteen (Q, broadcast) multiply-adds.  The running max and sum are
 // shuffles among the eight threads of a row; only P goes through shared
 // memory, for P.V.  Every warp classifies each key tile from the position
-// tables on its own (no barrier): dead (skipped, not loaded), wholly live
-// (no compares) or straddling the diagonal, the window edge or an empty
-// slot (masked per element).  The query tiles with the most key tiles
-// start first.
+// tables on its own (no barrier), over the tiles live_tile_range leaves it
+// (all, or with a sorted table only those that can be live): dead
+// (skipped, not loaded), wholly live (no compares) or straddling the
+// diagonal, the window edge or an empty slot (masked per element).  The
+// query tiles with the most key tiles start first.
 //
 // Decode (flash_attention_decode, for few query rows a KV head, S * Hq/Hkv,
 // as in a decode step): bound by bytes,
@@ -87,7 +88,9 @@
 // address the model layout in place (KV head h / (Hq/Hkv), no repeat),
 // and TMA fills rows past T and columns past D with zeros.  It walks the
 // key tiles from the position tables one tile ahead, skips the dead ones
-// (never loaded), and hands each tile's first key, its class for either
+// (never loaded; with a sorted table, as a prefill's, it starts at the
+// first tile that can be live and stops after the last: live_tile_range),
+// and hands each tile's first key, its class for either
 // warpgroup (straddling or wholly live) and its positions to the
 // consumers in shared memory.  A consumer warpgroup runs S = Q.K^T as
 // wgmma m64n128k16 from shared memory (both K-major), the online softmax
@@ -232,17 +235,67 @@ __device__ __forceinline__ int classify(const int* k_pos, int t0, int T,
   return all == FULL ? 2 : 1;
 }
 
-// The first key tile at or after t0 that is not dead (T if none); its
+// The first key tile in [t0, t_end) that is not dead (T if none); its
 // class in cls.
-__device__ __forceinline__ int next_tile(const int* k_pos, int t0, int T,
-                                         int q_lo, int q_hi, int causal,
-                                         int window, int lane, int& cls) {
-  for (; t0 < T; t0 += BK) {
+__device__ __forceinline__ int next_tile(const int* k_pos, int t0, int t_end,
+                                         int T, int q_lo, int q_hi,
+                                         int causal, int window, int lane,
+                                         int& cls) {
+  for (; t0 < t_end; t0 += BK) {
     cls = classify(k_pos, t0, T, q_lo, q_hi, causal, window, lane);
     if (cls) return t0;
   }
   cls = 0;
   return T;
+}
+
+// [begin, end): the key tiles (of `tile` keys, counted from key 0) that a
+// block over query positions [q_lo, q_hi] walks.  With `sorted` (the
+// wrapper knows k_pos[0..T) is non-decreasing: a prefill's own arange),
+// the keys that can be live for some row form one run, from the first at
+// or past the window's oldest position (q_lo - window + 1, or 0) to the
+// last at or below q_hi (causal): begin is the tile that holds the first,
+// end one past the last, both T when the run is empty.  The tiles outside
+// hold only dead keys, which the full walk skips unloaded, so the result is
+// the full walk's bit for bit; the walk's length drops from T / tile to
+// the live tiles (danube's 524,288-key prefill: 4,096 tiles to about 33).
+// Both ends come from a 32-way search in every lane of the calling warp,
+// one load a lane a round, the two searches in the same rounds
+// (ceil(log32 T) rounds).  Without `sorted` (a ring cache's table, or a
+// table too short for the search to pay: the wrapper decides), or with
+// neither a causal mask nor a window: every tile.  The same range as
+// flash_attention.ref.live_tile_range.
+__device__ __forceinline__ void live_tile_range(const int* k_pos, int T,
+                                                int tile, int q_lo, int q_hi,
+                                                int causal, int window,
+                                                int sorted, int lane,
+                                                int& begin, int& end) {
+  begin = 0;
+  end = T;
+  if (!sorted || (!causal && window <= 0)) return;
+  // a[s]: the first index whose position is >= key[s], in [lo[s], hi[s]]
+  const int key[2] = {window > 0 ? max(0, q_lo - window + 1) : 0,
+                      causal ? q_hi + 1 : INT_MAX};
+  int lo[2] = {0, causal ? 0 : T}, hi[2] = {T, T};
+  while (lo[0] < hi[0] || lo[1] < hi[1]) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int step = (hi[s] - lo[s] + 31) >> 5;  // 0 once found
+      const int p = lo[s] + (lane + 1) * step - 1;
+      const bool below = step > 0 && p < hi[s] && __ldg(k_pos + p) < key[s];
+      const int nlo = lo[s] + __popc(__ballot_sync(FULL, below)) * step;
+      if (step > 0) {
+        hi[s] = min(hi[s], nlo + step - 1);
+        lo[s] = nlo;
+      }
+    }
+  }
+  if (lo[0] < lo[1]) {
+    begin = lo[0] / tile * tile;
+    end = lo[1];
+  } else {
+    begin = end = T;
+  }
 }
 
 // Output column e (0 <= e < DP/8) of thread tx: float4 groups 32 apart
@@ -260,13 +313,15 @@ __device__ __forceinline__ int out_col(int tx, int e) {
 // prefill
 // ---------------------------------------------------------------------------
 
+// One block of BQ query rows of one (batch, query head); the kernels below
+// only set the launch bounds.
 template <int DP>
-__global__ void __launch_bounds__(PT) flash_prefill_kernel(
+__device__ __forceinline__ void prefill_block(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ q_pos,
     const int* __restrict__ k_pos, float* __restrict__ out,
     float* __restrict__ lse, int S, int T, int Hq, int Hkv, int D,
-    int causal, int window, float scale) {
+    int causal, int window, int sorted, float scale) {
   constexpr int KS = DP + 4;  // row stride of Q and K tiles
   constexpr int DV = DP / 8;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -282,8 +337,10 @@ __global__ void __launch_bounds__(PT) flash_prefill_kernel(
   const int hk = h / (Hq / Hkv);
   const int nq = min(BQ, S - q0);
 
-  int q_lo, q_hi;
+  int q_lo, q_hi, t_begin, t_end;
   pos_range(q_pos + q0, nq, lane, q_lo, q_hi);
+  live_tile_range(k_pos, T, BK, q_lo, q_hi, causal, window, sorted, lane,
+                  t_begin, t_end);
   int qp[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -301,7 +358,8 @@ __global__ void __launch_bounds__(PT) flash_prefill_kernel(
   }
 
   int cls;
-  int cur = next_tile(k_pos, 0, T, q_lo, q_hi, causal, window, lane, cls);
+  int cur = next_tile(k_pos, t_begin, t_end, T, q_lo, q_hi, causal, window,
+                      lane, cls);
   stage_rows<DP, PT>(q_sh, KS, q, (size_t)b * S + q0, BQ, nq, Hq, h, D,
                      tid);
   if (cur < T) {
@@ -315,8 +373,8 @@ __global__ void __launch_bounds__(PT) flash_prefill_kernel(
   int stage = 0;
   while (cur < T) {
     int nxt_cls;
-    const int nxt = next_tile(k_pos, cur + BK, T, q_lo, q_hi, causal, window,
-                              lane, nxt_cls);
+    const int nxt = next_tile(k_pos, cur + BK, t_end, T, q_lo, q_hi, causal,
+                              window, lane, nxt_cls);
     if (nxt < T) {  // the next tile flies while this one computes
       stage_rows<DP, PT>(k_sh + (stage ^ 1) * BK * KS, KS, k,
                          (size_t)b * T + nxt, BK, T - nxt, Hkv, hk, D, tid);
@@ -469,6 +527,42 @@ __global__ void __launch_bounds__(PT) flash_prefill_kernel(
             l[i] > 0.0f ? m[i] + logf(l[i]) : -INFINITY;
     }
   }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(PT) flash_prefill_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const int* __restrict__ q_pos,
+    const int* __restrict__ k_pos, float* __restrict__ out,
+    float* __restrict__ lse, int S, int T, int Hq, int Hkv, int D,
+    int causal, int window, int sorted, float scale) {
+  prefill_block<DP>(q, k, v, q_pos, k_pos, out, lse, S, T, Hq, Hkv, D,
+                    causal, window, sorted, scale);
+}
+
+// Tile widths 64 and 128 at one block a multiprocessor, all the shared
+// memory of width 128 allows: without the bound ptxas held width 128 to
+// 168 registers and spilled once live_tile_range was inlined, and width
+// 64 ran whisper's encoder 2-3 % slower than before the search (on an
+// H100; PERF.md section 6).  Widths 16 and 32 keep ptxas's choice.
+template <int DP>
+__global__ void __launch_bounds__(PT, 1) flash_prefill_wide_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const int* __restrict__ q_pos,
+    const int* __restrict__ k_pos, float* __restrict__ out,
+    float* __restrict__ lse, int S, int T, int Hq, int Hkv, int D,
+    int causal, int window, int sorted, float scale) {
+  prefill_block<DP>(q, k, v, q_pos, k_pos, out, lse, S, T, Hq, Hkv, D,
+                    causal, window, sorted, scale);
+}
+
+// The prefill kernel of tile width DP.
+template <int DP>
+static auto prefill_kernel() {
+  if constexpr (DP >= 64)
+    return flash_prefill_wide_kernel<DP>;
+  else
+    return flash_prefill_kernel<DP>;
 }
 
 // ---------------------------------------------------------------------------
@@ -1592,7 +1686,8 @@ __global__ void __launch_bounds__(WTHREADS, 1)
         const __grid_constant__ CUtensorMap tm_v,
         const int* __restrict__ q_pos, const int* __restrict__ k_pos,
         bf16* __restrict__ out, float* __restrict__ lse, int S, int T,
-        int Hq, int Hkv, int D, int causal, int window, float scale) {
+        int Hq, int Hkv, int D, int causal, int window, int sorted,
+        float scale) {
   using L = WTile<DP>;
   extern __shared__ __align__(1024) unsigned char wsmem[];
   unsigned char* sm =
@@ -1625,9 +1720,10 @@ __global__ void __launch_bounds__(WTHREADS, 1)
   __syncthreads();
 
   if (warp >= 8) {
-    // producer: warp 8 walks the key tiles live for some row of the block,
-    // classifies each for either warpgroup's rows, and its lane 0 issues
-    // every copy; an end marker (first key T) closes the list
+    // producer: warp 8 walks the key tiles live for some row of the block
+    // (from live_tile_range's first to its last), classifies each for
+    // either warpgroup's rows, and its lane 0 issues every copy; an end
+    // marker (first key T) closes the list
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (warp == 8) {
       int q_lo, q_hi, w_lo[2], w_hi[2];
@@ -1642,16 +1738,21 @@ __global__ void __launch_bounds__(WTHREADS, 1)
           tma_load(q_sh + s * WQ * L::SPAN, &tm_q, q_full, s * L::CW, h, q0,
                    b);
       }
+      int t_begin, t_end;
+      live_tile_range(k_pos, T, WK, q_lo, q_hi, causal, window, sorted, lane,
+                      t_begin, t_end);
       // lane holds the positions of keys t0 + lane + 32u, the next tile's
       // loading while this one is classified
       int kv[4], nx[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        kv[u] = lane + 32 * u < T ? __ldg(k_pos + lane + 32 * u) : -1;
+      for (int u = 0; u < 4; ++u) {
+        const int t = t_begin + lane + 32 * u;
+        kv[u] = t < T ? __ldg(k_pos + t) : -1;
+      }
       int stage = 0;
       unsigned phase = 0;
-      for (int t0 = 0;; t0 += WK) {
-        const bool end = t0 >= T;
+      for (int t0 = t_begin;; t0 += WK) {
+        const bool end = t0 >= t_end;
         bool any = false, wany[2] = {false, false}, wall[2] = {true, true};
         if (!end) {
 #pragma unroll
@@ -3083,15 +3184,17 @@ template <int DP>
 static int launch_prefill(const float* q, const float* k, const float* v,
                           const int* q_pos, const int* k_pos, float* out,
                           float* lse, int B, int S, int T, int Hq, int Hkv,
-                          int D, int causal, int window, cudaStream_t st) {
+                          int D, int causal, int window, int sorted,
+                          cudaStream_t st) {
   const size_t smem =
       sizeof(float) * (3 * BQ * (DP + 4) + 2 * BK * DP + BQ * PS);
-  int e = allow_smem(flash_prefill_kernel<DP>, smem);
+  const auto kernel = prefill_kernel<DP>();
+  int e = allow_smem(kernel, smem);
   if (e) return e;
   const dim3 grid(B * Hq, (S + BQ - 1) / BQ);
-  flash_prefill_kernel<DP><<<grid, PT, smem, st>>>(
+  kernel<<<grid, PT, smem, st>>>(
       q, k, v, q_pos, k_pos, out, lse, S, T, Hq, Hkv, D, causal, window,
-      1.0f / sqrtf((float)D));
+      sorted, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -3173,7 +3276,7 @@ static int launch_prefill_bf16(const bf16* q, const bf16* k, const bf16* v,
                                const int* q_pos, const int* k_pos, bf16* out,
                                float* lse, int B, int S, int T, int Hq,
                                int Hkv, int D, int causal, int window,
-                               cudaStream_t st) {
+                               int sorted, cudaStream_t st) {
   using L = WTile<DP>;
   const CUtensorMapSwizzle swizzle =
       L::SPAN == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -3188,7 +3291,7 @@ static int launch_prefill_bf16(const bf16* q, const bf16* k, const bf16* v,
   const dim3 grid((S + WQ - 1) / WQ, B * Hq);
   flash_prefill_bf16_hopper_kernel<DP><<<grid, WTHREADS, L::SMEM, st>>>(
       tq, tk, tv, q_pos, k_pos, out, lse, S, T, Hq, Hkv, D, causal, window,
-      1.0f / sqrtf((float)D));
+      sorted, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -3339,17 +3442,21 @@ int flash_attention_split_keys(void) { return BK; }
 // with 16-byte aligned bases; q_pos [S], k_pos [T] int32; all device
 // memory.  lse, when not null, receives each row's log-sum-exp of scaled
 // scores, [B,Hq,S] f32 (-inf for a row with no live key); when null the
-// kernel writes out only.  window <= 0: no window.  D must be a multiple
-// of 8 from 8 to 128 (the kernels run at the tile width padded_head_dim(D)
-// with the columns past D zero in shared memory and never written) and Hq
-// a multiple of Hkv (the wrapper checks; another D returns
-// cudaErrorInvalidValue).
+// kernel writes out only.  window <= 0: no window.  sorted != 0 promises
+// that k_pos is non-decreasing: each block then walks only the key tiles
+// that can be live (live_tile_range), with the same result.  D must be a
+// multiple of 8 from 8 to 128 (the kernels run at the tile width
+// padded_head_dim(D) with the columns past D zero in shared memory and
+// never written) and Hq a multiple of Hkv (the wrapper checks; another D
+// returns cudaErrorInvalidValue).
 int flash_attention_prefill(const float* q, const float* k, const float* v,
                             const int* q_pos, const int* k_pos, float* out,
                             float* lse, int B, int S, int T, int Hq, int Hkv,
-                            int D, int causal, int window, void* stream) {
+                            int D, int causal, int window, int sorted,
+                            void* stream) {
   DISPATCH_HEAD_DIM(D, launch_prefill, q, k, v, q_pos, k_pos, out, lse, B, S,
-                    T, Hq, Hkv, D, causal, window, (cudaStream_t)stream)
+                    T, Hq, Hkv, D, causal, window, sorted,
+                    (cudaStream_t)stream)
 }
 
 // As flash_attention_prefill, with scratch for the partials: part_m and
@@ -3395,9 +3502,9 @@ int flash_attention_prefill_bf16(const bf16* q, const bf16* k, const bf16* v,
                                  const int* q_pos, const int* k_pos,
                                  bf16* out, float* lse, int B, int S, int T,
                                  int Hq, int Hkv, int D, int causal,
-                                 int window, void* stream) {
+                                 int window, int sorted, void* stream) {
   DISPATCH_HEAD_DIM(D, launch_prefill_bf16, q, k, v, q_pos, k_pos, out, lse,
-                    B, S, T, Hq, Hkv, D, causal, window,
+                    B, S, T, Hq, Hkv, D, causal, window, sorted,
                     (cudaStream_t)stream)
 }
 

@@ -177,6 +177,16 @@ __device__ __forceinline__ void chunk_cumsum(const float* dt_s, float* cum_s,
   }
 }
 
+// The forward's grids are one-dimensional in x over (tile, row), the row
+// a (chunk, head or group) pair, and z over the batch: block x is
+// row * tiles + tile, so the blocks run in the order of a (tiles, rows)
+// grid, while chunks x heads may pass a grid's y limit of 65,535
+// (mamba2-1.3b's 524,288-token prefill: 4,096 chunks x 64 heads).
+__device__ __forceinline__ void tile_row(int tiles, int& tile, int& row) {
+  tile = blockIdx.x % tiles;
+  row = blockIdx.x / tiles;
+}
+
 // 1. cbt[b,c,g][j][i] = B_j . C_i for the tile pair (jt <= it).
 __global__ void __launch_bounds__(NT) ssd_scores_kernel(
     const float* __restrict__ bm, const float* __restrict__ cm,
@@ -184,12 +194,15 @@ __global__ void __launch_bounds__(NT) ssd_scores_kernel(
   __shared__ __align__(16) float sa[TILE * RS];
   __shared__ __align__(16) float sb[TILE * RS];
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  int jt = blockIdx.x, it = 0;  // blockIdx.x enumerates (jt <= it)
+  const int nt = (Q + TILE - 1) / TILE;
+  int jt, row;
+  tile_row(nt * (nt + 1) / 2, jt, row);  // the tile enumerates (jt <= it)
+  int it = 0;
   while (jt > it) {
     jt -= it + 1;
     ++it;
   }
-  const int c = blockIdx.y % nc, g = blockIdx.y / nc, b = blockIdx.z;
+  const int c = row % nc, g = row / nc, b = blockIdx.z;
   const int t0 = c * Q, nl = min(Q, S - t0);
   const int j0 = jt * TILE, i0 = it * TILE;
   float acc[4][4] = {};
@@ -231,7 +244,11 @@ __global__ void __launch_bounds__(NT) ssd_chunk_kernel(
   __shared__ __align__(16) float sb[KC * CS];
   __shared__ float dt_s[MAX_Q], cum_s[MAX_Q];
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
+  const int n_pt = (P + TILE - 1) / TILE;
+  const int n_yt = (Q + TILE - 1) / TILE * n_pt;
+  int tile, row;
+  tile_row(n_yt + n_pt * ((N + TILE - 1) / TILE), tile, row);
+  const int c = row % nc, h = row / nc, b = blockIdx.z;
   const int g = h / (H / G);
   const int t0 = c * Q, nl = min(Q, S - t0);
   const size_t ch = (size_t)(b * nc + c) * H + h;  // (batch, chunk, head)
@@ -241,16 +258,14 @@ __global__ void __launch_bounds__(NT) ssd_chunk_kernel(
   __syncthreads();
   chunk_cumsum(dt_s, cum_s, a + h, Q);
   __syncthreads();
-  if (blockIdx.x == 0)
+  if (tile == 0)
     for (int j = tid; j < Q; j += NT) cum[ch * Q + j] = cum_s[j];
 
-  const int n_pt = (P + TILE - 1) / TILE;
-  const int n_yt = (Q + TILE - 1) / TILE * n_pt;
   float acc[4][4] = {};
-  if ((int)blockIdx.x < n_yt) {
+  if (tile < n_yt) {
     // y_intra[i][p] = sum_{j<=i} cbt[j][i] exp(min(cum_i - cum_j, 0))
     //                 dt_j x[j][p]
-    const int i0 = blockIdx.x / n_pt * TILE, p0 = blockIdx.x % n_pt * TILE;
+    const int i0 = tile / n_pt * TILE, p0 = tile % n_pt * TILE;
     const float* cb = cbt + ((size_t)(b * nc + c) * G + g) * Q * Q;
     const int kend = min(nl, i0 + TILE);
     for (int k0 = 0; k0 < kend; k0 += KC) {
@@ -283,8 +298,8 @@ __global__ void __launch_bounds__(NT) ssd_chunk_kernel(
     }
   } else {
     // dS[p][n] = sum_j exp(cum_end - cum_j) dt_j x[j][p] B[j][n]
-    const int n_nt = (N + TILE - 1) / TILE, tile = blockIdx.x - n_yt;
-    const int p0 = tile / n_nt * TILE, n0 = tile % n_nt * TILE;
+    const int n_nt = (N + TILE - 1) / TILE, st = tile - n_yt;
+    const int p0 = st / n_nt * TILE, n0 = st % n_nt * TILE;
     const float cum_end = cum_s[Q - 1];
     for (int k0 = 0; k0 < nl; k0 += KC) {
       __syncthreads();
@@ -360,13 +375,15 @@ __global__ void __launch_bounds__(NT, 5)
                      int S, int H, int P, int G, int N, int Q, int nc) {
   __shared__ __align__(16) float sa[TILE * RS];
   __shared__ __align__(16) float sb[TILE * RS];
-  const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
+  const int n_pt = (P + TILE - 1) / TILE;
+  int tile, row;
+  tile_row((Q + TILE - 1) / TILE * n_pt, tile, row);
+  const int c = row % nc, h = row / nc, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int g = h / (H / G);
   const int t0 = c * Q, nl = min(Q, S - t0);
   const size_t ch = (size_t)(b * nc + c) * H + h;
-  const int n_pt = (P + TILE - 1) / TILE;
-  const int i0 = blockIdx.x / n_pt * TILE, p0 = blockIdx.x % n_pt * TILE;
+  const int i0 = tile / n_pt * TILE, p0 = tile % n_pt * TILE;
   const float* sp = states + ch * P * N;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < N; k0 += KC) {
@@ -665,9 +682,9 @@ __device__ __forceinline__ float col_sums(const Acc& v, float* red) {
   return r;
 }
 
-// The tile pair (jt <= it) that blockIdx.x enumerates.
-__device__ __forceinline__ void tile_pair(int& jt, int& it) {
-  jt = blockIdx.x;
+// The tile pair (jt <= it) that t enumerates.
+__device__ __forceinline__ void tile_pair(int t, int& jt, int& it) {
+  jt = t;
   it = 0;
   while (jt > it) {
     jt -= it + 1;
@@ -685,9 +702,11 @@ __global__ void __launch_bounds__(TT) ssd_scores_bf16_kernel(
     const bf16* __restrict__ bm, const bf16* __restrict__ cm,
     float* __restrict__ cbt, int S, int G, int N, int Q, int nc) {
   extern __shared__ __align__(16) float smem[];
-  int jt, it;
-  tile_pair(jt, it);
-  const int c = blockIdx.y % nc, g = blockIdx.y / nc, b = blockIdx.z;
+  const int nt = (Q + TILE - 1) / TILE;
+  int pair, row, jt, it;
+  tile_row(nt * (nt + 1) / 2, pair, row);
+  tile_pair(pair, jt, it);
+  const int c = row % nc, g = row / nc, b = blockIdx.z;
   const int t0 = c * Q, nl = min(Q, S - t0);
   const int j0 = jt * TILE, i0 = it * TILE;
   const size_t gn = (size_t)G * N;
@@ -733,8 +752,10 @@ __global__ void __launch_bounds__(TT) ssd_chunk_state_bf16_kernel(
   float* cum_s = dt_s + MAX_Q;
   float* w_s = cum_s + MAX_Q;
   const int n_nt = (N + TILE - 1) / TILE;
-  const int p0 = blockIdx.x / n_nt * TILE, n0 = blockIdx.x % n_nt * TILE;
-  const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
+  int tile, row;
+  tile_row((P + TILE - 1) / TILE * n_nt, tile, row);
+  const int p0 = tile / n_nt * TILE, n0 = tile % n_nt * TILE;
+  const int c = row % nc, h = row / nc, b = blockIdx.z;
   const int g = h / (H / G), t0 = c * Q, nl = min(Q, S - t0);
   const size_t ch = (size_t)(b * nc + c) * H + h, row0 = (size_t)b * S + t0;
   for (int j = threadIdx.x; j < Q; j += TT)
@@ -742,7 +763,7 @@ __global__ void __launch_bounds__(TT) ssd_chunk_state_bf16_kernel(
   __syncthreads();
   chunk_cumsum(dt_s, cum_s, a + h, Q);
   __syncthreads();
-  if (blockIdx.x == 0)
+  if (tile == 0)
     for (int j = threadIdx.x; j < Q; j += TT) cum[ch * Q + j] = cum_s[j];
   const float cum_end = cum_s[Q - 1];
   for (int j = threadIdx.x; j < MAX_Q; j += TT)
@@ -794,8 +815,10 @@ __global__ void __launch_bounds__(TT) ssd_output_bf16_kernel(
   float* cum_s = smem + RING_FLOATS;
   float* dt_s = cum_s + MAX_Q;
   const int n_pt = (P + TILE - 1) / TILE;
-  const int i0 = blockIdx.x / n_pt * TILE, p0 = blockIdx.x % n_pt * TILE;
-  const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
+  int tile, row;
+  tile_row((Q + TILE - 1) / TILE * n_pt, tile, row);
+  const int i0 = tile / n_pt * TILE, p0 = tile % n_pt * TILE;
+  const int c = row % nc, h = row / nc, b = blockIdx.z;
   const int g = h / (H / G), t0 = c * Q, nl = min(Q, S - t0);
   if (i0 >= nl) return;
   const size_t ch = (size_t)(b * nc + c) * H + h, row0 = (size_t)b * S + t0;
@@ -1072,7 +1095,7 @@ __device__ __forceinline__ void bwd_dm(
   float* dt_j = cu_j + rep * TILE;  // dt over the column tile
   float* red = dt_j + rep * TILE;
   int jt, it;
-  tile_pair(jt, it);
+  tile_pair(blockIdx.x, jt, it);
   const int i0 = it * TILE, j0 = jt * TILE;
   const int c = blockIdx.y % nc, g = blockIdx.y / nc, b = blockIdx.z;
   const int t0 = c * Q, nl = min(Q, S - t0), n_qt = (Q + TILE - 1) / TILE;
@@ -1614,8 +1637,9 @@ size_t ssd_scan_scratch_floats(int B, int S, int H, int P, int G, int N,
 // synchronise, returns the first cudaGetLastError() that is not success.
 // All pointers are device memory, row-major f32; init_state may be null (a
 // zero state); scratch holds ssd_scan_scratch_floats(...) floats.  Needs
-// 1 <= Q <= 128, H a multiple of G, and chunks x max(G, H) and B within a
-// grid's y and z limits (the wrapper checks).
+// 1 <= Q <= 128, H a multiple of G, and B within a grid's z limit (the
+// wrapper checks).  Offsets into x, y and the scratch are 64-bit: x may
+// hold more than 2^31 elements.
 int ssd_scan(const float* x, const float* dt, const float* a, const float* b,
              const float* c, const float* init_state, float* y,
              float* state_out, float* scratch, int B, int S, int H, int P,
@@ -1627,17 +1651,18 @@ int ssd_scan(const float* x, const float* dt, const float* a, const float* b,
   float* cbt = scratch;
   float* cum = cbt + (size_t)B * nc * G * Q * Q;
   float* states = cum + (size_t)B * nc * H * Q;
-  ssd_scores_kernel<<<dim3(nt * (nt + 1) / 2, nc * G, B), NT, 0, st>>>(
+  ssd_scores_kernel<<<dim3(nt * (nt + 1) / 2 * nc * G, 1, B), NT, 0, st>>>(
       b, c, cbt, S, G, N, Q, nc);
   CHECK(cudaGetLastError());
-  ssd_chunk_kernel<<<dim3(nt * n_pt + n_pt * n_nt, nc * H, B), NT, 0, st>>>(
-      x, dt, a, b, cbt, y, cum, states, S, H, P, G, N, Q, nc);
+  ssd_chunk_kernel<<<dim3((nt * n_pt + n_pt * n_nt) * nc * H, 1, B), NT, 0,
+                     st>>>(x, dt, a, b, cbt, y, cum, states, S, H, P, G, N,
+                           Q, nc);
   CHECK(cudaGetLastError());
   ssd_state_kernel<<<dim3((P * N + NT_STATE - 1) / NT_STATE, H, B),
                      NT_STATE, 0, st>>>(
       init_state, cum, states, state_out, H, P * N, Q, nc);
   CHECK(cudaGetLastError());
-  ssd_inter_kernel<<<dim3(nt * n_pt, nc * H, B), NT, 0, st>>>(
+  ssd_inter_kernel<<<dim3(nt * n_pt * nc * H, 1, B), NT, 0, st>>>(
       c, cum, states, y, S, H, P, G, N, Q, nc);
   return (int)cudaGetLastError();
 }
@@ -1659,19 +1684,20 @@ int ssd_scan_bf16(const bf16* x, const float* dt, const float* a,
   CHECK(smem_for(ssd_scores_bf16_kernel, 0, &sm_scores));
   CHECK(smem_for(ssd_chunk_state_bf16_kernel, 3 * MAX_Q, &sm_chunk));
   CHECK(smem_for(ssd_output_bf16_kernel, 2 * MAX_Q, &sm_out));
-  ssd_scores_bf16_kernel<<<dim3(nt * (nt + 1) / 2, nc * G, B), TT, sm_scores,
-                           st>>>(b, c, cbt, S, G, N, Q, nc);
+  ssd_scores_bf16_kernel<<<dim3(nt * (nt + 1) / 2 * nc * G, 1, B), TT,
+                           sm_scores, st>>>(b, c, cbt, S, G, N, Q, nc);
   CHECK(cudaGetLastError());
-  ssd_chunk_state_bf16_kernel<<<dim3(n_pt * n_nt, nc * H, B), TT, sm_chunk,
-                                st>>>(x, dt, a, b, cum, states, S, H, P, G,
-                                      N, Q, nc);
+  ssd_chunk_state_bf16_kernel<<<dim3(n_pt * n_nt * nc * H, 1, B), TT,
+                                sm_chunk, st>>>(x, dt, a, b, cum, states, S,
+                                                H, P, G, N, Q, nc);
   CHECK(cudaGetLastError());
   ssd_state_kernel<<<dim3((P * N + NT_STATE - 1) / NT_STATE, H, B),
                      NT_STATE, 0, st>>>(
       init_state, cum, states, state_out, H, P * N, Q, nc);
   CHECK(cudaGetLastError());
-  ssd_output_bf16_kernel<<<dim3(nt * n_pt, nc * H, B), TT, sm_out, st>>>(
-      x, dt, c, cbt, cum, states, y, S, H, P, G, N, Q, nc);
+  ssd_output_bf16_kernel<<<dim3(nt * n_pt * nc * H, 1, B), TT, sm_out,
+                           st>>>(x, dt, c, cbt, cum, states, y, S, H, P, G,
+                                 N, Q, nc);
   return (int)cudaGetLastError();
 }
 
@@ -2220,7 +2246,7 @@ __global__ void __launch_bounds__(HTH, 3) ssd_bwd_dm_hopper_kernel(
   unsigned char* sm = smem_base(hraw);
   const int rep = H / G, n_qt = (Q + TILE - 1) / TILE;
   int jt, it;
-  tile_pair(jt, it);
+  tile_pair(blockIdx.x, jt, it);
   const int i0 = it * TILE, j0 = jt * TILE;
   const int c = blockIdx.y % nc, g = blockIdx.y / nc, b = blockIdx.z;
   const int t0 = c * Q, nl = min(Q, S - t0);

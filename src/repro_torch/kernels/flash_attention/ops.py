@@ -16,6 +16,15 @@ prefill.  The f32 decode's split length is the source's own
 partials' scratch.  The bf16 decode is one launch without scratch, a
 cluster of blocks per KV head, its splits from :func:`decode_splits`.
 
+A caller that knows ``k_pos`` is non-decreasing (a prefill's or a train
+step's own ``arange``) says so with ``sorted_keys=True``; past
+:data:`SEARCH_MIN_KEYS` keys (:func:`bounded_walk`) the prefill entry
+points then walk only the key tiles that can be live for each block (the
+kernels' ``live_tile_range``, the range :func:`.ref.live_tile_range`
+gives) instead of every tile from key 0, with the same output bit for
+bit.  Nothing checks the promise on the device: a ring cache's table (a
+decode's) is never marked, and keeps the full walk.
+
 Every entry point takes each head dim that is a multiple of 8 from 8 to
 128 (:func:`padded_head_dim`): the kernels run at the next tile width the
 source builds and read q, k, v and the cache in place, so the wrapper
@@ -77,6 +86,21 @@ def padded_head_dim(d: int) -> int:
         raise ValueError(f"flash_attention: head dim {d} is not a multiple "
                          f"of 8 from 8 to {TILE_WIDTHS[-1]}")
     return next(w for w in TILE_WIDTHS if w >= d)
+
+#: Most keys a prefill walks from key 0 whatever its table: up to here a
+#: block's dead tiles cost less than the search that skips them (on an
+#: H100 the bf16 search lost 3-5 % at 512 keys and 1-3 % at 1,024, and
+#: won 3-4 % at 2,048; the f32 one within 3 % either way up to 1,024;
+#: ``chip_smoke.py --k3-walk``, PERF.md section 6).
+SEARCH_MIN_KEYS = 1024
+
+
+def bounded_walk(t: int, sorted_keys: bool) -> bool:
+    """Whether a prefill over ``t`` keys has each block search for its
+    live key tiles (``live_tile_range``): only for a table the caller
+    knows is sorted, longer than :data:`SEARCH_MIN_KEYS`."""
+    return bool(sorted_keys) and t > SEARCH_MIN_KEYS
+
 
 #: Most query rows a KV head (``S · Hq/Hkv``) sent to the decode entry
 #: point, which holds them all in one block.
@@ -167,10 +191,10 @@ def bwd_bf16_scratch(b: int, s: int, t: int, hq: int, hk: int,
 
 def _load():
     lib = _lib.load("flash_attention")
-    for fn, n_ptr, n_int in ((lib.flash_attention_prefill, 7, 8),
+    for fn, n_ptr, n_int in ((lib.flash_attention_prefill, 7, 9),
                              (lib.flash_attention_decode, 9, 8),
                              (lib.flash_attention_backward, 13, 8),
-                             (lib.flash_attention_prefill_bf16, 7, 8),
+                             (lib.flash_attention_prefill_bf16, 7, 9),
                              (lib.flash_attention_decode_bf16, 6, 10),
                              (lib.flash_attention_backward_bf16, 15, 8)):
         fn.restype = ctypes.c_int
@@ -229,10 +253,10 @@ def _dims(q, k, causal, window):
             0 if window is None else int(window))
 
 
-def _forward(q, k, v, q_pos, k_pos, causal, window, lse):
+def _forward(q, k, v, q_pos, k_pos, causal, window, lse, sorted_keys):
     """Check and launch a forward entry point; ``lse`` (f32 [B,Hq,S])
     takes the prefill whatever the shape and gets each row's
-    log-sum-exp."""
+    log-sum-exp; ``sorted_keys`` bounds the prefill's walk."""
     _check_inputs(q, k, v, q_pos, k_pos, window)
     b, s, hq, d = q.shape
     t, hk = k.shape[1], k.shape[2]
@@ -261,7 +285,7 @@ def _forward(q, k, v, q_pos, k_pos, causal, window, lse):
             prefill = lib.flash_attention_prefill_bf16 if bf16 \
                 else lib.flash_attention_prefill
             rc = prefill(*args, 0 if lse is None else lse.data_ptr(), *dims,
-                         stream)
+                         int(bounded_walk(t, sorted_keys)), stream)
     kind = "decode" if decode else "prefill"
     _lib.check(rc, f"flash_attention_{kind}{'_bf16' if bf16 else ''}")
     family = "flash_attention_bf16" if bf16 else "flash_attention"
@@ -271,20 +295,23 @@ def _forward(q, k, v, q_pos, k_pos, causal, window, lse):
 
 
 def flash_attention_cuda(q, k, v, *, q_pos, k_pos, causal=True,
-                         window=None):
+                         window=None, sorted_keys=False):
     """Launch the kernel; every tensor contiguous on one CUDA device, q, k
     and v all f32 or all bf16 (positions int32); the output in their
-    type."""
-    return _forward(q, k, v, q_pos, k_pos, causal, window, None)
+    type.  ``sorted_keys``: ``k_pos`` is non-decreasing (not checked)."""
+    return _forward(q, k, v, q_pos, k_pos, causal, window, None,
+                    sorted_keys)
 
 
-def _prefill(q, k, v, *, q_pos, k_pos, causal=True, window=None):
+def _prefill(q, k, v, *, q_pos, k_pos, causal=True, window=None,
+             sorted_keys=False):
     """The prefill entry point whatever the shape, for the backward:
     returns ``(out, lse [B,Hq,S] f32)``, each row's log-sum-exp of scaled
     live scores."""
     b, s, hq, _ = q.shape
     lse = torch.empty(b, hq, s, dtype=torch.float32, device=q.device)
-    return _forward(q, k, v, q_pos, k_pos, causal, window, lse), lse
+    return _forward(q, k, v, q_pos, k_pos, causal, window, lse,
+                    sorted_keys), lse
 
 
 def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, q_pos, k_pos,
@@ -340,13 +367,15 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, q_pos, k_pos,
 class FlashAttention(torch.autograd.Function):
     """K3 with a gradient: the forward launches the prefill entry point
     and keeps its log-sum-exp, the backward launches the backward entry
-    point, each of the inputs' type (f32 or bf16).  Positions, ``causal``
-    and ``window`` take no gradient."""
+    point, each of the inputs' type (f32 or bf16).  Positions, ``causal``,
+    ``window`` and ``sorted_keys`` take no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_pos, k_pos, causal, window):
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window,
+                sorted_keys=False):
         out, lse = _prefill(q, k, v, q_pos=q_pos, k_pos=k_pos,
-                            causal=causal, window=window)
+                            causal=causal, window=window,
+                            sorted_keys=sorted_keys)
         ctx.save_for_backward(q, k, v, out, lse, q_pos, k_pos)
         ctx.causal, ctx.window = causal, window
         return out
@@ -358,19 +387,24 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd_cuda(
             q, k, v, out, dout.contiguous(), lse, q_pos=q_pos, k_pos=k_pos,
             causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
-def gqa_attention(q, k, v, *, q_pos, k_pos, causal=True, window=None):
+def gqa_attention(q, k, v, *, q_pos, k_pos, causal=True, window=None,
+                  sorted_keys=False):
     """q [B,S,Hq,D], k/v [B,T,Hkv,D], q_pos [S] / k_pos [T] int32 →
     [B,S,Hq,D] in q's type; q, k and v share one type (f32 or bf16).  The
     kernel for CUDA tensors, through :class:`FlashAttention` when a
-    gradient is needed."""
+    gradient is needed.  ``sorted_keys``: the caller knows ``k_pos`` is
+    non-decreasing, and the prefill walks only the tiles that can be live
+    (the same result; ignored by the plain version)."""
     check_types(q, k, v)
     if q.device.type != "cuda":
         return attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos,
                              causal=causal, window=window)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window)
+        return FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window,
+                                    sorted_keys)
     return flash_attention_cuda(q, k, v, q_pos=q_pos, k_pos=k_pos,
-                                causal=causal, window=window)
+                                causal=causal, window=window,
+                                sorted_keys=sorted_keys)

@@ -183,6 +183,29 @@ def live_mask(q_pos, k_pos, causal=True, window=None):
     return mask
 
 
+def live_tile_range(k_pos, q_lo: int, q_hi: int, causal: bool,
+                    window: int, tile: int) -> tuple[int, int]:
+    """The range the kernels' ``live_tile_range`` finds (by a 32-way warp
+    search) for a non-decreasing ``k_pos`` [T], here by
+    ``torch.searchsorted``: ``(begin, end)``, the key tiles of ``tile``
+    keys (counted from key 0) with starts in ``[begin, end)`` that a block
+    over query positions ``[q_lo, q_hi]`` walks; ``window`` <= 0 is none.
+    Without a causal mask or a window, every tile ``(0, T)``.  Else the
+    keys that can be live for some row form one run, from the first whose
+    position is at or past ``q_lo - window + 1`` (or 0) to the last at or
+    below ``q_hi`` (causal): ``begin`` is the tile holding the first,
+    ``end`` one past the last, ``(T, T)`` for an empty run."""
+    t = k_pos.numel()
+    if not causal and window <= 0:
+        return 0, t
+    first = int(torch.searchsorted(
+        k_pos, max(0, q_lo - window + 1) if window > 0 else 0))
+    stop = int(torch.searchsorted(k_pos, q_hi + 1)) if causal else t
+    if first < stop:
+        return first // tile * tile, stop
+    return t, t
+
+
 def split_attention_ref(q, k, v, *, q_pos, k_pos, causal=True, window=None,
                         split=64):
     """The algebra of the kernel's split-key decode in plain torch (for

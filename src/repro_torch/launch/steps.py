@@ -1,19 +1,25 @@
-"""The train step: loss, gradients (with accumulation) and an AdamW update.
+"""Step builders for every (arch × shape) cell that fits one card.
 
 A port of the single-device part of the reference's ``launch/steps.py``:
-``CellPlan`` keeps the fields that mean something on one card,
-``loss_fn`` is the reference's next-token cross entropy plus 0.01 × the
-aux loss, and ``make_train_step`` builds one step.  The reference's
-``SHAPES``, ``default_plan``, ``build_cell``, ``input_specs`` and the
-prefill/decode step builders serve XLA lowering and sharding across a
-mesh; on one card they have no counterpart (serving is
-``serving/engine.py``).
+``SHAPES`` (the reference's grid: ``train_4k``, ``prefill_32k``,
+``decode_32k``, ``long_500k``), ``skip_reason``, ``default_plan``,
+``CellPlan`` (the fields that mean something on one card), ``loss_fn``
+(the reference's next-token cross entropy plus 0.01 × the aux loss),
+``make_train_step``, ``make_prefill_step``, ``make_decode_step`` and
+``input_specs`` (each input's shape and type, the cache's built on the
+``meta`` device).  What stays bound to a mesh has no counterpart here:
+``build_cell``, ``params_shape``, the parameter, token and cache
+shardings (``models/sharding.py``) and the ``fsdp``,
+``expert_parallel`` and layout fields of the reference's plan, as do
+``launch/mesh.py``, ``launch/dryrun.py`` and ``launch/hlo_analysis.py``.
 
 Gradients come from autograd; on the card, attention's backward is K3's
 backward kernel (``kernels/flash_attention/ops.FlashAttention``) and the
 Mamba-2 SSD scan's is K4's (``kernels/ssd_scan/ops.SSDScan``), each in
 the parameters' type: the reference's plan trains bf16 parameters (with
-the leaves it keeps in f32) and f32 AdamW moments.
+the leaves it keeps in f32) and f32 AdamW moments.  The serving steps run
+under ``torch.no_grad`` (``transformer.prefill`` / ``decode_step``) and
+update the cache in place.
 """
 
 from __future__ import annotations
@@ -24,6 +30,15 @@ import torch
 
 from ..models import transformer as T
 from ..optim import adamw
+
+#: The reference's cells (``launch/steps.py:30-35``): the kind of step,
+#: the sequence (for a decode, the cache's length) and the global batch.
+SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +54,30 @@ class CellPlan:
     remat: bool = True
     param_dtype: torch.dtype = torch.bfloat16
     opt_state_dtype: torch.dtype = torch.float32
+
+
+def default_plan(cfg, shape: str) -> CellPlan:
+    """The reference's baseline plan: gradient accumulation of 8 micro-
+    batches for a train cell of a model over 20 G parameters, else 4, 1
+    for a serving cell; bf16 AdamW moments over 100 G parameters, else
+    f32.  Its ``fsdp`` (over 20 G) has no field on one card."""
+    big = cfg.param_count() > 20e9
+    huge = cfg.param_count() > 100e9
+    accum = 1
+    if SHAPES[shape]["kind"] == "train":
+        accum = 8 if big else 4
+    return CellPlan(grad_accum=accum, opt_state_dtype=torch.bfloat16
+                    if huge else torch.float32)
+
+
+def skip_reason(cfg, shape: str) -> str | None:
+    """Why the reference leaves a cell out, else None: ``long_500k`` only
+    for an arch whose attention is bounded by a window or an SSM state
+    (``cfg.sub_quadratic``)."""
+    if shape == "long_500k" and not cfg.sub_quadratic:
+        return ("pure full-attention arch: 500k dense decode is the "
+                "quadratic case the assignment excludes")
+    return None
 
 
 def loss_fn(cfg, model, tokens, enc_frames=None, remat=True):
@@ -111,3 +150,64 @@ def make_train_step(cfg, plan: CellPlan, opt_cfg=None):
         return opt_state, loss / a, stats["grad_norm"]
 
     return train_step
+
+
+def make_prefill_step(cfg, plan: CellPlan, seq: int, batch: int):
+    """``prefill_step(model, tokens, enc_frames=None) → (last, cache)``,
+    plus the memory for an encoder-decoder: a cache of ``seq`` slots (the
+    window's, for a windowed arch) for ``batch`` rows in
+    ``plan.param_dtype`` on the model's device, filled by the prompt
+    ``tokens`` [batch, S] (S ≤ ``seq``, or any S with a window); ``last``
+    [batch, 1, V] the last position's logits.  The cache starts empty, as
+    the reference's does: a prompt is prefilled in one call."""
+    def prefill_step(model, tokens, enc_frames=None):
+        cache = T.init_cache(cfg, batch, seq, device=model.embed.device,
+                             dtype=plan.param_dtype)
+        last, cache, memory = T.prefill(cfg, model, tokens, cache,
+                                        enc_frames)
+        return (last, cache) + ((memory,) if cfg.enc_dec else ())
+    return prefill_step
+
+
+def make_decode_step(cfg, plan: CellPlan):
+    """``serve_step(model, tokens, cache, pos, memory=None) → (next_tok,
+    logits, cache)``: one token a row at absolute position ``pos`` (an
+    int), the cache updated in place; ``next_tok`` [B, 1] int32 the
+    greedy choice, the first of equal largest logits as ``jnp.argmax``
+    takes it.  ``plan`` is taken for the reference's signature; a decode
+    step reads none of it."""
+    def serve_step(model, tokens, cache, pos, memory=None):
+        logits, cache = T.decode_step(cfg, model, tokens, cache, pos, memory)
+        next_tok = logits[:, -1].argmax(dim=-1)[:, None]
+        return next_tok.to(torch.int32), logits, cache
+    return serve_step
+
+
+def input_specs(cfg, shape: str, plan: CellPlan,
+                batch: int | None = None) -> dict:
+    """Each model input of the cell as ``(shape, torch.dtype)``, the
+    reference's ``input_specs``: ``tokens`` (and an encoder-decoder's
+    ``enc_frames``) for a train or prefill cell; for a decode cell one
+    token a row, the ``cache`` (a list with a dict a layer, as
+    ``init_cache`` builds it, here on the ``meta`` device; its ``pos``
+    the reference's int32 scalar), ``pos`` and an encoder-decoder's
+    ``memory``.  ``batch`` replaces the global batch, with the rows one
+    card takes."""
+    sh = SHAPES[shape]
+    b = sh["batch"] if batch is None else batch
+    s, dt = sh["seq"], plan.param_dtype
+    frames = ((b, cfg.n_frames, cfg.d_model), dt)
+    if sh["kind"] in ("train", "prefill"):
+        specs = {"tokens": ((b, s), torch.int32)}
+        if cfg.enc_dec:
+            specs["enc_frames"] = frames
+        return specs
+    cache = T.init_cache(cfg, b, s, device="meta", dtype=dt)
+    specs = {"tokens": ((b, 1), torch.int32),
+             "cache": [{k: ((), torch.int32) if k == "pos"
+                        else (tuple(v.shape), v.dtype)
+                        for k, v in layer.items()} for layer in cache],
+             "pos": ((), torch.int32)}
+    if cfg.enc_dec:
+        specs["memory"] = frames
+    return specs

@@ -121,12 +121,15 @@ def position_embed(cfg, q, k, positions):
 # attention
 # ---------------------------------------------------------------------------
 
-def attention(q, k, v, *, q_pos, k_pos, causal=True, window=None):
+def attention(q, k, v, *, q_pos, k_pos, causal=True, window=None,
+              sorted_keys=False):
     """q [B,S,Hq,D], k/v [B,T,Hkv,D], positions int32 [S]/[T] (absolute;
-    −1 in ``k_pos`` marks an empty cache slot)."""
+    −1 in ``k_pos`` marks an empty cache slot); ``sorted_keys``: ``k_pos``
+    is non-decreasing (K3 then walks only the key tiles that can be
+    live)."""
     return gqa_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                          q_pos=q_pos, k_pos=k_pos, causal=causal,
-                         window=window)
+                         window=window, sorted_keys=sorted_keys)
 
 
 # ---------------------------------------------------------------------------

@@ -239,22 +239,27 @@ def _attn_sublayer(cfg, p, x, q_pos, k_pos, *, kv=None, cache=None,
         k = (kv @ p.wk).reshape(b, f, cfg.n_kv_heads, cfg.head_dim)
         v = (kv @ p.wv).reshape(b, f, cfg.n_kv_heads, cfg.head_dim)
         k_pos = torch.arange(f, dtype=torch.int32, device=x.device)
-        out = L.attention(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=False)
+        out = L.attention(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=False,
+                          sorted_keys=True)
         return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p.wo
     k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     q, k = L.position_embed(cfg, q, k, q_pos[None].expand(b, s))
+    # a prefill's and a forward's keys are their own queries' positions, an
+    # arange; a decode's are the ring cache's table
+    sorted_keys = True
     if cache is not None:
         kc, vc, pc = cache.update(k, v, q_pos)
         if s == 1:
             # decode: attend over the cache contents
             k, v, k_pos = kc, vc, pc
+            sorted_keys = False
         else:
             # prefill: attend over the full in-flight K/V (the rolling
             # buffer only receives the tail); k_pos = q_pos
             k_pos = q_pos
     out = L.attention(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
-                      window=cfg.window)
+                      window=cfg.window, sorted_keys=sorted_keys)
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p.wo
 
 
@@ -292,6 +297,7 @@ def _apply_slot(cfg, p, kind, is_moe, x, q_pos, *, memory=None,
     encoder-decoder's) + MLP or MoE with residuals.  Returns (x, the MoE
     aux loss or None); a ``slot_cache`` is updated in place."""
     h = L.apply_norm(cfg, x, p.norm1)
+    s = h.shape[1]
     if kind == "attn":
         if slot_cache is not None:
             view = _KVView(slot_cache["k"], slot_cache["v"],
@@ -299,21 +305,24 @@ def _apply_slot(cfg, p, kind, is_moe, x, q_pos, *, memory=None,
             out = _attn_sublayer(cfg, p.attn, h, q_pos, None, cache=view)
         else:
             out = _attn_sublayer(cfg, p.attn, h, q_pos, q_pos)
-        x = x + out
-        if memory is not None:
-            hx = L.apply_norm(cfg, x, p.xnorm)
-            x = x + _attn_sublayer(cfg, p.xattn, hx, q_pos, None, kv=memory)
     else:
         state = None
         if slot_cache is not None:
             state = (slot_cache["conv"], slot_cache["ssm"])
         out, new_state = M.mamba_block(cfg, p.mamba, h, state)
-        x = x + out
         if slot_cache is not None:
             slot_cache["conv"] = new_state[0]
             slot_cache["ssm"] = new_state[1].to(slot_cache["ssm"].dtype)
+    # h and the mixer's output go once added, not at the layer's end: at a
+    # long prefill each is [B, S, d] (4 GB at danube's 524,288 tokens)
+    del h
+    x = x + out
+    del out
+    if kind == "attn" and memory is not None:
+        hx = L.apply_norm(cfg, x, p.xnorm)
+        x = x + _attn_sublayer(cfg, p.xattn, hx, q_pos, None, kv=memory)
     if slot_cache is not None:
-        slot_cache["pos"] += h.shape[1]
+        slot_cache["pos"] += s
     aux = None
     if cfg.d_ff > 0:
         h2 = L.apply_norm(cfg, x, p.norm2)

@@ -449,11 +449,16 @@ def test_ssd_kernel_rejects_what_it_does_not_take(dev):
     *args, _ = _ssd_inputs(dev, 1, 8, 3, 16, 2, 8, 0)
     with pytest.raises(ValueError, match="groups"):
         ssd_ops.ssd(*args, chunk=16)
-    # more chunks x heads, or batches, than a grid's y / z extent
+    # more chunks x heads than a grid's y extent: the forward takes them
+    # (its grids run (tile, chunk, head) along x), the backward raises;
+    # more batches than a grid's z extent: both raise
     steps = ssd_ops.MAX_GRID_YZ // 2 + 1
     *args, _ = _ssd_inputs(dev, 1, steps, 2, 4, 1, 4, 0)
+    y, state, saved = ssd_ops.ssd_fwd_cuda(*args, chunk=1)
+    assert y.shape == args[0].shape and bool(torch.isfinite(y).all())
+    assert bool(torch.isfinite(state).all())
     with pytest.raises(ValueError, match="grid"):
-        ssd_ops.ssd(*args, chunk=1)
+        ssd_ops.ssd_bwd_cuda(*args, y, None, saved=saved, chunk=1)
     *args, _ = _ssd_inputs(dev, ssd_ops.MAX_GRID_YZ + 1, 1, 1, 4, 1, 4, 0)
     with pytest.raises(ValueError, match="grid"):
         ssd_ops.ssd(*args, chunk=1)
@@ -1792,3 +1797,110 @@ def test_straggler_drill_twin_on_the_card(dev):
     assert [p.returncode for p in procs] == [0, 0], card + cpu
     assert card == cpu
     assert "loc=126 (injected chip 126)" in card
+
+
+# ---------------------------------------------------------------------------
+# the reference's serving cells: K3's bounded walk, K4 past 2^31
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefill_bounded_walk_equals_full_walk_at_prefill_32k(dev, dtype):
+    """h2o-danube-3-4b's ``prefill_32k`` shape, q [4, 32,768, 32, 120] over
+    8 KV heads with its 4,096 window: the prefill told its keys are sorted
+    (``sorted_keys``, each block walking only the tiles that can be live)
+    gives the full walk's output bit for bit, in bf16 and in f32; the last
+    query tile holds the plain version over every key."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(4, 32768, h, 120, device=dev, generator=gen)
+               .to(dtype) for h in (32, 8, 8))
+    pos = torch.arange(32768, dtype=torch.int32, device=dev)
+    bounded, full = (fa_ops.flash_attention_cuda(
+        q, k, v, q_pos=pos, k_pos=pos, causal=True, window=4096,
+        sorted_keys=sk) for sk in (True, False))
+    assert torch.equal(bounded, full)
+    tail = slice(32768 - 128, 32768)
+    exp = attention_ref(q[:1, tail], k[:1], v[:1], q_pos=pos[tail],
+                        k_pos=pos, causal=True, window=4096)
+    if dtype == torch.bfloat16:
+        _assert_bf16_rows_close(bounded[:1, tail], exp)
+    else:
+        torch.testing.assert_close(bounded[:1, tail], exp, atol=2e-5,
+                                   rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,hq,hk,d,slots,pos,window", [
+    (64, 9, 3, 64, 32768, 32767, None),      # smollm decode_32k
+    (128, 32, 8, 120, 4096, 32767, 4096),    # danube decode_32k, ring
+    (1, 32, 8, 120, 4096, 524287, 4096),     # danube long_500k, ring
+])
+def test_bf16_decode_at_the_serving_cells(dev, b, hq, hk, d, slots, pos,
+                                          window):
+    """K3's bf16 decode at the serving cells' last step: smollm-135m's 64
+    rows over 32,768 slots in order (8 splits of 64 tiles at 132
+    multiprocessors), and h2o-danube-3-4b's 4,096-slot ring wrapped at
+    positions 32,767 (128 rows) and 524,287 (1 row), the table as the
+    cache holds it; within ``BF16_ULPS`` of the plain version over every
+    slot."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = (torch.randn(b, t, h, d, device=dev, generator=gen).bfloat16()
+               for t, h in ((1, hq), (slots, hk), (slots, hk)))
+    k_pos = torch.from_numpy(rolled_pos_tab(slots, 0, pos)).to(dev)
+    q_pos = torch.tensor([pos], dtype=torch.int32, device=dev)
+    before = _lib.LAUNCHES["flash_attention_bf16_decode"]
+    got = fa_ops.flash_attention_cuda(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                                      causal=True, window=window)
+    assert _lib.LAUNCHES["flash_attention_bf16_decode"] == before + 1
+    exp = attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=True,
+                        window=window)
+    _assert_bf16_rows_close(got, exp)
+
+
+@pytest.mark.parametrize("s", [512, 1024, 2048, 4096])
+def test_prefill_search_equals_full_walk_at_every_length(dev, s):
+    """The search for each block's live tiles, forced also at lengths where
+    the wrapper walks from key 0 (``SEARCH_MIN_KEYS`` set to 0), gives the
+    full walk's output bit for bit, in bf16 and in f32 (danube's heads and
+    window)."""
+    gen = torch.Generator(device=dev).manual_seed(s)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(2, s, h, 120, device=dev, generator=gen)
+                   .to(dtype) for h in (32, 8, 8))
+        full = fa_ops.flash_attention_cuda(q, k, v, q_pos=pos, k_pos=pos,
+                                           causal=True, window=1000)
+        keep = fa_ops.SEARCH_MIN_KEYS
+        fa_ops.SEARCH_MIN_KEYS = 0
+        try:
+            searched = fa_ops.flash_attention_cuda(
+                q, k, v, q_pos=pos, k_pos=pos, causal=True, window=1000,
+                sorted_keys=True)
+        finally:
+            fa_ops.SEARCH_MIN_KEYS = keep
+        assert torch.equal(searched, full)
+
+
+def test_ssd_bf16_forward_past_2_31_elements(dev):
+    """K4's bf16 forward on x [2, 524,288, 64, 64] (2^32 elements, 8.6 GB;
+    mamba2-1.3b's heads, 8,192 chunks x 64 heads in its grids) against the
+    plain version run over segments of 32,768 tokens with the state
+    carried: the final state within 2e-4 and the last chunk's outputs
+    within ``BF16_ULPS``."""
+    b, s, h, p, n = 2, 524288, 64, 64, 128
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, scale):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+    x = randn(b, s, h, p, scale=0.5).bfloat16()
+    dt = torch.nn.functional.softplus(randn(b, s, h, scale=1.0)) * 0.3
+    a = -torch.exp(randn(h, scale=0.3))
+    bm, cm = (randn(b, s, 1, n, scale=0.4).bfloat16() for _ in range(2))
+    assert x.numel() > 2 ** 31
+    y, state = ssd_ops.ssd_cuda(x, dt, a, bm, cm, chunk=128)
+    st = None
+    for i in range(0, s, 32768):
+        seg = slice(i, i + 32768)
+        yp, st = ssd_ref(x[:, seg].contiguous(), dt[:, seg].contiguous(), a,
+                         bm[:, seg].contiguous(), cm[:, seg].contiguous(),
+                         chunk=128, init_state=st)
+    _assert_bf16_rows_close(y[:, -128:], yp[:, -128:])
+    torch.testing.assert_close(state, st, atol=2e-4, rtol=2e-4)
