@@ -82,12 +82,16 @@
    function against its plain mirror ``attention_bwd_ref`` in bf16 and
    against ``attention_bwd_tiled_ref``, the mirror of its order of sums
    (the backward's cases above in bf16, head dims 8 and 24,
-   h2o-danube-3-4b's training shape, and the edges of its ordered adds: a
+   h2o-danube-3-4b's training shape, the ``TRAIN_CELLS`` shapes at one
+   micro-batch of 4,096: danube's, yi-34b's GQA 7 and qwen2-vl-2b's GQA 6
+   at head dim 128, whisper-large-v3's cross-attention from 4,096 queries
+   over 1,500 keys, and the edges of its ordered adds: a
    window of 16, a block of empty slots wider than a key tile, GQA 8 over
    16 key tiles, one key tile; rows with no live key and keys with no
    live query exactly 0; the bf16 prefill's output with its log-sum-exp
    equal to the one without) and K4's against ``ssd_bwd_ref`` in bf16 (the SSD
-   cases, with and without a state and a final-state cotangent), within
+   cases and mamba2-1.3b's micro-batch of 4,096, with and without a state
+   and a final-state cotangent), within
    ``BF16_BWD_ULPS`` of each gradient's largest entry (f32 gradients of
    K4 within 1e-4 of it), two runs bit-identical;
 2c. holds K3 and K4 at the serving cells' shapes (``K3_LONG``,
@@ -99,8 +103,32 @@
    (smollm-135m's 64 rows over 32,768 slots, danube's 128 rows and 1 row
    over its 4,096-slot ring wrapped) within 4 ulps of the plain version;
    K4's bf16 forward on x of [2, 524,288, 64, 64] (past 2^31 elements)
-   against the plain version over 32,768-token segments; each timed
-   beside its bound;
+   against the plain version over 32,768-token segments; K4's backward,
+   f32 and bf16, past a grid's 65,535 (chunk, head) rows (``K4_ROWS``:
+   mamba2-1.3b's heads over 139,264 tokens, 69,632 rows) against the plain
+   backward over segments; each timed beside its bound;
+2d. holds the port to the JAX reference's pins, all of them here, so that
+   the pins' weights (``reference_params_numpy``: the host's numpy
+   generator, nine distinct trees, ~200 s of draws) are drawn by a
+   background thread from the start while phases 1-2d run on the card
+   (``PinWeights``), and the thread has ended before any later phase
+   times the host:
+   greedy tokens and prefill logits (``PINS``; ``tests/test_torch_serve.py``
+   run as a script prints them) on the same numpy weights: the tokens
+   equal, the top-5 logits within 1e-3 (also mixtral-8x7b at full width
+   with 2 layers, whose prefill drops assignments at the capacity, printed
+   per layer, qwen2-vl-2b whole, whisper-large-v3 at full width with 4 + 4
+   layers over seeded frames, and h2o-danube-3-4b and stablelm-1.6b at
+   full width with 2 layers); the bf16 pins (``BF16_PINS``) teacher-forced,
+   near ties printed; 3 full-size train steps (batch 2 × 128) to the
+   reference's losses and grad norms (``TRAIN_PINS``, rel 1e-4), 3
+   mamba2-1.3b steps at full width with 4 layers (batch 2 × 320, a ragged
+   third chunk) to ``MAMBA2_TRAIN_PINS`` and 3 whisper-large-v3 steps at
+   full width with 4 + 4 layers (batch 2 × 128, seeded frames) to
+   ``WHISPER_TRAIN_PINS`` (rel 1e-4), each twice, the two runs bit-equal;
+   the bf16 train pins (``BF16_TRAIN_PINS``, under each pin's plan: losses
+   within rel 2e-3, grad norms within rel 5e-3 at step 1 and 4e-2 over
+   three steps; two runs bit-equal);
 3. drives the detection path, ``Sloth.detect`` with the batched recorder
    on the card, for resnet50 on an 8×8 mesh (core 6, link 20, no fault)
    with the launch counts set to 0 just before and read just after, plus
@@ -150,13 +178,6 @@
    no bf16 kernel, and no plain version may run;
    prints tok/s, the mean prefill, the decode p50/p99 and the peak device
    memory;
-8. holds greedy tokens and prefill logits to the JAX reference's pins
-   (``tests/test_torch_serve.py`` run as a script prints them) on the same
-   numpy weights: the tokens equal, the top-5 logits within 1e-3 (also
-   mixtral-8x7b at full width with 2 layers, whose prefill drops
-   assignments at the capacity, printed per layer, qwen2-vl-2b whole,
-   whisper-large-v3 at full width with 4 + 4 layers over seeded frames,
-   and h2o-danube-3-4b and stablelm-1.6b at full width with 2 layers);
 9. times flash attention and the SSD scan at the serving shapes beside
    their plain versions, their bounds and (attention) PyTorch's
    ``scaled_dot_product_attention`` (with ``is_causal`` where the mask is
@@ -183,8 +204,7 @@
    the counts set to 0 just before ``engine.run``: K3's bf16 entries
    exactly 3,960 (yi: 120 prefill + 3,840 decode), 1,980 and 1,584 times,
    K4's 96, no f32 kernel launch, no plain version, peak device memory below
-   the card's; profiles each; holds the reference's bf16 pins
-   (``BF16_PINS``) teacher-forced, near ties printed;
+   the card's; profiles each;
 9c. runs the reference's serving cells (``SERVE_CELLS``: ``prefill_32k``,
    ``decode_32k``, ``long_500k`` of ``launch/steps.py``) in bf16 through
    ``make_prefill_step`` / ``make_decode_step``, each twice and bit-equal
@@ -230,13 +250,6 @@
    ``ssd_ref``, ``ssd_bwd_ref`` or the plain attention, no attention
    launch, the run's peak device memory;
 12. the same run without injection, printing any flagged window;
-13. holds 3 full-size train steps (batch 2 × 128) on
-   ``reference_params_numpy`` weights to the reference's losses and grad
-   norms (``TRAIN_PINS``, rel 1e-4), 3 mamba2-1.3b steps at full
-   width with 4 layers (batch 2 × 320, a ragged third chunk) to
-   ``MAMBA2_TRAIN_PINS`` and 3 whisper-large-v3 steps at full width with
-   4 + 4 layers (batch 2 × 128, seeded frames) to ``WHISPER_TRAIN_PINS``
-   (rel 1e-4); each twice, the two runs bit-equal;
 14. runs the reference's CI smoke (``ci.yml:37``) on the card, and
    crash-resume on the smoke config (10 steps, save, resume, 10 more
    within rel 1e-4 of 20 straight);
@@ -244,9 +257,10 @@
    reference's plan (remat: one checkpoint per period of layers; bf16
    parameters with its f32 leaves, f32 AdamW moments) at 4 × 512 on
    ``init_model(dtype=bf16)`` weights, twice each (losses, grad norms and
-   leaf checksums bit-equal): smollm-135m, mamba2-1.3b, h2o-danube-3-4b,
-   whisper-large-v3 (zero frames) and stablelm-1.6b whole, mixtral-8x7b
-   at 3 of 32 layers (``BF16_TRAIN_RUNS``); K3's bf16 backward exactly
+   leaf checksums bit-equal), two steps: smollm-135m, mamba2-1.3b,
+   h2o-danube-3-4b, whisper-large-v3 (zero frames) and stablelm-1.6b
+   whole, mixtral-8x7b at 2 of 32 layers (``BF16_TRAIN_RUNS``); K3's bf16
+   backward exactly
    once per attention a step and its prefill twice (the forward and the
    recompute), K4's bf16 backward once per Mamba layer and its forward
    twice, no f32 kernel, no plain version; ms a step, one step profiled
@@ -254,16 +268,23 @@
    peak without remat, and the memory the forward keeps for the
    backward; h2o-danube-3-4b also 2 steps with ``CellPlan(remat=False)``
    (``BF16_NO_REMAT_STEPS``; each forward once), bit-equal to the remat
-   run's first two, both peaks printed; then the reference's bf16 train
-   pins (``BF16_TRAIN_PINS``: losses within rel 2e-3, grad norms within
-   rel 5e-3 at step 1 and 4e-2 over three steps; two runs bit-equal);
-14c. the reference's ``train_4k`` sequence (``train_4k``, ``TRAIN_4K``):
-   h2o-danube-3-4b whole in bf16 with the default plan at 4 × 4,096, 3
-   steps twice, bit-equal, K3's bf16 prefill 2 × 24 and backward 24
-   launches a step, no plain version, peak below 80 GB; ms a step, one
-   step profiled; beside the peak the reckoned peak without remat (the
-   peak, less what the forward keeps with remat, plus what the 4 × 512
-   run's forward kept without remat scaled to 16,384 tokens);
+   run's first two, both peaks printed;
+14c. the reference's ``train_4k`` cell (``train_cells``,
+   ``TRAIN_CELLS``): ``make_train_step(cfg, default_plan(full config,
+   "train_4k"))`` in bf16 (remat; micro-batches of one 4,096-token
+   sequence, 4 a step or 8 over 20 G parameters; bf16 moments over 100 G)
+   on weights drawn on the card, 3 steps: smollm-135m, mamba2-1.3b,
+   qwen2-vl-2b, stablelm-1.6b, whisper-large-v3 (seeded frames) and
+   h2o-danube-3-4b whole, mixtral-8x7b at 2, yi-34b at 4 and dbrx-132b
+   at 1 of their layers; K3's and K4's bf16 launches exactly
+   ``bf16_train_launches`` times the micro-batches, no plain version,
+   finite losses and grad norms, peak below 80 GB beside the reckoned
+   one and what one micro-batch keeps for the backward; qwen2-vl-2b,
+   yi-34b, dbrx-132b and smollm-135m twice, bit-equal; ms a step, one
+   step profiled (device ms by class, the idle share against its own host
+   time); h2o-danube-3-4b's peak also beside the reckoned peak without
+   remat (the peak, less what a micro-batch keeps with remat, plus what
+   the 4 × 512 run kept without remat scaled to 4,096 tokens);
 15. drives ``PodDetector.observe`` on the default 16×16 pod (3 windows of
    16 steps; a core and a link fault on the mesh, a link fault on the
    torus) with both recorder impls on the card: verdicts equal to each
@@ -299,8 +320,13 @@ their largest gap over the largest entry (no card needed).
     python3 chip_smoke.py --k4-digest SRC [SAVE.npz]
 
 does the same for K4 at ``SSD_CASES``: its f32 forward (y, the final
-state, the scratch its backward reads), its backward and its bf16 forward.
+state, the scratch its backward reads), its backward, its bf16 forward and
+its bf16 backward.
 The K3 digest also holds the bf16 prefill's and decode's outputs.
+
+    python3 chip_smoke.py --train-cells
+
+runs the build, phase 2's bf16 backward cases and phase 14c alone.
 
     python3 chip_smoke.py --k3-walk SRC
 
@@ -337,6 +363,7 @@ the exponents (``K4_BWD_ABLATIONS``), each with its split per launch.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import gc
@@ -1886,18 +1913,19 @@ def serve_run(arch, lib, n_layers=None):
     return launches
 
 
-def check_pin(pin, dev, lib):
+def check_pin(pin, dev, lib, weights):
     """The port on the card against one of the reference's pins, on the
-    same numpy weights and prompts (an encoder-decoder's over
+    same numpy weights (taken from ``weights``, the :class:`PinWeights`)
+    and prompts (an encoder-decoder's over
     ``pin_frames``); for a mixture of experts, also the assignments the
     prefill dropped at the capacity."""
     import torch
 
-    from repro_torch.convert import params_from_numpy, reference_params_numpy
+    from repro_torch.convert import params_from_numpy
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     cfg = pin_config(pin)
-    model = params_from_numpy(cfg, reference_params_numpy(cfg, 0), dev)
+    model = params_from_numpy(cfg, weights.take(cfg), dev)
     toks = np.random.default_rng(PIN_PROMPT_SEED).integers(
         0, cfg.vocab, (2, PIN_PROMPT_LEN)).astype(np.int32)
     frames = pin_frames(cfg, 2, dev)
@@ -1947,6 +1975,39 @@ def check_pin(pin, dev, lib):
     del model, cache, memory
     gc.collect()
     torch.cuda.empty_cache()
+
+
+class PinWeights:
+    """The pins' weights, ``reference_params_numpy(cfg, 0)`` (the host's
+    numpy generator: about 44 M draws a second, 72 s for mixtral-8x7b's
+    3.16 G), each distinct config drawn once (nine for the script's 21
+    pins, 203 s and 35.7 GB in all), by one background thread in the order
+    of ``cfgs``: numpy's generator releases the GIL while it fills an
+    array, so the card checks one pin while the next is drawn.
+    :meth:`take` waits for a config's tree and lets it go after its last
+    take; :meth:`close` requires every tree taken and the thread ended."""
+
+    def __init__(self, cfgs):
+        from concurrent.futures import ThreadPoolExecutor
+
+        from repro_torch.convert import reference_params_numpy
+        self._takes = collections.Counter(cfgs)
+        self._pool = ThreadPoolExecutor(1)
+        self._trees = {cfg: self._pool.submit(reference_params_numpy, cfg, 0)
+                       for cfg in self._takes}
+
+    def take(self, cfg):
+        require(cfg in self._trees, f"no pin weights left for {cfg.name}")
+        tree = self._trees[cfg].result()
+        self._takes[cfg] -= 1
+        if not self._takes[cfg]:
+            del self._trees[cfg]
+        return tree
+
+    def close(self):
+        require(not self._trees, "pin weights never taken: "
+                + ", ".join(cfg.name for cfg in self._trees))
+        self._pool.shutdown(wait=True)
 
 
 def pin_config(pin):
@@ -2147,29 +2208,57 @@ def time_ssd(dev, reps, bf16=False):
             "kernels_per_call": len(breakdown) or None, "max_abs_err": err}
 
 
+def ssd_bwd_bound(args, dy, saved, q, bf16) -> dict:
+    """K4's backward bound from a zero state with no final-state
+    cotangent (as the train path runs it), from the products the function
+    needs (per chunk and head the aggregate, Ŝ·B_j and dC's and dB's state
+    terms, 8·nl·P·N; dy·uᵀ and (M∘E)ᵀ·dy over the causal pairs,
+    4·pairs·P; ⟨Ŝ, S⟩, 2·P·N; C_i against dC's state term, 2·nl·N; per
+    chunk and group dM·B and dMᵀ·C, 4·pairs·N) at the rates of the units
+    the kernel runs them on (``bound_ms``: in f32 all as 3xTF32; in bf16
+    dy·xᵀ at the bf16 rate and the rest as three bf16 passes, and beside
+    it at the units of the ``mma.sync`` design that shapes TMA cannot take
+    still run, the rest as two TF32 passes, ``bound_two_tf32_ms``), and at
+    the f32 rate of CUDA cores (``bound_cuda_core_ms``), and from bytes
+    (the inputs, dy and the saved scratch read once, the five gradients
+    written once)."""
+    b, s, h, p = args[0].shape
+    g, n = args[3].shape[2:]
+    nls = [min(q, s - t0) for t0 in range(0, s, q)]
+    pairs = sum(m * (m + 1) // 2 for m in nls)
+    flops = b * (h * (8 * sum(nls) * p * n + 4 * pairs * p
+                      + 2 * len(nls) * p * n + 2 * sum(nls) * n)
+                 + g * 4 * pairs * n)
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in args) \
+        + dy.numel() * dy.element_size() + 4 * saved.numel()
+    # in bf16, dy·xᵀ on bf16 tensor cores and the rest as three bf16
+    # passes (the mma.sync design: two TF32 passes), their mix as one rate
+    mixed = b * h * 2 * pairs * p
+
+    def mix(rest):
+        return flops / (mixed / BF16_FLOP_PER_S + (flops - mixed) / rest)
+    out = {**bound(nbytes, flops,
+                   mix(BF16X3_FLOP_PER_S) if bf16 else TF32X3_FLOP_PER_S),
+           "bound_cuda_core_ms": bound(nbytes, flops)["bound_ms"]}
+    if bf16:
+        out["bound_two_tf32_ms"] = bound(nbytes, flops,
+                                         mix(TF32X2_FLOP_PER_S))["bound_ms"]
+    return out
+
+
 def time_ssd_bwd(dev, reps, bf16=False):
     """K4's backward at mamba2-1.3b's training shape (from a zero state,
     no final-state cotangent, as the train path runs it), with x, b, c and
     dy in bf16 if ``bf16``: the kernel on the forward's saved scratch, the
     plain mirror ``ssd_bwd_ref``, torch autograd through ``ssd_ref`` (a
     composite of torch ops, not one library call, so ``library_ms`` is
-    null) and the forward.  Bound from the products the function needs
-    (per chunk and head the aggregate, Ŝ·B_j and dC's and dB's state terms,
-    8·nl·P·N; dy·uᵀ and (M∘E)ᵀ·dy over the causal pairs, 4·pairs·P; ⟨Ŝ, S⟩,
-    2·P·N; C_i against dC's state term, 2·nl·N; per chunk and group dM·B
-    and dMᵀ·C, 4·pairs·N) at the rates of the units the kernel runs them
-    on (``bound_ms``: in f32 all as 3xTF32; in bf16 dy·xᵀ at the bf16 rate
-    and the rest as three bf16 passes, and beside it at the units of the
-    ``mma.sync`` design that shapes TMA cannot take still run, the
-    rest as two TF32 passes, ``bound_two_tf32_ms``), and at the f32 rate
-    of CUDA cores (``bound_cuda_core_ms``), and from bytes (the inputs, dy
-    and the saved scratch read once, the five gradients written once)."""
+    null) and the forward, beside ``ssd_bwd_bound``."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref, ssd_ref
     case = SSD_CASES[-1]
-    b, s, h, p, g, n, q = case
+    q = case[-1]
     args, _, dy, _ = ssd_bwd_inputs(dev, case, 98, False, False)
     if bf16:
         args, dy = bf16_ssd_args(args), dy.bfloat16()
@@ -2192,28 +2281,11 @@ def time_ssd_bwd(dev, reps, bf16=False):
             for k, e in zip(got[:5], exp[:5])]
     auto = timed(autograd, max(2, reps // 4))
     fwd = timed(lambda: ops.ssd_cuda(*args, chunk=q), reps)
-    nls = [min(q, s - t0) for t0 in range(0, s, q)]
-    pairs = sum(m * (m + 1) // 2 for m in nls)
-    flops = b * (h * (8 * sum(nls) * p * n + 4 * pairs * p
-                      + 2 * len(nls) * p * n + 2 * sum(nls) * n)
-                 + g * 4 * pairs * n)
-    nbytes = 2 * sum(t.numel() * t.element_size() for t in args) \
-        + dy.numel() * dy.element_size() + 4 * saved.numel()
-    # in bf16, dy·xᵀ on bf16 tensor cores and the rest as three bf16
-    # passes (the mma.sync design: two TF32 passes), their mix as one rate
-    mixed = b * h * 2 * pairs * p
-
-    def mix(rest):
-        return flops / (mixed / BF16_FLOP_PER_S + (flops - mixed) / rest)
-    rate = mix(BF16X3_FLOP_PER_S) if bf16 else TF32X3_FLOP_PER_S
     breakdown = launch_breakdown(kernel, reps)
     ulps = {"max_ulps_vs_plain": max(bf16_grad_ulps(got[i], exp[i])
                                      for i in (0, 3, 4))} if bf16 else {}
-    if bf16:
-        ulps["bound_two_tf32_ms"] = bound(nbytes, flops,
-                                          mix(TF32X2_FLOP_PER_S))["bound_ms"]
-    return {**times(kernel, plain, None, reps), **bound(nbytes, flops, rate),
-            "bound_cuda_core_ms": bound(nbytes, flops)["bound_ms"], **ulps,
+    return {**times(kernel, plain, None, reps),
+            **ssd_bwd_bound(args, dy, saved, q, bf16), **ulps,
             "kernel_breakdown_ms": breakdown,
             "kernels_per_call": len(breakdown) or None,
             "max_abs_err": max(gap for gap, _ in gaps),
@@ -2375,7 +2447,7 @@ def bf16_attention_cases(dev):
     """Every :func:`attention_cases` case in bf16, then yi-34b's serving
     shapes: its 4 × 512 prefill (GQA 7, head dim 128) and its last decode
     step over the serve run's 1,024-slot fill, with h2o-danube-3-4b's
-    ``TRAIN_4K`` prefill (batch 1) between them; then three edges of the
+    ``train_4k`` cell's prefill (batch 1) between them; then three edges of the
     bf16 decode's splits."""
     import torch
     cases = [(label, q.bfloat16(), k.bfloat16(), v.bfloat16(), qp, kp,
@@ -2809,7 +2881,7 @@ def serve_bf16_run(arch, dev, lib):
     return launches, {**summary, "profile": prof}
 
 
-def check_bf16_pin(pin, dev, lib):
+def check_bf16_pin(pin, dev, lib, weights):
     """The port in bf16 on the card against one of ``BF16_PINS``,
     teacher-forced: the same weights (``reference_params_numpy`` rounded by
     the per-leaf rule in ``params_from_numpy(dtype=torch.bfloat16)``) and
@@ -2820,10 +2892,10 @@ def check_bf16_pin(pin, dev, lib):
     launch."""
     import torch
 
-    from repro_torch.convert import params_from_numpy, reference_params_numpy
+    from repro_torch.convert import params_from_numpy
     from repro_torch.models import transformer as T
     cfg = pin_config(pin)
-    model = params_from_numpy(cfg, reference_params_numpy(cfg, 0), dev,
+    model = params_from_numpy(cfg, weights.take(cfg), dev,
                               dtype=torch.bfloat16)
     plen, n = pin["prompt_len"], len(pin["top5_ids"])
     toks = np.random.default_rng(PIN_PROMPT_SEED).integers(
@@ -3044,9 +3116,13 @@ WHISPER_TRAIN_PINS = {"arch": "whisper-large-v3", "n_layers": 4,
 #: rounded to bf16 by the per-leaf rule, 3 steps of ``TokenPipeline``
 #: batches of 2 × 128 (seed 0): smollm-135m whole, mamba2-1.3b with 4 of its
 #: 48 layers, h2o-danube-3-4b and stablelm-1.6b with 2 of their 24,
-#: whisper-large-v3 with 4 + 4 over ``pin_frames`` in bf16.  No mixtral-8x7b
-#: pin: the reference's step at full width holds about 25 GB of parameters,
-#: gradients and moments on the host even with one layer.
+#: whisper-large-v3 with 4 + 4 over ``pin_frames`` in bf16; then under
+#: other plans (the pin's ``grad_accum`` and ``opt_state_dtype``,
+#: :func:`bf16_pin_plan`): qwen2-vl-2b with 2 of its 28 layers under its
+#: ``train_4k`` default plan (4 micro-batches) at 4 × 128, and smollm-135m
+#: whole under dbrx-132b's (8 micro-batches, bf16 moments) at 8 × 128.  No
+#: mixtral-8x7b pin: the reference's step at full width holds about 25 GB
+#: of parameters, gradients and moments on the host even with one layer.
 BF16_TRAIN_PINS = json.loads("""
 [{"arch": "smollm-135m", "n_layers": null, "steps": 3, "batch": 2, "seq":
 128, "losses": [10.95871353149414, 10.889426231384277, 10.893865585327148],
@@ -3063,7 +3139,15 @@ BF16_TRAIN_PINS = json.loads("""
 {"arch": "whisper-large-v3", "n_layers": 4, "n_enc_layers": 4, "steps": 3,
 "batch": 2, "seq": 128, "losses": [11.120917320251465, 11.207988739013672,
 11.068077087402344], "grad_norms": [5.06015682220459, 2.9725663661956787,
-2.7472050189971924]}]
+2.7472050189971924]},
+{"arch": "qwen2-vl-2b", "n_layers": 2, "steps": 3, "batch": 4, "seq": 128,
+"grad_accum": 4, "losses": [12.216662406921387, 12.222270011901855,
+12.200604438781738], "grad_norms": [7.832635879516602, 7.903675079345703,
+8.022944450378418]},
+{"arch": "smollm-135m", "n_layers": null, "steps": 3, "batch": 8, "seq":
+128, "grad_accum": 8, "opt_state_dtype": "bfloat16", "losses":
+[10.915034294128418, 10.952390670776367, 10.908918380737305], "grad_norms":
+[3.0694282054901123, 3.2776870727539062, 3.0009419918060303]}]
 """)
 
 #: The JAX reference's pod verdicts (``python tests/test_torch_telemetry.py``,
@@ -3667,18 +3751,18 @@ def profile_train_step(dev, arch, n_layers=None) -> dict:
     return out
 
 
-def check_train_pins(dev, pin) -> dict:
+def check_train_pins(dev, pin, weights) -> dict:
     """The reference's losses and grad norms on a pin run (an
     encoder-decoder's over ``pin_frames``), twice: the two runs' numbers
     must also be equal bit for bit."""
     import torch
 
-    from repro_torch.convert import params_from_numpy, reference_params_numpy
+    from repro_torch.convert import params_from_numpy
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.launch import steps as S
     from repro_torch.optim import adamw
     cfg = pin_config(pin)
-    tree = reference_params_numpy(cfg, 0)
+    tree = weights.take(cfg)
     frames = pin_frames(cfg, pin["batch"], dev)
     runs = []
     for _ in range(2):
@@ -4117,13 +4201,13 @@ def k4_digest_main(src: str, save: str | None = None) -> int:
     """``--k4-digest SRC [SAVE]``: the port in ``SRC`` (as ``--k3-digest``)
     runs K4's f32 forward (y, the final state and the scratch the backward
     reads, :func:`written_scratch`), its backward (from an initial state,
-    with a final-state cotangent) and its bf16 forward on seeded inputs at
+    with a final-state cotangent), its bf16 forward and its bf16 backward
+    (on the bf16 forward's scratch, the same inputs) on seeded inputs at
     ``SSD_CASES``; one JSON line of sha-256 digests of the outputs' bytes
-    (bf16 outputs as their exact f32 values).  The bf16 backward (on the
-    bf16 forward's scratch, the same inputs) is held to its plain mirror
-    ``ssd_bwd_ref`` instead: its largest gap in bf16 ulps of each bf16
-    gradient's largest entry and, relative to each one's largest entry,
-    of the f32 ones (``bf16_backward``).  With ``SAVE``, the outputs also
+    (bf16 outputs as their exact f32 values).  The bf16 backward is also
+    held to its plain mirror ``ssd_bwd_ref``: its largest gap in bf16 ulps
+    of each bf16 gradient's largest entry and, relative to each one's
+    largest entry, of the f32 ones (``bf16_backward``).  With ``SAVE``, the outputs also
     go to that ``.npz`` file, for ``--compare``."""
     import hashlib
 
@@ -4162,6 +4246,7 @@ def k4_digest_main(src: str, save: str | None = None) -> int:
         saved = ops.ssd_fwd_cuda(*bargs, chunk=q, init_state=st0)[2]
         got = ops.ssd_bwd_cuda(*bargs, dy.bfloat16(), ds, saved=saved,
                                chunk=q, init_state=st0)
+        digest(f"{label} bf16 backward", *got)
         exp = ssd_bwd_ref(*bargs, dy.bfloat16(), ds, chunk=q,
                           init_state=st0)
         bf16_bwd[label] = {
@@ -4623,7 +4708,11 @@ def attention_bwd_bf16_cases(dev):
     with S != T; GQA 1, 3, 4 and 6; head dims 16 to 128; whisper's encoder
     and cross-attention), then head dims 8 (GQA 8) and 24 (off their
     tiles), h2o-danube-3-4b's training shapes (head dim 120, GQA 4, its
-    4,096 window; at 512 and, batch 1, at ``TRAIN_4K``'s 4,096), and the
+    4,096 window; at 512 and, batch 1, at the ``train_4k`` cell's 4,096),
+    the other ``TRAIN_CELLS`` shapes at one micro-batch of 4,096 that the
+    cases above lack (yi-34b's 56 query heads over 8 KV heads of 128,
+    qwen2-vl-2b's 12 over 2, whisper-large-v3's cross-attention from 4,096
+    queries at positions 0.. over 1,500 keys), and the
     edges of the kernel's ordered adds: a window of
     16 at S = T = 300 (most query tiles meet one key tile), slots 100..299
     empty (-1) under a window of 64 (key tile 1 holds no live key, query
@@ -4647,6 +4736,12 @@ def attention_bwd_bf16_cases(dev):
              512, 512, dq, dk, 120, True, dwin, None),
             (f"h2o-danube-3-4b train_4k [1,4096,{dq},120], window {dwin}",
              1, 4096, 4096, dq, dk, 120, True, dwin, None),
+            ("yi-34b train_4k [1,4096,56,128], GQA 7:1", 1, 4096, 4096,
+             *YI_HEADS, 128, True, None, None),
+            ("qwen2-vl-2b train_4k [1,4096,12,128], GQA 6:1", 1, 4096,
+             4096, 12, 2, 128, True, None, None),
+            ("whisper cross train_4k [1,4096,20,64] over 1,500 keys", 1,
+             4096, WHISPER_FRAMES, 20, 20, 64, False, None, None),
             ("window 16 at S = T = 300, GQA 2:1", 2, 300, 300, 4, 2, 64,
              True, 16, None),
             ("slots 100..299 empty, window 64, GQA 4:1", 2, 512, 512, 4, 1,
@@ -4658,8 +4753,10 @@ def attention_bwd_bf16_cases(dev):
         q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dev).bfloat16() for shape in (
                 (b, s, hq, d), (b, t, hk, d), (b, t, hk, d), (b, s, hq, d)))
+        q0 = max(t - s, 0)  # queries end at the last key, or start at 0
         cases.append((label, q, k, v, dout,
-                      torch.arange(t - s, t, dtype=torch.int32, device=dev),
+                      torch.arange(q0, q0 + s, dtype=torch.int32,
+                                   device=dev),
                       torch.arange(t, dtype=torch.int32, device=dev)
                       if k_pos is None else k_pos, causal, win))
     return cases
@@ -4740,10 +4837,16 @@ def check_attention_bwd_bf16(dev, lib):
     return out, worst_ulps, worst
 
 
+#: K4's bf16 backward at mamba2-1.3b's ``train_4k`` micro-batch (x
+#: [1,4096,64,64], b/c [1,4096,8,128], chunk 128), besides ``SSD_CASES``.
+SSD_TRAIN_4K_CASE = (1, 4096, 64, 64, 8, 128, 128)
+
+
 def check_ssd_bwd_bf16(dev, lib):
     """K4's bf16 backward through ``SSDScan`` (the bf16 forward, then
     ``ssd_scan_backward_bf16`` on its scratch) against its plain mirror
-    ``ssd_bwd_ref`` in bf16 at ``SSD_CASES``, with and without an initial
+    ``ssd_bwd_ref`` in bf16 at ``SSD_CASES`` and ``SSD_TRAIN_4K_CASE``,
+    with and without an initial
     state and a final-state cotangent: dx, db and dc (bf16) within
     ``BF16_BWD_ULPS`` of each gradient's largest |entry|, ddt, da and
     dinit (f32) within ``K4_BWD_TOL`` of it; two runs bit-identical; one
@@ -4753,7 +4856,7 @@ def check_ssd_bwd_bf16(dev, lib):
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ref import autograd_grads, ssd_bwd_ref
     out, worst_ulps, worst_rel, worst = [], 0.0, 0.0, 0.0
-    for i, case in enumerate(SSD_CASES):
+    for i, case in enumerate(SSD_CASES + (SSD_TRAIN_4K_CASE,)):
         for with_state in (False, True):
             for with_dstate in (False, True):
                 args, init, dy, ds = ssd_bwd_inputs(dev, case, i, with_state,
@@ -4803,13 +4906,13 @@ def check_ssd_bwd_bf16(dev, lib):
 #: The bf16 train runs of ``train_bf16``: (config, layers kept or None for
 #: all, steps), each at batch 4 × 512 with the reference's plan (remat,
 #: bf16 parameters with its f32 leaves, f32 AdamW moments), twice.  Whole
-#: but for mixtral-8x7b, whose 3 of 32 layers with embedding and head are
-#: 4.62 G parameters, 55 GB of weights, gradients and moments at 12 bytes
-#: a parameter (4 layers would be 73 GB, no room for activations).
-BF16_TRAIN_RUNS = (("smollm-135m", None, 4), ("mamba2-1.3b", None, 3),
-                   ("h2o-danube-3-4b", None, 3),
-                   ("whisper-large-v3", None, 2), ("mixtral-8x7b", 3, 3),
-                   ("stablelm-1.6b", None, 3))
+#: but for mixtral-8x7b at 2 of 32 layers.  Two steps each (the second
+#: timed): every one of these archs also trains in ``TRAIN_CELLS`` at
+#: 4,096 under its default plan.
+BF16_TRAIN_RUNS = (("smollm-135m", None, 2), ("mamba2-1.3b", None, 2),
+                   ("h2o-danube-3-4b", None, 2),
+                   ("whisper-large-v3", None, 2), ("mixtral-8x7b", 2, 2),
+                   ("stablelm-1.6b", None, 2))
 
 #: Peak device memory (GB) of the ``BF16_TRAIN_RUNS`` when their plan did
 #: not checkpoint its periods: this script's runs on an NVIDIA H100 80GB
@@ -4817,17 +4920,36 @@ BF16_TRAIN_RUNS = (("smollm-135m", None, 4), ("mamba2-1.3b", None, 3),
 BF16_TRAIN_PEAK_GB_NO_REMAT = {
     "smollm-135m": 6.094184448, "mamba2-1.3b": 35.007139328,
     "h2o-danube-3-4b": 58.858992128, "whisper-large-v3": 38.55225344,
-    "mixtral-8x7b": 76.13229824, "stablelm-1.6b": 31.478181376}
+    "stablelm-1.6b": 31.478181376}
 
 #: The ``BF16_TRAIN_RUNS`` that also train this many steps with
 #: ``CellPlan(remat=False)``, held bit-equal to the remat run's first
 #: steps: the activations remat frees, measured.
 BF16_NO_REMAT_STEPS = {"h2o-danube-3-4b": 2}
 
-#: ``train_4k``: h2o-danube-3-4b whole at the reference's ``train_4k``
-#: sequence of 4,096 (its ``SHAPES``), batch 4, 3 steps twice, with the
-#: default plan (remat).
-TRAIN_4K = {"arch": "h2o-danube-3-4b", "batch": 4, "seq": 4096, "steps": 3}
+def profiled_train_step(step, model, state, tok, frames, cpu=False):
+    """One more train step under the profiler (device activities, and the
+    host's with ``cpu``): ``(state, {"device_ms", "profiled_wall_ms" (host
+    clock ending in a sync), "device_ms_by_class", "top_kernels_ms"})``."""
+    from torch.profiler import ProfilerActivity, profile
+    by_name = {}
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + [ProfilerActivity.CPU] * cpu) as prof:
+        t0 = time.perf_counter()
+        state, loss, _ = step(model, state, tok, frames)
+        loss.item()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms = device_us(prof, by_name) / 1e3
+    by_class = {}
+    for name, us in by_name.items():
+        key = kernel_class(name)
+        by_class[key] = by_class.get(key, 0.0) + us / 1e3
+    return state, {"device_ms": dev_ms,
+                   "profiled_wall_ms": wall_ms,
+                   "device_ms_by_class": by_class,
+                   "top_kernels_ms": [
+                       [name[:80], us / 1e3] for name, us in sorted(
+                           by_name.items(), key=lambda kv: -kv[1])[:8]]}
 
 
 def leaf_checksums(model) -> list:
@@ -4874,12 +4996,12 @@ def bf16_train_launches(cfg, remat, steps) -> dict:
             "ssd_scan_bwd": 0}
 
 
-def train_bf16_run(dev, lib, arch, n_layers, steps, batch=4, seq=512,
-                   no_remat_steps=0, phase="train_bf16") -> dict:
+def train_bf16_run(dev, lib, arch, n_layers, steps,
+                   no_remat_steps=0) -> dict:
     """``make_train_step`` with the reference's bf16 plan (remat) on
     ``init_model(dtype=bf16)`` weights (an encoder-decoder over zero bf16
-    frames), ``steps`` steps of ``batch`` × ``seq`` ``TokenPipeline``
-    tokens, twice from one seed with the counts set to 0 just before each:
+    frames), ``steps`` steps of 4 × 512 ``TokenPipeline`` tokens, twice
+    from one seed with the counts set to 0 just before each:
     the launches of :func:`bf16_train_launches` exactly, no plain version;
     the two runs' losses, grad norms and leaf checksums equal bit for bit.
     Prints ms a step (host clock ending in a sync; the first step is a
@@ -4893,7 +5015,6 @@ def train_bf16_run(dev, lib, arch, n_layers, steps, batch=4, seq=512,
     import dataclasses
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
@@ -4902,6 +5023,7 @@ def train_bf16_run(dev, lib, arch, n_layers, steps, batch=4, seq=512,
     from repro_torch.launch import steps as S
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
+    phase, batch, seq = "train_bf16", 4, 512
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -4946,24 +5068,12 @@ def train_bf16_run(dev, lib, arch, n_layers, steps, batch=4, seq=512,
                      "peak_mem_gb":
                      torch.cuda.max_memory_allocated(dev) / 1e9})
         if run == 0:
-            by_name = {}
             tok = torch.from_numpy(next(pipe)).to(dev)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                state, loss, _ = step(model, state, tok, frames)
-                loss.item()
-            dev_ms = device_us(prof, by_name) / 1e3
-            by_class = {}
-            for name, us in by_name.items():
-                key = kernel_class(name)
-                by_class[key] = by_class.get(key, 0.0) + us / 1e3
+            state, prof_out = profiled_train_step(
+                step, model, state, tok, frames, cpu=True)
             median = float(np.median(ms[1:] if len(ms) > 1 else ms))
-            prof_out = {"device_ms": dev_ms,
-                        "device_idle_share": 1.0 - dev_ms / median,
-                        "device_ms_by_class": by_class,
-                        "top_kernels_ms": [
-                            [name[:80], us / 1e3] for name, us in sorted(
-                                by_name.items(), key=lambda kv: -kv[1])[:8]]}
+            prof_out["device_idle_share"] = \
+                1.0 - prof_out["device_ms"] / median
         if run in (0, 2):
             runs[-1]["saved_activation_gb"] = saved_activation_gb(
                 dev, cfg, model, tok, frames, remat)
@@ -4986,7 +5096,7 @@ def train_bf16_run(dev, lib, arch, n_layers, steps, batch=4, seq=512,
            "saved_activation_gb": a["saved_activation_gb"],
            "peak_mem_gb": max(r["peak_mem_gb"] for r in runs[:2]),
            "peak_mem_gb_no_remat_before":
-               BF16_TRAIN_PEAK_GB_NO_REMAT.get(arch) if seq == 512 else None,
+               BF16_TRAIN_PEAK_GB_NO_REMAT.get(arch),
            **prof_out}
     if no_remat_steps:
         c = runs[2]
@@ -5018,33 +5128,228 @@ def train_bf16_run(dev, lib, arch, n_layers, steps, batch=4, seq=512,
     return out
 
 
-def train_4k_run(dev, lib, short) -> dict:
-    """``TRAIN_4K`` through :func:`train_bf16_run` (the default plan,
-    remat), then its memory: the peak beside the reckoned peak without
-    remat, which keeps every layer's activations instead of each period's
-    input: the remat peak, less what the forward keeps with remat, plus
-    what ``short`` (the 4 × 512 ``train_bf16`` run of the same config)
-    kept without remat, scaled by the tokens."""
+#: The reference's ``train_4k`` cell (``src/repro/launch/steps.py:30-35``:
+#: seq 4,096, global batch 256) on one card under each arch's
+#: ``default_plan`` of its full config (micro-batches of one sequence, 4
+#: a step, 8 over 20 G parameters; bf16 AdamW moments over 100 G), bf16
+#: weights drawn on the card from ``TRAIN_CELL_SEED``, remat:
+#: (arch, layers kept or None for all, reckoned peak GB, runs).  Published
+#: widths; depth cut only where the card cannot hold the model, in whole
+#: periods: mixtral-8x7b at 2 of 32 layers (3: ~80 GB), yi-34b at 4 of 60,
+#: dbrx-132b at 1 of 40 (2: 93 GB at its 12 bytes a parameter).  The peaks
+#: are reckoned at 16 bytes a parameter (bf16 weight and gradient, f32 sum
+#: and moments; 12 for dbrx's bf16 moments), AdamW's per-group f32
+#: temporaries and about four f32 copies of a micro-batch's logits.
+#: jamba-1.5-large-398b has no cell: one period is 8 layers, 44.2 G
+#: parameters, 88 GB in bf16.  The archs new to training on the card
+#: (qwen2-vl-2b, yi-34b, dbrx-132b) and smollm-135m (the cheap holder of
+#: the accumulation path's determinism) run twice from one seed.
+TRAIN_CELLS = (
+    ("smollm-135m", None, 6.0, 2),
+    ("mamba2-1.3b", None, 31.0, 1),
+    ("qwen2-vl-2b", None, 38.0, 2),
+    ("stablelm-1.6b", None, 36.0, 1),
+    ("whisper-large-v3", None, 32.0, 1),
+    ("h2o-danube-3-4b", None, 70.0, 1),
+    ("mixtral-8x7b", 2, 57.0, 1),
+    ("yi-34b", 4, 59.0, 2),
+    ("dbrx-132b", 1, 65.0, 2),
+)
+#: The archs of the reference's registry with no ``TRAIN_CELLS`` cell, and
+#: why.
+TRAIN_CELLS_LEFT_OUT = {
+    "jamba-1.5-large-398b": "one period is 8 layers, 44.2 G parameters, "
+                            "88 GB in bf16: no whole period fits one card"}
+TRAIN_CELL_SEED = 0
+#: Steps a run of a train cell takes (the first a warm-up), then one more
+#: under the profiler in the first run.
+TRAIN_CELL_STEPS = 3
+
+
+def train_cell_setup(cell):
+    """A ``TRAIN_CELLS`` cell's ``(cfg, full config, plan, batch, seq)``:
+    the full config cut to the cell's layers, the plan of the full config
+    (``default_plan`` reads ``param_count``: a cut yi-34b would otherwise
+    plan as a 3 G model), one 4,096-token sequence a micro-batch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    arch, n_layers = cell[:2]
+    full = get_config(arch)
+    require(S.skip_reason(full, "train_4k") is None, f"train_4k skips {arch}")
+    cfg = full if n_layers is None else dataclasses.replace(
+        full, n_layers=n_layers)
+    require(cfg.n_layers % T.period_len(cfg) == 0,
+            f"train_4k {arch}: {cfg.n_layers} layers cut a period")
+    plan = S.default_plan(full, "train_4k")
+    return cfg, full, plan, plan.grad_accum, S.SHAPES["train_4k"]["seq"]
+
+
+def train_cell_frames(cfg, batch, dev):
+    """An encoder-decoder's seeded bf16 frames ``[batch, n_frames, d]``
+    (N(0, 0.02²)), else None."""
     import torch
-    out = train_bf16_run(dev, lib, TRAIN_4K["arch"], None, TRAIN_4K["steps"],
-                         batch=TRAIN_4K["batch"], seq=TRAIN_4K["seq"],
-                         phase="train_4k")
-    scale = TRAIN_4K["batch"] * TRAIN_4K["seq"] / (short["batch"]
-                                                   * short["seq"])
-    kept = short["no_remat"]["saved_activation_gb"]
-    reckoned = out["peak_mem_gb"] - out["saved_activation_gb"] + kept * scale
-    emit({"phase": "train_4k_memory", "arch": TRAIN_4K["arch"],
-          "tokens": TRAIN_4K["batch"] * TRAIN_4K["seq"],
-          "peak_mem_gb": out["peak_mem_gb"], "state_gb": out["state_gb"],
-          "saved_activation_gb": out["saved_activation_gb"],
-          "short_saved_activation_gb_no_remat": kept,
-          "short_saved_activation_gb": short["saved_activation_gb"],
-          "short_peak_difference_gb": short["peak_difference_gb"],
-          "token_scale": scale, "reckoned_peak_gb_no_remat": reckoned,
-          "card_gb": torch.cuda.get_device_properties(dev).total_memory
-          / 1e9})
-    require(out["peak_mem_gb"] < 80.0, "train_4k: peak memory")
+    if not cfg.enc_dec:
+        return None
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_CELL_SEED + 5)
+    return (torch.randn(batch, cfg.n_frames, cfg.d_model, device=dev,
+                        generator=gen) * 0.02).bfloat16()
+
+
+def train_cell(dev, lib, cell, short=None) -> dict:
+    """One cell of ``TRAIN_CELLS``: ``make_train_step(cfg,
+    default_plan(full config, "train_4k"))`` (the plan from the full
+    config even where the depth is cut, as ``default_plan`` reads
+    ``param_count``) on bf16 weights drawn on the card, the moments of
+    the plan's type, ``TRAIN_CELL_STEPS`` steps of ``TokenPipeline``
+    batches of ``grad_accum`` × 4,096 tokens (an encoder-decoder over
+    seeded frames), the counts set to 0 just before and read just after:
+    ``bf16_train_launches(cfg, True, steps)`` times ``grad_accum`` exactly,
+    no plain version; finite losses and grad norms; with two runs, their
+    losses, grad norms and leaf checksums equal bit for bit.  Prints ms a
+    step (host clock ending in a sync; the first step a warm-up), one more
+    step profiled (device ms by class, the idle share against that step's
+    own host time, the top kernels), the peak beside the reckoned one and
+    what one micro-batch's forward keeps for the backward.  With
+    ``short`` (``train_bf16``'s 4 × 512 run of the arch, with its
+    no-remat steps), also ``train_4k_memory``: the peak beside the
+    reckoned peak without remat."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    arch, _, reckoned, n_runs = cell
+    cfg, full, plan, batch, seq = train_cell_setup(cell)
+    accum, steps = plan.grad_accum, TRAIN_CELL_STEPS
+    frames = train_cell_frames(cfg, batch, dev)
+    opt_cfg = adamw.AdamWConfig(state_dtype=plan.opt_state_dtype)
+    want = {k: n * accum for k, n in bf16_train_launches(cfg, True,
+                                                          steps).items()}
+    runs, prof_out = [], {}
+    for run in range(n_runs):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(
+            TRAIN_CELL_SEED), dtype=plan.param_dtype)
+        state = adamw.init_state(list(model.parameters()), opt_cfg)
+        state_gb = torch.cuda.memory_allocated(dev) / 1e9
+        step = S.make_train_step(cfg, plan)
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=batch,
+                                        seq=seq, seed=TRAIN_CELL_SEED))
+        losses, gnorms, ms = [], [], []
+        lib.reset_launches()
+        with PlainCalls((fa_ops, "attention_ref"),
+                        (ssd_ops, "ssd_ref")) as plain:
+            for _ in range(steps):
+                tok = torch.from_numpy(next(pipe)).to(dev)
+                t0 = time.perf_counter()
+                state, loss, gnorm = step(model, state, tok, frames)
+                losses.append(loss.item())
+                ms.append((time.perf_counter() - t0) * 1e3)
+                gnorms.append(gnorm.item())
+        runs.append({"losses": losses, "grad_norms": gnorms,
+                     "checksum": leaf_checksums(model), "ms_per_step": ms,
+                     "launches": dict(lib.LAUNCHES),
+                     "plain_calls": plain.n, "state_gb": state_gb,
+                     "peak_mem_gb":
+                     torch.cuda.max_memory_allocated(dev) / 1e9})
+        if run == 0:
+            tok = torch.from_numpy(next(pipe)).to(dev)
+            state, prof_out = profiled_train_step(step, model, state, tok,
+                                                  frames)
+            prof_out["device_idle_share"] = \
+                1.0 - prof_out["device_ms"] / prof_out["profiled_wall_ms"]
+            runs[0]["saved_activation_gb"] = saved_activation_gb(
+                dev, cfg, model, tok[:1],
+                None if frames is None else frames[:1], True)
+        del model, state, step
+    first = runs[0]
+    same = all(r[k] == first[k] for r in runs[1:]
+               for k in ("losses", "grad_norms", "checksum"))
+    out = {"phase": "train_cell", "shape": "train_4k", "arch": arch,
+           "layers": cfg.n_layers, "full_layers": full.n_layers,
+           "encoder_layers": cfg.n_enc_layers,
+           "grad_accum": accum,
+           "opt_state_dtype": str(plan.opt_state_dtype).removeprefix(
+               "torch."),
+           "remat": plan.remat, "batch": batch, "seq": seq,
+           "global_batch": S.SHAPES["train_4k"]["batch"], "steps": steps,
+           "parameters": cfg.param_count(),
+           "active_parameters": cfg.active_param_count(), "runs": n_runs,
+           "losses": first["losses"], "grad_norms": first["grad_norms"],
+           "bit_identical_runs": same if n_runs > 1 else None,
+           "ms_per_step": [r["ms_per_step"] for r in runs],
+           "ms_per_step_median": float(np.median(
+               [m for r in runs for m in r["ms_per_step"][1:]])),
+           "launches": first["launches"], "expected_launches": want,
+           "plain_calls": sum(r["plain_calls"] for r in runs),
+           "state_gb": first["state_gb"],
+           "saved_activation_gb": first["saved_activation_gb"],
+           "peak_mem_gb": max(r["peak_mem_gb"] for r in runs),
+           "reckoned_peak_gb": reckoned, **prof_out}
+    emit(out)
+    print(f"train_4k {arch} ms/step {out['ms_per_step_median']:.1f} peak_gb "
+          f"{out['peak_mem_gb']:.2f} (reckoned {reckoned})", flush=True)
+    for r in runs:
+        for name, n in want.items():
+            require(r["launches"][name] == n,
+                    f"train_4k {arch}: {name} launched "
+                    f"{r['launches'][name]} times, not {n}")
+        require(r["plain_calls"] == 0, f"train_4k {arch}: a plain version "
+                                       "ran")
+        require(all(np.isfinite(r["losses"] + r["grad_norms"])),
+                f"train_4k {arch}: losses or grad norms not finite")
+        require(r["peak_mem_gb"] < 80.0, f"train_4k {arch}: peak memory "
+                                         f"{r['peak_mem_gb']} GB")
+    require(same, f"train_4k {arch}: two runs differ")
+    if short is not None:
+        # without remat every layer keeps its activations, not each
+        # period's input: the remat peak, less what one micro-batch keeps
+        # with remat, plus what the short run kept without it, scaled by
+        # the tokens
+        scale = seq / (short["batch"] * short["seq"])
+        kept = short["no_remat"]["saved_activation_gb"]
+        emit({"phase": "train_4k_memory", "arch": arch, "tokens": seq,
+              "grad_accum": accum, "peak_mem_gb": out["peak_mem_gb"],
+              "state_gb": out["state_gb"],
+              "saved_activation_gb": out["saved_activation_gb"],
+              "short_saved_activation_gb_no_remat": kept,
+              "short_saved_activation_gb": short["saved_activation_gb"],
+              "short_peak_difference_gb": short["peak_difference_gb"],
+              "token_scale": scale, "reckoned_peak_gb_no_remat":
+              out["peak_mem_gb"] - out["saved_activation_gb"] + kept * scale,
+              "card_gb": torch.cuda.get_device_properties(dev).total_memory
+              / 1e9})
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
+
+
+def run_train_cells(dev, lib, shorts=None) -> dict:
+    """Every ``TRAIN_CELLS`` cell, ``shorts`` (``train_bf16``'s runs by
+    arch) giving the no-remat reckoning where they hold one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+    shorts = shorts or {}
+    cells = {}
+    for cell in TRAIN_CELLS:
+        short = shorts.get(cell[0])
+        cells[cell[0]] = train_cell(
+            dev, lib, cell,
+            short if short is not None and "no_remat" in short else None)
+    emit({"phase": "train_cells_wall_s", "seconds": time.perf_counter() - t0})
+    return cells
 
 
 #: The reference's bf16 train step on the card: loss within this relative
@@ -5058,21 +5363,34 @@ BF16_PIN_GNORM_REL_FIRST = 5e-3
 BF16_PIN_GNORM_REL = 4e-2
 
 
-def check_bf16_train_pins(dev, pin) -> dict:
+def bf16_pin_plan(pin):
+    """A bf16 pin's plan: ``CellPlan()`` with the pin's micro-batches and
+    moments' type where it names them."""
+    import torch
+
+    from repro_torch.launch import steps as S
+    return S.CellPlan(grad_accum=pin.get("grad_accum", 1),
+                      opt_state_dtype=getattr(
+                          torch, pin.get("opt_state_dtype", "float32")))
+
+
+def check_bf16_train_pins(dev, pin, weights) -> dict:
     """The reference's bf16 losses and grad norms on a pin run
-    (``BF16_TRAIN_PINS``: its jitted step with its default plan on
+    (``BF16_TRAIN_PINS``: its jitted step with its default plan and the
+    pin's micro-batches and moments' type, :func:`bf16_pin_plan`, on
     ``reference_params_numpy(cfg, 0)`` rounded to bf16 by the per-leaf
     rule; an encoder-decoder over ``pin_frames`` in bf16), twice: within
     ``BF16_PIN_LOSS_REL`` and the grad-norm tolerances, and the two runs'
     numbers equal bit for bit."""
     import torch
 
-    from repro_torch.convert import params_from_numpy, reference_params_numpy
+    from repro_torch.convert import params_from_numpy
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.launch import steps as S
     from repro_torch.optim import adamw
     cfg = pin_config(pin)
-    tree = reference_params_numpy(cfg, 0)
+    plan = bf16_pin_plan(pin)
+    tree = weights.take(cfg)
     frames = pin_frames(cfg, pin["batch"], dev)
     if frames is not None:
         frames = frames.bfloat16()
@@ -5080,9 +5398,10 @@ def check_bf16_train_pins(dev, pin) -> dict:
     for _ in range(2):
         model = params_from_numpy(cfg, tree, dev, dtype=torch.bfloat16)
         opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=1,
-                                    total_steps=pin["steps"])
+                                    total_steps=pin["steps"],
+                                    state_dtype=plan.opt_state_dtype)
         state = adamw.init_state(list(model.parameters()), opt_cfg)
-        step = S.make_train_step(cfg, S.CellPlan(), opt_cfg)
+        step = S.make_train_step(cfg, plan, opt_cfg)
         pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=pin["batch"],
                                         seq=pin["seq"], seed=0))
         losses, gnorms = [], []
@@ -5101,6 +5420,9 @@ def check_bf16_train_pins(dev, pin) -> dict:
                                                   pin["grad_norms"])]
     out = {"phase": "train_pin_bf16", "arch": pin["arch"],
            "n_layers": cfg.n_layers, "n_enc_layers": cfg.n_enc_layers,
+           "grad_accum": plan.grad_accum,
+           "opt_state_dtype": str(plan.opt_state_dtype).removeprefix(
+               "torch."),
            "losses": losses, "grad_norms": gnorms,
            "reference": {k: pin[k] for k in ("losses", "grad_norms")},
            "loss_max_rel_err": loss_rel, "grad_norm_rel_err": gn_rel,
@@ -5389,6 +5711,82 @@ def check_ssd_past_2_31(dev):
            "last_chunk_max_ulps": ulps, "last_chunk_max_abs_err": err,
            "state_max_abs_err": es, "kernel_host_s": kernel_s}
     del x, dt, bm, cm, y, yp
+    torch.cuda.empty_cache()
+    return out
+
+
+#: K4's backward past a grid's y extent: mamba2-1.3b's heads, groups and
+#: state over 139,264 tokens, (B, S, H, P, G, N, chunk): 1,088 chunks of
+#: 128 x 64 heads = 69,632 (chunk, head) rows; the plain backward runs
+#: over segments of ``K4_ROWS_SEGMENT`` tokens.
+K4_ROWS = (1, 139264, 64, 64, 8, 128, 128)
+K4_ROWS_SEGMENT = 34816
+
+
+def check_ssd_bwd_past_rows(dev):
+    """K4's backward at ``K4_ROWS``, f32 and bf16 (the Hopper design), from
+    a non-zero state with a final-state cotangent, against the plain
+    backward over segments (``ssd_bwd_ref_segments``): dx, db and dc
+    within ``K4_BWD_TOL`` (f32) or ``BF16_BWD_ULPS`` (bf16) of each
+    gradient's largest entry, ddt, da and dinit within ``K4_BWD_TOL`` of
+    theirs; the gradients finite.  Then the backward alone as the train
+    path runs it (a zero state, no final-state cotangent), by CUDA events
+    behind a device spin (``timed``), beside ``ssd_bwd_bound``."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref_segments
+    b, s, h, p, g, n, q = K4_ROWS
+    require(-(-s // q) * h > ops.MAX_GRID_YZ, f"K4 rows: {K4_ROWS}")
+    gen = torch.Generator(device=dev).manual_seed(43)
+
+    def randn(*shape, scale):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+    x = randn(b, s, h, p, scale=0.5)
+    dt = torch.nn.functional.softplus(randn(b, s, h, scale=1.0)) * 0.3
+    a = -torch.exp(randn(h, scale=0.3))
+    bm, cm = (randn(b, s, g, n, scale=0.4) for _ in range(2))
+    s0 = randn(b, h, p, n, scale=0.5)
+    dy = randn(b, s, h, p, scale=1.0)
+    ds = randn(b, h, p, n, scale=0.5)
+    out = {"shape": list(K4_ROWS), "rows": -(-s // q) * h,
+           "segment": K4_ROWS_SEGMENT}
+    for bf16 in (False, True):
+        args = [x, dt, a, bm, cm]
+        cot = dy
+        if bf16:
+            args = bf16_ssd_args(args)
+            cot = dy.bfloat16()
+        t0 = time.perf_counter()
+        _, _, saved = ops.ssd_fwd_cuda(*args, chunk=q, init_state=s0)
+        got = ops.ssd_bwd_cuda(*args, cot, ds, saved=saved, chunk=q,
+                               init_state=s0)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        del saved
+        exp = ssd_bwd_ref_segments(*args, cot, ds, segment=K4_ROWS_SEGMENT,
+                                   chunk=q, init_state=s0)
+        ulps, rel = {}, {}
+        for name, g_, e in zip(SSD_GRADS, got, exp):
+            require(bool(torch.isfinite(g_).all()),
+                    f"K4 backward past 65,535 rows: {name} not finite")
+            if bf16 and name in ("dx", "db", "dc"):
+                ulps[name] = bf16_grad_ulps(g_, e)
+            else:
+                rel[name] = float((g_.float() - e.float()).abs().max()) \
+                    / max(float(e.float().abs().max()), 1e-30)
+        key = "bf16" if bf16 else "f32"
+        out[key] = {"rel_err": rel, "ulps": ulps,
+                    "kernel_host_s": kernel_s}
+        require(max(rel.values()) <= K4_BWD_TOL
+                and max(ulps.values(), default=0.0) <= BF16_BWD_ULPS,
+                f"K4 {key} backward past 65,535 rows: {rel} {ulps}")
+        del got, exp
+        saved = ops.ssd_fwd_cuda(*args, chunk=q)[2]
+        t = timed(lambda: ops.ssd_bwd_cuda(*args, cot, None, saved=saved,
+                                           chunk=q), reps=3)
+        out[key].update(**t, **ssd_bwd_bound(args, cot, saved, q, bf16))
+        del saved
     torch.cuda.empty_cache()
     return out
 
@@ -5750,6 +6148,36 @@ def cells_main() -> int:
     return 0
 
 
+def train_cells_main() -> int:
+    """``--train-cells``: the build, phase 2's bf16 backward cases (K3's and
+    K4's, the cells' shapes among them) and phase 14c (``TRAIN_CELLS``)
+    alone, without the ``train_4k_memory`` line (it needs phase 14b's
+    no-remat run)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _lib as lib
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip(),
+          flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device("cuda", 0)
+    emit({"phase": "build", "per_source": lib.build_all()})
+    cases, ulps, _ = check_attention_bwd_bf16(dev, lib)
+    emit({"phase": "attention_bwd_bf16_vs_plain", "tol_ulps": BF16_BWD_ULPS,
+          "max_ulps": ulps, "cases": cases})
+    cases, ulps, rel, _ = check_ssd_bwd_bf16(dev, lib)
+    emit({"phase": "ssd_bwd_bf16_vs_plain", "tol_ulps": BF16_BWD_ULPS,
+          "tol_f32": K4_BWD_TOL, "max_ulps": ulps, "max_rel_err_f32": rel,
+          "cases": cases})
+    run_train_cells(dev, lib)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5783,6 +6211,11 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0)})
+    # the pins' weights, drawn on the host while phases 1-2d run; 2d takes
+    # the last of them, before any phase that times the host
+    train_pins = (TRAIN_PINS, MAMBA2_TRAIN_PINS, WHISPER_TRAIN_PINS)
+    weights = PinWeights([pin_config(p) for p in (
+        *PINS, *BF16_PINS, *train_pins, *BF16_TRAIN_PINS)])
 
     # ---- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -5839,8 +6272,22 @@ def main() -> int:
           "max_ulps": k3d_ulps, **k3_dec})
     k4_big = check_ssd_past_2_31(dev)
     emit({"phase": "ssd_bf16_past_2_31", "tol_ulps": BF16_ULPS, **k4_big})
+    k4_rows = check_ssd_bwd_past_rows(dev)
+    emit({"phase": "ssd_bwd_past_65535_rows", "tol": K4_BWD_TOL,
+          "tol_ulps": BF16_BWD_ULPS, **k4_rows})
     k4_cells = time_ssd_cells(dev)
     emit({"phase": "ssd_bf16_cell_times", **k4_cells})
+
+    # ---- 2d. the JAX reference's pins: serving, bf16 serving, training -----
+    for pin in PINS:
+        check_pin(pin, dev, lib, weights)
+    bf16_pin_ulps = max(check_bf16_pin(pin, dev, lib, weights)
+                        for pin in BF16_PINS)
+    for pin in train_pins:
+        check_train_pins(dev, pin, weights)
+    for pin in BF16_TRAIN_PINS:
+        check_bf16_train_pins(dev, pin, weights)
+    weights.close()
 
     # ---- 3. the main path: resnet50 on 8×8 -------------------------------
     cfg = SlothConfig(recorder_impl="batched")
@@ -5996,10 +6443,6 @@ def main() -> int:
     require(serve_launches["mamba2-1.3b"]["flash_attention"] == 0,
             "mamba2-1.3b launched attention")
 
-    # ---- 8. against the JAX reference's pins -------------------------------
-    for pin in PINS:
-        check_pin(pin, dev, lib)
-
     # ---- 9. K3 and K4 at the serving shapes ---------------------------------
     rng = np.random.default_rng(11)
 
@@ -6053,7 +6496,7 @@ def main() -> int:
     for arch, n_layers in SERVE_RUNS:
         profile_serving(arch, dev, n_layers)
 
-    # ---- 9b. bf16 serving: K3 and K4 in bf16, yi-34b whole, pins ----------
+    # ---- 9b. bf16 serving: K3 and K4 in bf16, yi-34b whole -----------------
     k3_bf16, k4_bf16 = time_bf16_kernels(dev)
     emit({"phase": "serving_kernel_times_bf16", "card": card,
           **{f"flash_attention_bf16_{key}": t for key, t in k3_bf16.items()},
@@ -6067,7 +6510,6 @@ def main() -> int:
     bf16_launches = {}
     for arch in SERVE_BF16_RUNS:
         bf16_launches[arch], _ = serve_bf16_run(arch, dev, lib)
-    bf16_pin_ulps = max(check_bf16_pin(pin, dev, lib) for pin in BF16_PINS)
 
     # ---- 9c. the reference's serving cells: prefill_32k, decode_32k, long_500k
     cells = run_serve_cells(dev, lib)
@@ -6106,10 +6548,7 @@ def main() -> int:
     train_mamba2 = train_mamba2_run(dev, lib)
     profile_train_step(dev, "mamba2-1.3b")
 
-    # ---- 13-14. the reference's pins; the CI smoke and crash-resume ---------
-    check_train_pins(dev, TRAIN_PINS)
-    check_train_pins(dev, MAMBA2_TRAIN_PINS)
-    check_train_pins(dev, WHISPER_TRAIN_PINS)
+    # ---- 14. the CI smoke and crash-resume ----------------------------------
     train_ci_smoke_and_resume(dev)
 
     # ---- 14b. bf16 training: the reference's plan through make_train_step
@@ -6118,14 +6557,10 @@ def main() -> int:
         dev, lib, arch, n_layers, steps,
         no_remat_steps=BF16_NO_REMAT_STEPS.get(arch, 0))
         for arch, n_layers, steps in BF16_TRAIN_RUNS}
-    for pin in BF16_TRAIN_PINS:
-        check_bf16_train_pins(dev, pin)
     emit({"phase": "train_bf16_wall_s", "seconds": time.perf_counter() - t0})
 
-    # ---- 14c. the reference's train_4k sequence: danube whole, 4 × 4,096 --
-    t0 = time.perf_counter()
-    train_4k = train_4k_run(dev, lib, train_bf16[TRAIN_4K["arch"]])
-    emit({"phase": "train_4k_wall_s", "seconds": time.perf_counter() - t0})
+    # ---- 14c. the reference's train_4k cell under each arch's default plan
+    train_cells = run_train_cells(dev, lib, train_bf16)
 
     # ---- 15. pod telemetry: the 16x16 pod, both recorder impls --------------
     k1_pod = run_pod_phase(dev, lib)
@@ -6227,8 +6662,10 @@ def main() -> int:
                                    for arch, n in bf16_launches.items()},
          "launches_by_train_run": {
              arch: r["launches"]["flash_attention_bf16_prefill"]
-             for arch, r in train_bf16.items()}
-         | {"train_4k": train_4k["launches"]["flash_attention_bf16_prefill"]},
+             for arch, r in train_bf16.items()},
+         "launches_by_train_cell": {
+             arch: c["launches"]["flash_attention_bf16_prefill"]
+             for arch, c in train_cells.items()},
          "launches_by_serve_cell": {
              key: {k: n for k, n in c["launches"].items()
                    if k.startswith("flash_attention_bf16")}
@@ -6258,6 +6695,10 @@ def main() -> int:
          "launches": bf16_launches["mamba2-1.3b"]["ssd_scan_bf16"],
          "launches_by_train_run": {arch: r["launches"]["ssd_scan_bf16"]
                                    for arch, r in train_bf16.items()},
+         "launches_by_train_cell": {
+             arch: c["launches"]["ssd_scan_bf16"]
+             for arch, c in train_cells.items()
+             if c["launches"]["ssd_scan_bf16"]},
          "launches_by_serve_cell": {
              key: c["launches"]["ssd_scan_bf16"]
              for key, c in cells.items()
@@ -6302,6 +6743,7 @@ def main() -> int:
                   if fn.startswith("ssd_bwd_") and "_bf16_" not in fn
                   and "_hopper_" not in fn},
          "plain_is": "ssd_bwd_ref (the kernel's algebra in torch)",
+         "past_65535_rows": k4_rows["f32"],
          "autograd_through_plain_ms": k4_bwd["autograd_through_plain_ms"],
          "autograd_is": "torch autograd through ssd_ref: a composite of "
                         "torch ops, not one library call",
@@ -6316,8 +6758,10 @@ def main() -> int:
                          for r in train_bf16.values()),
          "launches_by_train_run": {
              arch: r["launches"]["flash_attention_bf16_bwd"]
-             for arch, r in train_bf16.items()}
-         | {"train_4k": train_4k["launches"]["flash_attention_bf16_bwd"]},
+             for arch, r in train_bf16.items()},
+         "launches_by_train_cell": {
+             arch: c["launches"]["flash_attention_bf16_bwd"]
+             for arch, c in train_cells.items()},
          "max_abs_err": max(k3bb_err, *(t["max_abs_err"]
                                         for t in k3_bwd_bf16.values())),
          "max_ulps": max(k3bb_ulps, *(t["max_ulps_vs_plain"]
@@ -6343,6 +6787,11 @@ def main() -> int:
                          for r in train_bf16.values()),
          "launches_by_train_run": {arch: r["launches"]["ssd_scan_bf16_bwd"]
                                    for arch, r in train_bf16.items()},
+         "launches_by_train_cell": {
+             arch: c["launches"]["ssd_scan_bf16_bwd"]
+             for arch, c in train_cells.items()
+             if c["launches"]["ssd_scan_bf16_bwd"]},
+         "past_65535_rows": k4_rows["bf16"],
          "max_abs_err": max(k4bb_err, k4_bwd_bf16["max_abs_err"]),
          "max_ulps": max(k4bb_ulps, k4_bwd_bf16["max_ulps_vs_plain"]),
          "max_rel_err_f32": k4bb_rel,
@@ -6387,4 +6836,6 @@ if __name__ == "__main__":
         sys.exit(k3_bwd_ablations_main())
     if sys.argv[1:2] == ["--cells"]:
         sys.exit(cells_main())
+    if sys.argv[1:2] == ["--train-cells"]:
+        sys.exit(train_cells_main())
     sys.exit(main())

@@ -177,14 +177,18 @@ __device__ __forceinline__ void chunk_cumsum(const float* dt_s, float* cum_s,
   }
 }
 
-// The forward's grids are one-dimensional in x over (tile, row), the row
-// a (chunk, head or group) pair, and z over the batch: block x is
-// row * tiles + tile, so the blocks run in the order of a (tiles, rows)
-// grid, while chunks x heads may pass a grid's y limit of 65,535
-// (mamba2-1.3b's 524,288-token prefill: 4,096 chunks x 64 heads).
-__device__ __forceinline__ void tile_row(int tiles, int& tile, int& row) {
-  tile = blockIdx.x % tiles;
-  row = blockIdx.x / tiles;
+// Every grid of the forward and the backward is one-dimensional in x: the
+// kernel indexes an (nx, ny, nz) grid, (tile, chunk and head or group,
+// batch) as a rule, and block x is (z * ny + y) * nx + x.  The blocks run
+// in the order of that grid, while chunks x heads may pass a grid's y
+// limit of 65,535 (mamba2-1.3b's 524,288-token prefill: 4,096 chunks x 64
+// heads) and the batch its z limit.  flat() is the host's side.
+struct Blk {
+  int x, y, z;
+};
+__device__ __forceinline__ Blk grid_block(int nx, int ny) {
+  const int i = blockIdx.x, r = i / nx;
+  return {i - r * nx, r % ny, r / ny};
 }
 
 // 1. cbt[b,c,g][j][i] = B_j . C_i for the tile pair (jt <= it).
@@ -195,14 +199,13 @@ __global__ void __launch_bounds__(NT) ssd_scores_kernel(
   __shared__ __align__(16) float sb[TILE * RS];
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int nt = (Q + TILE - 1) / TILE;
-  int jt, row;
-  tile_row(nt * (nt + 1) / 2, jt, row);  // the tile enumerates (jt <= it)
-  int it = 0;
+  const Blk blk = grid_block(nt * (nt + 1) / 2, nc * G);
+  int jt = blk.x, it = 0;  // the tile enumerates (jt <= it)
   while (jt > it) {
     jt -= it + 1;
     ++it;
   }
-  const int c = row % nc, g = row / nc, b = blockIdx.z;
+  const int c = blk.y % nc, g = blk.y / nc, b = blk.z;
   const int t0 = c * Q, nl = min(Q, S - t0);
   const int j0 = jt * TILE, i0 = it * TILE;
   float acc[4][4] = {};
@@ -246,9 +249,8 @@ __global__ void __launch_bounds__(NT) ssd_chunk_kernel(
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int n_pt = (P + TILE - 1) / TILE;
   const int n_yt = (Q + TILE - 1) / TILE * n_pt;
-  int tile, row;
-  tile_row(n_yt + n_pt * ((N + TILE - 1) / TILE), tile, row);
-  const int c = row % nc, h = row / nc, b = blockIdx.z;
+  const Blk blk = grid_block(n_yt + n_pt * ((N + TILE - 1) / TILE), nc * H);
+  const int tile = blk.x, c = blk.y % nc, h = blk.y / nc, b = blk.z;
   const int g = h / (H / G);
   const int t0 = c * Q, nl = min(Q, S - t0);
   const size_t ch = (size_t)(b * nc + c) * H + h;  // (batch, chunk, head)
@@ -337,8 +339,8 @@ __global__ void __launch_bounds__(NT_STATE) ssd_state_kernel(
     const float* __restrict__ init_state, const float* __restrict__ cum,
     float* __restrict__ states, float* __restrict__ state_out, int H, int PN,
     int Q, int nc) {
-  const int e = blockIdx.x * NT_STATE + threadIdx.x, h = blockIdx.y,
-            b = blockIdx.z;
+  const Blk blk = grid_block((PN + NT_STATE - 1) / NT_STATE, H);
+  const int e = blk.x * NT_STATE + threadIdx.x, h = blk.y, b = blk.z;
   if (e >= PN) return;
   const size_t bh = (size_t)b * H + h;
   float s = init_state ? init_state[bh * PN + e] : 0.0f;
@@ -376,9 +378,8 @@ __global__ void __launch_bounds__(NT, 5)
   __shared__ __align__(16) float sa[TILE * RS];
   __shared__ __align__(16) float sb[TILE * RS];
   const int n_pt = (P + TILE - 1) / TILE;
-  int tile, row;
-  tile_row((Q + TILE - 1) / TILE * n_pt, tile, row);
-  const int c = row % nc, h = row / nc, b = blockIdx.z;
+  const Blk blk = grid_block((Q + TILE - 1) / TILE * n_pt, nc * H);
+  const int tile = blk.x, c = blk.y % nc, h = blk.y / nc, b = blk.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int g = h / (H / G);
   const int t0 = c * Q, nl = min(Q, S - t0);
@@ -703,10 +704,10 @@ __global__ void __launch_bounds__(TT) ssd_scores_bf16_kernel(
     float* __restrict__ cbt, int S, int G, int N, int Q, int nc) {
   extern __shared__ __align__(16) float smem[];
   const int nt = (Q + TILE - 1) / TILE;
-  int pair, row, jt, it;
-  tile_row(nt * (nt + 1) / 2, pair, row);
-  tile_pair(pair, jt, it);
-  const int c = row % nc, g = row / nc, b = blockIdx.z;
+  const Blk blk = grid_block(nt * (nt + 1) / 2, nc * G);
+  int jt, it;
+  tile_pair(blk.x, jt, it);
+  const int c = blk.y % nc, g = blk.y / nc, b = blk.z;
   const int t0 = c * Q, nl = min(Q, S - t0);
   const int j0 = jt * TILE, i0 = it * TILE;
   const size_t gn = (size_t)G * N;
@@ -752,10 +753,9 @@ __global__ void __launch_bounds__(TT) ssd_chunk_state_bf16_kernel(
   float* cum_s = dt_s + MAX_Q;
   float* w_s = cum_s + MAX_Q;
   const int n_nt = (N + TILE - 1) / TILE;
-  int tile, row;
-  tile_row((P + TILE - 1) / TILE * n_nt, tile, row);
-  const int p0 = tile / n_nt * TILE, n0 = tile % n_nt * TILE;
-  const int c = row % nc, h = row / nc, b = blockIdx.z;
+  const Blk blk = grid_block((P + TILE - 1) / TILE * n_nt, nc * H);
+  const int tile = blk.x, p0 = tile / n_nt * TILE, n0 = tile % n_nt * TILE;
+  const int c = blk.y % nc, h = blk.y / nc, b = blk.z;
   const int g = h / (H / G), t0 = c * Q, nl = min(Q, S - t0);
   const size_t ch = (size_t)(b * nc + c) * H + h, row0 = (size_t)b * S + t0;
   for (int j = threadIdx.x; j < Q; j += TT)
@@ -815,10 +815,9 @@ __global__ void __launch_bounds__(TT) ssd_output_bf16_kernel(
   float* cum_s = smem + RING_FLOATS;
   float* dt_s = cum_s + MAX_Q;
   const int n_pt = (P + TILE - 1) / TILE;
-  int tile, row;
-  tile_row((Q + TILE - 1) / TILE * n_pt, tile, row);
-  const int i0 = tile / n_pt * TILE, p0 = tile % n_pt * TILE;
-  const int c = row % nc, h = row / nc, b = blockIdx.z;
+  const Blk blk = grid_block((Q + TILE - 1) / TILE * n_pt, nc * H);
+  const int i0 = blk.x / n_pt * TILE, p0 = blk.x % n_pt * TILE;
+  const int c = blk.y % nc, h = blk.y / nc, b = blk.z;
   const int g = h / (H / G), t0 = c * Q, nl = min(Q, S - t0);
   if (i0 >= nl) return;
   const size_t ch = (size_t)(b * nc + c) * H + h, row0 = (size_t)b * S + t0;
@@ -1016,8 +1015,9 @@ __device__ __forceinline__ void bwd_agg(const T* __restrict__ cm,
   constexpr int LK = Lay<T>::K;
   float* ec = smem + RING_FLOATS;  // exp(cum_i), 0 past the chunk's end
   const int n_nt = (N + TILE - 1) / TILE;
-  const int p0 = blockIdx.x / n_nt * TILE, n0 = blockIdx.x % n_nt * TILE;
-  const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
+  const Blk blk = grid_block((P + TILE - 1) / TILE * n_nt, nc * H);
+  const int p0 = blk.x / n_nt * TILE, n0 = blk.x % n_nt * TILE;
+  const int c = blk.y % nc, h = blk.y / nc, b = blk.z;
   const int g = h / (H / G), t0 = c * Q, nl = min(Q, S - t0);
   const size_t ch = (size_t)(b * nc + c) * H + h, row0 = (size_t)b * S + t0;
   for (int i = threadIdx.x; i < MAX_Q; i += TT)
@@ -1094,11 +1094,13 @@ __device__ __forceinline__ void bwd_dm(
   float* cu_j = cu_i + rep * TILE;  // cum over the column tile
   float* dt_j = cu_j + rep * TILE;  // dt over the column tile
   float* red = dt_j + rep * TILE;
+  const int n_qt = (Q + TILE - 1) / TILE;
+  const Blk blk = grid_block(n_qt * (n_qt + 1) / 2, nc * G);
   int jt, it;
-  tile_pair(blockIdx.x, jt, it);
+  tile_pair(blk.x, jt, it);
   const int i0 = it * TILE, j0 = jt * TILE;
-  const int c = blockIdx.y % nc, g = blockIdx.y / nc, b = blockIdx.z;
-  const int t0 = c * Q, nl = min(Q, S - t0), n_qt = (Q + TILE - 1) / TILE;
+  const int c = blk.y % nc, g = blk.y / nc, b = blk.z;
+  const int t0 = c * Q, nl = min(Q, S - t0);
   const size_t ch0 = (size_t)(b * nc + c) * H + g * rep;  // head 0 of g
   const size_t row0 = (size_t)b * S + t0;
   const float* mg = cbt + ((size_t)(b * nc + c) * G + g) * Q * Q;
@@ -1210,8 +1212,8 @@ __global__ void __launch_bounds__(NT_STATE) ssd_bwd_state_kernel(
     const float* __restrict__ dstate, const float* __restrict__ cum,
     float* __restrict__ hat, float* __restrict__ dinit, int H, int PN,
     int Q, int nc) {
-  const int e = blockIdx.x * NT_STATE + threadIdx.x, h = blockIdx.y,
-            b = blockIdx.z;
+  const Blk blk = grid_block((PN + NT_STATE - 1) / NT_STATE, H);
+  const int e = blk.x * NT_STATE + threadIdx.x, h = blk.y, b = blk.z;
   if (e >= PN) return;
   const size_t bh = (size_t)b * H + h;
   float s = dstate ? dstate[bh * PN + e] : 0.0f;
@@ -1251,11 +1253,11 @@ __device__ __forceinline__ void dcdb_tile(
     const float* __restrict__ states, const float* __restrict__ hat,
     const float* __restrict__ dm, T* __restrict__ out,
     float* __restrict__ dcs, int S, int H, int P, int G, int N, int Q,
-    int nc, int tile, float* smem) {
+    int nc, Blk blk, int tile, float* smem) {
   constexpr int LK = Lay<T>::K, LR = Lay<T>::R, LM = Lay<T>::M;
   const int rep = H / G, n_nt = (N + TILE - 1) / TILE;
   const int r0 = tile / n_nt * TILE, n0 = tile % n_nt * TILE;
-  const int c = blockIdx.y % nc, g = blockIdx.y / nc, b = blockIdx.z;
+  const int c = blk.y % nc, g = blk.y / nc, b = blk.z;
   const int t0 = c * Q, nl = min(Q, S - t0);
   if (r0 >= nl) return;
   const size_t ch0 = (size_t)(b * nc + c) * H + g * rep;
@@ -1369,12 +1371,13 @@ __device__ __forceinline__ void bwd_dcdb(
     float* __restrict__ dcs, int S, int H, int P, int G, int N, int Q,
     int nc, float* smem) {
   const int per = (Q + TILE - 1) / TILE * ((N + TILE - 1) / TILE);
-  if ((int)blockIdx.x < per)
+  const Blk blk = grid_block(2 * per, nc * G);
+  if (blk.x < per)
     dcdb_tile<false>(x, dt, bm, cm, dy, cum, states, hat, dm, dc, dcs, S, H,
-                     P, G, N, Q, nc, blockIdx.x, smem);
+                     P, G, N, Q, nc, blk, blk.x, smem);
   else
     dcdb_tile<true>(x, dt, bm, cm, dy, cum, states, hat, dm, db, dcs, S, H,
-                    P, G, N, Q, nc, blockIdx.x - per, smem);
+                    P, G, N, Q, nc, blk, blk.x - per, smem);
 }
 
 __global__ void __launch_bounds__(TT) ssd_bwd_dcdb_kernel(
@@ -1419,9 +1422,10 @@ __device__ __forceinline__ void bwd_du(
   float* dt_s = cum_s + MAX_Q;
   float* red = dt_s + MAX_Q;
   const int n_pt = (P + TILE - 1) / TILE;
-  const int pt = blockIdx.x % n_pt;
-  const int j0 = blockIdx.x / n_pt * TILE, p0 = pt * TILE;
-  const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
+  const Blk blk = grid_block((Q + TILE - 1) / TILE * n_pt, nc * H);
+  const int pt = blk.x % n_pt;
+  const int j0 = blk.x / n_pt * TILE, p0 = pt * TILE;
+  const int c = blk.y % nc, h = blk.y / nc, b = blk.z;
   const int g = h / (H / G), t0 = c * Q, nl = min(Q, S - t0);
   if (j0 >= nl) return;
   const size_t ch = (size_t)(b * nc + c) * H + h, row0 = (size_t)b * S + t0;
@@ -1540,7 +1544,8 @@ __global__ void __launch_bounds__(TT) ssd_bwd_dcum_kernel(
     int N, int Q, int nc) {
   __shared__ float dt_s[MAX_Q], dc_s[MAX_Q], w_s[MAX_Q], xd_s[MAX_Q],
       dl_s[MAX_Q], part[TT / 32];
-  const int c = blockIdx.x % nc, h = blockIdx.x / nc, b = blockIdx.y;
+  const Blk blk = grid_block(nc, H);
+  const int c = blk.x, h = blk.y, b = blk.z;
   const int t0 = c * Q, nl = min(Q, S - t0);
   const int n_qt = (Q + TILE - 1) / TILE, n_nt = (N + TILE - 1) / TILE,
             n_pt = (P + TILE - 1) / TILE;
@@ -1616,6 +1621,14 @@ static cudaError_t smem_for(K kernel, size_t extra, size_t* bytes) {
                               (int)*bytes);
 }
 
+// The one-dimensional grid of an (nx, ny, nz) grid (grid_block is the
+// kernels' side); an empty grid, which fails to launch, past x's limit of
+// 2^31 - 1 blocks.
+static dim3 flat(long long nx, long long ny, long long nz) {
+  const long long n = nx * ny * nz;
+  return dim3(n < (1LL << 31) ? (unsigned)n : 0u);
+}
+
 #define CHECK(x)                                  \
   do {                                            \
     const cudaError_t e_ = (x);                   \
@@ -1637,9 +1650,10 @@ size_t ssd_scan_scratch_floats(int B, int S, int H, int P, int G, int N,
 // synchronise, returns the first cudaGetLastError() that is not success.
 // All pointers are device memory, row-major f32; init_state may be null (a
 // zero state); scratch holds ssd_scan_scratch_floats(...) floats.  Needs
-// 1 <= Q <= 128, H a multiple of G, and B within a grid's z limit (the
-// wrapper checks).  Offsets into x, y and the scratch are 64-bit: x may
-// hold more than 2^31 elements.
+// 1 <= Q <= 128 and H a multiple of G; any batch and number of chunks
+// whose grids stay within 2^31 - 1 blocks (flat(): a launch error past
+// it).  Offsets into x, y and the scratch are 64-bit: x may hold more than
+// 2^31 elements.
 int ssd_scan(const float* x, const float* dt, const float* a, const float* b,
              const float* c, const float* init_state, float* y,
              float* state_out, float* scratch, int B, int S, int H, int P,
@@ -1651,18 +1665,19 @@ int ssd_scan(const float* x, const float* dt, const float* a, const float* b,
   float* cbt = scratch;
   float* cum = cbt + (size_t)B * nc * G * Q * Q;
   float* states = cum + (size_t)B * nc * H * Q;
-  ssd_scores_kernel<<<dim3(nt * (nt + 1) / 2 * nc * G, 1, B), NT, 0, st>>>(
+  ssd_scores_kernel<<<flat(nt * (nt + 1) / 2, (long long)nc * G, B), NT,
+                      0, st>>>(
       b, c, cbt, S, G, N, Q, nc);
   CHECK(cudaGetLastError());
-  ssd_chunk_kernel<<<dim3((nt * n_pt + n_pt * n_nt) * nc * H, 1, B), NT, 0,
-                     st>>>(x, dt, a, b, cbt, y, cum, states, S, H, P, G, N,
-                           Q, nc);
+  ssd_chunk_kernel<<<flat(nt * n_pt + n_pt * n_nt, (long long)nc * H, B),
+                     NT, 0, st>>>(x, dt, a, b, cbt, y, cum, states, S, H,
+                                  P, G, N, Q, nc);
   CHECK(cudaGetLastError());
-  ssd_state_kernel<<<dim3((P * N + NT_STATE - 1) / NT_STATE, H, B),
+  ssd_state_kernel<<<flat((P * N + NT_STATE - 1) / NT_STATE, H, B),
                      NT_STATE, 0, st>>>(
       init_state, cum, states, state_out, H, P * N, Q, nc);
   CHECK(cudaGetLastError());
-  ssd_inter_kernel<<<dim3(nt * n_pt * nc * H, 1, B), NT, 0, st>>>(
+  ssd_inter_kernel<<<flat(nt * n_pt, (long long)nc * H, B), NT, 0, st>>>(
       c, cum, states, y, S, H, P, G, N, Q, nc);
   return (int)cudaGetLastError();
 }
@@ -1684,20 +1699,21 @@ int ssd_scan_bf16(const bf16* x, const float* dt, const float* a,
   CHECK(smem_for(ssd_scores_bf16_kernel, 0, &sm_scores));
   CHECK(smem_for(ssd_chunk_state_bf16_kernel, 3 * MAX_Q, &sm_chunk));
   CHECK(smem_for(ssd_output_bf16_kernel, 2 * MAX_Q, &sm_out));
-  ssd_scores_bf16_kernel<<<dim3(nt * (nt + 1) / 2 * nc * G, 1, B), TT,
-                           sm_scores, st>>>(b, c, cbt, S, G, N, Q, nc);
+  ssd_scores_bf16_kernel<<<flat(nt * (nt + 1) / 2, (long long)nc * G, B),
+                           TT, sm_scores, st>>>(b, c, cbt, S, G, N, Q, nc);
   CHECK(cudaGetLastError());
-  ssd_chunk_state_bf16_kernel<<<dim3(n_pt * n_nt * nc * H, 1, B), TT,
-                                sm_chunk, st>>>(x, dt, a, b, cum, states, S,
-                                                H, P, G, N, Q, nc);
+  ssd_chunk_state_bf16_kernel<<<flat(n_pt * n_nt, (long long)nc * H, B),
+                                TT, sm_chunk, st>>>(x, dt, a, b, cum,
+                                                    states, S, H, P, G, N,
+                                                    Q, nc);
   CHECK(cudaGetLastError());
-  ssd_state_kernel<<<dim3((P * N + NT_STATE - 1) / NT_STATE, H, B),
+  ssd_state_kernel<<<flat((P * N + NT_STATE - 1) / NT_STATE, H, B),
                      NT_STATE, 0, st>>>(
       init_state, cum, states, state_out, H, P * N, Q, nc);
   CHECK(cudaGetLastError());
-  ssd_output_bf16_kernel<<<dim3(nt * n_pt * nc * H, 1, B), TT, sm_out,
-                           st>>>(x, dt, c, cbt, cum, states, y, S, H, P, G,
-                                 N, Q, nc);
+  ssd_output_bf16_kernel<<<flat(nt * n_pt, (long long)nc * H, B), TT,
+                           sm_out, st>>>(x, dt, c, cbt, cum, states, y, S,
+                                         H, P, G, N, Q, nc);
   return (int)cudaGetLastError();
 }
 
@@ -1747,24 +1763,24 @@ static int backward(const T* x, const float* dt, const float* a, const T* b,
   CHECK(smem_for(dm_k, TILE * MT + 3 * rep * TILE + 2 * TILE, &sm_dm));
   CHECK(smem_for(dcdb_k, rep * TILE + TILE * MT + 2 * TILE, &sm_dcdb));
   CHECK(smem_for(du_k, 2 * MAX_Q + 2 * TILE, &sm_du));
-  agg_k<<<dim3(n_pt * n_nt, nc * H, B), TT, sm_agg, st>>>(
+  agg_k<<<flat(n_pt * n_nt, (long long)nc * H, B), TT, sm_agg, st>>>(
       c, dy, cum, hat, S, H, P, G, N, Q, nc);
   CHECK(cudaGetLastError());
-  dm_k<<<dim3(nt * (nt + 1) / 2, nc * G, B), TT, sm_dm, st>>>(
+  dm_k<<<flat(nt * (nt + 1) / 2, (long long)nc * G, B), TT, sm_dm, st>>>(
       x, dt, dy, cbt, cum, dm, rpart, cpart, S, H, P, G, Q, nc);
   CHECK(cudaGetLastError());
-  ssd_bwd_state_kernel<<<dim3((P * N + NT_STATE - 1) / NT_STATE, H, B),
+  ssd_bwd_state_kernel<<<flat((P * N + NT_STATE - 1) / NT_STATE, H, B),
                          NT_STATE, 0, st>>>(dstate, cum, hat, dinit, H,
                                             P * N, Q, nc);
   CHECK(cudaGetLastError());
-  dcdb_k<<<dim3(2 * nt * n_nt, nc * G, B), TT, sm_dcdb, st>>>(
+  dcdb_k<<<flat(2 * nt * n_nt, (long long)nc * G, B), TT, sm_dcdb, st>>>(
       x, dt, b, c, dy, cum, states, hat, dm, db, dc, dcs, S, H, P, G, N, Q,
       nc);
   CHECK(cudaGetLastError());
-  du_k<<<dim3(nt * n_pt, nc * H, B), TT, sm_du, st>>>(
+  du_k<<<flat(nt * n_pt, (long long)nc * H, B), TT, sm_du, st>>>(
       x, dt, b, dy, cbt, cum, hat, dx, xdpart, wpart, S, H, P, G, N, Q, nc);
   CHECK(cudaGetLastError());
-  ssd_bwd_dcum_kernel<<<dim3(nc * H, B), TT, 0, st>>>(
+  ssd_bwd_dcum_kernel<<<flat(nc, H, B), TT, 0, st>>>(
       dt, a, cum, states, hat, rpart, cpart, dcs, xdpart, wpart, ddt, dapart,
       S, H, P, N, Q, nc);
   CHECK(cudaGetLastError());
@@ -2146,7 +2162,8 @@ __global__ void __launch_bounds__(HTH, 1) ssd_bwd_agg_hopper_kernel(
   extern __shared__ __align__(1024) unsigned char hraw[];
   unsigned char* sm = smem_base(hraw);
   const int rep = H / G, nt = (Q + TILE - 1) / TILE, nsl = (N + 63) / 64;
-  const int c = blockIdx.x % nc, g = blockIdx.x / nc, b = blockIdx.y;
+  const Blk blk = grid_block(nc, G);
+  const int c = blk.x, g = blk.y, b = blk.z;
   const int t0 = c * Q, nl = min(Q, S - t0);
   // C [row tile][slab], the ring, two part buffers of two row tiles
   unsigned char* ct = sm;
@@ -2245,10 +2262,11 @@ __global__ void __launch_bounds__(HTH, 3) ssd_bwd_dm_hopper_kernel(
   extern __shared__ __align__(1024) unsigned char hraw[];
   unsigned char* sm = smem_base(hraw);
   const int rep = H / G, n_qt = (Q + TILE - 1) / TILE;
+  const Blk blk = grid_block(n_qt * (n_qt + 1) / 2, nc * G);
   int jt, it;
-  tile_pair(blockIdx.x, jt, it);
+  tile_pair(blk.x, jt, it);
   const int i0 = it * TILE, j0 = jt * TILE;
-  const int c = blockIdx.y % nc, g = blockIdx.y / nc, b = blockIdx.z;
+  const int c = blk.y % nc, g = blk.y / nc, b = blk.z;
   const int t0 = c * Q, nl = min(Q, S - t0);
   float* mt = reinterpret_cast<float*>(sm + DM_STAGES * 2 * TBYTES);
   float* cu_i = mt + TILE * DM_MS;  // [rep][64]
@@ -2401,12 +2419,12 @@ __device__ __forceinline__ void dcdb_hopper(
     const CUtensorMap* tm_mats, const float* __restrict__ dt,
     const float* __restrict__ cum, bf16* __restrict__ out,
     float* __restrict__ dcs, int S, int H, int P, int G, int N, int Q,
-    int nc, int rt, int ntile) {
+    int nc, Blk blk, int rt, int ntile) {
   extern __shared__ __align__(1024) unsigned char hraw[];
   unsigned char* sm = smem_base(hraw);
   const int rep = H / G, n_nt = (N + 63) / 64;
   const int r0 = rt * TILE, n0 = ntile * 64;
-  const int c = blockIdx.y % nc, g = blockIdx.y / nc, b = blockIdx.z;
+  const int c = blk.y % nc, g = blk.y / nc, b = blk.z;
   const int t0 = c * Q, nl = min(Q, S - t0);
   if (r0 >= nl) return;
   // dM's contraction: j in [0, min(nl, r0 + 64)) for dC, i in [r0, nl)
@@ -2541,13 +2559,15 @@ __global__ void __launch_bounds__(HTH, 2) ssd_bwd_dcdb_hopper_kernel(
     bf16* __restrict__ dc, float* __restrict__ dcs, int S, int H, int P,
     int G, int N, int Q, int nc) {
   const int nt = (Q + TILE - 1) / TILE, n_nt = (N + 63) / 64;
-  const int per = nt * n_nt, x = blockIdx.x % per;
-  if ((int)blockIdx.x < per)
+  const int per = nt * n_nt;
+  const Blk blk = grid_block(2 * per, nc * G);
+  const int x = blk.x % per;
+  if (blk.x < per)
     dcdb_hopper<false>(&tm_dy, &tm_b, &tm_c, &tm_dm, &tm_states, dt, cum, dc,
-                       dcs, S, H, P, G, N, Q, nc, x / n_nt, x % n_nt);
+                       dcs, S, H, P, G, N, Q, nc, blk, x / n_nt, x % n_nt);
   else
     dcdb_hopper<true>(&tm_x, &tm_c, &tm_c, &tm_dm, &tm_hat, dt, cum, db, dcs,
-                      S, H, P, G, N, Q, nc, x / n_nt, x % n_nt);
+                      S, H, P, G, N, Q, nc, blk, x / n_nt, x % n_nt);
 }
 
 // 4. 64 rows (j0..) of du = (M o E)^T dy + exp(cum_end - cum_j) B Shat^T
@@ -2568,8 +2588,9 @@ __global__ void __launch_bounds__(HTH, 2) ssd_bwd_du_hopper_kernel(
     int nc) {
   extern __shared__ __align__(1024) unsigned char hraw[];
   unsigned char* sm = smem_base(hraw);
-  const int j0 = blockIdx.x * TILE;
-  const int c = blockIdx.y % nc, h = blockIdx.y / nc, b = blockIdx.z;
+  const Blk blk = grid_block((Q + TILE - 1) / TILE, nc * H);
+  const int j0 = blk.x * TILE;
+  const int c = blk.y % nc, h = blk.y / nc, b = blk.z;
   const int g = h / (H / G), t0 = c * Q, nl = min(Q, S - t0);
   if (j0 >= nl) return;
   const int n1 = (nl - j0 + 63) / 64, n2 = (N + 63) / 64;
@@ -2819,26 +2840,30 @@ static int backward_bf16_hopper(const bf16* x, const float* dt,
   CHECK(allow_smem(ssd_bwd_dm_hopper_kernel, sm_dm));
   CHECK(allow_smem(ssd_bwd_dcdb_hopper_kernel, sm_dcdb));
   CHECK(allow_smem(ssd_bwd_du_hopper_kernel, sm_du));
-  ssd_bwd_agg_hopper_kernel<<<dim3(nc * G, B), HTH, sm_agg, st>>>(
+  ssd_bwd_agg_hopper_kernel<<<flat(nc, G, B), HTH, sm_agg, st>>>(
       tdy, tc, cum, hat, S, H, P, G, N, Q, nc);
   CHECK(cudaGetLastError());
-  ssd_bwd_dm_hopper_kernel<<<dim3(nt * (nt + 1) / 2, nc * G, B), HTH, sm_dm,
-                             st>>>(tx, tdy, dt, cbt, cum, dm, rpart, cpart,
-                                   S, H, P, G, Q, nc);
+  ssd_bwd_dm_hopper_kernel<<<flat(nt * (nt + 1) / 2, (long long)nc * G, B),
+                             HTH, sm_dm, st>>>(tx, tdy, dt, cbt, cum, dm,
+                                               rpart, cpart, S, H, P, G, Q,
+                                               nc);
   CHECK(cudaGetLastError());
-  ssd_bwd_state_kernel<<<dim3((P * N + NT_STATE - 1) / NT_STATE, H, B),
+  ssd_bwd_state_kernel<<<flat((P * N + NT_STATE - 1) / NT_STATE, H, B),
                          NT_STATE, 0, st>>>(dstate, cum, hat, dinit, H,
                                             P * N, Q, nc);
   CHECK(cudaGetLastError());
-  ssd_bwd_dcdb_hopper_kernel<<<dim3(2 * nt * n_nt, nc * G, B), HTH, sm_dcdb,
-                               st>>>(tx, tdy, tb, tc, tdm, tstates, that, dt,
-                                     cum, db, dc, dcs, S, H, P, G, N, Q, nc);
+  ssd_bwd_dcdb_hopper_kernel<<<flat(2 * nt * n_nt, (long long)nc * G, B),
+                               HTH, sm_dcdb, st>>>(tx, tdy, tb, tc, tdm,
+                                                   tstates, that, dt, cum,
+                                                   db, dc, dcs, S, H, P, G,
+                                                   N, Q, nc);
   CHECK(cudaGetLastError());
-  ssd_bwd_du_hopper_kernel<<<dim3(nt, nc * H, B), HTH, sm_du, st>>>(
+  ssd_bwd_du_hopper_kernel<<<flat(nt, (long long)nc * H, B), HTH, sm_du,
+                             st>>>(
       tdy, tb, tcbt, that, x, dt, cum, dx, xdpart, wpart, S, H, P, G, N, Q,
       nc);
   CHECK(cudaGetLastError());
-  ssd_bwd_dcum_kernel<<<dim3(nc * H, B), TT, 0, st>>>(
+  ssd_bwd_dcum_kernel<<<flat(nc, H, B), TT, 0, st>>>(
       dt, a, cum, states, hat, rpart, cpart, dcs, xdpart, wpart, ddt, dapart,
       S, H, P, N, Q, nc);
   CHECK(cudaGetLastError());

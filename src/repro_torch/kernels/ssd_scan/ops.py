@@ -46,7 +46,8 @@ AUDIT = {"float_atomics": 0, "int_atomics": {}, "one_block_per": {}}
 #: Longest chunk the kernel takes (the model uses 16-128).
 MAX_CHUNK = 128
 
-#: Largest grid y and z extent of a launch.
+#: Largest grid y and z extent of a launch.  The source's grids run every
+#: axis along x, so neither chunks x heads nor the batch is held to it.
 MAX_GRID_YZ = 65_535
 
 
@@ -72,8 +73,7 @@ def _load():
 def _check(x, dt, a, b, c, chunk, named=()):
     """The kernel's input checks: x, b and c contiguous tensors of one type
     (f32 or bf16), dt, a (and each ``(name, tensor, shape)`` of ``named``
-    that is not None) contiguous f32, each of its shape on x's device, and
-    the batch within a grid's z limit."""
+    that is not None) contiguous f32, each of its shape on x's device."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     dev = x.device
@@ -100,9 +100,6 @@ def _check(x, dt, a, b, c, chunk, named=()):
         raise ValueError(f"ssd_scan: {h} heads over {g} groups")
     if x.numel() == 0 or b.numel() == 0:
         raise ValueError("ssd_scan: empty input")
-    if bsz > MAX_GRID_YZ:
-        raise ValueError(f"ssd_scan: batch {bsz} exceeds a grid's "
-                         f"{MAX_GRID_YZ}")
 
 
 def ssd_fwd_cuda(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
@@ -157,11 +154,6 @@ def ssd_bwd_cuda(x, dt, a, b, c, dy, dstate, *, saved, chunk: int = 128,
     _check(x, dt, a, b, c, chunk,
            [("init_state", init_state, (bsz, h, p, n)),
             ("dstate", dstate, (bsz, h, p, n))])
-    if -(-s // chunk) * h > MAX_GRID_YZ:
-        # the backward's grids keep (chunk, head) in y; the forward's
-        # do not
-        raise ValueError(f"ssd_scan backward: {-(-s // chunk)} chunks x {h} "
-                         f"heads exceed a grid's {MAX_GRID_YZ}")
     if dy.device != dev or dy.dtype != x.dtype \
             or tuple(dy.shape) != (bsz, s, h, p) or not dy.is_contiguous():
         raise ValueError(

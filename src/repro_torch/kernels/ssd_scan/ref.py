@@ -307,3 +307,36 @@ def ssd_bwd_ref(x, dt, a, b, c, dy, dstate, *, chunk: int = 128,
         return t_.reshape(bsz, nc * q, *t_.shape[3:])[:, :s]
     return (cut(dx).to(io_dtype), cut(ddt), da, cut(db).to(io_dtype),
             cut(dc).to(io_dtype), None if init_state is None else shat)
+
+
+def ssd_bwd_ref_segments(x, dt, a, b, c, dy, dstate, *, segment: int,
+                         chunk: int = 128, init_state=None):
+    """:func:`ssd_bwd_ref` over segments of ``segment`` tokens (a multiple
+    of ``chunk``), for sequences whose plain algebra does not fit the
+    device at once: the forward's state carried into each segment by
+    :func:`ssd_ref`, then the segments' backwards from the last, the
+    state's cotangent carried back into the one before; ``da`` summed over
+    the segments from the last.  The same ``(dx, ddt, da, db, dc, dinit)``
+    as one :func:`ssd_bwd_ref` over the whole sequence, to the order of
+    the sums across segments."""
+    if segment % chunk:
+        raise ValueError(f"segment {segment} is not a multiple of the "
+                         f"chunk {chunk}")
+    starts = range(0, x.shape[1], segment)
+
+    def part(t, i):
+        return t[:, i:i + segment].contiguous()
+    entry, st = [], init_state
+    for i in starts:
+        entry.append(st)
+        st = ssd_ref(part(x, i), part(dt, i), a, part(b, i), part(c, i),
+                     chunk=chunk, init_state=st)[1]
+    parts, da, carry = [], None, dstate
+    for i, st in reversed(list(zip(starts, entry))):
+        dx, ddt, da_i, db, dc, carry = ssd_bwd_ref(
+            part(x, i), part(dt, i), a, part(b, i), part(c, i), part(dy, i),
+            carry, chunk=chunk, init_state=st)
+        parts.append((dx, ddt, db, dc))
+        da = da_i if da is None else da + da_i
+    dx, ddt, db, dc = (torch.cat(ts[::-1], dim=1) for ts in zip(*parts))
+    return dx, ddt, da, db, dc, carry

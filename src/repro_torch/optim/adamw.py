@@ -11,9 +11,11 @@ to nearest even, as the reference's ``astype(p.dtype)`` rounds.
 Unlike the reference, which returns new arrays, :func:`apply` updates the
 parameters and the moments in place: a train step holds one copy of
 each.  It updates the leaves a group of at most :data:`GROUP_ELEMS`
-elements at a time, so the update's temporaries (about seven copies of a
-group) stay bounded whatever the model's size; each entry's arithmetic
-is the same whatever the grouping.  The step count stays a Python int, so
+elements at a time, a larger leaf in pieces of its flattened entries, so
+the update's temporaries (about seven copies of a group) stay bounded
+whatever the model's size and its largest leaf (dbrx-132b's experts:
+1.06 G entries a leaf); each entry's arithmetic is the same whatever the
+grouping.  The step count stays a Python int, so
 the schedule needs no read from the device.
 """
 
@@ -27,7 +29,8 @@ import torch
 
 
 #: Most elements (1 GiB in f32) one multi-tensor pass of :func:`apply`
-#: updates; a larger leaf is a pass of its own.
+#: updates (a larger leaf in pieces) and of the global norm takes (a
+#: larger leaf alone).
 GROUP_ELEMS = 1 << 28
 
 
@@ -111,12 +114,14 @@ def apply(params, grads, state: dict, cfg: AdamWConfig):
     b1, b2 = cfg.b1, cfg.b2
     bc1 = float(1 - np.float32(b1) ** np.float32(step))
     bc2 = float(1 - np.float32(b2) ** np.float32(step))
-    for idx in _groups(params):
-        p_grp = [params[i] for i in idx]
-        m_grp = [state["m"][i] for i in idx]
-        v_grp = [state["v"][i] for i in idx]
+    for grp in _pieces(params):
+        # views: the update writes through them
+        p_grp, m_grp, v_grp = ([t.view(-1)[lo:hi] for t, lo, hi in
+                                _take(ts, grp)]
+                               for ts in (params, state["m"], state["v"]))
         f32 = [p.float() for p in p_grp]
-        g = torch._foreach_mul([grads[i].float() for i in idx], scale)
+        g = torch._foreach_mul([t.reshape(-1)[lo:hi].float()
+                                for t, lo, hi in _take(grads, grp)], scale)
         m = [x.float() for x in m_grp]
         v = [x.float() for x in v_grp]
         m = torch._foreach_add(torch._foreach_mul(m, b1),
@@ -139,11 +144,33 @@ def apply(params, grads, state: dict, cfg: AdamWConfig):
 def _groups(params) -> list[range]:
     """Consecutive runs of leaf indices of at most :data:`GROUP_ELEMS`
     elements each (a larger leaf alone)."""
+    return _runs([p.numel() for p in params])
+
+
+def _runs(sizes) -> list[range]:
+    """Consecutive runs of indices whose sizes add to at most
+    :data:`GROUP_ELEMS` (a larger size alone)."""
     out, start, n = [], 0, 0
-    for i, p in enumerate(params):
-        if i > start and n + p.numel() > GROUP_ELEMS:
+    for i, size in enumerate(sizes):
+        if i > start and n + size > GROUP_ELEMS:
             out.append(range(start, i))
             start, n = i, 0
-        n += p.numel()
-    out.append(range(start, len(params)))
+        n += size
+    out.append(range(start, len(sizes)))
     return out
+
+
+def _take(tensors, grp):
+    """``(tensor, start, stop)`` of each piece of ``grp``."""
+    return [(tensors[i], lo, hi) for i, lo, hi in grp]
+
+
+def _pieces(params) -> list[list[tuple[int, int, int]]]:
+    """:func:`apply`'s groups: each leaf's flattened entries cut into
+    pieces ``(leaf index, start, stop)`` of at most :data:`GROUP_ELEMS`,
+    the pieces in leaf order grouped as :func:`_runs` groups them."""
+    pieces = [(i, lo, min(lo + GROUP_ELEMS, p.numel()))
+              for i, p in enumerate(params)
+              for lo in range(0, max(p.numel(), 1), GROUP_ELEMS)]
+    return [[pieces[j] for j in run]
+            for run in _runs([hi - lo for _, lo, hi in pieces])]

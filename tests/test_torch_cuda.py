@@ -449,19 +449,18 @@ def test_ssd_kernel_rejects_what_it_does_not_take(dev):
     *args, _ = _ssd_inputs(dev, 1, 8, 3, 16, 2, 8, 0)
     with pytest.raises(ValueError, match="groups"):
         ssd_ops.ssd(*args, chunk=16)
-    # more chunks x heads than a grid's y extent: the forward takes them
-    # (its grids run (tile, chunk, head) along x), the backward raises;
-    # more batches than a grid's z extent: both raise
+    # more chunks x heads than a grid's y extent (32,769 x 2) and more
+    # batches than its z extent (65,536): every grid runs its axes along
+    # x, so the forward and the backward take both
     steps = ssd_ops.MAX_GRID_YZ // 2 + 1
-    *args, _ = _ssd_inputs(dev, 1, steps, 2, 4, 1, 4, 0)
-    y, state, saved = ssd_ops.ssd_fwd_cuda(*args, chunk=1)
-    assert y.shape == args[0].shape and bool(torch.isfinite(y).all())
-    assert bool(torch.isfinite(state).all())
-    with pytest.raises(ValueError, match="grid"):
-        ssd_ops.ssd_bwd_cuda(*args, y, None, saved=saved, chunk=1)
-    *args, _ = _ssd_inputs(dev, ssd_ops.MAX_GRID_YZ + 1, 1, 1, 4, 1, 4, 0)
-    with pytest.raises(ValueError, match="grid"):
-        ssd_ops.ssd(*args, chunk=1)
+    for bsz, s in ((1, steps), (ssd_ops.MAX_GRID_YZ + 1, 1)):
+        *args, _ = _ssd_inputs(dev, bsz, s, 2, 4, 1, 4, 0)
+        y, state, saved = ssd_ops.ssd_fwd_cuda(*args, chunk=1)
+        assert y.shape == args[0].shape and bool(torch.isfinite(y).all())
+        assert bool(torch.isfinite(state).all())
+        grads = ssd_ops.ssd_bwd_cuda(*args, y, None, saved=saved, chunk=1)
+        for g_, t in zip(grads, args):
+            assert g_.shape == t.shape and bool(torch.isfinite(g_).all())
     # the backward: a cotangent of another shape, a scratch of another call
     *args, _ = _ssd_inputs(dev, 1, 40, 4, 16, 2, 8, 0)
     y, _, saved = ssd_ops.ssd_fwd_cuda(*args, chunk=16)
@@ -1128,16 +1127,24 @@ def test_bf16_attention_over_rolled_caches(dev, t_max, first, last, empty, s,
 
 def _device_kernels(fn, calls=5):
     """The names of the device kernels that ``calls`` calls of ``fn``
-    launch, from a profiler trace (which may drop a record)."""
+    launch, from a profiler trace.  The profiler drops records, late in a
+    long process every record of a trace, so a trace that recorded no
+    device kernel is followed by up to two more (as ``chip_smoke.
+    launch_breakdown`` does); a kernel that ``fn`` does not launch can
+    never appear."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 #: (label, B, query positions, Hq, Hkv, D, T, rolled_pos_tab arguments or
@@ -1877,6 +1884,81 @@ def test_prefill_search_equals_full_walk_at_every_length(dev, s):
         finally:
             fa_ops.SEARCH_MIN_KEYS = keep
         assert torch.equal(searched, full)
+
+
+@pytest.mark.parametrize("bf16,chunk", [(False, 4), (True, 4), (True, 2)])
+def test_ssd_batch_past_a_grid_s_z_extent_equals_its_halves(dev, bf16,
+                                                            chunk):
+    """A batch of 65,536 (past a grid's z extent) in one launch each way,
+    f32, bf16 on the Hopper design (chunk 4) and on the ``mma.sync`` one
+    (chunk 2): its forward and its per-row gradients bit-equal to two
+    launches over the halves (rows are independent), ``da`` (a sum over
+    the rows and chunks, 131,072 terms in f32 in another order than the
+    halves' sum) within 1e-4 of its largest entry, K4's backward
+    tolerance."""
+    bsz = ssd_ops.MAX_GRID_YZ + 1
+    x, dt, a, bm, cm, _ = _ssd_inputs(dev, bsz, 8, 2, 8, 1, 8, 9)
+    dy, _ = _ssd_cotangents(dev, bsz, 8, 2, 8, 8, 9)
+    if bf16:
+        x, bm, cm, dy = (t.bfloat16() for t in (x, bm, cm, dy))
+
+    def run(rows):
+        args = [t[rows].contiguous() for t in (x, dt)] + [a] + [
+            t[rows].contiguous() for t in (bm, cm)]
+        y, st, saved = ssd_ops.ssd_fwd_cuda(*args, chunk=chunk)
+        return (y, st), ssd_ops.ssd_bwd_cuda(
+            *args, dy[rows].contiguous(), None, saved=saved, chunk=chunk)
+    whole = run(slice(None))
+    half = bsz // 2
+    lo, hi = run(slice(0, half)), run(slice(half, None))
+    for i in range(2):
+        assert torch.equal(whole[0][i], torch.cat([lo[0][i], hi[0][i]]))
+    for i in (0, 1, 3, 4):
+        assert torch.equal(whole[1][i], torch.cat([lo[1][i], hi[1][i]]))
+    da = lo[1][2] + hi[1][2]
+    assert float((whole[1][2] - da).abs().max()) \
+        <= 1e-4 * float(da.abs().max())
+
+
+#: K4's backward past 65,535 (chunk, head) rows: (bf16, B, S, H, P, G, N,
+#: chunk, segment of the plain backward).  mamba2-1.3b's heads, groups and
+#: state over 139,264 tokens (1,088 chunks of 128 x 64 heads = 69,632 rows) in
+#: f32 and in bf16 (the Hopper design), and a chunk of 18, which the
+#: Hopper design does not take (2,223 chunks x 32 heads = 71,136 rows).
+SSD_PAST_ROWS = [(False, 1, 139264, 64, 64, 8, 128, 128, 34816),
+                 (True, 1, 139264, 64, 64, 8, 128, 128, 34816),
+                 (True, 1, 40000, 32, 8, 2, 8, 18, 10080)]
+
+
+@pytest.mark.parametrize("bf16,b,s,h,p,g,n,chunk,segment", SSD_PAST_ROWS)
+def test_ssd_backward_past_65535_chunk_head_rows(dev, bf16, b, s, h, p, g,
+                                                 n, chunk, segment):
+    """K4's backward past a grid's y extent of 65,535 (chunk, head) rows,
+    from a non-zero state with a final-state cotangent, against the plain
+    backward over segments (``ssd_bwd_ref_segments``): dx, db and dc
+    within 1e-4 (f32) or ``BF16_BWD_ULPS`` (bf16) of each gradient's
+    largest entry, ddt, da and dinit within 1e-4 of theirs."""
+    assert -(-s // chunk) * h > ssd_ops.MAX_GRID_YZ
+    x, dt, a, bm, cm, s0 = _ssd_inputs(dev, b, s, h, p, g, n, 12)
+    dy, ds = _ssd_cotangents(dev, b, s, h, p, n, 12)
+    if bf16:
+        x, bm, cm, dy = (t.bfloat16() for t in (x, bm, cm, dy))
+    y, _, saved = ssd_ops.ssd_fwd_cuda(x, dt, a, bm, cm, chunk=chunk,
+                                       init_state=s0)
+    got = ssd_ops.ssd_bwd_cuda(x, dt, a, bm, cm, dy, ds, saved=saved,
+                               chunk=chunk, init_state=s0)
+    del y, saved
+    exp = ssd_plain.ssd_bwd_ref_segments(x, dt, a, bm, cm, dy, ds,
+                                         segment=segment, chunk=chunk,
+                                         init_state=s0)
+    for name, g_, e in zip(("dx", "ddt", "da", "db", "dc", "dinit"), got,
+                           exp):
+        if bf16 and name in ("dx", "db", "dc"):
+            _assert_bf16_grad_close(g_, e)
+        else:
+            assert g_.dtype == torch.float32, name
+            assert float((g_.float() - e.float()).abs().max()) \
+                <= 1e-4 * float(e.float().abs().max()), name
 
 
 def test_ssd_bf16_forward_past_2_31_elements(dev):

@@ -9,6 +9,9 @@ chunk 64 and s = 80, chunk 32; two heads a group), each with and without
 an ``init_state`` and with a zero and a random cotangent of the final
 state: the six gradients against ``jax.vjp`` of the reference model's
 ``mamba2.ssd_chunked`` and against torch autograd through ``ssd_ref``.
+The mirror over segments (``ssd_bwd_ref_segments``, what the card holds
+K4's backward to past 65,535 chunk-head rows) against the same
+``jax.vjp`` over the whole sequence.
 """
 
 import jax
@@ -19,7 +22,8 @@ import torch
 
 from repro.models.mamba2 import ssd_chunked
 from repro_torch.kernels.ssd_scan.ref import (autograd_grads, random_inputs,
-                                              ssd_bwd_ref, ssd_ref)
+                                              ssd_bwd_ref,
+                                              ssd_bwd_ref_segments, ssd_ref)
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
@@ -85,3 +89,37 @@ def test_ssd_bwd_ref_matches_autograd_through_ssd_ref(case, with_init,
                          torch.from_numpy(dy), torch.from_numpy(ds),
                          chunk=case[-1])
     _assert_close(_mirror(case, args, init, dy, ds, with_dstate), exp)
+
+
+@pytest.mark.parametrize("with_dstate", [False, True])
+@pytest.mark.parametrize("with_init", [False, True])
+@pytest.mark.parametrize("case,segment", [(CASES[0], 64), (CASES[2], 16),
+                                          (CASES[3], 32)])
+def test_ssd_bwd_ref_over_segments_matches_jax_vjp(case, segment, with_init,
+                                                   with_dstate):
+    """The mirror run segment by segment (the state carried forward, its
+    cotangent carried back, ``da`` summed) against ``jax.vjp`` of
+    ``ssd_chunked`` over the whole sequence; a ragged last segment at
+    s = 96 over 64 and s = 80 over 32."""
+    args, init, dy, ds = _inputs(case, with_init, with_dstate)
+    s0 = np.zeros_like(ds) if init is None else init
+
+    def f(*xs):
+        return ssd_chunked(*xs[:5], chunk=case[-1], init_state=xs[5])
+    _, vjp = jax.vjp(f, *map(jnp.asarray, (*args, s0)))
+    exp = list(vjp((jnp.asarray(dy), jnp.asarray(ds))))
+    if init is None:
+        exp[5] = None
+    t = [torch.from_numpy(v) for v in (*args, dy)]
+    got = ssd_bwd_ref_segments(
+        *t, torch.from_numpy(ds) if with_dstate else None, segment=segment,
+        chunk=case[-1],
+        init_state=None if init is None else torch.from_numpy(init))
+    _assert_close(got, exp)
+
+
+def test_ssd_bwd_ref_segments_must_hold_whole_chunks():
+    args, _, dy, _ = _inputs(CASES[0], False, False)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_bwd_ref_segments(*(torch.from_numpy(v) for v in (*args, dy)),
+                             None, segment=48, chunk=32)

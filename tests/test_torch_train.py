@@ -243,7 +243,9 @@ def test_adamw_bf16_state():
 @pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
 def test_adamw_leaf_groups_give_the_same_bits(state_dtype, monkeypatch):
     """``apply`` updates the leaves a group of at most ``GROUP_ELEMS``
-    elements at a time (a larger leaf alone): the groups bound its
+    elements at a time (a larger leaf in pieces of its flattened entries:
+    the (64, 8) leaf in two at 300, every leaf entry by entry at 1; the
+    global norm takes a larger leaf alone): the groups bound its
     temporaries, and every entry's update is the same bits whatever the
     grouping."""
     rng = np.random.default_rng(8)
@@ -255,10 +257,12 @@ def test_adamw_leaf_groups_give_the_same_bits(state_dtype, monkeypatch):
                             clip_norm=0.5,
                             state_dtype=getattr(torch, state_dtype))
     runs = []
-    for elems, n_groups in ((1 << 28, 1), (300, 4), (1, 5)):
+    for elems, n_groups, n_pieces in ((1 << 28, 1, 1), (300, 4, 5),
+                                      (1, 5, 872)):
         monkeypatch.setattr(adamw, "GROUP_ELEMS", elems)
         ours = [torch.from_numpy(p.copy()) for p in params]
         assert len(adamw._groups(ours)) == n_groups
+        assert len(adamw._pieces(ours)) == n_pieces
         state = adamw.init_state(ours, cfg)
         for g in grads:
             state, stats = adamw.apply(ours, g, state, cfg)

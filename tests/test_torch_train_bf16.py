@@ -38,8 +38,11 @@ Run as a script, this file prints the reference's ``BF16_TRAIN_PINS`` that
 jitted bf16 step at batch 2 × 128 on ``reference_params_numpy(cfg, 0)``,
 lr 3e-4 with one warm-up step: smollm-135m whole, mamba2-1.3b with 4 of
 its 48 layers, h2o-danube-3-4b and stablelm-1.6b with 2 of 24, and
-whisper-large-v3 with 4 + 4 over seeded frames; a few minutes and about
-10 GB); an architecture's name prints its pin alone:
+whisper-large-v3 with 4 + 4 over seeded frames; then two pins under other
+plans: qwen2-vl-2b with 2 of 28 layers under its ``train_4k`` default
+plan, 4 micro-batches at 4 × 128, and smollm-135m whole under
+dbrx-132b's, 8 micro-batches and bf16 moments at 8 × 128; a few minutes
+and about 10 GB); an architecture's name prints its pins alone:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_train_bf16.py [ARCH]
 """
@@ -79,13 +82,20 @@ MORE_GRAD_ARCHS = [("h2o-danube-3-4b", 32), ("stablelm-1.6b", 32),
                    ("mixtral-8x7b", 32), ("whisper-large-v3", 32)]
 
 #: The pin runs of ``chip_smoke.py``'s ``BF16_TRAIN_PINS``: (arch, layers
-#: kept or None for all, steps, batch, seq).  mixtral-8x7b has none: its
-#: reference step at full width, even with one layer, holds about 25 GB of
-#: parameters, gradients and moments on the host.
-PIN_RUNS = (("smollm-135m", None, 3, 2, 128), ("mamba2-1.3b", 4, 3, 2, 128),
-            ("h2o-danube-3-4b", 2, 3, 2, 128),
-            ("stablelm-1.6b", 2, 3, 2, 128),
-            ("whisper-large-v3", 4, 3, 2, 128))
+#: kept or None for all, steps, batch, seq, plan), the plan's micro-batches
+#: and moments' type where they are not ``CellPlan()``'s: qwen2-vl-2b's
+#: ``train_4k`` default plan, and dbrx-132b's (8 micro-batches, bf16
+#: moments) on smollm-135m.  mixtral-8x7b has none: its reference step at
+#: full width, even with one layer, holds about 25 GB of parameters,
+#: gradients and moments on the host.
+PIN_RUNS = (("smollm-135m", None, 3, 2, 128, {}),
+            ("mamba2-1.3b", 4, 3, 2, 128, {}),
+            ("h2o-danube-3-4b", 2, 3, 2, 128, {}),
+            ("stablelm-1.6b", 2, 3, 2, 128, {}),
+            ("whisper-large-v3", 4, 3, 2, 128, {}),
+            ("qwen2-vl-2b", 2, 3, 4, 128, {"grad_accum": 4}),
+            ("smollm-135m", None, 3, 8, 128,
+             {"grad_accum": 8, "opt_state_dtype": "bfloat16"}))
 
 
 def ulp(x):
@@ -289,23 +299,125 @@ def test_global_norm_groups_hold_one_group_of_f32_copies(elems,
 
 
 # ---------------------------------------------------------------------------
+# steps under a plan's micro-batches and moments
+# ---------------------------------------------------------------------------
+
+def plan_steps(arch, plan, jplan, n_steps, seq=32):
+    """``n_steps`` bf16 steps of the port's ``make_train_step`` under
+    ``plan`` and of the reference's jitted one under ``jplan`` on the
+    arch's smoke config, a micro-batch of one sequence of ``seq`` (lr
+    3e-3, two warm-up steps, the moments in each plan's type):
+    ``[(loss, gnorm)]`` each, the port's and the reference's."""
+    cfg, jcfg, model, jparams = both_bf16(arch)
+    batch = plan.grad_accum
+    jframes, frames = frames_bf16(cfg, batch)
+    kw = dict(lr=3e-3, warmup_steps=2, total_steps=10)
+    opt_cfg = adamw.AdamWConfig(**kw, state_dtype=plan.opt_state_dtype)
+    jopt_cfg = JA.AdamWConfig(**kw, state_dtype=jplan.opt_state_dtype)
+    jstep = jax.jit(JS.make_train_step(jcfg, jplan, jopt_cfg))
+    step = S.make_train_step(cfg, plan, opt_cfg)
+    state = adamw.init_state(list(model.parameters()), opt_cfg)
+    jstate = JA.init_state(jparams, jopt_cfg)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=batch, seq=seq))
+    ours, theirs = [], []
+    for i in range(n_steps):
+        toks = pipe.batch_at(i)
+        jparams, jstate, jloss, jgnorm = jstep(
+            jparams, jstate, jnp.asarray(toks),
+            *(() if jframes is None else (jframes,)))
+        state, loss, gnorm = step(model, state, torch.from_numpy(toks),
+                                  frames)
+        ours.append((float(loss), float(gnorm)))
+        theirs.append((float(jloss), float(jgnorm)))
+    assert all(m.dtype == plan.opt_state_dtype for m in state["m"])
+    assert {str(v.dtype) for v in jax.tree.leaves(jstate["m"])} \
+        == {str(jnp.dtype(jplan.opt_state_dtype))}
+    return ours, theirs
+
+
+def pin_plans(fields):
+    """A pin run's plan fields as both packages' plans: the default plan
+    with the run's micro-batches and moments' type."""
+    accum = fields.get("grad_accum", 1)
+    name = fields.get("opt_state_dtype", "float32")
+    return (S.CellPlan(grad_accum=accum, opt_state_dtype=getattr(torch,
+                                                                 name)),
+            JS.CellPlan(grad_accum=accum, opt_state_dtype=getattr(jnp,
+                                                                  name)))
+
+
+@pytest.mark.parametrize("arch,fields", [
+    (run[0], run[5]) for run in PIN_RUNS if run[5]])
+def test_bf16_pin_plans_at_smoke_width_match_reference(arch, fields):
+    """The plans of the pins that are not ``CellPlan()``'s (qwen2-vl-2b's
+    ``train_4k`` plan, 4 micro-batches; dbrx-132b's on smollm-135m, 8
+    micro-batches and bf16 moments), three bf16 steps on the smoke config
+    against the reference's jitted step under the same plan: the bf16
+    rule of ``test_torch_train_bf16_steps.py``."""
+    from test_torch_train_bf16_steps import (GNORM_REL, GNORM_REL_FIRST,
+                                             LOSS_REL)
+    ours, theirs = plan_steps(arch, *pin_plans(fields), 3)
+    for i, ((loss, gnorm), (jloss, jgnorm)) in enumerate(zip(ours, theirs)):
+        assert loss == pytest.approx(jloss, rel=LOSS_REL), i
+        rel = GNORM_REL_FIRST if i == 0 else GNORM_REL
+        assert gnorm == pytest.approx(jgnorm, rel=rel), i
+
+
+def test_bf16_train_pins_hold_every_pin_run():
+    """``chip_smoke.py``'s ``BF16_TRAIN_PINS`` hold one pin of each
+    ``PIN_RUNS`` run, its plan fields with it; qwen2-vl-2b's plan is its
+    full config's ``train_4k`` default plan and smollm-135m's second pin
+    runs dbrx-132b's, in both packages."""
+    import importlib
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    try:
+        cs = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.pop(0)
+    assert len(cs.BF16_TRAIN_PINS) == len(PIN_RUNS)
+    for pin, (arch, n_layers, steps, batch, seq, fields) in zip(
+            cs.BF16_TRAIN_PINS, PIN_RUNS):
+        assert (pin["arch"], pin["n_layers"], pin["steps"], pin["batch"],
+                pin["seq"]) == (arch, n_layers, steps, batch, seq)
+        assert {k: pin[k] for k in ("grad_accum", "opt_state_dtype")
+                if k in pin} == fields
+        assert cs.bf16_pin_plan(pin) == pin_plans(fields)[0]
+        assert batch % pin_plans(fields)[0].grad_accum == 0
+    for arch, full_arch in (("qwen2-vl-2b", "qwen2-vl-2b"),
+                            ("smollm-135m", "dbrx-132b")):
+        fields = [r[5] for r in PIN_RUNS if r[0] == arch][-1]
+        ours, theirs = pin_plans(fields)
+        want = S.default_plan(get_config(full_arch), "train_4k")
+        jwant = JS.default_plan(j_get_config(full_arch), "train_4k")
+        assert (ours.grad_accum, ours.opt_state_dtype) \
+            == (want.grad_accum, want.opt_state_dtype)
+        assert (theirs.grad_accum, theirs.opt_state_dtype) \
+            == (jwant.grad_accum, jwant.opt_state_dtype)
+
+
+# ---------------------------------------------------------------------------
 # the pins of chip_smoke.py
 # ---------------------------------------------------------------------------
 
-def reference_bf16_train_pin(arch, n_layers, steps, batch, seq) -> dict:
+def reference_bf16_train_pin(arch, n_layers, steps, batch, seq,
+                             plan) -> dict:
     """The reference's losses and grad norms on one bf16 pin run: its
     jitted ``make_train_step`` with its default plan (bf16 parameters, f32
-    moments) on ``reference_params_numpy(cfg, 0)`` rounded by the leaf
-    rule."""
+    moments) and the run's ``plan`` fields on
+    ``reference_params_numpy(cfg, 0)`` rounded by the leaf rule."""
     from test_torch_serve import pin_config, pin_frames
     cfg = pin_config(arch, n_layers)
     jcfg = pin_config(arch, n_layers, j_get_config)
     params = _to_jax(reference_params_numpy(cfg, 0), T.param_spec(cfg))
     frames = (jnp.asarray(pin_frames(cfg, batch)).astype(jnp.bfloat16),) \
         if cfg.enc_dec else ()
-    opt_cfg = JA.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=steps)
+    state_dtype = getattr(jnp, plan.get("opt_state_dtype", "float32"))
+    opt_cfg = JA.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=steps,
+                             state_dtype=state_dtype)
     step = jax.jit(JS.make_train_step(jcfg, JS.CellPlan(
-        grad_accum=1, remat=False), opt_cfg))
+        grad_accum=plan.get("grad_accum", 1), remat=False,
+        opt_state_dtype=state_dtype), opt_cfg))
     opt = JA.init_state(params, opt_cfg)
     pipe = JTokenPipeline(JDataConfig(vocab=jcfg.vocab, batch=batch,
                                       seq=seq, seed=0))
@@ -317,8 +429,8 @@ def reference_bf16_train_pin(arch, n_layers, steps, batch, seq) -> dict:
         gnorms.append(float(gnorm))
     return {"arch": arch, "n_layers": n_layers,
             **({"n_enc_layers": cfg.n_enc_layers} if cfg.enc_dec else {}),
-            "steps": steps, "batch": batch, "seq": seq, "losses": losses,
-            "grad_norms": gnorms}
+            "steps": steps, "batch": batch, "seq": seq, **plan,
+            "losses": losses, "grad_norms": gnorms}
 
 
 if __name__ == "__main__":
