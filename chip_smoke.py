@@ -96,12 +96,15 @@
    K4 within 1e-4 of it), two runs bit-identical;
 2c. holds K3 and K4 at the serving cells' shapes (``K3_LONG``,
    ``K3_DECODE_CELLS``, ``K4_BIG``, ``K4_CELLS``): K3's bf16 prefill at
-   h2o-danube-3-4b's 32,768 and 524,288 tokens (window 4,096), its walk
-   bounded to the live key tiles bit-equal to the walk from key 0 (f32
-   too at 32k), the last query tile within 4 bf16 ulps of the plain
-   version over every key; K3's bf16 decode at the cells' last step
-   (smollm-135m's 64 rows over 32,768 slots, danube's 128 rows and 1 row
-   over its 4,096-slot ring wrapped) within 4 ulps of the plain version;
+   h2o-danube-3-4b's 32,768 and 524,288 tokens (window 4,096), yi-34b's
+   GQA 7 and whisper-large-v3's MHA at 32,768 and whisper's
+   cross-attention of 32,768 queries over 1,500 frames, its walk bounded
+   to the live key tiles bit-equal to the walk from key 0 (f32 too at
+   danube's 32k), the last query tile within 4 bf16 ulps of the plain
+   version over every key; K3's bf16 decode at every decode cell's last
+   step (over 32,768 slots; danube's and mixtral-8x7b's 4,096-slot rings
+   wrapped; whisper's cross decode over its 1,500 frames) within 4 ulps
+   of the plain version;
    K4's bf16 forward on x of [2, 524,288, 64, 64] (past 2^31 elements)
    against the plain version over 32,768-token segments; K4's backward,
    f32 and bf16, past a grid's 65,535 (chunk, head) rows (``K4_ROWS``:
@@ -208,9 +211,12 @@
 9c. runs the reference's serving cells (``SERVE_CELLS``: ``prefill_32k``,
    ``decode_32k``, ``long_500k`` of ``launch/steps.py``) in bf16 through
    ``make_prefill_step`` / ``make_decode_step``, each twice and bit-equal
-   but ``long_500k``, with exact K3/K4 launch counts, replicated decode
-   rows' tokens equal, the peak beside the reckoned one, and device ms by
-   class and the idle share of a profiled prefill or decode step;
+   but ``long_500k``, with exact K3/K4 launch counts (whisper-large-v3's
+   encoder and cross-attention launches among them), replicated decode
+   rows' tokens equal, the peak within 15 % of the reckoned one, and
+   device ms by class and the idle share of a profiled prefill or decode
+   step; yi-34b, mixtral-8x7b and dbrx-132b at published widths with their
+   depth cut (``SERVE_CELLS_LEFT_OUT`` names the cells no card holds);
 10. times K3's backward at smollm-135m's training shape and at
    whisper-large-v3's encoder and cross-attention shapes beside its plain
    mirror, its bounds (f32 on CUDA cores and 3xTF32 on tensor cores)
@@ -5471,14 +5477,26 @@ def time_bf16_backwards(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 2c and 17: the reference's serving cells (``launch/steps.py``
+# phase 2c and 9c: the reference's serving cells (``launch/steps.py``
 # ``SHAPES``) on one card in bf16
 # ---------------------------------------------------------------------------
 
-#: K3's bf16 prefill at h2o-danube-3-4b's serving cells, (label, batch,
-#: tokens): ``prefill_32k``'s per-card batch and ``long_500k``'s whole
-#: context; 32 query heads over 8 KV heads of 120, window 4,096.
-K3_LONG = (("prefill_32k", 4, 32768), ("long_500k", 1, 524288))
+#: K3's bf16 prefill at the serving cells' long shapes: (label, batch,
+#: queries, keys, query heads, KV heads, head dim, window, causal).
+#: h2o-danube-3-4b's ``prefill_32k`` per-card batch and ``long_500k``'s
+#: whole context (window 4,096), yi-34b's GQA 7 and whisper-large-v3's MHA
+#: at ``prefill_32k``, and whisper's cross-attention of the 32,768 queries
+#: over its 1,500 frames (non-causal).  Queries and keys sit at arange
+#: positions, as the model's prefills put them.
+K3_LONG = (
+    ("h2o-danube-3-4b prefill_32k", 4, 32768, 32768, 32, 8, 120, 4096, True),
+    ("h2o-danube-3-4b long_500k", 1, 524288, 524288, 32, 8, 120, 4096, True),
+    ("yi-34b prefill_32k", 2, 32768, 32768, 56, 8, 128, None, True),
+    ("whisper-large-v3 prefill_32k", 4, 32768, 32768, 20, 20, 64, None,
+     True),
+    ("whisper-large-v3 cross prefill_32k", 4, 32768, 1500, 20, 20, 64, None,
+     False),
+)
 
 #: Query rows of the last tile that phase 2c holds to the plain version
 #: over every key (the tile of the kernels' bf16 prefill).
@@ -5492,99 +5510,120 @@ def causal_window_pairs(s: int, window: int) -> int:
     return w * (w + 1) // 2 + (s - w) * window
 
 
-def k3_long_inputs(dev, b, s, dtype, seed):
-    """q [b,s,32,120], k/v [b,s,8,120] (normal draws on the card from
-    ``seed``) and the positions arange(s)."""
+def k3_long_inputs(dev, b, s, t, hq, hk, d, dtype, seed):
+    """q [b,s,hq,d], k/v [b,t,hk,d] (normal draws on the card from
+    ``seed``) and the positions arange(s), arange(t)."""
     import torch
-    dq, dk, _ = DANUBE_ATTENTION
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v = (torch.randn(b, s, h, 120, device=dev, generator=gen,
+    q, k, v = (torch.randn(b, n, h, d, device=dev, generator=gen,
                            dtype=torch.float32).to(dtype)
-               for h in (dq, dk, dk))
-    return q, k, v, torch.arange(s, dtype=torch.int32, device=dev)
+               for n, h in ((s, hq), (t, hk), (t, hk)))
+    return (q, k, v, torch.arange(s, dtype=torch.int32, device=dev),
+            torch.arange(t, dtype=torch.int32, device=dev))
+
+
+def long_library(q, k, v, q_pos, k_pos, causal, win):
+    """SDPA in bf16 for a ``K3_LONG`` shape, timed once: ``is_causal``
+    (top-left, ours where queries and keys are one arange) for a causal
+    prefill without a window, no mask where every pair is live, and with a
+    window the boolean mask (K/V repeated to the query heads, the
+    memory-efficient backend asked for: its math fallback would hold every
+    score).  At 524,288 positions the mask alone would be 275 GB: none."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention.ref import live_mask
+    s, hq, hk = q.shape[1], q.shape[2], k.shape[2]
+    if win is not None and s > 32768:
+        return {"library_ms": None, "library_is":
+                "none: SDPA's boolean mask at 524,288 positions is 275 GB"}
+    qt = q.transpose(1, 2)
+    try:
+        if win is None:
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+            ms = timed(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 1)["ms"]
+            return {"library_ms": ms, "library_is":
+                    "SDPA, is_causal" if causal else "SDPA, no mask"}
+        mask = live_mask(q_pos, k_pos, causal=causal, window=win)
+        kt, vt = (x.repeat_interleave(hq // hk, dim=2).transpose(1, 2)
+                  for x in (k, v))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            ms = timed(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), 1)["ms"]
+        return {"library_ms": ms, "library_is":
+                "SDPA, boolean mask, memory-efficient backend, K/V "
+                f"repeated to {hq} heads"}
+    except RuntimeError as e:
+        return {"library_ms": None,
+                "library_is": f"SDPA refused: {str(e)[:200]}"}
+    finally:
+        torch.cuda.empty_cache()
 
 
 def check_attention_long(dev, full_walk_500k=False, reps=3):
-    """K3's prefill at danube's ``K3_LONG`` shapes (window 4,096): in bf16
-    (and in f32 at ``prefill_32k``) the walk bounded to the live key tiles
-    (``sorted_keys``, the model's prefill) bit-equal to the full walk from
-    key 0 (at ``long_500k`` only with ``full_walk_500k``: ~2 s a call);
-    the last ``K3_LAST_TILE`` query rows within ``BF16_ULPS`` of the plain
-    version over every key; the bounded call timed (and the full walk
-    where it ran) beside its bound and, at ``prefill_32k``, SDPA with the
-    boolean window mask (at ``long_500k`` the mask alone would be 275 GB:
-    no library time)."""
+    """K3's bf16 prefill at the ``K3_LONG`` shapes: the walk bounded to the
+    live key tiles (``sorted_keys``, the model's prefill) bit-equal to the
+    full walk from key 0 (at ``long_500k`` only with ``full_walk_500k``:
+    ~2 s a call), and in f32 at danube's ``prefill_32k``; the last
+    ``K3_LAST_TILE`` query rows within ``BF16_ULPS`` of the plain version
+    over every key; the bounded call timed (and the full walk where it
+    ran) beside its bound and SDPA (:func:`long_library`)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ref import live_mask
-    _, _, win = DANUBE_ATTENTION
     out, worst_ulps, worst = {}, 0.0, 0.0
-    for label, b, s in K3_LONG:
-        q, k, v, pos = k3_long_inputs(dev, b, s, torch.bfloat16, 31)
+    for label, b, s, t, hq, hk, d, win, causal in K3_LONG:
+        q, k, v, q_pos, k_pos = k3_long_inputs(dev, b, s, t, hq, hk, d,
+                                               torch.bfloat16, 31)
 
-        def call(sorted_keys, q=q, k=k, v=v, pos=pos):
-            return flash_attention_cuda(q, k, v, q_pos=pos, k_pos=pos,
-                                        causal=True, window=win,
+        def call(sorted_keys, q=q, k=k, v=v, q_pos=q_pos, k_pos=k_pos,
+                 win=win, causal=causal):
+            return flash_attention_cuda(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                                        causal=causal, window=win,
                                         sorted_keys=sorted_keys)
         got = call(True)
-        res = {"shape": [b, s, 32, 120], "window": win}
-        if label == "prefill_32k" or full_walk_500k:
+        res = {"shape": [b, s, hq, d], "kv": [b, t, hk, d], "window": win,
+               "causal": causal}
+        full_walk = s <= 32768 or full_walk_500k
+        if full_walk:
             same = bool(torch.equal(got, call(False)))
             res["bounded_equals_full_walk"] = same
             require(same, f"K3 bf16 {label}: bounded walk != full walk")
         tail = slice(s - K3_LAST_TILE, s)
-        exp = plain_attention(q[:, tail], k, v, pos[tail], pos, True, win)
+        exp = plain_attention(q[:, tail], k, v, q_pos[tail], k_pos, causal,
+                              win)
         ulps, err = bf16_rows_gap(got[:, tail], exp)
         require(ulps <= BF16_ULPS, f"K3 bf16 {label} last tile: {ulps} ulps")
         worst_ulps, worst = max(worst_ulps, ulps), max(worst, err)
         res.update(last_tile_max_ulps=ulps, last_tile_max_abs_err=err)
-        t = timed(lambda: call(True), reps)
-        res.update(ms=t["ms"], events_ms=t["events_ms"],
-                   timing=timing_label([] if t["ahead"] else ["ms"]))
-        if label == "prefill_32k" or full_walk_500k:
+        timing = timed(lambda: call(True), reps)
+        res.update(ms=timing["ms"], events_ms=timing["events_ms"],
+                   timing=timing_label([] if timing["ahead"] else ["ms"]))
+        if full_walk:
             res["full_walk_ms"] = timed(lambda: call(False),
                                         reps if s <= 32768 else 1)["ms"]
         # q and the output, K and V (every key is some row's), the
         # positions; 4·D operations a live pair on bf16 tensor cores
-        pairs = b * 32 * causal_window_pairs(s, win)
-        res.update(**bound(2 * q.numel() * 2 + 2 * k.numel() * 2 + 2 * s * 4,
-                           4 * 120 * pairs, BF16_FLOP_PER_S),
+        pairs = b * hq * (causal_window_pairs(s, win or s) if causal
+                          else s * t)
+        res.update(**bound(2 * q.numel() * 2 + 2 * k.numel() * 2
+                           + (s + t) * 4, 4 * d * pairs, BF16_FLOP_PER_S),
                    live_pairs=pairs)
         res["plain_last_tile_ms"] = timed(
-            lambda: plain_attention(q[:, tail], k, v, pos[tail], pos, True,
-                                    win), 1)["ms"]
-        if label == "prefill_32k":
-            # K/V repeated to the query heads and the memory-efficient
-            # backend asked for: its math fallback would hold every score
-            from torch.nn.attention import SDPBackend, sdpa_kernel
-            mask = live_mask(pos, pos, causal=True, window=win)
-            qt = q.transpose(1, 2)
-            kt, vt = (x.repeat_interleave(4, dim=2).transpose(1, 2)
-                      for x in (k, v))
-            try:
-                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-                    res["library_ms"] = timed(
-                        lambda: F.scaled_dot_product_attention(
-                            qt, kt, vt, attn_mask=mask), 1)["ms"]
-                res["library_is"] = ("SDPA, boolean mask, memory-efficient "
-                                     "backend, K/V repeated to 32 heads")
-            except RuntimeError as e:
-                res["library_ms"] = None
-                res["library_is"] = f"SDPA refused: {str(e)[:200]}"
-            del mask, qt, kt, vt
-        else:
-            res["library_ms"] = None
-            res["library_is"] = ("none: SDPA's boolean mask at 524,288 "
-                                 "positions is 275 GB")
+            lambda: plain_attention(q[:, tail], k, v, q_pos[tail], k_pos,
+                                    causal, win), 1)["ms"]
+        res.update(long_library(q, k, v, q_pos, k_pos, causal, win))
         out[label] = res
         del q, k, v, got, exp
         torch.cuda.empty_cache()
-    # the f32 prefill's bounded walk at prefill_32k
-    q, k, v, pos = k3_long_inputs(dev, 4, 32768, torch.float32, 32)
-    f32 = [flash_attention_cuda(q, k, v, q_pos=pos, k_pos=pos, causal=True,
-                                window=win, sorted_keys=sk)
+    # the f32 prefill's bounded walk at danube's prefill_32k
+    _, b, s, t, hq, hk, d, win, _ = K3_LONG[0]
+    q, k, v, q_pos, k_pos = k3_long_inputs(dev, b, s, t, hq, hk, d,
+                                           torch.float32, 32)
+    f32 = [flash_attention_cuda(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                                causal=True, window=win, sorted_keys=sk)
            for sk in (True, False)]
     same = bool(torch.equal(*f32))
     require(same, "K3 f32 prefill_32k: bounded walk != full walk")
@@ -5595,23 +5634,37 @@ def check_attention_long(dev, full_walk_500k=False, reps=3):
 
 
 #: K3's bf16 decode at the serving cells' last step: (label, rows, query
-#: heads, KV heads, head dim, cache slots, query position, window).  The
-#: slot of position p is p mod slots, so smollm's 32,768 slots hold
-#: 0..32,767 in order and danube's 4,096-slot ring holds the last 4,096
-#: positions rolled (wrapped 8 and 128 times).
+#: heads, KV heads, head dim, cache slots, query position, window,
+#: causal).  The slot of position p is p mod slots, so a 32,768-slot
+#: cache holds 0..32,767 in order and a 4,096-slot ring the last 4,096
+#: positions rolled (danube's and mixtral's wrapped 8 and 128 times);
+#: whisper-large-v3's cross-attention reads its 1,500 frames, every one
+#: live (non-causal).
 K3_DECODE_CELLS = (
-    ("decode_32k smollm-135m", 64, 9, 3, 64, 32768, 32767, None),
-    ("decode_32k h2o-danube-3-4b", 128, 32, 8, 120, 4096, 32767, 4096),
-    ("long_500k h2o-danube-3-4b", 1, 32, 8, 120, 4096, 524287, 4096),
+    ("decode_32k smollm-135m", 64, 9, 3, 64, 32768, 32767, None, True),
+    ("decode_32k h2o-danube-3-4b", 128, 32, 8, 120, 4096, 32767, 4096,
+     True),
+    ("long_500k h2o-danube-3-4b", 1, 32, 8, 120, 4096, 524287, 4096, True),
+    ("decode_32k qwen2-vl-2b", 64, 12, 2, 128, 32768, 32767, None, True),
+    ("decode_32k stablelm-1.6b", 8, 32, 32, 64, 32768, 32767, None, True),
+    ("decode_32k whisper-large-v3", 8, 20, 20, 64, 32768, 32767, None,
+     True),
+    ("decode_32k whisper-large-v3 cross", 8, 20, 20, 64, 1500, 32767, None,
+     False),
+    ("decode_32k yi-34b", 32, 56, 8, 128, 32768, 32767, None, True),
+    ("decode_32k mixtral-8x7b", 128, 32, 8, 128, 4096, 32767, 4096, True),
+    ("decode_32k dbrx-132b", 64, 48, 8, 128, 32768, 32767, None, True),
 )
 
 
 def check_decode_cells(dev, reps=3):
     """K3's bf16 decode at ``K3_DECODE_CELLS`` (inputs drawn on the card,
-    the position table as the model's cache holds it) within
-    ``BF16_ULPS`` of the plain version over every slot; timed beside its
-    bound (every slot live: K and V read once), the plain version and SDPA
-    with the boolean mask (K/V repeated to the query heads)."""
+    the position table as the model's cache holds it, a cross decode's the
+    frames' arange) within ``BF16_ULPS`` of the plain version over every
+    slot; timed beside its bound (every slot live: K and V read once), the
+    plain version and SDPA (K/V heads grouped by ``enable_gqa``; no mask
+    where every slot is live, as ``time_attention`` takes it, else the
+    boolean mask)."""
     import torch
     import torch.nn.functional as F
 
@@ -5619,29 +5672,31 @@ def check_decode_cells(dev, reps=3):
     from repro_torch.kernels.flash_attention.ref import (live_mask,
                                                          rolled_pos_tab)
     out, worst_ulps, worst = {}, 0.0, 0.0
-    for label, b, hq, hk, d, slots, pos, win in K3_DECODE_CELLS:
+    for label, b, hq, hk, d, slots, pos, win, causal in K3_DECODE_CELLS:
         gen = torch.Generator(device=dev).manual_seed(33)
         q, k, v = (torch.randn(b, t, h, d, device=dev, generator=gen)
                    .bfloat16() for t, h in ((1, hq), (slots, hk),
                                             (slots, hk)))
-        k_pos = torch.from_numpy(rolled_pos_tab(slots, 0, pos)).to(dev)
+        k_pos = torch.from_numpy(rolled_pos_tab(
+            slots, 0, pos if causal else slots - 1)).to(dev)
         q_pos = torch.tensor([pos], dtype=torch.int32, device=dev)
         require(ops.uses_decode(1, hq, hk), f"K3 {label}: not a decode")
 
-        def call(q=q, k=k, v=v, q_pos=q_pos, k_pos=k_pos, win=win):
+        def call(q=q, k=k, v=v, q_pos=q_pos, k_pos=k_pos, win=win,
+                 causal=causal):
             return ops.flash_attention_cuda(q, k, v, q_pos=q_pos,
-                                            k_pos=k_pos, causal=True,
+                                            k_pos=k_pos, causal=causal,
                                             window=win)
         got = call()
-        exp = plain_attention(q, k, v, q_pos, k_pos, True, win)
+        exp = plain_attention(q, k, v, q_pos, k_pos, causal, win)
         ulps, err = bf16_rows_gap(got, exp)
         require(ulps <= BF16_ULPS, f"K3 bf16 decode {label}: {ulps} ulps")
         worst_ulps, worst = max(worst_ulps, ulps), max(worst, err)
         n_split, split_keys = ops.decode_splits(
             b, slots, hk, ops._sm_count(dev))
         res = {"q": [b, 1, hq, d], "kv": [b, slots, hk, d],
-               "query_position": pos, "window": win,
-               "wrapped": pos >= slots, "splits": n_split,
+               "query_position": pos, "window": win, "causal": causal,
+               "wrapped": causal and pos >= slots, "splits": n_split,
                "split_keys": split_keys, "max_ulps": ulps,
                "max_abs_err": err}
         t = timed(call, reps)
@@ -5651,16 +5706,23 @@ def check_decode_cells(dev, reps=3):
             sum(x.numel() * 2 for x in (q, k, v, got)) + 4 * (slots + 1),
             4 * d * b * hq * slots, BF16_FLOP_PER_S))
         res["plain_ms"] = timed(lambda q=q, k=k, v=v, q_pos=q_pos,
-                                k_pos=k_pos, win=win: plain_attention(
-                                    q, k, v, q_pos, k_pos, True, win),
-                                1)["ms"]
-        mask = live_mask(q_pos, k_pos, causal=True, window=win)
-        qt = q.transpose(1, 2)
-        kt, vt = (x.repeat_interleave(hq // hk, dim=2).transpose(1, 2)
-                  for x in (k, v))
-        res["library_ms"] = timed(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask), 1)["ms"]
-        res["library_is"] = "SDPA, boolean mask, K/V repeated"
+                                k_pos=k_pos, win=win, causal=causal:
+                                plain_attention(q, k, v, q_pos, k_pos,
+                                                causal, win), 1)["ms"]
+        mask = live_mask(q_pos, k_pos, causal=causal, window=win)
+        lib_mask = None if bool(mask.all()) else mask
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        try:
+            res["library_ms"] = timed(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=lib_mask, enable_gqa=True),
+                1)["ms"]
+            res["library_is"] = ("SDPA, no mask (every slot live)"
+                                 if lib_mask is None
+                                 else "SDPA, boolean mask")
+        except RuntimeError as e:
+            res["library_ms"] = None
+            res["library_is"] = f"SDPA refused: {str(e)[:200]}"
         out[label] = res
         del q, k, v, got, exp, qt, kt, vt
         torch.cuda.empty_cache()
@@ -5844,50 +5906,170 @@ def time_ssd_cells(dev, reps=3) -> dict:
 
 
 #: The reference's serving cells on one card in bf16 (``SHAPES``, the
-#: reference's default plan): (shape, arch, per-card batch, prompt tokens,
-#: decode steps, prefill sub-batch, reckoned peak GB, written in PERF.md
-#: before the first run).  Widths and depths are whole; the batch is cut
-#: from the shape's global one to what one card holds.  A decode cell
-#: prefills ``DECODE_PROMPTS`` distinct prompts (in sub-batches) and
-#: replicates their cache rows to its batch, so that every row's whole
-#: cache is read each step; its 32 steps end at position 32,767.
+#: reference's default plan of the full config): (shape, arch, layers,
+#: per-card batch, prompt tokens, decode steps, prefill sub-batch, reckoned
+#: peak GB, written in PERF.md before the first run).  Widths are the
+#: published ones; ``layers`` None is the whole depth, else the depth cut
+#: in whole periods to what one card holds beside the cache (every other
+#: field the full config's); the batch is cut from the shape's global one
+#: to what one card holds.  A decode cell prefills ``DECODE_PROMPTS``
+#: distinct prompts (in sub-batches) and replicates their cache rows (and
+#: an encoder-decoder's memory) to its batch, so that every row's whole
+#: cache is read each step; its 32 steps end at position 32,767.  The
+#: reckoned peak is the weights, the cache and the largest prefill
+#: temporaries (a dense layer's three [T, d_ff] MLP tensors, a MoE layer's
+#: three [E·capacity, d_ff] expert tensors at the prefill's T tokens), or,
+#: for a decode cell, the weights, the replicated cache and one layer of
+#: the sub-batches' caches (``cell_cache``), whichever is larger.
 SERVE_CELLS = (
-    ("prefill_32k", "smollm-135m", 8, 32768, 0, 8, 10.0),
-    ("prefill_32k", "h2o-danube-3-4b", 4, 32768, 0, 4, 21.0),
-    ("prefill_32k", "mamba2-1.3b", 4, 32768, 0, 4, 17.0),
-    ("prefill_32k", "qwen2-vl-2b", 4, 32768, 0, 4, 18.0),
-    ("prefill_32k", "stablelm-1.6b", 2, 32768, 0, 2, 20.0),
-    ("decode_32k", "smollm-135m", 64, 32736, 32, 8, 55.0),
-    ("decode_32k", "h2o-danube-3-4b", 128, 32736, 32, 2, 60.0),
-    ("decode_32k", "mamba2-1.3b", 128, 32736, 32, 4, 17.0),
-    ("long_500k", "h2o-danube-3-4b", 1, 524256, 32, 1, 50.0),
-    ("long_500k", "mamba2-1.3b", 1, 524256, 32, 1, 52.0),
+    ("prefill_32k", "smollm-135m", None, 8, 32768, 0, 8, 10.0),
+    ("prefill_32k", "h2o-danube-3-4b", None, 4, 32768, 0, 4, 21.0),
+    ("prefill_32k", "mamba2-1.3b", None, 4, 32768, 0, 4, 17.0),
+    ("prefill_32k", "qwen2-vl-2b", None, 4, 32768, 0, 4, 18.0),
+    ("prefill_32k", "stablelm-1.6b", None, 2, 32768, 0, 2, 20.0),
+    ("prefill_32k", "whisper-large-v3", None, 4, 32768, 0, 4, 28.0),
+    ("prefill_32k", "yi-34b", 12, 2, 32768, 0, 2, 30.0),
+    ("prefill_32k", "mixtral-8x7b", 8, 2, 32768, 0, 2, 42.0),
+    ("prefill_32k", "dbrx-132b", 4, 1, 32768, 0, 1, 45.0),
+    ("decode_32k", "smollm-135m", None, 64, 32736, 32, 8, 49.0),
+    ("decode_32k", "h2o-danube-3-4b", None, 128, 32736, 32, 2, 56.0),
+    ("decode_32k", "mamba2-1.3b", None, 128, 32736, 32, 4, 17.0),
+    ("decode_32k", "qwen2-vl-2b", None, 64, 32736, 32, 4, 63.5),
+    ("decode_32k", "stablelm-1.6b", None, 8, 32736, 32, 2, 58.0),
+    ("decode_32k", "whisper-large-v3", None, 8, 32736, 32, 4, 50.0),
+    ("decode_32k", "yi-34b", 12, 32, 32736, 32, 2, 68.0),
+    ("decode_32k", "mixtral-8x7b", 8, 128, 32736, 32, 2, 43.0),
+    ("decode_32k", "dbrx-132b", 4, 64, 32736, 32, 1, 64.0),
+    ("long_500k", "h2o-danube-3-4b", None, 1, 524256, 32, 1, 50.0),
+    ("long_500k", "mamba2-1.3b", None, 1, 524256, 32, 1, 52.0),
 )
+#: The cells of the reference's serving grid (``SHAPES`` less
+#: ``skip_reason``) with no ``SERVE_CELLS`` entry, and why.
+SERVE_CELLS_LEFT_OUT = {
+    (shape, "jamba-1.5-large-398b"): "one period is 8 layers, 44.2 G "
+    "parameters, 88 GB in bf16: no whole period fits one card"
+    for shape in ("prefill_32k", "decode_32k", "long_500k")} | {
+    ("long_500k", "mixtral-8x7b"): "the reference's one-call prefill puts "
+    "524,256 tokens through moe at capacity 163,832: its expert inputs "
+    "g and u are 37.6 GB each in bf16 at any depth"}
 DECODE_PROMPTS = 8
 SERVE_CELL_SEED = 0
+#: A cell's peak device memory must lie within this share of its
+#: reckoned peak.
+SERVE_PEAK_REL = 0.15
 
 
-def cell_cache(cfg, plan, parts, batch, seq, dev):
-    """A cache of ``batch`` rows whose row r holds the prefilled row
-    r mod n of ``parts`` (the sub-batches' caches, n rows in all)."""
-    import torch
+def serve_cell_setup(cell):
+    """A ``SERVE_CELLS`` cell's ``(cfg, full config, plan, batch, seq)``:
+    the full config cut to the cell's layers, the reference's default plan
+    of the full config (``default_plan`` reads ``param_count``, as
+    ``train_cell_setup`` takes it), the card's batch and the shape's cache
+    length."""
+    import dataclasses
 
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
     from repro_torch.models import transformer as T
-    cache = T.init_cache(cfg, batch, seq, device=dev, dtype=plan.param_dtype)
-    for li, layer in enumerate(cache):
+    shape, arch, n_layers, batch = cell[:4]
+    full = get_config(arch)
+    require(S.skip_reason(full, shape) is None, f"{shape} skips {arch}")
+    cfg = full if n_layers is None else dataclasses.replace(
+        full, n_layers=n_layers)
+    require(cfg.n_layers % T.period_len(cfg) == 0,
+            f"{shape} {arch}: {cfg.n_layers} layers cut a period")
+    return (cfg, full, S.default_plan(full, shape), batch,
+            S.SHAPES[shape]["seq"])
+
+
+def serve_cell_frames(cfg, n, dtype, dev):
+    """An encoder-decoder's frames for ``n`` prompts ``[n, n_frames, d]``,
+    drawn from ``SERVE_CELL_SEED`` as :func:`pin_frames` draws them (host
+    normals × 0.02), in ``dtype``; else None."""
+    import torch
+    if not cfg.enc_dec:
+        return None
+    rng = np.random.default_rng(SERVE_CELL_SEED + 5)
+    return torch.from_numpy(rng.standard_normal(
+        (n, cfg.n_frames, cfg.d_model), dtype=np.float32)
+        * np.float32(0.02)).to(dev).to(dtype)
+
+
+def replicate_rows(x, batch):
+    """``x`` [n, ...] repeated to ``batch`` rows: row r is row r mod n."""
+    return x.repeat(batch // x.shape[0], *[1] * (x.dim() - 1))
+
+
+def cell_cache(parts, batch):
+    """A cache of ``batch`` rows whose row r holds the prefilled row r mod
+    n of ``parts`` (the sub-batches' caches, n rows in all), built a layer
+    at a time: each layer of every part is emptied once copied, so that
+    the peak is the new cache and one layer of the parts, not both caches
+    whole."""
+    import torch
+    cache = []
+    for li in range(len(parts[0])):
         srcs = [c[li] for c in parts]
-        for key, t in layer.items():
+        layer = {}
+        for key, t in srcs[0].items():
             if key == "pos":
-                layer[key] = srcs[0][key]
+                layer[key] = t
             elif key == "pos_tab":
-                require(all(torch.equal(c[key], srcs[0][key]) for c in srcs),
+                require(all(torch.equal(s[key], t) for s in srcs),
                         "sub-batches' position tables differ")
-                t.copy_(srcs[0][key])
+                layer[key] = t
             else:
-                src = torch.cat([c[key] for c in srcs])
-                t.view(batch // len(src), *src.shape).copy_(
-                    src.expand(batch // len(src), *src.shape))
+                n = sum(s[key].shape[0] for s in srcs)
+                out = t.new_empty((batch, *t.shape[1:]))
+                rows = out.view(batch // n, n, *t.shape[1:])
+                r0 = 0
+                for s in srcs:
+                    rows[:, r0:r0 + s[key].shape[0]].copy_(s[key])
+                    r0 += s[key].shape[0]
+                layer[key] = out
+        for s in srcs:
+            s.clear()
+        cache.append(layer)
     return cache
+
+
+@contextlib.contextmanager
+def moe_drops(out):
+    """Inside, each MoE layer's routing appends to ``out`` which of its
+    tokens had an assignment dropped at the expert capacity ([T] bool, on
+    the tokens' device)."""
+    from repro_torch.models import layers as L
+    route = L.moe_route
+
+    def recorded(cfg, p, xf):
+        r = route(cfg, p, xf)
+        out.append((~r.keep).any(-1))
+        return r
+    L.moe_route = recorded
+    try:
+        yield
+    finally:
+        L.moe_route = route
+
+
+def replicas_agree(toks, n, drops=None) -> bool:
+    """Whether each row r of ``toks`` [B, 1 + steps] (the prefill's token,
+    then each decode step's) equals row r mod n, the prompt it was
+    replicated from, up to the first step at which either row had a MoE
+    assignment dropped (``drops`` [steps, B] bool; None: none was).  A
+    decode step's tokens compete for each expert's capacity across the
+    batch, as the reference's do, so a replica can lose an expert its
+    source kept; rows are otherwise independent."""
+    import torch
+    steps = toks.shape[1] - 1
+    first = torch.full((toks.shape[0],), steps)
+    if drops is not None and drops.any():
+        hit = drops.any(0)
+        first[hit] = drops.int().argmax(0)[hit]
+    for r in range(toks.shape[0]):
+        upto = int(min(first[r], first[r % n])) + 1
+        if not torch.equal(toks[r, :upto], toks[r % n, :upto]):
+            return False
+    return True
 
 
 def serve_cell_run(dev, lib, cell, model, profile_run=False) -> dict:
@@ -5895,26 +6077,29 @@ def serve_cell_run(dev, lib, cell, model, profile_run=False) -> dict:
     ``make_decode_step`` on ``model``, the counts set to 0 just before and
     read just after: host ms of the prefill (all sub-batches) and of each
     decode step (each ending in a sync); its outputs on the host for the
-    bit-equality of runs.  With ``profile_run``, a prefill cell's prefill
-    runs under the profiler; a decode cell takes one more decode step
-    under the profiler after the counted ones (its prefill unprofiled).
-    ``profiled_wall_s`` is the host time of what the profiler traced, for
-    the idle share of the same run."""
+    bit-equality of runs.  An encoder-decoder's prefills take
+    :func:`serve_cell_frames`, and the memory they return, replicated with
+    the cache rows, goes to every decode step.  With ``profile_run``, a
+    prefill cell's prefill runs under the profiler; a decode cell takes one
+    more decode step under the profiler after the counted ones (its
+    prefill unprofiled).  ``profiled_wall_s`` is the host time of what the
+    profiler traced, for the idle share of the same run.  With
+    ``profile_run`` a MoE arch's decode steps also record which rows had an
+    assignment dropped at the capacity (``drops`` [steps, B]; the counted
+    steps' times of that run are not reported)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch import steps
-    shape, arch, batch, prompt, n_dec, sub, _ = cell
-    cfg = get_config(arch)
-    plan = steps.default_plan(cfg, shape)
-    seq = steps.SHAPES[shape]["seq"]
+    shape, arch, _, _, prompt, n_dec, sub, _ = cell
+    cfg, _, plan, batch, seq = serve_cell_setup(cell)
     n_prompts = min(batch, DECODE_PROMPTS) if n_dec else batch
     gen = torch.Generator(device=dev).manual_seed(SERVE_CELL_SEED + 1)
     prompts = torch.randint(0, cfg.vocab, (n_prompts, prompt), device=dev,
                             generator=gen, dtype=torch.int32)
+    frames = serve_cell_frames(cfg, n_prompts, plan.param_dtype, dev)
     prefill = steps.make_prefill_step(cfg, plan, seq, sub)
     decode = steps.make_decode_step(cfg, plan)
     prof = profile(activities=[ProfilerActivity.CUDA]) \
@@ -5925,7 +6110,9 @@ def serve_cell_run(dev, lib, cell, model, profile_run=False) -> dict:
             # the clock inside: the profiler's start is not the prefill's
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            parts = [prefill(model, prompts[i:i + sub])
+            parts = [prefill(model, prompts[i:i + sub],
+                             *(() if frames is None
+                               else (frames[i:i + sub],)))
                      for i in range(0, n_prompts, sub)]
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
@@ -5934,20 +6121,29 @@ def serve_cell_run(dev, lib, cell, model, profile_run=False) -> dict:
         prefill_peak = torch.cuda.max_memory_allocated(dev) / 1e9
         last = torch.cat([p[0] for p in parts])[:, -1]        # [n, V]
         tok = last.argmax(-1, keepdim=True).to(torch.int32)
+        memory = torch.cat([p[2] for p in parts]) if cfg.enc_dec else None
         if len(parts) == 1 and batch == n_prompts:
             cache = parts[0][1]
         else:
-            cache = cell_cache(cfg, plan, [p[1] for p in parts], batch, seq,
-                               dev)
-            tok = tok.repeat(batch // n_prompts, 1)
+            cache = cell_cache([p[1] for p in parts], batch)
+            tok = replicate_rows(tok, batch)
+            if memory is not None:
+                memory = replicate_rows(memory, batch)
         del parts
         toks, step_s, logits = [tok], [], None
+        drops = [] if profile_run and cfg.n_experts else None
         for k in range(n_dec):
+            layers = []
             t0 = time.perf_counter()
-            tok, logits, cache = decode(model, tok, cache, prompt + k)
+            with moe_drops(layers) if drops is not None \
+                    else contextlib.nullcontext():
+                tok, logits, cache = decode(model, tok, cache, prompt + k,
+                                            memory)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
             toks.append(tok)
+            if drops is not None:
+                drops.append(torch.stack(layers).any(0))
     res = {"prefill_s": prefill_s, "prefill_peak_gb": prefill_peak,
            "step_s": step_s,
            "launches": dict(lib.LAUNCHES), "plain_calls": plain.n,
@@ -5958,6 +6154,7 @@ def serve_cell_run(dev, lib, cell, model, profile_run=False) -> dict:
            "pos_tab": [c["pos_tab"].to("cpu", copy=True) for c in cache
                        if "pos_tab" in c],
            "pos": [c["pos"] for c in cache],
+           "drops": torch.stack(drops).cpu() if drops else None,
            "profile": prof if profile_run and not n_dec else None,
            "prefill_profiled": profile_run and not n_dec,
            "profiled_wall_s": prefill_s if profile_run and not n_dec
@@ -5966,28 +6163,33 @@ def serve_cell_run(dev, lib, cell, model, profile_run=False) -> dict:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            decode(model, tok, cache, prompt + n_dec)
+            decode(model, tok, cache, prompt + n_dec, memory)
             torch.cuda.synchronize()
             res["profiled_wall_s"] = time.perf_counter() - t0
         res["profile"] = prof
-    del cache
+    del cache, memory
     return res
 
 
 def serve_cell_want(cfg, cell, n_prompts) -> dict:
-    """The exact launches of one run: K3's bf16 prefill once per attention
-    layer per prefill call and its decode once per attention layer per
-    step; K4's bf16 forward once per Mamba layer per prefill call (a
-    decode step is the plain recurrence, as in the reference); nothing
-    else."""
-    _, _, _, _, n_dec, sub, _ = cell
+    """The exact launches of one run, from the model's code: K3's bf16
+    prefill once per attention layer per prefill call and its decode once
+    per attention layer per step; an encoder-decoder's prefill call also
+    runs each encoder layer's self-attention and each decoder layer's
+    cross-attention over the memory (prefills), and its decode step each
+    decoder layer's cross-attention (decodes: one query a KV head); K4's
+    bf16 forward once per Mamba layer per prefill call (a decode step is
+    the plain recurrence, as in the reference); nothing else."""
+    n_dec, sub = cell[5:7]
     calls = -(-n_prompts // sub)
     n_attn, n_ssd = cfg.n_attn_layers, cfg.n_layers - cfg.n_attn_layers
+    per_call = n_attn + (n_attn + cfg.n_enc_layers if cfg.enc_dec else 0)
+    per_step = n_attn * (2 if cfg.enc_dec else 1)
     want = {"ssd_scan_bf16": n_ssd * calls}
     if n_attn:
-        want.update(flash_attention_bf16=n_attn * (calls + n_dec),
-                    flash_attention_bf16_prefill=n_attn * calls,
-                    flash_attention_bf16_decode=n_attn * n_dec)
+        want.update(flash_attention_bf16=per_call * calls + per_step * n_dec,
+                    flash_attention_bf16_prefill=per_call * calls,
+                    flash_attention_bf16_decode=per_step * n_dec)
     return {k: v for k, v in want.items() if v}
 
 
@@ -5997,24 +6199,21 @@ def serve_cell(dev, lib, cell) -> dict:
     bit-equal in the prefill's last logits, the greedy tokens, the last
     decode step's logits and every layer's ``pos_tab`` and ``pos``;
     exact launch counts; replicated decode rows giving equal tokens;
-    finite logits; the peak device memory below the card's, beside the
-    reckoned one.  Prints prefill and decode ms, tok/s and, from a
-    profiled prefill (a prefill cell's last run) or an extra decode step
-    (a decode cell), device ms by class and the idle share against that
-    same prefill's or step's host time.  tok/s and the decode ms come
-    from unprofiled work."""
+    finite logits; the peak device memory below the card's and within
+    ``SERVE_PEAK_REL`` of the reckoned one.  Prints prefill and decode ms,
+    tok/s and, from a profiled prefill (a prefill cell's last run) or an
+    extra decode step (a decode cell), device ms by class and the idle
+    share against that same prefill's or step's host time.  tok/s and the
+    decode ms come from unprofiled work."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.launch import steps
     from repro_torch.models import transformer as T
-    shape, arch, batch, prompt, n_dec, sub, reckoned = cell
-    cfg = get_config(arch)
-    require(steps.skip_reason(cfg, shape) is None, f"{shape} skips {arch}")
+    shape, arch, _, _, prompt, n_dec, sub, reckoned = cell
+    cfg, full, plan, batch, _ = serve_cell_setup(cell)
     n = min(batch, DECODE_PROMPTS) if n_dec else batch
     require(n % sub == 0 and batch % n == 0,
             f"{shape} {arch}: batch {batch}, sub-batch {sub}")
-    plan = steps.default_plan(cfg, shape)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -6049,7 +6248,8 @@ def serve_cell(dev, lib, cell) -> dict:
     require(same, f"{shape} {arch}: the two runs differ")
     toks = first["tokens"]
     n = first["n_prompts"]
-    replicated = bool(torch.equal(toks, toks[:n].repeat(batch // n, 1)))
+    drops = runs[-1]["drops"]
+    replicated = replicas_agree(toks, n, drops)
     require(replicated, f"{shape} {arch}: replicated rows' tokens differ")
     require(bool(torch.isfinite(first["last"]).all()) and (
         first["final_logits"] is None
@@ -6075,6 +6275,7 @@ def serve_cell(dev, lib, cell) -> dict:
            "prompt": prompt, "cache_slots": steps.SHAPES[shape]["seq"],
            "decode_steps": n_dec, "distinct_prompts": n,
            "prefill_sub_batch": sub, "layers": cfg.n_layers,
+           "full_layers": full.n_layers, "encoder_layers": cfg.n_enc_layers,
            "weights_gb": sum(p.numel() * p.element_size()
                              for p in model.parameters()) / 1e9,
            "init_s": init_s, "runs": repeats,
@@ -6091,6 +6292,10 @@ def serve_cell(dev, lib, cell) -> dict:
            "card_gb": total, "launches": first["launches"],
            "expected_launches": want, "bit_identical_runs": same,
            "replicated_rows_equal": replicated,
+           "rows_with_dropped_assignments": None if drops is None
+           else int(drops.any(0).sum()),
+           "first_drop_step": None if drops is None or not drops.any()
+           else int(drops.any(1).int().argmax()),
            "profiled": "decode step" if n_dec else "prefill",
            "device_ms": dev_ms, "device_ms_by_class": by_class,
            "profiled_wall_ms": wall_ms,
@@ -6100,6 +6305,8 @@ def serve_cell(dev, lib, cell) -> dict:
     emit(out)
     print(f"{shape} {arch} prefill_ms {out['prefill_ms']} decode_ms "
           f"{median_ms} peak_gb {peak:.2f} (reckoned {reckoned})", flush=True)
+    require(abs(peak / reckoned - 1) <= SERVE_PEAK_REL,
+            f"{shape} {arch}: peak {peak} GB, reckoned {reckoned}")
     del model, runs, prof
     gc.collect()
     torch.cuda.empty_cache()
@@ -6121,9 +6328,10 @@ def run_serve_cells(dev, lib) -> dict:
 
 
 def cells_main() -> int:
-    """``--cells``: the build, phase 2c (K3 at danube's long shapes, the
-    bounded walk against the full walk also at ``long_500k``, and K4 past
-    2^31) and phase 17 (``SERVE_CELLS``) alone."""
+    """``--cells``: the build, phase 2c (K3 at the cells' long prefill and
+    decode shapes, the bounded walk against the full walk also at
+    ``long_500k``, and K4 past 2^31) and phase 9c (``SERVE_CELLS``)
+    alone."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -6145,6 +6353,54 @@ def cells_main() -> int:
     emit({"phase": "ssd_bf16_past_2_31", **check_ssd_past_2_31(dev)})
     emit({"phase": "ssd_bf16_cell_times", **time_ssd_cells(dev)})
     run_serve_cells(dev, lib)
+    return 0
+
+
+def cells_against_main(src: str) -> int:
+    """``--cells-against SRC``: the ``decode_32k`` cells of the
+    ``chip_smoke.py`` in ``SRC`` (an earlier tree, e.g. unpacked by ``git
+    archive``), each run once by that script's runner and once by this
+    one on one model (this tree's port): the prefill's last logits, the
+    tokens and the last step's logits equal bit for bit, each run's peak
+    printed (the runners differ in how they build the replicated cache)."""
+    import importlib.util
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _lib as lib
+    from repro_torch.models import transformer as T
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_src", Path(src).resolve() / "chip_smoke.py")
+    old = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(old)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device("cuda", 0)
+    lib.build_all()
+    for cell in SERVE_CELLS:
+        prior = [c for c in old.SERVE_CELLS if c[:2] == cell[:2]]
+        if cell[0] != "decode_32k" or not prior:
+            continue
+        cfg, _, plan, _, _ = serve_cell_setup(cell)
+        model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(
+            SERVE_CELL_SEED), dtype=plan.param_dtype)
+        out = {"phase": "cell_against", "src": src, "shape": cell[0],
+               "arch": cell[1]}
+        runs = []
+        for name, run in (("src", lambda: old.serve_cell_run(
+                dev, lib, prior[0], model)), ("this", lambda: serve_cell_run(
+                    dev, lib, cell, model))):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            runs.append(run())
+            out[f"{name}_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["equal"] = all(torch.equal(runs[0][k], runs[1][k])
+                           for k in ("last", "tokens", "final_logits"))
+        emit(out)
+        require(out["equal"], f"{cell[0]} {cell[1]}: the runners differ")
+        del model, runs
     return 0
 
 
@@ -6686,7 +6942,7 @@ def main() -> int:
          **{key: {k: t[k] for k in ATTN_TIME_KEYS}
             | {"live_slots": t["live_slots"]}
             for key, t in k3_bf16.items() if key != "yi-34b_prefill"},
-         **{f"h2o-danube-3-4b_{key}": t for key, t in k3_long.items()
+         **{f"prefill {key}": t for key, t in k3_long.items()
             if isinstance(t, dict)},
          **{f"decode {key}": t for key, t in k3_dec.items()}},
         {"name": "ssd_scan_bf16", "route": "cuda",
@@ -6836,6 +7092,8 @@ if __name__ == "__main__":
         sys.exit(k3_bwd_ablations_main())
     if sys.argv[1:2] == ["--cells"]:
         sys.exit(cells_main())
+    if sys.argv[1:2] == ["--cells-against"]:
+        sys.exit(cells_against_main(sys.argv[2]))
     if sys.argv[1:2] == ["--train-cells"]:
         sys.exit(train_cells_main())
     sys.exit(main())

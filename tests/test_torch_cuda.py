@@ -1839,6 +1839,12 @@ def test_prefill_bounded_walk_equals_full_walk_at_prefill_32k(dev, dtype):
     (64, 9, 3, 64, 32768, 32767, None),      # smollm decode_32k
     (128, 32, 8, 120, 4096, 32767, 4096),    # danube decode_32k, ring
     (1, 32, 8, 120, 4096, 524287, 4096),     # danube long_500k, ring
+    (64, 12, 2, 128, 32768, 32767, None),    # qwen2-vl decode_32k, GQA 6
+    (8, 32, 32, 64, 32768, 32767, None),     # stablelm decode_32k, MHA
+    (8, 20, 20, 64, 32768, 32767, None),     # whisper decode_32k, self
+    (32, 56, 8, 128, 32768, 32767, None),    # yi decode_32k, GQA 7
+    (128, 32, 8, 128, 4096, 32767, 4096),    # mixtral decode_32k, ring
+    (64, 48, 8, 128, 32768, 32767, None),    # dbrx decode_32k, GQA 6
 ])
 def test_bf16_decode_at_the_serving_cells(dev, b, hq, hk, d, slots, pos,
                                           window):
@@ -1846,7 +1852,9 @@ def test_bf16_decode_at_the_serving_cells(dev, b, hq, hk, d, slots, pos,
     rows over 32,768 slots in order (8 splits of 64 tiles at 132
     multiprocessors), and h2o-danube-3-4b's 4,096-slot ring wrapped at
     positions 32,767 (128 rows) and 524,287 (1 row), the table as the
-    cache holds it; within ``BF16_ULPS`` of the plain version over every
+    cache holds it; then the other decode cells' (qwen2-vl-2b, stablelm-1.6b,
+    whisper-large-v3's self-attention, yi-34b, mixtral-8x7b's ring,
+    dbrx-132b); within ``BF16_ULPS`` of the plain version over every
     slot."""
     gen = torch.Generator(device=dev).manual_seed(13)
     q, k, v = (torch.randn(b, t, h, d, device=dev, generator=gen).bfloat16()
@@ -1859,6 +1867,24 @@ def test_bf16_decode_at_the_serving_cells(dev, b, hq, hk, d, slots, pos,
     assert _lib.LAUNCHES["flash_attention_bf16_decode"] == before + 1
     exp = attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=True,
                         window=window)
+    _assert_bf16_rows_close(got, exp)
+
+
+def test_bf16_cross_decode_at_the_whisper_cell(dev):
+    """K3's bf16 decode of whisper-large-v3's ``decode_32k`` cell's
+    cross-attention: 8 rows of 20 heads at position 32,767 over the 1,500
+    frames, non-causal (every frame live), one decode launch, within
+    ``BF16_ULPS`` of the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q, k, v = (torch.randn(8, t, 20, 64, device=dev, generator=gen)
+               .bfloat16() for t in (1, 1500, 1500))
+    k_pos = torch.arange(1500, dtype=torch.int32, device=dev)
+    q_pos = torch.tensor([32767], dtype=torch.int32, device=dev)
+    before = _lib.LAUNCHES["flash_attention_bf16_decode"]
+    got = fa_ops.flash_attention_cuda(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                                      causal=False)
+    assert _lib.LAUNCHES["flash_attention_bf16_decode"] == before + 1
+    exp = attention_ref(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=False)
     _assert_bf16_rows_close(got, exp)
 
 
