@@ -22,10 +22,13 @@
    library's ``sketch_insert_smem_bytes(d, m, L)`` at every d in {1, 2,
    4, 8}, m in {16, 64, 257, 1,024, 4,096} and L in {8, 33, 256, 1,024,
    2,048, 4,096} (those that fit a block counted apart) and at the default
-   and pod geometries; in ``cuobjdump -sass`` of all four libraries no
-   kernel may have an ``ATOM``, ``ATOMS``, ``ATOMG`` or ``RED`` on
-   ``F16``, ``BF16``, ``F32`` or ``F64``, and the kernels with integer
-   atomics must be exactly those each ``ops.AUDIT["int_atomics"]`` lists;
+   and pod geometries, and ``sketch_update.layout.bytes_placed`` the
+   library's shared and scratch bytes of the device-memory variant at
+   each of those geometries' placements; in ``cuobjdump -sass`` of all
+   four libraries no kernel may have an ``ATOM``, ``ATOMS``, ``ATOMG`` or
+   ``RED`` on ``F16``, ``BF16``, ``F32`` or ``F64``, and the kernels with
+   integer atomics must be exactly those each ``ops.AUDIT["int_atomics"]``
+   lists;
    ``examples/torch_quickstart.py`` on the card must print the CPU run's
    verdict lines and launch K1 once;
 2. holds each kernel against its plain torch version on the card: the
@@ -35,14 +38,18 @@
    geometry (d=2, m=1024, H=4, L=2048) filled until it evicts, keys that
    share their home slot in the key index; integer state and drain
    exact, float statistics bit-equal; a state that breaks the Stage-2
-   precondition must raise) and the FailRank kernel (one step: s within
-   1e-5, L exact; the whole iteration at n = 68, 260 and 1,028 against the
-   plain loop, at 68 and 260 also with W and L forced into device memory:
-   steps equal to the reference's Pallas count, ``REFERENCE``, on every
-   path, s and L within 1e-5, or 1e-4 when the step counts differ; the
-   device-memory path's last residual at n = 1,028 equal to that of its
-   order's CPU mirror, ``failrank_iterate_ordered``); then flash
-   attention through both its entry points
+   precondition must raise; its device-memory variant at d = 2 and 4, m =
+   4,096 and at L = 8,192, filled until it evicts, the default and pod
+   geometries forced into it bit-equal to the shared-memory kernel, and a
+   launch mixing the two paths) and the FailRank kernel (one step: s
+   within 1e-5, L exact; the whole iteration at n = 68, 260 and 1,028
+   against the plain loop, at 68 and 260 also with W and L forced into
+   device memory: steps equal to the reference's Pallas count,
+   ``REFERENCE``, on every path, s and L within 1e-5, or 1e-4 when the
+   step counts differ; the device-memory path's last residual at n =
+   1,028 equal to that of its order's CPU mirror,
+   ``failrank_iterate_ordered``); then flash attention through both its
+   entry points
    (f32 test shapes, a smollm-135m prefill of 4×512, decodes over a
    rolled, partly empty 1,024-slot cache and over the serve run's own
    fill, with and without a window, splits wholly empty or wholly outside
@@ -157,12 +164,32 @@
    with a record, one per post-hoc recording of the launcher's streaming
    gate), K2, K3 and K4 never; every judged field must equal the JAX
    reference's pins (scores within ``rel=1e-5``); the thread (4 workers)
-   and process (4 workers) executors must give ``==`` outcomes; the grid
+   and process (4 workers) executors, run at the same time, must give
+   ``==`` outcomes; the grid
    of ``tests/data/mesh_campaign_baseline.json`` must be reproduced on the
    card; prints each scenario's simulate / analyse / mitigate seconds, a
    profile of the core scenario (device ms, idle share), and K1 per
    streamed chunk from a carried state (and from a fresh state) beside
    one launch over the whole trace;
+6b. runs SLOTH's own evaluation grid (``SLOTH_GRID_PINS``, the JAX
+   reference's results, read as data) through ``launch.campaign.main``
+   and the campaign's shared deployment cache, SLOTH alone, the batched
+   recorder, serial: grid A, five workloads × the 8×8 mesh, torus,
+   systolic array and heterogeneous mesh × core, link, router and none at
+   10× (80 scenarios); grid B, resnet50 and darknet19 on the Fig 16/17
+   meshes 4×4, 6×6 and 8×4, core and link, two replicates (24); every
+   scenario's truths, verdict, truth ranks, ranking, FailRank iterations,
+   compression and makespan equal to the pins (scores within
+   ``rel=1e-5``); K1 exactly once a scenario (both sketches, as the traces
+   imply), K2-K4 never; then Fig 13's 18 sketch geometries recorded over
+   the healthy darknet19 4×4 run (ratios and every decoded pattern equal
+   to the reference's ``record``; the two past shared memory in K1's
+   device-memory variant) and one ``Sloth.detect`` at d=4, m=4,096 (the
+   variant); no plain version called; prints each fabric's and mesh's
+   accuracy, FPR and mean compression, and times K1 at d = 2 and 4, m =
+   4,096 and at the default geometry on both paths (each result against
+   one plain run of its geometry; the bound counts the function's bytes,
+   and the variant's copy into its scratch and back stands beside it);
 7. drives the serving path, ``repro_torch.launch.serve.main``, at full
    width and depth for smollm-135m (30 attention layers), mamba2-1.3b
    (48 SSD layers), qwen2-vl-2b (28 attention layers, M-RoPE),
@@ -829,6 +856,90 @@ def check_sketch_kernel(dev):
     require(all(raised), f"broken states raised: {raised}")
     cases.append({"case": "broken Stage-2 precondition raises",
                   "raised": raised})
+    cases += check_sketch_variant(dev)
+    return cases
+
+
+def check_sketch_variant(dev):
+    """K1's device-memory variant against the plain version: the paper's
+    Fig 13 geometries past shared memory (d = 2 and 4 at m = 4,096, L =
+    1,024) and L = 8,192 (32-bit slots) filled until they evict; the
+    default and pod geometries forced into the variant, bit-equal to the
+    shared-memory kernel; a launch mixing both paths (one launch each)."""
+    import torch
+
+    from repro_torch.core.sketch import SketchParams
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.sketch_update import layout, ops, ref
+    keys = ("sketch_insert_runs", "sketch_insert_runs_device")
+
+    def job(p, seed, n, n_keys):
+        return (ref.make_state(p, dev), ref.make_drain(n, dev),
+                tuple(torch.from_numpy(x).to(dev)
+                      for x in random_runs(seed, n, n_keys)), p)
+
+    def run(jobs, force=False):
+        before = [_lib.LAUNCHES[k] for k in keys]
+        got, status = ops._launch(jobs, [layout.placement(
+            p.d, p.m, p.L, force=force) for *_, p in jobs])
+        ops.raise_on_status(status)
+        return got, [_lib.LAUNCHES[k] - b for k, b in zip(keys, before)]
+
+    def plain_err(got, jobs):
+        # the plain version on the host: the same arithmetic, a Python loop
+        # that runs faster there than as small launches on the card
+        err = 0.0
+        for (st_k, dr_k), (st0, dr0, args, p) in zip(got, jobs):
+            st_p, dr_p = ref.insert_runs_plain(
+                {k: v.cpu() for k, v in st0.items()},
+                {k: v.cpu() for k, v in dr0.items()},
+                *[a.cpu() for a in args], H=p.H)
+            err = max(err, max_abs_err(st_k, st_p), max_abs_err(dr_k, dr_p))
+        return err
+
+    cases = []
+    for seed, (d, m, H, L), n, n_keys in (
+            (30, (2, 4096, 2, 1024), 4000, 3000),
+            (31, (4, 4096, 2, 1024), 4000, 3000),
+            (32, (8, 65536, 2, 8192), 12000, 60000)):
+        p = SketchParams(d=d, m=m, H=H, L=L)
+        jobs = [job(p, seed, n, n_keys)]
+        got, launched = run(jobs)
+        err = plain_err(got, jobs)
+        drained = int(got[0][1]["d_n"])
+        require(err == 0.0 and launched == [0, 1] and drained > 0,
+                f"K1 variant at {p}: gap {err}, launches {launched}, "
+                f"drained {drained}")
+        cases.append({"params": [d, m, H, L], "runs": n,
+                      "case": "device-memory variant",
+                      "device_sections": list(layout.moved(
+                          layout.placement(d, m, L))),
+                      "drained": drained, "max_abs_err": err})
+    for seed, p in ((33, SketchParams()), (34, SketchParams(d=2, m=1024,
+                                                            H=4, L=2048))):
+        jobs = [job(p, seed, 5000, 4000)]
+        forced, launched = run(jobs, force=True)
+        shared, launched_s = run(jobs)
+        same = all(torch.equal(a[k], b[k]) for x, y in zip(forced, shared)
+                   for a, b in zip(x, y) for k in a)
+        require(same and launched == [0, 1] and launched_s == [1, 0],
+                f"forced variant at {p}: equal {same}, launches "
+                f"{launched} / {launched_s}")
+        cases.append({"params": [p.d, p.m, p.H, p.L], "runs": 5000,
+                      "case": "forced into the variant, bit-equal to the "
+                              "shared-memory kernel",
+                      "device_sections": list(layout.moved(
+                          layout.placement(p.d, p.m, p.L, force=True))),
+                      "drained": int(shared[0][1]["d_n"])})
+    jobs = [job(SketchParams(), 35, 600, 300),
+            job(SketchParams(d=4, m=4096, H=8, L=1024), 36, 700, 400),
+            job(SketchParams(d=3, m=64, H=2, L=8), 37, 400, 80)]
+    got, launched = run(jobs)
+    err = plain_err(got, jobs)
+    require(err == 0.0 and launched == [1, 1],
+            f"mixed batch: gap {err}, launches {launched}")
+    cases.append({"case": "mixed batch, one launch of each path",
+                  "launches": dict(zip(keys, launched)), "max_abs_err": err})
     return cases
 
 
@@ -1626,13 +1737,14 @@ def campaign_traces(res, dev):
 
 def campaign_k1_launches(traces, n_chunks) -> int:
     """K1 launches the campaign implies: one per streamed chunk that holds
-    a record, one per post-hoc recording of a non-empty trace."""
+    a record (``n_chunks`` 0: not streamed), one per post-hoc recording of
+    a non-empty trace."""
     from repro_torch.core.streaming import split_sim
 
     def live(sim):
         return bool(len(sim.comp["core"]) or len(sim.comm["src"]))
-    return sum(sum(live(c) for c in split_sim(sim, n_chunks)) + live(sim)
-               for _, sim in traces)
+    return sum((sum(live(c) for c in split_sim(sim, n_chunks))
+                if n_chunks else 0) + live(sim) for _, sim in traces)
 
 
 def k1_stream_times(p, ipt, hop, chunks_in, sim, dev, reps=5):
@@ -1766,6 +1878,7 @@ def run_campaign_phase(dev, lib) -> dict:
     """Phase 6; returns K1's campaign numbers for the kernels line."""
     import contextlib
     import io
+    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.core.streaming import split_sim
     from repro_torch.launch import campaign as launch
@@ -1801,28 +1914,40 @@ def run_campaign_phase(dev, lib) -> dict:
                             for d in o.detector_results},
               "mitigate_s": sum(m.wall_time for m in o.mitigation_results)})
 
-    same = {}
-    for executor, workers in (("thread", "4"), ("process", "4")):
-        lib.reset_launches()
+    def run_with(executor, workers):
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            other = launch.main(CAMPAIGN_ARGV + ["--executor", executor,
-                                                 "--workers", workers])
+        out = launch.main(CAMPAIGN_ARGV + ["--executor", executor,
+                                           "--workers", workers])
+        return out, {"workers": int(workers),
+                     "wall_s": time.perf_counter() - t0}
+
+    # the process executor's spawned workers (their own processes and CUDA
+    # contexts; its launcher here launches nothing) run while the thread
+    # executor runs in this one: both walls are concurrent ones
+    lib.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            ThreadPoolExecutor(max_workers=1) as background:
+        by_process = background.submit(run_with, "process", "4")
+        others = {"thread": run_with("thread", "4")}
+        thread_k1 = lib.LAUNCHES["sketch_insert_runs"]
+        others["process"] = by_process.result()
+    same = {}
+    for executor, (other, info) in others.items():
         for label in ("campaign", "posthoc"):
             require(other[label].outcomes == serial[label].outcomes,
                     f"{executor} executor: {label} outcomes differ from "
                     f"serial")
-        same[executor] = {"workers": int(workers),
-                          "wall_s": time.perf_counter() - t0,
-                          "k1_launches_here": lib.LAUNCHES[
-                              "sketch_insert_runs"]}
-        # the thread executor launches from this process, four threads at
-        # once: no count may be lost; process workers count in their own
-        require(executor == "process"
-                or same[executor]["k1_launches_here"] == implied,
-                f"thread executor counted {lib.LAUNCHES['sketch_insert_runs']}"
-                f" K1 launches, {implied} implied")
-    emit({"phase": "campaign_executors_bit_identical", **same})
+        same[executor] = info
+    same["thread"]["k1_launches_here"] = thread_k1
+    same["process"]["k1_launches_here"] = \
+        lib.LAUNCHES["sketch_insert_runs"] - thread_k1
+    # the thread executor launches from this process, four threads at
+    # once: no count may be lost; process workers count in their own
+    require(lib.LAUNCHES["sketch_insert_runs"] == implied,
+            f"thread executor counted {lib.LAUNCHES['sketch_insert_runs']} "
+            f"K1 launches, {implied} implied")
+    emit({"phase": "campaign_executors_bit_identical", "concurrent": True,
+          **same})
 
     snapshot = check_snapshot_on_card(dev)
     emit({"phase": "campaign_snapshot_on_card", **snapshot})
@@ -1842,6 +1967,362 @@ def run_campaign_phase(dev, lib) -> dict:
             "campaign_chunk_ms": [c["ms"] for c in k1["per_chunk"]],
             "campaign_chunks_ms": k1["chunks_ms"],
             "campaign_whole_trace_ms": k1["whole_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: SLOTH's evaluation grid
+# ---------------------------------------------------------------------------
+
+#: The JAX reference's results on SLOTH's own evaluation grid (grid A:
+#: five workloads × four fabrics at 8×8, four kinds; grid B: the Fig 16/17
+#: meshes 4×4, 6×6 and 8×4; Fig 13's eighteen sketch geometries; one
+#: detect at d=4, m=4,096), read as data: ``python
+#: tests/test_torch_sloth_grid.py`` writes it from the reference on the CPU.
+SLOTH_GRID_PINS = ROOT / "tests" / "data" / "sloth_grid_pins.json"
+
+#: The outcome fields held exactly (the score and the ranking's scores at
+#: ``rel=1e-5``, as ``CAMPAIGN_PINS``; a ranking's entries may trade places
+#: only where their scores are that close).
+GRID_EXACT = ("id", "workload", "mesh", "kind", "rep", "sim_seed", "truths",
+              "compression", "total_time", "flagged", "pred_kind",
+              "pred_location", "matched", "truth_rank", "truth_ranks",
+              "iterations")
+GRID_SCORE_REL = 1e-5
+
+
+def grid_argv(g: dict) -> list:
+    """``launch.campaign`` flags for a pinned grid: ``--tiny`` keeps one
+    replicate, the full grid two (the launcher's own reps); serial."""
+    require(g["reps"] in (1, 2), f"grid reps {g['reps']}")
+    argv = (["--tiny"] if g["reps"] == 1 else []) + [
+        "--seed", str(g["campaign_seed"]), "--recorder-impl", "batched",
+        "--workers", "0"]
+    for flag, key in (("--workload", "workloads"), ("--mesh", "meshes"),
+                      ("--kinds", "kinds"), ("--severities", "severities")):
+        for v in g[key]:
+            argv += [flag, str(v)]
+    return argv
+
+
+class VerdictTap:
+    """Keeps each ``Sloth.analyse`` call's trace and verdict, in call order
+    (a serial SLOTH-only campaign analyses each scenario once, in order):
+    the ranking and FailRank's iterations, which an outcome does not
+    carry, and the traces K1's launches are derived from.  The call itself
+    is unchanged.  ``cls``: the ``Sloth`` to tap (the port's by default;
+    the CPU tests tap the reference's too)."""
+
+    def __init__(self, cls=None):
+        if cls is None:
+            from repro_torch.core.sloth import Sloth as cls
+        self.cls, self.seen = cls, []
+
+    def __enter__(self):
+        analyse = self.analyse = self.cls.analyse
+
+        def tapped(pipeline, sim):
+            v = analyse(pipeline, sim)
+            self.seen.append((sim, v))
+            return v
+        self.cls.analyse = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.analyse = self.analyse
+
+
+def grid_record(o, v) -> dict:
+    """A scenario's judged fields in ``SLOTH_GRID_PINS``' layout."""
+    d = o.detector_results[0]
+    return json.loads(json.dumps({
+        "id": o.scenario_id, "workload": o.workload,
+        "mesh": f"{o.topology}:{o.mesh_w}x{o.mesh_h}", "kind": o.kind,
+        "rep": o.rep, "sim_seed": o.sim_seed,
+        "truths": [[k, l, t, du, s] for k, l, t, du, s in zip(
+            o.truth_kinds, o.truth_locations, o.truth_t0s,
+            o.truth_durations, o.truth_severities)],
+        "compression": o.compression_ratio, "total_time": o.total_time,
+        "flagged": d.flagged, "pred_kind": d.pred_kind,
+        "pred_location": d.pred_location, "score": d.score,
+        "matched": d.matched, "truth_rank": d.truth_rank,
+        "truth_ranks": list(d.truth_ranks),
+        "ranking": [[k, l, s] for k, l, s in v.ranking],
+        "iterations": v.failrank.iterations}))
+
+
+def recording_record(r) -> dict:
+    """A recording's compression ratio and decoded patterns (key, count,
+    sum, sum of squares, value, first and last time, arrival, minimum) in
+    ``SLOTH_GRID_PINS``' layout."""
+    def rows(patterns):
+        return [[q.key, q.count, q.sum_dur, q.sum_sq_dur, q.sum_val,
+                 q.t_first, q.t_last, q.arrival, q.min_dur]
+                for q in patterns]
+    return json.loads(json.dumps({"compression": r.compression_ratio,
+                                  "comp": rows(r.comp_patterns),
+                                  "comm": rows(r.comm_patterns)}))
+
+
+def rel_gap(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def same_ranking(got: list, exp: list) -> bool:
+    """Entries in order, scores within ``GRID_SCORE_REL``; two may trade
+    places only where their scores are that close."""
+    if len(got) != len(exp) or sorted(tuple(x[:2]) for x in got) \
+            != sorted(tuple(x[:2]) for x in exp):
+        return False
+    return all(rel_gap(g[2], e[2]) <= GRID_SCORE_REL and (
+        g[:2] == e[:2] or any(x[:2] == g[:2]
+                              and rel_gap(x[2], e[2]) <= GRID_SCORE_REL
+                              for x in exp)) for g, e in zip(got, exp))
+
+
+def grid_outcome_gaps(got: dict, exp: dict) -> list:
+    """The fields in which a scenario's record departs from its pin:
+    ``GRID_EXACT`` exactly, the score and ranking at ``GRID_SCORE_REL``."""
+    bad = [f for f in GRID_EXACT if got[f] != exp[f]]
+    if rel_gap(got["score"], exp["score"]) > GRID_SCORE_REL:
+        bad.append("score")
+    if not same_ranking(got["ranking"], exp["ranking"]):
+        bad.append("ranking")
+    return bad
+
+
+def check_grid_outcome(got: dict, exp: dict) -> float:
+    """Hold one scenario to its pin; returns its score's relative gap."""
+    bad = grid_outcome_gaps(got, exp)
+    require(not bad, f"grid scenario {exp['id']} ({exp['mesh']} "
+                     f"{exp['workload']} {exp['kind']} rep {exp['rep']}): "
+                     f"{ {f: (got[f], exp[f]) for f in bad} }")
+    return rel_gap(got["score"], exp["score"])
+
+
+def grid_aggregates(outcomes, key) -> dict:
+    """The campaign metrics' accuracy, FPR and mean compression per group
+    of outcomes (``key``: the fabric or the mesh)."""
+    from repro_torch.core.metrics import aggregate
+    groups = {}
+    for o in outcomes:
+        groups.setdefault(key(o), []).append(o)
+    out = {}
+    for k, sub in groups.items():
+        m = aggregate(sub)
+        out[k] = {"accuracy_pct": m.accuracy.pct(),
+                  "accuracy": [m.accuracy.successes, m.accuracy.trials],
+                  "fpr_pct": m.fpr.pct(),
+                  "fpr": [m.fpr.successes, m.fpr.trials],
+                  "mean_compression": m.mean_compression}
+    return out
+
+
+def k1_grid_times(dep, sim, dev, smem_access_ms=None, reps=5) -> dict:
+    """K1 on the Fig 13 input's runs (both sketches, one launch): at d = 2
+    and 4, m = 4,096 (the device-memory variant), and at the default
+    geometry on the shared-memory kernel and forced into the variant; CUDA
+    events behind a device spin (``timed``).  The bound: the bytes the
+    function must move (runs read once, both states in and out, the
+    drain) over the memory rate.  The variant's copy of its sections into
+    its scratch and back is its own traffic, not the function's: it stands
+    beside the bound as ``scratch_copy_bytes``.  And, given
+    ``smem_access_ms`` (one dependent shared-memory load, from the probe),
+    the bound of the longer serial chain as phase 4 reckons it
+    (``serial_chain_bound_ms``: a run with records a step of Stage 1, and
+    Stage 2's promoted runs are some of those; for the variant a lower
+    bound, its Stage 1 reading device memory).  Each result against the
+    plain version on the host (exact), run once a geometry; its time is
+    ``plain_ms``."""
+    from repro_torch.core.sketch import SketchParams
+    from repro_torch.kernels.sketch_update import layout
+    from repro_torch.kernels.sketch_update import ops as sk_ops
+    from repro_torch.kernels.sketch_update import ref as sk_ref
+    inputs = sketch_inputs(dep.sloth, sim, dev)
+    chain = max(int((args[2] > 0).sum()) for args in inputs.values())
+    out, plains = {}, {}
+    for label, p, force in (("d2_m4096", SketchParams(d=2, m=4096, H=8,
+                                                      L=1024), False),
+                            ("d4_m4096", SketchParams(d=4, m=4096, H=8,
+                                                      L=1024), False),
+                            ("default_shared", SketchParams(), False),
+                            ("default_variant", SketchParams(), True)):
+        jobs = [(sk_ref.make_state(p, dev),
+                 sk_ref.make_drain(args[0].shape[0], dev), tuple(args), p)
+                for args in inputs.values()]
+        place = layout.placement(p.d, p.m, p.L, force=force)
+        t = timed(lambda: sk_ops._launch(jobs, [place] * len(jobs)), reps)
+        got, status = sk_ops._launch(jobs, [place] * len(jobs))
+        sk_ops.raise_on_status(status)
+        if p not in plains:
+            host = [({k: v.cpu() for k, v in st.items()},
+                     {k: v.cpu() for k, v in dr.items()},
+                     [a.cpu() for a in args]) for st, dr, args, _ in jobs]
+            exp = {}
+            ms = host_ms(lambda: exp.setdefault("r", [
+                sk_ref.insert_runs_plain(st, dr, *args, H=p.H)
+                for st, dr, args in host]))
+            plains[p] = (exp["r"], ms)
+        exp, plain = plains[p]
+        err = max(max(max_abs_err(a, b), max_abs_err(c, e))
+                  for (a, c), (b, e) in zip(got, exp))
+        require(err == 0.0, f"K1 at {p} (forced {force}): gap {err}")
+        scratch = 0 if place is None else layout.bytes_placed(
+            p.d, p.m, p.L, True, place)[1]
+        state_b = sum(x.numel() * x.element_size() for x in jobs[0][0]
+                      .values())
+        nbytes = sum(sum(a.numel() * a.element_size() for a in args)
+                     + 2 * state_b + 40 * args[0].shape[0] + 8
+                     for args in inputs.values())
+        out[label] = {"params": [p.d, p.m, p.H, p.L],
+                      "device_sections": list(layout.moved(place)),
+                      "ms": t["ms"], "events_ms": t["events_ms"],
+                      "ahead": t["ahead"], "max_abs_err": err,
+                      "plain_ms": plain, "chain_accesses": chain,
+                      "serial_chain_bound_ms": None if smem_access_ms
+                      is None else chain * smem_access_ms,
+                      **{k: v for k, v in bound(nbytes, 0).items()
+                         if k in ("bound_ms", "bound_by", "bytes")},
+                      "scratch_copy_bytes": 2 * scratch * len(inputs),
+                      "runs": {side: int(a[0].shape[0])
+                               for side, a in inputs.items()}}
+    return out
+
+
+def run_sloth_grid_phase(dev, lib, smem_access_ms=None) -> dict:
+    """Phase 6b: SLOTH's evaluation grid through ``launch.campaign.main``
+    (grids A and B) and ``record`` / ``Sloth.detect`` (Fig 13), every
+    deployment from the campaign's shared cache, held to
+    ``SLOTH_GRID_PINS``; K1 launches exact (one per recorded scenario for
+    both sketches), the device-memory variant for the Fig 13 geometries
+    past shared memory, no plain version called.  Returns K1's numbers
+    for the kernels line."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.core import campaign as C
+    from repro_torch.core.failures import FailSlow
+    from repro_torch.core.graph import build_workload
+    from repro_torch.core.recorder import record
+    from repro_torch.core.routing import Mesh2D
+    from repro_torch.core.sketch import SketchParams
+    from repro_torch.core.sloth import Sloth, SlothConfig
+    from repro_torch.kernels.sketch_update import layout
+    from repro_torch.kernels.sketch_update import ref as sk_ref
+    from repro_torch.launch import campaign as launch
+    t_phase = time.perf_counter()
+    pins = json.loads(SLOTH_GRID_PINS.read_text())
+    keys = ("sketch_insert_runs", "sketch_insert_runs_device")
+    plain = (sk_ref, "insert_runs_plain"), (sk_ref, "insert_runs_indexed")
+    lib.reset_launches()
+    worst, grids = 0.0, {}
+    with PlainCalls(*plain) as plain_calls:
+        for name, g in pins["grids"].items():
+            argv = grid_argv(g)
+            t0 = time.perf_counter()
+            with VerdictTap() as tap, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                res = launch.main(argv)["campaign"]
+            wall = time.perf_counter() - t0
+            exp = pins["outcomes"][name]
+            require(len(res.outcomes) == len(exp) == len(tap.seen),
+                    f"grid {name}: {len(res.outcomes)} outcomes, "
+                    f"{len(tap.seen)} verdicts, {len(exp)} pins")
+            for o, (_, v), e in zip(res.outcomes, tap.seen, exp):
+                worst = max(worst, check_grid_outcome(grid_record(o, v), e))
+            implied = campaign_k1_launches(
+                [(None, sim) for sim, _ in tap.seen], 0)
+            grids[name] = {"argv": argv, "scenarios": len(res.outcomes),
+                           "wall_s": wall, "k1_launches_implied": implied}
+            key = (lambda o: o.topology) if name == "A" \
+                else (lambda o: f"{o.mesh_w}x{o.mesh_h}")
+            emit({"phase": "sloth_grid", "grid": name, **grids[name],
+                  "by_fabric" if name == "A" else "by_mesh":
+                      grid_aggregates(res.outcomes, key)})
+        launches = {k: lib.LAUNCHES[k] for k in keys}
+        implied = sum(g["k1_launches_implied"] for g in grids.values())
+        require(launches == {keys[0]: implied, keys[1]: 0},
+                f"grids A and B: K1 launches {launches}, implied "
+                f"{implied} on the shared-memory kernel")
+        require(all(lib.LAUNCHES[k] == 0 for k in lib.LAUNCHES
+                    if k not in keys), "the grid launched K2, K3 or K4")
+
+        # C: Fig 13's geometries over the healthy darknet19 4x4 run
+        fig = pins["fig13"]
+        dep = C._DEFAULT_CACHE.get(fig["input"]["workload"], 4, 4,
+                                   cfg=SlothConfig(recorder_impl="batched"),
+                                   device=dev)
+        sim = dep.sloth.run(None, seed=fig["input"]["seed"])
+        before = [lib.LAUNCHES[k] for k in keys]
+        t0 = time.perf_counter()
+        ratios = {}
+        for exp in fig["recordings"]:
+            d, m, H, L = exp["params"]
+            r = record(sim, SketchParams(d=d, m=m, H=H, L=L),
+                       hop_latency=dep.sloth.sim_cfg.hop_latency,
+                       impl="batched", device=dev)
+            got = recording_record(r)
+            bad = [f for f in ("compression", "comp", "comm")
+                   if got[f] != exp[f]]
+            require(not bad, f"Fig 13 {exp['params']}: {bad} differ from "
+                             f"the reference's record")
+            ratios["d{}_m{}_H{}_L{}".format(*exp["params"])] = \
+                r.compression_ratio
+        fig_launches = [lib.LAUNCHES[k] - b for k, b in zip(keys, before)]
+        variant_geoms = sum(layout.placement(d, m, L) is not None
+                            for d, m, _, L in (e["params"] for e in
+                                               fig["recordings"]))
+        require(sum(fig_launches) == len(fig["recordings"])
+                and fig_launches[1] == variant_geoms >= 2,
+                f"Fig 13: K1 launches {fig_launches}, "
+                f"{variant_geoms} geometries past shared memory")
+        emit({"phase": "sloth_grid_fig13", "recordings": len(ratios),
+              "compression": ratios,
+              "launches": dict(zip(keys, fig_launches)),
+              "wall_s": time.perf_counter() - t0})
+
+        # one detect past shared memory
+        pin = pins["detect"]
+        d, m, H, L = pin["sketch"]
+        cfg = SlothConfig(sketch=SketchParams(d=d, m=m, H=H, L=L),
+                          budget_kb=None, recorder_impl="batched")
+        sloth = Sloth(build_workload(pin["workload"]), Mesh2D(pin["mesh"]),
+                      cfg)
+        before = [lib.LAUNCHES[k] for k in keys]
+        v = sloth.detect([FailSlow(*pin["fault"])], seed=pin["seed"])
+        det_launches = [lib.LAUNCHES[k] - b for k, b in zip(keys, before)]
+        got = {"flagged": v.flagged, "kind": v.kind,
+               "location": v.location, "score": v.score,
+               "ranking": [[k, l, s] for k, l, s in v.ranking],
+               "iterations": v.failrank.iterations,
+               "compression": v.recorder.compression_ratio}
+        exp = pin["verdict"]
+        same = {k: got[k] == exp[k] for k in exp
+                if k not in ("score", "ranking")}
+        require(all(same.values())
+                and rel_gap(got["score"], exp["score"]) <= GRID_SCORE_REL
+                and same_ranking(got["ranking"], exp["ranking"])
+                and det_launches == [0, 1],
+                f"detect at d={d} m={m}: {got} vs reference {exp}, "
+                f"launches {det_launches}")
+        emit({"phase": "sloth_grid_detect", "sketch": pin["sketch"],
+              **{k: got[k] for k in ("flagged", "kind", "location",
+                                     "iterations", "compression")},
+              "launches": dict(zip(keys, det_launches))})
+    require(plain_calls.n == 0, f"phase 6b called K1's plain version "
+                                f"{plain_calls.n} times")
+    launches = {k: lib.LAUNCHES[k] for k in keys}
+    torch.cuda.synchronize()
+    times = k1_grid_times(dep, sim, dev, smem_access_ms)
+    emit({"phase": "sketch_kernel_grid_times", **times})
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "sloth_grid_phase_wall_s", "seconds": wall,
+          "launches": launches, "plain_calls": plain_calls.n,
+          "score_max_rel_err_vs_reference": worst})
+    return {"launches": launches, "times": times,
+            "launches_grids": implied, "launches_fig13": fig_launches,
+            "launches_detect": det_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2755,6 +3236,7 @@ def check_analysis(lib, procs) -> dict:
     from repro_torch.analysis import kernel_audit, memory_model
     from repro_torch.core.sketch import SketchParams
     from repro_torch.distributed.telemetry import PodTelemetryConfig
+    from repro_torch.kernels.sketch_update import layout as sk_layout
     from repro_torch.kernels.sketch_update import ops as sk_ops
     k1 = sk_ops._load()
     grid = [SketchParams(d=d, m=m, H=4, L=L) for d in SMEM_D
@@ -2767,6 +3249,19 @@ def check_analysis(lib, procs) -> dict:
     diff = [pair for pair in pairs if pair[3] != pair[4]]
     require(not diff, f"hopper_smem_bytes != sketch_insert_smem_bytes "
                       f"(d, m, L, model, library): {diff}")
+    # the device-memory variant's layout, at the wrapper's placement (and
+    # forced) and with every section in device memory
+    variant = [(p.d, p.m, p.L, place,
+                sk_layout.bytes_placed(p.d, p.m, p.L, True, place),
+                (k1.sketch_insert_variant_smem_bytes(p.d, p.m, p.L, place),
+                 k1.sketch_insert_scratch_bytes(p.d, p.m, p.L, place)))
+               for p in grid + list(named.values())
+               for place in {sk_layout.placement(p.d, p.m, p.L) or 0,
+                             sk_layout.placement(p.d, p.m, p.L, force=True),
+                             63}]
+    diff = [v for v in variant if v[4] != v[5]]
+    require(not diff, f"layout.bytes_placed != the library's variant "
+                      f"bytes (d, m, L, place, model, library): {diff}")
     atomics = sass_atomics(lib)
     contracts = kernel_audit.contracts()
     floats = {f"{stem} {k}": c for stem, ks in atomics.items()
@@ -2799,6 +3294,7 @@ def check_analysis(lib, procs) -> dict:
     return {"gate": out["gate"][0].strip().splitlines()[-1],
             "self_test": out["self_test"][0].strip().splitlines()[-1],
             "smem_geometries": len(pairs),
+            "variant_layouts": len(variant),
             "smem_geometries_that_fit": sum(
                 pair[3] <= lib.MAX_SMEM_BYTES for pair in pairs[:len(grid)]),
             "smem_bytes": dict(zip(named, (pair[4]
@@ -4357,6 +4853,62 @@ def k3_walk_main(src: str, reps: int = 20) -> int:
                "--format=csv,noheader"], capture_output=True, text=True,
               timeout=60, check=True).stdout.strip(),
           "search_min_keys": min_keys, "reps": reps, "cases": out})
+    return 0
+
+
+def k1_main_path_main(src: str, reps: int = 10) -> int:
+    """``--k1-main-path SRC``: the port in ``SRC`` (as ``--k3-digest``)
+    times K1 at the main path's shape (resnet50 8×8, core 6 at 10× from 1
+    s for 8 s, seed 0: both sketches of one ``detect``, one launch; CUDA
+    events behind a spin, ``timed``, five times), digests its outputs
+    (equal digests, equal bits) and counts the shared-memory, generic and
+    float instructions of each K1 kernel in ``cuobjdump -sass``.  One JSON
+    line; run it for trees in turns (parent, change, change, parent)."""
+    import hashlib
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    sys.path.remove(str(ROOT / "src"))
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.core.failures import FailSlow
+    from repro_torch.core.graph import build_workload
+    from repro_torch.core.routing import Mesh2D
+    from repro_torch.core.sloth import Sloth, SlothConfig
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.sketch_update import ops, ref
+    dev = torch.device("cuda", 0)
+    cfg = SlothConfig(recorder_impl="batched")
+    sloth = Sloth(build_workload("resnet50"), Mesh2D(8), cfg)
+    sim = sloth.run([FailSlow("core", 6, 1.0, 8.0, 10.0)], seed=0)
+    jobs = [(ref.make_state(cfg.sketch, dev),
+             ref.make_drain(args[0].shape[0], dev), tuple(args), cfg.sketch)
+            for args in sketch_inputs(sloth, sim, dev).values()]
+    ms = [timed(lambda: ops.launch_insert_runs(jobs), reps)["ms"]
+          for _ in range(5)]
+    got, status = ops.launch_insert_runs(jobs)
+    ops.raise_on_status(status)
+    digest = hashlib.sha256()
+    for state, drain in got:
+        for t in (*state.values(), *drain.values()):
+            digest.update(t.cpu().numpy().tobytes())
+    sass = {}
+    fn = None
+    for line in sass_text(_lib._target("sketch_insert")).splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            sass[fn] = dict.fromkeys(("LDS", "STS", "LD.E", "ST.E", "FFMA",
+                                      "FMUL", "FADD"), 0)
+        elif fn:
+            for op in sass[fn]:
+                sass[fn][op] += f" {op}" in line
+    emit({"phase": "k1_main_path", "src": src, "module": _lib.__file__,
+          "nvidia_smi": subprocess.run(
+              ["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"], capture_output=True, text=True,
+              timeout=60, check=True).stdout.strip(),
+          "ms": ms, "digest": digest.hexdigest()[:16], "sass": sass})
     return 0
 
 
@@ -6356,6 +6908,27 @@ def cells_main() -> int:
     return 0
 
 
+def sloth_grid_main() -> int:
+    """``--sloth-grid``: the build, K1's cases of phase 2 (its
+    device-memory variant among them) and phase 6b (SLOTH's evaluation
+    grid) alone."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _lib as lib
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip(),
+          flush=True)
+    dev = torch.device("cuda", 0)
+    emit({"phase": "build", "per_source": lib.build_all()})
+    emit({"phase": "sketch_kernel_vs_plain",
+          "cases": check_sketch_kernel(dev)})
+    run_sloth_grid_phase(dev, lib)
+    return 0
+
+
 def cells_against_main(src: str) -> int:
     """``--cells-against SRC``: the ``decode_32k`` cells of the
     ``chip_smoke.py`` in ``SRC`` (an earlier tree, e.g. unpacked by ``git
@@ -6693,6 +7266,9 @@ def main() -> int:
     # ---- 6. the campaign path: resnet50 on 8×8, all detectors, streamed ----
     k1_campaign = run_campaign_phase(dev, lib)
 
+    # ---- 6b. SLOTH's evaluation grid: workloads × fabrics, Fig 16/17, 13 --
+    k1_grid = run_sloth_grid_phase(dev, lib, lat / (sm_mhz * 1e6) * 1e3)
+
     # ---- 7. the serving path at full size ----------------------------------
     serve_launches = {arch: serve_run(arch, lib, n_layers)
                       for arch, n_layers in SERVE_RUNS}
@@ -6840,8 +7416,34 @@ def main() -> int:
          **{k: v for k, v in bound(k1["bytes"], 0).items()
             if k in ("bound_ms", "bound_by")},
          "library_ms": None,
+         "grid_launches": k1_grid["launches"]["sketch_insert_runs"],
+         "grid_times": {k: t for k, t in k1_grid["times"].items()
+                        if k == "default_shared"},
          "shape": "resnet50 8x8, comp + comm sketches of one detect, "
                   "one launch"},
+        {"name": "sketch_insert_runs_device", "route": "cuda",
+         "source": "src/repro_torch/csrc/sketch_insert.cu",
+         "replaces": "src/repro/kernels/sketch_update/kernel.py:158",
+         "launches": k1_grid["launches"]["sketch_insert_runs_device"],
+         "launches_fig13": k1_grid["launches_fig13"][1],
+         "launches_detect": k1_grid["launches_detect"][1],
+         "max_abs_err": k1_grid["times"]["d4_m4096"]["max_abs_err"],
+         "ms": k1_grid["times"]["d4_m4096"]["ms"],
+         "events_ms": k1_grid["times"]["d4_m4096"]["events_ms"],
+         "timing": timing_label(
+             [] if k1_grid["times"]["d4_m4096"]["ahead"] else ["ms"]),
+         "plain_ms": k1_grid["times"]["d4_m4096"]["plain_ms"],
+         "plain_device": "cpu",
+         "bound_ms": k1_grid["times"]["d4_m4096"]["bound_ms"],
+         "bound_by": k1_grid["times"]["d4_m4096"]["bound_by"],
+         "serial_chain_bound_ms":
+             k1_grid["times"]["d4_m4096"]["serial_chain_bound_ms"],
+         "scratch_copy_bytes":
+             k1_grid["times"]["d4_m4096"]["scratch_copy_bytes"],
+         "library_ms": None, "times": k1_grid["times"],
+         "shape": "darknet19 4x4 healthy run, comp + comm sketches at d=4, "
+                  "m=4,096, L=1,024 (Stage 1 in device memory), one "
+                  "launch"},
         {"name": "failrank_step", "route": "cuda",
          "source": "src/repro_torch/csrc/failrank_step.cu",
          "replaces": "src/repro/kernels/failrank_step/kernel.py:42",
@@ -7080,6 +7682,8 @@ if __name__ == "__main__":
         sys.exit(k4_digest_main(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--k3-walk"]:
         sys.exit(k3_walk_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--k1-main-path"]:
+        sys.exit(k1_main_path_main(sys.argv[2]))
     if sys.argv[1:2] == ["--k4-bwd-times"]:
         sys.exit(k4_bwd_times_main(sys.argv[2]))
     if sys.argv[1:2] == ["--compare"]:
@@ -7096,4 +7700,6 @@ if __name__ == "__main__":
         sys.exit(cells_against_main(sys.argv[2]))
     if sys.argv[1:2] == ["--train-cells"]:
         sys.exit(train_cells_main())
+    if sys.argv[1:2] == ["--sloth-grid"]:
+        sys.exit(sloth_grid_main())
     sys.exit(main())

@@ -26,12 +26,16 @@ Four layers of accounting, each matching a measured quantity exactly
   ``[cap]`` vectors and a scalar).
 * **K1's shared memory on Hopper** (``hopper_smem_bytes``): the dynamic
   shared memory one block of ``csrc/sketch_insert.cu`` takes for the whole
-  call, ``layout(d, m, L).total`` in closed form — its ``SketchArgs``, the
-  barriers, the Stage-2 key index, Stage 1 and Stage 2, the index slot of
-  each row, the FIFO ring, the free bitmap and two ring stages of staged
-  runs — against ``MAX_SMEM_BYTES``, what one block may have.  It takes
-  the place of the reference's Pallas VMEM term; the card holds it equal
-  to the library's own ``sketch_insert_smem_bytes``.
+  call, ``layout(d, m, L).total`` in closed form
+  (``kernels/sketch_update/layout``, which the wrapper places sections
+  by) — its ``SketchArgs``, the barriers, the Stage-2 key index, Stage 1
+  and Stage 2, the index slot of each row, the FIFO ring, the free bitmap
+  and two ring stages of staged runs — against ``MAX_SMEM_BYTES``, what
+  one block may have.  It takes the place of the reference's Pallas VMEM
+  term; the card holds it equal to the library's own
+  ``sketch_insert_smem_bytes``.  A geometry past it runs K1's
+  device-memory variant, and ``memory_report`` names the path each side
+  takes.
 
 The budget check (:func:`validate_config` / :func:`validate_params`)
 gates the *persistent* per-chip footprint: for each side (comp + comm)
@@ -40,13 +44,15 @@ packed-state bytes, summed, against ``budget_kb`` KiB.  It is wired into
 ``Sloth.__init__`` and ``StreamingRecorder.__init__`` so an over-budget
 geometry is rejected before any trace is recorded.  The shared-memory term
 is reported and checked by the pass (``smem-over-limit``), not guarded:
-the kernel's wrapper raises for a geometry it cannot hold.
+any geometry runs, and the pass keeps the shipped ones on the faster
+shared-memory path.
 """
 
 from __future__ import annotations
 
 from ..core.sketch import STAGE2_SLOT_BYTES, SketchParams
 from ..kernels._lib import MAX_SMEM_BYTES
+from ..kernels.sketch_update import layout as k1_layout
 from .report import Finding
 
 #: Default per-chip budget, KiB (1 KiB = 1024 B).  The paper's recorder
@@ -73,15 +79,9 @@ PACKED_STAGE2_SLOT_BYTES = 5 * 4 + 6 * 4
 #: Bytes per drained-eviction row (10 × 4 B vectors in ``make_drain``).
 DRAIN_ROW_BYTES = 10 * 4
 
-# ``csrc/sketch_insert.cu``'s constants, restated: ``sizeof(SketchArgs)``
-# (35 pointers, 6 ints), the ring's stages (NSTAGE), the runs of a stage
-# (CHUNK = NT - 64 = 128, one per loader thread), the words of a Stage-2
-# row (11 fields and a pad) and the bytes of a key-index slot (an int4).
-SKETCH_ARGS_BYTES = 35 * 8 + 6 * 4
-SMEM_NSTAGE = 2
-SMEM_CHUNK = 192 - 64
-SMEM_ROW_WORDS = 12
-INDEX_SLOT_BYTES = 16
+#: ``sizeof(SketchArgs)`` in ``csrc/sketch_insert.cu`` (35 pointers, 6
+#: ints), at the head of K1's shared memory.
+SKETCH_ARGS_BYTES = k1_layout.ARGS_BYTES
 
 
 class MemoryBudgetError(ValueError):
@@ -115,34 +115,12 @@ def drain_bytes(capacity: int) -> int:
     return max(int(capacity), 1) * DRAIN_ROW_BYTES + 4
 
 
-def _align16(x: int) -> int:
-    return (x + 15) // 16 * 16
-
-
-def index_slots(L: int) -> int:
-    """Slots of K1's Stage-2 key index: the least power of two ≥ 2L."""
-    return 1 << max(2 * L - 1, 0).bit_length()
-
-
 def hopper_smem_bytes(p: SketchParams) -> int:
-    """Dynamic shared memory of one K1 block, ``layout(d, m, L).total`` in
-    ``csrc/sketch_insert.cu``: each section starts on 16 bytes."""
-    sections = (
-        3 * SMEM_NSTAGE * 8 + 2 * 4,            # mbarriers, two flags
-        index_slots(p.L) * INDEX_SLOT_BYTES,    # key -> row index
-        16 * p.d * p.m,                         # Stage 1, an int4 a bucket
-        4 * SMEM_ROW_WORDS * p.L,               # Stage 2 rows
-        2 * p.L,                                # row -> index slot
-        2 * p.L,                                # FIFO ring of live rows
-        4 * -(-p.L // 32),                      # free-row bitmap
-        4 * (SMEM_NSTAGE * SMEM_CHUNK           # staged runs: 9 fields,
-             * (9 + SMEM_ROW_WORDS + p.d)       # a row-shaped record and
-             + SMEM_NSTAGE),                    # d buckets; list lengths
-    )
-    at = _align16(SKETCH_ARGS_BYTES)
-    for size in sections:
-        at = _align16(at + size)
-    return at
+    """Dynamic shared memory of one block of K1's shared-memory kernel,
+    ``layout(d, m, L, false, 0).total`` in ``csrc/sketch_insert.cu``, as
+    the wrapper's ``kernels/sketch_update/layout`` reckons it (the card
+    holds the two equal)."""
+    return k1_layout.bytes_placed(p.d, p.m, p.L)[0]
 
 
 def side_budget_bytes(p: SketchParams, impl: str) -> int:
@@ -157,12 +135,21 @@ def side_budget_bytes(p: SketchParams, impl: str) -> int:
 
 # -- reporting ---------------------------------------------------------------
 
+def k1_path(p: SketchParams) -> str:
+    """The kernel K1 runs for a geometry: ``"shared"`` (the whole sketch in
+    one block's shared memory) or ``"device:<sections>"`` (the
+    device-memory variant, with the sections ``layout.placement`` moves)."""
+    place = k1_layout.placement(p.d, p.m, p.L)
+    return "shared" if place is None \
+        else "device:" + ",".join(k1_layout.moved(place))
+
+
 def memory_report(params: SketchParams,
                   comm_params: SketchParams | None = None,
                   impl: str = "ref") -> dict:
     """Full per-chip footprint breakdown for one recorder geometry, with
-    K1's shared memory per side beside ``max_smem_bytes``.  Pure
-    arithmetic."""
+    K1's shared memory per side beside ``max_smem_bytes`` and the path K1
+    takes for it (``k1_path``).  Pure arithmetic."""
     comm_params = comm_params or params
     sides = {"comp": params, "comm": comm_params}
     rep: dict = {"impl": impl, "sides": {}, "max_smem_bytes": MAX_SMEM_BYTES}
@@ -175,6 +162,7 @@ def memory_report(params: SketchParams,
             "ref_stage1_nbytes": ref_stage1_nbytes(p),
             "packed_state_bytes": packed_state_bytes(p),
             "hopper_smem_bytes": hopper_smem_bytes(p),
+            "k1_path": k1_path(p),
             "budget_bytes": side_budget_bytes(p, impl),
         }
     rep["total_budget_bytes"] = sum(
@@ -200,9 +188,11 @@ def _over_smem_message(p: SketchParams) -> str | None:
     need = hopper_smem_bytes(p)
     if need <= MAX_SMEM_BYTES:
         return None
-    return (f"impl='batched' runs K1 with the whole sketch in one block's "
-            f"shared memory: d={p.d} m={p.m} L={p.L} needs {need} B, over "
-            f"the {MAX_SMEM_BYTES} B a block may have on Hopper")
+    return (f"d={p.d} m={p.m} L={p.L} needs {need} B of shared memory, "
+            f"over the {MAX_SMEM_BYTES} B a block may have on Hopper: "
+            f"impl='batched' runs it in K1's device-memory variant "
+            f"({k1_path(p)}), slower than the shared-memory kernel a "
+            f"shipped geometry must keep")
 
 
 # -- construction-time guards ------------------------------------------------
@@ -238,7 +228,8 @@ def geometry_findings(label: str, path: str, params: SketchParams,
                       impl: str, budget_kb: float) -> list[Finding]:
     """``over-budget`` if one geometry (both sides) does not fit
     ``budget_kb`` under ``impl``; ``smem-over-limit`` if, under
-    ``impl="batched"``, one K1 block cannot hold it."""
+    ``impl="batched"``, one K1 block cannot hold it (it then runs K1's
+    device-memory variant: a finding for a shipped geometry)."""
     out = []
     msg = _over_budget_message(memory_report(params, impl=impl), budget_kb)
     if msg is not None:
@@ -255,7 +246,8 @@ def check(root=None, budget_kb: float | None = None) -> list[Finding]:
     """Static memory pass over the port's shipped geometries: the default
     ``SlothConfig`` (both impls) and the pod-telemetry config must fit
     their budgets, each geometry's K1 block must fit Hopper's shared
-    memory, and the closed forms must agree with the authoritative
+    memory (so that they keep K1's shared-memory kernel), and the closed
+    forms must agree with the authoritative
     ``SketchParams`` byte methods (drift in either is a finding).
     ``root`` is accepted for pass-signature uniformity and unused."""
     findings: list[Finding] = []

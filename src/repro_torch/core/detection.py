@@ -173,16 +173,27 @@ def em_link_inverse_bw(A: np.ndarray, T: np.ndarray, V: np.ndarray,
     """
     n_e, n_l = A.shape
     T = np.maximum(T - hop_latency * A.sum(axis=1), 1e-12)
-    traffic = (A * (weights * V)[:, None]).sum(axis=0)        # Σ_e w V A
+    # A is 0/1: a sum over events of A_el·c_e adds c_e for the events that
+    # cross l, in event order, as the dense sum over axis 0 adds its rows,
+    # so the sparse sums equal the dense ones bit for bit (a non-finite
+    # c_e, where 0·c_e is not 0, takes the dense sum)
+    ev, lk = np.nonzero(A)
+
+    def over_events(c):
+        if not np.isfinite(c).all():
+            return (A * c[:, None]).sum(axis=0)
+        return np.bincount(lk, weights=c[ev], minlength=n_l)
+
+    traffic = over_events(weights * V)                        # Σ_e w V A
     seen = traffic > 0
-    theta0 = float((T / np.maximum((A * V[:, None]).sum(axis=1),
-                                   1e-12)).mean())
+    AV = A * V[:, None]
+    theta0 = float((T / np.maximum(AV.sum(axis=1), 1e-12)).mean())
     theta = np.full(n_l, theta0)
     for _ in range(iters):
-        pred = (A * V[:, None]) @ theta                        # T̂_e
+        pred = AV @ theta                                      # T̂_e
         ratio = T / np.maximum(pred, 1e-300)
         # expected delay on link l: Σ_e w_e · A_el V_e θ_l · ratio_e
-        num = theta * ((A * (weights * V * ratio)[:, None]).sum(axis=0))
+        num = theta * over_events(weights * V * ratio)
         theta_new = num / np.maximum(traffic, 1e-300)
         theta = np.where(seen, theta_new, theta)
     # shrink poorly-observed links toward the global estimate: a link seen by

@@ -64,13 +64,32 @@
 //     keys distinct) and reports a violation in the sketch's status word
 //     instead of running.
 //
+// The device-memory variant (the same body, WIDE = true).  A sketch whose
+// sections do not all fit one block's shared memory (d=2 or 4 at m=4096,
+// L=1024 among the paper's Fig 13 geometries; any L past 4,096) keeps the
+// algorithm, the order of operations and one block per sketch, but holds
+// the sections named in its placement mask (SEC_*: Stage 1, the key index,
+// the Stage-2 rows, the row and index slots, the ring, the free bitmap) in
+// a device-memory scratch the wrapper allocates, and its slots are 32 bits
+// wide.  The wrapper moves the fewest sections, largest first
+// (kernels/sketch_update/layout.placement): for the Fig 13 geometries only
+// Stage 1, whose chain then pays an L1/L2 round trip a run where it paid a
+// shared-memory one; the Stage-2 chain's state stays in shared memory.  A
+// launch whose sketches take both paths is split in two, each kernel
+// launched with its own shared-memory size.
+//
 // Floats: build with -fmad=false.  The Stage-2 aggregates are computed in
 // the operation order of the plain torch version (ref.insert_runs_plain),
 // and without FMA contraction each product and sum rounds alone, so the
-// two agree bit for bit.
+// two agree bit for bit.  The one exception is the run's first and last
+// start, t0 + dt * k: the reference's scan (XLA on the CPU) contracts it
+// into one fused multiply-add, so the kernel does so explicitly
+// (__fmaf_rn) and the plain version rounds dt * k + t0 once (ref.fma_f32).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define NT 192                 // Stage-2 warp, Stage-1 warp, 4 loader warps
 #define NLOAD (NT - 64)
@@ -80,8 +99,15 @@
 #define MAX_SKETCHES 8
 #define ROW 12                 // words of a Stage-2 row (11 fields, a pad)
 #define FULL 0xffffffffu
-#define EMPTY16 0xffffu        // an empty ring place
-#define MAX_L 4096             // rows and index slots then fit 16 bits
+#define MAX_L 4096             // shared-memory kernel: rows and index
+                               // slots fit 16 bits
+// sections the device-memory variant may keep in its scratch (bit masks)
+#define SEC_IDX 1
+#define SEC_T1 2
+#define SEC_S2 4
+#define SEC_POS 8
+#define SEC_RING 16
+#define SEC_FBITS 32
 
 __constant__ uint32_t HASH_A1[MAX_D] = {
     0x9E3779B1u, 0x85EBCA77u, 0xC2B2AE3Du, 0x27D4EB2Fu,
@@ -111,7 +137,11 @@ struct SketchArgs {
   int n, d, m, H, L, cap;
 };
 
-struct SketchBatch { SketchArgs s[MAX_SKETCHES]; };
+struct SketchBatch {
+  SketchArgs s[MAX_SKETCHES];
+  unsigned char* scratch[MAX_SKETCHES];  // the variant's device sections
+  int place[MAX_SKETCHES];               // which sections (SEC_*) they are
+};
 
 // core/sketch.py hash_bucket, in uint32 so that wraparound is defined.
 __device__ __forceinline__ int hash_bucket(int lo, int hi, int table, int m) {
@@ -132,30 +162,44 @@ __device__ __forceinline__ int index_home(int lo, int hi, int mask) {
   return (int)(x & (uint32_t)mask);
 }
 
-// Byte offsets of the shared-memory sections; identical on host and device.
-// The block's SketchArgs come first, at offset 0.
+// Byte offsets of the sections, in shared memory or (the variant's
+// sections in `place`) in the sketch's scratch; identical on host and
+// device (kernels/sketch_update/layout.py restates it).  The block's
+// SketchArgs come first, at offset 0 of shared memory.
 struct Layout {
-  size_t bars, idx, t1, s2, pos, ring, fbits, stage, total;
+  size_t bars, idx, t1, s2, pos, ring, fbits, stage, total, scratch;
   int tsize, nwords;
 };
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
-__host__ __device__ inline Layout layout(int d, int m, int L) {
+// The next section's offset in shared memory (`at`) or in the scratch
+// (`g`), each section starting on 16 bytes.
+__host__ __device__ inline size_t put(size_t& at, size_t& g, bool dev, size_t bytes) {
+  size_t& p = dev ? g : at;
+  const size_t off = p;
+  p = align16(p + bytes);
+  return off;
+}
+
+// `wide`: 32-bit row and index slots (the variant), else 16-bit.
+__host__ __device__ inline Layout layout(int d, int m, int L, bool wide, int place) {
   Layout o;
   o.tsize = 1;
   while (o.tsize < 2 * L) o.tsize *= 2;       // ref.index_size
   o.nwords = (L + 31) / 32;
-  size_t at = align16(sizeof(SketchArgs));
-  o.bars = at;  at = align16(at + 3 * NSTAGE * 8 + 2 * 4);  // barriers; flags
-  o.idx = at;   at = align16(at + (size_t)o.tsize * 16);    // int4 entries
-  o.t1 = at;    at = align16(at + (size_t)16 * d * m);      // Stage 1
-  o.s2 = at;    at = align16(at + (size_t)4 * ROW * L);     // Stage 2
-  o.pos = at;   at = align16(at + (size_t)2 * L);           // row -> index slot
-  o.ring = at;  at = align16(at + (size_t)2 * L);           // FIFO ring
-  o.fbits = at; at = align16(at + (size_t)4 * o.nwords);    // free bitmap
-  o.stage = at; at = align16(at + ((size_t)NSTAGE * CHUNK * (9 + ROW + d) + NSTAGE) * 4);
+  const size_t slot = wide ? 4 : 2;
+  size_t at = align16(sizeof(SketchArgs)), g = 0;
+  o.bars = put(at, g, false, 3 * NSTAGE * 8 + 2 * 4);                   // barriers; flags
+  o.idx = put(at, g, place & SEC_IDX, (size_t)o.tsize * 16);             // int4 entries
+  o.t1 = put(at, g, place & SEC_T1, (size_t)16 * d * m);                 // Stage 1
+  o.s2 = put(at, g, place & SEC_S2, (size_t)4 * ROW * L);                // Stage 2
+  o.pos = put(at, g, place & SEC_POS, slot * L);                         // row -> index slot
+  o.ring = put(at, g, place & SEC_RING, slot * L);                       // FIFO ring
+  o.fbits = put(at, g, place & SEC_FBITS, (size_t)4 * o.nwords);         // free bitmap
+  o.stage = put(at, g, false, ((size_t)NSTAGE * CHUNK * (9 + ROW + d) + NSTAGE) * 4);
   o.total = at;
+  o.scratch = g;
   return o;
 }
 
@@ -197,6 +241,16 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                :: "r"(smem_u32(dst)), "l"(src) : "memory");
 }
 
+// Claim an empty ring place: 16-bit slots (shared-memory kernel) or
+// 32-bit ones (device-memory variant).
+__device__ __forceinline__ uint16_t slot_cas(uint16_t* p, uint16_t cmp, uint16_t v) {
+  return atomicCAS(p, cmp, v);
+}
+
+__device__ __forceinline__ uint32_t slot_cas(uint32_t* p, uint32_t cmp, uint32_t v) {
+  return atomicCAS(p, cmp, v);
+}
+
 // A promoting run as the Stage-2 warp holds it: key, home slot in the
 // index, and word `lane` of its record.
 struct StagedRun { int lo, hi, h, word; };
@@ -220,8 +274,13 @@ __device__ __forceinline__ RowMasks row_masks(int lane) {
 static_assert(sizeof(SketchArgs) % 8 == 0 && sizeof(SketchArgs) / 8 <= NT,
               "SketchArgs is copied as one 8-byte word a thread");
 
+template <bool WIDE>
 __global__ void __launch_bounds__(NT) sketch_insert_runs_kernel(
     const __grid_constant__ SketchBatch batch) {
+  // row and index slots: 16 bits in shared memory up to MAX_L rows, 32 in
+  // the device-memory variant
+  typedef typename std::conditional<WIDE, uint32_t, uint16_t>::type Slot;
+  const Slot EMPTY = (Slot)~0u;                   // an empty ring place
   extern __shared__ __align__(16) unsigned char smem[];
   // The block's arguments, copied once: a run-time index into the
   // parameter space would make every use a generic load.
@@ -230,19 +289,23 @@ __global__ void __launch_bounds__(NT) sketch_insert_runs_kernel(
         ((const uint64_t*)&batch.s[blockIdx.x])[threadIdx.x];
   __syncthreads();
   const SketchArgs a = *(const SketchArgs*)smem;
-  const Layout o = layout(a.d, a.m, a.L);
+  // the variant's sections in device memory; none in the shared kernel
+  const int place = WIDE ? batch.place[blockIdx.x] : 0;
+  unsigned char* const scratch = WIDE ? batch.scratch[blockIdx.x] : nullptr;
+  const Layout o = layout(a.d, a.m, a.L, WIDE, place);
+  auto sec = [&](int bit, size_t off) { return ((place & bit) ? scratch : smem) + off; };
   uint64_t* loaded = (uint64_t*)(smem + o.bars);  // loaders -> Stage 1
   uint64_t* ready = loaded + NSTAGE;              // Stage 1 -> Stage 2
   uint64_t* freed = ready + NSTAGE;               // Stage 2 -> loaders
   int* flags = (int*)(freed + NSTAGE);            // code, live rows
-  int4* idx = (int4*)(smem + o.idx);              // (lo, hi, row or -1, home)
-  int4* T1 = (int4*)(smem + o.t1);                // (lo, hi, valid, freq)
-  int* S2 = (int*)(smem + o.s2);                  // row j at S2 + j * ROW
+  int4* idx = (int4*)sec(SEC_IDX, o.idx);         // (lo, hi, row or -1, home)
+  int4* T1 = (int4*)sec(SEC_T1, o.t1);            // (lo, hi, valid, freq)
+  int* S2 = (int*)sec(SEC_S2, o.s2);              // row j at S2 + j * ROW
   const int d = a.d, m = a.m, dm = d * m, L = a.L, n = a.n;
   const int tmask = o.tsize - 1;
-  uint16_t* pos_of = (uint16_t*)(smem + o.pos);  // 16 bits: L <= MAX_L
-  uint16_t* ring = (uint16_t*)(smem + o.ring);
-  uint32_t* fbits = (uint32_t*)(smem + o.fbits);
+  Slot* pos_of = (Slot*)sec(SEC_POS, o.pos);
+  Slot* ring = (Slot*)sec(SEC_RING, o.ring);
+  uint32_t* fbits = (uint32_t*)sec(SEC_FBITS, o.fbits);
   const int NB = NSTAGE * CHUNK;                  // staged runs, by field
   int* g_lo = (int*)(smem + o.stage);
   int* g_hi = g_lo + NB;
@@ -267,7 +330,7 @@ __global__ void __launch_bounds__(NT) sketch_insert_runs_kernel(
     row[5] = __float_as_int(a.s2_sum[j]); row[6] = __float_as_int(a.s2_sumsq[j]);
     row[7] = __float_as_int(a.s2_val[j]); row[8] = __float_as_int(a.s2_tmin[j]);
     row[9] = __float_as_int(a.s2_tmax[j]); row[10] = __float_as_int(a.s2_min[j]);
-    ring[j] = EMPTY16;
+    ring[j] = EMPTY;
   }
   for (int q = tid; q < o.tsize; q += NT) idx[q] = make_int4(0, 0, -1, 0);
   if (tid == 0) {
@@ -296,7 +359,7 @@ __global__ void __launch_bounds__(NT) sketch_insert_runs_kernel(
     const int* row = S2 + j * ROW;
     if (row[2] != 1) continue;
     if (row[4] >= C0 || row[4] < oldest) code |= 2;
-    else if (atomicCAS(&ring[row[4] - oldest], (uint16_t)EMPTY16, (uint16_t)j) != EMPTY16)
+    else if (slot_cas(&ring[row[4] - oldest], EMPTY, (Slot)j) != EMPTY)
       code |= 4;
     const int lo = row[0], hi = row[1], h = index_home(lo, hi, tmask);
     for (int q = h;; q = (q + 1) & tmask) {
@@ -390,14 +453,17 @@ __global__ void __launch_bounds__(NT) sketch_insert_runs_kernel(
           const float sdur = nf * dur;
           const float ssq = sdur * dur;
           const float sval = nf * val;
-          const float tfirst = t0 + dt * (float)first;
-          const float tlast = t0 + dt * (float)(r - 1) + dur;
+          const float tfirst = __fmaf_rn(dt, (float)first, t0);
+          const float tlast = __fmaf_rn(dt, (float)(r - 1), t0) + dur;
           const int word = (lo & mk.lo) | (hi & mk.hi) | (1 & mk.one)
                            | (nrec & mk.cnt) | (__float_as_int(sdur) & mk.sum)
                            | (__float_as_int(ssq) & mk.sq) | (__float_as_int(sval) & mk.val)
                            | (__float_as_int(tfirst) & mk.tmin)
                            | (__float_as_int(tlast) & mk.tmax) | (__float_as_int(dur) & mk.min);
-          if (lane < 11) g_rec[(e0 + np) * ROW + lane] = word;
+          // every lane stores, lanes past 10 a zero into the row's unused
+          // word 11: with the fused starts ptxas compiled a store under
+          // lane < 11 as a divergent branch, which cost a detect 5 %
+          g_rec[(e0 + np) * ROW + min(lane, ROW - 1)] = word;
           if (lane == 0) g_plist[e0 + np] = e;
           ++np;
         }
@@ -540,30 +606,57 @@ __global__ void __launch_bounds__(NT) sketch_insert_runs_kernel(
 
 extern "C" {
 
-// Dynamic shared memory one block needs for this geometry.
+// Dynamic shared memory one block of the shared-memory kernel needs.
 long long sketch_insert_smem_bytes(int d, int m, int L) {
-  return (long long)layout(d, m, L).total;
+  return (long long)layout(d, m, L, false, 0).total;
 }
 
-// Launch one block per sketch on `stream` (1 <= count <= MAX_SKETCHES,
-// L <= MAX_L: a larger Stage 2 does not fit in shared memory anyway);
-// allocates nothing, does not synchronise, returns cudaGetLastError().
-int sketch_insert_runs(const SketchArgs* args, int count, void* stream) {
+// Dynamic shared memory and device scratch of one block of the
+// device-memory variant with the sections `place` in device memory.
+long long sketch_insert_variant_smem_bytes(int d, int m, int L, int place) {
+  return (long long)layout(d, m, L, true, place).total;
+}
+
+long long sketch_insert_scratch_bytes(int d, int m, int L, int place) {
+  return (long long)layout(d, m, L, true, place).scratch;
+}
+
+// Insert each sketch's runs, one block per sketch, on `stream`
+// (1 <= count <= MAX_SKETCHES).  place[k] < 0 runs sketch k in the
+// shared-memory kernel (L <= MAX_L); place[k] >= 0 in the device-memory
+// variant, with the sections place[k] in scratch[k].  The sketches of each
+// path share one launch, with that path's largest shared-memory size:
+// one launch, or two when the batch mixes the paths (shared first).
+// Allocates nothing, does not synchronise, returns cudaGetLastError().
+int sketch_insert_runs(const SketchArgs* args, void* const* scratch,
+                       const int* place, int count, void* stream) {
   if (count < 1 || count > MAX_SKETCHES) return (int)cudaErrorInvalidValue;
-  SketchBatch batch;
-  size_t smem = 0;
+  SketchBatch batch[2];
+  int n[2] = {0, 0};
+  size_t smem[2] = {0, 0};
   for (int k = 0; k < count; ++k) {
-    if (args[k].L > MAX_L) return (int)cudaErrorInvalidValue;
-    batch.s[k] = args[k];
-    const size_t need = layout(args[k].d, args[k].m, args[k].L).total;
-    smem = need > smem ? need : smem;
+    const int v = place[k] >= 0;
+    if (!v && args[k].L > MAX_L) return (int)cudaErrorInvalidValue;
+    batch[v].s[n[v]] = args[k];
+    batch[v].scratch[n[v]] = (unsigned char*)scratch[k];
+    batch[v].place[n[v]] = v ? place[k] : 0;
+    ++n[v];
+    const size_t need = layout(args[k].d, args[k].m, args[k].L, v, v ? place[k] : 0).total;
+    smem[v] = need > smem[v] ? need : smem[v];
   }
-  cudaError_t e = cudaFuncSetAttribute(
-      sketch_insert_runs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  sketch_insert_runs_kernel<<<count, NT, smem, (cudaStream_t)stream>>>(batch);
-  return (int)cudaGetLastError();
+  // one launch of `count` sketches, all on the path `wide` names
+  auto launch = [stream](auto wide, const SketchBatch& b, int count, size_t smem) {
+    constexpr bool WIDE = decltype(wide)::value;
+    cudaError_t e = cudaFuncSetAttribute(
+        sketch_insert_runs_kernel<WIDE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    sketch_insert_runs_kernel<WIDE><<<count, NT, smem, (cudaStream_t)stream>>>(b);
+    return (int)cudaGetLastError();
+  };
+  int rc = n[0] ? launch(std::false_type{}, batch[0], n[0], smem[0]) : 0;
+  if (!rc && n[1]) rc = launch(std::true_type{}, batch[1], n[1], smem[1]);
+  return rc;
 }
 
 }  // extern "C"

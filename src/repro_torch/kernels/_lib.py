@@ -43,6 +43,9 @@ SOURCE_FLAGS = {"sketch_insert": ("-fmad=false",),
 #: Largest dynamic shared memory one block may use on Hopper.
 MAX_SMEM_BYTES = 232_448
 
+#: ``sketch_insert_runs`` counts launches of K1's shared-memory kernel,
+#: ``sketch_insert_runs_device`` of its device-memory variant (a batch that
+#: mixes the two paths is one launch of each).
 #: ``flash_attention`` counts calls of K3's forward wrapper on f32 inputs;
 #: each call launches one of its two forward entry points, counted again
 #: under its own name.  ``flash_attention_bf16`` and its ``_prefill`` /
@@ -53,7 +56,9 @@ MAX_SMEM_BYTES = 232_448
 #: ``ssd_scan_bf16``, ``ssd_scan_bwd`` and ``ssd_scan_bf16_bwd`` count calls
 #: of K4's forward (four kernels) and of its backward (seven kernels) on f32
 #: and on bf16 inputs.
-LAUNCHES: dict[str, int] = {"sketch_insert_runs": 0, "failrank_step": 0,
+LAUNCHES: dict[str, int] = {"sketch_insert_runs": 0,
+                             "sketch_insert_runs_device": 0,
+                             "failrank_step": 0,
                              "flash_attention": 0,
                              "flash_attention_prefill": 0,
                              "flash_attention_decode": 0,

@@ -4,7 +4,11 @@
 each with its own state, drain and :class:`SketchParams`: CUDA tensors
 launch ``csrc/sketch_insert.cu`` once for all of them (one block per
 sketch), CPU tensors run the plain torch version in :mod:`.ref` once per
-sketch.  ``insert_runs`` (the one-sketch case) and ``insert`` (per record)
+sketch.  A sketch that fits one block's shared memory runs the
+shared-memory kernel; any other geometry runs its device-memory variant,
+with the sections :func:`.layout.placement` names in a scratch allocated
+here (a launch whose sketches take both paths is two launches, counted
+under ``sketch_insert_runs`` and ``sketch_insert_runs_device``).  ``insert_runs`` (the one-sketch case) and ``insert`` (per record)
 are built on it.  On either device a state that breaks the kernel's
 Stage-2 precondition (``ref.PRECONDITION``) raises ``ValueError``.
 ``patterns`` / ``drain_patterns`` decode Stage-2 and the drained-eviction
@@ -21,6 +25,7 @@ import torch
 
 from ...core.sketch import Pattern, SketchParams, accumulate_pattern
 from .. import _lib
+from . import layout as LY
 from . import ref as R
 
 #: What ``analysis/kernel_audit.py`` (and, on the card, ``chip_smoke.py``
@@ -28,7 +33,9 @@ from . import ref as R
 #: integer atomics of the Stage-2 build (the live-row count, the ring and
 #: index slots claimed by CAS, the precondition bits); one block per
 #: sketch, so the grid is the launch's sketch count ``count`` and no
-#: sketch's runs are split across blocks (their order is semantic).
+#: sketch's runs are split across blocks (their order is semantic).  The
+#: device-memory variant is an instance of the same kernel: its atomics on
+#: the index and ring slots in device memory are the same CAS.
 AUDIT = {"float_atomics": 0,
          "int_atomics": {"sketch_insert_runs_kernel": ("atomicAdd",
                                                        "atomicCAS",
@@ -85,31 +92,50 @@ def _load():
     lib = _lib.load("sketch_insert")
     lib.sketch_insert_smem_bytes.restype = ctypes.c_longlong
     lib.sketch_insert_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.sketch_insert_variant_smem_bytes.restype = ctypes.c_longlong
+    lib.sketch_insert_variant_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.sketch_insert_scratch_bytes.restype = ctypes.c_longlong
+    lib.sketch_insert_scratch_bytes.argtypes = [ctypes.c_int] * 4
     lib.sketch_insert_runs.restype = ctypes.c_int
     lib.sketch_insert_runs.argtypes = [ctypes.POINTER(SketchArgs),
+                                       ctypes.POINTER(ctypes.c_void_p),
+                                       ctypes.POINTER(ctypes.c_int),
                                        ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
 def launch_insert_runs(jobs):
-    """Launch the kernel once for ``jobs`` (``(state, drain, runs,
-    params)``, ``runs = (lo, hi, reps, dur, val, t0, dt)``, all on one CUDA
-    device; the kernel refuses more than ``MAX_SKETCHES`` of them) on
-    copies of each state and drain, without waiting for it.  Returns the
-    new ``[(state, drain)]`` and an int32 status per sketch (its
-    precondition code, read by :func:`raise_on_status`)."""
+    """Launch the kernel for ``jobs`` (``(state, drain, runs, params)``,
+    ``runs = (lo, hi, reps, dur, val, t0, dt)``, all on one CUDA device;
+    the kernel refuses more than ``MAX_SKETCHES`` of them) on copies of
+    each state and drain, without waiting for it: one launch of each path
+    the sketches take, as :func:`.layout.placement` chooses it from each
+    geometry.  Returns the new ``[(state, drain)]`` and an int32 status
+    per sketch (its precondition code, read by :func:`raise_on_status`)."""
+    return _launch(jobs, [LY.placement(*state["keys_lo"].shape,
+                                       state["s2_lo"].shape[0])
+                          for state, *_ in jobs])
+
+
+def _launch(jobs, places):
+    """:func:`launch_insert_runs` with each sketch's placement given:
+    ``None`` runs it in the shared-memory kernel, a mask of
+    :data:`.layout.SECTIONS` in the device-memory variant with those
+    sections in its scratch (checks run a sketch that fits shared memory
+    in the variant this way)."""
     dev = jobs[0][0]["keys_lo"].device
     lib = _load()
-    out, args = [], []
+    out, args, masks, scratch = [], [], [], []
     status = torch.full((len(jobs),), -1, dtype=torch.int32, device=dev)
-    for k, (state, drain, runs, params) in enumerate(jobs):
+    for k, ((state, drain, runs, params), place) in enumerate(
+            zip(jobs, places, strict=True)):
         n, d, m, L, cap = _check_job(state, drain, runs, dev)
-        smem = lib.sketch_insert_smem_bytes(d, m, L)
-        if smem > _lib.MAX_SMEM_BYTES:
-            raise ValueError(
-                f"sketch state needs {smem} B of shared memory (d={d}, "
-                f"m={m}, L={L}); one block holds at most "
-                f"{_lib.MAX_SMEM_BYTES} B")
+        masks.append(-1 if place is None else place)
+        # the variant's sections in device memory; the stream orders the
+        # allocator's reuse of this block after the launch
+        scratch.append(None if place is None else torch.empty(
+            LY.bytes_placed(d, m, L, True, place)[1], dtype=torch.uint8,
+            device=dev))
         st = {key: v.clone() for key, v in state.items()}
         dr = {key: v.clone() for key, v in drain.items()}
         out.append((st, dr))
@@ -118,12 +144,19 @@ def launch_insert_runs(jobs):
             *[st[key].data_ptr() for key in R.STATE_KEYS],
             *[dr[key].data_ptr() for key in R.DRAIN_KEYS],
             status[k:].data_ptr(), n, d, m, params.H, L, cap))
+    ptrs = [0 if x is None or x.numel() == 0 else x.data_ptr()
+            for x in scratch]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _lib.check(lib.sketch_insert_runs(
-            (SketchArgs * len(args))(*args), len(args), stream),
+            (SketchArgs * len(args))(*args),
+            (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(masks))(*masks), len(args), stream),
             "sketch_insert_runs")
-    _lib.count("sketch_insert_runs")
+    if any(p < 0 for p in masks):
+        _lib.count("sketch_insert_runs")
+    if any(p >= 0 for p in masks):
+        _lib.count("sketch_insert_runs_device")
     return out, status
 
 

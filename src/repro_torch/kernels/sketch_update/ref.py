@@ -28,11 +28,15 @@ record ``k`` starting at ``t0[i] + k·dt[i]`` and lasting ``dur[i]``.
 Stage-1 moves by ±r with the exact promote/steal index algebra of
 ``FailSlowSketch.insert_run``; the promoted tail reaches Stage-2 as
 closed-form float32 aggregates, in the same operation order as the CUDA
-kernel, so the two agree bit for bit.  A record is a run with ``reps = 1``
+kernel, so the two agree bit for bit; the run's first and last start,
+``t0 + dt·k``, round once as a fused multiply-add (:func:`fma_f32`), as
+the reference's scan compiled by XLA on the CPU rounds them.  A record is a run with ``reps = 1``
 and ``dt = 0``, which reduces to the per-record update exactly.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -96,6 +100,27 @@ def hash_all(lo: torch.Tensor, hi: torch.Tensor, d: int, m: int):
     return (x & 0x7FFFFFFF) % m
 
 
+def fma_f32(a: float, b: float, c: float) -> float:
+    """``a·b + c`` for float32 values, rounded once to float32 (to nearest,
+    ties to even), as a fused multiply-add (``__fmaf_rn``) rounds it.  In
+    float64 the product is exact (two 24-bit significands) and the sum
+    ``s`` rounds once, its error ``e`` exact (two-sum); rounding ``s`` to
+    float32 rounds ``s + e`` the same way unless ``s`` falls on a float32
+    midpoint, which one step of ``s`` towards ``e`` settles."""
+    p = a * b
+    s = p + c
+    if not math.isfinite(s):
+        return float(np.float32(a) * np.float32(b) + np.float32(c))
+    v = s - p
+    e = (p - (s - v)) + (c - v)
+    f = np.float32(s)
+    if e and float(f) != s:
+        g = np.nextafter(f, np.float32(math.copysign(math.inf, s - float(f))))
+        if (float(f) + float(g)) / 2 == s:
+            f = np.float32(math.nextafter(s, math.copysign(math.inf, e)))
+    return float(f)
+
+
 class _Packed:
     """State and drain as the insertion loops work on them: Stage 1
     ``T [d, m, 4]`` (lo, hi, valid, freq), Stage 2 ``I [L, 5]`` (the int
@@ -153,8 +178,11 @@ class _Packed:
         sdur = nf * dur
         ssq = sdur * dur
         sval = nf * val
-        tfirst = t0 + dt * float(first)
-        tlast = t0 + dt * float(r - 1) + dur
+        t0_f, dt_f = float(t0), float(dt)
+        tfirst = torch.tensor(fma_f32(dt_f, float(first), t0_f),
+                              dtype=torch.float32, device=self.dev)
+        tlast = torch.tensor(fma_f32(dt_f, float(r - 1), t0_f),
+                             dtype=torch.float32, device=self.dev) + dur
         if exists:
             I[j, 3] += n
             rf = F[j]

@@ -34,6 +34,7 @@ from repro_torch.core.sketch import (STAGE2_SLOT_BYTES, FailSlowSketch,
 from repro_torch.core.sloth import Sloth, SlothConfig
 from repro_torch.core.streaming import StreamingRecorder
 from repro_torch.kernels._lib import MAX_SMEM_BYTES
+from repro_torch.kernels.sketch_update import layout as k1_layout
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
@@ -283,13 +284,65 @@ def test_hopper_smem_bytes_at_the_pod_geometry():
     assert memory_model.SKETCH_ARGS_BYTES == 304
 
 
+#: Geometries of the placement tests: the shipped ones, the paper's Fig 13
+#: sketches past shared memory, d = 8, and L past 4,096 (16-bit slots).
+PLACEMENT_GEOMETRIES = [(2, 1024, 1024), (2, 1024, 2048), (1, 8, 2),
+                        (2, 4096, 1024), (4, 4096, 1024), (8, 1024, 1024),
+                        (8, 8192, 64), (2, 64, 4096), (2, 1024, 8192),
+                        (8, 65536, 8192), (1, 1, 65536)]
+
+
+@pytest.mark.parametrize("d,m,L", PLACEMENT_GEOMETRIES)
+def test_k1_placement_rule_against_hopper_smem_bytes(d, m, L):
+    """The wrapper's rule (``layout.placement``): the shared-memory kernel
+    exactly where ``hopper_smem_bytes`` fits a block (its layout byte for
+    byte); else the variant with the fewest sections in device memory,
+    largest first, so that what stays fits and no smaller set would."""
+    p = SketchParams(d=d, m=m, H=4, L=L)
+    shared = memory_model.hopper_smem_bytes(p)
+    assert k1_layout.bytes_placed(d, m, L) == (shared, 0)
+    place = k1_layout.placement(d, m, L)
+    assert (place is None) == (shared <= MAX_SMEM_BYTES)
+    assert memory_model.k1_path(p) == ("shared" if place is None else
+                                       "device:" + ",".join(
+                                           k1_layout.moved(place)))
+    forced = k1_layout.placement(d, m, L, force=True)
+    for mask in ([place] if place is not None else []) + [forced]:
+        smem, scratch = k1_layout.bytes_placed(d, m, L, True, mask)
+        assert smem <= MAX_SMEM_BYTES
+        sizes = k1_layout.section_bytes(d, m, L, True)
+        names = k1_layout.moved(mask)
+        assert scratch == sum(-(-sizes[n] // 16) * 16 for n in names)
+        # largest first: every section kept is no larger than one moved
+        kept = [n for n in k1_layout.SECTIONS if n not in names]
+        assert all(sizes[k] <= sizes[n] for k in kept for n in names)
+        # fewest: without the smallest moved section it would not fit
+        if names:
+            last = min(names, key=lambda n: (sizes[n], -k1_layout.SECTIONS
+                                             .index(n)))
+            less = mask & ~(1 << k1_layout.SECTIONS.index(last))
+            assert k1_layout.bytes_placed(d, m, L, True, less)[0] \
+                > MAX_SMEM_BYTES
+    if L > 4096:
+        assert place is not None     # 16-bit slots end at 4,096 rows
+
+
+def test_k1_placement_keeps_the_chain_state_on_chip_for_fig13():
+    """For the paper's Fig 13 sketches past shared memory only Stage 1
+    moves: the Stage-2 warp's rows, index, slots, ring and bitmap stay."""
+    for d, m in ((2, 4096), (4, 4096)):
+        assert k1_layout.moved(k1_layout.placement(d, m, 1024)) == ("t1",)
+    assert k1_layout.placement(2, 1024, 2048) is None       # the pod's
+    assert memory_model.k1_path(SketchParams()) == "shared"
+
+
 @pytest.mark.parametrize("impl", ["ref", "batched"])
 @pytest.mark.parametrize("d", [1, 2, 4])
 @pytest.mark.parametrize("m", [16, 64, 257, 1024])
 @pytest.mark.parametrize("L", [8, 33, 256, 1024])
 def test_memory_report_equals_reference(impl, d, m, L):
     """Key for key, but the reference's Pallas VMEM term for the port's
-    Hopper shared memory (and its limit beside it)."""
+    Hopper shared memory (and its limit beside it) and the path K1 takes."""
     ref = RM.memory_report(RM.SketchParams(d=d, m=m, H=3, L=L), impl=impl)
     got = memory_report(SketchParams(d=d, m=m, H=3, L=L), impl=impl)
     assert got.pop("max_smem_bytes") == MAX_SMEM_BYTES
@@ -298,6 +351,8 @@ def test_memory_report_equals_reference(impl, d, m, L):
         assert got["sides"][side].pop("hopper_smem_bytes") \
             == memory_model.hopper_smem_bytes(SketchParams(d=d, m=m, H=3,
                                                            L=L))
+        assert got["sides"][side].pop("k1_path") == memory_model.k1_path(
+            SketchParams(d=d, m=m, H=3, L=L))
     assert got == ref
 
 

@@ -8,9 +8,15 @@ reference package, so it runs on a machine that has only the port:
 
 The sketch kernel must equal the plain version exactly (integer state,
 drain and float statistics: both round each float operation alone, the
-kernel being built with ``-fmad=false``), also from a carried state and
+kernel being built with ``-fmad=false``, but for the one fused
+multiply-add both take), also from a carried state and
 with two sketches of different geometry in one launch, and must raise for
-a state that breaks its Stage-2 precondition.  The FailRank step's L' must
+a state that breaks its Stage-2 precondition; its device-memory variant
+(geometries past one block's shared memory: d=8 at m=8,192, L=8,192 with
+Stage 1, the index and the rows in device memory) equals the plain
+version too, the default geometry forced into the variant equals the
+shared-memory kernel bit for bit, and a launch that mixes the two paths
+runs each once.  The FailRank step's L' must
 equal the plain version's exactly, its s' within 1e-5 (the plain version's
 matrix-vector product sums in another order); the whole iteration in one
 launch must stop at the reference's Pallas step count
@@ -101,6 +107,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      live_mask,
                                                      rolled_pos_tab,
                                                      split_attention_ref)
+from repro_torch.kernels.sketch_update import layout as sk_layout
 from repro_torch.kernels.sketch_update import ops as sk_ops
 from repro_torch.kernels.sketch_update import ref as sk_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -209,12 +216,91 @@ def test_sketch_kernel_per_record_matches_plain(dev):
     assert int(dr_k["d_n"]) > p.L
 
 
-def test_sketch_kernel_rejects_oversized_state(dev):
-    p = SketchParams(d=8, m=8192, L=64)             # 16·d·m > 232,448 B
-    args = [torch.from_numpy(x).to(dev) for x in _runs(0, 4, 4)]
-    with pytest.raises(ValueError, match="shared memory"):
-        sk_ops.insert_runs(sk_ref.make_state(p, dev),
-                           sk_ref.make_drain(4, dev), *args, params=p)
+def _variant_case(dev, p, seed, n, n_keys, force=False):
+    """The kernel's state and drain (one launch, counted by path) beside
+    the plain version's; ``force`` runs the device-memory variant also
+    where the sketch fits shared memory."""
+    args = tuple(torch.from_numpy(x).to(dev) for x in _runs(seed, n, n_keys))
+    job = (sk_ref.make_state(p, dev), sk_ref.make_drain(n, dev), args, p)
+    before = dict(_lib.LAUNCHES)
+    got, status = sk_ops._launch(
+        [job], [sk_layout.placement(p.d, p.m, p.L, force=force)])
+    sk_ops.raise_on_status(status)
+    launched = {k: _lib.LAUNCHES[k] - before[k]
+                for k in ("sketch_insert_runs", "sketch_insert_runs_device")}
+    exp = sk_ref.insert_runs_plain(job[0], job[1], *args, H=p.H)
+    return got[0], exp, launched
+
+
+def test_sketch_kernel_past_shared_memory_equals_plain(dev):
+    """d=8, m=8,192 (16·d·m = 1 MB of Stage 1, past a block's 232,448 B):
+    the device-memory variant, Stage 1 in device memory, equals the plain
+    version."""
+    p = SketchParams(d=8, m=8192, L=64)
+    assert sk_layout.moved(sk_layout.placement(8, 8192, 64)) == ("t1",)
+    (st, dr), (st_p, dr_p), launched = _variant_case(dev, p, 0, 600, 300)
+    assert launched == {"sketch_insert_runs": 0,
+                        "sketch_insert_runs_device": 1}
+    _assert_equal(st, st_p)
+    _assert_equal(dr, dr_p)
+    assert int(dr["d_n"]) > 0
+
+
+def test_sketch_kernel_variant_past_4096_rows_equals_plain(dev):
+    """L = 8,192 (32-bit slots) at d=8, m=65,536: Stage 1, the key index
+    and the rows in device memory; enough keys to fill Stage 2 and evict."""
+    p = SketchParams(d=8, m=65536, H=2, L=8192)
+    assert sk_layout.moved(sk_layout.placement(8, 65536, 8192)) \
+        == ("idx", "t1", "s2")
+    (st, dr), (st_p, dr_p), launched = _variant_case(dev, p, 22, 20000,
+                                                     30000)
+    assert launched["sketch_insert_runs_device"] == 1
+    _assert_equal(st, st_p)
+    _assert_equal(dr, dr_p)
+    assert int(dr["d_n"]) > 0 and int(st["counter"]) > p.L
+
+
+@pytest.mark.parametrize("d,m,H,L", [(2, 1024, 8, 1024), (2, 1024, 4, 2048),
+                                     (2, 64, 2, 8)])
+def test_sketch_kernel_forced_variant_equals_shared_path(dev, d, m, H, L):
+    """The default and pod geometries (and a small evicting one) forced
+    into the device-memory variant give the shared-memory kernel's bits."""
+    p = SketchParams(d=d, m=m, H=H, L=L)
+    n, keys = (3000, 2600) if L >= 1024 else (400, 80)
+    (st_v, dr_v), exp, launched = _variant_case(dev, p, 23, n, keys,
+                                                force=True)
+    assert launched == {"sketch_insert_runs": 0,
+                        "sketch_insert_runs_device": 1}
+    (st_s, dr_s), _, launched = _variant_case(dev, p, 23, n, keys)
+    assert launched == {"sketch_insert_runs": 1,
+                        "sketch_insert_runs_device": 0}
+    _assert_equal(st_v, st_s)
+    _assert_equal(dr_v, dr_s)
+    _assert_equal(st_s, exp[0])
+
+
+def test_sketch_kernel_mixed_batch_launches_each_path_once(dev):
+    """Sketches on both paths in one call: one launch of each, each with
+    its own shared-memory size, every sketch equal to the plain version."""
+    jobs = []
+    for p, (seed, n, keys) in ((SketchParams(), (24, 600, 300)),
+                               (SketchParams(d=4, m=4096, H=8, L=1024),
+                                (25, 700, 400)),
+                               (SketchParams(d=3, m=64, H=2, L=8),
+                                (26, 400, 80))):
+        jobs.append((sk_ref.make_state(p, dev), sk_ref.make_drain(n, dev),
+                     tuple(torch.from_numpy(x).to(dev)
+                           for x in _runs(seed, n, keys)), p))
+    before = dict(_lib.LAUNCHES)
+    got = sk_ops.insert_runs_many(jobs)
+    assert _lib.LAUNCHES["sketch_insert_runs"] \
+        == before["sketch_insert_runs"] + 1
+    assert _lib.LAUNCHES["sketch_insert_runs_device"] \
+        == before["sketch_insert_runs_device"] + 1
+    for (st_k, dr_k), (st0, dr0, args, p) in zip(got, jobs):
+        st_p, dr_p = sk_ref.insert_runs_plain(st0, dr0, *args, H=p.H)
+        _assert_equal(st_k, st_p)
+        _assert_equal(dr_k, dr_p)
 
 
 def test_sketch_kernel_continues_from_state(dev):
@@ -1767,6 +1853,12 @@ def test_k1_smem_model_equals_the_library(dev):
     for p in geometries:
         assert memory_model.hopper_smem_bytes(p) \
             == lib.sketch_insert_smem_bytes(p.d, p.m, p.L), p
+        # the variant's layout: every placement the rule can take here
+        for place in {sk_layout.placement(p.d, p.m, p.L, force=True),
+                      sk_layout.placement(p.d, p.m, p.L) or 0, 63}:
+            assert sk_layout.bytes_placed(p.d, p.m, p.L, True, place) == (
+                lib.sketch_insert_variant_smem_bytes(p.d, p.m, p.L, place),
+                lib.sketch_insert_scratch_bytes(p.d, p.m, p.L, place)), p
     assert lib.sketch_insert_smem_bytes(2, 1024, 2048) == 228_992
 
 

@@ -41,7 +41,8 @@ def test_every_source_has_launch_counters():
     names = {p.stem for p in _lib.CSRC.glob("*.cu")}
     assert names == {"sketch_insert", "failrank_step", "flash_attention",
                      "ssd_scan"}
-    assert {"sketch_insert_runs", "failrank_step", "flash_attention",
+    assert {"sketch_insert_runs", "sketch_insert_runs_device",
+            "failrank_step", "flash_attention",
             "flash_attention_prefill", "flash_attention_decode",
             "flash_attention_bf16", "flash_attention_bf16_prefill",
             "flash_attention_bf16_decode", "flash_attention_bwd",

@@ -11,6 +11,8 @@ The CUDA kernel is held against the plain version in
 ``test_torch_cuda.py``, which runs only where a card is present.
 """
 
+from fractions import Fraction
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -392,3 +394,43 @@ def test_retention_lower_bound_matches_reference():
             b = t_retention_lower_bound(N, f, tp)
             assert b == retention_lower_bound(N, f, p)
             assert 0.0 <= b <= 1.0
+
+
+def _fma_exact(a: float, b: float, c: float) -> float:
+    """``a·b + c`` rounded once to float32 (to nearest, ties to even), by
+    exact rational arithmetic."""
+    exact = Fraction(a) * Fraction(b) + Fraction(c)
+    near = np.float32(float(exact))
+    cands = (np.nextafter(near, np.float32(-np.inf)), near,
+             np.nextafter(near, np.float32(np.inf)))
+    return float(min(cands, key=lambda x: (abs(Fraction(float(x)) - exact),
+                                           int(x.view(np.uint32)) & 1)))
+
+
+@pytest.mark.parametrize("kind", ["starts", "midpoints"])
+def test_fma_f32_rounds_once(kind):
+    """``ref.fma_f32`` (a run's start ``t0 + dt·k``, as the kernel's
+    ``__fmaf_rn`` rounds it) equals the exact product and sum rounded once,
+    bit for bit: on run starts drawn as the recorder makes them, and on
+    sums that land next to or on a float32 midpoint, where rounding twice
+    (to float64, then to float32) would go wrong."""
+    rng = np.random.default_rng(41)
+    f32 = lambda x: float(np.float32(x))  # noqa: E731
+    if kind == "starts":
+        cases = [(f32(rng.uniform(0, 10) * 10.0 ** rng.integers(-4, 3)),
+                  float(rng.integers(0, 5000)),
+                  f32(rng.uniform(-1, 1) * 10.0 ** rng.integers(-3, 7)))
+                 for _ in range(20000)]
+    else:
+        cases = []
+        for _ in range(10000):
+            a = f32(1 + int(rng.integers(1, 2 ** 12)) * 2.0 ** -23)
+            b = float(rng.integers(1, 2 ** 12))
+            cases += [(a, b, -f32(a * b)),
+                      (a, b, f32(-a * b + rng.standard_normal() * 1e-3))]
+        # 4,097 · (1 + 2^-12) − 4,098 is 2^-12; with the product rounded to
+        # float32 first it is 0
+        cases.append((f32(1 + 2.0 ** -12), 4097.0, -4098.0))
+    bad = [c for c in cases if TR.fma_f32(*c) != _fma_exact(*c)]
+    assert not bad, bad[:5]
+    assert TR.fma_f32(f32(1 + 2.0 ** -12), 4097.0, -4098.0) == 2.0 ** -12

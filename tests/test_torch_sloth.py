@@ -103,6 +103,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.launch.serve, repro_torch.models.transformer, "
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.kernels.ssd_scan.ops, repro_torch.core.campaign, "
+            "repro_torch.kernels.sketch_update.ops, "
+            "repro_torch.kernels.sketch_update.layout, "
             "repro_torch.core.streaming, repro_torch.mitigate, "
             "repro_torch.launch.campaign, repro_torch.launch.train, "
             "repro_torch.launch.steps, repro_torch.distributed.telemetry, "
@@ -173,3 +175,37 @@ def test_registry_resolves_sloth(pipelines):
     assert v.detector == "thres" and v.mesh is port.mesh
     assert (v.flagged, v.kind, v.location) == (True, "core", 5)
     assert v.matches(truth) and not v.matches(None)
+
+
+@pytest.mark.parametrize("case", ["mesh16", "torus16", "random",
+                                  "non_finite"])
+def test_em_link_inverse_bw_equals_reference_bit_for_bit(case):
+    """The port's EM (its sums over events taken over each link's events
+    only) returns the reference's dense EM's θ bit for bit: on the 16×16
+    pod's mesh and torus path matrices, on random 0/1 matrices, and with a
+    non-finite transfer size (where the port takes the dense sum)."""
+    from repro.core.detection import em_link_inverse_bw as ref_em
+    from repro_torch.core.detection import em_link_inverse_bw as port_em
+    rng = np.random.default_rng(["mesh16", "torus16", "random",
+                                 "non_finite"].index(case))
+    if case in ("mesh16", "torus16"):
+        mesh = build_topology(case[:-2], 16, 16)
+        pairs = [tuple(map(int, rng.choice(256, 2, replace=False)))
+                 for _ in range(3000)]
+        mats = [mesh.path_matrix(pairs)]
+    else:
+        mats = [(rng.random((int(rng.integers(50, 2000)),
+                             int(rng.integers(10, 400))))
+                 < rng.uniform(0.005, 0.1)).astype(np.float64)
+                for _ in range(8)]
+    for A in mats:
+        n = A.shape[0]
+        T = rng.random(n) * 1e-6
+        V = rng.random(n) * 1e4
+        W = rng.integers(1, 50, n).astype(np.float64)
+        if case == "non_finite":
+            V[int(rng.integers(n))] = np.inf
+        with np.errstate(invalid="ignore"):    # 0·inf in both
+            want = ref_em(A, T, V, W, 50e-9, 60)
+            got = port_em(A, T, V, W, 50e-9, 60)
+        assert np.array_equal(got, want, equal_nan=True)
